@@ -1,0 +1,16 @@
+"""quake_tpu_torch: the PyTorch and CUDA port of quake_tpu for one NVIDIA
+H100.
+
+Ported so far: `QuakeIndex.build` and the batched fixed-nprobe
+`QuakeIndex.search`, with the three kernels of that path (grouped scan, pool
+merge, parent ranking) as hand-written CUDA kernels in `csrc/`, built with
+nvcc for sm_90a at first use. Entry points run on the card unless the caller
+passes `device="cpu"`, where every kernel wrapper runs its plain PyTorch
+version. This package imports neither JAX nor quake_tpu.
+"""
+
+from quake_tpu_torch.convert import index_from_numpy
+from quake_tpu_torch.index import QuakeIndex
+from quake_tpu_torch.params import IndexBuildParams, SearchParams
+
+__all__ = ["QuakeIndex", "IndexBuildParams", "SearchParams", "index_from_numpy"]

@@ -1,0 +1,140 @@
+"""Build, load and count the package's CUDA kernels.
+
+The kernels live in ``csrc/*.cu`` behind a plain C interface: one
+``extern "C"`` launcher per kernel that takes raw device pointers and a stream
+and returns ``cudaGetLastError()``. At first use every source is compiled by
+its own ``nvcc`` process, all started together, for ``sm_90a``; the objects
+are linked into one shared library under ``quake_tpu_torch/_build/``, named by
+a hash of the sources and flags, and loaded with ``ctypes``. Nothing is built
+or loaded at import, so the CPU-only tests import every module freely.
+
+``launches`` counts the launches of each kernel. A wrapper adds one where it
+launches its kernel and nowhere else, so a run can show that its main path
+went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry -> argtypes; every entry returns a cudaError_t as int.
+_SIGNATURES = {
+    # gp, gsize, qg, codes, normsT, out, Gn, qt, D, C, kk, slot_mult, levels, stream
+    "qk_grouped_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
+    # keys, out, B, poolp, kfin, lane_mult, stream
+    "qk_merge_positions": (_P, _P, _I, _I, _I, _I, _P),
+    # q, codes2d, bias, out, B, N, D, k, is_l2, slot_mult, levels, stream
+    "qk_flat_topk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+}
+
+KERNELS = ("grouped_scan", "merge_positions", "flat_topk")
+launches = dict.fromkeys(KERNELS, 0)
+
+_lib = None
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [str(Path(home) / "bin" / "nvcc")] if home else []
+    candidates += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in candidates:
+        if c and Path(c).is_file():
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels are "
+                       "built at first use on a machine with the CUDA toolkit")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libquake_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu (one nvcc each, in parallel) and link the library.
+    Returns its path; a library already built from the same sources is
+    reused."""
+    out = library_path()
+    if out.is_file():
+        return out
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in _sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            objs.append(str(obj))
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for src, p in procs:
+            log, _ = p.communicate()
+            if p.returncode:
+                failed.append(f"{src.name}:\n{log}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        so = Path(tmp) / out.name
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", str(so)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(so, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            handle.qk_error_string.argtypes = (ctypes.c_int,)
+            handle.qk_error_string.restype = ctypes.c_char_p
+            _lib = handle
+    return _lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise when a launcher reported a CUDA error."""
+    if rc != 0:
+        msg = lib().qk_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

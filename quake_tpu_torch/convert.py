@@ -1,0 +1,51 @@
+"""Carry a store across from numpy arrays.
+
+`index_from_numpy` turns the arrays of an index's store and of its parent's
+store (`codes`, `ids`, `sizes`, `centroids`, `active`, `norms`, each a numpy
+array in the JAX package's layout) into a QuakeIndex of this package, so the
+two packages can run on one and the same store.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from quake_tpu_torch.index import QuakeIndex
+from quake_tpu_torch.params import check_metric
+from quake_tpu_torch.storage.store import PartitionStore, StoreState
+
+FIELDS = ("codes", "ids", "sizes", "centroids", "active", "norms")
+_DTYPES = dict(codes=np.float32, ids=np.int32, sizes=np.int32,
+               centroids=np.float32, active=np.bool_, norms=np.float32)
+
+
+def store_from_numpy(arrays: Mapping[str, np.ndarray], device) -> PartitionStore:
+    missing = [f for f in FIELDS if f not in arrays]
+    if missing:
+        raise ValueError(f"store arrays missing: {missing}")
+    t = {f: torch.from_numpy(np.array(arrays[f], dtype=_DTYPES[f])) for f in FIELDS}
+    P, C, D = t["codes"].shape
+    if (tuple(t["ids"].shape) != (P, C) or tuple(t["norms"].shape) != (P, C)
+            or tuple(t["sizes"].shape) != (P,) or tuple(t["active"].shape) != (P,)
+            or tuple(t["centroids"].shape) != (P, D)):
+        raise ValueError("store arrays disagree on P, C or D")
+    store = PartitionStore(D, device)
+    store.init_from_state(StoreState(**{f: v.to(store.device) for f, v in t.items()}))
+    return store
+
+
+def index_from_numpy(state: Mapping[str, np.ndarray],
+                     parent_state: Mapping[str, np.ndarray], metric: str = "l2",
+                     device=None) -> QuakeIndex:
+    """A two-level QuakeIndex over the given store arrays (index and flat
+    parent). device=None means CUDA, as for QuakeIndex."""
+    index = QuakeIndex(device=device)
+    index.metric = check_metric(metric)
+    index.store = store_from_numpy(state, index.device)
+    index.parent = QuakeIndex(level=1, device=index.device)
+    index.parent.metric = index.metric
+    index.parent.store = store_from_numpy(parent_state, index.device)
+    return index

@@ -1,0 +1,257 @@
+"""QuakeIndex: build and batched fixed-nprobe search (the main-path part of
+quake_tpu/index.py).
+
+A recursive two-level IVF structure, as in the reference orchestrator
+(src/cpp/include/quake_index.h:18-142, src/cpp/src/quake_index.cpp:29-288):
+`parent` is a flat QuakeIndex over the partition centroids. The compute runs
+as PyTorch and CUDA launches over the padded partition store on `device`;
+this class is the host-side control plane (validation, id bookkeeping,
+recursion, timing).
+
+What this package does not implement yet raises NotImplementedError naming
+the ROADMAP item that will lift it; nothing is silently skipped.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from quake_tpu_torch import coordinator
+from quake_tpu_torch.geometry import effective_dimension
+from quake_tpu_torch.kmeans import balance_clusters, kmeans_fit_assign
+from quake_tpu_torch.params import IndexBuildParams, SearchParams, check_metric
+from quake_tpu_torch.storage.store import PartitionStore
+from quake_tpu_torch.timing import BuildTimingInfo, SearchResult, SearchTimingInfo
+from quake_tpu_torch.utils import next_pow2, to_f32, to_i64
+
+INT32_MAX = np.iinfo(np.int32).max
+MIN_BATCH = 16  # smaller batches take the query-major path (not ported)
+
+
+def _now_us() -> int:
+    return int(time.perf_counter() * 1e6)
+
+
+def _now_ns() -> int:
+    return int(time.perf_counter() * 1e9)
+
+
+def resolve_device(device=None) -> torch.device:
+    """None means the CUDA card; raises when there is none."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("QuakeIndex(device=None) runs on CUDA, and no CUDA "
+                               "device is available; pass device='cpu' to use the "
+                               "plain PyTorch versions of the kernels")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet ({item})")
+
+
+class QuakeIndex:
+    """Dynamic IVF index: build plus batched fixed-nprobe search."""
+
+    def __init__(self, level: int = 0, device=None):
+        self.level = level
+        self.device = resolve_device(device)
+        self.metric: str = "l2"
+        self.store: Optional[PartitionStore] = None
+        self.parent: Optional["QuakeIndex"] = None
+        self.build_params: Optional[IndexBuildParams] = None
+        self.aps_dimension = 0  # effective dimension for the APS recall model
+
+    # ------------------------------------------------------------------ build
+
+    @staticmethod
+    def _check_build_params(bp: IndexBuildParams, n: int) -> None:
+        if bp.precision != "f32":
+            raise _not_ported(f"precision={bp.precision!r}",
+                              "ROADMAP Queue 1 item 8: bf16 and exact=False")
+        if bp.spill:
+            raise _not_ported("spill=True", "ROADMAP Queue 1 item 8: spill/dedup")
+        if bp.num_shards > 1 or bp.num_workers > 1:
+            raise _not_ported("num_shards/num_workers > 1",
+                              "ROADMAP Queue 1 item 11: parallel")
+        if bp.nlist > 1 and bp.calibrate_aps and n >= 10_000:
+            raise _not_ported("calibrate_aps=True (pass calibrate_aps=False)",
+                              "ROADMAP Queue 1 item 9: APS")
+        if bp.profile_maintenance_latency:
+            raise _not_ported("profile_maintenance_latency=True",
+                              "ROADMAP Queue 1 item 10: maintenance")
+        if bp.nlist > 1 and bp.parent_params is not None and bp.parent_params.nlist > 1:
+            raise _not_ported("a parent index that is itself an IVF",
+                              "ROADMAP Queue 1: multi-level parents")
+
+    def build(self, x, ids=None, build_params: Optional[IndexBuildParams] = None) -> BuildTimingInfo:
+        """Build the index (quake_index.cpp:29-90)."""
+        t0 = _now_us()
+        bp = build_params or IndexBuildParams()
+        self.metric = check_metric(bp.metric)
+        x = to_f32(x)
+        n, d = x.shape
+        self._check_build_params(bp, n)
+        self.build_params = bp
+        if bp.dimension and bp.dimension != d:
+            raise ValueError(f"dimension mismatch: params say {bp.dimension}, data is {d}")
+        bp.dimension = d
+        ids = np.arange(n, dtype=np.int64) if ids is None else to_i64(ids)
+        if ids.shape[0] != n:
+            raise ValueError("ids length must match number of vectors")
+        self._validate_new_ids(ids)
+
+        self.store = PartitionStore(d, self.device)
+        timing = BuildTimingInfo(n_vectors=n, n_clusters=max(bp.nlist, 1), d=d)
+        if bp.nlist > 1:
+            self.aps_dimension = effective_dimension(x)
+            t_train = _now_us()
+            centroids, assignments = kmeans_fit_assign(
+                torch.from_numpy(x).to(self.device), bp.nlist, metric=self.metric,
+                niter=bp.niter)
+            centroids_np = centroids.cpu().numpy()
+            assigns_np = assignments.cpu().numpy()
+            if bp.balance_partitions:
+                # Bound slab padding: split clusters above balance_factor x
+                # the mean (see kmeans.balance_clusters).
+                mean = max(n // max(bp.nlist, 1), 1)
+                cap = max(256, -(-int(bp.balance_factor * mean) // 128) * 128)
+                centroids_np, assigns_np = balance_clusters(x, centroids_np, assigns_np, cap)
+            nlist_final = centroids_np.shape[0]
+            timing.train_time_us = _now_us() - t_train
+            timing.n_clusters = nlist_final
+
+            t_assign = _now_us()
+            self.store.init_from_assignments(x, ids, centroids_np, assigns_np)
+            timing.assign_time_us = _now_us() - t_assign
+
+            # Recursive flat parent over the centroids (quake_index.cpp:57-61).
+            parent_bp = bp.parent_params or IndexBuildParams(metric=bp.metric, nlist=0)
+            parent_bp.metric = bp.metric
+            self.parent = QuakeIndex(level=self.level + 1, device=self.device)
+            self.parent.build(centroids_np, np.arange(nlist_final, dtype=np.int64), parent_bp)
+        else:
+            # Flat: one partition holding everything (quake_index.cpp:68-79).
+            if bp.spill:
+                raise ValueError("spill requires an IVF index (nlist > 1)")
+            self.store.init_single_partition(x, ids)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        timing.total_time_us = _now_us() - t0
+        return timing
+
+    def _validate_new_ids(self, ids: np.ndarray) -> None:
+        """partition_manager.cpp:163-184: unique, in range."""
+        if ids.size == 0:
+            return
+        if ids.min() < 0:
+            raise ValueError("vector ids must be non-negative")
+        if ids.max() >= INT32_MAX:
+            raise ValueError("vector ids must be < INT32_MAX")
+        if np.unique(ids).size != ids.size:
+            raise ValueError("duplicate ids in input")
+
+    # ----------------------------------------------------------------- search
+
+    def search(self, x, search_params: Optional[SearchParams] = None) -> SearchResult:
+        """Top-k search (quake_index.cpp:93-99, query_coordinator.cpp:612-657).
+
+        Timing phases:
+          buffer_init      = query validation + host->device copy
+          job_enqueue      = enqueueing the search's launches
+          job_wait         = device execution + the id copy back to the host
+          result_aggregate = the distance copy and conversion
+        """
+        t0 = _now_ns()
+        sp = search_params or SearchParams()
+        x = to_f32(x)
+        if x.ndim == 1:
+            x = x[None, :]
+        if x.shape[1] != self.d():
+            raise ValueError(f"query dimension {x.shape[1]} != index dimension {self.d()}")
+        q = torch.from_numpy(x).to(self.device)
+        t1 = _now_ns()
+        _, ids32, timing, dists = self._search_device_full(q, sp)
+        t2 = _now_ns()
+        ids_np = ids32.cpu().numpy().astype(np.int64)  # waits for the device
+        t3 = _now_ns()
+        dists_np = dists.cpu().numpy()
+        t4 = _now_ns()
+        timing.buffer_init_time_ns = t1 - t0
+        timing.job_enqueue_time_ns = t2 - t1
+        timing.job_wait_time_ns = t3 - t2
+        timing.result_aggregate_time_ns = t4 - t3
+        timing.total_time_ns = t4 - t0
+        return SearchResult(ids=ids_np, distances=dists_np, timing_info=timing)
+
+    def _check_search(self, B: int, sp: SearchParams) -> None:
+        if sp.recall_target > 0:
+            raise _not_ported("recall_target > 0 (APS)", "ROADMAP Queue 1 item 9: APS")
+        if not sp.exact_distances:
+            raise _not_ported("exact_distances=False",
+                              "ROADMAP Queue 1 item 8: bf16 and exact=False")
+        if self.parent is None:
+            raise _not_ported("flat-index search (nlist <= 1)",
+                              "ROADMAP Queue 1 item 2: flat scan")
+        if self.parent.parent is not None:
+            raise _not_ported("a parent index that is itself an IVF",
+                              "ROADMAP Queue 1: multi-level parents")
+        if B < MIN_BATCH or sp.batched_scan is False:
+            raise _not_ported(f"the query-major search (batches below {MIN_BATCH} "
+                              "queries, or batched_scan=False)",
+                              "ROADMAP Queue 1: _search_device for B < 16")
+
+    def _search_device_full(self, q: torch.Tensor, sp: SearchParams, stages=None):
+        """Fixed-nprobe search of a [B, D] f32 tensor on the index's device;
+        returns (scores, ids32, timing, distances) as device tensors, with
+        the launches enqueued and not waited for."""
+        B = int(q.shape[0])
+        self._check_search(B, sp)
+        k = max(int(sp.k), 1)
+        timing = SearchTimingInfo(n_queries=B, n_clusters=self.nlist(), search_params=sp)
+        parent_k = min(int(sp.nprobe), self.nlist())
+        qt = self._grouped_params(B, parent_k)
+        state = self.store.state
+        pstate = self.parent.store.state
+        scores, ids32, dists, _, _ = coordinator.fused_ivf_search(
+            state.codes, state.ids, state.sizes, state.norms,
+            pstate.codes, pstate.ids, q, k=k, nprobe=parent_k, metric=self.metric,
+            qt=qt, kernel=self._grouped_kernel(), parent_norms=pstate.norms,
+            stages=stages)
+        timing.partitions_scanned = parent_k
+        timing.parent_info = SearchTimingInfo(
+            n_queries=B, n_clusters=self.parent.nlist(),
+            partitions_scanned=self.parent.nlist())
+        return scores, ids32, timing, dists
+
+    def _grouped_kernel(self) -> str:
+        """The v11 grouped scan with the JAX package's groups-per-step rule.
+        gpb only pads the group count to a multiple (it sets the sort-key
+        bit budget and so the placement); kernel K1 runs one block per group
+        whatever it is. Where the JAX package's rule gives up on its Pallas
+        kernels (a slab too large for its fast memory), K1 still runs, at
+        gpb = 1."""
+        slab = self.store.C * self.d() * 4
+        gpb = max(1, min(4, (12 << 20) // max(2 * slab, 1)))
+        return f"v11g{gpb}"
+
+    def _grouped_params(self, B: int, parent_k: int) -> int:
+        """Query-tile height qt: tracks expected queries per partition,
+        a power of two in [8, 64] (the JAX package's rule)."""
+        return min(64, max(8, next_pow2(B * parent_k // max(self.nlist(), 1) or 1)))
+
+    # ------------------------------------------------------------- accessors
+
+    def ntotal(self) -> int:
+        return self.store.ntotal() if self.store else 0
+
+    def nlist(self) -> int:
+        return self.store.nlist() if self.store else 0
+
+    def d(self) -> int:
+        return self.store.d if self.store else 0

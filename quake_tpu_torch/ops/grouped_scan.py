@@ -1,0 +1,442 @@
+"""Partition-major grouped scan with the v11 placement epilogue — the
+counterpart of the main-path part of quake_tpu/ops/pallas_grouped.py.
+
+One call, `grouped_scan_v11`, turns probe lists into the per-query top-k:
+
+  prologue   global quantization bounds, queries pre-scaled and norms
+             pre-shifted so the kernel's key is one floor; groups from
+             `build_groups_scatter`
+  scan       kernel K1 (`grouped_scan_kernel`): per group, packed
+             key*slot_mult + lane values, fold-128 top-2, kk rounds
+  placement  one sort (sorted) or argsort (argsort) lands each query's
+             nprobe kernel rows contiguously
+  merge      kernel K2 (`merge_positions`): per-query pool merge to kfin
+             winner positions
+  rescore    exact f32 distances of the winners, final top-k
+
+K1 and K2 are CUDA kernels (csrc/quake_kernels.cu); each wrapper runs its
+plain PyTorch version on CPU tensors and launches the kernel on CUDA tensors.
+Selection is approximate at the fold-column level (at most two winners per
+fold column), as in the JAX package; parity tests assert row overlap.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from quake_tpu_torch import _ext
+from quake_tpu_torch.ops.grouped import build_groups_scatter, group_layout
+from quake_tpu_torch.ops.scan import NEG_INF, topk_stable
+
+FOLD = 128
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+
+
+def _mark(stages, name: str) -> None:
+    if stages is not None:
+        stages.mark(name)
+
+
+def fold_rounds(packed, k: int, fold: int = FOLD):
+    """Fold + max2 top-k rounds over a packed [R, C] matrix (plain version of
+    pallas_grouped.py::_v7_fold_rounds). Returns out [R, k] packed,
+    descending; -1 = none."""
+    R, C = packed.shape
+    m1 = packed[:, :fold]
+    m2 = torch.full((R, fold), -1.0, device=packed.device, dtype=torch.float32)
+    for s in range(1, C // fold):
+        seg = packed[:, s * fold:(s + 1) * fold]
+        m2 = torch.maximum(m2, torch.minimum(m1, seg))
+        m1 = torch.maximum(m1, seg)
+    out = torch.empty((R, k), device=packed.device, dtype=torch.float32)
+    for i in range(k):
+        best = m1.amax(dim=1, keepdim=True)
+        out[:, i:i + 1] = best
+        hit = m1 == best
+        m1 = torch.where(hit, m2, m1)
+        m2 = torch.where(hit, torch.full_like(m2, -1.0), m2)
+    return out
+
+
+def packed_params(C: int):
+    """(slot_mult, levels) of the packed key*slot_mult + lane encoding: the
+    largest key leaves every packed value below 2^24, exact in f32."""
+    slot_mult = max(1 << int(C - 1).bit_length(), 2)
+    return slot_mult, (1 << 24) // slot_mult - 2
+
+
+def global_bounds(qf, norms, metric: str, bounds: str = "analytic"):
+    """(gmin, grange) of the global quantization scale, worst-case bounds
+    from the batch max query norm and the store max vector norm. Only the
+    "analytic" bounds of the main path are ported."""
+    if bounds != "analytic":
+        raise NotImplementedError(
+            f"bounds={bounds!r}: only 'analytic' is ported (ROADMAP Queue 1: "
+            "remaining grouped-scan options)")
+    maxq2 = torch.sum(qf * qf, dim=1).max()
+    maxx2 = torch.clamp(norms.max(), min=1e-12)
+    maxqx = torch.sqrt(maxq2) * torch.sqrt(maxx2)
+    if metric == "l2":
+        gmax, gmin = maxq2, -(maxx2 + 2.0 * maxqx)
+    else:
+        gmax, gmin = maxqx, -maxqx
+    return gmin, torch.clamp(gmax - gmin, min=1e-20)
+
+
+# ---------------------------------------------------------------- kernel K1
+
+
+def grouped_scan_plain(gp, group_size, qg, codes, normsT, kk: int,
+                       slot_mult: int, levels: int, fold: int = FOLD,
+                       chunk: int = 256):
+    """Plain PyTorch version of kernel K1 (same inputs and outputs as
+    grouped_scan_kernel), computed `chunk` groups at a time."""
+    Gn, qt, D = qg.shape
+    P, C, _ = codes.shape
+    out = torch.full((Gn, qt, kk), -1.0, device=qg.device, dtype=torch.float32)
+    lane = torch.arange(C, device=qg.device)
+    for g0 in range(0, Gn, chunk):
+        sl = slice(g0, min(g0 + chunk, Gn))
+        size = group_size[sl]
+        alive = torch.nonzero(size > 0).flatten()
+        if alive.numel() == 0:
+            continue
+        p = gp[sl][alive].long()
+        prod = torch.bmm(qg[sl][alive], codes[p].transpose(1, 2))  # [a, qt, C]
+        qk = torch.clamp(torch.floor(prod - normsT[p][:, None, :]), 0.0, float(levels))
+        packed = qk * float(slot_mult) + lane.to(torch.float32)
+        ok = (lane[None, :] < size[alive][:, None].long())[:, None, :]
+        packed = torch.where(ok, packed, torch.full_like(packed, -1.0))
+        a = alive.numel()
+        out[g0 + alive] = fold_rounds(packed.reshape(a * qt, C), kk, fold).reshape(a, qt, kk)
+    return out
+
+
+def grouped_scan_kernel(gp, group_size, qg, codes, normsT, kk: int,
+                        slot_mult: int, levels: int, fold: int = FOLD):
+    """Kernel K1 (replaces pallas_grouped.py::_v9_kernel).
+
+    gp [Gn] int32 partition per group; group_size [Gn] int32 (<= 0: ghost);
+    qg [Gn, qt, D] f32 queries scaled by q_coef; codes [P, C, D] f32; normsT
+    [P, C] f32 norms shifted by gmin and scaled by ginv. Returns [Gn, qt, kk]
+    f32 packed key*slot_mult + lane per row, descending (-1 = none; ghost
+    groups are all -1)."""
+    Gn, qt, D = qg.shape
+    P, C, _ = codes.shape
+    if fold != FOLD or C % fold:
+        raise ValueError(f"grouped scan needs fold == 128 and C % 128 == 0 (C={C})")
+    if qg.device.type == "cpu":
+        return grouped_scan_plain(gp, group_size, qg, codes, normsT, kk,
+                                  slot_mult, levels, fold)
+    if qg.device.type != "cuda":
+        raise ValueError(f"grouped_scan_kernel: unsupported device {qg.device}")
+    if qt not in (8, 16, 32, 64):
+        raise ValueError(f"grouped_scan_kernel: qt must be 8, 16, 32 or 64 (qt={qt})")
+    Dp = -(-D // 4) * 4
+    if (qt * Dp + FOLD * (Dp + 1)) * 4 > SMEM_LIMIT:
+        raise ValueError(f"grouped_scan_kernel: D={D} at qt={qt} needs more shared "
+                         "memory than a block has")
+    for name, t, dtype, shape in (
+            ("gp", gp, torch.int32, (Gn,)),
+            ("group_size", group_size, torch.int32, (Gn,)),
+            ("qg", qg, torch.float32, (Gn, qt, D)),
+            ("codes", codes, torch.float32, (P, C, D)),
+            ("normsT", normsT, torch.float32, (P, C))):
+        if (t.device != qg.device or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"grouped_scan_kernel: {name} must be a contiguous "
+                             f"{dtype} {shape} tensor on {qg.device}")
+    out = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.float32)
+    rc = _ext.lib().qk_grouped_scan(
+        gp.data_ptr(), group_size.data_ptr(), qg.data_ptr(), codes.data_ptr(),
+        normsT.data_ptr(), out.data_ptr(), Gn, qt, D, C, kk,
+        float(slot_mult), float(levels), _ext.stream_ptr(qg.device))
+    _ext.check(rc, "grouped_scan")
+    _ext.launches["grouped_scan"] += 1
+    return out
+
+
+# ---------------------------------------------------------------- kernel K2
+
+
+def merge_positions_plain(keys, kfin: int, lane_mult: int, fold: int = FOLD):
+    """Plain PyTorch version of kernel K2 (same inputs and outputs as
+    merge_positions)."""
+    lane = torch.arange(keys.shape[1], device=keys.device, dtype=torch.float32)
+    packed = torch.where(keys >= 0.0, keys * float(lane_mult) + lane[None, :],
+                         torch.full_like(keys, -1.0))
+    out = fold_rounds(packed, kfin, fold)
+    pos = torch.remainder(out, float(lane_mult)).to(torch.int32)
+    return torch.where(out >= 0.0, pos, torch.full_like(pos, -1))
+
+
+def merge_positions(keys, kfin: int, lane_mult: int, fold: int = FOLD):
+    """Kernel K2 (replaces pallas_grouped.py::_merge_positions_kernel).
+
+    keys [B, poolp] f32 integer keys (-1 = empty), poolp % 128 == 0. Packs
+    key*lane_mult + lane, folds to 128 columns (top-2 each) and runs kfin
+    rounds. Returns winner positions [B, kfin] int32 (-1 = none)."""
+    B, poolp = keys.shape
+    if fold != FOLD or poolp % fold:
+        raise ValueError(f"merge_positions needs fold == 128 and poolp % 128 == 0 "
+                         f"(poolp={poolp})")
+    if keys.device.type == "cpu":
+        return merge_positions_plain(keys, kfin, lane_mult, fold)
+    if keys.device.type != "cuda":
+        raise ValueError(f"merge_positions: unsupported device {keys.device}")
+    if keys.dtype != torch.float32 or not keys.is_contiguous():
+        raise ValueError("merge_positions: keys must be a contiguous f32 tensor")
+    out = torch.empty((B, kfin), device=keys.device, dtype=torch.int32)
+    rc = _ext.lib().qk_merge_positions(keys.data_ptr(), out.data_ptr(), B, poolp,
+                                       kfin, int(lane_mult),
+                                       _ext.stream_ptr(keys.device))
+    _ext.check(rc, "merge_positions")
+    _ext.launches["merge_positions"] += 1
+    return out
+
+
+# ------------------------------------------------------------ epilogue tail
+
+
+def _flat_row_take(arr_pc, pid, slot):
+    """arr[pid, slot] for [P, C, ...] arrays through one flattened take."""
+    C = arr_pc.shape[1]
+    flat = arr_pc.reshape((-1,) + tuple(arr_pc.shape[2:]))
+    return flat[pid.long() * C + slot.long()]
+
+
+def exact_rescore(top_refs, codes, ids, norms, q, k: int, kfin: int,
+                  metric: str, pids):
+    """Exact rescore of (pid << 16 | slot) winners + reference padding.
+    Returns (scores [B, k] f32, ids [B, k] int32, scanned [B] int32)."""
+    # -1 refs read slot (0, 0); their results are masked below.
+    w_pid = torch.clamp(top_refs >> 16, min=0)
+    w_slot = torch.where(top_refs >= 0, top_refs & 0xFFFF, torch.zeros_like(top_refs))
+    vecs = _flat_row_take(codes, w_pid, w_slot).to(torch.float32)  # [B, kfin, D]
+    qf = q.to(torch.float32)
+    prod = torch.bmm(vecs, qf[:, :, None])[:, :, 0]
+    if metric == "l2":
+        exact = (2.0 * prod - torch.sum(qf * qf, dim=1, keepdim=True)
+                 - _flat_row_take(norms, w_pid, w_slot))
+    else:
+        exact = prod
+    top_ids = _flat_row_take(ids, w_pid, w_slot)
+    top_ids = torch.where(top_refs >= 0, top_ids, torch.full_like(top_ids, -1))
+    exact = torch.where(top_ids >= 0, exact, torch.full_like(exact, NEG_INF))
+    scores, order = topk_stable(exact, min(kfin, max(k, 1)))
+    out_ids = torch.gather(top_ids, 1, order)
+    scores, out_ids = scores[:, :k], out_ids[:, :k]
+    out_ids = torch.where(torch.isfinite(scores), out_ids, torch.full_like(out_ids, -1))
+    scores = torch.where(out_ids >= 0, scores, torch.full_like(scores, NEG_INF))
+    if scores.shape[1] < k:
+        padn = k - scores.shape[1]
+        scores = torch.nn.functional.pad(scores, (0, padn), value=NEG_INF)
+        out_ids = torch.nn.functional.pad(out_ids, (0, padn), value=-1)
+    scanned = torch.sum((pids >= 0).to(torch.int32), dim=1, dtype=torch.int32)
+    return scores, out_ids.to(torch.int32), scanned
+
+
+def rescore_topk(m_scores, m_refs, codes, ids, norms, q, k: int, metric: str,
+                 pids):
+    """General merge tail (pallas_grouped.py::_rescore_topk without dedup):
+    top-k by pool score, then the exact rescore of the winners."""
+    _, idx = topk_stable(m_scores, k)
+    top_refs = torch.gather(m_refs, 1, idx)
+    return exact_rescore(top_refs, codes, ids, norms, q, k,
+                         min(k, idx.shape[1]), metric, pids)
+
+
+def pool_keys(m_packed, slot_mult: int):
+    """Per-query merge pool of integer keys, padded to a 128 multiple:
+    returns (mk [B, poolp] f32, lane_mult)."""
+    pool = m_packed.shape[1]
+    m_keys = torch.where(m_packed >= 0.0, torch.floor(m_packed / float(slot_mult)),
+                         torch.full_like(m_packed, -1.0))
+    poolp = -(-pool // FOLD) * FOLD
+    mk = torch.nn.functional.pad(m_keys, (0, poolp - pool), value=-1.0)
+    return mk.contiguous(), max(poolp, 2)
+
+
+def pool_tail(m_packed, pid_cols, pids, codes, ids, norms, q, k: int, kk: int,
+              metric: str, slot_mult: int, levels: int, pool_factor: int = 1,
+              stages=None):
+    """Pool side of the v11 epilogues (pallas_grouped.py::_pool_tail, exact
+    and without dedup): key merge, winner ref derivation, exact rescore.
+    pid_cols [B, nprobe] maps pool column j -> j // kk -> the query's
+    partition (ascending pids for the sorted placement, probe order for
+    argsort); pids is only used for the scanned count."""
+    B, nprobe = pids.shape
+    pool = nprobe * kk
+    mk, lane_mult = pool_keys(m_packed, slot_mult)
+    if levels * lane_mult + lane_mult >= (1 << 24):
+        # General path: key*lane_mult + lane no longer fits 24 bits, so the
+        # pool is ranked by a top-k of the keys instead of kernel K2.
+        slot = torch.remainder(m_packed, float(slot_mult)).to(torch.int32)
+        pid_b = pid_cols[:, :, None].expand(B, nprobe, kk).reshape(B, pool)
+        ok = (m_packed >= 0.0) & (pid_b >= 0)
+        m_refs = torch.where(ok, (torch.clamp(pid_b, min=0) << 16) | slot,
+                             torch.full_like(slot, -1))
+        m_scores = torch.where(ok, mk[:, :pool], torch.full_like(m_packed, NEG_INF))
+        _mark(stages, "merge")
+        out = rescore_topk(m_scores, m_refs, codes, ids, norms, q, k, metric, pids)
+        _mark(stages, "rescore")
+        return out
+
+    kfin = min(pool_factor * k, pool)
+    pos = merge_positions(mk, kfin, lane_mult)
+    posc = torch.clamp(pos, 0, pool - 1).long()
+    pk = torch.gather(m_packed, 1, posc)
+    slot = torch.remainder(pk, float(slot_mult)).to(torch.int32)
+    wpid = torch.gather(pid_cols, 1, posc // kk)
+    valid = (pos >= 0) & (pk >= 0.0) & (wpid >= 0)
+    top_refs = torch.where(valid, (torch.clamp(wpid, min=0) << 16) | slot,
+                           torch.full_like(slot, -1))
+    _mark(stages, "merge")
+    out = exact_rescore(top_refs, codes, ids, norms, q, k, kfin, metric, pids)
+    _mark(stages, "rescore")
+    return out
+
+
+def _alive_rows(g_packed, group_size):
+    """[R, kk] kernel rows with ghost (size-0) groups masked to -1."""
+    Gn, qt, kk = g_packed.shape
+    alive = (group_size > 0)[:, None, None]
+    return torch.where(alive, g_packed, torch.full_like(g_packed, -1.0)).reshape(Gn * qt, kk)
+
+
+def sorted_placement(g_packed, tgt, group_size, pids):
+    """v11 SORTED placement (pallas_grouped.py::_sorted_epilogue): rows
+    sorted by the key (query << r_bits) | row land each query's nprobe rows
+    contiguously, in ascending-partition order. Returns (m_packed
+    [B, nprobe*kk], pid_cols = the per-query ascending pid sort)."""
+    B, nprobe = pids.shape
+    n = B * nprobe
+    rows = _alive_rows(g_packed, group_size)
+    R = rows.shape[0]
+    r_bits = max((R - 1).bit_length(), 1)
+    tgt_flat = tgt.reshape(-1).to(torch.int64)
+    iota = torch.arange(R, device=rows.device, dtype=torch.int64)
+    key2 = torch.where(tgt_flat < n, ((tgt_flat // nprobe) << r_bits) | iota,
+                       torch.full_like(iota, 0xFFFFFFFF))
+    ks = torch.sort(key2).values
+    r_sorted = (ks & ((1 << r_bits) - 1))[:n]
+    m_packed = rows[r_sorted].reshape(B, nprobe * rows.shape[1])
+    return m_packed, torch.sort(pids, dim=1).values
+
+
+def argsort_placement(g_packed, tgt, group_size, pids):
+    """v11 ARGSORT placement (pallas_grouped.py::_argsort_epilogue): under
+    dense fixed-nprobe semantics tgt covers [0, n) exactly once, so
+    argsort(tgt)[:n] is the row -> pair placement at any shape; the pool
+    lands in probe order (pid_cols = pids)."""
+    B, nprobe = pids.shape
+    n = B * nprobe
+    rows = _alive_rows(g_packed, group_size)
+    order = torch.argsort(tgt.reshape(-1), stable=True)[:n]
+    return rows[order].reshape(B, nprobe * rows.shape[1]), pids
+
+
+def sorted_epilogue(g_packed, tgt, group_size, pids, codes, ids, norms, q,
+                    k: int, kk: int, metric: str, slot_mult: int, levels: int,
+                    pool_factor: int = 1, stages=None):
+    m_packed, pid_cols = sorted_placement(g_packed, tgt, group_size, pids)
+    _mark(stages, "placement")
+    return pool_tail(m_packed, pid_cols, pids, codes, ids, norms, q, k, kk,
+                     metric, slot_mult, levels, pool_factor, stages)
+
+
+def argsort_epilogue(g_packed, tgt, group_size, pids, codes, ids, norms, q,
+                     k: int, kk: int, metric: str, slot_mult: int, levels: int,
+                     pool_factor: int = 1, stages=None):
+    m_packed, pid_cols = argsort_placement(g_packed, tgt, group_size, pids)
+    _mark(stages, "placement")
+    return pool_tail(m_packed, pid_cols, pids, codes, ids, norms, q, k, kk,
+                     metric, slot_mult, levels, pool_factor, stages)
+
+
+# ---------------------------------------------------------------- the scan
+
+
+def sort_key_fits(B: int, rows: int) -> bool:
+    """True when the sorted placement's key (query << r_bits) | row fits
+    uint32 strictly below the 0xFFFFFFFF invalid marker (the JAX package's
+    bit budget, kept so both packages place identically)."""
+    return max((rows - 1).bit_length(), 1) + max((B - 1).bit_length(), 1) < 32
+
+
+def v11_inputs(codes, sizes, norms, q, pids, k: int, metric: str, qt: int,
+               gpb: int, bounds: str = "analytic"):
+    """Prologue of grouped_scan_v11: everything kernel K1 and the placement
+    need. Returns a dict with gp, group_size, qg, normsT, tgt (padded to
+    Gn = ceil(G/gpb)*gpb groups), kk, slot_mult and levels."""
+    B, D = q.shape
+    P, C, _ = codes.shape
+    kk = min(k, C)
+    slot_mult, levels = packed_params(C)
+    qf = q.to(torch.float32)
+    gmin, grange = global_bounds(qf, norms, metric, bounds)
+    ginv = float(levels) / grange
+    q_coef = 2.0 * ginv if metric == "l2" else ginv
+    base = norms if metric == "l2" else torch.zeros_like(norms)
+    normsT = ((base + gmin) * ginv).contiguous()
+
+    group_pid, qlist, tgt = build_groups_scatter(pids, P, qt)
+    G = group_pid.shape[0]
+    Gn = -(-G // gpb) * gpb
+    pad = Gn - G
+    gp = torch.nn.functional.pad(group_pid, (0, pad), value=-1)
+    ql = torch.nn.functional.pad(qlist, (0, 0, 0, pad), value=-1)
+    tgt = torch.nn.functional.pad(tgt, (0, 0, 0, pad), value=B * pids.shape[1])
+    group_size = torch.where(gp >= 0, sizes[torch.clamp(gp, min=0).long()],
+                             torch.zeros_like(gp)).to(torch.int32)
+    safe_q = torch.clamp(ql, min=0).long()
+    qg = (qf * q_coef)[safe_q].contiguous()  # [Gn, qt, D]
+    return dict(gp=gp.contiguous(), group_size=group_size.contiguous(), qg=qg,
+                normsT=normsT, tgt=tgt, kk=kk, slot_mult=slot_mult, levels=levels)
+
+
+def grouped_scan_v11(codes, ids, sizes, norms, q, pids, k: int, metric: str,
+                     qt: int = 64, gpb: int = 4, fold: int = FOLD,
+                     dedup: bool = False, pool_factor: int = 1,
+                     bounds: str = "analytic", merge: str = "pallas",
+                     exact: bool = True, placement: str = "sorted",
+                     stages=None):
+    """v11 grouped scan (pallas_grouped.py::grouped_scan_pallas_v11): kernel
+    K1 with the sorted (or argsort) placement epilogue. DENSE-ONLY: every
+    pid must be valid (fixed-nprobe semantics).
+
+    codes [P, C, D] f32, ids [P, C] int32, sizes [P] int32, norms [P, C] f32,
+    q [B, D], pids [B, nprobe] int32. Returns (scores [B, k] f32, ids [B, k]
+    int32, scanned [B] int32). `stages`, when given, gets a mark() after each
+    stage (see quake_tpu_torch.profiling.StageTimer)."""
+    B, D = q.shape
+    P, C, _ = codes.shape
+    if dedup:
+        raise NotImplementedError("dedup (spilled stores): ROADMAP Queue 1 "
+                                  "item 8 (bf16, exact=False, spill/dedup)")
+    if not exact:
+        raise NotImplementedError("exact=False (dequantized scores): ROADMAP "
+                                  "Queue 1 item 8 (bf16, exact=False, spill/dedup)")
+    if merge != "pallas":
+        raise NotImplementedError(f"merge={merge!r}: only the kernel merge is ported")
+    if P >= 32768 or C > 65536:
+        raise ValueError("v11 packs (pid, slot) into int32: needs P < 32768, C <= 65536")
+    if fold != FOLD or C % fold:
+        raise ValueError(f"v11 needs fold == 128 and C % 128 == 0 (C={C}, fold={fold})")
+    if placement not in ("sorted", "argsort"):
+        raise ValueError(f"v11 placement must be 'sorted' or 'argsort', got {placement!r}")
+    G = group_layout(B, pids.shape[1], P, qt)
+    Gn = -(-G // gpb) * gpb
+    if placement == "sorted" and not sort_key_fits(B, Gn * qt):
+        raise ValueError(f"v11 sort key overflows uint32 (B={B}, rows={Gn * qt}); "
+                         "use placement='argsort'")
+    inp = v11_inputs(codes, sizes, norms, q, pids, k, metric, qt, gpb, bounds)
+    _mark(stages, "grouping")
+    kk, slot_mult, levels = inp["kk"], inp["slot_mult"], inp["levels"]
+    g_packed = grouped_scan_kernel(inp["gp"], inp["group_size"], inp["qg"], codes,
+                                   inp["normsT"], kk, slot_mult, levels, fold)
+    _mark(stages, "scan")
+    epilogue = sorted_epilogue if placement == "sorted" else argsort_epilogue
+    return epilogue(g_packed, inp["tgt"], inp["group_size"], pids, codes, ids,
+                    norms, q, k, kk, metric, slot_mult, levels, pool_factor,
+                    stages)

@@ -1,0 +1,104 @@
+"""quake_tpu_torch CUDA kernels against their plain PyTorch versions on the
+card. Marked `cuda`: they skip where there is no CUDA device. They import
+neither JAX nor the JAX package, so they also run on a machine without JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Tolerances: the pool merge (K2) is integer arithmetic and must be equal. K1
+and K3 quantize f32 dot products with floor(); the kernel sums in another
+order than torch.matmul, so a key can move by one level: they compare
+winner overlap >= 0.99, and keys of a common winner within one level.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from quake_tpu_torch import _ext
+from quake_tpu_torch.ops.flat_topk import flat_topk, flat_topk_plain
+from quake_tpu_torch.ops.grouped_scan import (grouped_scan_kernel, grouped_scan_plain,
+                                              merge_positions, merge_positions_plain,
+                                              packed_params)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _overlap(a, b):
+    tot = 0.0
+    for ra, rb in zip(a.tolist(), b.tolist()):
+        sa, sb = {v for v in ra if v >= 0}, {v for v in rb if v >= 0}
+        tot += len(sa & sb) / len(sb) if sb else float(not sa)
+    return tot / a.shape[0]
+
+
+@pytest.mark.parametrize("qt,D,C", [(8, 16, 128), (16, 13, 256), (32, 32, 384), (64, 128, 256)])
+def test_grouped_scan_kernel_matches_plain(dev, qt, D, C):
+    rng = np.random.default_rng(qt + D)
+    P, Gn, kk = 6, 20, 10
+    codes = torch.from_numpy(rng.standard_normal((P, C, D)).astype(np.float32)).to(dev)
+    sizes = torch.from_numpy(rng.integers(0, C + 1, P).astype(np.int32)).to(dev)
+    gp = torch.from_numpy(rng.integers(-1, P, Gn).astype(np.int32)).to(dev)
+    gsize = torch.where(gp >= 0, sizes[gp.clamp(min=0).long()], torch.zeros_like(gp))
+    slot_mult, levels = packed_params(C)
+    scale = levels / 200.0
+    qg = torch.from_numpy(rng.standard_normal((Gn, qt, D)).astype(np.float32) * scale).to(dev)
+    normsT = ((codes * codes).sum(-1) * 0.5 - 100.0) * scale
+    got = grouped_scan_kernel(gp, gsize.contiguous(), qg, codes, normsT.contiguous(), kk,
+                              slot_mult, levels)
+    want = grouped_scan_plain(gp, gsize, qg, codes, normsT, kk, slot_mult, levels)
+    torch.cuda.synchronize()
+    alive = gsize > 0
+    assert (got[~alive] == -1).all()
+    g, w = got[alive].reshape(-1, kk), want[alive].reshape(-1, kk)
+    gl = torch.where(g >= 0, torch.remainder(g, slot_mult), torch.full_like(g, -1))
+    wl = torch.where(w >= 0, torch.remainder(w, slot_mult), torch.full_like(w, -1))
+    assert _overlap(gl, wl) >= 0.99
+    # Where both pick the same lane, its key moved by at most one level.
+    same = (gl == wl) & (gl >= 0)
+    key_diff = (torch.floor(g / slot_mult) - torch.floor(w / slot_mult)).abs()
+    assert float(key_diff[same].max()) <= 1.0
+
+
+@pytest.mark.parametrize("poolp,kfin", [(128, 10), (256, 10), (1280, 20)])
+def test_merge_positions_kernel_matches_plain(dev, poolp, kfin):
+    rng = np.random.default_rng(poolp)
+    keys = rng.integers(-1, 500, size=(1000, poolp)).astype(np.float32)
+    keys[rng.random(keys.shape) < 0.4] = -1.0
+    keys = torch.from_numpy(keys).to(dev)
+    got = merge_positions(keys, kfin, poolp)
+    want = merge_positions_plain(keys, kfin, poolp)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("N,D", [(256, 128), (384, 13)])
+def test_flat_topk_kernel_matches_plain(dev, metric, N, D):
+    rng = np.random.default_rng(N + D)
+    B, k = 1000, 16
+    codes = torch.from_numpy(rng.standard_normal((N, D)).astype(np.float32)).to(dev)
+    q = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32)).to(dev)
+    ok = torch.arange(N, device=dev) < N - 30
+    base = -(codes * codes).sum(1) if metric == "l2" else torch.zeros(N, device=dev)
+    bias = torch.where(ok, base, torch.full_like(base, float("-inf"))).contiguous()
+    got = flat_topk(codes, bias, q, k, metric)
+    want = flat_topk_plain(codes, bias, q, k, metric)
+    torch.cuda.synchronize()
+    assert not (got >= N - 30).any()
+    assert _overlap(got, want) >= 0.99
+
+
+def test_launch_counts(dev):
+    _ext.reset_launches()
+    keys = torch.zeros((8, 128), device=dev)
+    merge_positions(keys, 4, 128)
+    merge_positions_plain(keys, 4, 128)
+    assert _ext.launches == {"grouped_scan": 0, "merge_positions": 1, "flat_topk": 0}

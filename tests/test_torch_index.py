@@ -1,0 +1,225 @@
+"""quake_tpu_torch end to end against the JAX package (CPU): k-means quality,
+the whole search slice on one shared store, the whole slice from each
+package's own build, and the scope guards.
+
+Tolerances: the search path quantizes f32 dot products and keeps at most two
+winners per fold column, exactly like the JAX path, but sums in another
+order; so results compare by id overlap (>= 0.99 on a shared store) and by
+recall (within 0.02 of the JAX package when each builds its own index,
+whose k-means draws different random numbers). k-means inertia is compared
+within 2% for the same reason.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from quake_tpu import IndexBuildParams as JaxBuildParams
+from quake_tpu import QuakeIndex as JaxIndex
+from quake_tpu import SearchParams as JaxSearchParams
+from quake_tpu.kmeans import kmeans_fit_assign as jax_kmeans
+from quake_tpu.ops.pallas_flat import parent_rank_pallas
+from quake_tpu.ops.pallas_grouped import grouped_scan_pallas_v11
+from quake_tpu.ops.scan import scores_to_distances as jax_scores_to_distances
+from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams, index_from_numpy
+from quake_tpu_torch import coordinator
+from quake_tpu_torch.kmeans import kmeans_fit_assign
+from quake_tpu_torch.utils import compute_recall, knn
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIELDS = ("codes", "ids", "sizes", "centroids", "active", "norms")
+
+
+def clustered(n, d, n_centers, seed):
+    rng = np.random.default_rng(99)
+    centers = rng.standard_normal((n_centers, d)).astype(np.float32) * 3.0
+    r = np.random.default_rng(seed)
+    return (centers[r.integers(0, n_centers, n)]
+            + r.standard_normal((n, d)).astype(np.float32))
+
+
+def _inertia(x, cents, assign, metric):
+    if metric == "l2":
+        return float(((x - cents[assign]) ** 2).sum())
+    return float(-(x * cents[assign]).sum())
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_kmeans_inertia_matches_jax(metric):
+    # Many more true centres than clusters: seed-to-seed spread of the
+    # inertia stays well below 1%, so 2% separates a fault from luck.
+    x = clustered(6000, 16, 200, seed=1)
+    jc, ja = jax_kmeans(jnp.asarray(x), 32, metric=metric, niter=10)
+    tc, ta = kmeans_fit_assign(torch.from_numpy(x), 32, metric=metric, niter=10)
+    ji = _inertia(x, np.asarray(jc), np.asarray(ja), metric)
+    ti = _inertia(x, tc.numpy(), ta.numpy(), metric)
+    assert abs(ti - ji) <= 0.02 * abs(ji), (ti, ji)
+    # Final assignment is the exact nearest centroid.
+    assert ta.shape == (6000,) and int(ta.max()) < 32
+    if metric == "ip":
+        np.testing.assert_allclose(np.linalg.norm(tc.numpy(), axis=1), 1.0, rtol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def jax_index():
+    x = clustered(20_000, 32, 200, seed=3)
+    idx = JaxIndex()
+    idx.build(x, np.arange(len(x)), JaxBuildParams(nlist=64, calibrate_aps=False))
+    q = clustered(64, 32, 200, seed=4)
+    return idx, x, q
+
+
+def _arrays(state):
+    return {f: np.asarray(getattr(state, f)) for f in FIELDS}
+
+
+def test_whole_slice_on_one_state(jax_index):
+    """The port's fused_ivf_search against the JAX main path composed of its
+    own kernels in interpret mode, on the same store."""
+    jidx, _, q = jax_index
+    k, nprobe = 10, 8
+    tidx = index_from_numpy(_arrays(jidx.store.state), _arrays(jidx.parent.store.state),
+                            "l2", device="cpu")
+    qt = tidx._grouped_params(len(q), nprobe)
+    gpb = int(tidx._grouped_kernel()[len("v11g"):])
+    st, pst = jidx.store.state, jidx.parent.store.state
+    qj = jnp.asarray(q)
+    pids = parent_rank_pallas(pst.codes, pst.ids, pst.norms, qj, nprobe, "l2",
+                              interpret=True)
+    pids = jnp.where(pids >= 0, pids, pids[:, :1])
+    s1, i1, _ = grouped_scan_pallas_v11(st.codes, st.ids, st.sizes, st.norms, qj, pids,
+                                        k, "l2", qt=qt, gpb=gpb, interpret=True)
+    d1 = np.asarray(jax_scores_to_distances(s1, i1, "l2"))
+
+    ts, pts = tidx.store.state, tidx.parent.store.state
+    _, i2, d2, scanned, pids2 = coordinator.fused_ivf_search(
+        ts.codes, ts.ids, ts.sizes, ts.norms, pts.codes, pts.ids, torch.from_numpy(q),
+        k=k, nprobe=nprobe, metric="l2", qt=qt, kernel=tidx._grouped_kernel(),
+        parent_norms=pts.norms)
+    i1, i2 = np.asarray(i1), i2.numpy()
+    overlap = np.mean([len(set(a) & set(b)) / k for a, b in zip(i1, i2)])
+    assert overlap >= 0.99, overlap
+    assert (scanned.numpy() == nprobe).all()
+    probe_overlap = np.mean([len(set(a) & set(b)) / nprobe
+                             for a, b in zip(np.asarray(pids), pids2.numpy())])
+    assert probe_overlap >= 0.99
+    same = i1 == i2
+    np.testing.assert_allclose(d2.numpy()[same], d1[same], rtol=1e-4, atol=1e-4)
+
+    # The user-facing search returns the same ids and reference layouts.
+    res = tidx.search(q, SearchParams(k=k, nprobe=nprobe))
+    np.testing.assert_array_equal(res.ids, i2.astype(np.int64))
+    assert res.ids.dtype == np.int64 and res.distances.dtype == np.float32
+    assert res.timing_info.partitions_scanned == nprobe
+    assert res.timing_info.total_time_ns > 0
+
+
+def test_whole_slice_from_own_build(jax_index):
+    jidx, x, q = jax_index
+    gt, _ = knn(q, x, 10)
+    tidx = QuakeIndex(device="cpu")
+    t = tidx.build(x, np.arange(len(x)), IndexBuildParams(nlist=64, calibrate_aps=False))
+    assert tidx.ntotal() == len(x) and tidx.d() == 32 and tidx.nlist() >= 64
+    assert t.n_clusters == tidx.nlist() and tidx.aps_dimension > 0
+    for nprobe in (4, 8):
+        rj = compute_recall(jidx.search(q, JaxSearchParams(k=10, nprobe=nprobe)).ids, gt, 10)
+        rt = compute_recall(tidx.search(q, SearchParams(k=10, nprobe=nprobe)).ids, gt, 10)
+        assert abs(rt - rj) <= 0.02, (nprobe, rt, rj)
+    # Full probe finds (almost) every true neighbour.
+    r_all = compute_recall(tidx.search(q, SearchParams(k=10, nprobe=tidx.nlist())).ids, gt, 10)
+    assert r_all >= 0.98
+
+
+def test_reference_kernel_is_exact_over_probed_partitions(jax_index):
+    _, x, q = jax_index
+    tidx = QuakeIndex(device="cpu")
+    tidx.build(x[:5000], None, IndexBuildParams(nlist=16, metric="ip", calibrate_aps=False))
+    st, pst = tidx.store.state, tidx.parent.store.state
+    qt = torch.from_numpy(q)
+    _, i1, _, _, _ = coordinator.fused_ivf_search(
+        st.codes, st.ids, st.sizes, st.norms, pst.codes, pst.ids, qt, k=10,
+        nprobe=tidx.nlist(), metric="ip", qt=8, kernel="reference", parent_norms=pst.norms)
+    gt, _ = knn(q, x[:5000], 10, metric="ip")
+    assert compute_recall(i1.numpy(), gt, 10) == 1.0
+
+
+def _small_index(**kw):
+    x = clustered(2000, 8, 20, seed=5)
+    idx = QuakeIndex(device="cpu")
+    idx.build(x, None, IndexBuildParams(nlist=8, calibrate_aps=False, **kw))
+    return idx, x
+
+
+@pytest.mark.parametrize("kw", [
+    dict(precision="bf16"), dict(spill=True), dict(num_shards=2), dict(num_workers=2),
+    dict(profile_maintenance_latency=True),
+    dict(parent_params=IndexBuildParams(nlist=4)),
+])
+def test_build_guards(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _small_index(**kw)
+
+
+def test_calibrate_aps_guard():
+    x = clustered(10_000, 8, 20, seed=5)
+    with pytest.raises(NotImplementedError, match="calibrate_aps"):
+        QuakeIndex(device="cpu").build(x, None, IndexBuildParams(nlist=8))
+
+
+@pytest.mark.parametrize("sp,nq", [
+    (SearchParams(k=5, nprobe=2, recall_target=0.9), 32),
+    (SearchParams(k=5, nprobe=2, exact_distances=False), 32),
+    (SearchParams(k=5, nprobe=2), 15),
+    (SearchParams(k=5, nprobe=2, batched_scan=False), 32),
+])
+def test_search_guards(sp, nq):
+    idx, x = _small_index()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        idx.search(x[:nq], sp)
+
+
+def test_flat_index_search_guard_and_dimension_check():
+    idx, x = _small_index()
+    with pytest.raises(ValueError, match="query dimension"):
+        idx.search(np.zeros((32, 3), np.float32), SearchParams(k=1))
+    flat = QuakeIndex(device="cpu")
+    flat.build(x, None, IndexBuildParams(nlist=0))
+    with pytest.raises(NotImplementedError, match="flat"):
+        flat.search(x[:32], SearchParams(k=1))
+
+
+def test_default_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        QuakeIndex()
+
+
+def test_kernel_wrappers_reject_other_devices():
+    from quake_tpu_torch.ops.grouped_scan import merge_positions
+
+    with pytest.raises(ValueError, match="unsupported device"):
+        merge_positions(torch.zeros((2, 128), device="meta"), 4, 128)
+
+
+def test_imports_without_jax():
+    """The port imports neither jax nor quake_tpu, in any module."""
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None
+        import quake_tpu_torch
+        for m in pkgutil.walk_packages(quake_tpu_torch.__path__, "quake_tpu_torch."):
+            importlib.import_module(m.name)
+        bad = [m for m in sys.modules if m == "quake_tpu" or m.startswith("quake_tpu.")
+               or m == "jax" and sys.modules[m] is not None]
+        assert not bad, bad
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

@@ -1,0 +1,221 @@
+"""quake_tpu_torch ops against the JAX package on the same inputs (CPU).
+
+The JAX side runs its Pallas kernels in interpret mode; the torch side runs
+the plain PyTorch versions of kernels K1-K3 (the wrappers take them for CPU
+tensors). Inputs come from numpy seeds and go to both packages as numpy.
+
+Tolerances: grouping and the pool merge are integer arithmetic and must be
+equal. The grouped scan and the parent ranking quantize f32 dot products
+with floor(), so a different order of summation can move a key by one level
+and swap a tie at the top-k boundary: those compare id overlap (>= 0.99)
+and the exact distances of common ids (rtol = atol = 1e-4).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from quake_tpu.ops.grouped import build_groups_scatter as jax_build_groups_scatter
+from quake_tpu.ops.pallas_flat import flat_topk_pallas, parent_rank_pallas
+from quake_tpu.ops.pallas_grouped import (_merge_positions_pallas,
+                                          grouped_scan_pallas_v11)
+from quake_tpu.ops.scan import merge_topk as jax_merge_topk
+from quake_tpu.ops.scan import scores_to_distances as jax_scores_to_distances
+from quake_tpu_torch.ops.flat_topk import flat_topk, parent_bias, parent_rank
+from quake_tpu_torch.ops.grouped import build_groups_scatter, group_layout
+from quake_tpu_torch.ops.grouped_scan import (fold_rounds, grouped_scan_v11,
+                                              merge_positions)
+from quake_tpu_torch.ops.scan import merge_topk, scores_to_distances, topk_stable
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _row_overlap(a, b):
+    """Mean over rows of |set(a_row) & set(b_row)| / |set(b_row)| (-1 ignored)."""
+    tot = 0.0
+    for ra, rb in zip(a, b):
+        sa, sb = set(ra[ra >= 0].tolist()), set(rb[rb >= 0].tolist())
+        tot += len(sa & sb) / max(len(sb), 1) if sb else float(not sa)
+    return tot / len(a)
+
+
+@pytest.mark.parametrize("B,nprobe,P,qt,seed", [
+    (12, 4, 8, 8, 0),
+    (40, 6, 16, 16, 1),
+    (64, 3, 128, 8, 2),
+])
+def test_build_groups_scatter_matches_jax(B, nprobe, P, qt, seed):
+    rng = np.random.default_rng(seed)
+    pids = rng.integers(-1, P, size=(B, nprobe)).astype(np.int32)
+    pids[0, 1] = pids[0, 0]  # duplicate probe
+    want = jax_build_groups_scatter(jnp.asarray(pids), P, qt)
+    got = build_groups_scatter(_t(pids), P, qt)
+    assert got[0].shape[0] == group_layout(B, nprobe, P, qt)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy())
+
+
+@pytest.mark.parametrize("poolp,kfin", [(128, 10), (256, 10), (384, 20)])
+def test_merge_positions_matches_pallas(poolp, kfin):
+    rng = np.random.default_rng(poolp)
+    B = 40
+    lane_mult = poolp
+    keys = rng.integers(-1, 200, size=(B, poolp)).astype(np.float32)
+    keys[rng.random((B, poolp)) < 0.3] = -1.0
+    keys[3] = -1.0  # an empty row
+    want = np.asarray(_merge_positions_pallas(jnp.asarray(keys), kfin, lane_mult, 128,
+                                              interpret=True))
+    got = merge_positions(_t(keys), kfin, lane_mult).numpy()
+    np.testing.assert_array_equal(want, got)
+
+
+def test_fold_rounds_two_winners_per_column():
+    """At most two winners per fold column: the third of a column is skipped
+    in favour of the next-ranked lane (the contract the kernels reproduce)."""
+    packed = torch.full((1, 256), -1.0)
+    packed[0, 0], packed[0, 128] = 10 * 256 + 0.0, 9 * 256 + 128.0
+    packed[0, 1] = 1 * 256 + 1.0
+    out = fold_rounds(packed, 3)
+    assert out.tolist() == [[2560.0, 2432.0, 257.0]]
+    packed = torch.full((1, 384), -1.0)
+    packed[0, 0], packed[0, 128], packed[0, 256] = 2560.0, 2432.0, 2304.0
+    assert fold_rounds(packed, 3).tolist() == [[2560.0, 2432.0, -1.0]]
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_flat_topk_matches_pallas(metric):
+    rng = np.random.default_rng(3)
+    N, D, B, k = 256, 16, 64, 8
+    codes = rng.standard_normal((N, D)).astype(np.float32)
+    ok = np.ones(N, bool)
+    ok[200:] = False
+    norms = (codes ** 2).sum(1)
+    bias = np.where(ok, -norms if metric == "l2" else 0.0, -np.inf).astype(np.float32)
+    q = rng.standard_normal((B, D)).astype(np.float32)
+    want = np.asarray(flat_topk_pallas(jnp.asarray(codes), jnp.asarray(bias),
+                                       jnp.asarray(q), k, metric, qt=8, interpret=True))
+    got = flat_topk(_t(codes), _t(bias), _t(q), k, metric).numpy()
+    assert got.shape == want.shape and got.dtype == np.int32
+    assert _row_overlap(got, want) >= 0.99
+    # Ranked: the first candidate is the true best where keys do not tie.
+    assert np.mean(got[:, 0] == want[:, 0]) >= 0.95
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_parent_rank_matches_pallas(metric):
+    rng = np.random.default_rng(10)
+    Pp, Cp, D, B, nprobe = 2, 128, 16, 40, 8
+    codes = rng.standard_normal((Pp, Cp, D)).astype(np.float32)
+    ids = np.arange(Pp * Cp, dtype=np.int32).reshape(Pp, Cp)
+    ids[1, 100:] = -1
+    codes[1, 100:] = 10.0  # poison padding slots
+    norms = (codes ** 2).sum(axis=2)
+    q = rng.standard_normal((B, D)).astype(np.float32)
+    want = np.asarray(parent_rank_pallas(jnp.asarray(codes), jnp.asarray(ids),
+                                         jnp.asarray(norms), jnp.asarray(q), nprobe,
+                                         metric, qt=8, interpret=True))
+    got = parent_rank(_t(codes), _t(ids), _t(norms), _t(q), nprobe, metric).numpy()
+    assert (got >= 0).all() and not np.isin(got, np.arange(228, 256)).any()
+    assert _row_overlap(got, want) >= 0.99
+    bias = parent_bias(_t(ids), _t(norms), metric).numpy()
+    assert np.isneginf(bias[228:]).all() and np.isfinite(bias[:228]).all()
+
+
+def _store(P, C, D, seed, sizes=None):
+    rng = np.random.default_rng(seed)
+    codes = rng.standard_normal((P, C, D)).astype(np.float32)
+    ids = np.arange(P * C, dtype=np.int32).reshape(P, C)
+    sizes = np.full(P, C, np.int32) if sizes is None else np.asarray(sizes, np.int32)
+    for p in range(P):
+        ids[p, sizes[p]:] = -1
+        codes[p, sizes[p]:] = 10.0  # poison: must never be selected
+    norms = (codes ** 2).sum(axis=2).astype(np.float32)
+    return codes, ids, sizes, norms
+
+
+def _compare_grouped(codes, ids, sizes, norms, q, pids, k, metric, qt, gpb,
+                     placement):
+    s1, i1, n1 = grouped_scan_pallas_v11(
+        jnp.asarray(codes), jnp.asarray(ids), jnp.asarray(sizes), jnp.asarray(norms),
+        jnp.asarray(q), jnp.asarray(pids), k, metric, qt=qt, gpb=gpb,
+        interpret=True, placement=placement)
+    s2, i2, n2 = grouped_scan_v11(_t(codes), _t(ids), _t(sizes), _t(norms), _t(q),
+                                  _t(pids), k, metric, qt=qt, gpb=gpb,
+                                  placement=placement)
+    s1, i1 = np.asarray(s1), np.asarray(i1)
+    s2, i2 = s2.numpy(), i2.numpy()
+    np.testing.assert_array_equal(np.asarray(n1), n2.numpy())
+    assert i2.dtype == np.int32 and s2.dtype == np.float32
+    assert _row_overlap(i2, i1) >= 0.99
+    for b in range(len(q)):  # exact distances of the ids both found
+        common = set(i1[b][i1[b] >= 0].tolist()) & set(i2[b][i2[b] >= 0].tolist())
+        for v in common:
+            a = s1[b][i1[b] == v][0]
+            c = s2[b][i2[b] == v][0]
+            np.testing.assert_allclose(c, a, rtol=1e-4, atol=1e-4)
+    d1 = np.asarray(jax_scores_to_distances(jnp.asarray(s1), jnp.asarray(i1), metric))
+    d2 = scores_to_distances(_t(s1), _t(i1), metric).numpy()
+    # XLA's CPU sqrt may differ from the correctly rounded one by an ulp.
+    np.testing.assert_allclose(d2, d1, rtol=1e-6, atol=0)
+    return i2
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("placement", ["sorted", "argsort"])
+def test_grouped_scan_v11_matches_pallas(metric, placement):
+    P, C, D, B, nprobe, k, qt = 8, 256, 16, 24, 4, 10, 8
+    sizes = [256, 200, 0, 17, 256, 130, 256, 90]  # a ghost and partial fills
+    codes, ids, sizes, norms = _store(P, C, D, seed=31, sizes=sizes)
+    rng = np.random.default_rng(32)
+    q = rng.standard_normal((B, D)).astype(np.float32)
+    pids = np.stack([rng.permutation(P)[:nprobe] for _ in range(B)]).astype(np.int32)
+    i2 = _compare_grouped(codes, ids, sizes, norms, q, pids, k, metric, qt, 2, placement)
+    for b in range(B):  # only resident vectors of probed partitions surface
+        allowed = ids[pids[b]]
+        got = i2[b][i2[b] >= 0]
+        assert np.isin(got, allowed[allowed >= 0]).all()
+
+
+def test_grouped_scan_v11_small_c_general_tail():
+    """C = 128 with nprobe*kk > 128: the packed pool key no longer fits 24
+    bits, so the tail ranks the pool with a top-k (the _rescore_topk
+    branch) instead of kernel K2."""
+    P, C, D, B, nprobe, k, qt = 16, 128, 16, 32, 16, 10, 16
+    codes, ids, sizes, norms = _store(P, C, D, seed=5,
+                                      sizes=np.random.default_rng(6).integers(60, 129, P))
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((B, D)).astype(np.float32)
+    pids = np.stack([rng.permutation(P)[:nprobe] for _ in range(B)]).astype(np.int32)
+    levels, poolp = (1 << 24) // 128 - 2, 256
+    assert levels * poolp + poolp >= 1 << 24
+    _compare_grouped(codes, ids, sizes, norms, q, pids, k, "l2", qt, 4, "sorted")
+
+
+def test_topk_stable_breaks_ties_low_index():
+    v, i = topk_stable(torch.tensor([[1.0, 3.0, 3.0, 2.0, 3.0]]), 3)
+    assert i.tolist() == [[1, 2, 4]] and v.tolist() == [[3.0, 3.0, 3.0]]
+
+
+def test_sorted_placement_key_overflow_raises():
+    codes, ids, sizes, norms = _store(8, 128, 4, seed=0)
+    q = torch.zeros((1 << 14, 4))
+    pids = torch.zeros((1 << 14, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="overflows uint32"):
+        grouped_scan_v11(_t(codes), _t(ids), _t(sizes), _t(norms), q, pids, 5, "l2",
+                         qt=8, gpb=1, placement="sorted")
+
+
+def test_merge_topk_matches_jax():
+    rng = np.random.default_rng(12)
+    sa = rng.standard_normal((20, 6)).astype(np.float32)
+    sb = rng.standard_normal((20, 9)).astype(np.float32)
+    sb[:, 5:] = -np.inf  # padding must surface as id -1
+    ia = rng.permutation(1000)[:120].reshape(20, 6).astype(np.int32)
+    ib = rng.permutation(1000)[:180].reshape(20, 9).astype(np.int32)
+    want = jax_merge_topk(*(jnp.asarray(a) for a in (sa, ia, sb, ib)), 12)
+    got = merge_topk(_t(sa), _t(ia), _t(sb), _t(ib), 12)
+    np.testing.assert_array_equal(np.asarray(want[0]), got[0].numpy())
+    np.testing.assert_array_equal(np.asarray(want[1]), got[1].numpy())
