@@ -7,9 +7,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. card    — needs torch.cuda; prints nvidia-smi's name and power limit.
 2. build   — compiles the CUDA kernels from quake_tpu_torch/csrc with nvcc.
-3. parity  — holds kernels K1 (grouped scan), K2 (pool merge) and K3 (parent
-             ranking) against their plain PyTorch versions on the card at
-             small shapes.
+3. parity  — holds kernels K1 (grouped scan), K2 (pool merge), K3 (parent
+             ranking), K4 (per-row-scale grouped scan, exact top-kk) and K5
+             (per-row-scale grouped scan, fold-128) against their plain
+             PyTorch versions on the card at small shapes.
 4. main    — the fixed-nprobe main path at full width: a 1,000,000 x 128
              synthetic-manifold corpus (seed 1), nlist=160, niter=25, l2, f32
              codes, built and searched through QuakeIndex. Recall@10 on 1024
@@ -18,11 +19,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
              placement) and B=4096 (sorted placement) are then timed with
              CUDA events, with a per-stage breakdown. The kernels' launch
              counts are zeroed just before this phase and read just after it.
-5. check   — the results are finite and of the expected shape, and a small
+5. by name — the grouped scans chosen by name through QUAKE_TPU_KERNEL
+             (v3p, v3p4, v7g4, v8g4, and v11g4f256, which lands on v3pN at
+             C % 256 != 0) on the main phase's index at its nprobe: recall@10
+             on the same 1024 queries (the per-row-scale paths at most 0.01
+             below the exact scan of the probed partitions, v8 within 0.005
+             of the v11 path), ms per B=16384 batch with a stage breakdown,
+             and each path's kernel launches (counts zeroed just before the
+             path, read just after).
+6. check   — the results are finite and of the expected shape, and a small
              index searched on the card agrees with the same store searched
-             on the CPU through the plain versions.
-6. kernels — each kernel against its plain version again, at the shapes the
-             main path gave it, with times and bounds.
+             on the CPU through the plain versions, for v11 and for each
+             name of phase 5.
+7. kernels — each kernel against its plain version again, at the shapes the
+             main path (K1-K3) and the by-name paths (K4 through v3p and
+             v3pN, K5 through v7, K1 through v8) gave it, with times and
+             bounds.
 
 Progress goes to stderr. Standard output holds three lines: the JSON list
 of kernels, the card's name and power limit, and last
@@ -32,6 +44,7 @@ of kernels, the card's name and power limit, and last
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -42,14 +55,43 @@ K, NLIST, NITER, N, D = 10, 160, 25, 1_000_000, 128
 NQ_GT, BATCH, BATCH_SORTED = 1024, 16384, 4096
 NPROBE_GRID = (9, 10, 11, 12, 14, 16, 24, 48)
 RECALL_GATE = 0.90
-OVERLAP_TOL = 0.99  # K1, K3: winner overlap with the plain version
+OVERLAP_TOL = 0.99  # K1, K3, K4, K5: winner overlap with the plain version
+STATS_TOL = 1e-4  # K4, K5 per-row (rowmin, range): rtol = atol (f32 sums in another order)
+# Recall@10 gates of the scans chosen by name. The global-scale key (v8)
+# must stay within V11_TOL of the v11 path, which quantizes the same way;
+# the per-row-scale keys (v3p, v3pN, v7) quantize each row on its own range
+# and must stay within EXACT_TOL of the exact scan of the same probed
+# partitions (their measured gap is 0.0046, see PERF.md).
+V11_TOL = 0.005
+EXACT_TOL = 0.01
+# Scan name -> (the kernels that path must launch besides K3 (parent
+# ranking), the recall it is held to: "exact" or "v11").
+BY_NAME = (("v3p", ("rowscale_topk",), "exact"), ("v3p4", ("rowscale_topk",), "exact"),
+           ("v7g4", ("rowscale_fold",), "exact"),
+           ("v8g4", ("grouped_scan", "merge_positions"), "v11"),
+           ("v11g4f256", ("rowscale_topk",), "exact"))
+MAIN_KERNELS = ("grouped_scan", "merge_positions", "flat_topk")
 F32_PEAK = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores (data sheet)
 HBM_RATE = 3.35e12  # H100 SXM bytes/s
-SOURCE = "quake_tpu_torch/csrc/quake_kernels.cu"
-REPLACES = {
-    "grouped_scan": "quake_tpu/ops/pallas_grouped.py:1180",
-    "merge_positions": "quake_tpu/ops/pallas_grouped.py:994",
-    "flat_topk": "quake_tpu/ops/pallas_flat.py:32",
+QUEUE_CYCLES = 50_000_000  # ~25 ms of spinning at the H100's clock: room to enqueue the reps
+# Entry of the kernels line -> (CUDA kernel, its source, the TPU kernel it
+# replaces). One entry per ported TPU kernel; _v8_kernel computes
+# _v9_kernel's function and runs on K1.
+ENTRIES = {
+    "grouped_scan": ("grouped_scan", "quake_tpu_torch/csrc/quake_kernels.cu",
+                     "quake_tpu/ops/pallas_grouped.py:1180"),
+    "merge_positions": ("merge_positions", "quake_tpu_torch/csrc/quake_kernels.cu",
+                        "quake_tpu/ops/pallas_grouped.py:994"),
+    "flat_topk": ("flat_topk", "quake_tpu_torch/csrc/quake_kernels.cu",
+                  "quake_tpu/ops/pallas_flat.py:32"),
+    "rowscale_topk/v3p": ("rowscale_topk", "quake_tpu_torch/csrc/grouped_rowscale.cu",
+                          "quake_tpu/ops/pallas_grouped.py:289"),
+    "rowscale_topk/v3pn": ("rowscale_topk", "quake_tpu_torch/csrc/grouped_rowscale.cu",
+                           "quake_tpu/ops/pallas_grouped.py:652"),
+    "rowscale_fold/v7": ("rowscale_fold", "quake_tpu_torch/csrc/grouped_rowscale.cu",
+                         "quake_tpu/ops/pallas_grouped.py:813"),
+    "grouped_scan/v8": ("grouped_scan", "quake_tpu_torch/csrc/quake_kernels.cu",
+                        "quake_tpu/ops/pallas_grouped.py:1051"),
 }
 
 
@@ -81,11 +123,17 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
-def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
-    """Mean device time of fn() over reps launches (CUDA events)."""
+def time_ms(torch, fn, reps: int = 10, warmup: int = 2, queued: bool = True) -> float:
+    """Mean device time of fn() over reps launches (CUDA events). With
+    queued, the card first spins for QUEUE_CYCLES while the host enqueues
+    the reps, so a launch whose host side outlasts its kernel is timed by
+    the device alone; without it, the time is paced by the host where the
+    host is slower."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(QUEUE_CYCLES)
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
@@ -152,6 +200,57 @@ def phase_small_parity(torch, dev):
     k3 = compare_k3(torch, flat_topk, flat_topk_plain, cb, bias, qb, 16, "l2")
     log(f"[parity small] K1 overlap={k1[0]:.4f} max_key_diff={k1[1]}; K2 equal; "
         f"K3 overlap={k3[0]:.4f} max_key_diff={k3[1]}")
+    # K4 at odd C and C % 128 == 0, K5 at C % 128 == 0: ghost groups, an empty
+    # partition, one-lane rows, partitions below kk.
+    worst = [1.0, 0.0, 0.0]
+    for select, C in (("topk", 200), ("topk", 384), ("fold", 384)):
+        codes = torch.from_numpy(rng.standard_normal((P, C, Dm)).astype(np.float32)).to(dev)
+        norms = (codes * codes).sum(-1).contiguous()
+        for qt, kk in ((8, 10), (64, 10), (8, 100), (64, 100)):
+            sizes = torch.tensor([C, C - 70, 0, 1, kk // 2, 150], dtype=torch.int32, device=dev)
+            gsize = torch.where(gp >= 0, sizes[gp.clamp(min=0).long()], torch.zeros_like(gp))
+            qg = torch.from_numpy(rng.standard_normal((Gn, qt, Dm)).astype(np.float32)).to(dev)
+            slot_mult, levels = packed_params(C)
+            for metric in ("l2", "ip"):
+                r = compare_rowscale(torch, (gp, gsize.contiguous(), qg, codes, norms, kk,
+                                             slot_mult, levels, metric, select))
+                worst = [min(worst[0], r[0]), max(worst[1], r[1]), max(worst[2], r[2])]
+    log(f"[parity small] K4/K5 (C in 200, 384; qt in 8, 64; kk in 10, 100; l2, ip): "
+        f"min overlap={worst[0]:.4f} max_key_diff={worst[1]} max_stats_err={worst[2]:.3g}")
+
+
+def compare_rowscale(torch, args):
+    """K4 or K5 (args[-1] selects) against its plain version: winner overlap,
+    key difference of common winners, ghost groups, stats."""
+    from quake_tpu_torch.ops.grouped_family import rowscale_scan, rowscale_scan_plain
+
+    gsize, kk, slot_mult, select = args[1], args[5], args[6], args[-1]
+    what = "K4" if select == "topk" else "K5"
+    got, got_stats = rowscale_scan(*args)
+    want, want_stats = rowscale_scan_plain(*args)
+    torch.cuda.synchronize()
+    alive = gsize > 0
+    ghost_ok = (bool((got[~alive] == -1).all()) and bool((got_stats[~alive][:, :, 0] == 0).all())
+                and bool((got_stats[~alive][:, :, 1] == np.float32(1e-20)).all()))
+    if not ghost_ok:
+        raise AssertionError(f"{what}: ghost groups must write -1 and stats (0, 1e-20)")
+    stats_err = float(((got_stats - want_stats).abs()
+                       / (STATS_TOL + STATS_TOL * want_stats.abs())).max())
+    if stats_err > 1.0:
+        raise AssertionError(f"{what}: stats beyond rtol = atol = {STATS_TOL} "
+                             f"(worst error / tolerance {stats_err})")
+    g, w = got[alive].reshape(-1, kk), want[alive].reshape(-1, kk)
+    lanes = [torch.where(t >= 0, torch.remainder(t, slot_mult), torch.full_like(t, -1))
+             for t in (g, w)]
+    ov = overlap(lanes[0], lanes[1])
+    same = (lanes[0] == lanes[1]) & (lanes[0] >= 0)
+    kd = (torch.floor(g / slot_mult) - torch.floor(w / slot_mult)).abs()
+    max_kd = float(kd[same].max()) if bool(same.any()) else 0.0
+    if ov < OVERLAP_TOL or max_kd > 1.0:
+        raise AssertionError(f"{what} disagrees with its plain version: overlap {ov}, "
+                             f"key difference {max_kd}")
+    max_abs = float((got_stats - want_stats).abs().max())
+    return ov, max_kd, max_abs
 
 
 def compare_k1(torch, kernel, plain, gp, gsize, qg, codes, normsT, kk, slot_mult, levels):
@@ -271,7 +370,72 @@ def phase_main(torch, dev, x, queries):
                             placement=placement, qt=qt, stages_ms=stages)
         log(f"[main] B={B} ({placement} placement, qt={qt}): {ms:.3f} ms/batch, {B / (ms / 1e3):,.0f} QPS, recall(first "
             f"1024)={r_b:.4f}, stages(ms)={json.dumps({k: round(v, 4) for k, v in stages.items()})}")
-    return idx, out
+    return idx, out, gt
+
+
+def phase_by_name(torch, dev, idx, queries, gt, nprobe, recall_v11):
+    """Each scan of BY_NAME through QUAKE_TPU_KERNEL, on the main index at
+    the main nprobe: recall@10 on the ground-truth queries, ms per B=16384
+    batch and stages, and the path's launches (zeroed just before the path
+    runs, read just after). The "reference" scan (exact top-k over the same
+    probed partitions) gives the recall ceiling. Fails if the path's
+    kernels did not launch, if another scan kernel did, or if recall misses
+    the path's gate: within EXACT_TOL below the ceiling, or within V11_TOL
+    of the v11 path."""
+    import os
+
+    from quake_tpu_torch import SearchParams, _ext
+    from quake_tpu_torch.profiling import StageTimer
+    from quake_tpu_torch.utils import compute_recall
+
+    sp = SearchParams(k=K, nprobe=nprobe)
+    qd = torch.from_numpy(queries[:BATCH]).to(dev)
+    scan_kernels = {"grouped_scan", "merge_positions", "rowscale_topk", "rowscale_fold"}
+    if idx.store.C % 256 == 0:
+        raise AssertionError(f"C={idx.store.C}: v11g4f256 was expected to fall back to v3pN")
+    os.environ["QUAKE_TPU_KERNEL"] = "reference"
+    try:
+        ceiling = compute_recall(idx.search(queries[:NQ_GT], sp).ids, gt, K)
+    finally:
+        del os.environ["QUAKE_TPU_KERNEL"]
+    log(f"[by name] reference (exact scan of the probed partitions): recall@10={ceiling:.4f}")
+    out = {"reference": dict(recall=ceiling)}
+    for name, kernels, gate in BY_NAME:
+        os.environ["QUAKE_TPU_KERNEL"] = name
+        try:
+            torch.cuda.synchronize()
+            _ext.reset_launches()
+            res = idx.search(queries[:NQ_GT], sp)
+            ms = time_ms(torch, lambda: idx._search_device_full(qd, sp), reps=5)
+            timer = StageTimer(dev)
+            for _ in range(3):
+                idx._search_device_full(qd, sp, stages=timer)
+            _, ids32, _, dists = idx._search_device_full(qd, sp)
+            torch.cuda.synchronize()
+            launches = dict(_ext.launches)
+        finally:
+            del os.environ["QUAKE_TPU_KERNEL"]
+        r = compute_recall(res.ids, gt, K)
+        stages = timer.mean_ms()
+        log(f"[by name] {name}: recall@10={r:.4f} (v11 {recall_v11:.4f}, exact "
+            f"{ceiling:.4f}), {ms:.3f} ms/batch "
+            f"(B={BATCH}), {BATCH / (ms / 1e3):,.0f} QPS, stages(ms)="
+            f"{json.dumps({k: round(v, 4) for k, v in stages.items()})}, launches {launches}")
+        ran = {k for k in scan_kernels if launches[k] > 0}
+        if ran != set(kernels) or launches["flat_topk"] <= 0:
+            raise AssertionError(f"{name}: expected the kernels {sorted(kernels)} and "
+                                 f"flat_topk to launch, got {launches}")
+        if ids32.shape != (BATCH, K) or bool((ids32 < 0).any()) or not bool(torch.isfinite(dists).all()):
+            raise AssertionError(f"{name}: expected {K} ids and finite distances per query")
+        if gate == "exact" and r < ceiling - EXACT_TOL:
+            raise AssertionError(f"{name}: recall@10 {r} is more than {EXACT_TOL} below "
+                                 f"the exact scan's {ceiling}")
+        if gate == "v11" and abs(r - recall_v11) > V11_TOL:
+            raise AssertionError(f"{name}: recall@10 {r} is not within {V11_TOL} of the "
+                                 f"v11 path's {recall_v11}")
+        out[name] = dict(recall=r, ms=ms, qps=BATCH / (ms / 1e3), stages_ms=stages,
+                         launches=launches)
+    return out
 
 
 def phase_small_reference(torch, dev):
@@ -288,26 +452,61 @@ def phase_small_reference(torch, dev):
               for s in (idx, idx.parent)]
     cpu = index_from_numpy(arrays[0], arrays[1], "l2", device="cpu")
     sp = SearchParams(k=K, nprobe=8)
-    a, b = idx.search(q, sp), cpu.search(q, sp)
-    ov = overlap(torch.from_numpy(a.ids), torch.from_numpy(b.ids))
-    if ov < OVERLAP_TOL:
-        raise AssertionError(f"card and CPU searches disagree: overlap {ov}")
-    log(f"[check] small index, card vs CPU plain path: id overlap {ov:.4f}")
-    return ov
+    # The C % fold fallback needs a fold that does not divide this store's C.
+    fold = 256
+    while idx.store.C % fold == 0:
+        fold *= 2
+    names = [None] + [n.replace("f256", f"f{fold}") for n, _, _ in BY_NAME]
+    worst = 1.0
+    for name in names:
+        if name is not None:
+            os.environ["QUAKE_TPU_KERNEL"] = name
+        try:
+            a, b = idx.search(q, sp), cpu.search(q, sp)
+        finally:
+            os.environ.pop("QUAKE_TPU_KERNEL", None)
+        ov = overlap(torch.from_numpy(a.ids), torch.from_numpy(b.ids))
+        if ov < OVERLAP_TOL:
+            raise AssertionError(f"{name or 'v11'}: card and CPU searches disagree: overlap {ov}")
+        worst = min(worst, ov)
+        log(f"[check] small index (C={idx.store.C}), {name or 'v11 (default)'}, card vs CPU "
+            f"plain path: id overlap {ov:.4f}")
+    return worst
 
 
-def phase_kernels(torch, dev, idx, queries, nprobe, launches):
-    """Each kernel against its plain version at the main path's shapes, with
-    times and bounds."""
+def scan_bound(st, gp, gsize, real_q, qg, qt, kk, D, extra_out=0):
+    """Least time of one grouped-scan pass (K1, K4, K5): bytes = the query
+    tiles, the 128-row segments of the probed partitions that hold vectors
+    and their norms, gp and sizes, the output; flops = 2 D (real query rows
+    x partition size) summed over the live groups. Returns (bound, live
+    groups, scanned rows)."""
+    gs = gsize.long()
+    alive = gs > 0
+    used = gp[alive].long().unique()
+    read_rows = int((((st.sizes[used].long() + 127) // 128) * 128).sum())
+    flops = 2.0 * D * float((real_q[alive] * gs[alive]).sum())
+    nbytes = (qg.numel() * 4 + read_rows * (D + 1) * 4 + gp.numel() * 8
+              + gp.numel() * qt * kk * 4 + extra_out)
+    return bound(nbytes, flops), int(alive.sum()), int((((gs + 127) // 128) * 128)[alive].sum())
+
+
+def phase_kernels(torch, dev, idx, queries, nprobe, launches, by_name):
+    """Each kernel against its plain version at the shapes of the path it
+    runs on, with times and bounds: K1-K3 on the main (v11) path, K4 through
+    v3p and v3pN, K5 through v7 and K1 through v8 on the by-name paths."""
     from quake_tpu_torch.coordinator import rank_parents
     from quake_tpu_torch.ops.flat_topk import flat_topk, flat_topk_plain, parent_bias
-    from quake_tpu_torch.ops.grouped_scan import (argsort_placement, grouped_scan_kernel,
-                                                  grouped_scan_plain, merge_positions,
-                                                  merge_positions_plain, pool_keys, v11_inputs)
+    from quake_tpu_torch.ops.grouped import build_groups
+    from quake_tpu_torch.ops.grouped_family import rowscale_scan, rowscale_scan_plain
+    from quake_tpu_torch.ops.grouped_scan import (argsort_placement, global_scale,
+                                                  grouped_scan_kernel, grouped_scan_plain,
+                                                  merge_positions, merge_positions_plain,
+                                                  pad_groups, pool_keys, v11_inputs)
 
     st, pst = idx.store.state, idx.parent.store.state
     q = torch.from_numpy(queries[:BATCH]).to(dev)
     rows = []
+    k1_tol = f"winner overlap >= {OVERLAP_TOL}, common keys within 1 level"
 
     # K3 at the parent ranking's shape.
     Pp, Cp, Dd = pst.codes.shape
@@ -318,7 +517,7 @@ def phase_kernels(torch, dev, idx, queries, nprobe, launches):
     b3 = bound((q.numel() + codes2d.numel() + bias.numel() + BATCH * nprobe) * 4,
                2.0 * BATCH * n_valid * Dd)
     rows.append(dict(name="flat_topk", tol=f"winner overlap >= {OVERLAP_TOL}", overlap=ov3,
-                     max_abs_err=kd3,
+                     max_abs_err=kd3, launches=launches["flat_topk"],
                      ms=time_ms(torch, lambda: flat_topk(codes2d, bias, q, nprobe, "l2")),
                      plain_ms=time_ms(torch, lambda: flat_topk_plain(codes2d, bias, q, nprobe, "l2")),
                      bound=b3))
@@ -329,49 +528,86 @@ def phase_kernels(torch, dev, idx, queries, nprobe, launches):
     qt = idx._grouped_params(BATCH, nprobe)
     gpb = int(idx._grouped_kernel()[len("v11g"):])
     inp = v11_inputs(st.codes, st.sizes, st.norms, q, pids, K, "l2", qt, gpb)
-    args = (inp["gp"], inp["group_size"], inp["qg"], st.codes, inp["normsT"], inp["kk"],
-            inp["slot_mult"], inp["levels"])
+    kk, slot_mult, levels = inp["kk"], inp["slot_mult"], inp["levels"]
+    args = (inp["gp"], inp["group_size"], inp["qg"], st.codes, inp["normsT"], kk, slot_mult,
+            levels)
     ov1, kd1 = compare_k1(torch, grouped_scan_kernel, grouped_scan_plain, *args)
-    gs = inp["group_size"].long()
-    alive = gs > 0
-    seg_rows = ((gs + 127) // 128) * 128
-    used = torch.unique(inp["gp"][alive].long())
-    read_rows = int((((st.sizes[used].long() + 127) // 128) * 128).sum())
     real_q = (inp["tgt"] < BATCH * nprobe).sum(1)  # query rows that are real pairs
-    flops1 = 2.0 * Dd * float((real_q[alive] * gs[alive]).sum())
-    bytes1 = (inp["qg"].numel() * 4 + read_rows * (Dd + 1) * 4 + inp["gp"].numel() * 8
-              + inp["gp"].numel() * qt * inp["kk"] * 4)
-    rows.append(dict(name="grouped_scan", tol=f"winner overlap >= {OVERLAP_TOL}", overlap=ov1,
-                     max_abs_err=kd1, ms=time_ms(torch, lambda: grouped_scan_kernel(*args)),
+    b1, groups, scanned = scan_bound(st, inp["gp"], inp["group_size"], real_q, inp["qg"], qt,
+                                     kk, Dd)
+    rows.append(dict(name="grouped_scan", tol=k1_tol, overlap=ov1, max_abs_err=kd1,
+                     launches=launches["grouped_scan"],
+                     ms=time_ms(torch, lambda: grouped_scan_kernel(*args)),
                      plain_ms=time_ms(torch, lambda: grouped_scan_plain(*args), reps=2, warmup=1),
-                     bound=bound(bytes1, flops1),
-                     groups=int(alive.sum()), scanned_rows=int(seg_rows[alive].sum())))
+                     bound=b1, groups=groups, scanned_rows=scanned))
 
-    # K2 at the pool merge's shape (argsort placement of the B=16384 batch).
+    # K2 at the pool merge's shape (argsort placement of the B=16384 batch);
+    # the library call is a top-k of the same keys.
     g_packed = grouped_scan_kernel(*args)
     m_packed, _ = argsort_placement(g_packed, inp["tgt"], inp["group_size"], pids)
-    mk, lane_mult = pool_keys(m_packed, inp["slot_mult"])
+    mk, lane_mult = pool_keys(m_packed, slot_mult)
     kfin = min(K, m_packed.shape[1])
     compare_k2(torch, merge_positions, merge_positions_plain, mk, kfin, lane_mult)
     bytes2 = (mk.numel() + BATCH * kfin) * 4
     rows.append(dict(name="merge_positions", tol="equal", overlap=1.0, max_abs_err=0.0,
+                     launches=launches["merge_positions"],
                      ms=time_ms(torch, lambda: merge_positions(mk, kfin, lane_mult)),
+                     paced_ms=time_ms(torch, lambda: merge_positions(mk, kfin, lane_mult),
+                                      queued=False),
                      plain_ms=time_ms(torch, lambda: merge_positions_plain(mk, kfin, lane_mult)),
+                     library_ms=time_ms(torch, lambda: torch.topk(mk, kfin, dim=1)),
                      bound=bound(bytes2, 0.0)))
+
+    # K4 (v3p: one group a step; v3pN: gpb 4) and K5 (v7, gpb 4) at the
+    # by-name paths' shapes: unscaled queries, raw norms.
+    group_pid, qlist, _, _ = build_groups(pids, st.codes.shape[0], qt)
+    for entry, path, gpb_n, select in (("rowscale_topk/v3p", "v3p", 1, "topk"),
+                                       ("rowscale_topk/v3pn", "v3p4", 4, "topk"),
+                                       ("rowscale_fold/v7", "v7g4", 4, "fold")):
+        gp, ql, gsize, safe_q = pad_groups(group_pid, qlist, st.sizes, gpb_n)
+        rargs = (gp, gsize, q[safe_q].contiguous(), st.codes, st.norms, kk, slot_mult, levels,
+                 "l2", select)
+        ov, kd, serr = compare_rowscale(torch, rargs)
+        b, groups, scanned = scan_bound(st, gp, gsize, (ql >= 0).sum(1), rargs[2], qt, kk, Dd,
+                                        extra_out=gp.numel() * qt * 2 * 4)
+        rows.append(dict(name=entry, tol=f"{k1_tol}, stats rtol = atol = {STATS_TOL}",
+                         overlap=ov, max_abs_err=kd, stats_err=serr,
+                         launches=by_name[path]["launches"][ENTRIES[entry][0]],
+                         ms=time_ms(torch, lambda: rowscale_scan(*rargs), reps=5),
+                         plain_ms=time_ms(torch, lambda: rowscale_scan_plain(*rargs), reps=2,
+                                          warmup=1),
+                         bound=b, groups=groups, scanned_rows=scanned))
+
+    # K1 through v8 (build_groups, gpb 4, global-scale queries and norms).
+    gp, ql, gsize, safe_q = pad_groups(group_pid, qlist, st.sizes, 4)
+    q_scaled, normsT = global_scale(q, st.norms, "l2", levels)
+    args8 = (gp, gsize, q_scaled[safe_q].contiguous(), st.codes, normsT, kk, slot_mult, levels)
+    ov8, kd8 = compare_k1(torch, grouped_scan_kernel, grouped_scan_plain, *args8)
+    b8, groups, scanned = scan_bound(st, gp, gsize, (ql >= 0).sum(1), args8[2], qt, kk, Dd)
+    rows.append(dict(name="grouped_scan/v8", tol=k1_tol, overlap=ov8, max_abs_err=kd8,
+                     launches=by_name["v8g4"]["launches"]["grouped_scan"],
+                     ms=time_ms(torch, lambda: grouped_scan_kernel(*args8)),
+                     plain_ms=time_ms(torch, lambda: grouped_scan_plain(*args8), reps=2, warmup=1),
+                     bound=b8, groups=groups, scanned_rows=scanned))
 
     kernels = []
     for r in rows:
         r["bound_ms"], r["bound_by"] = r.pop("bound")
+        kernel, source, replaces = ENTRIES[r["name"]]
+        lib = r.get("library_ms")
         log(f"[kernel] {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms by {r['bound_by']}), overlap {r['overlap']:.4f}, "
-            f"max key diff {r['max_abs_err']} ({r['tol']}), launches on the main path "
-            f"{launches[r['name']]}" + (f", groups {r['groups']}, scanned rows "
-                                       f"{r['scanned_rows']}" if "groups" in r else ""))
-        kernels.append({"name": r["name"], "route": "cuda", "source": SOURCE,
-                        "replaces": REPLACES[r["name"]], "launches": launches[r["name"]],
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}"
+            + (f", library {lib:.4f} ms" if lib is not None else "")
+            + (f", host-paced {r['paced_ms']:.4f} ms" if "paced_ms" in r else "")
+            + f"), overlap {r['overlap']:.4f}, max key diff {r['max_abs_err']}"
+            + (f", max stats error {r['stats_err']:.3g}" if "stats_err" in r else "")
+            + f" ({r['tol']}), launches on its path {r['launches']}"
+            + (f", groups {r['groups']}, scanned rows {r['scanned_rows']}" if "groups" in r else ""))
+        kernels.append({"name": r["name"], "kernel": kernel, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": r["launches"],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": None})
+                        "bound_by": r["bound_by"], "library_ms": lib})
     return kernels
 
 
@@ -383,6 +619,8 @@ def main() -> int:
         return 1
     from quake_tpu_torch import _ext
 
+    if os.environ.pop("QUAKE_TPU_KERNEL", None):
+        log("[card] QUAKE_TPU_KERNEL unset: the main phase runs the default scan")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -401,18 +639,21 @@ def main() -> int:
     queries = make_manifold(BATCH, D, 4096, seed=7)
     log(f"[data] {N} x {D} corpus + {BATCH} queries in {time.perf_counter() - t0:.2f} s")
 
+    torch.cuda.synchronize()
     _ext.reset_launches()
-    idx, main_out = phase_main(torch, dev, x, queries)
+    idx, main_out, gt = phase_main(torch, dev, x, queries)
     torch.cuda.synchronize()
     launches = dict(_ext.launches)
     log(f"[main] kernel launches on the main path: {launches}")
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in MAIN_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
 
+    by_name = phase_by_name(torch, dev, idx, queries, gt, main_out["nprobe"],
+                            main_out["recall"])
     phase_small_reference(torch, dev)
-    kernels = phase_kernels(torch, dev, idx, queries, main_out["nprobe"], launches)
-    log("[summary] " + json.dumps(main_out))
+    kernels = phase_kernels(torch, dev, idx, queries, main_out["nprobe"], launches, by_name)
+    log("[summary] " + json.dumps(dict(main_out, by_name=by_name)))
 
     print(json.dumps({"kernels": kernels}))
     print(card)

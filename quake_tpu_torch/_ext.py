@@ -1,16 +1,18 @@
 """Build, load and count the package's CUDA kernels.
 
-The kernels live in ``csrc/*.cu`` behind a plain C interface: one
-``extern "C"`` launcher per kernel that takes raw device pointers and a stream
-and returns ``cudaGetLastError()``. At first use every source is compiled by
-its own ``nvcc`` process, all started together, for ``sm_90a``; the objects
-are linked into one shared library under ``quake_tpu_torch/_build/``, named by
-a hash of the sources and flags, and loaded with ``ctypes``. Nothing is built
-or loaded at import, so the CPU-only tests import every module freely.
+The kernels live in ``csrc/*.cu`` (their shared helpers in ``csrc/*.cuh``)
+behind a plain C interface: one ``extern "C"`` launcher per kernel that
+takes raw device pointers and a stream and returns ``cudaGetLastError()``.
+At first use every source is compiled by its own ``nvcc`` process, all
+started together, for ``sm_90a``; the objects are linked into one shared
+library under ``quake_tpu_torch/_build/``, named by a hash of the sources
+and flags, and loaded with ``ctypes``. Nothing is built or loaded at
+import, so the CPU-only tests import every module freely.
 
-``launches`` counts the launches of each kernel. A wrapper adds one where it
-launches its kernel and nowhere else, so a run can show that its main path
-went through the kernels.
+``launches`` counts the launches of each kernel (K1 grouped_scan, K2
+merge_positions, K3 flat_topk, K4 rowscale_topk, K5 rowscale_fold). A
+wrapper adds one where it launches its kernel and nowhere else, so a run can
+show that a path went through the kernels.
 """
 
 from __future__ import annotations
@@ -40,9 +42,13 @@ _SIGNATURES = {
     "qk_merge_positions": (_P, _P, _I, _I, _I, _I, _P),
     # q, codes2d, bias, out, B, N, D, k, is_l2, slot_mult, levels, stream
     "qk_flat_topk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    # gp, gsize, qg, codes, norms, out, stats, Gn, qt, D, C, kk, is_l2,
+    # slot_mult, levels, stream
+    "qk_rowscale_topk": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    "qk_rowscale_fold": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
 }
 
-KERNELS = ("grouped_scan", "merge_positions", "flat_topk")
+KERNELS = ("grouped_scan", "merge_positions", "flat_topk", "rowscale_topk", "rowscale_fold")
 launches = dict.fromkeys(KERNELS, 0)
 
 _lib = None

@@ -1,6 +1,6 @@
-"""Search execution for the fixed-nprobe path (the main-path part of
+"""Search execution for the fixed-nprobe path (the fixed-nprobe part of
 quake_tpu/coordinator.py): parent ranking, the dense-pid self-heal, the
-grouped-scan dispatch and the distance conversion."""
+grouped-scan dispatch by kernel name and the distance conversion."""
 
 from __future__ import annotations
 
@@ -10,6 +10,8 @@ import torch
 
 from quake_tpu_torch.ops.flat_topk import MAX_N, parent_rank
 from quake_tpu_torch.ops.grouped import group_layout
+from quake_tpu_torch.ops.grouped_family import (grouped_scan_v3p, grouped_scan_v3pn,
+                                                grouped_scan_v7, grouped_scan_v8)
 from quake_tpu_torch.ops.grouped_scan import (FOLD, grouped_scan_v11,
                                               sort_key_fits)
 from quake_tpu_torch.ops.scan import NEG_INF, scores_to_distances, topk_from_scores
@@ -79,38 +81,81 @@ def reference_scan(codes, ids, norms, q, pids, k: int, metric: str,
     return torch.cat(out_s), torch.cat(out_i).to(torch.int32), scanned
 
 
-_V11 = re.compile(r"v11(?:g(\d+))?(?:f(\d+))?$")
+_FOLDED = re.compile(r"(v7|v8|v9|v11)(?:g(\d+))?(?:f(\d+))?$")
+_V3PN = re.compile(r"v3p(\d+)$")
+# Families of the JAX dispatch that the port does not run yet, with the
+# ROADMAP entry that will port each.
+_LATER = {
+    "v10": "the v10 scatter epilogue: ROADMAP Queue 1 item 9 (APS)",
+    "v2": "_grouped_kernel with _merge_groups: ROADMAP Queue 2 (v2)",
+    "v3": "_v3_kernel with _merge_groups: ROADMAP Queue 2 (v3)",
+    "v4": "_v4_kernel: ROADMAP Queue 2 (v4)",
+    "v5": "_v5_kernel: ROADMAP Queue 2 (v5)",
+    "v6": "_v6_kernel: ROADMAP Queue 2 (v6)",
+    "xla": "grouped_scan_xla: ROADMAP Queue 1 item 6b",
+}
+
+
+def _not_ported(kernel: str) -> NotImplementedError:
+    m = re.match(r"v10|v[2-6]|xla", kernel)
+    where = (_LATER[m.group(0)] if m else "unknown name; the port runs v3p, v3p{N}, "
+             "v7/v8/v9/v11 with optional g{gpb} and f{fold}, and 'reference'")
+    return NotImplementedError(f"grouped-scan kernel {kernel!r} is not ported ({where})")
 
 
 def grouped_scan(codes, ids, sizes, norms, q, pids, k: int, metric: str,
-                 qt: int, kernel: str, dense: bool = True, stages=None):
-    """Grouped-scan dispatch. kernel "v11g{gpb}" (optionally "f{fold}") runs
-    the v11 scan on kernel K1; "reference" runs the plain exact scan. The
-    v11 placement follows the JAX dispatch: sorted while its uint32 key
-    fits, else argsort."""
-    m = _V11.match(kernel)
+                 qt: int, kernel: str, dense: bool = True, dedup: bool = False,
+                 stages=None):
+    """Grouped-scan dispatch by name (quake_tpu/coordinator.py::grouped_scan).
+
+    "v3p" runs v3p (kernel K4); "v3p{N}" runs v3pN with gpb=N (K4);
+    "v7", "v8", "v9" and "v11", each with an optional "g{gpb}" and
+    "f{fold}", run v7 (K5), v8 (K1 + K2; v9 too) and v11 (K1 + its placement
+    + K2); "reference" runs the plain exact scan. As in the JAX package, a
+    folded name falls back to v3pN with its gpb when C % fold != 0, and
+    the v11 placement is sorted while its uint32 key fits, else argsort.
+    Folds other than 128 (with C % fold == 0), v11 on masked pid matrices
+    (dense=False) and the names not ported yet raise NotImplementedError;
+    dedup on v2/v3/v3p raises the JAX package's ValueError."""
     if kernel == "reference":
         return reference_scan(codes, ids, norms, q, pids, k, metric)
-    if m is None:
-        raise NotImplementedError(
-            f"grouped-scan kernel {kernel!r}: only 'v11g{{gpb}}' and 'reference' "
-            "are ported (ROADMAP Queue 2: remaining kernels)")
-    if not dense:
-        raise NotImplementedError("masked pid matrices (v10 scatter epilogue): "
-                                  "ROADMAP Queue 1 item 9 (APS)")
-    gpb = int(m.group(1) or 4)
-    fold = int(m.group(2) or FOLD)
-    B, nprobe = pids.shape
-    P, C, _ = codes.shape
-    if C % fold:
-        raise NotImplementedError(
-            f"C % {fold} != 0 takes the v3pn fallback in the JAX package: "
-            "ROADMAP Queue 2 (_v3pn_kernel)")
-    rows = -(-group_layout(B, nprobe, P, qt) // gpb) * gpb * qt
-    placement = "sorted" if sort_key_fits(B, rows) else "argsort"
-    return grouped_scan_v11(codes, ids, sizes, norms, q, pids, k, metric,
-                            qt=qt, gpb=gpb, fold=fold, placement=placement,
-                            stages=stages)
+    if dedup and kernel in ("v2", "v3", "v3p"):
+        raise ValueError(
+            f"kernel {kernel!r} does not support dedup (spilled stores); "
+            "use the default v3pN, v4, v5/v6, v7, or xla backends")
+    m = _FOLDED.match(kernel)
+    if m is not None:
+        name, gpb, fold = m.group(1), int(m.group(2) or 4), int(m.group(3) or FOLD)
+        if name == "v11" and not dense:
+            raise NotImplementedError("masked pid matrices (v10 scatter epilogue): "
+                                      "ROADMAP Queue 1 item 9 (APS)")
+        if codes.shape[1] % fold:
+            return grouped_scan_v3pn(codes, ids, sizes, norms, q, pids, k, metric, qt=qt,
+                                     gpb=gpb, dedup=dedup, stages=stages)
+        if fold != FOLD:
+            raise NotImplementedError(
+                f"fold={fold}: kernels K1, K2 and K5 fold by 128 (ROADMAP Queue 2, "
+                "what the grouped-scan slice left out)")
+        if name == "v7":
+            return grouped_scan_v7(codes, ids, sizes, norms, q, pids, k, metric, qt=qt,
+                                   gpb=gpb, dedup=dedup, stages=stages)
+        if name in ("v8", "v9"):  # v9 computes v8's function (grouped_family.py)
+            return grouped_scan_v8(codes, ids, sizes, norms, q, pids, k, metric, qt=qt,
+                                   gpb=gpb, dedup=dedup, stages=stages)
+        B, nprobe = pids.shape
+        rows = -(-group_layout(B, nprobe, codes.shape[0], qt) // gpb) * gpb * qt
+        placement = "sorted" if sort_key_fits(B, rows) else "argsort"
+        return grouped_scan_v11(codes, ids, sizes, norms, q, pids, k, metric,
+                                qt=qt, gpb=gpb, dedup=dedup, placement=placement,
+                                stages=stages)
+    m = _V3PN.match(kernel)
+    if m is not None:
+        return grouped_scan_v3pn(codes, ids, sizes, norms, q, pids, k, metric, qt=qt,
+                                 gpb=int(m.group(1)), dedup=dedup, stages=stages)
+    if kernel == "v3p":
+        return grouped_scan_v3p(codes, ids, sizes, norms, q, pids, k, metric, qt=qt,
+                                stages=stages)
+    raise _not_ported(kernel)
 
 
 def fused_ivf_search(codes, ids, sizes, norms, parent_codes, parent_ids, q,

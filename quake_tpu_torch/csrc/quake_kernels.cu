@@ -17,106 +17,17 @@
 //
 // Each launcher returns cudaGetLastError() so the Python wrapper can raise.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
-
-constexpr int kFold = 128;   // fold width: columns per row after folding
-constexpr int kWarps = 8;    // warps per block
-constexpr int kThreads = kWarps * 32;
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_min(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Streaming top-2 update of one fold column with a new packed value.
-__device__ __forceinline__ void fold2(float& m1, float& m2, float v) {
-  m2 = fmaxf(m2, fminf(m1, v));
-  m1 = fmaxf(m1, v);
-}
-
-// One selection round over a row held by a warp (4 columns per lane):
-// returns the row maximum and demotes the columns holding it.
-__device__ __forceinline__ float select_round(float (&m1)[4], float (&m2)[4]) {
-  float b = fmaxf(fmaxf(m1[0], m1[1]), fmaxf(m1[2], m1[3]));
-  b = warp_max(b);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (m1[j] == b) {
-      m1[j] = m2[j];
-      m2[j] = -1.0f;
-    }
-  }
-  return b;
-}
-
-// Copies rows [row0, row0 + 128) of a [*, D] f32 matrix into shared memory
-// as [128][Dp + 1] (odd stride: lane-strided column reads hit distinct
-// banks), zero-filling the pad columns d >= D and rows >= nrows.
-__device__ __forceinline__ void load_segment(float* seg, const float* src, int row0,
-                                             int nrows, int D, int Dp) {
-  const int ss = Dp + 1;
-  for (int i = threadIdx.x; i < kFold * Dp; i += kThreads) {
-    const int c = i / Dp;
-    const int d = i - c * Dp;
-    const int r = row0 + c;
-    seg[c * ss + d] = (d < D && r < nrows) ? src[(size_t)r * D + d] : 0.0f;
-  }
-}
-
-// acc[r][j] = <q row (warp + 8 r), segment column (lane + 32 j)> for the
-// R rows and 4 columns this thread owns. q tile is [*, Dp] (Dp % 4 == 0,
-// zero-padded), segment is [128][Dp + 1].
-template <int R>
-__device__ __forceinline__ void tile_dots(float (&acc)[R][4], const float* qs,
-                                          const float* seg, int Dp) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ss = Dp + 1;
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[r][j] = 0.0f;
-  for (int d = 0; d < Dp; d += 4) {
-    float sv[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float* col = seg + (lane + 32 * j) * ss + d;
-      sv[j][0] = col[0];
-      sv[j][1] = col[1];
-      sv[j][2] = col[2];
-      sv[j][3] = col[3];
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float4 qv = *reinterpret_cast<const float4*>(qs + (warp + kWarps * r) * Dp + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float a = acc[r][j];
-        a = fmaf(qv.x, sv[j][0], a);
-        a = fmaf(qv.y, sv[j][1], a);
-        a = fmaf(qv.z, sv[j][2], a);
-        a = fmaf(qv.w, sv[j][3], a);
-        acc[r][j] = a;
-      }
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // K1: grouped scan.
 //
 // Replaces quake_tpu/ops/pallas_grouped.py::_v9_kernel (launched from
-// grouped_scan_pallas_v11). Group g is one partition gp[g] and qt = 8 R
+// grouped_scan_pallas_v9/_v11) and _v8_kernel (grouped_scan_pallas_v8),
+// which computes the same function with per-group rounds and leaves ghost
+// groups to its epilogue's mask. Group g is one partition gp[g] and qt = 8 R
 // query rows (queries pre-scaled by q_coef, norms pre-shifted to normsT, so
 // key = clip(floor(<q, x> - normsT), 0, levels) is the global-scale
 // quantized score). Per row: packed = key * slot_mult + lane (-1 at
@@ -354,14 +265,6 @@ flat_topk_kernel(const float* __restrict__ q, const float* __restrict__ codes,
       }
     }
   }
-}
-
-inline int padded_dim(int D) { return (D + 3) & ~3; }
-
-// Dynamic shared memory above 48 KB needs the per-kernel opt-in.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace

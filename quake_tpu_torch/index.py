@@ -14,6 +14,7 @@ the ROADMAP item that will lift it; nothing is silently skipped.
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Optional
 
@@ -230,12 +231,18 @@ class QuakeIndex:
         return scores, ids32, timing, dists
 
     def _grouped_kernel(self) -> str:
-        """The v11 grouped scan with the JAX package's groups-per-step rule.
-        gpb only pads the group count to a multiple (it sets the sort-key
-        bit budget and so the placement); kernel K1 runs one block per group
-        whatever it is. Where the JAX package's rule gives up on its Pallas
-        kernels (a slab too large for its fast memory), K1 still runs, at
-        gpb = 1."""
+        """Grouped-scan choice, read at each search. QUAKE_TPU_KERNEL names a
+        scan for A/B runs, as in the JAX package ("v3p", "v3p4", "v7g4",
+        "v8", "v9g2", "v11g4f256", ...; see coordinator.grouped_scan).
+        Without it: the v11 grouped scan with the JAX package's
+        groups-per-step rule. gpb only pads the group count to a multiple
+        (it sets the sort-key bit budget and so the placement); kernel K1
+        runs one block per group whatever it is. Where the JAX package's
+        rule gives up on its Pallas kernels (a slab too large for its fast
+        memory), K1 still runs, at gpb = 1."""
+        override = os.environ.get("QUAKE_TPU_KERNEL")
+        if override:
+            return override
         slab = self.store.C * self.d() * 4
         gpb = max(1, min(4, (12 << 20) // max(2 * slab, 1)))
         return f"v11g{gpb}"

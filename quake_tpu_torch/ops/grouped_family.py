@@ -1,0 +1,294 @@
+"""The grouped-scan generations chosen by name: v3p, v3pN, v7, v8 and v9
+(their counterparts in quake_tpu/ops/pallas_grouped.py).
+
+  v3p, v3pN  kernel K4 (`rowscale_scan(select="topk")`): per-row range key,
+             exact per-row top-kk, per-row stats; then `v3p_epilogue`
+             (dequantized cross-group merge + exact rescore)
+  v7         kernel K5 (`rowscale_scan(select="fold")`): the same key,
+             fold-128 top-2 + kk rounds; then `v3p_epilogue`
+  v8, v9     kernel K1 (global-scale key, fold-128 top-2, kk rounds); then
+             `global_epilogue` (kernel K2 pool merge, or a top-k, + exact
+             rescore)
+
+Groups come from `build_groups`, whose pair-major inverse (pair_group,
+pair_slot) lets each (query, probe) pair read its kernel row directly.
+The TPU kernels' groups-per-step `gpb` only pads the group count here: each
+kernel runs one block per group. K4 and K5 are CUDA kernels
+(csrc/grouped_rowscale.cu); `rowscale_scan` runs their plain PyTorch
+version on CPU tensors and launches them on CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from quake_tpu_torch import _ext
+from quake_tpu_torch.ops.grouped import build_groups
+from quake_tpu_torch.ops.grouped_scan import (DEDUP_NOT_PORTED, FOLD, SMEM_LIMIT,
+                                              fold_rounds, global_scale,
+                                              grouped_scan_kernel, mark_stage, packed_params,
+                                              pad_groups, pool_tail, rescore_topk)
+from quake_tpu_torch.ops.scan import NEG_INF
+
+MIN_RANGE = 1e-20  # floor of a row's score range (one valid lane, or none)
+
+
+def pair_take(arr3, pair_group, pair_slot):
+    """arr3[pair_group, pair_slot] -> [B, nprobe, kk] through one flattened
+    row take (pallas_grouped.py::_pair_take); pair_group must be >= 0."""
+    G, qt, kk = arr3.shape
+    return arr3.reshape(G * qt, kk)[(pair_group.long() * qt + pair_slot.long())]
+
+
+# ------------------------------------------------------------ kernels K4, K5
+
+
+def topk_cap(kk: int) -> int:
+    """Per-row candidate buffer of kernel K4 (csrc/grouped_rowscale.cu)."""
+    return -(-kk // 32) * 32 + 128
+
+
+def rowscale_scan_plain(gp, group_size, qg, codes, norms, kk: int, slot_mult: int,
+                        levels: int, metric: str, select: str, chunk: int = 256):
+    """Plain PyTorch version of kernels K4 and K5 (same inputs and outputs as
+    rowscale_scan), computed `chunk` groups at a time, step by step as
+    pallas_grouped.py::_v3p_group_body with _v3p_select (topk) or
+    _v7_select (fold)."""
+    Gn, qt, D = qg.shape
+    P, C, _ = codes.shape
+    dev = qg.device
+    out = torch.full((Gn, qt, kk), -1.0, device=dev, dtype=torch.float32)
+    stats = torch.zeros((Gn, qt, 2), device=dev, dtype=torch.float32)
+    stats[:, :, 1] = MIN_RANGE
+    lane = torch.arange(C, device=dev)
+    lane_f = lane.to(torch.float32)
+    for g0 in range(0, Gn, chunk):
+        sl = slice(g0, min(g0 + chunk, Gn))
+        size = group_size[sl]
+        alive = torch.nonzero(size > 0).flatten()
+        if alive.numel() == 0:
+            continue
+        p = gp[sl][alive].long()
+        prod = torch.bmm(qg[sl][alive], codes[p].transpose(1, 2))  # [a, qt, C]
+        scores = 2.0 * prod - norms[p][:, None, :] if metric == "l2" else prod
+        valid = (lane[None, :] < size[alive][:, None].long())[:, None, :]
+        rowmax = torch.where(valid, scores, torch.full_like(scores, NEG_INF)).amax(2, keepdim=True)
+        rowmin = torch.where(valid, scores, torch.full_like(scores, float("inf"))).amin(
+            2, keepdim=True)
+        rng = torch.clamp(rowmax - rowmin, min=MIN_RANGE)
+        qk = torch.floor((scores - rowmin) * (float(levels) / rng))
+        packed = torch.where(valid, qk * float(slot_mult) + lane_f,
+                             torch.full_like(qk, -1.0))
+        a = alive.numel()
+        flat = packed.reshape(a * qt, C)
+        if select == "fold":
+            sel = fold_rounds(flat, kk, FOLD)
+        else:
+            sel = torch.topk(flat, kk, dim=1).values
+        out[g0 + alive] = sel.reshape(a, qt, kk)
+        rm = torch.where(torch.isfinite(rowmin), rowmin, torch.zeros_like(rowmin))
+        stats[g0 + alive] = torch.cat([rm, rng], dim=2)
+    return out, stats
+
+
+def rowscale_scan(gp, group_size, qg, codes, norms, kk: int, slot_mult: int, levels: int,
+                  metric: str, select: str = "topk"):
+    """Kernel K4 (select="topk"; replaces pallas_grouped.py::_v3p_kernel and
+    _v3pn_kernel) or K5 (select="fold"; replaces _v7_kernel).
+
+    gp [Gn] int32 partition per group; group_size [Gn] int32 (<= 0: ghost);
+    qg [Gn, qt, D] f32 unscaled queries; codes [P, C, D] f32; norms [P, C]
+    f32 squared norms. Per row: scores over the valid lanes (lane < size),
+    the row's range, packed = floor((s - rowmin) * (levels / rng)) *
+    slot_mult + lane. Returns (out [Gn, qt, kk] f32 packed, descending, -1 =
+    none; stats [Gn, qt, 2] f32 = (rowmin or 0, rng)). Ghost groups write -1
+    and stats (0, 1e-20). K4 takes any C; K5 needs C % 128 == 0."""
+    Gn, qt, D = qg.shape
+    P, C, _ = codes.shape
+    if select not in ("topk", "fold"):
+        raise ValueError(f"rowscale_scan: select must be 'topk' or 'fold', got {select!r}")
+    if select == "fold" and C % FOLD:
+        raise ValueError(f"rowscale fold selection needs C % 128 == 0 (C={C})")
+    if qg.device.type == "cpu":
+        return rowscale_scan_plain(gp, group_size, qg, codes, norms, kk, slot_mult,
+                                   levels, metric, select)
+    if qg.device.type != "cuda":
+        raise ValueError(f"rowscale_scan: unsupported device {qg.device}")
+    if qt not in (8, 16, 32, 64):
+        raise ValueError(f"rowscale_scan: qt must be 8, 16, 32 or 64 (qt={qt})")
+    Dp = -(-D // 4) * 4
+    cap = topk_cap(kk) if select == "topk" else 0
+    if (qt * Dp + FOLD * (Dp + 1) + qt * cap) * 4 > SMEM_LIMIT:
+        raise ValueError(f"rowscale_scan: D={D}, qt={qt}, kk={kk} need more shared memory "
+                         "than a block has (kernel K4 keeps round_up(kk, 32) + 128 "
+                         "candidates per row)")
+    for name, t, dtype, shape in (
+            ("gp", gp, torch.int32, (Gn,)),
+            ("group_size", group_size, torch.int32, (Gn,)),
+            ("qg", qg, torch.float32, (Gn, qt, D)),
+            ("codes", codes, torch.float32, (P, C, D)),
+            ("norms", norms, torch.float32, (P, C))):
+        if (t.device != qg.device or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"rowscale_scan: {name} must be a contiguous "
+                             f"{dtype} {shape} tensor on {qg.device}")
+    out = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.float32)
+    stats = torch.empty((Gn, qt, 2), device=qg.device, dtype=torch.float32)
+    entry = "qk_rowscale_topk" if select == "topk" else "qk_rowscale_fold"
+    rc = getattr(_ext.lib(), entry)(
+        gp.data_ptr(), group_size.data_ptr(), qg.data_ptr(), codes.data_ptr(),
+        norms.data_ptr(), out.data_ptr(), stats.data_ptr(), Gn, qt, D, C, kk,
+        int(metric == "l2"), float(slot_mult), float(levels), _ext.stream_ptr(qg.device))
+    name = "rowscale_topk" if select == "topk" else "rowscale_fold"
+    _ext.check(rc, name)
+    _ext.launches[name] += 1
+    return out, stats
+
+
+# ---------------------------------------------------------------- epilogues
+
+
+def v3p_epilogue(g_packed, g_stats, group_pid, pair_group, pair_slot, pids, safe_q,
+                 codes, ids, norms, q, k: int, kk: int, metric: str, slot_mult: int,
+                 levels: int, dedup: bool = False, stages=None):
+    """Shared v3p/v3pN/v7 epilogue (pallas_grouped.py::_v3p_epilogue):
+    decode the packed winners, dequantize with the per-row stats
+    (rowmin + key * rng / levels, minus |q|^2 for l2), merge per query by
+    that score and exact-rescore the top k. The TPU epilogue's `alive` mask
+    for ghost groups is not needed: K4 and K5 write them as -1."""
+    B = q.shape[0]
+    valid = g_packed >= 0.0
+    slots = torch.remainder(g_packed, float(slot_mult)).to(torch.int32)
+    keys = torch.floor(g_packed / float(slot_mult))
+    approx = g_stats[:, :, 0:1] + keys * (g_stats[:, :, 1:2] / float(levels))
+    if metric == "l2":
+        qf = q.to(torch.float32)
+        approx = approx - torch.sum(qf * qf, dim=1)[safe_q][:, :, None]
+    approx = torch.where(valid, approx, torch.full_like(approx, NEG_INF))
+    gpid = torch.clamp(group_pid, min=0).to(torch.int32)[:, None, None]
+    refs = torch.where(valid, (gpid << 16) | slots, torch.full_like(slots, -1))
+
+    ok = (pair_group >= 0)[:, :, None]
+    pg = torch.clamp(pair_group, min=0)
+    m_scores = torch.where(ok, pair_take(approx, pg, pair_slot), NEG_INF).reshape(B, -1)
+    m_refs = torch.where(ok, pair_take(refs, pg, pair_slot), -1).reshape(B, -1)
+    mark_stage(stages, "merge")
+    out = rescore_topk(m_scores, m_refs, codes, ids, norms, q, k, kk, metric, pids,
+                       dedup=dedup)
+    mark_stage(stages, "rescore")
+    return out
+
+
+def global_epilogue(g_packed, pair_group, pair_slot, pids, codes, ids, norms,
+                    q, k: int, kk: int, metric: str, slot_mult: int, levels: int,
+                    stages=None):
+    """Shared v8/v9 epilogue (pallas_grouped.py::_global_epilogue with
+    merge="pallas", exact and without dedup). The global-scale keys compare
+    across groups, so each query's probe-order pool of kernel rows is
+    merged in key domain by kernel K2, or by a top-k where K2's packing
+    does not fit (kk < k, or levels*lane_mult + lane_mult >= 2^24). Ghost
+    groups need no mask: K1 writes them as -1."""
+    B = q.shape[0]
+    ok = (pair_group >= 0)[:, :, None]
+    m_packed = torch.where(ok, pair_take(g_packed, torch.clamp(pair_group, min=0), pair_slot),
+                           -1.0).reshape(B, -1)
+    return pool_tail(m_packed, pids, pids, codes, ids, norms, q, k, kk, metric, slot_mult,
+                     levels, stages=stages, general=kk < k)
+
+
+# ----------------------------------------------------------------- wrappers
+
+
+def _check_refs(name: str, P: int, C: int) -> None:
+    if P >= 32768 or C > 65536:
+        raise ValueError(f"{name} packs (pid, slot) into int32: needs P < 32768, C <= 65536")
+
+
+def _rowscale_search(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int,
+                     gpb: int, select: str, stages):
+    """Grouping, kernel K4 or K5, and the v3p epilogue."""
+    P, C, _ = codes.shape
+    kk = min(k, C)
+    slot_mult, levels = packed_params(C)
+    group_pid, qlist, pair_group, pair_slot = build_groups(pids, P, qt)
+    gp, _, group_size, safe_q = pad_groups(group_pid, qlist, sizes, gpb)
+    qg = q.to(torch.float32)[safe_q].contiguous()  # [Gn, qt, D]
+    mark_stage(stages, "grouping")
+    g_packed, g_stats = rowscale_scan(gp, group_size, qg, codes, norms, kk, slot_mult,
+                                      levels, metric, select)
+    mark_stage(stages, "scan")
+    return v3p_epilogue(g_packed, g_stats, gp, pair_group, pair_slot, pids, safe_q, codes,
+                        ids, norms, q, k, kk, metric, slot_mult, levels, stages=stages)
+
+
+def grouped_scan_v3p(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int = 32,
+                     stages=None):
+    """v3p grouped scan (pallas_grouped.py::grouped_scan_pallas_v3p): one
+    group per TPU grid step, kernel K4, exact rescore of the winners.
+
+    codes [P, C, D] f32, ids [P, C] int32, sizes [P] int32, norms [P, C] f32,
+    q [B, D], pids [B, nprobe] int32 (-1 = pad). Returns (scores [B, k] f32,
+    ids [B, k] int32, scanned [B] int32). Any C."""
+    P, C, _ = codes.shape
+    _check_refs("v3p", P, C)
+    return _rowscale_search(codes, ids, sizes, norms, q, pids, k, metric, qt, 1, "topk",
+                            stages)
+
+
+def grouped_scan_v3pn(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int = 32,
+                      gpb: int = 2, dedup: bool = False, stages=None):
+    """v3pN grouped scan (pallas_grouped.py::grouped_scan_pallas_v3pn): v3p
+    with the groups padded to a multiple of gpb (the TPU kernel's groups per
+    grid step); the dispatch's fallback for C % fold != 0. Same inputs and
+    returns as grouped_scan_v3p."""
+    if dedup:
+        raise NotImplementedError(DEDUP_NOT_PORTED)
+    P, C, _ = codes.shape
+    _check_refs("v3p", P, C)
+    return _rowscale_search(codes, ids, sizes, norms, q, pids, k, metric, qt, gpb, "topk",
+                            stages)
+
+
+def grouped_scan_v7(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int = 32,
+                    gpb: int = 4, dedup: bool = False, stages=None):
+    """v7 grouped scan (pallas_grouped.py::grouped_scan_pallas_v7): the
+    per-row key of v3p with the fold-128 selection, kernel K5.
+    Approximate at the fold-column level (at most two winners per column);
+    winners are exact-rescored. Needs C % 128 == 0. Same inputs and returns
+    as grouped_scan_v3p."""
+    if dedup:
+        raise NotImplementedError(DEDUP_NOT_PORTED)
+    P, C, _ = codes.shape
+    _check_refs("v7", P, C)
+    return _rowscale_search(codes, ids, sizes, norms, q, pids, k, metric, qt, gpb, "fold",
+                            stages)
+
+
+def grouped_scan_v8(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int = 32,
+                    gpb: int = 4, dedup: bool = False, stages=None):
+    """v8 global-scale grouped scan (pallas_grouped.py::grouped_scan_pallas_v8)
+    on kernel K1, which computes _v8_kernel's function (its ghost groups
+    write -1 where the TPU kernel leaves stale rows for the epilogue's mask),
+    then the K2 pool merge. Needs C % 128 == 0. Same inputs and returns as
+    grouped_scan_v3p."""
+    if dedup:
+        raise NotImplementedError(DEDUP_NOT_PORTED)
+    P, C, _ = codes.shape
+    _check_refs("v8", P, C)
+    kk = min(k, C)
+    slot_mult, levels = packed_params(C)
+    q_scaled, normsT = global_scale(q, norms, metric, levels)
+    group_pid, qlist, pair_group, pair_slot = build_groups(pids, P, qt)
+    gp, _, group_size, safe_q = pad_groups(group_pid, qlist, sizes, gpb)
+    qg = q_scaled[safe_q].contiguous()  # [Gn, qt, D]
+    mark_stage(stages, "grouping")
+    g_packed = grouped_scan_kernel(gp, group_size, qg, codes, normsT, kk, slot_mult, levels)
+    mark_stage(stages, "scan")
+    return global_epilogue(g_packed, pair_group, pair_slot, pids, codes, ids, norms, q, k,
+                           kk, metric, slot_mult, levels, stages)
+
+
+# v9 (pallas_grouped.py::grouped_scan_pallas_v9) is v8 with joint selection
+# rounds over gpb groups, which change nothing per row (_v9_kernel's
+# docstring): the same function on kernel K1.
+grouped_scan_v9 = grouped_scan_v8

@@ -32,7 +32,7 @@ FOLD = 128
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 
 
-def _mark(stages, name: str) -> None:
+def mark_stage(stages, name: str) -> None:
     if stages is not None:
         stages.mark(name)
 
@@ -236,10 +236,17 @@ def exact_rescore(top_refs, codes, ids, norms, q, k: int, kfin: int,
     return scores, out_ids.to(torch.int32), scanned
 
 
-def rescore_topk(m_scores, m_refs, codes, ids, norms, q, k: int, metric: str,
-                 pids):
-    """General merge tail (pallas_grouped.py::_rescore_topk without dedup):
-    top-k by pool score, then the exact rescore of the winners."""
+DEDUP_NOT_PORTED = ("dedup (spilled stores): ROADMAP Queue 1 item 8 (bf16, "
+                    "exact=False, spill/dedup)")
+
+
+def rescore_topk(m_scores, m_refs, codes, ids, norms, q, k: int, kk: int,
+                 metric: str, pids, dedup: bool = False):
+    """General merge tail (pallas_grouped.py::_rescore_topk, exact): top-k
+    by pool score, then the exact rescore of the winners. kk (the per-group
+    candidate count) is part of the JAX signature and unused, as there."""
+    if dedup:
+        raise NotImplementedError(DEDUP_NOT_PORTED)
     _, idx = topk_stable(m_scores, k)
     top_refs = torch.gather(m_refs, 1, idx)
     return exact_rescore(top_refs, codes, ids, norms, q, k,
@@ -259,27 +266,29 @@ def pool_keys(m_packed, slot_mult: int):
 
 def pool_tail(m_packed, pid_cols, pids, codes, ids, norms, q, k: int, kk: int,
               metric: str, slot_mult: int, levels: int, pool_factor: int = 1,
-              stages=None):
+              stages=None, general: bool = False):
     """Pool side of the v11 epilogues (pallas_grouped.py::_pool_tail, exact
-    and without dedup): key merge, winner ref derivation, exact rescore.
-    pid_cols [B, nprobe] maps pool column j -> j // kk -> the query's
-    partition (ascending pids for the sorted placement, probe order for
-    argsort); pids is only used for the scanned count."""
+    and without dedup) and of the v8/v9 one (_global_epilogue): key merge,
+    winner ref derivation, exact rescore. pid_cols [B, nprobe] maps pool
+    column j -> j // kk -> the query's partition (ascending pids for the
+    sorted placement, probe order for argsort and v8/v9); pids is only used
+    for the scanned count. general forces the top-k merge instead of K2."""
     B, nprobe = pids.shape
     pool = nprobe * kk
     mk, lane_mult = pool_keys(m_packed, slot_mult)
-    if levels * lane_mult + lane_mult >= (1 << 24):
-        # General path: key*lane_mult + lane no longer fits 24 bits, so the
-        # pool is ranked by a top-k of the keys instead of kernel K2.
+    if general or levels * lane_mult + lane_mult >= (1 << 24):
+        # General path: key*lane_mult + lane no longer fits 24 bits (or the
+        # caller asks for it), so the pool is ranked by a top-k of the keys
+        # instead of kernel K2.
         slot = torch.remainder(m_packed, float(slot_mult)).to(torch.int32)
         pid_b = pid_cols[:, :, None].expand(B, nprobe, kk).reshape(B, pool)
         ok = (m_packed >= 0.0) & (pid_b >= 0)
         m_refs = torch.where(ok, (torch.clamp(pid_b, min=0) << 16) | slot,
                              torch.full_like(slot, -1))
         m_scores = torch.where(ok, mk[:, :pool], torch.full_like(m_packed, NEG_INF))
-        _mark(stages, "merge")
-        out = rescore_topk(m_scores, m_refs, codes, ids, norms, q, k, metric, pids)
-        _mark(stages, "rescore")
+        mark_stage(stages, "merge")
+        out = rescore_topk(m_scores, m_refs, codes, ids, norms, q, k, kk, metric, pids)
+        mark_stage(stages, "rescore")
         return out
 
     kfin = min(pool_factor * k, pool)
@@ -291,9 +300,9 @@ def pool_tail(m_packed, pid_cols, pids, codes, ids, norms, q, k: int, kk: int,
     valid = (pos >= 0) & (pk >= 0.0) & (wpid >= 0)
     top_refs = torch.where(valid, (torch.clamp(wpid, min=0) << 16) | slot,
                            torch.full_like(slot, -1))
-    _mark(stages, "merge")
+    mark_stage(stages, "merge")
     out = exact_rescore(top_refs, codes, ids, norms, q, k, kfin, metric, pids)
-    _mark(stages, "rescore")
+    mark_stage(stages, "rescore")
     return out
 
 
@@ -340,7 +349,7 @@ def sorted_epilogue(g_packed, tgt, group_size, pids, codes, ids, norms, q,
                     k: int, kk: int, metric: str, slot_mult: int, levels: int,
                     pool_factor: int = 1, stages=None):
     m_packed, pid_cols = sorted_placement(g_packed, tgt, group_size, pids)
-    _mark(stages, "placement")
+    mark_stage(stages, "placement")
     return pool_tail(m_packed, pid_cols, pids, codes, ids, norms, q, k, kk,
                      metric, slot_mult, levels, pool_factor, stages)
 
@@ -349,7 +358,7 @@ def argsort_epilogue(g_packed, tgt, group_size, pids, codes, ids, norms, q,
                      k: int, kk: int, metric: str, slot_mult: int, levels: int,
                      pool_factor: int = 1, stages=None):
     m_packed, pid_cols = argsort_placement(g_packed, tgt, group_size, pids)
-    _mark(stages, "placement")
+    mark_stage(stages, "placement")
     return pool_tail(m_packed, pid_cols, pids, codes, ids, norms, q, k, kk,
                      metric, slot_mult, levels, pool_factor, stages)
 
@@ -364,6 +373,32 @@ def sort_key_fits(B: int, rows: int) -> bool:
     return max((rows - 1).bit_length(), 1) + max((B - 1).bit_length(), 1) < 32
 
 
+def global_scale(q, norms, metric: str, levels: int, bounds: str = "analytic"):
+    """The v8/v9/v11 pre-transforms: key = (score - gmin) * ginv moves
+    entirely into scaled queries (the score's <q, x> coefficient times
+    ginv) and shifted norms ((|x|^2 +) gmin, times ginv), so the kernel's
+    quantize is floor(<q', x> - normsT). Returns (q_scaled [B, D] f32,
+    normsT [P, C] f32)."""
+    qf = q.to(torch.float32)
+    gmin, grange = global_bounds(qf, norms, metric, bounds)
+    ginv = float(levels) / grange
+    q_coef = 2.0 * ginv if metric == "l2" else ginv
+    base = norms if metric == "l2" else torch.zeros_like(norms)
+    return qf * q_coef, ((base + gmin) * ginv).contiguous()
+
+
+def pad_groups(group_pid, qlist, sizes, gpb: int):
+    """Pads the group tables to Gn = ceil(G/gpb)*gpb groups (gp -1, qlist
+    -1). Returns (gp, ql, group_size int32 with 0 for unused groups,
+    safe_q = the query row of each kernel row, 0 for padding)."""
+    pad = -(-group_pid.shape[0] // gpb) * gpb - group_pid.shape[0]
+    gp = torch.nn.functional.pad(group_pid, (0, pad), value=-1).contiguous()
+    ql = torch.nn.functional.pad(qlist, (0, 0, 0, pad), value=-1)
+    group_size = torch.where(gp >= 0, sizes[torch.clamp(gp, min=0).long()],
+                             torch.zeros_like(gp)).to(torch.int32).contiguous()
+    return gp, ql, group_size, torch.clamp(ql, min=0).long()
+
+
 def v11_inputs(codes, sizes, norms, q, pids, k: int, metric: str, qt: int,
                gpb: int, bounds: str = "analytic"):
     """Prologue of grouped_scan_v11: everything kernel K1 and the placement
@@ -373,26 +408,14 @@ def v11_inputs(codes, sizes, norms, q, pids, k: int, metric: str, qt: int,
     P, C, _ = codes.shape
     kk = min(k, C)
     slot_mult, levels = packed_params(C)
-    qf = q.to(torch.float32)
-    gmin, grange = global_bounds(qf, norms, metric, bounds)
-    ginv = float(levels) / grange
-    q_coef = 2.0 * ginv if metric == "l2" else ginv
-    base = norms if metric == "l2" else torch.zeros_like(norms)
-    normsT = ((base + gmin) * ginv).contiguous()
-
+    q_scaled, normsT = global_scale(q, norms, metric, levels, bounds)
     group_pid, qlist, tgt = build_groups_scatter(pids, P, qt)
-    G = group_pid.shape[0]
-    Gn = -(-G // gpb) * gpb
-    pad = Gn - G
-    gp = torch.nn.functional.pad(group_pid, (0, pad), value=-1)
-    ql = torch.nn.functional.pad(qlist, (0, 0, 0, pad), value=-1)
-    tgt = torch.nn.functional.pad(tgt, (0, 0, 0, pad), value=B * pids.shape[1])
-    group_size = torch.where(gp >= 0, sizes[torch.clamp(gp, min=0).long()],
-                             torch.zeros_like(gp)).to(torch.int32)
-    safe_q = torch.clamp(ql, min=0).long()
-    qg = (qf * q_coef)[safe_q].contiguous()  # [Gn, qt, D]
-    return dict(gp=gp.contiguous(), group_size=group_size.contiguous(), qg=qg,
-                normsT=normsT, tgt=tgt, kk=kk, slot_mult=slot_mult, levels=levels)
+    gp, _, group_size, safe_q = pad_groups(group_pid, qlist, sizes, gpb)
+    tgt = torch.nn.functional.pad(tgt, (0, 0, 0, gp.shape[0] - tgt.shape[0]),
+                                  value=B * pids.shape[1])
+    qg = q_scaled[safe_q].contiguous()  # [Gn, qt, D]
+    return dict(gp=gp, group_size=group_size, qg=qg, normsT=normsT, tgt=tgt,
+                kk=kk, slot_mult=slot_mult, levels=levels)
 
 
 def grouped_scan_v11(codes, ids, sizes, norms, q, pids, k: int, metric: str,
@@ -412,8 +435,7 @@ def grouped_scan_v11(codes, ids, sizes, norms, q, pids, k: int, metric: str,
     B, D = q.shape
     P, C, _ = codes.shape
     if dedup:
-        raise NotImplementedError("dedup (spilled stores): ROADMAP Queue 1 "
-                                  "item 8 (bf16, exact=False, spill/dedup)")
+        raise NotImplementedError(DEDUP_NOT_PORTED)
     if not exact:
         raise NotImplementedError("exact=False (dequantized scores): ROADMAP "
                                   "Queue 1 item 8 (bf16, exact=False, spill/dedup)")
@@ -431,11 +453,11 @@ def grouped_scan_v11(codes, ids, sizes, norms, q, pids, k: int, metric: str,
         raise ValueError(f"v11 sort key overflows uint32 (B={B}, rows={Gn * qt}); "
                          "use placement='argsort'")
     inp = v11_inputs(codes, sizes, norms, q, pids, k, metric, qt, gpb, bounds)
-    _mark(stages, "grouping")
+    mark_stage(stages, "grouping")
     kk, slot_mult, levels = inp["kk"], inp["slot_mult"], inp["levels"]
     g_packed = grouped_scan_kernel(inp["gp"], inp["group_size"], inp["qg"], codes,
                                    inp["normsT"], kk, slot_mult, levels, fold)
-    _mark(stages, "scan")
+    mark_stage(stages, "scan")
     epilogue = sorted_epilogue if placement == "sorted" else argsort_epilogue
     return epilogue(g_packed, inp["tgt"], inp["group_size"], pids, codes, ids,
                     norms, q, k, kk, metric, slot_mult, levels, pool_factor,

@@ -4,10 +4,12 @@ neither JAX nor the JAX package, so they also run on a machine without JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances: the pool merge (K2) is integer arithmetic and must be equal. K1
-and K3 quantize f32 dot products with floor(); the kernel sums in another
-order than torch.matmul, so a key can move by one level: they compare
-winner overlap >= 0.99, and keys of a common winner within one level.
+Tolerances: the pool merge (K2) is integer arithmetic and must be equal. K1,
+K3, K4 and K5 quantize f32 dot products with floor(); the kernel sums in
+another order than torch.matmul, so a key can move by one level: they
+compare winner overlap >= 0.99, and keys of a common winner within one
+level. K4 and K5's per-row stats (rowmin, range) come from the same f32
+scores summed in another order: rtol = atol = 1e-4.
 """
 
 import numpy as np
@@ -16,6 +18,7 @@ import torch
 
 from quake_tpu_torch import _ext
 from quake_tpu_torch.ops.flat_topk import flat_topk, flat_topk_plain
+from quake_tpu_torch.ops.grouped_family import rowscale_scan, rowscale_scan_plain
 from quake_tpu_torch.ops.grouped_scan import (grouped_scan_kernel, grouped_scan_plain,
                                               merge_positions, merge_positions_plain,
                                               packed_params)
@@ -96,9 +99,54 @@ def test_flat_topk_kernel_matches_plain(dev, metric, N, D):
     assert _overlap(got, want) >= 0.99
 
 
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("qt,kk", [(8, 10), (64, 10), (8, 100), (64, 100)])
+@pytest.mark.parametrize("select,C", [("topk", 200), ("topk", 384), ("fold", 384)])
+def test_rowscale_kernels_match_plain(dev, select, C, qt, kk, metric):
+    """K4 (exact per-row top-kk; odd C included) and K5 (fold-128) with ghost
+    groups, an empty partition, one-lane rows and partitions below kk."""
+    rng = np.random.default_rng(C + qt + kk)
+    P, Gn, D = 6, 24, 32
+    codes = torch.from_numpy(rng.standard_normal((P, C, D)).astype(np.float32)).to(dev)
+    norms = (codes * codes).sum(-1).contiguous()
+    sizes = torch.tensor([C, C - 70, 0, 1, kk // 2, 150], dtype=torch.int32, device=dev)
+    gp = torch.from_numpy(rng.integers(-1, P, Gn).astype(np.int32)).to(dev)
+    gsize = torch.where(gp >= 0, sizes[gp.clamp(min=0).long()], torch.zeros_like(gp))
+    qg = torch.from_numpy(rng.standard_normal((Gn, qt, D)).astype(np.float32)).to(dev)
+    slot_mult, levels = packed_params(C)
+    args = (gp, gsize.contiguous(), qg, codes, norms, kk, slot_mult, levels, metric, select)
+    got, got_stats = rowscale_scan(*args)
+    want, want_stats = rowscale_scan_plain(*args)
+    torch.cuda.synchronize()
+    alive = gsize > 0
+    assert (got[~alive] == -1).all()
+    assert (got_stats[~alive][:, :, 0] == 0).all()
+    assert (got_stats[~alive][:, :, 1] == np.float32(1e-20)).all()
+    torch.testing.assert_close(got_stats, want_stats, rtol=1e-4, atol=1e-4)
+    g, w = got[alive].reshape(-1, kk), want[alive].reshape(-1, kk)
+    gl = torch.where(g >= 0, torch.remainder(g, slot_mult), torch.full_like(g, -1))
+    wl = torch.where(w >= 0, torch.remainder(w, slot_mult), torch.full_like(w, -1))
+    assert _overlap(gl, wl) >= 0.99
+    same = (gl == wl) & (gl >= 0)
+    key_diff = (torch.floor(g / slot_mult) - torch.floor(w / slot_mult)).abs()
+    assert float(key_diff[same].max()) <= 1.0
+    assert ((g >= 0).sum(1) == (w >= 0).sum(1)).all()  # as many winners as valid lanes
+
+
+def test_rowscale_topk_rejects_kk_beyond_shared_memory(dev):
+    C, D, qt, kk = 1024, 128, 64, 1000
+    codes = torch.zeros((2, C, D), device=dev)
+    gp = torch.zeros(4, dtype=torch.int32, device=dev)
+    slot_mult, levels = packed_params(C)
+    with pytest.raises(ValueError, match="shared memory"):
+        rowscale_scan(gp, gp + C, torch.zeros((4, qt, D), device=dev), codes,
+                      torch.zeros((2, C), device=dev), kk, slot_mult, levels, "l2")
+
+
 def test_launch_counts(dev):
     _ext.reset_launches()
     keys = torch.zeros((8, 128), device=dev)
     merge_positions(keys, 4, 128)
     merge_positions_plain(keys, 4, 128)
-    assert _ext.launches == {"grouped_scan": 0, "merge_positions": 1, "flat_topk": 0}
+    assert _ext.launches == {"grouped_scan": 0, "merge_positions": 1, "flat_topk": 0,
+                             "rowscale_topk": 0, "rowscale_fold": 0}

@@ -1,6 +1,7 @@
 """quake_tpu_torch end to end against the JAX package (CPU): k-means quality,
-the whole search slice on one shared store, the whole slice from each
-package's own build, and the scope guards.
+the whole search slice on one shared store (the default v11 scan and each
+scan chosen by name), the whole slice from each package's own build, and the
+scope guards.
 
 Tolerances: the search path quantizes f32 dot products and keeps at most two
 winners per fold column, exactly like the JAX path, but sums in another
@@ -25,7 +26,9 @@ from quake_tpu import QuakeIndex as JaxIndex
 from quake_tpu import SearchParams as JaxSearchParams
 from quake_tpu.kmeans import kmeans_fit_assign as jax_kmeans
 from quake_tpu.ops.pallas_flat import parent_rank_pallas
-from quake_tpu.ops.pallas_grouped import grouped_scan_pallas_v11
+from quake_tpu.ops.pallas_grouped import (grouped_scan_pallas_v3p, grouped_scan_pallas_v3pn,
+                                          grouped_scan_pallas_v7, grouped_scan_pallas_v8,
+                                          grouped_scan_pallas_v9, grouped_scan_pallas_v11)
 from quake_tpu.ops.scan import scores_to_distances as jax_scores_to_distances
 from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams, index_from_numpy
 from quake_tpu_torch import coordinator
@@ -118,6 +121,43 @@ def test_whole_slice_on_one_state(jax_index):
     assert res.ids.dtype == np.int64 and res.distances.dtype == np.float32
     assert res.timing_info.partitions_scanned == nprobe
     assert res.timing_info.total_time_ns > 0
+
+
+@pytest.mark.parametrize("kernel,jax_scan,kw", [
+    ("v3p", grouped_scan_pallas_v3p, {}),
+    ("v3p4", grouped_scan_pallas_v3pn, dict(gpb=4)),
+    ("v7g4", grouped_scan_pallas_v7, dict(gpb=4)),
+    ("v8g4", grouped_scan_pallas_v8, dict(gpb=4)),
+    ("v9", grouped_scan_pallas_v9, dict(gpb=4)),
+    # C = 512 here, so a fold of 1024 does not divide C: the v3pN fallback.
+    ("v11g4f1024", grouped_scan_pallas_v3pn, dict(gpb=4)),
+])
+def test_whole_slice_by_name(jax_index, monkeypatch, kernel, jax_scan, kw):
+    """QuakeIndex.search with QUAKE_TPU_KERNEL naming the scan, against the
+    JAX package's stages on the same store: the Pallas parent ranking, then
+    the named Pallas scan, both in interpret mode."""
+    jidx, _, q = jax_index
+    k, nprobe = 10, 8
+    tidx = index_from_numpy(_arrays(jidx.store.state), _arrays(jidx.parent.store.state),
+                            "l2", device="cpu")
+    assert tidx.store.C % 1024 != 0
+    monkeypatch.setenv("QUAKE_TPU_KERNEL", kernel)
+    assert tidx._grouped_kernel() == kernel
+    res = tidx.search(q, SearchParams(k=k, nprobe=nprobe))
+
+    st, pst = jidx.store.state, jidx.parent.store.state
+    qj = jnp.asarray(q)
+    pids = parent_rank_pallas(pst.codes, pst.ids, pst.norms, qj, nprobe, "l2",
+                              interpret=True)
+    pids = jnp.where(pids >= 0, pids, pids[:, :1])
+    s1, i1, _ = jax_scan(st.codes, st.ids, st.sizes, st.norms, qj, pids, k, "l2",
+                         qt=tidx._grouped_params(len(q), nprobe), interpret=True, **kw)
+    d1 = np.asarray(jax_scores_to_distances(s1, i1, "l2"))
+    i1 = np.asarray(i1)
+    overlap = np.mean([len(set(a) & set(b)) / k for a, b in zip(i1, res.ids)])
+    assert overlap >= 0.99, overlap
+    same = i1 == res.ids
+    np.testing.assert_allclose(res.distances[same], d1[same], rtol=1e-4, atol=1e-4)
 
 
 def test_whole_slice_from_own_build(jax_index):
@@ -218,6 +258,8 @@ def test_imports_without_jax():
         bad = [m for m in sys.modules if m == "quake_tpu" or m.startswith("quake_tpu.")
                or m == "jax" and sys.modules[m] is not None]
         assert not bad, bad
+        for m in ("coordinator", "ops.grouped", "ops.grouped_family", "ops.grouped_scan"):
+            assert "quake_tpu_torch." + m in sys.modules, m
         print("ok")
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
