@@ -8,9 +8,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. card    — needs torch.cuda; prints nvidia-smi's name and power limit.
 2. build   — compiles the CUDA kernels from quake_tpu_torch/csrc with nvcc.
 3. parity  — holds kernels K1 (grouped scan), K2 (pool merge), K3 (parent
-             ranking), K4 (per-row-scale grouped scan, exact top-kk) and K5
-             (per-row-scale grouped scan, fold-128) against their plain
-             PyTorch versions on the card at small shapes.
+             ranking), K4 (per-row-scale grouped scan, exact top-kk; also
+             with the v4 scan's chunk table), K5 (per-row-scale grouped scan,
+             fold-128), K6 (exact-score grouped scan, by slot and by id) and
+             K7 (chunked per-row-scale scan with the cross-chunk merge)
+             against their plain PyTorch versions on the card at small
+             shapes.
 4. main    — the fixed-nprobe main path at full width: a 1,000,000 x 128
              synthetic-manifold corpus (seed 1), nlist=160, niter=25, l2, f32
              codes, built and searched through QuakeIndex. Recall@10 on 1024
@@ -20,21 +23,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
              CUDA events, with a per-stage breakdown. The kernels' launch
              counts are zeroed just before this phase and read just after it.
 5. by name — the grouped scans chosen by name through QUAKE_TPU_KERNEL
-             (v3p, v3p4, v7g4, v8g4, and v11g4f256, which lands on v3pN at
-             C % 256 != 0) on the main phase's index at its nprobe: recall@10
-             on the same 1024 queries (the per-row-scale paths at most 0.01
-             below the exact scan of the probed partitions, v8 within 0.005
-             of the v11 path), ms per B=16384 batch with a stage breakdown,
-             and each path's kernel launches (counts zeroed just before the
-             path, read just after).
+             (v3p, v3p4, v7g4, v8g4, v11g4f256, which lands on v3pN at
+             C % 256 != 0, then xla, v3, v2, v6, v5 and v4) on the main
+             phase's index at its nprobe: recall@10 on the same 1024 queries
+             (the exact-score paths xla, v3 and v2 within 0.001 of the exact
+             scan of the probed partitions, the per-row-scale paths at most
+             0.01 below it, v8 within 0.005 of the v11 path), ms per B=16384
+             batch with a stage breakdown, and each path's kernel launches
+             (counts zeroed just before the path, read just after).
 6. check   — the results are finite and of the expected shape, and a small
              index searched on the card agrees with the same store searched
              on the CPU through the plain versions, for v11 and for each
              name of phase 5.
 7. kernels — each kernel against its plain version again, at the shapes the
-             main path (K1-K3) and the by-name paths (K4 through v3p and
-             v3pN, K5 through v7, K1 through v8) gave it, with times and
-             bounds.
+             main path (K1-K3) and the by-name paths (K4 through v3p, v3pN,
+             v6 and v4, K5 through v7, K1 through v8, K6 through v3 and v2,
+             K7 through v5) gave it, with times and bounds.
 
 Progress goes to stderr. Standard output holds three lines: the JSON list
 of kernels, the card's name and power limit, and last
@@ -55,28 +59,42 @@ K, NLIST, NITER, N, D = 10, 160, 25, 1_000_000, 128
 NQ_GT, BATCH, BATCH_SORTED = 1024, 16384, 4096
 NPROBE_GRID = (9, 10, 11, 12, 14, 16, 24, 48)
 RECALL_GATE = 0.90
-OVERLAP_TOL = 0.99  # K1, K3, K4, K5: winner overlap with the plain version
+OVERLAP_TOL = 0.99  # K1, K3-K7: winner overlap with the plain version
 STATS_TOL = 1e-4  # K4, K5 per-row (rowmin, range): rtol = atol (f32 sums in another order)
+# K6 and K7 scores, rank by rank: rtol = atol. K6's are f32 dot products
+# summed in another order than torch.bmm's. K7's are dequantized keys, which
+# the other order can also move by one level: atol grows by key_level(), a
+# bound on a row's range / levels. A swap of two near-ties moves a rank's
+# score by less than that and costs overlap, not score agreement.
+SCORE_TOL = 1e-4
 # Recall@10 gates of the scans chosen by name. The global-scale key (v8)
 # must stay within V11_TOL of the v11 path, which quantizes the same way;
 # the per-row-scale keys (v3p, v3pN, v7) quantize each row on its own range
 # and must stay within EXACT_TOL of the exact scan of the same probed
-# partitions (their measured gap is 0.0046, see PERF.md).
+# partitions (their measured gap is 0.0046, see PERF.md). The exact-score
+# paths (xla, v3, v2) select on f32 scores and must reach that scan's recall
+# within CEILING_TOL.
 V11_TOL = 0.005
 EXACT_TOL = 0.01
+CEILING_TOL = 0.001
 # Scan name -> (the kernels that path must launch besides K3 (parent
-# ranking), the recall it is held to: "exact" or "v11").
-BY_NAME = (("v3p", ("rowscale_topk",), "exact"), ("v3p4", ("rowscale_topk",), "exact"),
-           ("v7g4", ("rowscale_fold",), "exact"),
-           ("v8g4", ("grouped_scan", "merge_positions"), "v11"),
-           ("v11g4f256", ("rowscale_topk",), "exact"))
+# ranking), the recall it is held to: "ceiling", "exact" or "v11", timed
+# batches).
+BY_NAME = (("v3p", ("rowscale_topk",), "exact", 5), ("v3p4", ("rowscale_topk",), "exact", 5),
+           ("v7g4", ("rowscale_fold",), "exact", 5),
+           ("v8g4", ("grouped_scan", "merge_positions"), "v11", 5),
+           ("v11g4f256", ("rowscale_topk",), "exact", 5),
+           ("xla", (), "ceiling", 2), ("v3", ("exact_topk",), "ceiling", 5),
+           ("v2", ("exact_topk",), "ceiling", 5), ("v6", ("rowscale_topk",), "exact", 5),
+           ("v5", ("chunk_merge",), "exact", 5), ("v4", ("rowscale_topk",), "exact", 3))
 MAIN_KERNELS = ("grouped_scan", "merge_positions", "flat_topk")
 F32_PEAK = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores (data sheet)
 HBM_RATE = 3.35e12  # H100 SXM bytes/s
 QUEUE_CYCLES = 50_000_000  # ~25 ms of spinning at the H100's clock: room to enqueue the reps
 # Entry of the kernels line -> (CUDA kernel, its source, the TPU kernel it
 # replaces). One entry per ported TPU kernel; _v8_kernel computes
-# _v9_kernel's function and runs on K1.
+# _v9_kernel's function and runs on K1, _v6_kernel computes _v3pn_kernel's and
+# runs on K4, _v4_kernel runs on K4 with a chunk table.
 ENTRIES = {
     "grouped_scan": ("grouped_scan", "quake_tpu_torch/csrc/quake_kernels.cu",
                      "quake_tpu/ops/pallas_grouped.py:1180"),
@@ -92,6 +110,16 @@ ENTRIES = {
                          "quake_tpu/ops/pallas_grouped.py:813"),
     "grouped_scan/v8": ("grouped_scan", "quake_tpu_torch/csrc/quake_kernels.cu",
                         "quake_tpu/ops/pallas_grouped.py:1051"),
+    "exact_topk/v3": ("exact_topk", "quake_tpu_torch/csrc/grouped_exact.cu",
+                      "quake_tpu/ops/pallas_grouped.py:161"),
+    "exact_topk/v2": ("exact_topk", "quake_tpu_torch/csrc/grouped_exact.cu",
+                      "quake_tpu/ops/pallas_grouped.py:51"),
+    "rowscale_topk/v4": ("rowscale_topk", "quake_tpu_torch/csrc/grouped_rowscale.cu",
+                         "quake_tpu/ops/pallas_grouped.py:1963"),
+    "chunk_merge/v5": ("chunk_merge", "quake_tpu_torch/csrc/grouped_rowscale.cu",
+                       "quake_tpu/ops/pallas_grouped.py:2145"),
+    "rowscale_topk/v6": ("rowscale_topk", "quake_tpu_torch/csrc/grouped_rowscale.cu",
+                         "quake_tpu/ops/pallas_grouped.py:2327"),
 }
 
 
@@ -145,12 +173,20 @@ def time_ms(torch, fn, reps: int = 10, warmup: int = 2, queued: bool = True) -> 
 
 
 def overlap(a, b) -> float:
-    """Mean over rows of the share of b's winners (>= 0) that a also has."""
+    """Mean over rows of the share of b's winners (>= 0) that a also has
+    (a row's winners are distinct); 1 for a row where neither has any."""
+    import torch
+
     tot = 0.0
-    for ra, rb in zip(a.tolist(), b.tolist()):
-        sa, sb = {v for v in ra if v >= 0}, {v for v in rb if v >= 0}
-        tot += len(sa & sb) / len(sb) if sb else float(not sa)
-    return tot / max(len(a), 1)
+    step = max(1, (1 << 26) // max(a.shape[1] * b.shape[1], 1))
+    for r0 in range(0, a.shape[0], step):
+        ra, rb = a[r0:r0 + step], b[r0:r0 + step]
+        hit = ((ra[:, :, None] == rb[:, None, :]).any(1) & (rb >= 0)).sum(1)
+        nb = (rb >= 0).sum(1)
+        row = torch.where(nb > 0, hit.float() / nb.clamp(min=1).float(),
+                          ((ra >= 0).sum(1) == 0).float())
+        tot += float(row.sum())
+    return tot / max(a.shape[0], 1)
 
 
 def exact_gt(torch, x_dev, q_dev, k: int, chunk: int = 1 << 18):
@@ -217,17 +253,120 @@ def phase_small_parity(torch, dev):
                 worst = [min(worst[0], r[0]), max(worst[1], r[1]), max(worst[2], r[2])]
     log(f"[parity small] K4/K5 (C in 200, 384; qt in 8, 64; kk in 10, 100; l2, ip): "
         f"min overlap={worst[0]:.4f} max_key_diff={worst[1]} max_stats_err={worst[2]:.3g}")
+    phase_small_parity_exact_chunked(torch, dev, rng, gp)
 
 
-def compare_rowscale(torch, args):
-    """K4 or K5 (args[-1] selects) against its plain version: winner overlap,
-    key difference of common winners, ghost groups, stats."""
+def phase_small_parity_exact_chunked(torch, dev, rng, gp):
+    """K4 with a chunk table, K6 in both modes and K7 at small shapes: odd C,
+    ghost groups, an empty partition, partitions below kk and ending inside
+    a chunk, kk = 1 and kk > 32, and copies of one vector, whose scores tie
+    bit for bit and must come out in the kernel's order (the larger slot or
+    id first)."""
+    from quake_tpu_torch.ops.grouped_chunked import chunk_merge, chunk_merge_plain
+    from quake_tpu_torch.ops.grouped_exact import exact_scan, exact_scan_plain
+    from quake_tpu_torch.ops.grouped_scan import packed_params
+
+    P, Dm, Gn = 6, 32, gp.shape[0]
+    worst4, worst6, worst7 = [1.0, 0.0, 0.0], [1.0, 0.0], [1.0, 0.0]
+    for C, ct in ((200, 100), (384, 128), (512, 256)):
+        codes = torch.from_numpy(rng.standard_normal((P, C, Dm)).astype(np.float32)).to(dev)
+        codes[0, 5::2] = codes[0, 5]  # copies of one vector
+        codes[1, 10] = codes[1, 90]
+        norms = (codes * codes).sum(-1).contiguous()
+        ids = torch.from_numpy(rng.permutation(P * C).astype(np.int32).reshape(P, C)).to(dev)
+        lane = torch.arange(C, device=dev)[None, :]
+        maxch = C // ct
+        for qt, kk in ((8, 1), (64, 10), (8, 40), (64, 100)):
+            sizes = torch.tensor([C, C - 70, 0, 1, kk // 2, 150], dtype=torch.int32, device=dev)
+            gsize = torch.where(gp >= 0, sizes[gp.clamp(min=0).long()],
+                                torch.zeros_like(gp)).contiguous()
+            sids = torch.where(lane < sizes[:, None], ids, torch.full_like(ids, -1)).contiguous()
+            qg = torch.from_numpy(rng.standard_normal((Gn, qt, Dm)).astype(np.float32)).to(dev)
+            slot_mult, levels = packed_params(ct)
+            # One K4 group per (group, chunk); the chunks of a group share its tile.
+            cg_pid = gp.repeat_interleave(maxch).contiguous()
+            chunk = torch.arange(maxch, dtype=torch.int32, device=dev).repeat(Gn)
+            cg_size = torch.where(cg_pid >= 0,
+                                  (gsize.repeat_interleave(maxch) - chunk * ct).clamp(0, ct),
+                                  torch.zeros_like(cg_pid)).contiguous()
+            qsrc = torch.arange(Gn, dtype=torch.int32, device=dev).repeat_interleave(maxch)
+            for metric in ("l2", "ip"):
+                r = compare_rowscale(torch, (cg_pid, cg_size, qg, codes, norms, min(kk, ct),
+                                             slot_mult, levels, metric, "topk"),
+                                     qsrc=qsrc.contiguous(), row_off=(chunk * ct).contiguous(),
+                                     ct=ct)
+                worst4 = [min(worst4[0], r[0]), max(worst4[1], r[1]), max(worst4[2], r[2])]
+                for mode, kw in (("slot", dict(group_size=gsize, norms=norms)),
+                                 ("id", dict(ids=sids))):
+                    r = compare_pairs(torch, f"K6 ({mode})",
+                                      exact_scan(gp, qg, codes, kk, metric, mode, **kw),
+                                      exact_scan_plain(gp, qg, codes, kk, metric, mode, **kw),
+                                      ties=True)
+                    worst6 = [min(worst6[0], r[0]), max(worst6[1], r[1])]
+                # K7 keeps three more lists of kk pairs per row: 64 rows fit up to kk = 64.
+                args7 = (gp, gsize, qg, codes, norms, min(kk, ct, 512 // qt * 8), ct, slot_mult,
+                         levels, metric)
+                r = compare_pairs(torch, "K7", chunk_merge(*args7), chunk_merge_plain(*args7),
+                                  level=key_level(qg, norms, levels, metric))
+                worst7 = [min(worst7[0], r[0]), max(worst7[1], r[1])]
+    log(f"[parity small] K4 with a chunk table (C, ct in (200, 100), (384, 128), (512, 256); qt "
+        f"in 8, 64; kk in 1, 10, 40, 100; l2, ip): min overlap={worst4[0]:.4f} "
+        f"max_key_diff={worst4[1]} max_stats_err={worst4[2]:.3g}")
+    log(f"[parity small] K6 (slot and id, C in 200, 384, 512, same qt and kk): min overlap="
+        f"{worst6[0]:.4f} max_score_err={worst6[1]:.3g}; K7 (same C and ct, kk 64 for 100 at qt "
+        f"64): min overlap="
+        f"{worst7[0]:.4f} max_score_err={worst7[1]:.3g} (scores rtol = atol = {SCORE_TOL}, K7's "
+        f"atol plus one key level)")
+
+
+def key_level(qg, norms, levels: int, metric: str) -> float:
+    """Upper bound on one quantization level of any row of a per-row-scale
+    scan: (largest possible score range) / levels, from |<q, x>| <= |q| |x|."""
+    qmax = float((qg * qg).sum(-1).max().sqrt())
+    xmax = float(norms.max().sqrt())
+    span = 4.0 * qmax * xmax + xmax * xmax if metric == "l2" else 2.0 * qmax * xmax
+    return span / levels
+
+
+def compare_pairs(torch, what, got, want, ties=False, level=0.0):
+    """K6 or K7 against its plain version: as many winners per row with
+    -inf / -1 tails, descending scores, scores rank by rank within
+    rtol = SCORE_TOL and atol = SCORE_TOL + level (K7: one quantization
+    level), winner overlap; with ties, runs of equal scores must come out
+    index-descending. Returns (overlap, max abs score error)."""
+    (gs, gi), (ws, wi) = got, want
+    torch.cuda.synchronize()
+    kk = gi.shape[-1]
+    if not (bool(((gi >= 0) == (wi >= 0)).all()) and bool((torch.isneginf(gs) == (gi < 0)).all())):
+        raise AssertionError(f"{what}: winners per row, or the -inf / -1 tails, differ from the "
+                             "plain version's")
+    step = torch.diff(gs, dim=-1)  # nan where -inf follows -inf
+    if not bool((step[~torch.isnan(step)] <= 0).all()):
+        raise AssertionError(f"{what}: scores are not descending")
+    if ties and not bool((torch.diff(gi, dim=-1)[(step == 0) & (gi[..., 1:] >= 0)] < 0).all()):
+        raise AssertionError(f"{what}: equal scores must order by the larger index")
+    ok = wi >= 0
+    diff = (gs[ok] - ws[ok]).abs()
+    err = float(diff.max()) if bool(ok.any()) else 0.0
+    worst = (float((diff / (SCORE_TOL + level + SCORE_TOL * ws[ok].abs())).max())
+             if bool(ok.any()) else 0.0)
+    ov = overlap(gi.reshape(-1, kk), wi.reshape(-1, kk))
+    if worst > 1.0 or ov < OVERLAP_TOL:
+        raise AssertionError(f"{what} disagrees with its plain version: overlap {ov}, worst "
+                             f"score error / tolerance {worst} (max abs {err})")
+    return ov, err
+
+
+def compare_rowscale(torch, args, **chunk_table):
+    """K4 or K5 (args[-1] selects; chunk_table = K4's qsrc, row_off and ct)
+    against its plain version: winner overlap, key difference of common
+    winners, ghost groups, stats."""
     from quake_tpu_torch.ops.grouped_family import rowscale_scan, rowscale_scan_plain
 
     gsize, kk, slot_mult, select = args[1], args[5], args[6], args[-1]
-    what = "K4" if select == "topk" else "K5"
-    got, got_stats = rowscale_scan(*args)
-    want, want_stats = rowscale_scan_plain(*args)
+    what = ("K4" if select == "topk" else "K5") + (" (chunk table)" if chunk_table else "")
+    got, got_stats = rowscale_scan(*args, **chunk_table)
+    want, want_stats = rowscale_scan_plain(*args, **chunk_table)
     torch.cuda.synchronize()
     alive = gsize > 0
     ghost_ok = (bool((got[~alive] == -1).all()) and bool((got_stats[~alive][:, :, 0] == 0).all())
@@ -348,7 +487,7 @@ def phase_main(torch, dev, x, queries):
 
     sp = SearchParams(k=K, nprobe=nprobe)
     for B, placement in ((BATCH, "argsort"), (BATCH_SORTED, "sorted")):
-        qt = idx._grouped_params(B, nprobe)
+        qt = idx._grouped_params(B, nprobe)[0]
         gpb = int(idx._grouped_kernel()[len("v11g"):])
         rows = -(-group_layout(B, nprobe, idx.store.P, qt) // gpb) * gpb * qt
         if ("sorted" if sort_key_fits(B, rows) else "argsort") != placement:
@@ -390,7 +529,7 @@ def phase_by_name(torch, dev, idx, queries, gt, nprobe, recall_v11):
 
     sp = SearchParams(k=K, nprobe=nprobe)
     qd = torch.from_numpy(queries[:BATCH]).to(dev)
-    scan_kernels = {"grouped_scan", "merge_positions", "rowscale_topk", "rowscale_fold"}
+    scan_kernels = set(_ext.KERNELS) - {"flat_topk"}
     if idx.store.C % 256 == 0:
         raise AssertionError(f"C={idx.store.C}: v11g4f256 was expected to fall back to v3pN")
     os.environ["QUAKE_TPU_KERNEL"] = "reference"
@@ -400,15 +539,16 @@ def phase_by_name(torch, dev, idx, queries, gt, nprobe, recall_v11):
         del os.environ["QUAKE_TPU_KERNEL"]
     log(f"[by name] reference (exact scan of the probed partitions): recall@10={ceiling:.4f}")
     out = {"reference": dict(recall=ceiling)}
-    for name, kernels, gate in BY_NAME:
+    for name, kernels, gate, reps in BY_NAME:
         os.environ["QUAKE_TPU_KERNEL"] = name
         try:
             torch.cuda.synchronize()
             _ext.reset_launches()
             res = idx.search(queries[:NQ_GT], sp)
-            ms = time_ms(torch, lambda: idx._search_device_full(qd, sp), reps=5)
+            ms = time_ms(torch, lambda: idx._search_device_full(qd, sp), reps=reps,
+                         warmup=min(reps, 2) - 1)
             timer = StageTimer(dev)
-            for _ in range(3):
+            for _ in range(min(reps, 3)):
                 idx._search_device_full(qd, sp, stages=timer)
             _, ids32, _, dists = idx._search_device_full(qd, sp)
             torch.cuda.synchronize()
@@ -427,6 +567,9 @@ def phase_by_name(torch, dev, idx, queries, gt, nprobe, recall_v11):
                                  f"flat_topk to launch, got {launches}")
         if ids32.shape != (BATCH, K) or bool((ids32 < 0).any()) or not bool(torch.isfinite(dists).all()):
             raise AssertionError(f"{name}: expected {K} ids and finite distances per query")
+        if gate == "ceiling" and abs(r - ceiling) > CEILING_TOL:
+            raise AssertionError(f"{name}: recall@10 {r} is not within {CEILING_TOL} of the "
+                                 f"exact scan's {ceiling}")
         if gate == "exact" and r < ceiling - EXACT_TOL:
             raise AssertionError(f"{name}: recall@10 {r} is more than {EXACT_TOL} below "
                                  f"the exact scan's {ceiling}")
@@ -456,7 +599,9 @@ def phase_small_reference(torch, dev):
     fold = 256
     while idx.store.C % fold == 0:
         fold *= 2
-    names = [None] + [n.replace("f256", f"f{fold}") for n, _, _ in BY_NAME]
+    names = [None] + [n.replace("f256", f"f{fold}") for n, *_ in BY_NAME]
+    if idx.store.C % 128 == 0:  # the spellings that pin the chunk and the group padding
+        names += ["v4c128g8", "v5c128g2", "v6c128"]
     worst = 1.0
     for name in names:
         if name is not None:
@@ -474,26 +619,119 @@ def phase_small_reference(torch, dev):
     return worst
 
 
-def scan_bound(st, gp, gsize, real_q, qg, qt, kk, D, extra_out=0):
-    """Least time of one grouped-scan pass (K1, K4, K5): bytes = the query
-    tiles, the 128-row segments of the probed partitions that hold vectors
-    and their norms, gp and sizes, the output; flops = 2 D (real query rows
-    x partition size) summed over the live groups. Returns (bound, live
-    groups, scanned rows)."""
+def scan_bound(st, gp, gsize, real_q, q_bytes, qt, kk, D, extra=0, whole_slab=False):
+    """Least time of one grouped-scan pass (K1, K4-K7): bytes = the query
+    tiles (q_bytes), the 128-row segments of the probed partitions that hold
+    vectors (whole_slab: all their rows, for the v2 scan, which has no
+    sizes) with a norm or an id per row, gp and sizes, a [groups, qt, kk]
+    f32 output, and `extra` (a second output, a chunk table); flops =
+    2 D (real query rows x valid lanes) summed over the live groups. Returns
+    (bound, live groups, scanned rows)."""
     gs = gsize.long()
     alive = gs > 0
     used = gp[alive].long().unique()
-    read_rows = int((((st.sizes[used].long() + 127) // 128) * 128).sum())
+    if whole_slab:
+        read_rows = int(used.numel()) * st.codes.shape[1]
+    else:
+        read_rows = int((((st.sizes[used].long() + 127) // 128) * 128).sum())
     flops = 2.0 * D * float((real_q[alive] * gs[alive]).sum())
-    nbytes = (qg.numel() * 4 + read_rows * (D + 1) * 4 + gp.numel() * 8
-              + gp.numel() * qt * kk * 4 + extra_out)
+    nbytes = (q_bytes + read_rows * (D + 1) * 4 + gp.numel() * 8
+              + gp.numel() * qt * kk * 4 + extra)
     return bound(nbytes, flops), int(alive.sum()), int((((gs + 127) // 128) * 128)[alive].sum())
+
+
+def exact_chunked_rows(torch, idx, q, pids, qt, kk, by_name):
+    """Rows of the kernels phase for K6 (through v3 and v2), K7 (through v5)
+    and K4 with a chunk table (through v4), at the inputs those paths build
+    from the B=16384 batch. One pass over the slab bounds K6 and K7 (K7
+    reads nothing twice from device memory); v4's bound counts one query
+    tile per live chunk-group, its chunk table and both outputs."""
+    from quake_tpu_torch.coordinator import chunk_spec
+    from quake_tpu_torch.ops.grouped import build_chunk_groups, build_groups
+    from quake_tpu_torch.ops.grouped_chunked import chunk_merge, chunk_merge_plain
+    from quake_tpu_torch.ops.grouped_exact import exact_scan, exact_scan_plain
+    from quake_tpu_torch.ops.grouped_family import rowscale_scan, rowscale_scan_plain
+    from quake_tpu_torch.ops.grouped_scan import packed_params, pad_groups
+
+    st = idx.store.state
+    P, C, Dd = st.codes.shape
+    rows = []
+    pair_tol = f"winner overlap >= {OVERLAP_TOL}, scores rtol = atol = {SCORE_TOL}"
+    group_pid, qlist, _, _ = build_groups(pids, P, qt)
+    real_q = (qlist >= 0).sum(1)
+    qg = q[torch.clamp(qlist, min=0).long()].contiguous()
+    gsize = torch.where(group_pid >= 0, st.sizes[group_pid.clamp(min=0).long()],
+                        torch.zeros_like(group_pid)).to(torch.int32).contiguous()
+    out_i = group_pid.numel() * qt * kk * 4  # the second output: slots or ids
+
+    # K6 as v3 (mode slot) and v2 (mode id: the whole slab, no sizes) use it.
+    for entry, path, mode, kw in (("exact_topk/v3", "v3", "slot",
+                                   dict(group_size=gsize, norms=st.norms)),
+                                  ("exact_topk/v2", "v2", "id", dict(ids=st.ids))):
+        ov, err = compare_pairs(torch, f"K6 ({mode})",
+                                exact_scan(group_pid, qg, st.codes, kk, "l2", mode, **kw),
+                                exact_scan_plain(group_pid, qg, st.codes, kk, "l2", mode, **kw),
+                                ties=True)
+        b, groups, scanned = scan_bound(st, group_pid, gsize, real_q, qg.numel() * 4, qt, kk, Dd,
+                                        extra=out_i, whole_slab=mode == "id")
+        rows.append(dict(
+            name=entry, tol=pair_tol, overlap=ov, max_abs_err=err, err_of="score error",
+            launches=by_name[path]["launches"]["exact_topk"],
+            ms=time_ms(torch, lambda: exact_scan(group_pid, qg, st.codes, kk, "l2", mode, **kw),
+                       reps=5),
+            plain_ms=time_ms(torch, lambda: exact_scan_plain(group_pid, qg, st.codes, kk, "l2",
+                                                             mode, **kw), reps=2, warmup=1),
+            bound=b, groups=groups, scanned_rows=scanned))
+
+    # K7 as v5 uses it (gpb 4; ct by the dispatch's rule).
+    ct, gpb = chunk_spec("v5", C, 4)
+    slot_mult, levels = packed_params(ct)
+    gp5, ql5, gsize5, safe_q5 = pad_groups(group_pid, qlist, st.sizes, gpb)
+    args7 = (gp5, gsize5, q[safe_q5].contiguous(), st.codes, st.norms, min(kk, ct), ct,
+             slot_mult, levels, "l2")
+    level = key_level(args7[2], st.norms, levels, "l2")
+    ov, err = compare_pairs(torch, "K7", chunk_merge(*args7), chunk_merge_plain(*args7),
+                            level=level)
+    b, groups, scanned = scan_bound(st, gp5, gsize5, (ql5 >= 0).sum(1), args7[2].numel() * 4, qt,
+                                    kk, Dd, extra=gp5.numel() * qt * kk * 4)
+    rows.append(dict(name="chunk_merge/v5", tol=f"{pair_tol}, atol + one key level <= {level:.3g}",
+                     overlap=ov, max_abs_err=err,
+                     err_of="score error", launches=by_name["v5"]["launches"]["chunk_merge"],
+                     ms=time_ms(torch, lambda: chunk_merge(*args7), reps=5),
+                     plain_ms=time_ms(torch, lambda: chunk_merge_plain(*args7), reps=2, warmup=1),
+                     bound=b, groups=groups, scanned_rows=scanned))
+
+    # K4 with v4's chunk table (gpb 8).
+    ct, gpb = chunk_spec("v4", C, 8)
+    slot_mult, levels = packed_params(ct)
+    cg_pid, cg_chunk, cg_qsrc, cg_size, _, _, _ = build_chunk_groups(pids, st.sizes, P, qt, ct, C)
+    pad = -(-cg_pid.shape[0] // gpb) * gpb - cg_pid.shape[0]
+    cg_pid = torch.nn.functional.pad(cg_pid, (0, pad), value=-1)
+    cg_chunk, cg_qsrc, cg_size = (torch.nn.functional.pad(t, (0, pad))
+                                  for t in (cg_chunk, cg_qsrc, cg_size))
+    args4 = (cg_pid, cg_size, qg, st.codes, st.norms, min(kk, ct), slot_mult, levels, "l2", "topk")
+    table = dict(qsrc=cg_qsrc, row_off=(cg_chunk * ct).contiguous(), ct=ct)
+    ov, kd, serr = compare_rowscale(torch, args4, **table)
+    live = cg_size > 0
+    b, groups, scanned = scan_bound(
+        st, cg_pid, cg_size, real_q[cg_qsrc.long()], int(live.sum()) * qt * Dd * 4, qt, kk, Dd,
+        extra=cg_pid.numel() * (qt * 2 * 4 + 8))
+    rows.append(dict(
+        name="rowscale_topk/v4", overlap=ov, max_abs_err=kd, stats_err=serr,
+        tol=(f"winner overlap >= {OVERLAP_TOL}, common keys within 1 level, stats rtol = atol = "
+             f"{STATS_TOL}"),
+        launches=by_name["v4"]["launches"]["rowscale_topk"],
+        ms=time_ms(torch, lambda: rowscale_scan(*args4, **table), reps=5),
+        plain_ms=time_ms(torch, lambda: rowscale_scan_plain(*args4, **table), reps=2, warmup=1),
+        bound=b, groups=groups, scanned_rows=scanned))
+    return rows
 
 
 def phase_kernels(torch, dev, idx, queries, nprobe, launches, by_name):
     """Each kernel against its plain version at the shapes of the path it
-    runs on, with times and bounds: K1-K3 on the main (v11) path, K4 through
-    v3p and v3pN, K5 through v7 and K1 through v8 on the by-name paths."""
+    runs on, with times and bounds: K1-K3 on the main (v11) path; on the
+    by-name paths K4 through v3p, v3pN, v6 and v4, K5 through v7, K1 through
+    v8, K6 through v3 and v2, K7 through v5."""
     from quake_tpu_torch.coordinator import rank_parents
     from quake_tpu_torch.ops.flat_topk import flat_topk, flat_topk_plain, parent_bias
     from quake_tpu_torch.ops.grouped import build_groups
@@ -525,7 +763,7 @@ def phase_kernels(torch, dev, idx, queries, nprobe, launches, by_name):
     # K1 at the grouped scan's shape.
     pids = rank_parents(pst.codes, pst.ids, pst.norms, q, nprobe, "l2")
     pids = torch.where(pids >= 0, pids, pids[:, :1])
-    qt = idx._grouped_params(BATCH, nprobe)
+    qt = idx._grouped_params(BATCH, nprobe)[0]
     gpb = int(idx._grouped_kernel()[len("v11g"):])
     inp = v11_inputs(st.codes, st.sizes, st.norms, q, pids, K, "l2", qt, gpb)
     kk, slot_mult, levels = inp["kk"], inp["slot_mult"], inp["levels"]
@@ -533,8 +771,8 @@ def phase_kernels(torch, dev, idx, queries, nprobe, launches, by_name):
             levels)
     ov1, kd1 = compare_k1(torch, grouped_scan_kernel, grouped_scan_plain, *args)
     real_q = (inp["tgt"] < BATCH * nprobe).sum(1)  # query rows that are real pairs
-    b1, groups, scanned = scan_bound(st, inp["gp"], inp["group_size"], real_q, inp["qg"], qt,
-                                     kk, Dd)
+    b1, groups, scanned = scan_bound(st, inp["gp"], inp["group_size"], real_q,
+                                     inp["qg"].numel() * 4, qt, kk, Dd)
     rows.append(dict(name="grouped_scan", tol=k1_tol, overlap=ov1, max_abs_err=kd1,
                      launches=launches["grouped_scan"],
                      ms=time_ms(torch, lambda: grouped_scan_kernel(*args)),
@@ -561,15 +799,18 @@ def phase_kernels(torch, dev, idx, queries, nprobe, launches, by_name):
     # K4 (v3p: one group a step; v3pN: gpb 4) and K5 (v7, gpb 4) at the
     # by-name paths' shapes: unscaled queries, raw norms.
     group_pid, qlist, _, _ = build_groups(pids, st.codes.shape[0], qt)
+    # v6 (gpb 4) runs K4 on v3pN's inputs: _v6_kernel computes _v3pn_kernel's
+    # function, and K4 reads only the segments below a partition's size.
     for entry, path, gpb_n, select in (("rowscale_topk/v3p", "v3p", 1, "topk"),
                                        ("rowscale_topk/v3pn", "v3p4", 4, "topk"),
-                                       ("rowscale_fold/v7", "v7g4", 4, "fold")):
+                                       ("rowscale_fold/v7", "v7g4", 4, "fold"),
+                                       ("rowscale_topk/v6", "v6", 4, "topk")):
         gp, ql, gsize, safe_q = pad_groups(group_pid, qlist, st.sizes, gpb_n)
         rargs = (gp, gsize, q[safe_q].contiguous(), st.codes, st.norms, kk, slot_mult, levels,
                  "l2", select)
         ov, kd, serr = compare_rowscale(torch, rargs)
-        b, groups, scanned = scan_bound(st, gp, gsize, (ql >= 0).sum(1), rargs[2], qt, kk, Dd,
-                                        extra_out=gp.numel() * qt * 2 * 4)
+        b, groups, scanned = scan_bound(st, gp, gsize, (ql >= 0).sum(1), rargs[2].numel() * 4,
+                                        qt, kk, Dd, extra=gp.numel() * qt * 2 * 4)
         rows.append(dict(name=entry, tol=f"{k1_tol}, stats rtol = atol = {STATS_TOL}",
                          overlap=ov, max_abs_err=kd, stats_err=serr,
                          launches=by_name[path]["launches"][ENTRIES[entry][0]],
@@ -583,12 +824,15 @@ def phase_kernels(torch, dev, idx, queries, nprobe, launches, by_name):
     q_scaled, normsT = global_scale(q, st.norms, "l2", levels)
     args8 = (gp, gsize, q_scaled[safe_q].contiguous(), st.codes, normsT, kk, slot_mult, levels)
     ov8, kd8 = compare_k1(torch, grouped_scan_kernel, grouped_scan_plain, *args8)
-    b8, groups, scanned = scan_bound(st, gp, gsize, (ql >= 0).sum(1), args8[2], qt, kk, Dd)
+    b8, groups, scanned = scan_bound(st, gp, gsize, (ql >= 0).sum(1), args8[2].numel() * 4, qt,
+                                     kk, Dd)
     rows.append(dict(name="grouped_scan/v8", tol=k1_tol, overlap=ov8, max_abs_err=kd8,
                      launches=by_name["v8g4"]["launches"]["grouped_scan"],
                      ms=time_ms(torch, lambda: grouped_scan_kernel(*args8)),
                      plain_ms=time_ms(torch, lambda: grouped_scan_plain(*args8), reps=2, warmup=1),
                      bound=b8, groups=groups, scanned_rows=scanned))
+
+    rows += exact_chunked_rows(torch, idx, q, pids, qt, kk, by_name)
 
     kernels = []
     for r in rows:
@@ -599,7 +843,7 @@ def phase_kernels(torch, dev, idx, queries, nprobe, launches, by_name):
             f"{r['bound_ms']:.4f} ms by {r['bound_by']}"
             + (f", library {lib:.4f} ms" if lib is not None else "")
             + (f", host-paced {r['paced_ms']:.4f} ms" if "paced_ms" in r else "")
-            + f"), overlap {r['overlap']:.4f}, max key diff {r['max_abs_err']}"
+            + f"), overlap {r['overlap']:.4f}, max {r.get('err_of', 'key diff')} {r['max_abs_err']}"
             + (f", max stats error {r['stats_err']:.3g}" if "stats_err" in r else "")
             + f" ({r['tol']}), launches on its path {r['launches']}"
             + (f", groups {r['groups']}, scanned rows {r['scanned_rows']}" if "groups" in r else ""))
@@ -624,6 +868,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
@@ -655,6 +900,9 @@ def main() -> int:
     kernels = phase_kernels(torch, dev, idx, queries, main_out["nprobe"], launches, by_name)
     log("[summary] " + json.dumps(dict(main_out, by_name=by_name)))
 
+    if len(kernels) != len(ENTRIES):
+        raise AssertionError(f"the kernels line needs {len(ENTRIES)} entries, got {len(kernels)}")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,7 +3,8 @@ H100.
 
 Ported so far: `QuakeIndex.build` and the batched fixed-nprobe
 `QuakeIndex.search`, with the three kernels of that path (grouped scan, pool
-merge, parent ranking) as hand-written CUDA kernels in `csrc/`, built with
+merge, parent ranking) and the four more of the grouped scans chosen by name
+through QUAKE_TPU_KERNEL as hand-written CUDA kernels in `csrc/`, built with
 nvcc for sm_90a at first use. Entry points run on the card unless the caller
 passes `device="cpu"`, where every kernel wrapper runs its plain PyTorch
 version. This package imports neither JAX nor quake_tpu.

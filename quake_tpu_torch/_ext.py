@@ -10,9 +10,10 @@ and flags, and loaded with ``ctypes``. Nothing is built or loaded at
 import, so the CPU-only tests import every module freely.
 
 ``launches`` counts the launches of each kernel (K1 grouped_scan, K2
-merge_positions, K3 flat_topk, K4 rowscale_topk, K5 rowscale_fold). A
-wrapper adds one where it launches its kernel and nowhere else, so a run can
-show that a path went through the kernels.
+merge_positions, K3 flat_topk, K4 rowscale_topk, K5 rowscale_fold, K6
+exact_topk, K7 chunk_merge). A wrapper adds one where it launches its
+kernel and nowhere else, so a run can show that a path went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -42,13 +43,22 @@ _SIGNATURES = {
     "qk_merge_positions": (_P, _P, _I, _I, _I, _I, _P),
     # q, codes2d, bias, out, B, N, D, k, is_l2, slot_mult, levels, stream
     "qk_flat_topk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
-    # gp, gsize, qg, codes, norms, out, stats, Gn, qt, D, C, kk, is_l2,
-    # slot_mult, levels, stream
-    "qk_rowscale_topk": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    # gp, gsize, qsrc, row_off (both may be null), qg, codes, norms, out, stats,
+    # Gn, qt, D, C, kk, is_l2, slot_mult, levels, stream
+    "qk_rowscale_topk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
+                         _P),
+    # the same without qsrc and row_off
     "qk_rowscale_fold": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    # gp, gsize, qg, codes, norms, ids (gsize and norms, or ids, may be null),
+    # out_s, out_i, Gn, qt, D, C, kk, is_l2, id_mode, stream
+    "qk_exact_topk": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # gp, gsize, qg, codes, norms, out_s, out_i, Gn, qt, D, C, ct, kk, is_l2,
+    # slot_mult, levels, stream
+    "qk_chunk_merge": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
 }
 
-KERNELS = ("grouped_scan", "merge_positions", "flat_topk", "rowscale_topk", "rowscale_fold")
+KERNELS = ("grouped_scan", "merge_positions", "flat_topk", "rowscale_topk", "rowscale_fold",
+           "exact_topk", "chunk_merge")
 launches = dict.fromkeys(KERNELS, 0)
 
 _lib = None

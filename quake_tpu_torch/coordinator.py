@@ -9,7 +9,10 @@ import re
 import torch
 
 from quake_tpu_torch.ops.flat_topk import MAX_N, parent_rank
-from quake_tpu_torch.ops.grouped import group_layout
+from quake_tpu_torch.ops.grouped import group_layout, grouped_scan_xla
+from quake_tpu_torch.ops.grouped_chunked import (grouped_scan_v4, grouped_scan_v5,
+                                                 grouped_scan_v6)
+from quake_tpu_torch.ops.grouped_exact import grouped_scan_v2, grouped_scan_v3
 from quake_tpu_torch.ops.grouped_family import (grouped_scan_v3p, grouped_scan_v3pn,
                                                 grouped_scan_v7, grouped_scan_v8)
 from quake_tpu_torch.ops.grouped_scan import (FOLD, grouped_scan_v11,
@@ -83,46 +86,61 @@ def reference_scan(codes, ids, norms, q, pids, k: int, metric: str,
 
 _FOLDED = re.compile(r"(v7|v8|v9|v11)(?:g(\d+))?(?:f(\d+))?$")
 _V3PN = re.compile(r"v3p(\d+)$")
-# Families of the JAX dispatch that the port does not run yet, with the
-# ROADMAP entry that will port each.
-_LATER = {
-    "v10": "the v10 scatter epilogue: ROADMAP Queue 1 item 9 (APS)",
-    "v2": "_grouped_kernel with _merge_groups: ROADMAP Queue 2 (v2)",
-    "v3": "_v3_kernel with _merge_groups: ROADMAP Queue 2 (v3)",
-    "v4": "_v4_kernel: ROADMAP Queue 2 (v4)",
-    "v5": "_v5_kernel: ROADMAP Queue 2 (v5)",
-    "v6": "_v6_kernel: ROADMAP Queue 2 (v6)",
-    "xla": "grouped_scan_xla: ROADMAP Queue 1 item 6b",
-}
+CHUNK_SIZES = (512, 384, 256, 128)  # preferred chunk heights of v4/v5/v6, in order
 
 
-def _not_ported(kernel: str) -> NotImplementedError:
-    m = re.match(r"v10|v[2-6]|xla", kernel)
-    where = (_LATER[m.group(0)] if m else "unknown name; the port runs v3p, v3p{N}, "
-             "v7/v8/v9/v11 with optional g{gpb} and f{fold}, and 'reference'")
-    return NotImplementedError(f"grouped-scan kernel {kernel!r} is not ported ({where})")
+def chunk_spec(kernel: str, C: int, gpb: int):
+    """(ct, gpb) of a v4/v5/v6 name: "v4", "v4c{ct}" or "v4c{ct}g{gpb}". A
+    missing ct, or one that does not divide C, becomes the first of
+    CHUNK_SIZES that divides C, else the whole slab (ct = C)."""
+    ct = 0
+    if len(kernel) > 2:
+        spec = kernel[3:]
+        if "g" in spec:
+            cts, gs = spec.split("g")
+            ct, gpb = int(cts), int(gs)
+        else:
+            ct = int(spec)
+    if not ct or C % ct:
+        ct = next((c for c in CHUNK_SIZES if C % c == 0), C)
+    return ct, gpb
 
 
 def grouped_scan(codes, ids, sizes, norms, q, pids, k: int, metric: str,
-                 qt: int, kernel: str, dense: bool = True, dedup: bool = False,
-                 stages=None):
+                 qt: int, group_chunk: int, kernel: str, dedup: bool = False,
+                 dense: bool = False, stages=None):
     """Grouped-scan dispatch by name (quake_tpu/coordinator.py::grouped_scan).
 
-    "v3p" runs v3p (kernel K4); "v3p{N}" runs v3pN with gpb=N (K4);
-    "v7", "v8", "v9" and "v11", each with an optional "g{gpb}" and
-    "f{fold}", run v7 (K5), v8 (K1 + K2; v9 too) and v11 (K1 + its placement
-    + K2); "reference" runs the plain exact scan. As in the JAX package, a
-    folded name falls back to v3pN with its gpb when C % fold != 0, and
-    the v11 placement is sorted while its uint32 key fits, else argsort.
-    Folds other than 128 (with C % fold == 0), v11 on masked pid matrices
-    (dense=False) and the names not ported yet raise NotImplementedError;
-    dedup on v2/v3/v3p raises the JAX package's ValueError."""
+    "v4", "v5" and "v6", each with an optional "c{ct}" and "g{gpb}", run
+    the size-aware chunked scans (v4 and v6 on kernel K4, v5 on K7); "v3p"
+    runs v3p (K4); "v3p{N}" runs v3pN with gpb=N (K4); "v7", "v8", "v9" and
+    "v11", each with an optional "g{gpb}" and "f{fold}", run v7 (K5), v8
+    (K1 + K2; v9 too) and v11 (K1 + its placement + K2); "v3" and "v2" run
+    the exact-score scans (K6); "reference" runs the plain exact scan; any
+    other name, "xla" included, runs grouped_scan_xla, `group_chunk` groups
+    at a time. As in the JAX package, a folded name falls back to v3pN with
+    its gpb when C % fold != 0, and the v11 placement is sorted while its
+    uint32 key fits, else argsort. dense promises that every pid is valid
+    (fixed-nprobe semantics), as in the JAX package, where v11 needs it.
+    Folds other than 128 (with C % fold == 0), v11 without that promise
+    (masked pid matrices, dense=False) and the "v10" names raise
+    NotImplementedError; dedup on v2/v3/v3p raises the JAX package's
+    ValueError, and on every other name NotImplementedError."""
     if kernel == "reference":
         return reference_scan(codes, ids, norms, q, pids, k, metric)
+    if kernel[:2] in ("v4", "v5", "v6"):
+        fn, gpb = {"v4": (grouped_scan_v4, 8), "v5": (grouped_scan_v5, 4),
+                   "v6": (grouped_scan_v6, 4)}[kernel[:2]]
+        ct, gpb = chunk_spec(kernel, codes.shape[1], gpb)
+        return fn(codes, ids, sizes, norms, q, pids, k, metric, qt=qt, ct=ct, gpb=gpb,
+                  dedup=dedup, stages=stages)
     if dedup and kernel in ("v2", "v3", "v3p"):
         raise ValueError(
             f"kernel {kernel!r} does not support dedup (spilled stores); "
             "use the default v3pN, v4, v5/v6, v7, or xla backends")
+    if kernel.startswith("v10"):
+        raise NotImplementedError(f"grouped-scan kernel {kernel!r} is not ported (the v10 "
+                                  "scatter epilogue: ROADMAP Queue 1 item 9 (APS))")
     m = _FOLDED.match(kernel)
     if m is not None:
         name, gpb, fold = m.group(1), int(m.group(2) or 4), int(m.group(3) or FOLD)
@@ -155,12 +173,19 @@ def grouped_scan(codes, ids, sizes, norms, q, pids, k: int, metric: str,
     if kernel == "v3p":
         return grouped_scan_v3p(codes, ids, sizes, norms, q, pids, k, metric, qt=qt,
                                 stages=stages)
-    raise _not_ported(kernel)
+    if kernel == "v3":
+        return grouped_scan_v3(codes, ids, sizes, norms, q, pids, k, metric, qt=qt,
+                               stages=stages)
+    if kernel == "v2":
+        return grouped_scan_v2(codes, ids, q, pids, k, metric, qt=qt, stages=stages)
+    return grouped_scan_xla(codes, ids, q, pids, k, metric, qt=qt, group_chunk=group_chunk,
+                            norms=norms, dedup=dedup, stages=stages)
 
 
 def fused_ivf_search(codes, ids, sizes, norms, parent_codes, parent_ids, q,
                      k: int, nprobe: int, metric: str, qt: int,
-                     kernel: str = "v11g4", parent_norms=None, stages=None):
+                     kernel: str = "v11g4", parent_norms=None, group_chunk: int = 64,
+                     stages=None):
     """End-to-end fixed-nprobe search: parent centroid ranking -> grouped
     scan -> top-k merge -> distance conversion. All launches go to the
     current stream; nothing synchronises.
@@ -177,7 +202,7 @@ def fused_ivf_search(codes, ids, sizes, norms, parent_codes, parent_ids, q,
     if stages is not None:
         stages.mark("parent")
     scores, ids32, scanned = grouped_scan(codes, ids, sizes, norms, q, pids, k,
-                                          metric, qt, kernel, dense=True,
+                                          metric, qt, group_chunk, kernel, dense=True,
                                           stages=stages)
     dists = scores_to_distances(scores, ids32, metric)
     if stages is not None:

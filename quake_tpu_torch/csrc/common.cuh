@@ -1,5 +1,6 @@
 // Helpers shared by the package's CUDA kernels (csrc/*.cu): the thread
-// layout, the fold-128 top-2 selection and the shared-memory tile product.
+// layout, the fold-128 top-2 selection, the (score, index) pair order of the
+// exact selections, the shared-memory loads and the tile product.
 // Everything is in an anonymous namespace: each source gets its own copy.
 
 #pragma once
@@ -26,6 +27,25 @@ __device__ __forceinline__ float warp_min(float v) {
   return v;
 }
 
+// The exact selections' total order on (score, index) pairs: score first,
+// then the larger index (slot or id) among equal scores.
+__device__ __forceinline__ bool pair_above(float s, int i, float ts, int ti) {
+  return s > ts || (s == ts && i > ti);
+}
+
+// Largest (score, index) pair of a warp, to every lane.
+__device__ __forceinline__ void warp_max_pair(float& s, int& i) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float os = __shfl_xor_sync(0xffffffffu, s, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, o);
+    if (pair_above(os, oi, s, i)) {
+      s = os;
+      i = oi;
+    }
+  }
+}
+
 // Streaming top-2 update of one fold column with a new packed value.
 __device__ __forceinline__ void fold2(float& m1, float& m2, float v) {
   m2 = fmaxf(m2, fminf(m1, v));
@@ -45,6 +65,16 @@ __device__ __forceinline__ float select_round(float (&m1)[4], float (&m2)[4]) {
     }
   }
   return b;
+}
+
+// The [qt, D] query tile into shared memory as [qt][Dp], zero-padded.
+__device__ __forceinline__ void load_query_tile(float* qs, const float* src, int qt, int D,
+                                                int Dp) {
+  for (int i = threadIdx.x; i < qt * Dp; i += kThreads) {
+    const int r = i / Dp;
+    const int d = i - r * Dp;
+    qs[i] = d < D ? src[(size_t)r * D + d] : 0.0f;
+  }
 }
 
 // Copies rows [row0, row0 + 128) of a [*, D] f32 matrix into shared memory

@@ -216,14 +216,14 @@ class QuakeIndex:
         k = max(int(sp.k), 1)
         timing = SearchTimingInfo(n_queries=B, n_clusters=self.nlist(), search_params=sp)
         parent_k = min(int(sp.nprobe), self.nlist())
-        qt = self._grouped_params(B, parent_k)
+        qt, group_chunk = self._grouped_params(B, parent_k)
         state = self.store.state
         pstate = self.parent.store.state
         scores, ids32, dists, _, _ = coordinator.fused_ivf_search(
             state.codes, state.ids, state.sizes, state.norms,
             pstate.codes, pstate.ids, q, k=k, nprobe=parent_k, metric=self.metric,
             qt=qt, kernel=self._grouped_kernel(), parent_norms=pstate.norms,
-            stages=stages)
+            group_chunk=group_chunk, stages=stages)
         timing.partitions_scanned = parent_k
         timing.parent_info = SearchTimingInfo(
             n_queries=B, n_clusters=self.parent.nlist(),
@@ -233,7 +233,8 @@ class QuakeIndex:
     def _grouped_kernel(self) -> str:
         """Grouped-scan choice, read at each search. QUAKE_TPU_KERNEL names a
         scan for A/B runs, as in the JAX package ("v3p", "v3p4", "v7g4",
-        "v8", "v9g2", "v11g4f256", ...; see coordinator.grouped_scan).
+        "v8", "v9g2", "v11g4f256", "v3", "v2", "v4c128g8", "v5", "v6c128",
+        "xla", ...; see coordinator.grouped_scan).
         Without it: the v11 grouped scan with the JAX package's
         groups-per-step rule. gpb only pads the group count to a multiple
         (it sets the sort-key bit budget and so the placement); kernel K1
@@ -247,10 +248,14 @@ class QuakeIndex:
         gpb = max(1, min(4, (12 << 20) // max(2 * slab, 1)))
         return f"v11g{gpb}"
 
-    def _grouped_params(self, B: int, parent_k: int) -> int:
-        """Query-tile height qt: tracks expected queries per partition,
-        a power of two in [8, 64] (the JAX package's rule)."""
-        return min(64, max(8, next_pow2(B * parent_k // max(self.nlist(), 1) or 1)))
+    def _grouped_params(self, B: int, parent_k: int):
+        """(qt, group_chunk), by the JAX package's rules. The query-tile
+        height qt tracks the expected queries per partition, a power of two
+        in [8, 64]; group_chunk, the groups the "xla" scan gathers at a time,
+        keeps a chunk's slabs near 128 MB, within [8, 128]."""
+        qt = min(64, max(8, next_pow2(B * parent_k // max(self.nlist(), 1) or 1)))
+        slab_bytes = max(self.store.C * self.d() * 4, 1)
+        return qt, max(8, min(128, (1 << 27) // slab_bytes))
 
     # ------------------------------------------------------------- accessors
 

@@ -1,5 +1,8 @@
 """Partition-major grouping for the batched search (group_layout,
-build_groups and build_groups_scatter of quake_tpu/ops/grouped.py).
+build_groups, build_groups_scatter and build_chunk_groups of
+quake_tpu/ops/grouped.py) and the scan that runs outside any hand-written
+kernel (grouped_scan_xla with its merge_groups epilogue, which the exact
+v2/v3 scans share).
 
 The reference's batched_serial_scan groups queries by partition on the host
 so each partition is scanned once per batch (query_coordinator.cpp:708-721).
@@ -11,6 +14,9 @@ arithmetic, so the outputs equal the JAX package's exactly.
 from __future__ import annotations
 
 import torch
+
+from quake_tpu_torch.ops.scan import NEG_INF, topk_from_scores
+from quake_tpu_torch.profiling import mark_stage
 
 
 def group_layout(B: int, nprobe: int, nlist_cap: int, qt: int) -> int:
@@ -118,3 +124,140 @@ def build_groups(pids: torch.Tensor, nlist_cap: int, qt: int):
     pair_slot = torch.where(ok, rank % qt, torch.zeros_like(rank))
     return (group_pid.to(torch.int32), qlist.to(torch.int32),
             pair_group.to(torch.int32), pair_slot.to(torch.int32))
+
+
+def build_chunk_groups(pids: torch.Tensor, sizes: torch.Tensor, nlist_cap: int, qt: int,
+                       ct: int, cap: int):
+    """Chunk-level grouping for the size-aware v4 scan
+    (quake_tpu/ops/grouped.py::build_chunk_groups).
+
+    Each (partition, query-tile) group of build_groups expands into
+    ceil(size/ct) chunk-groups covering only the partition's valid prefix;
+    the chunk-groups are a compact prefix of [0, G * ceil(cap/ct)). Returns
+    int32 tensors:
+      cg_pid    [G2]  partition of each chunk-group (-1 = unused)
+      cg_chunk  [G2]  chunk index within the partition (units of ct)
+      cg_qsrc   [G2]  source group (row into qlist)
+      cg_size   [G2]  valid lanes in this chunk (0 = skip)
+      qlist     [G, QT]
+      pair_cg   [B, nprobe, MAXCH]  chunk-groups of each pair (-1 = pad)
+      pair_slot [B, nprobe]
+    """
+    group_pid, qlist, pair_group, pair_slot = build_groups(pids, nlist_cap, qt)
+    G = group_pid.shape[0]
+    maxch = -(-cap // ct)
+    G2 = G * maxch
+    dev = pids.device
+    gsz = torch.where(group_pid >= 0, sizes[torch.clamp(group_pid, min=0).long()].to(torch.int32),
+                      torch.zeros_like(group_pid))
+    nch = (gsz + ct - 1) // ct  # chunks this group needs
+    base = (torch.cumsum(nch, 0) - nch).to(torch.int32)
+    ch = torch.arange(maxch, device=dev, dtype=torch.int32)
+    used = ch[None, :] < nch[:, None]
+    # Unused (group, chunk) cells aim at row G2, which the slice drops (the
+    # JAX package scatters with mode="drop").
+    tgt = torch.where(used, base[:, None] + ch[None, :], G2).reshape(-1).long()
+
+    def scatter(fill: int, values):
+        out = torch.full((G2 + 1,), fill, device=dev, dtype=torch.int32)
+        out[tgt] = values.expand(G, maxch).reshape(-1).to(torch.int32)
+        return out[:G2]
+
+    cg_pid = scatter(-1, group_pid[:, None])
+    cg_chunk = scatter(0, ch[None, :])
+    cg_qsrc = scatter(0, torch.arange(G, device=dev, dtype=torch.int32)[:, None])
+    cg_size = scatter(0, torch.clamp(gsz[:, None] - ch[None, :] * ct, 0, ct))
+
+    ok = pair_group >= 0
+    pg = torch.clamp(pair_group, min=0).long()
+    pair_cg = base[pg][:, :, None] + ch[None, None, :]
+    pair_cg = torch.where(ok[:, :, None] & (ch[None, None, :] < nch[pg][:, :, None]),
+                          pair_cg, torch.full_like(pair_cg, -1))
+    return cg_pid, cg_chunk, cg_qsrc, cg_size, qlist, pair_cg.to(torch.int32), pair_slot
+
+
+def group_scores(qg, slab, sids, metric: str, snorms=None):
+    """qg [Gc, QT, D], slab [Gc, C, D], sids [Gc, C] -> scores [Gc, QT, C]
+    (quake_tpu/ops/grouped.py::_group_scores). snorms: optional [Gc, C]
+    cached squared norms of the slab; -inf where sids < 0."""
+    prod = torch.bmm(qg, slab.transpose(1, 2))
+    if metric == "l2":
+        qf = qg.to(torch.float32)
+        q_sq = torch.sum(qf * qf, dim=2)
+        if snorms is None:
+            sf = slab.to(torch.float32)
+            snorms = torch.sum(sf * sf, dim=2)
+        scores = 2.0 * prod - q_sq[:, :, None] - snorms[:, None, :]
+    else:
+        scores = prod
+    return torch.where((sids >= 0)[:, None, :], scores, torch.full_like(scores, NEG_INF))
+
+
+DEDUP_NOT_PORTED = ("dedup (spilled stores): ROADMAP Queue 1 item 8 (bf16, "
+                    "exact=False, spill/dedup)")
+
+
+def merge_groups(g_scores, g_ids, pair_group, pair_slot, pids, k: int, kk: int,
+                 dedup: bool = False):
+    """Epilogue of the (score, id) scans (quake_tpu/ops/grouped.py::
+    _merge_groups): gather each query's per-probe group rows and merge them
+    to the top k, padding with -inf / -1 when there are fewer than k
+    candidates. Returns (scores [B, k] f32, ids [B, k] int32, scanned [B]
+    int32)."""
+    if dedup:
+        raise NotImplementedError(DEDUP_NOT_PORTED)
+    B, nprobe = pair_group.shape
+    ok = (pair_group >= 0)[:, :, None]
+    G, qt, kk_ = g_scores.shape
+    flat_idx = torch.clamp(pair_group, min=0).long() * qt + pair_slot.long()
+    s = g_scores.reshape(G * qt, kk_)[flat_idx]
+    i = g_ids.reshape(G * qt, kk_)[flat_idx]
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    i = torch.where(ok, i, torch.full_like(i, -1))
+    scores, out_ids = topk_from_scores(s.reshape(B, nprobe * kk), i.reshape(B, nprobe * kk),
+                                       min(k, nprobe * kk))
+    if scores.shape[1] < k:
+        padn = k - scores.shape[1]
+        scores = torch.nn.functional.pad(scores, (0, padn), value=NEG_INF)
+        out_ids = torch.nn.functional.pad(out_ids, (0, padn), value=-1)
+    scanned = torch.sum((pids >= 0).to(torch.int32), dim=1, dtype=torch.int32)
+    return scores, out_ids.to(torch.int32), scanned
+
+
+def grouped_scan_xla(codes, ids, q, pids, k: int, metric: str, qt: int = 64,
+                     group_chunk: int = 64, norms=None, dedup: bool = False, stages=None):
+    """Partition-major batched scan in plain tensor operations
+    (quake_tpu/ops/grouped.py::grouped_scan_xla, the JAX package's scan on
+    every backend that is not a TPU): `group_chunk` groups at a time, a
+    batched product of the query tiles with the gathered slabs and an exact
+    top-kk per row (the JAX package's approx_max_k is exact on the CPU), then
+    merge_groups. No hand-written kernel is on this path, in either package.
+
+    codes [P, C, D], ids [P, C], q [B, D], pids [B, nprobe] int32; norms:
+    optional [P, C] cached squared norms. Returns (scores [B, k], ids [B, k],
+    scanned [B])."""
+    if dedup:
+        raise NotImplementedError(DEDUP_NOT_PORTED)
+    P, C, _ = codes.shape
+    group_pid, qlist, pair_group, pair_slot = build_groups(pids, P, qt)
+    G = group_pid.shape[0]
+    kk = min(k, C)
+    q_cast = q.to(codes.dtype)
+    mark_stage(stages, "grouping")
+    out_s, out_i = [], []
+    for g0 in range(0, G, group_chunk):
+        gpid = group_pid[g0:g0 + group_chunk]
+        safe_pid = torch.clamp(gpid, min=0).long()
+        sids = torch.where((gpid >= 0)[:, None], ids[safe_pid], torch.full_like(ids[safe_pid], -1))
+        qg = q_cast[torch.clamp(qlist[g0:g0 + group_chunk], min=0).long()]
+        scores = group_scores(qg, codes[safe_pid], sids, metric,
+                              norms[safe_pid] if norms is not None else None)
+        s, idx = torch.topk(scores, kk, dim=2)
+        i = torch.gather(sids[:, None, :].expand(-1, qt, -1), 2, idx)
+        out_s.append(s)
+        out_i.append(torch.where(s == NEG_INF, torch.full_like(i, -1), i))
+    g_scores, g_ids = torch.cat(out_s), torch.cat(out_i)
+    mark_stage(stages, "scan")
+    out = merge_groups(g_scores, g_ids, pair_group, pair_slot, pids, k, kk)
+    mark_stage(stages, "merge")
+    return out

@@ -1,0 +1,276 @@
+"""The size-aware chunked grouped scans chosen by name: v4, v5 and v6 (their
+counterparts are quake_tpu/ops/pallas_grouped.py::grouped_scan_pallas_v4,
+_v5 and _v6). All three cut a partition's C rows into chunks of `ct` rows
+and touch only the chunks below the partition's size; all key each row on
+its own score range, as v3p does, and exact-rescore the winners.
+
+  v4  one kernel group per (partition, query tile, chunk), from
+      `build_chunk_groups`: kernel K4 with a chunk table (chunk-local slots,
+      slot_mult = next_pow2(ct)); the epilogue dequantizes and merges in two
+      stages, per (query, probe) over the chunks, then across the probes
+  v5  one kernel group per (partition, query tile): kernel K7
+      (`chunk_merge`) runs the v3p body on each chunk, dequantizes its kk
+      winners and merges them across the chunks by (score, larger slot); the
+      epilogue is one merge across the probes
+  v6  kernel K4 as it is: _v6_kernel fetches in chunks and then runs one
+      _v3p_select over the whole row with slot_mult = next_pow2(C), the
+      function of _v3pn_kernel; K4 already reads only the 128-row segments
+      below the size
+
+The TPU kernels' groups-per-step `gpb` only pads the group count here: each
+kernel runs one block per group. K7 is a CUDA kernel
+(csrc/grouped_rowscale.cu); `chunk_merge` runs its plain PyTorch version on
+CPU tensors and launches it on CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from quake_tpu_torch import _ext
+from quake_tpu_torch.ops.grouped import DEDUP_NOT_PORTED, build_chunk_groups, build_groups
+from quake_tpu_torch.ops.grouped_family import (MIN_RANGE, check_refs, pair_take, rowscale_scan,
+                                                rowscale_search, topk_cap)
+from quake_tpu_torch.ops.grouped_scan import (FOLD, SMEM_LIMIT, packed_params, pad_groups,
+                                              rescore_topk)
+from quake_tpu_torch.ops.scan import NEG_INF, topk_stable
+from quake_tpu_torch.profiling import mark_stage
+
+
+def _check_chunked(name: str, P: int, C: int, ct: int) -> None:
+    check_refs(name, P, C)
+    if ct <= 0 or C % ct:
+        raise ValueError(f"{name} needs C % ct == 0 (C={C}, ct={ct})")
+
+
+def _dequantize(packed, stats, slot_mult: int, levels: int):
+    """Packed winners and their rows' stats -> (rowmin + key * (rng / levels),
+    slot int32). Only entries with packed >= 0 mean anything."""
+    keys = torch.floor(packed / float(slot_mult))
+    slots = torch.remainder(packed, float(slot_mult)).to(torch.int32)
+    return stats[..., 0:1] + keys * (stats[..., 1:2] / float(levels)), slots
+
+
+# ---------------------------------------------------------------- kernel K7
+
+
+def chunk_merge_plain(gp, group_size, qg, codes, norms, kk: int, ct: int, slot_mult: int,
+                      levels: int, metric: str, chunk: int = 128):
+    """Plain PyTorch version of kernel K7 (same inputs and outputs as
+    chunk_merge), `chunk` groups at a time, as pallas_grouped.py::_v5_kernel:
+    _v3p_group_body per [qt, ct] chunk, the dequantized candidates of all
+    chunks side by side, then the kk best by (score, larger slot)."""
+    Gn, qt, D = qg.shape
+    P, C, _ = codes.shape
+    maxch = C // ct
+    dev = qg.device
+    out_s = torch.full((Gn, qt, kk), NEG_INF, device=dev, dtype=torch.float32)
+    out_i = torch.full((Gn, qt, kk), -1, device=dev, dtype=torch.int32)
+    lane = torch.arange(ct, device=dev)
+    first = (torch.arange(maxch, device=dev) * ct)  # first row of each chunk
+    for g0 in range(0, Gn, chunk):
+        sl = slice(g0, min(g0 + chunk, Gn))
+        size = torch.where(gp[sl] >= 0, group_size[sl], torch.zeros_like(group_size[sl])).long()
+        alive = torch.nonzero(size > 0).flatten()
+        if alive.numel() == 0:
+            continue
+        a = alive.numel()
+        p = gp[sl][alive].long()
+        prod = torch.bmm(qg[sl][alive], codes[p].transpose(1, 2))  # [a, qt, C]
+        scores = 2.0 * prod - norms[p][:, None, :] if metric == "l2" else prod
+        scores = scores.reshape(a, qt, maxch, ct)
+        csize = torch.clamp(size[alive][:, None] - first[None, :], 0, ct)  # [a, maxch]
+        valid = (lane[None, None, :] < csize[:, :, None])[:, None, :, :]
+        rowmax = torch.where(valid, scores, torch.full_like(scores, NEG_INF)).amax(3, keepdim=True)
+        rowmin = torch.where(valid, scores, torch.full_like(scores, float("inf"))).amin(
+            3, keepdim=True)
+        rng = torch.clamp(rowmax - rowmin, min=MIN_RANGE)
+        qk = torch.floor((scores - rowmin) * (float(levels) / rng))
+        packed = torch.where(valid, qk * float(slot_mult) + lane.to(torch.float32),
+                             torch.full_like(qk, -1.0))
+        sel = torch.topk(packed, kk, dim=3).values  # [a, qt, maxch, kk]
+        rm = torch.where(torch.isfinite(rowmin), rowmin, torch.zeros_like(rowmin))
+        cand_s, slot_loc = _dequantize(sel, torch.cat([rm, rng], dim=3), slot_mult, levels)
+        cand_s = torch.where(sel >= 0.0, cand_s, torch.full_like(cand_s, NEG_INF))
+        cand_i = torch.where(sel >= 0.0, first.to(torch.int32)[None, None, :, None] + slot_loc,
+                             torch.full_like(slot_loc, -1))
+        cand_s, cand_i = cand_s.reshape(a, qt, maxch * kk), cand_i.reshape(a, qt, maxch * kk)
+        # Score descending, then the larger slot: a stable sort by score of
+        # the candidates in descending-slot order. Slots are distinct, so
+        # this is the TPU kernel's kk rounds of max-and-clear.
+        by_slot = torch.argsort(cand_i, dim=2, descending=True, stable=True)
+        top_s, order = topk_stable(torch.gather(cand_s, 2, by_slot), kk)
+        out_s[g0 + alive] = top_s
+        out_i[g0 + alive] = torch.gather(torch.gather(cand_i, 2, by_slot), 2, order)
+    return out_s, out_i
+
+
+def chunk_merge(gp, group_size, qg, codes, norms, kk: int, ct: int, slot_mult: int, levels: int,
+                metric: str):
+    """Kernel K7 (replaces pallas_grouped.py::_v5_kernel).
+
+    gp [Gn] int32 partition per group (-1: ghost); group_size [Gn] int32
+    (<= 0: ghost); qg [Gn, qt, D] f32 unscaled queries; codes [P, C, D] f32,
+    C % ct == 0; norms [P, C] f32. Per group and chunk c < ceil(size / ct):
+    K4's per-row-range packed top-kk over the chunk's valid lanes, with
+    slot_mult = next_pow2(ct), dequantized to rowmin + key * (rng / levels)
+    at slot c * ct + lane; then per row the kk best over all chunks, score
+    descending and the larger slot first among equal scores. Returns (scores
+    [Gn, qt, kk] f32, without the per-query |q|^2, -inf = none; slots
+    [Gn, qt, kk] int32, -1 = none)."""
+    Gn, qt, D = qg.shape
+    P, C, _ = codes.shape
+    if ct <= 0 or C % ct:
+        raise ValueError(f"chunk_merge needs C % ct == 0 (C={C}, ct={ct})")
+    if kk > ct:
+        raise ValueError(f"chunk_merge needs kk <= ct (kk={kk}, ct={ct})")
+    if qg.device.type == "cpu":
+        return chunk_merge_plain(gp, group_size, qg, codes, norms, kk, ct, slot_mult, levels,
+                                 metric)
+    if qg.device.type != "cuda":
+        raise ValueError(f"chunk_merge: unsupported device {qg.device}")
+    if qt not in (8, 16, 32, 64):
+        raise ValueError(f"chunk_merge: qt must be 8, 16, 32 or 64 (qt={qt})")
+    Dp = -(-D // 4) * 4
+    if (qt * Dp + FOLD * (Dp + 1) + qt * topk_cap(kk) + qt * 6 * kk) * 4 > SMEM_LIMIT:
+        raise ValueError(f"chunk_merge: D={D}, qt={qt}, kk={kk} need more shared memory than "
+                         "a block has (kernel K7 keeps round_up(kk, 32) + 128 candidates and "
+                         "three lists of kk (score, slot) pairs per row)")
+    for name, t, dtype, shape in (
+            ("gp", gp, torch.int32, (Gn,)),
+            ("group_size", group_size, torch.int32, (Gn,)),
+            ("qg", qg, torch.float32, (Gn, qt, D)),
+            ("codes", codes, torch.float32, (P, C, D)),
+            ("norms", norms, torch.float32, (P, C))):
+        if (t.device != qg.device or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"chunk_merge: {name} must be a contiguous "
+                             f"{dtype} {shape} tensor on {qg.device}")
+    out_s = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.float32)
+    out_i = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.int32)
+    rc = _ext.lib().qk_chunk_merge(
+        gp.data_ptr(), group_size.data_ptr(), qg.data_ptr(), codes.data_ptr(),
+        norms.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), Gn, qt, D, C, ct, kk,
+        int(metric == "l2"), float(slot_mult), float(levels), _ext.stream_ptr(qg.device))
+    _ext.check(rc, "chunk_merge")
+    _ext.launches["chunk_merge"] += 1
+    return out_s, out_i
+
+
+# ----------------------------------------------------------------- wrappers
+
+
+def grouped_scan_v6(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int = 32,
+                    ct: int = 512, gpb: int = 4, dedup: bool = False, stages=None):
+    """v6 grouped scan (pallas_grouped.py::grouped_scan_pallas_v6): chunked
+    fetch, one selection over the whole row. On kernel K4 unchanged, which
+    computes _v6_kernel's function (that of _v3pn_kernel) and reads only the
+    segments below the partition's size; `ct` only has to divide C. Same
+    inputs and returns as grouped_scan_v3p."""
+    if dedup:
+        raise NotImplementedError(DEDUP_NOT_PORTED)
+    P, C, _ = codes.shape
+    _check_chunked("v6", P, C, ct)
+    return rowscale_search(codes, ids, sizes, norms, q, pids, k, metric, qt, gpb, "topk", stages)
+
+
+def grouped_scan_v5(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int = 32,
+                    ct: int = 512, gpb: int = 4, dedup: bool = False, stages=None):
+    """v5 grouped scan (pallas_grouped.py::grouped_scan_pallas_v5): per-chunk
+    selection and the cross-chunk merge in kernel K7, then one merge across
+    the probes and the exact rescore. Needs C % ct == 0. Same inputs and
+    returns as grouped_scan_v3p."""
+    if dedup:
+        raise NotImplementedError(DEDUP_NOT_PORTED)
+    B = q.shape[0]
+    P, C, _ = codes.shape
+    _check_chunked("v5", P, C, ct)
+    kk = min(k, ct)
+    slot_mult, levels = packed_params(ct)
+    group_pid, qlist, pair_group, pair_slot = build_groups(pids, P, qt)
+    gp, _, group_size, safe_q = pad_groups(group_pid, qlist, sizes, gpb)
+    qf = q.to(torch.float32)
+    qg = qf[safe_q].contiguous()  # [Gn, qt, D]
+    mark_stage(stages, "grouping")
+    g_scores, g_slots = chunk_merge(gp, group_size, qg, codes, norms, kk, ct, slot_mult, levels,
+                                    metric)
+    mark_stage(stages, "scan")
+    # Slim epilogue: the per-query -|q|^2 back, refs, one merge. The TPU
+    # epilogue's `alive` mask is not needed: K7 writes ghost groups as -1.
+    valid = g_slots >= 0
+    if metric == "l2":
+        g_scores = g_scores - torch.sum(qf * qf, dim=1)[safe_q][:, :, None]
+    g_scores = torch.where(valid, g_scores, torch.full_like(g_scores, NEG_INF))
+    gpid = torch.clamp(gp, min=0)[:, None, None]
+    refs = torch.where(valid, (gpid << 16) | g_slots, torch.full_like(g_slots, -1))
+    ok = (pair_group >= 0)[:, :, None]
+    pg = torch.clamp(pair_group, min=0)
+    m_scores = torch.where(ok, pair_take(g_scores, pg, pair_slot), NEG_INF).reshape(B, -1)
+    m_refs = torch.where(ok, pair_take(refs, pg, pair_slot), -1).reshape(B, -1)
+    mark_stage(stages, "merge")
+    out = rescore_topk(m_scores, m_refs, codes, ids, norms, q, k, kk, metric, pids)
+    mark_stage(stages, "rescore")
+    return out
+
+
+def grouped_scan_v4(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int = 32,
+                    ct: int = 512, gpb: int = 8, mat_qg: bool = False, dedup: bool = False,
+                    stages=None):
+    """v4 grouped scan (pallas_grouped.py::grouped_scan_pallas_v4): one
+    kernel group per chunk that holds vectors, kernel K4 with a chunk table,
+    a two-stage dequantized merge and the exact rescore. Needs C % ct == 0.
+    mat_qg gathers one query tile per chunk-group instead of letting the
+    kernel follow cg_qsrc; the result is the same. Same inputs and returns
+    as grouped_scan_v3p."""
+    if dedup:
+        raise NotImplementedError(DEDUP_NOT_PORTED)
+    B, nprobe = pids.shape
+    P, C, _ = codes.shape
+    _check_chunked("v4", P, C, ct)
+    kk = min(k, ct)
+    slot_mult, levels = packed_params(ct)
+    cg_pid, cg_chunk, cg_qsrc, cg_size, qlist, pair_cg, pair_slot = build_chunk_groups(
+        pids, sizes, P, qt, ct, C)
+    pad = -(-cg_pid.shape[0] // gpb) * gpb - cg_pid.shape[0]
+    cg_pid = torch.nn.functional.pad(cg_pid, (0, pad), value=-1)
+    cg_chunk, cg_qsrc, cg_size = (torch.nn.functional.pad(t, (0, pad))
+                                  for t in (cg_chunk, cg_qsrc, cg_size))
+    safe_q = torch.clamp(qlist, min=0).long()  # [G, qt]
+    qf = q.to(torch.float32)
+    qg = qf[safe_q].contiguous()  # [G, qt, D]
+    row_off = (cg_chunk * ct).contiguous()
+    if mat_qg:
+        qg = qg[cg_qsrc.long()].contiguous()  # [Gn, qt, D]
+        qsrc = torch.arange(cg_pid.shape[0], device=qg.device, dtype=torch.int32)
+    else:
+        qsrc = cg_qsrc
+    mark_stage(stages, "grouping")
+    g_packed, g_stats = rowscale_scan(cg_pid, cg_size, qg, codes, norms, kk, slot_mult, levels,
+                                      metric, "topk", qsrc=qsrc, row_off=row_off, ct=ct)
+    mark_stage(stages, "scan")
+    # Decode and dequantize. The TPU epilogue's `alive` mask is not needed:
+    # K4 writes ghost chunk-groups as -1.
+    valid = g_packed >= 0.0
+    approx, slots_local = _dequantize(g_packed, g_stats, slot_mult, levels)
+    if metric == "l2":
+        approx = approx - torch.sum(qf * qf, dim=1)[safe_q][cg_qsrc.long()][:, :, None]
+    approx = torch.where(valid, approx, torch.full_like(approx, NEG_INF))
+    gpid = torch.clamp(cg_pid, min=0)[:, None, None]
+    refs = torch.where(valid, (gpid << 16) | (row_off[:, None, None] + slots_local),
+                       torch.full_like(slots_local, -1))
+    # Stage 1: each (query, probe) pair reduces its chunks' kk candidates to kk.
+    maxch = pair_cg.shape[2]
+    okc = (pair_cg >= 0).reshape(B, nprobe * maxch, 1)
+    pcg = torch.clamp(pair_cg, min=0).reshape(B, nprobe * maxch)
+    ps = pair_slot[:, :, None].expand(B, nprobe, maxch).reshape(B, nprobe * maxch)
+    s = torch.where(okc, pair_take(approx, pcg, ps), NEG_INF).reshape(B, nprobe, maxch * kk)
+    rf = torch.where(okc, pair_take(refs, pcg, ps), -1).reshape(B, nprobe, maxch * kk)
+    if maxch > 1:
+        s, idx = topk_stable(s, kk)
+        rf = torch.gather(rf, 2, idx)
+    mark_stage(stages, "merge")
+    # Stage 2: the merge across the probes and the exact rescore.
+    out = rescore_topk(s.reshape(B, -1), rf.reshape(B, -1), codes, ids, norms, q, k, kk, metric,
+                       pids)
+    mark_stage(stages, "rescore")
+    return out

@@ -1,0 +1,182 @@
+"""The exact-score grouped scans chosen by name: v3 and v2 (their
+counterparts are quake_tpu/ops/pallas_grouped.py::grouped_scan_pallas_v3 and
+grouped_scan_pallas).
+
+Both select on the f32 scores themselves, with no quantized key, and end in
+`merge_groups`:
+
+  v3  kernel K6 in mode "slot": scores from the cached norms, lanes below the
+      partition's size, kk rounds of (max score, max slot among ties); the
+      epilogue adds the per-query -|q|^2 back and maps slot -> id
+  v2  kernel K6 in mode "id": |q|^2 and |x|^2 summed in the kernel, lanes
+      with id >= 0 (no sizes, so the whole slab is read), kk rounds of (max
+      score, max id among ties); the kernel emits ids
+
+K6 is a CUDA kernel (csrc/grouped_exact.cu); `exact_scan` runs its plain
+PyTorch version on CPU tensors and launches it on CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from quake_tpu_torch import _ext
+from quake_tpu_torch.ops.grouped import build_groups, merge_groups
+from quake_tpu_torch.ops.grouped_family import topk_cap
+from quake_tpu_torch.ops.grouped_scan import FOLD, SMEM_LIMIT
+from quake_tpu_torch.ops.scan import NEG_INF
+from quake_tpu_torch.profiling import mark_stage
+
+MODES = ("slot", "id")
+
+
+def exact_scan_plain(gp, qg, codes, kk: int, metric: str, mode: str, group_size=None,
+                     norms=None, ids=None, chunk: int = 256):
+    """Plain PyTorch version of kernel K6 (same inputs and outputs as
+    exact_scan), `chunk` groups at a time, round by round as
+    pallas_grouped.py::_v3_kernel (mode "slot") and _grouped_kernel (mode
+    "id")."""
+    Gn, qt, D = qg.shape
+    P, C, _ = codes.shape
+    dev = qg.device
+    out_s = torch.full((Gn, qt, kk), NEG_INF, device=dev, dtype=torch.float32)
+    out_i = torch.full((Gn, qt, kk), -1, device=dev, dtype=torch.int32)
+    lane = torch.arange(C, device=dev, dtype=torch.int32)
+    for g0 in range(0, Gn, chunk):
+        sl = slice(g0, min(g0 + chunk, Gn))
+        live = gp[sl] >= 0 if mode == "id" else group_size[sl] > 0
+        alive = torch.nonzero(live).flatten()
+        if alive.numel() == 0:
+            continue
+        p = gp[sl][alive].long()
+        qa = qg[sl][alive]
+        prod = torch.bmm(qa, codes[p].transpose(1, 2))  # [a, qt, C]
+        if mode == "id":
+            tag = ids[p][:, None, :].expand(-1, qt, -1)
+            valid = tag >= 0
+            if metric == "l2":
+                q_sq = torch.sum(qa * qa, dim=2, keepdim=True)
+                s_sq = torch.sum(codes[p] * codes[p], dim=2)
+                scores = 2.0 * prod - q_sq - s_sq[:, None, :]
+            else:
+                scores = prod
+        else:
+            tag = lane[None, None, :].expand(alive.numel(), qt, -1)
+            valid = tag < group_size[sl][alive][:, None, None]
+            scores = 2.0 * prod - norms[p][:, None, :] if metric == "l2" else prod
+        scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+        for i in range(kk):
+            best = scores.amax(dim=2, keepdim=True)
+            is_best = scores == best
+            best_tag = torch.where(is_best, tag, torch.full_like(tag, -1)).amax(dim=2,
+                                                                             keepdim=True)
+            out_s[g0 + alive, :, i] = best[:, :, 0]
+            out_i[g0 + alive, :, i] = torch.where(best == NEG_INF, torch.full_like(best_tag, -1),
+                                                  best_tag)[:, :, 0]
+            scores = torch.where(is_best & (tag == best_tag), torch.full_like(scores, NEG_INF),
+                                 scores)
+    return out_s, out_i
+
+
+def exact_scan(gp, qg, codes, kk: int, metric: str, mode: str, group_size=None, norms=None,
+               ids=None):
+    """Kernel K6 (replaces pallas_grouped.py::_v3_kernel in mode "slot" and
+    _grouped_kernel in mode "id").
+
+    gp [Gn] int32 partition per group (-1: ghost); qg [Gn, qt, D] f32
+    queries; codes [P, C, D] f32. Mode "slot" takes group_size [Gn] int32
+    (<= 0: ghost) and norms [P, C] f32: scores 2<q, x> - |x|^2 (l2, without
+    the per-query |q|^2) or <q, x> (ip) over the lanes below the size, ties
+    to the larger slot. Mode "id" takes ids [P, C] int32: scores
+    2<q, x> - |q|^2 - |x|^2 with both norms summed here, over the lanes with
+    id >= 0 of the whole slab, ties to the larger id. Returns (scores
+    [Gn, qt, kk] f32 descending, -inf = none; slots or ids [Gn, qt, kk]
+    int32, -1 = none)."""
+    Gn, qt, D = qg.shape
+    P, C, _ = codes.shape
+    if mode not in MODES:
+        raise ValueError(f"exact_scan: mode must be 'slot' or 'id', got {mode!r}")
+    if qg.device.type == "cpu":
+        return exact_scan_plain(gp, qg, codes, kk, metric, mode, group_size, norms, ids)
+    if qg.device.type != "cuda":
+        raise ValueError(f"exact_scan: unsupported device {qg.device}")
+    if qt not in (8, 16, 32, 64):
+        raise ValueError(f"exact_scan: qt must be 8, 16, 32 or 64 (qt={qt})")
+    Dp = -(-D // 4) * 4
+    # K6's per-row buffer holds as many (score, index) pairs as K4's holds values.
+    if (qt * Dp + FOLD * (Dp + 1) + FOLD + qt * 2 * topk_cap(kk)) * 4 > SMEM_LIMIT:
+        raise ValueError(f"exact_scan: D={D}, qt={qt}, kk={kk} need more shared memory than "
+                         "a block has (kernel K6 keeps round_up(kk, 32) + 128 (score, "
+                         "index) pairs per row)")
+    aux = (("group_size", group_size, torch.int32, (Gn,)), ("norms", norms, torch.float32, (P, C))
+           ) if mode == "slot" else (("ids", ids, torch.int32, (P, C)),)
+    for name, t, dtype, shape in (("gp", gp, torch.int32, (Gn,)),
+                                  ("qg", qg, torch.float32, (Gn, qt, D)),
+                                  ("codes", codes, torch.float32, (P, C, D))) + aux:
+        if (t is None or t.device != qg.device or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"exact_scan: {name} must be a contiguous {dtype} {shape} "
+                             f"tensor on {qg.device}")
+    out_s = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.float32)
+    out_i = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.int32)
+    rc = _ext.lib().qk_exact_topk(
+        gp.data_ptr(), group_size.data_ptr() if mode == "slot" else None, qg.data_ptr(),
+        codes.data_ptr(), norms.data_ptr() if mode == "slot" else None,
+        ids.data_ptr() if mode == "id" else None, out_s.data_ptr(), out_i.data_ptr(),
+        Gn, qt, D, C, kk, int(metric == "l2"), int(mode == "id"), _ext.stream_ptr(qg.device))
+    _ext.check(rc, "exact_topk")
+    _ext.launches["exact_topk"] += 1
+    return out_s, out_i
+
+
+def _exact_groups(q, pids, P: int, qt: int, dtype):
+    group_pid, qlist, pair_group, pair_slot = build_groups(pids, P, qt)
+    safe_q = torch.clamp(qlist, min=0).long()
+    return group_pid, safe_q, q.to(dtype)[safe_q].contiguous(), pair_group, pair_slot
+
+
+def grouped_scan_v3(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int = 32,
+                    stages=None):
+    """v3 grouped scan (pallas_grouped.py::grouped_scan_pallas_v3): slot
+    selection on exact scores, cached norms, size masking; ties among equal
+    scores go to the larger slot. Kernel K6, mode "slot".
+
+    codes [P, C, D] f32, ids [P, C] int32, sizes [P] int32, norms [P, C] f32,
+    q [B, D], pids [B, nprobe] int32 (-1 = pad). Returns (scores [B, k] f32,
+    ids [B, k] int32, scanned [B] int32)."""
+    P, C, _ = codes.shape
+    kk = min(k, C)
+    group_pid, safe_q, qg, pair_group, pair_slot = _exact_groups(q, pids, P, qt, codes.dtype)
+    gsafe = torch.clamp(group_pid, min=0).long()
+    group_size = torch.where(group_pid >= 0, sizes[gsafe],
+                             torch.zeros_like(group_pid)).to(torch.int32).contiguous()
+    mark_stage(stages, "grouping")
+    g_scores, g_slots = exact_scan(group_pid, qg, codes, kk, metric, "slot",
+                                   group_size=group_size, norms=norms)
+    mark_stage(stages, "scan")
+    # Epilogue: the per-query -|q|^2 back for l2 (-inf rows stay -inf), slot
+    # -> vector id.
+    if metric == "l2":
+        qf = q.to(torch.float32)
+        g_scores = g_scores - torch.sum(qf * qf, dim=1)[safe_q][:, :, None]
+    g_ids = ids.reshape(-1)[gsafe[:, None, None] * C + torch.clamp(g_slots, min=0).long()]
+    g_ids = torch.where(g_slots >= 0, g_ids, torch.full_like(g_ids, -1))
+    out = merge_groups(g_scores, g_ids, pair_group, pair_slot, pids, k, kk)
+    mark_stage(stages, "merge")
+    return out
+
+
+def grouped_scan_v2(codes, ids, q, pids, k: int, metric: str, qt: int = 64, stages=None):
+    """v2 grouped scan (pallas_grouped.py::grouped_scan_pallas): the whole
+    slab per group, validity from the ids, both norms summed in the kernel,
+    ties among equal scores to the larger id. Kernel K6, mode "id". Same
+    returns as grouped_scan_v3."""
+    P, C, _ = codes.shape
+    kk = min(k, C)
+    group_pid, _, qg, pair_group, pair_slot = _exact_groups(q, pids, P, qt, codes.dtype)
+    mark_stage(stages, "grouping")
+    g_scores, g_ids = exact_scan(group_pid, qg, codes, kk, metric, "id", ids=ids)
+    mark_stage(stages, "scan")
+    out = merge_groups(g_scores, g_ids, pair_group, pair_slot, pids, k, kk)
+    mark_stage(stages, "merge")
+    return out

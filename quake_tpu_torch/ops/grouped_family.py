@@ -3,7 +3,9 @@
 
   v3p, v3pN  kernel K4 (`rowscale_scan(select="topk")`): per-row range key,
              exact per-row top-kk, per-row stats; then `v3p_epilogue`
-             (dequantized cross-group merge + exact rescore)
+             (dequantized cross-group merge + exact rescore). K4 also
+             serves v6 as it is and, with a chunk table, v4
+             (ops/grouped_chunked.py)
   v7         kernel K5 (`rowscale_scan(select="fold")`): the same key,
              fold-128 top-2 + kk rounds; then `v3p_epilogue`
   v8, v9     kernel K1 (global-scale key, fold-128 top-2, kk rounds); then
@@ -23,12 +25,12 @@ from __future__ import annotations
 import torch
 
 from quake_tpu_torch import _ext
-from quake_tpu_torch.ops.grouped import build_groups
-from quake_tpu_torch.ops.grouped_scan import (DEDUP_NOT_PORTED, FOLD, SMEM_LIMIT,
-                                              fold_rounds, global_scale,
-                                              grouped_scan_kernel, mark_stage, packed_params,
+from quake_tpu_torch.ops.grouped import DEDUP_NOT_PORTED, build_groups
+from quake_tpu_torch.ops.grouped_scan import (FOLD, SMEM_LIMIT, fold_rounds, global_scale,
+                                              grouped_scan_kernel, packed_params,
                                               pad_groups, pool_tail, rescore_topk)
 from quake_tpu_torch.ops.scan import NEG_INF
+from quake_tpu_torch.profiling import mark_stage
 
 MIN_RANGE = 1e-20  # floor of a row's score range (one valid lane, or none)
 
@@ -49,29 +51,45 @@ def topk_cap(kk: int) -> int:
 
 
 def rowscale_scan_plain(gp, group_size, qg, codes, norms, kk: int, slot_mult: int,
-                        levels: int, metric: str, select: str, chunk: int = 256):
+                        levels: int, metric: str, select: str = "topk", qsrc=None,
+                        row_off=None, ct: int = 0, chunk: int = 256):
     """Plain PyTorch version of kernels K4 and K5 (same inputs and outputs as
     rowscale_scan), computed `chunk` groups at a time, step by step as
     pallas_grouped.py::_v3p_group_body with _v3p_select (topk) or
-    _v7_select (fold)."""
-    Gn, qt, D = qg.shape
+    _v7_select (fold). With a chunk table (_v4_kernel), each group scores the
+    `ct` rows from row_off[g] of its partition against the query tile
+    qsrc[g], and lanes are chunk-local."""
+    Gn = gp.shape[0]
+    _, qt, D = qg.shape
     P, C, _ = codes.shape
     dev = qg.device
+    chunked = row_off is not None
+    W = ct if chunked else C  # lanes per group
     out = torch.full((Gn, qt, kk), -1.0, device=dev, dtype=torch.float32)
     stats = torch.zeros((Gn, qt, 2), device=dev, dtype=torch.float32)
     stats[:, :, 1] = MIN_RANGE
-    lane = torch.arange(C, device=dev)
+    lane = torch.arange(W, device=dev)
     lane_f = lane.to(torch.float32)
     for g0 in range(0, Gn, chunk):
         sl = slice(g0, min(g0 + chunk, Gn))
-        size = group_size[sl]
+        size = group_size[sl].long()
+        if chunked:
+            size = torch.minimum(size, C - row_off[sl].long())
         alive = torch.nonzero(size > 0).flatten()
         if alive.numel() == 0:
             continue
         p = gp[sl][alive].long()
-        prod = torch.bmm(qg[sl][alive], codes[p].transpose(1, 2))  # [a, qt, C]
-        scores = 2.0 * prod - norms[p][:, None, :] if metric == "l2" else prod
-        valid = (lane[None, :] < size[alive][:, None].long())[:, None, :]
+        if chunked:
+            # Rows past the partition's end are clamped; the size masks them.
+            rows = torch.clamp((p * C + row_off[sl][alive].long())[:, None] + lane[None, :],
+                               max=P * C - 1)
+            slab, nrm = codes.reshape(P * C, D)[rows], norms.reshape(P * C)[rows]
+            tiles = qg[qsrc[sl][alive].long()]
+        else:
+            slab, nrm, tiles = codes[p], norms[p], qg[sl][alive]
+        prod = torch.bmm(tiles, slab.transpose(1, 2))  # [a, qt, W]
+        scores = 2.0 * prod - nrm[:, None, :] if metric == "l2" else prod
+        valid = (lane[None, :] < size[alive][:, None])[:, None, :]
         rowmax = torch.where(valid, scores, torch.full_like(scores, NEG_INF)).amax(2, keepdim=True)
         rowmin = torch.where(valid, scores, torch.full_like(scores, float("inf"))).amin(
             2, keepdim=True)
@@ -80,7 +98,7 @@ def rowscale_scan_plain(gp, group_size, qg, codes, norms, kk: int, slot_mult: in
         packed = torch.where(valid, qk * float(slot_mult) + lane_f,
                              torch.full_like(qk, -1.0))
         a = alive.numel()
-        flat = packed.reshape(a * qt, C)
+        flat = packed.reshape(a * qt, W)
         if select == "fold":
             sel = fold_rounds(flat, kk, FOLD)
         else:
@@ -92,9 +110,10 @@ def rowscale_scan_plain(gp, group_size, qg, codes, norms, kk: int, slot_mult: in
 
 
 def rowscale_scan(gp, group_size, qg, codes, norms, kk: int, slot_mult: int, levels: int,
-                  metric: str, select: str = "topk"):
-    """Kernel K4 (select="topk"; replaces pallas_grouped.py::_v3p_kernel and
-    _v3pn_kernel) or K5 (select="fold"; replaces _v7_kernel).
+                  metric: str, select: str = "topk", qsrc=None, row_off=None, ct: int = 0):
+    """Kernel K4 (select="topk"; replaces pallas_grouped.py::_v3p_kernel,
+    _v3pn_kernel, _v6_kernel and, with a chunk table, _v4_kernel) or K5
+    (select="fold"; replaces _v7_kernel).
 
     gp [Gn] int32 partition per group; group_size [Gn] int32 (<= 0: ghost);
     qg [Gn, qt, D] f32 unscaled queries; codes [P, C, D] f32; norms [P, C]
@@ -102,16 +121,28 @@ def rowscale_scan(gp, group_size, qg, codes, norms, kk: int, slot_mult: int, lev
     the row's range, packed = floor((s - rowmin) * (levels / rng)) *
     slot_mult + lane. Returns (out [Gn, qt, kk] f32 packed, descending, -1 =
     none; stats [Gn, qt, 2] f32 = (rowmin or 0, rng)). Ghost groups write -1
-    and stats (0, 1e-20). K4 takes any C; K5 needs C % 128 == 0."""
-    Gn, qt, D = qg.shape
+    and stats (0, 1e-20). K4 takes any C; K5 needs C % 128 == 0.
+
+    The chunk table (K4 only, the v4 scan): qsrc [Gn] int32 names the query
+    tile of qg [G, qt, D] each group reads, row_off [Gn] int32 the first of
+    the `ct` rows of its partition it scores; group_size then counts the
+    chunk's valid lanes, and lanes and slots are chunk-local."""
+    Gn = gp.shape[0]
+    G, qt, D = qg.shape
     P, C, _ = codes.shape
+    chunked = qsrc is not None or row_off is not None
     if select not in ("topk", "fold"):
         raise ValueError(f"rowscale_scan: select must be 'topk' or 'fold', got {select!r}")
     if select == "fold" and C % FOLD:
         raise ValueError(f"rowscale fold selection needs C % 128 == 0 (C={C})")
+    if chunked and (select != "topk" or qsrc is None or row_off is None or ct <= 0):
+        raise ValueError("rowscale_scan: a chunk table needs select='topk', qsrc, row_off "
+                         "and ct > 0")
+    if not chunked and G != Gn:
+        raise ValueError(f"rowscale_scan: qg must hold one tile per group ({G} != {Gn})")
     if qg.device.type == "cpu":
         return rowscale_scan_plain(gp, group_size, qg, codes, norms, kk, slot_mult,
-                                   levels, metric, select)
+                                   levels, metric, select, qsrc, row_off, ct)
     if qg.device.type != "cuda":
         raise ValueError(f"rowscale_scan: unsupported device {qg.device}")
     if qt not in (8, 16, 32, 64):
@@ -125,20 +156,26 @@ def rowscale_scan(gp, group_size, qg, codes, norms, kk: int, slot_mult: int, lev
     for name, t, dtype, shape in (
             ("gp", gp, torch.int32, (Gn,)),
             ("group_size", group_size, torch.int32, (Gn,)),
-            ("qg", qg, torch.float32, (Gn, qt, D)),
+            ("qg", qg, torch.float32, (G, qt, D)),
             ("codes", codes, torch.float32, (P, C, D)),
-            ("norms", norms, torch.float32, (P, C))):
+            ("norms", norms, torch.float32, (P, C))) + (
+            (("qsrc", qsrc, torch.int32, (Gn,)), ("row_off", row_off, torch.int32, (Gn,)))
+            if chunked else ()):
         if (t.device != qg.device or t.dtype != dtype or tuple(t.shape) != shape
                 or not t.is_contiguous()):
             raise ValueError(f"rowscale_scan: {name} must be a contiguous "
                              f"{dtype} {shape} tensor on {qg.device}")
     out = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.float32)
     stats = torch.empty((Gn, qt, 2), device=qg.device, dtype=torch.float32)
-    entry = "qk_rowscale_topk" if select == "topk" else "qk_rowscale_fold"
-    rc = getattr(_ext.lib(), entry)(
-        gp.data_ptr(), group_size.data_ptr(), qg.data_ptr(), codes.data_ptr(),
-        norms.data_ptr(), out.data_ptr(), stats.data_ptr(), Gn, qt, D, C, kk,
-        int(metric == "l2"), float(slot_mult), float(levels), _ext.stream_ptr(qg.device))
+    tail = (qg.data_ptr(), codes.data_ptr(), norms.data_ptr(), out.data_ptr(),
+            stats.data_ptr(), Gn, qt, D, C, kk, int(metric == "l2"), float(slot_mult),
+            float(levels), _ext.stream_ptr(qg.device))
+    if select == "topk":
+        rc = _ext.lib().qk_rowscale_topk(
+            gp.data_ptr(), group_size.data_ptr(), qsrc.data_ptr() if chunked else None,
+            row_off.data_ptr() if chunked else None, *tail)
+    else:
+        rc = _ext.lib().qk_rowscale_fold(gp.data_ptr(), group_size.data_ptr(), *tail)
     name = "rowscale_topk" if select == "topk" else "rowscale_fold"
     _ext.check(rc, name)
     _ext.launches[name] += 1
@@ -199,12 +236,12 @@ def global_epilogue(g_packed, pair_group, pair_slot, pids, codes, ids, norms,
 # ----------------------------------------------------------------- wrappers
 
 
-def _check_refs(name: str, P: int, C: int) -> None:
+def check_refs(name: str, P: int, C: int) -> None:
     if P >= 32768 or C > 65536:
         raise ValueError(f"{name} packs (pid, slot) into int32: needs P < 32768, C <= 65536")
 
 
-def _rowscale_search(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int,
+def rowscale_search(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int,
                      gpb: int, select: str, stages):
     """Grouping, kernel K4 or K5, and the v3p epilogue."""
     P, C, _ = codes.shape
@@ -230,8 +267,8 @@ def grouped_scan_v3p(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt:
     q [B, D], pids [B, nprobe] int32 (-1 = pad). Returns (scores [B, k] f32,
     ids [B, k] int32, scanned [B] int32). Any C."""
     P, C, _ = codes.shape
-    _check_refs("v3p", P, C)
-    return _rowscale_search(codes, ids, sizes, norms, q, pids, k, metric, qt, 1, "topk",
+    check_refs("v3p", P, C)
+    return rowscale_search(codes, ids, sizes, norms, q, pids, k, metric, qt, 1, "topk",
                             stages)
 
 
@@ -244,8 +281,8 @@ def grouped_scan_v3pn(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt
     if dedup:
         raise NotImplementedError(DEDUP_NOT_PORTED)
     P, C, _ = codes.shape
-    _check_refs("v3p", P, C)
-    return _rowscale_search(codes, ids, sizes, norms, q, pids, k, metric, qt, gpb, "topk",
+    check_refs("v3p", P, C)
+    return rowscale_search(codes, ids, sizes, norms, q, pids, k, metric, qt, gpb, "topk",
                             stages)
 
 
@@ -259,8 +296,8 @@ def grouped_scan_v7(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: 
     if dedup:
         raise NotImplementedError(DEDUP_NOT_PORTED)
     P, C, _ = codes.shape
-    _check_refs("v7", P, C)
-    return _rowscale_search(codes, ids, sizes, norms, q, pids, k, metric, qt, gpb, "fold",
+    check_refs("v7", P, C)
+    return rowscale_search(codes, ids, sizes, norms, q, pids, k, metric, qt, gpb, "fold",
                             stages)
 
 
@@ -274,7 +311,7 @@ def grouped_scan_v8(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: 
     if dedup:
         raise NotImplementedError(DEDUP_NOT_PORTED)
     P, C, _ = codes.shape
-    _check_refs("v8", P, C)
+    check_refs("v8", P, C)
     kk = min(k, C)
     slot_mult, levels = packed_params(C)
     q_scaled, normsT = global_scale(q, norms, metric, levels)

@@ -25,16 +25,13 @@ from __future__ import annotations
 import torch
 
 from quake_tpu_torch import _ext
-from quake_tpu_torch.ops.grouped import build_groups_scatter, group_layout
+from quake_tpu_torch.ops.grouped import (DEDUP_NOT_PORTED, build_groups_scatter,
+                                          group_layout)
 from quake_tpu_torch.ops.scan import NEG_INF, topk_stable
+from quake_tpu_torch.profiling import mark_stage
 
 FOLD = 128
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
-
-
-def mark_stage(stages, name: str) -> None:
-    if stages is not None:
-        stages.mark(name)
 
 
 def fold_rounds(packed, k: int, fold: int = FOLD):
@@ -234,10 +231,6 @@ def exact_rescore(top_refs, codes, ids, norms, q, k: int, kfin: int,
         out_ids = torch.nn.functional.pad(out_ids, (0, padn), value=-1)
     scanned = torch.sum((pids >= 0).to(torch.int32), dim=1, dtype=torch.int32)
     return scores, out_ids.to(torch.int32), scanned
-
-
-DEDUP_NOT_PORTED = ("dedup (spilled stores): ROADMAP Queue 1 item 8 (bf16, "
-                    "exact=False, spill/dedup)")
 
 
 def rescore_topk(m_scores, m_refs, codes, ids, norms, q, k: int, kk: int,

@@ -12,6 +12,12 @@ from __future__ import annotations
 import torch
 
 
+def mark_stage(stages, name: str) -> None:
+    """stages.mark(name) when a stages object was given."""
+    if stages is not None:
+        stages.mark(name)
+
+
 class StageTimer:
     """Collects device time per named stage over one or more runs.
 

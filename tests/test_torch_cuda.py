@@ -9,7 +9,12 @@ K3, K4 and K5 quantize f32 dot products with floor(); the kernel sums in
 another order than torch.matmul, so a key can move by one level: they
 compare winner overlap >= 0.99, and keys of a common winner within one
 level. K4 and K5's per-row stats (rowmin, range) come from the same f32
-scores summed in another order: rtol = atol = 1e-4.
+scores summed in another order: rtol = atol = 1e-4. K6 selects on the f32
+scores themselves and K7 on dequantized ones: scores rank by rank within
+rtol = atol = 1e-4 (the other order of summation; K7's atol grows by one
+quantization level, bounded by the largest possible score range / levels,
+since that order can move a key by one level), winner overlap >= 0.99, and exact duplicates, whose scores tie bit for bit in either order
+of summation, must come out in the kernel's tie order exactly.
 """
 
 import numpy as np
@@ -18,6 +23,8 @@ import torch
 
 from quake_tpu_torch import _ext
 from quake_tpu_torch.ops.flat_topk import flat_topk, flat_topk_plain
+from quake_tpu_torch.ops.grouped_chunked import chunk_merge, chunk_merge_plain
+from quake_tpu_torch.ops.grouped_exact import exact_scan, exact_scan_plain
 from quake_tpu_torch.ops.grouped_family import rowscale_scan, rowscale_scan_plain
 from quake_tpu_torch.ops.grouped_scan import (grouped_scan_kernel, grouped_scan_plain,
                                               merge_positions, merge_positions_plain,
@@ -143,10 +150,132 @@ def test_rowscale_topk_rejects_kk_beyond_shared_memory(dev):
                       torch.zeros((2, C), device=dev), kk, slot_mult, levels, "l2")
 
 
+def _chunk_store(dev, rng, P, C, D, kk):
+    codes = torch.from_numpy(rng.standard_normal((P, C, D)).astype(np.float32)).to(dev)
+    norms = (codes * codes).sum(-1).contiguous()
+    sizes = torch.tensor([C, C - 70, 0, 1, kk // 2, 150], dtype=torch.int32, device=dev)
+    return codes, norms, sizes
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("qt,kk", [(8, 10), (64, 10), (64, 100)])
+@pytest.mark.parametrize("C,ct", [(384, 128), (512, 256), (200, 100)])
+def test_rowscale_chunk_table_matches_plain(dev, C, ct, qt, kk, metric):
+    """K4 with a chunk table (the v4 scan): every chunk of every partition
+    as its own group, shared query tiles, chunks past the size, ghosts."""
+    rng = np.random.default_rng(C + qt + kk)
+    P, G, D = 6, 5, 32
+    codes, norms, sizes = _chunk_store(dev, rng, P, C, D, kk)
+    maxch = C // ct
+    gp = torch.arange(-1, P, dtype=torch.int32, device=dev).repeat_interleave(maxch)
+    chunk = torch.arange(maxch, dtype=torch.int32, device=dev).repeat(P + 1)
+    gsize = torch.where(gp >= 0, (sizes[gp.clamp(min=0).long()] - chunk * ct).clamp(0, ct),
+                        torch.zeros_like(gp)).contiguous()
+    qsrc = torch.from_numpy(rng.integers(0, G, gp.shape[0]).astype(np.int32)).to(dev)
+    qg = torch.from_numpy(rng.standard_normal((G, qt, D)).astype(np.float32)).to(dev)
+    slot_mult, levels = packed_params(ct)
+    kw = dict(qsrc=qsrc, row_off=(chunk * ct).contiguous(), ct=ct)
+    args = (gp.contiguous(), gsize, qg, codes, norms, min(kk, ct), slot_mult, levels, metric,
+            "topk")
+    got, got_stats = rowscale_scan(*args, **kw)
+    want, want_stats = rowscale_scan_plain(*args, **kw)
+    torch.cuda.synchronize()
+    alive = gsize > 0
+    assert (got[~alive] == -1).all()
+    torch.testing.assert_close(got_stats, want_stats, rtol=1e-4, atol=1e-4)
+    g, w = got[alive].reshape(-1, got.shape[2]), want[alive].reshape(-1, got.shape[2])
+    gl = torch.where(g >= 0, torch.remainder(g, slot_mult), torch.full_like(g, -1))
+    wl = torch.where(w >= 0, torch.remainder(w, slot_mult), torch.full_like(w, -1))
+    assert _overlap(gl, wl) >= 0.99
+    same = (gl == wl) & (gl >= 0)
+    key_diff = (torch.floor(g / slot_mult) - torch.floor(w / slot_mult)).abs()
+    assert float(key_diff[same].max()) <= 1.0
+    assert ((g >= 0).sum(1) == (w >= 0).sum(1)).all()
+
+
+def _pairs_match(got_s, got_i, want_s, want_i, tol, level=0.0):
+    """(score, index) lists rank by rank: as many winners, scores within
+    rtol = tol and atol = tol + level, winner overlap >= 0.99."""
+    assert ((got_i >= 0) == (want_i >= 0)).all()
+    assert (torch.isneginf(got_s) == (got_i < 0)).all()
+    ok = want_i >= 0
+    torch.testing.assert_close(got_s[ok], want_s[ok], rtol=tol, atol=tol + level)
+    assert _overlap(got_i.reshape(-1, got_i.shape[-1]), want_i.reshape(-1, got_i.shape[-1])) >= 0.99
+    step = torch.diff(got_s, dim=-1)
+    assert (step[~torch.isnan(step)] <= 0).all()  # descending (-inf next to -inf gives nan)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("qt,kk", [(8, 1), (64, 10), (8, 40), (64, 128)])
+@pytest.mark.parametrize("mode,C", [("slot", 200), ("slot", 384), ("id", 200), ("id", 384)])
+def test_exact_topk_kernel_matches_plain(dev, mode, C, qt, kk, metric):
+    """K6 in both modes: odd C, ghost groups, an empty partition, partitions
+    below kk, and duplicate vectors whose equal scores must order by the
+    larger slot (mode slot) or the larger id (mode id)."""
+    rng = np.random.default_rng(C + qt + kk)
+    P, Gn, D = 6, 24, 32
+    codes, norms, sizes = _chunk_store(dev, rng, P, C, D, kk)
+    codes[0, 5::2] = codes[0, 5]  # many copies of one vector in partition 0
+    codes[1, 10] = codes[1, 90]
+    norms = (codes * codes).sum(-1).contiguous()
+    ids = torch.from_numpy(rng.permutation(P * C).astype(np.int32).reshape(P, C)).to(dev)
+    lane = torch.arange(C, device=dev)[None, :]
+    ids = torch.where(lane < sizes[:, None], ids, torch.full_like(ids, -1)).contiguous()
+    gp = torch.from_numpy(rng.integers(-1, P, Gn).astype(np.int32)).to(dev)
+    gp[:2] = torch.tensor([0, 1], dtype=torch.int32)
+    gsize = torch.where(gp >= 0, sizes[gp.clamp(min=0).long()], torch.zeros_like(gp)).contiguous()
+    qg = torch.from_numpy(rng.standard_normal((Gn, qt, D)).astype(np.float32)).to(dev)
+    qg[0, 0] = codes[0, 5] * 3.0  # the copies are this row's best
+    kw = dict(group_size=gsize, norms=norms) if mode == "slot" else dict(ids=ids)
+    got_s, got_i = exact_scan(gp, qg, codes, min(kk, C), metric, mode, **kw)
+    want_s, want_i = exact_scan_plain(gp, qg, codes, min(kk, C), metric, mode, **kw)
+    torch.cuda.synchronize()
+    _pairs_match(got_s, got_i, want_s, want_i, 1e-4)
+    # Runs of equal scores (the copies) come out index-descending.
+    tied = torch.diff(got_s, dim=2) == 0
+    assert bool(tied.any()) or kk == 1
+    assert (torch.diff(got_i, dim=2)[tied & (got_i[:, :, 1:] >= 0)] < 0).all()
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("qt,kk", [(8, 10), (64, 10), (8, 64)])
+@pytest.mark.parametrize("C,ct", [(384, 128), (512, 256), (256, 64)])
+def test_chunk_merge_kernel_matches_plain(dev, C, ct, qt, kk, metric):
+    """K7: chunks of one and of two 128-row segments and below one, ghost
+    groups, an empty partition, partitions that end inside a chunk."""
+    rng = np.random.default_rng(C + qt + kk)
+    P, Gn, D = 6, 24, 32
+    codes, norms, sizes = _chunk_store(dev, rng, P, C, D, kk)
+    gp = torch.from_numpy(rng.integers(-1, P, Gn).astype(np.int32)).to(dev)
+    gsize = torch.where(gp >= 0, sizes[gp.clamp(min=0).long()], torch.zeros_like(gp)).contiguous()
+    qg = torch.from_numpy(rng.standard_normal((Gn, qt, D)).astype(np.float32)).to(dev)
+    slot_mult, levels = packed_params(ct)
+    args = (gp, gsize, qg, codes, norms, min(kk, ct), ct, slot_mult, levels, metric)
+    got_s, got_i = chunk_merge(*args)
+    want_s, want_i = chunk_merge_plain(*args)
+    torch.cuda.synchronize()
+    # One key level is at most (the largest possible score range) / levels.
+    qmax, xmax = float((qg * qg).sum(-1).max().sqrt()), float(norms.max().sqrt())
+    span = 4.0 * qmax * xmax + xmax * xmax if metric == "l2" else 2.0 * qmax * xmax
+    _pairs_match(got_s, got_i, want_s, want_i, 1e-4, level=span / levels)
+
+
+def test_exact_and_chunk_kernels_reject_kk_beyond_shared_memory(dev):
+    C, D, qt = 1024, 128, 64
+    codes = torch.zeros((2, C, D), device=dev)
+    gp = torch.zeros(4, dtype=torch.int32, device=dev)
+    qg, norms = torch.zeros((4, qt, D), device=dev), torch.zeros((2, C), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        exact_scan(gp, qg, codes, 512, "l2", "slot", group_size=gp + C, norms=norms)
+    with pytest.raises(ValueError, match="shared memory"):
+        chunk_merge(gp, gp + C, qg, codes, norms, 128, 256, 256, 65534, "l2")
+
+
 def test_launch_counts(dev):
     _ext.reset_launches()
     keys = torch.zeros((8, 128), device=dev)
     merge_positions(keys, 4, 128)
     merge_positions_plain(keys, 4, 128)
     assert _ext.launches == {"grouped_scan": 0, "merge_positions": 1, "flat_topk": 0,
-                             "rowscale_topk": 0, "rowscale_fold": 0}
+                             "rowscale_topk": 0, "rowscale_fold": 0, "exact_topk": 0,
+                             "chunk_merge": 0}

@@ -256,21 +256,22 @@ def test_dispatch_reaches_wrapper(monkeypatch, kernel, C, want, gpb):
                             lambda *a, _n=name, **kw: calls.append((_n, kw.get("gpb"))))
     codes = torch.zeros((4, C, 8))
     coordinator.grouped_scan(codes, None, None, None, torch.zeros((16, 8)),
-                             torch.zeros((16, 2), dtype=torch.int32), 10, "l2", 8, kernel)
+                             torch.zeros((16, 2), dtype=torch.int32), 10, "l2", 8, 8, kernel,
+                             dense=True)
     assert calls == [(want, gpb)]
 
 
 @pytest.mark.parametrize("kernel,match", [
-    ("v2", "Queue 2"), ("v3", "Queue 2"), ("v4", "Queue 2"), ("v4c512g8", "Queue 2"),
-    ("v5", "Queue 2"), ("v6c256g2", "Queue 2"), ("v10", "Queue 1 item 9"),
-    ("v10g4", "Queue 1 item 9"), ("xla", "Queue 1 item 6b"), ("v12", "unknown"),
-    ("v7f256", "fold by 128"), ("v11g4f256", "fold by 128"),
+    ("v10", "Queue 1 item 9"), ("v10g4", "Queue 1 item 9"), ("v10g4f256", "Queue 1 item 9"),
+    ("v7f256", "fold by 128"), ("v8g2f256", "fold by 128"), ("v9f256", "fold by 128"),
+    ("v11g4f256", "fold by 128"),
 ])
 def test_dispatch_unported_names_raise(kernel, match):
     codes = torch.zeros((4, 256, 8))  # C % 256 == 0: f256 needs a fold of 256
     with pytest.raises(NotImplementedError, match=match):
         coordinator.grouped_scan(codes, None, None, None, torch.zeros((16, 8)),
-                                 torch.zeros((16, 2), dtype=torch.int32), 10, "l2", 8, kernel)
+                                 torch.zeros((16, 2), dtype=torch.int32), 10, "l2", 8, 8, kernel,
+                                 dense=True)
 
 
 @pytest.mark.parametrize("kernel,dense,dedup,exc,match", [
@@ -279,10 +280,12 @@ def test_dispatch_unported_names_raise(kernel, match):
     ("v3p", True, True, ValueError, "does not support dedup"),
     ("v3p4", True, True, NotImplementedError, "Queue 1 item 8"),
     ("v11", False, False, NotImplementedError, "Queue 1 item 9"),
+    ("v11g2", None, False, NotImplementedError, "Queue 1 item 9"),  # dense defaults to False
 ])
 def test_dispatch_guards(kernel, dense, dedup, exc, match):
     codes, ids, sizes, norms = _store(2, 128, 8, seed=0, sizes=[128, 128])
+    kw = {} if dense is None else dict(dense=dense)
     with pytest.raises(exc, match=match):
         coordinator.grouped_scan(_t(codes), _t(ids), _t(sizes), _t(norms),
                                  torch.zeros((16, 8)), torch.zeros((16, 2), dtype=torch.int32),
-                                 10, "l2", 8, kernel, dense=dense, dedup=dedup)
+                                 10, "l2", 8, 8, kernel, dedup=dedup, **kw)

@@ -25,10 +25,14 @@ from quake_tpu import IndexBuildParams as JaxBuildParams
 from quake_tpu import QuakeIndex as JaxIndex
 from quake_tpu import SearchParams as JaxSearchParams
 from quake_tpu.kmeans import kmeans_fit_assign as jax_kmeans
+from quake_tpu.ops.grouped import grouped_scan_xla as jax_scan_xla
 from quake_tpu.ops.pallas_flat import parent_rank_pallas
-from quake_tpu.ops.pallas_grouped import (grouped_scan_pallas_v3p, grouped_scan_pallas_v3pn,
-                                          grouped_scan_pallas_v7, grouped_scan_pallas_v8,
-                                          grouped_scan_pallas_v9, grouped_scan_pallas_v11)
+from quake_tpu.ops.pallas_grouped import (grouped_scan_pallas, grouped_scan_pallas_v3,
+                                          grouped_scan_pallas_v3p, grouped_scan_pallas_v3pn,
+                                          grouped_scan_pallas_v4, grouped_scan_pallas_v5,
+                                          grouped_scan_pallas_v6, grouped_scan_pallas_v7,
+                                          grouped_scan_pallas_v8, grouped_scan_pallas_v9,
+                                          grouped_scan_pallas_v11)
 from quake_tpu.ops.scan import scores_to_distances as jax_scores_to_distances
 from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams, index_from_numpy
 from quake_tpu_torch import coordinator
@@ -89,7 +93,8 @@ def test_whole_slice_on_one_state(jax_index):
     k, nprobe = 10, 8
     tidx = index_from_numpy(_arrays(jidx.store.state), _arrays(jidx.parent.store.state),
                             "l2", device="cpu")
-    qt = tidx._grouped_params(len(q), nprobe)
+    qt, group_chunk = tidx._grouped_params(len(q), nprobe)
+    assert (qt, group_chunk) == jidx._grouped_params(len(q), nprobe)
     gpb = int(tidx._grouped_kernel()[len("v11g"):])
     st, pst = jidx.store.state, jidx.parent.store.state
     qj = jnp.asarray(q)
@@ -123,6 +128,16 @@ def test_whole_slice_on_one_state(jax_index):
     assert res.timing_info.total_time_ns > 0
 
 
+def _jax_v2(codes, ids, sizes, norms, q, pids, k, metric, qt, interpret):
+    return grouped_scan_pallas(codes, ids, q, pids, k, metric, qt=qt, interpret=interpret)
+
+
+def _jax_xla(codes, ids, sizes, norms, q, pids, k, metric, qt, interpret):
+    """The JAX package's scan off the TPU; group_chunk only sets how many
+    groups one step gathers."""
+    return jax_scan_xla(codes, ids, q, pids, k, metric, qt=qt, group_chunk=64, norms=norms)
+
+
 @pytest.mark.parametrize("kernel,jax_scan,kw", [
     ("v3p", grouped_scan_pallas_v3p, {}),
     ("v3p4", grouped_scan_pallas_v3pn, dict(gpb=4)),
@@ -131,6 +146,13 @@ def test_whole_slice_on_one_state(jax_index):
     ("v9", grouped_scan_pallas_v9, dict(gpb=4)),
     # C = 512 here, so a fold of 1024 does not divide C: the v3pN fallback.
     ("v11g4f1024", grouped_scan_pallas_v3pn, dict(gpb=4)),
+    ("v3", grouped_scan_pallas_v3, {}),
+    ("v2", _jax_v2, {}),
+    ("xla", _jax_xla, {}),
+    ("v4", grouped_scan_pallas_v4, dict(ct=512, gpb=8)),  # C = 512: one chunk
+    ("v4c128g8", grouped_scan_pallas_v4, dict(ct=128, gpb=8)),
+    ("v5c128g2", grouped_scan_pallas_v5, dict(ct=128, gpb=2)),
+    ("v6c128", grouped_scan_pallas_v6, dict(ct=128, gpb=4)),
 ])
 def test_whole_slice_by_name(jax_index, monkeypatch, kernel, jax_scan, kw):
     """QuakeIndex.search with QUAKE_TPU_KERNEL naming the scan, against the
@@ -151,7 +173,7 @@ def test_whole_slice_by_name(jax_index, monkeypatch, kernel, jax_scan, kw):
                               interpret=True)
     pids = jnp.where(pids >= 0, pids, pids[:, :1])
     s1, i1, _ = jax_scan(st.codes, st.ids, st.sizes, st.norms, qj, pids, k, "l2",
-                         qt=tidx._grouped_params(len(q), nprobe), interpret=True, **kw)
+                         qt=tidx._grouped_params(len(q), nprobe)[0], interpret=True, **kw)
     d1 = np.asarray(jax_scores_to_distances(s1, i1, "l2"))
     i1 = np.asarray(i1)
     overlap = np.mean([len(set(a) & set(b)) / k for a, b in zip(i1, res.ids)])
@@ -258,7 +280,8 @@ def test_imports_without_jax():
         bad = [m for m in sys.modules if m == "quake_tpu" or m.startswith("quake_tpu.")
                or m == "jax" and sys.modules[m] is not None]
         assert not bad, bad
-        for m in ("coordinator", "ops.grouped", "ops.grouped_family", "ops.grouped_scan"):
+        for m in ("coordinator", "ops.grouped", "ops.grouped_family", "ops.grouped_scan",
+                  "ops.grouped_exact", "ops.grouped_chunked"):
             assert "quake_tpu_torch." + m in sys.modules, m
         print("ok")
     """)
