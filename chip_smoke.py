@@ -10,10 +10,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
 3. parity  — holds kernels K1 (grouped scan), K2 (pool merge), K3 (parent
              ranking), K4 (per-row-scale grouped scan, exact top-kk; also
              with the v4 scan's chunk table), K5 (per-row-scale grouped scan,
-             fold-128), K6 (exact-score grouped scan, by slot and by id) and
-             K7 (chunked per-row-scale scan with the cross-chunk merge)
-             against their plain PyTorch versions on the card at small
-             shapes.
+             fold-128), K6 (exact-score grouped scan, by slot and by id), K7
+             (chunked per-row-scale scan with the cross-chunk merge), K8 (raw
+             scores), K9 (packed top-kk) and the sized and multi scans'
+             kernels against their plain PyTorch versions on the card at
+             small shapes.
 4. main    — the fixed-nprobe main path at full width: a 1,000,000 x 128
              synthetic-manifold corpus (seed 1), nlist=160, niter=25, l2, f32
              codes, built and searched through QuakeIndex. Recall@10 on 1024
@@ -31,14 +32,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
              0.01 below it, v8 within 0.005 of the v11 path), ms per B=16384
              batch with a stage breakdown, and each path's kernel launches
              (counts zeroed just before the path, read just after).
-6. check   — the results are finite and of the expected shape, and a small
+6. direct  — the four grouped scans with entry points of their own
+             (grouped_scan_approx, _sized with ct=256, _packed, _multi with
+             gb=8) called with the main index's tensors at the main nprobe and
+             qt=64, the probe lists from the parent ranking: recall@10 on the
+             1024 queries (approx, sized and multi within 0.001 of the exact
+             scan of the probed partitions, packed at most 0.01 below it), ms
+             per B=16384 batch with stages, and each path's launches.
+7. latency — QuakeIndex.search on the main index query-major: B=1, B=8, and
+             B=64 with batched_scan=False, ids against the exact scan of the
+             same probed partitions, ms per search on the host clock (the
+             search ends in a copy to the host); and a flat index (nlist=0)
+             over the same corpus searched with the 1024 queries, recall@10
+             against the exact ground truth >= 0.999.
+8. check   — the results are finite and of the expected shape, and a small
              index searched on the card agrees with the same store searched
              on the CPU through the plain versions, for v11 and for each
              name of phase 5.
-7. kernels — each kernel against its plain version again, at the shapes the
-             main path (K1-K3) and the by-name paths (K4 through v3p, v3pN,
+9. kernels — each kernel against its plain version again, at the shapes the
+             main path (K1-K3), the by-name paths (K4 through v3p, v3pN,
              v6 and v4, K5 through v7, K1 through v8, K6 through v3 and v2,
-             K7 through v5) gave it, with times and bounds.
+             K7 through v5) and the direct paths (K8, K9, sized_topk,
+             multi_topk) gave it, with times and bounds.
 
 Progress goes to stderr. Standard output holds three lines: the JSON list
 of kernels, the card's name and power limit, and last
@@ -88,6 +103,12 @@ BY_NAME = (("v3p", ("rowscale_topk",), "exact", 5), ("v3p4", ("rowscale_topk",),
            ("v2", ("exact_topk",), "ceiling", 5), ("v6", ("rowscale_topk",), "exact", 5),
            ("v5", ("chunk_merge",), "exact", 5), ("v4", ("rowscale_topk",), "exact", 3))
 MAIN_KERNELS = ("grouped_scan", "merge_positions", "flat_topk")
+# Direct path -> (its kernel, the recall it is held to, timed batches).
+DIRECT = (("approx", "raw_scores", "ceiling", 3), ("sized", "sized_topk", "ceiling", 5),
+          ("packed", "packed_topk", "exact", 5), ("multi", "multi_topk", "ceiling", 5))
+DIRECT_QT, SIZED_CT, MULTI_GB = 64, 256, 8
+LATENCY = ((1, None), (8, None), (64, False))  # (queries, batched_scan) of the query-major runs
+FLAT_RECALL = 0.999
 F32_PEAK = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores (data sheet)
 HBM_RATE = 3.35e12  # H100 SXM bytes/s
 QUEUE_CYCLES = 50_000_000  # ~25 ms of spinning at the H100's clock: room to enqueue the reps
@@ -120,6 +141,14 @@ ENTRIES = {
                        "quake_tpu/ops/pallas_grouped.py:2145"),
     "rowscale_topk/v6": ("rowscale_topk", "quake_tpu_torch/csrc/grouped_rowscale.cu",
                          "quake_tpu/ops/pallas_grouped.py:2327"),
+    "raw_scores": ("raw_scores", "quake_tpu_torch/csrc/grouped_variants.cu",
+                   "quake_tpu/ops/pallas_grouped.py:2462"),
+    "sized_topk": ("sized_topk", "quake_tpu_torch/csrc/grouped_variants.cu",
+                   "quake_tpu/ops/pallas_grouped.py:2540"),
+    "packed_topk": ("packed_topk", "quake_tpu_torch/csrc/grouped_variants.cu",
+                    "quake_tpu/ops/pallas_grouped.py:2726"),
+    "multi_topk": ("multi_topk", "quake_tpu_torch/csrc/grouped_variants.cu",
+                   "quake_tpu/ops/pallas_grouped.py:2872"),
 }
 
 
@@ -254,6 +283,132 @@ def phase_small_parity(torch, dev):
     log(f"[parity small] K4/K5 (C in 200, 384; qt in 8, 64; kk in 10, 100; l2, ip): "
         f"min overlap={worst[0]:.4f} max_key_diff={worst[1]} max_stats_err={worst[2]:.3g}")
     phase_small_parity_exact_chunked(torch, dev, rng, gp)
+    phase_small_parity_variants(torch, dev, rng, gp)
+
+
+def phase_small_parity_variants(torch, dev, rng, gp):
+    """K8, K9, sized_topk and multi_topk at small shapes: odd C, ghost
+    groups, an empty partition, partitions below one segment and below kk,
+    kk = 1 and kk > 32, a tile height that does not divide C, a gb that does
+    not divide the group count (the groups are padded with ghosts, as the
+    entry point pads them), and, for multi_topk, copies of one vector, whose
+    equal scores must come out by the smaller slot."""
+    from quake_tpu_torch.ops.grouped_variants import (multi_topk, multi_topk_plain, packed_topk,
+                                                      packed_topk_plain, raw_scores,
+                                                      raw_scores_plain, sized_topk,
+                                                      sized_topk_plain, slot_bits_of)
+
+    P, Dm, Gn = 6, 32, gp.shape[0]
+    worst = dict(raw=0.0, packed=[1.0, 0], sized=[1.0, 0.0], multi=[1.0, 0.0])
+    for C, ct, gb in ((200, 64, 5), (384, 256, 7), (512, 128, 8)):
+        codes = torch.from_numpy(rng.standard_normal((P, C, Dm)).astype(np.float32)).to(dev)
+        dup = codes.clone()
+        dup[0, 5::2] = dup[0, 5]  # copies of one vector
+        ids = torch.from_numpy(rng.permutation(P * C).astype(np.int32).reshape(P, C)).to(dev)
+        lane = torch.arange(C, device=dev)[None, :]
+        pad = -Gn % gb
+        gpm = torch.nn.functional.pad(gp, (0, pad), value=-1).contiguous()
+        for qt, kk in ((8, 1), (64, 10), (8, 40), (64, 100)):
+            sizes = torch.tensor([C, C - 70, 0, 1, kk // 2, 150], dtype=torch.int32, device=dev)
+            gsize = torch.where(gp >= 0, sizes[gp.clamp(min=0).long()],
+                                torch.zeros_like(gp)).contiguous()
+            sids = torch.where(lane < sizes[:, None], ids, torch.full_like(ids, -1)).contiguous()
+            qg = torch.from_numpy(rng.standard_normal((Gn, qt, Dm)).astype(np.float32)).to(dev)
+            qgm = torch.nn.functional.pad(qg, (0, 0, 0, 0, 0, pad)).contiguous()
+            for metric in ("l2", "ip"):
+                raw = raw_scores(gp, qg, dup, sids, metric)
+                raw_p = raw_scores_plain(gp, qg, dup, sids, metric)
+                worst["raw"] = max(worst["raw"], compare_raw(torch, raw, raw_p))
+                got = packed_topk(gp, qg, dup, sids, kk, metric)
+                r = compare_packed(torch, got, packed_topk_plain(gp, qg, dup, sids, kk, metric),
+                                   raw, raw_p, slot_bits_of(C), exact=True)
+                worst["packed"] = [min(worst["packed"][0], r[0]), max(worst["packed"][1], r[1])]
+                r = compare_pairs(torch, "sized_topk",
+                                  sized_topk(gp, gsize, qg, codes, kk, metric, ct=ct),
+                                  sized_topk_plain(gp, gsize, qg, codes, kk, metric, ct=ct))
+                worst["sized"] = [min(worst["sized"][0], r[0]), max(worst["sized"][1], r[1])]
+                r = compare_pairs(torch, "multi_topk",
+                                  multi_slots(multi_topk(gpm, qgm, dup, sids, kk, metric, gb=gb), C),
+                                  multi_slots(multi_topk_plain(gpm, qgm, dup, sids, kk, metric), C),
+                                  ties="up")
+                worst["multi"] = [min(worst["multi"][0], r[0]), max(worst["multi"][1], r[1])]
+    log(f"[parity small] K8 (C in 200, 384, 512; qt in 8, 64; l2, ip): max score error / "
+        f"tolerance {worst['raw']:.3g} (rtol = atol = {SCORE_TOL}); K9 (kk in 1, 10, 40, 100): "
+        f"min overlap={worst['packed'][0]:.4f} max_key_diff={worst['packed'][1]}, equal to the "
+        f"top-kk of K8's scores packed; sized_topk (ct in 64, 256, 128): min overlap="
+        f"{worst['sized'][0]:.4f} max_score_err={worst['sized'][1]:.3g}; multi_topk (gb in 5, 7, "
+        f"8): min overlap={worst['multi'][0]:.4f} max_score_err={worst['multi'][1]:.3g}")
+
+
+def multi_slots(out, C: int):
+    """multi_topk's (scores, slots) with its empty sentinel C as -1."""
+    s, i = out
+    return s, i.masked_fill(i >= C, -1)
+
+
+def compare_raw(torch, got, want, step: int = 128) -> float:
+    """K8 against its plain version: the same -inf lanes, scores within
+    rtol = atol = SCORE_TOL (f32 dot products summed in another order).
+    Returns the worst error / tolerance."""
+    torch.cuda.synchronize()
+    worst = 0.0
+    for g0 in range(0, got.shape[0], step):
+        g, w = got[g0:g0 + step], want[g0:g0 + step]
+        if not bool((torch.isneginf(g) == torch.isneginf(w)).all()):
+            raise AssertionError("K8: the -inf lanes differ from the plain version's")
+        ok = ~torch.isneginf(w)
+        if bool(ok.any()):
+            worst = max(worst, float(((g[ok] - w[ok]).abs()
+                                      / (SCORE_TOL + SCORE_TOL * w[ok].abs())).max()))
+    if worst > 1.0:
+        raise AssertionError(f"K8 disagrees with its plain version: worst score error / "
+                             f"tolerance {worst}")
+    return worst
+
+
+def compare_packed(torch, got, want, raw, raw_p, slot_bits: int, exact: bool = False):
+    """K9 against its plain version. The packed value carries the top bits
+    of the score's bit pattern, which the other order of summation moves in
+    the last place, so: as many winners per row, descending, winner overlap
+    >= OVERLAP_TOL, and every winner both sides share whose scores (raw from
+    K8, raw_p from its plain version) agree bit for bit carries the same
+    packed value. With exact, the kernel's output must also equal the top kk
+    of K8's own scores, packed. Returns (overlap, max key difference of the
+    shared winners)."""
+    from quake_tpu_torch.ops.grouped_variants import pack_scores
+
+    torch.cuda.synchronize()
+    kk = got.shape[-1]
+    mask = (1 << slot_bits) - 1
+    if not bool(((got >= 0) == (want >= 0)).all()) or not bool((got >= -1).all()):
+        raise AssertionError("K9: winners per row differ from the plain version's")
+    if not bool((torch.diff(got, dim=-1)[got[..., 1:] >= 0] < 0).all()):
+        raise AssertionError("K9: packed values are not strictly descending")
+    gl, wl = (torch.where(t >= 0, t & mask, torch.full_like(t, -1)) for t in (got, want))
+    ov = overlap(gl.reshape(-1, kk), wl.reshape(-1, kk))
+    max_kd, step = 0, max(1, (1 << 22) // max(kk * kk * got.shape[1], 1))
+    for g0 in range(0, got.shape[0], step):
+        sl = slice(g0, g0 + step)
+        same = (gl[sl][..., :, None] == wl[sl][..., None, :]) & (gl[sl][..., :, None] >= 0)
+        pos = torch.nonzero(same)
+        if pos.numel() == 0:
+            continue
+        g_, r_, a_, b_ = pos.unbind(1)
+        gv, wv = got[sl][g_, r_, a_], want[sl][g_, r_, b_]
+        lanes = (gv & mask).long()
+        bitwise = raw[sl][g_, r_, lanes] == raw_p[sl][g_, r_, lanes]
+        if not bool((gv[bitwise] == wv[bitwise]).all()):
+            raise AssertionError("K9: a winner whose score both sides agree on bit for bit "
+                                 "carries another packed value")
+        max_kd = max(max_kd, int(((gv >> slot_bits) - (wv >> slot_bits)).abs().max()))
+    if exact:
+        ref = pack_scores(raw, slot_bits)
+        ref = torch.where(torch.isneginf(raw), torch.full_like(ref, -1), ref)
+        if not torch.equal(torch.topk(ref, kk, dim=2).values, got):
+            raise AssertionError("K9 is not the top kk of K8's scores, packed")
+    if ov < OVERLAP_TOL:
+        raise AssertionError(f"K9 disagrees with its plain version: overlap {ov}")
+    return ov, max_kd
 
 
 def phase_small_parity_exact_chunked(torch, dev, rng, gp):
@@ -333,7 +488,8 @@ def compare_pairs(torch, what, got, want, ties=False, level=0.0):
     -inf / -1 tails, descending scores, scores rank by rank within
     rtol = SCORE_TOL and atol = SCORE_TOL + level (K7: one quantization
     level), winner overlap; with ties, runs of equal scores must come out
-    index-descending. Returns (overlap, max abs score error)."""
+    index-descending (ties="up": index-ascending). Returns (overlap, max abs
+    score error)."""
     (gs, gi), (ws, wi) = got, want
     torch.cuda.synchronize()
     kk = gi.shape[-1]
@@ -343,8 +499,11 @@ def compare_pairs(torch, what, got, want, ties=False, level=0.0):
     step = torch.diff(gs, dim=-1)  # nan where -inf follows -inf
     if not bool((step[~torch.isnan(step)] <= 0).all()):
         raise AssertionError(f"{what}: scores are not descending")
-    if ties and not bool((torch.diff(gi, dim=-1)[(step == 0) & (gi[..., 1:] >= 0)] < 0).all()):
-        raise AssertionError(f"{what}: equal scores must order by the larger index")
+    if ties:
+        run = torch.diff(gi, dim=-1)[(step == 0) & (gi[..., 1:] >= 0)]
+        if not bool((run > 0).all() if ties == "up" else (run < 0).all()):
+            raise AssertionError(f"{what}: equal scores must order by the "
+                                 f"{'smaller' if ties == 'up' else 'larger'} index")
     ok = wi >= 0
     diff = (gs[ok] - ws[ok]).abs()
     err = float(diff.max()) if bool(ok.any()) else 0.0
@@ -603,6 +762,8 @@ def phase_small_reference(torch, dev):
     if idx.store.C % 128 == 0:  # the spellings that pin the chunk and the group padding
         names += ["v4c128g8", "v5c128g2", "v6c128"]
     worst = 1.0
+    # Both sides rank parents with K3 (the card's default; the CPU's is "approx").
+    os.environ["QUAKE_TPU_PARENT_KERNEL"] = "pallas"
     for name in names:
         if name is not None:
             os.environ["QUAKE_TPU_KERNEL"] = name
@@ -616,6 +777,23 @@ def phase_small_reference(torch, dev):
         worst = min(worst, ov)
         log(f"[check] small index (C={idx.store.C}), {name or 'v11 (default)'}, card vs CPU "
             f"plain path: id overlap {ov:.4f}")
+    del os.environ["QUAKE_TPU_PARENT_KERNEL"]
+    # The query-major and the flat searches, card against CPU.
+    flat = QuakeIndex(device=dev)
+    flat.build(x, None, IndexBuildParams(nlist=0))
+    st = flat.store.state
+    flat_cpu = index_from_numpy({f: getattr(st, f).cpu().numpy() for f in arrays[0]}, None, "l2",
+                                device="cpu")
+    pairs = [("flat index", flat.search(q, sp), flat_cpu.search(q, sp))]
+    for B, bs in LATENCY + ((8, True),):
+        spq = SearchParams(k=K, nprobe=8, batched_scan=bs)
+        pairs.append((f"B={B}, batched_scan={bs}", idx.search(q[:B], spq), cpu.search(q[:B], spq)))
+    for what, a, b in pairs:
+        ov = overlap(torch.from_numpy(a.ids), torch.from_numpy(b.ids))
+        if ov < OVERLAP_TOL or not np.allclose(a.distances, b.distances, rtol=1e-3, atol=1e-3):
+            raise AssertionError(f"{what}: card and CPU searches disagree: overlap {ov}")
+        worst = min(worst, ov)
+        log(f"[check] small index, {what}, card vs CPU: id overlap {ov:.4f}")
     return worst
 
 
@@ -727,7 +905,216 @@ def exact_chunked_rows(torch, idx, q, pids, qt, kk, by_name):
     return rows
 
 
-def phase_kernels(torch, dev, idx, queries, nprobe, launches, by_name):
+def variant_rows(torch, idx, q, pids, kk, direct):
+    """Rows of the kernels phase for K8, K9, sized_topk and multi_topk, at
+    the inputs the direct paths build from the B=16384 batch (qt = 64). The
+    id-masked kernels read whole slabs; K8's bytes include its [G, qt, C]
+    output. K8's library time is the tensor-operation scan's score step
+    (ops/grouped.py::group_scores: a torch.bmm per chunk of groups, without
+    the top-k), which computes the same function."""
+    from quake_tpu_torch.ops.grouped import build_groups, group_scores
+    from quake_tpu_torch.ops.grouped_variants import (multi_topk, multi_topk_plain,
+                                                      packed_topk, packed_topk_plain,
+                                                      raw_scores, raw_scores_plain, sized_topk,
+                                                      sized_topk_plain, slot_bits_of)
+
+    st = idx.store.state
+    P, C, Dd = st.codes.shape
+    qt = DIRECT_QT
+    gp, qlist, _, _ = build_groups(pids, P, qt)
+    pad = -gp.shape[0] % MULTI_GB  # ghosts up to a multiple of gb, as grouped_scan_multi pads
+    gp = torch.nn.functional.pad(gp, (0, pad), value=-1).contiguous()
+    qlist = torch.nn.functional.pad(qlist, (0, 0, 0, pad), value=-1)
+    qg = q[qlist.clamp(min=0).long()].contiguous()
+    Gn = gp.shape[0]
+    safe = gp.clamp(min=0).long()
+    gsize = torch.where(gp >= 0, st.sizes[safe], torch.zeros_like(gp)).to(torch.int32).contiguous()
+    real_q = (qlist >= 0).sum(1)
+    out_i = Gn * qt * kk * 4
+    pair_tol = f"winner overlap >= {OVERLAP_TOL}, scores rtol = atol = {SCORE_TOL}"
+    rows = []
+
+    def row(name, fn, plain, whole_slab, extra, plain_reps=2, **fields):
+        b, groups, scanned = scan_bound(st, gp, gsize, real_q, qg.numel() * 4, qt, kk, Dd,
+                                        extra=extra, whole_slab=whole_slab)
+        rows.append(dict(name=name, launches=direct[name]["launches"][name],
+                         ms=time_ms(torch, fn, reps=5),
+                         plain_ms=time_ms(torch, plain, reps=plain_reps, warmup=1),
+                         bound=b, groups=groups, scanned_rows=scanned, **fields))
+
+    # K8, and its scores on both sides for K9's comparison.
+    raw = raw_scores(gp, qg, st.codes, st.ids, "l2")
+    raw_p = raw_scores_plain(gp, qg, st.codes, st.ids, "l2")
+    err8 = compare_raw(torch, raw, raw_p)
+    got9 = packed_topk(gp, qg, st.codes, st.ids, kk, "l2")
+    ov9, kd9 = compare_packed(torch, got9, packed_topk_plain(gp, qg, st.codes, st.ids, kk, "l2",
+                                                             chunk=64),
+                              raw, raw_p, slot_bits_of(C))
+    del raw_p, got9
+    group_chunk = idx._grouped_params(BATCH, pids.shape[1])[1]
+
+    def library():
+        for g0 in range(0, Gn, group_chunk):
+            sl = slice(g0, g0 + group_chunk)
+            sids = torch.where((gp[sl] >= 0)[:, None], st.ids[safe[sl]], -1)
+            raw[sl] = group_scores(qg[sl], st.codes[safe[sl]], sids, "l2")
+
+    lib_ms = time_ms(torch, library, reps=2, warmup=1)
+    del raw
+    row("raw_scores", lambda: raw_scores(gp, qg, st.codes, st.ids, "l2"),
+        lambda: raw_scores_plain(gp, qg, st.codes, st.ids, "l2"), True,
+        Gn * qt * (C - kk) * 4, tol=f"scores rtol = atol = {SCORE_TOL}, the same -inf lanes",
+        overlap=1.0, max_abs_err=err8, err_of="score error / tolerance", library_ms=lib_ms)
+    ov, err = compare_pairs(torch, "sized_topk",
+                            sized_topk(gp, gsize, qg, st.codes, kk, "l2", ct=SIZED_CT),
+                            sized_topk_plain(gp, gsize, qg, st.codes, kk, "l2", ct=SIZED_CT))
+    row("sized_topk", lambda: sized_topk(gp, gsize, qg, st.codes, kk, "l2", ct=SIZED_CT),
+        lambda: sized_topk_plain(gp, gsize, qg, st.codes, kk, "l2", ct=SIZED_CT), False, out_i,
+        tol=pair_tol, overlap=ov, max_abs_err=err, err_of="score error")
+    row("packed_topk", lambda: packed_topk(gp, qg, st.codes, st.ids, kk, "l2"),
+        lambda: packed_topk_plain(gp, qg, st.codes, st.ids, kk, "l2", chunk=64), True, 0,
+        tol=(f"winner overlap >= {OVERLAP_TOL}, shared winners with bit-equal scores carry equal "
+             "packed values"), overlap=ov9, max_abs_err=kd9)
+    ov, err = compare_pairs(
+        torch, "multi_topk",
+        multi_slots(multi_topk(gp, qg, st.codes, st.ids, kk, "l2", gb=MULTI_GB), C),
+        multi_slots(multi_topk_plain(gp, qg, st.codes, st.ids, kk, "l2"), C), ties="up")
+    row("multi_topk", lambda: multi_topk(gp, qg, st.codes, st.ids, kk, "l2", gb=MULTI_GB),
+        lambda: multi_topk_plain(gp, qg, st.codes, st.ids, kk, "l2"), True, out_i,
+        tol=pair_tol, overlap=ov, max_abs_err=err, err_of="score error")
+    return rows
+
+
+def phase_direct(torch, dev, idx, queries, gt, nprobe, ceiling):
+    """The four entry points that no dispatch name reaches, called with the
+    main index's tensors: recall@10 on the ground-truth queries against the
+    exact scan of the same probed partitions (`ceiling`), ms per B=16384
+    batch and stages, and the path's launches (zeroed just before the path
+    runs, read just after). Fails if the path's kernel did not launch, if
+    another scan kernel did, or if recall misses its gate."""
+    from quake_tpu_torch import _ext
+    from quake_tpu_torch.coordinator import rank_parents
+    from quake_tpu_torch.ops import grouped_variants as gv
+    from quake_tpu_torch.profiling import StageTimer
+    from quake_tpu_torch.utils import compute_recall
+
+    st, pst = idx.store.state, idx.parent.store.state
+    fns = {
+        "approx": lambda q, p, **kw: gv.grouped_scan_approx(st.codes, st.ids, q, p, K, "l2",
+                                                            qt=DIRECT_QT, **kw),
+        "sized": lambda q, p, **kw: gv.grouped_scan_sized(st.codes, st.ids, st.sizes, q, p, K,
+                                                          "l2", qt=DIRECT_QT, ct=SIZED_CT, **kw),
+        "packed": lambda q, p, **kw: gv.grouped_scan_packed(st.codes, st.ids, q, p, K, "l2",
+                                                            qt=DIRECT_QT, **kw),
+        "multi": lambda q, p, **kw: gv.grouped_scan_multi(st.codes, st.ids, q, p, K, "l2",
+                                                          qt=DIRECT_QT, gb=MULTI_GB, **kw),
+    }
+    batches = {}
+    for n in (NQ_GT, BATCH):
+        q = torch.from_numpy(queries[:n]).to(dev)
+        pids = rank_parents(pst.codes, pst.ids, pst.norms, q, nprobe, "l2", "pallas")
+        batches[n] = (q, torch.where(pids >= 0, pids, pids[:, :1]))
+    scan_kernels = set(_ext.KERNELS) - {"flat_topk"}
+    out = {}
+    for name, kernel, gate, reps in DIRECT:
+        fn = fns[name]
+        torch.cuda.synchronize()
+        _ext.reset_launches()
+        _, ids_gt, scanned = fn(*batches[NQ_GT])
+        ms = time_ms(torch, lambda: fn(*batches[BATCH]), reps=reps, warmup=1)
+        timer = StageTimer(dev)
+        for _ in range(min(reps, 3)):
+            timer.start()
+            fn(*batches[BATCH], stages=timer)
+            timer.stop()
+        scores, ids32, _ = fn(*batches[BATCH])
+        torch.cuda.synchronize()
+        launches = dict(_ext.launches)
+        r = compute_recall(ids_gt.cpu().numpy(), gt, K)
+        stages = timer.mean_ms()
+        log(f"[direct] {name}: recall@10={r:.4f} (exact {ceiling:.4f}), {ms:.3f} ms/batch "
+            f"(B={BATCH}, qt={DIRECT_QT}), {BATCH / (ms / 1e3):,.0f} QPS, stages(ms)="
+            f"{json.dumps({k: round(v, 4) for k, v in stages.items()})}, launches {launches}")
+        if {k for k in scan_kernels if launches[k] > 0} != {kernel}:
+            raise AssertionError(f"{name}: expected the kernel {kernel} alone to launch, got "
+                                 f"{launches}")
+        if (ids32.shape != (BATCH, K) or bool((ids32 < 0).any())
+                or not bool(torch.isfinite(scores).all()) or not bool((scanned == nprobe).all())):
+            raise AssertionError(f"{name}: expected {K} ids and finite scores per query")
+        if gate == "ceiling" and abs(r - ceiling) > CEILING_TOL:
+            raise AssertionError(f"{name}: recall@10 {r} is not within {CEILING_TOL} of the "
+                                 f"exact scan's {ceiling}")
+        if gate == "exact" and r < ceiling - EXACT_TOL:
+            raise AssertionError(f"{name}: recall@10 {r} is more than {EXACT_TOL} below the "
+                                 f"exact scan's {ceiling}")
+        out[kernel] = dict(path=name, recall=r, ms=ms, qps=BATCH / (ms / 1e3), stages_ms=stages,
+                           launches=launches)
+    return out
+
+
+def phase_latency(torch, dev, idx, x, queries, gt, nprobe):
+    """The query-major and the flat searches through QuakeIndex.search. Each
+    query-major run is held to the exact scan of the partitions it probed
+    (the parent ranking in tensor operations, as that path ranks); the time
+    is the host's, around a search that ends in a copy to the host."""
+    from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams, _ext
+    from quake_tpu_torch.coordinator import rank_parents, reference_scan
+    from quake_tpu_torch.utils import compute_recall
+
+    st, pst = idx.store.state, idx.parent.store.state
+    out = {}
+    _ext.reset_launches()
+    for B, bs in LATENCY:
+        sp = SearchParams(k=K, nprobe=nprobe, batched_scan=bs)
+        res = idx.search(queries[:B], sp)
+        q = torch.from_numpy(queries[:B]).to(dev)
+        pids = rank_parents(pst.codes, pst.ids, pst.norms, q, nprobe, "l2", "approx")
+        _, want, _ = reference_scan(st.codes, st.ids, st.norms, q, pids, K, "l2")
+        ov = overlap(torch.from_numpy(res.ids).to(dev), want.long())
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            idx.search(queries[:B], sp)
+            times.append((time.perf_counter() - t0) * 1e3)
+        r = compute_recall(res.ids, gt[:B], K)
+        out[f"B{B}"] = dict(batched_scan=bs, ms_mean=float(np.mean(times)),
+                            ms_min=float(np.min(times)), overlap=ov, recall=r)
+        log(f"[latency] B={B} batched_scan={bs}: {np.mean(times):.3f} ms/search (min "
+            f"{np.min(times):.3f}, host clock), id overlap with the exact scan of the probed "
+            f"partitions {ov:.4f}, recall@10={r:.4f}")
+        if res.ids.shape != (B, K) or ov < OVERLAP_TOL or not np.isfinite(res.distances).all():
+            raise AssertionError(f"query-major search at B={B}: overlap {ov} with the exact scan")
+    if any(_ext.launches.values()):
+        raise AssertionError(f"the query-major path launched a kernel: {_ext.launches}")
+
+    t0 = time.perf_counter()
+    flat = QuakeIndex(device=dev)
+    flat.build(x, np.arange(N, dtype=np.int64), IndexBuildParams(nlist=0, metric="l2"))
+    build_s = time.perf_counter() - t0
+    sp = SearchParams(k=K)
+    res = flat.search(queries[:NQ_GT], sp)
+    r = compute_recall(res.ids, gt, K)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        flat.search(queries[:NQ_GT], sp)
+        times.append((time.perf_counter() - t0) * 1e3)
+    one = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        flat.search(queries[:1], sp)
+        one.append((time.perf_counter() - t0) * 1e3)
+    out["flat"] = dict(build_s=build_s, recall=r, ms_b1024=float(np.mean(times)),
+                       ms_b1=float(np.mean(one)), C=flat.store.C)
+    log(f"[latency] flat index (nlist=0, C={flat.store.C}, build {build_s:.2f} s): recall@10="
+        f"{r:.4f}, {np.mean(times):.3f} ms per {NQ_GT}-query search, {np.mean(one):.3f} ms per "
+        f"1-query search (host clock)")
+    if r < FLAT_RECALL or res.ids.shape != (NQ_GT, K):
+        raise AssertionError(f"flat index: recall@10 {r} below {FLAT_RECALL}")
+    return out
+
+
+def phase_kernels(torch, dev, idx, queries, nprobe, launches, by_name, direct):
     """Each kernel against its plain version at the shapes of the path it
     runs on, with times and bounds: K1-K3 on the main (v11) path; on the
     by-name paths K4 through v3p, v3pN, v6 and v4, K5 through v7, K1 through
@@ -761,7 +1148,7 @@ def phase_kernels(torch, dev, idx, queries, nprobe, launches, by_name):
                      bound=b3))
 
     # K1 at the grouped scan's shape.
-    pids = rank_parents(pst.codes, pst.ids, pst.norms, q, nprobe, "l2")
+    pids = rank_parents(pst.codes, pst.ids, pst.norms, q, nprobe, "l2", "pallas")
     pids = torch.where(pids >= 0, pids, pids[:, :1])
     qt = idx._grouped_params(BATCH, nprobe)[0]
     gpb = int(idx._grouped_kernel()[len("v11g"):])
@@ -833,6 +1220,7 @@ def phase_kernels(torch, dev, idx, queries, nprobe, launches, by_name):
                      bound=b8, groups=groups, scanned_rows=scanned))
 
     rows += exact_chunked_rows(torch, idx, q, pids, qt, kk, by_name)
+    rows += variant_rows(torch, idx, q, pids, kk, direct)
 
     kernels = []
     for r in rows:
@@ -896,9 +1284,14 @@ def main() -> int:
 
     by_name = phase_by_name(torch, dev, idx, queries, gt, main_out["nprobe"],
                             main_out["recall"])
+    direct = phase_direct(torch, dev, idx, queries, gt, main_out["nprobe"],
+                          by_name["reference"]["recall"])
+    latency = phase_latency(torch, dev, idx, x, queries, gt, main_out["nprobe"])
     phase_small_reference(torch, dev)
-    kernels = phase_kernels(torch, dev, idx, queries, main_out["nprobe"], launches, by_name)
-    log("[summary] " + json.dumps(dict(main_out, by_name=by_name)))
+    kernels = phase_kernels(torch, dev, idx, queries, main_out["nprobe"], launches, by_name,
+                            direct)
+    log("[summary] " + json.dumps(dict(main_out, by_name=by_name, direct=direct,
+                                       latency=latency)))
 
     if len(kernels) != len(ENTRIES):
         raise AssertionError(f"the kernels line needs {len(ENTRIES)} entries, got {len(kernels)}")

@@ -1,11 +1,13 @@
 """quake_tpu_torch: the PyTorch and CUDA port of quake_tpu for one NVIDIA
 H100.
 
-Ported so far: `QuakeIndex.build` and the batched fixed-nprobe
-`QuakeIndex.search`, with the three kernels of that path (grouped scan, pool
-merge, parent ranking) and the four more of the grouped scans chosen by name
-through QUAKE_TPU_KERNEL as hand-written CUDA kernels in `csrc/`, built with
-nvcc for sm_90a at first use. Entry points run on the card unless the caller
+Ported so far: `QuakeIndex.build` and `QuakeIndex.search` at a fixed nprobe
+(batched, query-major and on a flat index), with the three kernels of the
+batched path (grouped scan, pool merge, parent ranking), the four more of the
+grouped scans chosen by name through QUAKE_TPU_KERNEL and the four of the
+scans with entry points of their own (`ops/grouped_variants.py`) as
+hand-written CUDA kernels in `csrc/`, built with nvcc for sm_90a at first
+use. Entry points run on the card unless the caller
 passes `device="cpu"`, where every kernel wrapper runs its plain PyTorch
 version. This package imports neither JAX nor quake_tpu.
 """

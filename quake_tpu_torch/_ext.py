@@ -11,9 +11,9 @@ import, so the CPU-only tests import every module freely.
 
 ``launches`` counts the launches of each kernel (K1 grouped_scan, K2
 merge_positions, K3 flat_topk, K4 rowscale_topk, K5 rowscale_fold, K6
-exact_topk, K7 chunk_merge). A wrapper adds one where it launches its
-kernel and nowhere else, so a run can show that a path went through the
-kernels.
+exact_topk, K7 chunk_merge, K8 raw_scores, K9 packed_topk, and sized_topk and
+multi_topk). A wrapper adds one where it launches its kernel and nowhere
+else, so a run can show that a path went through the kernels.
 """
 
 from __future__ import annotations
@@ -55,10 +55,18 @@ _SIGNATURES = {
     # gp, gsize, qg, codes, norms, out_s, out_i, Gn, qt, D, C, ct, kk, is_l2,
     # slot_mult, levels, stream
     "qk_chunk_merge": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    # gp, qg, codes, ids, out, Gn, qt, D, C, is_l2, stream
+    "qk_raw_scores": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # gp, qg, codes, ids, out, Gn, qt, D, C, kk, is_l2, slot_bits, stream
+    "qk_packed_topk": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # gp, gsize, qg, codes, out_s, out_i, Gn, qt, D, C, kk, is_l2, stream
+    "qk_sized_topk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # gp, qg, codes, ids, out_s, out_i, Gn, qt, D, C, kk, is_l2, gb, stream
+    "qk_multi_topk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 KERNELS = ("grouped_scan", "merge_positions", "flat_topk", "rowscale_topk", "rowscale_fold",
-           "exact_topk", "chunk_merge")
+           "exact_topk", "chunk_merge", "raw_scores", "packed_topk", "sized_topk", "multi_topk")
 launches = dict.fromkeys(KERNELS, 0)
 
 _lib = None

@@ -3,12 +3,13 @@
 `index_from_numpy` turns the arrays of an index's store and of its parent's
 store (`codes`, `ids`, `sizes`, `centroids`, `active`, `norms`, each a numpy
 array in the JAX package's layout) into a QuakeIndex of this package, so the
-two packages can run on one and the same store.
+two packages can run on one and the same store. A flat index has one
+partition and no parent.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -38,14 +39,16 @@ def store_from_numpy(arrays: Mapping[str, np.ndarray], device) -> PartitionStore
 
 
 def index_from_numpy(state: Mapping[str, np.ndarray],
-                     parent_state: Mapping[str, np.ndarray], metric: str = "l2",
+                     parent_state: Optional[Mapping[str, np.ndarray]], metric: str = "l2",
                      device=None) -> QuakeIndex:
-    """A two-level QuakeIndex over the given store arrays (index and flat
-    parent). device=None means CUDA, as for QuakeIndex."""
+    """A QuakeIndex over the given store arrays: two levels (index and flat
+    parent), or a flat index when parent_state is None. device=None means
+    CUDA, as for QuakeIndex."""
     index = QuakeIndex(device=device)
     index.metric = check_metric(metric)
     index.store = store_from_numpy(state, index.device)
-    index.parent = QuakeIndex(level=1, device=index.device)
-    index.parent.metric = index.metric
-    index.parent.store = store_from_numpy(parent_state, index.device)
+    if parent_state is not None:
+        index.parent = QuakeIndex(level=1, device=index.device)
+        index.parent.metric = index.metric
+        index.parent.store = store_from_numpy(parent_state, index.device)
     return index

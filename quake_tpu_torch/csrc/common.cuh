@@ -1,11 +1,13 @@
 // Helpers shared by the package's CUDA kernels (csrc/*.cu): the thread
-// layout, the fold-128 top-2 selection, the (score, index) pair order of the
-// exact selections, the shared-memory loads and the tile product.
+// layout, the fold-128 top-2 selection, the (score, index) pair order and the
+// per-row candidate buffer of the exact selections, the shared-memory loads
+// and the tile product.
 // Everything is in an anonymous namespace: each source gets its own copy.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -45,6 +47,66 @@ __device__ __forceinline__ void warp_max_pair(float& s, int& i) {
     }
   }
 }
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Largest pair of the row's buffer (bs, bi)[0, cnt) strictly below (ps, pi);
+// (-inf, -1) when there is none. The result reaches every lane.
+__device__ __forceinline__ void next_below(const float* bs, const int* bi, int cnt, float ps,
+                                           int pi, float& rs, int& ri) {
+  const int lane = threadIdx.x & 31;
+  float ls = -INFINITY;
+  int li = -1;
+  for (int e = lane; e < cnt; e += 32) {
+    const float x = bs[e];
+    const int y = bi[e];
+    if (pair_above(ps, pi, x, y) && pair_above(x, y, ls, li)) {
+      ls = x;
+      li = y;
+    }
+  }
+  warp_max_pair(ls, li);
+  rs = ls;
+  ri = li;
+}
+
+// The kk-th largest pair of a row's buffer becomes the threshold (ts, ti) and
+// the buffer is cut to the pairs at or above it. Returns the new count.
+__device__ __noinline__ int cut_row(float* bs, int* bi, int cnt, int kk, float& ts, int& ti) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();
+  float ps = INFINITY;
+  int pi = INT_MAX;
+  for (int i = 0; i < kk; ++i) next_below(bs, bi, cnt, ps, pi, ps, pi);
+  int w = 0;
+  for (int e0 = 0; e0 < cnt; e0 += 32) {
+    const int e = e0 + lane;
+    const float x = e < cnt ? bs[e] : -INFINITY;
+    const int y = e < cnt ? bi[e] : -1;
+    const bool keep = e < cnt && !pair_above(ps, pi, x, y);
+    const unsigned m = __ballot_sync(0xffffffffu, keep);
+    __syncwarp();  // every lane has read its entry before any is overwritten
+    if (keep) {
+      const int pos = w + __popc(m & ((1u << lane) - 1u));
+      bs[pos] = x;
+      bi[pos] = y;
+    }
+    w += __popc(m);
+  }
+  __syncwarp();
+  ts = ps;
+  ti = pi;
+  return w;
+}
+
+// cap of the per-row candidate buffers of the exact selections (K6, K9 and
+// the sized and multi scans); the wrappers check the same formula against the
+// shared memory a block may use.
+inline int exact_cap(int kk) { return (kk + 31) / 32 * 32 + 128; }
 
 // Streaming top-2 update of one fold column with a new packed value.
 __device__ __forceinline__ void fold2(float& m1, float& m2, float v) {

@@ -1,0 +1,472 @@
+// Hand-written Hopper (sm_90a) kernels of the four grouped-scan variants of
+// the JAX package that are reached through entry points of their own
+// (grouped_scan_pallas_approx, _sized, _packed and _multi).
+//
+// All four score a group's qt query rows against the rows of its partition
+// (p = gp[g]) in f32: <q, x> (ip) or 2 <q, x> - |q|^2 - |x|^2 (l2), with both
+// norms summed here from the query tile and the slab, in the TPU kernels'
+// order. They differ in what they keep:
+//   K8  raw_scores  (replaces _scores_kernel): every score, [Gn, qt, C] f32;
+//       -inf where ids[lane] < 0 and in ghost groups (p < 0). The selection
+//       runs outside the kernel, as in the JAX package.
+//   K9  packed_topk (replaces _packed_kernel): per row the kk largest packed
+//       int32 = (key << slot_bits) | lane, where key is the top 31 - slot_bits
+//       bits of a monotone map of the score's f32 bit pattern; lanes with
+//       ids < 0 and ghost groups give -1.
+//   sized_topk      (replaces _sized_kernel): per row the kk best (score,
+//       slot) among the lanes below the partition's size; no row at or past
+//       the size is read. Equal scores order by the larger slot.
+//   multi_topk      (replaces _multi_kernel): per row the kk best (score,
+//       slot) among the lanes with ids >= 0; equal scores order by the
+//       smaller slot; one block walks gb consecutive groups.
+//
+// Bound on the H100: f32 operations for the three selecting kernels (2 qt C D
+// flops against C D 4 bytes of slab: qt / 2 flops per byte, above the f32
+// ridge of 20 from qt = 64); K8 also writes qt C 4 bytes per group, which at
+// D = 128 stays below the time of its operations.
+//
+// Design (simple first), shared with K6 (grouped_exact.cu): one block per
+// group (multi_topk: per gb groups, one after the other), the [qt, D] query
+// tile in shared memory, the slab streamed once through shared memory in
+// 128-row segments, |x|^2 summed from the segment. The TPU kernels hold a
+// whole [qt, C] score tile in fast memory and select in kk rounds over it;
+// here each row keeps a candidate buffer of round_up(kk, 32) + 128 entries
+// and a threshold in shared memory (K6's buffer of (score, index) pairs for
+// sized_topk and multi_topk, a buffer of int32 for K9, whose packed values
+// are distinct), cut to its kk largest when full, and the output is kk
+// descending rounds over the buffer. The TPU _sized_kernel's tile height ct
+// and its tile-by-tile merge are not carried over: the result does not depend
+// on them. multi_topk stores C - 1 - slot as the pair's index, so that the
+// pair order (larger index first) puts the smaller slot first.
+
+#include "common.cuh"
+
+namespace {
+
+// |q|^2 of the R rows this warp owns, from the query tile in shared memory.
+template <int R>
+__device__ __forceinline__ void query_norms(float (&qsq)[R], const float* qs, int Dp) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float* qrow = qs + (warp + kWarps * r) * Dp;
+    float a = 0.0f;
+    for (int d = lane; d < Dp; d += 32) a = fmaf(qrow[d], qrow[d], a);
+    qsq[r] = warp_sum(a);
+  }
+}
+
+// |x|^2 of the 128 rows of the segment in shared memory.
+__device__ __forceinline__ void segment_norms(float* ssq, const float* seg, int Dp) {
+  if (threadIdx.x < kFold) {
+    const float* row = seg + threadIdx.x * (Dp + 1);
+    float a = 0.0f;
+    for (int d = 0; d < Dp; ++d) a = fmaf(row[d], row[d], a);
+    ssq[threadIdx.x] = a;
+  }
+}
+
+// ---------------------------------------------------------------- K8
+
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+raw_scores_kernel(const int* __restrict__ gp, const float* __restrict__ qg,
+                  const float* __restrict__ codes, const int* __restrict__ ids,
+                  float* __restrict__ out, int D, int Dp, int C, int is_l2) {
+  constexpr int qt = kWarps * R;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                     // [qt][Dp]
+  float* seg = qs + qt * Dp;            // [128][Dp + 1]
+  float* ssq = seg + kFold * (Dp + 1);  // [128] |x|^2 of the segment
+  const int g = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int p = gp[g];
+  float* og = out + (size_t)g * qt * C;
+  if (p < 0) {
+    for (size_t i = threadIdx.x; i < (size_t)qt * C; i += kThreads) og[i] = -INFINITY;
+    return;
+  }
+  load_query_tile(qs, qg + (size_t)g * qt * D, qt, D, Dp);
+  const float* slab = codes + (size_t)p * C * D;
+  const bool l2 = is_l2 != 0;
+  float qsq[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) qsq[r] = 0.0f;
+  if (l2) {
+    __syncthreads();  // the query tile is written
+    query_norms<R>(qsq, qs, Dp);
+  }
+  const int nseg = (C + kFold - 1) / kFold;
+  for (int s = 0; s < nseg; ++s) {
+    __syncthreads();  // previous segment fully consumed (and q tile written)
+    load_segment(seg, slab, s * kFold, C, D, Dp);
+    __syncthreads();
+    if (l2) {
+      segment_norms(ssq, seg, Dp);
+      __syncthreads();
+    }
+    float acc[R][4];
+    tile_dots<R>(acc, qs, seg, Dp);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int ln = s * kFold + lane + 32 * j;
+      if (ln >= C) continue;
+      const bool ok = ids[(size_t)p * C + ln] >= 0;
+      const float nv = l2 ? ssq[lane + 32 * j] : 0.0f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        // 2 dot is exact, so a contraction into fmaf changes nothing.
+        const float sc = l2 ? 2.0f * acc[r][j] - qsq[r] - nv : acc[r][j];
+        og[(size_t)(warp + kWarps * r) * C + ln] = ok ? sc : -INFINITY;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- K9
+
+__device__ __forceinline__ int warp_max_int(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Largest value of the row's buffer b[0, cnt) strictly below prev; -1 when
+// there is none (buffered values are >= 0). The result reaches every lane.
+__device__ __forceinline__ int next_below_int(const int* b, int cnt, int prev) {
+  int l = -1;
+  for (int e = (threadIdx.x & 31); e < cnt; e += 32) {
+    const int x = b[e];
+    if (x < prev && x > l) l = x;
+  }
+  return warp_max_int(l);
+}
+
+// The kk-th largest value of a row's buffer becomes the threshold th and the
+// buffer is cut to the values at or above it. Returns the new count.
+__device__ __noinline__ int cut_row_int(int* b, int cnt, int kk, int& th) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();
+  int p = INT_MAX;
+  for (int i = 0; i < kk; ++i) p = next_below_int(b, cnt, p);
+  int w = 0;
+  for (int e0 = 0; e0 < cnt; e0 += 32) {
+    const int e = e0 + lane;
+    const int x = e < cnt ? b[e] : -1;
+    const bool keep = e < cnt && x >= p;
+    const unsigned m = __ballot_sync(0xffffffffu, keep);
+    __syncwarp();  // every lane has read its entry before any is overwritten
+    if (keep) b[w + __popc(m & ((1u << lane) - 1u))] = x;
+    w += __popc(m);
+  }
+  __syncwarp();
+  th = p;
+  return w;
+}
+
+// The packed value of a score at a lane: a monotone map of the f32 bit
+// pattern onto uint32 (negative: all bits flipped; else the sign bit set),
+// its top 31 - slot_bits bits above the lane.
+__device__ __forceinline__ int pack_score(float sc, int lane, int slot_bits) {
+  const unsigned bits = __float_as_uint(sc);
+  const unsigned key = (bits >> 31) ? ~bits : (bits | 0x80000000u);
+  return (int)(((key >> (slot_bits + 1)) << slot_bits) | (unsigned)lane);
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+packed_topk_kernel(const int* __restrict__ gp, const float* __restrict__ qg,
+                   const float* __restrict__ codes, const int* __restrict__ ids,
+                   int* __restrict__ out, int D, int Dp, int C, int kk, int cap, int is_l2,
+                   int slot_bits) {
+  constexpr int qt = kWarps * R;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                                  // [qt][Dp]
+  float* seg = qs + qt * Dp;                         // [128][Dp + 1]
+  float* ssq = seg + kFold * (Dp + 1);               // [128]
+  int* buf = reinterpret_cast<int*>(ssq + kFold);    // [qt][cap] candidates
+  const int g = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int p = gp[g];
+  int* og = out + (size_t)g * qt * kk;
+  if (p < 0) {
+    for (int i = threadIdx.x; i < qt * kk; i += kThreads) og[i] = -1;
+    return;
+  }
+  load_query_tile(qs, qg + (size_t)g * qt * D, qt, D, Dp);
+  const float* slab = codes + (size_t)p * C * D;
+  const bool l2 = is_l2 != 0;
+  float qsq[R];
+  int cnt[R], th[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    qsq[r] = 0.0f;
+    cnt[r] = 0;
+    th[r] = -1;
+  }
+  if (l2) {
+    __syncthreads();
+    query_norms<R>(qsq, qs, Dp);
+  }
+  const int nseg = (C + kFold - 1) / kFold;
+  for (int s = 0; s < nseg; ++s) {
+    __syncthreads();
+    load_segment(seg, slab, s * kFold, C, D, Dp);
+    __syncthreads();
+    if (l2) {
+      segment_norms(ssq, seg, Dp);
+      __syncthreads();
+    }
+    float acc[R][4];
+    tile_dots<R>(acc, qs, seg, Dp);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int ln = s * kFold + lane + 32 * j;
+      const bool ok = ln < C && ids[(size_t)p * C + ln] >= 0;
+      const float nv = l2 ? ssq[lane + 32 * j] : 0.0f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float sc = l2 ? 2.0f * acc[r][j] - qsq[r] - nv : acc[r][j];
+        const int v = pack_score(sc, ln, slot_bits);
+        int* rb = buf + (size_t)(warp + kWarps * r) * cap;
+        if (cnt[r] + 32 > cap) cnt[r] = cut_row_int(rb, cnt[r], kk, th[r]);  // warp-uniform
+        const bool take = ok && v > th[r];
+        const unsigned m = __ballot_sync(0xffffffffu, take);
+        const int pos = cnt[r] + __popc(m & ((1u << lane) - 1u));
+        if (take && pos < cap) rb[pos] = v;
+        cnt[r] = min(cnt[r] + __popc(m), cap);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = warp + kWarps * r;
+    const int* rb = buf + (size_t)row * cap;
+    __syncwarp();
+    int prev = INT_MAX;
+    for (int i = 0; i < kk; ++i) {
+      prev = next_below_int(rb, cnt[r], prev);
+      if (lane == 0) og[row * kk + i] = prev;
+    }
+  }
+}
+
+// ------------------------------------------------- sized_topk, multi_topk
+
+// kMulti = false: sized_topk (lanes below gsize[g], ties to the larger slot,
+// none = -1, gb = 1). kMulti = true: multi_topk (lanes with ids >= 0 of the
+// whole slab, ties to the smaller slot, none = C, gb groups per block).
+template <int R, bool kMulti>
+__global__ void __launch_bounds__(kThreads)
+slot_topk_kernel(const int* __restrict__ gp, const int* __restrict__ gsize,
+                 const float* __restrict__ qg, const float* __restrict__ codes,
+                 const int* __restrict__ ids, float* __restrict__ out_s,
+                 int* __restrict__ out_i, int D, int Dp, int C, int kk, int cap, int is_l2,
+                 int gb) {
+  constexpr int qt = kWarps * R;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                                 // [qt][Dp]
+  float* seg = qs + qt * Dp;                        // [128][Dp + 1]
+  float* ssq = seg + kFold * (Dp + 1);              // [128]
+  float* bs = ssq + kFold;                          // [qt][cap] candidate scores
+  int* bi = reinterpret_cast<int*>(bs + qt * cap);  // [qt][cap] candidate indices
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool l2 = is_l2 != 0;
+  const int none = kMulti ? C : -1;
+  for (int step = 0; step < gb; ++step) {
+    const int g = blockIdx.x * gb + step;
+    const int p = gp[g];
+    int n = 0;  // lanes to scan
+    if (p >= 0) n = kMulti ? C : min(gsize[g], C);
+    float* osg = out_s + (size_t)g * qt * kk;
+    int* oig = out_i + (size_t)g * qt * kk;
+    if (n <= 0) {  // block-uniform
+      for (int i = threadIdx.x; i < qt * kk; i += kThreads) {
+        osg[i] = -INFINITY;
+        oig[i] = none;
+      }
+      continue;
+    }
+    __syncthreads();  // the previous group's tile and buffers are consumed
+    load_query_tile(qs, qg + (size_t)g * qt * D, qt, D, Dp);
+    const float* slab = codes + (size_t)p * C * D;
+    float qsq[R], ths[R];
+    int cnt[R], thi[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      qsq[r] = 0.0f;
+      cnt[r] = 0;
+      ths[r] = -INFINITY;
+      thi[r] = -1;
+    }
+    if (l2) {
+      __syncthreads();
+      query_norms<R>(qsq, qs, Dp);
+    }
+    const int nseg = (n + kFold - 1) / kFold;
+    for (int s = 0; s < nseg; ++s) {
+      __syncthreads();
+      load_segment(seg, slab, s * kFold, n, D, Dp);  // rows at or past n are not read
+      __syncthreads();
+      if (l2) {
+        segment_norms(ssq, seg, Dp);
+        __syncthreads();
+      }
+      float acc[R][4];
+      tile_dots<R>(acc, qs, seg, Dp);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int ln = s * kFold + lane + 32 * j;
+        const bool ok = ln < n && (!kMulti || ids[(size_t)p * C + ln] >= 0);
+        const int idx = kMulti ? C - 1 - ln : ln;
+        const float nv = l2 ? ssq[lane + 32 * j] : 0.0f;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float sc = l2 ? 2.0f * acc[r][j] - qsq[r] - nv : acc[r][j];
+          const int row = warp + kWarps * r;
+          float* rbs = bs + (size_t)row * cap;
+          int* rbi = bi + (size_t)row * cap;
+          if (cnt[r] + 32 > cap) cnt[r] = cut_row(rbs, rbi, cnt[r], kk, ths[r], thi[r]);
+          const bool take = ok && pair_above(sc, idx, ths[r], thi[r]);
+          const unsigned m = __ballot_sync(0xffffffffu, take);
+          const int pos = cnt[r] + __popc(m & ((1u << lane) - 1u));
+          if (take && pos < cap) {
+            rbs[pos] = sc;
+            rbi[pos] = idx;
+          }
+          cnt[r] = min(cnt[r] + __popc(m), cap);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = warp + kWarps * r;
+      const float* rbs = bs + (size_t)row * cap;
+      const int* rbi = bi + (size_t)row * cap;
+      __syncwarp();
+      float ps = INFINITY;
+      int pi = INT_MAX;
+      for (int i = 0; i < kk; ++i) {
+        next_below(rbs, rbi, cnt[r], ps, pi, ps, pi);
+        if (lane == 0) {
+          osg[row * kk + i] = ps;
+          oig[row * kk + i] = pi < 0 ? none : (kMulti ? C - 1 - pi : pi);
+        }
+      }
+    }
+  }
+}
+
+template <bool kMulti>
+int launch_slot_topk(const void* gp, const void* gsize, const void* qg, const void* codes,
+                     const void* ids, void* out_s, void* out_i, int Gn, int qt, int D, int C,
+                     int kk, int is_l2, int gb, void* stream) {
+  if (gb <= 0 || Gn % gb) return (int)cudaErrorInvalidValue;
+  if (Gn <= 0) return (int)cudaGetLastError();
+  const int Dp = padded_dim(D);
+  const int cap = exact_cap(kk);
+  const size_t smem =
+      (size_t)(qt * Dp + kFold * (Dp + 1) + kFold + 2 * qt * cap) * sizeof(float);
+  cudaStream_t st = (cudaStream_t)stream;
+#define QK_SLOT(R)                                                                        \
+  case 8 * R: {                                                                           \
+    cudaError_t e = allow_smem(slot_topk_kernel<R, kMulti>, smem);                        \
+    if (e != cudaSuccess) return (int)e;                                                  \
+    slot_topk_kernel<R, kMulti><<<Gn / gb, kThreads, smem, st>>>(                         \
+        (const int*)gp, (const int*)gsize, (const float*)qg, (const float*)codes,         \
+        (const int*)ids, (float*)out_s, (int*)out_i, D, Dp, C, kk, cap, is_l2, gb);       \
+    break;                                                                                \
+  }
+  switch (qt) {
+    QK_SLOT(1)
+    QK_SLOT(2)
+    QK_SLOT(4)
+    QK_SLOT(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef QK_SLOT
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// K8: replaces quake_tpu/ops/pallas_grouped.py::_scores_kernel.
+int qk_raw_scores(const void* gp, const void* qg, const void* codes, const void* ids, void* out,
+                  int Gn, int qt, int D, int C, int is_l2, void* stream) {
+  if (Gn <= 0) return (int)cudaGetLastError();
+  const int Dp = padded_dim(D);
+  const size_t smem = (size_t)(qt * Dp + kFold * (Dp + 1) + kFold) * sizeof(float);
+  cudaStream_t st = (cudaStream_t)stream;
+#define QK_RAW(R)                                                                         \
+  case 8 * R: {                                                                           \
+    cudaError_t e = allow_smem(raw_scores_kernel<R>, smem);                               \
+    if (e != cudaSuccess) return (int)e;                                                  \
+    raw_scores_kernel<R><<<Gn, kThreads, smem, st>>>(                                     \
+        (const int*)gp, (const float*)qg, (const float*)codes, (const int*)ids,           \
+        (float*)out, D, Dp, C, is_l2);                                                    \
+    break;                                                                                \
+  }
+  switch (qt) {
+    QK_RAW(1)
+    QK_RAW(2)
+    QK_RAW(4)
+    QK_RAW(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef QK_RAW
+  return (int)cudaGetLastError();
+}
+
+// K9: replaces quake_tpu/ops/pallas_grouped.py::_packed_kernel.
+int qk_packed_topk(const void* gp, const void* qg, const void* codes, const void* ids, void* out,
+                   int Gn, int qt, int D, int C, int kk, int is_l2, int slot_bits,
+                   void* stream) {
+  if (Gn <= 0) return (int)cudaGetLastError();
+  const int Dp = padded_dim(D);
+  const int cap = exact_cap(kk);
+  const size_t smem =
+      (size_t)(qt * Dp + kFold * (Dp + 1) + kFold + qt * cap) * sizeof(float);
+  cudaStream_t st = (cudaStream_t)stream;
+#define QK_PACKED(R)                                                                      \
+  case 8 * R: {                                                                           \
+    cudaError_t e = allow_smem(packed_topk_kernel<R>, smem);                              \
+    if (e != cudaSuccess) return (int)e;                                                  \
+    packed_topk_kernel<R><<<Gn, kThreads, smem, st>>>(                                    \
+        (const int*)gp, (const float*)qg, (const float*)codes, (const int*)ids, (int*)out, \
+        D, Dp, C, kk, cap, is_l2, slot_bits);                                             \
+    break;                                                                                \
+  }
+  switch (qt) {
+    QK_PACKED(1)
+    QK_PACKED(2)
+    QK_PACKED(4)
+    QK_PACKED(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef QK_PACKED
+  return (int)cudaGetLastError();
+}
+
+// Replaces quake_tpu/ops/pallas_grouped.py::_sized_kernel (ids unused).
+int qk_sized_topk(const void* gp, const void* gsize, const void* qg, const void* codes,
+                  void* out_s, void* out_i, int Gn, int qt, int D, int C, int kk, int is_l2,
+                  void* stream) {
+  return launch_slot_topk<false>(gp, gsize, qg, codes, nullptr, out_s, out_i, Gn, qt, D, C, kk,
+                                 is_l2, 1, stream);
+}
+
+// Replaces quake_tpu/ops/pallas_grouped.py::_multi_kernel (sizes unused;
+// Gn % gb == 0).
+int qk_multi_topk(const void* gp, const void* qg, const void* codes, const void* ids,
+                  void* out_s, void* out_i, int Gn, int qt, int D, int C, int kk, int is_l2,
+                  int gb, void* stream) {
+  return launch_slot_topk<true>(gp, nullptr, qg, codes, ids, out_s, out_i, Gn, qt, D, C, kk,
+                                is_l2, gb, stream);
+}
+
+}  // extern "C"

@@ -1,5 +1,5 @@
-"""QuakeIndex: build and batched fixed-nprobe search (the main-path part of
-quake_tpu/index.py).
+"""QuakeIndex: build, and the flat, the query-major and the batched
+fixed-nprobe searches (that part of quake_tpu/index.py).
 
 A recursive two-level IVF structure, as in the reference orchestrator
 (src/cpp/include/quake_index.h:18-142, src/cpp/src/quake_index.cpp:29-288):
@@ -24,13 +24,15 @@ import torch
 from quake_tpu_torch import coordinator
 from quake_tpu_torch.geometry import effective_dimension
 from quake_tpu_torch.kmeans import balance_clusters, kmeans_fit_assign
+from quake_tpu_torch.ops.grouped import grouped_scan_xla
+from quake_tpu_torch.ops.scan import scores_to_distances
 from quake_tpu_torch.params import IndexBuildParams, SearchParams, check_metric
 from quake_tpu_torch.storage.store import PartitionStore
 from quake_tpu_torch.timing import BuildTimingInfo, SearchResult, SearchTimingInfo
 from quake_tpu_torch.utils import next_pow2, to_f32, to_i64
 
 INT32_MAX = np.iinfo(np.int32).max
-MIN_BATCH = 16  # smaller batches take the query-major path (not ported)
+MIN_BATCH = 16  # smaller batches take the query-major path
 
 
 def _now_us() -> int:
@@ -57,7 +59,7 @@ def _not_ported(what: str, item: str):
 
 
 class QuakeIndex:
-    """Dynamic IVF index: build plus batched fixed-nprobe search."""
+    """Dynamic IVF index: build plus flat and fixed-nprobe search."""
 
     def __init__(self, level: int = 0, device=None):
         self.level = level
@@ -67,6 +69,7 @@ class QuakeIndex:
         self.parent: Optional["QuakeIndex"] = None
         self.build_params: Optional[IndexBuildParams] = None
         self.aps_dimension = 0  # effective dimension for the APS recall model
+        self._nprobe_bucket = 8  # pow2 padding for probe lists
 
     # ------------------------------------------------------------------ build
 
@@ -190,30 +193,39 @@ class QuakeIndex:
         timing.total_time_ns = t4 - t0
         return SearchResult(ids=ids_np, distances=dists_np, timing_info=timing)
 
-    def _check_search(self, B: int, sp: SearchParams) -> None:
-        if sp.recall_target > 0:
-            raise _not_ported("recall_target > 0 (APS)", "ROADMAP Queue 1 item 9: APS")
+    def _check_search(self, sp: SearchParams) -> None:
         if not sp.exact_distances:
             raise _not_ported("exact_distances=False",
                               "ROADMAP Queue 1 item 8: bf16 and exact=False")
         if self.parent is None:
-            raise _not_ported("flat-index search (nlist <= 1)",
-                              "ROADMAP Queue 1 item 2: flat scan")
+            return  # a flat index scans everything, whatever the recall target
+        if sp.recall_target > 0:
+            raise _not_ported("recall_target > 0 (APS)", "ROADMAP Queue 1 item 9: APS")
         if self.parent.parent is not None:
             raise _not_ported("a parent index that is itself an IVF",
                               "ROADMAP Queue 1: multi-level parents")
-        if B < MIN_BATCH or sp.batched_scan is False:
-            raise _not_ported(f"the query-major search (batches below {MIN_BATCH} "
-                              "queries, or batched_scan=False)",
-                              "ROADMAP Queue 1: _search_device for B < 16")
 
     def _search_device_full(self, q: torch.Tensor, sp: SearchParams, stages=None):
-        """Fixed-nprobe search of a [B, D] f32 tensor on the index's device;
-        returns (scores, ids32, timing, distances) as device tensors, with
-        the launches enqueued and not waited for."""
+        """Search of a [B, D] f32 tensor on the index's device; returns
+        (scores, ids32, timing, distances) as device tensors, with the
+        launches enqueued and not waited for. Batches of at least 16 queries
+        take the fused partition-major path unless batched_scan is False; a
+        flat index scans every slot; the rest goes query by query through
+        _search_device."""
         B = int(q.shape[0])
-        self._check_search(B, sp)
+        self._check_search(sp)
         k = max(int(sp.k), 1)
+        if self.parent is None:
+            # Flat exact mode (quake_index.cpp:68-79).
+            timing = SearchTimingInfo(n_queries=B, n_clusters=self.nlist(), search_params=sp)
+            state = self.store.state
+            scores, ids32, dists = coordinator.fused_flat_search(state.codes, state.ids, q, k,
+                                                                 self.metric)
+            timing.partitions_scanned = self.nlist()
+            return scores, ids32, timing, dists
+        if B < MIN_BATCH or sp.batched_scan is False:
+            scores, ids32, timing = self._search_device(q, sp)
+            return scores, ids32, timing, scores_to_distances(scores, ids32, self.metric)
         timing = SearchTimingInfo(n_queries=B, n_clusters=self.nlist(), search_params=sp)
         parent_k = min(int(sp.nprobe), self.nlist())
         qt, group_chunk = self._grouped_params(B, parent_k)
@@ -223,12 +235,49 @@ class QuakeIndex:
             state.codes, state.ids, state.sizes, state.norms,
             pstate.codes, pstate.ids, q, k=k, nprobe=parent_k, metric=self.metric,
             qt=qt, kernel=self._grouped_kernel(), parent_norms=pstate.norms,
-            group_chunk=group_chunk, stages=stages)
+            group_chunk=group_chunk, parent_kernel=self._parent_kernel(), stages=stages)
         timing.partitions_scanned = parent_k
         timing.parent_info = SearchTimingInfo(
             n_queries=B, n_clusters=self.parent.nlist(),
             partitions_scanned=self.parent.nlist())
         return scores, ids32, timing, dists
+
+    def _search_device(self, q: torch.Tensor, sp: SearchParams, approx_flat: bool = False):
+        """The unfused search (quake_tpu/index.py::_search_device without APS
+        and sharding); returns (scores, int32 ids, timing). A flat index
+        scans every slot; approx_flat marks a parent centroid ranking (see
+        ops/scan.py::topk_from_scores), user-facing flat searches stay
+        exact. An IVF index ranks candidates through its parent, padded to a
+        power of two of at least the nprobe bucket and trimmed back, then
+        scans partition-major in tensor operations (batched_scan true, or
+        unset with at least 16 queries) or query-major."""
+        B = int(q.shape[0])
+        timing = SearchTimingInfo(n_queries=B, n_clusters=self.nlist(), search_params=sp)
+        k = max(int(sp.k), 1)
+        state = self.store.state
+        if self.parent is None:
+            scores, ids32 = coordinator.flat_search(state.codes, state.ids, q, k, self.metric,
+                                                    approx=approx_flat)
+            timing.partitions_scanned = self.nlist()
+            return scores, ids32, timing
+        # Parent search for candidate partitions (query_coordinator.cpp:628-646).
+        parent_k = min(int(sp.nprobe), self.nlist())
+        parent_k_padded = min(next_pow2(parent_k, self._nprobe_bucket), self.parent.ntotal())
+        parent_sp = SearchParams(k=parent_k_padded, batched_scan=True, nprobe=sp.nprobe)
+        t1 = _now_ns()
+        _, p_ids32, p_timing = self.parent._search_device(q, parent_sp, approx_flat=True)
+        p_timing.total_time_ns = _now_ns() - t1  # enqueue; the device runs on
+        timing.parent_info = p_timing
+        pids = p_ids32[:, :parent_k]  # trim the padding back to the candidate count
+        if sp.batched_scan or (sp.batched_scan is None and B >= MIN_BATCH):
+            qt, group_chunk = self._grouped_params(B, parent_k)
+            scores, ids32, _ = grouped_scan_xla(state.codes, state.ids, q, pids, k, self.metric,
+                                                qt=qt, group_chunk=group_chunk)
+        else:
+            scores, ids32, _ = coordinator.ivf_search(state.codes, state.ids, q, pids, k,
+                                                      self.metric)
+        timing.partitions_scanned = parent_k
+        return scores, ids32, timing
 
     def _grouped_kernel(self) -> str:
         """Grouped-scan choice, read at each search. QUAKE_TPU_KERNEL names a
@@ -247,6 +296,17 @@ class QuakeIndex:
         slab = self.store.C * self.d() * 4
         gpb = max(1, min(4, (12 << 20) // max(2 * slab, 1)))
         return f"v11g{gpb}"
+
+    def _parent_kernel(self) -> str:
+        """Parent ranking of the fused fixed-nprobe path, read at each search:
+        QUAKE_TPU_PARENT_KERNEL for A/B runs ("pallas" = kernel K3, "approx"
+        = the flat scan; see coordinator.rank_parents), else "pallas" on a
+        CUDA index and "approx" on a CPU one (the JAX package: "pallas" on a
+        TPU backend, else "approx")."""
+        override = os.environ.get("QUAKE_TPU_PARENT_KERNEL")
+        if override:
+            return override
+        return "pallas" if self.device.type == "cuda" else "approx"
 
     def _grouped_params(self, B: int, parent_k: int):
         """(qt, group_chunk), by the JAX package's rules. The query-tile

@@ -14,7 +14,13 @@ scores themselves and K7 on dequantized ones: scores rank by rank within
 rtol = atol = 1e-4 (the other order of summation; K7's atol grows by one
 quantization level, bounded by the largest possible score range / levels,
 since that order can move a key by one level), winner overlap >= 0.99, and exact duplicates, whose scores tie bit for bit in either order
-of summation, must come out in the kernel's tie order exactly.
+of summation, must come out in the kernel's tie order exactly. K8 writes raw
+scores (rtol = atol = 1e-4, the same -inf lanes); sized_topk and multi_topk
+select pairs like K6. K9's packed values carry the top bits of a score's bit
+pattern, which the other order of summation moves in the last place: it is
+held to winner overlap >= 0.99 against its plain version and to equality with
+the top kk of K8's own scores, packed (both kernels compute the same f32
+scores).
 """
 
 import numpy as np
@@ -29,6 +35,10 @@ from quake_tpu_torch.ops.grouped_family import rowscale_scan, rowscale_scan_plai
 from quake_tpu_torch.ops.grouped_scan import (grouped_scan_kernel, grouped_scan_plain,
                                               merge_positions, merge_positions_plain,
                                               packed_params)
+from quake_tpu_torch.ops.grouped_variants import (multi_topk, multi_topk_plain, pack_scores,
+                                                  packed_topk, packed_topk_plain, raw_scores,
+                                                  raw_scores_plain, sized_topk, sized_topk_plain,
+                                                  slot_bits_of)
 
 pytestmark = pytest.mark.cuda
 
@@ -271,11 +281,149 @@ def test_exact_and_chunk_kernels_reject_kk_beyond_shared_memory(dev):
         chunk_merge(gp, gp + C, qg, codes, norms, 128, 256, 256, 65534, "l2")
 
 
+def _variant_store(dev, rng, C, kk, P=6, Gn=24, D=32):
+    """Store, ids (-1 past each size), sizes and groups (ghosts included)
+    for the kernels of the approx, sized, packed and multi scans."""
+    codes, _, sizes = _chunk_store(dev, rng, P, C, D, kk)
+    ids = torch.from_numpy(rng.permutation(P * C).astype(np.int32).reshape(P, C)).to(dev)
+    lane = torch.arange(C, device=dev)[None, :]
+    ids = torch.where(lane < sizes[:, None], ids, torch.full_like(ids, -1)).contiguous()
+    gp = torch.from_numpy(rng.integers(-1, P, Gn).astype(np.int32)).to(dev)
+    gp[:2] = torch.tensor([0, 1], dtype=torch.int32)
+    gsize = torch.where(gp >= 0, sizes[gp.clamp(min=0).long()], torch.zeros_like(gp)).contiguous()
+    return codes, ids, gp, gsize
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("qt,D,C", [(8, 16, 128), (16, 13, 200), (32, 32, 384), (64, 128, 256)])
+def test_raw_scores_kernel_matches_plain(dev, qt, D, C, metric):
+    """K8: odd C and D, ghost groups, an empty partition, -inf at lanes
+    without an id."""
+    rng = np.random.default_rng(qt + C)
+    codes, ids, gp, _ = _variant_store(dev, rng, C, 10, D=D)
+    qg = torch.from_numpy(rng.standard_normal((gp.shape[0], qt, D)).astype(np.float32)).to(dev)
+    got = raw_scores(gp, qg, codes, ids, metric)
+    want = raw_scores_plain(gp, qg, codes, ids, metric)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    assert torch.isneginf(got[gp < 0]).all() and torch.isfinite(got).any()
+    ok = torch.isfinite(want)
+    torch.testing.assert_close(got[ok], want[ok], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("qt,kk", [(8, 1), (64, 10), (8, 40), (64, 384)])
+@pytest.mark.parametrize("C", [200, 512])
+def test_packed_topk_kernel_matches_plain(dev, C, qt, kk, metric):
+    """K9, up to the largest kk that fits shared memory at qt = 64, D = 32."""
+    rng = np.random.default_rng(C + qt + kk)
+    kk = min(kk, C)
+    codes, ids, gp, _ = _variant_store(dev, rng, C, kk)
+    codes[0, 5::2] = codes[0, 5]  # equal scores still pack to distinct values
+    qg = torch.from_numpy(rng.standard_normal((gp.shape[0], qt, 32)).astype(np.float32)).to(dev)
+    got = packed_topk(gp, qg, codes, ids, kk, metric)
+    want = packed_topk_plain(gp, qg, codes, ids, kk, metric)
+    raw = raw_scores(gp, qg, codes, ids, metric)
+    torch.cuda.synchronize()
+    bits = slot_bits_of(C)
+    assert ((got >= 0) == (want >= 0)).all() and (got[gp < 0] == -1).all()
+    assert (torch.diff(got, dim=2)[got[:, :, 1:] >= 0] < 0).all()
+    mask = (1 << bits) - 1
+    gl = torch.where(got >= 0, got & mask, torch.full_like(got, -1)).reshape(-1, kk)
+    wl = torch.where(want >= 0, want & mask, torch.full_like(want, -1)).reshape(-1, kk)
+    assert _overlap(gl, wl) >= 0.99
+    ref = torch.where(torch.isneginf(raw), torch.full_like(got[:, :, :1], -1),
+                      pack_scores(raw, bits))
+    assert torch.equal(torch.topk(ref, kk, dim=2).values, got)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("qt,kk", [(8, 1), (64, 10), (8, 40), (64, 128)])
+@pytest.mark.parametrize("C,ct", [(200, 64), (384, 256), (512, 128)])
+def test_sized_topk_kernel_matches_plain(dev, C, ct, qt, kk, metric):
+    """sized_topk: tile heights that do and do not divide C, poisoned rows
+    past the size (never read), kk = 1 and the largest kk that fits."""
+    rng = np.random.default_rng(C + qt + kk)
+    codes, _, gp, gsize = _variant_store(dev, rng, C, kk)
+    lane = torch.arange(C, device=dev)[None, :, None]
+    sizes = torch.tensor([C, C - 70, 0, 1, kk // 2, 150], device=dev)
+    codes = torch.where(lane < sizes[:, None, None], codes, torch.full_like(codes, 999.0))
+    qg = torch.from_numpy(rng.standard_normal((gp.shape[0], qt, 32)).astype(np.float32)).to(dev)
+    got_s, got_i = sized_topk(gp, gsize, qg, codes, min(kk, C), metric, ct=ct)
+    want_s, want_i = sized_topk_plain(gp, gsize, qg, codes, min(kk, C), metric, ct=ct)
+    torch.cuda.synchronize()
+    _pairs_match(got_s, got_i, want_s, want_i, 1e-4)
+    assert (got_i < gsize[:, None, None]).all()
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("qt,kk", [(8, 1), (64, 10), (8, 40), (64, 128)])
+@pytest.mark.parametrize("C,gb", [(200, 1), (384, 3), (512, 8)])
+def test_multi_topk_kernel_matches_plain(dev, C, gb, qt, kk, metric):
+    """multi_topk: gb groups per block (24 groups: gb in 1, 3, 8), copies of
+    one vector whose equal scores must order by the smaller slot."""
+    rng = np.random.default_rng(C + qt + kk)
+    codes, ids, gp, _ = _variant_store(dev, rng, C, kk)
+    codes[0, 5::2] = codes[0, 5]
+    qg = torch.from_numpy(rng.standard_normal((gp.shape[0], qt, 32)).astype(np.float32)).to(dev)
+    qg[0, 0] = codes[0, 5] * 3.0  # the copies are this row's best
+    got_s, got_i = multi_topk(gp, qg, codes, ids, min(kk, C), metric, gb=gb)
+    want_s, want_i = multi_topk_plain(gp, qg, codes, ids, min(kk, C), metric)
+    torch.cuda.synchronize()
+    assert ((got_i == C) == torch.isneginf(got_s)).all()
+    got_i, want_i = got_i.masked_fill(got_i >= C, -1), want_i.masked_fill(want_i >= C, -1)
+    _pairs_match(got_s, got_i, want_s, want_i, 1e-4)
+    tied = torch.diff(got_s, dim=2) == 0
+    assert bool(tied.any()) or kk == 1
+    assert (torch.diff(got_i, dim=2)[tied & (got_i[:, :, 1:] >= 0)] > 0).all()
+
+
+def test_variant_kernels_at_the_largest_kk_and_one_past(dev):
+    """qt = 64, D = 128: 128 pairs, or 384 packed values, per row are the most
+    that fit a block's shared memory; they agree with the plain versions, and
+    one more raises."""
+    rng = np.random.default_rng(11)
+    C, D, qt = 1024, 128, 64
+    codes = torch.from_numpy(rng.standard_normal((2, C, D)).astype(np.float32)).to(dev)
+    ids = torch.from_numpy(rng.permutation(2 * C).astype(np.int32).reshape(2, C)).to(dev)
+    ids[1, 900:] = -1
+    gp = torch.tensor([0, 1, -1, 1], dtype=torch.int32, device=dev)
+    gsize = torch.tensor([C, 900, 0, 900], dtype=torch.int32, device=dev)
+    qg = torch.from_numpy(rng.standard_normal((4, qt, D)).astype(np.float32)).to(dev)
+    _pairs_match(*sized_topk(gp, gsize, qg, codes, 128, "l2"),
+                 *sized_topk_plain(gp, gsize, qg, codes, 128, "l2"), 1e-4)
+    got_s, got_i = multi_topk(gp, qg, codes, ids, 128, "l2", gb=2)
+    want_s, want_i = multi_topk_plain(gp, qg, codes, ids, 128, "l2")
+    _pairs_match(got_s, got_i.masked_fill(got_i >= C, -1), want_s,
+                 want_i.masked_fill(want_i >= C, -1), 1e-4)
+    got = packed_topk(gp, qg, codes, ids, 384, "l2")
+    raw = raw_scores(gp, qg, codes, ids, "l2")
+    ref = torch.where(torch.isneginf(raw), torch.full_like(got[:, :, :1], -1),
+                      pack_scores(raw, slot_bits_of(C)))
+    torch.cuda.synchronize()
+    assert torch.equal(torch.topk(ref, 384, dim=2).values, got)
+    with pytest.raises(ValueError, match="shared memory"):
+        sized_topk(gp, gsize, qg, codes, 129, "l2")
+    with pytest.raises(ValueError, match="shared memory"):
+        multi_topk(gp, qg, codes, ids, 129, "l2", gb=2)
+    with pytest.raises(ValueError, match="shared memory"):
+        packed_topk(gp, qg, codes, ids, 385, "l2")
+
+
 def test_launch_counts(dev):
     _ext.reset_launches()
     keys = torch.zeros((8, 128), device=dev)
     merge_positions(keys, 4, 128)
     merge_positions_plain(keys, 4, 128)
+    gp = torch.zeros(2, dtype=torch.int32, device=dev)
+    qg, codes = torch.zeros((2, 8, 16), device=dev), torch.zeros((1, 128, 16), device=dev)
+    ids = torch.zeros((1, 128), dtype=torch.int32, device=dev)
+    raw_scores(gp, qg, codes, ids, "l2")
+    raw_scores_plain(gp, qg, codes, ids, "l2")
+    sized_topk(gp, gp + 100, qg, codes, 4, "ip")
+    multi_topk(gp, qg, codes, ids, 4, "ip", gb=2)
+    packed_topk(gp, qg, codes, ids, 4, "ip")
     assert _ext.launches == {"grouped_scan": 0, "merge_positions": 1, "flat_topk": 0,
                              "rowscale_topk": 0, "rowscale_fold": 0, "exact_topk": 0,
-                             "chunk_merge": 0}
+                             "chunk_merge": 0, "raw_scores": 1, "packed_topk": 1,
+                             "sized_topk": 1, "multi_topk": 1}

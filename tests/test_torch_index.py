@@ -86,9 +86,11 @@ def _arrays(state):
     return {f: np.asarray(getattr(state, f)) for f in FIELDS}
 
 
-def test_whole_slice_on_one_state(jax_index):
+def test_whole_slice_on_one_state(jax_index, monkeypatch):
     """The port's fused_ivf_search against the JAX main path composed of its
-    own kernels in interpret mode, on the same store."""
+    own kernels in interpret mode, on the same store. The parent ranking is
+    pinned to kernel K3 ("pallas"), which a CPU index does not default to."""
+    monkeypatch.setenv("QUAKE_TPU_PARENT_KERNEL", "pallas")
     jidx, _, q = jax_index
     k, nprobe = 10, 8
     tidx = index_from_numpy(_arrays(jidx.store.state), _arrays(jidx.parent.store.state),
@@ -109,7 +111,7 @@ def test_whole_slice_on_one_state(jax_index):
     _, i2, d2, scanned, pids2 = coordinator.fused_ivf_search(
         ts.codes, ts.ids, ts.sizes, ts.norms, pts.codes, pts.ids, torch.from_numpy(q),
         k=k, nprobe=nprobe, metric="l2", qt=qt, kernel=tidx._grouped_kernel(),
-        parent_norms=pts.norms)
+        parent_norms=pts.norms, parent_kernel=tidx._parent_kernel())
     i1, i2 = np.asarray(i1), i2.numpy()
     overlap = np.mean([len(set(a) & set(b)) / k for a, b in zip(i1, i2)])
     assert overlap >= 0.99, overlap
@@ -164,7 +166,8 @@ def test_whole_slice_by_name(jax_index, monkeypatch, kernel, jax_scan, kw):
                             "l2", device="cpu")
     assert tidx.store.C % 1024 != 0
     monkeypatch.setenv("QUAKE_TPU_KERNEL", kernel)
-    assert tidx._grouped_kernel() == kernel
+    monkeypatch.setenv("QUAKE_TPU_PARENT_KERNEL", "pallas")
+    assert tidx._grouped_kernel() == kernel and tidx._parent_kernel() == "pallas"
     res = tidx.search(q, SearchParams(k=k, nprobe=nprobe))
 
     st, pst = jidx.store.state, jidx.parent.store.state
@@ -241,9 +244,18 @@ def test_calibrate_aps_guard():
     (SearchParams(k=5, nprobe=2, batched_scan=False), 32),
 ])
 def test_search_guards(sp, nq):
+    """APS and dequantized distances are guarded; batches below 16 queries
+    and batched_scan=False take the query-major search, which is exact over
+    the probed partitions (every stored vector finds itself)."""
     idx, x = _small_index()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        idx.search(x[:nq], sp)
+    if sp.recall_target > 0 or not sp.exact_distances:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            idx.search(x[:nq], sp)
+        return
+    res = idx.search(x[:nq], sp)
+    assert res.ids.shape == (nq, sp.k) and res.timing_info.partitions_scanned == sp.nprobe
+    np.testing.assert_array_equal(res.ids[:, 0], np.arange(nq))
+    np.testing.assert_allclose(res.distances[:, 0], 0.0, atol=1e-2)
 
 
 def test_flat_index_search_guard_and_dimension_check():
@@ -252,8 +264,13 @@ def test_flat_index_search_guard_and_dimension_check():
         idx.search(np.zeros((32, 3), np.float32), SearchParams(k=1))
     flat = QuakeIndex(device="cpu")
     flat.build(x, None, IndexBuildParams(nlist=0))
-    with pytest.raises(NotImplementedError, match="flat"):
-        flat.search(x[:32], SearchParams(k=1))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flat.search(x[:32], SearchParams(k=1, exact_distances=False))
+    # A flat index is exact, and has no APS to guard: the target is ignored.
+    res = flat.search(x[:32], SearchParams(k=5, recall_target=0.9))
+    gt, _ = knn(x[:32], x, 5)
+    assert compute_recall(res.ids, gt, 5) == 1.0
+    assert res.timing_info.partitions_scanned == flat.nlist() == 1
 
 
 def test_default_device_needs_cuda(monkeypatch):
@@ -281,7 +298,7 @@ def test_imports_without_jax():
                or m == "jax" and sys.modules[m] is not None]
         assert not bad, bad
         for m in ("coordinator", "ops.grouped", "ops.grouped_family", "ops.grouped_scan",
-                  "ops.grouped_exact", "ops.grouped_chunked"):
+                  "ops.grouped_exact", "ops.grouped_chunked", "ops.grouped_variants"):
             assert "quake_tpu_torch." + m in sys.modules, m
         print("ok")
     """)
