@@ -14,7 +14,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
              (chunked per-row-scale scan with the cross-chunk merge), K8 (raw
              scores), K9 (packed top-kk) and the sized and multi scans'
              kernels against their plain PyTorch versions on the card at
-             small shapes.
+             small shapes; K1 and K4, which multiply on the tensor cores with
+             split TF32 operands, also at the shapes that stress their tiles
+             (more groups than blocks, D below and at the tile depth, sizes
+             around a 128-row segment, kk 1, 10 and 100, D 200 and 256 that
+             a ring stage holds only in depth chunks), against the f32 plain
+             versions and against the plain versions run on
+             ops/split_product.py's model of the split product; K4 with
+             chunk tables of ct 128 and 256 and both at D = 30 (the
+             CUDA-core bodies) against the f32 plain versions.
 4. main    — the fixed-nprobe main path at full width: a 1,000,000 x 128
              synthetic-manifold corpus (seed 1), nlist=160, niter=25, l2, f32
              codes, built and searched through QuakeIndex. Recall@10 on 1024
@@ -53,7 +61,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
              main path (K1-K3), the by-name paths (K4 through v3p, v3pN,
              v6 and v4, K5 through v7, K1 through v8, K6 through v3 and v2,
              K7 through v5) and the direct paths (K8, K9, sized_topk,
-             multi_topk) gave it, with times and bounds.
+             multi_topk) gave it, with times and bounds (K1, and K4 on whole
+             partitions, against the tensor cores' TF32 peak at three
+             products per f32 one, the others against the CUDA cores' f32
+             peak; no kernel may beat its bound), and the share of K1's time
+             that its selection takes (K1 against a build of its body
+             without the selection).
 
 Progress goes to stderr. Standard output holds three lines: the JSON list
 of kernels, the card's name and power limit, and last
@@ -62,10 +75,13 @@ of kernels, the card's name and power limit, and last
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -110,6 +126,15 @@ DIRECT_QT, SIZED_CT, MULTI_GB = 64, 256, 8
 LATENCY = ((1, None), (8, None), (64, False))  # (queries, batched_scan) of the query-major runs
 FLAT_RECALL = 0.999
 F32_PEAK = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores (data sheet)
+TF32_PEAK = 495e12  # H100 SXM dense TF32 FLOP/s on the tensor cores (data sheet)
+# Unit a kernel's product runs on -> (its operations per f32 flop of the
+# function, its peak). The tensor-core bodies take three TF32 products per f32 one.
+UNITS = {"f32 CUDA cores": (1.0, F32_PEAK), "TF32 tensor cores, 3 products": (3.0, TF32_PEAK)}
+CUDA_CORES, TENSOR_CORES = UNITS
+# Entries of the kernels line whose product runs on the tensor cores: K1, and
+# K4 on whole partitions (with v4's chunk table it runs in f32 on the CUDA cores).
+TENSOR_CORE_ENTRIES = ("grouped_scan", "grouped_scan/v8", "rowscale_topk/v3p",
+                       "rowscale_topk/v3pn", "rowscale_topk/v6")
 HBM_RATE = 3.35e12  # H100 SXM bytes/s
 QUEUE_CYCLES = 50_000_000  # ~25 ms of spinning at the H100's clock: room to enqueue the reps
 # Entry of the kernels line -> (CUDA kernel, its source, the TPU kernel it
@@ -152,6 +177,11 @@ ENTRIES = {
 }
 
 
+def unit_of(entry: str) -> str:
+    """The unit (a key of UNITS) that an entry of the kernels line multiplies on."""
+    return TENSOR_CORES if entry in TENSOR_CORE_ENTRIES else CUDA_CORES
+
+
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
@@ -167,9 +197,11 @@ def make_manifold(n, d, n_centers, seed, zdim=16, spread=1.5):
     return (z @ A + 0.05 * r.standard_normal((n, d)).astype(np.float32)).astype(np.float32)
 
 
-def bound(nbytes: float, flops: float):
-    """Least time (ms) the card needs for the work, and what sets it."""
-    tb, tf = nbytes / HBM_RATE, flops / F32_PEAK
+def bound(nbytes: float, flops: float, unit: str = CUDA_CORES):
+    """Least time (ms) the card needs for the work, and what sets it; the
+    operations run on `unit` (a key of UNITS)."""
+    per_flop, peak = UNITS[unit]
+    tb, tf = nbytes / HBM_RATE, flops * per_flop / peak
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
@@ -282,8 +314,111 @@ def phase_small_parity(torch, dev):
                 worst = [min(worst[0], r[0]), max(worst[1], r[1]), max(worst[2], r[2])]
     log(f"[parity small] K4/K5 (C in 200, 384; qt in 8, 64; kk in 10, 100; l2, ip): "
         f"min overlap={worst[0]:.4f} max_key_diff={worst[1]} max_stats_err={worst[2]:.3g}")
+    phase_small_parity_tensor_core(torch, dev, rng)
     phase_small_parity_exact_chunked(torch, dev, rng, gp)
     phase_small_parity_variants(torch, dev, rng, gp)
+
+
+def phase_small_parity_tensor_core(torch, dev, rng):
+    """K1 and K4 at the shapes that stress the tensor-core bodies' tiles: 300
+    groups (more than blocks: every block walks several groups and loads
+    across their borders), qt 8 and 64, partitions of 0, 1, 127, 128, 129 and
+    all rows (K4 also 256 and 300 of a C = 520 that no segment divides), kk 1,
+    10 and 100, l2 and ip for K4; D 24, 100 and 128 (a ring stage holds all of
+    D) and D 200 and 256 (a stage holds a depth chunk of two or four boxes
+    and the accumulator carries over the chunks). Each against the f32 plain
+    version and against the plain version on the split product's model, at
+    the same tolerances. D = 30 (rows not 16-byte aligned) takes the
+    CUDA-core bodies. K4's chunk table with ct 128 and 256, laid out as the
+    v4 scan lays it, takes a CUDA-core body at every D and is held to the f32
+    plain version."""
+    from quake_tpu_torch.ops.grouped_family import (CHUNK_BODY, GROUP_BODY, MMA_BODY,
+                                                    rowscale_topk_body)
+    from quake_tpu_torch.ops.grouped_scan import (grouped_scan_kernel, grouped_scan_plain,
+                                                  grouped_scan_uses_mma, packed_params)
+
+    Gn = 300
+    # worst[what] = [min overlap, max key difference of common winners, stats]
+    worst = {}
+    models = (("f32", False), ("split", True))
+
+    def store(C, Dm, sizes_l):
+        P = len(sizes_l)
+        codes = torch.from_numpy(rng.standard_normal((P, C, Dm)).astype(np.float32)).to(dev)
+        sizes = torch.tensor(sizes_l, dtype=torch.int32, device=dev)
+        return codes, (codes * codes).sum(-1).contiguous(), sizes
+
+    def fold_in(what, r):
+        w = worst.setdefault(what, [1.0, 0.0, 0.0])
+        r = tuple(r) + (0.0,) * (3 - len(r))
+        w[:] = [min(w[0], r[0])] + [max(a, b) for a, b in zip(w[1:], r[1:])]
+
+    # (qt, D, the body a chunk table takes; None: no CUDA-core body fits it)
+    for qt, Dm, chunk_body in ((8, 24, CHUNK_BODY), (8, 100, CHUNK_BODY), (8, 128, CHUNK_BODY),
+                               (64, 24, CHUNK_BODY), (64, 100, CHUNK_BODY),
+                               (64, 128, CHUNK_BODY), (8, 256, GROUP_BODY),
+                               (64, 200, GROUP_BODY), (64, 256, None), (32, 30, CHUNK_BODY)):
+        tensor_cores = Dm % 4 == 0
+        shape = "one stage" if Dm <= 128 else "depth chunks"
+        if (grouped_scan_uses_mma(qt, Dm) != tensor_cores
+                or rowscale_topk_body(qt, Dm, 100) != (MMA_BODY if tensor_cores else GROUP_BODY)
+                or rowscale_topk_body(qt, Dm, 100, chunked=True) != (chunk_body or GROUP_BODY)):
+            raise AssertionError(f"qt={qt}, D={Dm}: the launchers chose other bodies than expected")
+        # K1: C % 128 == 0.
+        C = 512
+        codes, norms, sizes = store(C, Dm, [0, 1, 127, 128, 129, C])
+        gp = torch.from_numpy(rng.integers(-1, 6, Gn).astype(np.int32)).to(dev)
+        gsize = torch.where(gp >= 0, sizes[gp.clamp(min=0).long()],
+                            torch.zeros_like(gp)).contiguous()
+        slot_mult, levels = packed_params(C)
+        scale = levels / (10.0 * Dm ** 0.5)
+        q = torch.from_numpy(rng.standard_normal((Gn, qt, Dm)).astype(np.float32)).to(dev)
+        normsT = ((norms * 0.5 - 0.5 * Dm - 5.0 * Dm ** 0.5) * scale).contiguous()
+        for kk in (1, 10, 100):
+            for m, model in models if tensor_cores else models[:1]:
+                r = compare_k1(torch, grouped_scan_kernel, grouped_scan_plain, gp, gsize,
+                               (q * scale).contiguous(), codes, normsT, kk, slot_mult, levels,
+                               model=model)
+                fold_in(f"K1, {shape}, {m} product" if tensor_cores else "K1, D=30", r)
+        # K4: a C that no segment divides, groups of one, two and more segments.
+        C = 520
+        codes, norms, sizes = store(C, Dm, [0, 1, 127, 128, 129, C, 256, 300])
+        gp = torch.from_numpy(rng.integers(-1, 8, Gn).astype(np.int32)).to(dev)
+        gsize = torch.where(gp >= 0, sizes[gp.clamp(min=0).long()],
+                            torch.zeros_like(gp)).contiguous()
+        slot_mult, levels = packed_params(C)
+        for kk in (1, 10, 100):
+            for metric in ("l2", "ip"):
+                for m, model in models if tensor_cores else models[:1]:
+                    r = compare_rowscale(torch, (gp, gsize, q, codes, norms, kk, slot_mult,
+                                                 levels, metric, "topk"), model=model)
+                    fold_in(f"K4, {shape}, {m} product" if tensor_cores else "K4, D=30", r)
+        # K4 with a chunk table: 60 (partition, tile) groups of maxch chunks each.
+        G = 60
+        pid = torch.from_numpy(rng.integers(-1, 8, G).astype(np.int32)).to(dev)
+        for ct in (128, 256) if chunk_body is not None else ():
+            maxch = -(-C // ct)
+            cg_pid = pid.repeat_interleave(maxch).contiguous()
+            chunk = torch.arange(maxch, dtype=torch.int32, device=dev).repeat(G)
+            cg_size = torch.where(cg_pid >= 0,
+                                  (sizes[cg_pid.clamp(min=0).long()] - chunk * ct).clamp(0, ct),
+                                  torch.zeros_like(cg_pid)).contiguous()
+            qsrc = torch.arange(G, dtype=torch.int32, device=dev).repeat_interleave(maxch)
+            slot_mult_c, levels_c = packed_params(ct)
+            for kk in (1, 10, 100):
+                for metric in ("l2", "ip"):
+                    r = compare_rowscale(
+                        torch, (cg_pid, cg_size, q[:G].contiguous(), codes, norms, kk,
+                                slot_mult_c, levels_c, metric, "topk"),
+                        qsrc=qsrc.contiguous(), row_off=(chunk * ct).contiguous(), ct=ct)
+                    fold_in("K4 with a chunk table, " + ("the persistent body"
+                                                         if chunk_body == CHUNK_BODY
+                                                         else "one block a group"), r)
+    log("[parity small] K1 and K4 at the tile-stressing shapes (300 groups; qt in 8, 64; sizes 0, "
+        "1, 127, 128, 129, full; kk in 1, 10, 100; l2, ip; one stage: D in 24, 100, 128; depth "
+        "chunks: D in 200, 256; chunk tables with ct in 128, 256 on the CUDA cores): "
+        + "; ".join(f"{what}: min overlap={w[0]:.4f} max_key_diff={w[1]} max_stats_err={w[2]:.3g}"
+                    for what, w in worst.items()))
 
 
 def phase_small_parity_variants(torch, dev, rng, gp):
@@ -516,16 +651,19 @@ def compare_pairs(torch, what, got, want, ties=False, level=0.0):
     return ov, err
 
 
-def compare_rowscale(torch, args, **chunk_table):
+def compare_rowscale(torch, args, model=False, **chunk_table):
     """K4 or K5 (args[-1] selects; chunk_table = K4's qsrc, row_off and ct)
-    against its plain version: winner overlap, key difference of common
-    winners, ghost groups, stats."""
+    against its plain version (model: run on ops/split_product.py's model of
+    the tensor-core product instead of the f32 one): winner overlap, key
+    difference of common winners, ghost groups, stats."""
     from quake_tpu_torch.ops.grouped_family import rowscale_scan, rowscale_scan_plain
+    from quake_tpu_torch.ops.split_product import bmm_as_split_product
 
     gsize, kk, slot_mult, select = args[1], args[5], args[6], args[-1]
     what = ("K4" if select == "topk" else "K5") + (" (chunk table)" if chunk_table else "")
     got, got_stats = rowscale_scan(*args, **chunk_table)
-    want, want_stats = rowscale_scan_plain(*args, **chunk_table)
+    with bmm_as_split_product() if model else contextlib.nullcontext():
+        want, want_stats = rowscale_scan_plain(*args, **chunk_table)
     torch.cuda.synchronize()
     alive = gsize > 0
     ghost_ok = (bool((got[~alive] == -1).all()) and bool((got_stats[~alive][:, :, 0] == 0).all())
@@ -551,9 +689,14 @@ def compare_rowscale(torch, args, **chunk_table):
     return ov, max_kd, max_abs
 
 
-def compare_k1(torch, kernel, plain, gp, gsize, qg, codes, normsT, kk, slot_mult, levels):
+def compare_k1(torch, kernel, plain, gp, gsize, qg, codes, normsT, kk, slot_mult, levels,
+               model=False):
+    """K1 against its plain version (model: as in compare_rowscale)."""
+    from quake_tpu_torch.ops.split_product import bmm_as_split_product
+
     got = kernel(gp, gsize, qg, codes, normsT, kk, slot_mult, levels)
-    want = plain(gp, gsize, qg, codes, normsT, kk, slot_mult, levels)
+    with bmm_as_split_product() if model else contextlib.nullcontext():
+        want = plain(gp, gsize, qg, codes, normsT, kk, slot_mult, levels)
     torch.cuda.synchronize()
     alive = gsize > 0
     if not bool((got[~alive] == -1).all()):
@@ -565,8 +708,11 @@ def compare_k1(torch, kernel, plain, gp, gsize, qg, codes, normsT, kk, slot_mult
     both = (g >= 0) & (w >= 0)
     kd = (torch.floor(g / slot_mult) - torch.floor(w / slot_mult)).abs()
     max_kd = float(kd[both].max()) if bool(both.any()) else 0.0
-    if ov < OVERLAP_TOL:
-        raise AssertionError(f"K1 disagrees with its plain version: overlap {ov}")
+    same = (lanes[0] == lanes[1]) & (lanes[0] >= 0)
+    same_kd = float(kd[same].max()) if bool(same.any()) else 0.0
+    if ov < OVERLAP_TOL or same_kd > 1.0:
+        raise AssertionError(f"K1 disagrees with its plain version: overlap {ov}, key "
+                             f"difference of common winners {same_kd}")
     return ov, max_kd
 
 
@@ -797,14 +943,15 @@ def phase_small_reference(torch, dev):
     return worst
 
 
-def scan_bound(st, gp, gsize, real_q, q_bytes, qt, kk, D, extra=0, whole_slab=False):
+def scan_bound(st, gp, gsize, real_q, q_bytes, qt, kk, D, extra=0, whole_slab=False,
+               unit=CUDA_CORES):
     """Least time of one grouped-scan pass (K1, K4-K7): bytes = the query
     tiles (q_bytes), the 128-row segments of the probed partitions that hold
     vectors (whole_slab: all their rows, for the v2 scan, which has no
     sizes) with a norm or an id per row, gp and sizes, a [groups, qt, kk]
     f32 output, and `extra` (a second output, a chunk table); flops =
-    2 D (real query rows x valid lanes) summed over the live groups. Returns
-    (bound, live groups, scanned rows)."""
+    2 D (real query rows x valid lanes) summed over the live groups, on
+    `unit`. Returns (bound, live groups, scanned rows)."""
     gs = gsize.long()
     alive = gs > 0
     used = gp[alive].long().unique()
@@ -815,15 +962,17 @@ def scan_bound(st, gp, gsize, real_q, q_bytes, qt, kk, D, extra=0, whole_slab=Fa
     flops = 2.0 * D * float((real_q[alive] * gs[alive]).sum())
     nbytes = (q_bytes + read_rows * (D + 1) * 4 + gp.numel() * 8
               + gp.numel() * qt * kk * 4 + extra)
-    return bound(nbytes, flops), int(alive.sum()), int((((gs + 127) // 128) * 128)[alive].sum())
+    return (bound(nbytes, flops, unit), int(alive.sum()),
+            int((((gs + 127) // 128) * 128)[alive].sum()))
 
 
 def exact_chunked_rows(torch, idx, q, pids, qt, kk, by_name):
     """Rows of the kernels phase for K6 (through v3 and v2), K7 (through v5)
     and K4 with a chunk table (through v4), at the inputs those paths build
     from the B=16384 batch. One pass over the slab bounds K6 and K7 (K7
-    reads nothing twice from device memory); v4's bound counts one query
-    tile per live chunk-group, its chunk table and both outputs."""
+    reads nothing twice from device memory); v4's bound counts each query
+    tile once (a block keeps it across the chunks that share it), its chunk
+    table and both outputs."""
     from quake_tpu_torch.coordinator import chunk_spec
     from quake_tpu_torch.ops.grouped import build_chunk_groups, build_groups
     from quake_tpu_torch.ops.grouped_chunked import chunk_merge, chunk_merge_plain
@@ -890,10 +1039,9 @@ def exact_chunked_rows(torch, idx, q, pids, qt, kk, by_name):
     args4 = (cg_pid, cg_size, qg, st.codes, st.norms, min(kk, ct), slot_mult, levels, "l2", "topk")
     table = dict(qsrc=cg_qsrc, row_off=(cg_chunk * ct).contiguous(), ct=ct)
     ov, kd, serr = compare_rowscale(torch, args4, **table)
-    live = cg_size > 0
     b, groups, scanned = scan_bound(
-        st, cg_pid, cg_size, real_q[cg_qsrc.long()], int(live.sum()) * qt * Dd * 4, qt, kk, Dd,
-        extra=cg_pid.numel() * (qt * 2 * 4 + 8))
+        st, cg_pid, cg_size, real_q[cg_qsrc.long()], qg.numel() * 4, qt, kk, Dd,
+        extra=cg_pid.numel() * (qt * 2 * 4 + 8), unit=unit_of("rowscale_topk/v4"))
     rows.append(dict(
         name="rowscale_topk/v4", overlap=ov, max_abs_err=kd, stats_err=serr,
         tol=(f"winner overlap >= {OVERLAP_TOL}, common keys within 1 level, stats rtol = atol = "
@@ -1114,7 +1262,48 @@ def phase_latency(torch, dev, idx, x, queries, gt, nprobe):
     return out
 
 
-def phase_kernels(torch, dev, idx, queries, nprobe, launches, by_name, direct):
+def start_product_only_build():
+    """Starts a second build of csrc/quake_kernels.cu with -DQK_PRODUCT_ONLY
+    (K1's body with its loads and products and without keys, fold and
+    rounds: a timing aid, never the package's library) in a directory of its
+    own. Returns what product_only_k1 needs."""
+    from quake_tpu_torch import _ext
+
+    _ext.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=_ext.BUILD_DIR)
+    so = os.path.join(tmp.name, "libk1_product_only.so")
+    proc = subprocess.Popen(
+        [_ext._nvcc(), *_ext.NVCC_FLAGS, "-DQK_PRODUCT_ONLY", "-shared",
+         str(_ext.CSRC / "quake_kernels.cu"), "-ldl", "-o", so],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return tmp, so, proc
+
+
+def product_only_k1(torch, build, gp, gsize, qg, codes, normsT, kk, slot_mult, levels):
+    """A function that launches the product-only build of K1 on K1's
+    arguments (what it writes is no result), and the build's directory, to
+    be cleaned up by the caller."""
+    from quake_tpu_torch import _ext
+
+    tmp, so, proc = build
+    out, _ = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on the product-only build of K1:\n{out}")
+    entry = ctypes.CDLL(so).qk_grouped_scan
+    entry.argtypes, entry.restype = _ext._SIGNATURES["qk_grouped_scan"], ctypes.c_int
+    (Gn, qt, Dd), (P, C, _) = qg.shape, codes.shape
+    scratch = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.float32)
+
+    def launch():
+        _ext.check(entry(gp.data_ptr(), gsize.data_ptr(), qg.data_ptr(), codes.data_ptr(),
+                         normsT.data_ptr(), scratch.data_ptr(), Gn, qt, Dd, P, C, kk,
+                         float(slot_mult), float(levels), _ext.stream_ptr(qg.device)),
+                   "grouped_scan (product only)")
+
+    return launch, tmp
+
+
+def phase_kernels(torch, dev, idx, queries, nprobe, launches, by_name, direct, k1_build):
     """Each kernel against its plain version at the shapes of the path it
     runs on, with times and bounds: K1-K3 on the main (v11) path; on the
     by-name paths K4 through v3p, v3pN, v6 and v4, K5 through v7, K1 through
@@ -1159,12 +1348,22 @@ def phase_kernels(torch, dev, idx, queries, nprobe, launches, by_name, direct):
     ov1, kd1 = compare_k1(torch, grouped_scan_kernel, grouped_scan_plain, *args)
     real_q = (inp["tgt"] < BATCH * nprobe).sum(1)  # query rows that are real pairs
     b1, groups, scanned = scan_bound(st, inp["gp"], inp["group_size"], real_q,
-                                     inp["qg"].numel() * 4, qt, kk, Dd)
+                                     inp["qg"].numel() * 4, qt, kk, Dd,
+                                     unit=unit_of("grouped_scan"))
     rows.append(dict(name="grouped_scan", tol=k1_tol, overlap=ov1, max_abs_err=kd1,
                      launches=launches["grouped_scan"],
                      ms=time_ms(torch, lambda: grouped_scan_kernel(*args)),
                      plain_ms=time_ms(torch, lambda: grouped_scan_plain(*args), reps=2, warmup=1),
                      bound=b1, groups=groups, scanned_rows=scanned))
+    # The share of K1's time that is selection (keys, fold, rounds): K1 against
+    # its own body built without them (the same loads and products).
+    k1_ms = rows[-1]["ms"]
+    launch, build_dir = product_only_k1(torch, k1_build, *args)
+    product_ms = time_ms(torch, launch)
+    torch.cuda.synchronize()
+    build_dir.cleanup()
+    log(f"[kernel] grouped_scan: {k1_ms:.4f} ms, its loads and products alone "
+        f"{product_ms:.4f} ms: selection share {1.0 - product_ms / k1_ms:.3f} of K1's time")
 
     # K2 at the pool merge's shape (argsort placement of the B=16384 batch);
     # the library call is a top-k of the same keys.
@@ -1197,7 +1396,8 @@ def phase_kernels(torch, dev, idx, queries, nprobe, launches, by_name, direct):
                  "l2", select)
         ov, kd, serr = compare_rowscale(torch, rargs)
         b, groups, scanned = scan_bound(st, gp, gsize, (ql >= 0).sum(1), rargs[2].numel() * 4,
-                                        qt, kk, Dd, extra=gp.numel() * qt * 2 * 4)
+                                        qt, kk, Dd, extra=gp.numel() * qt * 2 * 4,
+                                        unit=unit_of(entry))
         rows.append(dict(name=entry, tol=f"{k1_tol}, stats rtol = atol = {STATS_TOL}",
                          overlap=ov, max_abs_err=kd, stats_err=serr,
                          launches=by_name[path]["launches"][ENTRIES[entry][0]],
@@ -1212,7 +1412,7 @@ def phase_kernels(torch, dev, idx, queries, nprobe, launches, by_name, direct):
     args8 = (gp, gsize, q_scaled[safe_q].contiguous(), st.codes, normsT, kk, slot_mult, levels)
     ov8, kd8 = compare_k1(torch, grouped_scan_kernel, grouped_scan_plain, *args8)
     b8, groups, scanned = scan_bound(st, gp, gsize, (ql >= 0).sum(1), args8[2].numel() * 4, qt,
-                                     kk, Dd)
+                                     kk, Dd, unit=unit_of("grouped_scan/v8"))
     rows.append(dict(name="grouped_scan/v8", tol=k1_tol, overlap=ov8, max_abs_err=kd8,
                      launches=by_name["v8g4"]["launches"]["grouped_scan"],
                      ms=time_ms(torch, lambda: grouped_scan_kernel(*args8)),
@@ -1227,8 +1427,14 @@ def phase_kernels(torch, dev, idx, queries, nprobe, launches, by_name, direct):
         r["bound_ms"], r["bound_by"] = r.pop("bound")
         kernel, source, replaces = ENTRIES[r["name"]]
         lib = r.get("library_ms")
+        unit = unit_of(r["name"])
+        if r["ms"] < r["bound_ms"]:
+            raise AssertionError(f"{r['name']}: {r['ms']} ms is below its bound of "
+                                 f"{r['bound_ms']} ms ({r['bound_by']}, {unit}): the bound is "
+                                 "not one of the unit the kernel runs on")
         log(f"[kernel] {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms by {r['bound_by']}"
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']} on the {unit}, "
+            f"{100.0 * r['bound_ms'] / r['ms']:.1f}% of it reached"
             + (f", library {lib:.4f} ms" if lib is not None else "")
             + (f", host-paced {r['paced_ms']:.4f} ms" if "paced_ms" in r else "")
             + f"), overlap {r['overlap']:.4f}, max {r.get('err_of', 'key diff')} {r['max_abs_err']}"
@@ -1239,7 +1445,7 @@ def phase_kernels(torch, dev, idx, queries, nprobe, launches, by_name, direct):
                         "replaces": replaces, "launches": r["launches"],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": lib})
+                        "bound_by": r["bound_by"], "bound_unit": unit, "library_ms": lib})
     return kernels
 
 
@@ -1261,6 +1467,7 @@ def main() -> int:
     log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
+    k1_build = start_product_only_build()  # beside the library's own nvcc processes
     _ext.lib()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
         f"({_ext.library_path().name})")
@@ -1289,7 +1496,7 @@ def main() -> int:
     latency = phase_latency(torch, dev, idx, x, queries, gt, main_out["nprobe"])
     phase_small_reference(torch, dev)
     kernels = phase_kernels(torch, dev, idx, queries, main_out["nprobe"], launches, by_name,
-                            direct)
+                            direct, k1_build)
     log("[summary] " + json.dumps(dict(main_out, by_name=by_name, direct=direct,
                                        latency=latency)))
 

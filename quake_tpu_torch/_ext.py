@@ -4,8 +4,11 @@ The kernels live in ``csrc/*.cu`` (their shared helpers in ``csrc/*.cuh``)
 behind a plain C interface: one ``extern "C"`` launcher per kernel that
 takes raw device pointers and a stream and returns ``cudaGetLastError()``.
 At first use every source is compiled by its own ``nvcc`` process, all
-started together, for ``sm_90a``; the objects are linked into one shared
-library under ``quake_tpu_torch/_build/``, named by a hash of the sources
+started together, for ``sm_90a`` (K1 and K4 use ``mma.sync`` TF32 products
+and bulk tensor copies; the tensor map's encoder, ``cuTensorMapEncodeTiled``,
+is looked up in libcuda at run time with ``dlsym``, so only ``-ldl`` is linked);
+the
+objects are linked into one shared library under ``quake_tpu_torch/_build/``, named by a hash of the sources
 and flags, and loaded with ``ctypes``. Nothing is built or loaded at
 import, so the CPU-only tests import every module freely.
 
@@ -35,19 +38,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C entry -> argtypes; every entry returns a cudaError_t as int.
+# C entry -> argtypes; every launcher returns a cudaError_t as int, the
+# qk_grouped_scan_uses_mma and qk_rowscale_topk_body entries the body chosen.
 _SIGNATURES = {
-    # gp, gsize, qg, codes, normsT, out, Gn, qt, D, C, kk, slot_mult, levels, stream
-    "qk_grouped_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
+    # gp, gsize, qg, codes, normsT, out, Gn, qt, D, P, C, kk, slot_mult, levels, stream
+    "qk_grouped_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    # qt, D: whether K1's launcher runs the tensor-core body
+    "qk_grouped_scan_uses_mma": (_I, _I),
+    # qt, D, kk, chunked: the body K4's launcher runs (2 tensor cores, 1 the
+    # persistent chunk-table body, 0 one block a group)
+    "qk_rowscale_topk_body": (_I, _I, _I, _I),
     # keys, out, B, poolp, kfin, lane_mult, stream
     "qk_merge_positions": (_P, _P, _I, _I, _I, _I, _P),
     # q, codes2d, bias, out, B, N, D, k, is_l2, slot_mult, levels, stream
     "qk_flat_topk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     # gp, gsize, qsrc, row_off (both may be null), qg, codes, norms, out, stats,
-    # Gn, qt, D, C, kk, is_l2, slot_mult, levels, stream
-    "qk_rowscale_topk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
-                         _P),
-    # the same without qsrc and row_off
+    # Gn, qt, D, P, C, kk, is_l2, slot_mult, levels, stream
+    "qk_rowscale_topk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                         _F, _P),
+    # the same without qsrc, row_off and P
     "qk_rowscale_fold": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
     # gp, gsize, qg, codes, norms, ids (gsize and norms, or ids, may be null),
     # out_s, out_i, Gn, qt, D, C, kk, is_l2, id_mode, stream
@@ -126,7 +135,7 @@ def build() -> Path:
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         so = Path(tmp) / out.name
-        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", str(so)],
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *objs, "-ldl", "-o", str(so)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True)
         if link.returncode:

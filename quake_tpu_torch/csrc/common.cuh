@@ -1,12 +1,16 @@
 // Helpers shared by the package's CUDA kernels (csrc/*.cu): the thread
 // layout, the fold-128 top-2 selection, the (score, index) pair order and the
 // per-row candidate buffer of the exact selections, the shared-memory loads
-// and the tile product.
+// and the tile product on the CUDA cores (tile_dots), and, for kernels K1 and
+// K4, the tile product on the tensor cores with its asynchronous loads
+// (mma_tile, segment_load_async).
 // Everything is in an anonymous namespace: each source gets its own copy.
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
@@ -192,6 +196,297 @@ __device__ __forceinline__ void tile_dots(float (&acc)[R][4], const float* qs,
 }
 
 inline int padded_dim(int D) { return (D + 3) & ~3; }
+
+// ---------------------------------------------------------------------------
+// The tile product on the tensor cores (kernels K1 and K4).
+//
+// <q, x> for a [16 MW, D] query tile and a 128-row segment, as
+// mma.sync.m16n8k8 TF32 products with f32 accumulation. TF32 keeps 10 mantissa
+// bits, and the kernels' keys are a floor() of the product, so each operand is
+// split on the card into hi = tf32(x) and lo = tf32(x - hi) (round to nearest,
+// ties away, as cvt.rna.tf32.f32) and the product is
+//     q_lo x_hi + q_hi x_lo + q_hi x_hi
+// summed in f32 ("3xTF32"): the dropped q_lo x_lo term is below 2^-22 of
+// |q| |x|. ops/split_product.py is the plain model.
+//
+// Operand tiles lie in shared memory in boxes of 32 columns: a [rows][D] tile
+// is tile_boxes(D) = ceil(D / 32) boxes of [rows][32] f32, one after the
+// other, and within a box the 16-byte chunk c of row r is stored at chunk
+// c ^ (r & 7) (tile_at). That is the layout the Tensor Memory Accelerator
+// writes with its 128-byte swizzle, so a whole box of a segment arrives by one
+// cp.async.bulk.tensor from a tensor map over the slabs viewed as [P C, D],
+// completing on the stage's mbarrier; and the fragment loads of a warp (8
+// rows x 4 consecutive floats) hit 32 distinct banks. The copy zero-fills
+// the columns from D to the end of the last box and any row past the end of
+// the slabs; rows at or past a group's size arrive as they are in memory and
+// the kernels mask them. Boxes start on 1024-byte boundaries.
+//
+// The 8 warps form an MW x NW grid (NW = 8 / MW): warp w owns MT m16-tiles
+// (16 MT query rows from 16 MT (w / NW)) and NT = 16 / NW n8-tiles (8 NT
+// segment rows, the product's columns, from 8 NT (w % NW)): 2 x 4 warps of
+// 2 x 4 tiles at qt = 64, so that a value loaded and split feeds as many
+// products as the registers allow. In the accumulator acc[i NT + j][e] of lane
+// (g = lane / 4, t = lane % 4), entry e of tile (i, j) is row
+// 16 i + g + 8 (e / 2), column 8 j + 2 t + (e % 2) of the warp's block.
+// ---------------------------------------------------------------------------
+constexpr int kTileStride = 136;  // row stride of a [qt][128] f32 value tile (136 % 32 == 8:
+                                  // the float2 stores of a warp spread over all banks)
+
+constexpr int kBox = 32;                // floats of a box row: 128 bytes, the swizzle span
+constexpr int kSegBox = kFold * kBox;   // floats of one box of a 128-row segment (16 KB)
+
+inline __host__ __device__ int tile_boxes(int D) { return (D + kBox - 1) / kBox; }
+
+// Where element (r, k) of a [rows][*] operand tile lies.
+__device__ __forceinline__ int tile_at(int r, int k, int rows) {
+  return (k >> 5) * rows * kBox + r * kBox + ((((k >> 2) & 7) ^ (r & 7)) << 2) + (k & 3);
+}
+
+// The first 1024-byte boundary of the block's dynamic shared memory.
+__device__ __forceinline__ float* smem_aligned(float* raw) {
+  const uint32_t at = (uint32_t)__cvta_generic_to_shared(raw);
+  return raw + ((1024u - (at & 1023u)) & 1023u) / sizeof(float);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// mbarrier: one arrival (the thread that announces the bytes) and a count of
+// bytes that the bulk copies take off as they land.
+__device__ __forceinline__ void mbar_init(uint64_t* bars) {
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bars)) : "memory");
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bars + 1)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// Spins until the barrier's phase of the given parity has completed; the
+// bytes copied in that phase are then visible to the caller. A copy that
+// never completes (a wrong tensor map, a wrong byte count) ends the kernel
+// with an error after about a second instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t spins = 0; !done; ++spins) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (spins > (1u << 26)) __trap();
+  }
+}
+
+// Generic-proxy accesses to shared memory made so far are ordered before
+// asynchronous-proxy (bulk copy) accesses that follow a later barrier.
+__device__ __forceinline__ void fence_async_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Rows [row, row + 128), columns from box box0 on, of the slabs (tensor map
+// cmap over [P C, D] f32) into the `boxes` boxes of the segment tile dst, one
+// bulk tensor copy a box, started by the block's first thread and completing
+// on bar. Whatever the block read or wrote in the tile before must lie behind
+// a __syncthreads().
+__device__ __forceinline__ void segment_load_async(float* dst, const CUtensorMap* cmap, int row,
+                                                   int box0, int boxes, uint64_t* bar) {
+  if (threadIdx.x != 0) return;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"((uint32_t)(boxes * kSegBox * sizeof(float)))
+               : "memory");
+  fence_async_proxy();
+  for (int b = 0; b < boxes; ++b)
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst + b * kSegBox)),
+        "l"(reinterpret_cast<uint64_t>(cmap)), "r"(smem_addr(bar)), "r"((box0 + b) * kBox),
+        "r"(row)
+        : "memory");
+}
+
+// The [qt, D] query tile (D % 4 == 0) into a [rows][*] operand tile; rows
+// >= qt and the columns from D to the end of the last box are zero.
+__device__ __forceinline__ void query_tile_load(float* dst, const float* src, int qt, int rows,
+                                                int D, int boxes) {
+  const int nch = boxes * (kBox / 4);  // 16-byte chunks a row
+  const int dch = D >> 2;
+  for (int i = threadIdx.x; i < rows * nch; i += kThreads) {
+    const int r = i / nch;
+    const int c = i - r * nch;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r < qt && c < dch) v = *reinterpret_cast<const float4*>(src + (size_t)r * D + 4 * c);
+    *reinterpret_cast<float4*>(dst + tile_at(r, 4 * c, rows)) = v;
+  }
+}
+
+// hi = tf32(x), rounded to nearest with ties away from zero as
+// cvt.rna.tf32.f32 rounds: half of the last kept place is added to the
+// magnitude bits and the 13 dropped bits are cleared. lo = tf32(x - hi) gets
+// the same half added and no mask: the tensor cores read only the upper 19
+// bits of a TF32 operand. Integer arithmetic on the bits gives the values of
+// two cvt.rna.tf32.f32 conversions and timed the same in the kernels. A finite
+// x within half a TF32 place of FLT_MAX rounds up to infinity (the model in
+// ops/split_product.py does the same), and its product is then inf or nan.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+// c = a b + (kZero ? 0 : c), one m16n8k8 TF32 product.
+template <bool kZero>
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  if constexpr (kZero) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+        : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.0f));
+  } else {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
+// The split fragments of one depth-8 step: a[i] the m16 x k8 tile i of the
+// query rows, b[j] the k8 x n8 tile j of the segment rows.
+template <int MT, int NT>
+struct StepFragments {
+  uint32_t ah[MT][4], al[MT][4], bh[NT][2], bl[NT][2];
+};
+
+// qa and sb point at this lane's first element of the step-0 fragments (row
+// row0 + g or col0 + g, column t); qrows is the query tile's height.
+template <int MT, int NT>
+__device__ __forceinline__ void load_step(StepFragments<MT, NT>& f, const float* qa,
+                                          const float* sb, int ks, int g, int qrows) {
+  // Step ks covers the chunks 2 ks and 2 ks + 1 of box ks / 4; every row this
+  // lane reads has (row & 7) == g, so one pair of offsets serves them all.
+  const int c0 = (((2 * ks) & 7) ^ g) << 2, c1 = c0 ^ 4;
+  const float* a = qa + (ks >> 2) * qrows * kBox;
+  const float* b = sb + (ks >> 2) * kSegBox;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    tf32_split(a[16 * i * kBox + c0], f.ah[i][0], f.al[i][0]);
+    tf32_split(a[(16 * i + 8) * kBox + c0], f.ah[i][1], f.al[i][1]);
+    tf32_split(a[16 * i * kBox + c1], f.ah[i][2], f.al[i][2]);
+    tf32_split(a[(16 * i + 8) * kBox + c1], f.ah[i][3], f.al[i][3]);
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    tf32_split(b[j * 8 * kBox + c0], f.bh[j][0], f.bl[j][0]);
+    tf32_split(b[j * 8 * kBox + c1], f.bh[j][1], f.bl[j][1]);
+  }
+}
+
+// part (+)= the three terms of one step, one term at a time over all the
+// tiles: consecutive mma operations then write different accumulators and
+// need not wait for each other. The small terms come first.
+template <bool kZero, int MT, int NT>
+__device__ __forceinline__ void mma_step(float (&part)[MT * NT][4],
+                                         const StepFragments<MT, NT>& f) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma_tf32<kZero>(part[i * NT + j], f.al[i], f.bh[j][0], f.bh[j][1]);
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma_tf32<false>(part[i * NT + j], f.ah[i], f.bl[j][0], f.bl[j][1]);
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma_tf32<false>(part[i * NT + j], f.ah[i], f.bh[j][0], f.bh[j][1]);
+}
+
+// acc (+)= <q rows, segment rows> for this warp's (16 MT) x (8 NT) block:
+// query rows from row0 of the tile qs (qrows high), segment rows from col0 of
+// the tile seg, over ksteps steps of depth 8 (round_up(D, 8) / 8 in all). Where
+// a ring stage holds fewer boxes than D takes, the caller walks D in depth
+// chunks: qs and seg then point at the chunk's first box, and only the first
+// chunk starts acc from zero.
+//
+// The tensor cores add into their f32 accumulator by truncation, so a sum
+// carried there over all of D drifts by several units in the last place.
+// Two steps at a time are therefore summed on the tensor cores from zero
+// (the two small terms of a step before its large one) and that partial sum
+// is added to acc on the CUDA cores, rounded to nearest.
+template <int MT, int NT>
+__device__ __forceinline__ void mma_tile(float (&acc)[MT * NT][4], const float* qs,
+                                         const float* seg, int row0, int col0, int qrows,
+                                         int ksteps, bool zero = true) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  if (zero) {
+#pragma unroll
+    for (int ti = 0; ti < MT * NT; ++ti)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[ti][e] = 0.0f;
+  }
+  const float* qa = qs + (row0 + g) * kBox + t;
+  const float* sb = seg + (col0 + g) * kBox + t;
+  for (int k0 = 0; k0 < ksteps; k0 += 2) {
+    float part[MT * NT][4];
+    StepFragments<MT, NT> f;
+    load_step<MT, NT>(f, qa, sb, k0, g, qrows);
+    mma_step<true, MT, NT>(part, f);
+    if (k0 + 1 < ksteps) {
+      load_step<MT, NT>(f, qa, sb, k0 + 1, g, qrows);
+      mma_step<false, MT, NT>(part, f);
+    }
+#pragma unroll
+    for (int ti = 0; ti < MT * NT; ++ti)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[ti][e] += part[ti][e];
+  }
+}
+
+// Shared memory a block may use. The tensor-core bodies serve a shape whose
+// rows are 16-byte aligned for the asynchronous copies (D % 4 == 0) and whose
+// whole-D query tile fits beside a ring stage of 4, 2 or 1 boxes.
+constexpr size_t kSmemLimit = 232448;
+
+// A tensor map over the slabs viewed as [rows, D] f32 (D % 4 == 0, codes on a
+// 16-byte boundary), in boxes of 128 rows x 32 columns with the 128-byte
+// swizzle; what lies outside the array reads as zero. The encoder
+// (cuTensorMapEncodeTiled) is looked up in libcuda at run time, so the
+// library need not be linked. Returns a cudaError_t.
+inline int slab_tensor_map(CUtensorMap* map, const void* codes, unsigned long long rows, int D) {
+  typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                             const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                             const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                             CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (!encode) {  // libcuda is in the process already: PyTorch loaded it
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    void* fn = lib ? dlsym(lib, "cuTensorMapEncodeTiled") : nullptr;
+    if (!fn) return (int)cudaErrorNotSupported;
+    encode = (Encode)fn;
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)D * sizeof(float)};
+  const cuuint32_t box[2] = {(cuuint32_t)kBox, (cuuint32_t)kFold};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(codes),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// SMs of the current device (the one the launch that follows goes to).
+inline int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n > 0 ? n : 1;
+}
 
 // Dynamic shared memory above 48 KB needs the per-kernel opt-in.
 template <typename Kernel>

@@ -20,28 +20,69 @@
 //      rounds of max-and-clear over the full row.
 //   K5 (rowscale_fold) — fold-128 top-2 then kk rounds, as kernel K1.
 //
-// Bound on the H100: f32 operations. Each pass does 2 qt C D flops against
-// C D 4 bytes of slab (qt / 2 = 32 flops per byte at qt = 64, above the f32
-// ridge of 20); the row range needs a first pass over the scores before any
-// key exists, so the work is two passes.
+// Bound on the H100: operations. Each pass does 2 qt C D flops against
+// C D 4 bytes of slab (qt / 2 = 32 flops per byte at qt = 64); the row range
+// needs a first pass over the scores before any key exists, so the work is
+// two passes. K4's tensor-core body takes its products as split TF32 operands
+// (three TF32 products per f32 one: 3 x flops / 495 TFLOP/s a pass); K5, K7
+// and K4's two CUDA-core bodies run them in f32 (flops / 67 TFLOP/s a pass).
 //
-// Design (simple first): one block per group, the [qt, D] query tile in
-// shared memory, the slab streamed through shared memory in 128-row
-// segments twice (only the ceil(size / 128) segments that hold vectors).
-// Pass 1 takes each row's min and max; pass 2 recomputes the same scores
-// with the same code in the same order (bit-identical, so a winner's key
-// comes from the same float as the stats) and selects. There is no C % 128
-// requirement: the last segment may be partial and slot_mult is
-// next_pow2(C). Build without --use_fast_math: levels / rng must be an IEEE
-// division, as in XLA.
+// K4 has three bodies, chosen by shape in the launcher (rowscale_topk_body),
+// never after a failure. What bounded the first design: an f32 product on
+// the CUDA cores run twice, loads that nothing overlapped, one short-lived
+// block per group, a warp's rows emitted one after the other, and, with a
+// chunk table, one block per 128-row chunk that fetched the same query tile
+// again.
 //
-// K4 with a chunk table (the v4 generation): a group may be one [qt, ct] chunk
-// of its partition. row_off[g] is the chunk's first row (the slab and norms
-// pointers move there, lanes and slots are chunk-local and gsize[g] counts
-// the chunk's valid lanes), and qsrc[g] is the query tile the chunk-group
-// reads, so the chunks of one (partition, query tile) group share one tile.
-// Both are optional: without them a group is a whole partition with its own
-// tile, as v3p, v3pN and v6 use it (_v6_kernel fetches in chunks and then
+// rowscale_scan_kernel (K5, and K4 where no other body fits; K7 follows the
+// same design), simple: one block per group, the [qt, D] query tile in shared memory, the
+// slab streamed through shared memory in 128-row segments twice (only the
+// ceil(size / 128) segments that hold vectors). Pass 1 takes each row's min
+// and max; pass 2 recomputes the same scores with the same code in the same
+// order (bit-identical, so a winner's key comes from the same float as the
+// stats) and selects. There is no C % 128 requirement: the last segment may
+// be partial and slot_mult is next_pow2(C). Build without --use_fast_math:
+// levels / rng must be an IEEE division, as in XLA.
+//
+// rowscale_topk_mma_kernel, K4 on whole partitions (D % 4 == 0, and a query
+// tile and candidate buffers that fit shared memory beside the ring; a D past
+// a ring stage's depth streams through it in depth chunks, as in K1):
+// persistent, one block per SM, block b takes groups b,
+// b + grid, ... (the groups are partition-major, so the blocks that run
+// together read the same partitions). The slab streams through a ring of two
+// 128-row segment buffers filled by the Tensor Memory Accelerator
+// (cp.async.bulk.tensor from a tensor map over the slabs, completing on the
+// stage's mbarrier), one segment ahead of the product and across group
+// borders; rows at or past the group's size are masked, rows past the end of
+// the slabs read as zero. Both passes run mma_tile (common.cuh: 3xTF32, the
+// same operations in the same order, so the scores are bit-identical). The
+// last segment of pass 1 stays in the accumulator and is the first that pass
+// 2 selects from, so a group of one segment is multiplied once; a group of
+// two finds its first segment still in the ring and loads nothing twice. Row
+// min and max are taken in the accumulator's layout and reduced over the quad
+// and, through shared memory, over the warps that share a row. For the
+// selection a segment's packed values pass through a [qt][128] tile laid over
+// the consumed segment buffer into the layout of the exact top-kk (a warp
+// owns whole rows), which is unchanged but for its last step: the kk rounds
+// that emit a row's winners run for the warp's eight rows at once and store
+// a row's winners together. The two products hold the pace (see mma_tile).
+//
+// rowscale_chunk_kernel, K4 with a chunk table (the v4 generation): a group
+// may be one [qt, ct] chunk of its partition. row_off[g] is the chunk's first
+// row (the slab and norms pointers move there, lanes and slots are
+// chunk-local and gsize[g] counts the chunk's valid lanes), and qsrc[g] is
+// the query tile the chunk-group reads, so the chunks of one (partition,
+// query tile) group share one tile. A chunk's row range can be far below its
+// scores (a last chunk with a few valid lanes, a row whose best lanes tie):
+// its levels are then narrower than the scores' last place, and keys and
+// stats agree with the plain version only if the sums run in its order. So
+// this body multiplies in f32 on the CUDA cores (tile_dots) and takes from
+// the redesign what does not touch the arithmetic: it is persistent, walks a
+// contiguous run of chunk-groups, keeps the query tile while qsrc[g] stays,
+// loads one segment ahead with asynchronous copies into a ring of two
+// buffers, multiplies a one-segment chunk once, and emits a warp's rows at
+// once. Without qsrc and row_off a group is a whole partition with its own
+// tile, as v3p, v3pN and v6 use K4 (_v6_kernel fetches in chunks and then
 // runs one _v3p_select over the whole row with slot_mult = next_pow2(C): the
 // function of _v3pn_kernel).
 //
@@ -104,20 +145,49 @@ __device__ __noinline__ float cut_row(float* b, int cnt, int kk) {
   return prev;
 }
 
-// kk descending values of a row's buffer b[0, cnt) into o[0, kk), -1 after
-// the buffer runs out.
-__device__ __noinline__ void emit_row(const float* b, int cnt, int kk, float* o) {
-  const int lane = threadIdx.x & 31;
+// kk descending values of each of a warp's R rows (rows warp + 8 r, buffers of
+// cap values each, cnt[r] of them filled) into og[row][0, kk), -1 after a
+// buffer runs out. The kk rounds are a chain of dependent reductions per row,
+// so the rows' chains are interleaved to hide each other's latency. Lane i
+// keeps round i's winner and a row's winners leave 32 at a time in one
+// store: a store per round and row kept the warps waiting on the store path.
+template <int R>
+__device__ __forceinline__ void emit_rows(const float* buf, int cap, const int (&cnt)[R], int kk,
+                                          float* og) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   __syncwarp();
-  float prev = INFINITY;
+  float prev[R], keep[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) prev[r] = INFINITY;
   for (int i = 0; i < kk; ++i) {
-    float lm = -1.0f;
-    for (int e = lane; e < cnt; e += 32) {
-      const float x = b[e];
-      if (x < prev) lm = fmaxf(lm, x);
+    float lm[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) lm[r] = -1.0f;
+    for (int e = lane; e < cap; e += 32) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        // e < cap: the load is in bounds whatever the row holds, so it needs
+        // no branch of its own (eight of them a step cost more than the rounds).
+        const float x = buf[(size_t)(warp + kWarps * r) * cap + e];
+        lm[r] = fmaxf(lm[r], (e < cnt[r] && x < prev[r]) ? x : -1.0f);
+      }
     }
-    prev = warp_max(lm);
-    if (lane == 0) o[i] = prev;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int r = 0; r < R; ++r) lm[r] = fmaxf(lm[r], __shfl_xor_sync(0xffffffffu, lm[r], o));
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      prev[r] = lm[r];
+      if ((i & 31) == lane) keep[r] = lm[r];
+    }
+    if ((i & 31) == 31 || i == kk - 1) {  // warp-uniform: the last 32 (or fewer) rounds leave
+      const int at = (i & ~31) + lane;
+      if (at <= i) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) og[(warp + kWarps * r) * kk + at] = keep[r];
+      }
+    }
   }
 }
 
@@ -257,11 +327,7 @@ rowscale_scan_kernel(const int* __restrict__ gp, const int* __restrict__ gsize,
                     if (take) b[cnt[r] + __popc(m & ((1u << lane) - 1u))] = v;
                     cnt[r] += __popc(m);
                   });
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int row = warp + kWarps * r;
-      emit_row(buf + (size_t)row * cap, cnt[r], kk, og + row * kk);
-    }
+    emit_rows<R>(buf, cap, cnt, kk, og);
   }
 }
 
@@ -298,6 +364,544 @@ int launch_rowscale(const void* gp, const void* gsize, const void* qsrc, const v
       return (int)cudaErrorInvalidValue;
   }
 #undef QK_ROWSCALE
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------ K4 with a chunk table
+
+// load_segment's copy as asynchronous 4-byte copies (the odd row stride rules
+// out wider ones), one commit group a segment; what load_segment zero-fills
+// is zero-filled here (a copy of no source bytes).
+__device__ __forceinline__ void load_segment_async(float* seg, const float* src, int row0,
+                                                   int nrows, int D, int Dp) {
+  const int ss = Dp + 1;
+  for (int i = threadIdx.x; i < kFold * Dp; i += kThreads) {
+    const int c = i / Dp;
+    const int d = i - c * Dp;
+    const int r = row0 + c;
+    const bool ok = d < D && r < nrows;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(seg + c * ss + d)),
+                 "l"(ok ? src + (size_t)r * D + d : src), "r"(ok ? 4 : 0)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// The CUDA-core body for a chunk table (the v4 scan), persistent: one block
+// per SM walks a contiguous run of chunk-groups, keeps the [qt, D] query tile
+// while qsrc[g] stays the same, and loads the next segment (of this
+// chunk-group or the next) into the other of two buffers while it multiplies
+// the current one. The scores are tile_dots' (f32, one fmaf a term in the
+// order of D), bit for bit those of rowscale_scan_kernel. A chunk of one
+// segment (every chunk at ct = 128) is multiplied once: its second pass
+// selects from the first one's accumulator. A chunk of n > 1 segments is
+// visited 2 n times, each visit loading its segment.
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1)
+rowscale_chunk_kernel(const int* __restrict__ gp, const int* __restrict__ gsize,
+                      const int* __restrict__ qsrc, const int* __restrict__ row_off,
+                      const float* __restrict__ qg, const float* __restrict__ codes,
+                      const float* __restrict__ norms, float* __restrict__ out,
+                      float* __restrict__ stats, int Gn, int D, int Dp, int C, int kk, int cap,
+                      int is_l2, float slot_mult, float levels) {
+  constexpr int qt = kWarps * R;
+  extern __shared__ __align__(16) float smem[];
+  const int seg_floats = kFold * (Dp + 1);
+  float* qs = smem;                      // [qt][Dp]
+  float* ring = qs + qt * Dp;            // 2 x [128][Dp + 1]
+  float* buf = ring + 2 * seg_floats;    // [qt][cap]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool l2 = is_l2 != 0;
+  const int per = (Gn + gridDim.x - 1) / gridDim.x;
+  const int first = blockIdx.x * per, end = min(Gn, first + per);
+  auto size_of = [&](int g) { return min(gsize[g], C - row_off[g]); };
+  // Ghost groups write -1 and stats (0, 1e-20) and take no part in the walk.
+  for (int g = first; g < end; ++g)
+    if (size_of(g) <= 0) {
+      for (int i = threadIdx.x; i < qt * kk; i += kThreads) out[(size_t)g * qt * kk + i] = -1.0f;
+      for (int i = threadIdx.x; i < qt; i += kThreads) {
+        stats[((size_t)g * qt + i) * 2] = 0.0f;
+        stats[((size_t)g * qt + i) * 2 + 1] = kMinRange;
+      }
+    }
+  auto next_live = [&](int g) {
+    while (g < end && size_of(g) <= 0) ++g;
+    return g;
+  };
+  auto visits_of = [](int nseg) { return nseg == 1 ? 1 : 2 * nseg; };
+
+  // The producer, one visit ahead of the consumer.
+  int pg = next_live(first), pv = 0;
+  auto prefetch = [&](int stage) {
+    if (pg >= end) return;
+    const int size = size_of(pg), nseg = (size + kFold - 1) / kFold;
+    load_segment_async(ring + stage * seg_floats,
+                       codes + ((size_t)gp[pg] * C + row_off[pg]) * D, (pv % nseg) * kFold, size,
+                       D, Dp);
+    if (++pv == visits_of(nseg)) {
+      pg = next_live(pg + 1);
+      pv = 0;
+    }
+  };
+  int cg = pg, cv = 0, stage = 0, cur_q = -1;
+  prefetch(0);
+
+  float mn[R], mx[R], scale[R], thr[R];
+  int cnt[R];
+  int size = 0, nseg = 0;
+  const float* nrm = norms;
+  while (cg < end) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // the segment has landed; the other buffer is consumed
+    prefetch(stage ^ 1);
+    if (cv == 0) {
+      size = size_of(cg);
+      nseg = (size + kFold - 1) / kFold;
+      nrm = norms + (size_t)gp[cg] * C + row_off[cg];
+      if (qsrc[cg] != cur_q) {  // block-uniform; the last product on the old tile is over
+        cur_q = qsrc[cg];
+        load_query_tile(qs, qg + (size_t)cur_q * qt * D, qt, D, Dp);
+        __syncthreads();
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        mn[r] = INFINITY;
+        mx[r] = -INFINITY;
+        cnt[r] = 0;
+        thr[r] = -1.0f;
+      }
+    }
+    const int s = cv % nseg;
+    float acc[R][4];  // the scores of rows warp + 8 r, lanes s 128 + lane + 32 j
+    tile_dots<R>(acc, qs, ring + stage * seg_floats, Dp);
+    if (l2) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int ln = s * kFold + lane + 32 * j;
+        const float nv = ln < size ? nrm[ln] : 0.0f;
+#pragma unroll
+        for (int r = 0; r < R; ++r)  // 2 dot is exact, so a contraction into fmaf changes nothing
+          acc[r][j] = 2.0f * acc[r][j] - nv;
+      }
+    }
+    if (cv < nseg) {  // pass 1: each row's min and max over its valid lanes
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (s * kFold + lane + 32 * j < size) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            mn[r] = fminf(mn[r], acc[r][j]);
+            mx[r] = fmaxf(mx[r], acc[r][j]);
+          }
+        }
+      if (cv == nseg - 1) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          mn[r] = warp_min(mn[r]);
+          mx[r] = warp_max(mx[r]);
+          const float rng = fmaxf(mx[r] - mn[r], kMinRange);
+          scale[r] = levels / rng;
+          if (lane == 0) {
+            const size_t row = (size_t)cg * qt + warp + kWarps * r;
+            stats[2 * row] = isfinite(mn[r]) ? mn[r] : 0.0f;
+            stats[2 * row + 1] = rng;
+          }
+        }
+      }
+    }
+    if (cv >= nseg || nseg == 1) {  // pass 2: quantized with the row's range, packed, selected
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int ln = s * kFold + lane + 32 * j;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float* b = buf + (size_t)(warp + kWarps * r) * cap;
+          if (cnt[r] + 32 > cap) {  // warp-uniform
+            thr[r] = cut_row(b, cnt[r], kk);
+            cnt[r] = kk;
+          }
+          const float key = floorf((acc[r][j] - mn[r]) * scale[r]);
+          const float v = ln < size ? key * slot_mult + (float)ln : -1.0f;
+          const bool take = v > thr[r];
+          const unsigned m = __ballot_sync(0xffffffffu, take);
+          if (take) b[cnt[r] + __popc(m & ((1u << lane) - 1u))] = v;
+          cnt[r] += __popc(m);
+        }
+      }
+    }
+    stage ^= 1;
+    if (++cv < visits_of(nseg)) continue;
+    emit_rows<R>(buf, cap, cnt, kk, out + (size_t)cg * qt * kk);
+    cg = next_live(cg + 1);
+    cv = 0;
+  }
+}
+
+// Shared memory of the chunk-table body, in bytes.
+inline size_t rowscale_chunk_smem(int qt, int D, int kk) {
+  const int Dp = padded_dim(D);
+  return (size_t)(qt * Dp + 2 * kFold * (Dp + 1) + qt * topk_cap(kk)) * sizeof(float);
+}
+
+int launch_rowscale_chunk(const void* gp, const void* gsize, const void* qsrc,
+                          const void* row_off, const void* qg, const void* codes,
+                          const void* norms, void* out, void* stats, int Gn, int qt, int D, int C,
+                          int kk, int is_l2, float slot_mult, float levels, void* stream) {
+  const size_t smem = rowscale_chunk_smem(qt, D, kk);
+  const int grid = Gn < sm_count() ? Gn : sm_count();
+  cudaStream_t st = (cudaStream_t)stream;
+#define QK_ROWSCALE_CHUNK(R)                                                              \
+  case 8 * R: {                                                                           \
+    cudaError_t e = allow_smem(rowscale_chunk_kernel<R>, smem);                           \
+    if (e != cudaSuccess) return (int)e;                                                  \
+    rowscale_chunk_kernel<R><<<grid, kThreads, smem, st>>>(                               \
+        (const int*)gp, (const int*)gsize, (const int*)qsrc, (const int*)row_off,         \
+        (const float*)qg, (const float*)codes, (const float*)norms, (float*)out,          \
+        (float*)stats, Gn, D, padded_dim(D), C, kk, topk_cap(kk), is_l2, slot_mult,       \
+        levels);                                                                          \
+    break;                                                                                \
+  }
+  switch (qt) {
+    QK_ROWSCALE_CHUNK(1)
+    QK_ROWSCALE_CHUNK(2)
+    QK_ROWSCALE_CHUNK(4)
+    QK_ROWSCALE_CHUNK(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef QK_ROWSCALE_CHUNK
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------- K4 on the tensor cores
+
+// Floats of one ring stage of NBS boxes: a segment tile, or the value tile
+// laid over it, up to the next 1024-byte boundary.
+inline int rowscale_stage_floats(int qt, int NBS) {
+  const int tile = (qt * kTileStride + 255) / 256 * 256;
+  return NBS * kSegBox > tile ? NBS * kSegBox : tile;
+}
+
+// Shared memory of K4's tensor-core body, in bytes, with ring stages of NBS
+// boxes and candidate buffers of cap values a row: room to reach a 1024-byte
+// boundary, ring, query tile, buffers, (rowmin, scale) per row, the
+// cross-warp min / max exchange, the two stage barriers.
+inline size_t rowscale_topk_mma_smem(int qt, int D, int NBS, int cap) {
+  return 1024 + 16 +
+         (size_t)(2 * rowscale_stage_floats(qt, NBS) + tile_boxes(D) * (qt < 16 ? 16 : qt) * kBox +
+                  qt * cap + 2 * qt + 2 * 32 * kWarps) *
+             sizeof(float);
+}
+
+// The tensor-core body's ring stage and candidate buffers: NBS boxes a stage
+// (all of D's, or the most of 4, 2 and 1 that fits) and cap = round_up(kk, 32)
+// plus the most of 128, 96, 64 and 32 that fits with it (a cut makes room for
+// 32 values at a time; more room means fewer cuts). cap 0: the body does not
+// fit.
+struct RowscaleMmaShape {
+  int NBS, cap;
+};
+inline RowscaleMmaShape rowscale_topk_mma_shape(int qt, int D, int kk) {
+  for (int nbs = 4; nbs >= 1; nbs >>= 1) {
+    const int NBS = nbs < tile_boxes(D) ? nbs : tile_boxes(D);
+    for (int room = 128; room >= 32; room -= 32) {
+      const int cap = (kk + 31) / 32 * 32 + room;
+      if (rowscale_topk_mma_smem(qt, D, NBS, cap) <= kSmemLimit) return {NBS, cap};
+    }
+  }
+  return {0, 0};
+}
+
+// Which body serves a shape (qk_rowscale_topk_body names them). A chunk table
+// never takes the tensor-core body: a chunk's row range can be far below its
+// scores, its keys then resolve the scores' last places, and only f32 sums
+// in the order of D reproduce the plain version's there.
+inline int rowscale_topk_body(int qt, int D, int kk, bool chunked) {
+  if (chunked) return rowscale_chunk_smem(qt, D, kk) <= kSmemLimit ? 1 : 0;
+  return D % 4 == 0 && rowscale_topk_mma_shape(qt, D, kk).cap > 0 ? 2 : 0;
+}
+
+template <int QT>
+__global__ void __launch_bounds__(kThreads, 1)
+rowscale_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __restrict__ gp,
+                         const int* __restrict__ gsize, const float* __restrict__ qg,
+                         const float* __restrict__ norms, float* __restrict__ out,
+                         float* __restrict__ stats, int Gn, int D, int NB, int NBS,
+                         int stage_floats, int C, int kk, int cap, int is_l2, float slot_mult,
+                         float levels) {
+  constexpr int MT = QT >= 32 ? 2 : 1;       // m16-tiles per warp
+  constexpr int MW = QT >= 64 ? 2 : 1;       // warps along the query rows
+  constexpr int NW = kWarps / MW;            // warps along the segment
+  constexpr int NT = 16 / NW;                // n8-tiles per warp
+  constexpr int T = MT * NT;                 // accumulator tiles per warp
+  constexpr int QR = 16 * MT * MW;           // rows of the query tile (zero from QT)
+  constexpr int R = QT / 8;                  // rows per warp in the selection
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem_aligned(smem);       // 2 x stage_floats: NBS boxes of [128][32], or the tile
+  float* qs = ring + 2 * stage_floats;    // NB boxes of [QR][32]
+  float* buf = qs + NB * QR * kBox;       // [QT][cap]
+  float* rowp = buf + QT * cap;           // [QT][2] = (rowmin, levels / rng)
+  float* red = rowp + 2 * QT;             // [QR][NW][2] = (min, max) per warp, at most 512
+  uint64_t* bars = reinterpret_cast<uint64_t*>(red + 2 * 32 * kWarps);  // one a ring stage
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const int wn = warp % NW;
+  const int row0 = (warp / NW) * (16 * MT), col0 = wn * (8 * NT);
+  const int ksteps = (D + 7) >> 3;
+  const int ND = (NB + NBS - 1) / NBS;  // depth chunks a segment: a stage holds NBS boxes
+  const bool l2 = is_l2 != 0;
+
+  // This block's groups: first, first + step, ... below end.
+  const int first = blockIdx.x, step = gridDim.x, end = Gn;
+  auto size_of = [&](int g) { return min(gsize[g], C); };
+  // Ghost groups write -1 and stats (0, 1e-20) and take no part in the walk.
+  for (int g = first; g < end; g += step)
+    if (size_of(g) <= 0) {
+      for (int i = threadIdx.x; i < QT * kk; i += kThreads) out[(size_t)g * QT * kk + i] = -1.0f;
+      for (int i = threadIdx.x; i < QT; i += kThreads) {
+        stats[((size_t)g * QT + i) * 2] = 0.0f;
+        stats[((size_t)g * QT + i) * 2 + 1] = kMinRange;
+      }
+    }
+  auto next_live = [&](int g) {
+    while (g < end && size_of(g) <= 0) g += step;
+    return g;
+  };
+
+  // A group of n segments is visited 2 n - 1 times: segments 0 .. n - 1 for
+  // the row ranges, then (the last one selected from the accumulator)
+  // segments 0 .. n - 2 again for the selection. A visit takes ND stages, one
+  // a depth chunk, and stages alternate, so with n == 2 and ND == 1 visit 2
+  // finds segment 0 where visit 0 left it and loads nothing.
+  mbar_init(bars);
+  int pg = next_live(first), pv = 0, pd = 0, pnseg = 0, prow = 0;  // the producer, a stage ahead
+  auto producer_group = [&]() {
+    if (pg < end) {
+      pnseg = (size_of(pg) + kFold - 1) / kFold;
+      prow = gp[pg] * C;  // the partition's first row of the slabs viewed as [P C, D]
+    }
+  };
+  producer_group();
+  auto prefetch = [&](int stage) {
+    if (pg < end) {
+      const int s = pv < pnseg ? pv : pv - pnseg;
+      if (!(ND == 1 && pnseg == 2 && pv == 2))
+        segment_load_async(ring + stage * stage_floats, &cmap, prow + s * kFold, pd * NBS,
+                           min(NBS, NB - pd * NBS), bars + stage);
+      if (++pd < ND) return;
+      pd = 0;
+      if (++pv == 2 * pnseg - 1) {
+        pg = next_live(pg + step);
+        pv = 0;
+        producer_group();
+      }
+    }
+  };
+  int cg = pg, cv = 0, cd = 0, stage = 0;
+  uint32_t parity = 0;  // bit s: the parity of stage s's next completed phase
+  prefetch(0);
+
+  // Rows row0 + 16 i + g4 + 8 h at [2 i + h], over this thread's columns.
+  float mn[2 * MT], mx[2 * MT];
+  float acc[T][4];  // the scores of this thread's entries, tile (i, j) at i NT + j
+  int cnt[R];
+  float thr[R];
+  int size = 0, nseg = 0;
+  const float* nrm = norms;
+  while (cg < end) {
+    float* stage_mem = ring + stage * stage_floats;
+    prefetch(stage ^ 1);
+    if (cv == 0 && cd == 0) {
+      size = size_of(cg);
+      nseg = (size + kFold - 1) / kFold;
+      nrm = norms + (size_t)gp[cg] * C;
+      // The last product of the previous group ended before a barrier.
+      query_tile_load(qs, qg + (size_t)cg * QT * D, QT, QR, D, NB);
+#pragma unroll
+      for (int m = 0; m < 2 * MT; ++m) {
+        mn[m] = INFINITY;
+        mx[m] = -INFINITY;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        cnt[r] = 0;
+        thr[r] = -1.0f;
+      }
+    }
+    const int s = cv < nseg ? cv : cv - nseg;
+    // This thread's norms, asked for before the product so that they arrive
+    // under it.
+    const int lnb = s * kFold + col0 + 2 * t4;
+    float nv[NT][2];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int ln = lnb + 8 * j + c;
+        nv[j][c] = (l2 && ln < size) ? __ldg(nrm + ln) : 0.0f;
+      }
+    if (!(ND == 1 && nseg == 2 && cv == 2)) {  // the current stage has landed (or was left here)
+      mbar_wait(bars + stage, (parity >> stage) & 1u);
+      parity ^= 1u << stage;
+    }
+    __syncthreads();  // and the query tile is in place
+
+    mma_tile<MT, NT>(acc, qs + cd * NBS * QR * kBox, stage_mem, row0, col0, QR,
+                     min(4 * NBS, ksteps - 4 * NBS * cd), cd == 0);
+    if (cd + 1 < ND) {  // the segment's next depth chunk adds to acc
+      __syncthreads();  // the stage is consumed: its buffer may be refilled
+      stage ^= 1;
+      ++cd;
+      continue;
+    }
+    cd = 0;
+    if (l2) {
+#pragma unroll
+      for (int ti = 0; ti < T; ++ti)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)  // 2 dot is exact, so a contraction into fmaf changes nothing
+          acc[ti][e] = 2.0f * acc[ti][e] - nv[ti % NT][e & 1];
+    }
+
+    // The packed values of the scores in acc, through the tile laid over the
+    // consumed stage, into each row's candidate buffer. Every warp must have
+    // finished reading the stage before the call.
+    auto select_segment = [&]() {
+#pragma unroll
+      for (int m = 0; m < 2 * MT; ++m) {
+        const int row = row0 + 16 * (m / 2) + g4 + 8 * (m % 2);
+        if (row < QT) {
+          const float rmin = rowp[2 * row], scale = rowp[2 * row + 1];
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            float v[2];
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int ln = lnb + 8 * j + c;
+              const float key = floorf((acc[(m / 2) * NT + j][2 * (m % 2) + c] - rmin) * scale);
+              v[c] = ln < size ? key * slot_mult + (float)ln : -1.0f;
+            }
+            *reinterpret_cast<float2*>(stage_mem + row * kTileStride + col0 + 8 * j + 2 * t4) =
+                make_float2(v[0], v[1]);
+          }
+        }
+      }
+      __syncthreads();
+      // All of the warp's values first, then row by row; a row none of whose
+      // values passes its threshold (most rows, once the thresholds have
+      // risen) costs one vote.
+      float v[R][4];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          v[r][j] = stage_mem[(warp + kWarps * r) * kTileStride + lane + 32 * j];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float top = fmaxf(fmaxf(v[r][0], v[r][1]), fmaxf(v[r][2], v[r][3]));
+        if (!__any_sync(0xffffffffu, top > thr[r])) continue;
+        float* b = buf + (size_t)(warp + kWarps * r) * cap;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (cnt[r] + 32 > cap) {  // warp-uniform
+            thr[r] = cut_row(b, cnt[r], kk);
+            cnt[r] = kk;
+          }
+          const bool take = v[r][j] > thr[r];
+          const unsigned m = __ballot_sync(0xffffffffu, take);
+          if (take) b[cnt[r] + __popc(m & ((1u << lane) - 1u))] = v[r][j];
+          cnt[r] += __popc(m);
+        }
+      }
+    };
+
+    if (cv < nseg) {  // pass 1: each row's min and max over its valid lanes
+#pragma unroll
+      for (int ti = 0; ti < T; ++ti)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (lnb + 8 * (ti % NT) + (e & 1) < size) {
+            const int m = 2 * (ti / NT) + (e >> 1);
+            mn[m] = fminf(mn[m], acc[ti][e]);
+            mx[m] = fmaxf(mx[m], acc[ti][e]);
+          }
+      if (cv == nseg - 1) {  // the ranges are complete: stats, then select from acc
+#pragma unroll
+        for (int m = 0; m < 2 * MT; ++m) {
+#pragma unroll
+          for (int o = 1; o <= 2; o <<= 1) {
+            mn[m] = fminf(mn[m], __shfl_xor_sync(0xffffffffu, mn[m], o));
+            mx[m] = fmaxf(mx[m], __shfl_xor_sync(0xffffffffu, mx[m], o));
+          }
+          if (t4 == 0) {
+            const int row = row0 + 16 * (m / 2) + g4 + 8 * (m % 2);
+            red[(row * NW + wn) * 2] = mn[m];
+            red[(row * NW + wn) * 2 + 1] = mx[m];
+          }
+        }
+        __syncthreads();  // also: every warp has finished reading the stage
+        if (threadIdx.x < QT) {
+          const int row = threadIdx.x;
+          float rmin = INFINITY, rmax = -INFINITY;
+#pragma unroll
+          for (int w = 0; w < NW; ++w) {
+            rmin = fminf(rmin, red[(row * NW + w) * 2]);
+            rmax = fmaxf(rmax, red[(row * NW + w) * 2 + 1]);
+          }
+          const float rng = fmaxf(rmax - rmin, kMinRange);
+          rowp[2 * row] = rmin;
+          rowp[2 * row + 1] = levels / rng;
+          stats[((size_t)cg * QT + row) * 2] = isfinite(rmin) ? rmin : 0.0f;
+          stats[((size_t)cg * QT + row) * 2 + 1] = rng;
+        }
+        __syncthreads();
+      }
+    } else {  // pass 2: the same scores, to be quantized with the row's range
+      __syncthreads();  // every warp has finished reading the stage
+    }
+    if (cv >= nseg - 1) select_segment();  // from the last visit of pass 1 on
+    fence_async_proxy();  // the tile's stores, before the copy that refills the stage
+    __syncthreads();      // the stage is consumed: its buffer may be refilled
+    stage ^= 1;
+    if (++cv < 2 * nseg - 1) continue;
+    emit_rows<R>(buf, cap, cnt, kk, out + (size_t)cg * QT * kk);
+    cg = next_live(cg + step);
+    cv = 0;
+  }
+}
+
+int launch_rowscale_topk_mma(const void* gp, const void* gsize, const void* qg,
+                             const void* codes, const void* norms, void* out, void* stats,
+                             int Gn, int qt, int D, int P, int C, int kk, int is_l2,
+                             float slot_mult, float levels, void* stream) {
+  const int NB = tile_boxes(D);
+  CUtensorMap cmap;
+  const int me = slab_tensor_map(&cmap, codes, (unsigned long long)P * C, D);
+  if (me != 0) return me;
+  const RowscaleMmaShape shape = rowscale_topk_mma_shape(qt, D, kk);
+  const int NBS = shape.NBS, cap = shape.cap;
+  const size_t smem = rowscale_topk_mma_smem(qt, D, NBS, cap);
+  const int grid = Gn < sm_count() ? Gn : sm_count();
+  cudaStream_t st = (cudaStream_t)stream;
+#define QK_ROWSCALE_MMA(QT)                                                               \
+  case QT: {                                                                              \
+    cudaError_t e = allow_smem(rowscale_topk_mma_kernel<QT>, smem);                       \
+    if (e != cudaSuccess) return (int)e;                                                  \
+    rowscale_topk_mma_kernel<QT><<<grid, kThreads, smem, st>>>(                           \
+        cmap, (const int*)gp, (const int*)gsize, (const float*)qg, (const float*)norms,   \
+        (float*)out, (float*)stats, Gn, D, NB, NBS, rowscale_stage_floats(qt, NBS), C,    \
+        kk, cap, is_l2, slot_mult, levels);                                               \
+    break;                                                                                \
+  }
+  switch (qt) {
+    QK_ROWSCALE_MMA(8)
+    QK_ROWSCALE_MMA(16)
+    QK_ROWSCALE_MMA(32)
+    QK_ROWSCALE_MMA(64)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef QK_ROWSCALE_MMA
   return (int)cudaGetLastError();
 }
 
@@ -531,10 +1135,27 @@ extern "C" {
 // and row_off given).
 int qk_rowscale_topk(const void* gp, const void* gsize, const void* qsrc, const void* row_off,
                      const void* qg, const void* codes, const void* norms, void* out,
-                     void* stats, int Gn, int qt, int D, int C, int kk, int is_l2,
+                     void* stats, int Gn, int qt, int D, int P, int C, int kk, int is_l2,
                      float slot_mult, float levels, void* stream) {
-  return launch_rowscale<false>(gp, gsize, qsrc, row_off, qg, codes, norms, out, stats, Gn, qt,
-                                D, C, kk, is_l2, slot_mult, levels, stream);
+  if (Gn <= 0) return (int)cudaGetLastError();
+  switch (rowscale_topk_body(qt, D, kk, row_off != nullptr)) {
+    case 2:
+      return launch_rowscale_topk_mma(gp, gsize, qg, codes, norms, out, stats, Gn, qt, D, P, C,
+                                      kk, is_l2, slot_mult, levels, stream);
+    case 1:
+      return launch_rowscale_chunk(gp, gsize, qsrc, row_off, qg, codes, norms, out, stats, Gn,
+                                   qt, D, C, kk, is_l2, slot_mult, levels, stream);
+    default:
+      return launch_rowscale<false>(gp, gsize, qsrc, row_off, qg, codes, norms, out, stats, Gn,
+                                    qt, D, C, kk, is_l2, slot_mult, levels, stream);
+  }
+}
+
+// The body qk_rowscale_topk runs at this shape: 2 the tensor-core body, 1 the
+// persistent CUDA-core body for a chunk table, 0 the CUDA-core body of one
+// block a group.
+int qk_rowscale_topk_body(int qt, int D, int kk, int chunked) {
+  return rowscale_topk_body(qt, D, kk, chunked != 0);
 }
 
 // K5: replaces quake_tpu/ops/pallas_grouped.py::_v7_kernel (_v7_select +

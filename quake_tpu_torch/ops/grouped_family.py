@@ -14,10 +14,13 @@
 
 Groups come from `build_groups`, whose pair-major inverse (pair_group,
 pair_slot) lets each (query, probe) pair read its kernel row directly.
-The TPU kernels' groups-per-step `gpb` only pads the group count here: each
-kernel runs one block per group. K4 and K5 are CUDA kernels
-(csrc/grouped_rowscale.cu); `rowscale_scan` runs their plain PyTorch
-version on CPU tensors and launches them on CUDA tensors.
+The TPU kernels' groups-per-step `gpb` only pads the group count here. K4
+and K5 are CUDA kernels (csrc/grouped_rowscale.cu); `rowscale_scan` runs
+their plain PyTorch version on CPU tensors and launches them on CUDA
+tensors. On whole partitions K4 multiplies on the tensor cores with split
+TF32 operands that keep f32 accuracy (ops/split_product.py is the plain
+model of that product); with a chunk table, and K5 always, in f32 on the
+CUDA cores.
 """
 
 from __future__ import annotations
@@ -27,8 +30,8 @@ import torch
 from quake_tpu_torch import _ext
 from quake_tpu_torch.ops.grouped import DEDUP_NOT_PORTED, build_groups
 from quake_tpu_torch.ops.grouped_scan import (FOLD, SMEM_LIMIT, fold_rounds, global_scale,
-                                              grouped_scan_kernel, packed_params,
-                                              pad_groups, pool_tail, rescore_topk)
+                                              grouped_scan_kernel, packed_params, pad_groups,
+                                              pool_tail, rescore_topk)
 from quake_tpu_torch.ops.scan import NEG_INF
 from quake_tpu_torch.profiling import mark_stage
 
@@ -48,6 +51,20 @@ def pair_take(arr3, pair_group, pair_slot):
 def topk_cap(kk: int) -> int:
     """Per-row candidate buffer of kernel K4 (csrc/grouped_rowscale.cu)."""
     return -(-kk // 32) * 32 + 128
+
+
+MMA_BODY, CHUNK_BODY, GROUP_BODY = 2, 1, 0
+
+
+def rowscale_topk_body(qt: int, D: int, kk: int, chunked: bool = False) -> int:
+    """The body kernel K4's launcher runs at this shape
+    (csrc/grouped_rowscale.cu::rowscale_topk_body, asked of the built
+    library): MMA_BODY, the tensor-core body, without a chunk table where
+    rows are 16-byte aligned for the asynchronous copies (D % 4 == 0) and its
+    tiles and candidate buffers fit a block's shared memory; CHUNK_BODY, the
+    persistent CUDA-core body, with a chunk table where its two segment
+    buffers fit; else GROUP_BODY, the CUDA-core body of one block a group."""
+    return int(_ext.lib().qk_rowscale_topk_body(qt, D, kk, int(chunked)))
 
 
 def rowscale_scan_plain(gp, group_size, qg, codes, norms, kk: int, slot_mult: int,
@@ -126,7 +143,17 @@ def rowscale_scan(gp, group_size, qg, codes, norms, kk: int, slot_mult: int, lev
     The chunk table (K4 only, the v4 scan): qsrc [Gn] int32 names the query
     tile of qg [G, qt, D] each group reads, row_off [Gn] int32 the first of
     the `ct` rows of its partition it scores; group_size then counts the
-    chunk's valid lanes, and lanes and slots are chunk-local."""
+    chunk's valid lanes, and lanes and slots are chunk-local.
+
+    K4's launcher picks one of three bodies by shape (`rowscale_topk_body`),
+    never after a failure; all compute the same function. Whole partitions
+    take the tensor-core body (split TF32 product, asynchronous copies, a
+    persistent block per SM) where D % 4 == 0 (a row is 16-byte aligned) and
+    its query tile and candidate buffers fit shared memory. A chunk table takes a persistent CUDA-core body (f32): a chunk's
+    row range can be far below its scores, its keys then resolve the scores'
+    last places, and only f32 sums in the order of D reproduce the plain
+    version's there. Every other shape takes the CUDA-core body of one block
+    a group."""
     Gn = gp.shape[0]
     G, qt, D = qg.shape
     P, C, _ = codes.shape
@@ -149,7 +176,8 @@ def rowscale_scan(gp, group_size, qg, codes, norms, kk: int, slot_mult: int, lev
         raise ValueError(f"rowscale_scan: qt must be 8, 16, 32 or 64 (qt={qt})")
     Dp = -(-D // 4) * 4
     cap = topk_cap(kk) if select == "topk" else 0
-    if (qt * Dp + FOLD * (Dp + 1) + qt * cap) * 4 > SMEM_LIMIT:
+    body = rowscale_topk_body(qt, D, kk, chunked) if select == "topk" else GROUP_BODY
+    if body == GROUP_BODY and (qt * Dp + FOLD * (Dp + 1) + qt * cap) * 4 > SMEM_LIMIT:
         raise ValueError(f"rowscale_scan: D={D}, qt={qt}, kk={kk} need more shared memory "
                          "than a block has (kernel K4 keeps round_up(kk, 32) + 128 "
                          "candidates per row)")
@@ -165,17 +193,20 @@ def rowscale_scan(gp, group_size, qg, codes, norms, kk: int, slot_mult: int, lev
                 or not t.is_contiguous()):
             raise ValueError(f"rowscale_scan: {name} must be a contiguous "
                              f"{dtype} {shape} tensor on {qg.device}")
+    if body == MMA_BODY and (qg.data_ptr() % 16 or codes.data_ptr() % 16):
+        raise ValueError("rowscale_scan: qg and codes must start on a 16-byte boundary")
     out = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.float32)
     stats = torch.empty((Gn, qt, 2), device=qg.device, dtype=torch.float32)
-    tail = (qg.data_ptr(), codes.data_ptr(), norms.data_ptr(), out.data_ptr(),
-            stats.data_ptr(), Gn, qt, D, C, kk, int(metric == "l2"), float(slot_mult),
-            float(levels), _ext.stream_ptr(qg.device))
+    ptrs = (qg.data_ptr(), codes.data_ptr(), norms.data_ptr(), out.data_ptr(), stats.data_ptr())
+    tail = (C, kk, int(metric == "l2"), float(slot_mult), float(levels),
+            _ext.stream_ptr(qg.device))
     if select == "topk":
         rc = _ext.lib().qk_rowscale_topk(
             gp.data_ptr(), group_size.data_ptr(), qsrc.data_ptr() if chunked else None,
-            row_off.data_ptr() if chunked else None, *tail)
+            row_off.data_ptr() if chunked else None, *ptrs, Gn, qt, D, P, *tail)
     else:
-        rc = _ext.lib().qk_rowscale_fold(gp.data_ptr(), group_size.data_ptr(), *tail)
+        rc = _ext.lib().qk_rowscale_fold(gp.data_ptr(), group_size.data_ptr(), *ptrs, Gn, qt, D,
+                                         *tail)
     name = "rowscale_topk" if select == "topk" else "rowscale_fold"
     _ext.check(rc, name)
     _ext.launches[name] += 1

@@ -16,6 +16,8 @@ One call, `grouped_scan_v11`, turns probe lists into the per-query top-k:
 
 K1 and K2 are CUDA kernels (csrc/quake_kernels.cu); each wrapper runs its
 plain PyTorch version on CPU tensors and launches the kernel on CUDA tensors.
+K1 multiplies on the tensor cores with split TF32 operands that keep f32
+accuracy (ops/split_product.py is the plain model of that product).
 Selection is approximate at the fold-column level (at most two winners per
 fold column), as in the JAX package; parity tests assert row overlap.
 """
@@ -32,6 +34,15 @@ from quake_tpu_torch.profiling import mark_stage
 
 FOLD = 128
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+
+
+def grouped_scan_uses_mma(qt: int, D: int) -> bool:
+    """Whether kernel K1's launcher runs the tensor-core body at this shape
+    (csrc/quake_kernels.cu::grouped_scan_uses_mma, asked of the built
+    library): rows 16-byte aligned for the asynchronous copies (D % 4 == 0),
+    and a whole-D query tile that fits a block's shared memory beside the
+    ring (D up to 608 at qt = 64, 1408 at qt = 32). Otherwise it runs the CUDA-core body."""
+    return bool(_ext.lib().qk_grouped_scan_uses_mma(qt, D))
 
 
 def fold_rounds(packed, k: int, fold: int = FOLD):
@@ -117,7 +128,13 @@ def grouped_scan_kernel(gp, group_size, qg, codes, normsT, kk: int,
     qg [Gn, qt, D] f32 queries scaled by q_coef; codes [P, C, D] f32; normsT
     [P, C] f32 norms shifted by gmin and scaled by ginv. Returns [Gn, qt, kk]
     f32 packed key*slot_mult + lane per row, descending (-1 = none; ghost
-    groups are all -1)."""
+    groups are all -1).
+
+    The launcher picks one of two bodies by shape (`grouped_scan_uses_mma`):
+    the tensor-core body (split TF32 product, asynchronous copies) where
+    D % 4 == 0 (a row is 16-byte aligned), the CUDA-core body (f32)
+    otherwise. Both compute the same function; neither is a fallback from a
+    failure."""
     Gn, qt, D = qg.shape
     P, C, _ = codes.shape
     if fold != FOLD or C % fold:
@@ -130,7 +147,8 @@ def grouped_scan_kernel(gp, group_size, qg, codes, normsT, kk: int,
     if qt not in (8, 16, 32, 64):
         raise ValueError(f"grouped_scan_kernel: qt must be 8, 16, 32 or 64 (qt={qt})")
     Dp = -(-D // 4) * 4
-    if (qt * Dp + FOLD * (Dp + 1)) * 4 > SMEM_LIMIT:
+    mma = grouped_scan_uses_mma(qt, D)
+    if not mma and (qt * Dp + FOLD * (Dp + 1)) * 4 > SMEM_LIMIT:
         raise ValueError(f"grouped_scan_kernel: D={D} at qt={qt} needs more shared "
                          "memory than a block has")
     for name, t, dtype, shape in (
@@ -143,10 +161,13 @@ def grouped_scan_kernel(gp, group_size, qg, codes, normsT, kk: int,
                 or not t.is_contiguous()):
             raise ValueError(f"grouped_scan_kernel: {name} must be a contiguous "
                              f"{dtype} {shape} tensor on {qg.device}")
+    if mma and (qg.data_ptr() % 16 or codes.data_ptr() % 16 or normsT.data_ptr() % 8):
+        raise ValueError("grouped_scan_kernel: qg and codes must start on a 16-byte boundary, "
+                         "normsT on an 8-byte one")
     out = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.float32)
     rc = _ext.lib().qk_grouped_scan(
         gp.data_ptr(), group_size.data_ptr(), qg.data_ptr(), codes.data_ptr(),
-        normsT.data_ptr(), out.data_ptr(), Gn, qt, D, C, kk,
+        normsT.data_ptr(), out.data_ptr(), Gn, qt, D, P, C, kk,
         float(slot_mult), float(levels), _ext.stream_ptr(qg.device))
     _ext.check(rc, "grouped_scan")
     _ext.launches["grouped_scan"] += 1

@@ -20,8 +20,13 @@ select pairs like K6. K9's packed values carry the top bits of a score's bit
 pattern, which the other order of summation moves in the last place: it is
 held to winner overlap >= 0.99 against its plain version and to equality with
 the top kk of K8's own scores, packed (both kernels compute the same f32
-scores).
+scores). K1, and K4 on whole partitions, multiply on the tensor cores with
+split TF32 operands; they are held to their f32 plain versions at the same
+tolerances, and to the plain versions run on ops/split_product.py's model of
+that product. K4 with a chunk table multiplies in f32 on the CUDA cores.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -31,10 +36,12 @@ from quake_tpu_torch import _ext
 from quake_tpu_torch.ops.flat_topk import flat_topk, flat_topk_plain
 from quake_tpu_torch.ops.grouped_chunked import chunk_merge, chunk_merge_plain
 from quake_tpu_torch.ops.grouped_exact import exact_scan, exact_scan_plain
-from quake_tpu_torch.ops.grouped_family import rowscale_scan, rowscale_scan_plain
+from quake_tpu_torch.ops.grouped_family import (CHUNK_BODY, GROUP_BODY, MMA_BODY, rowscale_scan,
+                                                rowscale_scan_plain, rowscale_topk_body)
 from quake_tpu_torch.ops.grouped_scan import (grouped_scan_kernel, grouped_scan_plain,
-                                              merge_positions, merge_positions_plain,
-                                              packed_params)
+                                              grouped_scan_uses_mma, merge_positions,
+                                              merge_positions_plain, packed_params)
+from quake_tpu_torch.ops.split_product import bmm_as_split_product
 from quake_tpu_torch.ops.grouped_variants import (multi_topk, multi_topk_plain, pack_scores,
                                                   packed_topk, packed_topk_plain, raw_scores,
                                                   raw_scores_plain, sized_topk, sized_topk_plain,
@@ -427,3 +434,169 @@ def test_launch_counts(dev):
                              "rowscale_topk": 0, "rowscale_fold": 0, "exact_topk": 0,
                              "chunk_merge": 0, "raw_scores": 1, "packed_topk": 1,
                              "sized_topk": 1, "multi_topk": 1}
+
+
+# ------------------------------------------- K1 and K4 on the tensor cores
+
+# Sizes that stress the 128-row segment tiles: empty, one lane, one short of a
+# segment, a whole one, one past it, and the full partition.
+def _tile_sizes(C):
+    return [0, 1, 127, 128, 129, C]
+
+
+def _packed_agree(got, want, alive, slot_mult, kk):
+    """Winner overlap >= 0.99, keys of common winners within one level, as
+    many winners per row."""
+    g, w = got[alive].reshape(-1, kk), want[alive].reshape(-1, kk)
+    gl = torch.where(g >= 0, torch.remainder(g, slot_mult), torch.full_like(g, -1))
+    wl = torch.where(w >= 0, torch.remainder(w, slot_mult), torch.full_like(w, -1))
+    assert _overlap(gl, wl) >= 0.99
+    same = (gl == wl) & (gl >= 0)
+    key_diff = (torch.floor(g / slot_mult) - torch.floor(w / slot_mult)).abs()
+    assert not same.any() or float(key_diff[same].max()) <= 1.0
+    assert ((g >= 0).sum(1) == (w >= 0).sum(1)).all()
+
+
+@pytest.mark.parametrize("kk", [1, 10, 100])
+@pytest.mark.parametrize("D", [24, 100, 128, 200, 256])
+@pytest.mark.parametrize("qt", [8, 64])
+def test_grouped_scan_tensor_core_tiles(dev, qt, D, kk):
+    """K1's tensor-core body: more groups than blocks (each block walks several
+    groups and prefetches across their borders), D below and at the tile
+    depth and beyond it (200, 256: a ring stage holds a depth chunk and the
+    accumulator carries over the chunks), sizes around a segment, ghosts;
+    against the f32 plain version and against the plain version on the split
+    product."""
+    assert grouped_scan_uses_mma(qt, D)
+    rng = np.random.default_rng(qt + D + kk)
+    C, Gn = 512, 300
+    sizes_l = _tile_sizes(C)
+    P = len(sizes_l)
+    codes = torch.from_numpy(rng.standard_normal((P, C, D)).astype(np.float32)).to(dev)
+    sizes = torch.tensor(sizes_l, dtype=torch.int32, device=dev)
+    gp = torch.from_numpy(rng.integers(-1, P, Gn).astype(np.int32)).to(dev)
+    gsize = torch.where(gp >= 0, sizes[gp.clamp(min=0).long()], torch.zeros_like(gp)).contiguous()
+    slot_mult, levels = packed_params(C)
+    scale = levels / (10.0 * D ** 0.5)
+    qg = torch.from_numpy(rng.standard_normal((Gn, qt, D)).astype(np.float32) * scale).to(dev)
+    normsT = (((codes * codes).sum(-1) * 0.5 - 0.5 * D - 5.0 * D ** 0.5) * scale).contiguous()
+    args = (gp, gsize, qg, codes, normsT, kk, slot_mult, levels)
+    got = grouped_scan_kernel(*args)
+    torch.cuda.synchronize()
+    alive = gsize > 0
+    assert (got[~alive] == -1).all()
+    assert (got[alive] >= -1).all() and torch.isfinite(got).all()
+    _packed_agree(got, grouped_scan_plain(*args), alive, slot_mult, kk)
+    with bmm_as_split_product():
+        _packed_agree(got, grouped_scan_plain(*args), alive, slot_mult, kk)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("kk", [1, 10, 100])
+@pytest.mark.parametrize("D", [24, 100, 128, 200, 256])
+@pytest.mark.parametrize("qt", [8, 64])
+def test_rowscale_topk_tensor_core_tiles(dev, qt, D, kk, metric):
+    """K4's tensor-core body (whole partitions): more groups than blocks, a C
+    that no segment divides, sizes around a segment (one segment: selected
+    from the accumulator; two: the ring keeps the first where a stage holds
+    all of D), D beyond a stage's depth (200, 256), ghosts."""
+    assert rowscale_topk_body(qt, D, kk) == MMA_BODY
+    rng = np.random.default_rng(qt + D + kk)
+    C, Gn = 520, 300
+    sizes_l = _tile_sizes(C) + [256, 300]
+    P = len(sizes_l)
+    codes = torch.from_numpy(rng.standard_normal((P, C, D)).astype(np.float32)).to(dev)
+    norms = (codes * codes).sum(-1).contiguous()
+    sizes = torch.tensor(sizes_l, dtype=torch.int32, device=dev)
+    gp = torch.from_numpy(rng.integers(-1, P, Gn).astype(np.int32)).to(dev)
+    gsize = torch.where(gp >= 0, sizes[gp.clamp(min=0).long()], torch.zeros_like(gp)).contiguous()
+    qg = torch.from_numpy(rng.standard_normal((Gn, qt, D)).astype(np.float32)).to(dev)
+    slot_mult, levels = packed_params(C)
+    args = (gp, gsize, qg, codes, norms, kk, slot_mult, levels, metric, "topk")
+    got, got_stats = rowscale_scan(*args)
+    torch.cuda.synchronize()
+    alive = gsize > 0
+    assert (got[~alive] == -1).all()
+    assert (got_stats[~alive][:, :, 0] == 0).all()
+    assert (got_stats[~alive][:, :, 1] == np.float32(1e-20)).all()
+    for model in (False, True):
+        with bmm_as_split_product() if model else contextlib.nullcontext():
+            want, want_stats = rowscale_scan_plain(*args)
+        torch.testing.assert_close(got_stats, want_stats, rtol=1e-4, atol=1e-4)
+        _packed_agree(got, want, alive, slot_mult, kk)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("qt,D,kk", [(8, 24, 1), (64, 128, 10), (64, 100, 100), (8, 128, 10)])
+@pytest.mark.parametrize("C,ct", [(512, 128), (520, 128), (512, 256), (700, 256)])
+def test_rowscale_topk_tensor_core_chunk_table(dev, C, ct, qt, D, kk, metric):
+    """K4's persistent body for a chunk table laid out as the v4 scan lays
+    it: the chunks of one (partition, query tile) group consecutive and
+    sharing qsrc, more chunk-groups than blocks, partitions ending inside a
+    chunk and chunks past the size (ghosts), a last chunk cut by C. It
+    multiplies in f32 in the plain version's order: the stats are equal."""
+    assert rowscale_topk_body(qt, D, min(kk, ct), chunked=True) == CHUNK_BODY
+    rng = np.random.default_rng(C + ct + qt + D)
+    sizes_l = _tile_sizes(C) + [ct + 1, C - 3]
+    P, G = len(sizes_l), 60
+    codes = torch.from_numpy(rng.standard_normal((P, C, D)).astype(np.float32)).to(dev)
+    norms = (codes * codes).sum(-1).contiguous()
+    sizes = torch.tensor(sizes_l, dtype=torch.int32, device=dev)
+    maxch = -(-C // ct)
+    pid = torch.from_numpy(rng.integers(-1, P, G).astype(np.int32)).to(dev)
+    gp = pid.repeat_interleave(maxch).contiguous()
+    chunk = torch.arange(maxch, dtype=torch.int32, device=dev).repeat(G)
+    gsize = torch.where(gp >= 0, (sizes[gp.clamp(min=0).long()] - chunk * ct).clamp(0, ct),
+                        torch.zeros_like(gp)).contiguous()
+    qsrc = torch.arange(G, dtype=torch.int32, device=dev).repeat_interleave(maxch).contiguous()
+    qg = torch.from_numpy(rng.standard_normal((G, qt, D)).astype(np.float32)).to(dev)
+    slot_mult, levels = packed_params(ct)
+    kw = dict(qsrc=qsrc, row_off=(chunk * ct).contiguous(), ct=ct)
+    args = (gp, gsize, qg, codes, norms, min(kk, ct), slot_mult, levels, metric, "topk")
+    got, got_stats = rowscale_scan(*args, **kw)
+    torch.cuda.synchronize()
+    alive = gsize > 0
+    assert (got[~alive] == -1).all()
+    want, want_stats = rowscale_scan_plain(*args, **kw)
+    torch.testing.assert_close(got_stats, want_stats, rtol=1e-4, atol=1e-4)
+    _packed_agree(got, want, alive, slot_mult, min(kk, ct))
+
+
+@pytest.mark.parametrize("D", [13, 24, 30, 100, 128, 132, 256, 300])
+@pytest.mark.parametrize("qt", [8, 16, 32, 64])
+def test_launchers_pick_the_body_by_shape(dev, qt, D):
+    """The launchers run K1's and K4's CUDA-core bodies only where a row is
+    not 16-byte aligned (D % 4 != 0) and, K4, with a chunk table; the
+    tensor-core bodies everywhere else (D past a ring stage's depth streams
+    through it in chunks)."""
+    for kk in (1, 10, 100):
+        assert rowscale_topk_body(qt, D, kk, chunked=True) in (CHUNK_BODY, GROUP_BODY)
+        assert rowscale_topk_body(qt, D, kk) == (GROUP_BODY if D % 4 else MMA_BODY)
+    assert grouped_scan_uses_mma(qt, D) == (D % 4 == 0)
+    if D <= 128:  # the chunk-table body's two segment buffers fit at every qt
+        assert rowscale_topk_body(qt, D, 100, chunked=True) == CHUNK_BODY
+
+
+@pytest.mark.parametrize("D", [13, 30])
+def test_cuda_core_bodies_still_match_plain(dev, D):
+    """D % 4 != 0 takes K1's and K4's CUDA-core bodies: same function."""
+    rng = np.random.default_rng(D)
+    P, C, Gn, qt, kk = 6, 256, 150, 32, 10
+    assert not grouped_scan_uses_mma(qt, D) and rowscale_topk_body(qt, D, kk) == GROUP_BODY
+    codes = torch.from_numpy(rng.standard_normal((P, C, D)).astype(np.float32)).to(dev)
+    norms = (codes * codes).sum(-1).contiguous()
+    sizes = torch.tensor(_tile_sizes(C), dtype=torch.int32, device=dev)
+    gp = torch.from_numpy(rng.integers(-1, P, Gn).astype(np.int32)).to(dev)
+    gsize = torch.where(gp >= 0, sizes[gp.clamp(min=0).long()], torch.zeros_like(gp)).contiguous()
+    slot_mult, levels = packed_params(C)
+    q = torch.from_numpy(rng.standard_normal((Gn, qt, D)).astype(np.float32)).to(dev)
+    alive = gsize > 0
+    scale = levels / (10.0 * D ** 0.5)
+    normsT = (((codes * codes).sum(-1) * 0.5 - 0.5 * D - 5.0 * D ** 0.5) * scale).contiguous()
+    args = (gp, gsize, (q * scale).contiguous(), codes, normsT, kk, slot_mult, levels)
+    _packed_agree(grouped_scan_kernel(*args), grouped_scan_plain(*args), alive, slot_mult, kk)
+    args = (gp, gsize, q, codes, norms, kk, slot_mult, levels, "l2", "topk")
+    got, got_stats = rowscale_scan(*args)
+    want, want_stats = rowscale_scan_plain(*args)
+    torch.testing.assert_close(got_stats, want_stats, rtol=1e-4, atol=1e-4)
+    _packed_agree(got, want, alive, slot_mult, kk)
