@@ -33,13 +33,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
              counts are zeroed just before this phase and read just after it.
 5. by name — the grouped scans chosen by name through QUAKE_TPU_KERNEL
              (v3p, v3p4, v7g4, v8g4, v11g4f256, which lands on v3pN at
-             C % 256 != 0, then xla, v3, v2, v6, v5 and v4) on the main
-             phase's index at its nprobe: recall@10 on the same 1024 queries
-             (the exact-score paths xla, v3 and v2 within 0.001 of the exact
-             scan of the probed partitions, the per-row-scale paths at most
-             0.01 below it, v8 within 0.005 of the v11 path), ms per B=16384
-             batch with a stage breakdown, and each path's kernel launches
-             (counts zeroed just before the path, read just after).
+             C % 256 != 0, then xla, v3, v2, v6, v5, v4 and v10g4) on the
+             main phase's index at its nprobe: recall@10 on the same 1024
+             queries (the exact-score paths xla, v3 and v2 within 0.001 of
+             the exact scan of the probed partitions, the per-row-scale paths
+             at most 0.01 below it, v8 and v10 within 0.005 of the v11 path),
+             ms per B=16384 batch with a stage breakdown, and each path's
+             kernel launches (counts zeroed just before the path, read just
+             after); then the default v11 path with
+             QUAKE_TPU_V11_PLACEMENT=argsort, timed at B=4096 (where the
+             default placement is sorted), within 0.005 of the v11 path.
 6. direct  — the four grouped scans with entry points of their own
              (grouped_scan_approx, _sized with ct=256, _packed, _multi with
              gb=8) called with the main index's tensors at the main nprobe and
@@ -57,12 +60,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
              index searched on the card agrees with the same store searched
              on the CPU through the plain versions, for v11 and for each
              name of phase 5.
-9. kernels — each kernel against its plain version again, at the shapes the
-             main path (K1-K3), the by-name paths (K4 through v3p, v3pN,
+9. wide    — the default search at D = 768 (65,536 x 768 manifold corpus,
+             nlist=64, B=1024, nprobe 8): K1 at the query-tile height the
+             index picks (32), K3 streaming the depth, K2; ids against the
+             exact scan of the probed partitions (overlap >= 0.99).
+10. kernels — each kernel against its plain version again, at the shapes the
+             main path (K1-K3; K3 also with 16,384 corpus rows as its
+             buffer; K2 beside an empty kernel on its grid, the launch
+             floor), the by-name paths (K4 through v3p, v3pN,
              v6 and v4, K5 through v7, K1 through v8, K6 through v3 and v2,
              K7 through v5) and the direct paths (K8, K9, sized_topk,
-             multi_topk) gave it, with times and bounds (K1, and K4 on whole
-             partitions, against the tensor cores' TF32 peak at three
+             multi_topk) gave it, with times and bounds (K1, K3, and K4 on
+             whole partitions, against the tensor cores' TF32 peak at three
              products per f32 one, the others against the CUDA cores' f32
              peak; no kernel may beat its bound), and the share of K1's time
              that its selection takes (K1 against a build of its body
@@ -117,7 +126,16 @@ BY_NAME = (("v3p", ("rowscale_topk",), "exact", 5), ("v3p4", ("rowscale_topk",),
            ("v11g4f256", ("rowscale_topk",), "exact", 5),
            ("xla", (), "ceiling", 2), ("v3", ("exact_topk",), "ceiling", 5),
            ("v2", ("exact_topk",), "ceiling", 5), ("v6", ("rowscale_topk",), "exact", 5),
-           ("v5", ("chunk_merge",), "exact", 5), ("v4", ("rowscale_topk",), "exact", 3))
+           ("v5", ("chunk_merge",), "exact", 5), ("v4", ("rowscale_topk",), "exact", 3),
+           ("v10g4", ("grouped_scan", "merge_positions"), "v11", 5))
+# The v11 placement forced to argsort where the sort key fits
+# (QUAKE_TPU_V11_PLACEMENT), timed at B=BATCH_SORTED, where the default
+# placement is sorted: same kernels, held within V11_TOL of the v11 path.
+PLACEMENT_KNOB = {"QUAKE_TPU_V11_PLACEMENT": "argsort"}
+# The wide-vector case through the default search: a D that K1 serves only
+# at qt = 32 and K3 streams in depth chunks.
+WIDE_N, WIDE_D, WIDE_NLIST, WIDE_B, WIDE_NPROBE = 65_536, 768, 64, 1024, 8
+K3_WIDE_N = 16_384  # K3's second shape: that many corpus rows as the buffer
 MAIN_KERNELS = ("grouped_scan", "merge_positions", "flat_topk")
 # Direct path -> (its kernel, the recall it is held to, timed batches).
 DIRECT = (("approx", "raw_scores", "ceiling", 3), ("sized", "sized_topk", "ceiling", 5),
@@ -131,9 +149,10 @@ TF32_PEAK = 495e12  # H100 SXM dense TF32 FLOP/s on the tensor cores (data sheet
 # function, its peak). The tensor-core bodies take three TF32 products per f32 one.
 UNITS = {"f32 CUDA cores": (1.0, F32_PEAK), "TF32 tensor cores, 3 products": (3.0, TF32_PEAK)}
 CUDA_CORES, TENSOR_CORES = UNITS
-# Entries of the kernels line whose product runs on the tensor cores: K1, and
-# K4 on whole partitions (with v4's chunk table it runs in f32 on the CUDA cores).
-TENSOR_CORE_ENTRIES = ("grouped_scan", "grouped_scan/v8", "rowscale_topk/v3p",
+# Entries of the kernels line whose product runs on the tensor cores: K1, K3
+# (D % 4 == 0), and K4 on whole partitions (with v4's chunk table it runs in
+# f32 on the CUDA cores).
+TENSOR_CORE_ENTRIES = ("grouped_scan", "grouped_scan/v8", "flat_topk", "rowscale_topk/v3p",
                        "rowscale_topk/v3pn", "rowscale_topk/v6")
 HBM_RATE = 3.35e12  # H100 SXM bytes/s
 QUEUE_CYCLES = 50_000_000  # ~25 ms of spinning at the H100's clock: room to enqueue the reps
@@ -286,10 +305,12 @@ def phase_small_parity(torch, dev):
     normsT = (((codes * codes).sum(-1) * 0.5 - 100.0) * scale).contiguous()
     k1 = compare_k1(torch, grouped_scan_kernel, grouped_scan_plain, gp, gsize.contiguous(),
                     qg, codes, normsT, kk, slot_mult, levels)
-    keys = rng.integers(-1, 500, size=(500, 256)).astype(np.float32)
-    keys[rng.random(keys.shape) < 0.4] = -1.0
-    keys = torch.from_numpy(keys).to(dev)
-    k2 = compare_k2(torch, merge_positions, merge_positions_plain, keys, 10, 256)
+    for pool in (90, 256):
+        keys = rng.integers(-1, 500, size=(500, pool)).astype(np.float32)
+        keys[rng.random(keys.shape) < 0.4] = -1.0
+        m_packed = np.where(keys >= 0, keys * 256 + rng.integers(0, 256, keys.shape), -1.0)
+        k2 = compare_k2(torch, merge_positions, merge_positions_plain,
+                        torch.from_numpy(m_packed.astype(np.float32)).to(dev), 10, 256)
     cb = torch.from_numpy(rng.standard_normal((384, Dm)).astype(np.float32)).to(dev)
     qb = torch.from_numpy(rng.standard_normal((500, Dm)).astype(np.float32)).to(dev)
     bias = (-(cb * cb).sum(1)).contiguous()
@@ -716,9 +737,9 @@ def compare_k1(torch, kernel, plain, gp, gsize, qg, codes, normsT, kk, slot_mult
     return ov, max_kd
 
 
-def compare_k2(torch, kernel, plain, keys, kfin, lane_mult):
-    got = kernel(keys, kfin, lane_mult)
-    want = plain(keys, kfin, lane_mult)
+def compare_k2(torch, kernel, plain, m_packed, kfin, slot_mult):
+    got = kernel(m_packed, kfin, slot_mult)
+    want = plain(m_packed, kfin, slot_mult)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         raise AssertionError("K2 disagrees with its plain version (must be equal)")
@@ -821,19 +842,17 @@ def phase_by_name(torch, dev, idx, queries, gt, nprobe, recall_v11):
     """Each scan of BY_NAME through QUAKE_TPU_KERNEL, on the main index at
     the main nprobe: recall@10 on the ground-truth queries, ms per B=16384
     batch and stages, and the path's launches (zeroed just before the path
-    runs, read just after). The "reference" scan (exact top-k over the same
-    probed partitions) gives the recall ceiling. Fails if the path's
-    kernels did not launch, if another scan kernel did, or if recall misses
-    the path's gate: within EXACT_TOL below the ceiling, or within V11_TOL
-    of the v11 path."""
-    import os
-
+    runs, read just after); then the v11 path with PLACEMENT_KNOB at
+    B=BATCH_SORTED. The "reference" scan (exact top-k over the same probed
+    partitions) gives the recall ceiling. Fails if the path's kernels did
+    not launch, if another scan kernel did, or if recall misses the path's
+    gate: within EXACT_TOL below the ceiling, or within V11_TOL of the v11
+    path."""
     from quake_tpu_torch import SearchParams, _ext
     from quake_tpu_torch.profiling import StageTimer
     from quake_tpu_torch.utils import compute_recall
 
     sp = SearchParams(k=K, nprobe=nprobe)
-    qd = torch.from_numpy(queries[:BATCH]).to(dev)
     scan_kernels = set(_ext.KERNELS) - {"flat_topk"}
     if idx.store.C % 256 == 0:
         raise AssertionError(f"C={idx.store.C}: v11g4f256 was expected to fall back to v3pN")
@@ -844,8 +863,13 @@ def phase_by_name(torch, dev, idx, queries, gt, nprobe, recall_v11):
         del os.environ["QUAKE_TPU_KERNEL"]
     log(f"[by name] reference (exact scan of the probed partitions): recall@10={ceiling:.4f}")
     out = {"reference": dict(recall=ceiling)}
-    for name, kernels, gate, reps in BY_NAME:
-        os.environ["QUAKE_TPU_KERNEL"] = name
+    paths = [(name, {"QUAKE_TPU_KERNEL": name}, kernels, gate, reps, BATCH)
+             for name, kernels, gate, reps in BY_NAME]
+    paths.append(("v11/" + ",".join(f"{k}={v}" for k, v in PLACEMENT_KNOB.items()), PLACEMENT_KNOB,
+                  ("grouped_scan", "merge_positions"), "v11", 5, BATCH_SORTED))
+    for name, env, kernels, gate, reps, batch in paths:
+        qd = torch.from_numpy(queries[:batch]).to(dev)
+        os.environ.update(env)
         try:
             torch.cuda.synchronize()
             _ext.reset_launches()
@@ -859,18 +883,19 @@ def phase_by_name(torch, dev, idx, queries, gt, nprobe, recall_v11):
             torch.cuda.synchronize()
             launches = dict(_ext.launches)
         finally:
-            del os.environ["QUAKE_TPU_KERNEL"]
+            for var in env:
+                del os.environ[var]
         r = compute_recall(res.ids, gt, K)
         stages = timer.mean_ms()
         log(f"[by name] {name}: recall@10={r:.4f} (v11 {recall_v11:.4f}, exact "
             f"{ceiling:.4f}), {ms:.3f} ms/batch "
-            f"(B={BATCH}), {BATCH / (ms / 1e3):,.0f} QPS, stages(ms)="
+            f"(B={batch}), {batch / (ms / 1e3):,.0f} QPS, stages(ms)="
             f"{json.dumps({k: round(v, 4) for k, v in stages.items()})}, launches {launches}")
         ran = {k for k in scan_kernels if launches[k] > 0}
         if ran != set(kernels) or launches["flat_topk"] <= 0:
             raise AssertionError(f"{name}: expected the kernels {sorted(kernels)} and "
                                  f"flat_topk to launch, got {launches}")
-        if ids32.shape != (BATCH, K) or bool((ids32 < 0).any()) or not bool(torch.isfinite(dists).all()):
+        if ids32.shape != (batch, K) or bool((ids32 < 0).any()) or not bool(torch.isfinite(dists).all()):
             raise AssertionError(f"{name}: expected {K} ids and finite distances per query")
         if gate == "ceiling" and abs(r - ceiling) > CEILING_TOL:
             raise AssertionError(f"{name}: recall@10 {r} is not within {CEILING_TOL} of the "
@@ -881,9 +906,52 @@ def phase_by_name(torch, dev, idx, queries, gt, nprobe, recall_v11):
         if gate == "v11" and abs(r - recall_v11) > V11_TOL:
             raise AssertionError(f"{name}: recall@10 {r} is not within {V11_TOL} of the "
                                  f"v11 path's {recall_v11}")
-        out[name] = dict(recall=r, ms=ms, qps=BATCH / (ms / 1e3), stages_ms=stages,
+        out[name] = dict(recall=r, ms=ms, qps=batch / (ms / 1e3), batch=batch, stages_ms=stages,
                          launches=launches)
     return out
+
+
+def phase_wide(torch, dev):
+    """The default search at a D that no longer fits K1's qt = 64 bodies nor
+    K3's first design: a WIDE_N x WIDE_D manifold corpus, nlist=WIDE_NLIST,
+    WIDE_B queries at nprobe WIDE_NPROBE. K1 runs at the query-tile height
+    the index picks (32), K3 streams the depth; the ids are held to the
+    exact scan of the probed partitions (overlap >= OVERLAP_TOL)."""
+    from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams, _ext
+    from quake_tpu_torch.coordinator import rank_parents, reference_scan
+    from quake_tpu_torch.ops.flat_topk import KEPT_BODY, flat_topk_body
+
+    x = make_manifold(WIDE_N, WIDE_D, 1024, seed=11)
+    q = make_manifold(WIDE_B, WIDE_D, 1024, seed=12)
+    idx = QuakeIndex(device=dev)
+    idx.build(x, None, IndexBuildParams(nlist=WIDE_NLIST, calibrate_aps=False))
+    sp = SearchParams(k=K, nprobe=WIDE_NPROBE)
+    qt = idx._grouped_params(WIDE_B, WIDE_NPROBE)[0]
+    pst = idx.parent.store.state
+    body = flat_topk_body(pst.codes.shape[0] * pst.codes.shape[1], WIDE_D)
+    if qt != 32 or not idx._grouped_kernel().startswith("v11") or body != KEPT_BODY:
+        raise AssertionError(f"D={WIDE_D}: expected v11 at qt=32 and K3's kept-score body, got "
+                             f"{idx._grouped_kernel()} at qt={qt}, K3 body {body}")
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    res = idx.search(q, sp)
+    torch.cuda.synchronize()
+    launches = dict(_ext.launches)
+    qd = torch.from_numpy(q).to(dev)
+    ms = time_ms(torch, lambda: idx._search_device_full(qd, sp), reps=5)
+    st = idx.store.state
+    pids = rank_parents(pst.codes, pst.ids, pst.norms, qd, WIDE_NPROBE, "l2", "pallas")
+    _, want, _ = reference_scan(st.codes, st.ids, st.norms, qd, pids, K, "l2")
+    ov = overlap(torch.from_numpy(res.ids).to(dev), want.long())
+    log(f"[wide] {WIDE_N} x {WIDE_D}, nlist={WIDE_NLIST} (C={idx.store.C}), B={WIDE_B}, nprobe="
+        f"{WIDE_NPROBE}: qt={qt}, {ms:.3f} ms/batch, id overlap with the exact scan of the probed "
+        f"partitions {ov:.4f}, launches {launches}")
+    if (launches["grouped_scan"] != 1 or launches["flat_topk"] != 1
+            or launches["merge_positions"] != 1):
+        raise AssertionError(f"D={WIDE_D}: expected one launch each of K1, K2 and K3, got {launches}")
+    if res.ids.shape != (WIDE_B, K) or ov < OVERLAP_TOL or not np.isfinite(res.distances).all():
+        raise AssertionError(f"D={WIDE_D}: overlap {ov} with the exact scan of the probed partitions")
+    return dict(ms=ms, qt=qt, overlap=ov, C=idx.store.C, launches=launches)
 
 
 def phase_small_reference(torch, dev):
@@ -1303,38 +1371,70 @@ def product_only_k1(torch, build, gp, gsize, qg, codes, normsT, kk, slot_mult, l
     return launch, tmp
 
 
-def phase_kernels(torch, dev, idx, queries, nprobe, launches, by_name, direct, k1_build):
+def empty_launch(torch, build, rows: int):
+    """A function that launches the product-only build's empty kernel on
+    kernel K2's grid for `rows` rows (8 lanes a row): the floor under K2's
+    time. The build was finished by product_only_k1."""
+    from quake_tpu_torch import _ext
+
+    _, so, _ = build
+    entry = ctypes.CDLL(so).qk_empty
+    entry.argtypes, entry.restype = (ctypes.c_int, ctypes.c_void_p), ctypes.c_int
+    grid = -(-rows * 8 // 256)
+    return lambda: _ext.check(entry(grid, _ext.stream_ptr(torch.device("cuda"))), "empty kernel")
+
+
+def phase_kernels(torch, dev, idx, x, queries, nprobe, launches, by_name, direct, k1_build):
     """Each kernel against its plain version at the shapes of the path it
-    runs on, with times and bounds: K1-K3 on the main (v11) path; on the
-    by-name paths K4 through v3p, v3pN, v6 and v4, K5 through v7, K1 through
-    v8, K6 through v3 and v2, K7 through v5."""
+    runs on, with times and bounds: K1-K3 on the main (v11) path (K3 also
+    with K3_WIDE_N rows of the corpus x as its buffer); on the by-name paths
+    K4 through v3p, v3pN, v6 and v4, K5 through v7, K1 through v8, K6
+    through v3 and v2, K7 through v5."""
     from quake_tpu_torch.coordinator import rank_parents
-    from quake_tpu_torch.ops.flat_topk import flat_topk, flat_topk_plain, parent_bias
+    from quake_tpu_torch.ops.flat_topk import flat_topk, flat_topk_body, flat_topk_plain, parent_bias
     from quake_tpu_torch.ops.grouped import build_groups
     from quake_tpu_torch.ops.grouped_family import rowscale_scan, rowscale_scan_plain
     from quake_tpu_torch.ops.grouped_scan import (argsort_placement, global_scale,
                                                   grouped_scan_kernel, grouped_scan_plain,
                                                   merge_positions, merge_positions_plain,
-                                                  pad_groups, pool_keys, v11_inputs)
+                                                  pad_groups, v11_inputs)
 
     st, pst = idx.store.state, idx.parent.store.state
     q = torch.from_numpy(queries[:BATCH]).to(dev)
     rows = []
     k1_tol = f"winner overlap >= {OVERLAP_TOL}, common keys within 1 level"
 
-    # K3 at the parent ranking's shape.
+    # K3 at the parent ranking's shape, and with K3_WIDE_N corpus rows as the
+    # buffer (the parent of an index with a few thousand partitions).
     Pp, Cp, Dd = pst.codes.shape
     codes2d = pst.codes.reshape(Pp * Cp, Dd).contiguous()
     bias = parent_bias(pst.ids, pst.norms, "l2")
-    ov3, kd3 = compare_k3(torch, flat_topk, flat_topk_plain, codes2d, bias, q, nprobe, "l2")
-    n_valid = int((pst.ids >= 0).sum())
-    b3 = bound((q.numel() + codes2d.numel() + bias.numel() + BATCH * nprobe) * 4,
-               2.0 * BATCH * n_valid * Dd)
-    rows.append(dict(name="flat_topk", tol=f"winner overlap >= {OVERLAP_TOL}", overlap=ov3,
-                     max_abs_err=kd3, launches=launches["flat_topk"],
-                     ms=time_ms(torch, lambda: flat_topk(codes2d, bias, q, nprobe, "l2")),
-                     plain_ms=time_ms(torch, lambda: flat_topk_plain(codes2d, bias, q, nprobe, "l2")),
-                     bound=b3))
+    wide = torch.from_numpy(x[:K3_WIDE_N]).to(dev)
+    wide_bias = (-(wide * wide).sum(1)).contiguous()
+    k3 = {}
+    for shape, cb, bb in ((f"B={BATCH}, N={Pp * Cp}, D={Dd}", codes2d, bias),
+                          (f"B={BATCH}, N={K3_WIDE_N}, D={Dd}", wide, wide_bias)):
+        ov3, kd3 = compare_k3(torch, flat_topk, flat_topk_plain, cb, bb, q, nprobe, "l2")
+        n_valid = int((bb > float("-inf")).sum())
+        k3[shape] = dict(
+            shape=shape, body=flat_topk_body(cb.shape[0], Dd), overlap=ov3, max_abs_err=kd3,
+            ms=time_ms(torch, lambda: flat_topk(cb, bb, q, nprobe, "l2")),
+            plain_ms=time_ms(torch, lambda: flat_topk_plain(cb, bb, q, nprobe, "l2"), reps=3,
+                             warmup=1),
+            bound=bound((q.numel() + cb.numel() + bb.numel() + BATCH * nprobe) * 4,
+                        2.0 * BATCH * n_valid * Dd, unit_of("flat_topk")))
+    main3, wide3 = k3.values()
+    del wide, wide_bias
+    wide3["bound_ms"], wide3["bound_by"] = wide3.pop("bound")
+    if wide3["ms"] < wide3["bound_ms"]:
+        raise AssertionError(f"flat_topk at {wide3['shape']}: {wide3['ms']} ms is below its "
+                             f"bound of {wide3['bound_ms']} ms")
+    log(f"[kernel] flat_topk at {wide3['shape']} (body {wide3['body']}): {wide3['ms']:.4f} ms "
+        f"(plain {wide3['plain_ms']:.4f} ms, bound {wide3['bound_ms']:.4f} ms by "
+        f"{wide3['bound_by']}, {100.0 * wide3['bound_ms'] / wide3['ms']:.1f}% of it reached), "
+        f"overlap {wide3['overlap']:.4f}, max key diff {wide3['max_abs_err']}")
+    rows.append(dict(main3, name="flat_topk", tol=f"winner overlap >= {OVERLAP_TOL}",
+                     launches=launches["flat_topk"], wide=wide3))
 
     # K1 at the grouped scan's shape.
     pids = rank_parents(pst.codes, pst.ids, pst.norms, q, nprobe, "l2", "pallas")
@@ -1360,27 +1460,29 @@ def phase_kernels(torch, dev, idx, queries, nprobe, launches, by_name, direct, k
     k1_ms = rows[-1]["ms"]
     launch, build_dir = product_only_k1(torch, k1_build, *args)
     product_ms = time_ms(torch, launch)
-    torch.cuda.synchronize()
-    build_dir.cleanup()
     log(f"[kernel] grouped_scan: {k1_ms:.4f} ms, its loads and products alone "
         f"{product_ms:.4f} ms: selection share {1.0 - product_ms / k1_ms:.3f} of K1's time")
 
-    # K2 at the pool merge's shape (argsort placement of the B=16384 batch);
-    # the library call is a top-k of the same keys.
+    # K2 at the pool merge's shape (argsort placement of the B=16384 batch),
+    # on the placed pool as it is; the library call is a top-k of the same
+    # pool, the floor an empty kernel on K2's grid (the product-only build).
     g_packed = grouped_scan_kernel(*args)
     m_packed, _ = argsort_placement(g_packed, inp["tgt"], inp["group_size"], pids)
-    mk, lane_mult = pool_keys(m_packed, slot_mult)
     kfin = min(K, m_packed.shape[1])
-    compare_k2(torch, merge_positions, merge_positions_plain, mk, kfin, lane_mult)
-    bytes2 = (mk.numel() + BATCH * kfin) * 4
+    compare_k2(torch, merge_positions, merge_positions_plain, m_packed, kfin, slot_mult)
+    bytes2 = (m_packed.numel() + BATCH * kfin) * 4
     rows.append(dict(name="merge_positions", tol="equal", overlap=1.0, max_abs_err=0.0,
                      launches=launches["merge_positions"],
-                     ms=time_ms(torch, lambda: merge_positions(mk, kfin, lane_mult)),
-                     paced_ms=time_ms(torch, lambda: merge_positions(mk, kfin, lane_mult),
+                     ms=time_ms(torch, lambda: merge_positions(m_packed, kfin, slot_mult)),
+                     paced_ms=time_ms(torch, lambda: merge_positions(m_packed, kfin, slot_mult),
                                       queued=False),
-                     plain_ms=time_ms(torch, lambda: merge_positions_plain(mk, kfin, lane_mult)),
-                     library_ms=time_ms(torch, lambda: torch.topk(mk, kfin, dim=1)),
+                     floor_ms=time_ms(torch, empty_launch(torch, k1_build, BATCH)),
+                     plain_ms=time_ms(torch, lambda: merge_positions_plain(m_packed, kfin,
+                                                                           slot_mult)),
+                     library_ms=time_ms(torch, lambda: torch.topk(m_packed, kfin, dim=1)),
                      bound=bound(bytes2, 0.0)))
+    torch.cuda.synchronize()
+    build_dir.cleanup()
 
     # K4 (v3p: one group a step; v3pN: gpb 4) and K5 (v7, gpb 4) at the
     # by-name paths' shapes: unscaled queries, raw norms.
@@ -1437,15 +1539,24 @@ def phase_kernels(torch, dev, idx, queries, nprobe, launches, by_name, direct, k
             f"{100.0 * r['bound_ms'] / r['ms']:.1f}% of it reached"
             + (f", library {lib:.4f} ms" if lib is not None else "")
             + (f", host-paced {r['paced_ms']:.4f} ms" if "paced_ms" in r else "")
+            + (f", empty launch {r['floor_ms']:.4f} ms" if "floor_ms" in r else "")
+            + (f", at {r['shape']} (body {r['body']})" if "shape" in r else "")
             + f"), overlap {r['overlap']:.4f}, max {r.get('err_of', 'key diff')} {r['max_abs_err']}"
             + (f", max stats error {r['stats_err']:.3g}" if "stats_err" in r else "")
             + f" ({r['tol']}), launches on its path {r['launches']}"
             + (f", groups {r['groups']}, scanned rows {r['scanned_rows']}" if "groups" in r else ""))
-        kernels.append({"name": r["name"], "kernel": kernel, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": r["launches"],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "bound_unit": unit, "library_ms": lib})
+        entry = {"name": r["name"], "kernel": kernel, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": r["launches"],
+                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"], "bound_unit": unit, "library_ms": lib}
+        for extra in ("shape", "floor_ms"):
+            if extra in r:
+                entry[extra] = r[extra]
+        if "wide" in r:
+            entry["second_shape"] = {f: r["wide"][f] for f in ("shape", "ms", "plain_ms", "bound_ms",
+                                                              "bound_by", "max_abs_err")}
+        kernels.append(entry)
     return kernels
 
 
@@ -1495,10 +1606,11 @@ def main() -> int:
                           by_name["reference"]["recall"])
     latency = phase_latency(torch, dev, idx, x, queries, gt, main_out["nprobe"])
     phase_small_reference(torch, dev)
-    kernels = phase_kernels(torch, dev, idx, queries, main_out["nprobe"], launches, by_name,
+    wide = phase_wide(torch, dev)
+    kernels = phase_kernels(torch, dev, idx, x, queries, main_out["nprobe"], launches, by_name,
                             direct, k1_build)
     log("[summary] " + json.dumps(dict(main_out, by_name=by_name, direct=direct,
-                                       latency=latency)))
+                                       latency=latency, wide=wide)))
 
     if len(kernels) != len(ENTRIES):
         raise AssertionError(f"the kernels line needs {len(ENTRIES)} entries, got {len(kernels)}")

@@ -4,7 +4,7 @@ The kernels live in ``csrc/*.cu`` (their shared helpers in ``csrc/*.cuh``)
 behind a plain C interface: one ``extern "C"`` launcher per kernel that
 takes raw device pointers and a stream and returns ``cudaGetLastError()``.
 At first use every source is compiled by its own ``nvcc`` process, all
-started together, for ``sm_90a`` (K1 and K4 use ``mma.sync`` TF32 products
+started together, for ``sm_90a`` (K1, K3 and K4 use ``mma.sync`` TF32 products
 and bulk tensor copies; the tensor map's encoder, ``cuTensorMapEncodeTiled``,
 is looked up in libcuda at run time with ``dlsym``, so only ``-ldl`` is linked);
 the
@@ -39,19 +39,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argtypes; every launcher returns a cudaError_t as int, the
-# qk_grouped_scan_uses_mma and qk_rowscale_topk_body entries the body chosen.
+# qk_grouped_scan_uses_mma, qk_grouped_scan_serves, qk_rowscale_topk_body and
+# qk_flat_topk_body entries the body chosen.
 _SIGNATURES = {
     # gp, gsize, qg, codes, normsT, out, Gn, qt, D, P, C, kk, slot_mult, levels, stream
     "qk_grouped_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
     # qt, D: whether K1's launcher runs the tensor-core body
     "qk_grouped_scan_uses_mma": (_I, _I),
+    # qt, D: whether one of K1's bodies serves the shape
+    "qk_grouped_scan_serves": (_I, _I),
     # qt, D, kk, chunked: the body K4's launcher runs (2 tensor cores, 1 the
     # persistent chunk-table body, 0 one block a group)
     "qk_rowscale_topk_body": (_I, _I, _I, _I),
-    # keys, out, B, poolp, kfin, lane_mult, stream
-    "qk_merge_positions": (_P, _P, _I, _I, _I, _I, _P),
+    # m_packed, out, B, pool, kfin, lane_mult, 1 / slot_mult, stream
+    "qk_merge_positions": (_P, _P, _I, _I, _I, _I, _F, _P),
     # q, codes2d, bias, out, B, N, D, k, is_l2, slot_mult, levels, stream
     "qk_flat_topk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    # N, D: the body K3's launcher runs (2 tensor cores, scores kept in shared
+    # memory; 1 tensor cores, two passes; 0 CUDA cores)
+    "qk_flat_topk_body": (_I, _I),
     # gp, gsize, qsrc, row_off (both may be null), qg, codes, norms, out, stats,
     # Gn, qt, D, P, C, kk, is_l2, slot_mult, levels, stream
     "qk_rowscale_topk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,

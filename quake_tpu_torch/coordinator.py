@@ -5,6 +5,7 @@ and the distance conversion."""
 
 from __future__ import annotations
 
+import os
 import re
 
 import torch
@@ -16,7 +17,7 @@ from quake_tpu_torch.ops.grouped_chunked import (grouped_scan_v4, grouped_scan_v
 from quake_tpu_torch.ops.grouped_exact import grouped_scan_v2, grouped_scan_v3
 from quake_tpu_torch.ops.grouped_family import (grouped_scan_v3p, grouped_scan_v3pn,
                                                 grouped_scan_v7, grouped_scan_v8)
-from quake_tpu_torch.ops.grouped_scan import (FOLD, grouped_scan_v11,
+from quake_tpu_torch.ops.grouped_scan import (FOLD, grouped_scan_v10, grouped_scan_v11,
                                               sort_key_fits)
 from quake_tpu_torch.ops.scan import (NEG_INF, flat_scan, ivf_scan, scores_to_distances,
                                       topk_from_scores)
@@ -99,7 +100,7 @@ def reference_scan(codes, ids, norms, q, pids, k: int, metric: str,
     return torch.cat(out_s), torch.cat(out_i).to(torch.int32), scanned
 
 
-_FOLDED = re.compile(r"(v7|v8|v9|v11)(?:g(\d+))?(?:f(\d+))?$")
+_FOLDED = re.compile(r"(v7|v8|v9|v10|v11)(?:g(\d+))?(?:f(\d+))?$")
 _V3PN = re.compile(r"v3p(\d+)$")
 CHUNK_SIZES = (512, 384, 256, 128)  # preferred chunk heights of v4/v5/v6, in order
 
@@ -128,17 +129,19 @@ def grouped_scan(codes, ids, sizes, norms, q, pids, k: int, metric: str,
 
     "v4", "v5" and "v6", each with an optional "c{ct}" and "g{gpb}", run
     the size-aware chunked scans (v4 and v6 on kernel K4, v5 on K7); "v3p"
-    runs v3p (K4); "v3p{N}" runs v3pN with gpb=N (K4); "v7", "v8", "v9" and
-    "v11", each with an optional "g{gpb}" and "f{fold}", run v7 (K5), v8
-    (K1 + K2; v9 too) and v11 (K1 + its placement + K2); "v3" and "v2" run
-    the exact-score scans (K6); "reference" runs the plain exact scan; any
-    other name, "xla" included, runs grouped_scan_xla, `group_chunk` groups
-    at a time. As in the JAX package, a folded name falls back to v3pN with
-    its gpb when C % fold != 0, and the v11 placement is sorted while its
-    uint32 key fits, else argsort. dense promises that every pid is valid
-    (fixed-nprobe semantics), as in the JAX package, where v11 needs it.
-    Folds other than 128 (with C % fold == 0), v11 without that promise
-    (masked pid matrices, dense=False) and the "v10" names raise
+    runs v3p (K4); "v3p{N}" runs v3pN with gpb=N (K4); "v7", "v8", "v9",
+    "v10" and "v11", each with an optional "g{gpb}" and "f{fold}", run v7 (K5), v8
+    (K1 + K2; v9 too), v10 (K1 + the scatter placement + K2) and v11 (K1 +
+    the sorted or argsort placement + K2); "v3" and "v2" run the exact-score
+    scans (K6); "reference" runs the plain exact scan; any other name, "xla"
+    included, runs grouped_scan_xla, `group_chunk` groups at a time. As in
+    the JAX package, a folded name falls back to v3pN with its gpb when
+    C % fold != 0. dense promises that every pid is valid (fixed-nprobe
+    semantics); v11 needs it and rides v10 without it. The v11 placement is
+    sorted while its uint32 key fits, else argsort, or v10 where
+    QUAKE_TPU_V11_OVERFLOW=v10; QUAKE_TPU_V11_PLACEMENT=argsort forces
+    argsort where the key fits (both read at each call, as in the JAX
+    package). Folds other than 128 (with C % fold == 0) raise
     NotImplementedError; dedup on v2/v3/v3p raises the JAX package's
     ValueError, and on every other name NotImplementedError."""
     if kernel == "reference":
@@ -153,15 +156,22 @@ def grouped_scan(codes, ids, sizes, norms, q, pids, k: int, metric: str,
         raise ValueError(
             f"kernel {kernel!r} does not support dedup (spilled stores); "
             "use the default v3pN, v4, v5/v6, v7, or xla backends")
-    if kernel.startswith("v10"):
-        raise NotImplementedError(f"grouped-scan kernel {kernel!r} is not ported (the v10 "
-                                  "scatter epilogue: ROADMAP Queue 1 item 9 (APS))")
     m = _FOLDED.match(kernel)
     if m is not None:
         name, gpb, fold = m.group(1), int(m.group(2) or 4), int(m.group(3) or FOLD)
         if name == "v11" and not dense:
-            raise NotImplementedError("masked pid matrices (v10 scatter epilogue): "
-                                      "ROADMAP Queue 1 item 9 (APS)")
+            name = "v10"  # masked pid matrices ride the scatter placement
+        placement = "sorted"
+        if name == "v11":
+            B, nprobe = pids.shape
+            rows = -(-group_layout(B, nprobe, codes.shape[0], qt) // gpb) * gpb * qt
+            if not sort_key_fits(B, rows):
+                if os.environ.get("QUAKE_TPU_V11_OVERFLOW", "argsort") == "v10":
+                    name = "v10"
+                else:
+                    placement = "argsort"
+            if os.environ.get("QUAKE_TPU_V11_PLACEMENT") == "argsort":
+                placement = "argsort"
         if codes.shape[1] % fold:
             return grouped_scan_v3pn(codes, ids, sizes, norms, q, pids, k, metric, qt=qt,
                                      gpb=gpb, dedup=dedup, stages=stages)
@@ -175,9 +185,9 @@ def grouped_scan(codes, ids, sizes, norms, q, pids, k: int, metric: str,
         if name in ("v8", "v9"):  # v9 computes v8's function (grouped_family.py)
             return grouped_scan_v8(codes, ids, sizes, norms, q, pids, k, metric, qt=qt,
                                    gpb=gpb, dedup=dedup, stages=stages)
-        B, nprobe = pids.shape
-        rows = -(-group_layout(B, nprobe, codes.shape[0], qt) // gpb) * gpb * qt
-        placement = "sorted" if sort_key_fits(B, rows) else "argsort"
+        if name == "v10":
+            return grouped_scan_v10(codes, ids, sizes, norms, q, pids, k, metric, qt=qt,
+                                    gpb=gpb, dedup=dedup, stages=stages)
         return grouped_scan_v11(codes, ids, sizes, norms, q, pids, k, metric,
                                 qt=qt, gpb=gpb, dedup=dedup, placement=placement,
                                 stages=stages)

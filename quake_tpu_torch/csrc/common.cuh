@@ -133,6 +133,39 @@ __device__ __forceinline__ float select_round(float (&m1)[4], float (&m2)[4]) {
   return b;
 }
 
+// The maximum over the lanes of `mask` of a packed value (an integer below
+// 2^24, or -1: exact as an int) in one warp reduction instruction, in place
+// of a shuffle chain.
+__device__ __forceinline__ float packed_max(unsigned mask, float v) {
+  return (float)__reduce_max_sync(mask, (int)v);
+}
+
+// k selection rounds over R rows a warp holds (4 columns a lane each, as in
+// select_round), the rows' reductions side by side. emit(r, i, best) runs on
+// every lane after round i of row r.
+template <int R, typename Emit>
+__device__ __forceinline__ void select_rounds(float (&m1)[R][4], float (&m2)[R][4], int k,
+                                              Emit emit) {
+  for (int i = 0; i < k; ++i) {
+    float b[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      b[r] = packed_max(0xffffffffu,
+                        fmaxf(fmaxf(m1[r][0], m1[r][1]), fmaxf(m1[r][2], m1[r][3])));
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (m1[r][j] == b[r]) {
+          m1[r][j] = m2[r][j];
+          m2[r][j] = -1.0f;
+        }
+      }
+      emit(r, i, b[r]);
+    }
+  }
+}
+
 // The [qt, D] query tile into shared memory as [qt][Dp], zero-padded.
 __device__ __forceinline__ void load_query_tile(float* qs, const float* src, int qt, int D,
                                                 int Dp) {
@@ -157,18 +190,20 @@ __device__ __forceinline__ void load_segment(float* seg, const float* src, int r
   }
 }
 
-// acc[r][j] = <q row (warp + 8 r), segment column (lane + 32 j)> for the
-// R rows and 4 columns this thread owns. q tile is [*, Dp] (Dp % 4 == 0,
-// zero-padded), segment is [128][Dp + 1].
+// acc[r][j] (+)= <q row (warp + 8 r), segment column (lane + 32 j)> for the
+// R rows and 4 columns this thread owns (zero: acc starts from 0). q tile is
+// [*, Dp] (Dp % 4 == 0, zero-padded), segment is [128][Dp + 1].
 template <int R>
 __device__ __forceinline__ void tile_dots(float (&acc)[R][4], const float* qs,
-                                          const float* seg, int Dp) {
+                                          const float* seg, int Dp, bool zero = true) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int ss = Dp + 1;
+  if (zero) {
 #pragma unroll
-  for (int r = 0; r < R; ++r)
+    for (int r = 0; r < R; ++r)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[r][j] = 0.0f;
+      for (int j = 0; j < 4; ++j) acc[r][j] = 0.0f;
+  }
   for (int d = 0; d < Dp; d += 4) {
     float sv[4][4];
 #pragma unroll
@@ -195,7 +230,7 @@ __device__ __forceinline__ void tile_dots(float (&acc)[R][4], const float* qs,
   }
 }
 
-inline int padded_dim(int D) { return (D + 3) & ~3; }
+inline __host__ __device__ int padded_dim(int D) { return (D + 3) & ~3; }
 
 // ---------------------------------------------------------------------------
 // The tile product on the tensor cores (kernels K1 and K4).
@@ -289,6 +324,18 @@ __device__ __forceinline__ void fence_async_proxy() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// One box of the tensor map `map` (its rows from row, 32 columns from col)
+// into dst by one bulk tensor copy, completing on bar; issued by the calling
+// thread, which has announced the bytes on bar.
+__device__ __forceinline__ void box_load_async(float* dst, const CUtensorMap* map, int col,
+                                               int row, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col), "r"(row)
+      : "memory");
+}
+
 // Rows [row, row + 128), columns from box box0 on, of the slabs (tensor map
 // cmap over [P C, D] f32) into the `boxes` boxes of the segment tile dst, one
 // bulk tensor copy a box, started by the block's first thread and completing
@@ -301,13 +348,7 @@ __device__ __forceinline__ void segment_load_async(float* dst, const CUtensorMap
                "r"((uint32_t)(boxes * kSegBox * sizeof(float)))
                : "memory");
   fence_async_proxy();
-  for (int b = 0; b < boxes; ++b)
-    asm volatile(
-        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst + b * kSegBox)),
-        "l"(reinterpret_cast<uint64_t>(cmap)), "r"(smem_addr(bar)), "r"((box0 + b) * kBox),
-        "r"(row)
-        : "memory");
+  for (int b = 0; b < boxes; ++b) box_load_async(dst + b * kSegBox, cmap, (box0 + b) * kBox, row, bar);
 }
 
 // The [qt, D] query tile (D % 4 == 0) into a [rows][*] operand tile; rows
@@ -453,11 +494,12 @@ __device__ __forceinline__ void mma_tile(float (&acc)[MT * NT][4], const float* 
 constexpr size_t kSmemLimit = 232448;
 
 // A tensor map over the slabs viewed as [rows, D] f32 (D % 4 == 0, codes on a
-// 16-byte boundary), in boxes of 128 rows x 32 columns with the 128-byte
-// swizzle; what lies outside the array reads as zero. The encoder
-// (cuTensorMapEncodeTiled) is looked up in libcuda at run time, so the
+// 16-byte boundary), in boxes of box_rows rows (128: a segment) x 32 columns
+// with the 128-byte swizzle; what lies outside the array reads as zero. The
+// encoder (cuTensorMapEncodeTiled) is looked up in libcuda at run time, so the
 // library need not be linked. Returns a cudaError_t.
-inline int slab_tensor_map(CUtensorMap* map, const void* codes, unsigned long long rows, int D) {
+inline int slab_tensor_map(CUtensorMap* map, const void* codes, unsigned long long rows, int D,
+                           int box_rows = kFold) {
   typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -471,7 +513,7 @@ inline int slab_tensor_map(CUtensorMap* map, const void* codes, unsigned long lo
   }
   const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)D * sizeof(float)};
-  const cuuint32_t box[2] = {(cuuint32_t)kBox, (cuuint32_t)kFold};
+  const cuuint32_t box[2] = {(cuuint32_t)kBox, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(codes),
                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,

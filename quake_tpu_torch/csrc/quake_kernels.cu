@@ -328,46 +328,104 @@ inline int grouped_scan_stage_boxes(int qt, int D) {
 
 inline bool grouped_scan_uses_mma(int qt, int D) { return grouped_scan_stage_boxes(qt, D) > 0; }
 
+// Whether a body of K1 serves (qt, D): the tensor-core body, or the CUDA-core
+// body's [qt][Dp] query tile beside a [128][Dp + 1] segment.
+inline bool grouped_scan_serves(int qt, int D) {
+  if (qt != 8 && qt != 16 && qt != 32 && qt != 64) return false;
+  if (grouped_scan_uses_mma(qt, D)) return true;
+  const int Dp = padded_dim(D);
+  return (size_t)(qt * Dp + kFold * (Dp + 1)) * sizeof(float) <= kSmemLimit;
+}
+
 // ---------------------------------------------------------------------------
 // K2: pool merge.
 //
 // Replaces quake_tpu/ops/pallas_grouped.py::_merge_positions_kernel (wrapper
-// _merge_positions_pallas, called from _pool_tail). keys [B, poolp] hold
-// integer quantized keys (-1 = empty); packed = key * lane_mult + lane,
-// fold-128 top-2, kfin rounds; out [B, kfin] = winning lane (pool position),
-// -1 for none.
+// _merge_positions_pallas, called from _pool_tail), with the key step of
+// _pool_tail before it. mp [B, pool] is the placed pool as the placement
+// leaves it: packed key * slot_mult + slot values, -1 = none. Per column c:
+// key = floor(m / slot_mult) (slot_mult a power of two: a multiplication by
+// its inverse is exact), packed = key * lane_mult + c with lane_mult the pool
+// padded to a 128 multiple, and the columns from pool to that width read as
+// -1; fold-128 top-2, kfin rounds; out [B, kfin] = winning column (pool
+// position), -1 for none.
 //
-// Bound on the H100: bytes (B poolp 4 read, B kfin 4 written; a handful of
-// compares per element).
+// Bound on the H100: bytes (B pool 4 read, B kfin 4 written; a few
+// operations per element) -- at the main path's shapes a few microseconds,
+// near the time of an empty launch.
 //
-// Design: one warp per query row, reading the row in coalesced 128-lane
-// segments; no shared memory.
+// What held the first design back: one warp a row, so each of the kfin rounds
+// was a dependent 5-step shuffle chain with nothing beside it, over scalar
+// loads of a pool padded and copied before the launch. Design: a row per 8
+// lanes (4 rows a warp), lane l owning the 16 fold columns l v + 8 v t + e
+// (v = the load width, t < 16 / v, e < v), so that the loads of a row are
+// contiguous and as wide as the pool's alignment allows (16 bytes where pool
+// % 4 == 0, 8 where it is even). A round is a local maximum over 16 registers
+// and a 3-step shuffle chain, and the four rows of a warp run their chains
+// side by side. With pool <= 128 a column holds at most one value, and the
+// second of the top-2 is left out. No shared memory.
 // ---------------------------------------------------------------------------
+constexpr int kMergeLanes = 8;                   // lanes a row
+constexpr int kMergeCols = kFold / kMergeLanes;  // fold columns a lane
+
+template <int VEC, bool TOP2>
 __global__ void __launch_bounds__(kThreads)
-merge_positions_kernel(const float* __restrict__ keys, int* __restrict__ out, int B,
-                       int poolp, int kfin, int lane_mult) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarps + warp;
-  if (b >= B) return;  // whole warp leaves together
-  const float* kr = keys + (size_t)b * poolp;
+merge_positions_kernel(const float* __restrict__ mp, int* __restrict__ out, int B, int pool,
+                       int kfin, int lane_mult, float inv_slot) {
+  const int sub = threadIdx.x & (kMergeLanes - 1);
+  const int b = (blockIdx.x * kThreads + threadIdx.x) / kMergeLanes;
+  const bool live = b < B;  // the warp stays whole for the shuffles
+  const float* row = mp + (size_t)(live ? b : 0) * pool;
   const float lm = (float)lane_mult;
-  float m1[4], m2[4];
+  auto col = [&](int j) { return sub * VEC + (j / VEC) * (kMergeLanes * VEC) + j % VEC; };
+  float m1[kMergeCols], m2[kMergeCols];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) m1[j] = m2[j] = -1.0f;
-  for (int s = 0; s < poolp; s += kFold) {
+  for (int j = 0; j < kMergeCols; ++j) m1[j] = m2[j] = -1.0f;
+  for (int s = 0; s < (TOP2 ? pool : 1); s += kFold) {
+    float v[kMergeCols];  // pool % VEC == 0: a group of VEC columns lies wholly below pool or not
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = s + lane + 32 * j;
-      const float kv = kr[c];
-      fold2(m1[j], m2[j], kv >= 0.0f ? kv * lm + (float)c : -1.0f);
+    for (int j = 0; j < kMergeCols; j += VEC) {
+      const float* at = row + s + col(j);
+      if (!live || s + col(j) >= pool) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) v[j + e] = -1.0f;
+      } else if constexpr (VEC == 4) {
+        const float4 t = __ldg(reinterpret_cast<const float4*>(at));
+        v[j] = t.x, v[j + 1] = t.y, v[j + 2] = t.z, v[j + 3] = t.w;
+      } else if constexpr (VEC == 2) {
+        const float2 t = __ldg(reinterpret_cast<const float2*>(at));
+        v[j] = t.x, v[j + 1] = t.y;
+      } else {
+        v[j] = __ldg(at);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kMergeCols; ++j) {
+      const float p = v[j] >= 0.0f ? floorf(v[j] * inv_slot) * lm + (float)(s + col(j)) : -1.0f;
+      if constexpr (TOP2) fold2(m1[j], m2[j], p);
+      else m1[j] = p;
     }
   }
   for (int i = 0; i < kfin; ++i) {
-    const float best = select_round(m1, m2);
-    if (lane == 0) {
-      const int v = (int)best;
-      out[(size_t)b * kfin + i] = best >= 0.0f ? v % lane_mult : -1;
+    float t[kMergeCols / 2];  // the lane's maximum as a tree, 4 steps deep
+#pragma unroll
+    for (int j = 0; j < kMergeCols / 2; ++j) t[j] = fmaxf(m1[j], m1[j + kMergeCols / 2]);
+#pragma unroll
+    for (int w = kMergeCols / 4; w > 0; w >>= 1)
+#pragma unroll
+      for (int j = 0; j < w; ++j) t[j] = fmaxf(t[j], t[j + w]);
+    float best = t[0];
+#pragma unroll
+    for (int o = kMergeLanes / 2; o > 0; o >>= 1)
+      best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, o));
+#pragma unroll
+    for (int j = 0; j < kMergeCols; ++j) {
+      const bool hit = m1[j] == best;
+      m1[j] = hit ? (TOP2 ? m2[j] : -1.0f) : m1[j];
+      if constexpr (TOP2) m2[j] = hit ? -1.0f : m2[j];
     }
+    if (live && sub == (i & (kMergeLanes - 1)))
+      out[(size_t)b * kfin + i] = best >= 0.0f ? (int)best % lane_mult : -1;
   }
 }
 
@@ -380,19 +438,53 @@ merge_positions_kernel(const float* __restrict__ keys, int* __restrict__ out, in
 // <q, x> + bias (ip); valid = score > -inf. Each row is range-quantized over
 // its valid lanes, key = floor((s - rowmin) * (levels / rng)) with
 // rng = max(rowmax - rowmin, 1e-20); packed = key * slot_mult + lane; fold
-// 128 top-2; k rounds; out [B, k] = winning slot, -1 for none.
+// 128 top-2; k rounds; out [B, k] = winning slot, -1 for none. This is kernel
+// K5's function over one "partition" that holds the whole buffer, with a bias
+// in place of -|x|^2 and validity read from the bias.
 //
-// Bound on the H100: f32 operations (2 B N D flops against (B + N) D 4
-// bytes; at the main path's N = 256 that is 2 N / 4 = 128 flops per byte of
-// queries).
+// Bound on the H100: tensor-core operations, 3 x 2 B N_valid D flops / 495
+// TFLOP/s (the split product below takes three TF32 products per f32 one); at
+// the main path's shape (B = 16384, N = 256 of which 160 valid, D = 128) that
+// is 0.004 ms against 0.0025 ms of bytes (each query read once).
 //
-// Design: one block per 32 queries (4 rows per warp), the query tile in
-// shared memory, the codes streamed through shared memory in 128-row
-// segments twice: pass 1 takes the row min/max, pass 2 recomputes the same
-// scores (bit-identical: same code, same order) and folds the packed keys.
+// What held the first design back: two passes of f32 products on the CUDA
+// cores out of shared memory (pass 1 only for the row's min and max), short
+// blocks of 32 queries that reloaded the buffer twice with synchronous loads
+// and waited at a barrier on every segment, 82 KB of shared memory a block,
+// and a whole-D query tile beside a [128][D + 1] segment, which ruled out
+// D > 362.
+//
+// flat_topk_mma_kernel, the main body (D % 4 == 0): persistent, one block per
+// SM, block b takes the 64-query tiles b, b + grid, .... A ring stage holds
+// NBS boxes (32 columns each) of a 128-row segment of the buffer and the same
+// boxes of the query tile, both brought by the Tensor Memory Accelerator from
+// tensor maps over the buffer [N, D] and the queries [B, D] (rows past B read
+// as zero); the next stage's copies start before the current one is
+// multiplied, and D streams through the ring in depth chunks of NBS boxes, so
+// no D is too wide. The product is mma_tile (common.cuh: 3xTF32 with the sums
+// rounded on the CUDA cores, as in K1 and K4). Where the tile's scores fit
+// beside the ring ([64][N + 8] floats: N up to 640), they stay in shared
+// memory: each segment is multiplied once, the row's min and max are taken
+// as the scores are produced, and the quantize, fold and rounds read them
+// from there. A larger buffer is multiplied twice, min and max in the first
+// pass and the selection in the second, by the same code in the same order,
+// so the scores are bit-identical. The fold and the k rounds run in the
+// rounds' layout (a warp owns whole rows) over a warp's 8 rows side by side.
+//
+// flat_topk_kernel, the CUDA-core body (D % 4 != 0: a row is not 16-byte
+// aligned for the copies): one block per 32 queries, f32 products from shared
+// memory in depth chunks of up to 128 columns (a [32][dc] query chunk and a
+// [128][dc + 1] segment chunk), two passes as above.
+//
+// Both bodies run a warp's k rounds over its rows side by side, each row's
+// maximum in one warp reduction instruction (select_rounds): taken one row
+// after the other, each round a dependent 5-step shuffle chain, the rounds
+// held up every tile.
 // ---------------------------------------------------------------------------
-constexpr int kFlatRows = 4;  // rows per warp
+constexpr int kFlatRows = 4;  // rows per warp of the CUDA-core body
 constexpr int kFlatQB = kWarps * kFlatRows;
+constexpr int kFlatDepth = 128;  // depth chunk of the CUDA-core body
+constexpr int kFlatQT = 64;      // query tile of the tensor-core body
 
 template <bool L2>
 __device__ __forceinline__ float flat_score(float dot, float bias) {
@@ -403,20 +495,32 @@ template <bool L2>
 __global__ void __launch_bounds__(kThreads)
 flat_topk_kernel(const float* __restrict__ q, const float* __restrict__ codes,
                  const float* __restrict__ bias, int* __restrict__ out, int B, int N,
-                 int D, int Dp, int k, int slot_mult, float levels) {
+                 int D, int k, int slot_mult, float levels) {
   constexpr int R = kFlatRows;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                  // [32][Dp]
-  float* seg = smem + kFlatQB * Dp;  // [128][Dp + 1]
+  const int dcp = padded_dim(D < kFlatDepth ? D : kFlatDepth);  // a chunk's padded depth
+  float* qs = smem;                 // [32][dcp]
+  float* seg = smem + kFlatQB * dcp;  // [128][dcp + 1]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b0 = blockIdx.x * kFlatQB;
-  for (int i = threadIdx.x; i < kFlatQB * Dp; i += kThreads) {
-    const int r = i / Dp;
-    const int d = i - r * Dp;
-    const int b = b0 + r;
-    qs[i] = (d < D && b < B) ? q[(size_t)b * D + d] : 0.0f;
-  }
   const int nseg = N / kFold;
+
+  // acc = the products of segment s, over D in chunks of dcp columns.
+  auto segment_dots = [&](float (&acc)[R][4], int s) {
+    for (int d0 = 0; d0 < D; d0 += dcp) {
+      __syncthreads();  // the previous chunk is consumed
+      for (int i = threadIdx.x; i < kFlatQB * dcp; i += kThreads) {
+        const int r = i / dcp, d = d0 + i - r * dcp, b = b0 + r;
+        qs[i] = (d < D && b < B) ? q[(size_t)b * D + d] : 0.0f;
+      }
+      for (int i = threadIdx.x; i < kFold * dcp; i += kThreads) {
+        const int c = i / dcp, d = d0 + i - c * dcp;
+        seg[c * (dcp + 1) + d - d0] = d < D ? codes[(size_t)(s * kFold + c) * D + d] : 0.0f;
+      }
+      __syncthreads();
+      tile_dots<R>(acc, qs, seg, dcp, d0 == 0);
+    }
+  };
 
   float mn[R], mx[R];
 #pragma unroll
@@ -425,11 +529,8 @@ flat_topk_kernel(const float* __restrict__ q, const float* __restrict__ codes,
     mx[r] = -INFINITY;
   }
   for (int s = 0; s < nseg; ++s) {  // pass 1: row min / max over valid lanes
-    __syncthreads();
-    load_segment(seg, codes, s * kFold, N, D, Dp);
-    __syncthreads();
     float acc[R][4];
-    tile_dots<R>(acc, qs, seg, Dp);
+    segment_dots(acc, s);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float bv = bias[s * kFold + lane + 32 * j];
@@ -458,11 +559,8 @@ flat_topk_kernel(const float* __restrict__ q, const float* __restrict__ codes,
     for (int j = 0; j < 4; ++j) m1[r][j] = m2[r][j] = -1.0f;
   const float sm = (float)slot_mult;
   for (int s = 0; s < nseg; ++s) {  // pass 2: quantize, pack, fold
-    __syncthreads();
-    load_segment(seg, codes, s * kFold, N, D, Dp);
-    __syncthreads();
     float acc[R][4];
-    tile_dots<R>(acc, qs, seg, Dp);
+    segment_dots(acc, s);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int ln = s * kFold + lane + 32 * j;
@@ -475,16 +573,234 @@ flat_topk_kernel(const float* __restrict__ q, const float* __restrict__ codes,
       }
     }
   }
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
+  select_rounds<R>(m1, m2, k, [&](int r, int i, float best) {
     const int b = b0 + warp + kWarps * r;
-    for (int i = 0; i < k; ++i) {
-      const float best = select_round(m1[r], m2[r]);
-      if (lane == 0 && b < B) {
-        const int v = (int)best;
-        out[(size_t)b * k + i] = best >= 0.0f ? v % slot_mult : -1;
+    if (lane == r && b < B) out[(size_t)b * k + i] = best >= 0.0f ? (int)best & (slot_mult - 1) : -1;
+  });
+}
+
+// Shared memory of K3's tensor-core body in bytes, with ring stages of NBS
+// boxes: room to reach a 1024-byte boundary, the ring (a stage: NBS boxes of
+// the segment and of the query tile), the score tile ([64][N + 8] with the
+// scores kept, else one segment's [64][136]), (rowmin, scale) per row, the
+// cross-warp min / max exchange, the two stage barriers.
+inline size_t flat_topk_mma_smem(int N, int NBS, bool resident) {
+  const int sw = resident ? N + 8 : kTileStride;
+  return 1024 + 16 +
+         (size_t)(2 * NBS * (kSegBox + kFlatQT * kBox) + kFlatQT * sw + 2 * kFlatQT +
+                  2 * kFlatQT * (kWarps / 2)) *
+             sizeof(float);
+}
+
+// The tensor-core body's configuration: NBS boxes a ring stage (D's boxes, or
+// the most of 4, 2 and 1 that fits) and whether the scores stay in shared
+// memory; preferred: scores kept, then the larger stage.
+struct FlatMmaShape {
+  int NBS;
+  bool resident;
+};
+inline FlatMmaShape flat_topk_mma_shape(int N, int D) {
+  for (int keep = 1; keep >= 0; --keep)
+    for (int nbs = 4; nbs >= 1; nbs >>= 1) {
+      const int NBS = nbs < tile_boxes(D) ? nbs : tile_boxes(D);
+      if (flat_topk_mma_smem(N, NBS, keep != 0) <= kSmemLimit) return {NBS, keep != 0};
+    }
+  return {0, false};
+}
+
+// Which body serves a shape (qk_flat_topk_body names them): 2 the tensor
+// cores with the scores kept, 1 the tensor cores in two passes, 0 the CUDA
+// cores (D % 4 != 0).
+inline int flat_topk_body(int N, int D) {
+  if (D % 4 != 0) return 0;
+  const FlatMmaShape sh = flat_topk_mma_shape(N, D);
+  return sh.NBS == 0 ? 0 : (sh.resident ? 2 : 1);
+}
+
+template <bool L2>
+__global__ void __launch_bounds__(kThreads, 1)
+flat_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap,
+                     const __grid_constant__ CUtensorMap qmap, const float* __restrict__ bias,
+                     int* __restrict__ out, int B, int N, int D, int NB, int NBS, int resident,
+                     int k, int slot_mult, float levels) {
+  constexpr int QT = kFlatQT;
+  constexpr int MT = 2, MW = 2;        // m16-tiles per warp, warps along the query rows
+  constexpr int NW = kWarps / MW;      // warps along the segment
+  constexpr int NT = 16 / NW;          // n8-tiles per warp
+  constexpr int T = MT * NT;           // accumulator tiles per warp
+  constexpr int R = QT / kWarps;       // rows per warp in the selection
+  extern __shared__ __align__(16) float smem[];
+  const int stage_floats = NBS * (kSegBox + QT * kBox);
+  const int sw = resident ? N + 8 : kTileStride;
+  float* ring = smem_aligned(smem);      // 2 stages: NBS segment boxes, then NBS query boxes
+  float* sc = ring + 2 * stage_floats;   // scores [QT][sw]
+  float* rowp = sc + QT * sw;            // [QT][2] = (rowmin, levels / rng)
+  float* red = rowp + 2 * QT;            // [QT][NW][2] = (min, max) per warp
+  uint64_t* bars = reinterpret_cast<uint64_t*>(red + 2 * QT * NW);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const int wn = warp % NW;
+  const int row0 = (warp / NW) * (16 * MT), col0 = wn * (8 * NT);
+  const int ksteps = (D + 7) >> 3;
+  const int ND = (NB + NBS - 1) / NBS;  // depth chunks a segment
+  const int nseg = N / kFold;
+  const int visits = resident ? nseg : 2 * nseg;  // segment visits a tile
+  const int ntiles = (B + QT - 1) / QT;
+  const float sm = (float)slot_mult;
+
+  // The producer walks one stage (a depth chunk of a segment visit) ahead of
+  // the consumer, across visits and tiles.
+  mbar_init(bars);
+  int pt = blockIdx.x, pv = 0, pd = 0;
+  auto prefetch = [&](int stage) {
+    if (pt >= ntiles) return;
+    if (threadIdx.x == 0) {
+      float* st = ring + stage * stage_floats;
+      const int boxes = min(NBS, NB - pd * NBS);
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                       smem_addr(bars + stage)),
+                   "r"((uint32_t)(boxes * (kSegBox + QT * kBox) * sizeof(float)))
+                   : "memory");
+      fence_async_proxy();
+      for (int b = 0; b < boxes; ++b) {
+        const int c = (pd * NBS + b) * kBox;
+        box_load_async(st + b * kSegBox, &cmap, c, (pv % nseg) * kFold, bars + stage);
+        box_load_async(st + NBS * kSegBox + b * QT * kBox, &qmap, c, pt * QT, bars + stage);
       }
     }
+    if (++pd < ND) return;
+    pd = 0;
+    if (++pv < visits) return;
+    pv = 0;
+    pt += gridDim.x;
+  };
+  int ct = blockIdx.x, cv = 0, cd = 0, stage = 0;
+  uint32_t parity = 0;  // bit s: the parity of stage s's next completed phase
+  prefetch(0);
+
+  float mn[2 * MT], mx[2 * MT];  // rows row0 + 16 i + g4 + 8 h at [2 i + h]
+  float acc[T][4];               // tile (i, j) at i NT + j
+  float f1[R][4], f2[R][4];      // fold state of rows warp + 8 r, columns lane + 32 j
+
+  // Folds segment s of each of this warp's rows, read from src (the
+  // segment's first column of row 0 of a tile of stride sw).
+  auto fold_segment = [&](const float* src, int s) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = warp + kWarps * r;
+      const float rmin = rowp[2 * row], scale = rowp[2 * row + 1];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float v = src[row * sw + lane + 32 * j];
+        const float key = floorf((v - rmin) * scale);
+        fold2(f1[r][j], f2[r][j], v > -INFINITY ? key * sm + (float)(s * kFold + lane + 32 * j)
+                                                : -1.0f);
+      }
+    }
+  };
+
+  while (ct < ntiles) {
+    float* st = ring + stage * stage_floats;
+    prefetch(stage ^ 1);
+    if (cv == 0 && cd == 0) {
+#pragma unroll
+      for (int m = 0; m < 2 * MT; ++m) {
+        mn[m] = INFINITY;
+        mx[m] = -INFINITY;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) f1[r][j] = f2[r][j] = -1.0f;
+    }
+    const int s = cv % nseg;
+    // This thread's biases, asked for before the product so that they arrive
+    // under it (N % 128 == 0 and even columns: 8-byte aligned).
+    const int lnb = s * kFold + col0 + 2 * t4;
+    float2 bv[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) bv[j] = __ldg(reinterpret_cast<const float2*>(bias + lnb + 8 * j));
+    mbar_wait(bars + stage, (parity >> stage) & 1u);  // the stage has landed
+    parity ^= 1u << stage;
+    mma_tile<MT, NT>(acc, st + NBS * kSegBox, st, row0, col0, QT,
+                     min(4 * NBS, ksteps - 4 * NBS * cd), cd == 0);
+    __syncthreads();  // the stage is consumed: its buffer may be refilled
+    stage ^= 1;
+    if (++cd < ND) continue;  // the segment's next depth chunk adds to acc
+    cd = 0;
+#pragma unroll
+    for (int ti = 0; ti < T; ++ti)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 b = bv[ti % NT];
+        acc[ti][e] = flat_score<L2>(acc[ti][e], (e & 1) ? b.y : b.x);
+      }
+    // The scores into the tile: all segments (kept) in pass 1, one at a time
+    // in pass 2 (two passes).
+    if (resident ? cv < nseg : cv >= nseg) {
+      float* dst = sc + (resident ? s * kFold : 0) + col0 + 2 * t4;
+#pragma unroll
+      for (int ti = 0; ti < T; ++ti)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + 16 * (ti / NT) + g4 + 8 * h;
+          *reinterpret_cast<float2*>(dst + row * sw + 8 * (ti % NT)) =
+              make_float2(acc[ti][2 * h], acc[ti][2 * h + 1]);
+        }
+    }
+    if (cv < nseg) {  // pass 1: each row's min and max over its valid lanes
+#pragma unroll
+      for (int ti = 0; ti < T; ++ti)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (acc[ti][e] > -INFINITY) {
+            const int m = 2 * (ti / NT) + (e >> 1);
+            mn[m] = fminf(mn[m], acc[ti][e]);
+            mx[m] = fmaxf(mx[m], acc[ti][e]);
+          }
+      if (cv == nseg - 1) {  // the ranges are complete
+#pragma unroll
+        for (int m = 0; m < 2 * MT; ++m) {
+#pragma unroll
+          for (int o = 1; o <= 2; o <<= 1) {
+            mn[m] = fminf(mn[m], __shfl_xor_sync(0xffffffffu, mn[m], o));
+            mx[m] = fmaxf(mx[m], __shfl_xor_sync(0xffffffffu, mx[m], o));
+          }
+          if (t4 == 0) {
+            const int row = row0 + 16 * (m / 2) + g4 + 8 * (m % 2);
+            red[(row * NW + wn) * 2] = mn[m];
+            red[(row * NW + wn) * 2 + 1] = mx[m];
+          }
+        }
+        __syncthreads();
+        if (threadIdx.x < QT) {
+          const int row = threadIdx.x;
+          float rmin = INFINITY, rmax = -INFINITY;
+#pragma unroll
+          for (int w = 0; w < NW; ++w) {
+            rmin = fminf(rmin, red[(row * NW + w) * 2]);
+            rmax = fmaxf(rmax, red[(row * NW + w) * 2 + 1]);
+          }
+          rowp[2 * row] = rmin;
+          rowp[2 * row + 1] = levels / fmaxf(rmax - rmin, 1e-20f);
+        }
+        __syncthreads();  // rowp, and the kept scores, are in place
+        if (resident)
+          for (int s2 = 0; s2 < nseg; ++s2) fold_segment(sc + s2 * kFold, s2);
+      }
+    } else {  // pass 2: fold the segment's scores
+      __syncthreads();
+      fold_segment(sc, s);
+    }
+    if (++cv < visits) continue;
+
+    // The tile's end: k rounds over the warp's rows, side by side.
+    select_rounds<R>(f1, f2, k, [&](int r, int i, float best) {
+      const int b = ct * QT + warp + kWarps * r;
+      if (lane == r && b < B) out[(size_t)b * k + i] = best >= 0.0f ? (int)best & (slot_mult - 1) : -1;
+    });
+    ct += gridDim.x;
+    cv = 0;
   }
 }
 
@@ -518,9 +834,22 @@ int launch_grouped_scan_mma(const void* gp, const void* gsize, const void* qg, c
   return (int)cudaGetLastError();
 }
 
+#ifdef QK_PRODUCT_ONLY
+// A timing aid of the same build: a kernel that does nothing, launched on a
+// grid of `grid` blocks of kThreads, the floor under any launch of that shape.
+__global__ void empty_kernel() {}
+#endif
+
 }  // namespace
 
 extern "C" {
+
+#ifdef QK_PRODUCT_ONLY
+int qk_empty(int grid, void* stream) {
+  empty_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+#endif
 
 const char* qk_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
@@ -528,11 +857,15 @@ const char* qk_error_string(int code) { return cudaGetErrorString((cudaError_t)c
 // CUDA-core body.
 int qk_grouped_scan_uses_mma(int qt, int D) { return grouped_scan_uses_mma(qt, D) ? 1 : 0; }
 
+// 1 when a body of K1 serves the shape, 0 when none does.
+int qk_grouped_scan_serves(int qt, int D) { return grouped_scan_serves(qt, D) ? 1 : 0; }
+
 int qk_grouped_scan(const void* gp, const void* gsize, const void* qg, const void* codes,
                     const void* normsT, void* out, int Gn, int qt, int D, int P, int C, int kk,
                     float slot_mult, float levels, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (Gn <= 0) return (int)cudaGetLastError();
+  if (!grouped_scan_serves(qt, D)) return (int)cudaErrorInvalidValue;
   if (grouped_scan_uses_mma(qt, D))
     return launch_grouped_scan_mma(gp, gsize, qg, codes, normsT, out, Gn, qt, D, P, C, kk,
                                    slot_mult, levels, st);
@@ -559,34 +892,72 @@ int qk_grouped_scan(const void* gp, const void* gsize, const void* qg, const voi
   return (int)cudaGetLastError();
 }
 
-int qk_merge_positions(const void* keys, void* out, int B, int poolp, int kfin,
-                       int lane_mult, void* stream) {
-  if (B <= 0) return (int)cudaGetLastError();
-  const int grid = (B + kWarps - 1) / kWarps;
-  merge_positions_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)keys, (int*)out, B, poolp, kfin, lane_mult);
+int qk_merge_positions(const void* mp, void* out, int B, int pool, int kfin, int lane_mult,
+                       float inv_slot, void* stream) {
+  if (B <= 0 || kfin <= 0) return (int)cudaGetLastError();
+  const int rows = kThreads / kMergeLanes;
+  const int grid = (B + rows - 1) / rows;
+  cudaStream_t st = (cudaStream_t)stream;
+  const uintptr_t at = (uintptr_t)mp;
+  const int vec = (pool % 4 == 0 && at % 16 == 0) ? 4 : (pool % 2 == 0 && at % 8 == 0) ? 2 : 1;
+#define QK_MERGE(V, TOP2)                                                                   \
+  merge_positions_kernel<V, TOP2><<<grid, kThreads, 0, st>>>((const float*)mp, (int*)out, B, \
+                                                             pool, kfin, lane_mult, inv_slot)
+  if (pool > kFold) {
+    if (vec == 4) QK_MERGE(4, true);
+    else if (vec == 2) QK_MERGE(2, true);
+    else QK_MERGE(1, true);
+  } else {
+    if (vec == 4) QK_MERGE(4, false);
+    else if (vec == 2) QK_MERGE(2, false);
+    else QK_MERGE(1, false);
+  }
+#undef QK_MERGE
   return (int)cudaGetLastError();
 }
+
+int qk_flat_topk_body(int N, int D) { return flat_topk_body(N, D); }
 
 int qk_flat_topk(const void* q, const void* codes, const void* bias, void* out, int B,
                  int N, int D, int k, int is_l2, int slot_mult, float levels, void* stream) {
   if (B <= 0) return (int)cudaGetLastError();
-  const int Dp = padded_dim(D);
-  const size_t smem = (size_t)(kFlatQB * Dp + kFold * (Dp + 1)) * sizeof(float);
-  const int grid = (B + kFlatQB - 1) / kFlatQB;
   cudaStream_t st = (cudaStream_t)stream;
+  if (flat_topk_body(N, D) > 0) {
+    const FlatMmaShape sh = flat_topk_mma_shape(N, D);
+    const size_t smem = flat_topk_mma_smem(N, sh.NBS, sh.resident);
+    const int ntiles = (B + kFlatQT - 1) / kFlatQT;
+    const int grid = ntiles < sm_count() ? ntiles : sm_count();
+    CUtensorMap cmap, qmap;
+    int me = slab_tensor_map(&cmap, codes, (unsigned long long)N, D);
+    if (me == 0) me = slab_tensor_map(&qmap, q, (unsigned long long)B, D, kFlatQT);
+    if (me != 0) return me;
+#define QK_FLAT_MMA(L2)                                                                      \
+  {                                                                                          \
+    cudaError_t e = allow_smem(flat_topk_mma_kernel<L2>, smem);                              \
+    if (e != cudaSuccess) return (int)e;                                                     \
+    flat_topk_mma_kernel<L2><<<grid, kThreads, smem, st>>>(                                  \
+        cmap, qmap, (const float*)bias, (int*)out, B, N, D, tile_boxes(D), sh.NBS,           \
+        sh.resident ? 1 : 0, k, slot_mult, levels);                                          \
+  }
+    if (is_l2) QK_FLAT_MMA(true) else QK_FLAT_MMA(false)
+#undef QK_FLAT_MMA
+    return (int)cudaGetLastError();
+  }
+  const int dcp = padded_dim(D < kFlatDepth ? D : kFlatDepth);
+  const size_t smem = (size_t)(kFlatQB * dcp + kFold * (dcp + 1)) * sizeof(float);
+  const int grid = (B + kFlatQB - 1) / kFlatQB;
   cudaError_t e;
   if (is_l2) {
     e = allow_smem(flat_topk_kernel<true>, smem);
     if (e != cudaSuccess) return (int)e;
     flat_topk_kernel<true><<<grid, kThreads, smem, st>>>(
-        (const float*)q, (const float*)codes, (const float*)bias, (int*)out, B, N, D, Dp, k,
+        (const float*)q, (const float*)codes, (const float*)bias, (int*)out, B, N, D, k,
         slot_mult, levels);
   } else {
     e = allow_smem(flat_topk_kernel<false>, smem);
     if (e != cudaSuccess) return (int)e;
     flat_topk_kernel<false><<<grid, kThreads, smem, st>>>(
-        (const float*)q, (const float*)codes, (const float*)bias, (int*)out, B, N, D, Dp, k,
+        (const float*)q, (const float*)codes, (const float*)bias, (int*)out, B, N, D, k,
         slot_mult, levels);
   }
   return (int)cudaGetLastError();

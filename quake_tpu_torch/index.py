@@ -25,6 +25,7 @@ from quake_tpu_torch import coordinator
 from quake_tpu_torch.geometry import effective_dimension
 from quake_tpu_torch.kmeans import balance_clusters, kmeans_fit_assign
 from quake_tpu_torch.ops.grouped import grouped_scan_xla
+from quake_tpu_torch.ops.grouped_scan import QTS, grouped_scan_serves
 from quake_tpu_torch.ops.scan import scores_to_distances
 from quake_tpu_torch.params import IndexBuildParams, SearchParams, check_metric
 from quake_tpu_torch.storage.store import PartitionStore
@@ -263,7 +264,17 @@ class QuakeIndex:
         # Parent search for candidate partitions (query_coordinator.cpp:628-646).
         parent_k = min(int(sp.nprobe), self.nlist())
         parent_k_padded = min(next_pow2(parent_k, self._nprobe_bucket), self.parent.ntotal())
-        parent_sp = SearchParams(k=parent_k_padded, batched_scan=True, nprobe=sp.nprobe)
+        # The caller's search parameters reach the parent as in the JAX
+        # package (query_coordinator.cpp:628-634), a positive recall target
+        # raised to min(0.99, sqrt(target)): ranking errors compound down the
+        # levels. Nothing reads them while the parent is flat.
+        parent_target = (min(0.99, float(sp.recall_target) ** 0.5) if sp.recall_target > 0
+                         else sp.recall_target)
+        parent_sp = SearchParams(k=parent_k_padded, batched_scan=True, nprobe=sp.nprobe,
+                                 recall_target=parent_target,
+                                 use_precomputed=sp.use_precomputed,
+                                 recompute_threshold=sp.recompute_threshold,
+                                 initial_search_fraction=sp.initial_search_fraction)
         t1 = _now_ns()
         _, p_ids32, p_timing = self.parent._search_device(q, parent_sp, approx_flat=True)
         p_timing.total_time_ns = _now_ns() - t1  # enqueue; the device runs on
@@ -282,20 +293,35 @@ class QuakeIndex:
     def _grouped_kernel(self) -> str:
         """Grouped-scan choice, read at each search. QUAKE_TPU_KERNEL names a
         scan for A/B runs, as in the JAX package ("v3p", "v3p4", "v7g4",
-        "v8", "v9g2", "v11g4f256", "v3", "v2", "v4c128g8", "v5", "v6c128",
-        "xla", ...; see coordinator.grouped_scan).
+        "v8", "v9g2", "v10g4", "v11g4f256", "v3", "v2", "v4c128g8", "v5",
+        "v6c128", "xla", ...; see coordinator.grouped_scan).
         Without it: the v11 grouped scan with the JAX package's
         groups-per-step rule. gpb only pads the group count to a multiple
         (it sets the sort-key bit budget and so the placement); kernel K1
         runs one block per group whatever it is. Where the JAX package's
         rule gives up on its Pallas kernels (a slab too large for its fast
-        memory), K1 still runs, at gpb = 1."""
+        memory), K1 still runs, at gpb = 1. On a CUDA index whose D no body
+        of K1 serves at any query-tile height (D % 4 != 0 and too wide for
+        the CUDA-core body's shared memory, see _k1_qt), the "xla" scan
+        runs instead, as the JAX package falls back to it where the slab
+        outgrows its fast memory. A CPU index runs v11 (the plain versions
+        have no such limit) where the JAX package runs "xla" off the TPU."""
         override = os.environ.get("QUAKE_TPU_KERNEL")
         if override:
             return override
+        if self.device.type == "cuda" and self._k1_qt(64) is None:
+            return "xla"
         slab = self.store.C * self.d() * 4
         gpb = max(1, min(4, (12 << 20) // max(2 * slab, 1)))
         return f"v11g{gpb}"
+
+    def _k1_qt(self, qt: int):
+        """The largest query-tile height of 64, 32, 16 and 8, at most qt, at
+        which a body of kernel K1 serves this index's D, asked of the built
+        library (ops/grouped_scan.grouped_scan_serves); None where none
+        does. A kernel row's selection reads only its own query and its
+        partition, so qt changes no result."""
+        return next((t for t in QTS if t <= qt and grouped_scan_serves(t, self.d())), None)
 
     def _parent_kernel(self) -> str:
         """Parent ranking of the fused fixed-nprobe path, read at each search:
@@ -311,9 +337,13 @@ class QuakeIndex:
     def _grouped_params(self, B: int, parent_k: int):
         """(qt, group_chunk), by the JAX package's rules. The query-tile
         height qt tracks the expected queries per partition, a power of two
-        in [8, 64]; group_chunk, the groups the "xla" scan gathers at a time,
+        in [8, 64]; on a CUDA index it then drops to the largest height at
+        which kernel K1 serves D (_k1_qt; D = 768 runs at qt = 32), where
+        one does. group_chunk, the groups the "xla" scan gathers at a time,
         keeps a chunk's slabs near 128 MB, within [8, 128]."""
         qt = min(64, max(8, next_pow2(B * parent_k // max(self.nlist(), 1) or 1)))
+        if self.device.type == "cuda":
+            qt = self._k1_qt(qt) or qt
         slab_bytes = max(self.store.C * self.d() * 4, 1)
         return qt, max(8, min(128, (1 << 27) // slab_bytes))
 

@@ -7,9 +7,13 @@ its parent index with the same list-scanning kernels it uses for partitions
 (descending, lane tie-break), which is what candidate ranking needs: the
 consumer treats the result as a ranked probe list, not as distances.
 
-`flat_topk` launches kernel K3 (csrc/quake_kernels.cu, flat_topk_kernel) on
-CUDA tensors and runs its plain PyTorch version, `flat_topk_plain`, on CPU
-tensors.
+`flat_topk` launches kernel K3 (csrc/quake_kernels.cu) on CUDA tensors and
+runs its plain PyTorch version, `flat_topk_plain`, on CPU tensors. K3's
+launcher picks its body by shape (`flat_topk_body`): the tensor-core body
+(split TF32 product, TMA loads, persistent blocks) where D % 4 == 0, with the
+scores kept in shared memory where they fit and two passes where they do not;
+the CUDA-core body (f32) otherwise. Every D is served: both stream the depth
+in chunks.
 """
 
 from __future__ import annotations
@@ -17,10 +21,19 @@ from __future__ import annotations
 import torch
 
 from quake_tpu_torch import _ext
-from quake_tpu_torch.ops.grouped_scan import SMEM_LIMIT, fold_rounds
+from quake_tpu_torch.ops.grouped_scan import fold_rounds
 
 NEG_INF = float("-inf")
 MAX_N = 16384  # keeps >= 1022 quantization levels in the packed key
+CUDA_CORE_BODY, TWO_PASS_BODY, KEPT_BODY = 0, 1, 2  # flat_topk_body's answers
+
+
+def flat_topk_body(N: int, D: int) -> int:
+    """The body kernel K3's launcher runs at this shape, asked of the built
+    library: KEPT_BODY (tensor cores, the scores of a 64-query tile kept in
+    shared memory: N up to 640), TWO_PASS_BODY (tensor cores, the product
+    taken twice) where D % 4 == 0, CUDA_CORE_BODY otherwise."""
+    return int(_ext.lib().qk_flat_topk_body(N, D))
 
 
 def select_v7(scores, valid, k: int, slot_mult: int, levels: int,
@@ -82,9 +95,9 @@ def flat_topk(codes2d, bias, q, k: int, metric: str, fold: int = 128):
                 or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(f"flat_topk: {name} must be a contiguous f32 {shape} "
                              f"tensor on {q.device}")
-    Dp = -(-D // 4) * 4
-    if (32 * Dp + 128 * (Dp + 1)) * 4 > SMEM_LIMIT:
-        raise ValueError(f"flat_topk: D={D} needs more shared memory than a block has")
+    if D % 4 == 0 and (q.data_ptr() % 16 or codes2d.data_ptr() % 16 or bias.data_ptr() % 8):
+        raise ValueError("flat_topk: q and codes2d must start on a 16-byte boundary, bias "
+                         "on an 8-byte one")
     slot_mult, levels = _packed_params(N)
     out = torch.empty((B, k), device=q.device, dtype=torch.int32)
     rc = _ext.lib().qk_flat_topk(

@@ -10,9 +10,12 @@ One call, `grouped_scan_v11`, turns probe lists into the per-query top-k:
              key*slot_mult + lane values, fold-128 top-2, kk rounds
   placement  one sort (sorted) or argsort (argsort) lands each query's
              nprobe kernel rows contiguously
-  merge      kernel K2 (`merge_positions`): per-query pool merge to kfin
-             winner positions
+  merge      kernel K2 (`merge_positions`): per-query pool merge of the
+             placed rows to kfin winner positions
   rescore    exact f32 distances of the winners, final top-k
+
+`grouped_scan_v10` is the same scan with the v10 scatter placement, which
+also serves pid matrices that hold -1 (fixed-nprobe semantics not promised).
 
 K1 and K2 are CUDA kernels (csrc/quake_kernels.cu); each wrapper runs its
 plain PyTorch version on CPU tensors and launches the kernel on CUDA tensors.
@@ -34,6 +37,7 @@ from quake_tpu_torch.profiling import mark_stage
 
 FOLD = 128
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+QTS = (64, 32, 16, 8)  # query-tile heights kernel K1 is built for
 
 
 def grouped_scan_uses_mma(qt: int, D: int) -> bool:
@@ -43,6 +47,15 @@ def grouped_scan_uses_mma(qt: int, D: int) -> bool:
     and a whole-D query tile that fits a block's shared memory beside the
     ring (D up to 608 at qt = 64, 1408 at qt = 32). Otherwise it runs the CUDA-core body."""
     return bool(_ext.lib().qk_grouped_scan_uses_mma(qt, D))
+
+
+def grouped_scan_serves(qt: int, D: int) -> bool:
+    """Whether one of kernel K1's bodies serves (qt, D), asked of the built
+    library (csrc/quake_kernels.cu::grouped_scan_serves): the tensor-core
+    body, or the CUDA-core body whose [qt, D] query tile and 128-row segment
+    fit a block's shared memory (D up to 300 at qt = 64, about 425 at qt = 8
+    where D % 4 != 0)."""
+    return bool(_ext.lib().qk_grouped_scan_serves(qt, D))
 
 
 def fold_rounds(packed, k: int, fold: int = FOLD):
@@ -146,11 +159,10 @@ def grouped_scan_kernel(gp, group_size, qg, codes, normsT, kk: int,
         raise ValueError(f"grouped_scan_kernel: unsupported device {qg.device}")
     if qt not in (8, 16, 32, 64):
         raise ValueError(f"grouped_scan_kernel: qt must be 8, 16, 32 or 64 (qt={qt})")
-    Dp = -(-D // 4) * 4
-    mma = grouped_scan_uses_mma(qt, D)
-    if not mma and (qt * Dp + FOLD * (Dp + 1)) * 4 > SMEM_LIMIT:
+    if not grouped_scan_serves(qt, D):
         raise ValueError(f"grouped_scan_kernel: D={D} at qt={qt} needs more shared "
                          "memory than a block has")
+    mma = grouped_scan_uses_mma(qt, D)
     for name, t, dtype, shape in (
             ("gp", gp, torch.int32, (Gn,)),
             ("group_size", group_size, torch.int32, (Gn,)),
@@ -177,37 +189,61 @@ def grouped_scan_kernel(gp, group_size, qg, codes, normsT, kk: int,
 # ---------------------------------------------------------------- kernel K2
 
 
-def merge_positions_plain(keys, kfin: int, lane_mult: int, fold: int = FOLD):
+def pool_lane_mult(pool: int) -> int:
+    """lane_mult of the pool merge's packed key*lane_mult + lane: the pool
+    width padded to a multiple of 128 (at least 2)."""
+    return max(-(-pool // FOLD) * FOLD, 2)
+
+
+def pool_keys(m_packed, slot_mult: int):
+    """Integer keys [B, pool] f32 of the placed pool values: floor(m /
+    slot_mult), -1 where m is -1 (no candidate)."""
+    return torch.where(m_packed >= 0.0, torch.floor(m_packed / float(slot_mult)),
+                       torch.full_like(m_packed, -1.0))
+
+
+def merge_positions_plain(m_packed, kfin: int, slot_mult: int, fold: int = FOLD):
     """Plain PyTorch version of kernel K2 (same inputs and outputs as
     merge_positions)."""
-    lane = torch.arange(keys.shape[1], device=keys.device, dtype=torch.float32)
+    B, pool = m_packed.shape
+    lane_mult = pool_lane_mult(pool)
+    keys = pool_keys(m_packed, slot_mult)
+    lane = torch.arange(pool, device=m_packed.device, dtype=torch.float32)
     packed = torch.where(keys >= 0.0, keys * float(lane_mult) + lane[None, :],
                          torch.full_like(keys, -1.0))
+    poolp = -(-pool // fold) * fold
+    packed = torch.nn.functional.pad(packed, (0, poolp - pool), value=-1.0)
     out = fold_rounds(packed, kfin, fold)
     pos = torch.remainder(out, float(lane_mult)).to(torch.int32)
     return torch.where(out >= 0.0, pos, torch.full_like(pos, -1))
 
 
-def merge_positions(keys, kfin: int, lane_mult: int, fold: int = FOLD):
-    """Kernel K2 (replaces pallas_grouped.py::_merge_positions_kernel).
+def merge_positions(m_packed, kfin: int, slot_mult: int, fold: int = FOLD):
+    """Kernel K2 (replaces pallas_grouped.py::_merge_positions_kernel, with
+    the key step of _pool_tail before it).
 
-    keys [B, poolp] f32 integer keys (-1 = empty), poolp % 128 == 0. Packs
-    key*lane_mult + lane, folds to 128 columns (top-2 each) and runs kfin
-    rounds. Returns winner positions [B, kfin] int32 (-1 = none)."""
-    B, poolp = keys.shape
-    if fold != FOLD or poolp % fold:
-        raise ValueError(f"merge_positions needs fold == 128 and poolp % 128 == 0 "
-                         f"(poolp={poolp})")
-    if keys.device.type == "cpu":
-        return merge_positions_plain(keys, kfin, lane_mult, fold)
-    if keys.device.type != "cuda":
-        raise ValueError(f"merge_positions: unsupported device {keys.device}")
-    if keys.dtype != torch.float32 or not keys.is_contiguous():
-        raise ValueError("merge_positions: keys must be a contiguous f32 tensor")
-    out = torch.empty((B, kfin), device=keys.device, dtype=torch.int32)
-    rc = _ext.lib().qk_merge_positions(keys.data_ptr(), out.data_ptr(), B, poolp,
-                                       kfin, int(lane_mult),
-                                       _ext.stream_ptr(keys.device))
+    m_packed [B, pool] f32: the placed pool of packed key*slot_mult + slot
+    values (-1 = none), as the placement leaves it; slot_mult a power of
+    two. The key floor(m / slot_mult) is packed as key*lane_mult + lane
+    (lane_mult = pool_lane_mult(pool), the pool padded to a 128 multiple,
+    whose padding reads as -1), folded to 128 columns (top-2 each) and
+    selected in kfin rounds. Returns winner positions [B, kfin] int32
+    (-1 = none)."""
+    B, pool = m_packed.shape
+    if fold != FOLD:
+        raise ValueError(f"merge_positions needs fold == 128 (fold={fold})")
+    if m_packed.device.type == "cpu":
+        return merge_positions_plain(m_packed, kfin, slot_mult, fold)
+    if m_packed.device.type != "cuda":
+        raise ValueError(f"merge_positions: unsupported device {m_packed.device}")
+    if m_packed.dtype != torch.float32 or not m_packed.is_contiguous():
+        raise ValueError("merge_positions: m_packed must be a contiguous f32 tensor")
+    if slot_mult < 1 or slot_mult & (slot_mult - 1):
+        raise ValueError(f"merge_positions: slot_mult must be a power of two ({slot_mult})")
+    out = torch.empty((B, kfin), device=m_packed.device, dtype=torch.int32)
+    rc = _ext.lib().qk_merge_positions(m_packed.data_ptr(), out.data_ptr(), B, pool, kfin,
+                                       pool_lane_mult(pool), 1.0 / slot_mult,
+                                       _ext.stream_ptr(m_packed.device))
     _ext.check(rc, "merge_positions")
     _ext.launches["merge_positions"] += 1
     return out
@@ -267,17 +303,6 @@ def rescore_topk(m_scores, m_refs, codes, ids, norms, q, k: int, kk: int,
                          min(k, idx.shape[1]), metric, pids)
 
 
-def pool_keys(m_packed, slot_mult: int):
-    """Per-query merge pool of integer keys, padded to a 128 multiple:
-    returns (mk [B, poolp] f32, lane_mult)."""
-    pool = m_packed.shape[1]
-    m_keys = torch.where(m_packed >= 0.0, torch.floor(m_packed / float(slot_mult)),
-                         torch.full_like(m_packed, -1.0))
-    poolp = -(-pool // FOLD) * FOLD
-    mk = torch.nn.functional.pad(m_keys, (0, poolp - pool), value=-1.0)
-    return mk.contiguous(), max(poolp, 2)
-
-
 def pool_tail(m_packed, pid_cols, pids, codes, ids, norms, q, k: int, kk: int,
               metric: str, slot_mult: int, levels: int, pool_factor: int = 1,
               stages=None, general: bool = False):
@@ -289,7 +314,7 @@ def pool_tail(m_packed, pid_cols, pids, codes, ids, norms, q, k: int, kk: int,
     for the scanned count. general forces the top-k merge instead of K2."""
     B, nprobe = pids.shape
     pool = nprobe * kk
-    mk, lane_mult = pool_keys(m_packed, slot_mult)
+    lane_mult = pool_lane_mult(pool)
     if general or levels * lane_mult + lane_mult >= (1 << 24):
         # General path: key*lane_mult + lane no longer fits 24 bits (or the
         # caller asks for it), so the pool is ranked by a top-k of the keys
@@ -299,14 +324,15 @@ def pool_tail(m_packed, pid_cols, pids, codes, ids, norms, q, k: int, kk: int,
         ok = (m_packed >= 0.0) & (pid_b >= 0)
         m_refs = torch.where(ok, (torch.clamp(pid_b, min=0) << 16) | slot,
                              torch.full_like(slot, -1))
-        m_scores = torch.where(ok, mk[:, :pool], torch.full_like(m_packed, NEG_INF))
+        m_scores = torch.where(ok, pool_keys(m_packed, slot_mult),
+                               torch.full_like(m_packed, NEG_INF))
         mark_stage(stages, "merge")
         out = rescore_topk(m_scores, m_refs, codes, ids, norms, q, k, kk, metric, pids)
         mark_stage(stages, "rescore")
         return out
 
     kfin = min(pool_factor * k, pool)
-    pos = merge_positions(mk, kfin, lane_mult)
+    pos = merge_positions(m_packed, kfin, slot_mult)
     posc = torch.clamp(pos, 0, pool - 1).long()
     pk = torch.gather(m_packed, 1, posc)
     slot = torch.remainder(pk, float(slot_mult)).to(torch.int32)
@@ -359,22 +385,24 @@ def argsort_placement(g_packed, tgt, group_size, pids):
     return rows[order].reshape(B, nprobe * rows.shape[1]), pids
 
 
-def sorted_epilogue(g_packed, tgt, group_size, pids, codes, ids, norms, q,
-                    k: int, kk: int, metric: str, slot_mult: int, levels: int,
-                    pool_factor: int = 1, stages=None):
-    m_packed, pid_cols = sorted_placement(g_packed, tgt, group_size, pids)
-    mark_stage(stages, "placement")
-    return pool_tail(m_packed, pid_cols, pids, codes, ids, norms, q, k, kk,
-                     metric, slot_mult, levels, pool_factor, stages)
+def scatter_placement(g_packed, tgt, group_size, pids):
+    """v10 SCATTER placement (pallas_grouped.py::_scatter_epilogue): each
+    kernel row lands at its pair's row m_packed[tgt] of a [B*nprobe + 1, kk]
+    buffer pre-filled with -1, whose last row discards the rows of padding
+    and of ghost (size-0) groups. Pairs whose pid is -1 keep -1 rows; the
+    pool lands in probe order (pid_cols = pids)."""
+    B, nprobe = pids.shape
+    n = B * nprobe
+    Gn, qt, kk = g_packed.shape
+    tgt = torch.where((group_size > 0)[:, None], tgt, torch.full_like(tgt, n))
+    mp = torch.full((n + 1, kk), -1.0, device=g_packed.device, dtype=torch.float32)
+    mp[tgt.reshape(-1).long()] = g_packed.reshape(Gn * qt, kk)
+    return mp[:n].reshape(B, nprobe * kk), pids
 
 
-def argsort_epilogue(g_packed, tgt, group_size, pids, codes, ids, norms, q,
-                     k: int, kk: int, metric: str, slot_mult: int, levels: int,
-                     pool_factor: int = 1, stages=None):
-    m_packed, pid_cols = argsort_placement(g_packed, tgt, group_size, pids)
-    mark_stage(stages, "placement")
-    return pool_tail(m_packed, pid_cols, pids, codes, ids, norms, q, k, kk,
-                     metric, slot_mult, levels, pool_factor, stages)
+# The placements of the kernel rows per query, by name.
+PLACEMENTS = {"sorted": sorted_placement, "argsort": argsort_placement,
+              "scatter": scatter_placement}
 
 
 # ---------------------------------------------------------------- the scan
@@ -432,6 +460,42 @@ def v11_inputs(codes, sizes, norms, q, pids, k: int, metric: str, qt: int,
                 kk=kk, slot_mult=slot_mult, levels=levels)
 
 
+def _placed_scan(name: str, codes, ids, sizes, norms, q, pids, k: int, metric: str,
+                  qt: int, gpb: int, fold: int, dedup: bool, pool_factor: int, bounds: str,
+                  merge: str, exact: bool, placement: str, stages):
+    """The scan of v10 and v11: the prologue, kernel K1, the placement
+    epilogue named `placement` (see PLACEMENTS)."""
+    B, D = q.shape
+    P, C, _ = codes.shape
+    if dedup:
+        raise NotImplementedError(DEDUP_NOT_PORTED)
+    if not exact:
+        raise NotImplementedError("exact=False (dequantized scores): ROADMAP "
+                                  "Queue 1 item 8 (bf16, exact=False, spill/dedup)")
+    if merge != "pallas":
+        raise NotImplementedError(f"merge={merge!r}: only the kernel merge is ported")
+    if P >= 32768 or C > 65536:
+        raise ValueError(f"{name} packs (pid, slot) into int32: needs P < 32768, C <= 65536")
+    if fold != FOLD or C % fold:
+        raise ValueError(f"{name} needs fold == 128 and C % 128 == 0 (C={C}, fold={fold})")
+    if placement == "sorted":
+        G = group_layout(B, pids.shape[1], P, qt)
+        Gn = -(-G // gpb) * gpb
+        if not sort_key_fits(B, Gn * qt):
+            raise ValueError(f"v11 sort key overflows uint32 (B={B}, rows={Gn * qt}); "
+                             "use placement='argsort'")
+    inp = v11_inputs(codes, sizes, norms, q, pids, k, metric, qt, gpb, bounds)
+    mark_stage(stages, "grouping")
+    kk, slot_mult, levels = inp["kk"], inp["slot_mult"], inp["levels"]
+    g_packed = grouped_scan_kernel(inp["gp"], inp["group_size"], inp["qg"], codes,
+                                   inp["normsT"], kk, slot_mult, levels, fold)
+    mark_stage(stages, "scan")
+    m_packed, pid_cols = PLACEMENTS[placement](g_packed, inp["tgt"], inp["group_size"], pids)
+    mark_stage(stages, "placement")
+    return pool_tail(m_packed, pid_cols, pids, codes, ids, norms, q, k, kk, metric, slot_mult,
+                     levels, pool_factor, stages)
+
+
 def grouped_scan_v11(codes, ids, sizes, norms, q, pids, k: int, metric: str,
                      qt: int = 64, gpb: int = 4, fold: int = FOLD,
                      dedup: bool = False, pool_factor: int = 1,
@@ -446,33 +510,19 @@ def grouped_scan_v11(codes, ids, sizes, norms, q, pids, k: int, metric: str,
     q [B, D], pids [B, nprobe] int32. Returns (scores [B, k] f32, ids [B, k]
     int32, scanned [B] int32). `stages`, when given, gets a mark() after each
     stage (see quake_tpu_torch.profiling.StageTimer)."""
-    B, D = q.shape
-    P, C, _ = codes.shape
-    if dedup:
-        raise NotImplementedError(DEDUP_NOT_PORTED)
-    if not exact:
-        raise NotImplementedError("exact=False (dequantized scores): ROADMAP "
-                                  "Queue 1 item 8 (bf16, exact=False, spill/dedup)")
-    if merge != "pallas":
-        raise NotImplementedError(f"merge={merge!r}: only the kernel merge is ported")
-    if P >= 32768 or C > 65536:
-        raise ValueError("v11 packs (pid, slot) into int32: needs P < 32768, C <= 65536")
-    if fold != FOLD or C % fold:
-        raise ValueError(f"v11 needs fold == 128 and C % 128 == 0 (C={C}, fold={fold})")
     if placement not in ("sorted", "argsort"):
         raise ValueError(f"v11 placement must be 'sorted' or 'argsort', got {placement!r}")
-    G = group_layout(B, pids.shape[1], P, qt)
-    Gn = -(-G // gpb) * gpb
-    if placement == "sorted" and not sort_key_fits(B, Gn * qt):
-        raise ValueError(f"v11 sort key overflows uint32 (B={B}, rows={Gn * qt}); "
-                         "use placement='argsort'")
-    inp = v11_inputs(codes, sizes, norms, q, pids, k, metric, qt, gpb, bounds)
-    mark_stage(stages, "grouping")
-    kk, slot_mult, levels = inp["kk"], inp["slot_mult"], inp["levels"]
-    g_packed = grouped_scan_kernel(inp["gp"], inp["group_size"], inp["qg"], codes,
-                                   inp["normsT"], kk, slot_mult, levels, fold)
-    mark_stage(stages, "scan")
-    epilogue = sorted_epilogue if placement == "sorted" else argsort_epilogue
-    return epilogue(g_packed, inp["tgt"], inp["group_size"], pids, codes, ids,
-                    norms, q, k, kk, metric, slot_mult, levels, pool_factor,
-                    stages)
+    return _placed_scan("v11", codes, ids, sizes, norms, q, pids, k, metric, qt, gpb, fold,
+                         dedup, pool_factor, bounds, merge, exact, placement, stages)
+
+
+def grouped_scan_v10(codes, ids, sizes, norms, q, pids, k: int, metric: str,
+                     qt: int = 64, gpb: int = 4, fold: int = FOLD,
+                     dedup: bool = False, pool_factor: int = 1,
+                     bounds: str = "analytic", merge: str = "pallas",
+                     exact: bool = True, stages=None):
+    """v10 grouped scan (pallas_grouped.py::grouped_scan_pallas_v10): kernel
+    K1 with the scatter placement epilogue. pids may hold -1 (a pair that
+    takes no part); inputs and returns as grouped_scan_v11."""
+    return _placed_scan("v10", codes, ids, sizes, norms, q, pids, k, metric, qt, gpb, fold,
+                         dedup, pool_factor, bounds, merge, exact, "scatter", stages)

@@ -33,14 +33,16 @@ import pytest
 import torch
 
 from quake_tpu_torch import _ext
-from quake_tpu_torch.ops.flat_topk import flat_topk, flat_topk_plain
+from quake_tpu_torch.ops.flat_topk import (CUDA_CORE_BODY, KEPT_BODY, TWO_PASS_BODY, flat_topk,
+                                           flat_topk_body, flat_topk_plain)
 from quake_tpu_torch.ops.grouped_chunked import chunk_merge, chunk_merge_plain
 from quake_tpu_torch.ops.grouped_exact import exact_scan, exact_scan_plain
 from quake_tpu_torch.ops.grouped_family import (CHUNK_BODY, GROUP_BODY, MMA_BODY, rowscale_scan,
                                                 rowscale_scan_plain, rowscale_topk_body)
 from quake_tpu_torch.ops.grouped_scan import (grouped_scan_kernel, grouped_scan_plain,
-                                              grouped_scan_uses_mma, merge_positions,
-                                              merge_positions_plain, packed_params)
+                                              grouped_scan_serves, grouped_scan_uses_mma,
+                                              merge_positions, merge_positions_plain,
+                                              packed_params)
 from quake_tpu_torch.ops.split_product import bmm_as_split_product
 from quake_tpu_torch.ops.grouped_variants import (multi_topk, multi_topk_plain, pack_scores,
                                                   packed_topk, packed_topk_plain, raw_scores,
@@ -94,23 +96,47 @@ def test_grouped_scan_kernel_matches_plain(dev, qt, D, C):
     assert float(key_diff[same].max()) <= 1.0
 
 
-@pytest.mark.parametrize("poolp,kfin", [(128, 10), (256, 10), (1280, 20)])
+@pytest.mark.parametrize("poolp,kfin", [(128, 10), (256, 10), (1280, 20), (90, 10), (91, 10),
+                                        (92, 10)])
 def test_merge_positions_kernel_matches_plain(dev, poolp, kfin):
+    """K2 on the placed pool as it is: widths that take 16-, 8- and 4-byte
+    loads, one fold segment or several."""
     rng = np.random.default_rng(poolp)
+    slot_mult = 256
     keys = rng.integers(-1, 500, size=(1000, poolp)).astype(np.float32)
     keys[rng.random(keys.shape) < 0.4] = -1.0
-    keys = torch.from_numpy(keys).to(dev)
-    got = merge_positions(keys, kfin, poolp)
-    want = merge_positions_plain(keys, kfin, poolp)
+    slots = rng.integers(0, slot_mult, size=keys.shape).astype(np.float32)
+    m_packed = torch.from_numpy(np.where(keys >= 0, keys * slot_mult + slots, -1.0)
+                                .astype(np.float32)).to(dev)
+    got = merge_positions(m_packed, kfin, slot_mult)
+    want = merge_positions_plain(m_packed, kfin, slot_mult)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
 
+def _flat_keys(codes, bias, q, metric):
+    """The plain version's quantized key of every (query, slot)."""
+    from quake_tpu_torch.ops.flat_topk import _packed_params
+
+    _, levels = _packed_params(codes.shape[0])
+    prod = q @ codes.T
+    s = (2.0 * prod if metric == "l2" else prod) + bias[None, :]
+    valid = s > float("-inf")
+    mx = torch.where(valid, s, torch.full_like(s, float("-inf"))).amax(1, keepdim=True)
+    mn = torch.where(valid, s, torch.full_like(s, float("inf"))).amin(1, keepdim=True)
+    return torch.floor((s - mn) * (levels / torch.clamp(mx - mn, min=1e-20)))
+
+
 @pytest.mark.parametrize("metric", ["l2", "ip"])
-@pytest.mark.parametrize("N,D", [(256, 128), (384, 13)])
-def test_flat_topk_kernel_matches_plain(dev, metric, N, D):
+@pytest.mark.parametrize("N,D,B", [(256, 128, 1000), (384, 13, 1000), (256, 768, 300),
+                                   (16384, 128, 300), (640, 100, 200), (768, 36, 200)])
+def test_flat_topk_kernel_matches_plain(dev, metric, N, D, B):
+    """K3 against its plain version: the tensor-core body with the scores
+    kept (N up to 640) and in two passes (N = 768, 16384), a depth that
+    streams in chunks (D = 768), and the CUDA-core body (D = 13). Winner
+    overlap >= 0.99, and rank by rank the picks' keys within one level."""
     rng = np.random.default_rng(N + D)
-    B, k = 1000, 16
+    k = 16
     codes = torch.from_numpy(rng.standard_normal((N, D)).astype(np.float32)).to(dev)
     q = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32)).to(dev)
     ok = torch.arange(N, device=dev) < N - 30
@@ -121,6 +147,11 @@ def test_flat_topk_kernel_matches_plain(dev, metric, N, D):
     torch.cuda.synchronize()
     assert not (got >= N - 30).any()
     assert _overlap(got, want) >= 0.99
+    key = _flat_keys(codes, bias, q, metric)
+    both = (got >= 0) & (want >= 0)
+    kg = torch.gather(key, 1, got.clamp(min=0).long())
+    kw = torch.gather(key, 1, want.clamp(min=0).long())
+    assert float((kg - kw).abs()[both].max()) <= 1.0
 
 
 @pytest.mark.parametrize("metric", ["l2", "ip"])
@@ -419,9 +450,9 @@ def test_variant_kernels_at_the_largest_kk_and_one_past(dev):
 
 def test_launch_counts(dev):
     _ext.reset_launches()
-    keys = torch.zeros((8, 128), device=dev)
-    merge_positions(keys, 4, 128)
-    merge_positions_plain(keys, 4, 128)
+    m_packed = torch.zeros((8, 90), device=dev)
+    merge_positions(m_packed, 4, 128)
+    merge_positions_plain(m_packed, 4, 128)
     gp = torch.zeros(2, dtype=torch.int32, device=dev)
     qg, codes = torch.zeros((2, 8, 16), device=dev), torch.zeros((1, 128, 16), device=dev)
     ids = torch.zeros((1, 128), dtype=torch.int32, device=dev)
@@ -575,6 +606,65 @@ def test_launchers_pick_the_body_by_shape(dev, qt, D):
     assert grouped_scan_uses_mma(qt, D) == (D % 4 == 0)
     if D <= 128:  # the chunk-table body's two segment buffers fit at every qt
         assert rowscale_topk_body(qt, D, 100, chunked=True) == CHUNK_BODY
+
+
+@pytest.mark.parametrize("qt,D,serves", [
+    (64, 608, True), (64, 768, False), (32, 768, True), (32, 1408, True), (32, 1412, False),
+    (64, 300, True), (64, 302, False), (32, 302, True), (8, 770, False), (8, 424, True),
+])
+def test_grouped_scan_serves_each_shape(dev, qt, D, serves):
+    """Which (qt, D) a body of K1 serves: the tensor-core body (D % 4 == 0)
+    while the whole-D query tile fits beside a ring stage, the CUDA-core body
+    while [qt][Dp] and [128][Dp + 1] fit. The index lowers qt to the largest
+    height served, and runs "xla" where none is."""
+    assert grouped_scan_serves(qt, D) == serves
+    assert grouped_scan_uses_mma(qt, D) == (serves and D % 4 == 0)
+
+
+@pytest.mark.parametrize("N,D,body", [
+    (256, 128, KEPT_BODY), (640, 128, KEPT_BODY), (768, 128, TWO_PASS_BODY),
+    (16384, 128, TWO_PASS_BODY), (256, 768, KEPT_BODY), (256, 4096, KEPT_BODY),
+    (384, 13, CUDA_CORE_BODY), (256, 770, CUDA_CORE_BODY),
+])
+def test_flat_topk_body_by_shape(dev, N, D, body):
+    """K3's body by shape: every D is served (both bodies stream the depth)."""
+    assert flat_topk_body(N, D) == body
+
+
+@pytest.mark.parametrize("D", [768, 770])
+def test_wide_vectors_search_on_the_card(dev, D):
+    """The default fused search at D = 768 (K1's tensor-core body at qt = 32,
+    K3's streaming the depth) and D = 770 (no K1 body serves: the "xla"
+    scan, K3's CUDA-core body) agrees with the exact scan of the probed
+    partitions."""
+    from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams
+    from quake_tpu_torch.coordinator import rank_parents, reference_scan
+
+    rng = np.random.default_rng(D)
+    x = rng.standard_normal((8192, D)).astype(np.float32)
+    q = x[:64] + 0.1 * rng.standard_normal((64, D)).astype(np.float32)
+    idx = QuakeIndex(device=dev)
+    idx.build(x, None, IndexBuildParams(nlist=8, calibrate_aps=False))
+    sp = SearchParams(k=10, nprobe=6)
+    qt = idx._grouped_params(64, 6)[0]
+    served = [t for t in (64, 32, 16, 8) if grouped_scan_serves(t, D)]
+    if D == 768:
+        assert served == [32, 16, 8] and qt in served
+        assert idx._grouped_kernel().startswith("v11g")
+    else:
+        assert served == [] and idx._grouped_kernel() == "xla"
+    _ext.reset_launches()
+    res = idx.search(q, sp)
+    torch.cuda.synchronize()
+    launches = dict(_ext.launches)
+    assert launches["flat_topk"] == 1
+    assert launches["grouped_scan"] == (1 if D == 768 else 0)
+    st, pst = idx.store.state, idx.parent.store.state
+    qd = torch.from_numpy(q).to(dev)
+    pids = rank_parents(pst.codes, pst.ids, pst.norms, qd, 6, "l2", "pallas")
+    _, want, _ = reference_scan(st.codes, st.ids, st.norms, qd, pids, 10, "l2")
+    assert res.ids.shape == (64, 10) and np.isfinite(res.distances).all()
+    assert _overlap(torch.from_numpy(res.ids), want.cpu().long()) >= 0.99
 
 
 @pytest.mark.parametrize("D", [13, 30])

@@ -240,8 +240,11 @@ _DISPATCH = [
     ("v8", 256, "v8", 4),
     ("v8g2f128", 256, "v8", 2),
     ("v9g4", 256, "v8", 4),  # v9 is v8's function on kernel K1
+    ("v10", 256, "v10", 4),
+    ("v10g2", 256, "v10", 2),
     ("v11g2", 256, "v11", 2),
     ("v11g4f256", 384, "v3pn", 4),  # C % 256 != 0: the v3pN fallback
+    ("v10g4f256", 384, "v3pn", 4),
     ("v7g2", 200, "v3pn", 2),
     ("v8g8", 200, "v3pn", 8),
     ("v9", 200, "v3pn", 4),
@@ -251,7 +254,7 @@ _DISPATCH = [
 @pytest.mark.parametrize("kernel,C,want,gpb", _DISPATCH)
 def test_dispatch_reaches_wrapper(monkeypatch, kernel, C, want, gpb):
     calls = []
-    for name in ("v3p", "v3pn", "v7", "v8", "v11"):
+    for name in ("v3p", "v3pn", "v7", "v8", "v10", "v11"):
         monkeypatch.setattr(coordinator, f"grouped_scan_{name}",
                             lambda *a, _n=name, **kw: calls.append((_n, kw.get("gpb"))))
     codes = torch.zeros((4, C, 8))
@@ -262,8 +265,7 @@ def test_dispatch_reaches_wrapper(monkeypatch, kernel, C, want, gpb):
 
 
 @pytest.mark.parametrize("kernel,match", [
-    ("v10", "Queue 1 item 9"), ("v10g4", "Queue 1 item 9"), ("v10g4f256", "Queue 1 item 9"),
-    ("v7f256", "fold by 128"), ("v8g2f256", "fold by 128"), ("v9f256", "fold by 128"),
+    ("v10g4f256", "fold by 128"), ("v7f256", "fold by 128"), ("v8g2f256", "fold by 128"), ("v9f256", "fold by 128"),
     ("v11g4f256", "fold by 128"),
 ])
 def test_dispatch_unported_names_raise(kernel, match):
@@ -279,8 +281,8 @@ def test_dispatch_unported_names_raise(kernel, match):
     ("v3", True, True, ValueError, "does not support dedup"),
     ("v3p", True, True, ValueError, "does not support dedup"),
     ("v3p4", True, True, NotImplementedError, "Queue 1 item 8"),
-    ("v11", False, False, NotImplementedError, "Queue 1 item 9"),
-    ("v11g2", None, False, NotImplementedError, "Queue 1 item 9"),  # dense defaults to False
+    ("v10", True, True, NotImplementedError, "Queue 1 item 8"),
+    ("v11", False, True, NotImplementedError, "Queue 1 item 8"),
 ])
 def test_dispatch_guards(kernel, dense, dedup, exc, match):
     codes, ids, sizes, norms = _store(2, 128, 8, seed=0, sizes=[128, 128])

@@ -58,17 +58,23 @@ def test_build_groups_scatter_matches_jax(B, nprobe, P, qt, seed):
         np.testing.assert_array_equal(np.asarray(w), g.numpy())
 
 
-@pytest.mark.parametrize("poolp,kfin", [(128, 10), (256, 10), (384, 20)])
+@pytest.mark.parametrize("poolp,kfin", [(128, 10), (256, 10), (384, 20), (90, 10), (200, 10)])
 def test_merge_positions_matches_pallas(poolp, kfin):
+    """K2 takes the placed pool as it is (any width, packed key*slot_mult +
+    slot values); the JAX package derives the keys, pads them to a 128
+    multiple and merges them with _merge_positions_pallas (_pool_tail)."""
     rng = np.random.default_rng(poolp)
-    B = 40
-    lane_mult = poolp
+    B, slot_mult = 40, 256
     keys = rng.integers(-1, 200, size=(B, poolp)).astype(np.float32)
     keys[rng.random((B, poolp)) < 0.3] = -1.0
     keys[3] = -1.0  # an empty row
-    want = np.asarray(_merge_positions_pallas(jnp.asarray(keys), kfin, lane_mult, 128,
-                                              interpret=True))
-    got = merge_positions(_t(keys), kfin, lane_mult).numpy()
+    slots = rng.integers(0, slot_mult, size=(B, poolp)).astype(np.float32)
+    m_packed = np.where(keys >= 0, keys * slot_mult + slots, -1.0).astype(np.float32)
+    padded = -(-poolp // 128) * 128
+    m_keys = jnp.where(m_packed >= 0.0, jnp.floor(m_packed / float(slot_mult)), -1.0)
+    mk = jnp.pad(m_keys, ((0, 0), (0, padded - poolp)), constant_values=-1.0)
+    want = np.asarray(_merge_positions_pallas(mk, kfin, padded, 128, interpret=True))
+    got = merge_positions(_t(m_packed), kfin, slot_mult).numpy()
     np.testing.assert_array_equal(want, got)
 
 
