@@ -794,11 +794,24 @@ flat_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap,
     }
     if (++cv < visits) continue;
 
-    // The tile's end: k rounds over the warp's rows, side by side.
-    select_rounds<R>(f1, f2, k, [&](int r, int i, float best) {
-      const int b = ct * QT + warp + kWarps * r;
-      if (lane == r && b < B) out[(size_t)b * k + i] = best >= 0.0f ? (int)best & (slot_mult - 1) : -1;
-    });
+    // The tile's end: k rounds over the warp's rows, side by side, their
+    // winners staged in the warp's own rows of the score tile (no longer read)
+    // and written out together, at most sw rounds at a time: a store of each
+    // round's winner from within the rounds held them up.
+    for (int i0 = 0; i0 < k; i0 += sw) {
+      const int n = min(sw, k - i0);
+      select_rounds<R>(f1, f2, n, [&](int r, int i, float best) {
+        if (lane == r) sc[(warp + kWarps * r) * sw + i] = best;
+      });
+      __syncwarp();
+      for (int e = lane; e < R * n; e += 32) {
+        const int r = e / n, i = e - r * n;
+        const int b = ct * QT + warp + kWarps * r;
+        const float best = sc[(warp + kWarps * r) * sw + i];
+        if (b < B) out[(size_t)b * k + i0 + i] = best >= 0.0f ? (int)best & (slot_mult - 1) : -1;
+      }
+      __syncwarp();
+    }
     ct += gridDim.x;
     cv = 0;
   }

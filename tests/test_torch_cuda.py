@@ -114,6 +114,25 @@ def test_merge_positions_kernel_matches_plain(dev, poolp, kfin):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("N,k", [(256, 300), (768, 150)])
+def test_flat_topk_more_rounds_than_a_staging_row(dev, N, k):
+    """K3 stages the rounds' winners in rows of its score tile (N + 8 floats
+    with the scores kept, 136 in two passes) and writes them out a row's
+    width at a time: k past that width takes several stagings."""
+    rng = np.random.default_rng(N + k)
+    B, D = 200, 64
+    codes = torch.from_numpy(rng.standard_normal((N, D)).astype(np.float32)).to(dev)
+    q = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32)).to(dev)
+    ok = torch.arange(N, device=dev) < N - 30
+    bias = torch.where(ok, -(codes * codes).sum(1), torch.full((N,), float("-inf"), device=dev))
+    got = flat_topk(codes, bias.contiguous(), q, k, "l2")
+    want = flat_topk_plain(codes, bias.contiguous(), q, k, "l2")
+    torch.cuda.synchronize()
+    assert not (got >= N - 30).any()
+    assert _overlap(got, want) >= 0.99
+    assert torch.equal(got < 0, want < 0)
+
+
 def _flat_keys(codes, bias, q, metric):
     """The plain version's quantized key of every (query, slot)."""
     from quake_tpu_torch.ops.flat_topk import _packed_params
