@@ -477,9 +477,10 @@ merge_positions_kernel(const float* __restrict__ mp, int* __restrict__ out, int 
 // [128][dc + 1] segment chunk), two passes as above.
 //
 // Both bodies run a warp's k rounds over its rows side by side, each row's
-// maximum in one warp reduction instruction (select_rounds): taken one row
-// after the other, each round a dependent 5-step shuffle chain, the rounds
-// held up every tile.
+// maximum in one warp reduction instruction (select_rounds). The tensor-core
+// body stages the rounds' winners in the score tile and writes them out
+// together: a store to device memory from within each round held the rounds
+// up.
 // ---------------------------------------------------------------------------
 constexpr int kFlatRows = 4;  // rows per warp of the CUDA-core body
 constexpr int kFlatQB = kWarps * kFlatRows;
