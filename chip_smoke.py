@@ -132,8 +132,8 @@ BY_NAME = (("v3p", ("rowscale_topk",), "exact", 5), ("v3p4", ("rowscale_topk",),
 # (QUAKE_TPU_V11_PLACEMENT), timed at B=BATCH_SORTED, where the default
 # placement is sorted: same kernels, held within V11_TOL of the v11 path.
 PLACEMENT_KNOB = {"QUAKE_TPU_V11_PLACEMENT": "argsort"}
-# The wide-vector case through the default search: a D that K1 serves only
-# at qt = 32 and K3 streams in depth chunks.
+# The wide-vector case through the default search: a D whose tensor-core
+# body K1 runs only from qt = 32 down, and K3 streams in depth chunks.
 WIDE_N, WIDE_D, WIDE_NLIST, WIDE_B, WIDE_NPROBE = 65_536, 768, 64, 1024, 8
 K3_WIDE_N = 16_384  # K3's second shape: that many corpus rows as the buffer
 MAIN_KERNELS = ("grouped_scan", "merge_positions", "flat_topk")
@@ -840,9 +840,10 @@ def phase_main(torch, dev, x, queries):
 
 def phase_by_name(torch, dev, idx, queries, gt, nprobe, recall_v11):
     """Each scan of BY_NAME through QUAKE_TPU_KERNEL, on the main index at
-    the main nprobe: recall@10 on the ground-truth queries, ms per B=16384
-    batch and stages, and the path's launches (zeroed just before the path
-    runs, read just after); then the v11 path with PLACEMENT_KNOB at
+    the main nprobe: recall@10 of a search of the ground-truth queries
+    (B=NQ_GT; the gates read it), ms per B=16384 batch, stages, the timed
+    batch's own recall on its first NQ_GT queries, and the path's launches
+    (zeroed just before the path runs, read just after); then the v11 path with PLACEMENT_KNOB at
     B=BATCH_SORTED. The "reference" scan (exact top-k over the same probed
     partitions) gives the recall ceiling. Fails if the path's kernels did
     not launch, if another scan kernel did, or if recall misses the path's
@@ -886,9 +887,10 @@ def phase_by_name(torch, dev, idx, queries, gt, nprobe, recall_v11):
             for var in env:
                 del os.environ[var]
         r = compute_recall(res.ids, gt, K)
+        r_batch = compute_recall(ids32[:NQ_GT].cpu().numpy(), gt, K)
         stages = timer.mean_ms()
         log(f"[by name] {name}: recall@10={r:.4f} (v11 {recall_v11:.4f}, exact "
-            f"{ceiling:.4f}), {ms:.3f} ms/batch "
+            f"{ceiling:.4f}; B={batch}: recall(first {NQ_GT})={r_batch:.4f}), {ms:.3f} ms/batch "
             f"(B={batch}), {batch / (ms / 1e3):,.0f} QPS, stages(ms)="
             f"{json.dumps({k: round(v, 4) for k, v in stages.items()})}, launches {launches}")
         ran = {k for k in scan_kernels if launches[k] > 0}
@@ -906,8 +908,8 @@ def phase_by_name(torch, dev, idx, queries, gt, nprobe, recall_v11):
         if gate == "v11" and abs(r - recall_v11) > V11_TOL:
             raise AssertionError(f"{name}: recall@10 {r} is not within {V11_TOL} of the "
                                  f"v11 path's {recall_v11}")
-        out[name] = dict(recall=r, ms=ms, qps=batch / (ms / 1e3), batch=batch, stages_ms=stages,
-                         launches=launches)
+        out[name] = dict(recall=r, recall_batch=r_batch, ms=ms, qps=batch / (ms / 1e3),
+                         batch=batch, stages_ms=stages, launches=launches)
     return out
 
 
@@ -916,10 +918,19 @@ def phase_wide(torch, dev):
     K3's first design: a WIDE_N x WIDE_D manifold corpus, nlist=WIDE_NLIST,
     WIDE_B queries at nprobe WIDE_NPROBE. K1 runs at the query-tile height
     the index picks (32), K3 streams the depth; the ids are held to the
-    exact scan of the probed partitions (overlap >= OVERLAP_TOL)."""
+    exact scan of the probed partitions (overlap >= OVERLAP_TOL). Then each
+    of the path's kernels against its plain version at this path's shapes,
+    with compare_k3, compare_k1 and compare_k2's gates: K3 on the parent's
+    buffer and these queries, K1 on the path's groups at its qt, K2 on the
+    pool as the path's placement leaves it."""
     from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams, _ext
     from quake_tpu_torch.coordinator import rank_parents, reference_scan
-    from quake_tpu_torch.ops.flat_topk import KEPT_BODY, flat_topk_body
+    from quake_tpu_torch.ops.flat_topk import (KEPT_BODY, flat_topk, flat_topk_body,
+                                               flat_topk_plain, parent_bias)
+    from quake_tpu_torch.ops.grouped_scan import (PLACEMENTS, grouped_scan_kernel,
+                                                  grouped_scan_plain, merge_positions,
+                                                  merge_positions_plain, sort_key_fits,
+                                                  v11_inputs)
 
     x = make_manifold(WIDE_N, WIDE_D, 1024, seed=11)
     q = make_manifold(WIDE_B, WIDE_D, 1024, seed=12)
@@ -951,7 +962,28 @@ def phase_wide(torch, dev):
         raise AssertionError(f"D={WIDE_D}: expected one launch each of K1, K2 and K3, got {launches}")
     if res.ids.shape != (WIDE_B, K) or ov < OVERLAP_TOL or not np.isfinite(res.distances).all():
         raise AssertionError(f"D={WIDE_D}: overlap {ov} with the exact scan of the probed partitions")
-    return dict(ms=ms, qt=qt, overlap=ov, C=idx.store.C, launches=launches)
+
+    Pp, Cp, _ = pst.codes.shape
+    codes2d = pst.codes.reshape(Pp * Cp, WIDE_D).contiguous()
+    ov3, kd3 = compare_k3(torch, flat_topk, flat_topk_plain, codes2d,
+                          parent_bias(pst.ids, pst.norms, "l2"), qd, WIDE_NPROBE, "l2")
+    gpb = int(idx._grouped_kernel()[len("v11g"):])
+    pids = torch.where(pids >= 0, pids, pids[:, :1])
+    inp = v11_inputs(st.codes, st.sizes, st.norms, qd, pids, K, "l2", qt, gpb)
+    args = (inp["gp"], inp["group_size"], inp["qg"], st.codes, inp["normsT"], inp["kk"],
+            inp["slot_mult"], inp["levels"])
+    ov1, kd1 = compare_k1(torch, grouped_scan_kernel, grouped_scan_plain, *args)
+    placement = "sorted" if sort_key_fits(WIDE_B, inp["gp"].shape[0] * qt) else "argsort"
+    m_packed, _ = PLACEMENTS[placement](grouped_scan_kernel(*args), inp["tgt"],
+                                        inp["group_size"], pids)
+    compare_k2(torch, merge_positions, merge_positions_plain, m_packed,
+               min(K, m_packed.shape[1]), inp["slot_mult"])
+    log(f"[wide] against the plain versions: K3 (N={Pp * Cp}) overlap {ov3:.4f}, max key diff "
+        f"{kd3}; K1 (qt={qt}, {inp['gp'].shape[0]} groups) overlap {ov1:.4f}, max key diff "
+        f"{kd1}; K2 ({placement} pool of {m_packed.shape[1]} columns) equal")
+    return dict(ms=ms, qt=qt, overlap=ov, C=idx.store.C, launches=launches,
+                k3=dict(overlap=ov3, max_key_diff=kd3), k1=dict(overlap=ov1, max_key_diff=kd1),
+                k2_placement=placement)
 
 
 def phase_small_reference(torch, dev):

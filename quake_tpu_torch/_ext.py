@@ -39,15 +39,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argtypes; every launcher returns a cudaError_t as int, the
-# qk_grouped_scan_uses_mma, qk_grouped_scan_serves, qk_rowscale_topk_body and
-# qk_flat_topk_body entries the body chosen.
+# qk_grouped_scan_uses_mma, qk_rowscale_topk_body and qk_flat_topk_body
+# entries the body chosen.
 _SIGNATURES = {
     # gp, gsize, qg, codes, normsT, out, Gn, qt, D, P, C, kk, slot_mult, levels, stream
     "qk_grouped_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
     # qt, D: whether K1's launcher runs the tensor-core body
     "qk_grouped_scan_uses_mma": (_I, _I),
-    # qt, D: whether one of K1's bodies serves the shape
-    "qk_grouped_scan_serves": (_I, _I),
     # qt, D, kk, chunked: the body K4's launcher runs (2 tensor cores, 1 the
     # persistent chunk-table body, 0 one block a group)
     "qk_rowscale_topk_body": (_I, _I, _I, _I),

@@ -13,9 +13,10 @@
 // Thread layout of the selection rounds, shared by the kernels: a warp owns
 // whole rows, and lane l of a warp owns the four fold columns {l, l+32, l+64,
 // l+96}, so a round's row maximum is a local max over four registers plus a
-// 5-step shuffle reduction. K2, K3 and K1's CUDA-core body do all arithmetic in
-// f32 on the CUDA cores; K1's main body takes its products on the tensor
-// cores, as split TF32 operands that keep f32 accuracy (common.cuh, mma_tile).
+// 5-step shuffle reduction. K2 and the CUDA-core bodies of K1 and K3 do all
+// arithmetic in f32 on the CUDA cores; the main bodies of K1 and K3 take their
+// products on the tensor cores, as split TF32 operands that keep f32 accuracy
+// (common.cuh, mma_tile).
 //
 // Each launcher returns cudaGetLastError() so the Python wrapper can raise.
 
@@ -73,20 +74,68 @@ namespace {
 // this file.
 //
 // grouped_scan_kernel, the CUDA-core body (D % 4 != 0: a row is not 16-byte
-// aligned): one block per group,
-// the [qt, D] query tile in shared memory, one 128-row segment buffer, each
-// thread R x 4 dot products and (m1, m2) pairs in registers.
+// aligned): one block per group, each thread R x 4 dot products and (m1, m2)
+// pairs in registers, D streamed in depth chunks (chunk_dots below), so it
+// serves every D at every qt.
 // ---------------------------------------------------------------------------
+
+// The CUDA-core bodies of K1 and K3 take D in depth chunks of up to
+// kDepthChunk columns: a [rows][dcp] query chunk and a [128][dcp + 1] segment
+// chunk in shared memory, whatever D is.
+constexpr int kDepthChunk = 128;
+
+inline __host__ __device__ int depth_chunk(int D) {
+  return padded_dim(D < kDepthChunk ? D : kDepthChunk);
+}
+
+// Shared memory of a CUDA-core body with a query tile of `rows` rows, in bytes.
+inline size_t chunk_dots_smem(int rows, int D) {
+  const int dcp = depth_chunk(D);
+  return (size_t)(rows * dcp + kFold * (dcp + 1)) * sizeof(float);
+}
+
+// Columns [d0, d0 + dcp) of rows [0, rows) of a [*, D] f32 matrix into shared
+// memory at row stride `stride`, zero-filling columns >= D and rows >= nrows.
+__device__ __forceinline__ void load_depth_chunk(float* dst, const float* src, int rows,
+                                                 int nrows, int D, int d0, int dcp, int stride) {
+  for (int i = threadIdx.x; i < rows * dcp; i += kThreads) {
+    const int r = i / dcp;
+    const int d = d0 + i - r * dcp;
+    dst[r * stride + d - d0] = (d < D && r < nrows) ? src[(size_t)r * D + d] : 0.0f;
+  }
+}
+
+// acc = the products of the [8 R, D] query tile (nq real rows at q) with the
+// 128 rows at `rows` (all inside the matrix: N and C are multiples of 128),
+// over D in chunks of dcp = depth_chunk(D) columns, in tile_dots' order
+// whatever the chunking. Where one chunk covers
+// D the caller has loaded the tile into qs once (load_depth_chunk at d0 = 0)
+// and it stays there; a deeper D brings each chunk of the tile with the
+// segment's.
+template <int R>
+__device__ __forceinline__ void chunk_dots(float (&acc)[R][4], float* qs, float* seg,
+                                           const float* q, int nq, const float* rows, int D,
+                                           int dcp) {
+  for (int d0 = 0; d0 < D; d0 += dcp) {
+    __syncthreads();  // the previous chunk is consumed (and the query tile written)
+    if (D > dcp) load_depth_chunk(qs, q, kWarps * R, nq, D, d0, dcp, dcp);
+    load_depth_chunk(seg, rows, kFold, kFold, D, d0, dcp, dcp + 1);
+    __syncthreads();
+    tile_dots<R>(acc, qs, seg, dcp, d0 == 0);
+  }
+}
+
 template <int R>
 __global__ void __launch_bounds__(kThreads)
 grouped_scan_kernel(const int* __restrict__ gp, const int* __restrict__ gsize,
                     const float* __restrict__ qg, const float* __restrict__ codes,
                     const float* __restrict__ normsT, float* __restrict__ out,
-                    int D, int Dp, int C, int kk, float slot_mult, float levels) {
+                    int D, int C, int kk, float slot_mult, float levels) {
   constexpr int qt = kWarps * R;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;             // [qt][Dp]
-  float* seg = smem + qt * Dp;  // [128][Dp + 1]
+  const int dcp = depth_chunk(D);
+  float* qs = smem;              // [qt][dcp]
+  float* seg = smem + qt * dcp;  // [128][dcp + 1]
   const int g = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int size = min(gsize[g], C);
@@ -97,11 +146,7 @@ grouped_scan_kernel(const int* __restrict__ gp, const int* __restrict__ gsize,
   }
   const int p = gp[g];
   const float* qsrc = qg + (size_t)g * qt * D;
-  for (int i = threadIdx.x; i < qt * Dp; i += kThreads) {
-    const int r = i / Dp;
-    const int d = i - r * Dp;
-    qs[i] = d < D ? qsrc[(size_t)r * D + d] : 0.0f;
-  }
+  if (D <= dcp) load_depth_chunk(qs, qsrc, qt, qt, D, 0, dcp, dcp);
   const float* slab = codes + (size_t)p * C * D;
   const float* nrm = normsT + (size_t)p * C;
 
@@ -113,11 +158,8 @@ grouped_scan_kernel(const int* __restrict__ gp, const int* __restrict__ gsize,
 
   const int nseg = (size + kFold - 1) / kFold;
   for (int s = 0; s < nseg; ++s) {
-    __syncthreads();  // previous segment fully consumed (and q tile written)
-    load_segment(seg, slab, s * kFold, C, D, Dp);
-    __syncthreads();
     float acc[R][4];
-    tile_dots<R>(acc, qs, seg, Dp);
+    chunk_dots<R>(acc, qs, seg, qsrc, qt, slab + (size_t)s * kFold * D, D, dcp);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int ln = s * kFold + lane + 32 * j;
@@ -328,15 +370,6 @@ inline int grouped_scan_stage_boxes(int qt, int D) {
 
 inline bool grouped_scan_uses_mma(int qt, int D) { return grouped_scan_stage_boxes(qt, D) > 0; }
 
-// Whether a body of K1 serves (qt, D): the tensor-core body, or the CUDA-core
-// body's [qt][Dp] query tile beside a [128][Dp + 1] segment.
-inline bool grouped_scan_serves(int qt, int D) {
-  if (qt != 8 && qt != 16 && qt != 32 && qt != 64) return false;
-  if (grouped_scan_uses_mma(qt, D)) return true;
-  const int Dp = padded_dim(D);
-  return (size_t)(qt * Dp + kFold * (Dp + 1)) * sizeof(float) <= kSmemLimit;
-}
-
 // ---------------------------------------------------------------------------
 // K2: pool merge.
 //
@@ -358,12 +391,15 @@ inline bool grouped_scan_serves(int qt, int D) {
 // was a dependent 5-step shuffle chain with nothing beside it, over scalar
 // loads of a pool padded and copied before the launch. Design: a row per 8
 // lanes (4 rows a warp), lane l owning the 16 fold columns l v + 8 v t + e
-// (v = the load width, t < 16 / v, e < v), so that the loads of a row are
-// contiguous and as wide as the pool's alignment allows (16 bytes where pool
-// % 4 == 0, 8 where it is even). A round is a local maximum over 16 registers
-// and a 3-step shuffle chain, and the four rows of a warp run their chains
-// side by side. With pool <= 128 a column holds at most one value, and the
-// second of the top-2 is left out. No shared memory.
+// (v = the load width in floats, t < 16 / v, e < v), so that the loads of a
+// row are contiguous: 8-byte loads where the pool is even and its rows 8-byte
+// aligned (the main path's 90 columns), else 4-byte ones. A round is a local
+// maximum over 16 registers and a 3-step shuffle chain, and the four rows of
+// a warp run their chains side by side. With pool <= 128 a column holds at
+// most one value, and the second of the top-2 is left out. No shared memory.
+// 8-byte loads take 1-2% off the 4-byte ones; 16-byte loads, where pool % 4
+// == 0, took about 1% more off and are not kept (scripts/body_times.py,
+// PERF.md).
 // ---------------------------------------------------------------------------
 constexpr int kMergeLanes = 8;                   // lanes a row
 constexpr int kMergeCols = kFold / kMergeLanes;  // fold columns a lane
@@ -382,16 +418,13 @@ merge_positions_kernel(const float* __restrict__ mp, int* __restrict__ out, int 
 #pragma unroll
   for (int j = 0; j < kMergeCols; ++j) m1[j] = m2[j] = -1.0f;
   for (int s = 0; s < (TOP2 ? pool : 1); s += kFold) {
-    float v[kMergeCols];  // pool % VEC == 0: a group of VEC columns lies wholly below pool or not
+    float v[kMergeCols];  // pool % VEC == 0: a load's columns lie wholly below pool or not
 #pragma unroll
     for (int j = 0; j < kMergeCols; j += VEC) {
       const float* at = row + s + col(j);
       if (!live || s + col(j) >= pool) {
 #pragma unroll
         for (int e = 0; e < VEC; ++e) v[j + e] = -1.0f;
-      } else if constexpr (VEC == 4) {
-        const float4 t = __ldg(reinterpret_cast<const float4*>(at));
-        v[j] = t.x, v[j + 1] = t.y, v[j + 2] = t.z, v[j + 3] = t.w;
       } else if constexpr (VEC == 2) {
         const float2 t = __ldg(reinterpret_cast<const float2*>(at));
         v[j] = t.x, v[j + 1] = t.y;
@@ -473,8 +506,8 @@ merge_positions_kernel(const float* __restrict__ mp, int* __restrict__ out, int 
 //
 // flat_topk_kernel, the CUDA-core body (D % 4 != 0: a row is not 16-byte
 // aligned for the copies): one block per 32 queries, f32 products from shared
-// memory in depth chunks of up to 128 columns (a [32][dc] query chunk and a
-// [128][dc + 1] segment chunk), two passes as above.
+// memory in depth chunks (chunk_dots, as K1's CUDA-core body: the query tile
+// loaded once where D <= 128), two passes as above.
 //
 // Both bodies run a warp's k rounds over its rows side by side, each row's
 // maximum in one warp reduction instruction (select_rounds). The tensor-core
@@ -484,8 +517,7 @@ merge_positions_kernel(const float* __restrict__ mp, int* __restrict__ out, int 
 // ---------------------------------------------------------------------------
 constexpr int kFlatRows = 4;  // rows per warp of the CUDA-core body
 constexpr int kFlatQB = kWarps * kFlatRows;
-constexpr int kFlatDepth = 128;  // depth chunk of the CUDA-core body
-constexpr int kFlatQT = 64;      // query tile of the tensor-core body
+constexpr int kFlatQT = 64;   // query tile of the tensor-core body
 
 template <bool L2>
 __device__ __forceinline__ float flat_score(float dot, float bias) {
@@ -499,28 +531,17 @@ flat_topk_kernel(const float* __restrict__ q, const float* __restrict__ codes,
                  int D, int k, int slot_mult, float levels) {
   constexpr int R = kFlatRows;
   extern __shared__ __align__(16) float smem[];
-  const int dcp = padded_dim(D < kFlatDepth ? D : kFlatDepth);  // a chunk's padded depth
-  float* qs = smem;                 // [32][dcp]
+  const int dcp = depth_chunk(D);
+  float* qs = smem;                   // [32][dcp]
   float* seg = smem + kFlatQB * dcp;  // [128][dcp + 1]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b0 = blockIdx.x * kFlatQB;
   const int nseg = N / kFold;
-
-  // acc = the products of segment s, over D in chunks of dcp columns.
+  const float* qb = q + (size_t)b0 * D;
+  if (D <= dcp) load_depth_chunk(qs, qb, kFlatQB, B - b0, D, 0, dcp, dcp);
+  // acc = the products of segment s.
   auto segment_dots = [&](float (&acc)[R][4], int s) {
-    for (int d0 = 0; d0 < D; d0 += dcp) {
-      __syncthreads();  // the previous chunk is consumed
-      for (int i = threadIdx.x; i < kFlatQB * dcp; i += kThreads) {
-        const int r = i / dcp, d = d0 + i - r * dcp, b = b0 + r;
-        qs[i] = (d < D && b < B) ? q[(size_t)b * D + d] : 0.0f;
-      }
-      for (int i = threadIdx.x; i < kFold * dcp; i += kThreads) {
-        const int c = i / dcp, d = d0 + i - c * dcp;
-        seg[c * (dcp + 1) + d - d0] = d < D ? codes[(size_t)(s * kFold + c) * D + d] : 0.0f;
-      }
-      __syncthreads();
-      tile_dots<R>(acc, qs, seg, dcp, d0 == 0);
-    }
+    chunk_dots<R>(acc, qs, seg, qb, B - b0, codes + (size_t)s * kFold * D, D, dcp);
   };
 
   float mn[R], mx[R];
@@ -871,27 +892,22 @@ const char* qk_error_string(int code) { return cudaGetErrorString((cudaError_t)c
 // CUDA-core body.
 int qk_grouped_scan_uses_mma(int qt, int D) { return grouped_scan_uses_mma(qt, D) ? 1 : 0; }
 
-// 1 when a body of K1 serves the shape, 0 when none does.
-int qk_grouped_scan_serves(int qt, int D) { return grouped_scan_serves(qt, D) ? 1 : 0; }
-
 int qk_grouped_scan(const void* gp, const void* gsize, const void* qg, const void* codes,
                     const void* normsT, void* out, int Gn, int qt, int D, int P, int C, int kk,
                     float slot_mult, float levels, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (Gn <= 0) return (int)cudaGetLastError();
-  if (!grouped_scan_serves(qt, D)) return (int)cudaErrorInvalidValue;
   if (grouped_scan_uses_mma(qt, D))
     return launch_grouped_scan_mma(gp, gsize, qg, codes, normsT, out, Gn, qt, D, P, C, kk,
                                    slot_mult, levels, st);
-  const int Dp = padded_dim(D);
-  const size_t smem = (size_t)(qt * Dp + kFold * (Dp + 1)) * sizeof(float);
+  const size_t smem = chunk_dots_smem(qt, D);
 #define QK_GROUPED(R)                                                                   \
   case 8 * R: {                                                                         \
     cudaError_t e = allow_smem(grouped_scan_kernel<R>, smem);             \
     if (e != cudaSuccess) return (int)e;                                                \
     grouped_scan_kernel<R><<<Gn, kThreads, smem, st>>>(                                 \
         (const int*)gp, (const int*)gsize, (const float*)qg, (const float*)codes,       \
-        (const float*)normsT, (float*)out, D, Dp, C, kk, slot_mult, levels);            \
+        (const float*)normsT, (float*)out, D, C, kk, slot_mult, levels);                \
     break;                                                                              \
   }
   switch (qt) {
@@ -912,18 +928,15 @@ int qk_merge_positions(const void* mp, void* out, int B, int pool, int kfin, int
   const int rows = kThreads / kMergeLanes;
   const int grid = (B + rows - 1) / rows;
   cudaStream_t st = (cudaStream_t)stream;
-  const uintptr_t at = (uintptr_t)mp;
-  const int vec = (pool % 4 == 0 && at % 16 == 0) ? 4 : (pool % 2 == 0 && at % 8 == 0) ? 2 : 1;
+  const bool pairs = pool % 2 == 0 && (uintptr_t)mp % 8 == 0;
 #define QK_MERGE(V, TOP2)                                                                   \
   merge_positions_kernel<V, TOP2><<<grid, kThreads, 0, st>>>((const float*)mp, (int*)out, B, \
                                                              pool, kfin, lane_mult, inv_slot)
   if (pool > kFold) {
-    if (vec == 4) QK_MERGE(4, true);
-    else if (vec == 2) QK_MERGE(2, true);
+    if (pairs) QK_MERGE(2, true);
     else QK_MERGE(1, true);
   } else {
-    if (vec == 4) QK_MERGE(4, false);
-    else if (vec == 2) QK_MERGE(2, false);
+    if (pairs) QK_MERGE(2, false);
     else QK_MERGE(1, false);
   }
 #undef QK_MERGE
@@ -957,8 +970,7 @@ int qk_flat_topk(const void* q, const void* codes, const void* bias, void* out, 
 #undef QK_FLAT_MMA
     return (int)cudaGetLastError();
   }
-  const int dcp = padded_dim(D < kFlatDepth ? D : kFlatDepth);
-  const size_t smem = (size_t)(kFlatQB * dcp + kFold * (dcp + 1)) * sizeof(float);
+  const size_t smem = chunk_dots_smem(kFlatQB, D);
   const int grid = (B + kFlatQB - 1) / kFlatQB;
   cudaError_t e;
   if (is_l2) {

@@ -25,7 +25,7 @@ from quake_tpu_torch import coordinator
 from quake_tpu_torch.geometry import effective_dimension
 from quake_tpu_torch.kmeans import balance_clusters, kmeans_fit_assign
 from quake_tpu_torch.ops.grouped import grouped_scan_xla
-from quake_tpu_torch.ops.grouped_scan import QTS, grouped_scan_serves
+from quake_tpu_torch.ops.grouped_scan import QTS, grouped_scan_uses_mma
 from quake_tpu_torch.ops.scan import scores_to_distances
 from quake_tpu_torch.params import IndexBuildParams, SearchParams, check_metric
 from quake_tpu_torch.storage.store import PartitionStore
@@ -300,28 +300,25 @@ class QuakeIndex:
         (it sets the sort-key bit budget and so the placement); kernel K1
         runs one block per group whatever it is. Where the JAX package's
         rule gives up on its Pallas kernels (a slab too large for its fast
-        memory), K1 still runs, at gpb = 1. On a CUDA index whose D no body
-        of K1 serves at any query-tile height (D % 4 != 0 and too wide for
-        the CUDA-core body's shared memory, see _k1_qt), the "xla" scan
-        runs instead, as the JAX package falls back to it where the slab
-        outgrows its fast memory. A CPU index runs v11 (the plain versions
-        have no such limit) where the JAX package runs "xla" off the TPU."""
+        memory), K1 still runs, at gpb = 1: its bodies serve every D (the
+        query-tile height follows D, see _k1_qt). A CPU index runs v11 on
+        the plain versions where the JAX package runs "xla" off the TPU."""
         override = os.environ.get("QUAKE_TPU_KERNEL")
         if override:
             return override
-        if self.device.type == "cuda" and self._k1_qt(64) is None:
-            return "xla"
         slab = self.store.C * self.d() * 4
         gpb = max(1, min(4, (12 << 20) // max(2 * slab, 1)))
         return f"v11g{gpb}"
 
-    def _k1_qt(self, qt: int):
+    def _k1_qt(self, qt: int) -> int:
         """The largest query-tile height of 64, 32, 16 and 8, at most qt, at
-        which a body of kernel K1 serves this index's D, asked of the built
-        library (ops/grouped_scan.grouped_scan_serves); None where none
-        does. A kernel row's selection reads only its own query and its
-        partition, so qt changes no result."""
-        return next((t for t in QTS if t <= qt and grouped_scan_serves(t, self.d())), None)
+        which kernel K1 runs its tensor-core body for this index's D, asked
+        of the built library (ops/grouped_scan.grouped_scan_uses_mma); qt
+        itself where there is none (D % 4 != 0, or a D too wide for any
+        tile: the CUDA-core body serves every D at every height). A kernel
+        row's selection reads only its own query and its partition, so qt
+        changes no result."""
+        return next((t for t in QTS if t <= qt and grouped_scan_uses_mma(t, self.d())), qt)
 
     def _parent_kernel(self) -> str:
         """Parent ranking of the fused fixed-nprobe path, read at each search:
@@ -338,12 +335,12 @@ class QuakeIndex:
         """(qt, group_chunk), by the JAX package's rules. The query-tile
         height qt tracks the expected queries per partition, a power of two
         in [8, 64]; on a CUDA index it then drops to the largest height at
-        which kernel K1 serves D (_k1_qt; D = 768 runs at qt = 32), where
-        one does. group_chunk, the groups the "xla" scan gathers at a time,
+        which kernel K1's tensor-core body serves D (_k1_qt; D = 768 runs at
+        qt = 32), where one does. group_chunk, the groups the "xla" scan gathers at a time,
         keeps a chunk's slabs near 128 MB, within [8, 128]."""
         qt = min(64, max(8, next_pow2(B * parent_k // max(self.nlist(), 1) or 1)))
         if self.device.type == "cuda":
-            qt = self._k1_qt(qt) or qt
+            qt = self._k1_qt(qt)
         slab_bytes = max(self.store.C * self.d() * 4, 1)
         return qt, max(8, min(128, (1 << 27) // slab_bytes))
 

@@ -45,17 +45,9 @@ def grouped_scan_uses_mma(qt: int, D: int) -> bool:
     (csrc/quake_kernels.cu::grouped_scan_uses_mma, asked of the built
     library): rows 16-byte aligned for the asynchronous copies (D % 4 == 0),
     and a whole-D query tile that fits a block's shared memory beside the
-    ring (D up to 608 at qt = 64, 1408 at qt = 32). Otherwise it runs the CUDA-core body."""
+    ring (D up to 608 at qt = 64, 1408 at qt = 32). Otherwise it runs the
+    CUDA-core body, which streams D in depth chunks and serves every D."""
     return bool(_ext.lib().qk_grouped_scan_uses_mma(qt, D))
-
-
-def grouped_scan_serves(qt: int, D: int) -> bool:
-    """Whether one of kernel K1's bodies serves (qt, D), asked of the built
-    library (csrc/quake_kernels.cu::grouped_scan_serves): the tensor-core
-    body, or the CUDA-core body whose [qt, D] query tile and 128-row segment
-    fit a block's shared memory (D up to 300 at qt = 64, about 425 at qt = 8
-    where D % 4 != 0)."""
-    return bool(_ext.lib().qk_grouped_scan_serves(qt, D))
 
 
 def fold_rounds(packed, k: int, fold: int = FOLD):
@@ -145,7 +137,8 @@ def grouped_scan_kernel(gp, group_size, qg, codes, normsT, kk: int,
 
     The launcher picks one of two bodies by shape (`grouped_scan_uses_mma`):
     the tensor-core body (split TF32 product, asynchronous copies) where
-    D % 4 == 0 (a row is 16-byte aligned), the CUDA-core body (f32)
+    D % 4 == 0 (a row is 16-byte aligned) and the whole-D query tile fits
+    beside its ring, the CUDA-core body (f32, D in depth chunks: every D)
     otherwise. Both compute the same function; neither is a fallback from a
     failure."""
     Gn, qt, D = qg.shape
@@ -159,9 +152,6 @@ def grouped_scan_kernel(gp, group_size, qg, codes, normsT, kk: int,
         raise ValueError(f"grouped_scan_kernel: unsupported device {qg.device}")
     if qt not in (8, 16, 32, 64):
         raise ValueError(f"grouped_scan_kernel: qt must be 8, 16, 32 or 64 (qt={qt})")
-    if not grouped_scan_serves(qt, D):
-        raise ValueError(f"grouped_scan_kernel: D={D} at qt={qt} needs more shared "
-                         "memory than a block has")
     mma = grouped_scan_uses_mma(qt, D)
     for name, t, dtype, shape in (
             ("gp", gp, torch.int32, (Gn,)),

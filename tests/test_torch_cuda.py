@@ -40,7 +40,7 @@ from quake_tpu_torch.ops.grouped_exact import exact_scan, exact_scan_plain
 from quake_tpu_torch.ops.grouped_family import (CHUNK_BODY, GROUP_BODY, MMA_BODY, rowscale_scan,
                                                 rowscale_scan_plain, rowscale_topk_body)
 from quake_tpu_torch.ops.grouped_scan import (grouped_scan_kernel, grouped_scan_plain,
-                                              grouped_scan_serves, grouped_scan_uses_mma,
+                                              grouped_scan_uses_mma,
                                               merge_positions, merge_positions_plain,
                                               packed_params)
 from quake_tpu_torch.ops.split_product import bmm_as_split_product
@@ -99,8 +99,8 @@ def test_grouped_scan_kernel_matches_plain(dev, qt, D, C):
 @pytest.mark.parametrize("poolp,kfin", [(128, 10), (256, 10), (1280, 20), (90, 10), (91, 10),
                                         (92, 10)])
 def test_merge_positions_kernel_matches_plain(dev, poolp, kfin):
-    """K2 on the placed pool as it is: widths that take 16-, 8- and 4-byte
-    loads, one fold segment or several."""
+    """K2 on the placed pool as it is: widths that take 8- and 4-byte loads,
+    one fold segment or several."""
     rng = np.random.default_rng(poolp)
     slot_mult = 256
     keys = rng.integers(-1, 500, size=(1000, poolp)).astype(np.float32)
@@ -148,12 +148,14 @@ def _flat_keys(codes, bias, q, metric):
 
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 @pytest.mark.parametrize("N,D,B", [(256, 128, 1000), (384, 13, 1000), (256, 768, 300),
-                                   (16384, 128, 300), (640, 100, 200), (768, 36, 200)])
+                                   (16384, 128, 300), (640, 100, 200), (768, 36, 200),
+                                   (256, 130, 100), (256, 770, 200)])
 def test_flat_topk_kernel_matches_plain(dev, metric, N, D, B):
     """K3 against its plain version: the tensor-core body with the scores
     kept (N up to 640) and in two passes (N = 768, 16384), a depth that
-    streams in chunks (D = 768), and the CUDA-core body (D = 13). Winner
-    overlap >= 0.99, and rank by rank the picks' keys within one level."""
+    streams in chunks (D = 768), and the CUDA-core body (D = 13; in depth
+    chunks, D = 130 and 770). Winner overlap >= 0.99, and rank by rank the
+    picks' keys within one level."""
     rng = np.random.default_rng(N + D)
     k = 16
     codes = torch.from_numpy(rng.standard_normal((N, D)).astype(np.float32)).to(dev)
@@ -629,15 +631,40 @@ def test_launchers_pick_the_body_by_shape(dev, qt, D):
 
 @pytest.mark.parametrize("qt,D,serves", [
     (64, 608, True), (64, 768, False), (32, 768, True), (32, 1408, True), (32, 1412, False),
-    (64, 300, True), (64, 302, False), (32, 302, True), (8, 770, False), (8, 424, True),
+    (64, 300, True), (64, 302, False), (32, 302, False), (8, 770, False), (8, 424, True),
 ])
 def test_grouped_scan_serves_each_shape(dev, qt, D, serves):
-    """Which (qt, D) a body of K1 serves: the tensor-core body (D % 4 == 0)
-    while the whole-D query tile fits beside a ring stage, the CUDA-core body
-    while [qt][Dp] and [128][Dp + 1] fit. The index lowers qt to the largest
-    height served, and runs "xla" where none is."""
-    assert grouped_scan_serves(qt, D) == serves
-    assert grouped_scan_uses_mma(qt, D) == (serves and D % 4 == 0)
+    """Which body of K1 serves (qt, D): the tensor-core body (`serves`) where
+    D % 4 == 0 and the whole-D query tile fits beside a ring stage, else the
+    CUDA-core body, which streams D in depth chunks and serves every shape.
+    The index lowers qt to the largest height the tensor-core body serves."""
+    assert grouped_scan_uses_mma(qt, D) == serves
+    if D % 4:
+        assert not serves
+
+
+@pytest.mark.parametrize("qt,D", [(64, 130), (64, 770), (8, 770), (32, 13)])
+def test_grouped_scan_cuda_core_body_streams_depth(dev, qt, D):
+    """K1's CUDA-core body (D % 4 != 0) at depths of one chunk (D = 13) and
+    of several (D = 130, 770), at every query-tile height: same function as
+    its plain version."""
+    rng = np.random.default_rng(qt * D)
+    P, C, Gn, kk = 6, 256, 40, 10
+    assert not grouped_scan_uses_mma(qt, D)
+    codes = torch.from_numpy(rng.standard_normal((P, C, D)).astype(np.float32)).to(dev)
+    sizes = torch.tensor(_tile_sizes(C), dtype=torch.int32, device=dev)
+    gp = torch.from_numpy(rng.integers(-1, P, Gn).astype(np.int32)).to(dev)
+    gsize = torch.where(gp >= 0, sizes[gp.clamp(min=0).long()], torch.zeros_like(gp)).contiguous()
+    slot_mult, levels = packed_params(C)
+    q = torch.from_numpy(rng.standard_normal((Gn, qt, D)).astype(np.float32)).to(dev)
+    scale = levels / (10.0 * D ** 0.5)
+    normsT = (((codes * codes).sum(-1) * 0.5 - 0.5 * D - 5.0 * D ** 0.5) * scale).contiguous()
+    args = (gp, gsize, (q * scale).contiguous(), codes, normsT, kk, slot_mult, levels)
+    got = grouped_scan_kernel(*args)
+    torch.cuda.synchronize()
+    alive = gsize > 0
+    assert (got[~alive] == -1).all()
+    _packed_agree(got, grouped_scan_plain(*args), alive, slot_mult, kk)
 
 
 @pytest.mark.parametrize("N,D,body", [
@@ -653,8 +680,8 @@ def test_flat_topk_body_by_shape(dev, N, D, body):
 @pytest.mark.parametrize("D", [768, 770])
 def test_wide_vectors_search_on_the_card(dev, D):
     """The default fused search at D = 768 (K1's tensor-core body at qt = 32,
-    K3's streaming the depth) and D = 770 (no K1 body serves: the "xla"
-    scan, K3's CUDA-core body) agrees with the exact scan of the probed
+    K3's streaming the depth) and D = 770 (the CUDA-core bodies of K1 and
+    K3, both streaming the depth) agrees with the exact scan of the probed
     partitions."""
     from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams
     from quake_tpu_torch.coordinator import rank_parents, reference_scan
@@ -666,18 +693,16 @@ def test_wide_vectors_search_on_the_card(dev, D):
     idx.build(x, None, IndexBuildParams(nlist=8, calibrate_aps=False))
     sp = SearchParams(k=10, nprobe=6)
     qt = idx._grouped_params(64, 6)[0]
-    served = [t for t in (64, 32, 16, 8) if grouped_scan_serves(t, D)]
-    if D == 768:
-        assert served == [32, 16, 8] and qt in served
-        assert idx._grouped_kernel().startswith("v11g")
-    else:
-        assert served == [] and idx._grouped_kernel() == "xla"
+    mma = [t for t in (64, 32, 16, 8) if grouped_scan_uses_mma(t, D)]
+    assert mma == ([32, 16, 8] if D == 768 else [])
+    assert qt in (mma if D == 768 else (64, 32, 16, 8))
+    assert idx._grouped_kernel().startswith("v11g")
     _ext.reset_launches()
     res = idx.search(q, sp)
     torch.cuda.synchronize()
     launches = dict(_ext.launches)
     assert launches["flat_topk"] == 1
-    assert launches["grouped_scan"] == (1 if D == 768 else 0)
+    assert launches["grouped_scan"] == 1 and launches["merge_positions"] == 1
     st, pst = idx.store.state, idx.parent.store.state
     qd = torch.from_numpy(q).to(dev)
     pids = rank_parents(pst.codes, pst.ids, pst.norms, qd, 6, "l2", "pallas")
