@@ -14,15 +14,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
              (chunked per-row-scale scan with the cross-chunk merge), K8 (raw
              scores), K9 (packed top-kk) and the sized and multi scans'
              kernels against their plain PyTorch versions on the card at
-             small shapes; K1 and K4, which multiply on the tensor cores with
-             split TF32 operands, also at the shapes that stress their tiles
-             (more groups than blocks, D below and at the tile depth, sizes
-             around a 128-row segment, kk 1, 10 and 100, D 200 and 256 that
-             a ring stage holds only in depth chunks), against the f32 plain
-             versions and against the plain versions run on
-             ops/split_product.py's model of the split product; K4 with
-             chunk tables of ct 128 and 256 and both at D = 30 (the
-             CUDA-core bodies) against the f32 plain versions.
+             small shapes; K1, K4, K7 and multi_topk, which multiply on the
+             tensor cores with split TF32 operands where D % 4 == 0, also at
+             the shapes that stress their tiles (more groups than blocks, D
+             below and at the tile depth, sizes around a 128-row segment, kk
+             1, 10 and 100, D 200 and 256 that a ring stage holds only in
+             depth chunks; K7 with chunks of one and two segments), against
+             the f32 plain versions and (K1, K4, K7) against the plain
+             versions run on ops/split_product.py's model of the split
+             product; K4 with chunk tables of ct 128 and 256 and all four at
+             D = 30 (the CUDA-core bodies) against the f32 plain versions.
 4. main    — the fixed-nprobe main path at full width: a 1,000,000 x 128
              synthetic-manifold corpus (seed 1), nlist=160, niter=25, l2, f32
              codes, built and searched through QuakeIndex. Recall@10 on 1024
@@ -70,10 +71,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
              floor), the by-name paths (K4 through v3p, v3pN,
              v6 and v4, K5 through v7, K1 through v8, K6 through v3 and v2,
              K7 through v5) and the direct paths (K8, K9, sized_topk,
-             multi_topk) gave it, with times and bounds (K1, K3, and K4 on
-             whole partitions, against the tensor cores' TF32 peak at three
-             products per f32 one, the others against the CUDA cores' f32
-             peak; no kernel may beat its bound), and the share of K1's time
+             multi_topk) gave it, with times and bounds (K1, K3, K4 on whole
+             partitions, K7 and multi_topk, against the tensor cores' TF32
+             peak at three products per f32 one, the others against the CUDA
+             cores' f32 peak; no kernel may beat its bound; K7 also against
+             its plain version on the split product's model), and the share of K1's time
              that its selection takes (K1 against a build of its body
              without the selection).
 
@@ -149,11 +151,12 @@ TF32_PEAK = 495e12  # H100 SXM dense TF32 FLOP/s on the tensor cores (data sheet
 # function, its peak). The tensor-core bodies take three TF32 products per f32 one.
 UNITS = {"f32 CUDA cores": (1.0, F32_PEAK), "TF32 tensor cores, 3 products": (3.0, TF32_PEAK)}
 CUDA_CORES, TENSOR_CORES = UNITS
-# Entries of the kernels line whose product runs on the tensor cores: K1, K3
-# (D % 4 == 0), and K4 on whole partitions (with v4's chunk table it runs in
-# f32 on the CUDA cores).
+# Entries of the kernels line whose product runs on the tensor cores at the
+# paths' shapes (D = 128): K1, K3, K4 on whole partitions (with v4's chunk
+# table it runs in f32 on the CUDA cores), K7 and multi_topk (their rows
+# check that the launcher picked the tensor-core body).
 TENSOR_CORE_ENTRIES = ("grouped_scan", "grouped_scan/v8", "flat_topk", "rowscale_topk/v3p",
-                       "rowscale_topk/v3pn", "rowscale_topk/v6")
+                       "rowscale_topk/v3pn", "rowscale_topk/v6", "chunk_merge/v5", "multi_topk")
 HBM_RATE = 3.35e12  # H100 SXM bytes/s
 QUEUE_CYCLES = 50_000_000  # ~25 ms of spinning at the H100's clock: room to enqueue the reps
 # Entry of the kernels line -> (CUDA kernel, its source, the TPU kernel it
@@ -341,22 +344,27 @@ def phase_small_parity(torch, dev):
 
 
 def phase_small_parity_tensor_core(torch, dev, rng):
-    """K1 and K4 at the shapes that stress the tensor-core bodies' tiles: 300
-    groups (more than blocks: every block walks several groups and loads
-    across their borders), qt 8 and 64, partitions of 0, 1, 127, 128, 129 and
-    all rows (K4 also 256 and 300 of a C = 520 that no segment divides), kk 1,
-    10 and 100, l2 and ip for K4; D 24, 100 and 128 (a ring stage holds all of
-    D) and D 200 and 256 (a stage holds a depth chunk of two or four boxes
-    and the accumulator carries over the chunks). Each against the f32 plain
-    version and against the plain version on the split product's model, at
-    the same tolerances. D = 30 (rows not 16-byte aligned) takes the
-    CUDA-core bodies. K4's chunk table with ct 128 and 256, laid out as the
-    v4 scan lays it, takes a CUDA-core body at every D and is held to the f32
-    plain version."""
+    """K1, K4, K7 and multi_topk at the shapes that stress the tensor-core
+    bodies' tiles: 300 groups (more than blocks: every block walks several
+    groups and loads across their borders), qt 8 and 64, partitions of 0, 1,
+    127, 128, 129 and all rows (K4 and multi_topk also 256 and 300 of a C =
+    520 that no segment divides, so a partition's last segment reads the
+    next one's rows; K7 the same sizes of C = 512 in chunks of ct 128 and
+    256), kk 1, 10 and 100 (K7 1 and 10), l2 and ip but for K1; D 24, 100 and
+    128 (a ring stage holds all of D) and D 200 and 256 (a stage holds a
+    depth chunk of two or four boxes and the accumulator carries over the
+    chunks). Each against the f32 plain version and, K1, K4 and K7, against
+    the plain version on the split product's model, at the same tolerances.
+    D = 30 (rows not 16-byte aligned) takes the CUDA-core bodies. K4's chunk
+    table with ct 128 and 256, laid out as the v4 scan lays it, takes a
+    CUDA-core body at every D and is held to the f32 plain version."""
+    from quake_tpu_torch.ops import grouped_chunked as gc
+    from quake_tpu_torch.ops import grouped_variants as gv
     from quake_tpu_torch.ops.grouped_family import (CHUNK_BODY, GROUP_BODY, MMA_BODY,
                                                     rowscale_topk_body)
     from quake_tpu_torch.ops.grouped_scan import (grouped_scan_kernel, grouped_scan_plain,
                                                   grouped_scan_uses_mma, packed_params)
+    from quake_tpu_torch.ops.split_product import bmm_as_split_product
 
     Gn = 300
     # worst[what] = [min overlap, max key difference of common winners, stats]
@@ -383,7 +391,11 @@ def phase_small_parity_tensor_core(torch, dev, rng):
         shape = "one stage" if Dm <= 128 else "depth chunks"
         if (grouped_scan_uses_mma(qt, Dm) != tensor_cores
                 or rowscale_topk_body(qt, Dm, 100) != (MMA_BODY if tensor_cores else GROUP_BODY)
-                or rowscale_topk_body(qt, Dm, 100, chunked=True) != (chunk_body or GROUP_BODY)):
+                or rowscale_topk_body(qt, Dm, 100, chunked=True) != (chunk_body or GROUP_BODY)
+                or gc.chunk_merge_body(qt, Dm, 10) != (gc.MMA_BODY if tensor_cores
+                                                       else gc.GROUP_BODY)
+                or gv.multi_topk_body(qt, Dm, 10) != (gv.MMA_BODY if tensor_cores
+                                                      else gv.CUDA_CORE_BODY)):
             raise AssertionError(f"qt={qt}, D={Dm}: the launchers chose other bodies than expected")
         # K1: C % 128 == 0.
         C = 512
@@ -435,9 +447,43 @@ def phase_small_parity_tensor_core(torch, dev, rng):
                     fold_in("K4 with a chunk table, " + ("the persistent body"
                                                          if chunk_body == CHUNK_BODY
                                                          else "one block a group"), r)
-    log("[parity small] K1 and K4 at the tile-stressing shapes (300 groups; qt in 8, 64; sizes 0, "
-        "1, 127, 128, 129, full; kk in 1, 10, 100; l2, ip; one stage: D in 24, 100, 128; depth "
-        "chunks: D in 200, 256; chunk tables with ct in 128, 256 on the CUDA cores): "
+        # multi_topk on K4's store (the lanes past a partition's size hold no
+        # id), where it serves the shape: not at qt = 64 past D = 130.
+        lane = torch.arange(C, device=dev)[None, :]
+        ids = torch.where(lane < sizes[:, None],
+                          torch.arange(codes.shape[0] * C, dtype=torch.int32,
+                                       device=dev).reshape(-1, C),
+                          torch.full_like(codes[:, :, 0], -1, dtype=torch.int32)).contiguous()
+        for kk in (1, 10, 100) if gv.multi_topk_serves(qt, Dm, 100) else ():
+            for metric in ("l2", "ip"):
+                r = compare_pairs(
+                    torch, "multi_topk",
+                    multi_slots(gv.multi_topk(gp, q, codes, ids, kk, metric, gb=4), C),
+                    multi_slots(gv.multi_topk_plain(gp, q, codes, ids, kk, metric), C), ties="up")
+                fold_in(f"multi_topk, {shape} (score error)" if tensor_cores
+                        else "multi_topk, D=30 (score error)", r)
+        # K7: chunks of one and of two segments; C = 512 keeps C % ct == 0.
+        C = 512
+        codes, norms, sizes = store(C, Dm, [0, 1, 127, 128, 129, C, 256, 300])
+        gsize = torch.where(gp >= 0, sizes[gp.clamp(min=0).long()],
+                            torch.zeros_like(gp)).contiguous()
+        for ct in (128, 256):
+            slot_mult, levels = packed_params(ct)
+            for kk in (1, 10):
+                for metric in ("l2", "ip"):
+                    args7 = (gp, gsize, q, codes, norms, kk, ct, slot_mult, levels, metric)
+                    got = gc.chunk_merge(*args7)
+                    for m, model in models if tensor_cores else models[:1]:
+                        with bmm_as_split_product() if model else contextlib.nullcontext():
+                            want = gc.chunk_merge_plain(*args7)
+                        r = compare_pairs(torch, f"K7 ({m} product)", got, want,
+                                          level=key_level(q, norms, levels, metric))
+                        fold_in(f"K7, {shape}, {m} product (score error)" if tensor_cores
+                                else "K7, D=30 (score error)", r)
+    log("[parity small] K1, K4, K7 and multi_topk at the tile-stressing shapes (300 groups; qt "
+        "in 8, 64; sizes 0, 1, 127, 128, 129, full; kk in 1, 10, 100; l2, ip; one stage: D in 24, "
+        "100, 128; depth chunks: D in 200, 256; K7 with ct in 128, 256; K4's chunk tables with ct "
+        "in 128, 256 on the CUDA cores): "
         + "; ".join(f"{what}: min overlap={w[0]:.4f} max_key_diff={w[1]} max_stats_err={w[2]:.3g}"
                     for what, w in worst.items()))
 
@@ -1075,10 +1121,12 @@ def exact_chunked_rows(torch, idx, q, pids, qt, kk, by_name):
     table and both outputs."""
     from quake_tpu_torch.coordinator import chunk_spec
     from quake_tpu_torch.ops.grouped import build_chunk_groups, build_groups
-    from quake_tpu_torch.ops.grouped_chunked import chunk_merge, chunk_merge_plain
+    from quake_tpu_torch.ops.grouped_chunked import MMA_BODY as K7_MMA_BODY
+    from quake_tpu_torch.ops.grouped_chunked import chunk_merge, chunk_merge_body, chunk_merge_plain
     from quake_tpu_torch.ops.grouped_exact import exact_scan, exact_scan_plain
     from quake_tpu_torch.ops.grouped_family import rowscale_scan, rowscale_scan_plain
     from quake_tpu_torch.ops.grouped_scan import packed_params, pad_groups
+    from quake_tpu_torch.ops.split_product import bmm_as_split_product
 
     st = idx.store.state
     P, C, Dd = st.codes.shape
@@ -1110,19 +1158,32 @@ def exact_chunked_rows(torch, idx, q, pids, qt, kk, by_name):
                                                              mode, **kw), reps=2, warmup=1),
             bound=b, groups=groups, scanned_rows=scanned))
 
-    # K7 as v5 uses it (gpb 4; ct by the dispatch's rule).
+    # K7 as v5 uses it (gpb 4; ct by the dispatch's rule), against its plain
+    # version on the f32 product and on the split product's model.
     ct, gpb = chunk_spec("v5", C, 4)
     slot_mult, levels = packed_params(ct)
     gp5, ql5, gsize5, safe_q5 = pad_groups(group_pid, qlist, st.sizes, gpb)
     args7 = (gp5, gsize5, q[safe_q5].contiguous(), st.codes, st.norms, min(kk, ct), ct,
              slot_mult, levels, "l2")
     level = key_level(args7[2], st.norms, levels, "l2")
-    ov, err = compare_pairs(torch, "K7", chunk_merge(*args7), chunk_merge_plain(*args7),
-                            level=level)
+    body = chunk_merge_body(qt, Dd, min(kk, ct))
+    if (body == K7_MMA_BODY) != (unit_of("chunk_merge/v5") == TENSOR_CORES):
+        raise AssertionError(f"K7 at qt={qt}, D={Dd}: body {body} is not the kernels line's unit")
+    got = chunk_merge(*args7)
+    ov, err = compare_pairs(torch, "K7", got, chunk_merge_plain(*args7), level=level)
+    with bmm_as_split_product():
+        ov_m, err_m = compare_pairs(torch, "K7 (split product's model)", got,
+                                    chunk_merge_plain(*args7), level=level)
+    log(f"[kernel] chunk_merge/v5 (body {body}): winner overlap {ov:.4f}, max score error {err:.3g} "
+        f"against the f32 plain version; {ov_m:.4f}, {err_m:.3g} against the plain version on the "
+        "split product's model")
+    del got
     b, groups, scanned = scan_bound(st, gp5, gsize5, (ql5 >= 0).sum(1), args7[2].numel() * 4, qt,
-                                    kk, Dd, extra=gp5.numel() * qt * kk * 4)
+                                    kk, Dd, extra=gp5.numel() * qt * kk * 4,
+                                    unit=unit_of("chunk_merge/v5"))
     rows.append(dict(name="chunk_merge/v5", tol=f"{pair_tol}, atol + one key level <= {level:.3g}",
-                     overlap=ov, max_abs_err=err,
+                     overlap=ov, max_abs_err=err, body=body, model_overlap=ov_m,
+                     model_max_abs_err=err_m,
                      err_of="score error", launches=by_name["v5"]["launches"]["chunk_merge"],
                      ms=time_ms(torch, lambda: chunk_merge(*args7), reps=5),
                      plain_ms=time_ms(torch, lambda: chunk_merge_plain(*args7), reps=2, warmup=1),
@@ -1161,9 +1222,11 @@ def variant_rows(torch, idx, q, pids, kk, direct):
     (ops/grouped.py::group_scores: a torch.bmm per chunk of groups, without
     the top-k), which computes the same function."""
     from quake_tpu_torch.ops.grouped import build_groups, group_scores
-    from quake_tpu_torch.ops.grouped_variants import (multi_topk, multi_topk_plain,
-                                                      packed_topk, packed_topk_plain,
-                                                      raw_scores, raw_scores_plain, sized_topk,
+    from quake_tpu_torch.ops.grouped_variants import MMA_BODY as MULTI_MMA_BODY
+    from quake_tpu_torch.ops.grouped_variants import (multi_topk, multi_topk_body,
+                                                      multi_topk_plain, packed_topk,
+                                                      packed_topk_plain, raw_scores,
+                                                      raw_scores_plain, sized_topk,
                                                       sized_topk_plain, slot_bits_of)
 
     st = idx.store.state
@@ -1184,7 +1247,7 @@ def variant_rows(torch, idx, q, pids, kk, direct):
 
     def row(name, fn, plain, whole_slab, extra, plain_reps=2, **fields):
         b, groups, scanned = scan_bound(st, gp, gsize, real_q, qg.numel() * 4, qt, kk, Dd,
-                                        extra=extra, whole_slab=whole_slab)
+                                        extra=extra, whole_slab=whole_slab, unit=unit_of(name))
         rows.append(dict(name=name, launches=direct[name]["launches"][name],
                          ms=time_ms(torch, fn, reps=5),
                          plain_ms=time_ms(torch, plain, reps=plain_reps, warmup=1),
@@ -1223,13 +1286,17 @@ def variant_rows(torch, idx, q, pids, kk, direct):
         lambda: packed_topk_plain(gp, qg, st.codes, st.ids, kk, "l2", chunk=64), True, 0,
         tol=(f"winner overlap >= {OVERLAP_TOL}, shared winners with bit-equal scores carry equal "
              "packed values"), overlap=ov9, max_abs_err=kd9)
+    body = multi_topk_body(qt, Dd, kk)
+    if (body == MULTI_MMA_BODY) != (unit_of("multi_topk") == TENSOR_CORES):
+        raise AssertionError(f"multi_topk at qt={qt}, D={Dd}: body {body} is not the kernels "
+                             "line's unit")
     ov, err = compare_pairs(
         torch, "multi_topk",
         multi_slots(multi_topk(gp, qg, st.codes, st.ids, kk, "l2", gb=MULTI_GB), C),
         multi_slots(multi_topk_plain(gp, qg, st.codes, st.ids, kk, "l2"), C), ties="up")
     row("multi_topk", lambda: multi_topk(gp, qg, st.codes, st.ids, kk, "l2", gb=MULTI_GB),
         lambda: multi_topk_plain(gp, qg, st.codes, st.ids, kk, "l2"), True, out_i,
-        tol=pair_tol, overlap=ov, max_abs_err=err, err_of="score error")
+        tol=pair_tol, overlap=ov, max_abs_err=err, err_of="score error", body=body)
     return rows
 
 
@@ -1573,6 +1640,7 @@ def phase_kernels(torch, dev, idx, x, queries, nprobe, launches, by_name, direct
             + (f", host-paced {r['paced_ms']:.4f} ms" if "paced_ms" in r else "")
             + (f", empty launch {r['floor_ms']:.4f} ms" if "floor_ms" in r else "")
             + (f", at {r['shape']} (body {r['body']})" if "shape" in r else "")
+            + (f", body {r['body']}" if "body" in r and "shape" not in r else "")
             + f"), overlap {r['overlap']:.4f}, max {r.get('err_of', 'key diff')} {r['max_abs_err']}"
             + (f", max stats error {r['stats_err']:.3g}" if "stats_err" in r else "")
             + f" ({r['tol']}), launches on its path {r['launches']}"
@@ -1582,7 +1650,7 @@ def phase_kernels(torch, dev, idx, x, queries, nprobe, launches, by_name, direct
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "bound_unit": unit, "library_ms": lib}
-        for extra in ("shape", "floor_ms"):
+        for extra in ("shape", "floor_ms", "body", "model_overlap", "model_max_abs_err"):
             if extra in r:
                 entry[extra] = r[extra]
         if "wide" in r:

@@ -4,8 +4,8 @@ The kernels live in ``csrc/*.cu`` (their shared helpers in ``csrc/*.cuh``)
 behind a plain C interface: one ``extern "C"`` launcher per kernel that
 takes raw device pointers and a stream and returns ``cudaGetLastError()``.
 At first use every source is compiled by its own ``nvcc`` process, all
-started together, for ``sm_90a`` (K1, K3 and K4 use ``mma.sync`` TF32 products
-and bulk tensor copies; the tensor map's encoder, ``cuTensorMapEncodeTiled``,
+started together, for ``sm_90a`` (K1, K3, K4, K7 and multi_topk use ``mma.sync``
+TF32 products and bulk tensor copies; the tensor map's encoder, ``cuTensorMapEncodeTiled``,
 is looked up in libcuda at run time with ``dlsym``, so only ``-ldl`` is linked);
 the
 objects are linked into one shared library under ``quake_tpu_torch/_build/``, named by a hash of the sources
@@ -39,8 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argtypes; every launcher returns a cudaError_t as int, the
-# qk_grouped_scan_uses_mma, qk_rowscale_topk_body and qk_flat_topk_body
-# entries the body chosen.
+# qk_grouped_scan_uses_mma and qk_*_body entries the body chosen.
 _SIGNATURES = {
     # gp, gsize, qg, codes, normsT, out, Gn, qt, D, P, C, kk, slot_mult, levels, stream
     "qk_grouped_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
@@ -65,17 +64,21 @@ _SIGNATURES = {
     # gp, gsize, qg, codes, norms, ids (gsize and norms, or ids, may be null),
     # out_s, out_i, Gn, qt, D, C, kk, is_l2, id_mode, stream
     "qk_exact_topk": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # gp, gsize, qg, codes, norms, out_s, out_i, Gn, qt, D, C, ct, kk, is_l2,
+    # gp, gsize, qg, codes, norms, out_s, out_i, Gn, qt, D, P, C, ct, kk, is_l2,
     # slot_mult, levels, stream
-    "qk_chunk_merge": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    "qk_chunk_merge": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    # qt, D, kk: the body K7's launcher runs (1 tensor cores, 0 CUDA cores)
+    "qk_chunk_merge_body": (_I, _I, _I),
     # gp, qg, codes, ids, out, Gn, qt, D, C, is_l2, stream
     "qk_raw_scores": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # gp, qg, codes, ids, out, Gn, qt, D, C, kk, is_l2, slot_bits, stream
     "qk_packed_topk": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # gp, gsize, qg, codes, out_s, out_i, Gn, qt, D, C, kk, is_l2, stream
     "qk_sized_topk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # gp, qg, codes, ids, out_s, out_i, Gn, qt, D, C, kk, is_l2, gb, stream
-    "qk_multi_topk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # gp, qg, codes, ids, out_s, out_i, Gn, qt, D, P, C, kk, is_l2, gb, stream
+    "qk_multi_topk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # qt, D, kk: the body multi_topk's launcher runs (1 tensor cores, 0 CUDA cores)
+    "qk_multi_topk_body": (_I, _I, _I),
 }
 
 KERNELS = ("grouped_scan", "merge_positions", "flat_topk", "rowscale_topk", "rowscale_fold",

@@ -1,9 +1,9 @@
 // Helpers shared by the package's CUDA kernels (csrc/*.cu): the thread
 // layout, the fold-128 top-2 selection, the (score, index) pair order and the
 // per-row candidate buffer of the exact selections, the shared-memory loads
-// and the tile product on the CUDA cores (tile_dots), and, for kernels K1 and
-// K4, the tile product on the tensor cores with its asynchronous loads
-// (mma_tile, segment_load_async).
+// and the tile product on the CUDA cores (tile_dots), and, for kernels K1,
+// K3, K4, K7 and multi_topk, the tile product on the tensor cores with its
+// asynchronous loads (mma_tile, segment_load_async) and the ring's shape.
 // Everything is in an anonymous namespace: each source gets its own copy.
 
 #pragma once
@@ -105,6 +105,125 @@ __device__ __noinline__ int cut_row(float* bs, int* bi, int cnt, int kk, float& 
   ts = ps;
   ti = pi;
   return w;
+}
+
+// A row's kk best (score, index) pairs as a sorted list (K7 and multi_topk on
+// the tensor cores). A row's lists lie in shared memory as (ls, li)[3 kk]:
+// the best so far at [cur kk, cur kk + kk), in the pair order, descending,
+// with (-inf, -1) fillers while fewer than kk are known; the other list at the
+// other of the first two thirds; n <= kk new candidates at [2 kk, 2 kk + n),
+// in any order. Indices are distinct, so the order is total.
+//
+// merge_rows puts the kk best of each of a warp's R rows (rows warp + 8 r)
+// and its n[r] candidates into the row's other list and flips cur[r], the
+// rows side by side: lane e0 + lane ranks entry e of every row in one loop (a
+// list entry at e has e entries of its list above it, a candidate the prefix
+// of the sorted list that a binary search finds), adds the candidates above
+// it, and an entry of rank below kk lands at that rank. The fillers lie below
+// every candidate, so the ranks are a permutation and every place of the new
+// list is written once.
+template <int R>
+__device__ __forceinline__ void merge_rows(float* ls, int* li, int (&cur)[R], const int (&n)[R],
+                                           int kk) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int most = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) most = n[r] > most ? n[r] : most;
+  if (most == 0) return;  // warp-uniform
+  for (int e0 = 0; e0 < kk + most; e0 += 32) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int e = e0 + lane;
+      if (n[r] == 0 || e >= kk + n[r]) continue;
+      float* rs = ls + (size_t)(warp + kWarps * r) * 3 * kk;
+      int* ri = li + (size_t)(warp + kWarps * r) * 3 * kk;
+      const float* cs = rs + cur[r] * kk;
+      const int* ci = ri + cur[r] * kk;
+      float s;
+      int i, rank;
+      if (e < kk) {
+        s = cs[e];
+        i = ci[e];
+        rank = e;
+      } else {
+        s = rs[kk + e];  // candidate e - kk
+        i = ri[kk + e];
+        int lo = 0, hi = kk;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (pair_above(cs[mid], ci[mid], s, i)) {
+            lo = mid + 1;
+          } else {
+            hi = mid;
+          }
+        }
+        rank = lo;
+      }
+      for (int j = 0; j < n[r]; ++j) rank += pair_above(rs[2 * kk + j], ri[2 * kk + j], s, i);
+      if (rank < kk) {
+        rs[(cur[r] ^ 1) * kk + rank] = s;
+        ri[(cur[r] ^ 1) * kk + rank] = i;
+      }
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (n[r] > 0) cur[r] ^= 1;
+}
+
+// merge_rows where kk <= 32, the list in registers: lane e holds entry e of
+// each row's list (in place, cur unchanged). The candidates go in one at a
+// time, the warp's rows side by side: a candidate's place is the number of
+// list entries above it (one vote), the entries from there on move down one
+// lane and the last falls off. Inserting candidates one by one keeps the kk
+// best of the list and those inserted so far, whatever their order.
+template <int R>
+__device__ __forceinline__ void insert_rows(float* ls, int* li, const int (&cur)[R],
+                                            const int (&n)[R], int kk) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int most = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) most = n[r] > most ? n[r] : most;
+  if (most == 0) return;  // warp-uniform
+  float s[R];
+  int id[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const size_t at = (size_t)(warp + kWarps * r) * 3 * kk + cur[r] * kk + lane;
+    s[r] = lane < kk ? ls[at] : -INFINITY;
+    id[r] = lane < kk ? li[at] : -1;
+  }
+  for (int c = 0; c < most; ++c) {
+    // No branch between the rows, so that their chains interleave: a row
+    // whose candidates are all in takes a pair below every entry, which
+    // lands past the list.
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const bool live = c < n[r];
+      const size_t at = (size_t)(warp + kWarps * r) * 3 * kk + 2 * kk + (live ? c : 0);
+      const float cs = live ? ls[at] : -INFINITY;
+      const int ci = live ? li[at] : INT_MIN;
+      const int pos = __popc(__ballot_sync(0xffffffffu, lane < kk && pair_above(s[r], id[r], cs, ci)));
+      const float us = __shfl_up_sync(0xffffffffu, s[r], 1);
+      const int ui = __shfl_up_sync(0xffffffffu, id[r], 1);
+      if (lane == pos) {
+        s[r] = cs;
+        id[r] = ci;
+      } else if (lane > pos) {
+        s[r] = us;
+        id[r] = ui;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (n[r] == 0 || lane >= kk) continue;
+    const size_t at = (size_t)(warp + kWarps * r) * 3 * kk + cur[r] * kk + lane;
+    ls[at] = s[r];
+    li[at] = id[r];
+  }
+  __syncwarp();
 }
 
 // cap of the per-row candidate buffers of the exact selections (K6, K9 and
@@ -233,7 +352,7 @@ __device__ __forceinline__ void tile_dots(float (&acc)[R][4], const float* qs,
 inline __host__ __device__ int padded_dim(int D) { return (D + 3) & ~3; }
 
 // ---------------------------------------------------------------------------
-// The tile product on the tensor cores (kernels K1 and K4).
+// The tile product on the tensor cores (kernels K1, K3, K4, K7, multi_topk).
 //
 // <q, x> for a [16 MW, D] query tile and a 128-row segment, as
 // mma.sync.m16n8k8 TF32 products with f32 accumulation. TF32 keeps 10 mantissa
@@ -492,6 +611,35 @@ __device__ __forceinline__ void mma_tile(float (&acc)[MT * NT][4], const float* 
 // rows are 16-byte aligned for the asynchronous copies (D % 4 == 0) and whose
 // whole-D query tile fits beside a ring stage of 4, 2 or 1 boxes.
 constexpr size_t kSmemLimit = 232448;
+
+// Floats of one ring stage of NBS boxes of the selecting tensor-core bodies
+// (K4, K7, multi_topk): a segment tile, or the [qt][kTileStride] value tile
+// laid over it, up to the next 1024-byte boundary.
+inline int ring_stage_floats(int qt, int NBS) {
+  const int tile = (qt * kTileStride + 255) / 256 * 256;
+  return NBS * kSegBox > tile ? NBS * kSegBox : tile;
+}
+
+// A selecting tensor-core body's ring stage and per-row candidate buffers:
+// NBS boxes a stage (all of D's, or the most of 4, 2 and 1 that fits) and
+// cap = round_up(kk, 32) plus the most of 128, 96, 64 and 32 that fits with
+// it (a cut makes room for 32 values at a time; more room means fewer cuts),
+// where smem(NBS, cap) is the body's shared memory in bytes. cap 0: the body
+// does not fit.
+struct RingShape {
+  int NBS, cap;
+};
+template <typename Smem>
+inline RingShape ring_shape(int D, int kk, Smem smem) {
+  for (int nbs = 4; nbs >= 1; nbs >>= 1) {
+    const int NBS = nbs < tile_boxes(D) ? nbs : tile_boxes(D);
+    for (int room = 128; room >= 32; room -= 32) {
+      const int cap = (kk + 31) / 32 * 32 + room;
+      if (smem(NBS, cap) <= kSmemLimit) return {NBS, cap};
+    }
+  }
+  return {0, 0};
+}
 
 // A tensor map over the slabs viewed as [rows, D] f32 (D % 4 == 0, codes on a
 // 16-byte boundary), in boxes of box_rows rows (128: a segment) x 32 columns

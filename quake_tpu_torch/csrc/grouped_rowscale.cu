@@ -20,12 +20,15 @@
 //      rounds of max-and-clear over the full row.
 //   K5 (rowscale_fold) — fold-128 top-2 then kk rounds, as kernel K1.
 //
-// Bound on the H100: operations. Each pass does 2 qt C D flops against
-// C D 4 bytes of slab (qt / 2 = 32 flops per byte at qt = 64); the row range
-// needs a first pass over the scores before any key exists, so the work is
-// two passes. K4's tensor-core body takes its products as split TF32 operands
-// (three TF32 products per f32 one: 3 x flops / 495 TFLOP/s a pass); K5, K7
-// and K4's two CUDA-core bodies run them in f32 (flops / 67 TFLOP/s a pass).
+// Bound on the H100: operations, 2 D flops a (real query row, valid lane)
+// pair of a pass, against 4 (D + 1) bytes of slab and norms a lane (qt / 2 =
+// 32 flops per byte at qt = 64). The row range needs a first pass over the
+// scores before any key exists, so K4's and K5's work is two passes; K7's is
+// one where a chunk is one 128-row segment (its range and keys come from the
+// same accumulators). The tensor-core bodies (K4 and K7) take their products
+// as split TF32 operands (three TF32 products per f32 one: 3 x flops /
+// 495 TFLOP/s a pass); K5 and the CUDA-core bodies of K4 and K7 run them in
+// f32 (flops / 67 TFLOP/s a pass).
 //
 // K4 has three bodies, chosen by shape in the launcher (rowscale_topk_body),
 // never after a failure. What bounded the first design: an f32 product on
@@ -34,8 +37,8 @@
 // chunk table, one block per 128-row chunk that fetched the same query tile
 // again.
 //
-// rowscale_scan_kernel (K5, and K4 where no other body fits; K7 follows the
-// same design), simple: one block per group, the [qt, D] query tile in shared memory, the
+// rowscale_scan_kernel (K5, and K4 where no other body fits; K7's CUDA-core
+// body follows the same design), simple: one block per group, the [qt, D] query tile in shared memory, the
 // slab streamed through shared memory in 128-row segments twice (only the
 // ceil(size / 128) segments that hold vectors). Pass 1 takes each row's min
 // and max; pass 2 recomputes the same scores with the same code in the same
@@ -86,21 +89,47 @@
 // runs one _v3p_select over the whole row with slot_mult = next_pow2(C): the
 // function of _v3pn_kernel).
 //
-// K7 (chunk_merge, the v5 generation) runs K4's body on each [qt, ct] chunk
-// below the partition's size, dequantizes the chunk's kk winners
-// (rowmin + key * (rng / levels), global slot = chunk * ct + local slot) and
-// keeps, per row, the kk best (score, slot) pairs over all chunks: score
-// descending, then the larger slot. It writes scores [Gn, qt, kk] f32 (-inf =
-// none) and slots [Gn, qt, kk] int32 (-1 = none). The TPU kernel collects all
-// maxch * kk candidates of a row and then runs kk rounds over them; that tile
-// does not fit shared memory at maxch = 59 (C = 7552, ct = 128), so K7 merges
-// the best kk so far with each chunk's kk (only those above the kk-th best so
-// far are emitted at all). Global slots are distinct, so the order is total
-// and the running merge selects exactly the same kk pairs.
-// Each chunk needs its own row range before its keys: two passes over the
-// chunk, and a chunk of at most 128 rows stays in shared memory between them
-// (one trip to global memory). The dequantized score uses the intrinsics
-// that are never contracted into an fma: ties between chunks decide winners.
+// K7 (chunk_merge, the v5 generation; replaces quake_tpu/ops/
+// pallas_grouped.py::_v5_kernel) runs K4's body on each [qt, ct] chunk below
+// the partition's size, dequantizes the chunk's kk winners (rowmin + key *
+// (rng / levels), global slot = chunk * ct + local slot) and keeps, per row,
+// the kk best (score, slot) pairs over all chunks: score descending, then the
+// larger slot. It writes scores [Gn, qt, kk] f32 (-inf = none) and slots
+// [Gn, qt, kk] int32 (-1 = none). The TPU kernel collects all maxch * kk
+// candidates of a row and then runs kk rounds over them; that tile does not
+// fit shared memory at maxch = 59 (C = 7552, ct = 128), so K7 merges the best
+// kk so far with each chunk's kk (only those whose dequantized score is not
+// below the kk-th best so far are kept at all). Global slots are distinct, so
+// the order is total and the running merge selects exactly the same kk
+// pairs. The dequantized score uses the intrinsics that are never
+// contracted into an fma: ties between chunks decide winners.
+//
+// K7 has two bodies, chosen by shape in the launcher (chunk_merge_body,
+// qk_chunk_merge_body), never after a failure. chunk_merge_kernel (D % 4 != 0,
+// or merge lists that crowd out the ring): one block per group, the f32
+// product of rowscale_scan_kernel run twice a chunk, emit_chunk and merge_row
+// one row after another. What bounded it on the H100 (42 ms on the v5 path):
+// the two products, loads that nothing overlapped, a block's short life, and
+// the serial per-row selection of up to 59 chunks a row.
+//
+// chunk_merge_mma_kernel, the tensor-core body: persistent and fed by K4's
+// TMA ring (a segment ahead, across chunk and group borders; rows at or past
+// the chunk's size masked), mma_tile (3xTF32) a segment. A chunk of one
+// 128-row segment (ct <= 128: every chunk of the v5 path at C = 7552) is
+// multiplied once: its row range is reduced in the accumulator's layout and
+// its keys come from the same accumulators, so they match the range bit for
+// bit. A chunk of n > 1 segments (ct = 256, 384, 512 or a whole slab) is
+// multiplied twice, 2 n - 1 visits as K4's body visits a group, the same code
+// in the same order (bit-identical scores): its scores do not fit beside the
+// ring. The keys pass through K4's [qt][128] tile into rows a warp owns,
+// where a value whose dequantized score lies below the row's kk-th best so
+// far is dropped before it is stored. A chunk of one segment takes its top kk
+// straight from the registers (kk rounds of a warp maximum where more than kk
+// are left); a longer one collects them in K4's candidate buffer. The winners
+// go into the row's sorted best list, the warp's rows side by side
+// (insert_rows, merge_rows). The chunk's row range, selection and merge run
+// in phases between block barriers, which the 8 warps of the one block an SM
+// cannot overlap with the product (PERF.md).
 //
 // K4's exact top-kk keeps, per row, a candidate buffer in shared memory of
 // cap = round_up(kk, 32) + 128 values and a threshold (initially -1): a value
@@ -575,41 +604,19 @@ int launch_rowscale_chunk(const void* gp, const void* gsize, const void* qsrc,
 
 // ------------------------------------------------- K4 on the tensor cores
 
-// Floats of one ring stage of NBS boxes: a segment tile, or the value tile
-// laid over it, up to the next 1024-byte boundary.
-inline int rowscale_stage_floats(int qt, int NBS) {
-  const int tile = (qt * kTileStride + 255) / 256 * 256;
-  return NBS * kSegBox > tile ? NBS * kSegBox : tile;
-}
-
 // Shared memory of K4's tensor-core body, in bytes, with ring stages of NBS
 // boxes and candidate buffers of cap values a row: room to reach a 1024-byte
 // boundary, ring, query tile, buffers, (rowmin, scale) per row, the
 // cross-warp min / max exchange, the two stage barriers.
 inline size_t rowscale_topk_mma_smem(int qt, int D, int NBS, int cap) {
   return 1024 + 16 +
-         (size_t)(2 * rowscale_stage_floats(qt, NBS) + tile_boxes(D) * (qt < 16 ? 16 : qt) * kBox +
+         (size_t)(2 * ring_stage_floats(qt, NBS) + tile_boxes(D) * (qt < 16 ? 16 : qt) * kBox +
                   qt * cap + 2 * qt + 2 * 32 * kWarps) *
              sizeof(float);
 }
 
-// The tensor-core body's ring stage and candidate buffers: NBS boxes a stage
-// (all of D's, or the most of 4, 2 and 1 that fits) and cap = round_up(kk, 32)
-// plus the most of 128, 96, 64 and 32 that fits with it (a cut makes room for
-// 32 values at a time; more room means fewer cuts). cap 0: the body does not
-// fit.
-struct RowscaleMmaShape {
-  int NBS, cap;
-};
-inline RowscaleMmaShape rowscale_topk_mma_shape(int qt, int D, int kk) {
-  for (int nbs = 4; nbs >= 1; nbs >>= 1) {
-    const int NBS = nbs < tile_boxes(D) ? nbs : tile_boxes(D);
-    for (int room = 128; room >= 32; room -= 32) {
-      const int cap = (kk + 31) / 32 * 32 + room;
-      if (rowscale_topk_mma_smem(qt, D, NBS, cap) <= kSmemLimit) return {NBS, cap};
-    }
-  }
-  return {0, 0};
+inline RingShape rowscale_topk_mma_shape(int qt, int D, int kk) {
+  return ring_shape(D, kk, [&](int NBS, int cap) { return rowscale_topk_mma_smem(qt, D, NBS, cap); });
 }
 
 // Which body serves a shape (qk_rowscale_topk_body names them). A chunk table
@@ -878,7 +885,7 @@ int launch_rowscale_topk_mma(const void* gp, const void* gsize, const void* qg,
   CUtensorMap cmap;
   const int me = slab_tensor_map(&cmap, codes, (unsigned long long)P * C, D);
   if (me != 0) return me;
-  const RowscaleMmaShape shape = rowscale_topk_mma_shape(qt, D, kk);
+  const RingShape shape = rowscale_topk_mma_shape(qt, D, kk);
   const int NBS = shape.NBS, cap = shape.cap;
   const size_t smem = rowscale_topk_mma_smem(qt, D, NBS, cap);
   const int grid = Gn < sm_count() ? Gn : sm_count();
@@ -889,7 +896,7 @@ int launch_rowscale_topk_mma(const void* gp, const void* gsize, const void* qg,
     if (e != cudaSuccess) return (int)e;                                                  \
     rowscale_topk_mma_kernel<QT><<<grid, kThreads, smem, st>>>(                           \
         cmap, (const int*)gp, (const int*)gsize, (const float*)qg, (const float*)norms,   \
-        (float*)out, (float*)stats, Gn, D, NB, NBS, rowscale_stage_floats(qt, NBS), C,    \
+        (float*)out, (float*)stats, Gn, D, NB, NBS, ring_stage_floats(qt, NBS), C,        \
         kk, cap, is_l2, slot_mult, levels);                                               \
     break;                                                                                \
   }
@@ -1125,6 +1132,431 @@ int launch_chunk_merge(const void* gp, const void* gsize, const void* qg, const 
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------- K7 on the tensor cores
+
+// Shared memory of K7's tensor-core body, in bytes: room to reach a
+// 1024-byte boundary, ring, query tile, candidate buffers of cap values a
+// row, the merge lists (3 kk (score, slot) pairs a row), (rowmin,
+// levels / rng, rng / levels, threshold) per row, the cross-warp min / max
+// exchange, the two stage barriers.
+inline size_t chunk_merge_mma_smem(int qt, int D, int kk, int NBS, int cap) {
+  return 1024 + 16 +
+         (size_t)(2 * ring_stage_floats(qt, NBS) + tile_boxes(D) * (qt < 16 ? 16 : qt) * kBox +
+                  qt * cap + qt * 6 * kk + 4 * qt + 2 * 32 * kWarps) *
+             sizeof(float);
+}
+
+inline RingShape chunk_merge_mma_shape(int qt, int D, int kk) {
+  return ring_shape(D, kk,
+                    [&](int NBS, int cap) { return chunk_merge_mma_smem(qt, D, kk, NBS, cap); });
+}
+
+// Which body serves K7 at a shape (qk_chunk_merge_body names them): 1 the
+// tensor-core body, where rows are 16-byte aligned for the asynchronous
+// copies (D % 4 == 0) and its ring, query tile, buffers and merge lists fit;
+// else 0, chunk_merge_kernel.
+inline int chunk_merge_body(int qt, int D, int kk) {
+  return D % 4 == 0 && chunk_merge_mma_shape(qt, D, kk).cap > 0 ? 1 : 0;
+}
+
+// K7 on the tensor cores (the design is in the note at the top of the file).
+// A block walks units (group, chunk): the chunks c < ceil(size / ct) of its
+// groups b, b + grid, ..., each of n = ceil(csize / 128) segments from row
+// gp[g] C + c ct of the slabs, visited 2 n - 1 times as K4's tensor-core body
+// visits a group. Per unit, a row keeps the chunk's packed values whose
+// dequantized score is not below the row's kk-th best score so far
+// (rowp[4 row + 3]) and of those its kk largest: the chunk's exact top kk
+// less those that cannot enter the row's best kk (a value left out lies
+// below every value kept and, its dequantized score being at most that of a
+// value the score test left out, below the kk-th best). They are
+// dequantized and merged at the unit's end.
+template <int QT>
+__global__ void __launch_bounds__(kThreads, 1)
+chunk_merge_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __restrict__ gp,
+                       const int* __restrict__ gsize, const float* __restrict__ qg,
+                       const float* __restrict__ norms, float* __restrict__ out_s,
+                       int* __restrict__ out_i, int Gn, int D, int NB, int NBS, int stage_floats,
+                       int C, int ct, int kk, int cap, int is_l2, float slot_mult, float levels) {
+  constexpr int MT = QT >= 32 ? 2 : 1;       // m16-tiles per warp
+  constexpr int MW = QT >= 64 ? 2 : 1;       // warps along the query rows
+  constexpr int NW = kWarps / MW;            // warps along the segment
+  constexpr int NT = 16 / NW;                // n8-tiles per warp
+  constexpr int T = MT * NT;                 // accumulator tiles per warp
+  constexpr int QR = 16 * MT * MW;           // rows of the query tile (zero from QT)
+  constexpr int R = QT / 8;                  // rows per warp in the selection
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem_aligned(smem);       // 2 x stage_floats: NBS boxes of [128][32], or the tile
+  float* qs = ring + 2 * stage_floats;    // NB boxes of [QR][32]
+  float* buf = qs + NB * QR * kBox;       // [QT][cap] the chunk's packed candidates
+  float* ls = buf + QT * cap;             // [QT][3 kk] merge scores
+  int* li = reinterpret_cast<int*>(ls + QT * 3 * kk);          // [QT][3 kk] merge slots
+  float* rowp = reinterpret_cast<float*>(li + QT * 3 * kk);    // [QT][4]
+  float* red = rowp + 4 * QT;             // [QR][NW][2] = (min, max) per warp, at most 512
+  uint64_t* bars = reinterpret_cast<uint64_t*>(red + 2 * 32 * kWarps);  // one a ring stage
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const int wn = warp % NW;
+  const int row0 = (warp / NW) * (16 * MT), col0 = wn * (8 * NT);
+  const int ksteps = (D + 7) >> 3;
+  const int ND = (NB + NBS - 1) / NBS;  // depth chunks a segment: a stage holds NBS boxes
+  const bool l2 = is_l2 != 0;
+
+  const int first = blockIdx.x, step = gridDim.x, end = Gn;
+  auto size_of = [&](int g) { return gp[g] >= 0 ? min(gsize[g], C) : 0; };
+  // Ghost groups write (-inf, -1) and take no part in the walk.
+  for (int g = first; g < end; g += step)
+    if (size_of(g) <= 0)
+      for (int i = threadIdx.x; i < QT * kk; i += kThreads) {
+        out_s[(size_t)g * QT * kk + i] = -INFINITY;
+        out_i[(size_t)g * QT * kk + i] = -1;
+      }
+  auto next_live = [&](int g) {
+    while (g < end && size_of(g) <= 0) g += step;
+    return g;
+  };
+  auto chunks_of = [&](int size) { return (size + ct - 1) / ct; };
+  auto segs_of = [&](int size, int c) { return (min(size - c * ct, ct) + kFold - 1) / kFold; };
+
+  // The producer walks the same units a stage ahead of the consumer.
+  mbar_init(bars);
+  int pg = next_live(first), pc = 0, pv = 0, pd = 0, pnseg = 0, prow = 0, psize = 0;
+  auto producer_unit = [&]() {  // (pc == 0: a new group, whose size and first row are read once)
+    if (pg < end) {
+      if (pc == 0) {
+        psize = size_of(pg);
+        prow = gp[pg] * C;  // the chunk's first row of the slabs viewed as [P C, D]
+      }
+      pnseg = segs_of(psize, pc);
+    }
+  };
+  producer_unit();
+  auto prefetch = [&](int stage) {
+    if (pg < end) {
+      const int s = pv < pnseg ? pv : pv - pnseg;
+      if (!(ND == 1 && pnseg == 2 && pv == 2))
+        segment_load_async(ring + stage * stage_floats, &cmap, prow + s * kFold, pd * NBS,
+                           min(NBS, NB - pd * NBS), bars + stage);
+      if (++pd < ND) return;
+      pd = 0;
+      if (++pv < 2 * pnseg - 1) return;
+      pv = 0;
+      prow += ct;
+      if (++pc == chunks_of(psize)) {
+        pc = 0;
+        pg = next_live(pg + step);
+      }
+      producer_unit();
+    }
+  };
+  int cg = pg, cc = 0, cv = 0, cd = 0, stage = 0;
+  uint32_t parity = 0;  // bit s: the parity of stage s's next completed phase
+  prefetch(0);
+
+  // Rows row0 + 16 i + g4 + 8 h at [2 i + h], over this thread's columns.
+  float mn[2 * MT], mx[2 * MT];
+  float acc[T][4];  // the scores of this thread's entries, tile (i, j) at i NT + j
+  int cnt[R], cur[R], nc[R];
+  float thr[R];
+  int size = 0, csize = 0, nseg = 0;
+  const float* nrm = norms;   // the chunk's norms
+  const float* gnrm = norms;  // the group's partition's norms
+  const float inv_mult = 1.0f / slot_mult;  // a power of two: v * inv_mult is exact
+  // The dequantized score and global slot of a chunk's packed value into a
+  // row's candidate third at pos.
+  auto put_candidate = [&](int row, int pos, float v) {
+    const float key = floorf(v * inv_mult);
+    ls[(size_t)row * 3 * kk + 2 * kk + pos] =
+        __fadd_rn(rowp[4 * row], __fmul_rn(key, rowp[4 * row + 2]));
+    li[(size_t)row * 3 * kk + 2 * kk + pos] = cc * ct + (int)(v - key * slot_mult);
+  };
+  while (cg < end) {
+    float* stage_mem = ring + stage * stage_floats;
+    prefetch(stage ^ 1);
+    if (cv == 0 && cd == 0) {
+      if (cc == 0) {  // a new group: its query tile and empty merge lists
+        size = size_of(cg);
+        gnrm = norms + (size_t)gp[cg] * C;
+        // The last product of the previous group ended before a barrier.
+        query_tile_load(qs, qg + (size_t)cg * QT * D, QT, QR, D, NB);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int row = warp + kWarps * r;
+          for (int e = lane; e < kk; e += 32) {
+            ls[(size_t)row * 3 * kk + e] = -INFINITY;
+            li[(size_t)row * 3 * kk + e] = -1;
+          }
+          if (lane == 0) rowp[4 * row + 3] = -INFINITY;
+          cur[r] = 0;
+        }
+      }
+      csize = min(size - cc * ct, ct);
+      nseg = (csize + kFold - 1) / kFold;
+      nrm = gnrm + (size_t)cc * ct;
+#pragma unroll
+      for (int m = 0; m < 2 * MT; ++m) {
+        mn[m] = INFINITY;
+        mx[m] = -INFINITY;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        cnt[r] = 0;
+        nc[r] = 0;
+        thr[r] = -1.0f;
+      }
+    }
+    const int s = cv < nseg ? cv : cv - nseg;
+    // This thread's norms, asked for before the product so that they arrive
+    // under it.
+    const int lnb = s * kFold + col0 + 2 * t4;
+    float nv[NT][2];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int ln = lnb + 8 * j + c;
+        nv[j][c] = (l2 && ln < csize) ? __ldg(nrm + ln) : 0.0f;
+      }
+    if (!(ND == 1 && nseg == 2 && cv == 2)) {  // the current stage has landed (or was left here)
+      mbar_wait(bars + stage, (parity >> stage) & 1u);
+      parity ^= 1u << stage;
+    }
+    __syncthreads();  // and the query tile, the lists and the thresholds are in place
+
+    mma_tile<MT, NT>(acc, qs + cd * NBS * QR * kBox, stage_mem, row0, col0, QR,
+                     min(4 * NBS, ksteps - 4 * NBS * cd), cd == 0);
+    if (cd + 1 < ND) {  // the segment's next depth chunk adds to acc
+      __syncthreads();  // the stage is consumed: its buffer may be refilled
+      stage ^= 1;
+      ++cd;
+      continue;
+    }
+    cd = 0;
+    if (l2) {
+#pragma unroll
+      for (int ti = 0; ti < T; ++ti)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)  // 2 dot is exact, so a contraction into fmaf changes nothing
+          acc[ti][e] = 2.0f * acc[ti][e] - nv[ti % NT][e & 1];
+    }
+
+    // The packed values of the scores in acc whose dequantized score is not
+    // below the row's kk-th best so far (else -1), through the tile laid over
+    // the consumed stage, into each row's candidate buffer. Every warp must
+    // have finished reading the stage before the call.
+    auto select_segment = [&]() {
+#pragma unroll
+      for (int m = 0; m < 2 * MT; ++m) {
+        const int row = row0 + 16 * (m / 2) + g4 + 8 * (m % 2);
+        if (row < QT) {
+          const float rmin = rowp[4 * row], scale = rowp[4 * row + 1];
+          const float stp = rowp[4 * row + 2], ts = rowp[4 * row + 3];
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            float v[2];
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int ln = lnb + 8 * j + c;
+              const float key = floorf((acc[(m / 2) * NT + j][2 * (m % 2) + c] - rmin) * scale);
+              // The dequantized score as the merge computes it: never
+              // contracted into an fma, ties between chunks decide winners.
+              const bool keep = ln < csize && !(__fadd_rn(rmin, __fmul_rn(key, stp)) < ts);
+              v[c] = keep ? key * slot_mult + (float)ln : -1.0f;
+            }
+            *reinterpret_cast<float2*>(stage_mem + row * kTileStride + col0 + 8 * j + 2 * t4) =
+                make_float2(v[0], v[1]);
+          }
+        }
+      }
+      __syncthreads();
+      float v[R][4];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          v[r][j] = stage_mem[(warp + kWarps * r) * kTileStride + lane + 32 * j];
+      if (nseg == 1) {  // the whole chunk is in these registers: its kk best straight from them
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const bool any = fmaxf(fmaxf(v[r][0], v[r][1]), fmaxf(v[r][2], v[r][3])) >= 0.0f;
+          if (!__any_sync(0xffffffffu, any)) continue;  // no value above the row's kk-th best so far
+          unsigned keep[4];
+          int n = 0;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            keep[j] = __ballot_sync(0xffffffffu, v[r][j] >= 0.0f);
+            n += __popc(keep[j]);
+          }
+          if (n > kk) {  // the kk-th largest value, by kk rounds of a warp maximum below the last
+            float kth = 16777216.0f;  // 2^24: above every packed value
+            for (int i = 0; i < kk; ++i) {
+              float m = -1.0f;
+#pragma unroll
+              for (int j = 0; j < 4; ++j) m = fmaxf(m, v[r][j] < kth ? v[r][j] : -1.0f);
+              kth = packed_max(0xffffffffu, m);
+            }
+            n = 0;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              keep[j] = __ballot_sync(0xffffffffu, v[r][j] >= kth);
+              n += __popc(keep[j]);
+            }
+          }
+          int pos = 0;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if ((keep[j] >> lane) & 1u)
+              put_candidate(warp + kWarps * r, pos + __popc(keep[j] & ((1u << lane) - 1u)),
+                            v[r][j]);
+            pos += __popc(keep[j]);
+          }
+          nc[r] = n;
+        }
+        return;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float top = fmaxf(fmaxf(v[r][0], v[r][1]), fmaxf(v[r][2], v[r][3]));
+        if (!__any_sync(0xffffffffu, top > thr[r])) continue;
+        float* b = buf + (size_t)(warp + kWarps * r) * cap;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (cnt[r] + 32 > cap) {  // warp-uniform
+            thr[r] = cut_row(b, cnt[r], kk);
+            cnt[r] = kk;
+          }
+          const bool take = v[r][j] > thr[r];
+          const unsigned m = __ballot_sync(0xffffffffu, take);
+          if (take) b[cnt[r] + __popc(m & ((1u << lane) - 1u))] = v[r][j];
+          cnt[r] += __popc(m);
+        }
+      }
+    };
+
+    if (cv < nseg) {  // pass 1: each row's min and max over the chunk's valid lanes
+#pragma unroll
+      for (int ti = 0; ti < T; ++ti)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (lnb + 8 * (ti % NT) + (e & 1) < csize) {
+            const int m = 2 * (ti / NT) + (e >> 1);
+            mn[m] = fminf(mn[m], acc[ti][e]);
+            mx[m] = fmaxf(mx[m], acc[ti][e]);
+          }
+      if (cv == nseg - 1) {  // the ranges are complete: select from acc
+#pragma unroll
+        for (int m = 0; m < 2 * MT; ++m) {
+#pragma unroll
+          for (int o = 1; o <= 2; o <<= 1) {
+            mn[m] = fminf(mn[m], __shfl_xor_sync(0xffffffffu, mn[m], o));
+            mx[m] = fmaxf(mx[m], __shfl_xor_sync(0xffffffffu, mx[m], o));
+          }
+          if (t4 == 0) {
+            const int row = row0 + 16 * (m / 2) + g4 + 8 * (m % 2);
+            red[(row * NW + wn) * 2] = mn[m];
+            red[(row * NW + wn) * 2 + 1] = mx[m];
+          }
+        }
+        __syncthreads();  // also: every warp has finished reading the stage
+        if (threadIdx.x < QT) {
+          const int row = threadIdx.x;
+          float rmin = INFINITY, rmax = -INFINITY;
+#pragma unroll
+          for (int w = 0; w < NW; ++w) {
+            rmin = fminf(rmin, red[(row * NW + w) * 2]);
+            rmax = fmaxf(rmax, red[(row * NW + w) * 2 + 1]);
+          }
+          const float rng = fmaxf(rmax - rmin, kMinRange);
+          rowp[4 * row] = rmin;
+          rowp[4 * row + 1] = levels / rng;
+          rowp[4 * row + 2] = __fdiv_rn(rng, levels);
+        }
+        __syncthreads();
+      }
+    } else {  // pass 2: the same scores, to be quantized with the row's range
+      __syncthreads();  // every warp has finished reading the stage
+    }
+    if (cv >= nseg - 1) select_segment();  // from the last visit of pass 1 on
+    fence_async_proxy();  // the tile's stores, before the copy that refills the stage
+    __syncthreads();      // the stage is consumed: its buffer may be refilled
+    stage ^= 1;
+    if (++cv < 2 * nseg - 1) continue;
+    cv = 0;
+
+    // The chunk's winners (a chunk of several segments: its buffer cut to the
+    // kk best values and dequantized) merged with each row's best so far.
+    if (nseg > 1) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float* b = buf + (size_t)(warp + kWarps * r) * cap;
+        if (cnt[r] > kk) {  // warp-uniform
+          cut_row(b, cnt[r], kk);
+          cnt[r] = kk;
+        }
+        for (int e = lane; e < cnt[r]; e += 32) put_candidate(warp + kWarps * r, e, b[e]);
+        nc[r] = cnt[r];
+      }
+    }
+    __syncwarp();
+    if (kk <= 32) {
+      insert_rows<R>(ls, li, cur, nc, kk);
+    } else {
+      merge_rows<R>(ls, li, cur, nc, kk);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {  // the row's new kk-th best score: the threshold of the next chunk
+      const int row = warp + kWarps * r;
+      if (nc[r] > 0 && lane == 0) rowp[4 * row + 3] = ls[(size_t)row * 3 * kk + cur[r] * kk + kk - 1];
+    }
+    __syncwarp();
+    if (++cc < chunks_of(size)) continue;
+    cc = 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = warp + kWarps * r;
+      for (int e = lane; e < kk; e += 32) {
+        out_s[((size_t)cg * QT + row) * kk + e] = ls[(size_t)row * 3 * kk + cur[r] * kk + e];
+        out_i[((size_t)cg * QT + row) * kk + e] = li[(size_t)row * 3 * kk + cur[r] * kk + e];
+      }
+    }
+    __syncwarp();
+    cg = next_live(cg + step);
+  }
+}
+
+int launch_chunk_merge_mma(const void* gp, const void* gsize, const void* qg, const void* codes,
+                           const void* norms, void* out_s, void* out_i, int Gn, int qt, int D,
+                           int P, int C, int ct, int kk, int is_l2, float slot_mult,
+                           float levels, void* stream) {
+  const int NB = tile_boxes(D);
+  CUtensorMap cmap;
+  const int me = slab_tensor_map(&cmap, codes, (unsigned long long)P * C, D);
+  if (me != 0) return me;
+  const RingShape shape = chunk_merge_mma_shape(qt, D, kk);
+  const size_t smem = chunk_merge_mma_smem(qt, D, kk, shape.NBS, shape.cap);
+  const int grid = Gn < sm_count() ? Gn : sm_count();
+  cudaStream_t st = (cudaStream_t)stream;
+#define QK_CHUNK_MERGE_MMA(QT)                                                             \
+  case QT: {                                                                               \
+    cudaError_t e = allow_smem(chunk_merge_mma_kernel<QT>, smem);                          \
+    if (e != cudaSuccess) return (int)e;                                                   \
+    chunk_merge_mma_kernel<QT><<<grid, kThreads, smem, st>>>(                              \
+        cmap, (const int*)gp, (const int*)gsize, (const float*)qg, (const float*)norms,    \
+        (float*)out_s, (int*)out_i, Gn, D, NB, shape.NBS, ring_stage_floats(qt, shape.NBS), \
+        C, ct, kk, shape.cap, is_l2, slot_mult, levels);                                   \
+    break;                                                                                 \
+  }
+  switch (qt) {
+    QK_CHUNK_MERGE_MMA(8)
+    QK_CHUNK_MERGE_MMA(16)
+    QK_CHUNK_MERGE_MMA(32)
+    QK_CHUNK_MERGE_MMA(64)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef QK_CHUNK_MERGE_MMA
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1169,10 +1601,19 @@ int qk_rowscale_fold(const void* gp, const void* gsize, const void* qg, const vo
 
 // K7: replaces quake_tpu/ops/pallas_grouped.py::_v5_kernel.
 int qk_chunk_merge(const void* gp, const void* gsize, const void* qg, const void* codes,
-                   const void* norms, void* out_s, void* out_i, int Gn, int qt, int D, int C,
-                   int ct, int kk, int is_l2, float slot_mult, float levels, void* stream) {
+                   const void* norms, void* out_s, void* out_i, int Gn, int qt, int D, int P,
+                   int C, int ct, int kk, int is_l2, float slot_mult, float levels,
+                   void* stream) {
+  if (Gn <= 0) return (int)cudaGetLastError();
+  if (chunk_merge_body(qt, D, kk) == 1)
+    return launch_chunk_merge_mma(gp, gsize, qg, codes, norms, out_s, out_i, Gn, qt, D, P, C,
+                                  ct, kk, is_l2, slot_mult, levels, stream);
   return launch_chunk_merge(gp, gsize, qg, codes, norms, out_s, out_i, Gn, qt, D, C, ct, kk,
                             is_l2, slot_mult, levels, stream);
 }
+
+// The body qk_chunk_merge runs at this shape: 1 the tensor-core body, 0 the
+// CUDA-core body of one block a group.
+int qk_chunk_merge_body(int qt, int D, int kk) { return chunk_merge_body(qt, D, kk); }
 
 }  // extern "C"

@@ -349,8 +349,19 @@ class QuakeIndex:
     def ntotal(self) -> int:
         return self.store.ntotal() if self.store else 0
 
+    def parent_ntotal(self) -> int:
+        return self.parent.ntotal() if self.parent else 0
+
     def nlist(self) -> int:
         return self.store.nlist() if self.store else 0
 
     def d(self) -> int:
         return self.store.d if self.store else 0
+
+    def centroids(self) -> np.ndarray:
+        """The active partitions' centroids, as numpy: the first nlist rows
+        of a flat index, else the store's active rows in ascending order."""
+        cents = self.store.state.centroids.cpu().numpy()
+        if self.parent is None:
+            return cents[:self.nlist()]
+        return cents[self.store.active_rows()]

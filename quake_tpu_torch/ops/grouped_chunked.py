@@ -11,14 +11,16 @@ its own score range, as v3p does, and exact-rescore the winners.
   v5  one kernel group per (partition, query tile): kernel K7
       (`chunk_merge`) runs the v3p body on each chunk, dequantizes its kk
       winners and merges them across the chunks by (score, larger slot); the
-      epilogue is one merge across the probes
+      epilogue is one merge across the probes. K7 multiplies on the tensor
+      cores with split TF32 operands where D % 4 == 0 (one product a chunk
+      of one 128-row segment), else in f32 on the CUDA cores
   v6  kernel K4 as it is: _v6_kernel fetches in chunks and then runs one
       _v3p_select over the whole row with slot_mult = next_pow2(C), the
       function of _v3pn_kernel; K4 already reads only the 128-row segments
       below the size
 
-The TPU kernels' groups-per-step `gpb` only pads the group count here: each
-kernel runs one block per group. K7 is a CUDA kernel
+The TPU kernels' groups-per-step `gpb` only pads the group count here. K7
+is a CUDA kernel
 (csrc/grouped_rowscale.cu); `chunk_merge` runs its plain PyTorch version on
 CPU tensors and launches it on CUDA tensors.
 """
@@ -105,6 +107,19 @@ def chunk_merge_plain(gp, group_size, qg, codes, norms, kk: int, ct: int, slot_m
     return out_s, out_i
 
 
+MMA_BODY, GROUP_BODY = 1, 0  # chunk_merge_body's answers
+
+
+def chunk_merge_body(qt: int, D: int, kk: int) -> int:
+    """The body kernel K7's launcher runs at this shape
+    (csrc/grouped_rowscale.cu::chunk_merge_body, asked of the built library):
+    MMA_BODY, the tensor-core body, where rows are 16-byte aligned for the
+    asynchronous copies (D % 4 == 0) and its ring, query tile, candidate
+    buffers and merge lists fit a block's shared memory; else GROUP_BODY,
+    the CUDA-core body of one block a group."""
+    return int(_ext.lib().qk_chunk_merge_body(qt, D, kk))
+
+
 def chunk_merge(gp, group_size, qg, codes, norms, kk: int, ct: int, slot_mult: int, levels: int,
                 metric: str):
     """Kernel K7 (replaces pallas_grouped.py::_v5_kernel).
@@ -117,7 +132,13 @@ def chunk_merge(gp, group_size, qg, codes, norms, kk: int, ct: int, slot_mult: i
     at slot c * ct + lane; then per row the kk best over all chunks, score
     descending and the larger slot first among equal scores. Returns (scores
     [Gn, qt, kk] f32, without the per-query |q|^2, -inf = none; slots
-    [Gn, qt, kk] int32, -1 = none)."""
+    [Gn, qt, kk] int32, -1 = none).
+
+    The launcher picks one of two bodies by shape (`chunk_merge_body`),
+    never after a failure: the tensor-core body (split TF32 product, one
+    product a chunk of one segment, asynchronous copies, a persistent block
+    per SM) or the CUDA-core body of one block a group (f32), which serves
+    D % 4 != 0 and the shapes whose merge lists crowd out the ring."""
     Gn, qt, D = qg.shape
     P, C, _ = codes.shape
     if ct <= 0 or C % ct:
@@ -132,7 +153,9 @@ def chunk_merge(gp, group_size, qg, codes, norms, kk: int, ct: int, slot_mult: i
     if qt not in (8, 16, 32, 64):
         raise ValueError(f"chunk_merge: qt must be 8, 16, 32 or 64 (qt={qt})")
     Dp = -(-D // 4) * 4
-    if (qt * Dp + FOLD * (Dp + 1) + qt * topk_cap(kk) + qt * 6 * kk) * 4 > SMEM_LIMIT:
+    body = chunk_merge_body(qt, D, kk)
+    if (body == GROUP_BODY
+            and (qt * Dp + FOLD * (Dp + 1) + qt * topk_cap(kk) + qt * 6 * kk) * 4 > SMEM_LIMIT):
         raise ValueError(f"chunk_merge: D={D}, qt={qt}, kk={kk} need more shared memory than "
                          "a block has (kernel K7 keeps round_up(kk, 32) + 128 candidates and "
                          "three lists of kk (score, slot) pairs per row)")
@@ -146,11 +169,13 @@ def chunk_merge(gp, group_size, qg, codes, norms, kk: int, ct: int, slot_mult: i
                 or not t.is_contiguous()):
             raise ValueError(f"chunk_merge: {name} must be a contiguous "
                              f"{dtype} {shape} tensor on {qg.device}")
+    if body == MMA_BODY and (qg.data_ptr() % 16 or codes.data_ptr() % 16):
+        raise ValueError("chunk_merge: qg and codes must start on a 16-byte boundary")
     out_s = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.float32)
     out_i = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.int32)
     rc = _ext.lib().qk_chunk_merge(
         gp.data_ptr(), group_size.data_ptr(), qg.data_ptr(), codes.data_ptr(),
-        norms.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), Gn, qt, D, C, ct, kk,
+        norms.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), Gn, qt, D, P, C, ct, kk,
         int(metric == "l2"), float(slot_mult), float(levels), _ext.stream_ptr(qg.device))
     _ext.check(rc, "chunk_merge")
     _ext.launches["chunk_merge"] += 1

@@ -15,7 +15,8 @@ All four score in f32 with both norms summed in the kernel
           monotone key of the score's bit pattern above the lane; unpacked,
           merged per query by the key, and the k winners rescored exactly
   multi   kernel `multi_topk`: (score, slot) top-kk over the lanes with an
-          id, ties to the smaller slot, gb groups per block; slot -> id,
+          id, ties to the smaller slot; on the tensor cores where D % 4 == 0
+          (else gb groups per block on the CUDA cores); slot -> id,
           `merge_groups`
 
 The kernels are CUDA (csrc/grouped_variants.cu); each wrapper runs its plain
@@ -439,15 +440,49 @@ def multi_topk_plain(gp, qg, codes, ids, kk: int, metric: str, chunk: int = 256)
     return out_s, out_i
 
 
+MMA_BODY, CUDA_CORE_BODY = 1, 0  # multi_topk_body's answers
+
+
+def multi_topk_body(qt: int, D: int, kk: int) -> int:
+    """The body kernel multi_topk's launcher runs at this shape
+    (csrc/grouped_variants.cu::multi_topk_body, asked of the built library):
+    MMA_BODY, the tensor-core body, where rows are 16-byte aligned for the
+    asynchronous copies (D % 4 == 0) and its ring, query tile and the rows'
+    lists of 3 kk (score, slot) pairs fit a block's shared memory; else
+    CUDA_CORE_BODY, gb groups a block on the CUDA cores."""
+    return int(_ext.lib().qk_multi_topk_body(qt, D, kk))
+
+
+def _multi_floats(qt: int, D: int, kk: int) -> int:
+    """Shared memory (in floats) of multi_topk's CUDA-core body: the query
+    tile, a segment and round_up(kk, 32) + 128 (score, slot) pairs a row."""
+    return _base_floats(qt, D) + 2 * qt * topk_cap(kk)
+
+
+def multi_topk_serves(qt: int, D: int, kk: int) -> bool:
+    """Whether multi_topk serves (qt, D, kk) on the card: where the CUDA-core
+    body fits a block's shared memory (the contract since the kernel was
+    ported; the tensor-core body takes such a shape where D % 4 == 0 and its
+    own buffers fit)."""
+    return _multi_floats(qt, D, kk) * 4 <= SMEM_LIMIT
+
+
 def multi_topk(gp, qg, codes, ids, kk: int, metric: str, gb: int = 8):
     """Kernel multi_topk (replaces pallas_grouped.py::_multi_kernel).
 
     gp [Gn] int32 (-1: ghost), Gn a multiple of gb; qg [Gn, qt, D] f32; codes
     [P, C, D] f32; ids [P, C] int32. Per row the kk best (score, slot) over
     the lanes with id >= 0 of the whole slab, scores with both norms summed
-    in the kernel, ties to the smaller slot; one block walks gb consecutive
-    groups. Returns (scores [Gn, qt, kk] f32 descending, -inf = none; slots
-    [Gn, qt, kk] int32, C = none)."""
+    in the kernel, ties to the smaller slot. Returns (scores [Gn, qt, kk] f32
+    descending, -inf = none; slots [Gn, qt, kk] int32, C = none).
+
+    The launcher picks one of two bodies by shape (`multi_topk_body`), never
+    after a failure: the tensor-core body (split TF32 product, asynchronous
+    copies, persistent blocks; 128-row segments whose ids are all < 0 are
+    neither loaded nor multiplied; gb only pads the groups) or, for
+    D % 4 != 0 and where its lists crowd out the ring, the CUDA-core body,
+    one block for every gb consecutive groups. Shapes past
+    `multi_topk_serves` raise."""
     Gn, qt, D = qg.shape
     P, C, _ = codes.shape
     if gb <= 0 or Gn % gb:
@@ -458,12 +493,14 @@ def multi_topk(gp, qg, codes, ids, kk: int, metric: str, gb: int = 8):
     _check("multi_topk", qg, qt,
            (("gp", gp, torch.int32, (Gn,)), ("qg", qg, torch.float32, (Gn, qt, D)),
             ("codes", codes, torch.float32, (P, C, D)), ("ids", ids, torch.int32, (P, C))),
-           _base_floats(qt, D) + 2 * qt * topk_cap(kk),
+           _multi_floats(qt, D, kk),
            f"D={D}, qt={qt}, kk={kk} (round_up(kk, 32) + 128 (score, slot) pairs per row)")
+    if multi_topk_body(qt, D, kk) == MMA_BODY and (qg.data_ptr() % 16 or codes.data_ptr() % 16):
+        raise ValueError("multi_topk: qg and codes must start on a 16-byte boundary")
     out_s = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.float32)
     out_i = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.int32)
     rc = _ext.lib().qk_multi_topk(gp.data_ptr(), qg.data_ptr(), codes.data_ptr(), ids.data_ptr(),
-                                  out_s.data_ptr(), out_i.data_ptr(), Gn, qt, D, C, kk,
+                                  out_s.data_ptr(), out_i.data_ptr(), Gn, qt, D, P, C, kk,
                                   int(metric == "l2"), gb, _ext.stream_ptr(qg.device))
     _ext.check(rc, "multi_topk")
     _ext.launches["multi_topk"] += 1
@@ -474,7 +511,7 @@ def grouped_scan_multi(codes, ids, q, pids, k: int, metric: str, qt: int = 32, g
                        stages=None):
     """The multi-group grouped scan (pallas_grouped.py::
     grouped_scan_pallas_multi): the groups padded to a multiple of gb with
-    ghosts, kernel multi_topk over gb groups per block, slot -> id (slots
+    ghosts, kernel multi_topk, slot -> id (slots
     without a vector dropped), `merge_groups`. Same inputs and returns as
     grouped_scan_approx."""
     P, C, _ = codes.shape

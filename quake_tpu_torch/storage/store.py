@@ -85,6 +85,11 @@ class PartitionStore:
     def ntotal(self) -> int:
         return len(self.id_map)
 
+    def active_rows(self) -> np.ndarray:
+        """The rows that hold a partition (not free), ascending."""
+        free = set(self.free_rows)
+        return np.array([r for r in range(self.P) if r not in free], dtype=np.int64)
+
     def init_from_assignments(self, x, vids, centroids, assignments):
         """Fill the store from a clustering: C is the largest partition (at
         least MIN_CAPACITY) rounded up to a multiple of 128, the fold width

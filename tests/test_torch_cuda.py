@@ -20,10 +20,11 @@ select pairs like K6. K9's packed values carry the top bits of a score's bit
 pattern, which the other order of summation moves in the last place: it is
 held to winner overlap >= 0.99 against its plain version and to equality with
 the top kk of K8's own scores, packed (both kernels compute the same f32
-scores). K1, and K4 on whole partitions, multiply on the tensor cores with
-split TF32 operands; they are held to their f32 plain versions at the same
-tolerances, and to the plain versions run on ops/split_product.py's model of
-that product. K4 with a chunk table multiplies in f32 on the CUDA cores.
+scores). K1, K4 on whole partitions, K7 and multi_topk multiply on the tensor
+cores with split TF32 operands where D % 4 == 0; they are held to their f32
+plain versions at the same tolerances (K1 and K4 also to the plain versions
+run on ops/split_product.py's model of that product). K4 with a chunk table
+multiplies in f32 on the CUDA cores.
 """
 
 import contextlib
@@ -35,7 +36,9 @@ import torch
 from quake_tpu_torch import _ext
 from quake_tpu_torch.ops.flat_topk import (CUDA_CORE_BODY, KEPT_BODY, TWO_PASS_BODY, flat_topk,
                                            flat_topk_body, flat_topk_plain)
-from quake_tpu_torch.ops.grouped_chunked import chunk_merge, chunk_merge_plain
+from quake_tpu_torch.ops.grouped_chunked import chunk_merge, chunk_merge_body, chunk_merge_plain
+from quake_tpu_torch.ops.grouped_chunked import GROUP_BODY as K7_GROUP_BODY
+from quake_tpu_torch.ops.grouped_chunked import MMA_BODY as K7_MMA_BODY
 from quake_tpu_torch.ops.grouped_exact import exact_scan, exact_scan_plain
 from quake_tpu_torch.ops.grouped_family import (CHUNK_BODY, GROUP_BODY, MMA_BODY, rowscale_scan,
                                                 rowscale_scan_plain, rowscale_topk_body)
@@ -44,10 +47,12 @@ from quake_tpu_torch.ops.grouped_scan import (grouped_scan_kernel, grouped_scan_
                                               merge_positions, merge_positions_plain,
                                               packed_params)
 from quake_tpu_torch.ops.split_product import bmm_as_split_product
-from quake_tpu_torch.ops.grouped_variants import (multi_topk, multi_topk_plain, pack_scores,
-                                                  packed_topk, packed_topk_plain, raw_scores,
-                                                  raw_scores_plain, sized_topk, sized_topk_plain,
-                                                  slot_bits_of)
+from quake_tpu_torch.ops.grouped_variants import CUDA_CORE_BODY as MULTI_CUDA_CORE_BODY
+from quake_tpu_torch.ops.grouped_variants import MMA_BODY as MULTI_MMA_BODY
+from quake_tpu_torch.ops.grouped_variants import (multi_topk, multi_topk_body, multi_topk_plain,
+                                                  pack_scores, packed_topk, packed_topk_plain,
+                                                  raw_scores, raw_scores_plain, sized_topk,
+                                                  sized_topk_plain, slot_bits_of)
 
 pytestmark = pytest.mark.cuda
 
@@ -734,3 +739,206 @@ def test_cuda_core_bodies_still_match_plain(dev, D):
     want, want_stats = rowscale_scan_plain(*args)
     torch.testing.assert_close(got_stats, want_stats, rtol=1e-4, atol=1e-4)
     _packed_agree(got, want, alive, slot_mult, kk)
+
+
+# ------------------------------------------- K7 and multi_topk on the tensor cores
+
+
+def _k7_case(dev, rng, C, ct, qt, D, kk, metric, Gn=40):
+    """K7's inputs over partitions that fill the slab, end inside a chunk,
+    leave a chunk of one valid lane, hold one lane, are empty, and ghost
+    groups (pid -1, or a live pid with size 0)."""
+    P = 6
+    codes = torch.from_numpy(rng.standard_normal((P, C, D)).astype(np.float32)).to(dev)
+    norms = (codes * codes).sum(-1).contiguous()
+    sizes = torch.tensor([C, C - ct // 2 - 3, 0, ct + 1, 1, ct // 2 + 7], dtype=torch.int32,
+                         device=dev)
+    gp = torch.from_numpy(rng.integers(-1, P, Gn).astype(np.int32)).to(dev)
+    gp[:P] = torch.arange(P, dtype=torch.int32)
+    gsize = torch.where(gp >= 0, sizes[gp.clamp(min=0).long()], torch.zeros_like(gp))
+    gsize[P] = 0  # a live pid the caller gives no rows: a ghost too
+    qg = torch.from_numpy(rng.standard_normal((Gn, qt, D)).astype(np.float32)).to(dev)
+    slot_mult, levels = packed_params(ct)
+    return (gp, gsize.contiguous(), qg, codes, norms, kk, ct, slot_mult, levels, metric)
+
+
+def _k7_agree(args):
+    got_s, got_i = chunk_merge(*args)
+    want_s, want_i = chunk_merge_plain(*args)
+    torch.cuda.synchronize()
+    gp, gsize, qg, norms, levels, metric = args[0], args[1], args[2], args[4], args[8], args[9]
+    ghost = (gp < 0) | (gsize <= 0)
+    assert torch.isneginf(got_s[ghost]).all() and (got_i[ghost] == -1).all()
+    qmax, xmax = float((qg * qg).sum(-1).max().sqrt()), float(norms.max().sqrt())
+    span = 4.0 * qmax * xmax + xmax * xmax if metric == "l2" else 2.0 * qmax * xmax
+    _pairs_match(got_s, got_i, want_s, want_i, 1e-4, level=span / levels)
+    assert (got_i[~ghost][..., 0] >= 0).all()
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("kk", [1, 10, 64])
+@pytest.mark.parametrize("qt", [8, 64])
+@pytest.mark.parametrize("D", [32, 128])
+def test_chunk_merge_tensor_core_body(dev, D, qt, kk, metric):
+    """K7's tensor-core body at ct = 128 (one product a chunk): partitions
+    that end inside a chunk, a chunk of one valid lane, a partition of one
+    lane, an empty partition, ghost groups; kk up to 64 at qt = 64."""
+    assert chunk_merge_body(qt, D, kk) == K7_MMA_BODY
+    rng = np.random.default_rng(D * qt + kk)
+    _k7_agree(_k7_case(dev, rng, 640, 128, qt, D, kk, metric))
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("qt", [8, 64])
+@pytest.mark.parametrize("D", [32, 128])
+@pytest.mark.parametrize("ct", [256, 512])
+def test_chunk_merge_tensor_core_multi_segment_chunks(dev, ct, D, qt, metric):
+    """K7's tensor-core body with chunks of two and four 128-row segments:
+    each chunk's row range from a first pass, its keys from a second one."""
+    assert chunk_merge_body(qt, D, 10) == K7_MMA_BODY
+    rng = np.random.default_rng(ct + D + qt)
+    _k7_agree(_k7_case(dev, rng, 1024, ct, qt, D, 10, metric))
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("qt", [8, 64])
+def test_chunk_merge_cuda_core_body_kept(dev, qt, metric):
+    """D % 4 != 0: K7 keeps its CUDA-core body, same function."""
+    assert chunk_merge_body(qt, 130, 10) == K7_GROUP_BODY
+    rng = np.random.default_rng(qt)
+    _k7_agree(_k7_case(dev, rng, 384, 128, qt, 130, 10, metric, Gn=16))
+
+
+@pytest.mark.parametrize("qt,D,kk,body", [
+    (64, 128, 10, K7_MMA_BODY), (64, 128, 64, K7_MMA_BODY), (64, 128, 100, K7_GROUP_BODY),
+    (8, 768, 10, K7_MMA_BODY), (64, 130, 10, K7_GROUP_BODY), (32, 13, 10, K7_GROUP_BODY),
+])
+def test_chunk_merge_body_by_shape(dev, qt, D, kk, body):
+    """K7's body by shape: the tensor cores where D % 4 == 0 and the ring,
+    buffers and merge lists fit (a D past a stage streams in depth chunks)."""
+    assert chunk_merge_body(qt, D, kk) == body
+
+
+def _multi_agree(gp, qg, codes, ids, kk, metric, gb=1):
+    C = codes.shape[1]
+    got_s, got_i = multi_topk(gp, qg, codes, ids, kk, metric, gb=gb)
+    want_s, want_i = multi_topk_plain(gp, qg, codes, ids, kk, metric)
+    torch.cuda.synchronize()
+    assert ((got_i >= 0) & (got_i <= C)).all()  # a slot of the partition, or the sentinel C
+    assert ((got_i == C) == torch.isneginf(got_s)).all()
+    got_i, want_i = got_i.masked_fill(got_i >= C, -1), want_i.masked_fill(want_i >= C, -1)
+    _pairs_match(got_s, got_i, want_s, want_i, 1e-4)
+    return got_s, got_i
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("qt", [8, 64])
+@pytest.mark.parametrize("D", [32, 128])
+def test_multi_topk_skips_a_hole_of_no_ids(dev, D, qt, metric):
+    """A slab whose middle 128-row segment holds no id (skipped, neither
+    loaded nor multiplied) and valid rows again after it: the winners past
+    the hole are found."""
+    assert multi_topk_body(qt, D, 10) == MULTI_MMA_BODY
+    rng = np.random.default_rng(D + qt)
+    P, C, Gn = 4, 512, 16
+    codes = torch.from_numpy(rng.standard_normal((P, C, D)).astype(np.float32)).to(dev)
+    ids = torch.from_numpy(rng.permutation(P * C).astype(np.int32).reshape(P, C)).to(dev)
+    ids[:, 128:256] = -1
+    ids[1, 256:384] = -1  # two holes in a row
+    ids[2] = -1  # a partition without any id
+    codes[:, 128:256] = 50.0  # what a read of the hole would rank first
+    gp = torch.tensor([0, 1, 2, 3] * 4, dtype=torch.int32, device=dev)
+    gp[-1] = -1
+    qg = torch.from_numpy(rng.standard_normal((Gn, qt, D)).astype(np.float32)).to(dev)
+    qg[0, 0] = codes[0, 300] * 3.0  # this row's best lies past the hole
+    qg[1, 0] = codes[1, 400] * 3.0
+    got_s, got_i = _multi_agree(gp, qg, codes, ids, 10, metric)
+    assert int(got_i[0, 0, 0]) == 300 and int(got_i[1, 0, 0]) == 400
+    assert not ((got_i >= 128) & (got_i < 256)).any()
+    assert (got_i[2] == -1).all() and (got_i[-1] == -1).all()
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("qt", [8, 64])
+def test_multi_topk_segment_crosses_into_the_next_partition(dev, qt, metric):
+    """C = 200: a partition's second segment reads 56 rows of the next one
+    through the tensor map (the last partition's, past the end of the slabs);
+    they are masked even where they would win."""
+    assert multi_topk_body(qt, 32, 10) == MULTI_MMA_BODY
+    rng = np.random.default_rng(qt)
+    P, C, D, Gn = 4, 200, 32, 12
+    codes = torch.from_numpy(rng.standard_normal((P, C, D)).astype(np.float32)).to(dev)
+    codes[1:, :56] = 20.0  # the rows a partition's second segment reads past its own
+    ids = torch.from_numpy(rng.permutation(P * C).astype(np.int32).reshape(P, C)).to(dev)
+    gp = torch.tensor([0, 1, 2, 3] * 3, dtype=torch.int32, device=dev)
+    qg = torch.from_numpy(rng.standard_normal((Gn, qt, D)).astype(np.float32)).to(dev)
+    qg[:, :2] = 1.0  # rows that would rank the 20.0 rows first
+    _multi_agree(gp, qg, codes, ids, 10, metric, gb=3)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("qt,D", [(8, 32), (64, 128)])
+def test_multi_topk_tensor_core_ties(dev, qt, D, metric):
+    """Copies of one vector across segments score bit for bit alike on the
+    tensor cores (|x|^2 summed in one order a row) and come out by the
+    smaller slot."""
+    assert multi_topk_body(qt, D, 10) == MULTI_MMA_BODY
+    rng = np.random.default_rng(qt + D)
+    C, Gn = 512, 8
+    codes, ids, gp, _ = _variant_store(dev, rng, C, 10, P=6, Gn=Gn, D=D)
+    codes[0, 5::7] = codes[0, 5]
+    gp[0] = 0
+    qg = torch.from_numpy(rng.standard_normal((Gn, qt, D)).astype(np.float32)).to(dev)
+    qg[0, 0] = codes[0, 5] * 3.0  # the copies are this row's best
+    got_s, got_i = _multi_agree(gp, qg, codes, ids, 10, metric)
+    tied = torch.diff(got_s, dim=2) == 0
+    assert bool(tied[0, 0].all())
+    assert (torch.diff(got_i, dim=2)[tied & (got_i[:, :, 1:] >= 0)] > 0).all()
+
+
+@pytest.mark.parametrize("qt,D,kk,body", [
+    (64, 128, 10, MULTI_MMA_BODY), (64, 128, 82, MULTI_MMA_BODY),
+    (64, 128, 83, MULTI_CUDA_CORE_BODY), (64, 128, 128, MULTI_CUDA_CORE_BODY),
+    (8, 768, 10, MULTI_MMA_BODY), (64, 130, 10, MULTI_CUDA_CORE_BODY),
+    (16, 13, 10, MULTI_CUDA_CORE_BODY),
+])
+def test_multi_topk_body_by_shape(dev, qt, D, kk, body):
+    """multi_topk's body by shape: the tensor cores where D % 4 == 0 and the
+    ring and the rows' lists fit (kk up to 82 at qt = 64, D = 128), else the
+    CUDA-core body (kk = 128 there, as before)."""
+    assert multi_topk_body(qt, D, kk) == body
+
+
+@pytest.mark.parametrize("kk", [82, 83])
+def test_multi_topk_largest_kk_on_the_tensor_cores_and_one_past(dev, kk):
+    """qt = 64, D = 128: kk = 82, the largest whose lists fit beside the ring,
+    runs the tensor-core body and kk = 83 the CUDA-core body; both agree with
+    the plain version."""
+    assert multi_topk_body(64, 128, kk) == (MULTI_MMA_BODY if kk == 82 else MULTI_CUDA_CORE_BODY)
+    rng = np.random.default_rng(5)
+    C, D, qt = 1024, 128, 64
+    codes = torch.from_numpy(rng.standard_normal((2, C, D)).astype(np.float32)).to(dev)
+    ids = torch.from_numpy(rng.permutation(2 * C).astype(np.int32).reshape(2, C)).to(dev)
+    ids[1, 900:] = -1
+    gp = torch.tensor([0, 1, -1, 1], dtype=torch.int32, device=dev)
+    qg = torch.from_numpy(rng.standard_normal((4, qt, D)).astype(np.float32)).to(dev)
+    _multi_agree(gp, qg, codes, ids, kk, "l2", gb=2)
+
+
+def test_chunk_merge_and_multi_topk_count_their_launches(dev):
+    """One launch a call on either body; the plain versions count none."""
+    rng = np.random.default_rng(3)
+    args = _k7_case(dev, rng, 256, 128, 8, 32, 4, "l2", Gn=8)
+    odd = _k7_case(dev, rng, 256, 128, 8, 13, 4, "l2", Gn=8)
+    gp = torch.zeros(2, dtype=torch.int32, device=dev)
+    ids = torch.zeros((1, 128), dtype=torch.int32, device=dev)
+    _ext.reset_launches()
+    chunk_merge(*args)
+    chunk_merge(*odd)
+    chunk_merge_plain(*args)
+    for D in (16, 13):
+        qg, codes = torch.zeros((2, 8, D), device=dev), torch.zeros((1, 128, D), device=dev)
+        multi_topk(gp, qg, codes, ids, 4, "ip", gb=2)
+        multi_topk_plain(gp, qg, codes, ids, 4, "ip")
+    torch.cuda.synchronize()
+    assert _ext.launches["chunk_merge"] == 2 and _ext.launches["multi_topk"] == 2

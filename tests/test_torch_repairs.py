@@ -1,5 +1,5 @@
 """The v10 scan, the v11 placement knobs, the query-tile height, the parent's
-search parameters and the port's deliberate deviations, quake_tpu_torch
+search parameters, the index accessors and the port's deliberate deviations, quake_tpu_torch
 against the JAX package on the same inputs (CPU).
 
 The JAX side runs its Pallas kernels in interpret mode (the dispatch tests
@@ -25,7 +25,8 @@ from quake_tpu.index import QuakeIndex as JaxQuakeIndex
 from quake_tpu.kmeans import kmeans_fit_assign as jax_kmeans
 from quake_tpu.ops.pallas_flat import flat_topk_pallas
 from quake_tpu.ops.scan import topk_from_scores as jax_topk_from_scores
-from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams, coordinator
+from quake_tpu import IndexBuildParams as JaxBuildParams
+from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams, coordinator, index_from_numpy
 from quake_tpu_torch.kmeans import kmeans_fit_assign
 from quake_tpu_torch.ops.flat_topk import flat_topk
 from quake_tpu_torch.ops.grouped_scan import grouped_scan_v10, grouped_scan_v11
@@ -311,3 +312,33 @@ def test_deviation_kmeans_generator():
     _, ja = jax_kmeans(jnp.asarray(x), 16, niter=4, seed=0)
     assert not np.array_equal(np.asarray(ja), a0.numpy())
 
+
+
+@pytest.mark.parametrize("case", ["flat", "ivf", "ivf with a deleted partition"])
+def test_accessors_match_jax(case):
+    """centroids(), parent_ntotal() and ntotal() of one state, carried from
+    the JAX package's build into the port (convert.index_from_numpy): the
+    active partitions' centroids in the JAX order. A partition deleted from
+    the middle of the store leaves a free row between active ones."""
+    rng = np.random.default_rng(21)
+    x = (rng.standard_normal((1500, 8)) + 4.0 * rng.integers(0, 6, (1500, 1))).astype(np.float32)
+    jidx = JaxQuakeIndex()
+    jidx.build(x, np.arange(len(x)), JaxBuildParams(nlist=0 if case == "flat" else 12,
+                                                     calibrate_aps=False))
+    if case == "ivf with a deleted partition":
+        jidx.store.delete_partitions([3])
+    fields = ("codes", "ids", "sizes", "centroids", "active", "norms")
+
+    def arrays(state):
+        return {f: np.asarray(getattr(state, f)) for f in fields}
+
+    tidx = index_from_numpy(arrays(jidx.store.state),
+                            arrays(jidx.parent.store.state) if jidx.parent else None, "l2",
+                            device="cpu")
+    np.testing.assert_array_equal(tidx.store.active_rows(), jidx.store.active_rows())
+    np.testing.assert_array_equal(tidx.centroids(), np.asarray(jidx.centroids()))
+    assert isinstance(tidx.centroids(), np.ndarray)
+    assert tidx.parent_ntotal() == jidx.parent_ntotal()
+    assert (tidx.parent_ntotal() == 0) == (case == "flat")
+    assert tidx.ntotal() == jidx.ntotal()
+    assert tidx.centroids().shape == (tidx.nlist(), 8)
