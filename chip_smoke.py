@@ -14,16 +14,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
              (chunked per-row-scale scan with the cross-chunk merge), K8 (raw
              scores), K9 (packed top-kk) and the sized and multi scans'
              kernels against their plain PyTorch versions on the card at
-             small shapes; K1, K4, K7 and multi_topk, which multiply on the
+             small shapes; K1, K4-K7 and multi_topk, which multiply on the
              tensor cores with split TF32 operands where D % 4 == 0, also at
              the shapes that stress their tiles (more groups than blocks, D
              below and at the tile depth, sizes around a 128-row segment, kk
              1, 10 and 100, D 200 and 256 that a ring stage holds only in
              depth chunks; K7 with chunks of one and two segments), against
-             the f32 plain versions and (K1, K4, K7) against the plain
+             the f32 plain versions and (K1, K4-K7) against the plain
              versions run on ops/split_product.py's model of the split
-             product; K4 with chunk tables of ct 128 and 256 and all four at
-             D = 30 (the CUDA-core bodies) against the f32 plain versions.
+             product; K4 with chunk tables of ct 128 and 256 and all of them
+             at D = 30 (the CUDA-core bodies) against the f32 plain versions.
 4. main    — the fixed-nprobe main path at full width: a 1,000,000 x 128
              synthetic-manifold corpus (seed 1), nlist=160, niter=25, l2, f32
              codes, built and searched through QuakeIndex. Recall@10 on 1024
@@ -72,10 +72,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
              v6 and v4, K5 through v7, K1 through v8, K6 through v3 and v2,
              K7 through v5) and the direct paths (K8, K9, sized_topk,
              multi_topk) gave it, with times and bounds (K1, K3, K4 on whole
-             partitions, K7 and multi_topk, against the tensor cores' TF32
+             partitions, K5-K7 and multi_topk, against the tensor cores' TF32
              peak at three products per f32 one, the others against the CUDA
-             cores' f32 peak; no kernel may beat its bound; K7 also against
-             its plain version on the split product's model), and the share of K1's time
+             cores' f32 peak; no kernel may beat its bound; the rows of K4-K7
+             also against their plain versions on the split product's model,
+             and the rows of K4-K7 and multi_topk name the body the launcher
+             picked, which must be the tensor-core one), and the share of K1's time
              that its selection takes (K1 against a build of its body
              without the selection).
 
@@ -153,10 +155,11 @@ UNITS = {"f32 CUDA cores": (1.0, F32_PEAK), "TF32 tensor cores, 3 products": (3.
 CUDA_CORES, TENSOR_CORES = UNITS
 # Entries of the kernels line whose product runs on the tensor cores at the
 # paths' shapes (D = 128): K1, K3, K4 on whole partitions (with v4's chunk
-# table it runs in f32 on the CUDA cores), K7 and multi_topk (their rows
-# check that the launcher picked the tensor-core body).
+# table it runs in f32 on the CUDA cores), K5, K6, K7 and multi_topk (the rows
+# of K4-K7 and multi_topk check that the launcher picked the tensor-core body).
 TENSOR_CORE_ENTRIES = ("grouped_scan", "grouped_scan/v8", "flat_topk", "rowscale_topk/v3p",
-                       "rowscale_topk/v3pn", "rowscale_topk/v6", "chunk_merge/v5", "multi_topk")
+                       "rowscale_topk/v3pn", "rowscale_topk/v6", "rowscale_fold/v7",
+                       "exact_topk/v3", "exact_topk/v2", "chunk_merge/v5", "multi_topk")
 HBM_RATE = 3.35e12  # H100 SXM bytes/s
 QUEUE_CYCLES = 50_000_000  # ~25 ms of spinning at the H100's clock: room to enqueue the reps
 # Entry of the kernels line -> (CUDA kernel, its source, the TPU kernel it
@@ -344,24 +347,26 @@ def phase_small_parity(torch, dev):
 
 
 def phase_small_parity_tensor_core(torch, dev, rng):
-    """K1, K4, K7 and multi_topk at the shapes that stress the tensor-core
+    """K1, K4-K7 and multi_topk at the shapes that stress the tensor-core
     bodies' tiles: 300 groups (more than blocks: every block walks several
     groups and loads across their borders), qt 8 and 64, partitions of 0, 1,
-    127, 128, 129 and all rows (K4 and multi_topk also 256 and 300 of a C =
-    520 that no segment divides, so a partition's last segment reads the
+    127, 128, 129 and all rows (K4, K6 and multi_topk also 256 and 300 of a
+    C = 520 that no segment divides, so a partition's last segment reads the
     next one's rows; K7 the same sizes of C = 512 in chunks of ct 128 and
-    256), kk 1, 10 and 100 (K7 1 and 10), l2 and ip but for K1; D 24, 100 and
-    128 (a ring stage holds all of D) and D 200 and 256 (a stage holds a
-    depth chunk of two or four boxes and the accumulator carries over the
-    chunks). Each against the f32 plain version and, K1, K4 and K7, against
-    the plain version on the split product's model, at the same tolerances.
-    D = 30 (rows not 16-byte aligned) takes the CUDA-core bodies. K4's chunk
-    table with ct 128 and 256, laid out as the v4 scan lays it, takes a
-    CUDA-core body at every D and is held to the f32 plain version."""
+    256; K5 those of K1's C = 512), kk 1, 10 and 100 (K7 1 and 10), l2 and ip
+    but for K1; D 24, 100 and 128 (a ring stage holds all of D) and D 200 and
+    256 (a stage holds a depth chunk of two or four boxes and the accumulator
+    carries over the chunks). Each against the f32 plain version and, all
+    but multi_topk, against the plain version on the split product's model,
+    at the same tolerances. D = 30 (rows not 16-byte aligned) takes the
+    CUDA-core bodies. K4's chunk table with ct 128 and 256, laid out as the
+    v4 scan lays it, takes a CUDA-core body at every D and is held to the f32
+    plain version."""
     from quake_tpu_torch.ops import grouped_chunked as gc
+    from quake_tpu_torch.ops import grouped_exact as ge
     from quake_tpu_torch.ops import grouped_variants as gv
     from quake_tpu_torch.ops.grouped_family import (CHUNK_BODY, GROUP_BODY, MMA_BODY,
-                                                    rowscale_topk_body)
+                                                    rowscale_fold_body, rowscale_topk_body)
     from quake_tpu_torch.ops.grouped_scan import (grouped_scan_kernel, grouped_scan_plain,
                                                   grouped_scan_uses_mma, packed_params)
     from quake_tpu_torch.ops.split_product import bmm_as_split_product
@@ -395,7 +400,10 @@ def phase_small_parity_tensor_core(torch, dev, rng):
                 or gc.chunk_merge_body(qt, Dm, 10) != (gc.MMA_BODY if tensor_cores
                                                        else gc.GROUP_BODY)
                 or gv.multi_topk_body(qt, Dm, 10) != (gv.MMA_BODY if tensor_cores
-                                                      else gv.CUDA_CORE_BODY)):
+                                                      else gv.CUDA_CORE_BODY)
+                or rowscale_fold_body(qt, Dm, 100) != (MMA_BODY if tensor_cores else GROUP_BODY)
+                or ge.exact_topk_body(qt, Dm, 10) != (ge.MMA_BODY if tensor_cores
+                                                      else ge.GROUP_BODY)):
             raise AssertionError(f"qt={qt}, D={Dm}: the launchers chose other bodies than expected")
         # K1: C % 128 == 0.
         C = 512
@@ -413,6 +421,13 @@ def phase_small_parity_tensor_core(torch, dev, rng):
                                (q * scale).contiguous(), codes, normsT, kk, slot_mult, levels,
                                model=model)
                 fold_in(f"K1, {shape}, {m} product" if tensor_cores else "K1, D=30", r)
+        # K5 on K1's store (C % 128 == 0), unscaled queries.
+        for kk in (1, 10, 100):
+            for metric in ("l2", "ip"):
+                for m, model in models if tensor_cores else models[:1]:
+                    r = compare_rowscale(torch, (gp, gsize, q, codes, norms, kk, slot_mult,
+                                                 levels, metric, "fold"), model=model)
+                    fold_in(f"K5, {shape}, {m} product" if tensor_cores else "K5, D=30", r)
         # K4: a C that no segment divides, groups of one, two and more segments.
         C = 520
         codes, norms, sizes = store(C, Dm, [0, 1, 127, 128, 129, C, 256, 300])
@@ -462,6 +477,19 @@ def phase_small_parity_tensor_core(torch, dev, rng):
                     multi_slots(gv.multi_topk_plain(gp, q, codes, ids, kk, metric), C), ties="up")
                 fold_in(f"multi_topk, {shape} (score error)" if tensor_cores
                         else "multi_topk, D=30 (score error)", r)
+        # K6 in both modes on the same store, equal scores by the larger index.
+        for kk in (k for k in (1, 10, 100) if ge.exact_topk_serves(qt, Dm, k)):
+            for metric in ("l2", "ip"):
+                for mode, kw in (("slot", dict(group_size=gsize, norms=norms)),
+                                 ("id", dict(ids=ids))):
+                    got = ge.exact_scan(gp, q, codes, kk, metric, mode, **kw)
+                    for m, model in models if tensor_cores else models[:1]:
+                        with bmm_as_split_product() if model else contextlib.nullcontext():
+                            want = ge.exact_scan_plain(gp, q, codes, kk, metric, mode, **kw)
+                        r = compare_pairs(torch, f"K6 ({mode}, {m} product)", got, want,
+                                          ties=True)
+                        fold_in(f"K6, {shape}, {m} product (score error)" if tensor_cores
+                                else "K6, D=30 (score error)", r)
         # K7: chunks of one and of two segments; C = 512 keeps C % ct == 0.
         C = 512
         codes, norms, sizes = store(C, Dm, [0, 1, 127, 128, 129, C, 256, 300])
@@ -480,7 +508,7 @@ def phase_small_parity_tensor_core(torch, dev, rng):
                                           level=key_level(q, norms, levels, metric))
                         fold_in(f"K7, {shape}, {m} product (score error)" if tensor_cores
                                 else "K7, D=30 (score error)", r)
-    log("[parity small] K1, K4, K7 and multi_topk at the tile-stressing shapes (300 groups; qt "
+    log("[parity small] K1, K4-K7 and multi_topk at the tile-stressing shapes (300 groups; qt "
         "in 8, 64; sizes 0, 1, 127, 128, 129, full; kk in 1, 10, 100; l2, ip; one stage: D in 24, "
         "100, 128; depth chunks: D in 200, 256; K7 with ct in 128, 256; K4's chunk tables with ct "
         "in 128, 256 on the CUDA cores): "
@@ -1123,7 +1151,8 @@ def exact_chunked_rows(torch, idx, q, pids, qt, kk, by_name):
     from quake_tpu_torch.ops.grouped import build_chunk_groups, build_groups
     from quake_tpu_torch.ops.grouped_chunked import MMA_BODY as K7_MMA_BODY
     from quake_tpu_torch.ops.grouped_chunked import chunk_merge, chunk_merge_body, chunk_merge_plain
-    from quake_tpu_torch.ops.grouped_exact import exact_scan, exact_scan_plain
+    from quake_tpu_torch.ops.grouped_exact import MMA_BODY as K6_MMA_BODY
+    from quake_tpu_torch.ops.grouped_exact import exact_scan, exact_scan_plain, exact_topk_body
     from quake_tpu_torch.ops.grouped_family import rowscale_scan, rowscale_scan_plain
     from quake_tpu_torch.ops.grouped_scan import packed_params, pad_groups
     from quake_tpu_torch.ops.split_product import bmm_as_split_product
@@ -1139,18 +1168,31 @@ def exact_chunked_rows(torch, idx, q, pids, qt, kk, by_name):
                         torch.zeros_like(group_pid)).to(torch.int32).contiguous()
     out_i = group_pid.numel() * qt * kk * 4  # the second output: slots or ids
 
-    # K6 as v3 (mode slot) and v2 (mode id: the whole slab, no sizes) use it.
+    # K6 as v3 (mode slot) and v2 (mode id: the whole slab, no sizes) use it,
+    # against the f32 plain version and against the plain version on the
+    # split product's model.
+    body = exact_topk_body(qt, Dd, kk)
     for entry, path, mode, kw in (("exact_topk/v3", "v3", "slot",
                                    dict(group_size=gsize, norms=st.norms)),
                                   ("exact_topk/v2", "v2", "id", dict(ids=st.ids))):
-        ov, err = compare_pairs(torch, f"K6 ({mode})",
-                                exact_scan(group_pid, qg, st.codes, kk, "l2", mode, **kw),
+        if (body == K6_MMA_BODY) != (unit_of(entry) == TENSOR_CORES):
+            raise AssertionError(f"{entry} at qt={qt}, D={Dd}: body {body} is not the kernels "
+                                 "line's unit")
+        got = exact_scan(group_pid, qg, st.codes, kk, "l2", mode, **kw)
+        ov, err = compare_pairs(torch, f"K6 ({mode})", got,
                                 exact_scan_plain(group_pid, qg, st.codes, kk, "l2", mode, **kw),
                                 ties=True)
+        with bmm_as_split_product():
+            ov_m, err_m = compare_pairs(
+                torch, f"K6 ({mode}, split product's model)", got,
+                exact_scan_plain(group_pid, qg, st.codes, kk, "l2", mode, **kw), ties=True)
+        del got
         b, groups, scanned = scan_bound(st, group_pid, gsize, real_q, qg.numel() * 4, qt, kk, Dd,
-                                        extra=out_i, whole_slab=mode == "id")
+                                        extra=out_i, whole_slab=mode == "id",
+                                        unit=unit_of(entry))
         rows.append(dict(
             name=entry, tol=pair_tol, overlap=ov, max_abs_err=err, err_of="score error",
+            body=body, model_overlap=ov_m, model_max_abs_err=err_m,
             launches=by_name[path]["launches"]["exact_topk"],
             ms=time_ms(torch, lambda: exact_scan(group_pid, qg, st.codes, kk, "l2", mode, **kw),
                        reps=5),
@@ -1492,7 +1534,8 @@ def phase_kernels(torch, dev, idx, x, queries, nprobe, launches, by_name, direct
     from quake_tpu_torch.coordinator import rank_parents
     from quake_tpu_torch.ops.flat_topk import flat_topk, flat_topk_body, flat_topk_plain, parent_bias
     from quake_tpu_torch.ops.grouped import build_groups
-    from quake_tpu_torch.ops.grouped_family import rowscale_scan, rowscale_scan_plain
+    from quake_tpu_torch.ops.grouped_family import (MMA_BODY, rowscale_fold_body, rowscale_scan,
+                                                    rowscale_scan_plain, rowscale_topk_body)
     from quake_tpu_torch.ops.grouped_scan import (argsort_placement, global_scale,
                                                   grouped_scan_kernel, grouped_scan_plain,
                                                   merge_positions, merge_positions_plain,
@@ -1584,7 +1627,8 @@ def phase_kernels(torch, dev, idx, x, queries, nprobe, launches, by_name, direct
     build_dir.cleanup()
 
     # K4 (v3p: one group a step; v3pN: gpb 4) and K5 (v7, gpb 4) at the
-    # by-name paths' shapes: unscaled queries, raw norms.
+    # by-name paths' shapes: unscaled queries, raw norms; against the f32
+    # plain version and against the plain version on the split product's model.
     group_pid, qlist, _, _ = build_groups(pids, st.codes.shape[0], qt)
     # v6 (gpb 4) runs K4 on v3pN's inputs: _v6_kernel computes _v3pn_kernel's
     # function, and K4 reads only the segments below a partition's size.
@@ -1595,12 +1639,19 @@ def phase_kernels(torch, dev, idx, x, queries, nprobe, launches, by_name, direct
         gp, ql, gsize, safe_q = pad_groups(group_pid, qlist, st.sizes, gpb_n)
         rargs = (gp, gsize, q[safe_q].contiguous(), st.codes, st.norms, kk, slot_mult, levels,
                  "l2", select)
+        body = (rowscale_topk_body(qt, Dd, kk) if select == "topk"
+                else rowscale_fold_body(qt, Dd, kk))
+        if (body == MMA_BODY) != (unit_of(entry) == TENSOR_CORES):
+            raise AssertionError(f"{entry} at qt={qt}, D={Dd}: body {body} is not the kernels "
+                                 "line's unit")
         ov, kd, serr = compare_rowscale(torch, rargs)
+        ov_m, kd_m, _ = compare_rowscale(torch, rargs, model=True)
         b, groups, scanned = scan_bound(st, gp, gsize, (ql >= 0).sum(1), rargs[2].numel() * 4,
                                         qt, kk, Dd, extra=gp.numel() * qt * 2 * 4,
                                         unit=unit_of(entry))
         rows.append(dict(name=entry, tol=f"{k1_tol}, stats rtol = atol = {STATS_TOL}",
-                         overlap=ov, max_abs_err=kd, stats_err=serr,
+                         overlap=ov, max_abs_err=kd, stats_err=serr, body=body,
+                         model_overlap=ov_m, model_max_abs_err=kd_m,
                          launches=by_name[path]["launches"][ENTRIES[entry][0]],
                          ms=time_ms(torch, lambda: rowscale_scan(*rargs), reps=5),
                          plain_ms=time_ms(torch, lambda: rowscale_scan_plain(*rargs), reps=2,

@@ -4,7 +4,7 @@ The kernels live in ``csrc/*.cu`` (their shared helpers in ``csrc/*.cuh``)
 behind a plain C interface: one ``extern "C"`` launcher per kernel that
 takes raw device pointers and a stream and returns ``cudaGetLastError()``.
 At first use every source is compiled by its own ``nvcc`` process, all
-started together, for ``sm_90a`` (K1, K3, K4, K7 and multi_topk use ``mma.sync``
+started together, for ``sm_90a`` (K1 and K3-K7 and multi_topk use ``mma.sync``
 TF32 products and bulk tensor copies; the tensor map's encoder, ``cuTensorMapEncodeTiled``,
 is looked up in libcuda at run time with ``dlsym``, so only ``-ldl`` is linked);
 the
@@ -59,11 +59,16 @@ _SIGNATURES = {
     # Gn, qt, D, P, C, kk, is_l2, slot_mult, levels, stream
     "qk_rowscale_topk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                          _F, _P),
-    # the same without qsrc, row_off and P
-    "qk_rowscale_fold": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    # the same without qsrc and row_off
+    "qk_rowscale_fold": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    # qt, D, kk: the body K5's launcher runs (2 tensor cores, 0 CUDA cores)
+    "qk_rowscale_fold_body": (_I, _I, _I),
     # gp, gsize, qg, codes, norms, ids (gsize and norms, or ids, may be null),
-    # out_s, out_i, Gn, qt, D, C, kk, is_l2, id_mode, stream
-    "qk_exact_topk": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # out_s, out_i, Gn, qt, D, P, C, kk, is_l2, id_mode, stream
+    "qk_exact_topk": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # qt, D, kk: the body K6's launcher runs in either mode (1 tensor cores, 0
+    # CUDA cores)
+    "qk_exact_topk_body": (_I, _I, _I),
     # gp, gsize, qg, codes, norms, out_s, out_i, Gn, qt, D, P, C, ct, kk, is_l2,
     # slot_mult, levels, stream
     "qk_chunk_merge": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),

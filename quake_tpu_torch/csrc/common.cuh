@@ -641,6 +641,18 @@ inline RingShape ring_shape(int D, int kk, Smem smem) {
   return {0, 0};
 }
 
+// Boxes a ring stage of a tensor-core body holds, where smem(NBS) is its
+// shared memory in bytes: all of D's, or the most of 4, 2 and 1 that fits; 0:
+// the body does not fit.
+template <typename Smem>
+inline int ring_stage_boxes(int D, Smem smem) {
+  for (int nbs = 4; nbs >= 1; nbs >>= 1) {
+    const int NBS = nbs < tile_boxes(D) ? nbs : tile_boxes(D);
+    if (smem(NBS) <= kSmemLimit) return NBS;
+  }
+  return 0;
+}
+
 // A tensor map over the slabs viewed as [rows, D] f32 (D % 4 == 0, codes on a
 // 16-byte boundary), in boxes of box_rows rows (128: a segment) x 32 columns
 // with the 128-byte swizzle; what lies outside the array reads as zero. The

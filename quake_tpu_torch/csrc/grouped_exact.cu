@@ -16,30 +16,45 @@
 // int32 (-1 = none). Ghost groups (p < 0, or size <= 0 in mode slot) write
 // -inf and -1.
 //
-// Bound on the H100: f32 operations (2 qt C D flops against C D 4 bytes of
-// slab, qt / 2 = 32 flops per byte at qt = 64, above the f32 ridge of 20).
-// The TPU kernel holds the whole [qt, C] score tile in its fast memory and
-// runs kk rounds over it; that tile (1.9 MB at qt = 64, C = 7552) does not
-// fit a block's shared memory. No row range is needed before selecting, so
-// one pass over the slab is enough.
+// Bound on the H100: operations (2 qt C D flops against C D 4 bytes of
+// slab, qt / 2 = 32 flops per byte at qt = 64). The TPU kernel holds the whole
+// [qt, C] score tile in its fast memory and runs kk rounds over it; that tile
+// (1.9 MB at qt = 64, C = 7552) does not fit a block's shared memory. No row
+// range is needed before selecting, so one pass over the slab is enough.
 //
-// Design (simple first): one block per group, the [qt, D] query tile in
-// shared memory, the slab streamed once through shared memory in 128-row
-// segments (mode slot reads only the ceil(size / 128) segments that hold
-// vectors). Each row keeps a candidate buffer in shared memory of
-// cap = round_up(kk, 32) + 128 pairs and a threshold pair (initially below
-// everything): a pair above the threshold is appended (ballot + prefix
-// count); when 32 more might not fit, the buffer is cut to its kk largest
-// pairs and the threshold becomes the kk-th largest. The output is kk
-// descending rounds of "largest pair below the previous one" over the
-// buffer. Pairs of valid lanes are distinct (slots are, and so are the ids of
-// one partition), so this is exactly the TPU kernel's kk rounds of
-// max-and-clear. Should a partition hold one id twice with equal scores, both
-// orders emit the pair once.
+// K6 has two bodies, chosen by shape in the launcher (qk_exact_topk_body
+// names them), never after a failure.
+//
+// The tensor-core body (D % 4 == 0, and lists that fit beside the ring) is
+// multi_topk's, pair_topk_mma.cuh in mode kBySlot or kById: persistent
+// blocks, a TMA ring a segment ahead across group borders, one 3xTF32
+// product a segment (3 x flops / 495 TFLOP/s), segments without an id skipped
+// (mode id) or only those below the size loaded (mode slot), and each row's
+// best kk as a sorted list merged a segment at a time.
+//
+// exact_topk_kernel, the CUDA-core body (f32, flops / 67 TFLOP/s), simple:
+// one block per group, the [qt, D] query tile in shared memory, the slab
+// streamed once through shared memory in 128-row segments (mode slot reads
+// only the ceil(size / 128) segments that hold vectors). Each row keeps a
+// candidate buffer in shared memory of cap = round_up(kk, 32) + 128 pairs
+// and a threshold pair (initially below everything): a pair above the
+// threshold is appended (ballot + prefix count); when 32 more might not fit,
+// the buffer is cut to its kk largest pairs and the threshold becomes the
+// kk-th largest. The output is kk descending rounds of "largest pair below
+// the previous one" over the buffer. What bounded it on the H100 (20.5 ms on
+// the v3 path, 25.1 on v2): the f32 product on synchronous loads, one
+// short-lived block a group, the whole slab scanned in mode id, and the
+// serial rounds over the buffer.
+//
+// Pairs of valid lanes are distinct (slots are, and so are the ids of one
+// partition), so both bodies select exactly the TPU kernel's kk rounds of
+// max-and-clear. Should a partition hold one id twice with equal scores, the
+// CUDA-core body emits the pair once and the tensor-core body twice.
 
 #include <limits.h>
 
 #include "common.cuh"
+#include "pair_topk_mma.cuh"
 
 namespace {
 
@@ -213,15 +228,28 @@ extern "C" {
 
 // K6: replaces quake_tpu/ops/pallas_grouped.py::_v3_kernel (id_mode = 0:
 // gsize and norms given, ids unused) and _grouped_kernel (id_mode = 1: ids
-// given, gsize and norms unused).
+// given, gsize and norms unused). P: partitions of codes, for the tensor map
+// over [P C, D].
 int qk_exact_topk(const void* gp, const void* gsize, const void* qg, const void* codes,
                   const void* norms, const void* ids, void* out_s, void* out_i, int Gn, int qt,
-                  int D, int C, int kk, int is_l2, int id_mode, void* stream) {
+                  int D, int P, int C, int kk, int is_l2, int id_mode, void* stream) {
+  if (Gn <= 0) return (int)cudaGetLastError();
+  if (pair_topk_mma_serves(qt, D, kk)) {
+    if (id_mode)
+      return launch_pair_topk_mma<PairMode::kById>(gp, nullptr, qg, codes, nullptr, ids, out_s,
+                                                   out_i, Gn, qt, D, P, C, kk, is_l2, stream);
+    return launch_pair_topk_mma<PairMode::kBySlot>(gp, gsize, qg, codes, norms, nullptr, out_s,
+                                                   out_i, Gn, qt, D, P, C, kk, is_l2, stream);
+  }
   if (id_mode)
     return launch_exact<true>(gp, gsize, qg, codes, norms, ids, out_s, out_i, Gn, qt, D, C, kk,
                               is_l2, stream);
   return launch_exact<false>(gp, gsize, qg, codes, norms, ids, out_s, out_i, Gn, qt, D, C, kk,
                              is_l2, stream);
 }
+
+// The body qk_exact_topk runs at this shape (either mode): 1 the tensor-core
+// body, 0 the CUDA-core body of one block a group.
+int qk_exact_topk_body(int qt, int D, int kk) { return pair_topk_mma_serves(qt, D, kk) ? 1 : 0; }
 
 }  // extern "C"

@@ -18,17 +18,20 @@
 //   K4 (rowscale_topk) — the exact top-kk of each row's packed values. The
 //      values are unique (distinct lanes), so this equals the TPU kernel's kk
 //      rounds of max-and-clear over the full row.
-//   K5 (rowscale_fold) — fold-128 top-2 then kk rounds, as kernel K1.
+//   K5 (rowscale_fold) — fold-128 top-2 then kk rounds, as kernel K1 (fold
+//      column = lane % 128). It too needs the row's range first: a top-2 by
+//      raw score is not the top-2 by packed value, whose keys tie within a
+//      level and break the tie by the larger lane.
 //
 // Bound on the H100: operations, 2 D flops a (real query row, valid lane)
 // pair of a pass, against 4 (D + 1) bytes of slab and norms a lane (qt / 2 =
 // 32 flops per byte at qt = 64). The row range needs a first pass over the
 // scores before any key exists, so K4's and K5's work is two passes; K7's is
 // one where a chunk is one 128-row segment (its range and keys come from the
-// same accumulators). The tensor-core bodies (K4 and K7) take their products
-// as split TF32 operands (three TF32 products per f32 one: 3 x flops /
-// 495 TFLOP/s a pass); K5 and the CUDA-core bodies of K4 and K7 run them in
-// f32 (flops / 67 TFLOP/s a pass).
+// same accumulators). The tensor-core bodies (K4, K5 and K7) take their
+// products as split TF32 operands (three TF32 products per f32 one: 3 x flops
+// / 495 TFLOP/s a pass); the CUDA-core bodies run them in f32 (flops / 67
+// TFLOP/s a pass).
 //
 // K4 has three bodies, chosen by shape in the launcher (rowscale_topk_body),
 // never after a failure. What bounded the first design: an f32 product on
@@ -37,9 +40,15 @@
 // chunk table, one block per 128-row chunk that fetched the same query tile
 // again.
 //
-// rowscale_scan_kernel (K5, and K4 where no other body fits; K7's CUDA-core
-// body follows the same design), simple: one block per group, the [qt, D] query tile in shared memory, the
-// slab streamed through shared memory in 128-row segments twice (only the
+// K5 has two bodies, chosen by shape in the launcher (rowscale_fold_body):
+// K4's tensor-core body with the fold selection (kFoldSelect), and
+// rowscale_scan_kernel. What bounded the latter on the H100 (30.3 ms on the
+// v7 path) was what bounded K4's: two f32 products on synchronous loads, one
+// short-lived block a group.
+//
+// rowscale_scan_kernel (K5's and K4's CUDA-core body; K7's CUDA-core body
+// follows the same design), simple: one block per group, the [qt, D] query
+// tile in shared memory, the slab streamed through shared memory in 128-row segments twice (only the
 // ceil(size / 128) segments that hold vectors). Pass 1 takes each row's min
 // and max; pass 2 recomputes the same scores with the same code in the same
 // order (bit-identical, so a winner's key comes from the same float as the
@@ -69,6 +78,12 @@
 // owns whole rows), which is unchanged but for its last step: the kk rounds
 // that emit a row's winners run for the warp's eight rows at once and store
 // a row's winners together. The two products hold the pace (see mma_tile).
+// K5 runs the same body (kFoldSelect): a segment's packed values, in the
+// same tile and layout, go into the fold columns' top two (fold2; a segment
+// starts on a multiple of 128, so the tile's column is the fold column), and
+// the group's end runs kk select_rounds a row, the warp's rows side by side.
+// Folding in the accumulator's layout instead, which saves two barrier
+// phases a segment, measured the same (PERF.md): the products bound it.
 //
 // rowscale_chunk_kernel, K4 with a chunk table (the v4 generation): a group
 // may be one [qt, ct] chunk of its partition. row_off[g] is the chunk's first
@@ -619,6 +634,12 @@ inline RingShape rowscale_topk_mma_shape(int qt, int D, int kk) {
   return ring_shape(D, kk, [&](int NBS, int cap) { return rowscale_topk_mma_smem(qt, D, NBS, cap); });
 }
 
+// Boxes a ring stage of K5's tensor-core body holds (it keeps no candidate
+// buffer); 0: none fits.
+inline int rowscale_fold_mma_stage_boxes(int qt, int D) {
+  return ring_stage_boxes(D, [&](int NBS) { return rowscale_topk_mma_smem(qt, D, NBS, 0); });
+}
+
 // Which body serves a shape (qk_rowscale_topk_body names them). A chunk table
 // never takes the tensor-core body: a chunk's row range can be far below its
 // scores, its keys then resolve the scores' last places, and only f32 sums
@@ -628,7 +649,32 @@ inline int rowscale_topk_body(int qt, int D, int kk, bool chunked) {
   return D % 4 == 0 && rowscale_topk_mma_shape(qt, D, kk).cap > 0 ? 2 : 0;
 }
 
-template <int QT>
+// Which body serves K5 at a shape (qk_rowscale_fold_body names them): 2 the
+// tensor-core body where rows are 16-byte aligned (D % 4 == 0) and its query
+// tile fits beside a ring stage, else 0, the CUDA-core body of one block a
+// group. The fold keeps two values a column whatever kk is.
+inline int rowscale_fold_body(int qt, int D) {
+  return D % 4 == 0 && rowscale_fold_mma_stage_boxes(qt, D) > 0 ? 2 : 0;
+}
+
+// kk selection rounds over the fold columns of each of a warp's R rows
+// (rows warp + 8 r, select_rounds), the winners into og[row][0, kk): lane i
+// keeps round i's winner and a row's winners leave 32 at a time.
+template <int R>
+__device__ __forceinline__ void emit_fold_rows(float (&m1)[R][4], float (&m2)[R][4], int kk,
+                                               float* og) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float keep[R];
+  select_rounds<R>(m1, m2, kk, [&](int r, int i, float best) {
+    if ((i & 31) == lane) keep[r] = best;
+    if ((i & 31) == 31 || i == kk - 1) {  // warp-uniform
+      const int at = (i & ~31) + lane;
+      if (at <= i) og[(warp + kWarps * r) * kk + at] = keep[r];
+    }
+  });
+}
+
+template <int QT, bool kFoldSelect>
 __global__ void __launch_bounds__(kThreads, 1)
 rowscale_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __restrict__ gp,
                          const int* __restrict__ gsize, const float* __restrict__ qg,
@@ -646,7 +692,7 @@ rowscale_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __
   extern __shared__ __align__(16) float smem[];
   float* ring = smem_aligned(smem);       // 2 x stage_floats: NBS boxes of [128][32], or the tile
   float* qs = ring + 2 * stage_floats;    // NB boxes of [QR][32]
-  float* buf = qs + NB * QR * kBox;       // [QT][cap]
+  float* buf = qs + NB * QR * kBox;       // [QT][cap] (K4 only: cap = 0 for K5)
   float* rowp = buf + QT * cap;           // [QT][2] = (rowmin, levels / rng)
   float* red = rowp + 2 * QT;             // [QR][NW][2] = (min, max) per warp, at most 512
   uint64_t* bars = reinterpret_cast<uint64_t*>(red + 2 * 32 * kWarps);  // one a ring stage
@@ -713,6 +759,7 @@ rowscale_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __
   float acc[T][4];  // the scores of this thread's entries, tile (i, j) at i NT + j
   int cnt[R];
   float thr[R];
+  float m1[R][4], m2[R][4];  // K5: the top two packed values of each fold column
   int size = 0, nseg = 0;
   const float* nrm = norms;
   while (cg < end) {
@@ -733,6 +780,8 @@ rowscale_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __
       for (int r = 0; r < R; ++r) {
         cnt[r] = 0;
         thr[r] = -1.0f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) m1[r][j] = m2[r][j] = -1.0f;
       }
     }
     const int s = cv < nseg ? cv : cv - nseg;
@@ -771,8 +820,9 @@ rowscale_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __
     }
 
     // The packed values of the scores in acc, through the tile laid over the
-    // consumed stage, into each row's candidate buffer. Every warp must have
-    // finished reading the stage before the call.
+    // consumed stage, into each row's candidate buffer (K4) or fold columns
+    // (K5: a segment starts on a multiple of 128, so lane + 32 j is the fold
+    // column). Every warp must have finished reading the stage before the call.
     auto select_segment = [&]() {
 #pragma unroll
       for (int m = 0; m < 2 * MT; ++m) {
@@ -794,15 +844,22 @@ rowscale_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __
         }
       }
       __syncthreads();
-      // All of the warp's values first, then row by row; a row none of whose
-      // values passes its threshold (most rows, once the thresholds have
-      // risen) costs one vote.
+      // All of the warp's values first, then row by row.
       float v[R][4];
 #pragma unroll
       for (int r = 0; r < R; ++r)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           v[r][j] = stage_mem[(warp + kWarps * r) * kTileStride + lane + 32 * j];
+      if constexpr (kFoldSelect) {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) fold2(m1[r][j], m2[r][j], v[r][j]);
+        return;
+      }
+      // K4: a row none of whose values passes its threshold (most rows, once
+      // the thresholds have risen) costs one vote.
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const float top = fmaxf(fmaxf(v[r][0], v[r][1]), fmaxf(v[r][2], v[r][3]));
@@ -871,12 +928,17 @@ rowscale_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __
     __syncthreads();      // the stage is consumed: its buffer may be refilled
     stage ^= 1;
     if (++cv < 2 * nseg - 1) continue;
-    emit_rows<R>(buf, cap, cnt, kk, out + (size_t)cg * QT * kk);
+    if constexpr (kFoldSelect) {
+      emit_fold_rows<R>(m1, m2, kk, out + (size_t)cg * QT * kk);
+    } else {
+      emit_rows<R>(buf, cap, cnt, kk, out + (size_t)cg * QT * kk);
+    }
     cg = next_live(cg + step);
     cv = 0;
   }
 }
 
+template <bool kFoldSelect>
 int launch_rowscale_topk_mma(const void* gp, const void* gsize, const void* qg,
                              const void* codes, const void* norms, void* out, void* stats,
                              int Gn, int qt, int D, int P, int C, int kk, int is_l2,
@@ -885,16 +947,17 @@ int launch_rowscale_topk_mma(const void* gp, const void* gsize, const void* qg,
   CUtensorMap cmap;
   const int me = slab_tensor_map(&cmap, codes, (unsigned long long)P * C, D);
   if (me != 0) return me;
-  const RingShape shape = rowscale_topk_mma_shape(qt, D, kk);
+  const RingShape shape = kFoldSelect ? RingShape{rowscale_fold_mma_stage_boxes(qt, D), 0}
+                                      : rowscale_topk_mma_shape(qt, D, kk);
   const int NBS = shape.NBS, cap = shape.cap;
   const size_t smem = rowscale_topk_mma_smem(qt, D, NBS, cap);
   const int grid = Gn < sm_count() ? Gn : sm_count();
   cudaStream_t st = (cudaStream_t)stream;
 #define QK_ROWSCALE_MMA(QT)                                                               \
   case QT: {                                                                              \
-    cudaError_t e = allow_smem(rowscale_topk_mma_kernel<QT>, smem);                       \
+    cudaError_t e = allow_smem(rowscale_topk_mma_kernel<QT, kFoldSelect>, smem);          \
     if (e != cudaSuccess) return (int)e;                                                  \
-    rowscale_topk_mma_kernel<QT><<<grid, kThreads, smem, st>>>(                           \
+    rowscale_topk_mma_kernel<QT, kFoldSelect><<<grid, kThreads, smem, st>>>(              \
         cmap, (const int*)gp, (const int*)gsize, (const float*)qg, (const float*)norms,   \
         (float*)out, (float*)stats, Gn, D, NB, NBS, ring_stage_floats(qt, NBS), C,        \
         kk, cap, is_l2, slot_mult, levels);                                               \
@@ -1572,8 +1635,8 @@ int qk_rowscale_topk(const void* gp, const void* gsize, const void* qsrc, const 
   if (Gn <= 0) return (int)cudaGetLastError();
   switch (rowscale_topk_body(qt, D, kk, row_off != nullptr)) {
     case 2:
-      return launch_rowscale_topk_mma(gp, gsize, qg, codes, norms, out, stats, Gn, qt, D, P, C,
-                                      kk, is_l2, slot_mult, levels, stream);
+      return launch_rowscale_topk_mma<false>(gp, gsize, qg, codes, norms, out, stats, Gn, qt, D,
+                                             P, C, kk, is_l2, slot_mult, levels, stream);
     case 1:
       return launch_rowscale_chunk(gp, gsize, qsrc, row_off, qg, codes, norms, out, stats, Gn,
                                    qt, D, C, kk, is_l2, slot_mult, levels, stream);
@@ -1591,12 +1654,23 @@ int qk_rowscale_topk_body(int qt, int D, int kk, int chunked) {
 }
 
 // K5: replaces quake_tpu/ops/pallas_grouped.py::_v7_kernel (_v7_select +
-// _v7_fold_rounds).
+// _v7_fold_rounds). P: partitions of codes, for the tensor map over [P C, D].
 int qk_rowscale_fold(const void* gp, const void* gsize, const void* qg, const void* codes,
-                     const void* norms, void* out, void* stats, int Gn, int qt, int D, int C,
-                     int kk, int is_l2, float slot_mult, float levels, void* stream) {
+                     const void* norms, void* out, void* stats, int Gn, int qt, int D, int P,
+                     int C, int kk, int is_l2, float slot_mult, float levels, void* stream) {
+  if (Gn <= 0) return (int)cudaGetLastError();
+  if (rowscale_fold_body(qt, D) == 2)
+    return launch_rowscale_topk_mma<true>(gp, gsize, qg, codes, norms, out, stats, Gn, qt, D, P,
+                                          C, kk, is_l2, slot_mult, levels, stream);
   return launch_rowscale<true>(gp, gsize, nullptr, nullptr, qg, codes, norms, out, stats, Gn,
                                qt, D, C, kk, is_l2, slot_mult, levels, stream);
+}
+
+// The body qk_rowscale_fold runs at this shape: 2 the tensor-core body, 0 the
+// CUDA-core body of one block a group (kk does not change it).
+int qk_rowscale_fold_body(int qt, int D, int kk) {
+  (void)kk;
+  return rowscale_fold_body(qt, D);
 }
 
 // K7: replaces quake_tpu/ops/pallas_grouped.py::_v5_kernel.

@@ -47,11 +47,12 @@
 // H100 (34 ms on the direct multi path): the f32 product on loads that
 // nothing overlapped, gb groups a block (few blocks, a ragged last wave), the
 // whole slab scanned, segments without an id included. The tensor-core body
-// (multi_topk_mma_kernel) is persistent, multiplies on the tensor cores fed
+// (pair_topk_mma.cuh, shared with K6) is persistent, multiplies on the tensor cores fed
 // by a TMA ring, skips the segments whose ids are all < 0, and keeps a row's
 // best kk as a sorted list merged a segment at a time; its note says more.
 
 #include "common.cuh"
+#include "pair_topk_mma.cuh"
 
 namespace {
 
@@ -403,361 +404,12 @@ int launch_slot_topk(const void* gp, const void* gsize, const void* qg, const vo
 
 // ------------------------------------------------ multi_topk on the tensor cores
 
-// The sum of squares of this thread's half of the columns of one 128-row
-// segment tile of `boxes` boxes (row threadIdx.x % 128; half 0 takes the
-// even 16-byte chunks, half 1 the odd ones, each in column order), added to
-// a. Every row is summed in the same order, so copies of one vector get
-// the same sum.
-__device__ __forceinline__ float segment_row_sumsq(const float* seg, int boxes, float a) {
-  const int r = threadIdx.x & (kFold - 1), h = threadIdx.x / kFold;
-  for (int q4 = h; q4 < boxes * (kBox / 4); q4 += 2) {
-    const float4 v = *reinterpret_cast<const float4*>(seg + (q4 >> 3) * kSegBox + r * kBox +
-                                                      (((q4 & 7) ^ (r & 7)) << 2));
-    a = fmaf(v.x, v.x, a);
-    a = fmaf(v.y, v.y, a);
-    a = fmaf(v.z, v.z, a);
-    a = fmaf(v.w, v.w, a);
-  }
-  return a;
-}
-
-// Shared memory of multi_topk's tensor-core body, in bytes: room to reach a
-// 1024-byte boundary, ring, query tile, the rows' lists (3 kk (score, index)
-// pairs a row, see merge_rows), the segment's ids, the two halves of its rows'
-// |x|^2, |q|^2 per row, the two stage barriers.
-inline size_t multi_topk_mma_smem(int qt, int D, int kk, int NBS) {
-  return 1024 + 16 +
-         (size_t)(2 * ring_stage_floats(qt, NBS) + tile_boxes(D) * (qt < 16 ? 16 : qt) * kBox +
-                  qt * 6 * kk + kFold + 2 * kFold + qt) *
-             sizeof(float);
-}
-
-// Boxes a ring stage of multi_topk's tensor-core body holds: all of D's, or
-// the most of 4, 2 and 1 that fits; 0: the body does not fit.
-inline int multi_topk_mma_stage_boxes(int qt, int D, int kk) {
-  for (int nbs = 4; nbs >= 1; nbs >>= 1) {
-    const int NBS = nbs < tile_boxes(D) ? nbs : tile_boxes(D);
-    if (multi_topk_mma_smem(qt, D, kk, NBS) <= kSmemLimit) return NBS;
-  }
-  return 0;
-}
-
 // Which body serves multi_topk at a shape (qk_multi_topk_body names them): 1
-// the tensor-core body, where rows are 16-byte aligned for the asynchronous
-// copies (D % 4 == 0) and its ring, query tile and lists fit; else 0,
-// slot_topk_kernel.
+// the tensor-core body (pair_topk_mma.cuh, mode kMulti), where rows are
+// 16-byte aligned for the asynchronous copies (D % 4 == 0) and its ring,
+// query tile and lists fit; else 0, slot_topk_kernel.
 inline int multi_topk_body(int qt, int D, int kk) {
-  return D % 4 == 0 && multi_topk_mma_stage_boxes(qt, D, kk) > 0 ? 1 : 0;
-}
-
-// multi_topk on the tensor cores: persistent, block b takes groups b,
-// b + grid, ... (partition-major, so blocks that run together read the same
-// partitions), and streams each group's slab through a ring of two 128-row
-// segment buffers filled by the Tensor Memory Accelerator one stage ahead,
-// across group borders, as K4's tensor-core body does; mma_tile (3xTF32)
-// multiplies. A segment whose lanes below C all have ids < 0 holds no
-// candidate: warp 0, which issues the copies, and the consumer both skip it by
-// a vote over its ids, so it is neither loaded nor multiplied. Lanes at or
-// past C (the next partition's rows, read through the tensor map) are masked.
-// |x|^2 of a segment's rows is summed from the ring buffer by all threads in
-// one fixed order a row, |q|^2 of a query row by four threads (strided, then a
-// butterfly sum), the same order for every row. The scores pass through a
-// [QT][kTileStride] tile laid over the consumed stage into rows a warp owns.
-// A row keeps its kk best (score, C - 1 - slot) pairs as a sorted list (the
-// pair order, larger index first, puts the smaller slot first): a segment's
-// values above the list's kk-th pair are its candidates, cut to their kk best
-// by kk rounds of a warp maximum where there are more, and merged into the
-// list (insert_rows, or merge_rows past kk = 32). The list is the row's
-// output.
-template <int QT>
-__global__ void __launch_bounds__(kThreads, 1)
-multi_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __restrict__ gp,
-                      const float* __restrict__ qg, const int* __restrict__ ids,
-                      float* __restrict__ out_s, int* __restrict__ out_i, int Gn, int D, int NB,
-                      int NBS, int stage_floats, int C, int kk, int is_l2) {
-  constexpr int MT = QT >= 32 ? 2 : 1;       // m16-tiles per warp
-  constexpr int MW = QT >= 64 ? 2 : 1;       // warps along the query rows
-  constexpr int NW = kWarps / MW;            // warps along the segment
-  constexpr int NT = 16 / NW;                // n8-tiles per warp
-  constexpr int T = MT * NT;                 // accumulator tiles per warp
-  constexpr int QR = 16 * MT * MW;           // rows of the query tile (zero from QT)
-  constexpr int R = QT / 8;                  // rows per warp in the selection
-  extern __shared__ __align__(16) float smem[];
-  float* ring = smem_aligned(smem);       // 2 x stage_floats: NBS boxes of [128][32], or the tile
-  float* qs = ring + 2 * stage_floats;    // NB boxes of [QR][32]
-  float* ls = qs + NB * QR * kBox;        // [QT][3 kk] list scores
-  int* li = reinterpret_cast<int*>(ls + QT * 3 * kk);       // [QT][3 kk] list indices
-  int* sid = li + QT * 3 * kk;                              // [128] the segment's ids
-  float* xsq = reinterpret_cast<float*>(sid + kFold);       // [2][128] halves of |x|^2
-  float* qsq = xsq + 2 * kFold;                             // [QT] |q|^2
-  uint64_t* bars = reinterpret_cast<uint64_t*>(qsq + QT);   // one a ring stage
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g4 = lane >> 2, t4 = lane & 3;
-  const int row0 = (warp / NW) * (16 * MT), col0 = (warp % NW) * (8 * NT);
-  const int ksteps = (D + 7) >> 3;
-  const int ND = (NB + NBS - 1) / NBS;  // depth chunks a segment: a stage holds NBS boxes
-  const int nseg = (C + kFold - 1) / kFold;
-  const bool l2 = is_l2 != 0;
-
-  const int first = blockIdx.x, step = gridDim.x, end = Gn;
-  // Ghost groups write (-inf, C) and take no part in the walk.
-  for (int g = first; g < end; g += step)
-    if (gp[g] < 0)
-      for (int i = threadIdx.x; i < QT * kk; i += kThreads) {
-        out_s[(size_t)g * QT * kk + i] = -INFINITY;
-        out_i[(size_t)g * QT * kk + i] = C;
-      }
-  auto next_live = [&](int g) {
-    while (g < end && gp[g] < 0) g += step;
-    return g;
-  };
-
-  // The producer, warp 0 alone, a stage ahead of the consumer over the same
-  // live segments.
-  mbar_init(bars);
-  int pg = next_live(first), ps = 0, pd = 0;
-  auto seg_live = [&](int g, int s) {  // a vote of warp 0 over the segment's ids
-    const int* gid = ids + (size_t)gp[g] * C;
-    bool any = false;
-    for (int j = lane; j < kFold; j += 32) any |= s * kFold + j < C && gid[s * kFold + j] >= 0;
-    return __any_sync(0xffffffffu, any);
-  };
-  auto seek = [&]() {  // (pg, ps) to the next live segment from where they stand
-    while (pg < end && !seg_live(pg, ps))
-      if (++ps == nseg) {
-        ps = 0;
-        pg = next_live(pg + step);
-      }
-  };
-  auto prefetch = [&](int stage) {
-    if (warp != 0 || pg >= end) return;
-    segment_load_async(ring + stage * stage_floats, &cmap, gp[pg] * C + ps * kFold, pd * NBS,
-                       min(NBS, NB - pd * NBS), bars + stage);
-    if (++pd < ND) return;
-    pd = 0;
-    if (++ps == nseg) {
-      ps = 0;
-      pg = next_live(pg + step);
-    }
-    seek();
-  };
-  if (warp == 0) {
-    seek();
-    prefetch(0);
-  }
-
-  int stage = 0;
-  uint32_t parity = 0;  // bit s: the parity of stage s's next completed phase
-  float acc[T][4];      // the products of this thread's entries, tile (i, j) at i NT + j
-  for (int g = next_live(first); g < end; g = next_live(g + step)) {
-    const int* gid = ids + (size_t)gp[g] * C;
-    // The last product on the previous group's tile ended before a barrier.
-    query_tile_load(qs, qg + (size_t)g * QT * D, QT, QR, D, NB);
-    if (l2 && threadIdx.x < 4 * QT) {  // |q|^2: four threads a row, each every fourth 16 bytes
-      const float4* qrow =
-          reinterpret_cast<const float4*>(qg + ((size_t)g * QT + threadIdx.x / 4) * D);
-      float a = 0.0f;
-      for (int d4 = threadIdx.x & 3; d4 < (D >> 2); d4 += 4) {
-        const float4 x = __ldg(qrow + d4);
-        a = fmaf(x.x, x.x, a);
-        a = fmaf(x.y, x.y, a);
-        a = fmaf(x.z, x.z, a);
-        a = fmaf(x.w, x.w, a);
-      }
-      a += __shfl_xor_sync(0xffffffffu, a, 1);
-      a += __shfl_xor_sync(0xffffffffu, a, 2);
-      if ((threadIdx.x & 3) == 0) qsq[threadIdx.x / 4] = a;
-    }
-    int cur[R], thi[R];
-    float ths[R];  // (ths, thi): the row's kk-th best pair so far
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int row = warp + kWarps * r;
-      for (int e = lane; e < kk; e += 32) {
-        ls[(size_t)row * 3 * kk + e] = -INFINITY;
-        li[(size_t)row * 3 * kk + e] = -1;
-      }
-      cur[r] = 0;
-      ths[r] = -INFINITY;
-      thi[r] = -1;
-    }
-    for (int s = 0; s < nseg; ++s) {
-      const int ln0 = s * kFold;
-      const int id = threadIdx.x < kFold && ln0 + (int)threadIdx.x < C ? gid[ln0 + threadIdx.x] : -1;
-      if (threadIdx.x < kFold) sid[threadIdx.x] = id;
-      if (!__syncthreads_or(id >= 0)) continue;  // no lane holds a vector: not loaded either
-      float xp = 0.0f;  // this thread's half of |x|^2 of segment row threadIdx.x % 128
-      for (int cd = 0; cd < ND; ++cd) {
-        float* stage_mem = ring + stage * stage_floats;
-        prefetch(stage ^ 1);
-        mbar_wait(bars + stage, (parity >> stage) & 1u);
-        parity ^= 1u << stage;
-        __syncthreads();  // and the query tile and |q|^2 are in place
-        mma_tile<MT, NT>(acc, qs + cd * NBS * QR * kBox, stage_mem, row0, col0, QR,
-                         min(4 * NBS, ksteps - 4 * NBS * cd), cd == 0);
-        if (l2) xp = segment_row_sumsq(stage_mem, min(NBS, NB - cd * NBS), xp);
-        if (cd + 1 < ND) {
-          __syncthreads();  // the stage is consumed: its buffer may be refilled
-          stage ^= 1;
-        }
-      }
-      float* stage_mem = ring + stage * stage_floats;
-      if (l2) xsq[threadIdx.x] = xp;  // [half][row]
-      __syncthreads();  // every warp has finished reading the stage; |x|^2 is in place
-      // The scores, through the tile laid over the consumed stage.
-#pragma unroll
-      for (int m = 0; m < 2 * MT; ++m) {
-        const int row = row0 + 16 * (m / 2) + g4 + 8 * (m % 2);
-        if (row < QT) {
-#pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            float v[2];
-#pragma unroll
-            for (int c = 0; c < 2; ++c) {
-              const int col = col0 + 8 * j + 2 * t4 + c;
-              const float dot = acc[(m / 2) * NT + j][2 * (m % 2) + c];
-              // 2 dot is exact, so a contraction into fmaf changes nothing.
-              v[c] = l2 ? 2.0f * dot - qsq[row] - (xsq[col] + xsq[kFold + col]) : dot;
-            }
-            *reinterpret_cast<float2*>(stage_mem + row * kTileStride + col0 + 8 * j + 2 * t4) =
-                make_float2(v[0], v[1]);
-          }
-        }
-      }
-      __syncthreads();
-      // Each warp's rows: a segment's values above the row's kk-th best pair so
-      // far, cut to their kk best where there are more, then merged.
-      float v[R][4];
-      bool ok[4];
-      int idx[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        ok[j] = sid[lane + 32 * j] >= 0;
-        idx[j] = C - 1 - (ln0 + lane + 32 * j);
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          v[r][j] = stage_mem[(warp + kWarps * r) * kTileStride + lane + 32 * j];
-      int nc[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        bool take[4];
-        bool any = false;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          take[j] = ok[j] && pair_above(v[r][j], idx[j], ths[r], thi[r]);
-          any |= take[j];
-        }
-        nc[r] = 0;
-        if (!__any_sync(0xffffffffu, any)) continue;  // no value above the row's kk-th best
-        unsigned keep[4];
-        int n = 0;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          keep[j] = __ballot_sync(0xffffffffu, take[j]);
-          n += __popc(keep[j]);
-        }
-        if (n > kk) {  // the kk-th best candidate, by kk rounds of a warp maximum below the last
-          float ks = INFINITY;
-          int ki = INT_MAX;
-          for (int i = 0; i < kk; ++i) {
-            float bs = -INFINITY;
-            int bi = -1;
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              if (take[j] && pair_above(ks, ki, v[r][j], idx[j]) &&
-                  pair_above(v[r][j], idx[j], bs, bi)) {
-                bs = v[r][j];
-                bi = idx[j];
-              }
-            warp_max_pair(bs, bi);
-            ks = bs;
-            ki = bi;
-          }
-          n = 0;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            keep[j] = __ballot_sync(0xffffffffu, take[j] && !pair_above(ks, ki, v[r][j], idx[j]));
-            n += __popc(keep[j]);
-          }
-        }
-        float* rs = ls + (size_t)(warp + kWarps * r) * 3 * kk + 2 * kk;
-        int* ri = li + (size_t)(warp + kWarps * r) * 3 * kk + 2 * kk;
-        int pos = 0;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if ((keep[j] >> lane) & 1u) {
-            const int at = pos + __popc(keep[j] & ((1u << lane) - 1u));
-            rs[at] = v[r][j];
-            ri[at] = idx[j];
-          }
-          pos += __popc(keep[j]);
-        }
-        nc[r] = n;
-      }
-      __syncwarp();
-      if (kk <= 32) {
-        insert_rows<R>(ls, li, cur, nc, kk);
-      } else {
-        merge_rows<R>(ls, li, cur, nc, kk);
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if (nc[r] == 0) continue;
-        const size_t last = (size_t)(warp + kWarps * r) * 3 * kk + cur[r] * kk + kk - 1;
-        ths[r] = ls[last];
-        thi[r] = li[last];
-      }
-      fence_async_proxy();  // the tile's stores, before the copy that refills the stage
-      __syncthreads();      // the stage and the ids are consumed
-      stage ^= 1;
-    }
-    // Each row's list is its output.
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int row = warp + kWarps * r;
-      for (int e = lane; e < kk; e += 32) {
-        const size_t at = (size_t)row * 3 * kk + cur[r] * kk + e;
-        out_s[((size_t)g * QT + row) * kk + e] = ls[at];
-        out_i[((size_t)g * QT + row) * kk + e] = li[at] < 0 ? C : C - 1 - li[at];
-      }
-    }
-    __syncwarp();
-  }
-}
-
-int launch_multi_topk_mma(const void* gp, const void* qg, const void* codes, const void* ids,
-                          void* out_s, void* out_i, int Gn, int qt, int D, int P, int C, int kk,
-                          int is_l2, void* stream) {
-  const int NB = tile_boxes(D);
-  CUtensorMap cmap;
-  const int me = slab_tensor_map(&cmap, codes, (unsigned long long)P * C, D);
-  if (me != 0) return me;
-  const int NBS = multi_topk_mma_stage_boxes(qt, D, kk);
-  const size_t smem = multi_topk_mma_smem(qt, D, kk, NBS);
-  const int grid = Gn < sm_count() ? Gn : sm_count();
-  cudaStream_t st = (cudaStream_t)stream;
-#define QK_MULTI_MMA(QT)                                                                   \
-  case QT: {                                                                               \
-    cudaError_t e = allow_smem(multi_topk_mma_kernel<QT>, smem);                           \
-    if (e != cudaSuccess) return (int)e;                                                   \
-    multi_topk_mma_kernel<QT><<<grid, kThreads, smem, st>>>(                               \
-        cmap, (const int*)gp, (const float*)qg, (const int*)ids, (float*)out_s, (int*)out_i, \
-        Gn, D, NB, NBS, ring_stage_floats(qt, NBS), C, kk, is_l2);                         \
-    break;                                                                                 \
-  }
-  switch (qt) {
-    QK_MULTI_MMA(8)
-    QK_MULTI_MMA(16)
-    QK_MULTI_MMA(32)
-    QK_MULTI_MMA(64)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef QK_MULTI_MMA
-  return (int)cudaGetLastError();
+  return pair_topk_mma_serves(qt, D, kk) ? 1 : 0;
 }
 
 }  // namespace
@@ -839,8 +491,8 @@ int qk_multi_topk(const void* gp, const void* qg, const void* codes, const void*
   if (gb <= 0 || Gn % gb) return (int)cudaErrorInvalidValue;
   if (Gn <= 0) return (int)cudaGetLastError();
   if (multi_topk_body(qt, D, kk) == 1)
-    return launch_multi_topk_mma(gp, qg, codes, ids, out_s, out_i, Gn, qt, D, P, C, kk, is_l2,
-                                 stream);
+    return launch_pair_topk_mma<PairMode::kMulti>(gp, nullptr, qg, codes, nullptr, ids, out_s,
+                                                  out_i, Gn, qt, D, P, C, kk, is_l2, stream);
   return launch_slot_topk<true>(gp, nullptr, qg, codes, ids, out_s, out_i, Gn, qt, D, C, kk,
                                 is_l2, gb, stream);
 }

@@ -361,11 +361,7 @@ inline size_t grouped_scan_mma_smem(int qt, int D, int NBS) {
 // serve the shape (D % 4 != 0, or no stage fits).
 inline int grouped_scan_stage_boxes(int qt, int D) {
   if (D % 4 != 0) return 0;
-  for (int nbs = 4; nbs >= 1; nbs >>= 1) {
-    const int NBS = nbs < tile_boxes(D) ? nbs : tile_boxes(D);
-    if (grouped_scan_mma_smem(qt, D, NBS) <= kSmemLimit) return NBS;
-  }
-  return 0;
+  return ring_stage_boxes(D, [&](int NBS) { return grouped_scan_mma_smem(qt, D, NBS); });
 }
 
 inline bool grouped_scan_uses_mma(int qt, int D) { return grouped_scan_stage_boxes(qt, D) > 0; }

@@ -13,7 +13,10 @@ Both select on the f32 scores themselves, with no quantized key, and end in
       score, max id among ties); the kernel emits ids
 
 K6 is a CUDA kernel (csrc/grouped_exact.cu); `exact_scan` runs its plain
-PyTorch version on CPU tensors and launches it on CUDA tensors.
+PyTorch version on CPU tensors and launches it on CUDA tensors. Where
+D % 4 == 0 and its lists fit, it multiplies on the tensor cores with split
+TF32 operands that keep f32 accuracy (ops/split_product.py is the plain
+model of that product).
 """
 
 from __future__ import annotations
@@ -28,6 +31,27 @@ from quake_tpu_torch.ops.scan import NEG_INF
 from quake_tpu_torch.profiling import mark_stage
 
 MODES = ("slot", "id")
+MMA_BODY, GROUP_BODY = 1, 0  # exact_topk_body's answers
+
+
+def exact_topk_body(qt: int, D: int, kk: int) -> int:
+    """The body kernel K6's launcher runs at this shape, in either mode
+    (csrc/grouped_exact.cu::qk_exact_topk_body, asked of the built library):
+    MMA_BODY, multi_topk's tensor-core body (csrc/pair_topk_mma.cuh), where
+    rows are 16-byte aligned for the asynchronous copies (D % 4 == 0) and its
+    ring, query tile and per-row lists fit a block's shared memory; else
+    GROUP_BODY, the CUDA-core body of one block a group."""
+    return int(_ext.lib().qk_exact_topk_body(qt, D, kk))
+
+
+def exact_topk_serves(qt: int, D: int, kk: int) -> bool:
+    """Whether K6 serves (qt, D, kk) on the card: its tensor-core body takes
+    the shape, or its CUDA-core body's round_up(kk, 32) + 128 (score, index)
+    pairs per row fit a block's shared memory beside the query tile and a
+    segment."""
+    Dp = -(-D // 4) * 4
+    return (exact_topk_body(qt, D, kk) == MMA_BODY
+            or (qt * Dp + FOLD * (Dp + 1) + FOLD + qt * 2 * topk_cap(kk)) * 4 <= SMEM_LIMIT)
 
 
 def exact_scan_plain(gp, qg, codes, kk: int, metric: str, mode: str, group_size=None,
@@ -91,7 +115,11 @@ def exact_scan(gp, qg, codes, kk: int, metric: str, mode: str, group_size=None, 
     2<q, x> - |q|^2 - |x|^2 with both norms summed here, over the lanes with
     id >= 0 of the whole slab, ties to the larger id. Returns (scores
     [Gn, qt, kk] f32 descending, -inf = none; slots or ids [Gn, qt, kk]
-    int32, -1 = none)."""
+    int32, -1 = none).
+
+    The launcher picks one of two bodies by shape (`exact_topk_body`), never
+    after a failure; both compute the same function. Shapes past
+    `exact_topk_serves` raise."""
     Gn, qt, D = qg.shape
     P, C, _ = codes.shape
     if mode not in MODES:
@@ -102,12 +130,10 @@ def exact_scan(gp, qg, codes, kk: int, metric: str, mode: str, group_size=None, 
         raise ValueError(f"exact_scan: unsupported device {qg.device}")
     if qt not in (8, 16, 32, 64):
         raise ValueError(f"exact_scan: qt must be 8, 16, 32 or 64 (qt={qt})")
-    Dp = -(-D // 4) * 4
-    # K6's per-row buffer holds as many (score, index) pairs as K4's holds values.
-    if (qt * Dp + FOLD * (Dp + 1) + FOLD + qt * 2 * topk_cap(kk)) * 4 > SMEM_LIMIT:
+    if not exact_topk_serves(qt, D, kk):
         raise ValueError(f"exact_scan: D={D}, qt={qt}, kk={kk} need more shared memory than "
-                         "a block has (kernel K6 keeps round_up(kk, 32) + 128 (score, "
-                         "index) pairs per row)")
+                         "a block has (kernel K6 keeps 3 kk (score, index) pairs per row on the "
+                         "tensor cores, round_up(kk, 32) + 128 on the CUDA cores)")
     aux = (("group_size", group_size, torch.int32, (Gn,)), ("norms", norms, torch.float32, (P, C))
            ) if mode == "slot" else (("ids", ids, torch.int32, (P, C)),)
     for name, t, dtype, shape in (("gp", gp, torch.int32, (Gn,)),
@@ -117,13 +143,17 @@ def exact_scan(gp, qg, codes, kk: int, metric: str, mode: str, group_size=None, 
                 or not t.is_contiguous()):
             raise ValueError(f"exact_scan: {name} must be a contiguous {dtype} {shape} "
                              f"tensor on {qg.device}")
+    if exact_topk_body(qt, D, kk) == MMA_BODY and (qg.data_ptr() % 16
+                                                   or codes.data_ptr() % 16):
+        raise ValueError("exact_scan: qg and codes must start on a 16-byte boundary")
     out_s = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.float32)
     out_i = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.int32)
     rc = _ext.lib().qk_exact_topk(
         gp.data_ptr(), group_size.data_ptr() if mode == "slot" else None, qg.data_ptr(),
         codes.data_ptr(), norms.data_ptr() if mode == "slot" else None,
         ids.data_ptr() if mode == "id" else None, out_s.data_ptr(), out_i.data_ptr(),
-        Gn, qt, D, C, kk, int(metric == "l2"), int(mode == "id"), _ext.stream_ptr(qg.device))
+        Gn, qt, D, P, C, kk, int(metric == "l2"), int(mode == "id"),
+        _ext.stream_ptr(qg.device))
     _ext.check(rc, "exact_topk")
     _ext.launches["exact_topk"] += 1
     return out_s, out_i

@@ -17,10 +17,10 @@ pair_slot) lets each (query, probe) pair read its kernel row directly.
 The TPU kernels' groups-per-step `gpb` only pads the group count here. K4
 and K5 are CUDA kernels (csrc/grouped_rowscale.cu); `rowscale_scan` runs
 their plain PyTorch version on CPU tensors and launches them on CUDA
-tensors. On whole partitions K4 multiplies on the tensor cores with split
-TF32 operands that keep f32 accuracy (ops/split_product.py is the plain
-model of that product); with a chunk table, and K5 always, in f32 on the
-CUDA cores.
+tensors. On whole partitions K4 and K5 multiply on the tensor cores with
+split TF32 operands that keep f32 accuracy (ops/split_product.py is the
+plain model of that product); K4 with a chunk table in f32 on the CUDA
+cores.
 """
 
 from __future__ import annotations
@@ -65,6 +65,16 @@ def rowscale_topk_body(qt: int, D: int, kk: int, chunked: bool = False) -> int:
     persistent CUDA-core body, with a chunk table where its two segment
     buffers fit; else GROUP_BODY, the CUDA-core body of one block a group."""
     return int(_ext.lib().qk_rowscale_topk_body(qt, D, kk, int(chunked)))
+
+
+def rowscale_fold_body(qt: int, D: int, kk: int) -> int:
+    """The body kernel K5's launcher runs at this shape
+    (csrc/grouped_rowscale.cu::rowscale_fold_body, asked of the built
+    library): MMA_BODY, K4's tensor-core body with the fold selection, where
+    rows are 16-byte aligned for the asynchronous copies (D % 4 == 0) and
+    its query tile fits beside a ring stage; else GROUP_BODY, the CUDA-core
+    body of one block a group."""
+    return int(_ext.lib().qk_rowscale_fold_body(qt, D, kk))
 
 
 def rowscale_scan_plain(gp, group_size, qg, codes, norms, kk: int, slot_mult: int,
@@ -146,14 +156,15 @@ def rowscale_scan(gp, group_size, qg, codes, norms, kk: int, slot_mult: int, lev
     chunk's valid lanes, and lanes and slots are chunk-local.
 
     K4's launcher picks one of three bodies by shape (`rowscale_topk_body`),
-    never after a failure; all compute the same function. Whole partitions
-    take the tensor-core body (split TF32 product, asynchronous copies, a
-    persistent block per SM) where D % 4 == 0 (a row is 16-byte aligned) and
-    its query tile and candidate buffers fit shared memory. A chunk table takes a persistent CUDA-core body (f32): a chunk's
-    row range can be far below its scores, its keys then resolve the scores'
-    last places, and only f32 sums in the order of D reproduce the plain
-    version's there. Every other shape takes the CUDA-core body of one block
-    a group."""
+    K5's one of two (`rowscale_fold_body`), never after a failure; all
+    compute the same function. Whole partitions take the tensor-core body
+    (split TF32 product, asynchronous copies, a persistent block per SM)
+    where D % 4 == 0 (a row is 16-byte aligned) and its query tile and
+    candidate buffers fit shared memory. A chunk table takes a persistent
+    CUDA-core body (f32): a chunk's row range can be far below its scores,
+    its keys then resolve the scores' last places, and only f32 sums in the
+    order of D reproduce the plain version's there. Every other shape takes
+    the CUDA-core body of one block a group."""
     Gn = gp.shape[0]
     G, qt, D = qg.shape
     P, C, _ = codes.shape
@@ -176,7 +187,8 @@ def rowscale_scan(gp, group_size, qg, codes, norms, kk: int, slot_mult: int, lev
         raise ValueError(f"rowscale_scan: qt must be 8, 16, 32 or 64 (qt={qt})")
     Dp = -(-D // 4) * 4
     cap = topk_cap(kk) if select == "topk" else 0
-    body = rowscale_topk_body(qt, D, kk, chunked) if select == "topk" else GROUP_BODY
+    body = (rowscale_topk_body(qt, D, kk, chunked) if select == "topk"
+            else rowscale_fold_body(qt, D, kk))
     if body == GROUP_BODY and (qt * Dp + FOLD * (Dp + 1) + qt * cap) * 4 > SMEM_LIMIT:
         raise ValueError(f"rowscale_scan: D={D}, qt={qt}, kk={kk} need more shared memory "
                          "than a block has (kernel K4 keeps round_up(kk, 32) + 128 "
@@ -206,7 +218,7 @@ def rowscale_scan(gp, group_size, qg, codes, norms, kk: int, slot_mult: int, lev
             row_off.data_ptr() if chunked else None, *ptrs, Gn, qt, D, P, *tail)
     else:
         rc = _ext.lib().qk_rowscale_fold(gp.data_ptr(), group_size.data_ptr(), *ptrs, Gn, qt, D,
-                                         *tail)
+                                         P, *tail)
     name = "rowscale_topk" if select == "topk" else "rowscale_fold"
     _ext.check(rc, name)
     _ext.launches[name] += 1

@@ -1,4 +1,4 @@
-"""Plain model of the split-precision product of kernels K1 and K4.
+"""Plain model of the split-precision product of the tensor-core kernels.
 
 The kernels multiply on the tensor cores in TF32 (8 exponent bits, 10
 mantissa bits) and keep f32 accuracy by splitting each operand on the card
@@ -10,11 +10,14 @@ mantissa bits) and keep f32 accuracy by splitting each operand on the card
 `tf32` rounds to nearest with ties away from zero, as `cvt.rna.tf32.f32`
 does. The q_lo x_lo term is dropped: it is below 2^-22 of |q| |x|.
 
-This module repeats that arithmetic in tensor operations (the sums inside
-each partial product run in PyTorch's order, not the tensor cores'). The
-CPU tests and chip_smoke.py use it; nothing on a search path calls it.
-`grouped_scan_plain` and `rowscale_scan_plain` stay f32: they are what the
-kernels are held to.
+This module repeats that arithmetic in tensor operations, summed exactly:
+the products of TF32 values and their sums over D are taken in float64 and
+rounded once to f32, so the model carries the split's own error (the TF32
+operands, the dropped term) and no order of summation of its own. A kernel
+held to it is held to the split's arithmetic, within the rounding of its own
+sums. The CPU tests and chip_smoke.py use it; nothing on a search path calls
+it. The kernels' plain versions stay f32: they are what the kernels are held
+to.
 """
 
 from __future__ import annotations
@@ -49,12 +52,12 @@ def tf32_split(x):
 
 def split_matmul(q, x):
     """q [..., m, D] times x [..., n, D] transposed, [..., m, n], as the
-    three partial products of the split operands, summed in f32 in the
-    kernels' order (the two small terms first)."""
-    q_hi, q_lo = tf32_split(q)
-    x_hi, x_lo = tf32_split(x)
-    xt_hi, xt_lo = x_hi.transpose(-1, -2), x_lo.transpose(-1, -2)
-    return (torch.matmul(q_lo, xt_hi) + torch.matmul(q_hi, xt_lo)) + torch.matmul(q_hi, xt_hi)
+    three partial products of the split operands, summed in float64 and
+    rounded once to f32."""
+    q_hi, q_lo = (t.to(torch.float64) for t in tf32_split(q))
+    x_hi, x_lo = (t.to(torch.float64).transpose(-1, -2) for t in tf32_split(x))
+    exact = torch.matmul(q_lo, x_hi) + torch.matmul(q_hi, x_lo) + torch.matmul(q_hi, x_hi)
+    return exact.to(torch.float32)
 
 
 @contextlib.contextmanager

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device times of kernel bodies across shapes, on one card.
 
-    python3 scripts/body_times.py [k2] [k3] [k1] [k7] [multi]
+    python3 scripts/body_times.py [k2] [k3] [k1] [k7] [multi] [k5] [k6]
 
 Run from the root of a checkout with a CUDA card: the package and
 chip_smoke.py are imported from the current directory, so the same script
@@ -23,6 +23,13 @@ checkout's kernels at the same shapes. With no argument every section runs.
   a full slab (every row holds an id) and a half-occupied one (ids in the
   first half of each partition: the tensor-core body skips the segments
   without one).
+- k5: K5 (rowscale_fold, the v7 scan's kernel) on the same groups and store,
+  kk = 10, at D = 128 (the tensor-core body) and at D = 127 (the CUDA-core
+  body, whose query tile and segments are zero-padded to 128 columns: the
+  same products).
+- k6: K6 (exact_topk) on the same groups and store, kk = 10, in mode slot
+  (lanes below the sizes) and mode id (ids below the sizes, the whole slab
+  scanned), at D = 128 and 127 as for k5.
 
 Times come from chip_smoke.py's time_ms. Where the checkout's package names
 the body a shape takes, the line says which. A shape the build does not
@@ -41,7 +48,8 @@ import torch
 sys.path.insert(0, os.getcwd())
 
 import chip_smoke  # noqa: E402
-from quake_tpu_torch.ops import grouped_chunked, grouped_variants  # noqa: E402
+from quake_tpu_torch.ops import (grouped_chunked, grouped_exact, grouped_family,  # noqa: E402
+                                 grouped_variants)
 from quake_tpu_torch.ops.flat_topk import flat_topk  # noqa: E402
 from quake_tpu_torch.ops.grouped_scan import (grouped_scan_kernel, merge_positions,  # noqa: E402
                                               packed_params)
@@ -54,7 +62,8 @@ K1_P, K1_C, K1_GROUPS, K1_QT, K1_KK = 256, 1024, 2048, 64, 10
 # 7680 is divisible by every chunk height), the main path's qt and kk.
 SCAN_P, SCAN_C, SCAN_D, SCAN_GROUPS, SCAN_QT, SCAN_KK = 256, 7680, 128, 2048, 64, 10
 K7_CTS, MULTI_GBS = (128, 256, 512), (1, 8)
-SECTIONS = ("k2", "k3", "k1", "k7", "multi")
+BODY_DEPTHS = (SCAN_D, SCAN_D - 1)  # K5 and K6: the tensor-core body, the CUDA-core body
+SECTIONS = ("k2", "k3", "k1", "k7", "multi", "k5", "k6")
 
 
 def body_of(module, name: str, *shape) -> str:
@@ -143,6 +152,33 @@ def time_multi(dev, codes, sizes, gp, qg):
                   f"{ms:.4f} ms", flush=True)
 
 
+def time_k5_k6(dev, sections, codes, sizes, gp, qg):
+    gsize = sizes[gp.long()].contiguous()
+    lane = torch.arange(SCAN_C, device=dev)[None, :]
+    ids = torch.where(lane < sizes[:, None],
+                      torch.arange(SCAN_P * SCAN_C, dtype=torch.int32,
+                                   device=dev).reshape(SCAN_P, SCAN_C), -1).contiguous()
+    slot_mult, levels = packed_params(SCAN_C)
+    for D in BODY_DEPTHS:
+        cd = codes if D == SCAN_D else codes[..., :D].contiguous()
+        qd = qg if D == SCAN_D else qg[..., :D].contiguous()
+        nd = (cd * cd).sum(-1).contiguous()
+        shape = f"groups={SCAN_GROUPS} qt={SCAN_QT} C={SCAN_C} D={D} kk={SCAN_KK}"
+        if "k5" in sections:
+            args = (gp, gsize, qd, cd, nd, SCAN_KK, slot_mult, levels, "l2", "fold")
+            ms = chip_smoke.time_ms(torch, lambda: grouped_family.rowscale_scan(*args), reps=5)
+            print(f"K5 {shape}{body_of(grouped_family, 'rowscale_fold_body', SCAN_QT, D, SCAN_KK)}"
+                  f": {ms:.4f} ms", flush=True)
+        if "k6" in sections:
+            for mode, kw in (("slot", dict(group_size=gsize, norms=nd)), ("id", dict(ids=ids))):
+                fn = lambda: grouped_exact.exact_scan(gp, qd, cd, SCAN_KK, "l2", mode, **kw)  # noqa: E731
+                ms = chip_smoke.time_ms(torch, fn, reps=5)
+                print(f"K6 mode {mode} {shape}"
+                      f"{body_of(grouped_exact, 'exact_topk_body', SCAN_QT, D, SCAN_KK)}: "
+                      f"{ms:.4f} ms", flush=True)
+        del cd, qd, nd
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("body_times: no CUDA device", file=sys.stderr)
@@ -162,12 +198,14 @@ def main(argv) -> int:
         time_k3(dev, rng)
     if "k1" in sections:
         time_k1(dev, rng)
-    if "k7" in sections or "multi" in sections:
+    if {"k7", "multi", "k5", "k6"} & set(sections):
         codes, norms, sizes, gp, qg = scan_store(dev, np.random.default_rng(1))
         if "k7" in sections:
             time_k7(dev, codes, norms, sizes, gp, qg)
         if "multi" in sections:
             time_multi(dev, codes, sizes, gp, qg)
+        if "k5" in sections or "k6" in sections:
+            time_k5_k6(dev, sections, codes, sizes, gp, qg)
     print(chip_smoke.card_line())
     return 0
 

@@ -20,11 +20,12 @@ select pairs like K6. K9's packed values carry the top bits of a score's bit
 pattern, which the other order of summation moves in the last place: it is
 held to winner overlap >= 0.99 against its plain version and to equality with
 the top kk of K8's own scores, packed (both kernels compute the same f32
-scores). K1, K4 on whole partitions, K7 and multi_topk multiply on the tensor
-cores with split TF32 operands where D % 4 == 0; they are held to their f32
-plain versions at the same tolerances (K1 and K4 also to the plain versions
-run on ops/split_product.py's model of that product). K4 with a chunk table
-multiplies in f32 on the CUDA cores.
+scores). K1, K4 and K5 on whole partitions, K6, K7 and multi_topk multiply
+on the tensor cores with split TF32 operands where D % 4 == 0 and their
+tiles fit; they are held to their f32 plain versions at the same tolerances
+(K1, K4, K5 and K6 also to the plain versions run on ops/split_product.py's
+model of that product). K4 with a chunk table multiplies in f32 on the CUDA
+cores.
 """
 
 import contextlib
@@ -39,8 +40,11 @@ from quake_tpu_torch.ops.flat_topk import (CUDA_CORE_BODY, KEPT_BODY, TWO_PASS_B
 from quake_tpu_torch.ops.grouped_chunked import chunk_merge, chunk_merge_body, chunk_merge_plain
 from quake_tpu_torch.ops.grouped_chunked import GROUP_BODY as K7_GROUP_BODY
 from quake_tpu_torch.ops.grouped_chunked import MMA_BODY as K7_MMA_BODY
-from quake_tpu_torch.ops.grouped_exact import exact_scan, exact_scan_plain
-from quake_tpu_torch.ops.grouped_family import (CHUNK_BODY, GROUP_BODY, MMA_BODY, rowscale_scan,
+from quake_tpu_torch.ops.grouped_exact import GROUP_BODY as K6_GROUP_BODY
+from quake_tpu_torch.ops.grouped_exact import MMA_BODY as K6_MMA_BODY
+from quake_tpu_torch.ops.grouped_exact import exact_scan, exact_scan_plain, exact_topk_body
+from quake_tpu_torch.ops.grouped_family import (CHUNK_BODY, GROUP_BODY, MMA_BODY,
+                                                rowscale_fold_body, rowscale_scan,
                                                 rowscale_scan_plain, rowscale_topk_body)
 from quake_tpu_torch.ops.grouped_scan import (grouped_scan_kernel, grouped_scan_plain,
                                               grouped_scan_uses_mma,
@@ -942,3 +946,247 @@ def test_chunk_merge_and_multi_topk_count_their_launches(dev):
         multi_topk_plain(gp, qg, codes, ids, 4, "ip")
     torch.cuda.synchronize()
     assert _ext.launches["chunk_merge"] == 2 and _ext.launches["multi_topk"] == 2
+
+
+# ------------------------------------------- K5 and K6 on the tensor cores
+
+# (qt, D) of the tensor-core tests: D below a ring stage's depth (32), at it
+# (128) and past it (768: depth chunks; at qt = 64 neither body of K5 or K6
+# fits, see the body tests).
+_TC_SHAPES = [(qt, D) for qt in (8, 16, 32, 64) for D in (32, 128, 768) if (qt, D) != (64, 768)]
+
+
+def _largest_mma_kk(qt, D, C):
+    """The largest kk <= C that K6's tensor-core body takes at (qt, D)."""
+    kk = C
+    while kk > 1 and exact_topk_body(qt, D, kk) != K6_MMA_BODY:
+        kk -= 1
+    return kk
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("kk", [1, 10, 100, 256])
+@pytest.mark.parametrize("qt,D", _TC_SHAPES)
+def test_rowscale_fold_tensor_core_tiles(dev, qt, D, kk, metric):
+    """K5's tensor-core body: more groups than blocks, sizes around a segment
+    (one segment: selected from the accumulator), partitions of several
+    segments, an empty one, ghosts; kk up to 256, the most a fold keeps (two
+    values a column). Against the f32 plain version and against the plain
+    version on the split product."""
+    assert rowscale_fold_body(qt, D, kk) == MMA_BODY
+    rng = np.random.default_rng(qt + D + kk)
+    C, Gn = 384, 200
+    sizes_l = _tile_sizes(C) + [256, 300]
+    P = len(sizes_l)
+    codes = torch.from_numpy(rng.standard_normal((P, C, D)).astype(np.float32)).to(dev)
+    norms = (codes * codes).sum(-1).contiguous()
+    sizes = torch.tensor(sizes_l, dtype=torch.int32, device=dev)
+    gp = torch.from_numpy(rng.integers(-1, P, Gn).astype(np.int32)).to(dev)
+    gsize = torch.where(gp >= 0, sizes[gp.clamp(min=0).long()], torch.zeros_like(gp)).contiguous()
+    qg = torch.from_numpy(rng.standard_normal((Gn, qt, D)).astype(np.float32)).to(dev)
+    slot_mult, levels = packed_params(C)
+    args = (gp, gsize, qg, codes, norms, kk, slot_mult, levels, metric, "fold")
+    got, got_stats = rowscale_scan(*args)
+    torch.cuda.synchronize()
+    alive = gsize > 0
+    assert (got[~alive] == -1).all()
+    assert (got_stats[~alive][:, :, 0] == 0).all()
+    assert (got_stats[~alive][:, :, 1] == np.float32(1e-20)).all()
+    for model in (False, True):
+        with bmm_as_split_product() if model else contextlib.nullcontext():
+            want, want_stats = rowscale_scan_plain(*args)
+        torch.testing.assert_close(got_stats, want_stats, rtol=1e-4, atol=1e-4)
+        _packed_agree(got, want, alive, slot_mult, kk)
+
+
+def _k6_case(dev, rng, mode, C, qt, D, Gn=60):
+    """K6's inputs: partitions that fill the slab, end inside a segment, hold
+    one lane, fewer than kk, none; ids -1 past each size (mode id); ghost
+    groups (pid -1, and mode slot a live pid with size 0)."""
+    P = 6
+    codes = torch.from_numpy(rng.standard_normal((P, C, D)).astype(np.float32)).to(dev)
+    norms = (codes * codes).sum(-1).contiguous()
+    sizes = torch.tensor([C, C - 70, 0, 1, 5, 129], dtype=torch.int32, device=dev)
+    ids = torch.from_numpy(rng.permutation(P * C).astype(np.int32).reshape(P, C)).to(dev)
+    lane = torch.arange(C, device=dev)[None, :]
+    ids = torch.where(lane < sizes[:, None], ids, torch.full_like(ids, -1)).contiguous()
+    gp = torch.from_numpy(rng.integers(-1, P, Gn).astype(np.int32)).to(dev)
+    gp[:P] = torch.arange(P, dtype=torch.int32)
+    gsize = torch.where(gp >= 0, sizes[gp.clamp(min=0).long()], torch.zeros_like(gp)).contiguous()
+    qg = torch.from_numpy(rng.standard_normal((Gn, qt, D)).astype(np.float32)).to(dev)
+    kw = dict(group_size=gsize, norms=norms) if mode == "slot" else dict(ids=ids)
+    return gp, qg, codes, kw
+
+
+def _k6_agree(gp, qg, codes, kk, metric, mode, kw, models=(False, True)):
+    """K6 against its plain version (f32, and on the split product's model):
+    ghosts (-inf, -1), pairs rank by rank, equal scores by the larger index."""
+    got_s, got_i = exact_scan(gp, qg, codes, kk, metric, mode, **kw)
+    torch.cuda.synchronize()
+    ghost = gp < 0
+    if mode == "slot":
+        ghost = ghost | (kw["group_size"] <= 0)
+    assert torch.isneginf(got_s[ghost]).all() and (got_i[ghost] == -1).all()
+    for model in models:
+        with bmm_as_split_product() if model else contextlib.nullcontext():
+            want_s, want_i = exact_scan_plain(gp, qg, codes, kk, metric, mode, **kw)
+        _pairs_match(got_s, got_i, want_s, want_i, 1e-4)
+    tied = torch.diff(got_s, dim=2) == 0
+    assert (torch.diff(got_i, dim=2)[tied & (got_i[:, :, 1:] >= 0)] < 0).all()
+    return got_s, got_i
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("kk", [1, 10, 100, "largest"])
+@pytest.mark.parametrize("qt,D", _TC_SHAPES)
+@pytest.mark.parametrize("mode", ["slot", "id"])
+def test_exact_topk_tensor_core_tiles(dev, mode, qt, D, kk, metric):
+    """K6's tensor-core body in both modes: more groups than blocks, odd C
+    (200 at D = 32 and 768, 384 at D = 128), sizes below kk and inside a
+    segment, an empty partition, ghosts; kk 1, 10 (one list entry a lane),
+    100 and the largest its lists hold (merged, not inserted). kk = 100 at
+    qt = 64 takes the CUDA-core body; it is held all the same."""
+    C = 384 if D == 128 else 200
+    kk = _largest_mma_kk(qt, D, C) if kk == "largest" else kk
+    if kk in (1, 10) or qt < 64:
+        assert exact_topk_body(qt, D, kk) == K6_MMA_BODY
+    rng = np.random.default_rng(qt + D + kk + len(mode))
+    gp, qg, codes, kw = _k6_case(dev, rng, mode, C, qt, D)
+    _k6_agree(gp, qg, codes, kk, metric, mode, kw)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("qt", [8, 64])
+@pytest.mark.parametrize("D", [32, 128])
+def test_exact_topk_id_skips_a_hole_of_no_ids(dev, D, qt, metric):
+    """Mode id: a slab whose middle 128-row segment holds no id (skipped,
+    neither loaded nor multiplied), two such segments in a row, a partition
+    without any id; the winners past the hole are found, none from it."""
+    assert exact_topk_body(qt, D, 10) == K6_MMA_BODY
+    rng = np.random.default_rng(D + qt + 1)
+    P, C, Gn = 4, 512, 16
+    codes = torch.from_numpy(rng.standard_normal((P, C, D)).astype(np.float32)).to(dev)
+    ids = torch.from_numpy(rng.permutation(P * C).astype(np.int32).reshape(P, C)).to(dev)
+    ids[:, 128:256] = -1
+    ids[1, 256:384] = -1
+    ids[2] = -1
+    codes[:, 128:256] = 50.0  # what a read of the hole would rank first
+    gp = torch.tensor([0, 1, 2, 3] * 4, dtype=torch.int32, device=dev)
+    gp[-1] = -1
+    qg = torch.from_numpy(rng.standard_normal((Gn, qt, D)).astype(np.float32)).to(dev)
+    qg[0, 0] = codes[0, 300] * 3.0  # this row's best lies past the hole
+    qg[1, 0] = codes[1, 400] * 3.0
+    got_s, got_i = _k6_agree(gp, qg, codes, 10, metric, "id", dict(ids=ids))
+    assert int(got_i[0, 0, 0]) == int(ids[0, 300]) and int(got_i[1, 0, 0]) == int(ids[1, 400])
+    assert set(got_i.flatten().tolist()) <= set(ids.flatten().tolist())  # none from a hole
+    assert (got_i[2] == -1).all() and (got_i[-1] == -1).all()
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("qt", [8, 64])
+@pytest.mark.parametrize("mode", ["slot", "id"])
+def test_exact_topk_segment_crosses_into_the_next_partition(dev, mode, qt, metric):
+    """C = 200: a partition's second segment reads 56 rows of the next one
+    through the tensor map (the last partition's, past the end of the slabs);
+    they are masked even where they would win."""
+    assert exact_topk_body(qt, 32, 10) == K6_MMA_BODY
+    rng = np.random.default_rng(qt + len(mode))
+    P, C, D, Gn = 4, 200, 32, 12
+    codes = torch.from_numpy(rng.standard_normal((P, C, D)).astype(np.float32)).to(dev)
+    codes[1:, :56] = 20.0  # the rows a partition's second segment reads past its own
+    norms = (codes * codes).sum(-1).contiguous()
+    ids = torch.from_numpy(rng.permutation(P * C).astype(np.int32).reshape(P, C)).to(dev)
+    gp = torch.tensor([0, 1, 2, 3] * 3, dtype=torch.int32, device=dev)
+    gsize = torch.full((Gn,), C, dtype=torch.int32, device=dev)
+    qg = torch.from_numpy(rng.standard_normal((Gn, qt, D)).astype(np.float32)).to(dev)
+    qg[:, :2] = 1.0  # rows that would rank the 20.0 rows first
+    kw = dict(group_size=gsize, norms=norms) if mode == "slot" else dict(ids=ids)
+    _k6_agree(gp, qg, codes, 10, metric, mode, kw)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("qt,D", [(8, 32), (64, 128)])
+@pytest.mark.parametrize("mode", ["slot", "id"])
+def test_exact_topk_tensor_core_ties(dev, mode, qt, D, metric):
+    """Copies of one vector across segments score bit for bit alike on the
+    tensor cores (mode id: |x|^2 summed in one order a row; mode slot: the
+    store's norms) and come out by the larger index, the row's kk best all
+    copies."""
+    assert exact_topk_body(qt, D, 10) == K6_MMA_BODY
+    rng = np.random.default_rng(qt + D + 7)
+    C, Gn = 512, 8
+    gp, qg, codes, kw = _k6_case(dev, rng, mode, C, qt, D, Gn=Gn)
+    codes[0, 5::7] = codes[0, 5]
+    if mode == "slot":
+        kw["norms"] = (codes * codes).sum(-1).contiguous()
+    qg[0, 0] = codes[0, 5] * 3.0  # the copies are this row's best
+    got_s, _ = _k6_agree(gp, qg, codes, 10, metric, mode, kw)
+    assert bool((torch.diff(got_s[0, 0]) == 0).all())
+
+
+@pytest.mark.parametrize("qt,D,kk,k5,k6", [
+    (64, 128, 10, MMA_BODY, K6_MMA_BODY), (64, 128, 82, MMA_BODY, K6_MMA_BODY),
+    (64, 128, 83, MMA_BODY, K6_GROUP_BODY), (32, 768, 10, MMA_BODY, K6_MMA_BODY),
+    (64, 768, 10, GROUP_BODY, K6_GROUP_BODY), (64, 130, 10, GROUP_BODY, K6_GROUP_BODY),
+    (8, 770, 10, GROUP_BODY, K6_GROUP_BODY), (16, 13, 10, GROUP_BODY, K6_GROUP_BODY),
+])
+def test_rowscale_fold_and_exact_topk_body_by_shape(dev, qt, D, kk, k5, k6):
+    """K5's and K6's bodies by shape: the tensor cores where D % 4 == 0 and
+    the ring, query tile and (K6) the rows' lists fit; K5 keeps no list, so kk
+    does not move it."""
+    assert rowscale_fold_body(qt, D, kk) == k5
+    assert exact_topk_body(qt, D, kk) == k6
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("qt", [8, 64])
+def test_rowscale_fold_and_exact_topk_cuda_core_bodies_kept(dev, qt, metric):
+    """D = 130: K5 and K6 keep their CUDA-core bodies, same function; D = 770
+    at qt = 8 fits neither K5's nor K6's and raises."""
+    rng = np.random.default_rng(qt + 130)
+    C, D, Gn = 384, 130, 16
+    codes = torch.from_numpy(rng.standard_normal((6, C, D)).astype(np.float32)).to(dev)
+    norms = (codes * codes).sum(-1).contiguous()
+    sizes = torch.tensor([C, 300, 0, 1, 5, 129], dtype=torch.int32, device=dev)
+    gp = torch.from_numpy(rng.integers(-1, 6, Gn).astype(np.int32)).to(dev)
+    gsize = torch.where(gp >= 0, sizes[gp.clamp(min=0).long()], torch.zeros_like(gp)).contiguous()
+    qg = torch.from_numpy(rng.standard_normal((Gn, qt, D)).astype(np.float32)).to(dev)
+    slot_mult, levels = packed_params(C)
+    args = (gp, gsize, qg, codes, norms, 10, slot_mult, levels, metric, "fold")
+    got, got_stats = rowscale_scan(*args)
+    want, want_stats = rowscale_scan_plain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got_stats, want_stats, rtol=1e-4, atol=1e-4)
+    _packed_agree(got, want, gsize > 0, slot_mult, 10)
+    for mode in ("slot", "id"):
+        gp6, qg6, codes6, kw = _k6_case(dev, rng, mode, 200, qt, D, Gn=Gn)
+        _k6_agree(gp6, qg6, codes6, 10, metric, mode, kw, models=(False,))
+    wide = torch.zeros((2, 256, 770), device=dev)
+    gp2 = torch.zeros(2, dtype=torch.int32, device=dev)
+    qg2, n2 = torch.zeros((2, 8, 770), device=dev), torch.zeros((2, 256), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        rowscale_scan(gp2, gp2 + 256, qg2, wide, n2, 10, slot_mult, levels, "l2", "fold")
+    with pytest.raises(ValueError, match="shared memory"):
+        exact_scan(gp2, qg2, wide, 10, "l2", "slot", group_size=gp2 + 256, norms=n2)
+
+
+def test_rowscale_fold_and_exact_topk_count_their_launches(dev):
+    """One launch a call on either body of K5 and of K6 (both modes); the
+    plain versions count none."""
+    rng = np.random.default_rng(4)
+    _ext.reset_launches()
+    for D in (32, 13):
+        codes = torch.from_numpy(rng.standard_normal((2, 256, D)).astype(np.float32)).to(dev)
+        norms = (codes * codes).sum(-1).contiguous()
+        ids = torch.arange(512, dtype=torch.int32, device=dev).reshape(2, 256)
+        gp = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+        gsize = torch.tensor([256, 100], dtype=torch.int32, device=dev)
+        qg = torch.from_numpy(rng.standard_normal((2, 8, D)).astype(np.float32)).to(dev)
+        args = (gp, gsize, qg, codes, norms, 4, *packed_params(256), "l2", "fold")
+        rowscale_scan(*args)
+        rowscale_scan_plain(*args)
+        for mode, kw in (("slot", dict(group_size=gsize, norms=norms)), ("id", dict(ids=ids))):
+            exact_scan(gp, qg, codes, 4, "ip", mode, **kw)
+            exact_scan_plain(gp, qg, codes, 4, "ip", mode, **kw)
+    torch.cuda.synchronize()
+    assert _ext.launches["rowscale_fold"] == 2 and _ext.launches["exact_topk"] == 4

@@ -1,21 +1,24 @@
-"""The split-precision product of kernels K1 and K4 (quake_tpu_torch/ops/
-split_product.py) on the CPU: the plain model of what the kernels compute on
-the tensor cores, held to the f32 plain versions and to the JAX package.
+"""The split-precision product of the tensor-core kernels (K1, K3-K7 and
+multi_topk; quake_tpu_torch/ops/split_product.py) on the CPU: the plain model
+of what the kernels compute on the tensor cores, held to the f32 plain
+versions and to the JAX package.
 
 Inputs come from numpy seeds. Tolerances:
 
 - hi + lo reproduces x to 2^-21 (the residual's own rounding is 2^-22), and
   both halves are TF32 values: 13 zero low mantissa bits.
 - split_matmul errs against a float64 product no more than 4 times what
-  torch.matmul in f32 errs (it drops the q_lo x_lo term and sums three
-  partial products).
+  torch.matmul in f32 errs (it drops the q_lo x_lo term; its sums are
+  exact).
 - Keys are a floor() of the product, so two f32-accurate products may differ
   by one level on the few lanes whose score lies at a level's edge: under
   0.5% of the valid lanes (1% for the per-row keys at C = 256, whose levels
   are half as wide), never more than one level, winners overlap >= 0.99,
   per-row stats within rtol = atol = 1e-4.
-- Against quake_tpu's Pallas scans in interpret mode: id overlap >= 0.99, as
-  the f32 plain versions are held to them.
+- Against quake_tpu's Pallas scans in interpret mode (v11, v3pN, v7, v3,
+  v2): id overlap >= 0.99, as the f32 plain versions are held to them, and
+  the distances of common ids within rtol = atol = 1e-4 (rescored exactly,
+  or, v3 and v2, the exact scores themselves).
 - A single TF32 product moves keys by more than one level: why the kernels
   split.
 """
@@ -25,11 +28,15 @@ import numpy as np
 import pytest
 import torch
 
+import quake_tpu_torch.ops.grouped_exact as grouped_exact
 import quake_tpu_torch.ops.grouped_family as grouped_family
 import quake_tpu_torch.ops.grouped_scan as grouped_scan
-from quake_tpu.ops.pallas_grouped import grouped_scan_pallas_v3pn, grouped_scan_pallas_v11
-from quake_tpu_torch.ops.grouped_family import (grouped_scan_v3pn, rowscale_scan,
-                                                rowscale_scan_plain)
+from quake_tpu.ops.pallas_grouped import (grouped_scan_pallas, grouped_scan_pallas_v3,
+                                          grouped_scan_pallas_v3pn, grouped_scan_pallas_v7,
+                                          grouped_scan_pallas_v11)
+from quake_tpu_torch.ops.grouped_exact import exact_scan_plain
+from quake_tpu_torch.ops.grouped_family import (grouped_scan_v3pn, grouped_scan_v7,
+                                                rowscale_scan, rowscale_scan_plain)
 from quake_tpu_torch.ops.grouped_scan import (fold_rounds, grouped_scan_plain, grouped_scan_v11,
                                               packed_params)
 from quake_tpu_torch.ops.split_product import (bmm_as_split_product, split_matmul, tf32_round,
@@ -265,39 +272,101 @@ def test_v11_on_the_split_product_matches_pallas(monkeypatch, metric, placement)
     assert _overlap(got, _t(want)) >= OVERLAP_TOL
 
 
-@pytest.mark.parametrize("metric", ["l2", "ip"])
-@pytest.mark.parametrize("gpb", [2, 4])
-def test_v3pn_on_the_split_product_matches_pallas(monkeypatch, metric, gpb):
-    """grouped_scan_v3pn with kernel K4 replaced by its plain version on the
-    split product, against grouped_scan_pallas_v3pn in interpret mode."""
-    def k4_split(*args, **kw):
+def _on_split_product(plain):
+    """`plain` (a kernel's plain version) run on the split product's model."""
+    def run(*args, **kw):
         with bmm_as_split_product():
-            return rowscale_scan_plain(*args, **kw)
+            return plain(*args, **kw)
 
-    monkeypatch.setattr(grouped_family, "rowscale_scan", k4_split)
-    arrays = _search_inputs(43)
-    k, qt = 10, 8
-    s1, want, _ = grouped_scan_pallas_v3pn(*map(jnp.asarray, arrays), k, metric, qt=qt, gpb=gpb,
-                                           interpret=True)
-    s2, got, _ = grouped_scan_v3pn(*map(_t, arrays), k, metric, qt=qt, gpb=gpb)
-    assert _overlap(got, _t(want)) >= OVERLAP_TOL
-    # The winners are rescored exactly: common ids carry the same distances.
-    s1, want, s2, got = np.asarray(s1), np.asarray(want), s2.numpy(), got.numpy()
+    return run
+
+
+def _agrees_with_pallas(want_scores, want_ids, got_scores, got_ids):
+    """Id overlap >= OVERLAP_TOL, and common ids carry the same distances
+    within rtol = atol = 1e-4."""
+    assert _overlap(got_ids, _t(np.asarray(want_ids))) >= OVERLAP_TOL
+    s1, want, s2, got = (np.asarray(want_scores), np.asarray(want_ids), got_scores.numpy(),
+                         got_ids.numpy())
     for b in range(len(got)):
         for v in set(want[b][want[b] >= 0].tolist()) & set(got[b][got[b] >= 0].tolist()):
             np.testing.assert_allclose(s2[b][got[b] == v][0], s1[b][want[b] == v][0],
                                        rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("gpb", [2, 4])
+def test_v3pn_on_the_split_product_matches_pallas(monkeypatch, metric, gpb):
+    """grouped_scan_v3pn with kernel K4 replaced by its plain version on the
+    split product, against grouped_scan_pallas_v3pn in interpret mode. The
+    winners are rescored exactly: common ids carry the same distances."""
+    monkeypatch.setattr(grouped_family, "rowscale_scan", _on_split_product(rowscale_scan_plain))
+    arrays = _search_inputs(43)
+    k, qt = 10, 8
+    s1, want, _ = grouped_scan_pallas_v3pn(*map(jnp.asarray, arrays), k, metric, qt=qt, gpb=gpb,
+                                           interpret=True)
+    s2, got, _ = grouped_scan_v3pn(*map(_t, arrays), k, metric, qt=qt, gpb=gpb)
+    _agrees_with_pallas(s1, want, s2, got)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_v7_on_the_split_product_matches_pallas(monkeypatch, metric):
+    """grouped_scan_v7 with kernel K5 replaced by its plain version on the
+    split product, against grouped_scan_pallas_v7 in interpret mode."""
+    monkeypatch.setattr(grouped_family, "rowscale_scan", _on_split_product(rowscale_scan_plain))
+    arrays = _search_inputs(47)
+    k, qt, gpb = 10, 8, 4
+    s1, want, _ = grouped_scan_pallas_v7(*map(jnp.asarray, arrays), k, metric, qt=qt, gpb=gpb,
+                                         interpret=True)
+    s2, got, _ = grouped_scan_v7(*map(_t, arrays), k, metric, qt=qt, gpb=gpb)
+    _agrees_with_pallas(s1, want, s2, got)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_v3_on_the_split_product_matches_pallas(monkeypatch, metric):
+    """grouped_scan_v3 with kernel K6 (mode slot) replaced by its plain
+    version on the split product, against grouped_scan_pallas_v3 in interpret
+    mode: the scores are the exact ones, so common ids carry the same
+    distances."""
+    monkeypatch.setattr(grouped_exact, "exact_scan", _on_split_product(exact_scan_plain))
+    arrays = _search_inputs(53)
+    k, qt = 10, 8
+    s1, want, _ = grouped_scan_pallas_v3(*map(jnp.asarray, arrays), k, metric, qt=qt,
+                                         interpret=True)
+    s2, got, _ = grouped_exact.grouped_scan_v3(*map(_t, arrays), k, metric, qt=qt)
+    _agrees_with_pallas(s1, want, s2, got)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_v2_on_the_split_product_matches_pallas(monkeypatch, metric):
+    """grouped_scan_v2 with kernel K6 (mode id) replaced by its plain version
+    on the split product, against grouped_scan_pallas (v2) in interpret
+    mode."""
+    monkeypatch.setattr(grouped_exact, "exact_scan", _on_split_product(exact_scan_plain))
+    codes, ids, _, _, q, pids = _search_inputs(59)
+    k, qt = 10, 8
+    s1, want, _ = grouped_scan_pallas(*map(jnp.asarray, (codes, ids, q, pids)), k, metric, qt=qt,
+                                      interpret=True)
+    s2, got, _ = grouped_exact.grouped_scan_v2(*map(_t, (codes, ids, q, pids)), k, metric, qt=qt)
+    _agrees_with_pallas(s1, want, s2, got)
+
+
 def test_the_wrappers_take_the_f32_plain_versions_on_the_cpu():
-    """On CPU tensors K1 and K4 run their f32 plain versions, not the model
-    of the split product: nothing on a search path calls split_product."""
+    """On CPU tensors K1, K4, K5 and K6 run their f32 plain versions, not the
+    model of the split product: nothing on a search path calls
+    split_product."""
     inp = _k1_inputs(8, 256)
     args = (inp["gp"], inp["gsize"], inp["qg"], inp["codes"], inp["normsT"], 10,
             inp["slot_mult"], inp["levels"])
     assert torch.equal(grouped_scan.grouped_scan_kernel(*args), grouped_scan_plain(*args))
-    rargs = (inp["gp"], inp["gsize"], inp["q"], inp["codes"], inp["norms"], 10, inp["slot_mult"],
-             inp["levels"], "l2", "topk")
-    for a, b in zip(rowscale_scan(*rargs), rowscale_scan_plain(*rargs)):
-        assert torch.equal(a, b)
+    for select in ("topk", "fold"):
+        rargs = (inp["gp"], inp["gsize"], inp["q"], inp["codes"], inp["norms"], 10,
+                 inp["slot_mult"], inp["levels"], "l2", select)
+        for a, b in zip(rowscale_scan(*rargs), rowscale_scan_plain(*rargs)):
+            assert torch.equal(a, b)
+    ids = torch.arange(inp["norms"].numel(), dtype=torch.int32).reshape(inp["norms"].shape)
+    for mode, kw in (("slot", dict(group_size=inp["gsize"], norms=inp["norms"])),
+                     ("id", dict(ids=ids))):
+        eargs = (inp["gp"], inp["q"], inp["codes"], 10, "l2", mode)
+        for a, b in zip(grouped_exact.exact_scan(*eargs, **kw), exact_scan_plain(*eargs, **kw)):
+            assert torch.equal(a, b)
     assert fold_rounds(torch.full((1, 128), -1.0), 2).tolist() == [[-1.0, -1.0]]
