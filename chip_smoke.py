@@ -14,16 +14,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
              (chunked per-row-scale scan with the cross-chunk merge), K8 (raw
              scores), K9 (packed top-kk) and the sized and multi scans'
              kernels against their plain PyTorch versions on the card at
-             small shapes; K1, K4-K7 and multi_topk, which multiply on the
+             small shapes; K1, K4-K9 and multi_topk, which multiply on the
              tensor cores with split TF32 operands where D % 4 == 0, also at
              the shapes that stress their tiles (more groups than blocks, D
              below and at the tile depth, sizes around a 128-row segment, kk
              1, 10 and 100, D 200 and 256 that a ring stage holds only in
              depth chunks; K7 with chunks of one and two segments), against
-             the f32 plain versions and (K1, K4-K7) against the plain
+             the f32 plain versions and (K1, K4-K9) against the plain
              versions run on ops/split_product.py's model of the split
              product; K4 with chunk tables of ct 128 and 256 and all of them
              at D = 30 (the CUDA-core bodies) against the f32 plain versions.
+             K9 is also held equal to the top kk of K8's scores, packed, in
+             the arithmetic of the body K9 ran (k8_as_k9).
 4. main    — the fixed-nprobe main path at full width: a 1,000,000 x 128
              synthetic-manifold corpus (seed 1), nlist=160, niter=25, l2, f32
              codes, built and searched through QuakeIndex. Recall@10 on 1024
@@ -72,12 +74,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
              v6 and v4, K5 through v7, K1 through v8, K6 through v3 and v2,
              K7 through v5) and the direct paths (K8, K9, sized_topk,
              multi_topk) gave it, with times and bounds (K1, K3, K4 on whole
-             partitions, K5-K7 and multi_topk, against the tensor cores' TF32
+             partitions, K5-K9 and multi_topk, against the tensor cores' TF32
              peak at three products per f32 one, the others against the CUDA
-             cores' f32 peak; no kernel may beat its bound; the rows of K4-K7
-             also against their plain versions on the split product's model,
-             and the rows of K4-K7 and multi_topk name the body the launcher
-             picked, which must be the tensor-core one), and the share of K1's time
+             cores' f32 peak; K8's bytes outweigh its operations there; no
+             kernel may beat its bound; the rows of K4-K9 also against their
+             plain versions on the split product's model, K9 equal to the top
+             kk of K8's scores, packed, and the rows of K4-K9 and multi_topk
+             name the body the launcher picked, which must be the tensor-core
+             one), and the share of K1's time
              that its selection takes (K1 against a build of its body
              without the selection).
 
@@ -155,11 +159,12 @@ UNITS = {"f32 CUDA cores": (1.0, F32_PEAK), "TF32 tensor cores, 3 products": (3.
 CUDA_CORES, TENSOR_CORES = UNITS
 # Entries of the kernels line whose product runs on the tensor cores at the
 # paths' shapes (D = 128): K1, K3, K4 on whole partitions (with v4's chunk
-# table it runs in f32 on the CUDA cores), K5, K6, K7 and multi_topk (the rows
-# of K4-K7 and multi_topk check that the launcher picked the tensor-core body).
+# table it runs in f32 on the CUDA cores), K5-K9 and multi_topk (their rows
+# check that the launcher picked the tensor-core body).
 TENSOR_CORE_ENTRIES = ("grouped_scan", "grouped_scan/v8", "flat_topk", "rowscale_topk/v3p",
                        "rowscale_topk/v3pn", "rowscale_topk/v6", "rowscale_fold/v7",
-                       "exact_topk/v3", "exact_topk/v2", "chunk_merge/v5", "multi_topk")
+                       "exact_topk/v3", "exact_topk/v2", "chunk_merge/v5", "multi_topk",
+                       "raw_scores", "packed_topk")
 HBM_RATE = 3.35e12  # H100 SXM bytes/s
 QUEUE_CYCLES = 50_000_000  # ~25 ms of spinning at the H100's clock: room to enqueue the reps
 # Entry of the kernels line -> (CUDA kernel, its source, the TPU kernel it
@@ -347,21 +352,23 @@ def phase_small_parity(torch, dev):
 
 
 def phase_small_parity_tensor_core(torch, dev, rng):
-    """K1, K4-K7 and multi_topk at the shapes that stress the tensor-core
+    """K1, K4-K9 and multi_topk at the shapes that stress the tensor-core
     bodies' tiles: 300 groups (more than blocks: every block walks several
     groups and loads across their borders), qt 8 and 64, partitions of 0, 1,
-    127, 128, 129 and all rows (K4, K6 and multi_topk also 256 and 300 of a
-    C = 520 that no segment divides, so a partition's last segment reads the
-    next one's rows; K7 the same sizes of C = 512 in chunks of ct 128 and
-    256; K5 those of K1's C = 512), kk 1, 10 and 100 (K7 1 and 10), l2 and ip
-    but for K1; D 24, 100 and 128 (a ring stage holds all of D) and D 200 and
-    256 (a stage holds a depth chunk of two or four boxes and the accumulator
-    carries over the chunks). Each against the f32 plain version and, all
-    but multi_topk, against the plain version on the split product's model,
-    at the same tolerances. D = 30 (rows not 16-byte aligned) takes the
-    CUDA-core bodies. K4's chunk table with ct 128 and 256, laid out as the
-    v4 scan lays it, takes a CUDA-core body at every D and is held to the f32
-    plain version."""
+    127, 128, 129 and all rows (K4, K6, K8, K9 and multi_topk also 256 and
+    300 of a C = 520 that no segment divides, so a partition's last segment
+    reads the next one's rows, and segments without an id; K7 the same sizes
+    of C = 512 in chunks of ct 128 and 256; K5 those of K1's C = 512), kk 1,
+    10 and 100 (K7 1 and 10), l2 and ip but for K1; D 24, 100 and 128 (a ring
+    stage holds all of D) and D 200 and 256 (a stage holds a depth chunk of
+    two or four boxes and the accumulator carries over the chunks). Each
+    against the f32 plain version and, all but multi_topk, against the plain
+    version on the split product's model, at the same tolerances; K9 also
+    equal to the top kk of K8's scores, packed (k8_as_k9: at kk = 100, qt =
+    64, K9 keeps its CUDA-core body). D = 30 (rows not 16-byte aligned) takes
+    the CUDA-core bodies. K4's chunk table with ct 128 and 256, laid out as
+    the v4 scan lays it, takes a CUDA-core body at every D and is held to the
+    f32 plain version."""
     from quake_tpu_torch.ops import grouped_chunked as gc
     from quake_tpu_torch.ops import grouped_exact as ge
     from quake_tpu_torch.ops import grouped_variants as gv
@@ -401,6 +408,10 @@ def phase_small_parity_tensor_core(torch, dev, rng):
                                                        else gc.GROUP_BODY)
                 or gv.multi_topk_body(qt, Dm, 10) != (gv.MMA_BODY if tensor_cores
                                                       else gv.CUDA_CORE_BODY)
+                or gv.packed_topk_body(qt, Dm, 10) != (gv.MMA_BODY if tensor_cores
+                                                       else gv.CUDA_CORE_BODY)
+                or gv.raw_scores_body(qt, Dm) != (gv.MMA_BODY if tensor_cores
+                                                  else gv.CUDA_CORE_BODY)
                 or rowscale_fold_body(qt, Dm, 100) != (MMA_BODY if tensor_cores else GROUP_BODY)
                 or ge.exact_topk_body(qt, Dm, 10) != (ge.MMA_BODY if tensor_cores
                                                       else ge.GROUP_BODY)):
@@ -477,6 +488,32 @@ def phase_small_parity_tensor_core(torch, dev, rng):
                     multi_slots(gv.multi_topk_plain(gp, q, codes, ids, kk, metric), C), ties="up")
                 fold_in(f"multi_topk, {shape} (score error)" if tensor_cores
                         else "multi_topk, D=30 (score error)", r)
+        # K8 and K9 on the same store: every score, against the plain version
+        # (f32, and on the split product's model where K8 runs the tensor
+        # cores); the top kk packed, equal to the top kk of K8's scores in the
+        # arithmetic of the body K9 ran, packed.
+        for metric in ("l2", "ip"):
+            raw = gv.raw_scores(gp, q, codes, ids, metric)
+            raw_p = {}
+            for m, model in models if tensor_cores else models[:1]:
+                with bmm_as_split_product() if model else contextlib.nullcontext():
+                    raw_p[m] = gv.raw_scores_plain(gp, q, codes, ids, metric)
+                fold_in(f"K8, {shape}, {m} product (score error / tolerance)" if tensor_cores
+                        else "K8, D=30 (score error / tolerance)",
+                        (1.0, compare_raw(torch, raw, raw_p[m])))
+            del raw
+            for kk in (k for k in (1, 10, 100) if gv.packed_topk_serves(qt, Dm, k)):
+                got = gv.packed_topk(gp, q, codes, ids, kk, metric)
+                ref, body = k8_as_k9(torch, gp, q, codes, ids, kk, metric)
+                for m, model in models if body == gv.MMA_BODY else models[:1]:
+                    with bmm_as_split_product() if model else contextlib.nullcontext():
+                        # chunk=64: raw_scores_plain's batches, so that raw_p holds
+                        # the very scores this plain version packs.
+                        want = gv.packed_topk_plain(gp, q, codes, ids, kk, metric, chunk=64)
+                    r = compare_packed(torch, got, want, ref, raw_p[m], gv.slot_bits_of(C),
+                                       exact=not model)
+                    fold_in(f"K9, body {body}, {shape if tensor_cores else 'D=30'}, {m} product",
+                            r)
         # K6 in both modes on the same store, equal scores by the larger index.
         for kk in (k for k in (1, 10, 100) if ge.exact_topk_serves(qt, Dm, k)):
             for metric in ("l2", "ip"):
@@ -508,7 +545,7 @@ def phase_small_parity_tensor_core(torch, dev, rng):
                                           level=key_level(q, norms, levels, metric))
                         fold_in(f"K7, {shape}, {m} product (score error)" if tensor_cores
                                 else "K7, D=30 (score error)", r)
-    log("[parity small] K1, K4-K7 and multi_topk at the tile-stressing shapes (300 groups; qt "
+    log("[parity small] K1, K4-K9 and multi_topk at the tile-stressing shapes (300 groups; qt "
         "in 8, 64; sizes 0, 1, 127, 128, 129, full; kk in 1, 10, 100; l2, ip; one stage: D in 24, "
         "100, 128; depth chunks: D in 200, 256; K7 with ct in 128, 256; K4's chunk tables with ct "
         "in 128, 256 on the CUDA cores): "
@@ -527,9 +564,11 @@ def phase_small_parity_variants(torch, dev, rng, gp):
                                                       packed_topk_plain, raw_scores,
                                                       raw_scores_plain, sized_topk,
                                                       sized_topk_plain, slot_bits_of)
+    from quake_tpu_torch.ops.split_product import bmm_as_split_product
 
     P, Dm, Gn = 6, 32, gp.shape[0]
-    worst = dict(raw=0.0, packed=[1.0, 0], sized=[1.0, 0.0], multi=[1.0, 0.0])
+    worst = dict(raw=0.0, raw_model=0.0, packed=[1.0, 0], sized=[1.0, 0.0], multi=[1.0, 0.0])
+    k9_bodies = set()
     for C, ct, gb in ((200, 64, 5), (384, 256, 7), (512, 128, 8)):
         codes = torch.from_numpy(rng.standard_normal((P, C, Dm)).astype(np.float32)).to(dev)
         dup = codes.clone()
@@ -549,9 +588,15 @@ def phase_small_parity_variants(torch, dev, rng, gp):
                 raw = raw_scores(gp, qg, dup, sids, metric)
                 raw_p = raw_scores_plain(gp, qg, dup, sids, metric)
                 worst["raw"] = max(worst["raw"], compare_raw(torch, raw, raw_p))
+                with bmm_as_split_product():
+                    raw_m = raw_scores_plain(gp, qg, dup, sids, metric)
+                worst["raw_model"] = max(worst["raw_model"], compare_raw(torch, raw, raw_m))
                 got = packed_topk(gp, qg, dup, sids, kk, metric)
-                r = compare_packed(torch, got, packed_topk_plain(gp, qg, dup, sids, kk, metric),
-                                   raw, raw_p, slot_bits_of(C), exact=True)
+                ref, body = k8_as_k9(torch, gp, qg, dup, sids, kk, metric)
+                k9_bodies.add((qt, kk, body))
+                r = compare_packed(torch, got,
+                                   packed_topk_plain(gp, qg, dup, sids, kk, metric, chunk=64),
+                                   ref, raw_p, slot_bits_of(C), exact=True)
                 worst["packed"] = [min(worst["packed"][0], r[0]), max(worst["packed"][1], r[1])]
                 r = compare_pairs(torch, "sized_topk",
                                   sized_topk(gp, gsize, qg, codes, kk, metric, ct=ct),
@@ -563,9 +608,11 @@ def phase_small_parity_variants(torch, dev, rng, gp):
                                   ties="up")
                 worst["multi"] = [min(worst["multi"][0], r[0]), max(worst["multi"][1], r[1])]
     log(f"[parity small] K8 (C in 200, 384, 512; qt in 8, 64; l2, ip): max score error / "
-        f"tolerance {worst['raw']:.3g} (rtol = atol = {SCORE_TOL}); K9 (kk in 1, 10, 40, 100): "
-        f"min overlap={worst['packed'][0]:.4f} max_key_diff={worst['packed'][1]}, equal to the "
-        f"top-kk of K8's scores packed; sized_topk (ct in 64, 256, 128): min overlap="
+        f"tolerance {worst['raw']:.3g} against the f32 plain version, {worst['raw_model']:.3g} "
+        f"against it on the split product's model (rtol = atol = {SCORE_TOL}); K9 (kk in 1, 10, "
+        f"40, 100): min overlap={worst['packed'][0]:.4f} max_key_diff={worst['packed'][1]}, equal "
+        f"to the top-kk of K8's scores packed, on the bodies (qt, kk, body) "
+        f"{sorted(k9_bodies)}; sized_topk (ct in 64, 256, 128): min overlap="
         f"{worst['sized'][0]:.4f} max_score_err={worst['sized'][1]:.3g}; multi_topk (gb in 5, 7, "
         f"8): min overlap={worst['multi'][0]:.4f} max_score_err={worst['multi'][1]:.3g}")
 
@@ -596,14 +643,38 @@ def compare_raw(torch, got, want, step: int = 128) -> float:
     return worst
 
 
-def compare_packed(torch, got, want, raw, raw_p, slot_bits: int, exact: bool = False):
-    """K9 against its plain version. The packed value carries the top bits
-    of the score's bit pattern, which the other order of summation moves in
-    the last place, so: as many winners per row, descending, winner overlap
-    >= OVERLAP_TOL, and every winner both sides share whose scores (raw from
-    K8, raw_p from its plain version) agree bit for bit carries the same
-    packed value. With exact, the kernel's output must also equal the top kk
-    of K8's own scores, packed. Returns (overlap, max key difference of the
+def k8_as_k9(torch, gp, qg, codes, ids, kk: int, metric: str):
+    """K8's scores in the arithmetic of the body K9 runs at this shape, and
+    that body. Where both launchers pick one body, K8 itself: the two compute
+    their scores by one code in one order. Where K9 keeps its CUDA-core body
+    (its lists crowd out the ring) and K8 takes the tensor cores, K8 on the
+    same inputs with the depth padded by a zero column to a D % 4 != 0: its
+    CUDA-core body then sums the same terms in the same order, plus zero
+    terms (fmaf(0, 0, a) = a), as K9's CUDA-core body does."""
+    from quake_tpu_torch.ops.grouped_variants import packed_topk_body, raw_scores, raw_scores_body
+
+    qt, Dm = qg.shape[1], qg.shape[2]
+    body = packed_topk_body(qt, Dm, kk)
+    if raw_scores_body(qt, Dm) == body:
+        return raw_scores(gp, qg, codes, ids, metric), body
+    if raw_scores_body(qt, Dm + 1) != body:
+        raise AssertionError(f"K8 at D={Dm + 1} does not run K9's body {body}")
+    qg1, codes1 = (torch.nn.functional.pad(t, (0, 1)).contiguous() for t in (qg, codes))
+    return raw_scores(gp, qg1, codes1, ids, metric), body
+
+
+def compare_packed(torch, got, want, raw, raw_p, slot_bits: int, exact: bool = False,
+                   step: int = 128):
+    """K9 against its plain version. raw: K8's scores in the arithmetic of
+    the body K9 ran (k8_as_k9); raw_p: the scores the plain version packed
+    (raw_scores_plain with packed_topk_plain's chunk of groups: cuBLAS may
+    sum another batch of groups in another order). The packed
+    value carries the top bits of the score's bit pattern, which the other
+    order of summation moves in the last place, so: as many winners per row,
+    descending, winner overlap >= OVERLAP_TOL, and every winner both sides
+    share whose scores agree bit for bit carries the same packed value. With
+    exact, the kernel's output must also equal the top kk of raw, packed
+    (`step` groups at a time). Returns (overlap, max key difference of the
     shared winners)."""
     from quake_tpu_torch.ops.grouped_variants import pack_scores
 
@@ -631,10 +702,10 @@ def compare_packed(torch, got, want, raw, raw_p, slot_bits: int, exact: bool = F
             raise AssertionError("K9: a winner whose score both sides agree on bit for bit "
                                  "carries another packed value")
         max_kd = max(max_kd, int(((gv >> slot_bits) - (wv >> slot_bits)).abs().max()))
-    if exact:
-        ref = pack_scores(raw, slot_bits)
-        ref = torch.where(torch.isneginf(raw), torch.full_like(ref, -1), ref)
-        if not torch.equal(torch.topk(ref, kk, dim=2).values, got):
+    for g0 in range(0, got.shape[0], step) if exact else ():
+        r = raw[g0:g0 + step]
+        ref = torch.where(torch.isneginf(r), -1, pack_scores(r, slot_bits))
+        if not torch.equal(torch.topk(ref, kk, dim=2).values, got[g0:g0 + step]):
             raise AssertionError("K9 is not the top kk of K8's scores, packed")
     if ov < OVERLAP_TOL:
         raise AssertionError(f"K9 disagrees with its plain version: overlap {ov}")
@@ -1260,16 +1331,20 @@ def variant_rows(torch, idx, q, pids, kk, direct):
     """Rows of the kernels phase for K8, K9, sized_topk and multi_topk, at
     the inputs the direct paths build from the B=16384 batch (qt = 64). The
     id-masked kernels read whole slabs; K8's bytes include its [G, qt, C]
-    output. K8's library time is the tensor-operation scan's score step
-    (ops/grouped.py::group_scores: a torch.bmm per chunk of groups, without
-    the top-k), which computes the same function."""
+    output. K8, K9 and multi_topk must run their tensor-core bodies there;
+    K8 and K9 are held to their f32 plain versions and to the plain versions
+    on the split product's model, and K9's output to the top kk of K8's
+    scores, packed. K8's library time is the tensor-operation scan's score
+    step (ops/grouped.py::group_scores: a torch.bmm per chunk of groups,
+    without the top-k), which computes the same function."""
     from quake_tpu_torch.ops.grouped import build_groups, group_scores
-    from quake_tpu_torch.ops.grouped_variants import MMA_BODY as MULTI_MMA_BODY
-    from quake_tpu_torch.ops.grouped_variants import (multi_topk, multi_topk_body,
+    from quake_tpu_torch.ops.grouped_variants import (MMA_BODY, multi_topk, multi_topk_body,
                                                       multi_topk_plain, packed_topk,
-                                                      packed_topk_plain, raw_scores,
+                                                      packed_topk_body, packed_topk_plain,
+                                                      raw_scores, raw_scores_body,
                                                       raw_scores_plain, sized_topk,
                                                       sized_topk_plain, slot_bits_of)
+    from quake_tpu_torch.ops.split_product import bmm_as_split_product
 
     st = idx.store.state
     P, C, Dd = st.codes.shape
@@ -1295,15 +1370,32 @@ def variant_rows(torch, idx, q, pids, kk, direct):
                          plain_ms=time_ms(torch, plain, reps=plain_reps, warmup=1),
                          bound=b, groups=groups, scanned_rows=scanned, **fields))
 
-    # K8, and its scores on both sides for K9's comparison.
+    bodies = {"raw_scores": raw_scores_body(qt, Dd), "packed_topk": packed_topk_body(qt, Dd, kk),
+              "multi_topk": multi_topk_body(qt, Dd, kk)}
+    for entry, body in bodies.items():
+        if (body == MMA_BODY) != (unit_of(entry) == TENSOR_CORES):
+            raise AssertionError(f"{entry} at qt={qt}, D={Dd}, kk={kk}: body {body} is not the "
+                                 "kernels line's unit")
+    # K8, and its scores on both sides for K9's comparison; K9 runs K8's body
+    # here, so K8's own scores are those in K9's arithmetic.
     raw = raw_scores(gp, qg, st.codes, st.ids, "l2")
     raw_p = raw_scores_plain(gp, qg, st.codes, st.ids, "l2")
     err8 = compare_raw(torch, raw, raw_p)
     got9 = packed_topk(gp, qg, st.codes, st.ids, kk, "l2")
     ov9, kd9 = compare_packed(torch, got9, packed_topk_plain(gp, qg, st.codes, st.ids, kk, "l2",
                                                              chunk=64),
-                              raw, raw_p, slot_bits_of(C))
-    del raw_p, got9
+                              raw, raw_p, slot_bits_of(C), exact=True)
+    del raw_p
+    with bmm_as_split_product():
+        raw_m = raw_scores_plain(gp, qg, st.codes, st.ids, "l2")
+        want9_m = packed_topk_plain(gp, qg, st.codes, st.ids, kk, "l2", chunk=64)
+    err8_m = compare_raw(torch, raw, raw_m)
+    ov9_m, kd9_m = compare_packed(torch, got9, want9_m, raw, raw_m, slot_bits_of(C))
+    log(f"[kernel] raw_scores (body {bodies['raw_scores']}): max score error / tolerance "
+        f"{err8:.3g} against the f32 plain version, {err8_m:.3g} against the split product's "
+        f"model; packed_topk (body {bodies['packed_topk']}): the top kk of K8's scores, packed; "
+        f"overlap {ov9:.4f} / {ov9_m:.4f}, max key diff {kd9} / {kd9_m}")
+    del raw_m, want9_m, got9
     group_chunk = idx._grouped_params(BATCH, pids.shape[1])[1]
 
     def library():
@@ -1317,7 +1409,8 @@ def variant_rows(torch, idx, q, pids, kk, direct):
     row("raw_scores", lambda: raw_scores(gp, qg, st.codes, st.ids, "l2"),
         lambda: raw_scores_plain(gp, qg, st.codes, st.ids, "l2"), True,
         Gn * qt * (C - kk) * 4, tol=f"scores rtol = atol = {SCORE_TOL}, the same -inf lanes",
-        overlap=1.0, max_abs_err=err8, err_of="score error / tolerance", library_ms=lib_ms)
+        overlap=1.0, max_abs_err=err8, err_of="score error / tolerance", library_ms=lib_ms,
+        body=bodies["raw_scores"], model_overlap=1.0, model_max_abs_err=err8_m)
     ov, err = compare_pairs(torch, "sized_topk",
                             sized_topk(gp, gsize, qg, st.codes, kk, "l2", ct=SIZED_CT),
                             sized_topk_plain(gp, gsize, qg, st.codes, kk, "l2", ct=SIZED_CT))
@@ -1327,18 +1420,16 @@ def variant_rows(torch, idx, q, pids, kk, direct):
     row("packed_topk", lambda: packed_topk(gp, qg, st.codes, st.ids, kk, "l2"),
         lambda: packed_topk_plain(gp, qg, st.codes, st.ids, kk, "l2", chunk=64), True, 0,
         tol=(f"winner overlap >= {OVERLAP_TOL}, shared winners with bit-equal scores carry equal "
-             "packed values"), overlap=ov9, max_abs_err=kd9)
-    body = multi_topk_body(qt, Dd, kk)
-    if (body == MULTI_MMA_BODY) != (unit_of("multi_topk") == TENSOR_CORES):
-        raise AssertionError(f"multi_topk at qt={qt}, D={Dd}: body {body} is not the kernels "
-                             "line's unit")
+             "packed values, equal to the top kk of K8's scores, packed"), overlap=ov9,
+        max_abs_err=kd9, body=bodies["packed_topk"], model_overlap=ov9_m, model_max_abs_err=kd9_m)
     ov, err = compare_pairs(
         torch, "multi_topk",
         multi_slots(multi_topk(gp, qg, st.codes, st.ids, kk, "l2", gb=MULTI_GB), C),
         multi_slots(multi_topk_plain(gp, qg, st.codes, st.ids, kk, "l2"), C), ties="up")
     row("multi_topk", lambda: multi_topk(gp, qg, st.codes, st.ids, kk, "l2", gb=MULTI_GB),
         lambda: multi_topk_plain(gp, qg, st.codes, st.ids, kk, "l2"), True, out_i,
-        tol=pair_tol, overlap=ov, max_abs_err=err, err_of="score error", body=body)
+        tol=pair_tol, overlap=ov, max_abs_err=err, err_of="score error",
+        body=bodies["multi_topk"])
     return rows
 
 

@@ -4,7 +4,7 @@ The kernels live in ``csrc/*.cu`` (their shared helpers in ``csrc/*.cuh``)
 behind a plain C interface: one ``extern "C"`` launcher per kernel that
 takes raw device pointers and a stream and returns ``cudaGetLastError()``.
 At first use every source is compiled by its own ``nvcc`` process, all
-started together, for ``sm_90a`` (K1 and K3-K7 and multi_topk use ``mma.sync``
+started together, for ``sm_90a`` (K1 and K3-K9 and multi_topk use ``mma.sync``
 TF32 products and bulk tensor copies; the tensor map's encoder, ``cuTensorMapEncodeTiled``,
 is looked up in libcuda at run time with ``dlsym``, so only ``-ldl`` is linked);
 the
@@ -74,10 +74,14 @@ _SIGNATURES = {
     "qk_chunk_merge": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
     # qt, D, kk: the body K7's launcher runs (1 tensor cores, 0 CUDA cores)
     "qk_chunk_merge_body": (_I, _I, _I),
-    # gp, qg, codes, ids, out, Gn, qt, D, C, is_l2, stream
-    "qk_raw_scores": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # gp, qg, codes, ids, out, Gn, qt, D, C, kk, is_l2, slot_bits, stream
-    "qk_packed_topk": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # gp, qg, codes, ids, out, Gn, qt, D, P, C, is_l2, stream
+    "qk_raw_scores": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # qt, D: the body K8's launcher runs (1 tensor cores, 0 CUDA cores)
+    "qk_raw_scores_body": (_I, _I),
+    # gp, qg, codes, ids, out, Gn, qt, D, P, C, kk, is_l2, slot_bits, stream
+    "qk_packed_topk": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # qt, D, kk: the body K9's launcher runs (1 tensor cores, 0 CUDA cores)
+    "qk_packed_topk_body": (_I, _I, _I),
     # gp, gsize, qg, codes, out_s, out_i, Gn, qt, D, C, kk, is_l2, stream
     "qk_sized_topk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # gp, qg, codes, ids, out_s, out_i, Gn, qt, D, P, C, kk, is_l2, gb, stream

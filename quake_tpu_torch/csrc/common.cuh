@@ -2,7 +2,7 @@
 // layout, the fold-128 top-2 selection, the (score, index) pair order and the
 // per-row candidate buffer of the exact selections, the shared-memory loads
 // and the tile product on the CUDA cores (tile_dots), and, for kernels K1,
-// K3, K4, K7 and multi_topk, the tile product on the tensor cores with its
+// K3-K9 and multi_topk, the tile product on the tensor cores with its
 // asynchronous loads (mma_tile, segment_load_async) and the ring's shape.
 // Everything is in an anonymous namespace: each source gets its own copy.
 
@@ -107,8 +107,8 @@ __device__ __noinline__ int cut_row(float* bs, int* bi, int cnt, int kk, float& 
   return w;
 }
 
-// A row's kk best (score, index) pairs as a sorted list (K7 and multi_topk on
-// the tensor cores). A row's lists lie in shared memory as (ls, li)[3 kk]:
+// A row's kk best (score, index) pairs as a sorted list (K6, K7, K9 and
+// multi_topk on the tensor cores). A row's lists lie in shared memory as (ls, li)[3 kk]:
 // the best so far at [cur kk, cur kk + kk), in the pair order, descending,
 // with (-inf, -1) fillers while fewer than kk are known; the other list at the
 // other of the first two thirds; n <= kk new candidates at [2 kk, 2 kk + n),
@@ -352,7 +352,7 @@ __device__ __forceinline__ void tile_dots(float (&acc)[R][4], const float* qs,
 inline __host__ __device__ int padded_dim(int D) { return (D + 3) & ~3; }
 
 // ---------------------------------------------------------------------------
-// The tile product on the tensor cores (kernels K1, K3, K4, K7, multi_topk).
+// The tile product on the tensor cores (kernels K1, K3-K9, multi_topk).
 //
 // <q, x> for a [16 MW, D] query tile and a 128-row segment, as
 // mma.sync.m16n8k8 TF32 products with f32 accumulation. TF32 keeps 10 mantissa
@@ -613,7 +613,7 @@ __device__ __forceinline__ void mma_tile(float (&acc)[MT * NT][4], const float* 
 constexpr size_t kSmemLimit = 232448;
 
 // Floats of one ring stage of NBS boxes of the selecting tensor-core bodies
-// (K4, K7, multi_topk): a segment tile, or the [qt][kTileStride] value tile
+// (K4-K9, multi_topk): a segment tile, or the [qt][kTileStride] value tile
 // laid over it, up to the next 1024-byte boundary.
 inline int ring_stage_floats(int qt, int NBS) {
   const int tile = (qt * kTileStride + 255) / 256 * 256;

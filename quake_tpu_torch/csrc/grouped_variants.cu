@@ -22,34 +22,38 @@
 //
 // Bound on the H100: operations for the three selecting kernels (2 D flops a
 // (real query row, valid lane) pair against 4 D bytes of slab a lane: qt / 2
-// flops per byte, above the f32 ridge of 20 from qt = 64), flops / 67
-// TFLOP/s on the CUDA cores; multi_topk's tensor-core body takes three TF32
-// products per f32 one, 3 x flops / 495 TFLOP/s. K8 also writes qt C 4 bytes
-// per group, which at D = 128 stays below the time of its operations.
+// flops per byte), 3 x flops / 495 TFLOP/s on the tensor-core body (three
+// TF32 products per f32 one), flops / 67 TFLOP/s on the CUDA cores. K8 also
+// writes qt C 4 bytes per group (4.6 GB at the direct path's B = 16384), which
+// on the tensor cores outweighs its operations: K8 is bound by bytes there.
 //
-// Design (simple first), shared with K6 (grouped_exact.cu): one block per
-// group (multi_topk's CUDA-core body: per gb groups, one after the other),
-// the [qt, D] query tile in shared memory, the slab streamed once through
-// shared memory in 128-row segments, |x|^2 summed from the segment. The TPU kernels hold a
-// whole [qt, C] score tile in fast memory and select in kk rounds over it;
-// here each row keeps a candidate buffer of round_up(kk, 32) + 128 entries
-// and a threshold in shared memory (K6's buffer of (score, index) pairs for
-// sized_topk and multi_topk, a buffer of int32 for K9, whose packed values
-// are distinct), cut to its kk largest when full, and the output is kk
-// descending rounds over the buffer. The TPU _sized_kernel's tile height ct
-// and its tile-by-tile merge are not carried over: the result does not depend
-// on them. multi_topk stores C - 1 - slot as the pair's index, so that the
-// pair order (larger index first) puts the smaller slot first.
-//
-// multi_topk has two bodies, chosen by shape in the launcher
-// (multi_topk_body, qk_multi_topk_body), never after a failure. The one above
-// (D % 4 != 0, or lists that crowd out the ring) is what bounded it on the
-// H100 (34 ms on the direct multi path): the f32 product on loads that
-// nothing overlapped, gb groups a block (few blocks, a ragged last wave), the
-// whole slab scanned, segments without an id included. The tensor-core body
-// (pair_topk_mma.cuh, shared with K6) is persistent, multiplies on the tensor cores fed
-// by a TMA ring, skips the segments whose ids are all < 0, and keeps a row's
-// best kk as a sorted list merged a segment at a time; its note says more.
+// K8, K9 and multi_topk have two bodies each, chosen by shape in the launcher
+// (pair_body; qk_raw_scores_body, qk_packed_topk_body, qk_multi_topk_body
+// name them), never after a failure. Where D % 4 == 0 and the ring, the query
+// tile and (K9, multi_topk) the rows' lists fit, they run the tensor-core body
+// shared with K6 (pair_topk_mma.cuh: modes kRaw, kPacked, kMulti): persistent
+// blocks, a TMA ring a segment ahead, one 3xTF32 product a segment, segments
+// whose ids are all < 0 skipped, a row's best kk as a sorted list (K9 on the
+// pair (0, packed value)), and K8's score tile streamed out under the next
+// segment's product. K8 and K9 there compute their scores by one code in one
+// order, so K9's output is the top kk of K8's scores, packed, bit for bit.
+// sized_topk, and the others elsewhere, run the CUDA-core bodies below
+// (simple first): one block per group (multi_topk: per gb groups, one after
+// the other), the [qt, D] query tile in shared memory, the slab streamed once
+// through shared memory in 128-row segments by loads that nothing overlaps,
+// |x|^2 summed from the segment, the f32 product on the CUDA cores
+// (tile_dots). The TPU kernels hold a whole [qt, C] score tile in fast memory
+// and select in kk rounds over it; here each row keeps a candidate buffer of
+// round_up(kk, 32) + 128 entries and a threshold in shared memory (K6's
+// buffer of (score, index) pairs for sized_topk and multi_topk, a buffer of
+// int32 for K9, whose packed values are distinct), cut to its kk largest when
+// full, and the output is kk descending rounds over the buffer. The TPU
+// _sized_kernel's tile height ct and its tile-by-tile merge are not carried
+// over: the result does not depend on them. multi_topk stores C - 1 - slot as
+// the pair's index, so that the pair order (larger index first) puts the
+// smaller slot first. The CUDA-core bodies of K8 and K9 sum in one order too
+// (tile_dots, query_norms, segment_norms over the zero-padded depth), so K9's
+// output there is the top kk of K8's CUDA-core scores, packed.
 
 #include "common.cuh"
 #include "pair_topk_mma.cuh"
@@ -175,15 +179,6 @@ __device__ __noinline__ int cut_row_int(int* b, int cnt, int kk, int& th) {
   __syncwarp();
   th = p;
   return w;
-}
-
-// The packed value of a score at a lane: a monotone map of the f32 bit
-// pattern onto uint32 (negative: all bits flipped; else the sign bit set),
-// its top 31 - slot_bits bits above the lane.
-__device__ __forceinline__ int pack_score(float sc, int lane, int slot_bits) {
-  const unsigned bits = __float_as_uint(sc);
-  const unsigned key = (bits >> 31) ? ~bits : (bits | 0x80000000u);
-  return (int)(((key >> (slot_bits + 1)) << slot_bits) | (unsigned)lane);
 }
 
 template <int R>
@@ -402,24 +397,29 @@ int launch_slot_topk(const void* gp, const void* gsize, const void* qg, const vo
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------ multi_topk on the tensor cores
+// ------------------------------------- K8, K9 and multi_topk on the tensor cores
 
-// Which body serves multi_topk at a shape (qk_multi_topk_body names them): 1
-// the tensor-core body (pair_topk_mma.cuh, mode kMulti), where rows are
-// 16-byte aligned for the asynchronous copies (D % 4 == 0) and its ring,
-// query tile and lists fit; else 0, slot_topk_kernel.
-inline int multi_topk_body(int qt, int D, int kk) {
-  return pair_topk_mma_serves(qt, D, kk) ? 1 : 0;
-}
+// Which body serves multi_topk and K9 at a shape (kk: the rows' list length),
+// and K8 (kk = 0: no list); qk_multi_topk_body, qk_packed_topk_body and
+// qk_raw_scores_body name them: 1 the tensor-core body (pair_topk_mma.cuh,
+// modes kMulti, kPacked, kRaw), where rows are 16-byte aligned for the
+// asynchronous copies (D % 4 == 0) and its ring, query tile and lists fit;
+// else 0, the CUDA-core body (slot_topk_kernel, packed_topk_kernel,
+// raw_scores_kernel).
+inline int pair_body(int qt, int D, int kk) { return pair_topk_mma_serves(qt, D, kk) ? 1 : 0; }
 
 }  // namespace
 
 extern "C" {
 
-// K8: replaces quake_tpu/ops/pallas_grouped.py::_scores_kernel.
+// K8: replaces quake_tpu/ops/pallas_grouped.py::_scores_kernel. P:
+// partitions of codes, for the tensor map over [P C, D].
 int qk_raw_scores(const void* gp, const void* qg, const void* codes, const void* ids, void* out,
-                  int Gn, int qt, int D, int C, int is_l2, void* stream) {
+                  int Gn, int qt, int D, int P, int C, int is_l2, void* stream) {
   if (Gn <= 0) return (int)cudaGetLastError();
+  if (pair_body(qt, D, 0) == 1)
+    return launch_pair_topk_mma<PairMode::kRaw>(gp, nullptr, qg, codes, nullptr, ids, out,
+                                                nullptr, Gn, qt, D, P, C, 0, is_l2, stream);
   const int Dp = padded_dim(D);
   const size_t smem = (size_t)(qt * Dp + kFold * (Dp + 1) + kFold) * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
@@ -444,11 +444,15 @@ int qk_raw_scores(const void* gp, const void* qg, const void* codes, const void*
   return (int)cudaGetLastError();
 }
 
-// K9: replaces quake_tpu/ops/pallas_grouped.py::_packed_kernel.
+// K9: replaces quake_tpu/ops/pallas_grouped.py::_packed_kernel. P as for K8.
 int qk_packed_topk(const void* gp, const void* qg, const void* codes, const void* ids, void* out,
-                   int Gn, int qt, int D, int C, int kk, int is_l2, int slot_bits,
+                   int Gn, int qt, int D, int P, int C, int kk, int is_l2, int slot_bits,
                    void* stream) {
   if (Gn <= 0) return (int)cudaGetLastError();
+  if (pair_body(qt, D, kk) == 1)
+    return launch_pair_topk_mma<PairMode::kPacked>(gp, nullptr, qg, codes, nullptr, ids,
+                                                   nullptr, out, Gn, qt, D, P, C, kk, is_l2,
+                                                   stream, slot_bits);
   const int Dp = padded_dim(D);
   const int cap = exact_cap(kk);
   const size_t smem =
@@ -490,7 +494,7 @@ int qk_multi_topk(const void* gp, const void* qg, const void* codes, const void*
                   int is_l2, int gb, void* stream) {
   if (gb <= 0 || Gn % gb) return (int)cudaErrorInvalidValue;
   if (Gn <= 0) return (int)cudaGetLastError();
-  if (multi_topk_body(qt, D, kk) == 1)
+  if (pair_body(qt, D, kk) == 1)
     return launch_pair_topk_mma<PairMode::kMulti>(gp, nullptr, qg, codes, nullptr, ids, out_s,
                                                   out_i, Gn, qt, D, P, C, kk, is_l2, stream);
   return launch_slot_topk<true>(gp, nullptr, qg, codes, ids, out_s, out_i, Gn, qt, D, C, kk,
@@ -499,6 +503,14 @@ int qk_multi_topk(const void* gp, const void* qg, const void* codes, const void*
 
 // The body qk_multi_topk runs at this shape: 1 the tensor-core body, 0 the
 // CUDA-core body (gb groups a block).
-int qk_multi_topk_body(int qt, int D, int kk) { return multi_topk_body(qt, D, kk); }
+int qk_multi_topk_body(int qt, int D, int kk) { return pair_body(qt, D, kk); }
+
+// The body qk_packed_topk runs at this shape: 1 the tensor-core body, 0 the
+// CUDA-core body (one block a group).
+int qk_packed_topk_body(int qt, int D, int kk) { return pair_body(qt, D, kk); }
+
+// The body qk_raw_scores runs at this shape: 1 the tensor-core body, 0 the
+// CUDA-core body (one block a group).
+int qk_raw_scores_body(int qt, int D) { return pair_body(qt, D, 0); }
 
 }  // extern "C"

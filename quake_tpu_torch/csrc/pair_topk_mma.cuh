@@ -1,40 +1,56 @@
 // The tensor-core body of the exact (score, index) selections: multi_topk
-// (grouped_variants.cu) and K6, exact_topk, in its two modes
-// (grouped_exact.cu). One kernel, templated over what differs:
+// and K9, packed_topk (grouped_variants.cu), and K6, exact_topk, in its two
+// modes (grouped_exact.cu); and of K8, raw_scores (grouped_variants.cu),
+// which keeps every score. One kernel, templated over what differs:
 //
 //   mode     valid lanes            l2 score                  index          none
 //   kMulti   ids >= 0, whole slab   2<q,x> - |q|^2 - |x|^2    C - 1 - slot   C
 //   kById    ids >= 0, whole slab   2<q,x> - |q|^2 - |x|^2    the id         -1
 //   kBySlot  lane < size            2<q,x> - norms[lane]      the slot       -1
+//   kPacked  ids >= 0, whole slab   2<q,x> - |q|^2 - |x|^2    pack_score     -1
+//   kRaw     ids >= 0, whole slab   2<q,x> - |q|^2 - |x|^2    (no selection: -inf)
 //
 // The ip score is <q, x> in every mode. Each row keeps its kk best (score,
 // index) pairs in the pair order (score, then the larger index), so multi's
-// index C - 1 - slot puts the smaller slot first among equal scores and the
-// other modes the larger index. Ghost groups (p < 0; in mode kBySlot also
-// size <= 0) write (-inf, none).
+// index C - 1 - slot puts the smaller slot first among equal scores and
+// kById and kBySlot the larger index. kPacked selects on the pair (0, packed
+// value), whose order is the packed int32's order (the packed values of
+// valid lanes are distinct and >= 0), and writes the packed values alone;
+// the key is not put into the float score, whose 24 bits would round its
+// 31 - slot_bits. kRaw keeps no list: it writes the segment's score tile to
+// out[g, row, lane] as it stands, -inf where the lane has no id, and nothing
+// at or past C. kPacked and kRaw compute their scores by the same code in
+// the same order, so K9's output is the top kk of K8's scores, packed, bit
+// for bit. Ghost groups (p < 0; in mode kBySlot also size <= 0) write (-inf,
+// none), in mode kRaw -inf in all qt C entries.
 //
 // Persistent: block b takes groups b, b + grid, ... (partition-major, so
 // blocks that run together read the same partitions), and streams each
 // group's segments through a ring of two 128-row segment buffers filled by the
 // Tensor Memory Accelerator one stage ahead, across group borders, as K4's
-// tensor-core body does; mma_tile (3xTF32) multiplies, once a segment. Modes
-// kMulti and kById scan the whole slab but skip a segment whose lanes below C
-// all have ids < 0: warp 0, which issues the copies, and the consumer both
-// skip it by a vote over its ids, so it is neither loaded nor multiplied.
+// tensor-core body does; mma_tile (3xTF32) multiplies, once a segment. The
+// modes that read ids scan the whole slab but skip a segment whose lanes
+// below C all have ids < 0: warp 0, which issues the copies, and the consumer
+// both skip it by a vote over its ids, so it is neither loaded nor multiplied
+// (kRaw writes its -inf all the same).
 // Mode kBySlot loads only the ceil(size / 128) segments that hold vectors.
 // Lanes at or past C (the next partition's rows, read through the tensor
 // map) are masked in every mode. Where the kernel sums the norms, |x|^2 of a
 // segment's rows comes from the ring buffer, summed by all threads in one
 // fixed order a row (copies of one vector tie bit for bit), and |q|^2 of a
 // query row by four threads (strided, then a butterfly sum), the same order
-// for every row. The scores pass through a [QT][kTileStride] tile laid over
-// the consumed stage into rows a warp owns. A row keeps its kk best pairs as
-// a sorted list: a segment's values above the list's kk-th pair are its
-// candidates, cut to their kk best by kk rounds of a warp maximum where there
-// are more, and merged into the list (insert_rows, or merge_rows past
-// kk = 32). The list is the row's output. Indices of valid lanes are
+// for every row; a depth chunk of the ring (D past a stage) changes neither
+// order. The scores pass through a [QT][kTileStride] tile laid over the
+// consumed stage into rows a warp owns. Mode kRaw streams each row of the
+// tile out, 16 bytes a lane with streaming stores (__stcs), which drain while
+// the next segment multiplies: the bytes K8 writes, not its operations, set
+// its least time. A row keeps its kk best pairs as a sorted list: a
+// segment's values above the list's kk-th pair are its candidates, cut to
+// their kk best by kk rounds of a warp maximum where there are more, and
+// merged into the list (insert_rows, or merge_rows past kk = 32). The list
+// is the row's output. Indices of valid lanes are
 // distinct (slots are; so are the ids of a partition, as the store keeps
-// them), so the order is total.
+// them; so are packed values, by their lane bits), so the order is total.
 
 #pragma once
 
@@ -44,7 +60,29 @@
 
 namespace {
 
-enum class PairMode { kMulti, kById, kBySlot };
+enum class PairMode { kMulti, kById, kBySlot, kPacked, kRaw };
+
+// K9's packed value of a score at a lane: a monotone map of the f32 bit
+// pattern onto uint32 (negative: all bits flipped; else the sign bit set),
+// its top 31 - slot_bits bits above the lane.
+__device__ __forceinline__ int pack_score(float sc, int lane, int slot_bits) {
+  const unsigned bits = __float_as_uint(sc);
+  const unsigned key = (bits >> 31) ? ~bits : (bits | 0x80000000u);
+  return (int)(((key >> (slot_bits + 1)) << slot_bits) | (unsigned)lane);
+}
+
+// Mode kRaw: four scores of one output row, at lanes ln .. ln + 3, by
+// streaming stores (16 bytes where C % 4 == 0); nothing at or past C.
+__device__ __forceinline__ void raw_store(float* orow, int ln, int C, float4 v) {
+  if ((C & 3) == 0) {
+    if (ln < C) __stcs(reinterpret_cast<float4*>(orow + ln), v);
+    return;
+  }
+  const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (ln + i < C) __stcs(orow + ln + i, e[i]);
+}
 
 // The sum of squares of this thread's half of the columns of one 128-row
 // segment tile of `boxes` boxes (row threadIdx.x % 128; half 0 takes the
@@ -92,8 +130,9 @@ pair_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __rest
                      const int* __restrict__ gsize, const float* __restrict__ qg,
                      const float* __restrict__ norms, const int* __restrict__ ids,
                      float* __restrict__ out_s, int* __restrict__ out_i, int Gn, int D, int NB,
-                     int NBS, int stage_floats, int C, int kk, int is_l2) {
+                     int NBS, int stage_floats, int C, int kk, int is_l2, int slot_bits) {
   constexpr bool kSlots = M == PairMode::kBySlot;  // lanes below the size; the store's norms
+  constexpr bool kKeep = M == PairMode::kRaw;      // every score out, no selection
   constexpr int MT = QT >= 32 ? 2 : 1;       // m16-tiles per warp
   constexpr int MW = QT >= 64 ? 2 : 1;       // warps along the query rows
   constexpr int NW = kWarps / MW;            // warps along the segment
@@ -118,6 +157,7 @@ pair_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __rest
   const bool l2 = is_l2 != 0;
   const bool sums = l2 && !kSlots;      // |q|^2 and |x|^2 summed here
   const int none = M == PairMode::kMulti ? C : -1;
+  const int width = kKeep ? C : kk;     // entries of an output row
 
   const int first = blockIdx.x, step = gridDim.x, end = Gn;
   // The lanes a group scans (0: a ghost) and its segments.
@@ -126,9 +166,9 @@ pair_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __rest
   // Ghost groups write (-inf, none) and take no part in the walk.
   for (int g = first; g < end; g += step)
     if (lanes_of(g) <= 0)
-      for (int i = threadIdx.x; i < QT * kk; i += kThreads) {
-        out_s[(size_t)g * QT * kk + i] = -INFINITY;
-        out_i[(size_t)g * QT * kk + i] = none;
+      for (int i = threadIdx.x; i < QT * width; i += kThreads) {
+        if constexpr (M != PairMode::kPacked) out_s[(size_t)g * QT * width + i] = -INFINITY;
+        if constexpr (!kKeep) out_i[(size_t)g * QT * width + i] = none;
       }
   auto next_live = [&](int g) {
     while (g < end && lanes_of(g) <= 0) g += step;
@@ -215,7 +255,15 @@ pair_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __rest
         const int id =
             threadIdx.x < kFold && ln0 + (int)threadIdx.x < C ? gid[ln0 + threadIdx.x] : -1;
         if (threadIdx.x < kFold) sid[threadIdx.x] = id;
-        if (!__syncthreads_or(id >= 0)) continue;  // no lane holds a vector: not loaded either
+        if (!__syncthreads_or(id >= 0)) {  // no lane holds a vector: not loaded either
+          if constexpr (kKeep) {
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+              raw_store(out_s + ((size_t)g * QT + warp + kWarps * r) * C, ln0 + 4 * lane, C,
+                        make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY));
+          }
+          continue;
+        }
       }
       // Mode kBySlot: this thread's norms, asked for before the product so
       // that they arrive under it.
@@ -272,112 +320,139 @@ pair_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __rest
         }
       }
       __syncthreads();
-      // Each warp's rows: a segment's values above the row's kk-th best pair so
-      // far, cut to their kk best where there are more, then merged.
-      float v[R][4];
-      bool ok[4];
-      int idx[4];
+      if constexpr (kKeep) {
+        // Each warp's rows of the tile, 16 bytes a lane; -inf where the lane
+        // holds no vector.
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int ln = ln0 + lane + 32 * j;
-        if constexpr (M == PairMode::kMulti) {
-          ok[j] = sid[lane + 32 * j] >= 0;
-          idx[j] = C - 1 - ln;
-        } else if constexpr (M == PairMode::kById) {
-          idx[j] = sid[lane + 32 * j];
-          ok[j] = idx[j] >= 0;
-        } else {
-          ok[j] = ln < n;
-          idx[j] = ln;
+        for (int r = 0; r < R; ++r) {
+          const int row = warp + kWarps * r;
+          float4 t = *reinterpret_cast<const float4*>(stage_mem + row * kTileStride + 4 * lane);
+          const int* id4 = sid + 4 * lane;
+          if (id4[0] < 0) t.x = -INFINITY;
+          if (id4[1] < 0) t.y = -INFINITY;
+          if (id4[2] < 0) t.z = -INFINITY;
+          if (id4[3] < 0) t.w = -INFINITY;
+          raw_store(out_s + ((size_t)g * QT + row) * C, ln0 + 4 * lane, C, t);
         }
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          v[r][j] = stage_mem[(warp + kWarps * r) * kTileStride + lane + 32 * j];
-      int nc[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        bool take[4];
-        bool any = false;
+      } else {
+        // Each warp's rows: a segment's values above the row's kk-th best pair so
+        // far, cut to their kk best where there are more, then merged. Mode
+        // kPacked selects on (0, the lane's packed value).
+        float v[R][4];
+        bool ok[4];
+        int idx[R][4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          take[j] = ok[j] && pair_above(v[r][j], idx[j], ths[r], thi[r]);
-          any |= take[j];
-        }
-        nc[r] = 0;
-        if (!__any_sync(0xffffffffu, any)) continue;  // no value above the row's kk-th best
-        unsigned keep[4];
-        int cnt = 0;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          keep[j] = __ballot_sync(0xffffffffu, take[j]);
-          cnt += __popc(keep[j]);
-        }
-        if (cnt > kk) {  // the kk-th best candidate, by kk rounds of a warp maximum below the last
-          float ks = INFINITY;
-          int ki = INT_MAX;
-          for (int i = 0; i < kk; ++i) {
-            float bs = -INFINITY;
-            int bi = -1;
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              if (take[j] && pair_above(ks, ki, v[r][j], idx[j]) &&
-                  pair_above(v[r][j], idx[j], bs, bi)) {
-                bs = v[r][j];
-                bi = idx[j];
-              }
-            warp_max_pair(bs, bi);
-            ks = bs;
-            ki = bi;
+          const int ln = ln0 + lane + 32 * j;
+          int ix = ln;
+          if constexpr (M == PairMode::kMulti) {
+            ok[j] = sid[lane + 32 * j] >= 0;
+            ix = C - 1 - ln;
+          } else if constexpr (M == PairMode::kById) {
+            ix = sid[lane + 32 * j];
+            ok[j] = ix >= 0;
+          } else if constexpr (M == PairMode::kPacked) {
+            ok[j] = sid[lane + 32 * j] >= 0;
+          } else {
+            ok[j] = ln < n;
           }
-          cnt = 0;
+#pragma unroll
+          for (int r = 0; r < R; ++r) idx[r][j] = ix;
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r)
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            keep[j] = __ballot_sync(0xffffffffu, take[j] && !pair_above(ks, ki, v[r][j], idx[j]));
+            v[r][j] = stage_mem[(warp + kWarps * r) * kTileStride + lane + 32 * j];
+            if constexpr (M == PairMode::kPacked) {
+              idx[r][j] = pack_score(v[r][j], ln0 + lane + 32 * j, slot_bits);
+              v[r][j] = 0.0f;
+            }
+          }
+        int nc[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          bool take[4];
+          bool any = false;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            take[j] = ok[j] && pair_above(v[r][j], idx[r][j], ths[r], thi[r]);
+            any |= take[j];
+          }
+          nc[r] = 0;
+          if (!__any_sync(0xffffffffu, any)) continue;  // no value above the row's kk-th best
+          unsigned keep[4];
+          int cnt = 0;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            keep[j] = __ballot_sync(0xffffffffu, take[j]);
             cnt += __popc(keep[j]);
           }
-        }
-        float* rs = ls + (size_t)(warp + kWarps * r) * 3 * kk + 2 * kk;
-        int* ri = li + (size_t)(warp + kWarps * r) * 3 * kk + 2 * kk;
-        int pos = 0;
+          if (cnt > kk) {  // the kk-th best candidate: kk rounds of a warp maximum below the last
+            float ks = INFINITY;
+            int ki = INT_MAX;
+            for (int i = 0; i < kk; ++i) {
+              float bs = -INFINITY;
+              int bi = -1;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if ((keep[j] >> lane) & 1u) {
-            const int at = pos + __popc(keep[j] & ((1u << lane) - 1u));
-            rs[at] = v[r][j];
-            ri[at] = idx[j];
+              for (int j = 0; j < 4; ++j)
+                if (take[j] && pair_above(ks, ki, v[r][j], idx[r][j]) &&
+                    pair_above(v[r][j], idx[r][j], bs, bi)) {
+                  bs = v[r][j];
+                  bi = idx[r][j];
+                }
+              warp_max_pair(bs, bi);
+              ks = bs;
+              ki = bi;
+            }
+            cnt = 0;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              keep[j] = __ballot_sync(0xffffffffu,
+                                      take[j] && !pair_above(ks, ki, v[r][j], idx[r][j]));
+              cnt += __popc(keep[j]);
+            }
           }
-          pos += __popc(keep[j]);
-        }
-        nc[r] = cnt;
-      }
-      __syncwarp();
-      if (kk <= 32) {
-        insert_rows<R>(ls, li, cur, nc, kk);
-      } else {
-        merge_rows<R>(ls, li, cur, nc, kk);
-      }
+          float* rs = ls + (size_t)(warp + kWarps * r) * 3 * kk + 2 * kk;
+          int* ri = li + (size_t)(warp + kWarps * r) * 3 * kk + 2 * kk;
+          int pos = 0;
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if (nc[r] == 0) continue;
-        const size_t last = (size_t)(warp + kWarps * r) * 3 * kk + cur[r] * kk + kk - 1;
-        ths[r] = ls[last];
-        thi[r] = li[last];
+          for (int j = 0; j < 4; ++j) {
+            if ((keep[j] >> lane) & 1u) {
+              const int at = pos + __popc(keep[j] & ((1u << lane) - 1u));
+              rs[at] = v[r][j];
+              ri[at] = idx[r][j];
+            }
+            pos += __popc(keep[j]);
+          }
+          nc[r] = cnt;
+        }
+        __syncwarp();
+        if (kk <= 32) {
+          insert_rows<R>(ls, li, cur, nc, kk);
+        } else {
+          merge_rows<R>(ls, li, cur, nc, kk);
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (nc[r] == 0) continue;
+          const size_t last = (size_t)(warp + kWarps * r) * 3 * kk + cur[r] * kk + kk - 1;
+          ths[r] = ls[last];
+          thi[r] = li[last];
+        }
       }
       fence_async_proxy();  // the tile's stores, before the copy that refills the stage
       __syncthreads();      // the stage and the ids are consumed
       stage ^= 1;
     }
-    // Each row's list is its output.
+    // Each row's list is its output (mode kRaw: none, kk = 0).
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int row = warp + kWarps * r;
       for (int e = lane; e < kk; e += 32) {
         const size_t at = (size_t)row * 3 * kk + cur[r] * kk + e;
         const int i = li[at];
-        out_s[((size_t)g * QT + row) * kk + e] = ls[at];
+        if constexpr (M != PairMode::kPacked) out_s[((size_t)g * QT + row) * kk + e] = ls[at];
         out_i[((size_t)g * QT + row) * kk + e] =
             M == PairMode::kMulti ? (i < 0 ? C : C - 1 - i) : i;
       }
@@ -387,11 +462,13 @@ pair_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __rest
 }
 
 // Launches the body in mode M (gsize and norms: mode kBySlot; ids: the
-// others). The caller has checked pair_topk_mma_serves.
+// others; out_s alone: mode kRaw, with kk = 0; out_i alone and slot_bits:
+// mode kPacked). The caller has checked pair_topk_mma_serves.
 template <PairMode M>
 int launch_pair_topk_mma(const void* gp, const void* gsize, const void* qg, const void* codes,
                          const void* norms, const void* ids, void* out_s, void* out_i, int Gn,
-                         int qt, int D, int P, int C, int kk, int is_l2, void* stream) {
+                         int qt, int D, int P, int C, int kk, int is_l2, void* stream,
+                         int slot_bits = 0) {
   const int NB = tile_boxes(D);
   CUtensorMap cmap;
   const int me = slab_tensor_map(&cmap, codes, (unsigned long long)P * C, D);
@@ -407,7 +484,7 @@ int launch_pair_topk_mma(const void* gp, const void* gsize, const void* qg, cons
     pair_topk_mma_kernel<QT, M><<<grid, kThreads, smem, st>>>(                             \
         cmap, (const int*)gp, (const int*)gsize, (const float*)qg, (const float*)norms,    \
         (const int*)ids, (float*)out_s, (int*)out_i, Gn, D, NB, NBS,                       \
-        ring_stage_floats(qt, NBS), C, kk, is_l2);                                         \
+        ring_stage_floats(qt, NBS), C, kk, is_l2, slot_bits);                              \
     break;                                                                                 \
   }
   switch (qt) {

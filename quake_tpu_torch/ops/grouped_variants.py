@@ -15,12 +15,16 @@ All four score in f32 with both norms summed in the kernel
           monotone key of the score's bit pattern above the lane; unpacked,
           merged per query by the key, and the k winners rescored exactly
   multi   kernel `multi_topk`: (score, slot) top-kk over the lanes with an
-          id, ties to the smaller slot; on the tensor cores where D % 4 == 0
-          (else gb groups per block on the CUDA cores); slot -> id,
-          `merge_groups`
+          id, ties to the smaller slot; slot -> id, `merge_groups`
 
 The kernels are CUDA (csrc/grouped_variants.cu); each wrapper runs its plain
-PyTorch version on CPU tensors and launches the kernel on CUDA tensors.
+PyTorch version on CPU tensors and launches the kernel on CUDA tensors. K8,
+K9 and multi_topk multiply on the tensor cores (split TF32 operands, the
+body in csrc/pair_topk_mma.cuh) where D % 4 == 0 and the body's buffers fit
+(`raw_scores_body`, `packed_topk_body`, `multi_topk_body`), else in f32 on
+the CUDA cores; K8 and K9 compute their scores in one order on either body,
+so K9's output is the top kk of K8's scores, packed, where both run the same
+body.
 """
 
 from __future__ import annotations
@@ -93,24 +97,52 @@ def raw_scores_plain(gp, qg, codes, ids, metric: str, chunk: int = 64):
     return out
 
 
+MMA_BODY, CUDA_CORE_BODY = 1, 0  # the answers of raw_scores_body, packed_topk_body, multi_topk_body
+
+
+def raw_scores_body(qt: int, D: int) -> int:
+    """The body kernel K8's launcher runs at this shape
+    (csrc/grouped_variants.cu::pair_body with no list, asked of the built
+    library): MMA_BODY, the tensor-core body, where rows are 16-byte aligned
+    for the asynchronous copies (D % 4 == 0) and its ring and query tile fit
+    a block's shared memory; else CUDA_CORE_BODY, one block a group on the
+    CUDA cores."""
+    return int(_ext.lib().qk_raw_scores_body(qt, D))
+
+
+def _mma_aligned(name: str, qg, codes) -> None:
+    """The tensor-core body's copies need qg and codes on 16-byte boundaries."""
+    if qg.data_ptr() % 16 or codes.data_ptr() % 16:
+        raise ValueError(f"{name}: qg and codes must start on a 16-byte boundary")
+
+
 def raw_scores(gp, qg, codes, ids, metric: str):
     """Kernel K8 (replaces pallas_grouped.py::_scores_kernel).
 
     gp [Gn] int32 partition per group (-1: ghost); qg [Gn, qt, D] f32
     queries; codes [P, C, D] f32; ids [P, C] int32. Returns scores
     [Gn, qt, C] f32: 2 <q, x> - |q|^2 - |x|^2 (l2, both norms summed here) or
-    <q, x> (ip); -inf at lanes with id < 0 and in ghost groups."""
+    <q, x> (ip); -inf at lanes with id < 0 and in ghost groups.
+
+    The launcher picks one of two bodies by shape (`raw_scores_body`), never
+    after a failure: the tensor-core body (split TF32 product, asynchronous
+    copies, persistent blocks, the score tile streamed out; 128-row segments
+    whose ids are all < 0 are not loaded and write -inf) or the CUDA-core
+    body. Shapes that neither fits raise."""
     Gn, qt, D = qg.shape
     P, C, _ = codes.shape
     if qg.device.type == "cpu":
         return raw_scores_plain(gp, qg, codes, ids, metric)
+    body = raw_scores_body(qt, D) if qg.device.type == "cuda" else CUDA_CORE_BODY
     _check("raw_scores", qg, qt,
            (("gp", gp, torch.int32, (Gn,)), ("qg", qg, torch.float32, (Gn, qt, D)),
             ("codes", codes, torch.float32, (P, C, D)), ("ids", ids, torch.int32, (P, C))),
-           _base_floats(qt, D), f"D={D}, qt={qt}")
+           0 if body == MMA_BODY else _base_floats(qt, D), f"D={D}, qt={qt}")
+    if body == MMA_BODY:
+        _mma_aligned("raw_scores", qg, codes)
     out = torch.empty((Gn, qt, C), device=qg.device, dtype=torch.float32)
     rc = _ext.lib().qk_raw_scores(gp.data_ptr(), qg.data_ptr(), codes.data_ptr(), ids.data_ptr(),
-                                  out.data_ptr(), Gn, qt, D, C, int(metric == "l2"),
+                                  out.data_ptr(), Gn, qt, D, P, C, int(metric == "l2"),
                                   _ext.stream_ptr(qg.device))
     _ext.check(rc, "raw_scores")
     _ext.launches["raw_scores"] += 1
@@ -326,25 +358,54 @@ def packed_topk_plain(gp, qg, codes, ids, kk: int, metric: str, chunk: int = 256
     return out
 
 
+def packed_topk_body(qt: int, D: int, kk: int) -> int:
+    """The body kernel K9's launcher runs at this shape
+    (csrc/grouped_variants.cu::pair_body, asked of the built library):
+    MMA_BODY, the tensor-core body, where D % 4 == 0 and its ring, query tile
+    and the rows' lists of 3 kk (0, packed value) pairs fit a block's shared
+    memory; else CUDA_CORE_BODY, one block a group on the CUDA cores."""
+    return int(_ext.lib().qk_packed_topk_body(qt, D, kk))
+
+
+def _packed_floats(qt: int, D: int, kk: int) -> int:
+    """Shared memory (in floats) of K9's CUDA-core body: the query tile, a
+    segment and round_up(kk, 32) + 128 packed values a row."""
+    return _base_floats(qt, D) + qt * topk_cap(kk)
+
+
+def packed_topk_serves(qt: int, D: int, kk: int) -> bool:
+    """Whether K9 serves (qt, D, kk) on the card: its tensor-core body takes
+    the shape, or its CUDA-core body's buffers fit a block's shared memory."""
+    return packed_topk_body(qt, D, kk) == MMA_BODY or _packed_floats(qt, D, kk) * 4 <= SMEM_LIMIT
+
+
 def packed_topk(gp, qg, codes, ids, kk: int, metric: str):
     """Kernel K9 (replaces pallas_grouped.py::_packed_kernel).
 
     gp [Gn] int32 (-1: ghost); qg [Gn, qt, D] f32; codes [P, C, D] f32; ids
     [P, C] int32. Per row the kk largest packed values (see pack_scores) of
     the lanes with id >= 0, descending; -1 = none, and all -1 in ghost
-    groups. Returns [Gn, qt, kk] int32."""
+    groups. Returns [Gn, qt, kk] int32.
+
+    The launcher picks one of two bodies by shape (`packed_topk_body`), never
+    after a failure: the tensor-core body, K8's with a selection on the pair
+    (0, packed value), or the CUDA-core body (round_up(kk, 32) + 128
+    candidates a row). Shapes that neither fits raise."""
     Gn, qt, D = qg.shape
     P, C, _ = codes.shape
     if qg.device.type == "cpu":
         return packed_topk_plain(gp, qg, codes, ids, kk, metric)
+    body = packed_topk_body(qt, D, kk) if qg.device.type == "cuda" else CUDA_CORE_BODY
     _check("packed_topk", qg, qt,
            (("gp", gp, torch.int32, (Gn,)), ("qg", qg, torch.float32, (Gn, qt, D)),
             ("codes", codes, torch.float32, (P, C, D)), ("ids", ids, torch.int32, (P, C))),
-           _base_floats(qt, D) + qt * topk_cap(kk),
+           0 if body == MMA_BODY else _packed_floats(qt, D, kk),
            f"D={D}, qt={qt}, kk={kk} (round_up(kk, 32) + 128 candidates per row)")
+    if body == MMA_BODY:
+        _mma_aligned("packed_topk", qg, codes)
     out = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.int32)
     rc = _ext.lib().qk_packed_topk(gp.data_ptr(), qg.data_ptr(), codes.data_ptr(),
-                                   ids.data_ptr(), out.data_ptr(), Gn, qt, D, C, kk,
+                                   ids.data_ptr(), out.data_ptr(), Gn, qt, D, P, C, kk,
                                    int(metric == "l2"), slot_bits_of(C),
                                    _ext.stream_ptr(qg.device))
     _ext.check(rc, "packed_topk")
@@ -440,12 +501,9 @@ def multi_topk_plain(gp, qg, codes, ids, kk: int, metric: str, chunk: int = 256)
     return out_s, out_i
 
 
-MMA_BODY, CUDA_CORE_BODY = 1, 0  # multi_topk_body's answers
-
-
 def multi_topk_body(qt: int, D: int, kk: int) -> int:
     """The body kernel multi_topk's launcher runs at this shape
-    (csrc/grouped_variants.cu::multi_topk_body, asked of the built library):
+    (csrc/grouped_variants.cu::pair_body, asked of the built library):
     MMA_BODY, the tensor-core body, where rows are 16-byte aligned for the
     asynchronous copies (D % 4 == 0) and its ring, query tile and the rows'
     lists of 3 kk (score, slot) pairs fit a block's shared memory; else
@@ -495,8 +553,8 @@ def multi_topk(gp, qg, codes, ids, kk: int, metric: str, gb: int = 8):
             ("codes", codes, torch.float32, (P, C, D)), ("ids", ids, torch.int32, (P, C))),
            _multi_floats(qt, D, kk),
            f"D={D}, qt={qt}, kk={kk} (round_up(kk, 32) + 128 (score, slot) pairs per row)")
-    if multi_topk_body(qt, D, kk) == MMA_BODY and (qg.data_ptr() % 16 or codes.data_ptr() % 16):
-        raise ValueError("multi_topk: qg and codes must start on a 16-byte boundary")
+    if multi_topk_body(qt, D, kk) == MMA_BODY:
+        _mma_aligned("multi_topk", qg, codes)
     out_s = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.float32)
     out_i = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.int32)
     rc = _ext.lib().qk_multi_topk(gp.data_ptr(), qg.data_ptr(), codes.data_ptr(), ids.data_ptr(),

@@ -1,22 +1,25 @@
 #!/usr/bin/env python3
-"""K6's scores, its f32 plain version's and its plain version's on the split
-product's model, each against a float64 reference, at the v3 and v2 paths'
-inputs, on one card.
+"""The scores of K6 and K8, of their f32 plain versions and of their plain
+versions on the split product's model, each against a float64 reference,
+at the v3, v2 and approx paths' inputs, on one card.
 
-    python3 scripts/exact_score_errors.py
+    python3 scripts/exact_score_errors.py [k6] [k8]
 
 Builds chip_smoke.py's main index (1,000,000 x 128 manifold, nlist=160),
-groups the first B=16384 queries' nprobe-9 probe lists as the v3 and v2
-scans do (qt = 64, kk = 10), runs K6 in mode slot and mode id, its f32 plain
-version and that plain version on ops/split_product.py's model, and scores
-every winner of each again in float64 (the same f32 inputs; mode slot with
-the store's f32 norms). Prints, per mode and side, the largest absolute
-error, the largest error over chip_smoke.py's score tolerance (rtol = atol =
-SCORE_TOL) with the float64 score where it falls, the share of winners
-beyond the tolerance, and the mean absolute error; then the card's name and
-power limit. The package and chip_smoke.py are imported from the current
-directory, so run from the root of another checkout it measures that
-checkout's kernels and model.
+groups the first B=16384 queries' nprobe-9 probe lists as the v3, v2 and
+approx scans do (qt = 64, kk = 10). k6: runs K6 in mode slot and mode id,
+its f32 plain version and that plain version on ops/split_product.py's
+model, and scores every winner of each again in float64 (the same f32
+inputs; mode slot with the store's f32 norms). k8: runs K8 (raw_scores), its
+f32 plain version and that on the model, 64 groups at a time, against
+2 <q, x> - |q|^2 - |x|^2 in float64 at every lane that holds a vector.
+Prints, per kernel, mode and side, the largest absolute error, the largest
+error over chip_smoke.py's score tolerance (rtol = atol = SCORE_TOL) with
+the float64 score where it falls, the share of scores beyond the tolerance,
+and the mean absolute error; then the card's name and power limit. With no
+argument both run. The package and chip_smoke.py are imported from the
+current directory, so run from the root of another checkout it measures
+that checkout's kernels and model.
 """
 
 from __future__ import annotations
@@ -34,33 +37,67 @@ from quake_tpu_torch import IndexBuildParams, QuakeIndex  # noqa: E402
 from quake_tpu_torch.coordinator import rank_parents  # noqa: E402
 from quake_tpu_torch.ops.grouped import build_groups  # noqa: E402
 from quake_tpu_torch.ops.grouped_exact import exact_scan, exact_scan_plain  # noqa: E402
+from quake_tpu_torch.ops.grouped_variants import raw_scores, raw_scores_plain  # noqa: E402
 from quake_tpu_torch.ops.split_product import bmm_as_split_product  # noqa: E402
 
 NPROBE, QT, KK = 9, 64, 10
+K8_CHUNK = 64  # groups a step of the k8 section
+SECTIONS = ("k6", "k8")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("exact_score_errors: no CUDA device", file=sys.stderr)
-        return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda")
-    x = cs.make_manifold(cs.N, cs.D, 4096, seed=1)
-    queries = cs.make_manifold(cs.BATCH, cs.D, 4096, seed=7)
-    idx = QuakeIndex(device=dev)
-    idx.build(x, np.arange(cs.N, dtype=np.int64),
-              IndexBuildParams(nlist=cs.NLIST, metric="l2", niter=cs.NITER, calibrate_aps=False))
-    st, pst = idx.store.state, idx.parent.store.state
+class Errors:
+    """Running error statistics of one side against float64."""
+
+    def __init__(self):
+        self.n, self.beyond, self.sum, self.max, self.ratio, self.at = 0, 0, 0.0, 0.0, -1.0, 0.0
+
+    def add(self, s, s64):
+        if s64.numel() == 0:
+            return
+        err = (s.double() - s64).abs()
+        ratio = err / (cs.SCORE_TOL + cs.SCORE_TOL * s64.abs())
+        j = int(ratio.argmax())
+        if float(ratio[j]) > self.ratio:
+            self.ratio, self.at = float(ratio[j]), float(s64[j])
+        self.n += err.numel()
+        self.beyond += int((ratio > 1).sum())
+        self.sum += float(err.sum())
+        self.max = max(self.max, float(err.max()))
+
+    def line(self, what: str) -> str:
+        return (f"{what}: max abs error {self.max:.3g}, worst error / tolerance {self.ratio:.3f} "
+                f"at a float64 score of {self.at:.4f}, beyond it {self.beyond / self.n:.2e} of "
+                f"{self.n} scores, mean abs error {self.sum / self.n:.3g}")
+
+
+def k8_errors(gpid, qg, st):
+    """K8, its f32 plain version and that on the model, against float64, at
+    every lane with a vector, K8_CHUNK groups at a time."""
+    sides = {name: Errors() for name in ("kernel", "f32 plain", "split model")}
+    for g0 in range(0, gpid.shape[0], K8_CHUNK):
+        gp, q = gpid[g0:g0 + K8_CHUNK].contiguous(), qg[g0:g0 + K8_CHUNK].contiguous()
+        alive = gp >= 0
+        got = {"kernel": raw_scores(gp, q, st.codes, st.ids, "l2"),
+               "f32 plain": raw_scores_plain(gp, q, st.codes, st.ids, "l2")}
+        with bmm_as_split_product():
+            got["split model"] = raw_scores_plain(gp, q, st.codes, st.ids, "l2")
+        x = st.codes[gp[alive].long()].double()
+        q64 = q[alive].double()
+        s64 = (2.0 * torch.bmm(q64, x.transpose(1, 2)) - (q64 * q64).sum(-1, keepdim=True)
+               - (x * x).sum(-1)[:, None, :])
+        valid = (st.ids[gp[alive].long()] >= 0)[:, None, :].expand_as(s64)
+        for name, s in got.items():
+            sides[name].add(s[alive][valid], s64[valid])
+    for name, e in sides.items():
+        print(e.line(f"K8, {name}"), flush=True)
+
+
+def k6_errors(gpid, qg, gsize, st):
+    """K6 in both modes, its f32 plain version and that on the model, at
+    every winner, against float64."""
     P, C, D = st.codes.shape
-    q = torch.from_numpy(queries).to(dev)
-    pids = rank_parents(pst.codes, pst.ids, pst.norms, q, NPROBE, "l2", "pallas")
-    pids = torch.where(pids >= 0, pids, pids[:, :1])
-    gpid, qlist, _, _ = build_groups(pids, P, QT)
-    qg = q[qlist.clamp(min=0).long()].contiguous()
-    gsize = torch.where(gpid >= 0, st.sizes[gpid.clamp(min=0).long()],
-                        torch.zeros_like(gpid)).to(torch.int32).contiguous()
     # Row of the slabs viewed as [P C, D] that holds each id.
-    where = torch.full((int(st.ids.max()) + 1,), -1, dtype=torch.long, device=dev)
+    where = torch.full((int(st.ids.max()) + 1,), -1, dtype=torch.long, device=st.codes.device)
     flat = st.ids.reshape(-1).long()
     where[flat[flat >= 0]] = torch.nonzero(flat >= 0).flatten()
     codes2 = st.codes.reshape(P * C, D)
@@ -80,16 +117,42 @@ def main() -> int:
                 s64 = 2.0 * dot - st.norms.reshape(-1)[row].double()
             else:
                 s64 = 2.0 * dot - (qv * qv).sum(-1) - (xv * xv).sum(-1)
-            err = (s[won].double() - s64).abs()
-            ratio = err / (cs.SCORE_TOL + cs.SCORE_TOL * s64.abs())
-            j = int(ratio.argmax())
-            print(f"K6 mode {mode}, {name}: max abs error {float(err.max()):.3g}, worst error / "
-                  f"tolerance {float(ratio.max()):.3f} at a float64 score of {float(s64[j]):.4f}, "
-                  f"beyond it {float((ratio > 1).double().mean()):.2e} of {int(won.sum())} "
-                  f"winners, mean abs error {float(err.mean()):.3g}", flush=True)
+            e = Errors()
+            e.add(s[won], s64)
+            print(e.line(f"K6 mode {mode}, {name}"), flush=True)
+
+
+def main(argv) -> int:
+    if not torch.cuda.is_available():
+        print("exact_score_errors: no CUDA device", file=sys.stderr)
+        return 1
+    sections = argv or list(SECTIONS)
+    if set(sections) - set(SECTIONS):
+        print(f"exact_score_errors: choose sections from {SECTIONS}", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    x = cs.make_manifold(cs.N, cs.D, 4096, seed=1)
+    queries = cs.make_manifold(cs.BATCH, cs.D, 4096, seed=7)
+    idx = QuakeIndex(device=dev)
+    idx.build(x, np.arange(cs.N, dtype=np.int64),
+              IndexBuildParams(nlist=cs.NLIST, metric="l2", niter=cs.NITER, calibrate_aps=False))
+    st, pst = idx.store.state, idx.parent.store.state
+    P = st.codes.shape[0]
+    q = torch.from_numpy(queries).to(dev)
+    pids = rank_parents(pst.codes, pst.ids, pst.norms, q, NPROBE, "l2", "pallas")
+    pids = torch.where(pids >= 0, pids, pids[:, :1])
+    gpid, qlist, _, _ = build_groups(pids, P, QT)
+    qg = q[qlist.clamp(min=0).long()].contiguous()
+    gsize = torch.where(gpid >= 0, st.sizes[gpid.clamp(min=0).long()],
+                        torch.zeros_like(gpid)).to(torch.int32).contiguous()
+    if "k8" in sections:
+        k8_errors(gpid, qg, st)
+    if "k6" in sections:
+        k6_errors(gpid, qg, gsize, st)
     print(cs.card_line())
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

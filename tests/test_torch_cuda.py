@@ -19,13 +19,16 @@ scores (rtol = atol = 1e-4, the same -inf lanes); sized_topk and multi_topk
 select pairs like K6. K9's packed values carry the top bits of a score's bit
 pattern, which the other order of summation moves in the last place: it is
 held to winner overlap >= 0.99 against its plain version and to equality with
-the top kk of K8's own scores, packed (both kernels compute the same f32
-scores). K1, K4 and K5 on whole partitions, K6, K7 and multi_topk multiply
-on the tensor cores with split TF32 operands where D % 4 == 0 and their
-tiles fit; they are held to their f32 plain versions at the same tolerances
-(K1, K4, K5 and K6 also to the plain versions run on ops/split_product.py's
-model of that product). K4 with a chunk table multiplies in f32 on the CUDA
-cores.
+the top kk of K8's own scores, packed: K8 and K9 compute the same f32 scores
+on the same body. Where K9 keeps its CUDA-core body (its lists crowd out the
+tensor-core ring) and K8 runs the tensor cores, K9 is held to K8 run with
+the depth padded by a zero column (D % 4 != 0: K8's CUDA-core body, the same
+sums plus zero terms). K1, K4 and K5 on whole partitions, K6-K9 and
+multi_topk multiply on the tensor cores with split TF32 operands where
+D % 4 == 0 and their tiles fit; they are held to their f32 plain versions
+at the same tolerances (K1 and K4-K9 also to the plain versions run on
+ops/split_product.py's model of that product). K4 with a chunk table
+multiplies in f32 on the CUDA cores.
 """
 
 import contextlib
@@ -54,9 +57,10 @@ from quake_tpu_torch.ops.split_product import bmm_as_split_product
 from quake_tpu_torch.ops.grouped_variants import CUDA_CORE_BODY as MULTI_CUDA_CORE_BODY
 from quake_tpu_torch.ops.grouped_variants import MMA_BODY as MULTI_MMA_BODY
 from quake_tpu_torch.ops.grouped_variants import (multi_topk, multi_topk_body, multi_topk_plain,
-                                                  pack_scores, packed_topk, packed_topk_plain,
-                                                  raw_scores, raw_scores_plain, sized_topk,
-                                                  sized_topk_plain, slot_bits_of)
+                                                  pack_scores, packed_topk, packed_topk_body,
+                                                  packed_topk_plain, raw_scores, raw_scores_body,
+                                                  raw_scores_plain, sized_topk, sized_topk_plain,
+                                                  slot_bits_of)
 
 pytestmark = pytest.mark.cuda
 
@@ -379,11 +383,46 @@ def test_raw_scores_kernel_matches_plain(dev, qt, D, C, metric):
     torch.testing.assert_close(got[ok], want[ok], rtol=1e-4, atol=1e-4)
 
 
+def _k8_as_k9(gp, qg, codes, ids, kk, metric):
+    """K8's scores in the arithmetic of the body K9 runs at this shape, and
+    that body: K8 itself where both launchers pick one body; where K9 keeps
+    its CUDA-core body and K8 takes the tensor cores, K8 with the depth
+    padded by a zero column (D % 4 != 0: its CUDA-core body)."""
+    qt, D = qg.shape[1], qg.shape[2]
+    body = packed_topk_body(qt, D, kk)
+    if raw_scores_body(qt, D) == body:
+        return raw_scores(gp, qg, codes, ids, metric), body
+    assert raw_scores_body(qt, D + 1) == body == MULTI_CUDA_CORE_BODY
+    qg1, codes1 = (torch.nn.functional.pad(t, (0, 1)).contiguous() for t in (qg, codes))
+    return raw_scores(gp, qg1, codes1, ids, metric), body
+
+
+def _k9_agree(got, want, raw, bits, exact=True):
+    """K9 against a plain version: as many winners per row, strictly
+    descending, -1 tails, winner overlap >= 0.99; with exact, equal to the
+    top kk of raw (K8's scores in K9's arithmetic), packed."""
+    kk = got.shape[-1]
+    assert ((got >= 0) == (want >= 0)).all() and (got >= -1).all()
+    assert (torch.diff(got, dim=2)[got[:, :, 1:] >= 0] < 0).all()
+    mask = (1 << bits) - 1
+    gl = torch.where(got >= 0, got & mask, torch.full_like(got, -1)).reshape(-1, kk)
+    wl = torch.where(want >= 0, want & mask, torch.full_like(want, -1)).reshape(-1, kk)
+    shared = ((gl[:, :, None] == wl[:, None, :]) & (gl[:, :, None] >= 0)).any(2).sum(1)
+    n = (wl >= 0).sum(1)
+    share = torch.where(n > 0, shared / n.clamp(min=1), ((gl >= 0).sum(1) == 0).double())
+    assert float(share.double().mean()) >= 0.99
+    if exact:
+        ref = torch.where(torch.isneginf(raw), -1, pack_scores(raw, bits))
+        assert torch.equal(torch.topk(ref, kk, dim=2).values, got)
+
+
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 @pytest.mark.parametrize("qt,kk", [(8, 1), (64, 10), (8, 40), (64, 384)])
 @pytest.mark.parametrize("C", [200, 512])
 def test_packed_topk_kernel_matches_plain(dev, C, qt, kk, metric):
-    """K9, up to the largest kk that fits shared memory at qt = 64, D = 32."""
+    """K9, up to the largest kk that fits shared memory at qt = 64, D = 32:
+    the tensor-core body up to kk = 98 there, the CUDA-core body past it, each
+    equal to the top kk of K8's scores in its own arithmetic, packed."""
     rng = np.random.default_rng(C + qt + kk)
     kk = min(kk, C)
     codes, ids, gp, _ = _variant_store(dev, rng, C, kk)
@@ -391,18 +430,11 @@ def test_packed_topk_kernel_matches_plain(dev, C, qt, kk, metric):
     qg = torch.from_numpy(rng.standard_normal((gp.shape[0], qt, 32)).astype(np.float32)).to(dev)
     got = packed_topk(gp, qg, codes, ids, kk, metric)
     want = packed_topk_plain(gp, qg, codes, ids, kk, metric)
-    raw = raw_scores(gp, qg, codes, ids, metric)
+    raw, body = _k8_as_k9(gp, qg, codes, ids, kk, metric)
     torch.cuda.synchronize()
-    bits = slot_bits_of(C)
-    assert ((got >= 0) == (want >= 0)).all() and (got[gp < 0] == -1).all()
-    assert (torch.diff(got, dim=2)[got[:, :, 1:] >= 0] < 0).all()
-    mask = (1 << bits) - 1
-    gl = torch.where(got >= 0, got & mask, torch.full_like(got, -1)).reshape(-1, kk)
-    wl = torch.where(want >= 0, want & mask, torch.full_like(want, -1)).reshape(-1, kk)
-    assert _overlap(gl, wl) >= 0.99
-    ref = torch.where(torch.isneginf(raw), torch.full_like(got[:, :, :1], -1),
-                      pack_scores(raw, bits))
-    assert torch.equal(torch.topk(ref, kk, dim=2).values, got)
+    assert body == (MULTI_MMA_BODY if kk <= 98 else MULTI_CUDA_CORE_BODY)
+    assert (got[gp < 0] == -1).all()
+    _k9_agree(got, want, raw, slot_bits_of(C))
 
 
 @pytest.mark.parametrize("metric", ["l2", "ip"])
@@ -448,8 +480,9 @@ def test_multi_topk_kernel_matches_plain(dev, C, gb, qt, kk, metric):
 
 def test_variant_kernels_at_the_largest_kk_and_one_past(dev):
     """qt = 64, D = 128: 128 pairs, or 384 packed values, per row are the most
-    that fit a block's shared memory; they agree with the plain versions, and
-    one more raises."""
+    that fit a block's shared memory (K9 there on its CUDA-core body, held to
+    K8 on a zero-padded depth); they agree with the plain versions, and one
+    more raises."""
     rng = np.random.default_rng(11)
     C, D, qt = 1024, 128, 64
     codes = torch.from_numpy(rng.standard_normal((2, C, D)).astype(np.float32)).to(dev)
@@ -465,11 +498,10 @@ def test_variant_kernels_at_the_largest_kk_and_one_past(dev):
     _pairs_match(got_s, got_i.masked_fill(got_i >= C, -1), want_s,
                  want_i.masked_fill(want_i >= C, -1), 1e-4)
     got = packed_topk(gp, qg, codes, ids, 384, "l2")
-    raw = raw_scores(gp, qg, codes, ids, "l2")
-    ref = torch.where(torch.isneginf(raw), torch.full_like(got[:, :, :1], -1),
-                      pack_scores(raw, slot_bits_of(C)))
+    raw, body = _k8_as_k9(gp, qg, codes, ids, 384, "l2")
     torch.cuda.synchronize()
-    assert torch.equal(torch.topk(ref, 384, dim=2).values, got)
+    assert body == MULTI_CUDA_CORE_BODY
+    _k9_agree(got, packed_topk_plain(gp, qg, codes, ids, 384, "l2"), raw, slot_bits_of(C))
     with pytest.raises(ValueError, match="shared memory"):
         sized_topk(gp, gsize, qg, codes, 129, "l2")
     with pytest.raises(ValueError, match="shared memory"):
@@ -1190,3 +1222,240 @@ def test_rowscale_fold_and_exact_topk_count_their_launches(dev):
             exact_scan_plain(gp, qg, codes, 4, "ip", mode, **kw)
     torch.cuda.synchronize()
     assert _ext.launches["rowscale_fold"] == 2 and _ext.launches["exact_topk"] == 4
+
+
+# ------------------------------------------- K8 and K9 on the tensor cores
+
+
+def _largest_k9_mma_kk(qt, D, C):
+    """The largest kk <= C that K9's tensor-core body takes at (qt, D)."""
+    kk = C
+    while kk > 1 and packed_topk_body(qt, D, kk) != MULTI_MMA_BODY:
+        kk -= 1
+    return kk
+
+
+def _k8_k9_case(dev, rng, C, qt, D, Gn=120):
+    """Partitions of 0, 1, 127, 128, 129, C, 256 and 300 rows (ids -1 past
+    each size: segments without an id), a C that no segment divides, ghost
+    groups, more groups than blocks."""
+    sizes_l = _tile_sizes(C) + [256, 300]
+    P = len(sizes_l)
+    codes = torch.from_numpy(rng.standard_normal((P, C, D)).astype(np.float32)).to(dev)
+    ids = torch.from_numpy(rng.permutation(P * C).astype(np.int32).reshape(P, C)).to(dev)
+    lane = torch.arange(C, device=dev)[None, :]
+    sizes = torch.tensor(sizes_l, device=dev)
+    ids = torch.where(lane < sizes[:, None], ids, torch.full_like(ids, -1)).contiguous()
+    gp = torch.from_numpy(rng.integers(-1, P, Gn).astype(np.int32)).to(dev)
+    gp[:P] = torch.arange(P, dtype=torch.int32)
+    qg = torch.from_numpy(rng.standard_normal((Gn, qt, D)).astype(np.float32)).to(dev)
+    return gp, qg, codes, ids
+
+
+def _k8_agree(got, want):
+    """K8 against a plain version: the same -inf lanes, scores within
+    rtol = atol = 1e-4."""
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    ok = ~torch.isneginf(want)
+    torch.testing.assert_close(got[ok], want[ok], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("kk", [1, 10, 40, "largest"])
+@pytest.mark.parametrize("D", [24, 100, 128, 200, 256])
+@pytest.mark.parametrize("qt", [8, 16, 32, 64])
+def test_raw_scores_and_packed_topk_tensor_core_tiles(dev, qt, D, kk, metric):
+    """K8 and K9 on the tensor cores: sizes around a segment, segments
+    without an id, a C that no segment divides (520: the last segment reads
+    the next partition's rows), ghost groups, D in one ring stage (24, 100,
+    128) and in depth chunks (200, 256); kk 1, 10, 40 and the largest the
+    tensor-core body's lists hold. Both against the f32 plain versions and
+    the plain versions on the split product's model; K9 equal to the top kk
+    of K8's scores, packed (one body, one arithmetic)."""
+    C = 520
+    kk = _largest_k9_mma_kk(qt, D, C) if kk == "largest" else kk
+    assert raw_scores_body(qt, D) == MULTI_MMA_BODY
+    assert packed_topk_body(qt, D, kk) == MULTI_MMA_BODY
+    rng = np.random.default_rng(qt + D + kk)
+    gp, qg, codes, ids = _k8_k9_case(dev, rng, C, qt, D)
+    raw = raw_scores(gp, qg, codes, ids, metric)
+    got = packed_topk(gp, qg, codes, ids, kk, metric)
+    torch.cuda.synchronize()
+    assert torch.isneginf(raw[gp < 0]).all() and (got[gp < 0] == -1).all()
+    assert torch.isneginf(raw[:, :, 128:256][gp == 1]).all()  # a segment without an id
+    for model in (False, True):
+        with bmm_as_split_product() if model else contextlib.nullcontext():
+            want_raw = raw_scores_plain(gp, qg, codes, ids, metric)
+            want = packed_topk_plain(gp, qg, codes, ids, kk, metric)
+        _k8_agree(raw, want_raw)
+        _k9_agree(got, want, raw, slot_bits_of(C), exact=not model)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("qt", [8, 64])
+@pytest.mark.parametrize("D", [32, 128])
+def test_raw_scores_and_packed_topk_skip_a_hole_of_no_ids(dev, D, qt, metric):
+    """A slab whose middle 128-row segment holds no id (neither loaded nor
+    multiplied: K8 writes -inf there, K9 takes nothing from it), two such
+    segments in a row, a partition without any id; K9's winners past the hole
+    are found."""
+    assert raw_scores_body(qt, D) == packed_topk_body(qt, D, 10) == MULTI_MMA_BODY
+    rng = np.random.default_rng(D + qt + 2)
+    P, C, Gn = 4, 512, 16
+    codes = torch.from_numpy(rng.standard_normal((P, C, D)).astype(np.float32)).to(dev)
+    ids = torch.from_numpy(rng.permutation(P * C).astype(np.int32).reshape(P, C)).to(dev)
+    ids[:, 128:256] = -1
+    ids[1, 256:384] = -1
+    ids[2] = -1
+    codes[:, 128:256] = 50.0  # what a read of the hole would rank first
+    gp = torch.tensor([0, 1, 2, 3] * 4, dtype=torch.int32, device=dev)
+    gp[-1] = -1
+    qg = torch.from_numpy(rng.standard_normal((Gn, qt, D)).astype(np.float32)).to(dev)
+    qg[0, 0] = codes[0, 300] * 3.0  # this row's best lies past the hole
+    qg[1, 0] = codes[1, 400] * 3.0
+    raw = raw_scores(gp, qg, codes, ids, metric)
+    got = packed_topk(gp, qg, codes, ids, 10, metric)
+    torch.cuda.synchronize()
+    _k8_agree(raw, raw_scores_plain(gp, qg, codes, ids, metric))
+    _k9_agree(got, packed_topk_plain(gp, qg, codes, ids, 10, metric), raw, slot_bits_of(C))
+    assert torch.isneginf(raw[:, :, 128:256]).all() and torch.isneginf(raw[gp == 2]).all()
+    lanes = got & ((1 << slot_bits_of(C)) - 1)
+    assert int(lanes[0, 0, 0]) == 300 and int(lanes[1, 0, 0]) == 400
+    assert not ((lanes >= 128) & (lanes < 256) & (got >= 0)).any()
+    assert (got[2] == -1).all() and (got[-1] == -1).all()
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("qt", [8, 64])
+def test_raw_scores_and_packed_topk_segment_crosses_into_the_next_partition(dev, qt, metric):
+    """C = 200: a partition's second segment reads 56 rows of the next one
+    through the tensor map (the last partition's, past the end of the slabs);
+    K8 writes no lane at or past C and K9 takes none, even where they would
+    win."""
+    assert raw_scores_body(qt, 32) == packed_topk_body(qt, 32, 10) == MULTI_MMA_BODY
+    rng = np.random.default_rng(qt + 3)
+    P, C, D, Gn = 4, 200, 32, 12
+    codes = torch.from_numpy(rng.standard_normal((P, C, D)).astype(np.float32)).to(dev)
+    codes[1:, :56] = 20.0  # the rows a partition's second segment reads past its own
+    ids = torch.from_numpy(rng.permutation(P * C).astype(np.int32).reshape(P, C)).to(dev)
+    gp = torch.tensor([0, 1, 2, 3] * 3, dtype=torch.int32, device=dev)
+    qg = torch.from_numpy(rng.standard_normal((Gn, qt, D)).astype(np.float32)).to(dev)
+    qg[:, :2] = 1.0  # rows that would rank the 20.0 rows first
+    raw = raw_scores(gp, qg, codes, ids, metric)
+    got = packed_topk(gp, qg, codes, ids, 10, metric)
+    torch.cuda.synchronize()
+    _k8_agree(raw, raw_scores_plain(gp, qg, codes, ids, metric))
+    _k9_agree(got, packed_topk_plain(gp, qg, codes, ids, 10, metric), raw, slot_bits_of(C))
+    assert ((got & 255) < C)[got >= 0].all()
+
+
+@pytest.mark.parametrize("C", [126, 130, 200])
+@pytest.mark.parametrize("qt", [8, 64])
+def test_raw_scores_tensor_core_rows_not_16_byte_aligned(dev, qt, C):
+    """C % 4 != 0 (126, 130) puts output rows off 16-byte boundaries: K8's
+    tensor-core body stores them a value at a time, none at or past a row's
+    C lanes (they would land on the next row's), and agrees with the plain
+    version; C = 200 takes the 16-byte stores."""
+    assert raw_scores_body(qt, 32) == MULTI_MMA_BODY
+    rng = np.random.default_rng(qt + C)
+    P, D, Gn = 3, 32, 10
+    codes = torch.from_numpy(rng.standard_normal((P, C, D)).astype(np.float32)).to(dev)
+    ids = torch.from_numpy(rng.permutation(P * C).astype(np.int32).reshape(P, C)).to(dev)
+    ids[1, C // 2:] = -1
+    gp = torch.from_numpy(rng.integers(-1, P, Gn).astype(np.int32)).to(dev)
+    gp[:P] = torch.arange(P, dtype=torch.int32)
+    qg = torch.from_numpy(rng.standard_normal((Gn, qt, D)).astype(np.float32)).to(dev)
+    raw = raw_scores(gp, qg, codes, ids, "l2")
+    torch.cuda.synchronize()
+    _k8_agree(raw, raw_scores_plain(gp, qg, codes, ids, "l2"))
+    assert torch.isneginf(raw[gp == 1][:, :, C // 2:]).all()
+
+
+@pytest.mark.parametrize("qt,D,kk,k8,k9", [
+    (64, 128, 10, MULTI_MMA_BODY, MULTI_MMA_BODY), (64, 128, 82, MULTI_MMA_BODY, MULTI_MMA_BODY),
+    (64, 128, 83, MULTI_MMA_BODY, MULTI_CUDA_CORE_BODY),
+    (64, 32, 98, MULTI_MMA_BODY, MULTI_MMA_BODY),
+    (64, 32, 99, MULTI_MMA_BODY, MULTI_CUDA_CORE_BODY),
+    (64, 128, 384, MULTI_MMA_BODY, MULTI_CUDA_CORE_BODY),
+    (32, 768, 10, MULTI_MMA_BODY, MULTI_MMA_BODY), (64, 768, 10, MULTI_CUDA_CORE_BODY,
+                                                    MULTI_CUDA_CORE_BODY),
+    (8, 768, 10, MULTI_MMA_BODY, MULTI_MMA_BODY), (64, 130, 10, MULTI_CUDA_CORE_BODY,
+                                                   MULTI_CUDA_CORE_BODY),
+    (16, 13, 10, MULTI_CUDA_CORE_BODY, MULTI_CUDA_CORE_BODY),
+])
+def test_raw_scores_and_packed_topk_body_by_shape(dev, qt, D, kk, k8, k9):
+    """K8's and K9's bodies by shape: the tensor cores where D % 4 == 0 and
+    the ring, the query tile and (K9) the rows' lists fit; K8 keeps no list,
+    so kk does not move it (it takes the tensor cores at every D % 4 == 0
+    whose query tile fits, K9 up to kk = 82 at qt = 64, D = 128 and 98 at
+    D = 32)."""
+    assert raw_scores_body(qt, D) == k8
+    assert packed_topk_body(qt, D, kk) == k9
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("qt,D,kk", [(64, 128, 83), (64, 128, 200), (64, 32, 99), (64, 24, 100),
+                                     (64, 200, 100), (16, 13, 10), (64, 130, 10)])
+def test_packed_topk_cuda_core_body_equals_k8_on_a_padded_depth(dev, qt, D, kk, metric):
+    """Where K9 keeps its CUDA-core body, its output is the top kk of K8's
+    scores, packed, with K8 run on the same inputs and the depth padded by a
+    zero column (D % 4 != 0: K8's CUDA-core body, whose sums gain zero terms
+    only); where D % 4 != 0 already, K8 at the same D."""
+    assert packed_topk_body(qt, D, kk) == MULTI_CUDA_CORE_BODY
+    rng = np.random.default_rng(qt + D + kk + 5)
+    C = 384
+    gp, qg, codes, ids = _k8_k9_case(dev, rng, C, qt, D, Gn=24)
+    got = packed_topk(gp, qg, codes, ids, kk, metric)
+    raw, body = _k8_as_k9(gp, qg, codes, ids, kk, metric)
+    torch.cuda.synchronize()
+    assert body == MULTI_CUDA_CORE_BODY
+    _k9_agree(got, packed_topk_plain(gp, qg, codes, ids, kk, metric), raw, slot_bits_of(C))
+
+
+@pytest.mark.parametrize("D,pad", [(13, 1), (13, 2), (127, 2), (130, 1)])
+def test_raw_scores_zero_columns_leave_the_cuda_core_sums_unchanged(dev, D, pad):
+    """What the padded exact check rests on: K8's CUDA-core body gives the
+    same scores, bit for bit, when the depth is padded by zero columns (the
+    sums gain fmaf(0, 0, a) = a terms only)."""
+    assert raw_scores_body(64, D) == raw_scores_body(64, D + pad) == MULTI_CUDA_CORE_BODY
+    rng = np.random.default_rng(D + pad)
+    gp, qg, codes, ids = _k8_k9_case(dev, rng, 200, 64, D, Gn=24)
+    padded = [torch.nn.functional.pad(t, (0, pad)).contiguous() for t in (qg, codes)]
+    for metric in ("l2", "ip"):
+        a = raw_scores(gp, qg, codes, ids, metric)
+        b = raw_scores(gp, padded[0], padded[1], ids, metric)
+        torch.cuda.synchronize()
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_raw_scores_and_packed_topk_need_16_byte_aligned_operands(dev):
+    """The tensor-core bodies' copies need qg and codes on 16-byte
+    boundaries: a tile that starts 4 bytes in raises."""
+    Gn, qt, D, C = 2, 8, 32, 128
+    buf = torch.zeros(Gn * qt * D + 1, device=dev)
+    qg = buf[1:].view(Gn, qt, D)
+    codes = torch.zeros((1, C, D), device=dev)
+    ids = torch.zeros((1, C), dtype=torch.int32, device=dev)
+    gp = torch.zeros(Gn, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        raw_scores(gp, qg, codes, ids, "l2")
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        packed_topk(gp, qg, codes, ids, 4, "l2")
+
+
+def test_raw_scores_and_packed_topk_count_their_launches(dev):
+    """One launch a call on either body of K8 and of K9; the plain versions
+    count none."""
+    gp = torch.zeros(2, dtype=torch.int32, device=dev)
+    ids = torch.zeros((1, 128), dtype=torch.int32, device=dev)
+    _ext.reset_launches()
+    for D in (16, 13):
+        assert raw_scores_body(8, D) == packed_topk_body(8, D, 4) == (
+            MULTI_MMA_BODY if D == 16 else MULTI_CUDA_CORE_BODY)
+        qg, codes = torch.zeros((2, 8, D), device=dev), torch.zeros((1, 128, D), device=dev)
+        raw_scores(gp, qg, codes, ids, "ip")
+        raw_scores_plain(gp, qg, codes, ids, "ip")
+        packed_topk(gp, qg, codes, ids, 4, "ip")
+        packed_topk_plain(gp, qg, codes, ids, 4, "ip")
+    torch.cuda.synchronize()
+    assert _ext.launches["raw_scores"] == 2 and _ext.launches["packed_topk"] == 2
