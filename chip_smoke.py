@@ -14,16 +14,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
              (chunked per-row-scale scan with the cross-chunk merge), K8 (raw
              scores), K9 (packed top-kk) and the sized and multi scans'
              kernels against their plain PyTorch versions on the card at
-             small shapes; K1, K4-K9 and multi_topk, which multiply on the
-             tensor cores with split TF32 operands where D % 4 == 0, also at
-             the shapes that stress their tiles (more groups than blocks, D
-             below and at the tile depth, sizes around a 128-row segment, kk
-             1, 10 and 100, D 200 and 256 that a ring stage holds only in
-             depth chunks; K7 with chunks of one and two segments), against
-             the f32 plain versions and (K1, K4-K9) against the plain
-             versions run on ops/split_product.py's model of the split
-             product; K4 with chunk tables of ct 128 and 256 and all of them
-             at D = 30 (the CUDA-core bodies) against the f32 plain versions.
+             small shapes; K1, K4-K9, sized_topk and multi_topk, which
+             multiply on the tensor cores with split TF32 operands where
+             D % 4 == 0, also at the shapes that stress their tiles (more
+             groups than blocks, D below and at the tile depth, sizes around
+             a 128-row segment, kk 1, 10 and 100, D 200 and 256 that a ring
+             stage holds only in depth chunks; K7 with chunks of one and two
+             segments; sized_topk with the rows past each size poisoned with
+             999, +inf and NaN), against the f32 plain versions and (K1,
+             K4-K9, sized_topk) against the plain versions run on
+             ops/split_product.py's model of the split product; K4 with
+             chunk tables of ct 128 and 256 and all of them at D = 30 (the
+             CUDA-core bodies) against the f32 plain versions.
              K9 is also held equal to the top kk of K8's scores, packed, in
              the arithmetic of the body K9 ran (k8_as_k9).
 4. main    — the fixed-nprobe main path at full width: a 1,000,000 x 128
@@ -74,16 +76,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
              v6 and v4, K5 through v7, K1 through v8, K6 through v3 and v2,
              K7 through v5) and the direct paths (K8, K9, sized_topk,
              multi_topk) gave it, with times and bounds (K1, K3, K4 on whole
-             partitions, K5-K9 and multi_topk, against the tensor cores' TF32
-             peak at three products per f32 one, the others against the CUDA
-             cores' f32 peak; K8's bytes outweigh its operations there; no
-             kernel may beat its bound; the rows of K4-K9 also against their
-             plain versions on the split product's model, K9 equal to the top
-             kk of K8's scores, packed, and the rows of K4-K9 and multi_topk
-             name the body the launcher picked, which must be the tensor-core
-             one), and the share of K1's time
-             that its selection takes (K1 against a build of its body
-             without the selection).
+             partitions, K5-K9, sized_topk and multi_topk, against the
+             tensor cores' TF32 peak at three products per f32 one, the
+             others against the CUDA cores' f32 peak; K8's bytes outweigh its
+             operations there; no kernel may beat its bound; the rows of
+             K4-K9 and sized_topk also against their plain versions on the
+             split product's model, K9 equal to the top kk of K8's scores,
+             packed, and the rows of K4-K9, sized_topk and multi_topk name
+             the body the launcher picked, which must be the tensor-core
+             one), and the share of K1's time that its selection takes (K1
+             against a build of its body without the selection).
+11. mutation — the store's mutation path on the main index, last, so that
+             every earlier phase sees the built store: 40% of the resident
+             ids removed (seeded), then 200,000 fresh manifold vectors
+             (seed 13, ids from 1,000,000) appended to their nearest active
+             centroid and a flood of jittered copies of one partition's
+             centroid that pushes it past C, so that C doubles (7552 ->
+             15104, new tensors). Removal and appends are timed on the host
+             clock (vectors/s). On the reduced and on the grown store:
+             contract 6 (ids >= 0 exactly below the sizes, norms equal to
+             the codes' squared norms, the id map's count equal to the sizes'
+             sum), then the default (K1, K2, K3), sized and multi paths at
+             B=16384 (ms per batch, launches; recall@10 against an exact
+             ground truth of the store's vectors, sized and multi within
+             0.001 of the exact scan of the probed partitions), and K1, K2,
+             sized_topk and multi_topk against their plain versions at those
+             paths' inputs with the gates of phase 10.
 
 Progress goes to stderr. Standard output holds three lines: the JSON list
 of kernels, the card's name and power limit, and last
@@ -150,6 +168,11 @@ DIRECT = (("approx", "raw_scores", "ceiling", 3), ("sized", "sized_topk", "ceili
           ("packed", "packed_topk", "exact", 5), ("multi", "multi_topk", "ceiling", 5))
 DIRECT_QT, SIZED_CT, MULTI_GB = 64, 256, 8
 LATENCY = ((1, None), (8, None), (64, False))  # (queries, batched_scan) of the query-major runs
+# The mutation phase: the share of resident ids removed, the fresh vectors
+# appended (and their make_manifold seed), how far past C the flood pushes one
+# partition, and the seed of the removal's choice and the flood's jitter.
+MUTATION_REMOVE, MUTATION_APPEND, MUTATION_APPEND_SEED = 0.4, 200_000, 13
+MUTATION_FLOOD_OVER, MUTATION_SEED = 512, 17
 FLAT_RECALL = 0.999
 F32_PEAK = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores (data sheet)
 TF32_PEAK = 495e12  # H100 SXM dense TF32 FLOP/s on the tensor cores (data sheet)
@@ -159,12 +182,12 @@ UNITS = {"f32 CUDA cores": (1.0, F32_PEAK), "TF32 tensor cores, 3 products": (3.
 CUDA_CORES, TENSOR_CORES = UNITS
 # Entries of the kernels line whose product runs on the tensor cores at the
 # paths' shapes (D = 128): K1, K3, K4 on whole partitions (with v4's chunk
-# table it runs in f32 on the CUDA cores), K5-K9 and multi_topk (their rows
-# check that the launcher picked the tensor-core body).
+# table it runs in f32 on the CUDA cores), K5-K9, sized_topk and multi_topk
+# (their rows check that the launcher picked the tensor-core body).
 TENSOR_CORE_ENTRIES = ("grouped_scan", "grouped_scan/v8", "flat_topk", "rowscale_topk/v3p",
                        "rowscale_topk/v3pn", "rowscale_topk/v6", "rowscale_fold/v7",
                        "exact_topk/v3", "exact_topk/v2", "chunk_merge/v5", "multi_topk",
-                       "raw_scores", "packed_topk")
+                       "raw_scores", "packed_topk", "sized_topk")
 HBM_RATE = 3.35e12  # H100 SXM bytes/s
 QUEUE_CYCLES = 50_000_000  # ~25 ms of spinning at the H100's clock: room to enqueue the reps
 # Entry of the kernels line -> (CUDA kernel, its source, the TPU kernel it
@@ -352,12 +375,13 @@ def phase_small_parity(torch, dev):
 
 
 def phase_small_parity_tensor_core(torch, dev, rng):
-    """K1, K4-K9 and multi_topk at the shapes that stress the tensor-core
-    bodies' tiles: 300 groups (more than blocks: every block walks several
-    groups and loads across their borders), qt 8 and 64, partitions of 0, 1,
-    127, 128, 129 and all rows (K4, K6, K8, K9 and multi_topk also 256 and
-    300 of a C = 520 that no segment divides, so a partition's last segment
-    reads the next one's rows, and segments without an id; K7 the same sizes
+    """K1, K4-K9, sized_topk and multi_topk at the shapes that stress the
+    tensor-core bodies' tiles: 300 groups (more than blocks: every block
+    walks several groups and loads across their borders), qt 8 and 64,
+    partitions of 0, 1, 127, 128, 129 and all rows (K4, K6, K8, K9,
+    sized_topk and multi_topk also 256 and 300 of a C = 520 that no segment
+    divides, so a partition's last segment reads the next one's rows, and
+    segments without an id; sized_topk with every row past a size poisoned; K7 the same sizes
     of C = 512 in chunks of ct 128 and 256; K5 those of K1's C = 512), kk 1,
     10 and 100 (K7 1 and 10), l2 and ip but for K1; D 24, 100 and 128 (a ring
     stage holds all of D) and D 200 and 256 (a stage holds a depth chunk of
@@ -412,6 +436,8 @@ def phase_small_parity_tensor_core(torch, dev, rng):
                                                        else gv.CUDA_CORE_BODY)
                 or gv.raw_scores_body(qt, Dm) != (gv.MMA_BODY if tensor_cores
                                                   else gv.CUDA_CORE_BODY)
+                or gv.sized_topk_body(qt, Dm, 10) != (gv.MMA_BODY if tensor_cores
+                                                      else gv.CUDA_CORE_BODY)
                 or rowscale_fold_body(qt, Dm, 100) != (MMA_BODY if tensor_cores else GROUP_BODY)
                 or ge.exact_topk_body(qt, Dm, 10) != (ge.MMA_BODY if tensor_cores
                                                       else ge.GROUP_BODY)):
@@ -514,6 +540,25 @@ def phase_small_parity_tensor_core(torch, dev, rng):
                                        exact=not model)
                     fold_in(f"K9, body {body}, {shape if tensor_cores else 'D=30'}, {m} product",
                             r)
+        # sized_topk on the same store, every row past a size poisoned with
+        # 999, +inf or NaN (the tensor-core body loads the segment that holds
+        # the size-th row whole), equal scores by the larger slot. Where its
+        # tensor-core body does not take kk, its CUDA-core body has
+        # multi_topk's shared memory (multi_topk_serves).
+        poisoned = codes.clone()
+        for p, size in enumerate(sizes.tolist()):
+            poisoned[p, size:] = (999.0, float("inf"), float("nan"))[p % 3]
+        for kk in (k for k in (1, 10, 100) if gv.sized_topk_body(qt, Dm, k) == gv.MMA_BODY
+                   or gv.multi_topk_serves(qt, Dm, k)):
+            for metric in ("l2", "ip"):
+                got = gv.sized_topk(gp, gsize, q, poisoned, kk, metric)
+                for m, model in models if tensor_cores else models[:1]:
+                    with bmm_as_split_product() if model else contextlib.nullcontext():
+                        want = gv.sized_topk_plain(gp, gsize, q, poisoned, kk, metric)
+                    r = compare_pairs(torch, f"sized_topk ({m} product)", got, want, ties=True)
+                    fold_in(f"sized_topk, {shape}, {m} product (score error)" if tensor_cores
+                            else "sized_topk, D=30 (score error)", r)
+        del poisoned
         # K6 in both modes on the same store, equal scores by the larger index.
         for kk in (k for k in (1, 10, 100) if ge.exact_topk_serves(qt, Dm, k)):
             for metric in ("l2", "ip"):
@@ -545,10 +590,10 @@ def phase_small_parity_tensor_core(torch, dev, rng):
                                           level=key_level(q, norms, levels, metric))
                         fold_in(f"K7, {shape}, {m} product (score error)" if tensor_cores
                                 else "K7, D=30 (score error)", r)
-    log("[parity small] K1, K4-K9 and multi_topk at the tile-stressing shapes (300 groups; qt "
-        "in 8, 64; sizes 0, 1, 127, 128, 129, full; kk in 1, 10, 100; l2, ip; one stage: D in 24, "
-        "100, 128; depth chunks: D in 200, 256; K7 with ct in 128, 256; K4's chunk tables with ct "
-        "in 128, 256 on the CUDA cores): "
+    log("[parity small] K1, K4-K9, sized_topk and multi_topk at the tile-stressing shapes (300 "
+        "groups; qt in 8, 64; sizes 0, 1, 127, 128, 129, full; kk in 1, 10, 100; l2, ip; one "
+        "stage: D in 24, 100, 128; depth chunks: D in 200, 256; K7 with ct in 128, 256; K4's chunk "
+        "tables with ct in 128, 256 on the CUDA cores): "
         + "; ".join(f"{what}: min overlap={w[0]:.4f} max_key_diff={w[1]} max_stats_err={w[2]:.3g}"
                     for what, w in worst.items()))
 
@@ -1327,37 +1372,48 @@ def exact_chunked_rows(torch, idx, q, pids, qt, kk, by_name):
     return rows
 
 
+def direct_groups(torch, st, q, pids):
+    """The groups the direct paths build from a batch at qt = DIRECT_QT,
+    padded with ghosts to a multiple of MULTI_GB as grouped_scan_multi pads
+    them: (gp, qg, gsize, real query rows of each group)."""
+    from quake_tpu_torch.ops.grouped import build_groups
+
+    gp, qlist, _, _ = build_groups(pids, st.codes.shape[0], DIRECT_QT)
+    pad = -gp.shape[0] % MULTI_GB
+    gp = torch.nn.functional.pad(gp, (0, pad), value=-1).contiguous()
+    qlist = torch.nn.functional.pad(qlist, (0, 0, 0, pad), value=-1)
+    qg = q[qlist.clamp(min=0).long()].contiguous()
+    gsize = torch.where(gp >= 0, st.sizes[gp.clamp(min=0).long()], torch.zeros_like(gp))
+    return gp, qg, gsize.to(torch.int32).contiguous(), (qlist >= 0).sum(1)
+
+
 def variant_rows(torch, idx, q, pids, kk, direct):
     """Rows of the kernels phase for K8, K9, sized_topk and multi_topk, at
     the inputs the direct paths build from the B=16384 batch (qt = 64). The
     id-masked kernels read whole slabs; K8's bytes include its [G, qt, C]
-    output. K8, K9 and multi_topk must run their tensor-core bodies there;
-    K8 and K9 are held to their f32 plain versions and to the plain versions
-    on the split product's model, and K9's output to the top kk of K8's
-    scores, packed. K8's library time is the tensor-operation scan's score
-    step (ops/grouped.py::group_scores: a torch.bmm per chunk of groups,
-    without the top-k), which computes the same function."""
-    from quake_tpu_torch.ops.grouped import build_groups, group_scores
+    output. All four must run their tensor-core bodies there; K8, K9 and
+    sized_topk are held to their f32 plain versions and to the plain
+    versions on the split product's model (sized_topk also to its tie order,
+    the larger slot first), and K9's output to the top kk of K8's scores,
+    packed. K8's library time is the tensor-operation scan's score step
+    (ops/grouped.py::group_scores: a torch.bmm per chunk of groups, without
+    the top-k), which computes the same function."""
+    from quake_tpu_torch.ops.grouped import group_scores
     from quake_tpu_torch.ops.grouped_variants import (MMA_BODY, multi_topk, multi_topk_body,
                                                       multi_topk_plain, packed_topk,
                                                       packed_topk_body, packed_topk_plain,
                                                       raw_scores, raw_scores_body,
                                                       raw_scores_plain, sized_topk,
-                                                      sized_topk_plain, slot_bits_of)
+                                                      sized_topk_body, sized_topk_plain,
+                                                      slot_bits_of)
     from quake_tpu_torch.ops.split_product import bmm_as_split_product
 
     st = idx.store.state
     P, C, Dd = st.codes.shape
     qt = DIRECT_QT
-    gp, qlist, _, _ = build_groups(pids, P, qt)
-    pad = -gp.shape[0] % MULTI_GB  # ghosts up to a multiple of gb, as grouped_scan_multi pads
-    gp = torch.nn.functional.pad(gp, (0, pad), value=-1).contiguous()
-    qlist = torch.nn.functional.pad(qlist, (0, 0, 0, pad), value=-1)
-    qg = q[qlist.clamp(min=0).long()].contiguous()
+    gp, qg, gsize, real_q = direct_groups(torch, st, q, pids)
     Gn = gp.shape[0]
     safe = gp.clamp(min=0).long()
-    gsize = torch.where(gp >= 0, st.sizes[safe], torch.zeros_like(gp)).to(torch.int32).contiguous()
-    real_q = (qlist >= 0).sum(1)
     out_i = Gn * qt * kk * 4
     pair_tol = f"winner overlap >= {OVERLAP_TOL}, scores rtol = atol = {SCORE_TOL}"
     rows = []
@@ -1371,7 +1427,7 @@ def variant_rows(torch, idx, q, pids, kk, direct):
                          bound=b, groups=groups, scanned_rows=scanned, **fields))
 
     bodies = {"raw_scores": raw_scores_body(qt, Dd), "packed_topk": packed_topk_body(qt, Dd, kk),
-              "multi_topk": multi_topk_body(qt, Dd, kk)}
+              "sized_topk": sized_topk_body(qt, Dd, kk), "multi_topk": multi_topk_body(qt, Dd, kk)}
     for entry, body in bodies.items():
         if (body == MMA_BODY) != (unit_of(entry) == TENSOR_CORES):
             raise AssertionError(f"{entry} at qt={qt}, D={Dd}, kk={kk}: body {body} is not the "
@@ -1411,12 +1467,23 @@ def variant_rows(torch, idx, q, pids, kk, direct):
         Gn * qt * (C - kk) * 4, tol=f"scores rtol = atol = {SCORE_TOL}, the same -inf lanes",
         overlap=1.0, max_abs_err=err8, err_of="score error / tolerance", library_ms=lib_ms,
         body=bodies["raw_scores"], model_overlap=1.0, model_max_abs_err=err8_m)
-    ov, err = compare_pairs(torch, "sized_topk",
-                            sized_topk(gp, gsize, qg, st.codes, kk, "l2", ct=SIZED_CT),
-                            sized_topk_plain(gp, gsize, qg, st.codes, kk, "l2", ct=SIZED_CT))
+    got = sized_topk(gp, gsize, qg, st.codes, kk, "l2", ct=SIZED_CT)
+    ov, err = compare_pairs(torch, "sized_topk", got,
+                            sized_topk_plain(gp, gsize, qg, st.codes, kk, "l2", ct=SIZED_CT),
+                            ties=True)
+    with bmm_as_split_product():
+        ov_m, err_m = compare_pairs(
+            torch, "sized_topk (split product's model)", got,
+            sized_topk_plain(gp, gsize, qg, st.codes, kk, "l2", ct=SIZED_CT), ties=True)
+    log(f"[kernel] sized_topk (body {bodies['sized_topk']}): winner overlap {ov:.4f}, max score "
+        f"error {err:.3g} against the f32 plain version; {ov_m:.4f}, {err_m:.3g} against the "
+        "plain version on the split product's model; equal scores by the larger slot")
+    del got
     row("sized_topk", lambda: sized_topk(gp, gsize, qg, st.codes, kk, "l2", ct=SIZED_CT),
         lambda: sized_topk_plain(gp, gsize, qg, st.codes, kk, "l2", ct=SIZED_CT), False, out_i,
-        tol=pair_tol, overlap=ov, max_abs_err=err, err_of="score error")
+        tol=f"{pair_tol}, equal scores by the larger slot", overlap=ov, max_abs_err=err,
+        err_of="score error", body=bodies["sized_topk"], model_overlap=ov_m,
+        model_max_abs_err=err_m)
     row("packed_topk", lambda: packed_topk(gp, qg, st.codes, st.ids, kk, "l2"),
         lambda: packed_topk_plain(gp, qg, st.codes, st.ids, kk, "l2", chunk=64), True, 0,
         tol=(f"winner overlap >= {OVERLAP_TOL}, shared winners with bit-equal scores carry equal "
@@ -1441,12 +1508,11 @@ def phase_direct(torch, dev, idx, queries, gt, nprobe, ceiling):
     runs, read just after). Fails if the path's kernel did not launch, if
     another scan kernel did, or if recall misses its gate."""
     from quake_tpu_torch import _ext
-    from quake_tpu_torch.coordinator import rank_parents
     from quake_tpu_torch.ops import grouped_variants as gv
     from quake_tpu_torch.profiling import StageTimer
     from quake_tpu_torch.utils import compute_recall
 
-    st, pst = idx.store.state, idx.parent.store.state
+    st = idx.store.state
     fns = {
         "approx": lambda q, p, **kw: gv.grouped_scan_approx(st.codes, st.ids, q, p, K, "l2",
                                                             qt=DIRECT_QT, **kw),
@@ -1457,11 +1523,7 @@ def phase_direct(torch, dev, idx, queries, gt, nprobe, ceiling):
         "multi": lambda q, p, **kw: gv.grouped_scan_multi(st.codes, st.ids, q, p, K, "l2",
                                                           qt=DIRECT_QT, gb=MULTI_GB, **kw),
     }
-    batches = {}
-    for n in (NQ_GT, BATCH):
-        q = torch.from_numpy(queries[:n]).to(dev)
-        pids = rank_parents(pst.codes, pst.ids, pst.norms, q, nprobe, "l2", "pallas")
-        batches[n] = (q, torch.where(pids >= 0, pids, pids[:, :1]))
+    batches = probe_batches(torch, dev, idx, queries, nprobe)
     scan_kernels = set(_ext.KERNELS) - {"flat_topk"}
     out = {}
     for name, kernel, gate, reps in DIRECT:
@@ -1616,13 +1678,45 @@ def empty_launch(torch, build, rows: int):
     return lambda: _ext.check(entry(grid, _ext.stream_ptr(torch.device("cuda"))), "empty kernel")
 
 
+def probe_lists(torch, idx, q, nprobe):
+    """The probe lists of a batch as the main path ranks them (K3), a -1 pad
+    replaced by the query's first probe."""
+    from quake_tpu_torch.coordinator import rank_parents
+
+    pst = idx.parent.store.state
+    pids = rank_parents(pst.codes, pst.ids, pst.norms, q, nprobe, "l2", "pallas")
+    return torch.where(pids >= 0, pids, pids[:, :1])
+
+
+def probe_batches(torch, dev, idx, queries, nprobe):
+    """{n: (the first n queries on the card, their probe lists)} for the
+    ground-truth queries (n = NQ_GT) and the timed batch (n = BATCH)."""
+    out = {}
+    for n in (NQ_GT, BATCH):
+        q = torch.from_numpy(queries[:n]).to(dev)
+        out[n] = (q, probe_lists(torch, idx, q, nprobe))
+    return out
+
+
+def k1_args(idx, q, pids):
+    """K1's query-tile height, v11_inputs' dict and K1's arguments on the
+    main (v11) path of idx for the batch q with probe lists pids."""
+    from quake_tpu_torch.ops.grouped_scan import v11_inputs
+
+    st = idx.store.state
+    qt = idx._grouped_params(q.shape[0], pids.shape[1])[0]
+    gpb = int(idx._grouped_kernel()[len("v11g"):])
+    inp = v11_inputs(st.codes, st.sizes, st.norms, q, pids, K, "l2", qt, gpb)
+    return qt, inp, (inp["gp"], inp["group_size"], inp["qg"], st.codes, inp["normsT"], inp["kk"],
+                     inp["slot_mult"], inp["levels"])
+
+
 def phase_kernels(torch, dev, idx, x, queries, nprobe, launches, by_name, direct, k1_build):
     """Each kernel against its plain version at the shapes of the path it
     runs on, with times and bounds: K1-K3 on the main (v11) path (K3 also
     with K3_WIDE_N rows of the corpus x as its buffer); on the by-name paths
     K4 through v3p, v3pN, v6 and v4, K5 through v7, K1 through v8, K6
     through v3 and v2, K7 through v5."""
-    from quake_tpu_torch.coordinator import rank_parents
     from quake_tpu_torch.ops.flat_topk import flat_topk, flat_topk_body, flat_topk_plain, parent_bias
     from quake_tpu_torch.ops.grouped import build_groups
     from quake_tpu_torch.ops.grouped_family import (MMA_BODY, rowscale_fold_body, rowscale_scan,
@@ -1630,7 +1724,7 @@ def phase_kernels(torch, dev, idx, x, queries, nprobe, launches, by_name, direct
     from quake_tpu_torch.ops.grouped_scan import (argsort_placement, global_scale,
                                                   grouped_scan_kernel, grouped_scan_plain,
                                                   merge_positions, merge_positions_plain,
-                                                  pad_groups, v11_inputs)
+                                                  pad_groups)
 
     st, pst = idx.store.state, idx.parent.store.state
     q = torch.from_numpy(queries[:BATCH]).to(dev)
@@ -1670,14 +1764,9 @@ def phase_kernels(torch, dev, idx, x, queries, nprobe, launches, by_name, direct
                      launches=launches["flat_topk"], wide=wide3))
 
     # K1 at the grouped scan's shape.
-    pids = rank_parents(pst.codes, pst.ids, pst.norms, q, nprobe, "l2", "pallas")
-    pids = torch.where(pids >= 0, pids, pids[:, :1])
-    qt = idx._grouped_params(BATCH, nprobe)[0]
-    gpb = int(idx._grouped_kernel()[len("v11g"):])
-    inp = v11_inputs(st.codes, st.sizes, st.norms, q, pids, K, "l2", qt, gpb)
+    pids = probe_lists(torch, idx, q, nprobe)
+    qt, inp, args = k1_args(idx, q, pids)
     kk, slot_mult, levels = inp["kk"], inp["slot_mult"], inp["levels"]
-    args = (inp["gp"], inp["group_size"], inp["qg"], st.codes, inp["normsT"], kk, slot_mult,
-            levels)
     ov1, kd1 = compare_k1(torch, grouped_scan_kernel, grouped_scan_plain, *args)
     real_q = (inp["tgt"] < BATCH * nprobe).sum(1)  # query rows that are real pairs
     b1, groups, scanned = scan_bound(st, inp["gp"], inp["group_size"], real_q,
@@ -1802,6 +1891,190 @@ def phase_kernels(torch, dev, idx, x, queries, nprobe, launches, by_name, direct
     return kernels
 
 
+def check_contract_6(torch, store, when: str) -> float:
+    """Compact prefix and norms on the card (ROADMAP Queue 3 contract 6):
+    in every row the ids are >= 0 exactly below the size, the norms at valid
+    slots equal the squared norms of the codes (rtol 1e-6), and the id map
+    counts every valid slot. Returns the worst relative norm error."""
+    st = store.state
+    below = torch.arange(store.C, device=st.ids.device)[None, :] < st.sizes[:, None]
+    if not torch.equal(st.ids >= 0, below):
+        raise AssertionError(f"{when}: the slots with an id are not exactly those below the sizes")
+    want = (st.codes * st.codes).sum(-1)[below]
+    err = float(((st.norms[below] - want).abs() / want.abs().clamp(min=1e-30)).max())
+    if err > 1e-6:
+        raise AssertionError(f"{when}: cached norms off the codes' by {err} (rtol 1e-6)")
+    if store.ntotal() != int(st.sizes.sum()):
+        raise AssertionError(f"{when}: the id map holds {store.ntotal()} ids, the sizes sum to "
+                             f"{int(st.sizes.sum())}")
+    return err
+
+
+def mutated_searches(torch, dev, idx, queries, nprobe, what: str):
+    """The default (K1, K2, K3), sized and multi paths on the store as it
+    stands: recall@10 of the ground-truth queries against an exact ground
+    truth of the store's vectors, beside the exact scan of the same probed
+    partitions (the "reference" name); ms per B=16384 batch; each path's
+    launches (zeroed just before it, read just after). Sized and multi are
+    held within CEILING_TOL of the exact scan, K1 and K2 to their plain
+    versions at the default path's inputs (compare_k1, compare_k2),
+    sized_topk and multi_topk at the direct paths' (compare_pairs)."""
+    from quake_tpu_torch import SearchParams, _ext
+    from quake_tpu_torch.ops import grouped_variants as gv
+    from quake_tpu_torch.ops.grouped_scan import (PLACEMENTS, grouped_scan_kernel,
+                                                  grouped_scan_plain, merge_positions,
+                                                  merge_positions_plain, sort_key_fits)
+    from quake_tpu_torch.utils import compute_recall
+
+    st = idx.store.state
+    sp = SearchParams(k=K, nprobe=nprobe)
+    valid = st.ids >= 0
+    gt_rows = exact_gt(torch, st.codes[valid], torch.from_numpy(queries[:NQ_GT]).to(dev), K)
+    gt = st.ids[valid].cpu().numpy()[gt_rows]
+    os.environ["QUAKE_TPU_KERNEL"] = "reference"
+    try:
+        ceiling = compute_recall(idx.search(queries[:NQ_GT], sp).ids, gt, K)
+    finally:
+        del os.environ["QUAKE_TPU_KERNEL"]
+    batches = probe_batches(torch, dev, idx, queries, nprobe)
+    paths = (
+        ("default", MAIN_KERNELS, lambda q, p: idx._search_device_full(q, sp)[:2]),
+        ("sized", ("sized_topk",),
+         lambda q, p: gv.grouped_scan_sized(st.codes, st.ids, st.sizes, q, p, K, "l2",
+                                            qt=DIRECT_QT, ct=SIZED_CT)[:2]),
+        ("multi", ("multi_topk",),
+         lambda q, p: gv.grouped_scan_multi(st.codes, st.ids, q, p, K, "l2", qt=DIRECT_QT,
+                                            gb=MULTI_GB)[:2]))
+    out = {"reference": dict(recall=ceiling)}
+    for name, kernels, fn in paths:
+        torch.cuda.synchronize()
+        _ext.reset_launches()
+        r = compute_recall(fn(*batches[NQ_GT])[1].cpu().numpy(), gt, K)
+        ms = time_ms(torch, lambda: fn(*batches[BATCH]), reps=5, warmup=1)
+        scores, ids32 = fn(*batches[BATCH])
+        torch.cuda.synchronize()
+        launches = dict(_ext.launches)
+        ran = {k for k in _ext.KERNELS if launches[k] > 0}
+        if not set(kernels) <= ran or (name != "default" and ran != set(kernels)):
+            raise AssertionError(f"{what}, {name}: expected the kernels {kernels} to launch, got "
+                                 f"{launches}")
+        if (ids32.shape != (BATCH, K) or bool((ids32 < 0).any())
+                or not bool(torch.isfinite(scores).all())):
+            raise AssertionError(f"{what}, {name}: expected {K} ids and finite scores per query")
+        if name != "default" and abs(r - ceiling) > CEILING_TOL:
+            raise AssertionError(f"{what}, {name}: recall@10 {r} is not within {CEILING_TOL} of "
+                                 f"the exact scan's {ceiling}")
+        out[name] = dict(recall=r, ms=ms, launches={k: launches[k] for k in sorted(ran)})
+
+    # The kernels against their plain versions at these paths' inputs.
+    q, pids = batches[BATCH]
+    qt, inp, args = k1_args(idx, q, pids)
+    ov1, kd1 = compare_k1(torch, grouped_scan_kernel, grouped_scan_plain, *args)
+    placement = "sorted" if sort_key_fits(BATCH, inp["gp"].shape[0] * qt) else "argsort"
+    m_packed, _ = PLACEMENTS[placement](grouped_scan_kernel(*args), inp["tgt"],
+                                        inp["group_size"], pids)
+    compare_k2(torch, merge_positions, merge_positions_plain, m_packed,
+               min(K, m_packed.shape[1]), inp["slot_mult"])
+    C = st.codes.shape[1]
+    gp, qg, gsize, _ = direct_groups(torch, st, q, pids)
+    ov_s, err_s = compare_pairs(
+        torch, f"sized_topk ({what})", gv.sized_topk(gp, gsize, qg, st.codes, K, "l2", ct=SIZED_CT),
+        gv.sized_topk_plain(gp, gsize, qg, st.codes, K, "l2", ct=SIZED_CT), ties=True)
+    ov_m, err_m = compare_pairs(
+        torch, f"multi_topk ({what})",
+        multi_slots(gv.multi_topk(gp, qg, st.codes, st.ids, K, "l2", gb=MULTI_GB), C),
+        multi_slots(gv.multi_topk_plain(gp, qg, st.codes, st.ids, K, "l2"), C), ties="up")
+    out["kernels"] = dict(k1_overlap=ov1, k1_max_key_diff=kd1, k2=f"equal ({placement})",
+                          sized_topk_overlap=ov_s, sized_topk_max_abs_err=err_s,
+                          multi_topk_overlap=ov_m, multi_topk_max_abs_err=err_m)
+    log(f"[mutation] {what} (C={C}, ntotal={idx.ntotal()}): exact scan of the probed partitions "
+        f"recall@10={ceiling:.4f}; "
+        + "; ".join(f"{n} {out[n]['ms']:.3f} ms/batch, recall@10={out[n]['recall']:.4f}, "
+                    f"launches {out[n]['launches']}" for n, *_ in paths)
+        + f"; K1 overlap {ov1:.4f} (max key diff {kd1}), K2 equal ({placement}), sized_topk "
+        f"overlap {ov_s:.4f} (max score error {err_s:.3g}), multi_topk overlap {ov_m:.4f} (max "
+        f"score error {err_m:.3g})")
+    return out
+
+
+def phase_mutation(torch, dev, idx, queries, nprobe, full_ms):
+    """The store's mutation path at full width, on the main index, after
+    every other phase: remove a seeded MUTATION_REMOVE of the resident ids,
+    check contract 6 and search (mutated_searches); append MUTATION_APPEND
+    fresh vectors (make_manifold, seed MUTATION_APPEND_SEED, ids from N up)
+    to their nearest active centroid, then a flood of copies of one
+    partition's centroid, jittered by half that partition's spread, that
+    pushes it MUTATION_FLOOD_OVER rows past C, so that C doubles (new
+    tensors); check C, contract 6 and search again. Removal and appends are
+    timed on the host clock after a sync. full_ms: the paths' batch ms on
+    the full store, for the log."""
+    store = idx.store
+    rng = np.random.default_rng(MUTATION_SEED)
+    out = dict(C_before=store.C, ntotal_before=store.ntotal())
+    gone = rng.choice(store.get_ids(), int(MUTATION_REMOVE * store.ntotal()), replace=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    removed = store.remove(gone)
+    torch.cuda.synchronize()
+    t_remove = time.perf_counter() - t0
+    if removed != len(gone):
+        raise AssertionError(f"remove: {removed} of {len(gone)} resident ids removed")
+    out["remove"] = dict(vectors=removed, s=t_remove, per_s=removed / t_remove,
+                         norm_err=check_contract_6(torch, store, "after the removal"))
+    out["reduced"] = mutated_searches(torch, dev, idx, queries, nprobe, "reduced store")
+
+    st = store.state
+    x_new = make_manifold(MUTATION_APPEND, D, 4096, seed=MUTATION_APPEND_SEED)
+    active = torch.from_numpy(store.active_rows()).to(dev)
+    cents = st.centroids[active]
+    xd = torch.from_numpy(x_new).to(dev)
+    rows = active[torch.argmin((cents * cents).sum(1)[None, :] - 2.0 * (xd @ cents.T), dim=1)]
+    rows = rows.cpu().numpy().astype(np.int32)
+    del xd
+    sizes = store.partition_sizes() + np.bincount(rows, minlength=store.P)
+    target = int(np.argmax(sizes))
+    n_flood = store.C - int(sizes[target]) + MUTATION_FLOOD_OVER
+    members = st.codes[target, :int(st.sizes[target])]
+    spread = float((members - st.centroids[target]).pow(2).mean().sqrt())  # rms a coordinate
+    flood = (st.centroids[target].cpu().numpy()
+             + 0.5 * spread * rng.standard_normal((n_flood, D))).astype(np.float32)
+    del members
+    times = {}
+    for what, r, v, first in (("append", rows, x_new, N),
+                              ("flood", np.full(n_flood, target, np.int32), flood,
+                               N + MUTATION_APPEND)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store.append(r, v, np.arange(first, first + len(r)))
+        torch.cuda.synchronize()
+        times[what] = time.perf_counter() - t0
+    if store.C != 2 * out["C_before"]:
+        raise AssertionError(f"the flood was to grow C from {out['C_before']} to "
+                             f"{2 * out['C_before']}, C is {store.C}")
+    st = store.state
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (st.codes, st.ids, st.norms)):
+        raise AssertionError("the grown tensors must be contiguous and 16-byte aligned")
+    out.update(C_after=store.C, ntotal_after=store.ntotal(), flood_partition=target,
+               append=dict(vectors=MUTATION_APPEND, s=times["append"],
+                           per_s=MUTATION_APPEND / times["append"]),
+               flood=dict(vectors=n_flood, s=times["flood"], per_s=n_flood / times["flood"]),
+               grown_norm_err=check_contract_6(torch, store, "after the append and the flood"),
+               store_bytes=sum(t.numel() * t.element_size()
+                               for t in (st.codes, st.ids, st.norms, st.sizes)))
+    out["grown"] = mutated_searches(torch, dev, idx, queries, nprobe, "grown store")
+    log(f"[mutation] remove {removed} ids: {out['remove']['per_s']:,.0f} vectors/s "
+        f"({t_remove:.3f} s); append {MUTATION_APPEND}: {out['append']['per_s']:,.0f} vectors/s "
+        f"({times['append']:.3f} s); flood of {n_flood} into partition {target}: "
+        f"{out['flood']['per_s']:,.0f} vectors/s ({times['flood']:.3f} s); C {out['C_before']} -> "
+        f"{store.C} ({out['store_bytes'] / 1e9:.3f} GB); batch ms (full store / reduced / grown) "
+        + "; ".join(f"{n} {full_ms[n]:.3f} / {out['reduced'][n]['ms']:.3f} / "
+                    f"{out['grown'][n]['ms']:.3f}, recall@10 {out['reduced'][n]['recall']:.4f} / "
+                    f"{out['grown'][n]['recall']:.4f}" for n in full_ms)
+        + f"; exact scan of the probed partitions {out['reduced']['reference']['recall']:.4f} / "
+        f"{out['grown']['reference']['recall']:.4f}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1851,8 +2124,13 @@ def main() -> int:
     wide = phase_wide(torch, dev)
     kernels = phase_kernels(torch, dev, idx, x, queries, main_out["nprobe"], launches, by_name,
                             direct, k1_build)
+    del x
+    mutation = phase_mutation(torch, dev, idx, queries, main_out["nprobe"],
+                              {"default": main_out[f"B{BATCH}"]["ms"],
+                               "sized": direct["sized_topk"]["ms"],
+                               "multi": direct["multi_topk"]["ms"]})
     log("[summary] " + json.dumps(dict(main_out, by_name=by_name, direct=direct,
-                                       latency=latency, wide=wide)))
+                                       latency=latency, wide=wide, mutation=mutation)))
 
     if len(kernels) != len(ENTRIES):
         raise AssertionError(f"the kernels line needs {len(ENTRIES)} entries, got {len(kernels)}")

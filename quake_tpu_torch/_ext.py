@@ -4,12 +4,12 @@ The kernels live in ``csrc/*.cu`` (their shared helpers in ``csrc/*.cuh``)
 behind a plain C interface: one ``extern "C"`` launcher per kernel that
 takes raw device pointers and a stream and returns ``cudaGetLastError()``.
 At first use every source is compiled by its own ``nvcc`` process, all
-started together, for ``sm_90a`` (K1 and K3-K9 and multi_topk use ``mma.sync``
-TF32 products and bulk tensor copies; the tensor map's encoder, ``cuTensorMapEncodeTiled``,
-is looked up in libcuda at run time with ``dlsym``, so only ``-ldl`` is linked);
-the
-objects are linked into one shared library under ``quake_tpu_torch/_build/``, named by a hash of the sources
-and flags, and loaded with ``ctypes``. Nothing is built or loaded at
+started together, for ``sm_90a`` (K1, K3-K9, sized_topk and multi_topk use
+``mma.sync`` TF32 products and bulk tensor copies; the tensor map's encoder,
+``cuTensorMapEncodeTiled``, is looked up in libcuda at run time with
+``dlsym``, so only ``-ldl`` is linked); the objects are linked into one
+shared library under ``quake_tpu_torch/_build/``, named by a hash of the
+sources and flags, and loaded with ``ctypes``. Nothing is built or loaded at
 import, so the CPU-only tests import every module freely.
 
 ``launches`` counts the launches of each kernel (K1 grouped_scan, K2
@@ -82,8 +82,10 @@ _SIGNATURES = {
     "qk_packed_topk": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # qt, D, kk: the body K9's launcher runs (1 tensor cores, 0 CUDA cores)
     "qk_packed_topk_body": (_I, _I, _I),
-    # gp, gsize, qg, codes, out_s, out_i, Gn, qt, D, C, kk, is_l2, stream
-    "qk_sized_topk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # gp, gsize, qg, codes, out_s, out_i, Gn, qt, D, P, C, kk, is_l2, stream
+    "qk_sized_topk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # qt, D, kk: the body sized_topk's launcher runs (1 tensor cores, 0 CUDA cores)
+    "qk_sized_topk_body": (_I, _I, _I),
     # gp, qg, codes, ids, out_s, out_i, Gn, qt, D, P, C, kk, is_l2, gb, stream
     "qk_multi_topk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # qt, D, kk: the body multi_topk's launcher runs (1 tensor cores, 0 CUDA cores)

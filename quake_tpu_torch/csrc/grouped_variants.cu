@@ -14,8 +14,12 @@
 //       bits of a monotone map of the score's f32 bit pattern; lanes with
 //       ids < 0 and ghost groups give -1.
 //   sized_topk      (replaces _sized_kernel): per row the kk best (score,
-//       slot) among the lanes below the partition's size; no row at or past
-//       the size is read. Equal scores order by the larger slot.
+//       slot) among the lanes below the partition's size. Only the segments
+//       below the size are read: on the tensor-core body the 128-row segment
+//       that holds the size-th row is loaded whole and its lanes at or past
+//       the size are masked (the TPU kernel also copies whole ct-row tiles);
+//       the CUDA-core body reads no row at or past the size. Equal scores
+//       order by the larger slot.
 //   multi_topk      (replaces _multi_kernel): per row the kk best (score,
 //       slot) among the lanes with ids >= 0; equal scores order by the
 //       smaller slot.
@@ -27,17 +31,18 @@
 // writes qt C 4 bytes per group (4.6 GB at the direct path's B = 16384), which
 // on the tensor cores outweighs its operations: K8 is bound by bytes there.
 //
-// K8, K9 and multi_topk have two bodies each, chosen by shape in the launcher
-// (pair_body; qk_raw_scores_body, qk_packed_topk_body, qk_multi_topk_body
-// name them), never after a failure. Where D % 4 == 0 and the ring, the query
-// tile and (K9, multi_topk) the rows' lists fit, they run the tensor-core body
-// shared with K6 (pair_topk_mma.cuh: modes kRaw, kPacked, kMulti): persistent
-// blocks, a TMA ring a segment ahead, one 3xTF32 product a segment, segments
-// whose ids are all < 0 skipped, a row's best kk as a sorted list (K9 on the
-// pair (0, packed value)), and K8's score tile streamed out under the next
-// segment's product. K8 and K9 there compute their scores by one code in one
-// order, so K9's output is the top kk of K8's scores, packed, bit for bit.
-// sized_topk, and the others elsewhere, run the CUDA-core bodies below
+// All four have two bodies each, chosen by shape in the launcher (pair_body;
+// qk_raw_scores_body, qk_packed_topk_body, qk_sized_topk_body,
+// qk_multi_topk_body name them), never after a failure. Where D % 4 == 0 and
+// the ring, the query tile and (K9, sized_topk, multi_topk) the rows' lists
+// fit, they run the tensor-core body shared with K6 (pair_topk_mma.cuh: modes
+// kRaw, kPacked, kSized, kMulti): persistent blocks, a TMA ring a segment
+// ahead, one 3xTF32 product a segment, segments whose ids are all < 0 skipped
+// (sized_topk: only the segments below the size loaded), a row's best kk as a
+// sorted list (K9 on the pair (0, packed value)), and K8's score tile
+// streamed out under the next segment's product. K8 and K9 there compute
+// their scores by one code in one order, so K9's output is the top kk of K8's
+// scores, packed, bit for bit. Elsewhere they run the CUDA-core bodies below
 // (simple first): one block per group (multi_topk: per gb groups, one after
 // the other), the [qt, D] query tile in shared memory, the slab streamed once
 // through shared memory in 128-row segments by loads that nothing overlaps,
@@ -397,15 +402,15 @@ int launch_slot_topk(const void* gp, const void* gsize, const void* qg, const vo
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------- K8, K9 and multi_topk on the tensor cores
+// ------------------------- K8, K9, sized_topk and multi_topk on the tensor cores
 
-// Which body serves multi_topk and K9 at a shape (kk: the rows' list length),
-// and K8 (kk = 0: no list); qk_multi_topk_body, qk_packed_topk_body and
-// qk_raw_scores_body name them: 1 the tensor-core body (pair_topk_mma.cuh,
-// modes kMulti, kPacked, kRaw), where rows are 16-byte aligned for the
-// asynchronous copies (D % 4 == 0) and its ring, query tile and lists fit;
-// else 0, the CUDA-core body (slot_topk_kernel, packed_topk_kernel,
-// raw_scores_kernel).
+// Which body serves multi_topk, sized_topk and K9 at a shape (kk: the rows'
+// list length), and K8 (kk = 0: no list); qk_multi_topk_body,
+// qk_sized_topk_body, qk_packed_topk_body and qk_raw_scores_body name them: 1
+// the tensor-core body (pair_topk_mma.cuh, modes kMulti, kSized, kPacked,
+// kRaw), where rows are 16-byte aligned for the asynchronous copies
+// (D % 4 == 0) and its ring, query tile and lists fit; else 0, the CUDA-core
+// body (slot_topk_kernel, packed_topk_kernel, raw_scores_kernel).
 inline int pair_body(int qt, int D, int kk) { return pair_topk_mma_serves(qt, D, kk) ? 1 : 0; }
 
 }  // namespace
@@ -479,10 +484,15 @@ int qk_packed_topk(const void* gp, const void* qg, const void* codes, const void
   return (int)cudaGetLastError();
 }
 
-// Replaces quake_tpu/ops/pallas_grouped.py::_sized_kernel (ids unused).
+// Replaces quake_tpu/ops/pallas_grouped.py::_sized_kernel (ids unused). P
+// as for K8.
 int qk_sized_topk(const void* gp, const void* gsize, const void* qg, const void* codes,
-                  void* out_s, void* out_i, int Gn, int qt, int D, int C, int kk, int is_l2,
-                  void* stream) {
+                  void* out_s, void* out_i, int Gn, int qt, int D, int P, int C, int kk,
+                  int is_l2, void* stream) {
+  if (Gn <= 0) return (int)cudaGetLastError();
+  if (pair_body(qt, D, kk) == 1)
+    return launch_pair_topk_mma<PairMode::kSized>(gp, gsize, qg, codes, nullptr, nullptr, out_s,
+                                                  out_i, Gn, qt, D, P, C, kk, is_l2, stream);
   return launch_slot_topk<false>(gp, gsize, qg, codes, nullptr, out_s, out_i, Gn, qt, D, C, kk,
                                  is_l2, 1, stream);
 }
@@ -508,6 +518,10 @@ int qk_multi_topk_body(int qt, int D, int kk) { return pair_body(qt, D, kk); }
 // The body qk_packed_topk runs at this shape: 1 the tensor-core body, 0 the
 // CUDA-core body (one block a group).
 int qk_packed_topk_body(int qt, int D, int kk) { return pair_body(qt, D, kk); }
+
+// The body qk_sized_topk runs at this shape: 1 the tensor-core body, 0 the
+// CUDA-core body (one block a group).
+int qk_sized_topk_body(int qt, int D, int kk) { return pair_body(qt, D, kk); }
 
 // The body qk_raw_scores runs at this shape: 1 the tensor-core body, 0 the
 // CUDA-core body (one block a group).

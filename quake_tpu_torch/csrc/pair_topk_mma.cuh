@@ -1,28 +1,30 @@
-// The tensor-core body of the exact (score, index) selections: multi_topk
-// and K9, packed_topk (grouped_variants.cu), and K6, exact_topk, in its two
-// modes (grouped_exact.cu); and of K8, raw_scores (grouped_variants.cu),
-// which keeps every score. One kernel, templated over what differs:
+// The tensor-core body of the exact (score, index) selections: multi_topk,
+// sized_topk and K9, packed_topk (grouped_variants.cu), and K6, exact_topk,
+// in its two modes (grouped_exact.cu); and of K8, raw_scores
+// (grouped_variants.cu), which keeps every score. One kernel, templated over
+// what differs:
 //
 //   mode     valid lanes            l2 score                  index          none
 //   kMulti   ids >= 0, whole slab   2<q,x> - |q|^2 - |x|^2    C - 1 - slot   C
 //   kById    ids >= 0, whole slab   2<q,x> - |q|^2 - |x|^2    the id         -1
 //   kBySlot  lane < size            2<q,x> - norms[lane]      the slot       -1
+//   kSized   lane < size            2<q,x> - |q|^2 - |x|^2    the slot       -1
 //   kPacked  ids >= 0, whole slab   2<q,x> - |q|^2 - |x|^2    pack_score     -1
 //   kRaw     ids >= 0, whole slab   2<q,x> - |q|^2 - |x|^2    (no selection: -inf)
 //
 // The ip score is <q, x> in every mode. Each row keeps its kk best (score,
 // index) pairs in the pair order (score, then the larger index), so multi's
 // index C - 1 - slot puts the smaller slot first among equal scores and
-// kById and kBySlot the larger index. kPacked selects on the pair (0, packed
-// value), whose order is the packed int32's order (the packed values of
-// valid lanes are distinct and >= 0), and writes the packed values alone;
-// the key is not put into the float score, whose 24 bits would round its
-// 31 - slot_bits. kRaw keeps no list: it writes the segment's score tile to
+// kById, kBySlot and kSized the larger index. kPacked selects on the pair
+// (0, packed value), whose order is the packed int32's order (the packed
+// values of valid lanes are distinct and >= 0), and writes the packed values
+// alone; the key is not put into the float score, whose 24 bits would round
+// its 31 - slot_bits. kRaw keeps no list: it writes the segment's score tile to
 // out[g, row, lane] as it stands, -inf where the lane has no id, and nothing
 // at or past C. kPacked and kRaw compute their scores by the same code in
 // the same order, so K9's output is the top kk of K8's scores, packed, bit
-// for bit. Ghost groups (p < 0; in mode kBySlot also size <= 0) write (-inf,
-// none), in mode kRaw -inf in all qt C entries.
+// for bit. Ghost groups (p < 0; in modes kBySlot and kSized also size <= 0)
+// write (-inf, none), in mode kRaw -inf in all qt C entries.
 //
 // Persistent: block b takes groups b, b + grid, ... (partition-major, so
 // blocks that run together read the same partitions), and streams each
@@ -33,9 +35,13 @@
 // below C all have ids < 0: warp 0, which issues the copies, and the consumer
 // both skip it by a vote over its ids, so it is neither loaded nor multiplied
 // (kRaw writes its -inf all the same).
-// Mode kBySlot loads only the ceil(size / 128) segments that hold vectors.
-// Lanes at or past C (the next partition's rows, read through the tensor
-// map) are masked in every mode. Where the kernel sums the norms, |x|^2 of a
+// Modes kBySlot and kSized load only the ceil(size / 128) segments that
+// hold vectors and read no id: the segment that holds the size-th row is
+// loaded whole and its lanes at or past the size are masked (what they hold,
+// NaN or inf included, reaches no output: a product column and a row's
+// |x|^2 are those of its own row alone); no later segment is loaded. Lanes at
+// or past C (the next partition's rows, read through the tensor map) are
+// masked in every mode. Where the kernel sums the norms, |x|^2 of a
 // segment's rows comes from the ring buffer, summed by all threads in one
 // fixed order a row (copies of one vector tie bit for bit), and |q|^2 of a
 // query row by four threads (strided, then a butterfly sum), the same order
@@ -60,7 +66,7 @@
 
 namespace {
 
-enum class PairMode { kMulti, kById, kBySlot, kPacked, kRaw };
+enum class PairMode { kMulti, kById, kBySlot, kSized, kPacked, kRaw };
 
 // K9's packed value of a score at a lane: a monotone map of the f32 bit
 // pattern onto uint32 (negative: all bits flipped; else the sign bit set),
@@ -131,7 +137,8 @@ pair_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __rest
                      const float* __restrict__ norms, const int* __restrict__ ids,
                      float* __restrict__ out_s, int* __restrict__ out_i, int Gn, int D, int NB,
                      int NBS, int stage_floats, int C, int kk, int is_l2, int slot_bits) {
-  constexpr bool kSlots = M == PairMode::kBySlot;  // lanes below the size; the store's norms
+  constexpr bool kSlots = M == PairMode::kBySlot || M == PairMode::kSized;  // lanes below the size
+  constexpr bool kNorms = M == PairMode::kBySlot;  // the store's norms, not summed here
   constexpr bool kKeep = M == PairMode::kRaw;      // every score out, no selection
   constexpr int MT = QT >= 32 ? 2 : 1;       // m16-tiles per warp
   constexpr int MW = QT >= 64 ? 2 : 1;       // warps along the query rows
@@ -155,7 +162,7 @@ pair_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __rest
   const int ksteps = (D + 7) >> 3;
   const int ND = (NB + NBS - 1) / NBS;  // depth chunks a segment: a stage holds NBS boxes
   const bool l2 = is_l2 != 0;
-  const bool sums = l2 && !kSlots;      // |q|^2 and |x|^2 summed here
+  const bool sums = l2 && !kNorms;      // |q|^2 and |x|^2 summed here
   const int none = M == PairMode::kMulti ? C : -1;
   const int width = kKeep ? C : kk;     // entries of an output row
 
@@ -218,7 +225,7 @@ pair_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __rest
   for (int g = next_live(first); g < end; g = next_live(g + step)) {
     const int n = lanes_of(g), nseg = nseg_of(g);
     const int* gid = kSlots ? nullptr : ids + (size_t)gp[g] * C;
-    const float* nrm = kSlots ? norms + (size_t)gp[g] * C : nullptr;
+    const float* nrm = kNorms ? norms + (size_t)gp[g] * C : nullptr;
     // The last product on the previous group's tile ended before a barrier.
     query_tile_load(qs, qg + (size_t)g * QT * D, QT, QR, D, NB);
     if (sums && threadIdx.x < 4 * QT) {  // |q|^2: four threads a row, each every fourth 16 bytes
@@ -273,7 +280,7 @@ pair_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __rest
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const int ln = ln0 + col0 + 8 * j + 2 * t4 + c;
-          nv[j][c] = kSlots && l2 && ln < n ? __ldg(nrm + ln) : 0.0f;
+          nv[j][c] = kNorms && l2 && ln < n ? __ldg(nrm + ln) : 0.0f;
         }
       float xp = 0.0f;  // this thread's half of |x|^2 of segment row threadIdx.x % 128
       for (int cd = 0; cd < ND; ++cd) {
@@ -308,7 +315,7 @@ pair_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __rest
               // 2 dot is exact, so a contraction into fmaf changes nothing.
               if (!l2) {
                 v[c] = dot;
-              } else if constexpr (kSlots) {
+              } else if constexpr (kNorms) {
                 v[c] = 2.0f * dot - nv[j][c];
               } else {
                 v[c] = 2.0f * dot - qsq[row] - (xsq[col] + xsq[kFold + col]);
@@ -461,9 +468,10 @@ pair_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __rest
   }
 }
 
-// Launches the body in mode M (gsize and norms: mode kBySlot; ids: the
-// others; out_s alone: mode kRaw, with kk = 0; out_i alone and slot_bits:
-// mode kPacked). The caller has checked pair_topk_mma_serves.
+// Launches the body in mode M (gsize and norms: mode kBySlot; gsize alone:
+// mode kSized; ids: the others; out_s alone: mode kRaw, with kk = 0; out_i
+// alone and slot_bits: mode kPacked). The caller has checked
+// pair_topk_mma_serves.
 template <PairMode M>
 int launch_pair_topk_mma(const void* gp, const void* gsize, const void* qg, const void* codes,
                          const void* norms, const void* ids, void* out_s, void* out_i, int Gn,

@@ -10,7 +10,9 @@ All four score in f32 with both norms summed in the kernel
           of each row are taken outside the kernel (the JAX package: XLA's
           approx_max_k), then `merge_groups`
   sized   kernel `sized_topk`: (score, slot) top-kk over the lanes below the
-          partition's size, no row past it read; slot -> id, `merge_groups`
+          partition's size, only the 128-row segments below it read (the
+          last one whole, its lanes past the size masked); slot -> id,
+          `merge_groups`
   packed  kernel K9 `packed_topk`: top-kk of one int32 per lane that packs a
           monotone key of the score's bit pattern above the lane; unpacked,
           merged per query by the key, and the k winners rescored exactly
@@ -18,13 +20,13 @@ All four score in f32 with both norms summed in the kernel
           id, ties to the smaller slot; slot -> id, `merge_groups`
 
 The kernels are CUDA (csrc/grouped_variants.cu); each wrapper runs its plain
-PyTorch version on CPU tensors and launches the kernel on CUDA tensors. K8,
-K9 and multi_topk multiply on the tensor cores (split TF32 operands, the
-body in csrc/pair_topk_mma.cuh) where D % 4 == 0 and the body's buffers fit
-(`raw_scores_body`, `packed_topk_body`, `multi_topk_body`), else in f32 on
-the CUDA cores; K8 and K9 compute their scores in one order on either body,
-so K9's output is the top kk of K8's scores, packed, where both run the same
-body.
+PyTorch version on CPU tensors and launches the kernel on CUDA tensors. All
+four multiply on the tensor cores (split TF32 operands, the body in
+csrc/pair_topk_mma.cuh) where D % 4 == 0 and the body's buffers fit
+(`raw_scores_body`, `sized_topk_body`, `packed_topk_body`,
+`multi_topk_body`), else in f32 on the CUDA cores; K8 and K9 compute their
+scores in one order on either body, so K9's output is the top kk of K8's
+scores, packed, where both run the same body.
 """
 
 from __future__ import annotations
@@ -97,7 +99,7 @@ def raw_scores_plain(gp, qg, codes, ids, metric: str, chunk: int = 64):
     return out
 
 
-MMA_BODY, CUDA_CORE_BODY = 1, 0  # the answers of raw_scores_body, packed_topk_body, multi_topk_body
+MMA_BODY, CUDA_CORE_BODY = 1, 0  # the answers of the *_body functions of this module
 
 
 def raw_scores_body(qt: int, D: int) -> int:
@@ -257,15 +259,34 @@ def sized_topk_plain(gp, group_size, qg, codes, kk: int, metric: str, ct: int = 
     return out_s, out_i
 
 
+def sized_topk_body(qt: int, D: int, kk: int) -> int:
+    """The body kernel sized_topk's launcher runs at this shape
+    (csrc/grouped_variants.cu::pair_body, asked of the built library):
+    MMA_BODY, the tensor-core body, where rows are 16-byte aligned for the
+    asynchronous copies (D % 4 == 0) and its ring, query tile and the rows'
+    lists of 3 kk (score, slot) pairs fit a block's shared memory; else
+    CUDA_CORE_BODY, one block a group on the CUDA cores."""
+    return int(_ext.lib().qk_sized_topk_body(qt, D, kk))
+
+
 def sized_topk(gp, group_size, qg, codes, kk: int, metric: str, ct: int = 256):
     """Kernel sized_topk (replaces pallas_grouped.py::_sized_kernel).
 
     gp [Gn] int32 partition per group (-1: ghost); group_size [Gn] int32
     valid-prefix length of that partition; qg [Gn, qt, D] f32; codes
     [P, C, D] f32. Per row the kk best (score, slot) over the lanes below
-    the size, scores with both norms summed in the kernel; rows at or past
-    the size are never read. Returns (scores [Gn, qt, kk] f32 descending,
-    -inf = none; slots [Gn, qt, kk] int32, -1 = none).
+    the size, scores with both norms summed in the kernel. Returns (scores
+    [Gn, qt, kk] f32 descending, -inf = none; slots [Gn, qt, kk] int32,
+    -1 = none).
+
+    The launcher picks one of two bodies by shape (`sized_topk_body`), never
+    after a failure: the tensor-core body (split TF32 product, asynchronous
+    copies, persistent blocks) loads the ceil(size / 128) segments that hold
+    a partition's vectors, the last one whole, and masks its lanes at or
+    past the size (the TPU kernel also copies whole ct-row tiles); the
+    CUDA-core body (round_up(kk, 32) + 128 candidates a row) reads no row at
+    or past the size. What those rows hold reaches no output. Shapes that
+    neither fits raise.
 
     ct is the TPU kernel's tile height, which the result does not depend on
     (except for the order among equal scores): the plain version merges tile
@@ -277,16 +298,19 @@ def sized_topk(gp, group_size, qg, codes, kk: int, metric: str, ct: int = 256):
         raise ValueError(f"sized_topk: ct must be positive (ct={ct})")
     if qg.device.type == "cpu":
         return sized_topk_plain(gp, group_size, qg, codes, kk, metric, ct)
+    body = sized_topk_body(qt, D, kk) if qg.device.type == "cuda" else CUDA_CORE_BODY
     _check("sized_topk", qg, qt,
            (("gp", gp, torch.int32, (Gn,)), ("group_size", group_size, torch.int32, (Gn,)),
             ("qg", qg, torch.float32, (Gn, qt, D)), ("codes", codes, torch.float32, (P, C, D))),
-           _base_floats(qt, D) + 2 * qt * topk_cap(kk),
+           0 if body == MMA_BODY else _base_floats(qt, D) + 2 * qt * topk_cap(kk),
            f"D={D}, qt={qt}, kk={kk} (round_up(kk, 32) + 128 (score, slot) pairs per row)")
+    if body == MMA_BODY:
+        _mma_aligned("sized_topk", qg, codes)
     out_s = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.float32)
     out_i = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.int32)
     rc = _ext.lib().qk_sized_topk(gp.data_ptr(), group_size.data_ptr(), qg.data_ptr(),
                                   codes.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), Gn, qt,
-                                  D, C, kk, int(metric == "l2"), _ext.stream_ptr(qg.device))
+                                  D, P, C, kk, int(metric == "l2"), _ext.stream_ptr(qg.device))
     _ext.check(rc, "sized_topk")
     _ext.launches["sized_topk"] += 1
     return out_s, out_i
@@ -305,10 +329,10 @@ def _slots_to_ids(ids, group_pid, g_scores, g_slots, C: int):
 def grouped_scan_sized(codes, ids, sizes, q, pids, k: int, metric: str, qt: int = 32,
                        ct: int = 256, stages=None):
     """The size-aware grouped scan (pallas_grouped.py::
-    grouped_scan_pallas_sized): kernel sized_topk reads only the valid prefix
-    of each probed partition. sizes [P] int32; the store must keep its
-    vectors in a compact prefix (slots below sizes[p]). Same other inputs
-    and returns as grouped_scan_approx."""
+    grouped_scan_pallas_sized): kernel sized_topk reads only the 128-row
+    segments that hold each probed partition's valid prefix. sizes [P]
+    int32; the store must keep its vectors in a compact prefix (slots below
+    sizes[p]). Same other inputs and returns as grouped_scan_approx."""
     P, C, _ = codes.shape
     kk = min(k, C)
     group_pid, qg, pair_group, pair_slot = _groups(q, pids, P, qt, codes.dtype)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device times of kernel bodies across shapes, on one card.
 
-    python3 scripts/body_times.py [k2] [k3] [k1] [k7] [multi] [k5] [k6] [k8] [k9]
+    python3 scripts/body_times.py [k2] [k3] [k1] [k7] [multi] [k5] [k6] [k8] [k9] [sized]
 
 Run from the root of a checkout with a CUDA card: the package and
 chip_smoke.py are imported from the current directory, so the same script
@@ -34,6 +34,8 @@ checkout's kernels at the same shapes. With no argument every section runs.
   store, ids below the sizes (a [2048, 64, 7680] f32 output, 4.0 GB), at
   D = 128 (the tensor-core body) and 127 (the CUDA-core body) as for k5.
 - k9: K9 (packed_topk, the packed scan's kernel) on the same, kk = 10.
+- sized: sized_topk (the sized scan's kernel) on the same groups and store,
+  kk = 10, the lanes below the sizes, at D = 128 and 127 as for k5.
 
 Times come from chip_smoke.py's time_ms. Where the checkout's package names
 the body a shape takes, the line says which. A shape the build does not
@@ -66,8 +68,9 @@ K1_P, K1_C, K1_GROUPS, K1_QT, K1_KK = 256, 1024, 2048, 64, 10
 # 7680 is divisible by every chunk height), the main path's qt and kk.
 SCAN_P, SCAN_C, SCAN_D, SCAN_GROUPS, SCAN_QT, SCAN_KK = 256, 7680, 128, 2048, 64, 10
 K7_CTS, MULTI_GBS = (128, 256, 512), (1, 8)
-BODY_DEPTHS = (SCAN_D, SCAN_D - 1)  # K5, K6, K8, K9: the tensor-core body, the CUDA-core one
-SECTIONS = ("k2", "k3", "k1", "k7", "multi", "k5", "k6", "k8", "k9")
+BODY_DEPTHS = (SCAN_D, SCAN_D - 1)  # K5, K6, K8, K9, sized: tensor-core body, CUDA-core one
+SECTIONS = ("k2", "k3", "k1", "k7", "multi", "k5", "k6", "k8", "k9", "sized")
+BODY_SECTIONS = {"k5", "k6", "k8", "k9", "sized"}
 
 
 def body_of(module, name: str, *shape) -> str:
@@ -157,8 +160,8 @@ def time_multi(dev, codes, sizes, gp, qg):
 
 
 def time_bodies(dev, sections, codes, sizes, gp, qg):
-    """K5, K6, K8 and K9 on their tensor-core body (D = 128) and their
-    CUDA-core body (D = 127), whichever sections ask for."""
+    """K5, K6, K8, K9 and sized_topk on their tensor-core body (D = 128)
+    and their CUDA-core body (D = 127), whichever sections ask for."""
     gsize = sizes[gp.long()].contiguous()
     lane = torch.arange(SCAN_C, device=dev)[None, :]
     ids = torch.where(lane < sizes[:, None],
@@ -185,6 +188,12 @@ def time_bodies(dev, sections, codes, sizes, gp, qg):
             ms = chip_smoke.time_ms(torch, fn, reps=5)
             print(f"K9 {shape}"
                   f"{body_of(grouped_variants, 'packed_topk_body', SCAN_QT, D, SCAN_KK)}: "
+                  f"{ms:.4f} ms", flush=True)
+        if "sized" in sections:
+            fn = lambda: grouped_variants.sized_topk(gp, gsize, qd, cd, SCAN_KK, "l2")  # noqa: E731
+            ms = chip_smoke.time_ms(torch, fn, reps=5)
+            print(f"sized_topk {shape}"
+                  f"{body_of(grouped_variants, 'sized_topk_body', SCAN_QT, D, SCAN_KK)}: "
                   f"{ms:.4f} ms", flush=True)
         if "k6" in sections:
             for mode, kw in (("slot", dict(group_size=gsize, norms=nd)), ("id", dict(ids=ids))):
@@ -215,13 +224,13 @@ def main(argv) -> int:
         time_k3(dev, rng)
     if "k1" in sections:
         time_k1(dev, rng)
-    if {"k7", "multi", "k5", "k6", "k8", "k9"} & set(sections):
+    if ({"k7", "multi"} | BODY_SECTIONS) & set(sections):
         codes, norms, sizes, gp, qg = scan_store(dev, np.random.default_rng(1))
         if "k7" in sections:
             time_k7(dev, codes, norms, sizes, gp, qg)
         if "multi" in sections:
             time_multi(dev, codes, sizes, gp, qg)
-        if {"k5", "k6", "k8", "k9"} & set(sections):
+        if BODY_SECTIONS & set(sections):
             time_bodies(dev, sections, codes, sizes, gp, qg)
     print(chip_smoke.card_line())
     return 0

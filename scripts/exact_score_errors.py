@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""The scores of K6 and K8, of their f32 plain versions and of their plain
-versions on the split product's model, each against a float64 reference,
-at the v3, v2 and approx paths' inputs, on one card.
+"""The scores of K6, K8 and sized_topk, of their f32 plain versions and of
+their plain versions on the split product's model, each against a float64
+reference, at the v3, v2, approx and sized paths' inputs, on one card.
 
-    python3 scripts/exact_score_errors.py [k6] [k8]
+    python3 scripts/exact_score_errors.py [k6] [k8] [sized]
 
 Builds chip_smoke.py's main index (1,000,000 x 128 manifold, nlist=160),
 groups the first B=16384 queries' nprobe-9 probe lists as the v3, v2 and
@@ -13,11 +13,14 @@ model, and scores every winner of each again in float64 (the same f32
 inputs; mode slot with the store's f32 norms). k8: runs K8 (raw_scores), its
 f32 plain version and that on the model, 64 groups at a time, against
 2 <q, x> - |q|^2 - |x|^2 in float64 at every lane that holds a vector.
-Prints, per kernel, mode and side, the largest absolute error, the largest
+sized: runs sized_topk, its f32 plain version and that on the model at the
+sized path's inputs (kk = 10, ct = 256), and scores every winner again in
+float64 (2 <q, x> - |q|^2 - |x|^2, the norms summed in float64: the kernel
+sums both itself). Prints, per kernel, mode and side, the largest absolute error, the largest
 error over chip_smoke.py's score tolerance (rtol = atol = SCORE_TOL) with
 the float64 score where it falls, the share of scores beyond the tolerance,
 and the mean absolute error; then the card's name and power limit. With no
-argument both run. The package and chip_smoke.py are imported from the
+argument all run. The package and chip_smoke.py are imported from the
 current directory, so run from the root of another checkout it measures
 that checkout's kernels and model.
 """
@@ -37,12 +40,14 @@ from quake_tpu_torch import IndexBuildParams, QuakeIndex  # noqa: E402
 from quake_tpu_torch.coordinator import rank_parents  # noqa: E402
 from quake_tpu_torch.ops.grouped import build_groups  # noqa: E402
 from quake_tpu_torch.ops.grouped_exact import exact_scan, exact_scan_plain  # noqa: E402
-from quake_tpu_torch.ops.grouped_variants import raw_scores, raw_scores_plain  # noqa: E402
+from quake_tpu_torch.ops.grouped_variants import (raw_scores, raw_scores_plain,  # noqa: E402
+                                                  sized_topk, sized_topk_plain)
 from quake_tpu_torch.ops.split_product import bmm_as_split_product  # noqa: E402
 
 NPROBE, QT, KK = 9, 64, 10
 K8_CHUNK = 64  # groups a step of the k8 section
-SECTIONS = ("k6", "k8")
+SECTIONS = ("k6", "k8", "sized")
+SIZED_CT = cs.SIZED_CT
 
 
 class Errors:
@@ -122,6 +127,26 @@ def k6_errors(gpid, qg, gsize, st):
             print(e.line(f"K6 mode {mode}, {name}"), flush=True)
 
 
+def sized_errors(gpid, qg, gsize, st):
+    """sized_topk, its f32 plain version and that on the model, at every
+    winner (a slot below the size), against float64."""
+    P, C, D = st.codes.shape
+    codes2 = st.codes.reshape(P * C, D)
+    sides = {"kernel": sized_topk(gpid, gsize, qg, st.codes, KK, "l2", ct=SIZED_CT),
+             "f32 plain": sized_topk_plain(gpid, gsize, qg, st.codes, KK, "l2", ct=SIZED_CT)}
+    with bmm_as_split_product():
+        sides["split model"] = sized_topk_plain(gpid, gsize, qg, st.codes, KK, "l2", ct=SIZED_CT)
+    for name, (s, i) in sides.items():
+        won = i >= 0
+        g, r, _ = torch.nonzero(won, as_tuple=True)
+        row = gpid[g].long() * C + i[won].long()
+        xv, qv = codes2[row].double(), qg[g, r].double()
+        s64 = 2.0 * (xv * qv).sum(-1) - (qv * qv).sum(-1) - (xv * xv).sum(-1)
+        e = Errors()
+        e.add(s[won], s64)
+        print(e.line(f"sized_topk, {name}"), flush=True)
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("exact_score_errors: no CUDA device", file=sys.stderr)
@@ -150,6 +175,8 @@ def main(argv) -> int:
         k8_errors(gpid, qg, st)
     if "k6" in sections:
         k6_errors(gpid, qg, gsize, st)
+    if "sized" in sections:
+        sized_errors(gpid, qg, gsize, st)
     print(cs.card_line())
     return 0
 

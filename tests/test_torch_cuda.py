@@ -23,11 +23,11 @@ the top kk of K8's own scores, packed: K8 and K9 compute the same f32 scores
 on the same body. Where K9 keeps its CUDA-core body (its lists crowd out the
 tensor-core ring) and K8 runs the tensor cores, K9 is held to K8 run with
 the depth padded by a zero column (D % 4 != 0: K8's CUDA-core body, the same
-sums plus zero terms). K1, K4 and K5 on whole partitions, K6-K9 and
-multi_topk multiply on the tensor cores with split TF32 operands where
+sums plus zero terms). K1, K4 and K5 on whole partitions, K6-K9, sized_topk
+and multi_topk multiply on the tensor cores with split TF32 operands where
 D % 4 == 0 and their tiles fit; they are held to their f32 plain versions
-at the same tolerances (K1 and K4-K9 also to the plain versions run on
-ops/split_product.py's model of that product). K4 with a chunk table
+at the same tolerances (K1, K4-K9 and sized_topk also to the plain
+versions run on ops/split_product.py's model of that product). K4 with a chunk table
 multiplies in f32 on the CUDA cores.
 """
 
@@ -56,11 +56,14 @@ from quake_tpu_torch.ops.grouped_scan import (grouped_scan_kernel, grouped_scan_
 from quake_tpu_torch.ops.split_product import bmm_as_split_product
 from quake_tpu_torch.ops.grouped_variants import CUDA_CORE_BODY as MULTI_CUDA_CORE_BODY
 from quake_tpu_torch.ops.grouped_variants import MMA_BODY as MULTI_MMA_BODY
-from quake_tpu_torch.ops.grouped_variants import (multi_topk, multi_topk_body, multi_topk_plain,
+from quake_tpu_torch.ops.grouped_variants import (grouped_scan_multi, grouped_scan_sized,
+                                                  multi_topk, multi_topk_body, multi_topk_plain,
                                                   pack_scores, packed_topk, packed_topk_body,
                                                   packed_topk_plain, raw_scores, raw_scores_body,
-                                                  raw_scores_plain, sized_topk, sized_topk_plain,
-                                                  slot_bits_of)
+                                                  raw_scores_plain, sized_topk, sized_topk_body,
+                                                  sized_topk_plain, slot_bits_of)
+from quake_tpu_torch.ops.grouped_family import grouped_scan_v8
+from quake_tpu_torch.storage.store import PartitionStore
 
 pytestmark = pytest.mark.cuda
 
@@ -442,7 +445,8 @@ def test_packed_topk_kernel_matches_plain(dev, C, qt, kk, metric):
 @pytest.mark.parametrize("C,ct", [(200, 64), (384, 256), (512, 128)])
 def test_sized_topk_kernel_matches_plain(dev, C, ct, qt, kk, metric):
     """sized_topk: tile heights that do and do not divide C, poisoned rows
-    past the size (never read), kk = 1 and the largest kk that fits."""
+    past the size (reaching no output), kk = 1 and the largest kk that
+    fits."""
     rng = np.random.default_rng(C + qt + kk)
     codes, _, gp, gsize = _variant_store(dev, rng, C, kk)
     lane = torch.arange(C, device=dev)[None, :, None]
@@ -1459,3 +1463,188 @@ def test_raw_scores_and_packed_topk_count_their_launches(dev):
         packed_topk_plain(gp, qg, codes, ids, 4, "ip")
     torch.cuda.synchronize()
     assert _ext.launches["raw_scores"] == 2 and _ext.launches["packed_topk"] == 2
+
+
+# ------------------------------------------- sized_topk on the tensor cores
+
+
+def _largest_sized_mma_kk(qt, D, C):
+    """The largest kk <= C that sized_topk's tensor-core body takes at (qt, D)."""
+    kk = C
+    while kk > 1 and sized_topk_body(qt, D, kk) != MULTI_MMA_BODY:
+        kk -= 1
+    return kk
+
+
+_POISONS = (999.0, float("inf"), float("nan"))
+
+
+def _sized_case(dev, rng, C, qt, D, Gn=60):
+    """Partitions of 0, 1, 127, 128, 129, 256, 300 and C rows, every row
+    past a size poisoned with 999, +inf or NaN (the segment that holds the
+    size-th row is loaded whole); the last partition full, so that its last
+    segment reaches past the end of the tensor map where C % 128 != 0; copies
+    of one vector in the full partition; ghost groups (pid -1, and a live pid
+    of size 0); more groups than blocks."""
+    sizes_l = [0, 1, 127, 128, 129, 256, 300, C]
+    P = len(sizes_l)
+    codes = torch.from_numpy(rng.standard_normal((P, C, D)).astype(np.float32)).to(dev)
+    codes[P - 1, 3::7] = codes[P - 1, 3]
+    for p, size in enumerate(sizes_l):
+        codes[p, size:] = _POISONS[p % 3]
+    sizes = torch.tensor(sizes_l, dtype=torch.int32, device=dev)
+    gp = torch.from_numpy(rng.integers(-1, P, Gn).astype(np.int32)).to(dev)
+    gp[:P] = torch.arange(P, dtype=torch.int32)
+    gsize = torch.where(gp >= 0, sizes[gp.clamp(min=0).long()], torch.zeros_like(gp)).contiguous()
+    qg = torch.from_numpy(rng.standard_normal((Gn, qt, D)).astype(np.float32)).to(dev)
+    qg[P - 1, 0] = codes[P - 1, 3] * 3.0  # the copies are this row's best
+    return gp, gsize, qg, codes
+
+
+def _sized_agree(gp, gsize, qg, codes, kk, metric, models=(False, True)):
+    """sized_topk against its plain version (f32, and on the split product's
+    model): ghosts (-inf, -1), finite scores at slots below the size alone,
+    pairs rank by rank, equal scores by the larger slot."""
+    got_s, got_i = sized_topk(gp, gsize, qg, codes, kk, metric)
+    torch.cuda.synchronize()
+    ghost = (gp < 0) | (gsize <= 0)
+    assert torch.isneginf(got_s[ghost]).all() and (got_i[ghost] == -1).all()
+    assert torch.isfinite(got_s[got_i >= 0]).all()
+    assert (got_i < gsize[:, None, None]).all()
+    for model in models:
+        with bmm_as_split_product() if model else contextlib.nullcontext():
+            want_s, want_i = sized_topk_plain(gp, gsize, qg, codes, kk, metric)
+        _pairs_match(got_s, got_i, want_s, want_i, 1e-4)
+    tied = torch.diff(got_s, dim=2) == 0
+    assert (torch.diff(got_i, dim=2)[tied & (got_i[:, :, 1:] >= 0)] < 0).all()
+    return got_s, got_i
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("kk", [1, 10, 40, "largest"])
+@pytest.mark.parametrize("D", [24, 100, 128, 256])
+@pytest.mark.parametrize("qt", [8, 16, 32, 64])
+def test_sized_topk_tensor_core_tiles(dev, qt, D, kk, metric):
+    """sized_topk's tensor-core body (mode kSized): sizes 0, 1, 127, 128, 129
+    and C (520: no segment divides it) with poisoned rows past them, D in one
+    ring stage (24, 100, 128) and in depth chunks (256), kk 1, 10, 40 and the
+    largest its lists hold; against the f32 plain version and the plain
+    version on the split product's model, ties by the larger slot."""
+    C = 520
+    kk = _largest_sized_mma_kk(qt, D, C) if kk == "largest" else kk
+    assert sized_topk_body(qt, D, kk) == MULTI_MMA_BODY
+    rng = np.random.default_rng(qt + D + kk + 9)
+    got_s, _ = _sized_agree(*_sized_case(dev, rng, C, qt, D), kk, metric)
+    if kk > 1:
+        assert bool((torch.diff(got_s[7, 0, :min(kk, 74)]) == 0).all())  # the copies tie
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("qt", [8, 64])
+def test_sized_topk_segment_reaches_the_end_of_the_tensor_map(dev, qt, metric):
+    """C = 200: the last partition's second segment reads 56 rows past the
+    end of the slabs (the tensor map fills them with zeros) and every other
+    partition's reads the next one's rows; none of them is at a lane below
+    the size."""
+    assert sized_topk_body(qt, 32, 10) == MULTI_MMA_BODY
+    rng = np.random.default_rng(qt + 4)
+    P, C, D, Gn = 4, 200, 32, 12
+    codes = torch.from_numpy(rng.standard_normal((P, C, D)).astype(np.float32)).to(dev)
+    codes[1:, :56] = 20.0  # what a read past a partition's own rows would rank first
+    gp = torch.tensor([0, 1, 2, 3] * 3, dtype=torch.int32, device=dev)
+    gsize = torch.tensor([C, 150, C, C] * 3, dtype=torch.int32, device=dev)
+    qg = torch.from_numpy(rng.standard_normal((Gn, qt, D)).astype(np.float32)).to(dev)
+    qg[:, :2] = 1.0
+    _sized_agree(gp, gsize, qg, codes, 10, metric)
+
+
+@pytest.mark.parametrize("qt,D,kk,body", [
+    (64, 128, 10, MULTI_MMA_BODY), (64, 128, 82, MULTI_MMA_BODY),
+    (64, 128, 83, MULTI_CUDA_CORE_BODY), (64, 128, 128, MULTI_CUDA_CORE_BODY),
+    (64, 32, 98, MULTI_MMA_BODY), (64, 32, 99, MULTI_CUDA_CORE_BODY),
+    (32, 768, 10, MULTI_MMA_BODY), (64, 768, 10, MULTI_CUDA_CORE_BODY),
+    (64, 130, 10, MULTI_CUDA_CORE_BODY), (16, 13, 10, MULTI_CUDA_CORE_BODY),
+])
+def test_sized_topk_body_by_shape(dev, qt, D, kk, body):
+    """sized_topk's body by shape, that of multi_topk and K9 (one pair_body):
+    the tensor cores where D % 4 == 0 and the ring, the query tile and the
+    rows' lists fit."""
+    assert sized_topk_body(qt, D, kk) == body
+    assert sized_topk_body(qt, D, kk) == multi_topk_body(qt, D, kk) == packed_topk_body(qt, D, kk)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("qt,D,kk", [(64, 128, 83), (64, 128, 128), (16, 13, 10), (64, 130, 10)])
+def test_sized_topk_cuda_core_body_kept(dev, qt, D, kk, metric):
+    """Where the tensor-core body does not serve the shape, the CUDA-core
+    body runs it, the same function (kk = 128 at qt = 64, D = 128 is the
+    largest it holds)."""
+    assert sized_topk_body(qt, D, kk) == MULTI_CUDA_CORE_BODY
+    rng = np.random.default_rng(qt + D + kk)
+    _sized_agree(*_sized_case(dev, rng, 520, qt, D, Gn=24), kk, metric, models=(False,))
+
+
+def test_sized_topk_needs_16_byte_aligned_operands(dev):
+    """The tensor-core body's copies need qg and codes on 16-byte
+    boundaries: a tile that starts 4 bytes in raises."""
+    Gn, qt, D, C = 2, 8, 32, 128
+    assert sized_topk_body(qt, D, 4) == MULTI_MMA_BODY
+    buf = torch.zeros(Gn * qt * D + 1, device=dev)
+    gp = torch.zeros(Gn, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        sized_topk(gp, gp + C, buf[1:].view(Gn, qt, D), torch.zeros((1, C, D), device=dev), 4,
+                   "l2")
+
+
+def test_sized_topk_counts_its_launches(dev):
+    """One launch a call on either body; the plain version counts none."""
+    gp = torch.zeros(2, dtype=torch.int32, device=dev)
+    _ext.reset_launches()
+    for D in (16, 13):
+        qg, codes = torch.zeros((2, 8, D), device=dev), torch.zeros((1, 128, D), device=dev)
+        sized_topk(gp, gp + 100, qg, codes, 4, "l2")
+        sized_topk_plain(gp, gp + 100, qg, codes, 4, "l2")
+    torch.cuda.synchronize()
+    assert _ext.launches["sized_topk"] == 2
+
+
+def test_kernels_on_a_store_after_removal_and_growth(dev):
+    """Contract 7 (ROADMAP Queue 3): after removals (_remove_compact) and a
+    flood that grows C (_grow_capacity: new tensors), K1 (through v8, with
+    K2), sized_topk and multi_topk encode their tensor maps over the new
+    tensors and agree with the same scans on a CPU copy of the store (their
+    plain versions)."""
+    rng = np.random.default_rng(21)
+    n, D, nlist = 6000, 32, 8
+    x = rng.standard_normal((n, D)).astype(np.float32)
+    store = PartitionStore(D, dev)
+    store.init_from_assignments(x, np.arange(n), rng.standard_normal((nlist, D)),
+                                rng.integers(0, nlist, n))
+    store.remove(rng.choice(n, n // 3, replace=False))
+    C0 = store.C
+    flood = C0 + 50
+    store.append(np.full(flood, 3, np.int32),
+                 (x[:flood] + 0.01 * rng.standard_normal((flood, D))).astype(np.float32),
+                 np.arange(10_000, 10_000 + flood))
+    st = store.state
+    assert store.C == 2 * C0 and all(t.is_contiguous() and t.data_ptr() % 16 == 0
+                                     for t in (st.codes, st.ids, st.norms))
+    q = torch.from_numpy(rng.standard_normal((64, D)).astype(np.float32)).to(dev)
+    pids = torch.from_numpy(np.stack([rng.permutation(nlist)[:3] for _ in range(64)])
+                            .astype(np.int32)).to(dev)
+    pids[:, 0] = 3  # every query probes the grown partition
+    cpu = [t.cpu() for t in (st.codes, st.ids, st.sizes, st.norms, q, pids)]
+    scans = {"grouped_scan": lambda c, i, s, nr, qq, pp: grouped_scan_v8(c, i, s, nr, qq, pp, 10,
+                                                                         "l2", gpb=4),
+             "sized_topk": lambda c, i, s, nr, qq, pp: grouped_scan_sized(c, i, s, qq, pp, 10,
+                                                                          "l2", qt=16),
+             "multi_topk": lambda c, i, s, nr, qq, pp: grouped_scan_multi(c, i, qq, pp, 10, "l2",
+                                                                          qt=16, gb=4)}
+    for kernel, scan in scans.items():
+        _ext.reset_launches()
+        got_s, got_i, _ = scan(st.codes, st.ids, st.sizes, st.norms, q, pids)
+        torch.cuda.synchronize()
+        assert _ext.launches[kernel] == 1
+        want_s, want_i, _ = scan(*cpu)
+        assert _overlap(got_i.cpu(), want_i) >= 0.99
+        torch.testing.assert_close(got_s.cpu(), want_s, rtol=1e-4, atol=1e-4)
