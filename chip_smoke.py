@@ -86,22 +86,33 @@ Phases, each of which raises on failure (the script then exits non-zero):
              the body the launcher picked, which must be the tensor-core
              one), and the share of K1's time that its selection takes (K1
              against a build of its body without the selection).
-11. mutation — the store's mutation path on the main index, last, so that
-             every earlier phase sees the built store: 40% of the resident
-             ids removed (seeded), then 200,000 fresh manifold vectors
-             (seed 13, ids from 1,000,000) appended to their nearest active
-             centroid and a flood of jittered copies of one partition's
-             centroid that pushes it past C, so that C doubles (7552 ->
-             15104, new tensors). Removal and appends are timed on the host
-             clock (vectors/s). On the reduced and on the grown store:
+11. mutation — the mutation path on the main index, last, so that every
+             earlier phase sees the built store, on the native id map (the
+             phase fails on another): through the store, 40% of the
+             resident ids removed (seeded), then 200,000 fresh manifold
+             vectors (seed 13, ids from 1,000,000) appended to their nearest
+             active centroid. Then through QuakeIndex, while C is still
+             7552: a flood of tight copies of the largest partition's
+             centroid (0.1 of its rms spread a coordinate), sized by the
+             JAX package's rule to need 512 rows past both C and the split
+             cap, which the index splits instead of growing C; the flood
+             removed and 100,000 fresh vectors (seed 19, ids from 2,000,000)
+             added; a save and a load through a temporary directory (the
+             loaded arrays, free rows and generations equal the live ones
+             at both levels, its default search returns the same ids, K1-K3
+             pass their gates on it). Then, through the store, a flood of
+             jittered copies of the then largest partition's centroid that
+             pushes it past C, so that C doubles (7552 -> 15104, new
+             tensors). Removal, adds, appends, save and load are timed on
+             the host clock. On the reduced, the split and the grown store:
              contract 6 (ids >= 0 exactly below the sizes, norms equal to
              the codes' squared norms, the id map's count equal to the sizes'
              sum), then the default (K1, K2, K3), sized and multi paths at
              B=16384 (ms per batch, launches; recall@10 against an exact
              ground truth of the store's vectors, sized and multi within
              0.001 of the exact scan of the probed partitions), and K1, K2,
-             sized_topk and multi_topk against their plain versions at those
-             paths' inputs with the gates of phase 10.
+             K3, sized_topk and multi_topk against their plain versions at
+             those paths' inputs with the gates of phase 10.
 
 Progress goes to stderr. Standard output holds three lines: the JSON list
 of kernels, the card's name and power limit, and last
@@ -173,6 +184,13 @@ LATENCY = ((1, None), (8, None), (64, False))  # (queries, batched_scan) of the 
 # partition, and the seed of the removal's choice and the flood's jitter.
 MUTATION_REMOVE, MUTATION_APPEND, MUTATION_APPEND_SEED = 0.4, 200_000, 13
 MUTATION_FLOOD_OVER, MUTATION_SEED = 512, 17
+# Its index-level step: the flood's jitter (a share of its partition's rms
+# spread a coordinate), and the fresh vectors added through QuakeIndex.add
+# after the flood is removed (their make_manifold seed; their ids start at 2 N).
+MUTATION_JITTER, MUTATION_FRESH, MUTATION_FRESH_SEED = 0.1, 100_000, 19
+# The dict id map's removal rate on this phase (H100 80GB HBM3, 700 W), for
+# the log beside the native map's.
+DICT_REMOVE_RATE = "0.64-0.84 M vectors/s"
 FLAT_RECALL = 0.999
 F32_PEAK = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores (data sheet)
 TF32_PEAK = 495e12  # H100 SXM dense TF32 FLOP/s on the tensor cores (data sheet)
@@ -1916,14 +1934,11 @@ def mutated_searches(torch, dev, idx, queries, nprobe, what: str):
     truth of the store's vectors, beside the exact scan of the same probed
     partitions (the "reference" name); ms per B=16384 batch; each path's
     launches (zeroed just before it, read just after). Sized and multi are
-    held within CEILING_TOL of the exact scan, K1 and K2 to their plain
-    versions at the default path's inputs (compare_k1, compare_k2),
+    held within CEILING_TOL of the exact scan, K1, K2 and K3 to their plain
+    versions at the default path's inputs (main_kernel_gates),
     sized_topk and multi_topk at the direct paths' (compare_pairs)."""
     from quake_tpu_torch import SearchParams, _ext
     from quake_tpu_torch.ops import grouped_variants as gv
-    from quake_tpu_torch.ops.grouped_scan import (PLACEMENTS, grouped_scan_kernel,
-                                                  grouped_scan_plain, merge_positions,
-                                                  merge_positions_plain, sort_key_fits)
     from quake_tpu_torch.utils import compute_recall
 
     st = idx.store.state
@@ -1968,13 +1983,7 @@ def mutated_searches(torch, dev, idx, queries, nprobe, what: str):
 
     # The kernels against their plain versions at these paths' inputs.
     q, pids = batches[BATCH]
-    qt, inp, args = k1_args(idx, q, pids)
-    ov1, kd1 = compare_k1(torch, grouped_scan_kernel, grouped_scan_plain, *args)
-    placement = "sorted" if sort_key_fits(BATCH, inp["gp"].shape[0] * qt) else "argsort"
-    m_packed, _ = PLACEMENTS[placement](grouped_scan_kernel(*args), inp["tgt"],
-                                        inp["group_size"], pids)
-    compare_k2(torch, merge_positions, merge_positions_plain, m_packed,
-               min(K, m_packed.shape[1]), inp["slot_mult"])
+    gates = main_kernel_gates(torch, idx, q, pids, nprobe)
     C = st.codes.shape[1]
     gp, qg, gsize, _ = direct_groups(torch, st, q, pids)
     ov_s, err_s = compare_pairs(
@@ -1984,34 +1993,202 @@ def mutated_searches(torch, dev, idx, queries, nprobe, what: str):
         torch, f"multi_topk ({what})",
         multi_slots(gv.multi_topk(gp, qg, st.codes, st.ids, K, "l2", gb=MULTI_GB), C),
         multi_slots(gv.multi_topk_plain(gp, qg, st.codes, st.ids, K, "l2"), C), ties="up")
-    out["kernels"] = dict(k1_overlap=ov1, k1_max_key_diff=kd1, k2=f"equal ({placement})",
-                          sized_topk_overlap=ov_s, sized_topk_max_abs_err=err_s,
+    out["kernels"] = dict(gates, sized_topk_overlap=ov_s, sized_topk_max_abs_err=err_s,
                           multi_topk_overlap=ov_m, multi_topk_max_abs_err=err_m)
-    log(f"[mutation] {what} (C={C}, ntotal={idx.ntotal()}): exact scan of the probed partitions "
-        f"recall@10={ceiling:.4f}; "
+    log(f"[mutation] {what} ({card_line()}; C={C}, nlist={idx.nlist()}, ntotal={idx.ntotal()}): "
+        f"exact scan of the probed partitions recall@10={ceiling:.4f}; "
         + "; ".join(f"{n} {out[n]['ms']:.3f} ms/batch, recall@10={out[n]['recall']:.4f}, "
                     f"launches {out[n]['launches']}" for n, *_ in paths)
-        + f"; K1 overlap {ov1:.4f} (max key diff {kd1}), K2 equal ({placement}), sized_topk "
-        f"overlap {ov_s:.4f} (max score error {err_s:.3g}), multi_topk overlap {ov_m:.4f} (max "
-        f"score error {err_m:.3g})")
+        + f"; {gates_text(gates)}, sized_topk overlap {ov_s:.4f} (max score error {err_s:.3g}), "
+        f"multi_topk overlap {ov_m:.4f} (max score error {err_m:.3g})")
+    return out
+
+
+def main_kernel_gates(torch, idx, q, pids, nprobe):
+    """K1, K2 and K3 against their plain versions at the default path's
+    inputs on idx (the batch q, its probe lists pids), with phase 10's gates
+    (compare_k1, compare_k2, compare_k3)."""
+    from quake_tpu_torch.ops.flat_topk import flat_topk, flat_topk_plain, parent_bias
+    from quake_tpu_torch.ops.grouped_scan import (PLACEMENTS, grouped_scan_kernel,
+                                                  grouped_scan_plain, merge_positions,
+                                                  merge_positions_plain, sort_key_fits)
+
+    qt, inp, args = k1_args(idx, q, pids)
+    ov1, kd1 = compare_k1(torch, grouped_scan_kernel, grouped_scan_plain, *args)
+    placement = "sorted" if sort_key_fits(q.shape[0], inp["gp"].shape[0] * qt) else "argsort"
+    m_packed, _ = PLACEMENTS[placement](grouped_scan_kernel(*args), inp["tgt"],
+                                        inp["group_size"], pids)
+    compare_k2(torch, merge_positions, merge_positions_plain, m_packed,
+               min(K, m_packed.shape[1]), inp["slot_mult"])
+    pst = idx.parent.store.state
+    Pp, Cp, Dd = pst.codes.shape
+    ov3, kd3 = compare_k3(torch, flat_topk, flat_topk_plain, pst.codes.reshape(Pp * Cp, Dd),
+                          parent_bias(pst.ids, pst.norms, "l2"), q, nprobe, "l2")
+    return dict(k1_overlap=ov1, k1_max_key_diff=kd1, k2=f"equal ({placement})",
+                k3_overlap=ov3, k3_max_key_diff=kd3, k3_n=Pp * Cp)
+
+
+def gates_text(g) -> str:
+    return (f"K1 overlap {g['k1_overlap']:.4f} (max key diff {g['k1_max_key_diff']}), K2 "
+            f"{g['k2']}, K3 overlap {g['k3_overlap']:.4f} (max key diff {g['k3_max_key_diff']}, "
+            f"N={g['k3_n']})")
+
+
+def split_cap(ntotal: int, nlist: int) -> int:
+    """The need above which QuakeIndex.add splits an overflowing partition
+    instead of growing C: 1.5 x the mean partition after the insert, rounded
+    up to 256 (quake_tpu/index.py:1728-1731)."""
+    return max(256, -(-int(1.5 * ntotal / max(nlist, 1)) // 256) * 256)
+
+
+def same_store(torch, a, b, what: str) -> dict:
+    """The six arrays (norms within rtol 1e-6: the load recomputes them),
+    the free rows and the generations of two stores must agree."""
+    sa, sb = a.state, b.state
+    for f in ("codes", "ids", "sizes", "centroids", "active"):
+        if not torch.equal(getattr(sa, f), getattr(sb, f)):
+            raise AssertionError(f"{what}: {f} differs")
+    err = float(((sa.norms - sb.norms).abs() / sa.norms.abs().clamp(min=1e-30)).max())
+    if err > 1e-6:
+        raise AssertionError(f"{what}: norms differ by {err} (rtol 1e-6)")
+    if a.free_rows != b.free_rows or not np.array_equal(a.generation, b.generation):
+        raise AssertionError(f"{what}: the free rows or the generations differ")
+    return dict(norm_rel_err=err, norms_bitwise_diff=int((sa.norms != sb.norms).sum()))
+
+
+def phase_index_mutation(torch, dev, idx, queries, nprobe, rng, first_id: int):
+    """The index's mutation path at full width, while C is still the
+    build's: (1) a flood through QuakeIndex.add of tight jittered copies of
+    the largest partition's centroid (MUTATION_JITTER of its rms spread a
+    coordinate, every copy nearest that centroid; ids from first_id), sized
+    by the JAX package's rule to need MUTATION_FLOOD_OVER rows past both C
+    and the split cap, so that the index splits the partition and C stays;
+    validate(), one parent centroid per partition, contract 6 and the freed
+    row's generation; (2) mutated_searches on the split store; (3) the
+    flood removed and MUTATION_FRESH fresh vectors added through the index
+    (ids from 2 N); (4) save and load through a temporary directory: the
+    loaded arrays and bookkeeping equal the live index's at both levels, its
+    default search returns the same ids, and K1, K2 and K3 pass their gates
+    on it. Adds, removal, save and load are timed on the host clock after a
+    sync."""
+    from quake_tpu_torch import QuakeIndex, SearchParams, _ext
+
+    store = idx.store
+    C0, nlist0 = store.C, idx.nlist()
+    sizes = store.partition_sizes()
+    target = int(np.argmax(sizes))
+    size = int(sizes[target])
+    n_flood = 0
+    for _ in range(16):  # the cap counts the flood in its mean
+        cap = split_cap(idx.ntotal() + n_flood, nlist0)
+        n_flood, last = max(C0, cap) - size + MUTATION_FLOOD_OVER, n_flood
+        if n_flood == last:
+            break
+    cap = split_cap(idx.ntotal() + n_flood, nlist0)
+    if not size + n_flood > max(C0, cap):
+        raise AssertionError(f"the flood needs {size + n_flood} rows, not past C={C0} and the "
+                             f"split cap {cap}")
+    st = store.state
+    members = st.codes[target, :size]
+    spread = float((members - st.centroids[target]).pow(2).mean().sqrt())  # rms a coordinate
+    del members
+    flood = (st.centroids[target].cpu().numpy()
+             + MUTATION_JITTER * spread * rng.standard_normal((n_flood, D))).astype(np.float32)
+    if not (idx._assign_rows(flood) == target).all():
+        raise AssertionError(f"the flood's copies are not all nearest partition {target}")
+    flood_ids = np.arange(first_id, first_id + n_flood)
+    gen0 = int(store.generation[target])
+    out = dict(C_before=C0, nlist_before=nlist0, flood_partition=target, flood_vectors=n_flood,
+               partition_size=size, split_cap=cap)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    _, t = timed(lambda: idx.add(flood, flood_ids))
+    freed = target in store.free_rows
+    if store.C != C0 or idx.nlist() <= nlist0:
+        raise AssertionError(f"the flood was to split partition {target} with C={C0} held: C is "
+                             f"{store.C}, nlist {nlist0} -> {idx.nlist()}")
+    if int(store.generation[target]) != gen0 + (1 if freed else 2):
+        raise AssertionError(f"row {target}: generation {gen0} -> {store.generation[target]} "
+                             f"({'freed' if freed else 'reused'})")
+    if not idx.validate() or idx.parent.ntotal() != idx.nlist():
+        raise AssertionError("the split index does not validate")
+    out.update(add_s=t, add_per_s=n_flood / t, nlist_after=idx.nlist(),
+               split_into=idx.nlist() - nlist0 + 1, row=("freed" if freed else "reused"),
+               norm_err=check_contract_6(torch, store, "after the flood through the index"))
+    out["split"] = mutated_searches(torch, dev, idx, queries, nprobe, "split store")
+
+    _, t_rm = timed(lambda: idx.remove(flood_ids))
+    fresh = make_manifold(MUTATION_FRESH, D, 4096, seed=MUTATION_FRESH_SEED)
+    nlist1 = idx.nlist()
+    _, t_add = timed(lambda: idx.add(fresh, np.arange(2 * N, 2 * N + MUTATION_FRESH)))
+    if store.C != C0 or not idx.validate() or idx.parent.ntotal() != idx.nlist():
+        raise AssertionError(f"after the removal and the fresh add: C={store.C}, validate() "
+                             f"{idx.validate()}")
+    out.update(remove_s=t_rm, remove_per_s=n_flood / t_rm, fresh_s=t_add,
+               fresh_per_s=MUTATION_FRESH / t_add, fresh_splits=idx.nlist() - nlist1,
+               fresh_norm_err=check_contract_6(torch, store, "after the fresh add"))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "index")
+        _, t_save = timed(lambda: idx.save(path))
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, files in os.walk(path) for f in files)
+        loaded, t_load = timed(lambda: QuakeIndex().load(path))
+    out.update(save_s=t_save, load_s=t_load, saved_bytes=nbytes)
+    out["loaded"] = dict(index=same_store(torch, store, loaded.store, "the loaded index"),
+                         parent=same_store(torch, idx.parent.store, loaded.parent.store,
+                                           "the loaded parent"))
+    if check_contract_6(torch, loaded.store, "after the load") > 1e-6 or not loaded.validate():
+        raise AssertionError("the loaded index does not validate")
+    sp = SearchParams(k=K, nprobe=nprobe)
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    got = loaded.search(queries[:BATCH], sp).ids
+    torch.cuda.synchronize()
+    launches = dict(_ext.launches)
+    if any(launches[k] != 1 for k in MAIN_KERNELS):
+        raise AssertionError(f"the loaded index's default search: launches {launches}")
+    if not np.array_equal(got, idx.search(queries[:BATCH], sp).ids):
+        raise AssertionError("the loaded index's default search returns other ids")
+    q, pids = probe_batches(torch, dev, loaded, queries, nprobe)[BATCH]
+    out["loaded"]["gates"] = main_kernel_gates(torch, loaded, q, pids, nprobe)
+    del loaded, q, pids
+    torch.cuda.empty_cache()
     return out
 
 
 def phase_mutation(torch, dev, idx, queries, nprobe, full_ms):
-    """The store's mutation path at full width, on the main index, after
-    every other phase: remove a seeded MUTATION_REMOVE of the resident ids,
-    check contract 6 and search (mutated_searches); append MUTATION_APPEND
-    fresh vectors (make_manifold, seed MUTATION_APPEND_SEED, ids from N up)
-    to their nearest active centroid, then a flood of copies of one
-    partition's centroid, jittered by half that partition's spread, that
-    pushes it MUTATION_FLOOD_OVER rows past C, so that C doubles (new
-    tensors); check C, contract 6 and search again. Removal and appends are
+    """The mutation path at full width, on the main index, after every
+    other phase, on the native id map: remove a seeded MUTATION_REMOVE of
+    the resident ids through the store, check contract 6 and search
+    (mutated_searches); append MUTATION_APPEND fresh vectors (make_manifold,
+    seed MUTATION_APPEND_SEED, ids from N up) to their nearest active
+    centroid; then the index-level step (phase_index_mutation: a flood that
+    splits its partition with C held, searches on the split store, removal
+    and a fresh add through the index, save and load); then, through the
+    store, a flood of copies of the then largest partition's centroid,
+    jittered by half that partition's spread, that pushes it
+    MUTATION_FLOOD_OVER rows past C, so that C doubles (new tensors); check
+    C, contract 6 and search again. Store-level removal and appends are
     timed on the host clock after a sync. full_ms: the paths' batch ms on
     the full store, for the log."""
+    from quake_tpu_torch.native import NativeIdMap
+
+    card = card_line()
     store = idx.store
+    if not isinstance(store.id_map, NativeIdMap):
+        raise AssertionError(f"the index runs the {type(store.id_map).__name__} id map, not the "
+                             "native one")
     rng = np.random.default_rng(MUTATION_SEED)
-    out = dict(C_before=store.C, ntotal_before=store.ntotal())
-    gone = rng.choice(store.get_ids(), int(MUTATION_REMOVE * store.ntotal()), replace=False)
+    out = dict(C_before=store.C, ntotal_before=store.ntotal(), id_map=type(store.id_map).__name__)
+    gone = rng.choice(np.sort(store.get_ids()), int(MUTATION_REMOVE * store.ntotal()),
+                      replace=False)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     removed = store.remove(gone)
@@ -2031,7 +2208,37 @@ def phase_mutation(torch, dev, idx, queries, nprobe, full_ms):
     rows = active[torch.argmin((cents * cents).sum(1)[None, :] - 2.0 * (xd @ cents.T), dim=1)]
     rows = rows.cpu().numpy().astype(np.int32)
     del xd
-    sizes = store.partition_sizes() + np.bincount(rows, minlength=store.P)
+    times = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store.append(rows, x_new, np.arange(N, N + MUTATION_APPEND))
+    torch.cuda.synchronize()
+    times["append"] = time.perf_counter() - t0
+
+    out["index"] = phase_index_mutation(torch, dev, idx, queries, nprobe, rng,
+                                        N + MUTATION_APPEND)
+    ix = out["index"]
+    log(f"[mutation] index ({card}): id map {out['id_map']}; flood of {ix['flood_vectors']} "
+        f"through QuakeIndex.add into partition {ix['flood_partition']} (size "
+        f"{ix['partition_size']}, split cap {ix['split_cap']}): {ix['add_per_s']:,.0f} "
+        f"vectors/s ({ix['add_s']:.3f} s), split into {ix['split_into']} partitions, row "
+        f"{ix['row']}, C {ix['C_before']} -> {store.C}, nlist {ix['nlist_before']} -> "
+        f"{ix['nlist_after']}; remove the flood {ix['remove_per_s']:,.0f} vectors/s "
+        f"({ix['remove_s']:.3f} s); add {MUTATION_FRESH} fresh {ix['fresh_per_s']:,.0f} "
+        f"vectors/s ({ix['fresh_s']:.3f} s, {ix['fresh_splits']} splits); save "
+        f"{ix['saved_bytes'] / 1e9:.3f} GB in {ix['save_s']:.3f} s "
+        f"({ix['saved_bytes'] / 1e9 / ix['save_s']:.3f} GB/s), load {ix['load_s']:.3f} s "
+        f"({ix['saved_bytes'] / 1e9 / ix['load_s']:.3f} GB/s), arrays equal (norms "
+        f"{ix['loaded']['index']['norms_bitwise_diff']} not bitwise, rel err "
+        f"{ix['loaded']['index']['norm_rel_err']:.3g}), default search ids equal, loaded "
+        f"{gates_text(ix['loaded']['gates'])}; split store batch ms "
+        + "; ".join(f"{n} {ix['split'][n]['ms']:.3f} (recall@10 {ix['split'][n]['recall']:.4f})"
+                    for n in full_ms)
+        + f"; exact scan of the probed partitions {ix['split']['reference']['recall']:.4f}, v11 "
+        f"{ix['split']['reference']['recall'] - ix['split']['default']['recall']:.4f} below it")
+
+    st = store.state
+    sizes = store.partition_sizes()
     target = int(np.argmax(sizes))
     n_flood = store.C - int(sizes[target]) + MUTATION_FLOOD_OVER
     members = st.codes[target, :int(st.sizes[target])]
@@ -2039,15 +2246,12 @@ def phase_mutation(torch, dev, idx, queries, nprobe, full_ms):
     flood = (st.centroids[target].cpu().numpy()
              + 0.5 * spread * rng.standard_normal((n_flood, D))).astype(np.float32)
     del members
-    times = {}
-    for what, r, v, first in (("append", rows, x_new, N),
-                              ("flood", np.full(n_flood, target, np.int32), flood,
-                               N + MUTATION_APPEND)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        store.append(r, v, np.arange(first, first + len(r)))
-        torch.cuda.synchronize()
-        times[what] = time.perf_counter() - t0
+    first = N + MUTATION_APPEND + ix["flood_vectors"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store.append(np.full(n_flood, target, np.int32), flood, np.arange(first, first + n_flood))
+    torch.cuda.synchronize()
+    times["flood"] = time.perf_counter() - t0
     if store.C != 2 * out["C_before"]:
         raise AssertionError(f"the flood was to grow C from {out['C_before']} to "
                              f"{2 * out['C_before']}, C is {store.C}")
@@ -2062,16 +2266,19 @@ def phase_mutation(torch, dev, idx, queries, nprobe, full_ms):
                store_bytes=sum(t.numel() * t.element_size()
                                for t in (st.codes, st.ids, st.norms, st.sizes)))
     out["grown"] = mutated_searches(torch, dev, idx, queries, nprobe, "grown store")
-    log(f"[mutation] remove {removed} ids: {out['remove']['per_s']:,.0f} vectors/s "
-        f"({t_remove:.3f} s); append {MUTATION_APPEND}: {out['append']['per_s']:,.0f} vectors/s "
+    log(f"[mutation] store ({card}): id map {out['id_map']}; remove {removed} ids: "
+        f"{out['remove']['per_s']:,.0f} vectors/s ({t_remove:.3f} s; the dict map: "
+        f"{DICT_REMOVE_RATE}); append {MUTATION_APPEND}: {out['append']['per_s']:,.0f} vectors/s "
         f"({times['append']:.3f} s); flood of {n_flood} into partition {target}: "
         f"{out['flood']['per_s']:,.0f} vectors/s ({times['flood']:.3f} s); C {out['C_before']} -> "
-        f"{store.C} ({out['store_bytes'] / 1e9:.3f} GB); batch ms (full store / reduced / grown) "
+        f"{store.C} ({out['store_bytes'] / 1e9:.3f} GB); batch ms (full store / reduced / split / "
+        "grown) "
         + "; ".join(f"{n} {full_ms[n]:.3f} / {out['reduced'][n]['ms']:.3f} / "
-                    f"{out['grown'][n]['ms']:.3f}, recall@10 {out['reduced'][n]['recall']:.4f} / "
+                    f"{ix['split'][n]['ms']:.3f} / {out['grown'][n]['ms']:.3f}, recall@10 "
+                    f"{out['reduced'][n]['recall']:.4f} / {ix['split'][n]['recall']:.4f} / "
                     f"{out['grown'][n]['recall']:.4f}" for n in full_ms)
         + f"; exact scan of the probed partitions {out['reduced']['reference']['recall']:.4f} / "
-        f"{out['grown']['reference']['recall']:.4f}")
+        f"{ix['split']['reference']['recall']:.4f} / {out['grown']['reference']['recall']:.4f}")
     return out
 
 

@@ -7,7 +7,10 @@ batched path (grouped scan, pool merge, parent ranking), the four more of the
 grouped scans chosen by name through QUAKE_TPU_KERNEL and the four of the
 scans with entry points of their own (`ops/grouped_variants.py`) as
 hand-written CUDA kernels in `csrc/`, built with nvcc for sm_90a at first
-use. Entry points run on the card unless the caller
+use; `QuakeIndex.add`, `remove`, `modify`, `get`, `validate` and
+`split_partitions` with split-on-overflow, on the native id map
+(`native/idmap.cpp`, built with g++ at first use); `save` and `load` in the
+JAX package's format. Entry points run on the card unless the caller
 passes `device="cpu"`, where every kernel wrapper runs its plain PyTorch
 version. This package imports neither JAX nor quake_tpu.
 """

@@ -193,8 +193,8 @@ def group_scores(qg, slab, sids, metric: str, snorms=None):
     return torch.where((sids >= 0)[:, None, :], scores, torch.full_like(scores, NEG_INF))
 
 
-DEDUP_NOT_PORTED = ("dedup (spilled stores): ROADMAP Queue 1 item 8 (bf16, "
-                    "exact=False, spill/dedup)")
+DEDUP_NOT_PORTED = ("dedup (spilled stores) is not ported yet "
+                    "(ROADMAP Queue 1 item 6: spill and dedup)")
 
 
 def merge_groups(g_scores, g_ids, pair_group, pair_slot, pids, k: int, kk: int,

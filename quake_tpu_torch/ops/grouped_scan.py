@@ -84,8 +84,8 @@ def global_bounds(qf, norms, metric: str, bounds: str = "analytic"):
     "analytic" bounds of the main path are ported."""
     if bounds != "analytic":
         raise NotImplementedError(
-            f"bounds={bounds!r}: only 'analytic' is ported (ROADMAP Queue 1: "
-            "remaining grouped-scan options)")
+            f"bounds={bounds!r}: only 'analytic' is ported (ROADMAP Queue 1 item 10: "
+            "multi-level parents and bounds=\"sampled\")")
     maxq2 = torch.sum(qf * qf, dim=1).max()
     maxx2 = torch.clamp(norms.max(), min=1e-12)
     maxqx = torch.sqrt(maxq2) * torch.sqrt(maxx2)
@@ -460,8 +460,8 @@ def _placed_scan(name: str, codes, ids, sizes, norms, q, pids, k: int, metric: s
     if dedup:
         raise NotImplementedError(DEDUP_NOT_PORTED)
     if not exact:
-        raise NotImplementedError("exact=False (dequantized scores): ROADMAP "
-                                  "Queue 1 item 8 (bf16, exact=False, spill/dedup)")
+        raise NotImplementedError("exact=False (dequantized scores) is not ported yet "
+                                  "(ROADMAP Queue 1 item 4: exact_distances=False)")
     if merge != "pallas":
         raise NotImplementedError(f"merge={merge!r}: only the kernel merge is ported")
     if P >= 32768 or C > 65536:

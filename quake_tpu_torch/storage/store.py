@@ -307,14 +307,21 @@ class PartitionStore:
         centroid = np.mean(x, axis=0, keepdims=True, dtype=np.float64).astype(np.float32)
         self.init_from_assignments(x, vids, centroid, np.zeros(x.shape[0], dtype=np.int64))
 
-    def init_from_state(self, state: StoreState):
-        """Adopt existing store arrays (see quake_tpu_torch.convert); the
-        inactive rows become the free rows, highest first, and every
-        generation counter starts at 0."""
+    def init_from_state(self, state: StoreState, free_rows=None, generation=None,
+                        cap_multiple=None):
+        """Adopt existing store arrays (see quake_tpu_torch.convert and
+        QuakeIndex.load) with the host bookkeeping given. Where it is not:
+        the inactive rows become the free rows, highest first, every
+        generation counter starts at 0, and the capacity rounding is 128. The
+        id map is rebuilt from the slots."""
         self.state = state
-        active = state.active.cpu().numpy()
-        self.free_rows = [int(r) for r in np.flatnonzero(~active)][::-1]
-        self.generation = np.zeros(self.P, dtype=np.int64)
+        if free_rows is None:
+            free_rows = np.flatnonzero(~state.active.cpu().numpy())[::-1]
+        self.free_rows = [int(r) for r in free_rows]
+        self.generation = (np.zeros(self.P, dtype=np.int64) if generation is None
+                           else np.array(generation, dtype=np.int64))
+        if cap_multiple is not None:
+            self.cap_multiple = int(cap_multiple)
         ids = state.ids.cpu().numpy()
         rows = np.broadcast_to(np.arange(self.P, dtype=np.int32)[:, None], ids.shape)
         ok = ids >= 0

@@ -155,7 +155,7 @@ def test_merge_groups_matches_jax(k, kk):
     assert got[0].shape == (B, k) and got[1].dtype == torch.int32
     for w, g in zip(want, got):
         np.testing.assert_array_equal(np.asarray(w), g.numpy())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6: spill and dedup"):
         merge_groups(*(_t(a) for a in (g_scores, g_ids, pair_group, pair_slot, pids)), k, kk,
                      dedup=True)
 
@@ -397,7 +397,7 @@ def test_chunked_wrappers_guards(name):
     codes, ids, sizes, norms = (_t(a) for a in _store(2, 256, 4, seed=0, sizes=[256, 256]))
     with pytest.raises(ValueError, match=f"{name} needs C % ct == 0"):
         fn(codes, ids, sizes, norms, q, pids, 5, "l2", qt=8, ct=100)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6: spill and dedup"):
         fn(codes, ids, sizes, norms, q, pids, 5, "l2", qt=8, ct=128, dedup=True)
     for shape in ((32768, 128, 4), (2, 65664, 4)):
         with pytest.raises(ValueError, match=f"{name} packs"):
@@ -445,10 +445,10 @@ def test_dispatch_reaches_wrapper(monkeypatch, kernel, C, want, kw):
 
 
 @pytest.mark.parametrize("kernel,exc,match", [
-    ("v4", NotImplementedError, "Queue 1 item 8"),
-    ("v5c128g2", NotImplementedError, "Queue 1 item 8"),
-    ("v6c128", NotImplementedError, "Queue 1 item 8"),
-    ("xla", NotImplementedError, "Queue 1 item 8"),
+    ("v4", NotImplementedError, "Queue 1 item 6: spill and dedup"),
+    ("v5c128g2", NotImplementedError, "Queue 1 item 6: spill and dedup"),
+    ("v6c128", NotImplementedError, "Queue 1 item 6: spill and dedup"),
+    ("xla", NotImplementedError, "Queue 1 item 6: spill and dedup"),
     ("v2", ValueError, "does not support dedup"),
     ("v3", ValueError, "does not support dedup"),
 ])

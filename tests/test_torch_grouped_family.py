@@ -223,7 +223,7 @@ def test_wrappers_dedup_not_ported(name):
     codes, ids, sizes, norms = _store(2, 128, 4, seed=0, sizes=[128, 128])
     args = [_t(a) for a in (codes, ids, sizes, norms)] + [torch.zeros((16, 4)),
                                                           torch.zeros((16, 2), dtype=torch.int32)]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6: spill and dedup"):
         getattr(grouped_family, f"grouped_scan_{name}")(*args, 5, "l2", qt=8, dedup=True)
 
 
@@ -280,9 +280,9 @@ def test_dispatch_unported_names_raise(kernel, match):
     ("v2", True, True, ValueError, "does not support dedup"),
     ("v3", True, True, ValueError, "does not support dedup"),
     ("v3p", True, True, ValueError, "does not support dedup"),
-    ("v3p4", True, True, NotImplementedError, "Queue 1 item 8"),
-    ("v10", True, True, NotImplementedError, "Queue 1 item 8"),
-    ("v11", False, True, NotImplementedError, "Queue 1 item 8"),
+    ("v3p4", True, True, NotImplementedError, "Queue 1 item 6: spill and dedup"),
+    ("v10", True, True, NotImplementedError, "Queue 1 item 6: spill and dedup"),
+    ("v11", False, True, NotImplementedError, "Queue 1 item 6: spill and dedup"),
 ])
 def test_dispatch_guards(kernel, dense, dedup, exc, match):
     codes, ids, sizes, norms = _store(2, 128, 8, seed=0, sizes=[128, 128])

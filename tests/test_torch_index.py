@@ -221,14 +221,55 @@ def _small_index(**kw):
     return idx, x
 
 
-@pytest.mark.parametrize("kw", [
-    dict(precision="bf16"), dict(spill=True), dict(num_shards=2), dict(num_workers=2),
-    dict(profile_maintenance_latency=True),
-    dict(parent_params=IndexBuildParams(nlist=4)),
+@pytest.mark.parametrize("kw,match", [
+    (dict(precision="bf16"), "ROADMAP Queue 1 item 5: bf16 codes"),
+    (dict(spill=True), "ROADMAP Queue 1 item 6: spill and dedup"),
+    (dict(num_shards=2), "ROADMAP Queue 1 item 11: parallel"),
+    (dict(profile_maintenance_latency=True), "ROADMAP Queue 1 item 8: maintenance"),
+    (dict(parent_params=IndexBuildParams(nlist=4)), "ROADMAP Queue 1 item 10: multi-level"),
 ])
-def test_build_guards(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_build_guards(kw, match):
+    """Each guard names the ROADMAP item that lifts it, by number and title
+    (ROADMAP Queue 3 fault 7)."""
+    with pytest.raises(NotImplementedError, match=match):
         _small_index(**kw)
+
+
+def test_num_workers_builds_plain_on_one_device(monkeypatch):
+    """ROADMAP Queue 3 fault 8: as in the JAX package, num_workers > 1
+    shards only where there are that many devices; a CPU index counts as
+    one, so it builds plain and searches as num_workers=0 does. A CUDA index
+    with as many CUDA devices raises (sharding is not ported)."""
+    idx2, x = _small_index(num_workers=2)
+    idx0, _ = _small_index()
+    sp = SearchParams(k=5, nprobe=3)
+    for nq in (32, 4):
+        a, b = idx2.search(x[:nq], sp), idx0.search(x[:nq], sp)
+        np.testing.assert_array_equal(a.ids, b.ids)
+        np.testing.assert_array_equal(a.distances, b.distances)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11: parallel"):
+        QuakeIndex(device="cuda").build(x, None, IndexBuildParams(nlist=8, num_workers=2,
+                                                                  calibrate_aps=False))
+
+
+def test_guard_messages_cite_current_items():
+    """The search and scan guards name their ROADMAP items (fault 7)."""
+    from quake_tpu_torch.ops.grouped_scan import global_bounds, grouped_scan_v11
+
+    idx, x = _small_index()
+    for sp, match in ((SearchParams(k=5, recall_target=0.9), "item 7: APS"),
+                      (SearchParams(k=5, exact_distances=False),
+                       "item 4: exact_distances=False")):
+        with pytest.raises(NotImplementedError, match=match):
+            idx.search(x[:32], sp)
+    q = torch.from_numpy(x[:16])
+    with pytest.raises(NotImplementedError, match="item 10: multi-level parents"):
+        global_bounds(q, idx.store.state.norms, "l2", bounds="sampled")
+    st = idx.store.state
+    with pytest.raises(NotImplementedError, match="item 4: exact_distances=False"):
+        grouped_scan_v11(st.codes, st.ids, st.sizes, st.norms, q,
+                         torch.zeros((16, 2), dtype=torch.int32), 5, "l2", exact=False)
 
 
 def test_calibrate_aps_guard():
@@ -297,8 +338,11 @@ def test_imports_without_jax():
         bad = [m for m in sys.modules if m == "quake_tpu" or m.startswith("quake_tpu.")
                or m == "jax" and sys.modules[m] is not None]
         assert not bad, bad
+        from quake_tpu_torch.native import idmap
+        assert idmap._lib is None  # nothing is built at import
         for m in ("coordinator", "ops.grouped", "ops.grouped_family", "ops.grouped_scan",
-                  "ops.grouped_exact", "ops.grouped_chunked", "ops.grouped_variants"):
+                  "ops.grouped_exact", "ops.grouped_chunked", "ops.grouped_variants",
+                  "native", "native.idmap"):
             assert "quake_tpu_torch." + m in sys.modules, m
         print("ok")
     """)
