@@ -27,7 +27,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
              chunk tables of ct 128 and 256 and all of them at D = 30 (the
              CUDA-core bodies) against the f32 plain versions.
              K9 is also held equal to the top kk of K8's scores, packed, in
-             the arithmetic of the body K9 ran (k8_as_k9).
+             the arithmetic of the body K9 ran (k8_as_k9). K1 on bf16 codes
+             (its bf16 bodies) against its plain version (bf16 operands
+             upcast, multiplied in f32) at D = 128 and 768 (tensor cores,
+             768 in depth chunks) and D = 100 (D % 8 != 0: the CUDA-core
+             body), each asserting the body.
 4. main    — the fixed-nprobe main path at full width: a 1,000,000 x 128
              synthetic-manifold corpus (seed 1), nlist=160, niter=25, l2, f32
              codes, built and searched through QuakeIndex. Recall@10 on 1024
@@ -86,7 +90,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
              the body the launcher picked, which must be the tensor-core
              one), and the share of K1's time that its selection takes (K1
              against a build of its body without the selection).
-11. mutation — the mutation path on the main index, last, so that every
+11. headline bf16 — bench.py's headline serving mode: the same corpus
+             built through QuakeIndex with precision="bf16" (bf16 codes,
+             the f32 parent: K1's bf16 body, K2, K3), the smallest nprobe
+             of the grid reaching recall@10 0.90 with exact_distances=False
+             (dequantized scores) on the 1024 queries against the exact
+             ground truth over the f32 vectors; B=16384 and B=4096 batches
+             timed with CUDA events and stage marks, beside the f32 index's
+             exact_distances=False and the bf16 index's exact search at the
+             same nprobe; the launch counts zeroed just before the headline
+             path's run and read just after (K1 bf16, K2, K3 must launch,
+             the f32 K1 must not); K1's bf16 body against its plain version
+             at the headline shapes (overlap >= 0.99, common keys within
+             one level; the launcher must pick the tensor-core body), with
+             its time and bound (2 bytes an element, bf16 tensor-core peak);
+             a save and a load of the bf16 index (codes equal bit for bit,
+             the checkpoint about half the f32 one's, search ids equal).
+12. mutation — the mutation path on the main index, last, so that every
              earlier phase sees the built store, on the native id map (the
              phase fails on another): through the store, 40% of the
              resident ids removed (seeded), then 200,000 fresh manifold
@@ -174,6 +194,9 @@ PLACEMENT_KNOB = {"QUAKE_TPU_V11_PLACEMENT": "argsort"}
 WIDE_N, WIDE_D, WIDE_NLIST, WIDE_B, WIDE_NPROBE = 65_536, 768, 64, 1024, 8
 K3_WIDE_N = 16_384  # K3's second shape: that many corpus rows as the buffer
 MAIN_KERNELS = ("grouped_scan", "merge_positions", "flat_topk")
+# The headline bf16 path: K1's bf16 body, K2, and K3 on the f32 parent.
+BF16_MAIN_KERNELS = ("grouped_scan_bf16", "merge_positions", "flat_topk")
+BF16_CHECKPOINT_RATIO = 0.55  # a bf16 checkpoint's bytes / the f32 one's: codes halve
 # Direct path -> (its kernel, the recall it is held to, timed batches).
 DIRECT = (("approx", "raw_scores", "ceiling", 3), ("sized", "sized_topk", "ceiling", 5),
           ("packed", "packed_topk", "exact", 5), ("multi", "multi_topk", "ceiling", 5))
@@ -194,15 +217,19 @@ DICT_REMOVE_RATE = "0.64-0.84 M vectors/s"
 FLAT_RECALL = 0.999
 F32_PEAK = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores (data sheet)
 TF32_PEAK = 495e12  # H100 SXM dense TF32 FLOP/s on the tensor cores (data sheet)
+BF16_PEAK = 989e12  # H100 SXM dense bf16 FLOP/s on the tensor cores (data sheet)
 # Unit a kernel's product runs on -> (its operations per f32 flop of the
-# function, its peak). The tensor-core bodies take three TF32 products per f32 one.
-UNITS = {"f32 CUDA cores": (1.0, F32_PEAK), "TF32 tensor cores, 3 products": (3.0, TF32_PEAK)}
-CUDA_CORES, TENSOR_CORES = UNITS
+# function, its peak). The tensor-core bodies take three TF32 products per f32
+# one; K1's bf16 body one bf16 product.
+UNITS = {"f32 CUDA cores": (1.0, F32_PEAK), "TF32 tensor cores, 3 products": (3.0, TF32_PEAK),
+         "bf16 tensor cores": (1.0, BF16_PEAK)}
+CUDA_CORES, TENSOR_CORES, BF16_TENSOR_CORES = UNITS
 # Entries of the kernels line whose product runs on the tensor cores at the
 # paths' shapes (D = 128): K1, K3, K4 on whole partitions (with v4's chunk
 # table it runs in f32 on the CUDA cores), K5-K9, sized_topk and multi_topk
 # (their rows check that the launcher picked the tensor-core body).
-TENSOR_CORE_ENTRIES = ("grouped_scan", "grouped_scan/v8", "flat_topk", "rowscale_topk/v3p",
+TENSOR_CORE_ENTRIES = ("grouped_scan", "grouped_scan_bf16", "grouped_scan/v8", "flat_topk",
+                       "rowscale_topk/v3p",
                        "rowscale_topk/v3pn", "rowscale_topk/v6", "rowscale_fold/v7",
                        "exact_topk/v3", "exact_topk/v2", "chunk_merge/v5", "multi_topk",
                        "raw_scores", "packed_topk", "sized_topk")
@@ -215,6 +242,9 @@ QUEUE_CYCLES = 50_000_000  # ~25 ms of spinning at the H100's clock: room to enq
 ENTRIES = {
     "grouped_scan": ("grouped_scan", "quake_tpu_torch/csrc/quake_kernels.cu",
                      "quake_tpu/ops/pallas_grouped.py:1180"),
+    # K1 on bf16 codes (the headline bf16 phase): _v9_kernel on bf16 slabs.
+    "grouped_scan_bf16": ("grouped_scan_bf16", "quake_tpu_torch/csrc/quake_kernels.cu",
+                          "quake_tpu/ops/pallas_grouped.py:1180"),
     "merge_positions": ("merge_positions", "quake_tpu_torch/csrc/quake_kernels.cu",
                         "quake_tpu/ops/pallas_grouped.py:994"),
     "flat_topk": ("flat_topk", "quake_tpu_torch/csrc/quake_kernels.cu",
@@ -250,6 +280,8 @@ ENTRIES = {
 
 def unit_of(entry: str) -> str:
     """The unit (a key of UNITS) that an entry of the kernels line multiplies on."""
+    if entry == "grouped_scan_bf16":
+        return BF16_TENSOR_CORES
     return TENSOR_CORES if entry in TENSOR_CORE_ENTRIES else CUDA_CORES
 
 
@@ -390,6 +422,42 @@ def phase_small_parity(torch, dev):
     phase_small_parity_tensor_core(torch, dev, rng)
     phase_small_parity_exact_chunked(torch, dev, rng, gp)
     phase_small_parity_variants(torch, dev, rng, gp)
+    phase_small_parity_bf16(torch, dev, rng)
+
+
+def phase_small_parity_bf16(torch, dev, rng):
+    """K1 on bf16 codes against its plain version: 300 groups, the
+    segment-stressing sizes (ghosts, partial segments), kk 10, qt 8 and 64;
+    D = 128 and 768 on the tensor-core body (768 streams the depth through
+    the ring), D = 100 (rows not 16-byte aligned in bf16) on the CUDA-core
+    body. The launcher's body is asserted; the gates are compare_k1's."""
+    from quake_tpu_torch.ops.grouped_scan import (grouped_scan_kernel, grouped_scan_plain,
+                                                  grouped_scan_uses_mma, packed_params)
+
+    C, Gn, kk = 512, 300, 10
+    sizes_l = [0, 1, 127, 128, 129, C]
+    worst = [1.0, 0.0]
+    for qt, Dm in ((8, 128), (64, 128), (8, 100), (64, 100), (32, 768), (64, 768)):
+        if grouped_scan_uses_mma(qt, Dm, torch.bfloat16) != (Dm % 8 == 0):
+            raise AssertionError(f"K1 bf16 at qt={qt}, D={Dm}: the launcher chose another body "
+                                 "than expected")
+        codes = torch.from_numpy(rng.standard_normal((len(sizes_l), C, Dm)).astype(np.float32))
+        codes = codes.to(dev).to(torch.bfloat16)
+        sizes = torch.tensor(sizes_l, dtype=torch.int32, device=dev)
+        gp = torch.from_numpy(rng.integers(-1, len(sizes_l), Gn).astype(np.int32)).to(dev)
+        gsize = torch.where(gp >= 0, sizes[gp.clamp(min=0).long()],
+                            torch.zeros_like(gp)).contiguous()
+        slot_mult, levels = packed_params(C)
+        scale = levels / (10.0 * Dm ** 0.5)
+        qg = torch.from_numpy(rng.standard_normal((Gn, qt, Dm)).astype(np.float32) * scale)
+        qg = qg.to(dev).to(torch.bfloat16).contiguous()
+        cf = codes.float()
+        normsT = (((cf * cf).sum(-1) * 0.5 - 0.5 * Dm - 5.0 * Dm ** 0.5) * scale).contiguous()
+        ov, kd = compare_k1(torch, grouped_scan_kernel, grouped_scan_plain, gp, gsize, qg, codes,
+                            normsT, kk, slot_mult, levels)
+        worst = [min(worst[0], ov), max(worst[1], kd)]
+    log(f"[parity small] K1 bf16 (D 128, 768 tensor cores; D 100 CUDA cores; qt 8-64): min "
+        f"overlap={worst[0]:.4f} max key diff={worst[1]}")
 
 
 def phase_small_parity_tensor_core(torch, dev, rng):
@@ -980,9 +1048,6 @@ def compare_k3(torch, kernel, plain, codes2d, bias, q, k, metric):
 
 def phase_main(torch, dev, x, queries):
     from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams
-    from quake_tpu_torch.ops.grouped import group_layout
-    from quake_tpu_torch.ops.grouped_scan import sort_key_fits
-    from quake_tpu_torch.profiling import StageTimer
     from quake_tpu_torch.utils import compute_recall
 
     out = {}
@@ -1022,28 +1087,54 @@ def phase_main(torch, dev, x, queries):
     sp = SearchParams(k=K, nprobe=nprobe)
     for B, placement in ((BATCH, "argsort"), (BATCH_SORTED, "sorted")):
         qt = idx._grouped_params(B, nprobe)[0]
-        gpb = int(idx._grouped_kernel()[len("v11g"):])
-        rows = -(-group_layout(B, nprobe, idx.store.P, qt) // gpb) * gpb * qt
-        if ("sorted" if sort_key_fits(B, rows) else "argsort") != placement:
+        if placement_of(idx, B, nprobe) != placement:
             raise AssertionError(f"B={B} was expected to take the {placement} placement")
-        qd = torch.from_numpy(queries[:B]).to(dev)
-        ms = time_ms(torch, lambda: idx._search_device_full(qd, sp), reps=10)
-        timer = StageTimer(dev)
-        for _ in range(3):
-            idx._search_device_full(qd, sp, stages=timer)
-        stages = timer.mean_ms()
-        _, ids32, _, dists = idx._search_device_full(qd, sp)
-        ids_np = ids32.cpu().numpy()
-        if ids_np.shape != (B, K) or (ids_np < 0).any():
-            raise AssertionError(f"B={B}: expected {K} ids per query")
-        if not torch.isfinite(dists).all():
-            raise AssertionError(f"B={B}: non-finite distances")
-        r_b = compute_recall(ids_np[:NQ_GT], gt, K)
-        out[f"B{B}"] = dict(ms=ms, qps=B / (ms / 1e3), recall_first_1024=r_b,
-                            placement=placement, qt=qt, stages_ms=stages)
-        log(f"[main] B={B} ({placement} placement, qt={qt}): {ms:.3f} ms/batch, {B / (ms / 1e3):,.0f} QPS, recall(first "
-            f"1024)={r_b:.4f}, stages(ms)={json.dumps({k: round(v, 4) for k, v in stages.items()})}")
+        out[f"B{B}"] = dict(time_batch(torch, idx, torch.from_numpy(queries[:B]).to(dev), sp, gt),
+                            placement=placement, qt=qt)
+        log(f"[main] B={B} ({placement} placement, qt={qt}): {batch_text(out[f'B{B}'])}")
     return idx, out, gt
+
+
+def placement_of(idx, B: int, nprobe: int) -> str:
+    """The v11 placement the default search takes at batch B: sorted while
+    its sort key fits, else argsort."""
+    from quake_tpu_torch.ops.grouped import group_layout
+    from quake_tpu_torch.ops.grouped_scan import sort_key_fits
+
+    qt = idx._grouped_params(B, nprobe)[0]
+    gpb = int(idx._grouped_kernel()[len("v11g"):])
+    rows = -(-group_layout(B, nprobe, idx.store.P, qt) // gpb) * gpb * qt
+    return "sorted" if sort_key_fits(B, rows) else "argsort"
+
+
+def time_batch(torch, idx, q, sp, gt) -> dict:
+    """A batch q through the default search (idx._search_device_full):
+    device ms per batch (CUDA events, 10 reps), QPS, the mean per-stage ms
+    of 3 runs with stage marks, and the recall@10 of its first NQ_GT
+    queries against gt; fails unless every query gets K ids and finite
+    distances."""
+    from quake_tpu_torch.profiling import StageTimer
+    from quake_tpu_torch.utils import compute_recall
+
+    B = q.shape[0]
+    ms = time_ms(torch, lambda: idx._search_device_full(q, sp), reps=10)
+    timer = StageTimer(q.device)
+    for _ in range(3):
+        idx._search_device_full(q, sp, stages=timer)
+    _, ids32, _, dists = idx._search_device_full(q, sp)
+    ids_np = ids32.cpu().numpy()
+    if ids_np.shape != (B, K) or (ids_np < 0).any():
+        raise AssertionError(f"B={B}: expected {K} ids per query")
+    if not torch.isfinite(dists).all():
+        raise AssertionError(f"B={B}: non-finite distances")
+    return dict(ms=ms, qps=B / (ms / 1e3), recall_first_1024=compute_recall(ids_np[:NQ_GT], gt, K),
+                stages_ms=timer.mean_ms())
+
+
+def batch_text(r: dict) -> str:
+    return (f"{r['ms']:.3f} ms/batch, {r['qps']:,.0f} QPS, recall(first 1024)="
+            f"{r['recall_first_1024']:.4f}, stages(ms)="
+            + json.dumps({k: round(v, 4) for k, v in r["stages_ms"].items()}))
 
 
 def phase_by_name(torch, dev, idx, queries, gt, nprobe, recall_v11):
@@ -1256,7 +1347,8 @@ def scan_bound(st, gp, gsize, real_q, q_bytes, qt, kk, D, extra=0, whole_slab=Fa
     """Least time of one grouped-scan pass (K1, K4-K7): bytes = the query
     tiles (q_bytes), the 128-row segments of the probed partitions that hold
     vectors (whole_slab: all their rows, for the v2 scan, which has no
-    sizes) with a norm or an id per row, gp and sizes, a [groups, qt, kk]
+    sizes; at the codes' element size, 2 bytes in bf16) with a 4-byte norm
+    or id per row, gp and sizes, a [groups, qt, kk]
     f32 output, and `extra` (a second output, a chunk table); flops =
     2 D (real query rows x valid lanes) summed over the live groups, on
     `unit`. Returns (bound, live groups, scanned rows)."""
@@ -1268,7 +1360,7 @@ def scan_bound(st, gp, gsize, real_q, q_bytes, qt, kk, D, extra=0, whole_slab=Fa
     else:
         read_rows = int((((st.sizes[used].long() + 127) // 128) * 128).sum())
     flops = 2.0 * D * float((real_q[alive] * gs[alive]).sum())
-    nbytes = (q_bytes + read_rows * (D + 1) * 4 + gp.numel() * 8
+    nbytes = (q_bytes + read_rows * (D * st.codes.element_size() + 4) + gp.numel() * 8
               + gp.numel() * qt * kk * 4 + extra)
     return (bound(nbytes, flops, unit), int(alive.sum()),
             int((((gs + 127) // 128) * 128)[alive].sum()))
@@ -1644,9 +1736,10 @@ def phase_latency(torch, dev, idx, x, queries, gt, nprobe):
 
 def start_product_only_build():
     """Starts a second build of csrc/quake_kernels.cu with -DQK_PRODUCT_ONLY
-    (K1's body with its loads and products and without keys, fold and
+    (K1's bodies with their loads and products and without keys, fold and
     rounds: a timing aid, never the package's library) in a directory of its
-    own. Returns what product_only_k1 needs."""
+    own. Returns what product_only_k1 needs; the caller cleans up its
+    directory (the first item) after the last launch."""
     from quake_tpu_torch import _ext
 
     _ext.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -1660,17 +1753,19 @@ def start_product_only_build():
 
 
 def product_only_k1(torch, build, gp, gsize, qg, codes, normsT, kk, slot_mult, levels):
-    """A function that launches the product-only build of K1 on K1's
-    arguments (what it writes is no result), and the build's directory, to
-    be cleaned up by the caller."""
+    """A function that launches the product-only build of K1 (its f32 or
+    bf16 entry, by the codes' dtype) on K1's arguments (what it writes is no
+    result)."""
     from quake_tpu_torch import _ext
 
-    tmp, so, proc = build
-    out, _ = proc.communicate()
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed on the product-only build of K1:\n{out}")
-    entry = ctypes.CDLL(so).qk_grouped_scan
-    entry.argtypes, entry.restype = _ext._SIGNATURES["qk_grouped_scan"], ctypes.c_int
+    _, so, proc = build
+    if proc.returncode is None:  # the build's first use waits for it
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on the product-only build of K1:\n{out}")
+    name = "qk_grouped_scan_bf16" if codes.dtype == torch.bfloat16 else "qk_grouped_scan"
+    entry = getattr(ctypes.CDLL(so), name)
+    entry.argtypes, entry.restype = _ext._SIGNATURES[name], ctypes.c_int
     (Gn, qt, Dd), (P, C, _) = qg.shape, codes.shape
     scratch = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.float32)
 
@@ -1680,7 +1775,7 @@ def product_only_k1(torch, build, gp, gsize, qg, codes, normsT, kk, slot_mult, l
                          float(slot_mult), float(levels), _ext.stream_ptr(qg.device)),
                    "grouped_scan (product only)")
 
-    return launch, tmp
+    return launch
 
 
 def empty_launch(torch, build, rows: int):
@@ -1798,7 +1893,7 @@ def phase_kernels(torch, dev, idx, x, queries, nprobe, launches, by_name, direct
     # The share of K1's time that is selection (keys, fold, rounds): K1 against
     # its own body built without them (the same loads and products).
     k1_ms = rows[-1]["ms"]
-    launch, build_dir = product_only_k1(torch, k1_build, *args)
+    launch = product_only_k1(torch, k1_build, *args)
     product_ms = time_ms(torch, launch)
     log(f"[kernel] grouped_scan: {k1_ms:.4f} ms, its loads and products alone "
         f"{product_ms:.4f} ms: selection share {1.0 - product_ms / k1_ms:.3f} of K1's time")
@@ -1822,7 +1917,6 @@ def phase_kernels(torch, dev, idx, x, queries, nprobe, launches, by_name, direct
                      library_ms=time_ms(torch, lambda: torch.topk(m_packed, kfin, dim=1)),
                      bound=bound(bytes2, 0.0)))
     torch.cuda.synchronize()
-    build_dir.cleanup()
 
     # K4 (v3p: one group a step; v3pN: gpb 4) and K5 (v7, gpb 4) at the
     # by-name paths' shapes: unscaled queries, raw norms; against the f32
@@ -1858,7 +1952,7 @@ def phase_kernels(torch, dev, idx, x, queries, nprobe, launches, by_name, direct
 
     # K1 through v8 (build_groups, gpb 4, global-scale queries and norms).
     gp, ql, gsize, safe_q = pad_groups(group_pid, qlist, st.sizes, 4)
-    q_scaled, normsT = global_scale(q, st.norms, "l2", levels)
+    q_scaled, normsT, _, _ = global_scale(q, st.norms, "l2", levels)
     args8 = (gp, gsize, q_scaled[safe_q].contiguous(), st.codes, normsT, kk, slot_mult, levels)
     ov8, kd8 = compare_k1(torch, grouped_scan_kernel, grouped_scan_plain, *args8)
     b8, groups, scanned = scan_bound(st, gp, gsize, (ql >= 0).sum(1), args8[2].numel() * 4, qt,
@@ -1871,42 +1965,191 @@ def phase_kernels(torch, dev, idx, x, queries, nprobe, launches, by_name, direct
 
     rows += exact_chunked_rows(torch, idx, q, pids, qt, kk, by_name)
     rows += variant_rows(torch, idx, q, pids, kk, direct)
+    return [kernel_entry(r) for r in rows]
 
-    kernels = []
-    for r in rows:
-        r["bound_ms"], r["bound_by"] = r.pop("bound")
-        kernel, source, replaces = ENTRIES[r["name"]]
-        lib = r.get("library_ms")
-        unit = unit_of(r["name"])
-        if r["ms"] < r["bound_ms"]:
-            raise AssertionError(f"{r['name']}: {r['ms']} ms is below its bound of "
-                                 f"{r['bound_ms']} ms ({r['bound_by']}, {unit}): the bound is "
-                                 "not one of the unit the kernel runs on")
-        log(f"[kernel] {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms by {r['bound_by']} on the {unit}, "
-            f"{100.0 * r['bound_ms'] / r['ms']:.1f}% of it reached"
-            + (f", library {lib:.4f} ms" if lib is not None else "")
-            + (f", host-paced {r['paced_ms']:.4f} ms" if "paced_ms" in r else "")
-            + (f", empty launch {r['floor_ms']:.4f} ms" if "floor_ms" in r else "")
-            + (f", at {r['shape']} (body {r['body']})" if "shape" in r else "")
-            + (f", body {r['body']}" if "body" in r and "shape" not in r else "")
-            + f"), overlap {r['overlap']:.4f}, max {r.get('err_of', 'key diff')} {r['max_abs_err']}"
-            + (f", max stats error {r['stats_err']:.3g}" if "stats_err" in r else "")
-            + f" ({r['tol']}), launches on its path {r['launches']}"
-            + (f", groups {r['groups']}, scanned rows {r['scanned_rows']}" if "groups" in r else ""))
-        entry = {"name": r["name"], "kernel": kernel, "route": "cuda", "source": source,
-                 "replaces": replaces, "launches": r["launches"],
-                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                 "bound_by": r["bound_by"], "bound_unit": unit, "library_ms": lib}
-        for extra in ("shape", "floor_ms", "body", "model_overlap", "model_max_abs_err"):
-            if extra in r:
-                entry[extra] = r[extra]
-        if "wide" in r:
-            entry["second_shape"] = {f: r["wide"][f] for f in ("shape", "ms", "plain_ms", "bound_ms",
-                                                              "bound_by", "max_abs_err")}
-        kernels.append(entry)
-    return kernels
+
+def kernel_entry(r: dict) -> dict:
+    """A row of phase_kernels (or of the headline bf16 phase) checked
+    against its bound, logged, and turned into its entry of the kernels
+    line."""
+    r["bound_ms"], r["bound_by"] = r.pop("bound")
+    kernel, source, replaces = ENTRIES[r["name"]]
+    lib = r.get("library_ms")
+    unit = unit_of(r["name"])
+    if r["ms"] < r["bound_ms"]:
+        raise AssertionError(f"{r['name']}: {r['ms']} ms is below its bound of "
+                             f"{r['bound_ms']} ms ({r['bound_by']}, {unit}): the bound is "
+                             "not one of the unit the kernel runs on")
+    log(f"[kernel] {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms by {r['bound_by']} on the {unit}, "
+        f"{100.0 * r['bound_ms'] / r['ms']:.1f}% of it reached"
+        + (f", library {lib:.4f} ms" if lib is not None else "")
+        + (f", host-paced {r['paced_ms']:.4f} ms" if "paced_ms" in r else "")
+        + (f", empty launch {r['floor_ms']:.4f} ms" if "floor_ms" in r else "")
+        + (f", at {r['shape']} (body {r['body']})" if "shape" in r else "")
+        + (f", body {r['body']}" if "body" in r and "shape" not in r else "")
+        + f"), overlap {r['overlap']:.4f}, max {r.get('err_of', 'key diff')} {r['max_abs_err']}"
+        + (f", max stats error {r['stats_err']:.3g}" if "stats_err" in r else "")
+        + f" ({r['tol']}), launches on its path {r['launches']}"
+        + (f", groups {r['groups']}, scanned rows {r['scanned_rows']}" if "groups" in r else ""))
+    entry = {"name": r["name"], "kernel": kernel, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": r["launches"],
+             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "bound_unit": unit, "library_ms": lib}
+    for extra in ("shape", "floor_ms", "body", "model_overlap", "model_max_abs_err"):
+        if extra in r:
+            entry[extra] = r[extra]
+    if "wide" in r:
+        entry["second_shape"] = {f: r["wide"][f] for f in ("shape", "ms", "plain_ms", "bound_ms",
+                                                          "bound_by", "max_abs_err")}
+    return entry
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def phase_headline_bf16(torch, dev, x, queries, gt, f32_idx, k1_build):
+    """bench.py's headline serving mode at full width (phase 11 of the
+    module's docstring): build, nprobe, the headline path timed with its
+    launches counted, the f32 and the exact paths beside it, K1's bf16 body
+    gated and timed at the path's shapes, save and load. Returns (summary,
+    the kernels line's grouped_scan_bf16 entry)."""
+    from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams, _ext
+    from quake_tpu_torch.ops.grouped_scan import (grouped_scan_kernel, grouped_scan_plain,
+                                                  grouped_scan_uses_mma)
+    from quake_tpu_torch.utils import compute_recall
+
+    card = card_line()
+    out = {}
+    t0 = time.perf_counter()
+    idx = QuakeIndex(device=dev)
+    idx.build(x, np.arange(N, dtype=np.int64),
+              IndexBuildParams(nlist=NLIST, metric="l2", niter=NITER, precision="bf16",
+                               calibrate_aps=False))
+    out["build_s"] = time.perf_counter() - t0
+    st = idx.store.state
+    if st.codes.dtype != torch.bfloat16 or idx.parent.store.state.codes.dtype != torch.float32:
+        raise AssertionError("the headline index must hold bf16 codes under an f32 parent")
+    out.update(P=idx.store.P, C=idx.store.C, nlist=idx.nlist(), kernel=idx._grouped_kernel(),
+               codes_bytes=st.codes.numel() * st.codes.element_size(),
+               f32_codes_bytes=f32_idx.store.state.codes.numel() * 4,
+               store_bytes=sum(t.numel() * t.element_size()
+                               for t in (st.codes, st.ids, st.norms, st.sizes)))
+    log(f"[headline bf16] build {out['build_s']:.2f} s: nlist={out['nlist']} P={out['P']} "
+        f"C={out['C']} scan {out['kernel']}, codes {out['codes_bytes'] / 1e9:.3f} GB (f32 "
+        f"{out['f32_codes_bytes'] / 1e9:.3f} GB), store {out['store_bytes'] / 1e9:.3f} GB")
+
+    q_gt = queries[:NQ_GT]
+    chosen = None
+    for nprobe in NPROBE_GRID:
+        res = idx.search(q_gt, SearchParams(k=K, nprobe=nprobe, exact_distances=False))
+        r = compute_recall(res.ids, gt, K)
+        log(f"[headline bf16] nprobe={nprobe} recall@10={r:.4f} (exact_distances=False, against "
+            "the exact ground truth over the f32 vectors)")
+        if r >= RECALL_GATE:
+            chosen = (nprobe, r, res)
+            break
+    if chosen is None:
+        raise AssertionError(f"bf16, exact_distances=False: no nprobe in {NPROBE_GRID} reaches "
+                             f"recall {RECALL_GATE}")
+    nprobe, recall, res = chosen
+    if res.ids.shape != (NQ_GT, K) or not np.isfinite(res.distances[res.ids >= 0]).all():
+        raise AssertionError("bf16 search results have the wrong shape or non-finite distances")
+    out.update(nprobe=nprobe, recall=recall)
+
+    # The headline path, its launches counted from 0 just before it.
+    sp = SearchParams(k=K, nprobe=nprobe, exact_distances=False)
+    qd = {B: torch.from_numpy(queries[:B]).to(dev) for B in (BATCH, BATCH_SORTED)}
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    for B in (BATCH, BATCH_SORTED):
+        out[f"B{B}"] = dict(time_batch(torch, idx, qd[B], sp, gt),
+                            placement=placement_of(idx, B, nprobe),
+                            qt=idx._grouped_params(B, nprobe)[0])
+    torch.cuda.synchronize()
+    launches = dict(_ext.launches)
+    missing = [k for k in BF16_MAIN_KERNELS if launches[k] <= 0]
+    if missing or launches["grouped_scan"] != 0:
+        raise AssertionError(f"the headline bf16 path must launch {BF16_MAIN_KERNELS} and not the "
+                             f"f32 K1: {launches}")
+    out["launches"] = launches
+    for B in (BATCH, BATCH_SORTED):
+        r = out[f"B{B}"]
+        log(f"[headline bf16] ({card}) B={B} ({r['placement']} placement, qt={r['qt']}, nprobe "
+            f"{nprobe}, exact_distances=False): {batch_text(r)}")
+    log(f"[headline bf16] kernel launches on the headline path: {launches}")
+
+    # Beside it, at the same nprobe: the f32 index dequantized (bf16's share
+    # apart from the rescore's), the bf16 index and the f32 index exact.
+    for name, index, exact in (("f32_inexact", f32_idx, False), ("bf16_exact", idx, True),
+                               ("f32_exact", f32_idx, True)):
+        spx = SearchParams(k=K, nprobe=nprobe, exact_distances=exact)
+        for B in (BATCH, BATCH_SORTED):
+            out[f"{name}_B{B}"] = time_batch(torch, index, qd[B], spx, gt)
+            log(f"[headline bf16] ({card}) beside it, {name} B={B}: "
+                f"{batch_text(out[f'{name}_B{B}'])}")
+
+    # K1's bf16 body at the headline shapes: its gates (with K2's and K3's),
+    # its time, its bound, and the f32 K1 on the f32 index at the same batch.
+    q = qd[BATCH]
+    pids = probe_lists(torch, idx, q, nprobe)
+    qt, inp, args = k1_args(idx, q, pids)
+    if not grouped_scan_uses_mma(qt, D, torch.bfloat16):
+        raise AssertionError(f"K1 bf16 at qt={qt}, D={D}: the launcher must pick the tensor-core "
+                             "body")
+    gates = main_kernel_gates(torch, idx, q, pids, nprobe)
+    real_q = (inp["tgt"] < BATCH * nprobe).sum(1)
+    b, groups, scanned = scan_bound(st, inp["gp"], inp["group_size"], real_q,
+                                    inp["qg"].numel() * 2, qt, inp["kk"], D,
+                                    unit=unit_of("grouped_scan_bf16"))
+    f32_args = k1_args(f32_idx, q, probe_lists(torch, f32_idx, q, nprobe))[2]
+    row = dict(name="grouped_scan_bf16",
+               tol=f"winner overlap >= {OVERLAP_TOL}, common keys within 1 level",
+               overlap=gates["k1_overlap"], max_abs_err=gates["k1_max_key_diff"],
+               launches=launches["grouped_scan_bf16"], body="tensor cores",
+               shape=f"B={BATCH}, nprobe={nprobe}, qt={qt}, D={D}, C={idx.store.C}",
+               ms=time_ms(torch, lambda: grouped_scan_kernel(*args)),
+               plain_ms=time_ms(torch, lambda: grouped_scan_plain(*args), reps=2, warmup=1),
+               bound=b, groups=groups, scanned_rows=scanned)
+    out["k1"] = dict(ms=row["ms"], f32_ms=time_ms(torch, lambda: grouped_scan_kernel(*f32_args)),
+                     product_ms=time_ms(torch, product_only_k1(torch, k1_build, *args)),
+                     gates=gates)
+    log(f"[headline bf16] ({card}) K1 bf16 {row['ms']:.4f} ms against the f32 K1's "
+        f"{out['k1']['f32_ms']:.4f} ms at the same batch; its loads and products alone "
+        f"{out['k1']['product_ms']:.4f} ms: selection share "
+        f"{1.0 - out['k1']['product_ms'] / row['ms']:.3f}; {gates_text(gates)}")
+    entry = kernel_entry(row)
+    del args, f32_args
+
+    # Save and load.
+    with tempfile.TemporaryDirectory() as tmp:
+        p16, p32 = os.path.join(tmp, "bf16"), os.path.join(tmp, "f32")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx.save(p16)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = QuakeIndex(device=dev).load(p16)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        f32_idx.save(p32)
+        sizes = dir_bytes(p16), dir_bytes(p32)
+    ls = loaded.store.state
+    if ls.codes.dtype != torch.bfloat16 or not torch.equal(ls.codes.view(torch.int16),
+                                                           st.codes.view(torch.int16)):
+        raise AssertionError("the loaded bf16 codes differ from the saved ones")
+    if sizes[0] > BF16_CHECKPOINT_RATIO * sizes[1]:
+        raise AssertionError(f"the bf16 checkpoint holds {sizes[0]} bytes, the f32 one {sizes[1]}")
+    if not np.array_equal(loaded.search(q_gt, sp).ids, idx.search(q_gt, sp).ids):
+        raise AssertionError("the loaded bf16 index searches to other ids")
+    del loaded
+    out["save_load"] = dict(save_s=save_s, load_s=load_s, bytes=sizes[0], f32_bytes=sizes[1])
+    log(f"[headline bf16] ({card}) save {sizes[0] / 1e9:.3f} GB in {save_s:.3f} s, load "
+        f"{load_s:.3f} s; the f32 checkpoint {sizes[1] / 1e9:.3f} GB (ratio "
+        f"{sizes[0] / sizes[1]:.3f}); codes equal bit for bit, search ids equal")
+    return out, entry
 
 
 def check_contract_6(torch, store, when: str) -> float:
@@ -2331,13 +2574,17 @@ def main() -> int:
     wide = phase_wide(torch, dev)
     kernels = phase_kernels(torch, dev, idx, x, queries, main_out["nprobe"], launches, by_name,
                             direct, k1_build)
+    headline, k1_bf16 = phase_headline_bf16(torch, dev, x, queries, gt, idx, k1_build)
+    kernels.append(k1_bf16)
+    k1_build[0].cleanup()
     del x
     mutation = phase_mutation(torch, dev, idx, queries, main_out["nprobe"],
                               {"default": main_out[f"B{BATCH}"]["ms"],
                                "sized": direct["sized_topk"]["ms"],
                                "multi": direct["multi_topk"]["ms"]})
     log("[summary] " + json.dumps(dict(main_out, by_name=by_name, direct=direct,
-                                       latency=latency, wide=wide, mutation=mutation)))
+                                       latency=latency, wide=wide, headline_bf16=headline,
+                                       mutation=mutation)))
 
     if len(kernels) != len(ENTRIES):
         raise AssertionError(f"the kernels line needs {len(ENTRIES)} entries, got {len(kernels)}")

@@ -5,14 +5,16 @@ behind a plain C interface: one ``extern "C"`` launcher per kernel that
 takes raw device pointers and a stream and returns ``cudaGetLastError()``.
 At first use every source is compiled by its own ``nvcc`` process, all
 started together, for ``sm_90a`` (K1, K3-K9, sized_topk and multi_topk use
-``mma.sync`` TF32 products and bulk tensor copies; the tensor map's encoder,
+``mma.sync`` TF32 products, K1 on bf16 codes bf16 ones, and bulk tensor
+copies; the tensor map's encoder,
 ``cuTensorMapEncodeTiled``, is looked up in libcuda at run time with
 ``dlsym``, so only ``-ldl`` is linked); the objects are linked into one
 shared library under ``quake_tpu_torch/_build/``, named by a hash of the
 sources and flags, and loaded with ``ctypes``. Nothing is built or loaded at
 import, so the CPU-only tests import every module freely.
 
-``launches`` counts the launches of each kernel (K1 grouped_scan, K2
+``launches`` counts the launches of each kernel (K1 grouped_scan, and on
+bf16 codes grouped_scan_bf16, K2
 merge_positions, K3 flat_topk, K4 rowscale_topk, K5 rowscale_fold, K6
 exact_topk, K7 chunk_merge, K8 raw_scores, K9 packed_topk, and sized_topk and
 multi_topk). A wrapper adds one where it launches its kernel and nowhere
@@ -43,8 +45,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # gp, gsize, qg, codes, normsT, out, Gn, qt, D, P, C, kk, slot_mult, levels, stream
     "qk_grouped_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
-    # qt, D: whether K1's launcher runs the tensor-core body
+    # the same on bf16 qg and codes
+    "qk_grouped_scan_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    # qt, D: whether K1's launcher runs the tensor-core body (f32, bf16 codes)
     "qk_grouped_scan_uses_mma": (_I, _I),
+    "qk_grouped_scan_bf16_uses_mma": (_I, _I),
     # qt, D, kk, chunked: the body K4's launcher runs (2 tensor cores, 1 the
     # persistent chunk-table body, 0 one block a group)
     "qk_rowscale_topk_body": (_I, _I, _I, _I),
@@ -92,8 +97,9 @@ _SIGNATURES = {
     "qk_multi_topk_body": (_I, _I, _I),
 }
 
-KERNELS = ("grouped_scan", "merge_positions", "flat_topk", "rowscale_topk", "rowscale_fold",
-           "exact_topk", "chunk_merge", "raw_scores", "packed_topk", "sized_topk", "multi_topk")
+KERNELS = ("grouped_scan", "grouped_scan_bf16", "merge_positions", "flat_topk", "rowscale_topk",
+           "rowscale_fold", "exact_topk", "chunk_merge", "raw_scores", "packed_topk", "sized_topk",
+           "multi_topk")
 launches = dict.fromkeys(KERNELS, 0)
 
 _lib = None

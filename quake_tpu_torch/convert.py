@@ -13,6 +13,12 @@ entries `free_rows`, `generation` and `cap_multiple` (the JAX store's
 attributes of those names); without them the inactive rows are free, highest
 first, every generation is 0 and the rounding is 128, which is what a freshly
 built store has.
+
+The codes keep their dtype: f32 stays f32, and bf16 stays bf16 bit for bit.
+A bf16 array arrives as the JAX package hands it over (numpy's view of a
+`jnp.bfloat16` array, whose dtype is named "bfloat16") or as the uint16 bit
+view its checkpoints hold; either is read through its 16 bits, so this
+module needs no bf16 type of numpy's.
 """
 
 from __future__ import annotations
@@ -23,26 +29,38 @@ import numpy as np
 import torch
 
 from quake_tpu_torch.index import QuakeIndex
+from quake_tpu_torch.ops.grouped import BF16_OPERANDS
 from quake_tpu_torch.params import IndexBuildParams, check_metric
 from quake_tpu_torch.storage.store import PartitionStore, StoreState
 
 FIELDS = ("codes", "ids", "sizes", "centroids", "active", "norms")
 BOOKKEEPING = ("free_rows", "generation", "cap_multiple")
-_DTYPES = dict(codes=np.float32, ids=np.int32, sizes=np.int32,
-               centroids=np.float32, active=np.bool_, norms=np.float32)
+_DTYPES = dict(ids=np.int32, sizes=np.int32, centroids=np.float32, active=np.bool_,
+               norms=np.float32)
+
+
+def codes_tensor(codes) -> torch.Tensor:
+    """A CPU tensor of a store's codes: bf16 for a bf16 array (dtype name
+    "bfloat16") or its uint16 bit view, the bits kept; f32 for anything
+    else."""
+    a = np.asarray(codes)
+    if a.dtype.name == "bfloat16" or a.dtype == np.uint16:
+        return torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
 def store_from_numpy(arrays: Mapping[str, np.ndarray], device) -> PartitionStore:
     missing = [f for f in FIELDS if f not in arrays]
     if missing:
         raise ValueError(f"store arrays missing: {missing}")
-    t = {f: torch.from_numpy(np.array(arrays[f], dtype=_DTYPES[f])) for f in FIELDS}
+    t = {f: torch.from_numpy(np.array(arrays[f], dtype=_DTYPES[f])) for f in _DTYPES}
+    t["codes"] = codes_tensor(arrays["codes"])
     P, C, D = t["codes"].shape
     if (tuple(t["ids"].shape) != (P, C) or tuple(t["norms"].shape) != (P, C)
             or tuple(t["sizes"].shape) != (P,) or tuple(t["active"].shape) != (P,)
             or tuple(t["centroids"].shape) != (P, D)):
         raise ValueError("store arrays disagree on P, C or D")
-    store = PartitionStore(D, device)
+    store = PartitionStore(D, device, dtype=t["codes"].dtype)
     store.init_from_state(StoreState(**{f: v.to(store.device) for f, v in t.items()}),
                           **{f: arrays.get(f) for f in BOOKKEEPING})
     if len(store.generation) != P:
@@ -63,7 +81,11 @@ def index_from_numpy(state: Mapping[str, np.ndarray],
     index.build_params = build_params
     index.store = store_from_numpy(state, index.device)
     if parent_state is not None:
+        parent = store_from_numpy(parent_state, index.device)
+        if parent.dtype == torch.bfloat16:
+            raise NotImplementedError("a bf16 parent (kernel K3 has no bf16 body) is not ported "
+                                      f"yet ({BF16_OPERANDS})")
         index.parent = QuakeIndex(level=1, device=index.device)
         index.parent.metric = index.metric
-        index.parent.store = store_from_numpy(parent_state, index.device)
+        index.parent.store = parent
     return index

@@ -70,9 +70,10 @@ def rank_parents(parent_codes, parent_ids, parent_norms, q, nprobe: int,
 def reference_scan(codes, ids, norms, q, pids, k: int, metric: str,
                    max_bytes: int = 1 << 28):
     """Plain exact reference of the grouped scan: every query scores all
-    slots of its probed partitions and keeps an exact top-k. Chunked over
-    queries so the gathered slabs stay below max_bytes. Returns (scores,
-    ids int32, scanned)."""
+    slots of its probed partitions and keeps an exact top-k. bf16 codes are
+    upcast and scored against the f32 query, as the exact rescore scores
+    them. Chunked over queries so the gathered slabs stay below max_bytes.
+    Returns (scores, ids int32, scanned)."""
     B, nprobe = pids.shape
     P, C, D = codes.shape
     qf = q.to(torch.float32)
@@ -82,7 +83,7 @@ def reference_scan(codes, ids, norms, q, pids, k: int, metric: str,
         pb = pids[b0:b0 + step].long()
         ok = pb >= 0
         safe = torch.clamp(pb, min=0)
-        slab = codes[safe].reshape(pb.shape[0], nprobe * C, D)
+        slab = codes[safe].reshape(pb.shape[0], nprobe * C, D).to(torch.float32)
         sid = torch.where(ok[:, :, None], ids[safe], torch.full_like(ids[safe], -1))
         sid = sid.reshape(pb.shape[0], nprobe * C)
         qb = qf[b0:b0 + step]
@@ -124,7 +125,7 @@ def chunk_spec(kernel: str, C: int, gpb: int):
 
 def grouped_scan(codes, ids, sizes, norms, q, pids, k: int, metric: str,
                  qt: int, group_chunk: int, kernel: str, dedup: bool = False,
-                 dense: bool = False, stages=None):
+                 dense: bool = False, exact: bool = True, stages=None):
     """Grouped-scan dispatch by name (quake_tpu/coordinator.py::grouped_scan).
 
     "v4", "v5" and "v6", each with an optional "c{ct}" and "g{gpb}", run
@@ -143,7 +144,11 @@ def grouped_scan(codes, ids, sizes, norms, q, pids, k: int, metric: str,
     argsort where the key fits (both read at each call, as in the JAX
     package). Folds other than 128 (with C % fold == 0) raise
     NotImplementedError; dedup on v2/v3/v3p raises the JAX package's
-    ValueError, and on every other name NotImplementedError."""
+    ValueError, and on every other name NotImplementedError. exact=False
+    (dequantized scores) reaches v10 and v11 only; every other name rescores
+    exactly, as in the JAX package. bf16 codes run on v8-v11 (K1's bf16
+    body), "xla" and "reference"; the names whose kernels have no bf16 body
+    (v3p, v3pN, v6, v7, v4, v5, v3, v2) raise NotImplementedError."""
     if kernel == "reference":
         return reference_scan(codes, ids, norms, q, pids, k, metric)
     if kernel[:2] in ("v4", "v5", "v6"):
@@ -187,10 +192,10 @@ def grouped_scan(codes, ids, sizes, norms, q, pids, k: int, metric: str,
                                    gpb=gpb, dedup=dedup, stages=stages)
         if name == "v10":
             return grouped_scan_v10(codes, ids, sizes, norms, q, pids, k, metric, qt=qt,
-                                    gpb=gpb, dedup=dedup, stages=stages)
+                                    gpb=gpb, dedup=dedup, exact=exact, stages=stages)
         return grouped_scan_v11(codes, ids, sizes, norms, q, pids, k, metric,
-                                qt=qt, gpb=gpb, dedup=dedup, placement=placement,
-                                stages=stages)
+                                qt=qt, gpb=gpb, dedup=dedup, exact=exact,
+                                placement=placement, stages=stages)
     m = _V3PN.match(kernel)
     if m is not None:
         return grouped_scan_v3pn(codes, ids, sizes, norms, q, pids, k, metric, qt=qt,
@@ -210,9 +215,10 @@ def grouped_scan(codes, ids, sizes, norms, q, pids, k: int, metric: str,
 def fused_ivf_search(codes, ids, sizes, norms, parent_codes, parent_ids, q,
                      k: int, nprobe: int, metric: str, qt: int,
                      kernel: str = "v11g4", parent_norms=None, group_chunk: int = 64,
-                     parent_kernel: str = "approx", stages=None):
+                     parent_kernel: str = "approx", exact: bool = True, stages=None):
     """End-to-end fixed-nprobe search: parent centroid ranking -> grouped
-    scan -> top-k merge -> distance conversion. All launches go to the
+    scan -> top-k merge -> distance conversion. exact=False: dequantized
+    scores on v10 and v11 (see grouped_scan). All launches go to the
     current stream; nothing synchronises.
 
     Returns (scores, ids32, distances, scanned, pids)."""
@@ -229,7 +235,7 @@ def fused_ivf_search(codes, ids, sizes, norms, parent_codes, parent_ids, q,
         stages.mark("parent")
     scores, ids32, scanned = grouped_scan(codes, ids, sizes, norms, q, pids, k,
                                           metric, qt, group_chunk, kernel, dense=True,
-                                          stages=stages)
+                                          exact=exact, stages=stages)
     dists = scores_to_distances(scores, ids32, metric)
     if stages is not None:
         stages.mark("distances")

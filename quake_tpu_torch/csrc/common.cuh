@@ -3,12 +3,14 @@
 // per-row candidate buffer of the exact selections, the shared-memory loads
 // and the tile product on the CUDA cores (tile_dots), and, for kernels K1,
 // K3-K9 and multi_topk, the tile product on the tensor cores with its
-// asynchronous loads (mma_tile, segment_load_async) and the ring's shape.
+// asynchronous loads (mma_tile, segment_load_async) and the ring's shape;
+// for K1 on bf16 codes the bf16 tile product (mma_tile_bf16).
 // Everything is in an anonymous namespace: each source gets its own copy.
 
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 #include <limits.h>
@@ -456,22 +458,26 @@ __device__ __forceinline__ void box_load_async(float* dst, const CUtensorMap* ma
 }
 
 // Rows [row, row + 128), columns from box box0 on, of the slabs (tensor map
-// cmap over [P C, D] f32) into the `boxes` boxes of the segment tile dst, one
-// bulk tensor copy a box, started by the block's first thread and completing
-// on bar. Whatever the block read or wrote in the tile before must lie behind
-// a __syncthreads().
+// cmap over [P C, D], box_cols elements a box: 32 f32 or 64 bf16, 128 bytes
+// either way) into the `boxes` boxes of the segment tile dst, one bulk tensor
+// copy a box, started by the block's first thread and completing on bar.
+// Whatever the block read or wrote in the tile before must lie behind a
+// __syncthreads().
 __device__ __forceinline__ void segment_load_async(float* dst, const CUtensorMap* cmap, int row,
-                                                   int box0, int boxes, uint64_t* bar) {
+                                                   int box0, int boxes, uint64_t* bar,
+                                                   int box_cols = kBox) {
   if (threadIdx.x != 0) return;
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
                "r"((uint32_t)(boxes * kSegBox * sizeof(float)))
                : "memory");
   fence_async_proxy();
-  for (int b = 0; b < boxes; ++b) box_load_async(dst + b * kSegBox, cmap, (box0 + b) * kBox, row, bar);
+  for (int b = 0; b < boxes; ++b)
+    box_load_async(dst + b * kSegBox, cmap, (box0 + b) * box_cols, row, bar);
 }
 
-// The [qt, D] query tile (D % 4 == 0) into a [rows][*] operand tile; rows
-// >= qt and the columns from D to the end of the last box are zero.
+// The [qt, D] query tile (rows of D 32-bit words, D % 4 == 0: D f32 values,
+// or 2 D bf16 values in pairs) into a [rows][*] operand tile, copied as bits;
+// rows >= qt and the words from D to the end of the last box are zero.
 __device__ __forceinline__ void query_tile_load(float* dst, const float* src, int qt, int rows,
                                                 int D, int boxes) {
   const int nch = boxes * (kBox / 4);  // 16-byte chunks a row
@@ -479,9 +485,9 @@ __device__ __forceinline__ void query_tile_load(float* dst, const float* src, in
   for (int i = threadIdx.x; i < rows * nch; i += kThreads) {
     const int r = i / nch;
     const int c = i - r * nch;
-    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (r < qt && c < dch) v = *reinterpret_cast<const float4*>(src + (size_t)r * D + 4 * c);
-    *reinterpret_cast<float4*>(dst + tile_at(r, 4 * c, rows)) = v;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < qt && c < dch) v = *reinterpret_cast<const uint4*>(src + (size_t)r * D + 4 * c);
+    *reinterpret_cast<uint4*>(dst + tile_at(r, 4 * c, rows)) = v;
   }
 }
 
@@ -607,6 +613,107 @@ __device__ __forceinline__ void mma_tile(float (&acc)[MT * NT][4], const float* 
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tile product on bf16 operands (kernel K1 on bf16 codes).
+//
+// The same tiles as mma_tile, read as 32-bit words: a word holds two bf16
+// values along the depth (the lower one in the low half), so a [rows][D]
+// bf16 tile is tile_boxes(D / 2) boxes of [rows][32] words (64 bf16 columns,
+// the 128 bytes of the swizzle span) in tile_at's layout. A depth-16 step
+// covers the words of a depth-8 step of the f32 tiles, and the m16n8k16 bf16
+// fragments lie where the m16n8k8 TF32 ones do: A register 0 holds row g,
+// columns 2 t and 2 t + 1 (word t of the step's first chunk), register 1 row
+// g + 8, registers 2 and 3 the same in the second chunk (columns 2 t + 8 and
+// 2 t + 9); B register 0 holds segment row g, columns 2 t and 2 t + 1, and
+// register 1 columns 2 t + 8 and 2 t + 9. One mma.sync.m16n8k16 a tile and
+// step, no split: a product of two bf16 values is exact in f32.
+//
+// The tensor cores add into their accumulator by truncation (see mma_tile).
+// kBf16PartialSteps steps (4: a box, 64 depth columns) are summed there from
+// zero, and that partial sum is added to acc on the CUDA cores, rounded to
+// nearest: one addition a box keeps the CUDA cores' share small beside one
+// mma a step. Built with -DQK_BF16_PARTIAL_STEPS=n (a measuring aid,
+// scripts/exact_score_errors.py k1bf16), n steps make a partial sum; 16 sums
+// all of a ring stage on the tensor cores.
+// ---------------------------------------------------------------------------
+#ifndef QK_BF16_PARTIAL_STEPS
+#define QK_BF16_PARTIAL_STEPS 4
+#endif
+constexpr int kBf16PartialSteps = QK_BF16_PARTIAL_STEPS;
+
+// c = a b + (kZero ? 0 : c), one m16n8k16 bf16 product accumulating in f32.
+template <bool kZero>
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  if constexpr (kZero) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+        : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.0f));
+  } else {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
+// part (+)= one depth-16 step of this warp's tiles; qa and sb point at this
+// lane's first word of the step-0 fragments (row row0 + g or col0 + g, word t).
+template <bool kZero, int MT, int NT>
+__device__ __forceinline__ void mma_step_bf16(float (&part)[MT * NT][4], const uint32_t* qa,
+                                              const uint32_t* sb, int ks, int g, int qrows) {
+  const int c0 = (((2 * ks) & 7) ^ g) << 2, c1 = c0 ^ 4;  // as load_step's
+  const uint32_t* a = qa + (ks >> 2) * qrows * kBox;
+  const uint32_t* b = sb + (ks >> 2) * kSegBox;
+  uint32_t af[MT][4], bf[NT][2];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    af[i][0] = a[16 * i * kBox + c0];
+    af[i][1] = a[(16 * i + 8) * kBox + c0];
+    af[i][2] = a[16 * i * kBox + c1];
+    af[i][3] = a[(16 * i + 8) * kBox + c1];
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    bf[j][0] = b[j * 8 * kBox + c0];
+    bf[j][1] = b[j * 8 * kBox + c1];
+  }
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma_bf16<kZero>(part[i * NT + j], af[i], bf[j][0], bf[j][1]);
+}
+
+// acc (+)= <q rows, segment rows> on bf16 tiles (the words of mma_tile's
+// layout), over ksteps steps of depth 16 (round_up(D, 16) / 16 in all), with
+// mma_tile's arguments otherwise.
+template <int MT, int NT>
+__device__ __forceinline__ void mma_tile_bf16(float (&acc)[MT * NT][4], const float* qs,
+                                              const float* seg, int row0, int col0, int qrows,
+                                              int ksteps, bool zero = true) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  if (zero) {
+#pragma unroll
+    for (int ti = 0; ti < MT * NT; ++ti)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[ti][e] = 0.0f;
+  }
+  const uint32_t* qa = reinterpret_cast<const uint32_t*>(qs) + (row0 + g) * kBox + t;
+  const uint32_t* sb = reinterpret_cast<const uint32_t*>(seg) + (col0 + g) * kBox + t;
+  for (int k0 = 0; k0 < ksteps; k0 += kBf16PartialSteps) {
+    float part[MT * NT][4];
+    mma_step_bf16<true, MT, NT>(part, qa, sb, k0, g, qrows);
+#pragma unroll
+    for (int s = 1; s < kBf16PartialSteps; ++s)
+      if (k0 + s < ksteps) mma_step_bf16<false, MT, NT>(part, qa, sb, k0 + s, g, qrows);
+#pragma unroll
+    for (int ti = 0; ti < MT * NT; ++ti)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[ti][e] += part[ti][e];
+  }
+}
+
 // Shared memory a block may use. The tensor-core bodies serve a shape whose
 // rows are 16-byte aligned for the asynchronous copies (D % 4 == 0) and whose
 // whole-D query tile fits beside a ring stage of 4, 2 or 1 boxes.
@@ -653,13 +760,14 @@ inline int ring_stage_boxes(int D, Smem smem) {
   return 0;
 }
 
-// A tensor map over the slabs viewed as [rows, D] f32 (D % 4 == 0, codes on a
-// 16-byte boundary), in boxes of box_rows rows (128: a segment) x 32 columns
-// with the 128-byte swizzle; what lies outside the array reads as zero. The
-// encoder (cuTensorMapEncodeTiled) is looked up in libcuda at run time, so the
-// library need not be linked. Returns a cudaError_t.
+// A tensor map over the slabs viewed as [rows, D] f32 (elem_bytes 4, D % 4 ==
+// 0) or bf16 (elem_bytes 2, D % 8 == 0), codes on a 16-byte boundary, in
+// boxes of box_rows rows (128: a segment) x 128 bytes (32 f32 or 64 bf16
+// columns) with the 128-byte swizzle; what lies outside the array reads as
+// zero. The encoder (cuTensorMapEncodeTiled) is looked up in libcuda at run
+// time, so the library need not be linked. Returns a cudaError_t.
 inline int slab_tensor_map(CUtensorMap* map, const void* codes, unsigned long long rows, int D,
-                           int box_rows = kFold) {
+                           int box_rows = kFold, int elem_bytes = 4) {
   typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -672,10 +780,13 @@ inline int slab_tensor_map(CUtensorMap* map, const void* codes, unsigned long lo
     encode = (Encode)fn;
   }
   const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)D * sizeof(float)};
-  const cuuint32_t box[2] = {(cuuint32_t)kBox, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)D * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(kBox * sizeof(float) / elem_bytes),
+                             (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(codes),
+  const CUresult r = encode(map, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                            2, const_cast<void*>(codes),
                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -77,6 +77,17 @@ namespace {
 // aligned): one block per group, each thread R x 4 dot products and (m1, m2)
 // pairs in registers, D streamed in depth chunks (chunk_dots below), so it
 // serves every D at every qt.
+//
+// bf16 codes (the JAX package's precision="bf16"; the scaled queries rounded
+// to bf16 as it rounds them, normsT in f32): the same two bodies on bf16
+// operands, the launcher's entry qk_grouped_scan_bf16. The tensor-core body
+// takes one mma.sync.m16n8k16 bf16 product a depth-16 step where the f32 one
+// takes three TF32 products a depth-8 step: six times fewer tensor-core
+// operations and half the slab bytes, through the same ring (a TMA box is
+// 128 bytes of a row either way: 64 bf16 columns). Its bound is 2 qt C D
+// flops over 989 TFLOP/s or the bytes at 2 an element. It serves D % 8 == 0
+// (the copies' 16-byte rows) where the tile fits; the CUDA-core body reads
+// bf16 (converted to f32 as it loads, exact) and serves every other D.
 // ---------------------------------------------------------------------------
 
 // The CUDA-core bodies of K1 and K3 take D in depth chunks of up to
@@ -94,14 +105,19 @@ inline size_t chunk_dots_smem(int rows, int D) {
   return (size_t)(rows * dcp + kFold * (dcp + 1)) * sizeof(float);
 }
 
-// Columns [d0, d0 + dcp) of rows [0, rows) of a [*, D] f32 matrix into shared
-// memory at row stride `stride`, zero-filling columns >= D and rows >= nrows.
-__device__ __forceinline__ void load_depth_chunk(float* dst, const float* src, int rows,
-                                                 int nrows, int D, int d0, int dcp, int stride) {
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// Columns [d0, d0 + dcp) of rows [0, rows) of a [*, D] f32 or bf16 matrix
+// into shared memory as f32 at row stride `stride`, zero-filling columns >= D
+// and rows >= nrows.
+template <typename T>
+__device__ __forceinline__ void load_depth_chunk(float* dst, const T* src, int rows, int nrows,
+                                                 int D, int d0, int dcp, int stride) {
   for (int i = threadIdx.x; i < rows * dcp; i += kThreads) {
     const int r = i / dcp;
     const int d = d0 + i - r * dcp;
-    dst[r * stride + d - d0] = (d < D && r < nrows) ? src[(size_t)r * D + d] : 0.0f;
+    dst[r * stride + d - d0] = (d < D && r < nrows) ? to_f32(src[(size_t)r * D + d]) : 0.0f;
   }
 }
 
@@ -112,10 +128,9 @@ __device__ __forceinline__ void load_depth_chunk(float* dst, const float* src, i
 // D the caller has loaded the tile into qs once (load_depth_chunk at d0 = 0)
 // and it stays there; a deeper D brings each chunk of the tile with the
 // segment's.
-template <int R>
+template <int R, typename T>
 __device__ __forceinline__ void chunk_dots(float (&acc)[R][4], float* qs, float* seg,
-                                           const float* q, int nq, const float* rows, int D,
-                                           int dcp) {
+                                           const T* q, int nq, const T* rows, int D, int dcp) {
   for (int d0 = 0; d0 < D; d0 += dcp) {
     __syncthreads();  // the previous chunk is consumed (and the query tile written)
     if (D > dcp) load_depth_chunk(qs, q, kWarps * R, nq, D, d0, dcp, dcp);
@@ -125,10 +140,10 @@ __device__ __forceinline__ void chunk_dots(float (&acc)[R][4], float* qs, float*
   }
 }
 
-template <int R>
+template <int R, typename T>
 __global__ void __launch_bounds__(kThreads)
 grouped_scan_kernel(const int* __restrict__ gp, const int* __restrict__ gsize,
-                    const float* __restrict__ qg, const float* __restrict__ codes,
+                    const T* __restrict__ qg, const T* __restrict__ codes,
                     const float* __restrict__ normsT, float* __restrict__ out,
                     int D, int C, int kk, float slot_mult, float levels) {
   constexpr int qt = kWarps * R;
@@ -145,9 +160,9 @@ grouped_scan_kernel(const int* __restrict__ gp, const int* __restrict__ gsize,
     return;
   }
   const int p = gp[g];
-  const float* qsrc = qg + (size_t)g * qt * D;
+  const T* qsrc = qg + (size_t)g * qt * D;
   if (D <= dcp) load_depth_chunk(qs, qsrc, qt, qt, D, 0, dcp, dcp);
-  const float* slab = codes + (size_t)p * C * D;
+  const T* slab = codes + (size_t)p * C * D;
   const float* nrm = normsT + (size_t)p * C;
 
   float m1[R][4], m2[R][4];
@@ -185,10 +200,15 @@ grouped_scan_kernel(const int* __restrict__ gp, const int* __restrict__ gsize,
 // Built with -DQK_PRODUCT_ONLY (a timing aid, never the package's build) the
 // body keeps its loads and products and drops the keys, the fold and the
 // rounds: a running maximum stands in for them, and what it writes is no result.
-template <int QT>
+//
+// kBf16: bf16 codes and query tiles, the tiles read as 32-bit words (two bf16
+// values a word) and multiplied by mma_tile_bf16; qg then points at the bf16
+// tiles and D counts bf16 columns. Everything else is the f32 body's: a box
+// is 128 bytes of a row, and a box holds four depth steps in both.
+template <int QT, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
 grouped_scan_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __restrict__ gp,
-                        const int* __restrict__ gsize, const float* __restrict__ qg,
+                        const int* __restrict__ gsize, const void* __restrict__ qg_raw,
                         const float* __restrict__ normsT, float* __restrict__ out, int Gn,
                         int D, int NB, int NBS, int C, int kk, float slot_mult, float levels) {
   constexpr int MT = QT >= 32 ? 2 : 1;       // m16-tiles per warp
@@ -206,7 +226,10 @@ grouped_scan_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __r
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g4 = lane >> 2, t4 = lane & 3;
   const int row0 = (warp / NW) * (16 * MT), col0 = (warp % NW) * (8 * NT);
-  const int ksteps = (D + 7) >> 3;
+  const int W = kBf16 ? D >> 1 : D;                        // 32-bit words of a row
+  const int ksteps = kBf16 ? (D + 15) >> 4 : (D + 7) >> 3;  // depth steps, four a box
+  const int box_cols = kBf16 ? 2 * kBox : kBox;            // elements of a box row
+  const float* qg = static_cast<const float*>(qg_raw);     // the tiles' words
   const int ND = (NB + NBS - 1) / NBS;  // depth chunks a segment: a stage holds NBS boxes
   const int step = gridDim.x;
 
@@ -232,7 +255,7 @@ grouped_scan_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __r
   auto prefetch = [&](int stage) {
     if (pg < Gn) {
       segment_load_async(ring + stage * NBS * kSegBox, &cmap, prow + ps * kFold, pd * NBS,
-                         min(NBS, NB - pd * NBS), bars + stage);
+                         min(NBS, NB - pd * NBS), bars + stage, box_cols);
       if (++pd < ND) return;
       pd = 0;
       if (++ps == pnseg) {
@@ -257,7 +280,7 @@ grouped_scan_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __r
       nseg = (size + kFold - 1) / kFold;
       nrm = normsT + (size_t)gp[cg] * C;
       // The last product of the previous group ended before a barrier.
-      query_tile_load(qs, qg + (size_t)cg * QT * D, QT, QR, D, NB);
+      query_tile_load(qs, qg + (size_t)cg * QT * W, QT, QR, W, NB);
 #pragma unroll
       for (int ti = 0; ti < T; ++ti)
 #pragma unroll
@@ -273,8 +296,12 @@ grouped_scan_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __r
     mbar_wait(bars + stage, (parity >> stage) & 1u);  // the current stage has landed
     parity ^= 1u << stage;
     __syncthreads();  // and the query tile is in place
-    mma_tile<MT, NT>(acc, qs + cd * NBS * QR * kBox, ring + stage * NBS * kSegBox, row0, col0, QR,
-                     min(4 * NBS, ksteps - 4 * NBS * cd), cd == 0);
+    if constexpr (kBf16)
+      mma_tile_bf16<MT, NT>(acc, qs + cd * NBS * QR * kBox, ring + stage * NBS * kSegBox, row0,
+                            col0, QR, min(4 * NBS, ksteps - 4 * NBS * cd), cd == 0);
+    else
+      mma_tile<MT, NT>(acc, qs + cd * NBS * QR * kBox, ring + stage * NBS * kSegBox, row0, col0,
+                       QR, min(4 * NBS, ksteps - 4 * NBS * cd), cd == 0);
     if (cd + 1 < ND) {  // the segment's next depth chunk adds to acc
       __syncthreads();  // the stage is consumed: its buffer may be refilled
       stage ^= 1;
@@ -346,25 +373,35 @@ grouped_scan_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __r
   }
 }
 
-// Shared memory of the tensor-core body with ring stages of NBS boxes, in
-// bytes: room to reach a 1024-byte boundary, ring, query tile, value tile, the
-// two stage barriers.
-inline size_t grouped_scan_mma_smem(int qt, int D, int NBS) {
+// Shared memory of the tensor-core body with ring stages of NBS boxes and rows
+// of W 32-bit words (D f32 or 2 W bf16 values), in bytes: room to reach a
+// 1024-byte boundary, ring, query tile, value tile, the two stage barriers.
+inline size_t grouped_scan_mma_smem(int qt, int W, int NBS) {
   return 1024 + 16 +
-         (size_t)(2 * NBS * kSegBox + tile_boxes(D) * (qt < 16 ? 16 : qt) * kBox +
+         (size_t)(2 * NBS * kSegBox + tile_boxes(W) * (qt < 16 ? 16 : qt) * kBox +
                   qt * kTileStride) *
              sizeof(float);
 }
 
-// Boxes of a ring stage of the tensor-core body: all of D's, or the most of
-// 4, 2 and 1 that fits beside the whole-D query tile. 0: the body does not
-// serve the shape (D % 4 != 0, or no stage fits).
-inline int grouped_scan_stage_boxes(int qt, int D) {
-  if (D % 4 != 0) return 0;
-  return ring_stage_boxes(D, [&](int NBS) { return grouped_scan_mma_smem(qt, D, NBS); });
+// 32-bit words of a row of D columns, or 0 where a row is not 16-byte aligned
+// for the copies (f32: D % 4 != 0; bf16: D % 8 != 0).
+inline int row_words(int D, bool bf16) {
+  if (D % (bf16 ? 8 : 4) != 0) return 0;
+  return bf16 ? D / 2 : D;
 }
 
-inline bool grouped_scan_uses_mma(int qt, int D) { return grouped_scan_stage_boxes(qt, D) > 0; }
+// Boxes of a ring stage of the tensor-core body: all of D's, or the most of
+// 4, 2 and 1 that fits beside the whole-D query tile. 0: the body does not
+// serve the shape (rows not 16-byte aligned, or no stage fits).
+inline int grouped_scan_stage_boxes(int qt, int D, bool bf16) {
+  const int W = row_words(D, bf16);
+  if (W == 0) return 0;
+  return ring_stage_boxes(W, [&](int NBS) { return grouped_scan_mma_smem(qt, W, NBS); });
+}
+
+inline bool grouped_scan_uses_mma(int qt, int D, bool bf16) {
+  return grouped_scan_stage_boxes(qt, D, bf16) > 0;
+}
 
 // ---------------------------------------------------------------------------
 // K2: pool merge.
@@ -835,23 +872,26 @@ flat_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap,
   }
 }
 
+template <bool kBf16>
 int launch_grouped_scan_mma(const void* gp, const void* gsize, const void* qg, const void* codes,
                             const void* normsT, void* out, int Gn, int qt, int D, int P, int C,
                             int kk, float slot_mult, float levels, cudaStream_t st) {
-  const int NBS = grouped_scan_stage_boxes(qt, D);
-  const size_t smem = grouped_scan_mma_smem(qt, D, NBS);
+  const int W = row_words(D, kBf16);
+  const int NBS = grouped_scan_stage_boxes(qt, D, kBf16);
+  const size_t smem = grouped_scan_mma_smem(qt, W, NBS);
   const int grid = Gn < sm_count() ? Gn : sm_count();
   CUtensorMap cmap;
-  const int me = slab_tensor_map(&cmap, codes, (unsigned long long)P * C, D);
+  const int me = slab_tensor_map(&cmap, codes, (unsigned long long)P * C, D, kFold,
+                                 kBf16 ? 2 : 4);
   if (me != 0) return me;
-#define QK_GROUPED_MMA(QT)                                                              \
-  case QT: {                                                                            \
-    cudaError_t e = allow_smem(grouped_scan_mma_kernel<QT>, smem);                      \
-    if (e != cudaSuccess) return (int)e;                                                \
-    grouped_scan_mma_kernel<QT><<<grid, kThreads, smem, st>>>(                          \
-        cmap, (const int*)gp, (const int*)gsize, (const float*)qg, (const float*)normsT, \
-        (float*)out, Gn, D, tile_boxes(D), NBS, C, kk, slot_mult, levels);              \
-    break;                                                                              \
+#define QK_GROUPED_MMA(QT)                                                                \
+  case QT: {                                                                              \
+    cudaError_t e = allow_smem(grouped_scan_mma_kernel<QT, kBf16>, smem);                 \
+    if (e != cudaSuccess) return (int)e;                                                  \
+    grouped_scan_mma_kernel<QT, kBf16><<<grid, kThreads, smem, st>>>(                     \
+        cmap, (const int*)gp, (const int*)gsize, qg, (const float*)normsT, (float*)out, Gn, \
+        D, tile_boxes(W), NBS, C, kk, slot_mult, levels);                                 \
+    break;                                                                                \
   }
   switch (qt) {
     QK_GROUPED_MMA(8)
@@ -862,6 +902,40 @@ int launch_grouped_scan_mma(const void* gp, const void* gsize, const void* qg, c
       return (int)cudaErrorInvalidValue;
   }
 #undef QK_GROUPED_MMA
+  return (int)cudaGetLastError();
+}
+
+// K1 on f32 codes (T = float) and on bf16 codes (T = __nv_bfloat16): qg and
+// codes in T, normsT and out in f32.
+template <typename T>
+int grouped_scan(const void* gp, const void* gsize, const void* qg, const void* codes,
+                 const void* normsT, void* out, int Gn, int qt, int D, int P, int C, int kk,
+                 float slot_mult, float levels, void* stream) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (Gn <= 0) return (int)cudaGetLastError();
+  if (grouped_scan_uses_mma(qt, D, kBf16))
+    return launch_grouped_scan_mma<kBf16>(gp, gsize, qg, codes, normsT, out, Gn, qt, D, P, C,
+                                          kk, slot_mult, levels, st);
+  const size_t smem = chunk_dots_smem(qt, D);
+#define QK_GROUPED(R)                                                                   \
+  case 8 * R: {                                                                         \
+    cudaError_t e = allow_smem(grouped_scan_kernel<R, T>, smem);                        \
+    if (e != cudaSuccess) return (int)e;                                                \
+    grouped_scan_kernel<R, T><<<Gn, kThreads, smem, st>>>(                              \
+        (const int*)gp, (const int*)gsize, (const T*)qg, (const T*)codes,               \
+        (const float*)normsT, (float*)out, D, C, kk, slot_mult, levels);                \
+    break;                                                                              \
+  }
+  switch (qt) {
+    QK_GROUPED(1)
+    QK_GROUPED(2)
+    QK_GROUPED(4)
+    QK_GROUPED(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef QK_GROUPED
   return (int)cudaGetLastError();
 }
 
@@ -885,37 +959,27 @@ int qk_empty(int grid, void* stream) {
 const char* qk_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 // 1 when the launcher runs the tensor-core body at this shape, 0 for the
-// CUDA-core body.
-int qk_grouped_scan_uses_mma(int qt, int D) { return grouped_scan_uses_mma(qt, D) ? 1 : 0; }
+// CUDA-core body: f32 codes, and bf16 codes.
+int qk_grouped_scan_uses_mma(int qt, int D) {
+  return grouped_scan_uses_mma(qt, D, false) ? 1 : 0;
+}
+int qk_grouped_scan_bf16_uses_mma(int qt, int D) {
+  return grouped_scan_uses_mma(qt, D, true) ? 1 : 0;
+}
 
 int qk_grouped_scan(const void* gp, const void* gsize, const void* qg, const void* codes,
                     const void* normsT, void* out, int Gn, int qt, int D, int P, int C, int kk,
                     float slot_mult, float levels, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (Gn <= 0) return (int)cudaGetLastError();
-  if (grouped_scan_uses_mma(qt, D))
-    return launch_grouped_scan_mma(gp, gsize, qg, codes, normsT, out, Gn, qt, D, P, C, kk,
-                                   slot_mult, levels, st);
-  const size_t smem = chunk_dots_smem(qt, D);
-#define QK_GROUPED(R)                                                                   \
-  case 8 * R: {                                                                         \
-    cudaError_t e = allow_smem(grouped_scan_kernel<R>, smem);             \
-    if (e != cudaSuccess) return (int)e;                                                \
-    grouped_scan_kernel<R><<<Gn, kThreads, smem, st>>>(                                 \
-        (const int*)gp, (const int*)gsize, (const float*)qg, (const float*)codes,       \
-        (const float*)normsT, (float*)out, D, C, kk, slot_mult, levels);                \
-    break;                                                                              \
-  }
-  switch (qt) {
-    QK_GROUPED(1)
-    QK_GROUPED(2)
-    QK_GROUPED(4)
-    QK_GROUPED(8)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef QK_GROUPED
-  return (int)cudaGetLastError();
+  return grouped_scan<float>(gp, gsize, qg, codes, normsT, out, Gn, qt, D, P, C, kk, slot_mult,
+                             levels, stream);
+}
+
+// K1 on bf16 codes: qg and codes bf16, the rest as qk_grouped_scan's.
+int qk_grouped_scan_bf16(const void* gp, const void* gsize, const void* qg, const void* codes,
+                         const void* normsT, void* out, int Gn, int qt, int D, int P, int C,
+                         int kk, float slot_mult, float levels, void* stream) {
+  return grouped_scan<__nv_bfloat16>(gp, gsize, qg, codes, normsT, out, Gn, qt, D, P, C, kk,
+                                     slot_mult, levels, stream);
 }
 
 int qk_merge_positions(const void* mp, void* out, int B, int pool, int kfin, int lane_mult,

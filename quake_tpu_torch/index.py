@@ -26,7 +26,7 @@ import torch
 from quake_tpu_torch import coordinator
 from quake_tpu_torch.geometry import effective_dimension
 from quake_tpu_torch.kmeans import balance_clusters, kmeans_fit_assign, kmeans_np
-from quake_tpu_torch.ops.grouped import grouped_scan_xla
+from quake_tpu_torch.ops.grouped import BF16_OPERANDS, grouped_scan_xla
 from quake_tpu_torch.ops.grouped_scan import QTS, grouped_scan_uses_mma
 from quake_tpu_torch.ops.scan import scores_to_distances
 from quake_tpu_torch.params import IndexBuildParams, SearchParams, check_metric
@@ -40,13 +40,13 @@ MIN_BATCH = 16  # smaller batches take the query-major path
 SERIALIZATION_VERSION = 1  # the JAX package's save format (quake_tpu/index.py:47)
 
 # ROADMAP Queue 1 items that lift the NotImplementedError guards below.
-BF16 = "ROADMAP Queue 1 item 5: bf16 codes"
-INEXACT = "ROADMAP Queue 1 item 4: exact_distances=False"
 SPILL = "ROADMAP Queue 1 item 6: spill and dedup"
 APS = "ROADMAP Queue 1 item 7: APS"
 MAINTENANCE = "ROADMAP Queue 1 item 8: maintenance"
 MULTI_LEVEL = "ROADMAP Queue 1 item 10: multi-level parents and bounds=\"sampled\""
 PARALLEL = "ROADMAP Queue 1 item 11: parallel"
+
+CODE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}  # IndexBuildParams.precision
 
 # The APS calibration a saved index carries (quake_tpu/index.py:1831-1840),
 # with the JAX package's defaults: kept as attributes of these names, written
@@ -114,8 +114,11 @@ class QuakeIndex:
                 and torch.cuda.device_count() >= n_workers)
 
     def _check_build_params(self, bp: IndexBuildParams, n: int) -> None:
-        if bp.precision != "f32":
-            raise _not_ported(f"precision={bp.precision!r}", BF16)
+        if bp.precision not in CODE_DTYPES:
+            raise ValueError(f"precision must be one of {list(CODE_DTYPES)}, not "
+                             f"{bp.precision!r}")
+        if bp.nlist > 1 and bp.parent_params is not None and bp.parent_params.precision == "bf16":
+            raise _not_ported("a bf16 parent (kernel K3 has no bf16 body)", BF16_OPERANDS)
         if bp.spill:
             raise _not_ported("spill=True", SPILL)
         if bp.num_shards > 1 or self._would_shard(bp.num_workers):
@@ -145,7 +148,7 @@ class QuakeIndex:
             raise ValueError("ids length must match number of vectors")
         self._validate_new_ids(ids, check_resident=False)
 
-        self.store = PartitionStore(d, self.device)
+        self.store = PartitionStore(d, self.device, dtype=CODE_DTYPES[bp.precision])
         timing = BuildTimingInfo(n_vectors=n, n_clusters=max(bp.nlist, 1), d=d)
         if bp.nlist > 1:
             self.aps_dimension = effective_dimension(x)
@@ -219,8 +222,6 @@ class QuakeIndex:
         return SearchResult(ids=ids_np, distances=dists_np, timing_info=timing)
 
     def _check_search(self, sp: SearchParams) -> None:
-        if not sp.exact_distances:
-            raise _not_ported("exact_distances=False", INEXACT)
         if self.parent is None:
             return  # a flat index scans everything, whatever the recall target
         if sp.recall_target > 0:
@@ -234,7 +235,9 @@ class QuakeIndex:
         launches enqueued and not waited for. Batches of at least 16 queries
         take the fused partition-major path unless batched_scan is False; a
         flat index scans every slot; the rest goes query by query through
-        _search_device."""
+        _search_device. exact_distances=False dequantizes the scores of the
+        fused path's v10/v11 scans; the flat and query-major searches, and
+        every other scan, stay exact, as in the JAX package."""
         B = int(q.shape[0])
         self._check_search(sp)
         k = max(int(sp.k), 1)
@@ -258,7 +261,8 @@ class QuakeIndex:
             state.codes, state.ids, state.sizes, state.norms,
             pstate.codes, pstate.ids, q, k=k, nprobe=parent_k, metric=self.metric,
             qt=qt, kernel=self._grouped_kernel(), parent_norms=pstate.norms,
-            group_chunk=group_chunk, parent_kernel=self._parent_kernel(), stages=stages)
+            group_chunk=group_chunk, parent_kernel=self._parent_kernel(),
+            exact=bool(sp.exact_distances), stages=stages)
         timing.partitions_scanned = parent_k
         timing.parent_info = SearchTimingInfo(
             n_queries=B, n_clusters=self.parent.nlist(),
@@ -324,23 +328,28 @@ class QuakeIndex:
         rule gives up on its Pallas kernels (a slab too large for its fast
         memory), K1 still runs, at gpb = 1: its bodies serve every D (the
         query-tile height follows D, see _k1_qt). A CPU index runs v11 on
-        the plain versions where the JAX package runs "xla" off the TPU."""
+        the plain versions where the JAX package runs "xla" off the TPU. The
+        slab's bytes count 2 an element for bf16 codes, as in the JAX
+        package (gpb sets the placement, so both packages place alike)."""
         override = os.environ.get("QUAKE_TPU_KERNEL")
         if override:
             return override
-        slab = self.store.C * self.d() * 4
+        slab = self.store.C * self.d() * self.store.state.codes.element_size()
         gpb = max(1, min(4, (12 << 20) // max(2 * slab, 1)))
         return f"v11g{gpb}"
 
     def _k1_qt(self, qt: int) -> int:
         """The largest query-tile height of 64, 32, 16 and 8, at most qt, at
-        which kernel K1 runs its tensor-core body for this index's D, asked
-        of the built library (ops/grouped_scan.grouped_scan_uses_mma); qt
-        itself where there is none (D % 4 != 0, or a D too wide for any
-        tile: the CUDA-core body serves every D at every height). A kernel
-        row's selection reads only its own query and its partition, so qt
-        changes no result."""
-        return next((t for t in QTS if t <= qt and grouped_scan_uses_mma(t, self.d())), qt)
+        which kernel K1 runs its tensor-core body for this index's D and
+        codes dtype, asked of the built library
+        (ops/grouped_scan.grouped_scan_uses_mma); qt itself where there is
+        none (a row not 16-byte aligned, or a D too wide for any tile: the
+        CUDA-core body serves every D at every height). A kernel row's
+        selection reads only its own query and its partition, so qt changes
+        no result."""
+        dtype = self.store.state.codes.dtype
+        return next((t for t in QTS if t <= qt and grouped_scan_uses_mma(t, self.d(), dtype)),
+                    qt)
 
     def _parent_kernel(self) -> str:
         """Parent ranking of the fused fixed-nprobe path, read at each search:
@@ -359,7 +368,8 @@ class QuakeIndex:
         in [8, 64]; on a CUDA index it then drops to the largest height at
         which kernel K1's tensor-core body serves D (_k1_qt; D = 768 runs at
         qt = 32), where one does. group_chunk, the groups the "xla" scan gathers at a time,
-        keeps a chunk's slabs near 128 MB, within [8, 128]."""
+        keeps a chunk's slabs near 128 MB, within [8, 128], counting 4 bytes
+        an element whatever the codes' dtype, as the JAX package does."""
         qt = min(64, max(8, next_pow2(B * parent_k // max(self.nlist(), 1) or 1)))
         if self.device.type == "cuda":
             qt = self._k1_qt(qt)
@@ -578,8 +588,9 @@ class QuakeIndex:
     def save(self, path: str) -> None:
         """Directory save in the JAX package's format (quake_index.cpp:
         170-206, quake_tpu/index.py:1815-1870): metadata.json, the store's
-        arrays as .npy (norms are derived, and recomputed on load) and a
-        recursive parent/. Either package loads what the other saved."""
+        arrays as .npy (bf16 codes as their uint16 bit view, np.save has no
+        bf16; norms are derived, and recomputed on load) and a recursive
+        parent/. Either package loads what the other saved."""
         self._flush_mutations()
         os.makedirs(path, exist_ok=True)
         state = self.store.state
@@ -590,7 +601,7 @@ class QuakeIndex:
             "dimension": self.d(),
             "ntotal": self.ntotal(),
             "nlist": self.nlist(),
-            "precision": "f32",
+            "precision": "bf16" if state.codes.dtype == torch.bfloat16 else "f32",
             "has_parent": self.parent is not None,
             "aps_dimension": self.aps_dimension,
             **{name: getattr(self, name) for name in APS_FIELDS},
@@ -602,7 +613,13 @@ class QuakeIndex:
             meta["aps_radius_ab"] = np.asarray(self.aps_radius_ab).tolist()
         with open(os.path.join(path, "metadata.json"), "w") as f:
             json.dump(meta, f)
-        for name in ("codes", "ids", "sizes", "centroids", "active"):
+        codes = state.codes
+        if codes.dtype == torch.bfloat16:  # saved as the uint16 view of its bits
+            codes = codes.view(torch.int16).cpu().numpy().view(np.uint16)
+        else:
+            codes = codes.cpu().numpy()
+        np.save(os.path.join(path, "codes.npy"), codes)
+        for name in ("ids", "sizes", "centroids", "active"):
             np.save(os.path.join(path, f"{name}.npy"), getattr(state, name).cpu().numpy())
         np.save(os.path.join(path, "generation.npy"), self.store.generation)
         if self.latency_profile_csv is not None:
@@ -614,15 +631,18 @@ class QuakeIndex:
     def load(self, path: str, n_workers: int = 0) -> "QuakeIndex":
         """Load a saved index onto this index's device (quake_index.cpp:
         208-267, quake_tpu/index.py:1872-1964): the arrays, the free rows and
-        the generation counters as saved, the norms recomputed from the
-        codes, the id map rebuilt from the slots. bf16 codes, a spilled index
-        and sharding over n_workers devices raise NotImplementedError."""
+        the generation counters as saved, the codes in the precision the
+        metadata names (bf16 from the uint16 bit view), the norms recomputed
+        from the codes, the id map rebuilt from the slots. A bf16 parent, a
+        spilled index and sharding over n_workers devices raise
+        NotImplementedError."""
         with open(os.path.join(path, "metadata.json")) as f:
             meta = json.load(f)
         if meta["version"] != SERIALIZATION_VERSION:
             raise ValueError(f"unsupported serialization version {meta['version']}")
-        if meta.get("precision", "f32") != "f32":
-            raise _not_ported(f"loading precision={meta['precision']!r}", BF16)
+        bf16 = meta.get("precision") == "bf16"
+        if bf16 and self.level > 0:
+            raise _not_ported("a bf16 parent (kernel K3 has no bf16 body)", BF16_OPERANDS)
         if meta.get("spill", False):
             raise NotImplementedError(SPILL_NOT_PORTED)
         if self._would_shard(n_workers):
@@ -638,10 +658,17 @@ class QuakeIndex:
         self.soar_lambda = float(meta.get("soar_lambda", 1.0))
 
         arrays = {name: torch.from_numpy(np.load(os.path.join(path, f"{name}.npy")))
-                  .to(self.device) for name in ("codes", "ids", "sizes", "centroids", "active")}
+                  .to(self.device) for name in ("ids", "sizes", "centroids", "active")}
+        codes = np.load(os.path.join(path, "codes.npy"))
+        codes = (torch.from_numpy(codes.view(np.int16)).view(torch.bfloat16)
+                 if codes.dtype == np.uint16 else torch.from_numpy(codes))
+        # In the precision the metadata names, as the JAX package's
+        # jnp.asarray(codes, dtype) gives it.
+        arrays["codes"] = codes.to(self.device).to(torch.bfloat16 if bf16 else torch.float32)
         # Norms are derived data: recomputed, as the JAX package does.
         arrays["norms"] = _sumsq(arrays["codes"])
-        self.store = PartitionStore(meta["dimension"], self.device)
+        self.store = PartitionStore(meta["dimension"], self.device,
+                                    dtype=arrays["codes"].dtype)
         self.store.init_from_state(StoreState(**arrays), free_rows=meta["free_rows"],
                                    generation=np.load(os.path.join(path, "generation.npy")))
         csv_path = os.path.join(path, "latency_profile.csv")
@@ -654,7 +681,8 @@ class QuakeIndex:
             self.parent = QuakeIndex(level=self.level + 1, device=self.device)
             self.parent.load(os.path.join(path, "parent"))
         self.build_params = IndexBuildParams(dimension=meta["dimension"], nlist=meta["nlist"],
-                                             metric=self.metric)
+                                             metric=self.metric,
+                                             precision="bf16" if bf16 else "f32")
         return self
 
     # ------------------------------------------------------------- accessors

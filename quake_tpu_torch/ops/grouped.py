@@ -179,13 +179,15 @@ def build_chunk_groups(pids: torch.Tensor, sizes: torch.Tensor, nlist_cap: int, 
 def group_scores(qg, slab, sids, metric: str, snorms=None):
     """qg [Gc, QT, D], slab [Gc, C, D], sids [Gc, C] -> scores [Gc, QT, C]
     (quake_tpu/ops/grouped.py::_group_scores). snorms: optional [Gc, C]
-    cached squared norms of the slab; -inf where sids < 0."""
-    prod = torch.bmm(qg, slab.transpose(1, 2))
+    cached squared norms of the slab; -inf where sids < 0. bf16 operands
+    (the query tiles already rounded to bf16) are multiplied in f32: a
+    product of two bf16 values is exact there, as in the JAX package's
+    f32-accumulating dot."""
+    qf, sf = qg.to(torch.float32), slab.to(torch.float32)
+    prod = torch.bmm(qf, sf.transpose(1, 2))
     if metric == "l2":
-        qf = qg.to(torch.float32)
         q_sq = torch.sum(qf * qf, dim=2)
         if snorms is None:
-            sf = slab.to(torch.float32)
             snorms = torch.sum(sf * sf, dim=2)
         scores = 2.0 * prod - q_sq[:, :, None] - snorms[:, None, :]
     else:
@@ -195,6 +197,15 @@ def group_scores(qg, slab, sids, metric: str, snorms=None):
 
 DEDUP_NOT_PORTED = ("dedup (spilled stores) is not ported yet "
                     "(ROADMAP Queue 1 item 6: spill and dedup)")
+BF16_OPERANDS = "ROADMAP Queue 2 part A item 5: bf16 operands"
+
+
+def refuse_bf16(dtype, what: str) -> None:
+    """A scan whose kernel has no bf16 body refuses bf16 codes (dtype: the
+    codes') by name, on every device: its plain version is no stand-in for
+    the kernel."""
+    if dtype == torch.bfloat16:
+        raise NotImplementedError(f"{what} on bf16 codes is not ported yet ({BF16_OPERANDS})")
 
 
 def merge_groups(g_scores, g_ids, pair_group, pair_slot, pids, k: int, kk: int,

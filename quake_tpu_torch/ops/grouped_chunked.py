@@ -30,7 +30,8 @@ from __future__ import annotations
 import torch
 
 from quake_tpu_torch import _ext
-from quake_tpu_torch.ops.grouped import DEDUP_NOT_PORTED, build_chunk_groups, build_groups
+from quake_tpu_torch.ops.grouped import (DEDUP_NOT_PORTED, build_chunk_groups, build_groups,
+                                          refuse_bf16)
 from quake_tpu_torch.ops.grouped_family import (MIN_RANGE, check_refs, pair_take, rowscale_scan,
                                                 rowscale_search, topk_cap)
 from quake_tpu_torch.ops.grouped_scan import (FOLD, SMEM_LIMIT, packed_params, pad_groups,
@@ -209,6 +210,7 @@ def grouped_scan_v5(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: 
         raise NotImplementedError(DEDUP_NOT_PORTED)
     B = q.shape[0]
     P, C, _ = codes.shape
+    refuse_bf16(codes.dtype, "kernel K7 (v5)")
     _check_chunked("v5", P, C, ct)
     kk = min(k, ct)
     slot_mult, levels = packed_params(ct)
@@ -251,6 +253,7 @@ def grouped_scan_v4(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: 
         raise NotImplementedError(DEDUP_NOT_PORTED)
     B, nprobe = pids.shape
     P, C, _ = codes.shape
+    refuse_bf16(codes.dtype, "kernel K4 with a chunk table (v4)")
     _check_chunked("v4", P, C, ct)
     kk = min(k, ct)
     slot_mult, levels = packed_params(ct)

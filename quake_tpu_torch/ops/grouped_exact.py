@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from quake_tpu_torch import _ext
-from quake_tpu_torch.ops.grouped import build_groups, merge_groups
+from quake_tpu_torch.ops.grouped import build_groups, merge_groups, refuse_bf16
 from quake_tpu_torch.ops.grouped_family import topk_cap
 from quake_tpu_torch.ops.grouped_scan import FOLD, SMEM_LIMIT
 from quake_tpu_torch.ops.scan import NEG_INF
@@ -160,6 +160,7 @@ def exact_scan(gp, qg, codes, kk: int, metric: str, mode: str, group_size=None, 
 
 
 def _exact_groups(q, pids, P: int, qt: int, dtype):
+    refuse_bf16(dtype, "kernel K6 (v3, v2)")
     group_pid, qlist, pair_group, pair_slot = build_groups(pids, P, qt)
     safe_q = torch.clamp(qlist, min=0).long()
     return group_pid, safe_q, q.to(dtype)[safe_q].contiguous(), pair_group, pair_slot

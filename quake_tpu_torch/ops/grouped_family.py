@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from quake_tpu_torch import _ext
-from quake_tpu_torch.ops.grouped import DEDUP_NOT_PORTED, build_groups
+from quake_tpu_torch.ops.grouped import DEDUP_NOT_PORTED, build_groups, refuse_bf16
 from quake_tpu_torch.ops.grouped_scan import (FOLD, SMEM_LIMIT, fold_rounds, global_scale,
                                               grouped_scan_kernel, packed_params, pad_groups,
                                               pool_tail, rescore_topk)
@@ -286,7 +286,9 @@ def check_refs(name: str, P: int, C: int) -> None:
 
 def rowscale_search(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int,
                      gpb: int, select: str, stages):
-    """Grouping, kernel K4 or K5, and the v3p epilogue."""
+    """Grouping, kernel K4 or K5, and the v3p epilogue (f32 codes: neither
+    kernel has a bf16 body)."""
+    refuse_bf16(codes.dtype, "kernels K4 and K5 (v3p, v3pN, v6, v7)")
     P, C, _ = codes.shape
     kk = min(k, C)
     slot_mult, levels = packed_params(C)
@@ -357,10 +359,10 @@ def grouped_scan_v8(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: 
     check_refs("v8", P, C)
     kk = min(k, C)
     slot_mult, levels = packed_params(C)
-    q_scaled, normsT = global_scale(q, norms, metric, levels)
+    q_scaled, normsT, _, _ = global_scale(q, norms, metric, levels)
     group_pid, qlist, pair_group, pair_slot = build_groups(pids, P, qt)
     gp, _, group_size, safe_q = pad_groups(group_pid, qlist, sizes, gpb)
-    qg = q_scaled[safe_q].contiguous()  # [Gn, qt, D]
+    qg = q_scaled.to(codes.dtype)[safe_q].contiguous()  # [Gn, qt, D], rounded as the codes
     mark_stage(stages, "grouping")
     g_packed = grouped_scan_kernel(gp, group_size, qg, codes, normsT, kk, slot_mult, levels)
     mark_stage(stages, "scan")

@@ -12,15 +12,19 @@ One call, `grouped_scan_v11`, turns probe lists into the per-query top-k:
              nprobe kernel rows contiguously
   merge      kernel K2 (`merge_positions`): per-query pool merge of the
              placed rows to kfin winner positions
-  rescore    exact f32 distances of the winners, final top-k
+  rescore    exact f32 distances of the winners, final top-k; or, with
+             exact=False (SearchParams.exact_distances=False), scores
+             dequantized from the winners' keys and no rescore
 
 `grouped_scan_v10` is the same scan with the v10 scatter placement, which
 also serves pid matrices that hold -1 (fixed-nprobe semantics not promised).
 
 K1 and K2 are CUDA kernels (csrc/quake_kernels.cu); each wrapper runs its
 plain PyTorch version on CPU tensors and launches the kernel on CUDA tensors.
-K1 multiplies on the tensor cores with split TF32 operands that keep f32
-accuracy (ops/split_product.py is the plain model of that product).
+On f32 codes K1 multiplies on the tensor cores with split TF32 operands that
+keep f32 accuracy (ops/split_product.py is the plain model of that product);
+on bf16 codes (the queries rounded to bf16, as in the JAX package) with one
+bf16 product a depth-16 step, exact in its f32 accumulator.
 Selection is approximate at the fold-column level (at most two winners per
 fold column), as in the JAX package; parity tests assert row overlap.
 """
@@ -40,13 +44,16 @@ SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 QTS = (64, 32, 16, 8)  # query-tile heights kernel K1 is built for
 
 
-def grouped_scan_uses_mma(qt: int, D: int) -> bool:
-    """Whether kernel K1's launcher runs the tensor-core body at this shape
-    (csrc/quake_kernels.cu::grouped_scan_uses_mma, asked of the built
-    library): rows 16-byte aligned for the asynchronous copies (D % 4 == 0),
-    and a whole-D query tile that fits a block's shared memory beside the
-    ring (D up to 608 at qt = 64, 1408 at qt = 32). Otherwise it runs the
-    CUDA-core body, which streams D in depth chunks and serves every D."""
+def grouped_scan_uses_mma(qt: int, D: int, dtype=torch.float32) -> bool:
+    """Whether kernel K1's launcher runs a tensor-core body at this shape
+    and codes dtype (csrc/quake_kernels.cu::grouped_scan_uses_mma, asked of
+    the built library): rows 16-byte aligned for the asynchronous copies
+    (D % 4 == 0 in f32, D % 8 == 0 in bf16), and a whole-D query tile that
+    fits a block's shared memory beside the ring (f32: D up to 608 at qt =
+    64, 1408 at qt = 32; bf16 twice that). Otherwise it runs the CUDA-core
+    body of that dtype, which streams D in depth chunks and serves every D."""
+    if dtype == torch.bfloat16:
+        return bool(_ext.lib().qk_grouped_scan_bf16_uses_mma(qt, D))
     return bool(_ext.lib().qk_grouped_scan_uses_mma(qt, D))
 
 
@@ -103,7 +110,9 @@ def grouped_scan_plain(gp, group_size, qg, codes, normsT, kk: int,
                        slot_mult: int, levels: int, fold: int = FOLD,
                        chunk: int = 256):
     """Plain PyTorch version of kernel K1 (same inputs and outputs as
-    grouped_scan_kernel), computed `chunk` groups at a time."""
+    grouped_scan_kernel), computed `chunk` groups at a time. bf16 operands
+    are upcast and multiplied in f32 (each product of two bf16 values is
+    exact there; only the order of summation differs from the kernel's)."""
     Gn, qt, D = qg.shape
     P, C, _ = codes.shape
     out = torch.full((Gn, qt, kk), -1.0, device=qg.device, dtype=torch.float32)
@@ -115,7 +124,8 @@ def grouped_scan_plain(gp, group_size, qg, codes, normsT, kk: int,
         if alive.numel() == 0:
             continue
         p = gp[sl][alive].long()
-        prod = torch.bmm(qg[sl][alive], codes[p].transpose(1, 2))  # [a, qt, C]
+        prod = torch.bmm(qg[sl][alive].to(torch.float32),
+                         codes[p].to(torch.float32).transpose(1, 2))  # [a, qt, C]
         qk = torch.clamp(torch.floor(prod - normsT[p][:, None, :]), 0.0, float(levels))
         packed = qk * float(slot_mult) + lane.to(torch.float32)
         ok = (lane[None, :] < size[alive][:, None].long())[:, None, :]
@@ -130,17 +140,19 @@ def grouped_scan_kernel(gp, group_size, qg, codes, normsT, kk: int,
     """Kernel K1 (replaces pallas_grouped.py::_v9_kernel).
 
     gp [Gn] int32 partition per group; group_size [Gn] int32 (<= 0: ghost);
-    qg [Gn, qt, D] f32 queries scaled by q_coef; codes [P, C, D] f32; normsT
-    [P, C] f32 norms shifted by gmin and scaled by ginv. Returns [Gn, qt, kk]
-    f32 packed key*slot_mult + lane per row, descending (-1 = none; ghost
-    groups are all -1).
+    qg [Gn, qt, D] queries scaled by q_coef, in the codes' dtype; codes [P,
+    C, D] f32 or bf16; normsT [P, C] f32 norms shifted by gmin and scaled by
+    ginv. Returns [Gn, qt, kk] f32 packed key*slot_mult + lane per row,
+    descending (-1 = none; ghost groups are all -1).
 
-    The launcher picks one of two bodies by shape (`grouped_scan_uses_mma`):
-    the tensor-core body (split TF32 product, asynchronous copies) where
-    D % 4 == 0 (a row is 16-byte aligned) and the whole-D query tile fits
-    beside its ring, the CUDA-core body (f32, D in depth chunks: every D)
-    otherwise. Both compute the same function; neither is a fallback from a
-    failure."""
+    The launcher picks one of two bodies a dtype by shape
+    (`grouped_scan_uses_mma`): the tensor-core body (asynchronous copies; in
+    f32 the split TF32 product, in bf16 one bf16 product a depth-16 step)
+    where a row is 16-byte aligned (D % 4 == 0 in f32, D % 8 == 0 in bf16)
+    and the whole-D query tile fits beside its ring, the CUDA-core body (f32
+    arithmetic, D in depth chunks: every D) otherwise. Both compute the same
+    function; neither is a fallback from a failure. bf16 launches count
+    under "grouped_scan_bf16"."""
     Gn, qt, D = qg.shape
     P, C, _ = codes.shape
     if fold != FOLD or C % fold:
@@ -152,12 +164,15 @@ def grouped_scan_kernel(gp, group_size, qg, codes, normsT, kk: int,
         raise ValueError(f"grouped_scan_kernel: unsupported device {qg.device}")
     if qt not in (8, 16, 32, 64):
         raise ValueError(f"grouped_scan_kernel: qt must be 8, 16, 32 or 64 (qt={qt})")
-    mma = grouped_scan_uses_mma(qt, D)
+    cdt = codes.dtype
+    if cdt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"grouped_scan_kernel: codes must be float32 or bfloat16, not {cdt}")
+    mma = grouped_scan_uses_mma(qt, D, cdt)
     for name, t, dtype, shape in (
             ("gp", gp, torch.int32, (Gn,)),
             ("group_size", group_size, torch.int32, (Gn,)),
-            ("qg", qg, torch.float32, (Gn, qt, D)),
-            ("codes", codes, torch.float32, (P, C, D)),
+            ("qg", qg, cdt, (Gn, qt, D)),
+            ("codes", codes, cdt, (P, C, D)),
             ("normsT", normsT, torch.float32, (P, C))):
         if (t.device != qg.device or t.dtype != dtype or tuple(t.shape) != shape
                 or not t.is_contiguous()):
@@ -167,12 +182,13 @@ def grouped_scan_kernel(gp, group_size, qg, codes, normsT, kk: int,
         raise ValueError("grouped_scan_kernel: qg and codes must start on a 16-byte boundary, "
                          "normsT on an 8-byte one")
     out = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.float32)
-    rc = _ext.lib().qk_grouped_scan(
+    name = "grouped_scan_bf16" if cdt == torch.bfloat16 else "grouped_scan"
+    rc = getattr(_ext.lib(), f"qk_{name}")(
         gp.data_ptr(), group_size.data_ptr(), qg.data_ptr(), codes.data_ptr(),
         normsT.data_ptr(), out.data_ptr(), Gn, qt, D, P, C, kk,
         float(slot_mult), float(levels), _ext.stream_ptr(qg.device))
-    _ext.check(rc, "grouped_scan")
-    _ext.launches["grouped_scan"] += 1
+    _ext.check(rc, name)
+    _ext.launches[name] += 1
     return out
 
 
@@ -249,6 +265,39 @@ def _flat_row_take(arr_pc, pid, slot):
     return flat[pid.long() * C + slot.long()]
 
 
+def _pad_k(scores, out_ids, k: int):
+    """Reference -inf / -1 padding of [B, < k] results to [B, k]."""
+    if scores.shape[1] < k:
+        padn = k - scores.shape[1]
+        scores = torch.nn.functional.pad(scores, (0, padn), value=NEG_INF)
+        out_ids = torch.nn.functional.pad(out_ids, (0, padn), value=-1)
+    return scores, out_ids
+
+
+def _scanned(pids):
+    return torch.sum((pids >= 0).to(torch.int32), dim=1, dtype=torch.int32)
+
+
+def dequantized_tail(keys, top_refs, ids, q, k: int, metric: str, pids, gmin, ginv):
+    """Scores of the winners rebuilt from their global-scale keys, with no
+    vector gather (the exact=False tail of pallas_grouped.py::_pool_tail
+    and _rescore_topk): score = (key + 0.5) / ginv + gmin, minus |q|^2 of
+    the f32 query for l2; the winners keep the merge's order. keys,
+    top_refs [B, kfin] ((pid << 16 | slot), -1 = none). Returns (scores
+    [B, k] f32, ids [B, k] int32, scanned [B] int32)."""
+    score = (keys + 0.5) / ginv + gmin
+    if metric == "l2":
+        qf = q.to(torch.float32)
+        score = score - torch.sum(qf * qf, dim=1, keepdim=True)
+    ok = top_refs >= 0  # a -1 ref reads slot (0, 0), masked here
+    top_ids = _flat_row_take(ids, torch.clamp(top_refs >> 16, min=0),
+                             torch.where(ok, top_refs & 0xFFFF, torch.zeros_like(top_refs)))
+    top_ids = torch.where(ok, top_ids, torch.full_like(top_ids, -1))
+    score = torch.where(top_ids >= 0, score, torch.full_like(score, NEG_INF))
+    scores, out_ids = _pad_k(score[:, :k], top_ids[:, :k], k)
+    return scores, out_ids.to(torch.int32), _scanned(pids)
+
+
 def exact_rescore(top_refs, codes, ids, norms, q, k: int, kfin: int,
                   metric: str, pids):
     """Exact rescore of (pid << 16 | slot) winners + reference padding.
@@ -272,36 +321,40 @@ def exact_rescore(top_refs, codes, ids, norms, q, k: int, kfin: int,
     scores, out_ids = scores[:, :k], out_ids[:, :k]
     out_ids = torch.where(torch.isfinite(scores), out_ids, torch.full_like(out_ids, -1))
     scores = torch.where(out_ids >= 0, scores, torch.full_like(scores, NEG_INF))
-    if scores.shape[1] < k:
-        padn = k - scores.shape[1]
-        scores = torch.nn.functional.pad(scores, (0, padn), value=NEG_INF)
-        out_ids = torch.nn.functional.pad(out_ids, (0, padn), value=-1)
-    scanned = torch.sum((pids >= 0).to(torch.int32), dim=1, dtype=torch.int32)
-    return scores, out_ids.to(torch.int32), scanned
+    scores, out_ids = _pad_k(scores, out_ids, k)
+    return scores, out_ids.to(torch.int32), _scanned(pids)
 
 
 def rescore_topk(m_scores, m_refs, codes, ids, norms, q, k: int, kk: int,
-                 metric: str, pids, dedup: bool = False):
-    """General merge tail (pallas_grouped.py::_rescore_topk, exact): top-k
-    by pool score, then the exact rescore of the winners. kk (the per-group
-    candidate count) is part of the JAX signature and unused, as there."""
+                 metric: str, pids, dedup: bool = False, exact: bool = True,
+                 gmin=None, ginv=None):
+    """General merge tail (pallas_grouped.py::_rescore_topk without dedup):
+    top-k by pool score, then the exact rescore of the winners, or with
+    exact=False their scores dequantized from the keys (m_scores, given
+    the global scale's gmin and ginv). kk (the per-group candidate count)
+    is part of the JAX signature and unused, as there."""
     if dedup:
         raise NotImplementedError(DEDUP_NOT_PORTED)
-    _, idx = topk_stable(m_scores, k)
+    top_scores, idx = topk_stable(m_scores, k)
     top_refs = torch.gather(m_refs, 1, idx)
+    if not exact:
+        return dequantized_tail(top_scores, top_refs, ids, q, k, metric, pids, gmin, ginv)
     return exact_rescore(top_refs, codes, ids, norms, q, k,
                          min(k, idx.shape[1]), metric, pids)
 
 
 def pool_tail(m_packed, pid_cols, pids, codes, ids, norms, q, k: int, kk: int,
               metric: str, slot_mult: int, levels: int, pool_factor: int = 1,
-              stages=None, general: bool = False):
-    """Pool side of the v11 epilogues (pallas_grouped.py::_pool_tail, exact
-    and without dedup) and of the v8/v9 one (_global_epilogue): key merge,
-    winner ref derivation, exact rescore. pid_cols [B, nprobe] maps pool
-    column j -> j // kk -> the query's partition (ascending pids for the
-    sorted placement, probe order for argsort and v8/v9); pids is only used
-    for the scanned count. general forces the top-k merge instead of K2."""
+              stages=None, general: bool = False, exact: bool = True, gmin=None,
+              ginv=None):
+    """Pool side of the v11 epilogues (pallas_grouped.py::_pool_tail without
+    dedup) and of the v8/v9 one (_global_epilogue): key merge, winner ref
+    derivation, exact rescore, or with exact=False (v10 and v11 only) the
+    winners' scores dequantized from their keys with the global scale's
+    gmin and ginv (dequantized_tail). pid_cols [B, nprobe] maps pool column
+    j -> j // kk -> the query's partition (ascending pids for the sorted
+    placement, probe order for argsort and v8/v9); pids is only used for
+    the scanned count. general forces the top-k merge instead of K2."""
     B, nprobe = pids.shape
     pool = nprobe * kk
     lane_mult = pool_lane_mult(pool)
@@ -317,7 +370,8 @@ def pool_tail(m_packed, pid_cols, pids, codes, ids, norms, q, k: int, kk: int,
         m_scores = torch.where(ok, pool_keys(m_packed, slot_mult),
                                torch.full_like(m_packed, NEG_INF))
         mark_stage(stages, "merge")
-        out = rescore_topk(m_scores, m_refs, codes, ids, norms, q, k, kk, metric, pids)
+        out = rescore_topk(m_scores, m_refs, codes, ids, norms, q, k, kk, metric, pids,
+                           exact=exact, gmin=gmin, ginv=ginv)
         mark_stage(stages, "rescore")
         return out
 
@@ -331,7 +385,11 @@ def pool_tail(m_packed, pid_cols, pids, codes, ids, norms, q, k: int, kk: int,
     top_refs = torch.where(valid, (torch.clamp(wpid, min=0) << 16) | slot,
                            torch.full_like(slot, -1))
     mark_stage(stages, "merge")
-    out = exact_rescore(top_refs, codes, ids, norms, q, k, kfin, metric, pids)
+    if exact:
+        out = exact_rescore(top_refs, codes, ids, norms, q, k, kfin, metric, pids)
+    else:
+        out = dequantized_tail(torch.floor(pk / float(slot_mult)), top_refs, ids, q, k, metric,
+                               pids, gmin, ginv)
     mark_stage(stages, "rescore")
     return out
 
@@ -410,13 +468,14 @@ def global_scale(q, norms, metric: str, levels: int, bounds: str = "analytic"):
     entirely into scaled queries (the score's <q, x> coefficient times
     ginv) and shifted norms ((|x|^2 +) gmin, times ginv), so the kernel's
     quantize is floor(<q', x> - normsT). Returns (q_scaled [B, D] f32,
-    normsT [P, C] f32)."""
+    normsT [P, C] f32, gmin, ginv), the last two 0-d f32 tensors (the
+    dequantized tail's scale)."""
     qf = q.to(torch.float32)
     gmin, grange = global_bounds(qf, norms, metric, bounds)
     ginv = float(levels) / grange
     q_coef = 2.0 * ginv if metric == "l2" else ginv
     base = norms if metric == "l2" else torch.zeros_like(norms)
-    return qf * q_coef, ((base + gmin) * ginv).contiguous()
+    return qf * q_coef, ((base + gmin) * ginv).contiguous(), gmin, ginv
 
 
 def pad_groups(group_pid, qlist, sizes, gpb: int):
@@ -433,35 +492,35 @@ def pad_groups(group_pid, qlist, sizes, gpb: int):
 
 def v11_inputs(codes, sizes, norms, q, pids, k: int, metric: str, qt: int,
                gpb: int, bounds: str = "analytic"):
-    """Prologue of grouped_scan_v11: everything kernel K1 and the placement
-    need. Returns a dict with gp, group_size, qg, normsT, tgt (padded to
-    Gn = ceil(G/gpb)*gpb groups), kk, slot_mult and levels."""
+    """Prologue of grouped_scan_v11: everything kernel K1, the placement and
+    the tail need. Returns a dict with gp, group_size, qg (the scaled
+    queries rounded to the codes' dtype, as the JAX package rounds them),
+    normsT, tgt (padded to Gn = ceil(G/gpb)*gpb groups), kk, slot_mult,
+    levels, gmin and ginv."""
     B, D = q.shape
     P, C, _ = codes.shape
     kk = min(k, C)
     slot_mult, levels = packed_params(C)
-    q_scaled, normsT = global_scale(q, norms, metric, levels, bounds)
+    q_scaled, normsT, gmin, ginv = global_scale(q, norms, metric, levels, bounds)
     group_pid, qlist, tgt = build_groups_scatter(pids, P, qt)
     gp, _, group_size, safe_q = pad_groups(group_pid, qlist, sizes, gpb)
     tgt = torch.nn.functional.pad(tgt, (0, 0, 0, gp.shape[0] - tgt.shape[0]),
                                   value=B * pids.shape[1])
-    qg = q_scaled[safe_q].contiguous()  # [Gn, qt, D]
+    qg = q_scaled.to(codes.dtype)[safe_q].contiguous()  # [Gn, qt, D]
     return dict(gp=gp, group_size=group_size, qg=qg, normsT=normsT, tgt=tgt,
-                kk=kk, slot_mult=slot_mult, levels=levels)
+                kk=kk, slot_mult=slot_mult, levels=levels, gmin=gmin, ginv=ginv)
 
 
 def _placed_scan(name: str, codes, ids, sizes, norms, q, pids, k: int, metric: str,
                   qt: int, gpb: int, fold: int, dedup: bool, pool_factor: int, bounds: str,
                   merge: str, exact: bool, placement: str, stages):
     """The scan of v10 and v11: the prologue, kernel K1, the placement
-    epilogue named `placement` (see PLACEMENTS)."""
+    epilogue named `placement` (see PLACEMENTS), the pool tail (exact
+    rescore, or dequantized scores with exact=False)."""
     B, D = q.shape
     P, C, _ = codes.shape
     if dedup:
         raise NotImplementedError(DEDUP_NOT_PORTED)
-    if not exact:
-        raise NotImplementedError("exact=False (dequantized scores) is not ported yet "
-                                  "(ROADMAP Queue 1 item 4: exact_distances=False)")
     if merge != "pallas":
         raise NotImplementedError(f"merge={merge!r}: only the kernel merge is ported")
     if P >= 32768 or C > 65536:
@@ -483,7 +542,8 @@ def _placed_scan(name: str, codes, ids, sizes, norms, q, pids, k: int, metric: s
     m_packed, pid_cols = PLACEMENTS[placement](g_packed, inp["tgt"], inp["group_size"], pids)
     mark_stage(stages, "placement")
     return pool_tail(m_packed, pid_cols, pids, codes, ids, norms, q, k, kk, metric, slot_mult,
-                     levels, pool_factor, stages)
+                     levels, pool_factor, stages, exact=exact, gmin=inp["gmin"],
+                     ginv=inp["ginv"])
 
 
 def grouped_scan_v11(codes, ids, sizes, norms, q, pids, k: int, metric: str,
@@ -496,10 +556,12 @@ def grouped_scan_v11(codes, ids, sizes, norms, q, pids, k: int, metric: str,
     K1 with the sorted (or argsort) placement epilogue. DENSE-ONLY: every
     pid must be valid (fixed-nprobe semantics).
 
-    codes [P, C, D] f32, ids [P, C] int32, sizes [P] int32, norms [P, C] f32,
-    q [B, D], pids [B, nprobe] int32. Returns (scores [B, k] f32, ids [B, k]
-    int32, scanned [B] int32). `stages`, when given, gets a mark() after each
-    stage (see quake_tpu_torch.profiling.StageTimer)."""
+    codes [P, C, D] f32 or bf16, ids [P, C] int32, sizes [P] int32, norms
+    [P, C] f32, q [B, D], pids [B, nprobe] int32. Returns (scores [B, k] f32,
+    ids [B, k] int32, scanned [B] int32): exact distances of the winners,
+    or with exact=False scores dequantized from their keys (within one
+    quantization step, grange / levels). `stages`, when given, gets a
+    mark() after each stage (see quake_tpu_torch.profiling.StageTimer)."""
     if placement not in ("sorted", "argsort"):
         raise ValueError(f"v11 placement must be 'sorted' or 'argsort', got {placement!r}")
     return _placed_scan("v11", codes, ids, sizes, norms, q, pids, k, metric, qt, gpb, fold,

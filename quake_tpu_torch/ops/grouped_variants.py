@@ -34,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from quake_tpu_torch import _ext
-from quake_tpu_torch.ops.grouped import build_groups, merge_groups
+from quake_tpu_torch.ops.grouped import build_groups, merge_groups, refuse_bf16
 from quake_tpu_torch.ops.grouped_family import check_refs, pair_take, topk_cap
 from quake_tpu_torch.ops.grouped_scan import FOLD, SMEM_LIMIT
 from quake_tpu_torch.ops.scan import NEG_INF, topk_stable
@@ -171,7 +171,9 @@ def select_rows(scores, sids, kk: int):
 
 def _groups(q, pids, P: int, qt: int, dtype, gb: int = 1):
     """build_groups and the query tiles, the groups padded to a multiple of
-    gb with ghosts (pid -1), as grouped_scan_pallas_multi pads them."""
+    gb with ghosts (pid -1), as grouped_scan_pallas_multi pads them. dtype:
+    the codes'; bf16 is refused (no direct scan's kernel has a bf16 body)."""
+    refuse_bf16(dtype, "the direct scans' kernels (K8, K9, sized_topk, multi_topk)")
     group_pid, qlist, pair_group, pair_slot = build_groups(pids, P, qt)
     pad = -group_pid.shape[0] % gb
     if pad:

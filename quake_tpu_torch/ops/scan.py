@@ -70,19 +70,20 @@ def flat_scan(q, codes, ids, k: int, metric: str = "l2", chunk_size: int = 8192,
     the parent centroid index, query_coordinator.cpp:624-626).
 
     q [B, D]; codes [N, D]; ids [N] int32 with -1 = invalid slot. Returns
-    (scores [B, k], ids [B, k]). Exact by default (the user-facing flat
-    index); approx=True marks the parent ranking inside an IVF search (see
-    topk_from_scores). A buffer above chunk_size rows is scanned chunk by
+    (scores [B, k], ids [B, k]). bf16 codes: the queries are rounded to
+    bf16 as in the JAX package and multiplied in f32 (a product of two bf16
+    values is exact there), never in bf16. Exact by default (the user-facing
+    flat index); approx=True marks the parent ranking inside an IVF search
+    (see topk_from_scores). A buffer above chunk_size rows is scanned chunk by
     chunk with a running top-k, so the [B, N] score matrix never exists."""
     N = codes.shape[0]
     k = min(int(k), N)
-    q = q.to(codes.dtype)
-    qf = q.to(torch.float32)
+    qf = q.to(codes.dtype).to(torch.float32)  # bf16 codes: the query rounded as they are
     q_sq = torch.sum(qf * qf, dim=1)
 
     def chunk_topk(block, bids, approx):
         bf = block.to(torch.float32)
-        scores = block_scores(q, q_sq, block, torch.sum(bf * bf, dim=1), metric)
+        scores = block_scores(qf, q_sq, bf, torch.sum(bf * bf, dim=1), metric)
         scores = torch.where((bids >= 0)[None, :], scores, torch.full_like(scores, NEG_INF))
         return topk_from_scores(scores, bids[None, :].expand(scores.shape), k, approx=approx)
 
@@ -103,11 +104,10 @@ def ivf_scan(q, pids, codes, ids, sizes, k: int, metric: str = "l2"):
 
     q [B, D]; pids [B, nprobe] int32 (-1 = skip); codes [P, C, D]; ids [P, C]
     int32 (-1 = empty slot); sizes is unused: slot validity comes from
-    ids >= 0. Returns (scores [B, k], ids [B, k], partitions scanned [B]
-    int32)."""
+    ids >= 0. bf16 codes as in flat_scan. Returns (scores [B, k], ids [B,
+    k], partitions scanned [B] int32)."""
     B = q.shape[0]
-    q = q.to(codes.dtype)
-    qf = q.to(torch.float32)
+    qf = q.to(codes.dtype).to(torch.float32)  # bf16 codes: the query rounded as they are
     q_sq = torch.sum(qf * qf, dim=1)
     best_s = torch.full((B, k), NEG_INF, device=q.device, dtype=torch.float32)
     best_i = torch.full((B, k), -1, device=q.device, dtype=ids.dtype)
@@ -115,10 +115,9 @@ def ivf_scan(q, pids, codes, ids, sizes, k: int, metric: str = "l2"):
     for r in range(pids.shape[1]):
         valid = pids[:, r] >= 0
         p = torch.clamp(pids[:, r], min=0).long()
-        slab, sids = codes[p], ids[p]  # [B, C, D], [B, C]
-        prod = torch.bmm(slab, q[:, :, None])[:, :, 0]
+        sf, sids = codes[p].to(torch.float32), ids[p]  # [B, C, D], [B, C]
+        prod = torch.bmm(sf, qf[:, :, None])[:, :, 0]
         if metric == "l2":
-            sf = slab.to(torch.float32)
             scores = 2.0 * prod - q_sq[:, None] - torch.sum(sf * sf, dim=2)
         else:
             scores = prod

@@ -75,7 +75,8 @@ class IndexBuildParams:
     """Mirrors reference IndexBuildParams (common.h:123-143).
 
     Extensions beyond the reference:
-      precision: stored code dtype ("f32"; "bf16" is not ported yet).
+      precision: stored code dtype, "f32" or "bf16" (the parent's, through
+        parent_params, stays "f32": kernel K3 has no bf16 body).
       num_shards: shard partitions across devices (not ported yet).
     """
 

@@ -7,7 +7,10 @@ and ids[p, j] == -1 marks invalid slots. The layout, the capacity rounding,
 the partition-axis padding and every mutation's result are the JAX
 package's, so the same sequence of calls leaves both packages' stores with
 the same arrays (the cached norms are f32 sums, equal up to their order of
-summation).
+summation). The codes are f32 or bf16 (`PartitionStore(..., dtype=...)`,
+IndexBuildParams.precision): every write rounds to the store's dtype, as
+the JAX package's `.astype(state.codes.dtype)` does, and the cached norms
+are the f32 squared norms of the rounded codes.
 
 The device functions (`_append`, `_remove_compact`, ...) update the state's
 tensors in place where the JAX package donates its buffers; growth
@@ -36,7 +39,7 @@ SPILL_NOT_PORTED = "SOAR spill is not ported yet (ROADMAP Queue 1 item 6: spill 
 
 @dataclass
 class StoreState:
-    codes: torch.Tensor  # [P, C, D] float32
+    codes: torch.Tensor  # [P, C, D] float32 or bfloat16
     ids: torch.Tensor  # [P, C] int32, -1 = invalid slot
     sizes: torch.Tensor  # [P] int32
     centroids: torch.Tensor  # [P, D] float32
@@ -46,13 +49,16 @@ class StoreState:
     norms: torch.Tensor
 
 
-def _sumsq(v):
-    return torch.sum(v * v, dim=-1)
+def _sumsq(v, dtype=None):
+    """Squared L2 norms in f32 of values as they are stored in `dtype`
+    (default: v's own), rounded first (quake_tpu/storage/store.py::_sumsq)."""
+    vf = v.to(dtype or v.dtype).to(torch.float32)
+    return torch.sum(vf * vf, dim=-1)
 
 
 def _init_from_assignments(x, vids, centroids, assignments, P: int, C: int):
     """Scatter vectors into slabs by cluster (partition_manager.cpp:33-121).
-    All inputs are tensors on the store's device."""
+    All inputs are tensors on the store's device; x is in the store's dtype."""
     n, d = x.shape
     dev = x.device
     nlist = centroids.shape[0]
@@ -63,7 +69,7 @@ def _init_from_assignments(x, vids, centroids, assignments, P: int, C: int):
     starts = torch.cumsum(counts, 0) - counts
     slots = torch.arange(n, device=dev) - starts[a_sorted]
 
-    codes = torch.zeros((P, C, d), device=dev, dtype=torch.float32)
+    codes = torch.zeros((P, C, d), device=dev, dtype=x.dtype)
     codes[a_sorted, slots] = x_sorted
     ids = torch.full((P, C), -1, device=dev, dtype=torch.int32)
     ids[a_sorted, slots] = vids[order].to(torch.int32)
@@ -98,7 +104,7 @@ def _append(state: StoreState, rows, vecs, vids) -> StoreState:
     slots = torch.empty_like(slot_sorted)
     slots[order] = slot_sorted
     keep = valid & (slots < C)  # a slot past C is dropped, as JAX's scatter drops it
-    r, s, v = rows[keep].long(), slots[keep], vecs[keep].to(torch.float32)
+    r, s, v = rows[keep].long(), slots[keep], vecs[keep].to(state.codes.dtype)
     state.codes[r, s] = v
     state.ids[r, s] = vids[keep].to(torch.int32)
     state.norms[r, s] = _sumsq(v)
@@ -148,7 +154,7 @@ def _write_partitions(state: StoreState, rows, vecs, vids, sizes, centroids) -> 
     """Replace whole partitions (used by split/refine). vecs [m, C, D]."""
     valid = rows >= 0
     r = rows[valid].long()
-    v = vecs[valid].to(torch.float32)
+    v = vecs[valid].to(state.codes.dtype)
     state.codes[r] = v
     state.ids[r] = vids[valid].to(torch.int32)
     state.sizes[r] = sizes[valid].to(torch.int32)
@@ -161,7 +167,7 @@ def _write_partitions(state: StoreState, rows, vecs, vids, sizes, centroids) -> 
 def _update_vectors(state: StoreState, rows, vids, vecs) -> StoreState:
     """Overwrite existing vectors in place (quake_index.h modify)."""
     found, safe, slot = _find(state, rows, vids)
-    r, s, v = safe[found], slot[found], vecs[found].to(torch.float32)
+    r, s, v = safe[found], slot[found], vecs[found].to(state.codes.dtype)
     state.codes[r, s] = v
     state.norms[r, s] = _sumsq(v)
     return state
@@ -183,8 +189,8 @@ def _set_centroids(state: StoreState, rows, centroids) -> StoreState:
 
 
 def _grow_capacity(state: StoreState, new_C: int) -> StoreState:
-    """C -> new_C: new contiguous tensors, the new slots empty (id -1, zero
-    codes and norms)."""
+    """C -> new_C: new contiguous tensors in the same dtypes, the new slots
+    empty (id -1, zero codes and norms)."""
     pad = new_C - state.ids.shape[1]
     F = torch.nn.functional
     return StoreState(F.pad(state.codes, (0, 0, 0, pad)), F.pad(state.ids, (0, pad), value=-1),
@@ -226,9 +232,12 @@ class PartitionStore:
     identity for the maintenance hit window), and the resident vector-id ->
     row map for O(1) add validation and remove routing."""
 
-    def __init__(self, dimension: int, device):
+    def __init__(self, dimension: int, device, dtype=torch.float32):
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"codes are float32 or bfloat16, not {dtype}")
         self.d = int(dimension)
         self.device = torch.device(device)
+        self.dtype = dtype
         self.state: StoreState | None = None
         self.free_rows: list[int] = []
         self.generation: np.ndarray | None = None  # [P] int64
@@ -292,7 +301,7 @@ class PartitionStore:
         P = max(8, -(-nlist // 128) * 128) if nlist > 1 else 1
         dev = self.device
         self.state = _init_from_assignments(
-            x.to(dev), torch.as_tensor(vids_np).to(dev),
+            x.to(dev).to(self.dtype), torch.as_tensor(vids_np).to(dev),
             torch.as_tensor(cents_np).to(dev), torch.as_tensor(assigns_np).to(dev),
             P=P, C=C)
         self.free_rows = list(range(nlist, P))[::-1]
@@ -310,10 +319,13 @@ class PartitionStore:
     def init_from_state(self, state: StoreState, free_rows=None, generation=None,
                         cap_multiple=None):
         """Adopt existing store arrays (see quake_tpu_torch.convert and
-        QuakeIndex.load) with the host bookkeeping given. Where it is not:
+        QuakeIndex.load), codes in the store's dtype, with the host
+        bookkeeping given. Where it is not:
         the inactive rows become the free rows, highest first, every
         generation counter starts at 0, and the capacity rounding is 128. The
         id map is rebuilt from the slots."""
+        if state.codes.dtype != self.dtype:
+            raise ValueError(f"codes are {state.codes.dtype}, the store holds {self.dtype}")
         self.state = state
         if free_rows is None:
             free_rows = np.flatnonzero(~state.active.cpu().numpy())[::-1]
@@ -482,9 +494,9 @@ class PartitionStore:
                                  (self.d,))))
 
     def get_partition(self, row: int):
-        """Host copy of one partition's (vectors, ids)."""
+        """Host copy of one partition's (vectors as f32, ids)."""
         sz = int(self.state.sizes[row])
-        codes = self.state.codes[row, :sz].cpu().numpy().astype(np.float32)
+        codes = self.state.codes[row, :sz].to(torch.float32).cpu().numpy()
         ids = self.state.ids[row, :sz].cpu().numpy().astype(np.int64)
         return codes, ids
 

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """The scores of K6, K8 and sized_topk, of their f32 plain versions and of
 their plain versions on the split product's model, each against a float64
-reference, at the v3, v2, approx and sized paths' inputs, on one card.
+reference, at the v3, v2, approx and sized paths' inputs, on one card; and
+the keys of K1's bf16 body at the headline bf16 path's inputs.
 
-    python3 scripts/exact_score_errors.py [k6] [k8] [sized]
+    python3 scripts/exact_score_errors.py [k6] [k8] [sized] [k1bf16]
 
 Builds chip_smoke.py's main index (1,000,000 x 128 manifold, nlist=160),
 groups the first B=16384 queries' nprobe-9 probe lists as the v3, v2 and
@@ -20,15 +21,26 @@ sums both itself). Prints, per kernel, mode and side, the largest absolute error
 error over chip_smoke.py's score tolerance (rtol = atol = SCORE_TOL) with
 the float64 score where it falls, the share of scores beyond the tolerance,
 and the mean absolute error; then the card's name and power limit. With no
-argument all run. The package and chip_smoke.py are imported from the
-current directory, so run from the root of another checkout it measures
-that checkout's kernels and model.
+argument all run. k1bf16: builds the same corpus with precision="bf16",
+takes the v11 path's K1 inputs of the first B=16384 queries at nprobe 9,
+and holds the key of every winner of K1's bf16 body, of the same body built
+with QK_BF16_PARTIAL_STEPS 1 and 16 (a partial sum on the tensor cores of
+one depth-16 step, and of a whole ring stage, against the package's 4) and
+of its f32 plain version to the float64 key floor(<qg, x> - normsT) of the
+same lane (bf16 operands, normsT's f32 values): the share of winners whose
+key differs and the largest difference; with each build's ms per launch.
+The package and chip_smoke.py are imported from the current directory, so
+run from the root of another checkout it measures that checkout's kernels
+and model.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
+import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import torch
@@ -36,17 +48,19 @@ import torch
 sys.path.insert(0, os.getcwd())
 
 import chip_smoke as cs  # noqa: E402
-from quake_tpu_torch import IndexBuildParams, QuakeIndex  # noqa: E402
+from quake_tpu_torch import IndexBuildParams, QuakeIndex, _ext  # noqa: E402
 from quake_tpu_torch.coordinator import rank_parents  # noqa: E402
 from quake_tpu_torch.ops.grouped import build_groups  # noqa: E402
 from quake_tpu_torch.ops.grouped_exact import exact_scan, exact_scan_plain  # noqa: E402
+from quake_tpu_torch.ops.grouped_scan import grouped_scan_kernel, grouped_scan_plain  # noqa: E402
 from quake_tpu_torch.ops.grouped_variants import (raw_scores, raw_scores_plain,  # noqa: E402
                                                   sized_topk, sized_topk_plain)
 from quake_tpu_torch.ops.split_product import bmm_as_split_product  # noqa: E402
 
 NPROBE, QT, KK = 9, 64, 10
 K8_CHUNK = 64  # groups a step of the k8 section
-SECTIONS = ("k6", "k8", "sized")
+SECTIONS = ("k6", "k8", "sized", "k1bf16")
+PARTIAL_STEPS = (1, 16)  # the K1 bf16 builds beside the package's (4 steps a partial sum)
 SIZED_CT = cs.SIZED_CT
 
 
@@ -147,6 +161,70 @@ def sized_errors(gpid, qg, gsize, st):
         print(e.line(f"sized_topk, {name}"), flush=True)
 
 
+def start_partial_builds(tmp: str) -> dict:
+    """nvcc of csrc/quake_kernels.cu with each of PARTIAL_STEPS, all started
+    together: {steps: (library path, process)}."""
+    out = {}
+    for n in PARTIAL_STEPS:
+        so = os.path.join(tmp, f"libk1_partial_{n}.so")
+        out[n] = (so, subprocess.Popen(
+            [_ext._nvcc(), *_ext.NVCC_FLAGS, f"-DQK_BF16_PARTIAL_STEPS={n}", "-shared",
+             str(_ext.CSRC / "quake_kernels.cu"), "-ldl", "-o", so],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return out
+
+
+def k1_bf16_errors(x, queries, dev, builds):
+    """K1's bf16 body (the package's and the PARTIAL_STEPS builds) and its
+    f32 plain version at the headline bf16 inputs: every winner's key
+    against the float64 key of its lane, and ms per launch."""
+    idx = QuakeIndex(device=dev)
+    idx.build(x, np.arange(cs.N, dtype=np.int64),
+              IndexBuildParams(nlist=cs.NLIST, metric="l2", niter=cs.NITER, precision="bf16",
+                               calibrate_aps=False))
+    st = idx.store.state
+    P, C, D = st.codes.shape
+    q = torch.from_numpy(queries).to(dev)
+    pids = cs.probe_lists(torch, idx, q, NPROBE)
+    qt, inp, args = cs.k1_args(idx, q, pids)
+    gp, gsize, qg, _, normsT, kk, slot_mult, levels = args
+    Gn = qg.shape[0]
+    package_ms = cs.time_ms(torch, lambda: grouped_scan_kernel(*args))
+    sides = {"kernel, 4 steps a partial sum": (grouped_scan_kernel(*args), package_ms)}
+    for n, (so, proc) in builds.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on the {n}-step build:\n{log}")
+        entry = ctypes.CDLL(so).qk_grouped_scan_bf16
+        entry.argtypes, entry.restype = _ext._SIGNATURES["qk_grouped_scan_bf16"], ctypes.c_int
+        out = torch.empty((Gn, qt, kk), device=dev, dtype=torch.float32)
+
+        def launch():
+            _ext.check(entry(gp.data_ptr(), gsize.data_ptr(), qg.data_ptr(), st.codes.data_ptr(),
+                             normsT.data_ptr(), out.data_ptr(), Gn, qt, D, P, C, kk,
+                             float(slot_mult), float(levels), _ext.stream_ptr(dev)),
+                       f"grouped_scan_bf16 ({n} steps)")
+
+        launch()
+        sides[f"kernel, {n} step{'s' if n > 1 else ''} a partial sum"] = (out.clone(),
+                                                                          cs.time_ms(torch, launch))
+    sides["f32 plain version"] = (grouped_scan_plain(*args), None)
+    codes2 = st.codes.reshape(P * C, D)
+    for name, (packed, ms) in sides.items():
+        won = packed >= 0
+        g, r, _ = torch.nonzero(won, as_tuple=True)
+        v = packed[won]
+        lane = torch.remainder(v, slot_mult).long()
+        row = gp[g].long() * C + lane
+        dot = (codes2[row].double() * qg[g, r].double()).sum(-1)
+        key64 = torch.clamp(torch.floor(dot - normsT.reshape(-1)[row].double()), 0, levels)
+        diff = (torch.floor(v / slot_mult).double() - key64).abs()
+        print(f"K1 bf16, {name}: {won.sum().item()} winners, key differs from float64 at "
+              f"{(diff > 0).double().mean().item():.2e} of them, max difference "
+              f"{diff.max().item():.0f}" + (f"; {ms:.4f} ms" if ms is not None else ""),
+              flush=True)
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("exact_score_errors: no CUDA device", file=sys.stderr)
@@ -157,8 +235,16 @@ def main(argv) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    tmp = tempfile.TemporaryDirectory()
+    builds = start_partial_builds(tmp.name) if "k1bf16" in sections else {}
     x = cs.make_manifold(cs.N, cs.D, 4096, seed=1)
     queries = cs.make_manifold(cs.BATCH, cs.D, 4096, seed=7)
+    if "k1bf16" in sections:
+        k1_bf16_errors(x, queries, dev, builds)
+    tmp.cleanup()
+    if not set(sections) - {"k1bf16"}:
+        print(cs.card_line())
+        return 0
     idx = QuakeIndex(device=dev)
     idx.build(x, np.arange(cs.N, dtype=np.int64),
               IndexBuildParams(nlist=cs.NLIST, metric="l2", niter=cs.NITER, calibrate_aps=False))

@@ -28,7 +28,9 @@ and multi_topk multiply on the tensor cores with split TF32 operands where
 D % 4 == 0 and their tiles fit; they are held to their f32 plain versions
 at the same tolerances (K1, K4-K9 and sized_topk also to the plain
 versions run on ops/split_product.py's model of that product). K4 with a chunk table
-multiplies in f32 on the CUDA cores.
+multiplies in f32 on the CUDA cores. K1 on bf16 codes (its bf16 bodies) is held
+to its plain version on the same bf16 operands (upcast, multiplied in f32:
+each product exact, the sums in another order) at K1's tolerances.
 """
 
 import contextlib
@@ -527,7 +529,8 @@ def test_launch_counts(dev):
     sized_topk(gp, gp + 100, qg, codes, 4, "ip")
     multi_topk(gp, qg, codes, ids, 4, "ip", gb=2)
     packed_topk(gp, qg, codes, ids, 4, "ip")
-    assert _ext.launches == {"grouped_scan": 0, "merge_positions": 1, "flat_topk": 0,
+    assert _ext.launches == {"grouped_scan": 0, "grouped_scan_bf16": 0, "merge_positions": 1,
+                             "flat_topk": 0,
                              "rowscale_topk": 0, "rowscale_fold": 0, "exact_topk": 0,
                              "chunk_merge": 0, "raw_scores": 1, "packed_topk": 1,
                              "sized_topk": 1, "multi_topk": 1}
@@ -1648,3 +1651,121 @@ def test_kernels_on_a_store_after_removal_and_growth(dev):
         want_s, want_i, _ = scan(*cpu)
         assert _overlap(got_i.cpu(), want_i) >= 0.99
         torch.testing.assert_close(got_s.cpu(), want_s, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------- K1 on bf16 codes
+
+
+def _bf16_k1_inputs(rng, dev, qt, D, C=512, Gn=300):
+    """K1's inputs on a bf16 store: partitions of the segment-stressing
+    sizes (ghosts, a partial last segment), queries scaled to the key range
+    and rounded to bf16, normsT from the rounded codes' f32 norms."""
+    sizes_l = _tile_sizes(C)
+    P = len(sizes_l)
+    codes = torch.from_numpy(rng.standard_normal((P, C, D)).astype(np.float32)).to(dev)
+    codes = codes.to(torch.bfloat16)
+    sizes = torch.tensor(sizes_l, dtype=torch.int32, device=dev)
+    gp = torch.from_numpy(rng.integers(-1, P, Gn).astype(np.int32)).to(dev)
+    gsize = torch.where(gp >= 0, sizes[gp.clamp(min=0).long()], torch.zeros_like(gp)).contiguous()
+    slot_mult, levels = packed_params(C)
+    scale = levels / (10.0 * D ** 0.5)
+    qg = torch.from_numpy(rng.standard_normal((Gn, qt, D)).astype(np.float32) * scale).to(dev)
+    cf = codes.float()
+    normsT = (((cf * cf).sum(-1) * 0.5 - 0.5 * D - 5.0 * D ** 0.5) * scale).contiguous()
+    return gp, gsize, qg.to(torch.bfloat16).contiguous(), codes, normsT, slot_mult, levels
+
+
+@pytest.mark.parametrize("kk", [10, 100])
+@pytest.mark.parametrize("D", [128, 96, 100, 768])
+@pytest.mark.parametrize("qt", [8, 16, 32, 64])
+def test_grouped_scan_bf16_matches_plain(dev, qt, D, kk):
+    """K1 on bf16 operands against its plain version: the tensor-core body
+    at D % 8 == 0 (D = 768 streams through the ring in depth chunks), the
+    CUDA-core body at D = 100; 300 groups, ghosts, sizes around a segment.
+    One launch a call, counted under grouped_scan_bf16."""
+    assert grouped_scan_uses_mma(qt, D, torch.bfloat16) == (D % 8 == 0)
+    rng = np.random.default_rng(qt + D + kk)
+    gp, gsize, qg, codes, normsT, slot_mult, levels = _bf16_k1_inputs(rng, dev, qt, D)
+    args = (gp, gsize, qg, codes, normsT, kk, slot_mult, levels)
+    _ext.reset_launches()
+    got = grouped_scan_kernel(*args)
+    torch.cuda.synchronize()
+    assert _ext.launches["grouped_scan_bf16"] == 1 and _ext.launches["grouped_scan"] == 0
+    alive = gsize > 0
+    assert (got[~alive] == -1).all()
+    assert (got[alive] >= -1).all() and torch.isfinite(got).all()
+    _packed_agree(got, grouped_scan_plain(*args), alive, slot_mult, kk)
+
+
+def test_grouped_scan_bf16_checks_its_operands(dev):
+    """bf16 codes need bf16 query tiles (and f32 ones f32): a mismatch is
+    refused before any launch."""
+    rng = np.random.default_rng(5)
+    gp, gsize, qg, codes, normsT, slot_mult, levels = _bf16_k1_inputs(rng, dev, 8, 128, Gn=4)
+    with pytest.raises(ValueError, match="qg"):
+        grouped_scan_kernel(gp, gsize, qg.float(), codes, normsT, 10, slot_mult, levels)
+
+
+def test_kernels_on_a_bf16_store_after_removal_and_growth(dev):
+    """Contract 7 on a bf16 store: after removals and a flood that grows C
+    (new tensors), K1's bf16 body (through v8 with K2, and v11) encodes its
+    bf16 tensor map over the new codes and agrees with the same scans on a
+    CPU copy of the store (the plain versions)."""
+    from quake_tpu_torch.ops.grouped_scan import grouped_scan_v11
+
+    rng = np.random.default_rng(22)
+    n, D, nlist = 6000, 64, 8
+    x = rng.standard_normal((n, D)).astype(np.float32)
+    store = PartitionStore(D, dev, dtype=torch.bfloat16)
+    store.init_from_assignments(x, np.arange(n), rng.standard_normal((nlist, D)),
+                                rng.integers(0, nlist, n))
+    store.remove(rng.choice(n, n // 3, replace=False))
+    C0 = store.C
+    flood = C0 + 50
+    store.append(np.full(flood, 3, np.int32),
+                 (x[:flood] + 0.01 * rng.standard_normal((flood, D))).astype(np.float32),
+                 np.arange(10_000, 10_000 + flood))
+    st = store.state
+    assert store.C == 2 * C0 and st.codes.dtype == torch.bfloat16
+    assert all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (st.codes, st.ids, st.norms))
+    q = torch.from_numpy(rng.standard_normal((64, D)).astype(np.float32)).to(dev)
+    pids = torch.from_numpy(np.stack([rng.permutation(nlist)[:3] for _ in range(64)])
+                            .astype(np.int32)).to(dev)
+    pids[:, 0] = 3  # every query probes the grown partition
+    cpu = [t.cpu() for t in (st.codes, st.ids, st.sizes, st.norms, q, pids)]
+    for scan in (lambda *a: grouped_scan_v8(*a, 10, "l2", gpb=4),
+                 lambda *a: grouped_scan_v11(*a, 10, "l2", qt=16, gpb=4),
+                 lambda *a: grouped_scan_v11(*a, 10, "l2", qt=16, gpb=4, exact=False)):
+        _ext.reset_launches()
+        got_s, got_i, _ = scan(st.codes, st.ids, st.sizes, st.norms, q, pids)
+        torch.cuda.synchronize()
+        assert _ext.launches["grouped_scan_bf16"] == 1 and _ext.launches["merge_positions"] == 1
+        want_s, want_i, _ = scan(*cpu)
+        assert _overlap(got_i.cpu(), want_i) >= 0.99
+        same = got_i.cpu() == want_i
+        torch.testing.assert_close(got_s.cpu()[same], want_s[same], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_bf16_index_on_the_card_matches_its_cpu_load(dev, tmp_path, monkeypatch, exact):
+    """A bf16 QuakeIndex built on the card, saved and loaded on the CPU: the
+    default search (K1's bf16 body, K2, K3 on the f32 parent) against the
+    plain versions on the loaded copy, exact and dequantized."""
+    from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams
+
+    rng = np.random.default_rng(23)
+    x = rng.standard_normal((20_000, 64)).astype(np.float32)
+    q = rng.standard_normal((256, 64)).astype(np.float32)
+    idx = QuakeIndex(device=dev)
+    idx.build(x, None, IndexBuildParams(nlist=32, precision="bf16", calibrate_aps=False))
+    idx.save(str(tmp_path / "b"))
+    cpu = QuakeIndex(device="cpu").load(str(tmp_path / "b"))
+    assert torch.equal(cpu.store.state.codes.view(torch.int16),
+                       idx.store.state.codes.view(torch.int16).cpu())
+    sp = SearchParams(k=10, nprobe=4, exact_distances=exact)
+    _ext.reset_launches()
+    got = idx.search(q, sp)
+    assert _ext.launches["grouped_scan_bf16"] == 1 and _ext.launches["flat_topk"] == 1
+    monkeypatch.setenv("QUAKE_TPU_PARENT_KERNEL", "pallas")  # K3's plain version on the CPU
+    want = cpu.search(q, sp)
+    assert _overlap(torch.from_numpy(got.ids), torch.from_numpy(want.ids)) >= 0.99

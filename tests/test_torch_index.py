@@ -33,7 +33,9 @@ from quake_tpu.ops.pallas_grouped import (grouped_scan_pallas, grouped_scan_pall
                                           grouped_scan_pallas_v6, grouped_scan_pallas_v7,
                                           grouped_scan_pallas_v8, grouped_scan_pallas_v9,
                                           grouped_scan_pallas_v11)
+from quake_tpu.ops.scan import flat_scan as jax_flat_scan
 from quake_tpu.ops.scan import scores_to_distances as jax_scores_to_distances
+from quake_tpu.storage.store import _sumsq as jax_sumsq
 from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams, index_from_numpy
 from quake_tpu_torch import coordinator
 from quake_tpu_torch.kmeans import kmeans_fit_assign
@@ -222,7 +224,9 @@ def _small_index(**kw):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(precision="bf16"), "ROADMAP Queue 1 item 5: bf16 codes"),
+    # Lifted: a bf16 build runs and is held to the JAX package's rounding
+    # (the case keeps the id it had as a guard).
+    pytest.param(dict(precision="bf16"), None, id="kw0-ROADMAP Queue 1 item 5: bf16 codes"),
     (dict(spill=True), "ROADMAP Queue 1 item 6: spill and dedup"),
     (dict(num_shards=2), "ROADMAP Queue 1 item 11: parallel"),
     (dict(profile_maintenance_latency=True), "ROADMAP Queue 1 item 8: maintenance"),
@@ -230,9 +234,49 @@ def _small_index(**kw):
 ])
 def test_build_guards(kw, match):
     """Each guard names the ROADMAP item that lifts it, by number and title
-    (ROADMAP Queue 3 fault 7)."""
+    (ROADMAP Queue 3 fault 7). A lifted guard's case checks the build
+    instead: precision="bf16" stores the f32 build's codes (the same
+    clustering) rounded as the JAX package rounds them (jnp.asarray(x,
+    bfloat16)), bit for bit, and the f32 squared norms of the rounded codes
+    (its _sumsq; rtol 1e-6, a sum in another order)."""
+    if match is None:
+        idx, _ = _small_index(**kw)
+        ref, _ = _small_index()
+        codes = ref.store.state.codes.numpy()
+        st = idx.store.state
+        assert st.codes.dtype == torch.bfloat16
+        np.testing.assert_array_equal(st.codes.view(torch.int16).numpy(),
+                                      np.asarray(jnp.asarray(codes, jnp.bfloat16)).view(np.int16))
+        np.testing.assert_allclose(st.norms.numpy(),
+                                   np.asarray(jax_sumsq(jnp.asarray(codes), jnp.bfloat16)),
+                                   rtol=1e-6, atol=0)
+        return
     with pytest.raises(NotImplementedError, match=match):
         _small_index(**kw)
+
+
+@pytest.mark.parametrize("scan", ["v3p", "v3p4", "v6", "v7g4", "v4", "v5", "v3", "v2",
+                                  "approx", "sized", "packed", "multi"])
+def test_bf16_refusals(monkeypatch, scan):
+    """A bf16 store under a scan whose kernel has no bf16 body (K4-K9,
+    sized_topk, multi_topk) raises by name, on the CPU as on the card: each
+    by-name scan through QuakeIndex.search, each direct scan called on the
+    store's tensors. v8-v11, xla and the query-major and flat searches run."""
+    from quake_tpu_torch.ops import grouped_variants as gv
+
+    idx, x = _small_index(precision="bf16")
+    st, q = idx.store.state, torch.from_numpy(x[:32])
+    with pytest.raises(NotImplementedError, match="Queue 2 part A item 5: bf16 operands"):
+        if scan in ("approx", "sized", "packed", "multi"):
+            pids = torch.zeros((32, 2), dtype=torch.int32)
+            fn = getattr(gv, f"grouped_scan_{scan}")
+            if scan == "sized":
+                fn(st.codes, st.ids, st.sizes, q, pids, 5, "l2")
+            else:
+                fn(st.codes, st.ids, q, pids, 5, "l2")
+        else:
+            monkeypatch.setenv("QUAKE_TPU_KERNEL", scan)
+            idx.search(x[:32], SearchParams(k=5, nprobe=2))
 
 
 def test_num_workers_builds_plain_on_one_device(monkeypatch):
@@ -254,22 +298,38 @@ def test_num_workers_builds_plain_on_one_device(monkeypatch):
 
 
 def test_guard_messages_cite_current_items():
-    """The search and scan guards name their ROADMAP items (fault 7)."""
-    from quake_tpu_torch.ops.grouped_scan import global_bounds, grouped_scan_v11
+    """The search and scan guards name their ROADMAP items (fault 7). The
+    exact_distances=False guards are lifted: the search runs, and v11 with
+    exact=False returns the JAX package's ids and dequantized scores on the
+    same store (interpret-mode Pallas; row overlap >= 0.99, scores of the
+    common ids within one quantization step, grange / levels)."""
+    from quake_tpu_torch.ops.grouped_scan import global_bounds, grouped_scan_v11, packed_params
 
     idx, x = _small_index()
-    for sp, match in ((SearchParams(k=5, recall_target=0.9), "item 7: APS"),
-                      (SearchParams(k=5, exact_distances=False),
-                       "item 4: exact_distances=False")):
-        with pytest.raises(NotImplementedError, match=match):
-            idx.search(x[:32], sp)
+    with pytest.raises(NotImplementedError, match="item 7: APS"):
+        idx.search(x[:32], SearchParams(k=5, recall_target=0.9))
+    res = idx.search(x[:32], SearchParams(k=5, exact_distances=False))
+    assert res.ids.shape == (32, 5) and (res.ids >= 0).all()
     q = torch.from_numpy(x[:16])
     with pytest.raises(NotImplementedError, match="item 10: multi-level parents"):
         global_bounds(q, idx.store.state.norms, "l2", bounds="sampled")
     st = idx.store.state
-    with pytest.raises(NotImplementedError, match="item 4: exact_distances=False"):
-        grouped_scan_v11(st.codes, st.ids, st.sizes, st.norms, q,
-                         torch.zeros((16, 2), dtype=torch.int32), 5, "l2", exact=False)
+    pids = np.stack([np.random.default_rng(b).permutation(idx.nlist())[:2]
+                     for b in range(16)]).astype(np.int32)
+    s_t, i_t, _ = grouped_scan_v11(st.codes, st.ids, st.sizes, st.norms, q,
+                                   torch.from_numpy(pids), 5, "l2", qt=8, exact=False)
+    s_j, i_j, _ = grouped_scan_pallas_v11(*(jnp.asarray(t.numpy()) for t in (
+        st.codes, st.ids, st.sizes, st.norms, q)), jnp.asarray(pids), 5, "l2", qt=8,
+        interpret=True, exact=False)
+    s_t, i_t, s_j, i_j = s_t.numpy(), i_t.numpy(), np.asarray(s_j), np.asarray(i_j)
+    assert np.mean([len(set(a) & set(b)) / 5 for a, b in zip(i_t, i_j)]) >= 0.99
+    _, grange = global_bounds(q, st.norms, "l2")
+    step = float(grange) / packed_params(idx.store.C)[1]
+    for a, sa, b, sb in zip(i_t, s_t, i_j, s_j):
+        theirs = dict(zip(b.tolist(), sb.tolist()))
+        for i, s in zip(a.tolist(), sa.tolist()):
+            if i in theirs:
+                assert abs(s - theirs[i]) <= step
 
 
 def test_calibrate_aps_guard():
@@ -285,13 +345,29 @@ def test_calibrate_aps_guard():
     (SearchParams(k=5, nprobe=2, batched_scan=False), 32),
 ])
 def test_search_guards(sp, nq):
-    """APS and dequantized distances are guarded; batches below 16 queries
-    and batched_scan=False take the query-major search, which is exact over
-    the probed partitions (every stored vector finds itself)."""
+    """APS is guarded; batches below 16 queries and batched_scan=False take
+    the query-major search, which is exact over the probed partitions
+    (every stored vector finds itself). Dequantized distances are no longer
+    guarded: with pool_factor 1 they keep the exact search's winners (the
+    same id set a row, as the JAX package's test_v10_dequantized_scores
+    holds) and their distances within one quantization step."""
     idx, x = _small_index()
-    if sp.recall_target > 0 or not sp.exact_distances:
+    if sp.recall_target > 0:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             idx.search(x[:nq], sp)
+        return
+    if not sp.exact_distances:
+        from quake_tpu_torch.ops.grouped_scan import global_bounds, packed_params
+
+        res = idx.search(x[:nq], sp)
+        exact = idx.search(x[:nq], SearchParams(k=sp.k, nprobe=sp.nprobe))
+        for a, b in zip(res.ids, exact.ids):
+            assert set(a.tolist()) == set(b.tolist())
+        q = torch.from_numpy(x[:nq])
+        _, grange = global_bounds(q, idx.store.state.norms, "l2")
+        step = float(grange) / packed_params(idx.store.C)[1]
+        sq = lambda r: np.sort(-r.distances ** 2, axis=1)  # the scores, squared l2
+        assert np.abs(sq(res) - sq(exact)).max() <= step
         return
     res = idx.search(x[:nq], sp)
     assert res.ids.shape == (nq, sp.k) and res.timing_info.partitions_scanned == sp.nprobe
@@ -305,8 +381,16 @@ def test_flat_index_search_guard_and_dimension_check():
         idx.search(np.zeros((32, 3), np.float32), SearchParams(k=1))
     flat = QuakeIndex(device="cpu")
     flat.build(x, None, IndexBuildParams(nlist=0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flat.search(x[:32], SearchParams(k=1, exact_distances=False))
+    # exact_distances=False leaves a flat index exact, as in the JAX
+    # package: its fused_flat_search, the same ids as the JAX flat scan's.
+    inexact = flat.search(x[:32], SearchParams(k=1, exact_distances=False))
+    exact = flat.search(x[:32], SearchParams(k=1))
+    np.testing.assert_array_equal(inexact.ids, exact.ids)
+    np.testing.assert_array_equal(inexact.distances, exact.distances)
+    st = flat.store.state
+    _, jids = jax_flat_scan(jnp.asarray(x[:32]), jnp.asarray(st.codes.numpy()[0]),
+                            jnp.asarray(st.ids.numpy()[0]), 1, "l2")
+    np.testing.assert_array_equal(inexact.ids, np.asarray(jids))
     # A flat index is exact, and has no APS to guard: the target is ignored.
     res = flat.search(x[:32], SearchParams(k=5, recall_target=0.9))
     gt, _ = knn(x[:32], x, 5)

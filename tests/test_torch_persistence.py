@@ -7,7 +7,7 @@ index through `index_from_numpy` with its host bookkeeping (free rows,
 generations): equal arrays (the norms are recomputed from the codes on load:
 rtol 1e-6), equal bookkeeping and id map, equal search ids. Fields the port
 does not use yet are kept (the APS calibration, latency_profile.csv) or
-refused by name (bf16 codes, a spilled index).
+refused by name (a spilled index). bf16 checkpoints: tests/test_torch_precision.py.
 """
 
 import json
@@ -16,6 +16,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from quake_tpu import IndexBuildParams as JaxBuildParams
 from quake_tpu import QuakeIndex as JaxIndex
@@ -146,13 +147,29 @@ def _edit_metadata(src, dst, **changes):
 
 
 @pytest.mark.parametrize("changes,match", [
-    (dict(precision="bf16"), "item 5: bf16"),
+    # Lifted: a checkpoint marked bf16 loads (the case keeps the id it had as
+    # a guard).
+    pytest.param(dict(precision="bf16"), None, id="changes0-item 5: bf16"),
     (dict(spill=True), "item 6: spill"),
     (dict(version=2), "serialization version"),
 ])
 def test_load_refuses_by_name(mutated_jax, tmp_path, changes, match):
+    """Refused by name; a lifted case loads as the JAX package loads it: f32
+    codes under precision "bf16" are rounded to bf16 at load (its
+    jnp.asarray(codes, bfloat16)), bit for bit, the norms recomputed from
+    the rounded codes (rtol 1e-6), the bookkeeping as saved."""
     _, path = mutated_jax
     bad = _edit_metadata(path, str(tmp_path / "bad"), **changes)
+    if match is None:
+        jl, tl = JaxIndex().load(bad), QuakeIndex(device="cpu").load(bad)
+        js, ts = jl.store, tl.store
+        assert ts.state.codes.dtype == torch.bfloat16
+        np.testing.assert_array_equal(ts.state.codes.view(torch.int16).numpy(),
+                                      np.asarray(js.state.codes).view(np.int16))
+        np.testing.assert_allclose(ts.state.norms.numpy(), np.asarray(js.state.norms),
+                                   rtol=1e-6, atol=0)
+        assert ts.free_rows == js.free_rows and tl.validate()
+        return
     with pytest.raises((NotImplementedError, ValueError), match=match):
         QuakeIndex(device="cpu").load(bad)
 
