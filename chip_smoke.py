@@ -106,7 +106,33 @@ Phases, each of which raises on failure (the script then exits non-zero):
              its time and bound (2 bytes an element, bf16 tensor-core peak);
              a save and a load of the bf16 index (codes equal bit for bit,
              the checkpoint about half the f32 one's, search ids equal).
-12. mutation — the mutation path on the main index, last, so that every
+12. aps    — recall-target search in bench_suite.py::run_aps_batch's
+             configuration: the same corpus built through QuakeIndex with
+             default IndexBuildParams (nlist=1024, niter 5, f32, so
+             calibrate_aps runs: build seconds with its share, the
+             calibrated fields); one B=4096 batch each of aps_mode auto,
+             oneshot (the parents ranked by K3 inside, budgeted; where the
+             calibration left the budget off, the JAX package's formula sets
+             it first), planned and loop with the launch counts zeroed just
+             before and read just after (K3, K2, K1, and K1 on the budget
+             grid, grouped_scan_budget, must launch); every K1, K2 and K3
+             call of each mode's batch, recorded in a second run, held
+             against its plain version; per mode recall@10 on the 1024 queries (auto and
+             oneshot >= 0.87, planned and loop >= 0.85), ms per B=4096 batch
+             (CUDA events; the loop, which reads a flag from the device each
+             step, host-paced), mean partitions scanned, the loop's steps and
+             syncs; the fixed-nprobe anchor (the first of 16, 32, 64 reaching
+             0.90) and the fixed/APS(auto) QPS ratio; auto at B=64 on the
+             host clock; at the pinned oneshot's plan, K1 on the budget grid
+             (the tensor-core body) against its plain version with its time
+             and bound, v10b's ids equal to v10's with every valid pair in
+             the budget; then the headline bf16 index calibrated and one
+             pinned-oneshot exact_distances=False batch on it (run_deep's
+             serving mode), its launches counted alone (K1's bf16 body on
+             the budget grid, grouped_scan_budget_bf16, once, and no other
+             K1), its K1, K2 and K3 calls held against their plain
+             versions, and its budget-grid K1 timed against its bound.
+13. mutation — the mutation path on the main index, last, so that every
              earlier phase sees the built store, on the native id map (the
              phase fails on another): through the store, 40% of the
              resident ids removed (seeded), then 200,000 fresh manifold
@@ -143,6 +169,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import json
 import os
 import subprocess
@@ -215,6 +242,14 @@ MUTATION_JITTER, MUTATION_FRESH, MUTATION_FRESH_SEED = 0.1, 100_000, 19
 # the log beside the native map's.
 DICT_REMOVE_RATE = "0.64-0.84 M vectors/s"
 FLAT_RECALL = 0.999
+# The APS phase, bench_suite.py::run_aps_batch's configuration: nlist, the
+# batch, the target, the modes driven (auto first: the fixed/APS ratio's
+# denominator), the recall@10 gates (tests/test_aps.py:150 and :416's
+# margins) and the fixed-nprobe anchor's grid.
+APS_NLIST, APS_BATCH, APS_TARGET = 1024, 4096, 0.9
+APS_MODES = ("auto", "oneshot", "planned", "loop")
+APS_RECALL_GATES = {"auto": 0.87, "oneshot": 0.87, "planned": 0.85, "loop": 0.85}
+APS_ANCHOR = (16, 32, 64)
 F32_PEAK = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores (data sheet)
 TF32_PEAK = 495e12  # H100 SXM dense TF32 FLOP/s on the tensor cores (data sheet)
 BF16_PEAK = 989e12  # H100 SXM dense bf16 FLOP/s on the tensor cores (data sheet)
@@ -228,7 +263,8 @@ CUDA_CORES, TENSOR_CORES, BF16_TENSOR_CORES = UNITS
 # paths' shapes (D = 128): K1, K3, K4 on whole partitions (with v4's chunk
 # table it runs in f32 on the CUDA cores), K5-K9, sized_topk and multi_topk
 # (their rows check that the launcher picked the tensor-core body).
-TENSOR_CORE_ENTRIES = ("grouped_scan", "grouped_scan_bf16", "grouped_scan/v8", "flat_topk",
+TENSOR_CORE_ENTRIES = ("grouped_scan", "grouped_scan_bf16", "grouped_scan_budget",
+                       "grouped_scan/v8", "flat_topk",
                        "rowscale_topk/v3p",
                        "rowscale_topk/v3pn", "rowscale_topk/v6", "rowscale_fold/v7",
                        "exact_topk/v3", "exact_topk/v2", "chunk_merge/v5", "multi_topk",
@@ -245,6 +281,13 @@ ENTRIES = {
     # K1 on bf16 codes (the headline bf16 phase): _v9_kernel on bf16 slabs.
     "grouped_scan_bf16": ("grouped_scan_bf16", "quake_tpu_torch/csrc/quake_kernels.cu",
                           "quake_tpu/ops/pallas_grouped.py:1180"),
+    # K1 on the budget grid of the masked APS scans (grouped_scan_v10b):
+    # grouped_scan_pallas_v10b's launch of _v9_kernel.
+    "grouped_scan_budget": ("grouped_scan", "quake_tpu_torch/csrc/quake_kernels.cu",
+                            "quake_tpu/ops/pallas_grouped.py:1942"),
+    # The same on bf16 codes (the headline bf16 index's pinned oneshot).
+    "grouped_scan_budget_bf16": ("grouped_scan_bf16", "quake_tpu_torch/csrc/quake_kernels.cu",
+                                 "quake_tpu/ops/pallas_grouped.py:1942"),
     "merge_positions": ("merge_positions", "quake_tpu_torch/csrc/quake_kernels.cu",
                         "quake_tpu/ops/pallas_grouped.py:994"),
     "flat_topk": ("flat_topk", "quake_tpu_torch/csrc/quake_kernels.cu",
@@ -280,7 +323,7 @@ ENTRIES = {
 
 def unit_of(entry: str) -> str:
     """The unit (a key of UNITS) that an entry of the kernels line multiplies on."""
-    if entry == "grouped_scan_bf16":
+    if entry in ("grouped_scan_bf16", "grouped_scan_budget_bf16"):
         return BF16_TENSOR_CORES
     return TENSOR_CORES if entry in TENSOR_CORE_ENTRIES else CUDA_CORES
 
@@ -2015,7 +2058,7 @@ def phase_headline_bf16(torch, dev, x, queries, gt, f32_idx, k1_build):
     module's docstring): build, nprobe, the headline path timed with its
     launches counted, the f32 and the exact paths beside it, K1's bf16 body
     gated and timed at the path's shapes, save and load. Returns (summary,
-    the kernels line's grouped_scan_bf16 entry)."""
+    the kernels line's grouped_scan_bf16 entry, the bf16 index)."""
     from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams, _ext
     from quake_tpu_torch.ops.grouped_scan import (grouped_scan_kernel, grouped_scan_plain,
                                                   grouped_scan_uses_mma)
@@ -2149,7 +2192,342 @@ def phase_headline_bf16(torch, dev, x, queries, gt, f32_idx, k1_build):
     log(f"[headline bf16] ({card}) save {sizes[0] / 1e9:.3f} GB in {save_s:.3f} s, load "
         f"{load_s:.3f} s; the f32 checkpoint {sizes[1] / 1e9:.3f} GB (ratio "
         f"{sizes[0] / sizes[1]:.3f}); codes equal bit for bit, search ids equal")
-    return out, entry
+    return out, entry, idx
+
+
+def oneshot_plan(idx, q, sp):
+    """The masked pid matrix and the pair budget that idx's pinned oneshot
+    search for the batch q hands to the grouped scan (recorded from
+    coordinator.grouped_scan during one search), with its qt and gpb."""
+    from quake_tpu_torch import coordinator
+
+    seen = []
+    real = coordinator.grouped_scan
+
+    def record(*a, **kw):  # (codes, ids, sizes, norms, q, pids, k, metric, qt, ...)
+        seen.append((a[5], kw.get("pair_budget", 0), a[8]))
+        return real(*a, **kw)
+    coordinator.grouped_scan = record
+    try:
+        idx._search_device_full(q, sp)
+    finally:
+        coordinator.grouped_scan = real
+    (eff, pair_budget, qt), = seen
+    return eff, pair_budget, qt, int(idx._grouped_kernel()[len("v11g"):])
+
+
+def budget_by_formula(idx, q, sp, what: str) -> None:
+    """Where idx's calibration left the pair budget off, turn it on with the
+    width_clip and budget_w that the JAX package's formula
+    (quake_tpu/index.py:679-682) gives over the unbudgeted oneshot plans of
+    the batch q, and say so."""
+    if idx.aps_width_clip and idx.aps_budget_w:
+        return
+    eff = oneshot_plan(idx, q, sp)[0]
+    sc = (eff >= 0).sum(1).double().cpu().numpy()
+    wclip = int(min(-(-int(np.quantile(sc, 0.99) + 4) // 8) * 8, eff.shape[1]))
+    bw = int(min(-(-int(1.15 * sc.mean() + 2) // 4) * 4, wclip))
+    idx.aps_width_clip, idx.aps_budget_w = wclip, bw
+    log(f"[aps] the calibration left the budget off on {what}; it runs with "
+        f"width_clip={wclip}, budget_w={bw} (the JAX formula over this batch)")
+
+
+def recorded_calls(fn):
+    """fn() with the inputs of every K1, K2 and K3 call recorded, each call
+    going through to its wrapper. Returns the lists of (budget, K1's
+    arguments), K2's (the pool copied: the tail reads it afterwards) and
+    K3's."""
+    from quake_tpu_torch.ops import flat_topk as k3_mod
+    from quake_tpu_torch.ops import grouped_scan as k12_mod
+
+    k1, k2, k3 = [], [], []
+    real = (k12_mod.grouped_scan_kernel, k12_mod.merge_positions, k3_mod.flat_topk)
+
+    def rec1(*a, budget=False):
+        k1.append((budget, a))
+        return real[0](*a, budget=budget)
+
+    def rec2(m_packed, *a):
+        k2.append((m_packed.clone(),) + a)
+        return real[1](m_packed, *a)
+
+    def rec3(*a):
+        k3.append(a)
+        return real[2](*a)
+    k12_mod.grouped_scan_kernel, k12_mod.merge_positions, k3_mod.flat_topk = rec1, rec2, rec3
+    try:
+        fn()
+    finally:
+        k12_mod.grouped_scan_kernel, k12_mod.merge_positions, k3_mod.flat_topk = real
+    return k1, k2, k3
+
+
+def check_recorded(torch, what: str, calls, summary: dict) -> None:
+    """Each recorded K1, K2 and K3 call (recorded_calls) held against its
+    plain version on the same inputs (compare_k1, _k2, _k3); per launch
+    counter, the calls, their shapes, the least overlap and the largest key
+    difference gathered into summary."""
+    from quake_tpu_torch.ops.flat_topk import flat_topk, flat_topk_plain
+    from quake_tpu_torch.ops.grouped_scan import (grouped_scan_kernel, grouped_scan_plain,
+                                                  merge_positions, merge_positions_plain)
+
+    def note(name, shape, ov, kd):
+        s = summary.setdefault(name, dict(calls=0, shapes=[], min_overlap=1.0, max_key_diff=0.0))
+        s["calls"] += 1
+        if shape not in s["shapes"]:
+            s["shapes"].append(shape)
+        s["min_overlap"], s["max_key_diff"] = min(s["min_overlap"], ov), max(s["max_key_diff"], kd)
+
+    k1, k2, k3 = calls
+    for budget, a in k1:
+        name = (("grouped_scan_budget" if budget else "grouped_scan")
+                + ("_bf16" if a[3].dtype == torch.bfloat16 else ""))
+        kernel = functools.partial(grouped_scan_kernel, budget=budget)
+        ov, kd = compare_k1(torch, kernel, grouped_scan_plain, *a[:8])
+        note(name, f"{what}: Gn={a[0].shape[0]}, qt={a[2].shape[1]}, kk={a[5]}", ov, kd)
+    for m_packed, kfin, slot_mult in k2:
+        compare_k2(torch, merge_positions, merge_positions_plain, m_packed, kfin, slot_mult)
+        note("merge_positions", f"{what}: B={m_packed.shape[0]}, pool={m_packed.shape[1]}, "
+             f"kfin={kfin}", 1.0, 0.0)
+    for codes2d, bias, q, k, metric in k3:
+        ov, kd = compare_k3(torch, flat_topk, flat_topk_plain, codes2d, bias, q, k, metric)
+        note("flat_topk", f"{what}: B={q.shape[0]}, N={codes2d.shape[0]}, k={k}", ov, kd)
+
+
+def budget_entry(torch, idx, q, plan, launches) -> dict:
+    """The kernels line's entry of K1 on the budget grid (grouped_scan_budget,
+    or _bf16 on bf16 codes) at plan, oneshot_plan's record of idx's pinned
+    oneshot search of the batch q: the launcher must pick the tensor-core
+    body; held against its plain version, its time, plain time and bound
+    over the grid's real pairs; launches is the count of the path's own
+    run."""
+    from quake_tpu_torch.ops.grouped_scan import (grouped_scan_kernel, grouped_scan_plain,
+                                                  grouped_scan_uses_mma, v11_inputs)
+
+    st = idx.store.state
+    name = ("grouped_scan_budget_bf16" if st.codes.dtype == torch.bfloat16
+            else "grouped_scan_budget")
+    eff, pair_budget, qt, gpb = plan
+    if pair_budget <= 0:
+        raise AssertionError(f"{name}: the pinned oneshot ran unbudgeted")
+    if not grouped_scan_uses_mma(qt, D, st.codes.dtype):
+        raise AssertionError(f"{name} at qt={qt}, D={D}: the launcher must pick the tensor-core "
+                             "body")
+    inp = v11_inputs(st.codes, st.sizes, st.norms, q, eff, K, "l2", qt, gpb,
+                     pair_budget=pair_budget)
+    args = (inp["gp"], inp["group_size"], inp["qg"], st.codes, inp["normsT"], inp["kk"],
+            inp["slot_mult"], inp["levels"])
+    kernel = functools.partial(grouped_scan_kernel, budget=True)
+    ov, kd = compare_k1(torch, kernel, grouped_scan_plain, *args)
+    real_q = (inp["tgt"] < eff.numel()).sum(1)
+    b, groups, scanned = scan_bound(st, inp["gp"], inp["group_size"], real_q,
+                                    inp["qg"].numel() * inp["qg"].element_size(), qt, inp["kk"],
+                                    D, unit=unit_of(name))
+    valid = int((eff >= 0).sum())
+    return kernel_entry(dict(
+        name=name, tol=f"winner overlap >= {OVERLAP_TOL}, common keys within 1 level",
+        overlap=ov, max_abs_err=kd, launches=launches[name], body="tensor cores",
+        shape=(f"B={q.shape[0]}, W={eff.shape[1]}, budget {pair_budget} pairs ({valid} valid), "
+               f"Gn={inp['gp'].shape[0]}, qt={qt}, D={D}, C={st.codes.shape[1]}, "
+               f"{str(st.codes.dtype)[len('torch.'):]}"),
+        ms=time_ms(torch, lambda: kernel(*args)),
+        plain_ms=time_ms(torch, lambda: grouped_scan_plain(*args), reps=2, warmup=1),
+        bound=b, groups=groups, scanned_rows=scanned))
+
+
+def time_aps(torch, idx, q, sp, loop: bool = False) -> dict:
+    """A batch q through the recall-target search (idx._search_device_full):
+    device ms per batch (CUDA events, 5 reps; the loop, which reads a flag
+    from the device each step, host-paced), QPS, the mean partitions scanned
+    (as the search's `scanned` holds them, or the dense route's width), and
+    the loop's steps and syncs; the results' shape and finiteness checked."""
+    B = q.shape[0]
+    ms = time_ms(torch, lambda: idx._search_device_full(q, sp), reps=5, queued=not loop)
+    _, ids32, timing, dists = idx._search_device_full(q, sp)
+    scanned = getattr(timing, "_scanned_dev", None)
+    mean_scanned = (float(scanned.float().mean()) if scanned is not None
+                    else float(timing.partitions_scanned))
+    ids_np = ids32.cpu().numpy()
+    if ids_np.shape != (B, K) or (ids_np < 0).any() or not torch.isfinite(dists).all():
+        raise AssertionError(f"APS {sp.aps_mode}: expected {K} ids and finite distances a query")
+    return dict(ms=ms, qps=B / (ms / 1e3), scanned=mean_scanned, steps=timing.aps_loop_steps,
+                syncs=timing.aps_loop_syncs)
+
+
+def phase_aps(torch, dev, x, queries, gt, bf16_idx):
+    """Recall-target search (APS) at full width (phase 12 of the module's
+    docstring), in bench_suite.py::run_aps_batch's configuration: build
+    with default parameters (calibrate_aps), the calibrated fields (the
+    budget set by the JAX formula where the calibration left it off), each
+    aps_mode's B=APS_BATCH batch with the launches counted from 0 just
+    before the four modes and read just after, every K1, K2 and K3 call of
+    each mode's batch held against its plain version, each mode's recall on
+    the first NQ_GT queries and its times, the fixed-nprobe anchor, B=64
+    latency, the budgeted scan's K1 at the pinned oneshot's plan (its
+    entry) and v10b against v10; then a pinned oneshot exact_distances=False
+    batch on the headline bf16 index after its calibrate_aps, counted and
+    checked alike (its K1 budget entry). Returns (summary, the kernels
+    line's grouped_scan_budget and grouped_scan_budget_bf16 entries)."""
+    from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams, _ext
+    from quake_tpu_torch.index import APS_FIELDS
+    from quake_tpu_torch.ops.grouped_scan import grouped_scan_v10, grouped_scan_v10b
+    from quake_tpu_torch.utils import compute_recall
+
+    card = card_line()
+    out = {}
+    idx = QuakeIndex(device=dev)
+    calib_s = []
+    plain_calibrate = idx.calibrate_aps
+
+    def timed_calibrate(*a, **kw):  # the build's own call, timed
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        plain_calibrate(*a, **kw)
+        torch.cuda.synchronize()
+        calib_s.append(time.perf_counter() - t)
+    idx.calibrate_aps = timed_calibrate
+    t0 = time.perf_counter()
+    idx.build(x, np.arange(N, dtype=np.int64), IndexBuildParams(nlist=APS_NLIST))
+    out["build_s"] = time.perf_counter() - t0
+    del idx.calibrate_aps
+    if len(calib_s) != 1:
+        raise AssertionError("the default build did not calibrate APS")
+    st = idx.store.state
+    out.update(calibrate_s=calib_s[0], nlist=idx.nlist(), P=idx.store.P, C=idx.store.C,
+               kernel=idx._grouped_kernel(),
+               store_bytes=sum(t.numel() * t.element_size()
+                               for t in (st.codes, st.ids, st.norms, st.sizes)),
+               fields={f: getattr(idx, f) for f in APS_FIELDS if f != "aps_radius_ab"})
+    out["fields"]["aps_radius_ab_k10"] = (None if idx.aps_radius_ab is None
+                                          else idx.aps_radius_ab[K - 1].tolist())
+    log(f"[aps] ({card}) build {out['build_s']:.2f} s, calibrate_aps {calib_s[0]:.2f} s of it: "
+        f"nlist={out['nlist']} P={out['P']} C={out['C']} scan {out['kernel']} store "
+        f"{out['store_bytes'] / 1e9:.3f} GB; calibrated {json.dumps(out['fields'])}")
+
+    qd = {B: torch.from_numpy(queries[:B]).to(dev) for B in (NQ_GT, APS_BATCH, 64)}
+    q = qd[APS_BATCH]
+    sps = {mode: SearchParams(k=K, recall_target=APS_TARGET, aps_mode=mode)
+           for mode in APS_MODES}
+    out["budget_calibrated"] = bool(idx.aps_width_clip and idx.aps_budget_w)
+    budget_by_formula(idx, q, sps["oneshot"], "the f32 index")
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    for mode in APS_MODES:  # the APS path: each mode's batch once
+        idx._search_device_full(q, sps[mode])
+    torch.cuda.synchronize()
+    launches = dict(_ext.launches)
+    out["launches"] = launches
+    log(f"[aps] kernel launches on the APS path (one B={APS_BATCH} batch of each of "
+        f"{APS_MODES}): {launches}")
+    need = ["flat_topk", "merge_positions", "grouped_scan", "grouped_scan_budget"]
+    if any(launches[k] <= 0 for k in need):
+        raise AssertionError(f"the APS path must launch {need}: {launches}")
+    checks = {}
+    for mode in APS_MODES:
+        check_recorded(torch, mode, recorded_calls(
+            functools.partial(idx._search_device_full, q, sps[mode])), checks)
+    if set(checks) != {k for k, n in launches.items() if n}:
+        raise AssertionError(f"the recorded calls ({sorted(checks)}) are not the kernels the APS "
+                             f"path launched ({launches})")
+    out["kernel_checks"] = checks
+    log(f"[aps] ({card}) every K1, K2 and K3 call of each mode's B={APS_BATCH} batch against its "
+        f"plain version (K1 and K3: winner overlap >= {OVERLAP_TOL}, common keys within 1 "
+        f"level; K2 equal): {json.dumps(checks)}")
+
+    for mode in APS_MODES:
+        res = idx.search(queries[:NQ_GT], sps[mode])
+        recall = compute_recall(res.ids, gt, K)
+        r = dict(time_aps(torch, idx, q, sps[mode], loop=mode == "loop"),
+                 recall=recall, scanned_first_1024=res.timing_info.partitions_scanned)
+        out[mode] = r
+        log(f"[aps] ({card}) {mode}: recall@10 {recall:.4f} (B={NQ_GT}), B={APS_BATCH} "
+            f"{r['ms']:.3f} ms/batch, {r['qps']:,.0f} QPS, mean partitions scanned "
+            f"{r['scanned']:.2f}" + (f", loop steps {r['steps']}, host syncs {r['syncs']}"
+                                    if mode == "loop" else ""))
+        if recall < APS_RECALL_GATES[mode]:
+            raise AssertionError(f"APS {mode}: recall@10 {recall:.4f} below "
+                                 f"{APS_RECALL_GATES[mode]}")
+
+    # The fixed-nprobe anchor, as run_aps_batch takes it.
+    anchor = None
+    for nprobe in APS_ANCHOR:
+        res = idx.search(queries[:NQ_GT], SearchParams(k=K, nprobe=nprobe))
+        r = compute_recall(res.ids, gt, K)
+        anchor = (nprobe, r)
+        if r >= APS_TARGET:
+            break
+    spf = SearchParams(k=K, nprobe=anchor[0])
+    f_ms = time_ms(torch, lambda: idx._search_device_full(q, spf), reps=5)
+    out["fixed"] = dict(nprobe=anchor[0], recall=anchor[1], ms=f_ms, qps=APS_BATCH / (f_ms / 1e3))
+    out["fixed_over_aps_qps"] = out["fixed"]["qps"] / out["auto"]["qps"]
+    host = []
+    for _ in range(10):
+        t = time.perf_counter()
+        idx.search(queries[:64], sps["auto"])
+        host.append((time.perf_counter() - t) * 1e3)
+    out["auto_b64_host_ms"] = float(np.mean(host))
+    log(f"[aps] ({card}) fixed nprobe {anchor[0]}: recall@10 {anchor[1]:.4f}, B={APS_BATCH} "
+        f"{f_ms:.3f} ms/batch; fixed/APS(auto) QPS {out['fixed_over_aps_qps']:.3f}; auto B=64 "
+        f"{out['auto_b64_host_ms']:.3f} ms a search on the host clock (mean of 10)")
+
+    # The budgeted scan at the pinned oneshot's plan: K1 on the budget grid
+    # (its entry), v10b against v10.
+    plan = oneshot_plan(idx, q, sps["oneshot"])
+    entries = [budget_entry(torch, idx, q, plan, launches)]
+    eff, pair_budget, qt, gpb = plan
+    out["budget"] = dict(pair_budget=pair_budget, valid_pairs=int((eff >= 0).sum()),
+                         width=eff.shape[1], qt=qt, gpb=gpb, k1_ms=entries[0]["ms"])
+    scan = (st.codes, st.ids, st.sizes, st.norms, q, eff, K, "l2")
+    v10 = grouped_scan_v10(*scan, qt=qt, gpb=gpb)
+    v10b = grouped_scan_v10b(*scan, pair_budget=int((eff >= 0).sum()), qt=qt, gpb=gpb)
+    if not torch.equal(v10[1], v10b[1]) or not torch.equal(v10[2], v10b[2]):
+        raise AssertionError("v10b's ids differ from v10's on the same plan with every valid "
+                             "pair in the budget")
+    sorted_b = grouped_scan_v10b(*scan, pair_budget=pair_budget, qt=qt, gpb=gpb,
+                                 placement="sorted")
+    out["budget"].update(
+        v10b_equals_v10=True, sorted_overlap=overlap(sorted_b[1].long(), v10[1].long()),
+        v10_ms=time_ms(torch, lambda: grouped_scan_v10(*scan, qt=qt, gpb=gpb), reps=5),
+        v10b_ms=time_ms(torch, lambda: grouped_scan_v10b(*scan, pair_budget=pair_budget, qt=qt,
+                                                         gpb=gpb, placement="sorted"), reps=5))
+    log(f"[aps] ({card}) budgeted scan at the oneshot plan: {json.dumps(out['budget'])}; v10b "
+        "ids equal v10's")
+    del v10, v10b, sorted_b, scan
+
+    # run_deep's serving mode on the headline bf16 index: calibrate, then a
+    # pinned oneshot batch with dequantized scores.
+    t0 = time.perf_counter()
+    bf16_idx.calibrate_aps()
+    torch.cuda.synchronize()
+    bcal = time.perf_counter() - t0
+    spb = SearchParams(k=K, recall_target=APS_TARGET, aps_mode="oneshot", exact_distances=False)
+    fields = {f: getattr(bf16_idx, f) for f in APS_FIELDS if f != "aps_radius_ab"}
+    budget_by_formula(bf16_idx, q, spb, "the bf16 index")
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    bf16_idx._search_device_full(q, spb)
+    torch.cuda.synchronize()
+    blaunches = dict(_ext.launches)
+    if (blaunches["grouped_scan_budget_bf16"] != 1 or blaunches["flat_topk"] <= 0
+            or blaunches["merge_positions"] <= 0
+            or any(blaunches[k] for k in ("grouped_scan", "grouped_scan_bf16",
+                                          "grouped_scan_budget"))):
+        raise AssertionError("the bf16 oneshot must run K3, K2 and K1's bf16 body on the budget "
+                             f"grid once: {blaunches}")
+    bchecks = {}
+    check_recorded(torch, "bf16 oneshot", recorded_calls(
+        functools.partial(bf16_idx._search_device_full, q, spb)), bchecks)
+    rb = time_aps(torch, bf16_idx, q, spb)
+    rb.update(launches=blaunches, calibrate_s=bcal, fields=fields, kernel_checks=bchecks,
+              recall=compute_recall(bf16_idx.search(queries[:NQ_GT], spb).ids, gt, K))
+    out["bf16_oneshot"] = rb
+    log(f"[aps] ({card}) bf16 headline index (nlist {bf16_idx.nlist()}): calibrate_aps "
+        f"{bcal:.2f} s ({json.dumps(fields)}); pinned oneshot, exact_distances=False: "
+        f"recall@10 {rb['recall']:.4f}, B={APS_BATCH} {rb['ms']:.3f} ms/batch, mean scanned "
+        f"{rb['scanned']:.2f}, launches {blaunches}; its K1, K2 and K3 calls against their "
+        f"plain versions: {json.dumps(bchecks)}")
+    entries.append(budget_entry(torch, bf16_idx, q, oneshot_plan(bf16_idx, q, spb), blaunches))
+    return out, entries
 
 
 def check_contract_6(torch, store, when: str) -> float:
@@ -2574,17 +2952,20 @@ def main() -> int:
     wide = phase_wide(torch, dev)
     kernels = phase_kernels(torch, dev, idx, x, queries, main_out["nprobe"], launches, by_name,
                             direct, k1_build)
-    headline, k1_bf16 = phase_headline_bf16(torch, dev, x, queries, gt, idx, k1_build)
+    headline, k1_bf16, bf16_idx = phase_headline_bf16(torch, dev, x, queries, gt, idx, k1_build)
     kernels.append(k1_bf16)
     k1_build[0].cleanup()
-    del x
+    aps, k1_budget = phase_aps(torch, dev, x, queries, gt, bf16_idx)
+    kernels.extend(k1_budget)
+    del x, bf16_idx
+    torch.cuda.empty_cache()
     mutation = phase_mutation(torch, dev, idx, queries, main_out["nprobe"],
                               {"default": main_out[f"B{BATCH}"]["ms"],
                                "sized": direct["sized_topk"]["ms"],
                                "multi": direct["multi_topk"]["ms"]})
     log("[summary] " + json.dumps(dict(main_out, by_name=by_name, direct=direct,
                                        latency=latency, wide=wide, headline_bf16=headline,
-                                       mutation=mutation)))
+                                       aps=aps, mutation=mutation)))
 
     if len(kernels) != len(ENTRIES):
         raise AssertionError(f"the kernels line needs {len(ENTRIES)} entries, got {len(kernels)}")

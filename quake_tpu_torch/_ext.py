@@ -14,7 +14,8 @@ sources and flags, and loaded with ``ctypes``. Nothing is built or loaded at
 import, so the CPU-only tests import every module freely.
 
 ``launches`` counts the launches of each kernel (K1 grouped_scan, and on
-bf16 codes grouped_scan_bf16, K2
+bf16 codes grouped_scan_bf16, and on the budget grid of the masked APS scans
+grouped_scan_budget and grouped_scan_budget_bf16, K2
 merge_positions, K3 flat_topk, K4 rowscale_topk, K5 rowscale_fold, K6
 exact_topk, K7 chunk_merge, K8 raw_scores, K9 packed_topk, and sized_topk and
 multi_topk). A wrapper adds one where it launches its kernel and nowhere
@@ -97,7 +98,8 @@ _SIGNATURES = {
     "qk_multi_topk_body": (_I, _I, _I),
 }
 
-KERNELS = ("grouped_scan", "grouped_scan_bf16", "merge_positions", "flat_topk", "rowscale_topk",
+KERNELS = ("grouped_scan", "grouped_scan_bf16", "grouped_scan_budget",
+           "grouped_scan_budget_bf16", "merge_positions", "flat_topk", "rowscale_topk",
            "rowscale_fold", "exact_topk", "chunk_merge", "raw_scores", "packed_topk", "sized_topk",
            "multi_topk")
 launches = dict.fromkeys(KERNELS, 0)

@@ -1,6 +1,7 @@
-"""QuakeIndex: build; the flat, the query-major and the batched fixed-nprobe
-searches; add, remove, modify, get and validate with split-on-overflow; save
-and load (those parts of quake_tpu/index.py).
+"""QuakeIndex: build with APS calibration; the flat, the query-major, the
+batched fixed-nprobe and the recall-target (APS) searches; add, remove,
+modify, get and validate with split-on-overflow; save and load (those parts
+of quake_tpu/index.py).
 
 A recursive two-level IVF structure, as in the reference orchestrator
 (src/cpp/include/quake_index.h:18-142, src/cpp/src/quake_index.cpp:29-288):
@@ -15,6 +16,7 @@ the ROADMAP item that will lift it; nothing is silently skipped.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
@@ -24,16 +26,17 @@ import numpy as np
 import torch
 
 from quake_tpu_torch import coordinator
-from quake_tpu_torch.geometry import effective_dimension
+from quake_tpu_torch.geometry import beta_table, effective_dimension
 from quake_tpu_torch.kmeans import balance_clusters, kmeans_fit_assign, kmeans_np
 from quake_tpu_torch.ops.grouped import BF16_OPERANDS, grouped_scan_xla
 from quake_tpu_torch.ops.grouped_scan import QTS, grouped_scan_uses_mma
 from quake_tpu_torch.ops.scan import scores_to_distances
-from quake_tpu_torch.params import IndexBuildParams, SearchParams, check_metric
+from quake_tpu_torch.params import (DEFAULT_INITIAL_SEARCH_FRACTION, IndexBuildParams,
+                                     SearchParams, check_metric)
 from quake_tpu_torch.storage.store import SPILL_NOT_PORTED, PartitionStore, StoreState, _sumsq
 from quake_tpu_torch.timing import (BuildTimingInfo, ModifyTimingInfo, SearchResult,
                                     SearchTimingInfo)
-from quake_tpu_torch.utils import next_pow2, to_f32, to_i64
+from quake_tpu_torch.utils import compute_recall, next_pow2, to_f32, to_i64
 
 INT32_MAX = np.iinfo(np.int32).max
 MIN_BATCH = 16  # smaller batches take the query-major path
@@ -41,16 +44,15 @@ SERIALIZATION_VERSION = 1  # the JAX package's save format (quake_tpu/index.py:4
 
 # ROADMAP Queue 1 items that lift the NotImplementedError guards below.
 SPILL = "ROADMAP Queue 1 item 6: spill and dedup"
-APS = "ROADMAP Queue 1 item 7: APS"
 MAINTENANCE = "ROADMAP Queue 1 item 8: maintenance"
 MULTI_LEVEL = "ROADMAP Queue 1 item 10: multi-level parents and bounds=\"sampled\""
 PARALLEL = "ROADMAP Queue 1 item 11: parallel"
 
 CODE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}  # IndexBuildParams.precision
 
-# The APS calibration a saved index carries (quake_tpu/index.py:1831-1840),
-# with the JAX package's defaults: kept as attributes of these names, written
-# back by save, unused until APS is ported.
+# The APS calibration an index carries and a save keeps
+# (quake_tpu/index.py:1831-1840), with the JAX package's defaults
+# (calibrate_aps sets them; see the JAX package's __init__ for each).
 APS_FIELDS = dict(aps_gamma=1.0, aps_radius_ab=None, aps_oneshot_mcap=0, aps_budget_w=0,
                   aps_width_clip=0, aps_calib_target=0.0, aps_dense_w=0, aps_calib_nq=0,
                   aps_plan_width=0)
@@ -77,6 +79,26 @@ def resolve_device(device=None) -> torch.device:
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet ({item})")
+
+
+def _recall_without_self(ids32: torch.Tensor, self_ids: np.ndarray, gt: np.ndarray,
+                         k: int) -> float:
+    """Recall@k of a [nq, k+1] search result against gt, each row's own id
+    dropped (the calibration protocol)."""
+    return compute_recall(_drop_self(ids32.cpu().numpy().astype(np.int64), self_ids, k), gt, k)
+
+
+def _drop_self(ids: np.ndarray, self_ids: np.ndarray, k: int) -> np.ndarray:
+    """Remove each row's own id from a [nq, k+1] neighbor list, keeping k
+    (quake_tpu/index.py::_drop_self): calibration queries come from resident
+    vectors, whose own id would be a free home-partition hit."""
+    out = np.empty((ids.shape[0], k), dtype=ids.dtype)
+    for i, row in enumerate(ids):
+        keep = row[row != self_ids[i]]
+        if keep.shape[0] < k:  # self id absent: drop the tail instead
+            keep = row[:k]
+        out[i] = keep[:k]
+    return out
 
 
 class QuakeIndex:
@@ -124,8 +146,6 @@ class QuakeIndex:
         if bp.num_shards > 1 or self._would_shard(bp.num_workers):
             raise _not_ported("sharding (num_shards > 1, or num_workers > 1 with as many "
                               "CUDA devices)", PARALLEL)
-        if bp.nlist > 1 and bp.calibrate_aps and n >= 10_000:
-            raise _not_ported("calibrate_aps=True (pass calibrate_aps=False)", APS)
         if bp.profile_maintenance_latency:
             raise _not_ported("profile_maintenance_latency=True", MAINTENANCE)
         if bp.nlist > 1 and bp.parent_params is not None and bp.parent_params.nlist > 1:
@@ -182,6 +202,8 @@ class QuakeIndex:
             if bp.spill:
                 raise ValueError("spill requires an IVF index (nlist > 1)")
             self.store.init_single_partition(x, ids)
+        if bp.nlist > 1 and bp.calibrate_aps and n >= 10_000:
+            self.calibrate_aps()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         timing.total_time_us = _now_us() - t0
@@ -212,6 +234,11 @@ class QuakeIndex:
         t2 = _now_ns()
         ids_np = ids32.cpu().numpy().astype(np.int64)  # waits for the device
         t3 = _now_ns()
+        scanned_dev = getattr(timing, "_scanned_dev", None)
+        if scanned_dev is not None:  # APS: read after the wait above
+            sc = scanned_dev.cpu().numpy()
+            timing.partitions_scanned = int(sc.mean()) if sc.size else 0
+            timing._scanned_dev = None
         dists_np = dists.cpu().numpy()
         t4 = _now_ns()
         timing.buffer_init_time_ns = t1 - t0
@@ -224,8 +251,6 @@ class QuakeIndex:
     def _check_search(self, sp: SearchParams) -> None:
         if self.parent is None:
             return  # a flat index scans everything, whatever the recall target
-        if sp.recall_target > 0:
-            raise _not_ported("recall_target > 0 (APS)", APS)
         if self.parent.parent is not None:
             raise _not_ported("a parent index that is itself an IVF", MULTI_LEVEL)
 
@@ -236,11 +261,20 @@ class QuakeIndex:
         take the fused partition-major path unless batched_scan is False; a
         flat index scans every slot; the rest goes query by query through
         _search_device. exact_distances=False dequantizes the scores of the
-        fused path's v10/v11 scans; the flat and query-major searches, and
-        every other scan, stay exact, as in the JAX package."""
+        fused path's and the APS scans' v10/v11; the flat and query-major
+        searches, and every other scan, stay exact, as in the JAX package.
+
+        A recall target (APS) in aps_mode "auto" or "dense" first tries the
+        calibrated dense prefix (_aps_dense_route); otherwise _search_device
+        runs the per-query plans."""
         B = int(q.shape[0])
         self._check_search(sp)
         k = max(int(sp.k), 1)
+        use_aps = sp.recall_target > 0.0 and self.parent is not None
+        if use_aps and sp.aps_mode in ("auto", "dense"):
+            routed = self._aps_dense_route(q, sp)
+            if routed is not None:
+                return routed
         if self.parent is None:
             # Flat exact mode (quake_index.cpp:68-79).
             timing = SearchTimingInfo(n_queries=B, n_clusters=self.nlist(), search_params=sp)
@@ -249,7 +283,7 @@ class QuakeIndex:
                                                                  self.metric)
             timing.partitions_scanned = self.nlist()
             return scores, ids32, timing, dists
-        if B < MIN_BATCH or sp.batched_scan is False:
+        if use_aps or B < MIN_BATCH or sp.batched_scan is False:
             scores, ids32, timing = self._search_device(q, sp)
             return scores, ids32, timing, scores_to_distances(scores, ids32, self.metric)
         timing = SearchTimingInfo(n_queries=B, n_clusters=self.nlist(), search_params=sp)
@@ -269,15 +303,52 @@ class QuakeIndex:
             partitions_scanned=self.parent.nlist())
         return scores, ids32, timing, dists
 
+    def _aps_dense_route(self, q: torch.Tensor, sp: SearchParams):
+        """The dense-prefix routes of recall-target search
+        (quake_tpu/index.py:801-854): where calibration validated a width
+        (aps_dense_w, else aps_width_clip) for a target at least the
+        requested one, and the candidate width is auto
+        (initial_search_fraction None), the fixed-nprobe search at that
+        width; in auto mode with a budget calibrated, a target above the
+        calibrated one scans the widest calibrated reach (aps_width_clip)
+        densely. Returns _search_device_full's tuple, or None to go on to
+        the per-query plans; aps_mode="dense" without a route raises
+        ValueError."""
+        width = int(self.aps_dense_w or 0) or int(self.aps_width_clip or 0)
+        calib_t = float(self.aps_calib_target or 0.0)
+        npb = 0
+        if (width and sp.initial_search_fraction is None
+                and float(sp.recall_target) <= calib_t + 1e-6):
+            npb = min(width, self.nlist())
+        elif (sp.aps_mode == "auto" and self.aps_width_clip
+              and sp.initial_search_fraction is None and self.aps_radius_ab is not None):
+            npb = min(int(self.aps_width_clip), self.nlist())
+        if npb:
+            sp_fixed = dataclasses.replace(sp, recall_target=0.0, nprobe=npb, aps_mode="auto")
+            scores, ids32, timing, dists = self._search_device_full(q, sp_fixed)
+            timing.search_params = sp
+            timing.partitions_scanned = npb
+            return scores, ids32, timing, dists
+        if sp.aps_mode == "dense":
+            raise ValueError(
+                "aps_mode='dense' requires a calibrated width "
+                f"(aps_dense_w={self.aps_dense_w}, aps_width_clip={self.aps_width_clip}), auto "
+                "candidate sizing (initial_search_fraction=None), and "
+                f"recall_target <= {calib_t} (the calibrated target); run "
+                "calibrate_aps(target=...) or use aps_mode='auto'.")
+        return None
+
     def _search_device(self, q: torch.Tensor, sp: SearchParams, approx_flat: bool = False):
-        """The unfused search (quake_tpu/index.py::_search_device without APS
-        and sharding); returns (scores, int32 ids, timing). A flat index
-        scans every slot; approx_flat marks a parent centroid ranking (see
+        """The unfused search (quake_tpu/index.py::_search_device without
+        sharding); returns (scores, int32 ids, timing). A flat index scans
+        every slot; approx_flat marks a parent centroid ranking (see
         ops/scan.py::topk_from_scores), user-facing flat searches stay
         exact. An IVF index ranks candidates through its parent, padded to a
         power of two of at least the nprobe bucket and trimmed back, then
         scans partition-major in tensor operations (batched_scan true, or
-        unset with at least 16 queries) or query-major."""
+        unset with at least 16 queries) or query-major; with a recall
+        target, it runs an APS strategy over the candidates (_aps_search;
+        the oneshot one ranks the parents itself)."""
         B = int(q.shape[0])
         timing = SearchTimingInfo(n_queries=B, n_clusters=self.nlist(), search_params=sp)
         k = max(int(sp.k), 1)
@@ -288,7 +359,11 @@ class QuakeIndex:
             timing.partitions_scanned = self.nlist()
             return scores, ids32, timing
         # Parent search for candidate partitions (query_coordinator.cpp:628-646).
-        parent_k = min(int(sp.nprobe), self.nlist())
+        use_aps = sp.recall_target > 0.0
+        if use_aps:
+            aps_mode, parent_k = self._aps_mode_and_width(B, k, sp)
+        else:
+            parent_k = min(int(sp.nprobe), self.nlist())
         parent_k_padded = min(next_pow2(parent_k, self._nprobe_bucket), self.parent.ntotal())
         # The caller's search parameters reach the parent as in the JAX
         # package (query_coordinator.cpp:628-634), a positive recall target
@@ -301,11 +376,19 @@ class QuakeIndex:
                                  use_precomputed=sp.use_precomputed,
                                  recompute_threshold=sp.recompute_threshold,
                                  initial_search_fraction=sp.initial_search_fraction)
+        if use_aps and aps_mode == "oneshot":
+            # Fused oneshot: the parent ranking runs inside the oneshot call.
+            timing.parent_info = SearchTimingInfo(
+                n_queries=B, n_clusters=self.parent.nlist(),
+                partitions_scanned=self.parent.nlist())
+            return (*self._aps_search(q, sp, timing, aps_mode, parent_k, None), timing)
         t1 = _now_ns()
         _, p_ids32, p_timing = self.parent._search_device(q, parent_sp, approx_flat=True)
         p_timing.total_time_ns = _now_ns() - t1  # enqueue; the device runs on
         timing.parent_info = p_timing
         pids = p_ids32[:, :parent_k]  # trim the padding back to the candidate count
+        if use_aps:
+            return (*self._aps_search(q, sp, timing, aps_mode, parent_k, pids), timing)
         if sp.batched_scan or (sp.batched_scan is None and B >= MIN_BATCH):
             qt, group_chunk = self._grouped_params(B, parent_k)
             scores, ids32, _ = grouped_scan_xla(state.codes, state.ids, q, pids, k, self.metric,
@@ -315,6 +398,337 @@ class QuakeIndex:
                                                       self.metric)
         timing.partitions_scanned = parent_k
         return scores, ids32, timing
+
+    def _aps_mode_and_width(self, B: int, k: int, sp: SearchParams):
+        """(APS strategy, candidate width parent_k) of a recall-target search
+        (quake_tpu/index.py:1107-1180). "auto": oneshot at B >= 1024 where
+        the radius predictor is calibrated, else planned (never the loop);
+        oneshot without a predictor runs planned. The candidate width: the
+        calibrated serving width (aps_oneshot_mcap for oneshot, else
+        aps_plan_width; the reference fraction with a floor of 16 where
+        uncalibrated) when initial_search_fraction is None, else nlist times
+        the fraction (capped at mcap for oneshot); never below the
+        partitions that can hold 2k results."""
+        aps_mode = sp.aps_mode
+        if aps_mode == "auto":
+            aps_mode = ("oneshot" if B >= 1024 and self.aps_radius_ab is not None
+                        else "planned")
+        if aps_mode == "oneshot" and self.aps_radius_ab is None:
+            aps_mode = "planned"
+        nlist = self.nlist()
+        avg_sz = max(self.ntotal() / max(nlist, 1), 1.0)
+        min_parts = min(int(np.ceil(2.0 * k / avg_sz)), nlist)
+        mcap = int(self.aps_oneshot_mcap or 0)
+        if sp.initial_search_fraction is None:
+            width = int(self.aps_plan_width or 0)
+            if aps_mode == "oneshot" and mcap:
+                width = mcap
+            if not width:
+                width = max(int(nlist * DEFAULT_INITIAL_SEARCH_FRACTION), min(nlist, 16))
+            parent_k = max(min(width, nlist), min_parts, 1)
+        else:
+            parent_k = max(int(nlist * float(sp.initial_search_fraction)), min_parts, 1)
+            if aps_mode == "oneshot" and mcap:
+                parent_k = max(min(parent_k, mcap), min_parts, 1)
+        return aps_mode, parent_k
+
+    def _aps_search(self, q, sp: SearchParams, timing, mode: str, parent_k: int, pids):
+        """The APS half of quake_tpu/index.py::_search_device (:1245-1413,
+        one device): oneshot (its parents ranked inside, pids None),
+        planned or the loop, with the calibrated dimension, gamma, radius
+        model and budget. `scanned` stays on the device as
+        timing._scanned_dev (search() reads it after its wait); the loop's
+        steps and syncs go to timing. Returns (scores, ids32)."""
+        B = int(q.shape[0])
+        k = max(int(sp.k), 1)
+        state = self.store.state
+        t_b = _now_ns()
+        table = (beta_table(self.aps_dimension or self.d(), "l2", self.device)
+                 if sp.use_precomputed else None)
+        timing.boundary_distance_time_ns = _now_ns() - t_b
+        chunk = int(sp.aps_chunk_size)
+        if chunk <= 0:  # auto: two coarse steps at batch, 8 ranks a step below it
+            chunk = max(8, -(-parent_k // 2)) if B >= 1024 else 8
+        qt, _ = self._grouped_params(B, chunk)
+        common = dict(k=k, metric=self.metric, dimension=self.aps_dimension or self.d(),
+                      use_precomputed=bool(sp.use_precomputed), table=table, qt=qt,
+                      kernel=self._grouped_kernel(), sizes=state.sizes, norms=state.norms,
+                      gamma=self.aps_gamma if self.aps_gamma != 1.0 else None,
+                      exact=bool(sp.exact_distances))
+        plans = dict(plan_margin=int(sp.aps_plan_margin), width_clip=int(self.aps_width_clip),
+                     budget_w=int(self.aps_budget_w))
+        target = float(sp.recall_target)
+        if mode == "oneshot":
+            ra, rb = self._radius_coef(k)
+            pstate = self.parent.store.state
+            scores, ids32, scanned, _ = coordinator.aps_search_oneshot_fused(
+                state.codes, state.ids, state.centroids, pstate.codes, pstate.ids,
+                pstate.norms, q, target, parent_k=int(parent_k),
+                mcap=int(self.aps_oneshot_mcap or 0), radius_a=ra, radius_b=rb,
+                parent_kernel=self._parent_kernel(), **common, **plans)
+        elif mode == "planned":
+            chunk0 = (int(sp.aps_chunk_size) if sp.aps_chunk_size > 0
+                      else self._planned_chunk0(parent_k))
+            scores, ids32, scanned = coordinator.aps_search_planned(
+                state.codes, state.ids, state.centroids, q, pids, target, chunk0=chunk0,
+                **common, **plans)
+        else:
+            stats = {}
+            scores, ids32, scanned = coordinator.aps_search(
+                state.codes, state.ids, state.centroids, q, pids, target,
+                float(sp.recompute_threshold), chunk=chunk, stats=stats, **common)
+            timing.aps_loop_steps = stats["steps"]
+            timing.aps_loop_syncs = stats["syncs"]
+        # Kept on the device: reading the mean here would wait for the search.
+        timing._scanned_dev = scanned
+        return scores, ids32
+
+    def _radius_coef(self, k: int):
+        """(a, b) of the calibrated oneshot radius model for this k; k past
+        the calibrated kmax clamps to the last row."""
+        ab = self.aps_radius_ab
+        row = min(max(int(k), 1), ab.shape[0]) - 1
+        return float(ab[row, 0]), float(ab[row, 1])
+
+    def _planned_chunk0(self, parent_k: int) -> int:
+        """Prologue rank count of planned APS: 8 (the JAX package's measured
+        choice, quake_tpu/index.py:1022-1038), at most the candidate width."""
+        return min(8, max(parent_k, 1))
+
+    # ------------------------------------------------------ APS calibration
+
+    def calibrate_aps(self, target: float = 0.9, nq: int = 0, k: int = 10):
+        """Calibrate the APS recall model against realized recall
+        (quake_tpu/index.py::calibrate_aps, step for step): every product
+        of an earlier calibration reset first; pseudo-out-of-sample queries
+        (resident vectors moved by their exact k-th-neighbor radius in a
+        random direction, numpy seed 0) with exact ground truth; the model
+        dimension swept from a quarter of the intrinsic dimension to the
+        ambient one (twice it for ip), the candidate width escalating over
+        0.25, 0.5 and all of nlist; the sharpening gamma; the plan width;
+        then _calibrate_radius_predictor. Each trial is a search of the
+        index's own scan (`_grouped_kernel`). nq=0 sizes the sample
+        max(128, min(768, 2 nlist)), at most ntotal / 4; fewer than 512
+        vectors leave APS uncalibrated."""
+        for name, default in APS_FIELDS.items():
+            setattr(self, name, default)
+        if self.parent is None or self.ntotal() < 512:
+            return
+        if nq <= 0:
+            nq = max(128, min(768, 2 * self.nlist()))
+        nq = min(nq, self.ntotal() // 4)
+        sample_ids = self.store.get_ids()[:nq]
+        q_np, found = self.store.get_vectors(sample_ids)
+        q0_np = np.ascontiguousarray(q_np[found], dtype=np.float32)
+        self_ids = np.asarray(sample_ids)[found].astype(np.int64)
+        if q0_np.shape[0] < 8:
+            return
+        state = self.store.state
+        dev = self.device
+        # Pseudo-OOS queries: each sample moved by its exact rank-k distance
+        # (rank 0 is the self match), unit-norm again for ip.
+        sc0, _ = coordinator.flat_search(state.codes, state.ids, torch.from_numpy(q0_np).to(dev),
+                                         k + 1, self.metric)
+        kth0 = sc0.cpu().numpy().astype(np.float32)[:, k]
+        if self.metric == "l2":
+            r_k = np.sqrt(np.maximum(-kth0, 0.0))
+        else:
+            r_k = np.sqrt(np.maximum(np.sum(q0_np ** 2, axis=1) + 1.0 - 2.0 * kth0, 0.0))
+        gdir = np.random.default_rng(0).standard_normal(q0_np.shape).astype(np.float32)
+        gdir /= np.maximum(np.linalg.norm(gdir, axis=1, keepdims=True), 1e-9)
+        q_pert = q0_np + r_k[:, None] * gdir
+        if self.metric == "ip":
+            q_pert /= np.maximum(np.linalg.norm(q_pert, axis=1, keepdims=True), 1e-9)
+        q = torch.from_numpy(np.ascontiguousarray(q_pert, dtype=np.float32)).to(dev)
+        _, gt32 = coordinator.flat_search(state.codes, state.ids, q, k + 1, self.metric)
+        gt = _drop_self(gt32.cpu().numpy().astype(np.int64), self_ids, k)
+
+        d_lo = max((self.aps_dimension or self.d()) // 4, 2)
+        d_hi = max(self.d(), d_lo + 1)
+        margin = 0.02
+        if self.metric == "ip":  # sweep above ambient, trim the margin
+            d_hi = max(2 * self.d(), d_lo + 1)
+            margin = 0.005
+        cands = np.unique(np.round(np.geomspace(d_lo, d_hi, 8)).astype(int))[::-1]
+        goal = min(target + margin, 0.995)
+        chosen = int(cands[-1])
+        acc_scanned = None
+        seen_w = set()
+        scan = dict(k=k + 1, metric=self.metric, dimension=self.d(), chunk=4,
+                    use_precomputed=True, kernel=self._grouped_kernel(), sizes=state.sizes,
+                    norms=state.norms)
+        for frac_c in (0.25, 0.5, 1.0):
+            parent_k = max(int(self.nlist() * frac_c), 1)
+            if parent_k in seen_w:
+                continue
+            seen_w.add(parent_k)
+            parent_k_padded = min(next_pow2(parent_k, self._nprobe_bucket),
+                                  self.parent_ntotal())
+            _, p_ids32, _ = self.parent._search_device(
+                q, SearchParams(k=parent_k_padded, batched_scan=True))
+            pids = p_ids32[:, :parent_k] if parent_k < p_ids32.shape[1] else p_ids32
+            for d_cand in cands:
+                _, ids32, scanned = coordinator.aps_search(
+                    state.codes, state.ids, state.centroids, q, pids, float(target), 0.0,
+                    table=beta_table(int(d_cand), "l2", dev), **scan)
+                if _recall_without_self(ids32, self_ids, gt, k) >= goal:
+                    chosen = int(d_cand)
+                    acc_scanned = scanned.cpu().numpy()
+                    break
+            if acc_scanned is not None:
+                break
+        self.aps_dimension = chosen
+
+        # The profile-sharpening exponent: the largest that still meets the goal.
+        self.aps_gamma = 1.0
+        table = beta_table(chosen, "l2", dev)
+        for g_cand in (1.5, 2.0, 3.0, 4.0, 6.0):
+            _, ids32, scanned_g = coordinator.aps_search(
+                state.codes, state.ids, state.centroids, q, pids, float(target), 0.0,
+                table=table, gamma=g_cand, **scan)
+            if _recall_without_self(ids32, self_ids, gt, k) < goal:
+                break
+            self.aps_gamma = float(g_cand)
+            acc_scanned = scanned_g.cpu().numpy()
+
+        # Serving width: p99 of the accepted plans' depths, 1.5x, rounded up
+        # to 8, within [8, the calibration width].
+        if acc_scanned is not None:
+            need = float(np.quantile(acc_scanned.astype(np.float64), 0.99))
+            w = -(-int(need * 1.5) // 8) * 8
+            self.aps_plan_width = int(min(max(w, 8), pids.shape[1]))
+        self._calibrate_radius_predictor(q, pids, self_ids, gt, float(target), k, goal)
+
+    def _calibrate_radius_predictor(self, q, pids, self_ids, gt, target: float, k: int,
+                                    goal: float, kmax: int = 100, nq_fit: int = 256):
+        """Fit and validate the oneshot radius model, then the candidate-width
+        cap, the dense-prefix width and (v10/v11 scans only) the pair budget
+        (quake_tpu/index.py::_calibrate_radius_predictor). q, pids: the
+        calibration queries and their candidates; self_ids, gt: their source
+        ids and ground truth (_recall_without_self)."""
+        state = self.store.state
+        dev = self.device
+        kmax = int(min(kmax, max(self.ntotal() - 2, 1)))
+        fit_ids = self.store.get_ids()[:nq_fit]
+        qf_np, found = self.store.get_vectors(fit_ids)
+        qf_np = np.ascontiguousarray(qf_np[found], dtype=np.float32)
+        if qf_np.shape[0] < 16:
+            return
+        fit_self = np.asarray(fit_ids)[found].astype(np.int64)
+        qf = torch.from_numpy(qf_np).to(dev)
+
+        # Exact (kmax+1)-th distances, the self match dropped per row (the
+        # last column where the self id is absent).
+        s_all, i_all = coordinator.flat_search(state.codes, state.ids, qf, kmax + 1, self.metric)
+        s_np = s_all.cpu().numpy().astype(np.float32)
+        i_np = i_all.cpu().numpy().astype(np.int64)
+        S = s_np.shape[0]
+        keep = np.ones_like(s_np, bool)
+        for r in range(S):
+            hits = np.nonzero(i_np[r] == fit_self[r])[0]
+            keep[r, hits[0] if len(hits) else kmax] = False
+        s_kept = s_np[keep].reshape(S, kmax)
+        if self.metric == "l2":
+            radii = np.sqrt(np.maximum(-s_kept, 0.0))
+        else:
+            q_sq = np.sum(qf_np ** 2, axis=1)[:, None]
+            radii = np.sqrt(np.maximum(q_sq + 1.0 - 2.0 * s_kept, 0.0))
+
+        # d1: the distance to the nearest centroid, as oneshot serving takes it.
+        _, p_ids32, _ = self.parent._search_device(qf, SearchParams(k=1, batched_scan=True),
+                                                   approx_flat=True)
+        pid0 = p_ids32.cpu().numpy().astype(np.int64)[:, 0]
+        cents = state.centroids.cpu().numpy().astype(np.float32)[np.maximum(pid0, 0)]
+        d1 = np.linalg.norm(qf_np - cents, axis=1)
+
+        X = np.stack([np.ones_like(d1), d1], axis=1)
+        coef, *_ = np.linalg.lstsq(X, radii, rcond=None)  # [2, kmax]
+        resid = radii - X @ coef
+        shift = np.quantile(resid, 0.9, axis=0)
+
+        # Validate end to end; scale the shift until the goal holds.
+        table = beta_table(self.aps_dimension or self.d(), "l2", dev)
+        kc = min(k, kmax)
+        oneshot = dict(k=k + 1, metric=self.metric, dimension=self.aps_dimension or self.d(),
+                       use_precomputed=True, table=table, qt=32, kernel=self._grouped_kernel(),
+                       sizes=state.sizes, norms=state.norms,
+                       gamma=self.aps_gamma if self.aps_gamma != 1.0 else None)
+
+        def trial(cand, ra, rb, **budget):
+            return coordinator.aps_search_oneshot(state.codes, state.ids, state.centroids, q,
+                                                  cand, target, radius_a=ra, radius_b=rb,
+                                                  **oneshot, **budget)
+
+        ok_scale = None
+        for scale in (1.0, 1.25, 1.6, 2.0, 3.0):
+            _, ids32, sc = trial(pids, float(coef[0, kc - 1] + scale * shift[kc - 1]),
+                                 float(coef[1, kc - 1]))
+            if _recall_without_self(ids32, self_ids, gt, k) >= goal:
+                ok_scale = scale
+                break
+        if ok_scale is None:
+            return  # the predictor cannot meet the target: oneshot stays off
+        ab = np.stack([coef[0] + ok_scale * shift, coef[1]], axis=1)
+        self.aps_radius_ab = ab.astype(np.float32)  # [kmax, 2]
+        ra = float(self.aps_radius_ab[kc - 1, 0])
+        rb = float(self.aps_radius_ab[kc - 1, 1])
+
+        # Candidate-width cap: multiples of 8 at 1.25, 2 and 4 times the mean
+        # plan, tightest first, each validated with the cap applied.
+        mean_plan = max(float(sc.cpu().numpy().mean()), 1.0)
+        cands_m = []
+        for f in (1.25, 2.0, 4.0):
+            m = int(max(16, -(-int(f * mean_plan) // 8) * 8))
+            if m < pids.shape[1] and m not in cands_m:
+                cands_m.append(m)
+        sc_at_width = sc
+        for mcap in cands_m:
+            _, ids32, sc_m = trial(pids[:, :mcap], ra, rb)
+            if _recall_without_self(ids32, self_ids, gt, k) >= goal:
+                self.aps_oneshot_mcap = mcap
+                sc_at_width = sc_m
+                break
+
+        # Dense-prefix width: the smallest ranked prefix whose membership
+        # recall meets the goal, and whose one-sided 95% lower confidence
+        # bound on the per-query mean meets the target.
+        gt64 = np.asarray(gt, np.int64)
+        nq_v, kk = gt64.shape
+        owner = self.store.id_map.get_batch(gt64.ravel()).astype(np.int64).reshape(nq_v, kk)
+        pids_np = pids.cpu().numpy().astype(np.int64)
+        Wc = pids_np.shape[1]
+        match = (owner[:, :, None] == pids_np[:, None, :]) & (owner[:, :, None] >= 0)
+        first = np.where(match.any(-1), match.argmax(-1), Wc)
+        z95 = 1.645
+        for w in range(1, Wc + 1):
+            per_q = (first < w).mean(axis=1)
+            p_hat = float(per_q.mean())
+            se = float(per_q.std(ddof=1)) / float(np.sqrt(nq_v)) if nq_v > 1 else 1.0
+            if p_hat >= goal and p_hat - z95 * se >= target:
+                self.aps_dense_w = w
+                self.aps_calib_target = float(target)
+                self.aps_calib_nq = int(nq_v)
+                break
+
+        # The pair budget, on the v10/v11 scans only (elsewhere the budget
+        # would clip plans with no machinery to shrink): width_clip = p99 of
+        # the plans + 4, up to a multiple of 8; budget_w from the mean plan
+        # at 1.15x then 1.5x, each validated with the budget active.
+        if not self._grouped_kernel().startswith(("v10", "v11")):
+            return
+        W = self.aps_oneshot_mcap or pids.shape[1]
+        sc_np = sc_at_width.cpu().numpy().astype(np.float64)
+        wclip = int(min(-(-int(np.quantile(sc_np, 0.99) + 4) // 8) * 8, W))
+        mean_sc = float(sc_np.mean())
+        for f in (1.15, 1.5):
+            bw = int(min(-(-int(f * mean_sc + 2) // 4) * 4, wclip))
+            _, ids32, _ = trial(pids[:, :W], ra, rb, width_clip=wclip, budget_w=bw)
+            if _recall_without_self(ids32, self_ids, gt, k) >= goal:
+                self.aps_width_clip = wclip
+                self.aps_budget_w = bw
+                self.aps_calib_target = float(target)
+                self.aps_calib_nq = int(q.shape[0])
+                break
 
     def _grouped_kernel(self) -> str:
         """Grouped-scan choice, read at each search. QUAKE_TPU_KERNEL names a

@@ -1,5 +1,6 @@
 """Partition-major grouping for the batched search (group_layout,
-build_groups, build_groups_scatter and build_chunk_groups of
+build_groups, build_groups_scatter, budget_layout, build_groups_budget and
+build_chunk_groups of
 quake_tpu/ops/grouped.py) and the scan that runs outside any hand-written
 kernel (grouped_scan_xla with its merge_groups epilogue, which the exact
 v2/v3 scans share).
@@ -28,27 +29,44 @@ def group_layout(B: int, nprobe: int, nlist_cap: int, qt: int) -> int:
     return max_unique + n_pairs // qt
 
 
-def _sorted_groups(pids: torch.Tensor, nlist_cap: int, qt: int):
-    """Shared prologue of build_groups and build_groups_scatter.
+def budget_layout(n_bud: int, nlist_cap: int, qt: int) -> int:
+    """Worst-case group count of a pair-budgeted grouping: at most
+    min(n_bud, nlist_cap) distinct partitions, each adding one partial
+    group on top of the n_bud // qt full ones (see group_layout)."""
+    return min(n_bud, nlist_cap) + n_bud // qt
+
+
+def _sorted_groups(pids: torch.Tensor, nlist_cap: int, qt: int, n_bud: int = 0):
+    """Shared prologue of build_groups, build_groups_scatter and
+    build_groups_budget.
 
     One sort of the unique key (pid+1)*n + flat_index orders the pairs by
     (partition, flat index) — the stable order; int64 keys never overflow,
-    so the JAX package's argsort branch for huge shapes is not needed. Run
-    offsets come from a left-side searchsorted; each populated partition
-    stamps p+1 at its first group (scatter-max) and a running max fills its
-    groups. Returns (group_pid [G] int64, order [n] sorted position ->
-    flat pair index, offs [P+1] run offsets, gbase [P] first group of each
-    partition, tgt_raw [G, qt] flat pair index of each kernel row, valid
-    [G, qt] whether that row holds a pair)."""
+    so the JAX package's argsort branch for huge shapes is not needed. Pairs
+    whose pid is -1 key below partition 0 and stay out of every run; with
+    n_bud > 0 they key past the last partition instead, and the sorted order
+    is cut at n_bud pairs (the caller guarantees that no more are valid), so
+    the groups are sized to the budget. Run offsets come from a left-side
+    searchsorted; each populated partition stamps p+1 at its first group
+    (scatter-max) and a running max fills its groups. Returns (group_pid [G]
+    int64, order [n or n_bud] sorted position -> flat pair index, offs [P+1]
+    run offsets, gbase [P] first group of each partition, tgt_raw [G, qt]
+    flat pair index of each kernel row, valid [G, qt] whether that row holds
+    a pair)."""
     B, nprobe = pids.shape
-    G = group_layout(B, nprobe, nlist_cap, qt)
     n = B * nprobe
     P = nlist_cap
     dev = pids.device
     flat_pid = pids.reshape(-1).to(torch.int64)
     iota_n = torch.arange(n, device=dev, dtype=torch.int64)
 
-    key_sorted = torch.sort((flat_pid + 1) * n + iota_n).values
+    if n_bud > 0:
+        G = budget_layout(n_bud, P, qt)
+        keys = torch.where(flat_pid >= 0, (flat_pid + 1) * n + iota_n, (P + 1) * n + iota_n)
+        key_sorted = torch.sort(keys).values[:n_bud]
+    else:
+        G = group_layout(B, nprobe, P, qt)
+        key_sorted = torch.sort((flat_pid + 1) * n + iota_n).values
     order = key_sorted - (key_sorted // n) * n
     bounds = (torch.arange(P + 1, device=dev, dtype=torch.int64) + 1) * n
     offs = torch.searchsorted(key_sorted, bounds)  # side="left"
@@ -61,7 +79,7 @@ def _sorted_groups(pids: torch.Tensor, nlist_cap: int, qt: int):
     g_iota = torch.arange(G, device=dev, dtype=torch.int64)
     p_iota = torch.arange(P, device=dev, dtype=torch.int64)
     marks = torch.zeros(G + 1, device=dev, dtype=torch.int64)
-    stamp_at = torch.where(groups_of > 0, gbase, torch.full_like(gbase, G))
+    stamp_at = torch.where(groups_of > 0, torch.clamp(gbase, max=G), torch.full_like(gbase, G))
     marks = marks.scatter_reduce(0, stamp_at, p_iota + 1, reduce="amax")
     p_of_g = torch.cummax(marks[:G], 0).values - 1
     p_of_g = torch.clamp(p_of_g, 0, P - 1)
@@ -72,9 +90,19 @@ def _sorted_groups(pids: torch.Tensor, nlist_cap: int, qt: int):
     lane = torch.arange(qt, device=dev, dtype=torch.int64)
     pos = start[:, None] + lane[None, :]
     in_run = pos < (offs[p_of_g] + counts[p_of_g])[:, None]
-    tgt_raw = order[torch.clamp(pos, 0, n - 1)]
+    tgt_raw = order[torch.clamp(pos, 0, order.numel() - 1)]
     valid = g_valid[:, None] & in_run
     return group_pid, order, offs, gbase, tgt_raw, valid
+
+
+def _scatter_tables(pids: torch.Tensor, nlist_cap: int, qt: int, n_bud: int = 0):
+    B, nprobe = pids.shape
+    n = B * nprobe
+    group_pid, _, _, _, tgt_raw, valid = _sorted_groups(pids, nlist_cap, qt, n_bud)
+    qlist = torch.where(valid, tgt_raw // nprobe, torch.full_like(tgt_raw, -1))
+    tgt = torch.where(valid, tgt_raw, torch.full_like(tgt_raw, n))
+    return (group_pid.to(torch.int32), qlist.to(torch.int32),
+            tgt.to(torch.int32))
 
 
 def build_groups_scatter(pids: torch.Tensor, nlist_cap: int, qt: int):
@@ -87,13 +115,26 @@ def build_groups_scatter(pids: torch.Tensor, nlist_cap: int, qt: int):
       tgt       [G, QT]  flat pair index (b*nprobe + j) of each kernel row;
                          n = B*nprobe for invalid rows
     """
+    return _scatter_tables(pids, nlist_cap, qt)
+
+
+def build_groups_budget(pids: torch.Tensor, nlist_cap: int, qt: int, n_bud: int):
+    """build_groups_scatter with the tables sized to a PAIR BUDGET
+    (quake_tpu/ops/grouped.py::build_groups_budget): invalid pairs sort
+    last and the sorted order is cut at min(n_bud, B*nprobe) pairs, so the
+    group tables, and the kernel grid and placement sized from them, scale
+    with the budget instead of B*nprobe. The caller guarantees that at most
+    n_bud pairs are valid (aps_oneshot's and aps_plan's plan clipping);
+    valid pairs past the budget would be dropped.
+
+    Returns (group_pid [Gb], qlist [Gb, QT], tgt [Gb, QT]) int32 with Gb =
+    budget_layout(n_bud, nlist_cap, qt); tgt is the flat pair index b *
+    nprobe + j of each kernel row (B*nprobe for the rows of no pair), as
+    build_groups_scatter returns. The keys are int64 where the JAX package
+    packs int32 below (P + 2) n < 2^31 and sorts two operands above it: the
+    order is the same."""
     B, nprobe = pids.shape
-    n = B * nprobe
-    group_pid, _, _, _, tgt_raw, valid = _sorted_groups(pids, nlist_cap, qt)
-    qlist = torch.where(valid, tgt_raw // nprobe, torch.full_like(tgt_raw, -1))
-    tgt = torch.where(valid, tgt_raw, torch.full_like(tgt_raw, n))
-    return (group_pid.to(torch.int32), qlist.to(torch.int32),
-            tgt.to(torch.int32))
+    return _scatter_tables(pids, nlist_cap, qt, min(int(n_bud), B * nprobe))
 
 
 def build_groups(pids: torch.Tensor, nlist_cap: int, qt: int):

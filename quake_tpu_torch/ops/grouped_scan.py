@@ -18,6 +18,9 @@ One call, `grouped_scan_v11`, turns probe lists into the per-query top-k:
 
 `grouped_scan_v10` is the same scan with the v10 scatter placement, which
 also serves pid matrices that hold -1 (fixed-nprobe semantics not promised).
+`grouped_scan_v10b` is v10 with the group tables, K1's grid and the
+placement sized to a pair budget instead of B*nprobe (the masked APS scans),
+with the scatter or the budgeted sorted ("v11b") placement.
 
 K1 and K2 are CUDA kernels (csrc/quake_kernels.cu); each wrapper runs its
 plain PyTorch version on CPU tensors and launches the kernel on CUDA tensors.
@@ -34,8 +37,8 @@ from __future__ import annotations
 import torch
 
 from quake_tpu_torch import _ext
-from quake_tpu_torch.ops.grouped import (DEDUP_NOT_PORTED, build_groups_scatter,
-                                          group_layout)
+from quake_tpu_torch.ops.grouped import (DEDUP_NOT_PORTED, budget_layout, build_groups_budget,
+                                          build_groups_scatter, group_layout)
 from quake_tpu_torch.ops.scan import NEG_INF, topk_stable
 from quake_tpu_torch.profiling import mark_stage
 
@@ -136,7 +139,7 @@ def grouped_scan_plain(gp, group_size, qg, codes, normsT, kk: int,
 
 
 def grouped_scan_kernel(gp, group_size, qg, codes, normsT, kk: int,
-                        slot_mult: int, levels: int, fold: int = FOLD):
+                        slot_mult: int, levels: int, fold: int = FOLD, budget: bool = False):
     """Kernel K1 (replaces pallas_grouped.py::_v9_kernel).
 
     gp [Gn] int32 partition per group; group_size [Gn] int32 (<= 0: ghost);
@@ -152,7 +155,10 @@ def grouped_scan_kernel(gp, group_size, qg, codes, normsT, kk: int,
     and the whole-D query tile fits beside its ring, the CUDA-core body (f32
     arithmetic, D in depth chunks: every D) otherwise. Both compute the same
     function; neither is a fallback from a failure. bf16 launches count
-    under "grouped_scan_bf16"."""
+    under "grouped_scan_bf16"; with budget (the grid of the budgeted scan,
+    grouped_scan_v10b, which replaces pallas_grouped.py::
+    grouped_scan_pallas_v10b's launch of _v9_kernel) they count under
+    "grouped_scan_budget" (f32) or "grouped_scan_budget_bf16"."""
     Gn, qt, D = qg.shape
     P, C, _ = codes.shape
     if fold != FOLD or C % fold:
@@ -188,7 +194,7 @@ def grouped_scan_kernel(gp, group_size, qg, codes, normsT, kk: int,
         normsT.data_ptr(), out.data_ptr(), Gn, qt, D, P, C, kk,
         float(slot_mult), float(levels), _ext.stream_ptr(qg.device))
     _ext.check(rc, name)
-    _ext.launches[name] += 1
+    _ext.launches[name.replace("grouped_scan", "grouped_scan_budget") if budget else name] += 1
     return out
 
 
@@ -448,9 +454,45 @@ def scatter_placement(g_packed, tgt, group_size, pids):
     return mp[:n].reshape(B, nprobe * kk), pids
 
 
-# The placements of the kernel rows per query, by name.
+def sorted_budget_placement(g_packed, tgt, group_size, pids):
+    """v11b SORTED placement of a budgeted masked scan (the placement half of
+    pallas_grouped.py::_sorted_budget_epilogue): query b owns c_b rows, one
+    per valid pid of its row. One sort of the key (query << r_bits) | row
+    (int64: CUDA torch has no uint32 sort; the order is the uint32 one) lays
+    each query's rows contiguously in ascending-partition order, at
+    [cum_b, cum_b + c_b) with cum the exclusive prefix of the c_b; pool
+    column j of query b is row cum_b + j where j < c_b, -1 past it: one
+    [B*W, kk] row take, no B*W-sized scatter. Ghost-group rows keep their
+    place and read -1. Returns (m_packed [B, W*kk], pid_cols = each row's
+    valid pids in ascending order, -1 past c_b)."""
+    B, W = pids.shape
+    n = B * W
+    rows = _alive_rows(g_packed, group_size)
+    R = rows.shape[0]
+    r_bits = max((R - 1).bit_length(), 1)
+    tgt_flat = tgt.reshape(-1).to(torch.int64)
+    iota = torch.arange(R, device=rows.device, dtype=torch.int64)
+    key2 = torch.where(tgt_flat < n, ((tgt_flat // W) << r_bits) | iota,
+                       torch.full_like(iota, 0xFFFFFFFF))
+    r_sorted = torch.sort(key2).values & ((1 << r_bits) - 1)
+    c_b = torch.sum((pids >= 0).to(torch.int64), dim=1)
+    cum = torch.cumsum(c_b, 0) - c_b
+    j_lane = torch.arange(W, device=rows.device, dtype=torch.int64)[None, :]
+    gate = j_lane < c_b[:, None]
+    pos = torch.clamp(cum[:, None] + j_lane, 0, R - 1)
+    r_final = torch.where(gate, r_sorted[pos], torch.zeros_like(pos)).reshape(-1)
+    m_rows = rows[r_final]
+    m_packed = torch.where(gate.reshape(-1)[:, None], m_rows, torch.full_like(m_rows, -1.0))
+    sorted_pids = torch.sort(torch.where(pids >= 0, pids, torch.full_like(pids, 1 << 30)),
+                             dim=1).values
+    pid_cols = torch.where(gate, sorted_pids, torch.full_like(sorted_pids, -1))
+    return m_packed.reshape(B, W * rows.shape[1]), pid_cols
+
+
+# The placements of the kernel rows per query, by name; the budgeted scan's.
 PLACEMENTS = {"sorted": sorted_placement, "argsort": argsort_placement,
               "scatter": scatter_placement}
+BUDGET_PLACEMENTS = {"sorted": sorted_budget_placement, "scatter": scatter_placement}
 
 
 # ---------------------------------------------------------------- the scan
@@ -461,6 +503,15 @@ def sort_key_fits(B: int, rows: int) -> bool:
     uint32 strictly below the 0xFFFFFFFF invalid marker (the JAX package's
     bit budget, kept so both packages place identically)."""
     return max((rows - 1).bit_length(), 1) + max((B - 1).bit_length(), 1) < 32
+
+
+def budget_sort_key_fits(B: int, M: int, n_bud: int, P: int, qt: int, gpb: int) -> bool:
+    """True when the v11b sorted placement's key (query << r_bits) | row fits
+    uint32 strictly below the 0xFFFFFFFF invalid marker on a grid budgeted
+    for n_bud pairs (pallas_grouped.py::budget_sort_key_fits; kept so both
+    packages pick the same placement)."""
+    G = budget_layout(min(n_bud, B * M), P, qt)
+    return sort_key_fits(B, -(-G // gpb) * gpb * qt)
 
 
 def global_scale(q, norms, metric: str, levels: int, bounds: str = "analytic"):
@@ -491,18 +542,22 @@ def pad_groups(group_pid, qlist, sizes, gpb: int):
 
 
 def v11_inputs(codes, sizes, norms, q, pids, k: int, metric: str, qt: int,
-               gpb: int, bounds: str = "analytic"):
-    """Prologue of grouped_scan_v11: everything kernel K1, the placement and
-    the tail need. Returns a dict with gp, group_size, qg (the scaled
-    queries rounded to the codes' dtype, as the JAX package rounds them),
-    normsT, tgt (padded to Gn = ceil(G/gpb)*gpb groups), kk, slot_mult,
-    levels, gmin and ginv."""
+               gpb: int, bounds: str = "analytic", pair_budget: int = 0):
+    """Prologue of grouped_scan_v11, _v10 and (pair_budget > 0) _v10b:
+    everything kernel K1, the placement and the tail need. Returns a dict
+    with gp, group_size, qg (the scaled queries rounded to the codes' dtype,
+    as the JAX package rounds them), normsT, tgt (padded to Gn =
+    ceil(G/gpb)*gpb groups; G from build_groups_budget's budget_layout where
+    pair_budget > 0), kk, slot_mult, levels, gmin and ginv."""
     B, D = q.shape
     P, C, _ = codes.shape
     kk = min(k, C)
     slot_mult, levels = packed_params(C)
     q_scaled, normsT, gmin, ginv = global_scale(q, norms, metric, levels, bounds)
-    group_pid, qlist, tgt = build_groups_scatter(pids, P, qt)
+    if pair_budget > 0:
+        group_pid, qlist, tgt = build_groups_budget(pids, P, qt, pair_budget)
+    else:
+        group_pid, qlist, tgt = build_groups_scatter(pids, P, qt)
     gp, _, group_size, safe_q = pad_groups(group_pid, qlist, sizes, gpb)
     tgt = torch.nn.functional.pad(tgt, (0, 0, 0, gp.shape[0] - tgt.shape[0]),
                                   value=B * pids.shape[1])
@@ -513,10 +568,11 @@ def v11_inputs(codes, sizes, norms, q, pids, k: int, metric: str, qt: int,
 
 def _placed_scan(name: str, codes, ids, sizes, norms, q, pids, k: int, metric: str,
                   qt: int, gpb: int, fold: int, dedup: bool, pool_factor: int, bounds: str,
-                  merge: str, exact: bool, placement: str, stages):
-    """The scan of v10 and v11: the prologue, kernel K1, the placement
-    epilogue named `placement` (see PLACEMENTS), the pool tail (exact
-    rescore, or dequantized scores with exact=False)."""
+                  merge: str, exact: bool, placement: str, stages, pair_budget: int = 0):
+    """The scan of v10, v11 and v10b: the prologue, kernel K1, the placement
+    epilogue named `placement` (see PLACEMENTS; BUDGET_PLACEMENTS with
+    pair_budget > 0), the pool tail (exact rescore, or dequantized scores
+    with exact=False)."""
     B, D = q.shape
     P, C, _ = codes.shape
     if dedup:
@@ -527,19 +583,28 @@ def _placed_scan(name: str, codes, ids, sizes, norms, q, pids, k: int, metric: s
         raise ValueError(f"{name} packs (pid, slot) into int32: needs P < 32768, C <= 65536")
     if fold != FOLD or C % fold:
         raise ValueError(f"{name} needs fold == 128 and C % 128 == 0 (C={C}, fold={fold})")
-    if placement == "sorted":
-        G = group_layout(B, pids.shape[1], P, qt)
+    M = pids.shape[1]
+    if pair_budget > 0:
+        if placement == "sorted" and not budget_sort_key_fits(B, M, pair_budget, P, qt, gpb):
+            G = budget_layout(min(pair_budget, B * M), P, qt)
+            raise ValueError(f"v11b sort key overflows uint32 (B={B}, rows="
+                             f"{-(-G // gpb) * gpb * qt}); use placement='scatter'")
+    elif placement == "sorted":
+        G = group_layout(B, M, P, qt)
         Gn = -(-G // gpb) * gpb
         if not sort_key_fits(B, Gn * qt):
             raise ValueError(f"v11 sort key overflows uint32 (B={B}, rows={Gn * qt}); "
                              "use placement='argsort'")
-    inp = v11_inputs(codes, sizes, norms, q, pids, k, metric, qt, gpb, bounds)
+    inp = v11_inputs(codes, sizes, norms, q, pids, k, metric, qt, gpb, bounds, pair_budget)
     mark_stage(stages, "grouping")
     kk, slot_mult, levels = inp["kk"], inp["slot_mult"], inp["levels"]
-    g_packed = grouped_scan_kernel(inp["gp"], inp["group_size"], inp["qg"], codes,
-                                   inp["normsT"], kk, slot_mult, levels, fold)
+    kargs = (inp["gp"], inp["group_size"], inp["qg"], codes, inp["normsT"], kk, slot_mult,
+             levels, fold)
+    g_packed = (grouped_scan_kernel(*kargs, budget=True) if pair_budget > 0
+                else grouped_scan_kernel(*kargs))
     mark_stage(stages, "scan")
-    m_packed, pid_cols = PLACEMENTS[placement](g_packed, inp["tgt"], inp["group_size"], pids)
+    place = (BUDGET_PLACEMENTS if pair_budget > 0 else PLACEMENTS)[placement]
+    m_packed, pid_cols = place(g_packed, inp["tgt"], inp["group_size"], pids)
     mark_stage(stages, "placement")
     return pool_tail(m_packed, pid_cols, pids, codes, ids, norms, q, k, kk, metric, slot_mult,
                      levels, pool_factor, stages, exact=exact, gmin=inp["gmin"],
@@ -578,3 +643,33 @@ def grouped_scan_v10(codes, ids, sizes, norms, q, pids, k: int, metric: str,
     takes no part); inputs and returns as grouped_scan_v11."""
     return _placed_scan("v10", codes, ids, sizes, norms, q, pids, k, metric, qt, gpb, fold,
                          dedup, pool_factor, bounds, merge, exact, "scatter", stages)
+
+
+def grouped_scan_v10b(codes, ids, sizes, norms, q, pids, k: int, metric: str,
+                      pair_budget: int, qt: int = 64, gpb: int = 4, fold: int = FOLD,
+                      dedup: bool = False, pool_factor: int = 1,
+                      bounds: str = "analytic", merge: str = "pallas",
+                      exact: bool = True, placement: str = "scatter", stages=None):
+    """v10b grouped scan (pallas_grouped.py::grouped_scan_pallas_v10b): v10
+    with its group tables (build_groups_budget), kernel K1's grid and the
+    placement sized to a PAIR BUDGET instead of B*nprobe, for the masked
+    APS scans, where the plan covers a per-query prefix much shorter than
+    the candidate width. K1 runs its usual body on the budget grid (ghost
+    groups write -1); its launches count under "grouped_scan_budget" (f32)
+    or "grouped_scan_budget_bf16".
+
+    CONTRACT: at most pair_budget pids of the matrix are valid (aps_oneshot's
+    and aps_plan's plan clipping enforce it); more would be dropped.
+    placement "scatter" routes the rows as v10 does (a [B*nprobe + 1, kk]
+    destination), "sorted" (v11b) takes sorted_budget_placement, whose key
+    must fit uint32 (budget_sort_key_fits) so that both packages agree on
+    where it is taken; its pool columns come in ascending pid order, so
+    membership equals scatter's and lane order differs. Inputs and returns
+    as grouped_scan_v10."""
+    if placement not in BUDGET_PLACEMENTS:
+        raise ValueError(f"v10b placement must be 'scatter' or 'sorted', got {placement!r}")
+    if pair_budget <= 0:
+        raise ValueError(f"v10b needs pair_budget > 0 (got {pair_budget})")
+    return _placed_scan("v10b", codes, ids, sizes, norms, q, pids, k, metric, qt, gpb, fold,
+                        dedup, pool_factor, bounds, merge, exact, placement, stages,
+                        pair_budget=int(pair_budget))

@@ -58,6 +58,12 @@ class SearchTimingInfo:
     result_aggregate_time_ns: int = 0
     total_time_ns: int = 0
 
+    # Not in the JAX package: the steps of the APS loop (aps_mode="loop")
+    # and the reads of its termination flag from the device (syncs), which
+    # the JAX package's device-side while_loop does not need.
+    aps_loop_steps: int = 0
+    aps_loop_syncs: int = 0
+
 
 @dataclass
 class MaintenanceTimingInfo:

@@ -529,7 +529,8 @@ def test_launch_counts(dev):
     sized_topk(gp, gp + 100, qg, codes, 4, "ip")
     multi_topk(gp, qg, codes, ids, 4, "ip", gb=2)
     packed_topk(gp, qg, codes, ids, 4, "ip")
-    assert _ext.launches == {"grouped_scan": 0, "grouped_scan_bf16": 0, "merge_positions": 1,
+    assert _ext.launches == {"grouped_scan": 0, "grouped_scan_bf16": 0, "grouped_scan_budget": 0,
+                             "grouped_scan_budget_bf16": 0, "merge_positions": 1,
                              "flat_topk": 0,
                              "rowscale_topk": 0, "rowscale_fold": 0, "exact_topk": 0,
                              "chunk_merge": 0, "raw_scores": 1, "packed_topk": 1,
@@ -1769,3 +1770,107 @@ def test_bf16_index_on_the_card_matches_its_cpu_load(dev, tmp_path, monkeypatch,
     monkeypatch.setenv("QUAKE_TPU_PARENT_KERNEL", "pallas")  # K3's plain version on the CPU
     want = cpu.search(q, sp)
     assert _overlap(torch.from_numpy(got.ids), torch.from_numpy(want.ids)) >= 0.99
+
+
+# ----------------------------------------- K1 on the budget grid (v10b) and APS
+
+
+def _budget_store(dev, rng, dtype, P=40, C=256, D=128, B=300, M=24):
+    """A store with ghost (size-0) partitions and partial ones, rounded to
+    dtype (f32 norms of the rounded codes), and a masked APS-style probe
+    matrix with duplicate pids."""
+    codes = torch.from_numpy(rng.standard_normal((P, C, D)).astype(np.float32)).to(dtype)
+    sizes = rng.integers(C // 3, C + 1, P).astype(np.int32)
+    sizes[[3, 17]] = 0
+    ids = np.arange(P * C, dtype=np.int32).reshape(P, C)
+    ids[np.arange(C)[None, :] >= sizes[:, None]] = -1
+    cf = codes.float()
+    norms = (cf * cf).sum(-1)
+    q = rng.standard_normal((B, D)).astype(np.float32)
+    base = np.stack([rng.choice(P, M, replace=False) for _ in range(B)])
+    n_b = rng.integers(1, M + 1, B)
+    pids = np.where(np.arange(M)[None, :] < n_b[:, None], base, -1).astype(np.int32)
+    pids[::5, 1] = pids[::5, 0]
+    arrays = (codes, torch.from_numpy(ids), torch.from_numpy(sizes), norms, torch.from_numpy(q),
+              torch.from_numpy(pids))
+    return tuple(a.to(dev) for a in arrays), arrays
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("placement", ["scatter", "sorted"])
+def test_v10b_matches_its_cpu_run(dev, placement, dtype, exact):
+    """grouped_scan_v10b on the card (K1 on the budget grid, f32 or bf16
+    body, launches counted as grouped_scan_budget or _bf16; K2) against the same scan
+    on a CPU copy (the plain versions): row overlap >= 0.99, common ids'
+    scores within rtol = atol = 1e-4 (exact) or one key step (dequantized),
+    scanned counts equal, at a generous and an exactly tight budget."""
+    from quake_tpu_torch.ops.grouped_scan import global_bounds, grouped_scan_v10b, packed_params
+
+    rng = np.random.default_rng(41)
+    cuda, cpu = _budget_store(dev, rng, dtype)
+    n_valid = int((cpu[-1] >= 0).sum())
+    _, grange = global_bounds(cpu[4], cpu[3], "l2")
+    step = float(grange) / packed_params(cpu[0].shape[1])[1]
+    for bud in (n_valid + 200, n_valid):
+        kw = dict(pair_budget=bud, qt=64, gpb=2, placement=placement, exact=exact)
+        _ext.reset_launches()
+        s_g, i_g, c_g = grouped_scan_v10b(*cuda, 10, "l2", **kw)
+        torch.cuda.synchronize()
+        k1 = "grouped_scan_budget_bf16" if dtype == torch.bfloat16 else "grouped_scan_budget"
+        assert _ext.launches[k1] == 1 and _ext.launches["merge_positions"] == 1
+        assert sum(_ext.launches[n] for n in _ext.KERNELS if n.startswith("grouped_scan")) == 1
+        s_c, i_c, c_c = grouped_scan_v10b(*cpu, 10, "l2", **kw)
+        assert torch.equal(c_g.cpu(), c_c)
+        assert _overlap(i_g.cpu(), i_c) >= 0.99
+        for a, sa, b, sb in zip(i_g.cpu().tolist(), s_g.cpu().tolist(), i_c.tolist(),
+                                s_c.tolist()):
+            theirs = dict(zip(b, sb))
+            for i, sc in zip(a, sa):
+                if i >= 0 and i in theirs:
+                    tol = 1e-4 * (1.0 + abs(sc)) if exact else step + 1e-4 * (1.0 + abs(sc))
+                    assert abs(sc - theirs[i]) <= tol
+
+
+def test_v10b_equals_v10_on_the_card(dev):
+    """With the budget holding every valid pair, the budgeted scatter scan
+    is v10 on the same masked matrix: the same K1 rows, placed alike."""
+    from quake_tpu_torch.ops.grouped_scan import grouped_scan_v10, grouped_scan_v10b
+
+    cuda, _ = _budget_store(dev, np.random.default_rng(43), torch.float32)
+    n_valid = int((cuda[-1] >= 0).sum())
+    s0, i0, c0 = grouped_scan_v10(*cuda, 10, "l2", qt=64, gpb=2)
+    s1, i1, c1 = grouped_scan_v10b(*cuda, 10, "l2", pair_budget=n_valid, qt=64, gpb=2)
+    assert torch.equal(c0, c1) and _overlap(i1.cpu(), i0.cpu()) >= 0.99
+
+
+def test_aps_on_the_card_matches_its_cpu_load(dev, tmp_path, monkeypatch):
+    """A default build on the card calibrates APS (v11: the budget stage
+    runs); saved and loaded on the CPU, each recall-target mode returns the
+    card's ids there (the plain versions; K3's for the fused oneshot's
+    parents): overlap >= 0.99 and the same partitions scanned; the oneshot
+    path launches K3, K2 and K1 (on the budget grid where a budget was
+    calibrated)."""
+    from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams
+
+    rng = np.random.default_rng(29)
+    centers = 3.0 * rng.standard_normal((64, 64)).astype(np.float32)
+    x = centers[rng.integers(0, 64, 30_000)] + rng.standard_normal((30_000, 64)).astype(np.float32)
+    q = centers[rng.integers(0, 64, 1024)] + rng.standard_normal((1024, 64)).astype(np.float32)
+    idx = QuakeIndex(device=dev)
+    idx.build(x, None, IndexBuildParams(nlist=64))
+    assert idx.aps_radius_ab is not None and idx.aps_plan_width > 0
+    idx.save(str(tmp_path / "aps"))
+    cpu = QuakeIndex(device="cpu").load(str(tmp_path / "aps"))
+    monkeypatch.setenv("QUAKE_TPU_PARENT_KERNEL", "pallas")
+    for mode in ("oneshot", "planned", "loop"):
+        sp = SearchParams(k=10, recall_target=0.95, aps_mode=mode)
+        _ext.reset_launches()
+        got = idx.search(q, sp)
+        torch.cuda.synchronize()
+        if mode == "oneshot":
+            k1 = "grouped_scan_budget" if idx.aps_budget_w else "grouped_scan"
+            assert _ext.launches[k1] == 1 and _ext.launches["flat_topk"] == 1
+        want = cpu.search(q, sp)
+        assert _overlap(torch.from_numpy(got.ids), torch.from_numpy(want.ids)) >= 0.99
+        assert got.timing_info.partitions_scanned == want.timing_info.partitions_scanned

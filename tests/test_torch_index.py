@@ -299,6 +299,9 @@ def test_num_workers_builds_plain_on_one_device(monkeypatch):
 
 def test_guard_messages_cite_current_items():
     """The search and scan guards name their ROADMAP items (fault 7). The
+    APS guard is lifted: a recall-target search runs and adheres (recall@5
+    >= target - 0.05, the JAX package's margin), while APS over a parent
+    that is itself an IVF still raises, naming item 10. The
     exact_distances=False guards are lifted: the search runs, and v11 with
     exact=False returns the JAX package's ids and dequantized scores on the
     same store (interpret-mode Pallas; row overlap >= 0.99, scores of the
@@ -306,8 +309,13 @@ def test_guard_messages_cite_current_items():
     from quake_tpu_torch.ops.grouped_scan import global_bounds, grouped_scan_v11, packed_params
 
     idx, x = _small_index()
-    with pytest.raises(NotImplementedError, match="item 7: APS"):
-        idx.search(x[:32], SearchParams(k=5, recall_target=0.9))
+    res = idx.search(x[:32], SearchParams(k=5, recall_target=0.9))
+    gt, _ = knn(x[:32], x, 5)
+    assert compute_recall(res.ids, gt, 5) >= 0.9 - 0.05
+    nested, _ = _small_index()
+    nested.parent.parent = QuakeIndex(device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10: multi-level parents"):
+        nested.search(x[:32], SearchParams(k=5, recall_target=0.9))
     res = idx.search(x[:32], SearchParams(k=5, exact_distances=False))
     assert res.ids.shape == (32, 5) and (res.ids >= 0).all()
     q = torch.from_numpy(x[:16])
@@ -333,9 +341,20 @@ def test_guard_messages_cite_current_items():
 
 
 def test_calibrate_aps_guard():
+    """The guard is lifted: a default build (calibrate_aps=True) of 10,000
+    vectors calibrates APS, as the JAX package's does, and its recall-target
+    search adheres; calibrate_aps=False leaves the defaults."""
     x = clustered(10_000, 8, 20, seed=5)
-    with pytest.raises(NotImplementedError, match="calibrate_aps"):
-        QuakeIndex(device="cpu").build(x, None, IndexBuildParams(nlist=8))
+    idx = QuakeIndex(device="cpu")
+    idx.build(x, None, IndexBuildParams(nlist=8))
+    assert idx.aps_plan_width > 0 and idx.aps_calib_target == 0.9 and idx.aps_calib_nq > 0
+    assert idx.aps_radius_ab is not None and idx.aps_radius_ab.shape[1] == 2
+    res = idx.search(x[:64], SearchParams(k=10, recall_target=0.9))
+    gt, _ = knn(x[:64], x, 10)
+    assert compute_recall(res.ids, gt, 10) >= 0.9 - 0.05
+    off = QuakeIndex(device="cpu")
+    off.build(x, None, IndexBuildParams(nlist=8, calibrate_aps=False))
+    assert off.aps_plan_width == 0 and off.aps_radius_ab is None and off.aps_calib_nq == 0
 
 
 @pytest.mark.parametrize("sp,nq", [
@@ -345,16 +364,20 @@ def test_calibrate_aps_guard():
     (SearchParams(k=5, nprobe=2, batched_scan=False), 32),
 ])
 def test_search_guards(sp, nq):
-    """APS is guarded; batches below 16 queries and batched_scan=False take
-    the query-major search, which is exact over the probed partitions
-    (every stored vector finds itself). Dequantized distances are no longer
+    """APS is no longer guarded: the recall-target search runs and adheres
+    (recall@5 >= target - 0.05 against the exact neighbors); batches below
+    16 queries and batched_scan=False take the query-major search, which is
+    exact over the probed partitions (every stored vector finds itself). Dequantized distances are no longer
     guarded: with pool_factor 1 they keep the exact search's winners (the
     same id set a row, as the JAX package's test_v10_dequantized_scores
     holds) and their distances within one quantization step."""
     idx, x = _small_index()
     if sp.recall_target > 0:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            idx.search(x[:nq], sp)
+        res = idx.search(x[:nq], sp)
+        gt, _ = knn(x[:nq], x, sp.k)
+        assert res.ids.shape == (nq, sp.k)
+        assert compute_recall(res.ids, gt, sp.k) >= sp.recall_target - 0.05
+        assert 1 <= res.timing_info.partitions_scanned <= idx.nlist()
         return
     if not sp.exact_distances:
         from quake_tpu_torch.ops.grouped_scan import global_bounds, packed_params
