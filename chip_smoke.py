@@ -132,8 +132,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
              the budget grid, grouped_scan_budget_bf16, once, and no other
              K1), its K1, K2 and K3 calls held against their plain
              versions, and its budget-grid K1 timed against its bound.
-13. mutation — the mutation path on the main index, last, so that every
-             earlier phase sees the built store, on the native id map (the
+13. mutation — the mutation path on the main index, after every phase
+             that reads the built store, on the native id map (the
              phase fails on another): through the store, 40% of the
              resident ids removed (seeded), then 200,000 fresh manifold
              vectors (seed 13, ids from 1,000,000) appended to their nearest
@@ -159,6 +159,34 @@ Phases, each of which raises on failure (the script then exits non-zero):
              0.001 of the exact scan of the probed partitions), and K1, K2,
              K3, sized_topk and multi_topk against their plain versions at
              those paths' inputs with the gates of phase 10.
+14. maintenance — cost-based maintenance, last, after the earlier indexes
+             are freed: the main configuration built afresh (the same corpus,
+             nlist=160, niter=25, f32) with profile_maintenance_latency=True,
+             so that the build times K1 and K2 (the default v11 scan) at every
+             point of the latency grid (the profile's seconds and launches;
+             the analytic / profiled ratio at n = 1024, 4096, 16384, k = 16;
+             K1 and K2 of the grid point n = 4096, k = 16 against their
+             plain versions with phase 10's gates). Traffic: the 4 smallest
+             partitions age out through QuakeIndex.remove (16 vectors left in
+             each: below min_partition_size, so no delete rejection runs for
+             them); one B=1024 search at the main nprobe, 90% jittered copies
+             of vectors of the 8 largest partitions and 10% of the uniform
+             queries, fills the default 1000-query window through the search
+             path (K3, K1 and K2 launch once each). Round A: maintenance()
+             with the policy the build set (splits, deletes, delete
+             candidates simulated, each stage's time). Round B: the
+             mechanisms on named rows, each timed: the aged partitions
+             deleted with reassignment, split_partitions of the 8 largest
+             (the batched 2-means on the card), local_refinement of the new
+             rows (the batched refinement). After each round: ntotal and the
+             id set unchanged, validate(), contract 6 at both levels, one
+             parent centroid per active partition. Before round A and after
+             round B: the default B=16384 batch ms and recall@10 of the 1024
+             uniform queries and of the skewed batch against an exact ground
+             truth of the store's vectors. Then K1, K2 and K3 against their
+             plain versions at the maintained store's inputs, and a save and
+             a load (the grid round-trips, the loaded index has a fresh
+             policy on it). `[maintenance]` lines on stderr.
 
 Progress goes to stderr. Standard output holds three lines: the JSON list
 of kernels, the card's name and power limit, and last
@@ -250,6 +278,16 @@ APS_NLIST, APS_BATCH, APS_TARGET = 1024, 4096, 0.9
 APS_MODES = ("auto", "oneshot", "planned", "loop")
 APS_RECALL_GATES = {"auto": 0.87, "oneshot": 0.87, "planned": 0.85, "loop": 0.85}
 APS_ANCHOR = (16, 32, 64)
+# The maintenance phase: the partitions that age out (the smallest, all but
+# MAINT_KEEP vectors removed: below min_partition_size, so no delete
+# rejection runs for them), the hot partitions the skewed batch reads (the
+# largest), the skewed share of that batch, its jitter (a share of the hot
+# vectors' spread) and seed, the n of the analytic / profiled ratio (k = 16)
+# and the queries of a latency-grid point.
+MAINT_AGED, MAINT_KEEP, MAINT_HOT = 4, 16, 8
+MAINT_SKEW, MAINT_JITTER, MAINT_SEED = 0.9, 0.1, 23
+MAINT_RATIO_N = (1024, 4096, 16384)
+MAINT_GRID_QUERIES = 1024
 F32_PEAK = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores (data sheet)
 TF32_PEAK = 495e12  # H100 SXM dense TF32 FLOP/s on the tensor cores (data sheet)
 BF16_PEAK = 989e12  # H100 SXM dense bf16 FLOP/s on the tensor cores (data sheet)
@@ -2786,7 +2824,7 @@ def phase_index_mutation(torch, dev, idx, queries, nprobe, rng, first_id: int):
 
 def phase_mutation(torch, dev, idx, queries, nprobe, full_ms):
     """The mutation path at full width, on the main index, after every
-    other phase, on the native id map: remove a seeded MUTATION_REMOVE of
+    other phase that reads it, on the native id map: remove a seeded MUTATION_REMOVE of
     the resident ids through the store, check contract 6 and search
     (mutated_searches); append MUTATION_APPEND fresh vectors (make_manifold,
     seed MUTATION_APPEND_SEED, ids from N up) to their nearest active
@@ -2903,6 +2941,244 @@ def phase_mutation(torch, dev, idx, queries, nprobe, full_ms):
     return out
 
 
+def maint_grid_point(torch, dev, n: int, k: int, qt: int) -> dict:
+    """K1 and K2 of one latency-grid point, as profile_grouped_latency lays
+    it out (32 partitions of n rows, MAINT_GRID_QUERIES queries probing one
+    each, the JAX package's gpb at that C), recorded and held against their
+    plain versions with phase 10's gates (check_recorded)."""
+    from quake_tpu_torch import coordinator
+
+    Pp, C = 32, max(256, -(-n // 256) * 256)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    codes = torch.randn((Pp, C, D), generator=gen, device=dev)
+    ids = torch.arange(Pp * C, dtype=torch.int32, device=dev).reshape(Pp, C)
+    sizes = torch.full((Pp,), C, dtype=torch.int32, device=dev)
+    q = torch.randn((MAINT_GRID_QUERIES, D), generator=gen, device=dev)
+    pids = torch.randint(0, Pp, (MAINT_GRID_QUERIES, 1), generator=gen, device=dev)
+    gpb = max(1, min(4, (12 << 20) // (2 * C * D * 4)))
+    calls = recorded_calls(lambda: coordinator.grouped_scan(
+        codes, ids, sizes, (codes * codes).sum(-1), q, pids.to(torch.int32), k, "l2", qt, 64,
+        f"v11g{gpb}", dense=True))
+    summary = {}
+    check_recorded(torch, f"grid point n={n}, k={k}", calls, summary)
+    if not (summary.get("grouped_scan") and summary.get("merge_positions")):
+        raise AssertionError(f"the grid point n={n}, k={k} did not run K1 and K2: {summary}")
+    return summary
+
+
+def maint_gates(torch, idx, ids_before, ntotal: int, what: str) -> dict:
+    """Round A's and B's correctness gates: ntotal unchanged, the same id
+    set, validate(), contract 6 at both levels, one parent centroid for
+    each active partition (the parent's ids are the active rows)."""
+    if idx.ntotal() != ntotal:
+        raise AssertionError(f"{what}: ntotal {ntotal} -> {idx.ntotal()}")
+    if not np.array_equal(np.sort(idx.get_ids()), ids_before):
+        raise AssertionError(f"{what}: the resident ids changed")
+    if not idx.validate():
+        raise AssertionError(f"{what}: validate() fails")
+    err = max(check_contract_6(torch, idx.store, what),
+              check_contract_6(torch, idx.parent.store, f"{what} (parent)"))
+    parent_ids = np.sort(idx.parent.get_ids())
+    if not np.array_equal(parent_ids, np.sort(idx.store.active_rows())):
+        raise AssertionError(f"{what}: the parent's centroids are not one per active partition")
+    return dict(nlist=idx.nlist(), norm_err=err)
+
+
+def maint_search(torch, dev, idx, queries, skewed, gt_u, gt_s, nprobe) -> dict:
+    """The default search (K3, K1, K2): ms per B=BATCH batch, recall@10 of
+    the NQ_GT uniform queries and of the skewed batch against the exact
+    ground truth of the store's vectors. The caller resets the window."""
+    from quake_tpu_torch import SearchParams
+    from quake_tpu_torch.utils import compute_recall
+
+    sp = SearchParams(k=K, nprobe=nprobe)
+    q = torch.from_numpy(queries[:BATCH]).to(dev)
+    return dict(ms=time_ms(torch, lambda: idx._search_device_full(q, sp), reps=10),
+                recall_uniform=compute_recall(idx.search(queries[:NQ_GT], sp).ids, gt_u, K),
+                recall_skewed=compute_recall(idx.search(skewed, sp).ids, gt_s, K))
+
+
+def phase_maintenance(torch, dev, queries, nprobe):
+    """Cost-based maintenance at full width (phase 14 of the module's
+    docstring): the build with the latency profile, the aged region and the
+    skewed batch, round A (maintenance()) and round B (the mechanisms on
+    named rows) with their gates, the searches before and after, K1-K3 on
+    the maintained store, save and load. Returns its summary."""
+    from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams, _ext
+    from quake_tpu_torch.maintenance import ListScanLatencyEstimator
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    x = make_manifold(N, D, 4096, seed=1)
+    idx = QuakeIndex(device=dev)
+    prof_s = []
+    plain_profile = idx.profile_latency
+
+    def timed_profile(*a, **kw):  # the build's own call, timed
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = plain_profile(*a, **kw)
+        torch.cuda.synchronize()
+        prof_s.append(time.perf_counter() - t)
+        return r
+    idx.profile_latency = timed_profile
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    t0 = time.perf_counter()
+    idx.build(x, np.arange(N, dtype=np.int64),
+              IndexBuildParams(nlist=NLIST, niter=NITER, calibrate_aps=False,
+                               profile_maintenance_latency=True))
+    build_s = time.perf_counter() - t0
+    del idx.profile_latency
+    prof_launches = {k: v for k, v in _ext.launches.items() if v}
+    est = idx.latency_profile
+    grid_points = len(est.n_values) * len(est.k_values)
+    if (len(prof_s) != 1 or est.grid_source != "profiled" or not (est.latency_grid > 0).all()
+            or idx.maintenance_policy is None
+            or idx.maintenance_policy.cost_estimator.latency_estimator is not est):
+        raise AssertionError("the build did not profile the latency grid into its policy")
+    if prof_launches.get("grouped_scan", 0) < 3 * grid_points or set(prof_launches) != {
+            "grouped_scan", "merge_positions"}:
+        raise AssertionError(f"the profile was to run K1 and K2 at every one of the "
+                             f"{grid_points} grid points: launches {prof_launches}")
+    analytic = ListScanLatencyEstimator(D)
+    ratio = {n: analytic.estimate_scan_latency(n, 16) / est.estimate_scan_latency(n, 16)
+             for n in MAINT_RATIO_N}
+    grid_k1 = maint_grid_point(torch, dev, 4096, 16, idx._k1_qt(32))
+    out = dict(build_s=build_s, profile_s=prof_s[0], profile_launches=prof_launches,
+               grid_ns={str(n): [float(v) for v in row]
+                        for n, row in zip(est.n_values, est.latency_grid)},
+               analytic_over_profiled=ratio, grid_point_gates=grid_k1)
+    log(f"[maintenance] ({card}) build {build_s:.2f} s with the latency profile "
+        f"{prof_s[0]:.2f} s ({grid_points} points; launches {prof_launches}); L(n, k=16) ns "
+        + ", ".join(f"n={n}: {est.estimate_scan_latency(n, 16):.2f}" for n in est.n_values)
+        + "; analytic / profiled at k=16: "
+        + ", ".join(f"n={n}: {r:.3f}" for n, r in ratio.items())
+        + f"; grid point n=4096, k=16: {json.dumps(grid_k1)}")
+    del x
+
+    # Traffic: a region ages out, then skewed reads fill the window.
+    store = idx.store
+    sizes = store.partition_sizes()
+    active = store.active_rows()
+    by_size = active[np.argsort(sizes[active], kind="stable")]
+    aged, hot = [int(r) for r in by_size[:MAINT_AGED]], [int(r) for r in by_size[-MAINT_HOT:]]
+    gone = np.concatenate([store.get_partition(r)[1][MAINT_KEEP:] for r in aged])
+    idx.remove(gone)
+    ntotal, ids_before = idx.ntotal(), np.sort(idx.get_ids())
+    rng = np.random.default_rng(MAINT_SEED)
+    n_skew = int(MAINT_SKEW * NQ_GT)
+    pool = np.concatenate([store.get_partition(r)[0] for r in hot])
+    spread = float(pool.std())
+    skewed = np.concatenate([
+        pool[rng.integers(0, len(pool), n_skew)]
+        + MAINT_JITTER * spread * rng.standard_normal((n_skew, D)),
+        queries[:NQ_GT - n_skew]]).astype(np.float32)
+    st = store.state
+    valid = st.ids >= 0
+    ids_all = st.ids[valid].cpu().numpy()
+    gt_u = ids_all[exact_gt(torch, st.codes[valid], torch.from_numpy(queries[:NQ_GT]).to(dev), K)]
+    gt_s = ids_all[exact_gt(torch, st.codes[valid], torch.from_numpy(skewed).to(dev), K)]
+    before = maint_search(torch, dev, idx, queries, skewed, gt_u, gt_s, nprobe)
+    policy = idx.maintenance_policy
+    policy.reset()
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    idx.search(skewed, SearchParams(k=K, nprobe=nprobe))
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _ext.launches.items() if v}
+    if any(launches.get(k, 0) != 1 for k in MAIN_KERNELS):
+        raise AssertionError(f"the skewed batch's search: launches {launches}")
+    window = policy.hit_count_tracker.get_num_queries_recorded()
+    if window < policy.params.window_size:
+        raise AssertionError(f"the skewed batch recorded {window} queries, the window needs "
+                             f"{policy.params.window_size}")
+    hits = np.zeros(store.P, np.int64)
+    for h in policy.hit_count_tracker.get_per_query_hits(store.partition_sizes()):
+        np.add.at(hits, h, 1)
+    out.update(aged=aged, hot=hot, removed=len(gone), window=window,
+               hot_hit_share=float(hits[hot].sum() / max(hits.sum(), 1)), before=before,
+               search_launches=launches)
+
+    # Round A: the entry point, with the policy build set.
+    gen_aged = {r: int(store.generation[r]) for r in aged}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    info = idx.maintenance()
+    torch.cuda.synchronize()
+    out["round_a"] = dict(s=time.perf_counter() - t0, n_splits=info.n_splits,
+                          n_deletes=info.n_deletes, delete_us=info.delete_time_us,
+                          split_us=info.split_time_us, refine_us=info.split_refine_time_us,
+                          total_us=info.total_time_us,
+                          rejection_candidates=policy.rejection_candidates,
+                          rejection_us=policy.rejection_time_us,
+                          gates=maint_gates(torch, idx, ids_before, ntotal, "round A"))
+    a = out["round_a"]
+    log(f"[maintenance] round A ({card}): window {window} queries ({out['hot_hit_share']:.3f} of "
+        f"the hits on the {MAINT_HOT} hot rows), {len(gone)} vectors aged out of rows {aged}; "
+        f"maintenance() {a['n_splits']} splits, {a['n_deletes']} deletes, "
+        f"{a['rejection_candidates']} delete candidates simulated ({a['rejection_us'] / 1e3:.2f} "
+        f"ms); delete {a['delete_us'] / 1e3:.2f} ms, split {a['split_us'] / 1e3:.2f} ms, refine "
+        f"{a['refine_us'] / 1e3:.2f} ms, total {a['total_us'] / 1e3:.2f} ms; gates "
+        f"{json.dumps(a['gates'])}")
+
+    # Round B: the mechanisms on named rows.
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t) * 1e3
+
+    present = [r for r in aged if store.generation[r] == gen_aged[r]]  # not freed in round A
+    del_ms = 0.0
+    if present:
+        del_ms = timed(lambda: policy._delete_partitions(present, reassign=True))[1]
+    sizes = store.partition_sizes()
+    active = store.active_rows()
+    split_rows = [int(r) for r in active[np.argsort(sizes[active], kind="stable")][-MAINT_HOT:]]
+    split_sizes = [int(sizes[r]) for r in split_rows]
+    new_rows, split_ms = timed(lambda: idx.split_partitions(split_rows))
+    _, refine_ms = timed(lambda: policy.local_refinement(new_rows))
+    out["round_b"] = dict(deleted=present, delete_ms=del_ms, split_rows=split_rows,
+                          split_sizes=split_sizes, new_rows=new_rows, split_ms=split_ms,
+                          refine_ms=refine_ms,
+                          gates=maint_gates(torch, idx, ids_before, ntotal, "round B"))
+    b = out["round_b"]
+    log(f"[maintenance] round B ({card}): delete {len(present)} aged rows with reassignment "
+        f"{del_ms:.2f} ms; split_partitions of the {MAINT_HOT} largest (sizes {split_sizes}) "
+        f"{split_ms:.2f} ms -> {len(new_rows)} rows; local_refinement {refine_ms:.2f} ms; gates "
+        f"{json.dumps(b['gates'])}")
+
+    policy.reset()
+    after = maint_search(torch, dev, idx, queries, skewed, gt_u, gt_s, nprobe)
+    out["after"] = after
+    q, pids = probe_batches(torch, dev, idx, queries, nprobe)[BATCH]
+    out["gates"] = main_kernel_gates(torch, idx, q, pids, nprobe)
+    del q, pids
+    with tempfile.TemporaryDirectory() as tmp:
+        idx.save(tmp)
+        loaded = QuakeIndex(device=dev).load(tmp)
+    lp = loaded.latency_profile
+    if (lp is None or lp.grid_source != "csv"
+            or not np.allclose(lp.latency_grid, est.latency_grid, rtol=1e-5, atol=0)
+            or loaded.maintenance_policy is None
+            or loaded.maintenance_policy.cost_estimator.latency_estimator is not lp
+            or loaded.maintenance_policy.hit_count_tracker.get_num_queries_recorded() != 0):
+        raise AssertionError("the loaded index lost the latency grid or its fresh policy")
+    del loaded
+    out["s"] = time.perf_counter() - t_phase
+    log(f"[maintenance] ({card}) default B={BATCH} batch ms before / after: {before['ms']:.3f} / "
+        f"{after['ms']:.3f}; recall@10 uniform {before['recall_uniform']:.4f} / "
+        f"{after['recall_uniform']:.4f}, skewed {before['recall_skewed']:.4f} / "
+        f"{after['recall_skewed']:.4f}; nlist {NLIST} -> {idx.nlist()}; maintained store "
+        f"{gates_text(out['gates'])}; the latency grid round-trips through save and load; "
+        f"phase {out['s']:.1f} s")
+    del idx
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2963,9 +3239,12 @@ def main() -> int:
                               {"default": main_out[f"B{BATCH}"]["ms"],
                                "sized": direct["sized_topk"]["ms"],
                                "multi": direct["multi_topk"]["ms"]})
+    del idx
+    torch.cuda.empty_cache()
+    maintenance = phase_maintenance(torch, dev, queries, main_out["nprobe"])
     log("[summary] " + json.dumps(dict(main_out, by_name=by_name, direct=direct,
                                        latency=latency, wide=wide, headline_bf16=headline,
-                                       aps=aps, mutation=mutation)))
+                                       aps=aps, mutation=mutation, maintenance=maintenance)))
 
     if len(kernels) != len(ENTRIES):
         raise AssertionError(f"the kernels line needs {len(ENTRIES)} entries, got {len(kernels)}")

@@ -9,14 +9,30 @@ scans with entry points of their own (`ops/grouped_variants.py`) as
 hand-written CUDA kernels in `csrc/`, built with nvcc for sm_90a at first
 use; `QuakeIndex.add`, `remove`, `modify`, `get`, `validate` and
 `split_partitions` with split-on-overflow, on the native id map
-(`native/idmap.cpp`, built with g++ at first use); `save` and `load` in the
-JAX package's format. Entry points run on the card unless the caller
+(`native/idmap.cpp`, built with g++ at first use); recall-target search
+(APS); cost-based maintenance (`maintenance/`: the hit window every search
+feeds, the latency grid, profiled on the card at build where asked,
+`QuakeIndex.maintenance()`); `save` and `load` in the JAX package's
+format. Entry points run on the card unless the caller
 passes `device="cpu"`, where every kernel wrapper runs its plain PyTorch
 version. This package imports neither JAX nor quake_tpu.
 """
 
 from quake_tpu_torch.convert import index_from_numpy
 from quake_tpu_torch.index import QuakeIndex
-from quake_tpu_torch.params import IndexBuildParams, SearchParams
+from quake_tpu_torch.params import IndexBuildParams, MaintenancePolicyParams, SearchParams
+from quake_tpu_torch.timing import (BuildTimingInfo, MaintenanceTimingInfo, ModifyTimingInfo,
+                                    SearchResult, SearchTimingInfo)
 
-__all__ = ["QuakeIndex", "IndexBuildParams", "SearchParams", "index_from_numpy"]
+__all__ = [
+    "QuakeIndex",
+    "IndexBuildParams",
+    "SearchParams",
+    "MaintenancePolicyParams",
+    "SearchResult",
+    "BuildTimingInfo",
+    "ModifyTimingInfo",
+    "SearchTimingInfo",
+    "MaintenanceTimingInfo",
+    "index_from_numpy",
+]

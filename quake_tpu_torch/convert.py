@@ -19,6 +19,11 @@ A bf16 array arrives as the JAX package hands it over (numpy's view of a
 `jnp.bfloat16` array, whose dtype is named "bfloat16") or as the uint16 bit
 view its checkpoints hold; either is read through its 16 bits, so this
 module needs no bf16 type of numpy's.
+
+Maintenance adds no field here: an IVF index made here gets a fresh policy
+with an empty hit window and the analytic latency model, as a load does
+without latency_profile.csv. A latency grid crosses between the packages
+through `save` and `load` (latency_profile.csv, the same bytes in both).
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import torch
 
 from quake_tpu_torch.index import QuakeIndex
 from quake_tpu_torch.ops.grouped import BF16_OPERANDS
-from quake_tpu_torch.params import IndexBuildParams, check_metric
+from quake_tpu_torch.params import IndexBuildParams, MaintenancePolicyParams, check_metric
 from quake_tpu_torch.storage.store import PartitionStore, StoreState
 
 FIELDS = ("codes", "ids", "sizes", "centroids", "active", "norms")
@@ -88,4 +93,5 @@ def index_from_numpy(state: Mapping[str, np.ndarray],
         index.parent = QuakeIndex(level=1, device=index.device)
         index.parent.metric = index.metric
         index.parent.store = parent
+        index.initialize_maintenance_policy(MaintenancePolicyParams())
     return index

@@ -1,7 +1,8 @@
 """QuakeIndex: build with APS calibration; the flat, the query-major, the
 batched fixed-nprobe and the recall-target (APS) searches; add, remove,
-modify, get and validate with split-on-overflow; save and load (those parts
-of quake_tpu/index.py).
+modify, get and validate with split-on-overflow; cost-based maintenance (the
+hit window fed by every search, the latency grid, splits, deletes and
+refinement); save and load (those parts of quake_tpu/index.py).
 
 A recursive two-level IVF structure, as in the reference orchestrator
 (src/cpp/include/quake_index.h:18-142, src/cpp/src/quake_index.cpp:29-288):
@@ -27,15 +28,19 @@ import torch
 
 from quake_tpu_torch import coordinator
 from quake_tpu_torch.geometry import beta_table, effective_dimension
-from quake_tpu_torch.kmeans import balance_clusters, kmeans_fit_assign, kmeans_np
+from quake_tpu_torch.kmeans import (balance_clusters, batched_two_means, kmeans_fit_assign,
+                                     kmeans_np)
+from quake_tpu_torch.maintenance.latency_estimator import ListScanLatencyEstimator
+from quake_tpu_torch.maintenance.policy import MaintenancePolicy, maint_on_host
 from quake_tpu_torch.ops.grouped import BF16_OPERANDS, grouped_scan_xla
 from quake_tpu_torch.ops.grouped_scan import QTS, grouped_scan_uses_mma
 from quake_tpu_torch.ops.scan import scores_to_distances
 from quake_tpu_torch.params import (DEFAULT_INITIAL_SEARCH_FRACTION, IndexBuildParams,
-                                     SearchParams, check_metric)
-from quake_tpu_torch.storage.store import SPILL_NOT_PORTED, PartitionStore, StoreState, _sumsq
-from quake_tpu_torch.timing import (BuildTimingInfo, ModifyTimingInfo, SearchResult,
-                                    SearchTimingInfo)
+                                     MaintenancePolicyParams, SearchParams, check_metric)
+from quake_tpu_torch.storage.store import (SPILL_NOT_PORTED, PartitionStore, StoreState, _bucket,
+                                           _sumsq)
+from quake_tpu_torch.timing import (BuildTimingInfo, MaintenanceTimingInfo, ModifyTimingInfo,
+                                    SearchResult, SearchTimingInfo)
 from quake_tpu_torch.utils import compute_recall, next_pow2, to_f32, to_i64
 
 INT32_MAX = np.iinfo(np.int32).max
@@ -44,7 +49,6 @@ SERIALIZATION_VERSION = 1  # the JAX package's save format (quake_tpu/index.py:4
 
 # ROADMAP Queue 1 items that lift the NotImplementedError guards below.
 SPILL = "ROADMAP Queue 1 item 6: spill and dedup"
-MAINTENANCE = "ROADMAP Queue 1 item 8: maintenance"
 MULTI_LEVEL = "ROADMAP Queue 1 item 10: multi-level parents and bounds=\"sampled\""
 PARALLEL = "ROADMAP Queue 1 item 11: parallel"
 
@@ -102,8 +106,19 @@ def _drop_self(ids: np.ndarray, self_ids: np.ndarray, k: int) -> np.ndarray:
 
 
 class QuakeIndex:
-    """Dynamic IVF index: build, flat and fixed-nprobe search, mutation and
-    persistence."""
+    """Dynamic IVF index: build, flat, fixed-nprobe and recall-target
+    search, mutation, cost-based maintenance and persistence.
+
+    Every IVF index carries a maintenance policy (`maintenance_policy`, set
+    at the end of build and load, as in the JAX package): each search
+    records its probed partitions into the policy's hit window as device
+    tensors (no host read, no copy), and `maintenance()` splits hot
+    partitions, deletes cold ones and refines the neighbourhood of the
+    splits. `latency_profile` is the latency grid the policy's cost model
+    reads: None (the analytic model), profiled at build
+    (profile_maintenance_latency=True: the index's grouped scan timed over
+    the grid, on a CUDA index kernels K1 and K2) or loaded from
+    latency_profile.csv. The hit window is not saved."""
 
     def __init__(self, level: int = 0, device=None):
         self.level = level
@@ -117,9 +132,8 @@ class QuakeIndex:
             setattr(self, name, default)
         self.spill = False  # a spilled index is refused (SPILL_NOT_PORTED)
         self.soar_lambda = 1.0
-        # A loaded latency_profile.csv, kept as text for save (its parser
-        # comes with maintenance).
-        self.latency_profile_csv: Optional[str] = None
+        self.maintenance_policy: Optional[MaintenancePolicy] = None  # IVF only
+        self.latency_profile: Optional[ListScanLatencyEstimator] = None  # else analytic
         self._nprobe_bucket = 8  # pow2 padding for probe lists
         # Mutation coalescing buffer (IndexBuildParams.mutation_buffer_size).
         self._pending_x: list = []
@@ -146,8 +160,6 @@ class QuakeIndex:
         if bp.num_shards > 1 or self._would_shard(bp.num_workers):
             raise _not_ported("sharding (num_shards > 1, or num_workers > 1 with as many "
                               "CUDA devices)", PARALLEL)
-        if bp.profile_maintenance_latency:
-            raise _not_ported("profile_maintenance_latency=True", MAINTENANCE)
         if bp.nlist > 1 and bp.parent_params is not None and bp.parent_params.nlist > 1:
             raise _not_ported("a parent index that is itself an IVF", MULTI_LEVEL)
 
@@ -204,10 +216,45 @@ class QuakeIndex:
             self.store.init_single_partition(x, ids)
         if bp.nlist > 1 and bp.calibrate_aps and n >= 10_000:
             self.calibrate_aps()
+        if bp.profile_maintenance_latency:
+            self.profile_latency()
+        self.initialize_maintenance_policy(MaintenancePolicyParams())
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         timing.total_time_us = _now_us() - t0
         return timing
+
+    def profile_latency(self, n_values=None, k_values=None) -> ListScanLatencyEstimator:
+        """Time this index's grouped scan over the (n, k) grid and give the
+        grid to the maintenance cost model (quake_index.cpp:81-82 ->
+        maintenance_cost_estimator.cpp:59-94): on a CUDA index the scan
+        _grouped_kernel names (v11: kernels K1 and K2) at K1's query tile for
+        this D, on a CPU index "xla", as the JAX package profiles off a TPU.
+        save() writes it to latency_profile.csv, load() reads it back."""
+        est = ListScanLatencyEstimator(self.d(), n_values=n_values, k_values=k_values)
+        if self.device.type == "cuda":
+            est.profile_grouped_latency(kernel=self._grouped_kernel(), qt=self._k1_qt(32),
+                                        device=self.device)
+        else:
+            est.profile_grouped_latency(kernel="xla", device=self.device)
+        self.latency_profile = est
+        if self.maintenance_policy is not None:
+            self.maintenance_policy.cost_estimator.latency_estimator = est
+        return est
+
+    def initialize_maintenance_policy(self, params: MaintenancePolicyParams) -> None:
+        """A fresh policy with an empty window (quake_index.cpp:148-155); only
+        an IVF index (one with a parent) gets one."""
+        if self.parent is not None:
+            self.maintenance_policy = MaintenancePolicy(self, params)
+
+    def _record_hits(self, pids: torch.Tensor, scanned: torch.Tensor) -> None:
+        """Feed the maintenance hit window with a search's ranked probe lists
+        and per-query scanned counts, as the device tensors they are (the
+        reference's unwired record_query_hits, wired as in the JAX
+        package)."""
+        if self.maintenance_policy is not None:
+            self.maintenance_policy.record_query_hits_device(pids, scanned)
 
     # ----------------------------------------------------------------- search
 
@@ -291,7 +338,7 @@ class QuakeIndex:
         qt, group_chunk = self._grouped_params(B, parent_k)
         state = self.store.state
         pstate = self.parent.store.state
-        scores, ids32, dists, _, _ = coordinator.fused_ivf_search(
+        scores, ids32, dists, scanned, pids = coordinator.fused_ivf_search(
             state.codes, state.ids, state.sizes, state.norms,
             pstate.codes, pstate.ids, q, k=k, nprobe=parent_k, metric=self.metric,
             qt=qt, kernel=self._grouped_kernel(), parent_norms=pstate.norms,
@@ -301,6 +348,7 @@ class QuakeIndex:
         timing.parent_info = SearchTimingInfo(
             n_queries=B, n_clusters=self.parent.nlist(),
             partitions_scanned=self.parent.nlist())
+        self._record_hits(pids, scanned)
         return scores, ids32, timing, dists
 
     def _aps_dense_route(self, q: torch.Tensor, sp: SearchParams):
@@ -391,12 +439,14 @@ class QuakeIndex:
             return (*self._aps_search(q, sp, timing, aps_mode, parent_k, pids), timing)
         if sp.batched_scan or (sp.batched_scan is None and B >= MIN_BATCH):
             qt, group_chunk = self._grouped_params(B, parent_k)
-            scores, ids32, _ = grouped_scan_xla(state.codes, state.ids, q, pids, k, self.metric,
-                                                qt=qt, group_chunk=group_chunk)
+            scores, ids32, scanned = grouped_scan_xla(state.codes, state.ids, q, pids, k,
+                                                      self.metric, qt=qt,
+                                                      group_chunk=group_chunk)
         else:
-            scores, ids32, _ = coordinator.ivf_search(state.codes, state.ids, q, pids, k,
-                                                      self.metric)
+            scores, ids32, scanned = coordinator.ivf_search(state.codes, state.ids, q, pids, k,
+                                                            self.metric)
         timing.partitions_scanned = parent_k
+        self._record_hits(pids, scanned)
         return scores, ids32, timing
 
     def _aps_mode_and_width(self, B: int, k: int, sp: SearchParams):
@@ -461,7 +511,7 @@ class QuakeIndex:
         if mode == "oneshot":
             ra, rb = self._radius_coef(k)
             pstate = self.parent.store.state
-            scores, ids32, scanned, _ = coordinator.aps_search_oneshot_fused(
+            scores, ids32, scanned, pids = coordinator.aps_search_oneshot_fused(
                 state.codes, state.ids, state.centroids, pstate.codes, pstate.ids,
                 pstate.norms, q, target, parent_k=int(parent_k),
                 mcap=int(self.aps_oneshot_mcap or 0), radius_a=ra, radius_b=rb,
@@ -481,6 +531,7 @@ class QuakeIndex:
             timing.aps_loop_syncs = stats["syncs"]
         # Kept on the device: reading the mean here would wait for the search.
         timing._scanned_dev = scanned
+        self._record_hits(pids, scanned)
         return scores, ids32
 
     def _radius_coef(self, k: int):
@@ -930,21 +981,42 @@ class QuakeIndex:
         return new_rows
 
     def split_partitions(self, rows) -> list:
-        """2-way k-means of each partition on the host (kmeans_np); the
-        originals are deleted and the halves added (partition_manager.cpp:
-        393-445). Returns the new rows. This is the JAX package's host path
-        (QUAKE_TPU_MAINT_HOST=1); its batched device path comes with
-        maintenance."""
+        """2-way k-means of each partition; the originals are deleted and the
+        halves added (partition_manager.cpp:393-445, quake_tpu/index.py:
+        1588-1658). Used by maintenance splits. Returns the new rows. By
+        default one batched 2-means over all the rows' slabs on the index's
+        device (kmeans.batched_two_means) and one copy of the result to the
+        host; with QUAKE_TPU_MAINT_HOST=1 the JAX package's host path
+        (kmeans_np of each partition read one by one)."""
         rows = [int(r) for r in rows]
         if not rows:
             return []
         cents, vecs, ids = [], [], []
-        for r in rows:
-            cents_r, clusters = kmeans_np(*self.store.get_partition(r), 2, self.metric)
-            for c, (cvecs, cids) in zip(cents_r, clusters):
-                cents.append(c)
-                vecs.append(cvecs)
-                ids.append(cids)
+        if not maint_on_host():
+            state = self.store.state
+            rows_p = np.full(_bucket(len(rows), 1), -1, np.int32)
+            rows_p[:len(rows)] = rows
+            slabs, slab_ids, sizes, cents_d, assign = batched_two_means(
+                state.codes, state.ids, state.sizes, torch.from_numpy(rows_p).to(self.device),
+                niter=5, metric=self.metric)
+            n = len(rows)
+            slabs, sizes = slabs[:n].cpu().numpy(), sizes[:n].cpu().numpy()
+            slab_ids = slab_ids[:n].cpu().numpy().astype(np.int64)
+            cents_np, assign = cents_d[:n].cpu().numpy(), assign[:n].cpu().numpy()
+            for i in range(n):
+                sz = int(sizes[i])
+                for j in range(2):
+                    m = assign[i, :sz] == j
+                    cents.append(cents_np[i, j])
+                    vecs.append(slabs[i, :sz][m])
+                    ids.append(slab_ids[i, :sz][m])
+        else:
+            for r in rows:
+                cents_r, clusters = kmeans_np(*self.store.get_partition(r), 2, self.metric)
+                for c, (cvecs, cids) in zip(cents_r, clusters):
+                    cents.append(c)
+                    vecs.append(cvecs)
+                    ids.append(cids)
         return self._replace_partitions(rows, cents, vecs, ids)
 
     def _ensure_room_by_splitting(self, rows: np.ndarray, x: np.ndarray,
@@ -997,14 +1069,26 @@ class QuakeIndex:
         self._replace_partitions(split_rows, cents, vecs, vids)
         return rows
 
+    # ------------------------------------------------------------ maintenance
+
+    def maintenance(self) -> MaintenanceTimingInfo:
+        """Cost-based split and delete, then local refinement
+        (quake_index.cpp:157-163), after the pending adds are flushed. A
+        flat index has no policy and does nothing."""
+        if self.maintenance_policy is None:
+            return MaintenanceTimingInfo()
+        self._flush_mutations()
+        return self.maintenance_policy.perform_maintenance()
+
     # ------------------------------------------------------------ persistence
 
     def save(self, path: str) -> None:
         """Directory save in the JAX package's format (quake_index.cpp:
         170-206, quake_tpu/index.py:1815-1870): metadata.json, the store's
         arrays as .npy (bf16 codes as their uint16 bit view, np.save has no
-        bf16; norms are derived, and recomputed on load) and a recursive
-        parent/. Either package loads what the other saved."""
+        bf16; norms are derived, and recomputed on load), the latency grid
+        as latency_profile.csv where there is one, and a recursive parent/.
+        Either package loads what the other saved."""
         self._flush_mutations()
         os.makedirs(path, exist_ok=True)
         state = self.store.state
@@ -1036,9 +1120,8 @@ class QuakeIndex:
         for name in ("ids", "sizes", "centroids", "active"):
             np.save(os.path.join(path, f"{name}.npy"), getattr(state, name).cpu().numpy())
         np.save(os.path.join(path, "generation.npy"), self.store.generation)
-        if self.latency_profile_csv is not None:
-            with open(os.path.join(path, "latency_profile.csv"), "w") as f:
-                f.write(self.latency_profile_csv)
+        if self.latency_profile is not None:
+            self.latency_profile.save(os.path.join(path, "latency_profile.csv"))
         if self.parent is not None:
             self.parent.save(os.path.join(path, "parent"))
 
@@ -1047,8 +1130,9 @@ class QuakeIndex:
         208-267, quake_tpu/index.py:1872-1964): the arrays, the free rows and
         the generation counters as saved, the codes in the precision the
         metadata names (bf16 from the uint16 bit view), the norms recomputed
-        from the codes, the id map rebuilt from the slots. A bf16 parent, a
-        spilled index and sharding over n_workers devices raise
+        from the codes, the id map rebuilt from the slots, the latency grid
+        from latency_profile.csv, and a fresh maintenance policy. A bf16
+        parent, a spilled index and sharding over n_workers devices raise
         NotImplementedError."""
         with open(os.path.join(path, "metadata.json")) as f:
             meta = json.load(f)
@@ -1085,11 +1169,6 @@ class QuakeIndex:
                                     dtype=arrays["codes"].dtype)
         self.store.init_from_state(StoreState(**arrays), free_rows=meta["free_rows"],
                                    generation=np.load(os.path.join(path, "generation.npy")))
-        csv_path = os.path.join(path, "latency_profile.csv")
-        self.latency_profile_csv = None
-        if os.path.exists(csv_path):
-            with open(csv_path) as f:
-                self.latency_profile_csv = f.read()
         self.parent = None
         if meta["has_parent"]:
             self.parent = QuakeIndex(level=self.level + 1, device=self.device)
@@ -1097,6 +1176,12 @@ class QuakeIndex:
         self.build_params = IndexBuildParams(dimension=meta["dimension"], nlist=meta["nlist"],
                                              metric=self.metric,
                                              precision="bf16" if bf16 else "f32")
+        # A fresh policy on the saved latency grid; the hit window is not
+        # saved (quake_index.cpp:208-267).
+        self.latency_profile = ListScanLatencyEstimator.from_csv(
+            os.path.join(path, "latency_profile.csv"))
+        self.maintenance_policy = None
+        self.initialize_maintenance_policy(MaintenancePolicyParams())
         return self
 
     # ------------------------------------------------------------- accessors

@@ -12,8 +12,10 @@ Random choices (initial centroids, subsample, re-seed points) come from a
 torch.Generator seeded with `seed`; they cannot reproduce jax.random's bits,
 so the two packages agree in clustering quality, not in assignments.
 
-`kmeans_np` and `balance_clusters` are host numpy copies of the JAX
-package's (build-time balancing of oversized clusters).
+`kmeans_np`, `balance_clusters` and `lloyd_refine_np` are host numpy copies
+of the JAX package's (build-time balancing, the host paths of maintenance).
+`batched_two_means` and `batched_refine`, maintenance's split and refinement,
+are batched tensor programs on the index's device, as the JAX package's are.
 """
 
 from __future__ import annotations
@@ -172,3 +174,160 @@ def balance_clusters(x, centroids, assignments, cap: int, max_rounds: int = 12,
             break
         centroids = np.concatenate([centroids, np.stack(new_cents)])
     return centroids, assignments
+
+
+def lloyd_refine_np(vec_list, id_list, centroids, metric: str = "l2", iterations: int = 3):
+    """Constrained Lloyd refinement among an existing partition neighborhood
+    (reference kmeans_refine_partitions, clustering.cpp:99-182), a numpy copy
+    of the JAX package's: pool the partitions' vectors, reassign among only
+    these centroids, recompute the means (an empty cluster keeps its
+    centroid).
+
+    Returns (new_centroids, [(vecs, ids)] per input partition slot)."""
+    cents = np.asarray(centroids, dtype=np.float32).copy()
+    m, d = cents.shape
+    x = np.concatenate([np.asarray(v, np.float32).reshape(-1, d) for v in vec_list]) \
+        if vec_list else np.zeros((0, d), np.float32)
+    ids = np.concatenate([np.asarray(i, np.int64) for i in id_list]) \
+        if id_list else np.zeros((0,), np.int64)
+    if x.shape[0] == 0:
+        return cents, [(x[:0], ids[:0]) for _ in range(m)]
+    assign = None
+    for _ in range(max(iterations, 1)):
+        if metric == "ip":
+            assign = np.argmax(x @ cents.T, axis=1)
+        else:
+            d2 = (x**2).sum(1)[:, None] - 2 * x @ cents.T + (cents**2).sum(1)[None, :]
+            assign = np.argmin(d2, axis=1)
+        for c in range(m):
+            mask = assign == c
+            if mask.any():
+                cents[c] = x[mask].mean(0)
+    clusters = [(x[assign == c], ids[assign == c]) for c in range(m)]
+    return cents, clusters
+
+
+# ---------------------------------------------------------------------------
+# Maintenance clustering on the index's device (quake_tpu/kmeans.py:319-459).
+# ---------------------------------------------------------------------------
+
+
+def _gather_slabs(codes, ids, sizes_all, rows_p):
+    """The slabs of rows_p (-1 pads: no valid row) as f32, with their ids,
+    sizes, validity mask and the vectors with invalid rows zeroed."""
+    rows_c = torch.clamp(rows_p, min=0).long()
+    x = codes[rows_c].to(torch.float32)  # [S, C, D]
+    slab_ids = ids[rows_c]
+    sizes = torch.where(rows_p >= 0, sizes_all[rows_c], torch.zeros_like(rows_p)).to(torch.int32)
+    C = x.shape[1]
+    valid = torch.arange(C, device=x.device, dtype=torch.int32)[None, :] < sizes[:, None]
+    xm = torch.where(valid[..., None], x, torch.zeros_like(x))
+    return x, slab_ids, sizes, valid, xm
+
+
+def _farthest(xm, valid, point):
+    """Per slab, the valid vector farthest (squared l2) from point [S, D];
+    index 0 for a slab with none, as jnp.argmax of all -inf gives."""
+    d2 = torch.sum((xm - point[:, None, :]) ** 2, dim=-1)
+    pick = torch.argmax(torch.where(valid, d2, torch.full_like(d2, float("-inf"))), dim=1)
+    return xm[torch.arange(xm.shape[0], device=xm.device), pick]
+
+
+def batched_two_means(codes, ids, sizes_all, rows_p, niter: int = 5, metric: str = "l2"):
+    """2-means over a set of partition slabs in one batched program
+    (quake_tpu/kmeans.py::batched_two_means): the maintenance split's
+    clustering, without a host round trip a partition (reference semantics
+    partition_manager.cpp:393-445).
+
+    codes [P, C, D] (f32 or bf16), ids [P, C], sizes_all [P] int32, rows_p
+    [Sb] int32 (split rows, -1 pads), all on one device. Returns (slabs f32
+    [Sb, C, D], slab_ids [Sb, C], sizes [Sb], cents [Sb, 2, D], assign
+    [Sb, C] int32 in {0, 1}, -1 past the size).
+
+    As in the JAX package: the init is deterministic (the first valid vector,
+    then the valid vector farthest from it); l2 assigns by the broadcast sum
+    of squared differences (not the expanded product: that would flip
+    near-ties against the JAX package), ip by the inner product with the
+    normalized centroids, and returns them normalized; an empty half is
+    reseeded each iteration to the point farthest from the other half."""
+    x, slab_ids, sizes, valid, xm = _gather_slabs(codes, ids, sizes_all, rows_p)
+    c0 = xm[:, 0, :]
+    cents = torch.stack([c0, _farthest(xm, valid, c0)], dim=1)  # [Sb, 2, D]
+
+    def assign_step(cents):
+        if metric == "ip":
+            ca = cents / torch.clamp(torch.linalg.norm(cents, dim=-1, keepdim=True), min=1e-12)
+            a = torch.argmax(torch.einsum("scd,sjd->scj", xm, ca), dim=-1)
+        else:
+            d2 = torch.sum((xm[:, :, None, :] - cents[:, None, :, :]) ** 2, dim=-1)
+            a = torch.argmin(d2, dim=-1)
+        return torch.where(valid, a, torch.full_like(a, -1))
+
+    for _ in range(max(niter, 1)):
+        a = assign_step(cents)
+        new_c = []
+        for j in (0, 1):
+            w = (a == j).to(torch.float32)  # [Sb, C]
+            s = torch.einsum("scd,sc->sd", xm, w)
+            n = torch.sum(w, dim=1, keepdim=True)
+            new_c.append(torch.where(n > 0, s / torch.clamp(n, min=1.0), cents[:, j, :]))
+        cents = torch.stack(new_c, dim=1)
+        counts = [torch.sum((a == j) & valid, dim=1) for j in (0, 1)]
+        for j in (0, 1):
+            cand = _farthest(xm, valid, cents[:, 1 - j, :])
+            upd = torch.where((counts[j] == 0)[:, None], cand, cents[:, j, :])
+            cents = torch.stack([upd, cents[:, 1, :]] if j == 0 else [cents[:, 0, :], upd],
+                                dim=1)
+    if metric == "ip":
+        cents = cents / torch.clamp(torch.linalg.norm(cents, dim=-1, keepdim=True), min=1e-12)
+    return x, slab_ids, sizes, cents, assign_step(cents).to(torch.int32)
+
+
+def batched_refine(codes, ids, sizes_all, centroids_all, rows_p, niter: int = 3,
+                   metric: str = "l2"):
+    """Constrained Lloyd over a partition neighborhood in one batched program
+    (quake_tpu/kmeans.py::batched_refine; reference semantics
+    clustering.cpp:99-182): the gathered slabs pooled, every valid vector
+    reassigned among only the neighborhood's centroids, the means as segment
+    sums. The initial centroids are the stored ones, so an empty partition
+    keeps its own.
+
+    rows_p [Rb] int32 with -1 pads. Returns (slabs f32 [Rb, C, D], slab_ids
+    [Rb, C], sizes [Rb], new_cents [Rb, D], assign [Rb, C] int32: the slot
+    in rows_p, -1 past the size).
+
+    As in lloyd_refine_np: ip assigns by the raw inner product (unnormalized
+    means, as the reference refines them), l2 by c_sq - 2 x.c (the JAX
+    package's expanded form); empty clusters keep their previous centroid.
+    The segment sums are index_add_, whose float32 atomics on a CUDA device
+    add in no fixed order: the means agree with the JAX package's within
+    f32 rounding, not bit for bit."""
+    x, slab_ids, sizes, valid, xm = _gather_slabs(codes, ids, sizes_all, rows_p)
+    cents = centroids_all[torch.clamp(rows_p, min=0).long()].to(torch.float32)
+    Rb, C, D = x.shape
+    flat_x = xm.reshape(Rb * C, D)
+    flat_valid = valid.reshape(Rb * C)
+    row_live = rows_p >= 0
+
+    def assign_step(cents):
+        prod = flat_x @ cents.T  # [Rb*C, Rb]
+        if metric == "ip":
+            a = torch.argmax(torch.where(row_live[None, :], prod,
+                                         torch.full_like(prod, float("-inf"))), dim=-1)
+        else:
+            d2 = torch.sum(cents * cents, dim=1)[None, :] - 2.0 * prod
+            a = torch.argmin(torch.where(row_live[None, :], d2,
+                                         torch.full_like(d2, float("inf"))), dim=-1)
+        return torch.where(flat_valid, a, torch.full_like(a, Rb))  # invalid: an extra segment
+
+    for _ in range(max(niter, 1)):
+        a = assign_step(cents)
+        s = torch.zeros((Rb + 1, D), device=x.device, dtype=torch.float32)
+        s.index_add_(0, a, flat_x)
+        n = torch.zeros(Rb + 1, device=x.device, dtype=torch.float32)
+        n.index_add_(0, a, flat_valid.to(torch.float32))
+        s, n = s[:Rb], n[:Rb]
+        cents = torch.where((n > 0)[:, None], s / torch.clamp(n[:, None], min=1.0), cents)
+    a = assign_step(cents)
+    assign = torch.where(flat_valid, a, torch.full_like(a, -1)).to(torch.int32).reshape(Rb, C)
+    return x, slab_ids, sizes, cents, assign

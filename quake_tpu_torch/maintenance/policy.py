@@ -1,0 +1,267 @@
+"""Cost-based adaptive maintenance: split hot partitions, delete cold ones,
+refine the neighbourhood (the counterpart of
+quake_tpu/maintenance/policy.py).
+
+The reference MaintenancePolicy flow (src/cpp/src/maintenance_policies.cpp:
+33-202): gate on a full hit window -> aggregate per-partition hit rates ->
+delete_delta / split_delta against the ns thresholds (delete rejection by a
+simulated reassignment through the parent, :77-119) -> deletes, with the
+vectors reassigned, then splits (2-means each) -> local refinement of the
+split neighbourhood (radius = the k nearest centroids of the new ones,
+:188-202). As in the JAX package, and unlike the reference, the index's
+search path feeds the window (QuakeIndex._record_hits).
+
+The parent searches here (reassignment, rejection, neighbourhood) run the
+parent's exact flat scan (`parent._search_device`), as the JAX package's do;
+the clustering runs batched on the index's device (kmeans.batched_two_means,
+batched_refine), or on the host with QUAKE_TPU_MAINT_HOST=1. A spilled index
+is not ported: its branches raise SPILL_NOT_PORTED.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from quake_tpu_torch.kmeans import batched_refine, lloyd_refine_np
+from quake_tpu_torch.maintenance.cost_estimator import MaintenanceCostEstimator
+from quake_tpu_torch.maintenance.hit_tracker import HitCountTracker
+from quake_tpu_torch.params import MaintenancePolicyParams, SearchParams
+from quake_tpu_torch.storage.store import SPILL_NOT_PORTED, _bucket
+from quake_tpu_torch.timing import MaintenanceTimingInfo
+
+
+def _now_us() -> int:
+    return int(time.perf_counter() * 1e6)
+
+
+def maint_on_host() -> bool:
+    """QUAKE_TPU_MAINT_HOST=1: split and refine on the host (kmeans_np,
+    lloyd_refine_np), as the JAX package does under the same variable."""
+    return os.environ.get("QUAKE_TPU_MAINT_HOST") == "1"
+
+
+class MaintenancePolicy:
+    def __init__(self, index, params: MaintenancePolicyParams):
+        self.index = index
+        self.params = params
+        # k=10 is the reference's estimator k (maintenance_policies.cpp:24-27);
+        # a profiled or loaded grid (index.latency_profile) replaces the
+        # analytic model (quake_index.cpp:81-82).
+        self.cost_estimator = MaintenanceCostEstimator(
+            index.d(), params.alpha, 10,
+            latency_estimator=getattr(index, "latency_profile", None),
+        )
+        self.hit_count_tracker = HitCountTracker(params.window_size, max(index.ntotal(), 1))
+        # The last round's delete-rejection simulations: how many candidates
+        # were simulated (one partition read and one parent search each) and
+        # the microseconds they took.
+        self.rejection_candidates = 0
+        self.rejection_time_us = 0
+
+    # -- recording -------------------------------------------------------------
+
+    def record_query_hits(self, partition_ids):
+        """Host-side parity API (maintenance_policies.cpp:179-182)."""
+        pids = np.asarray(partition_ids, dtype=np.int64)
+        sizes = self.index.store.partition_sizes(pids)
+        self.hit_count_tracker.add_query_data(pids, int(sizes.sum()))
+
+    def record_query_hits_device(self, pids_dev, scanned_dev):
+        self.hit_count_tracker.add_batch_device(pids_dev, scanned_dev)
+
+    def reset(self):
+        self.hit_count_tracker.reset()
+
+    # -- the main loop -----------------------------------------------------------
+
+    def perform_maintenance(self) -> MaintenanceTimingInfo:
+        timing = MaintenanceTimingInfo()
+        p = self.params
+        tracker = self.hit_count_tracker
+        self.rejection_candidates = self.rejection_time_us = 0
+        if tracker.get_num_queries_recorded() < p.window_size:
+            return timing
+
+        t_total = _now_us()
+        store = self.index.store
+        sizes = store.partition_sizes()
+        per_query_hits = tracker.get_per_query_hits(sizes)
+
+        agg = np.zeros(store.P, dtype=np.int64)
+        for hits in per_query_hits:
+            valid = hits[(hits >= 0) & (hits < store.P)]
+            np.add.at(agg, valid, 1)
+
+        active_rows = store.active_rows()
+        total_partitions = len(active_rows)
+        if total_partitions <= 1:
+            return timing
+        ntotal = self.index.ntotal()
+        avg_size = ntotal / total_partitions
+        scan_fraction = tracker.get_current_scan_fraction()
+
+        to_delete: list[int] = []
+        to_split: list[int] = []
+        for r in active_rows:
+            r = int(r)
+            hit_rate = agg[r] / p.window_size
+            size = int(sizes[r])
+            delete_delta = self.cost_estimator.compute_delete_delta(
+                size, hit_rate, total_partitions, scan_fraction, avg_size
+            )
+            if delete_delta < -p.delete_threshold_ns:
+                if p.enable_delete_rejection and size > p.min_partition_size:
+                    t_rej = _now_us()
+                    delta = self._delete_delta_with_reassign(
+                        r, size, hit_rate, total_partitions, agg
+                    )
+                    self.rejection_candidates += 1
+                    self.rejection_time_us += _now_us() - t_rej
+                    if delta < -p.delete_threshold_ns:
+                        to_delete.append(r)
+                else:
+                    to_delete.append(r)
+            elif size > p.min_partition_size:
+                split_delta = self.cost_estimator.compute_split_delta(
+                    size, hit_rate, total_partitions
+                )
+                if split_delta < -p.split_threshold_ns:
+                    to_split.append(r)
+
+        # Never delete everything.
+        to_delete = to_delete[:total_partitions - 1]
+
+        t_del = _now_us()
+        if to_delete:
+            self._delete_partitions(to_delete, reassign=True)
+            timing.n_deletes = len(to_delete)
+        timing.delete_time_us = _now_us() - t_del
+
+        t_split = _now_us()
+        new_rows: list[int] = []
+        if to_split:
+            new_rows = self._split_partitions(to_split)
+            timing.n_splits = len(to_split)
+        timing.split_time_us = _now_us() - t_split
+
+        t_refine = _now_us()
+        if new_rows:
+            self.local_refinement(new_rows)
+        timing.split_refine_time_us = _now_us() - t_refine
+
+        tracker.invalidate_rows(to_delete + to_split)
+        timing.total_time_us = _now_us() - t_total
+        return timing
+
+    # -- helpers ------------------------------------------------------------------
+
+    def _parent_ids(self, x: np.ndarray, k: int) -> np.ndarray:
+        """The k nearest parent entries (partition rows) of each row of x,
+        from the parent's exact flat scan on the index's device."""
+        q = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(self.index.device)
+        _, ids32, _ = self.index.parent._search_device(q, SearchParams(k=k, batched_scan=True))
+        return ids32.cpu().numpy()
+
+    def _delete_delta_with_reassign(self, row, size, hit_rate, total_partitions, agg):
+        """Delete rejection: the delta with the vectors reassigned as a k=2
+        parent search sends them (maintenance_policies.cpp:77-119)."""
+        store = self.index.store
+        vecs, _ = store.get_partition(row)
+        if vecs.shape[0] == 0:
+            return -np.inf  # empty partition: always delete
+        reassign = self._parent_ids(vecs, 2).ravel()
+        reassign = reassign[(reassign >= 0) & (reassign != row)]
+        if reassign.size == 0:
+            return 0.0
+        uniques, counts = np.unique(reassign, return_counts=True)
+        sizes = store.partition_sizes(uniques)
+        hit_rates = agg[uniques] / self.params.window_size
+        return self.cost_estimator.compute_delete_delta_w_reassign(
+            size, hit_rate, total_partitions,
+            counts.tolist(), sizes.tolist(), hit_rates.tolist(),
+        )
+
+    def _delete_partitions(self, rows, reassign: bool = True):
+        """partition_manager.cpp:524-554: the centroids leave the parent,
+        the rows are freed, and the orphaned vectors go back in through
+        index.add (reassign)."""
+        if self.index.spill:
+            raise NotImplementedError(SPILL_NOT_PORTED)
+        store = self.index.store
+        orphans = []
+        for r in rows:
+            vecs, vids = store.get_partition(int(r))
+            if vecs.shape[0]:
+                orphans.append((vecs, vids))
+        self.index.parent.remove(np.asarray(rows, dtype=np.int64))
+        store.delete_partitions([int(r) for r in rows])
+        if reassign and orphans:
+            self.index.add(np.concatenate([o[0] for o in orphans]),
+                           np.concatenate([o[1] for o in orphans]))
+
+    def _split_partitions(self, rows) -> list[int]:
+        """2-means each partition; the originals deleted, the halves added
+        (partition_manager.cpp:393-445, maintenance_policies.cpp:150-163)."""
+        return self.index.split_partitions(rows)
+
+    def local_refinement(self, rows):
+        """Refine the neighbourhood of the given (split) partitions: the
+        refinement_radius nearest centroids of each
+        (maintenance_policies.cpp:188-202)."""
+        p = self.params
+        if p.refinement_radius == 0 or not rows:
+            return
+        store = self.index.store
+        cents = store.state.centroids[torch.as_tensor(rows, dtype=torch.long,
+                                                      device=store.device)]
+        k = min(p.refinement_radius, self.index.nlist())
+        refine_rows = np.unique(self._parent_ids(cents.cpu().numpy(), k).ravel())
+        refine_rows = refine_rows[refine_rows >= 0]
+        self.refine_partitions(refine_rows.tolist(), p.refinement_iterations)
+
+    def refine_partitions(self, rows, iterations: int):
+        """Local Lloyd passes constrained to the given partitions
+        (partition_manager.cpp:447-488, clustering.cpp:99-182): one batched
+        pass over the gathered slabs on the index's device
+        (kmeans.batched_refine), the host regrouping rows by the returned
+        assignment; or with QUAKE_TPU_MAINT_HOST=1 lloyd_refine_np over the
+        partitions read one by one."""
+        if not rows:
+            return
+        if self.index.spill:
+            raise NotImplementedError(SPILL_NOT_PORTED)
+        store = self.index.store
+        R = len(rows)
+        if not maint_on_host():
+            state = store.state
+            rows_p = np.full(_bucket(R, 1), -1, np.int32)
+            rows_p[:R] = [int(r) for r in rows]
+            slabs, slab_ids, sizes, cents, assign = batched_refine(
+                state.codes, state.ids, state.sizes, state.centroids,
+                torch.from_numpy(rows_p).to(store.device), niter=max(iterations, 1),
+                metric=self.index.metric)
+            slabs = slabs[:R].cpu().numpy()
+            slab_ids = slab_ids[:R].cpu().numpy().astype(np.int64)
+            sizes = sizes[:R].cpu().numpy()
+            new_cents = cents[:R].cpu().numpy()
+            assign = assign[:R].cpu().numpy()
+            # The pooled (vector, id, target slot) triples in slab order,
+            # regrouped per target slot.
+            fv = np.concatenate([slabs[i, :int(sizes[i])] for i in range(R)])
+            fi = np.concatenate([slab_ids[i, :int(sizes[i])] for i in range(R)])
+            fa = np.concatenate([assign[i, :int(sizes[i])] for i in range(R)])
+            clusters = [(fv[fa == j], fi[fa == j]) for j in range(R)]
+        else:
+            parts = [store.get_partition(int(r)) for r in rows]
+            cents = store.state.centroids[torch.as_tensor(rows, dtype=torch.long,
+                                                          device=store.device)]
+            new_cents, clusters = lloyd_refine_np(
+                [v for v, _ in parts], [i for _, i in parts], cents.cpu().numpy(),
+                self.index.metric, iterations)
+        store.write_partitions(list(rows), [c[0] for c in clusters],
+                               [c[1] for c in clusters], new_cents)
+        self.index.parent.modify(np.asarray(rows, dtype=np.int64), new_cents)

@@ -1874,3 +1874,70 @@ def test_aps_on_the_card_matches_its_cpu_load(dev, tmp_path, monkeypatch):
         want = cpu.search(q, sp)
         assert _overlap(torch.from_numpy(got.ids), torch.from_numpy(want.ids)) >= 0.99
         assert got.timing_info.partitions_scanned == want.timing_info.partitions_scanned
+
+
+def test_profile_grouped_latency_runs_k1_where_jax_leaves_its_kernels(dev):
+    """The latency profile on the card times kernel K1 (with K2) at every
+    grid point, n = 16384 at D = 128 included: two of its slabs (16 MiB)
+    pass the 12 MiB at which the JAX package profiles "xla" instead; K1
+    serves it at gpb 1. k = 256 takes the widest selection."""
+    from quake_tpu_torch.maintenance import ListScanLatencyEstimator
+
+    est = ListScanLatencyEstimator(128, n_values=[64, 16384], k_values=[16, 256], n_trials=2)
+    assert 2 * 16384 * 128 * 4 > (12 << 20)
+    _ext.reset_launches()
+    est.profile_grouped_latency(qt=32, device=dev)
+    torch.cuda.synchronize()
+    assert est.grid_source == "profiled" and (est.latency_grid > 0).all()
+    assert _ext.launches["grouped_scan"] >= 4 * 4 and _ext.launches["merge_positions"] >= 4 * 4
+    _ext.reset_launches()
+    ListScanLatencyEstimator(128, n_values=[16384], k_values=[16], n_trials=2) \
+        .profile_grouped_latency(qt=32, device=dev)
+    torch.cuda.synchronize()
+    assert _ext.launches["grouped_scan"] >= 4  # the point the JAX package sends to "xla"
+
+
+def test_maintenance_on_the_card_matches_its_cpu_load(dev, tmp_path):
+    """An index with an aged region and a steep latency grid, saved and
+    loaded on the card and on the CPU: the same host-recorded window makes
+    the same splits and deletes on both (the batched 2-means and refinement
+    on the card, their plain tensor programs on the CPU), with the same id
+    set in every row and the centroids of both levels within 1e-4
+    (index_add_'s float32 atomics add in no fixed order on the card)."""
+    from quake_tpu_torch import IndexBuildParams, MaintenancePolicyParams, QuakeIndex
+    from quake_tpu_torch.maintenance import ListScanLatencyEstimator
+
+    x = np.random.default_rng(21).standard_normal((48_000, 8)).astype(np.float32)
+    src = QuakeIndex(device="cpu")
+    src.build(x, None, IndexBuildParams(nlist=16, calibrate_aps=False))
+    sizes, active = src.store.partition_sizes(), src.store.active_rows()
+    order = active[np.argsort(sizes[active], kind="stable")]
+    for r in order[:3]:
+        src.remove(src.store.get_partition(int(r))[1][3:])
+    rest = order[3:]
+    hot = [int(r) for r in rest[np.argsort(np.abs(sizes[rest] - sizes[rest].mean()),
+                                           kind="stable")][:2]]
+    grid = ListScanLatencyEstimator(8)
+    grid.latency_grid = np.array([[n * 100.0 + k for k in grid.k_values] for n in grid.n_values])
+    src.latency_profile = grid
+    src.save(str(tmp_path / "aged"))
+    card, cpu = (QuakeIndex(device=d).load(str(tmp_path / "aged")) for d in (dev, "cpu"))
+    infos = []
+    for idx in (card, cpu):
+        idx.initialize_maintenance_policy(MaintenancePolicyParams(
+            window_size=50, refinement_radius=8, min_partition_size=2))
+        for _ in range(60):
+            idx.maintenance_policy.record_query_hits(hot)
+        infos.append(idx.maintenance())
+        assert idx.validate() and idx.parent.ntotal() == idx.nlist()
+    assert (infos[0].n_splits, infos[0].n_deletes) == (infos[1].n_splits, infos[1].n_deletes)
+    assert infos[0].n_splits > 0 and infos[0].n_deletes > 0
+    rows = {int(r): set(card.store.get_partition(int(r))[1].tolist())
+            for r in card.store.active_rows()}
+    assert rows == {int(r): set(cpu.store.get_partition(int(r))[1].tolist())
+                    for r in cpu.store.active_rows()}
+    for a, b in ((card, cpu), (card.parent, cpu.parent)):
+        r = a.store.active_rows()
+        np.testing.assert_array_equal(r, b.store.active_rows())
+        np.testing.assert_allclose(a.store.state.centroids.cpu().numpy()[r],
+                                   b.store.state.centroids.numpy()[r], rtol=1e-4, atol=1e-4)

@@ -229,16 +229,33 @@ def _small_index(**kw):
     pytest.param(dict(precision="bf16"), None, id="kw0-ROADMAP Queue 1 item 5: bf16 codes"),
     (dict(spill=True), "ROADMAP Queue 1 item 6: spill and dedup"),
     (dict(num_shards=2), "ROADMAP Queue 1 item 11: parallel"),
-    (dict(profile_maintenance_latency=True), "ROADMAP Queue 1 item 8: maintenance"),
+    # Lifted: the build profiles the grouped scan's latency grid and sets
+    # the maintenance policy on it (the case keeps the id it had as a guard).
+    pytest.param(dict(profile_maintenance_latency=True), None,
+                 id="kw3-ROADMAP Queue 1 item 8: maintenance"),
     (dict(parent_params=IndexBuildParams(nlist=4)), "ROADMAP Queue 1 item 10: multi-level"),
 ])
-def test_build_guards(kw, match):
+def test_build_guards(kw, match, monkeypatch):
     """Each guard names the ROADMAP item that lifts it, by number and title
     (ROADMAP Queue 3 fault 7). A lifted guard's case checks the build
     instead: precision="bf16" stores the f32 build's codes (the same
     clustering) rounded as the JAX package rounds them (jnp.asarray(x,
     bfloat16)), bit for bit, and the f32 squared norms of the rounded codes
-    (its _sumsq; rtol 1e-6, a sum in another order)."""
+    (its _sumsq; rtol 1e-6, a sum in another order);
+    profile_maintenance_latency=True profiles the grid (here a 2 x 2 grid
+    in place of the default 10 x 5, the "xla" scan on the CPU) and the
+    build's policy reads it."""
+    if kw.get("profile_maintenance_latency"):
+        from quake_tpu_torch.maintenance import latency_estimator
+
+        monkeypatch.setattr(latency_estimator, "DEFAULT_LATENCY_ESTIMATOR_RANGE_N", [64, 256])
+        monkeypatch.setattr(latency_estimator, "DEFAULT_LATENCY_ESTIMATOR_RANGE_K", [1, 8])
+        idx, _ = _small_index(**kw)
+        est = idx.latency_profile
+        assert est.grid_source == "profiled" and (est.latency_grid > 0).all()
+        assert est.latency_grid.shape == (2, 2) and est.d == 8
+        assert idx.maintenance_policy.cost_estimator.latency_estimator is est
+        return
     if match is None:
         idx, _ = _small_index(**kw)
         ref, _ = _small_index()

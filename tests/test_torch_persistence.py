@@ -5,9 +5,11 @@ sizes, centroids, active and generation as .npy, a recursive parent/), so
 each loads what the other saved. A load is held to the carry of the same
 index through `index_from_numpy` with its host bookkeeping (free rows,
 generations): equal arrays (the norms are recomputed from the codes on load:
-rtol 1e-6), equal bookkeeping and id map, equal search ids. Fields the port
-does not use yet are kept (the APS calibration, latency_profile.csv) or
-refused by name (a spilled index). bf16 checkpoints: tests/test_torch_precision.py.
+rtol 1e-6), equal bookkeeping and id map, equal search ids. The APS
+calibration is kept; the latency grid (latency_profile.csv) is parsed into
+the loaded index's fresh maintenance policy, and a grid profiled by either
+package crosses to the other with its values and bytes; a spilled index is
+refused by name. bf16 checkpoints: tests/test_torch_precision.py.
 """
 
 import json
@@ -85,7 +87,11 @@ def test_port_loads_what_jax_saved(mutated_jax):
     assert loaded.build_params.nlist == jidx.nlist() and loaded.build_params.dimension == D
     assert loaded.aps_gamma == 1.25 and loaded.aps_dense_w == 7
     np.testing.assert_array_equal(loaded.aps_radius_ab, jidx.aps_radius_ab)
-    assert loaded.latency_profile_csv.startswith("d,16")
+    est = loaded.latency_profile
+    assert est.d == 16 and est.grid_source == "csv"
+    assert (est.n_values, est.k_values) == ([64, 128], [1, 10])
+    np.testing.assert_allclose(est.latency_grid, jidx.latency_profile.latency_grid, rtol=1e-5)
+    assert loaded.maintenance_policy.cost_estimator.latency_estimator is est
 
 
 def test_jax_loads_what_the_port_saved(mutated_jax, tmp_path):
@@ -110,6 +116,35 @@ def test_jax_loads_what_the_port_saved(mutated_jax, tmp_path):
         with open(os.path.join(path, name)) as f, open(os.path.join(out, name)) as g:
             want, got = f.read(), g.read()
         assert (json.loads(got) == json.loads(want)) if name.endswith("json") else got == want
+
+
+@pytest.mark.parametrize("saver", ["jax", "port"])
+def test_profiled_grid_crosses_both_ways(tmp_path, saver):
+    """A latency grid profiled at build and saved by one package is the
+    grid the other package's loaded index and its fresh policy use: the
+    same values (%.6g in the CSV), and the same bytes when the loader saves
+    it again."""
+    x = _data(2000, 16)
+    if saver == "jax":
+        src = JaxIndex()
+        src.build(x, np.arange(2000), JaxBuildParams(nlist=6, calibrate_aps=False))
+    else:
+        src = QuakeIndex(device="cpu")
+        src.build(x, np.arange(2000), IndexBuildParams(nlist=6, calibrate_aps=False))
+    est = src.profile_latency(n_values=[64, 256], k_values=[1, 8])
+    assert est.grid_source == "profiled"
+    first, again = str(tmp_path / "first"), str(tmp_path / "again")
+    src.save(first)
+    loaded = (QuakeIndex(device="cpu") if saver == "jax" else JaxIndex()).load(first)
+    got = loaded.latency_profile
+    assert got.grid_source == "csv" and (got.n_values, got.k_values) == ([64, 256], [1, 8])
+    np.testing.assert_allclose(got.latency_grid, est.latency_grid, rtol=1e-5)
+    assert loaded.maintenance_policy.cost_estimator.latency_estimator is got
+    assert loaded.maintenance_policy.hit_count_tracker.get_num_queries_recorded() == 0
+    loaded.save(again)
+    with open(os.path.join(first, "latency_profile.csv"), "rb") as f, \
+            open(os.path.join(again, "latency_profile.csv"), "rb") as g:
+        assert f.read() == g.read()
 
 
 def test_allocate_rows_agrees_after_load(mutated_jax):
