@@ -132,7 +132,37 @@ Phases, each of which raises on failure (the script then exits non-zero):
              the budget grid, grouped_scan_budget_bf16, once, and no other
              K1), its K1, K2 and K3 calls held against their plain
              versions, and its budget-grid K1 timed against its bound.
-13. mutation — the mutation path on the main index, after every phase
+13. spill  — SOAR spill (IndexBuildParams.spill: every vector stored twice,
+             the second copy in the partition soar_assign picks): the main
+             corpus built with spill=True, soar_lambda=1.0 (build seconds
+             with soar_assign's share, C, P, the store's bytes; the sizes
+             sum to 2 N, validate(), and on the card every id twice in two
+             different partitions, the two id maps naming them). Recall@10
+             of the 1024 queries at nprobe 3, 4, 5, 6, 7, 9, 12, 16, 24
+             beside the unspilled f32 index of phase 4 (the spilled one
+             above it at nprobe 6 and at its own 0.90 nprobe through v11,
+             and through the exact scan of the probed partitions at nprobe
+             6 and 12, as tests/test_spill.py:59 gates one nprobe); the
+             smallest nprobe reaching 0.90 and 0.95 for each index, B=16384
+             timed there with stages, QPS at equal recall; the spilled
+             batch launches K1 and K3 once each and no K2 (the dedup tail's
+             top-2k replaces it), no id twice in any row, and every K1 and
+             K3 call of that counted batch against its plain version. B=8
+             query-major (grouped_scan_xla with dedup) on the host clock;
+             APS planned and loop at target 0.9 (recall@10 gates 0.85,
+             B=4096 ms, launches), every K1 and K2 call of each counted
+             batch against its plain version. Then add 100,000 vectors (seed 29, ids from 3 N),
+             remove 50,000 ids, modify 1,000, each timed (vectors/s) and
+             followed by validate(), the invariant, contract 6 with both
+             maps and a B=1024 search with no id twice; a save and a load
+             (arrays equal, the invariant, search ids equal). Maintenance
+             at a cut depth (it runs on the host for a spilled store): a
+             spilled index over the first 100,000 vectors, nlist 16 (the
+             same partition size), one maintenance() after a 1024-query
+             window (stage ms, splits, deletes) and a delete of the 4
+             smallest partitions with reassignment, each followed by the
+             same gates. `[spill]` lines on stderr.
+14. mutation — the mutation path on the main index, after every phase
              that reads the built store, on the native id map (the
              phase fails on another): through the store, 40% of the
              resident ids removed (seeded), then 200,000 fresh manifold
@@ -159,7 +189,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
              0.001 of the exact scan of the probed partitions), and K1, K2,
              K3, sized_topk and multi_topk against their plain versions at
              those paths' inputs with the gates of phase 10.
-14. maintenance — cost-based maintenance, last, after the earlier indexes
+15. maintenance — cost-based maintenance, last, after the earlier indexes
              are freed: the main configuration built afresh (the same corpus,
              nlist=160, niter=25, f32) with profile_maintenance_latency=True,
              so that the build times K1 and K2 (the default v11 scan) at every
@@ -288,6 +318,32 @@ MAINT_AGED, MAINT_KEEP, MAINT_HOT = 4, 16, 8
 MAINT_SKEW, MAINT_JITTER, MAINT_SEED = 0.9, 0.1, 23
 MAINT_RATIO_N = (1024, 4096, 16384)
 MAINT_GRID_QUERIES = 1024
+# The spill phase: SOAR's weight; the nprobe grids on which the spilled and
+# the unspilled index read their recall (the unspilled one's wider: it needs
+# more probes for the same recall); the nprobes at which the spilled index
+# must beat the unspilled one, with the v11 scan (tests/test_spill.py:59's
+# nprobe 6) and with the exact scan of the probed partitions (the
+# "reference" scan: the candidate sets); the recall targets QPS is compared at;
+# the APS modes run on the spilled index (oneshot runs planned there: a
+# spilled build does not calibrate); the mutation's adds, removes and
+# modifies and their seed; the query-major batch; the partitions deleted.
+SPILL_LAMBDA = 1.0
+SPILL_NPROBES = (3, 4, 5, 6, 7, 9, 12, 16, 24)
+UNSPILLED_NPROBES = (3, 4, 5, 6, 7, 9, 10, 11, 12, 14, 16, 24)
+SPILL_GATE_NPROBE, SPILL_EXACT_NPROBES = 6, (6, 12)
+SPILL_TARGETS = (0.90, 0.95)
+SPILL_APS_MODES = ("planned", "loop")
+SPILL_ADD, SPILL_REMOVE, SPILL_MODIFY, SPILL_SEED = 100_000, 50_000, 1_000, 29
+SPILL_SMALL_B, SPILL_DELETE = 8, 4
+# Maintenance of a spilled store runs on the host (as in the JAX package):
+# at full width maintenance() split all 160 partitions and refined the 320
+# halves' neighbourhood in 204 s on an H100 80GB HBM3 at 700 W (PERF.md), so
+# the phase runs it on a spilled index over the corpus's first vectors at
+# the same partition size (mean 12,500 residencies), with fewer partitions.
+SPILL_MAINT_N, SPILL_MAINT_NLIST, SPILL_MAINT_NPROBE = 100_000, 16, 4
+# The kernels of the spilled fixed-nprobe path: K3 ranks the parents, K1
+# scans, and the dedup tail (a top-2k of the pool) takes K2's place.
+SPILL_KERNELS = ("grouped_scan", "flat_topk")
 F32_PEAK = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores (data sheet)
 TF32_PEAK = 495e12  # H100 SXM dense TF32 FLOP/s on the tensor cores (data sheet)
 BF16_PEAK = 989e12  # H100 SXM dense bf16 FLOP/s on the tensor cores (data sheet)
@@ -415,6 +471,16 @@ def time_ms(torch, fn, reps: int = 10, warmup: int = 2, queued: bool = True) -> 
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def timed(torch, fn):
+    """fn() on the host clock between two synchronizations of the card:
+    (its result, seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t0
 
 
 def overlap(a, b) -> float:
@@ -2572,7 +2638,8 @@ def check_contract_6(torch, store, when: str) -> float:
     """Compact prefix and norms on the card (ROADMAP Queue 3 contract 6):
     in every row the ids are >= 0 exactly below the size, the norms at valid
     slots equal the squared norms of the codes (rtol 1e-6), and the id map
-    counts every valid slot. Returns the worst relative norm error."""
+    (on a spilled store the two maps together) counts every valid slot.
+    Returns the worst relative norm error."""
     st = store.state
     below = torch.arange(store.C, device=st.ids.device)[None, :] < st.sizes[:, None]
     if not torch.equal(st.ids >= 0, below):
@@ -2581,8 +2648,9 @@ def check_contract_6(torch, store, when: str) -> float:
     err = float(((st.norms[below] - want).abs() / want.abs().clamp(min=1e-30)).max())
     if err > 1e-6:
         raise AssertionError(f"{when}: cached norms off the codes' by {err} (rtol 1e-6)")
-    if store.ntotal() != int(st.sizes.sum()):
-        raise AssertionError(f"{when}: the id map holds {store.ntotal()} ids, the sizes sum to "
+    held = store.ntotal() + (len(store.spill_map) if store.spill else 0)
+    if held != int(st.sizes.sum()):
+        raise AssertionError(f"{when}: the id maps hold {held} ids, the sizes sum to "
                              f"{int(st.sizes.sum())}")
     return err
 
@@ -2760,14 +2828,7 @@ def phase_index_mutation(torch, dev, idx, queries, nprobe, rng, first_id: int):
     out = dict(C_before=C0, nlist_before=nlist0, flood_partition=target, flood_vectors=n_flood,
                partition_size=size, split_cap=cap)
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = fn()
-        torch.cuda.synchronize()
-        return r, time.perf_counter() - t0
-
-    _, t = timed(lambda: idx.add(flood, flood_ids))
+    _, t = timed(torch, lambda: idx.add(flood, flood_ids))
     freed = target in store.free_rows
     if store.C != C0 or idx.nlist() <= nlist0:
         raise AssertionError(f"the flood was to split partition {target} with C={C0} held: C is "
@@ -2782,10 +2843,10 @@ def phase_index_mutation(torch, dev, idx, queries, nprobe, rng, first_id: int):
                norm_err=check_contract_6(torch, store, "after the flood through the index"))
     out["split"] = mutated_searches(torch, dev, idx, queries, nprobe, "split store")
 
-    _, t_rm = timed(lambda: idx.remove(flood_ids))
+    _, t_rm = timed(torch, lambda: idx.remove(flood_ids))
     fresh = make_manifold(MUTATION_FRESH, D, 4096, seed=MUTATION_FRESH_SEED)
     nlist1 = idx.nlist()
-    _, t_add = timed(lambda: idx.add(fresh, np.arange(2 * N, 2 * N + MUTATION_FRESH)))
+    _, t_add = timed(torch, lambda: idx.add(fresh, np.arange(2 * N, 2 * N + MUTATION_FRESH)))
     if store.C != C0 or not idx.validate() or idx.parent.ntotal() != idx.nlist():
         raise AssertionError(f"after the removal and the fresh add: C={store.C}, validate() "
                              f"{idx.validate()}")
@@ -2795,10 +2856,10 @@ def phase_index_mutation(torch, dev, idx, queries, nprobe, rng, first_id: int):
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "index")
-        _, t_save = timed(lambda: idx.save(path))
+        _, t_save = timed(torch, lambda: idx.save(path))
         nbytes = sum(os.path.getsize(os.path.join(d, f))
                      for d, _, files in os.walk(path) for f in files)
-        loaded, t_load = timed(lambda: QuakeIndex().load(path))
+        loaded, t_load = timed(torch, lambda: QuakeIndex().load(path))
     out.update(save_s=t_save, load_s=t_load, saved_bytes=nbytes)
     out["loaded"] = dict(index=same_store(torch, store, loaded.store, "the loaded index"),
                          parent=same_store(torch, idx.parent.store, loaded.parent.store,
@@ -2999,7 +3060,7 @@ def maint_search(torch, dev, idx, queries, skewed, gt_u, gt_s, nprobe) -> dict:
 
 
 def phase_maintenance(torch, dev, queries, nprobe):
-    """Cost-based maintenance at full width (phase 14 of the module's
+    """Cost-based maintenance at full width (phase 15 of the module's
     docstring): the build with the latency profile, the aged region and the
     skewed batch, round A (maintenance()) and round B (the mechanisms on
     named rows) with their gates, the searches before and after, K1-K3 on
@@ -3123,23 +3184,18 @@ def phase_maintenance(torch, dev, queries, nprobe):
         f"{json.dumps(a['gates'])}")
 
     # Round B: the mechanisms on named rows.
-    def timed(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        r = fn()
-        torch.cuda.synchronize()
-        return r, (time.perf_counter() - t) * 1e3
-
     present = [r for r in aged if store.generation[r] == gen_aged[r]]  # not freed in round A
     del_ms = 0.0
     if present:
-        del_ms = timed(lambda: policy._delete_partitions(present, reassign=True))[1]
+        _, del_s = timed(torch, lambda: policy._delete_partitions(present, reassign=True))
+        del_ms = del_s * 1e3
     sizes = store.partition_sizes()
     active = store.active_rows()
     split_rows = [int(r) for r in active[np.argsort(sizes[active], kind="stable")][-MAINT_HOT:]]
     split_sizes = [int(sizes[r]) for r in split_rows]
-    new_rows, split_ms = timed(lambda: idx.split_partitions(split_rows))
-    _, refine_ms = timed(lambda: policy.local_refinement(new_rows))
+    new_rows, split_s = timed(torch, lambda: idx.split_partitions(split_rows))
+    refine_ms = timed(torch, lambda: policy.local_refinement(new_rows))[1] * 1e3
+    split_ms = split_s * 1e3
     out["round_b"] = dict(deleted=present, delete_ms=del_ms, split_rows=split_rows,
                           split_sizes=split_sizes, new_rows=new_rows, split_ms=split_ms,
                           refine_ms=refine_ms,
@@ -3174,6 +3230,357 @@ def phase_maintenance(torch, dev, queries, nprobe):
         f"{after['recall_skewed']:.4f}; nlist {NLIST} -> {idx.nlist()}; maintained store "
         f"{gates_text(out['gates'])}; the latency grid round-trips through save and load; "
         f"phase {out['s']:.1f} s")
+    del idx
+    torch.cuda.empty_cache()
+    return out
+
+
+def spill_log(msg: str) -> None:
+    """A `[spill]` line on stderr, beside the card's name and power limit."""
+    log(f"[spill] ({card_line()}) {msg}")
+
+
+def spill_invariant(torch, idx, when: str) -> int:
+    """The spilled store's invariant on the card (tests/test_spill.py:
+    24-39): every resident id exactly twice, in two different partitions,
+    and the two id maps naming those partitions. Returns the ids checked."""
+    st, P = idx.store.state, idx.store.P
+    valid = st.ids >= 0
+    rows = torch.nonzero(valid)[:, 0]
+    key = torch.sort(st.ids[valid].long() * P + rows).values
+    ids_s, rows_s = key // P, key % P
+    n = idx.ntotal()
+    if key.numel() != 2 * n or not torch.equal(ids_s[0::2], ids_s[1::2]):
+        raise AssertionError(f"{when}: {key.numel()} residencies for {n} ids, or an id not twice")
+    if bool((rows_s[0::2] == rows_s[1::2]).any()):
+        raise AssertionError(f"{when}: an id's two copies share a partition")
+    if len(torch.unique(ids_s[0::2])) != n:
+        raise AssertionError(f"{when}: an id resident more than twice")
+    uid = ids_s[0::2].cpu().numpy()
+    maps = np.sort(np.stack([idx.store.id_map.get_batch(uid),
+                             idx.store.spill_map.get_batch(uid)], 1), 1)
+    if not (maps == torch.stack([rows_s[0::2], rows_s[1::2]], 1).cpu().numpy()).all():
+        raise AssertionError(f"{when}: the id maps do not name the copies' partitions")
+    return n
+
+
+def duplicate_rows(torch, ids) -> int:
+    """Rows of a result (a numpy or torch [B, k] id matrix) that hold an id
+    >= 0 twice."""
+    t = torch.as_tensor(ids)
+    s = torch.sort(t, dim=1).values
+    return int(((s[:, 1:] == s[:, :-1]) & (s[:, 1:] >= 0)).any(1).sum())
+
+
+def spill_gates(torch, idx, queries, sp, when: str) -> dict:
+    """After a mutation of the spilled index: validate(), the invariant,
+    contract 6 (both maps counted), one parent centroid a partition, and a
+    B=NQ_GT search with no id twice in a row."""
+    if not idx.validate() or idx.parent.ntotal() != idx.nlist():
+        raise AssertionError(f"{when}: the spilled index does not validate")
+    n = spill_invariant(torch, idx, when)
+    err = check_contract_6(torch, idx.store, when)
+    dups = duplicate_rows(torch, idx.search(queries[:NQ_GT], sp).ids)
+    if dups:
+        raise AssertionError(f"{when}: {dups} result rows hold an id twice")
+    return dict(ntotal=n, nlist=idx.nlist(), C=idx.store.C, norm_err=err)
+
+
+def checked_batch(torch, what: str, search):
+    """One spilled batch, search() (an idx._search_device_full call), with
+    the launches counted from 0 just before it and read just after, and
+    every K1, K2 and K3 call it made recorded and then held against its
+    plain version (check_recorded); the recorded kernels must be the ones
+    launched. Returns (launches, the result's ids, the checks' summary)."""
+    from quake_tpu_torch import _ext
+
+    res = []
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    calls = recorded_calls(lambda: res.append(search()))
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _ext.launches.items() if v}
+    checks = {}
+    check_recorded(torch, what, calls, checks)
+    if set(checks) != set(launches):
+        raise AssertionError(f"{what}: the recorded calls ({sorted(checks)}) are not the "
+                             f"kernels the batch launched ({launches})")
+    return launches, res[0][1], checks
+
+
+def spill_search(torch, dev, idx, f32_idx, queries, gt) -> dict:
+    """Fixed nprobe on the spilled index against the unspilled f32 one:
+    recall@10 of the NQ_GT queries at each nprobe of each index's grid, and
+    of the exact scan of the same probed partitions (the "reference" scan)
+    at SPILL_EXACT_NPROBES; the spilled index above the unspilled one at
+    SPILL_GATE_NPROBE and at its own 0.90 nprobe (v11), and at every
+    SPILL_EXACT_NPROBES (the exact scan); the smallest nprobe reaching each
+    SPILL_TARGETS recall (None where the grid holds none), B=BATCH batches
+    there (time_batch), QPS at equal recall; the spilled path's launches in
+    one batch (K1 and K3, no K2, nothing else), no id twice in a row, and
+    every K1 and K3 call of that counted batch held against its plain
+    version (checked_batch)."""
+    from quake_tpu_torch import SearchParams
+    from quake_tpu_torch.utils import compute_recall
+
+    q_gt = queries[:NQ_GT]
+    out = dict(recall={"spill": {}, "f32": {}}, exact={"spill": {}, "f32": {}}, nprobe={},
+               batches={})
+    for name, index, grid in (("spill", idx, SPILL_NPROBES), ("f32", f32_idx, UNSPILLED_NPROBES)):
+        for nprobe in grid:
+            ids = index.search(q_gt, SearchParams(k=K, nprobe=nprobe)).ids
+            if duplicate_rows(torch, ids):
+                raise AssertionError(f"{name} nprobe {nprobe}: a result row holds an id twice")
+            out["recall"][name][nprobe] = compute_recall(ids, gt, K)
+        os.environ["QUAKE_TPU_KERNEL"] = "reference"
+        try:
+            for nprobe in SPILL_EXACT_NPROBES:
+                ids = index.search(q_gt, SearchParams(k=K, nprobe=nprobe)).ids
+                if duplicate_rows(torch, ids):
+                    raise AssertionError(f"{name} exact scan, nprobe {nprobe}: an id twice")
+                out["exact"][name][nprobe] = compute_recall(ids, gt, K)
+        finally:
+            del os.environ["QUAKE_TPU_KERNEL"]
+    rs, rf = out["recall"]["spill"], out["recall"]["f32"]
+    es, ef = out["exact"]["spill"], out["exact"]["f32"]
+    spill_log(f"recall@10 by nprobe (v11): spilled {json.dumps(rs)}; unspilled "
+        f"{json.dumps(rf)}; the exact scan of the probed partitions: spilled {json.dumps(es)}, "
+        f"unspilled {json.dumps(ef)}")
+    for target in SPILL_TARGETS:
+        for name, rec in (("spill", rs), ("f32", rf)):
+            hit = [p for p in sorted(rec) if rec[p] >= target]
+            out["nprobe"][f"{name}@{target}"] = hit[0] if hit else None
+    n90 = out["nprobe"]["spill@0.9"]
+    if n90 is None:
+        raise AssertionError(f"the spilled index reaches recall {SPILL_TARGETS[0]} at no nprobe "
+                             f"of {SPILL_NPROBES}")
+    worse = [p for p in sorted({SPILL_GATE_NPROBE, n90}) if rs[p] <= rf[p]]
+    worse += [f"{p} (exact scan)" for p in SPILL_EXACT_NPROBES if es[p] <= ef[p]]
+    if worse:
+        raise AssertionError(f"spilled recall not above the unspilled one at nprobe {worse}")
+    qd = torch.from_numpy(queries[:BATCH]).to(dev)
+    for key, nprobe in out["nprobe"].items():
+        if nprobe is None:
+            spill_log(f"{key}: no nprobe of the grid reaches it (the best: "
+                f"{max((rs if key.startswith('spill') else rf).values()):.4f})")
+            continue
+        index = idx if key.startswith("spill") else f32_idx
+        sp = SearchParams(k=K, nprobe=nprobe)
+        r = dict(time_batch(torch, index, qd, sp, gt), nprobe=nprobe)
+        if index is idx:
+            r["launches"], ids32, r["kernel_checks"] = checked_batch(
+                torch, key, lambda: idx._search_device_full(qd, sp))
+            if set(r["launches"]) != set(SPILL_KERNELS) or any(
+                    v != 1 for v in r["launches"].values()):
+                raise AssertionError(f"the spilled batch must launch K1 and K3 once each and "
+                                     f"no K2: {r['launches']}")
+            dups = duplicate_rows(torch, ids32)
+            if dups:
+                raise AssertionError(f"spilled B={BATCH}: {dups} rows hold an id twice")
+        out["batches"][key] = r
+        spill_log(f"{key}: nprobe {nprobe}, B={BATCH}: {batch_text(r)}"
+            + (f", launches {r['launches']}; its K1 and K3 calls against their plain versions: "
+               f"{json.dumps(r['kernel_checks'])}" if "launches" in r else ""))
+    for target in SPILL_TARGETS:
+        s, f = out["batches"].get(f"spill@{target}"), out["batches"].get(f"f32@{target}")
+        if s is None or f is None:
+            continue
+        out[f"qps_ratio@{target}"] = s["qps"] / f["qps"]
+        spill_log(f"recall {target}: spilled {s['qps']:,.0f} QPS (nprobe {s['nprobe']}), "
+            f"unspilled {f['qps']:,.0f} QPS (nprobe {f['nprobe']}): ratio "
+            f"{out[f'qps_ratio@{target}']:.3f}")
+    return out
+
+
+def spill_small_and_aps(torch, dev, idx, queries, gt, nprobe) -> dict:
+    """The spilled index's other search paths: B=SPILL_SMALL_B query-major
+    (grouped_scan_xla with dedup: host clock, mean of 10) and APS in each
+    SPILL_APS_MODES at APS_TARGET (the scans at 2k, then dedup_topk):
+    recall@10 of the NQ_GT queries (APS_RECALL_GATES), B=APS_BATCH ms
+    (time_aps), launches of one batch and every K1, K2 and K3 call of it
+    held against its plain version (checked_batch); no id twice in any
+    row."""
+    from quake_tpu_torch import SearchParams, _ext
+    from quake_tpu_torch.utils import compute_recall
+
+    out = {}
+    sp = SearchParams(k=K, nprobe=nprobe)
+    qs = queries[:SPILL_SMALL_B]
+    idx.search(qs, sp)
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    ts = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        res = idx.search(qs, sp)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    if duplicate_rows(torch, res.ids) or (res.ids < 0).any():
+        raise AssertionError(f"spilled B={SPILL_SMALL_B}: an id twice or missing in a row")
+    out[f"B{SPILL_SMALL_B}"] = dict(ms=float(np.mean(ts)), ms_min=float(np.min(ts)),
+                                    launches={k: v // 10 for k, v in _ext.launches.items() if v})
+    spill_log(f"B={SPILL_SMALL_B} query-major (grouped_scan_xla with dedup), nprobe {nprobe}: "
+        f"{out[f'B{SPILL_SMALL_B}']['ms']:.3f} ms a search (host clock, mean of 10; min "
+        f"{out[f'B{SPILL_SMALL_B}']['ms_min']:.3f}), launches a search "
+        f"{out[f'B{SPILL_SMALL_B}']['launches']}")
+    qa = torch.from_numpy(queries[:APS_BATCH]).to(dev)
+    for mode in SPILL_APS_MODES:
+        spa = SearchParams(k=K, recall_target=APS_TARGET, aps_mode=mode)
+        ids = idx.search(queries[:NQ_GT], spa).ids
+        if duplicate_rows(torch, ids):
+            raise AssertionError(f"spilled APS {mode}: a result row holds an id twice")
+        recall = compute_recall(ids, gt, K)
+        launches, ids32, checks = checked_batch(
+            torch, f"APS {mode}", lambda: idx._search_device_full(qa, spa))
+        if duplicate_rows(torch, ids32) or "grouped_scan" not in launches:
+            raise AssertionError(f"spilled APS {mode}: an id twice, or no K1: {launches}")
+        r = dict(time_aps(torch, idx, qa, spa, loop=mode == "loop"), recall=recall,
+                 launches=launches, kernel_checks=checks)
+        out[mode] = r
+        spill_log(f"APS {mode} at target {APS_TARGET}: recall@10 {recall:.4f}, B={APS_BATCH} "
+            f"{r['ms']:.3f} ms/batch, mean scanned {r['scanned']:.2f}, steps {r['steps']}, "
+            f"syncs {r['syncs']}, launches {launches}; its K1, K2 and K3 calls against their "
+            f"plain versions: {json.dumps(checks)}")
+        if recall < APS_RECALL_GATES[mode]:
+            raise AssertionError(f"spilled APS {mode}: recall@10 {recall} below "
+                                 f"{APS_RECALL_GATES[mode]}")
+    return out
+
+
+def phase_spill(torch, dev, x, queries, gt, f32_idx) -> dict:
+    """SOAR spill at full width (phase 13 of the module's docstring): the
+    main corpus built with spill=True, searched at fixed nprobe against the
+    unspilled f32 index, query-major and with APS, mutated, saved and
+    loaded, and maintained; the spilled invariant after every step."""
+    from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams
+    from quake_tpu_torch import index as tindex
+
+    soar_s = []
+    real_soar = tindex.soar_assign
+
+    def timed_soar(*a, **kw):  # the build's own call, timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = real_soar(*a, **kw)
+        soar_s.append(time.perf_counter() - t0)
+        return r
+
+    tindex.soar_assign = timed_soar
+    try:
+        t0 = time.perf_counter()
+        idx = QuakeIndex(device=dev)
+        bt = idx.build(x, np.arange(N, dtype=np.int64),
+                       IndexBuildParams(nlist=NLIST, metric="l2", niter=NITER,
+                                        calibrate_aps=False, spill=True,
+                                        soar_lambda=SPILL_LAMBDA))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    finally:
+        tindex.soar_assign = real_soar
+    st = idx.store.state
+    out = dict(build_s=build_s, soar_s=sum(soar_s), train_s=bt.train_time_us / 1e6,
+               assign_s=bt.assign_time_us / 1e6, P=idx.store.P, C=idx.store.C, nlist=idx.nlist(),
+               store_bytes=sum(t.numel() * t.element_size()
+                               for t in (st.codes, st.ids, st.norms, st.sizes)),
+               residencies=int(st.sizes.sum()))
+    if out["residencies"] != 2 * N or not idx.validate():
+        raise AssertionError(f"the spilled build holds {out['residencies']} residencies for {N} "
+                             f"vectors, or does not validate")
+    spill_invariant(torch, idx, "after the build")
+    sizes = idx.store.partition_sizes()[idx.store.active_rows()]
+    spill_log(f"build {build_s:.2f} s (k-means {out['train_s']:.2f} s, soar_assign "
+        f"{out['soar_s']:.3f} s, store {out['assign_s']:.2f} s): nlist={out['nlist']} "
+        f"P={out['P']} C={out['C']} (partition sizes {int(sizes.min())}-{int(sizes.max())}, mean "
+        f"{sizes.mean():.0f}), store {out['store_bytes'] / 1e9:.3f} GB, {out['residencies']} "
+        f"residencies, validate() and the invariant hold")
+
+    out["fixed"] = spill_search(torch, dev, idx, f32_idx, queries, gt)
+    n90 = out["fixed"]["nprobe"]["spill@0.9"]
+    out.update(spill_small_and_aps(torch, dev, idx, queries, gt, n90))
+    sp = SearchParams(k=K, nprobe=n90)
+
+    rng = np.random.default_rng(SPILL_SEED)
+    fresh = make_manifold(SPILL_ADD, D, 4096, seed=SPILL_SEED)
+    nlist0 = idx.nlist()
+    _, t = timed(torch, lambda: idx.add(fresh, np.arange(3 * N, 3 * N + SPILL_ADD)))
+    out["add"] = dict(spill_gates(torch, idx, queries, sp, "after the add"), s=t,
+                      per_s=SPILL_ADD / t, splits=idx.nlist() - nlist0)
+    gone = rng.choice(idx.get_ids(), SPILL_REMOVE, replace=False)
+    _, t = timed(torch, lambda: idx.remove(gone))
+    out["remove"] = dict(spill_gates(torch, idx, queries, sp, "after the remove"), s=t,
+                         per_s=SPILL_REMOVE / t)
+    moved = rng.choice(idx.get_ids(), SPILL_MODIFY, replace=False)
+    new = make_manifold(SPILL_MODIFY, D, 4096, seed=SPILL_SEED + 1)
+    _, t = timed(torch, lambda: idx.modify(moved, new))
+    if not np.array_equal(idx.get(moved), new):
+        raise AssertionError("the modified vectors do not read back")
+    out["modify"] = dict(spill_gates(torch, idx, queries, sp, "after the modify"), s=t,
+                         per_s=SPILL_MODIFY / t)
+    for step in ("add", "remove", "modify"):
+        r = out[step]
+        spill_log(f"{step}: {r['s']:.3f} s, {r['per_s']:,.0f} vectors/s; ntotal {r['ntotal']}, "
+            f"nlist {r['nlist']}, C {r['C']}; gates hold")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "spilled")
+        _, t_save = timed(torch, lambda: idx.save(path))
+        nbytes = dir_bytes(path)
+        loaded, t_load = timed(torch, lambda: QuakeIndex().load(path))
+    same = same_store(torch, idx.store, loaded.store, "the loaded spilled index")
+    spill_invariant(torch, loaded, "after the load")
+    if not np.array_equal(loaded.search(queries[:NQ_GT], sp).ids,
+                          idx.search(queries[:NQ_GT], sp).ids):
+        raise AssertionError("the loaded spilled index returns other ids")
+    out["save_load"] = dict(save_s=t_save, load_s=t_load, bytes=nbytes, **same)
+    spill_log(f"save {t_save:.2f} s, load {t_load:.2f} s, {nbytes / 1e9:.3f} GB; arrays, "
+        f"invariant and search ids equal after the load")
+    del loaded
+    torch.cuda.empty_cache()
+
+    del idx
+    torch.cuda.empty_cache()
+    out.update(spill_maintenance(torch, dev, x, queries))
+    return out
+
+
+def spill_maintenance(torch, dev, x, queries) -> dict:
+    """Maintenance of a spilled index at a cut depth (SPILL_MAINT_N vectors,
+    nlist SPILL_MAINT_NLIST): one maintenance() after an NQ_GT-query window
+    (its stage ms, splits, deletes), then the SPILL_DELETE smallest
+    partitions deleted with reassignment (each copy re-homed away from its
+    twin's partition), spill_gates after each."""
+    from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams
+
+    idx = QuakeIndex(device=dev)
+    idx.build(x[:SPILL_MAINT_N], np.arange(SPILL_MAINT_N, dtype=np.int64),
+              IndexBuildParams(nlist=SPILL_MAINT_NLIST, metric="l2", niter=NITER,
+                               calibrate_aps=False, spill=True, soar_lambda=SPILL_LAMBDA))
+    sp = SearchParams(k=K, nprobe=SPILL_MAINT_NPROBE)
+    policy = idx.maintenance_policy
+    idx.search(queries[:NQ_GT], sp)  # fills the 1000-query window
+    nlist0, C0 = idx.nlist(), idx.store.C
+    info, t = timed(torch, idx.maintenance)
+    out = {}
+    out["maintenance"] = dict(spill_gates(torch, idx, queries, sp, "after maintenance()"), s=t,
+                              n=SPILL_MAINT_N, nlist_before=nlist0, C_before=C0,
+                              splits=info.n_splits, deletes=info.n_deletes,
+                              candidates=policy.rejection_candidates,
+                              delete_ms=info.delete_time_us / 1e3,
+                              split_ms=info.split_time_us / 1e3,
+                              refine_ms=info.split_refine_time_us / 1e3,
+                              total_ms=info.total_time_us / 1e3)
+    act = idx.store.active_rows()
+    rows = [int(r) for r in act[np.argsort(idx.store.partition_sizes()[act],
+                                           kind="stable")[:SPILL_DELETE]]]
+    _, t = timed(torch, lambda: policy._delete_partitions(rows, reassign=True))
+    out["delete"] = dict(spill_gates(torch, idx, queries, sp, "after the named delete"),
+                         rows=rows, ms=t * 1e3)
+    m = out["maintenance"]
+    spill_log(f"maintenance() on {SPILL_MAINT_N} x {D} spilled (nlist {nlist0}, C {C0}) after "
+        f"a {NQ_GT}-query window at nprobe {SPILL_MAINT_NPROBE}: {m['splits']} splits, "
+        f"{m['deletes']} deletes, {m['candidates']} candidates simulated; ms delete "
+        f"{m['delete_ms']:.2f}, split {m['split_ms']:.2f}, refine {m['refine_ms']:.2f}, total "
+        f"{m['total_ms']:.2f}; nlist {m['nlist']}, C {m['C']}; delete of the {SPILL_DELETE} "
+        f"smallest partitions {rows}: {out['delete']['ms']:.2f} ms; gates hold")
     del idx
     torch.cuda.empty_cache()
     return out
@@ -3233,7 +3640,10 @@ def main() -> int:
     k1_build[0].cleanup()
     aps, k1_budget = phase_aps(torch, dev, x, queries, gt, bf16_idx)
     kernels.extend(k1_budget)
-    del x, bf16_idx
+    del bf16_idx
+    torch.cuda.empty_cache()
+    spill = phase_spill(torch, dev, x, queries, gt, idx)
+    del x
     torch.cuda.empty_cache()
     mutation = phase_mutation(torch, dev, idx, queries, main_out["nprobe"],
                               {"default": main_out[f"B{BATCH}"]["ms"],
@@ -3244,7 +3654,8 @@ def main() -> int:
     maintenance = phase_maintenance(torch, dev, queries, main_out["nprobe"])
     log("[summary] " + json.dumps(dict(main_out, by_name=by_name, direct=direct,
                                        latency=latency, wide=wide, headline_bf16=headline,
-                                       aps=aps, mutation=mutation, maintenance=maintenance)))
+                                       aps=aps, spill=spill, mutation=mutation,
+                                       maintenance=maintenance)))
 
     if len(kernels) != len(ENTRIES):
         raise AssertionError(f"the kernels line needs {len(ENTRIES)} entries, got {len(kernels)}")

@@ -20,6 +20,12 @@ A bf16 array arrives as the JAX package hands it over (numpy's view of a
 view its checkpoints hold; either is read through its 16 bits, so this
 module needs no bf16 type of numpy's.
 
+A SOAR-spilled store (every vector in two partitions) needs its two id maps,
+because which copy is primary is not in the arrays: the mapping carries them
+as `id_map` and `spill_map`, each a (keys, rows) pair (the JAX store's
+`id_map.items()` and `spill_map.items()`). `index_from_numpy` marks the
+index spilled where the store is, with the given `soar_lambda`.
+
 Maintenance adds no field here: an IVF index made here gets a fresh policy
 with an empty hit window and the analytic latency model, as a load does
 without latency_profile.csv. A latency grid crosses between the packages
@@ -36,10 +42,12 @@ import torch
 from quake_tpu_torch.index import QuakeIndex
 from quake_tpu_torch.ops.grouped import BF16_OPERANDS
 from quake_tpu_torch.params import IndexBuildParams, MaintenancePolicyParams, check_metric
+from quake_tpu_torch.storage.idmap import make_id_map
 from quake_tpu_torch.storage.store import PartitionStore, StoreState
 
 FIELDS = ("codes", "ids", "sizes", "centroids", "active", "norms")
 BOOKKEEPING = ("free_rows", "generation", "cap_multiple")
+MAPS = ("id_map", "spill_map")  # (keys, rows) pairs; a spilled store needs both
 _DTYPES = dict(ids=np.int32, sizes=np.int32, centroids=np.float32, active=np.bool_,
                norms=np.float32)
 
@@ -66,25 +74,38 @@ def store_from_numpy(arrays: Mapping[str, np.ndarray], device) -> PartitionStore
             or tuple(t["centroids"].shape) != (P, D)):
         raise ValueError("store arrays disagree on P, C or D")
     store = PartitionStore(D, device, dtype=t["codes"].dtype)
+    spill = arrays.get("spill_map") is not None
+    if spill and arrays.get("id_map") is None:
+        raise ValueError("a spilled store needs its id_map beside its spill_map")
     store.init_from_state(StoreState(**{f: v.to(store.device) for f, v in t.items()}),
-                          **{f: arrays.get(f) for f in BOOKKEEPING})
+                          spill=spill, **{f: arrays.get(f) for f in BOOKKEEPING})
     if len(store.generation) != P:
         raise ValueError(f"generation has {len(store.generation)} rows, the store {P}")
+    for name in MAPS:
+        if arrays.get(name) is not None:
+            keys, rows = (np.asarray(a) for a in arrays[name])
+            id_map = make_id_map(len(keys))
+            id_map.set_batch(keys.astype(np.int64), rows.astype(np.int32))
+            setattr(store, name, id_map)
     return store
 
 
 def index_from_numpy(state: Mapping[str, np.ndarray],
                      parent_state: Optional[Mapping[str, np.ndarray]], metric: str = "l2",
-                     device=None, build_params: Optional[IndexBuildParams] = None) -> QuakeIndex:
-    """A QuakeIndex over the given store arrays (and bookkeeping, see the
-    module's docstring): two levels (index and flat parent), or a flat index
-    when parent_state is None. device=None means CUDA, as for QuakeIndex.
-    build_params, where given, carries the source index's parameters (its
-    mutation_buffer_size, for one)."""
+                     device=None, build_params: Optional[IndexBuildParams] = None,
+                     soar_lambda: float = 1.0) -> QuakeIndex:
+    """A QuakeIndex over the given store arrays (and bookkeeping and maps,
+    see the module's docstring): two levels (index and flat parent), or a
+    flat index when parent_state is None. device=None means CUDA, as for
+    QuakeIndex. build_params, where given, carries the source index's
+    parameters (its mutation_buffer_size, for one); soar_lambda is a spilled
+    index's SOAR weight (what its adds assign with)."""
     index = QuakeIndex(device=device)
     index.metric = check_metric(metric)
     index.build_params = build_params
     index.store = store_from_numpy(state, index.device)
+    index.spill = index.store.spill
+    index.soar_lambda = float(soar_lambda)
     if parent_state is not None:
         parent = store_from_numpy(parent_state, index.device)
         if parent.dtype == torch.bfloat16:

@@ -27,7 +27,7 @@ from quake_tpu_torch.ops.grouped_family import (grouped_scan_v3p, grouped_scan_v
                                                 grouped_scan_v7, grouped_scan_v8)
 from quake_tpu_torch.ops.grouped_scan import (FOLD, budget_sort_key_fits, grouped_scan_v10,
                                               grouped_scan_v10b, grouped_scan_v11, sort_key_fits)
-from quake_tpu_torch.ops.scan import (NEG_INF, flat_scan, ivf_scan, merge_topk,
+from quake_tpu_torch.ops.scan import (NEG_INF, dedup_topk, flat_scan, ivf_scan, merge_topk,
                                       scores_to_distances, topk_from_scores)
 
 
@@ -151,8 +151,10 @@ def grouped_scan(codes, ids, sizes, norms, q, pids, k: int, metric: str,
     QUAKE_TPU_V11_OVERFLOW=v10; QUAKE_TPU_V11_PLACEMENT=argsort forces
     argsort where the key fits (both read at each call, as in the JAX
     package). Folds other than 128 (with C % fold == 0) raise
-    NotImplementedError; dedup on v2/v3/v3p raises the JAX package's
-    ValueError, and on every other name NotImplementedError. exact=False
+    NotImplementedError. dedup (a spilled store: each vector in two
+    partitions, no id twice in a result row) reaches every scan's tail as
+    in the JAX package (v10/v11 take the general pool tail, without kernel
+    K2); v2, v3 and v3p raise the JAX package's ValueError. exact=False
     (dequantized scores) reaches v10 and v11 only; every other name rescores
     exactly, as in the JAX package. bf16 codes run on v8-v11 (K1's bf16
     body), "xla" and "reference"; the names whose kernels have no bf16 body
@@ -163,6 +165,9 @@ def grouped_scan(codes, ids, sizes, norms, q, pids, k: int, metric: str,
     the scatter one. The caller guarantees at most pair_budget valid pids;
     every other name ignores the budget, as in the JAX package."""
     if kernel == "reference":
+        if dedup:
+            scores, out_ids, scanned = reference_scan(codes, ids, norms, q, pids, 2 * k, metric)
+            return (*dedup_topk(scores, out_ids, k), scanned)
         return reference_scan(codes, ids, norms, q, pids, k, metric)
     if kernel[:2] in ("v4", "v5", "v6"):
         fn, gpb = {"v4": (grouped_scan_v4, 8), "v5": (grouped_scan_v5, 4),
@@ -234,11 +239,13 @@ def grouped_scan(codes, ids, sizes, norms, q, pids, k: int, metric: str,
 def fused_ivf_search(codes, ids, sizes, norms, parent_codes, parent_ids, q,
                      k: int, nprobe: int, metric: str, qt: int,
                      kernel: str = "v11g4", parent_norms=None, group_chunk: int = 64,
-                     parent_kernel: str = "approx", exact: bool = True, stages=None):
+                     parent_kernel: str = "approx", exact: bool = True, stages=None,
+                     dedup: bool = False):
     """End-to-end fixed-nprobe search: parent centroid ranking -> grouped
     scan -> top-k merge -> distance conversion. exact=False: dequantized
-    scores on v10 and v11 (see grouped_scan). All launches go to the
-    current stream; nothing synchronises.
+    scores on v10 and v11; dedup: the spilled store's tail (see
+    grouped_scan). All launches go to the current stream; nothing
+    synchronises.
 
     Returns (scores, ids32, distances, scanned, pids)."""
     if stages is not None:
@@ -253,8 +260,8 @@ def fused_ivf_search(codes, ids, sizes, norms, parent_codes, parent_ids, q,
     if stages is not None:
         stages.mark("parent")
     scores, ids32, scanned = grouped_scan(codes, ids, sizes, norms, q, pids, k,
-                                          metric, qt, group_chunk, kernel, dense=True,
-                                          exact=exact, stages=stages)
+                                          metric, qt, group_chunk, kernel, dedup=dedup,
+                                          dense=True, exact=exact, stages=stages)
     dists = scores_to_distances(scores, ids32, metric)
     if stages is not None:
         stages.mark("distances")

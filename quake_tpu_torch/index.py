@@ -2,7 +2,8 @@
 batched fixed-nprobe and the recall-target (APS) searches; add, remove,
 modify, get and validate with split-on-overflow; cost-based maintenance (the
 hit window fed by every search, the latency grid, splits, deletes and
-refinement); save and load (those parts of quake_tpu/index.py).
+refinement); save and load; each of them on a SOAR-spilled index too (those
+parts of quake_tpu/index.py).
 
 A recursive two-level IVF structure, as in the reference orchestrator
 (src/cpp/include/quake_index.h:18-142, src/cpp/src/quake_index.cpp:29-288):
@@ -29,16 +30,15 @@ import torch
 from quake_tpu_torch import coordinator
 from quake_tpu_torch.geometry import beta_table, effective_dimension
 from quake_tpu_torch.kmeans import (balance_clusters, batched_two_means, kmeans_fit_assign,
-                                     kmeans_np)
+                                     kmeans_np, soar_assign)
 from quake_tpu_torch.maintenance.latency_estimator import ListScanLatencyEstimator
 from quake_tpu_torch.maintenance.policy import MaintenancePolicy, maint_on_host
 from quake_tpu_torch.ops.grouped import BF16_OPERANDS, grouped_scan_xla
 from quake_tpu_torch.ops.grouped_scan import QTS, grouped_scan_uses_mma
-from quake_tpu_torch.ops.scan import scores_to_distances
+from quake_tpu_torch.ops.scan import dedup_topk, scores_to_distances
 from quake_tpu_torch.params import (DEFAULT_INITIAL_SEARCH_FRACTION, IndexBuildParams,
                                      MaintenancePolicyParams, SearchParams, check_metric)
-from quake_tpu_torch.storage.store import (SPILL_NOT_PORTED, PartitionStore, StoreState, _bucket,
-                                           _sumsq)
+from quake_tpu_torch.storage.store import PartitionStore, StoreState, _bucket, _sumsq
 from quake_tpu_torch.timing import (BuildTimingInfo, MaintenanceTimingInfo, ModifyTimingInfo,
                                     SearchResult, SearchTimingInfo)
 from quake_tpu_torch.utils import compute_recall, next_pow2, to_f32, to_i64
@@ -48,7 +48,6 @@ MIN_BATCH = 16  # smaller batches take the query-major path
 SERIALIZATION_VERSION = 1  # the JAX package's save format (quake_tpu/index.py:47)
 
 # ROADMAP Queue 1 items that lift the NotImplementedError guards below.
-SPILL = "ROADMAP Queue 1 item 6: spill and dedup"
 MULTI_LEVEL = "ROADMAP Queue 1 item 10: multi-level parents and bounds=\"sampled\""
 PARALLEL = "ROADMAP Queue 1 item 11: parallel"
 
@@ -130,7 +129,7 @@ class QuakeIndex:
         self.aps_dimension = 0  # effective dimension for the APS recall model
         for name, default in APS_FIELDS.items():
             setattr(self, name, default)
-        self.spill = False  # a spilled index is refused (SPILL_NOT_PORTED)
+        self.spill = False  # SOAR spill (IndexBuildParams.spill): every vector stored twice
         self.soar_lambda = 1.0
         self.maintenance_policy: Optional[MaintenancePolicy] = None  # IVF only
         self.latency_profile: Optional[ListScanLatencyEstimator] = None  # else analytic
@@ -155,8 +154,6 @@ class QuakeIndex:
                              f"{bp.precision!r}")
         if bp.nlist > 1 and bp.parent_params is not None and bp.parent_params.precision == "bf16":
             raise _not_ported("a bf16 parent (kernel K3 has no bf16 body)", BF16_OPERANDS)
-        if bp.spill:
-            raise _not_ported("spill=True", SPILL)
         if bp.num_shards > 1 or self._would_shard(bp.num_workers):
             raise _not_ported("sharding (num_shards > 1, or num_workers > 1 with as many "
                               "CUDA devices)", PARALLEL)
@@ -201,7 +198,16 @@ class QuakeIndex:
             timing.n_clusters = nlist_final
 
             t_assign = _now_us()
-            self.store.init_from_assignments(x, ids, centroids_np, assigns_np)
+            spill_np = None
+            if bp.spill:
+                # SOAR: a second partition per vector against the final
+                # (balanced) centroids, the balanced primary kept.
+                self.spill = True
+                self.soar_lambda = float(bp.soar_lambda)
+                _, spill_np = soar_assign(x, centroids_np, self.soar_lambda, primary=assigns_np,
+                                          device=self.device)
+            self.store.init_from_assignments(x, ids, centroids_np, assigns_np,
+                                             spill_assignments=spill_np)
             timing.assign_time_us = _now_us() - t_assign
 
             # Recursive flat parent over the centroids (quake_index.cpp:57-61).
@@ -214,7 +220,9 @@ class QuakeIndex:
             if bp.spill:
                 raise ValueError("spill requires an IVF index (nlist > 1)")
             self.store.init_single_partition(x, ids)
-        if bp.nlist > 1 and bp.calibrate_aps and n >= 10_000:
+        # A spilled store skips calibration, as in the JAX package: its flat
+        # ground truth would hold each id twice.
+        if bp.nlist > 1 and bp.calibrate_aps and n >= 10_000 and not bp.spill:
             self.calibrate_aps()
         if bp.profile_maintenance_latency:
             self.profile_latency()
@@ -305,8 +313,9 @@ class QuakeIndex:
         """Search of a [B, D] f32 tensor on the index's device; returns
         (scores, ids32, timing, distances) as device tensors, with the
         launches enqueued and not waited for. Batches of at least 16 queries
-        take the fused partition-major path unless batched_scan is False; a
-        flat index scans every slot; the rest goes query by query through
+        take the fused partition-major path unless batched_scan is False (a
+        spilled index takes it whatever batched_scan says, with the dedup
+        tail); a flat index scans every slot; the rest goes through
         _search_device. exact_distances=False dequantizes the scores of the
         fused path's and the APS scans' v10/v11; the flat and query-major
         searches, and every other scan, stay exact, as in the JAX package.
@@ -330,7 +339,7 @@ class QuakeIndex:
                                                                  self.metric)
             timing.partitions_scanned = self.nlist()
             return scores, ids32, timing, dists
-        if use_aps or B < MIN_BATCH or sp.batched_scan is False:
+        if use_aps or B < MIN_BATCH or (sp.batched_scan is False and not self.spill):
             scores, ids32, timing = self._search_device(q, sp)
             return scores, ids32, timing, scores_to_distances(scores, ids32, self.metric)
         timing = SearchTimingInfo(n_queries=B, n_clusters=self.nlist(), search_params=sp)
@@ -343,7 +352,7 @@ class QuakeIndex:
             pstate.codes, pstate.ids, q, k=k, nprobe=parent_k, metric=self.metric,
             qt=qt, kernel=self._grouped_kernel(), parent_norms=pstate.norms,
             group_chunk=group_chunk, parent_kernel=self._parent_kernel(),
-            exact=bool(sp.exact_distances), stages=stages)
+            exact=bool(sp.exact_distances), stages=stages, dedup=self.spill)
         timing.partitions_scanned = parent_k
         timing.parent_info = SearchTimingInfo(
             n_queries=B, n_clusters=self.parent.nlist(),
@@ -394,9 +403,10 @@ class QuakeIndex:
         exact. An IVF index ranks candidates through its parent, padded to a
         power of two of at least the nprobe bucket and trimmed back, then
         scans partition-major in tensor operations (batched_scan true, or
-        unset with at least 16 queries) or query-major; with a recall
-        target, it runs an APS strategy over the candidates (_aps_search;
-        the oneshot one ranks the parents itself)."""
+        unset with at least 16 queries; a spilled index always, for the
+        dedup merge) or query-major; with a recall target, it runs an APS
+        strategy over the candidates (_aps_search; the oneshot one ranks
+        the parents itself, except on a spilled index)."""
         B = int(q.shape[0])
         timing = SearchTimingInfo(n_queries=B, n_clusters=self.nlist(), search_params=sp)
         k = max(int(sp.k), 1)
@@ -424,7 +434,7 @@ class QuakeIndex:
                                  use_precomputed=sp.use_precomputed,
                                  recompute_threshold=sp.recompute_threshold,
                                  initial_search_fraction=sp.initial_search_fraction)
-        if use_aps and aps_mode == "oneshot":
+        if use_aps and aps_mode == "oneshot" and not self.spill:
             # Fused oneshot: the parent ranking runs inside the oneshot call.
             timing.parent_info = SearchTimingInfo(
                 n_queries=B, n_clusters=self.parent.nlist(),
@@ -437,11 +447,11 @@ class QuakeIndex:
         pids = p_ids32[:, :parent_k]  # trim the padding back to the candidate count
         if use_aps:
             return (*self._aps_search(q, sp, timing, aps_mode, parent_k, pids), timing)
-        if sp.batched_scan or (sp.batched_scan is None and B >= MIN_BATCH):
+        if sp.batched_scan or self.spill or (sp.batched_scan is None and B >= MIN_BATCH):
             qt, group_chunk = self._grouped_params(B, parent_k)
             scores, ids32, scanned = grouped_scan_xla(state.codes, state.ids, q, pids, k,
                                                       self.metric, qt=qt,
-                                                      group_chunk=group_chunk)
+                                                      group_chunk=group_chunk, dedup=self.spill)
         else:
             scores, ids32, scanned = coordinator.ivf_search(state.codes, state.ids, q, pids, k,
                                                             self.metric)
@@ -484,13 +494,17 @@ class QuakeIndex:
 
     def _aps_search(self, q, sp: SearchParams, timing, mode: str, parent_k: int, pids):
         """The APS half of quake_tpu/index.py::_search_device (:1245-1413,
-        one device): oneshot (its parents ranked inside, pids None),
+        one device): oneshot (its parents ranked inside where pids is None),
         planned or the loop, with the calibrated dimension, gamma, radius
-        model and budget. `scanned` stays on the device as
-        timing._scanned_dev (search() reads it after its wait); the loop's
-        steps and syncs go to timing. Returns (scores, ids32)."""
+        model and budget. A spilled index scans at 2k and keeps each id's
+        best entry after (dedup_topk): a merge can carry both copies of a
+        neighbour, and the 2k-th distance keeps the recall model
+        conservative. `scanned` stays on the device as timing._scanned_dev
+        (search() reads it after its wait); the loop's steps and syncs go to
+        timing. Returns (scores, ids32)."""
         B = int(q.shape[0])
-        k = max(int(sp.k), 1)
+        k_out = max(int(sp.k), 1)
+        k = 2 * k_out if self.spill else k_out
         state = self.store.state
         t_b = _now_ns()
         table = (beta_table(self.aps_dimension or self.d(), "l2", self.device)
@@ -508,7 +522,7 @@ class QuakeIndex:
         plans = dict(plan_margin=int(sp.aps_plan_margin), width_clip=int(self.aps_width_clip),
                      budget_w=int(self.aps_budget_w))
         target = float(sp.recall_target)
-        if mode == "oneshot":
+        if mode == "oneshot" and pids is None:
             ra, rb = self._radius_coef(k)
             pstate = self.parent.store.state
             scores, ids32, scanned, pids = coordinator.aps_search_oneshot_fused(
@@ -516,6 +530,13 @@ class QuakeIndex:
                 pstate.norms, q, target, parent_k=int(parent_k),
                 mcap=int(self.aps_oneshot_mcap or 0), radius_a=ra, radius_b=rb,
                 parent_kernel=self._parent_kernel(), **common, **plans)
+        elif mode == "oneshot":
+            ra, rb = self._radius_coef(k)
+            mcap = int(self.aps_oneshot_mcap or 0)
+            scores, ids32, scanned = coordinator.aps_search_oneshot(
+                state.codes, state.ids, state.centroids, q,
+                pids[:, :mcap] if mcap and pids.shape[1] > mcap else pids, target,
+                radius_a=ra, radius_b=rb, **common, **plans)
         elif mode == "planned":
             chunk0 = (int(sp.aps_chunk_size) if sp.aps_chunk_size > 0
                       else self._planned_chunk0(parent_k))
@@ -529,6 +550,8 @@ class QuakeIndex:
                 float(sp.recompute_threshold), chunk=chunk, stats=stats, **common)
             timing.aps_loop_steps = stats["steps"]
             timing.aps_loop_syncs = stats["syncs"]
+        if self.spill:
+            scores, ids32 = dedup_topk(scores, ids32, k_out)
         # Kept on the device: reading the mean here would wait for the search.
         timing._scanned_dev = scanned
         self._record_hits(pids, scanned)
@@ -743,13 +766,18 @@ class QuakeIndex:
         # Dense-prefix width: the smallest ranked prefix whose membership
         # recall meets the goal, and whose one-sided 95% lower confidence
         # bound on the per-query mean meets the target.
+        # A ground-truth id is found through either copy on a spilled store.
         gt64 = np.asarray(gt, np.int64)
         nq_v, kk = gt64.shape
-        owner = self.store.id_map.get_batch(gt64.ravel()).astype(np.int64).reshape(nq_v, kk)
         pids_np = pids.cpu().numpy().astype(np.int64)
         Wc = pids_np.shape[1]
-        match = (owner[:, :, None] == pids_np[:, None, :]) & (owner[:, :, None] >= 0)
-        first = np.where(match.any(-1), match.argmax(-1), Wc)
+        first = np.full((nq_v, kk), Wc, np.int64)
+        for id_map in (self.store.id_map, self.store.spill_map):
+            if id_map is None or not len(id_map):
+                continue
+            owner = id_map.get_batch(gt64.ravel()).astype(np.int64).reshape(nq_v, kk)
+            match = (owner[:, :, None] == pids_np[:, None, :]) & (owner[:, :, None] >= 0)
+            first = np.minimum(first, np.where(match.any(-1), match.argmax(-1), Wc))
         z95 = 1.645
         for w in range(1, Wc + 1):
             per_q = (first < w).mean(axis=1)
@@ -880,8 +908,6 @@ class QuakeIndex:
         timing.n_vectors = x.shape[0]
         self._validate_new_ids(ids)
         timing.input_validation_time_us = _now_us() - t0
-        if self.spill:
-            raise NotImplementedError(SPILL_NOT_PORTED)
 
         buf = self.build_params.mutation_buffer_size if self.build_params else 0
         if buf > 0 and self.parent is not None:
@@ -895,6 +921,13 @@ class QuakeIndex:
             return timing
 
         t1 = _now_us()
+        if self.parent is not None and self.spill:
+            rows, srows = self._assign_rows_spill(x)
+            timing.find_partition_time_us = _now_us() - t1
+            t2 = _now_us()
+            self._append_spilled(rows, srows, x, ids)
+            timing.modify_time_us = _now_us() - t2
+            return timing
         if self.parent is not None:
             rows = self._ensure_room_by_splitting(self._assign_rows(x), x, ids)
         else:
@@ -909,13 +942,14 @@ class QuakeIndex:
         """Insert all buffered vectors with one assignment and one append."""
         if not self._pending_vids:
             return
-        if self.spill:
-            raise NotImplementedError(SPILL_NOT_PORTED)
         x = np.concatenate(self._pending_x)
         ids = np.concatenate(self._pending_vids)
         self._pending_x.clear()
         self._pending_vids.clear()
         self._pending_idset.clear()
+        if self.spill:
+            self._append_spilled(*self._assign_rows_spill(x), x, ids)
+            return
         rows = self._ensure_room_by_splitting(self._assign_rows(x), x, ids)
         self.store.append(rows, x, ids)
 
@@ -934,7 +968,8 @@ class QuakeIndex:
         return timing
 
     def modify(self, ids, x) -> ModifyTimingInfo:
-        """Overwrite resident vectors in place (quake_index.h modify)."""
+        """Overwrite resident vectors in place (quake_index.h modify); both
+        copies on a spilled index."""
         timing = ModifyTimingInfo()
         t0 = _now_us()
         self._flush_mutations()
@@ -967,16 +1002,39 @@ class QuakeIndex:
         _, rows32, _ = self.parent._search_device(q, sp)
         return rows32[:, 0].cpu().numpy().astype(np.int32)
 
-    def _replace_partitions(self, old_rows, cents, vecs, ids) -> list:
+    def _assign_rows_spill(self, x: np.ndarray):
+        """(primary, spill) rows of each vector by the build's SOAR
+        objective (kmeans.soar_assign) against the active centroids, on the
+        index's device (quake_tpu/index.py::_assign_rows_spill)."""
+        rows_act = self.store.active_rows()
+        cents = self.store.state.centroids[torch.from_numpy(rows_act).to(self.device)]
+        a1, a2 = soar_assign(x, cents.cpu().numpy(), self.soar_lambda, device=self.device)
+        return rows_act[a1].astype(np.int32), rows_act[a2].astype(np.int32)
+
+    def _append_spilled(self, rows, srows, x, ids):
+        """Insert both copies of each vector through ONE overflow-splitting
+        pass over the combined set (a flood's primary and spill targets are
+        both split rather than growing C), then the primaries and the spill
+        copies that pass left (quake_tpu/index.py::_append_spilled)."""
+        n = len(rows)
+        ids = to_i64(ids)
+        rows_comb = self._ensure_room_by_splitting(
+            np.concatenate([rows, srows]), np.concatenate([x, x]), np.concatenate([ids, ids]),
+            incoming_spill=np.concatenate([np.zeros(n, bool), np.ones(n, bool)]))
+        self.store.append_primaries(rows_comb[:n], x, ids)
+        self.store.append_spill_copies(rows_comb[n:], x, ids)
+
+    def _replace_partitions(self, old_rows, cents, vecs, ids, spill_flags=None) -> list:
         """Swap partitions old_rows for new ones (centroid, vectors and ids
-        each): the parent forgets the old centroids before it learns the new
+        each, and on a spilled index whether each copy is a spill copy):
+        the parent forgets the old centroids before it learns the new
         ones, because a freed row is reused at once, with its generation
         moved on. Returns the new rows."""
         store = self.store
         self.parent.remove(np.asarray(old_rows, dtype=np.int64))
         store.delete_partitions(old_rows)
         new_rows = store.allocate_rows(len(cents))
-        store.write_partitions(new_rows, vecs, ids, cents)
+        store.write_partitions(new_rows, vecs, ids, cents, spill_flags_list=spill_flags)
         self.parent.add(np.asarray(cents, dtype=np.float32), np.asarray(new_rows, dtype=np.int64))
         return new_rows
 
@@ -986,13 +1044,14 @@ class QuakeIndex:
         1588-1658). Used by maintenance splits. Returns the new rows. By
         default one batched 2-means over all the rows' slabs on the index's
         device (kmeans.batched_two_means) and one copy of the result to the
-        host; with QUAKE_TPU_MAINT_HOST=1 the JAX package's host path
-        (kmeans_np of each partition read one by one)."""
+        host; with QUAKE_TPU_MAINT_HOST=1, and always on a spilled index (as
+        in the JAX package), the host path: kmeans_np of each partition read
+        one by one, each moved copy keeping its map."""
         rows = [int(r) for r in rows]
         if not rows:
             return []
-        cents, vecs, ids = [], [], []
-        if not maint_on_host():
+        cents, vecs, ids, flags = [], [], [], []
+        if not maint_on_host() and not self.spill:
             state = self.store.state
             rows_p = np.full(_bucket(len(rows), 1), -1, np.int32)
             rows_p[:len(rows)] = rows
@@ -1017,10 +1076,12 @@ class QuakeIndex:
                     cents.append(c)
                     vecs.append(cvecs)
                     ids.append(cids)
-        return self._replace_partitions(rows, cents, vecs, ids)
+                    if self.spill:  # the copy here is the spill one iff spill_map says r
+                        flags.append(self.store.spill_map.get_batch(cids) == r)
+        return self._replace_partitions(rows, cents, vecs, ids, flags if self.spill else None)
 
-    def _ensure_room_by_splitting(self, rows: np.ndarray, x: np.ndarray,
-                                  ids: np.ndarray) -> np.ndarray:
+    def _ensure_room_by_splitting(self, rows: np.ndarray, x: np.ndarray, ids: np.ndarray,
+                                  incoming_spill=None) -> np.ndarray:
         """Capacity isolation (quake_tpu/index.py:1694-1797): where an insert
         batch would overflow a partition's slab AND that partition is an
         outlier (its need above 1.5 x the mean after the insert, rounded up
@@ -1030,13 +1091,19 @@ class QuakeIndex:
         partition no longer doubles every slab. k-means cannot separate a
         flood of near-duplicates, so a cell above the target fill is chopped
         by order into pieces. Returns rows with the vectors inserted here set
-        to -1."""
+        to -1.
+
+        A spilled index calls this once over the combined primary and spill
+        insertions (incoming_spill marks the spill copies; the mean counts
+        both copies of every vector); within a split group an id appears at
+        most once, so each written copy keeps its map through (row, id)."""
         store = self.store
         need = store.partition_sizes() + np.bincount(rows[rows >= 0], minlength=store.P)
         over = np.nonzero(need > store.C)[0]
         if over.size == 0:
             return rows
-        mean_after = (self.ntotal() + int((rows >= 0).sum())) / max(self.nlist(), 1)
+        phys = 2 if self.spill else 1
+        mean_after = (self.ntotal() * phys + int((rows >= 0).sum())) / max(self.nlist(), 1)
         cap = max(256, -(-int(1.5 * mean_after) // 256) * 256)
         split_rows = [int(r) for r in over if need[r] > cap]
         if not split_rows:
@@ -1045,28 +1112,36 @@ class QuakeIndex:
         rows = rows.copy()
         ids = to_i64(ids)
         target_fill = max(int(0.75 * store.C), 1)
-        cents, vecs, vids = [], [], []
+        cents, vecs, vids, flags = [], [], [], []
         for r in split_rows:
             res_vecs, res_ids = store.get_partition(r)
             m = rows == r
             uv = np.concatenate([res_vecs, x[m]])
             uids = np.concatenate([res_ids, ids[m]])
+            if self.spill:  # ids whose copy in this group is the spill copy
+                spilled = res_ids[store.spill_map.get_batch(res_ids) == r]
+                if incoming_spill is not None:
+                    spilled = np.concatenate([spilled, ids[m & incoming_spill]])
             cents_r, clusters = kmeans_np(uv, uids, max(2, -(-len(uids) // target_fill)),
                                           self.metric)
+            pieces = []
             for c, (cvecs, cids) in zip(cents_r, clusters):
                 if len(cids) <= target_fill:
-                    cents.append(c)
-                    vecs.append(cvecs)
-                    vids.append(cids)
+                    pieces.append((c, cvecs, cids))
                     continue
                 n_chunks = -(-len(cids) // target_fill)
                 for piece_v, piece_i in zip(np.array_split(cvecs, n_chunks),
                                             np.array_split(cids, n_chunks)):
-                    cents.append(piece_v.mean(axis=0, dtype=np.float64).astype(np.float32))
-                    vecs.append(piece_v)
-                    vids.append(piece_i)
+                    pieces.append((piece_v.mean(axis=0, dtype=np.float64).astype(np.float32),
+                                   piece_v, piece_i))
+            for c, pv, pi in pieces:
+                cents.append(c)
+                vecs.append(pv)
+                vids.append(pi)
+                if self.spill:
+                    flags.append(np.isin(pi, spilled))
             rows[m] = -1
-        self._replace_partitions(split_rows, cents, vecs, vids)
+        self._replace_partitions(split_rows, cents, vecs, vids, flags if self.spill else None)
         return rows
 
     # ------------------------------------------------------------ maintenance
@@ -1131,9 +1206,11 @@ class QuakeIndex:
         the generation counters as saved, the codes in the precision the
         metadata names (bf16 from the uint16 bit view), the norms recomputed
         from the codes, the id map rebuilt from the slots, the latency grid
-        from latency_profile.csv, and a fresh maintenance policy. A bf16
-        parent, a spilled index and sharding over n_workers devices raise
-        NotImplementedError."""
+        from latency_profile.csv, and a fresh maintenance policy. A spilled
+        index's slots are split between its maps as the JAX package splits
+        them (each id's first occurrence in row-major order primary, the
+        second spill). A bf16 parent and sharding over n_workers devices
+        raise NotImplementedError."""
         with open(os.path.join(path, "metadata.json")) as f:
             meta = json.load(f)
         if meta["version"] != SERIALIZATION_VERSION:
@@ -1141,8 +1218,6 @@ class QuakeIndex:
         bf16 = meta.get("precision") == "bf16"
         if bf16 and self.level > 0:
             raise _not_ported("a bf16 parent (kernel K3 has no bf16 body)", BF16_OPERANDS)
-        if meta.get("spill", False):
-            raise NotImplementedError(SPILL_NOT_PORTED)
         if self._would_shard(n_workers):
             raise _not_ported(f"load(n_workers={n_workers}) over as many CUDA devices",
                               PARALLEL)
@@ -1153,6 +1228,7 @@ class QuakeIndex:
             setattr(self, name, meta.get(name, default))
         if self.aps_radius_ab is not None:
             self.aps_radius_ab = np.asarray(self.aps_radius_ab, np.float32)
+        self.spill = bool(meta.get("spill", False))
         self.soar_lambda = float(meta.get("soar_lambda", 1.0))
 
         arrays = {name: torch.from_numpy(np.load(os.path.join(path, f"{name}.npy")))
@@ -1168,7 +1244,8 @@ class QuakeIndex:
         self.store = PartitionStore(meta["dimension"], self.device,
                                     dtype=arrays["codes"].dtype)
         self.store.init_from_state(StoreState(**arrays), free_rows=meta["free_rows"],
-                                   generation=np.load(os.path.join(path, "generation.npy")))
+                                   generation=np.load(os.path.join(path, "generation.npy")),
+                                   spill=self.spill)
         self.parent = None
         if meta["has_parent"]:
             self.parent = QuakeIndex(level=self.level + 1, device=self.device)
@@ -1210,13 +1287,14 @@ class QuakeIndex:
 
     def validate(self) -> bool:
         """Consistency check (quake_index.h validate): every row a compact
-        prefix of ids, the sizes summing to ntotal, and the parent holding
+        prefix of ids, the sizes summing to ntotal (twice ntotal on a
+        spilled index, whose ntotal stays logical), and the parent holding
         one centroid per partition."""
         self._flush_mutations()
         st = self.store.state
         below = torch.arange(self.store.C, device=st.ids.device)[None, :] < st.sizes[:, None]
         if not torch.equal(st.ids >= 0, below):
             return False
-        if int(st.sizes.sum()) != self.ntotal():
+        if int(st.sizes.sum()) != self.ntotal() * (2 if self.spill else 1):
             return False
         return self.parent is None or self.parent.ntotal() == self.nlist()

@@ -15,7 +15,8 @@ so the two packages agree in clustering quality, not in assignments.
 `kmeans_np`, `balance_clusters` and `lloyd_refine_np` are host numpy copies
 of the JAX package's (build-time balancing, the host paths of maintenance).
 `batched_two_means` and `batched_refine`, maintenance's split and refinement,
-are batched tensor programs on the index's device, as the JAX package's are.
+are batched tensor programs on the index's device, as the JAX package's are;
+`soar_assign`, a spilled build's second partition per vector, too.
 """
 
 from __future__ import annotations
@@ -174,6 +175,46 @@ def balance_clusters(x, centroids, assignments, cap: int, max_rounds: int = 12,
             break
         centroids = np.concatenate([centroids, np.stack(new_cents)])
     return centroids, assignments
+
+
+def soar_assign(x, centroids, lam: float = 1.0, batch: int = 65536, primary=None,
+                device="cpu"):
+    """Primary and spill partition of each vector (SOAR, ScaNN NeurIPS'23;
+    quake_tpu/kmeans.py::soar_assign, in the same forms, so that the two
+    packages assign alike):
+
+        spill = argmin_{j != primary} ||x - c_j||^2 + lam * (r_j . r1_hat)^2
+
+    with r1_hat the unit primary residual: a spill residual parallel to the
+    primary one is penalized, so whichever partition a query probes, one
+    copy's quantization error is unlikely to point away from it; lam = 0 is
+    plain second-nearest spilling. `primary`: an optional [n] precomputed
+    primary assignment (the build's balanced one), else the nearest
+    centroid. The products run as torch.matmul on `device`, `batch` rows
+    at a time. Returns (a1 [n] int32, a2 [n] int32) as numpy."""
+    dev = torch.device(device)
+    x = np.asarray(x, dtype=np.float32)
+    cj = torch.from_numpy(np.ascontiguousarray(centroids, dtype=np.float32)).to(dev)
+    c_sq = torch.sum(cj * cj, dim=1)
+    n = x.shape[0]
+    a1 = np.empty(n, np.int32)
+    a2 = np.empty(n, np.int32)
+    for s in range(0, n, batch):
+        e = min(s + batch, n)
+        xb = torch.from_numpy(x[s:e]).to(dev)
+        d2 = -2.0 * (xb @ cj.T) + c_sq[None, :]  # + ||x||^2 is rank-invariant
+        if primary is None:
+            p = torch.argmin(d2, dim=1)
+        else:
+            p = torch.from_numpy(np.asarray(primary[s:e]).astype(np.int64)).to(dev)
+        r1 = xb - cj[p]
+        r1n = r1 / torch.clamp(torch.linalg.norm(r1, dim=1, keepdim=True), min=1e-9)
+        dot = torch.sum(xb * r1n, dim=1, keepdim=True) - r1n @ cj.T
+        score = d2 + lam * dot * dot
+        score[torch.arange(e - s, device=dev), p] = float("inf")
+        a1[s:e] = p.cpu().numpy()
+        a2[s:e] = torch.argmin(score, dim=1).cpu().numpy()
+    return a1, a2
 
 
 def lloyd_refine_np(vec_list, id_list, centroids, metric: str = "l2", iterations: int = 3):

@@ -15,7 +15,10 @@ The parent searches here (reassignment, rejection, neighbourhood) run the
 parent's exact flat scan (`parent._search_device`), as the JAX package's do;
 the clustering runs batched on the index's device (kmeans.batched_two_means,
 batched_refine), or on the host with QUAKE_TPU_MAINT_HOST=1. A spilled index
-is not ported: its branches raise SPILL_NOT_PORTED.
+(each vector in two partitions) takes the host paths, as in the JAX package:
+every moved copy keeps its map, a deleted partition's copies are re-homed
+away from their twins' partitions, and refinement separates twins that land
+in one cluster.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from quake_tpu_torch.kmeans import batched_refine, lloyd_refine_np
 from quake_tpu_torch.maintenance.cost_estimator import MaintenanceCostEstimator
 from quake_tpu_torch.maintenance.hit_tracker import HitCountTracker
 from quake_tpu_torch.params import MaintenancePolicyParams, SearchParams
-from quake_tpu_torch.storage.store import SPILL_NOT_PORTED, _bucket
+from quake_tpu_torch.storage.store import _bucket
 from quake_tpu_torch.timing import MaintenanceTimingInfo
 
 
@@ -188,20 +191,52 @@ class MaintenancePolicy:
     def _delete_partitions(self, rows, reassign: bool = True):
         """partition_manager.cpp:524-554: the centroids leave the parent,
         the rows are freed, and the orphaned vectors go back in through
-        index.add (reassign)."""
-        if self.index.spill:
-            raise NotImplementedError(SPILL_NOT_PORTED)
-        store = self.index.store
-        orphans = []
+        index.add (reassign). On a spilled index each orphan copy keeps its
+        map and is re-homed to the best parent candidate that is not its
+        twin's partition (quake_tpu/maintenance/policy.py::
+        _delete_partitions)."""
+        index, store = self.index, self.index.store
+        orphans, owned, twins = [], [], []
         for r in rows:
             vecs, vids = store.get_partition(int(r))
-            if vecs.shape[0]:
-                orphans.append((vecs, vids))
-        self.index.parent.remove(np.asarray(rows, dtype=np.int64))
+            if not vecs.shape[0]:
+                continue
+            orphans.append((vecs, vids))
+            if index.spill:  # ownership and twin row, read before the delete
+                prim = store.id_map.get_batch(vids)
+                spl = store.spill_map.get_batch(vids)
+                was_spill = spl == int(r)
+                owned.append(was_spill)
+                twins.append(np.where(was_spill, prim, spl).astype(np.int64))
+        index.parent.remove(np.asarray(rows, dtype=np.int64))
         store.delete_partitions([int(r) for r in rows])
-        if reassign and orphans:
-            self.index.add(np.concatenate([o[0] for o in orphans]),
-                           np.concatenate([o[1] for o in orphans]))
+        if not (reassign and orphans):
+            return
+        vecs = np.concatenate([o[0] for o in orphans])
+        vids = np.concatenate([o[1] for o in orphans])
+        if not index.spill:
+            index.add(vecs, vids)
+            return
+        # The ids stay resident through their twins, so index.add's
+        # duplicate check cannot take them: each copy goes to its first
+        # parent candidate unless that is its twin's partition, else to its
+        # second (which is -1 where the parent has one entry: then the first,
+        # as in the JAX package; refinement separates such twins later).
+        flags = np.concatenate(owned)
+        twin = np.concatenate(twins)
+        cand = self._parent_ids(vecs, 2).astype(np.int64)
+        new_rows = np.where(cand[:, 0] != twin, cand[:, 0], cand[:, 1])
+        # Both of an id's partitions deleted: the copies (the same vector,
+        # the same candidates) go to the first and the second candidate.
+        uniq, counts = np.unique(vids, return_counts=True)
+        is_dup = np.isin(vids, uniq[counts > 1])
+        new_rows = np.where(is_dup & ~flags, cand[:, 0], new_rows)
+        new_rows = np.where(is_dup & flags, cand[:, 1], new_rows)
+        new_rows = np.where(new_rows >= 0, new_rows, cand[:, 0]).astype(np.int32)
+        if (~flags).any():
+            store.append_primaries(new_rows[~flags], vecs[~flags], vids[~flags])
+        if flags.any():
+            store.append_spill_copies(new_rows[flags], vecs[flags], vids[flags])
 
     def _split_partitions(self, rows) -> list[int]:
         """2-means each partition; the originals deleted, the halves added
@@ -228,15 +263,16 @@ class MaintenancePolicy:
         (partition_manager.cpp:447-488, clustering.cpp:99-182): one batched
         pass over the gathered slabs on the index's device
         (kmeans.batched_refine), the host regrouping rows by the returned
-        assignment; or with QUAKE_TPU_MAINT_HOST=1 lloyd_refine_np over the
-        partitions read one by one."""
+        assignment; or with QUAKE_TPU_MAINT_HOST=1, and always on a spilled
+        index, lloyd_refine_np over the partitions read one by one. On a
+        spilled index twins that land in one cluster are separated
+        (separate_twins) and each copy keeps its map (spill_flags)."""
         if not rows:
             return
-        if self.index.spill:
-            raise NotImplementedError(SPILL_NOT_PORTED)
         store = self.index.store
         R = len(rows)
-        if not maint_on_host():
+        flags_list = None
+        if not maint_on_host() and not self.index.spill:
             state = store.state
             rows_p = np.full(_bucket(R, 1), -1, np.int32)
             rows_p[:R] = [int(r) for r in rows]
@@ -262,6 +298,53 @@ class MaintenancePolicy:
             new_cents, clusters = lloyd_refine_np(
                 [v for v, _ in parts], [i for _, i in parts], cents.cpu().numpy(),
                 self.index.metric, iterations)
+            if self.index.spill:
+                clusters = separate_twins(clusters, new_cents)
+                flags_list = spill_flags(clusters, store.id_map, rows)
         store.write_partitions(list(rows), [c[0] for c in clusters],
-                               [c[1] for c in clusters], new_cents)
+                               [c[1] for c in clusters], new_cents, spill_flags_list=flags_list)
         self.index.parent.modify(np.asarray(rows, dtype=np.int64), new_cents)
+
+
+def separate_twins(clusters, cents, chunk: int = 4096):
+    """Twins (an id's two copies, the same vector) that Lloyd put in one
+    cluster: the later occurrence moves to its nearest other centroid
+    (cents, the refined ones). The result is that of the JAX package's loop
+    (quake_tpu/maintenance/policy.py::refine_partitions), which moves copy by
+    copy: each cluster keeps its other rows in order, followed by the rows
+    moved into it, cluster by cluster in order and within a cluster from the
+    last moved row to the first. Returns the clusters as (vecs, ids)."""
+    m = len(clusters)
+    kept, moved = [], [[] for _ in range(m)]
+    for j, (v, i) in enumerate(clusters):
+        v, i = np.asarray(v, np.float32), np.asarray(i, np.int64)
+        first = np.zeros(len(i), bool)
+        first[np.unique(i, return_index=True)[1]] = True
+        kept.append((v[first], i[first]))
+        pos = np.flatnonzero(~first)[::-1]
+        for c0 in range(0, len(pos), chunk):
+            p = pos[c0:c0 + chunk]
+            d2 = ((cents[None, :, :] - v[p][:, None, :]) ** 2).sum(axis=2)
+            d2[:, j] = np.inf
+            for t, pp in zip(np.argmin(d2, axis=1), p):
+                moved[t].append((v[pp], i[pp]))
+    return [(np.concatenate([kv, np.stack([a for a, _ in mv])]) if mv else kv,
+             np.concatenate([ki, np.asarray([b for _, b in mv], np.int64)]) if mv else ki)
+            for (kv, ki), mv in zip(kept, moved)]
+
+
+def spill_flags(clusters, id_map, rows):
+    """Per written copy of a spilled refinement: True where it is the spill
+    copy. An id pooled twice: its first occurrence in cluster order is the
+    primary (the copies are the same vector); an id pooled once: the spill
+    copy where its primary lives outside the refined rows."""
+    row_set = np.asarray(sorted(int(r) for r in rows), np.int64)
+    all_ids = np.concatenate([np.asarray(i, np.int64) for _, i in clusters])
+    uniq, counts = np.unique(all_ids, return_counts=True)
+    twice = np.isin(all_ids, uniq[counts > 1])
+    first = np.zeros(len(all_ids), bool)
+    first[np.unique(all_ids, return_index=True)[1]] = True
+    outside = ~np.isin(id_map.get_batch(all_ids).astype(np.int64), row_set)
+    flags = np.where(twice, ~first, outside)
+    cuts = np.cumsum([len(i) for _, i in clusters])[:-1]
+    return np.split(flags, cuts)

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from quake_tpu_torch.ops.scan import NEG_INF, topk_from_scores
+from quake_tpu_torch.ops.scan import NEG_INF, duplicate_mask, topk_from_scores, topk_stable
 from quake_tpu_torch.profiling import mark_stage
 
 
@@ -236,8 +236,6 @@ def group_scores(qg, slab, sids, metric: str, snorms=None):
     return torch.where((sids >= 0)[:, None, :], scores, torch.full_like(scores, NEG_INF))
 
 
-DEDUP_NOT_PORTED = ("dedup (spilled stores) is not ported yet "
-                    "(ROADMAP Queue 1 item 6: spill and dedup)")
 BF16_OPERANDS = "ROADMAP Queue 2 part A item 5: bf16 operands"
 
 
@@ -254,10 +252,10 @@ def merge_groups(g_scores, g_ids, pair_group, pair_slot, pids, k: int, kk: int,
     """Epilogue of the (score, id) scans (quake_tpu/ops/grouped.py::
     _merge_groups): gather each query's per-probe group rows and merge them
     to the top k, padding with -inf / -1 when there are fewer than k
-    candidates. Returns (scores [B, k] f32, ids [B, k] int32, scanned [B]
-    int32)."""
-    if dedup:
-        raise NotImplementedError(DEDUP_NOT_PORTED)
+    candidates. dedup (a spilled store, each vector in two partitions): the
+    top min(2k, pool), each id kept at its first occurrence, the top k of
+    the survivors. Returns (scores [B, k] f32, ids [B, k] int32, scanned
+    [B] int32)."""
     B, nprobe = pair_group.shape
     ok = (pair_group >= 0)[:, :, None]
     G, qt, kk_ = g_scores.shape
@@ -266,8 +264,16 @@ def merge_groups(g_scores, g_ids, pair_group, pair_slot, pids, k: int, kk: int,
     i = g_ids.reshape(G * qt, kk_)[flat_idx]
     s = torch.where(ok, s, torch.full_like(s, NEG_INF))
     i = torch.where(ok, i, torch.full_like(i, -1))
+    pool = min(2 * k if dedup else k, nprobe * kk)
     scores, out_ids = topk_from_scores(s.reshape(B, nprobe * kk), i.reshape(B, nprobe * kk),
-                                       min(k, nprobe * kk))
+                                       pool)
+    if dedup:
+        is_dup = duplicate_mask(out_ids)
+        scores = torch.where(is_dup, torch.full_like(scores, NEG_INF), scores)
+        out_ids = torch.where(is_dup, torch.full_like(out_ids, -1), out_ids)
+        scores, order = topk_stable(scores, pool)
+        out_ids = torch.gather(out_ids, 1, order)
+    scores, out_ids = scores[:, :k], out_ids[:, :k]
     if scores.shape[1] < k:
         padn = k - scores.shape[1]
         scores = torch.nn.functional.pad(scores, (0, padn), value=NEG_INF)
@@ -287,9 +293,7 @@ def grouped_scan_xla(codes, ids, q, pids, k: int, metric: str, qt: int = 64,
 
     codes [P, C, D], ids [P, C], q [B, D], pids [B, nprobe] int32; norms:
     optional [P, C] cached squared norms. Returns (scores [B, k], ids [B, k],
-    scanned [B])."""
-    if dedup:
-        raise NotImplementedError(DEDUP_NOT_PORTED)
+    scanned [B]). dedup: merge_groups' dedup (a spilled store)."""
     P, C, _ = codes.shape
     group_pid, qlist, pair_group, pair_slot = build_groups(pids, P, qt)
     G = group_pid.shape[0]
@@ -310,6 +314,6 @@ def grouped_scan_xla(codes, ids, q, pids, k: int, metric: str, qt: int = 64,
         out_i.append(torch.where(s == NEG_INF, torch.full_like(i, -1), i))
     g_scores, g_ids = torch.cat(out_s), torch.cat(out_i)
     mark_stage(stages, "scan")
-    out = merge_groups(g_scores, g_ids, pair_group, pair_slot, pids, k, kk)
+    out = merge_groups(g_scores, g_ids, pair_group, pair_slot, pids, k, kk, dedup=dedup)
     mark_stage(stages, "merge")
     return out

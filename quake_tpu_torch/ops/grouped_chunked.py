@@ -30,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from quake_tpu_torch import _ext
-from quake_tpu_torch.ops.grouped import (DEDUP_NOT_PORTED, build_chunk_groups, build_groups,
+from quake_tpu_torch.ops.grouped import (build_chunk_groups, build_groups,
                                           refuse_bf16)
 from quake_tpu_torch.ops.grouped_family import (MIN_RANGE, check_refs, pair_take, rowscale_scan,
                                                 rowscale_search, topk_cap)
@@ -192,22 +192,20 @@ def grouped_scan_v6(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: 
     fetch, one selection over the whole row. On kernel K4 unchanged, which
     computes _v6_kernel's function (that of _v3pn_kernel) and reads only the
     segments below the partition's size; `ct` only has to divide C. Same
-    inputs and returns as grouped_scan_v3p."""
-    if dedup:
-        raise NotImplementedError(DEDUP_NOT_PORTED)
+    inputs and returns as grouped_scan_v3pn (dedup: the v3p epilogue's)."""
     P, C, _ = codes.shape
     _check_chunked("v6", P, C, ct)
-    return rowscale_search(codes, ids, sizes, norms, q, pids, k, metric, qt, gpb, "topk", stages)
+    return rowscale_search(codes, ids, sizes, norms, q, pids, k, metric, qt, gpb, "topk", stages,
+                           dedup)
 
 
 def grouped_scan_v5(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int = 32,
                     ct: int = 512, gpb: int = 4, dedup: bool = False, stages=None):
     """v5 grouped scan (pallas_grouped.py::grouped_scan_pallas_v5): per-chunk
     selection and the cross-chunk merge in kernel K7, then one merge across
-    the probes and the exact rescore. Needs C % ct == 0. Same inputs and
-    returns as grouped_scan_v3p."""
-    if dedup:
-        raise NotImplementedError(DEDUP_NOT_PORTED)
+    the probes and the exact rescore (rescore_topk, with its dedup on a
+    spilled store). Needs C % ct == 0. Same inputs and returns as
+    grouped_scan_v3pn."""
     B = q.shape[0]
     P, C, _ = codes.shape
     refuse_bf16(codes.dtype, "kernel K7 (v5)")
@@ -235,7 +233,7 @@ def grouped_scan_v5(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: 
     m_scores = torch.where(ok, pair_take(g_scores, pg, pair_slot), NEG_INF).reshape(B, -1)
     m_refs = torch.where(ok, pair_take(refs, pg, pair_slot), -1).reshape(B, -1)
     mark_stage(stages, "merge")
-    out = rescore_topk(m_scores, m_refs, codes, ids, norms, q, k, kk, metric, pids)
+    out = rescore_topk(m_scores, m_refs, codes, ids, norms, q, k, kk, metric, pids, dedup=dedup)
     mark_stage(stages, "rescore")
     return out
 
@@ -248,9 +246,7 @@ def grouped_scan_v4(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: 
     a two-stage dequantized merge and the exact rescore. Needs C % ct == 0.
     mat_qg gathers one query tile per chunk-group instead of letting the
     kernel follow cg_qsrc; the result is the same. Same inputs and returns
-    as grouped_scan_v3p."""
-    if dedup:
-        raise NotImplementedError(DEDUP_NOT_PORTED)
+    as grouped_scan_v3pn (dedup: rescore_topk's, a spilled store)."""
     B, nprobe = pids.shape
     P, C, _ = codes.shape
     refuse_bf16(codes.dtype, "kernel K4 with a chunk table (v4)")
@@ -299,6 +295,6 @@ def grouped_scan_v4(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: 
     mark_stage(stages, "merge")
     # Stage 2: the merge across the probes and the exact rescore.
     out = rescore_topk(s.reshape(B, -1), rf.reshape(B, -1), codes, ids, norms, q, k, kk, metric,
-                       pids)
+                       pids, dedup=dedup)
     mark_stage(stages, "rescore")
     return out

@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from quake_tpu_torch import _ext
-from quake_tpu_torch.ops.grouped import DEDUP_NOT_PORTED, build_groups, refuse_bf16
+from quake_tpu_torch.ops.grouped import build_groups, refuse_bf16
 from quake_tpu_torch.ops.grouped_scan import (FOLD, SMEM_LIMIT, fold_rounds, global_scale,
                                               grouped_scan_kernel, packed_params, pad_groups,
                                               pool_tail, rescore_topk)
@@ -261,19 +261,20 @@ def v3p_epilogue(g_packed, g_stats, group_pid, pair_group, pair_slot, pids, safe
 
 def global_epilogue(g_packed, pair_group, pair_slot, pids, codes, ids, norms,
                     q, k: int, kk: int, metric: str, slot_mult: int, levels: int,
-                    stages=None):
+                    stages=None, dedup: bool = False):
     """Shared v8/v9 epilogue (pallas_grouped.py::_global_epilogue with
-    merge="pallas", exact and without dedup). The global-scale keys compare
-    across groups, so each query's probe-order pool of kernel rows is
-    merged in key domain by kernel K2, or by a top-k where K2's packing
-    does not fit (kk < k, or levels*lane_mult + lane_mult >= 2^24). Ghost
-    groups need no mask: K1 writes them as -1."""
+    merge="pallas", exact). The global-scale keys compare across groups, so
+    each query's probe-order pool of kernel rows is merged in key domain by
+    kernel K2, or by a top-k where K2's packing does not fit (kk < k, or
+    levels*lane_mult + lane_mult >= 2^24) or dedup asks for it (a spilled
+    store: rescore_topk's dedup). Ghost groups need no mask: K1 writes them
+    as -1."""
     B = q.shape[0]
     ok = (pair_group >= 0)[:, :, None]
     m_packed = torch.where(ok, pair_take(g_packed, torch.clamp(pair_group, min=0), pair_slot),
                            -1.0).reshape(B, -1)
     return pool_tail(m_packed, pids, pids, codes, ids, norms, q, k, kk, metric, slot_mult,
-                     levels, stages=stages, general=kk < k)
+                     levels, stages=stages, general=kk < k, dedup=dedup)
 
 
 # ----------------------------------------------------------------- wrappers
@@ -285,9 +286,9 @@ def check_refs(name: str, P: int, C: int) -> None:
 
 
 def rowscale_search(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int,
-                     gpb: int, select: str, stages):
-    """Grouping, kernel K4 or K5, and the v3p epilogue (f32 codes: neither
-    kernel has a bf16 body)."""
+                     gpb: int, select: str, stages, dedup: bool = False):
+    """Grouping, kernel K4 or K5, and the v3p epilogue, with its dedup on a
+    spilled store (f32 codes: neither kernel has a bf16 body)."""
     refuse_bf16(codes.dtype, "kernels K4 and K5 (v3p, v3pN, v6, v7)")
     P, C, _ = codes.shape
     kk = min(k, C)
@@ -300,7 +301,8 @@ def rowscale_search(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: 
                                       levels, metric, select)
     mark_stage(stages, "scan")
     return v3p_epilogue(g_packed, g_stats, gp, pair_group, pair_slot, pids, safe_q, codes,
-                        ids, norms, q, k, kk, metric, slot_mult, levels, stages=stages)
+                        ids, norms, q, k, kk, metric, slot_mult, levels, dedup=dedup,
+                        stages=stages)
 
 
 def grouped_scan_v3p(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int = 32,
@@ -322,13 +324,12 @@ def grouped_scan_v3pn(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt
     """v3pN grouped scan (pallas_grouped.py::grouped_scan_pallas_v3pn): v3p
     with the groups padded to a multiple of gpb (the TPU kernel's groups per
     grid step); the dispatch's fallback for C % fold != 0. Same inputs and
-    returns as grouped_scan_v3p."""
-    if dedup:
-        raise NotImplementedError(DEDUP_NOT_PORTED)
+    returns as grouped_scan_v3p; dedup: the v3p epilogue's (a spilled
+    store)."""
     P, C, _ = codes.shape
     check_refs("v3p", P, C)
     return rowscale_search(codes, ids, sizes, norms, q, pids, k, metric, qt, gpb, "topk",
-                            stages)
+                            stages, dedup)
 
 
 def grouped_scan_v7(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int = 32,
@@ -337,13 +338,11 @@ def grouped_scan_v7(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: 
     per-row key of v3p with the fold-128 selection, kernel K5.
     Approximate at the fold-column level (at most two winners per column);
     winners are exact-rescored. Needs C % 128 == 0. Same inputs and returns
-    as grouped_scan_v3p."""
-    if dedup:
-        raise NotImplementedError(DEDUP_NOT_PORTED)
+    as grouped_scan_v3pn."""
     P, C, _ = codes.shape
     check_refs("v7", P, C)
     return rowscale_search(codes, ids, sizes, norms, q, pids, k, metric, qt, gpb, "fold",
-                            stages)
+                            stages, dedup)
 
 
 def grouped_scan_v8(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int = 32,
@@ -351,10 +350,8 @@ def grouped_scan_v8(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: 
     """v8 global-scale grouped scan (pallas_grouped.py::grouped_scan_pallas_v8)
     on kernel K1, which computes _v8_kernel's function (its ghost groups
     write -1 where the TPU kernel leaves stale rows for the epilogue's mask),
-    then the K2 pool merge. Needs C % 128 == 0. Same inputs and returns as
-    grouped_scan_v3p."""
-    if dedup:
-        raise NotImplementedError(DEDUP_NOT_PORTED)
+    then the K2 pool merge (a top-k with dedup, see global_epilogue). Needs
+    C % 128 == 0. Same inputs and returns as grouped_scan_v3pn."""
     P, C, _ = codes.shape
     check_refs("v8", P, C)
     kk = min(k, C)
@@ -367,7 +364,7 @@ def grouped_scan_v8(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: 
     g_packed = grouped_scan_kernel(gp, group_size, qg, codes, normsT, kk, slot_mult, levels)
     mark_stage(stages, "scan")
     return global_epilogue(g_packed, pair_group, pair_slot, pids, codes, ids, norms, q, k,
-                           kk, metric, slot_mult, levels, stages)
+                           kk, metric, slot_mult, levels, stages, dedup)
 
 
 # v9 (pallas_grouped.py::grouped_scan_pallas_v9) is v8 with joint selection

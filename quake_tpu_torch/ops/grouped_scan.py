@@ -11,7 +11,9 @@ One call, `grouped_scan_v11`, turns probe lists into the per-query top-k:
   placement  one sort (sorted) or argsort (argsort) lands each query's
              nprobe kernel rows contiguously
   merge      kernel K2 (`merge_positions`): per-query pool merge of the
-             placed rows to kfin winner positions
+             placed rows to kfin winner positions; with dedup (a spilled
+             store) a top-2k of the pool's keys and each id's first
+             occurrence instead (rescore_topk)
   rescore    exact f32 distances of the winners, final top-k; or, with
              exact=False (SearchParams.exact_distances=False), scores
              dequantized from the winners' keys and no rescore
@@ -37,9 +39,9 @@ from __future__ import annotations
 import torch
 
 from quake_tpu_torch import _ext
-from quake_tpu_torch.ops.grouped import (DEDUP_NOT_PORTED, budget_layout, build_groups_budget,
+from quake_tpu_torch.ops.grouped import (budget_layout, build_groups_budget,
                                           build_groups_scatter, group_layout)
-from quake_tpu_torch.ops.scan import NEG_INF, topk_stable
+from quake_tpu_torch.ops.scan import NEG_INF, duplicate_mask, topk_stable
 from quake_tpu_torch.profiling import mark_stage
 
 FOLD = 128
@@ -334,40 +336,65 @@ def exact_rescore(top_refs, codes, ids, norms, q, k: int, kfin: int,
 def rescore_topk(m_scores, m_refs, codes, ids, norms, q, k: int, kk: int,
                  metric: str, pids, dedup: bool = False, exact: bool = True,
                  gmin=None, ginv=None):
-    """General merge tail (pallas_grouped.py::_rescore_topk without dedup):
-    top-k by pool score, then the exact rescore of the winners, or with
-    exact=False their scores dequantized from the keys (m_scores, given
-    the global scale's gmin and ginv). kk (the per-group candidate count)
-    is part of the JAX signature and unused, as there."""
-    if dedup:
-        raise NotImplementedError(DEDUP_NOT_PORTED)
-    top_scores, idx = topk_stable(m_scores, k)
+    """General merge tail (pallas_grouped.py::_rescore_topk): top-k by pool
+    score, then the exact rescore of the winners, or with exact=False their
+    scores dequantized from the keys (m_scores, given the global scale's
+    gmin and ginv). kk (the per-group candidate count) is part of the JAX
+    signature and unused, as there.
+
+    dedup (a spilled store, each vector resident in two partitions): the
+    top min(2k, pool) by key, each id kept at its first occurrence in key
+    order (the copies are the same vector, so which one survives does not
+    matter), the first k survivors compacted to the front in that order;
+    then the exact rescore of those, or their dequantized keys."""
+    if not dedup:
+        top_scores, idx = topk_stable(m_scores, k)
+        top_refs = torch.gather(m_refs, 1, idx)
+        if not exact:
+            return dequantized_tail(top_scores, top_refs, ids, q, k, metric, pids, gmin, ginv)
+        return exact_rescore(top_refs, codes, ids, norms, q, k,
+                             min(k, idx.shape[1]), metric, pids)
+    pool = min(2 * k, m_scores.shape[1])
+    s_pool, idx = topk_stable(m_scores, pool)
     top_refs = torch.gather(m_refs, 1, idx)
-    if not exact:
-        return dequantized_tail(top_scores, top_refs, ids, q, k, metric, pids, gmin, ginv)
-    return exact_rescore(top_refs, codes, ids, norms, q, k,
-                         min(k, idx.shape[1]), metric, pids)
+    ok = top_refs >= 0
+    c_ids = _flat_row_take(ids, torch.clamp(top_refs >> 16, min=0),
+                           torch.where(ok, top_refs & 0xFFFF, torch.zeros_like(top_refs)))
+    c_ids = torch.where(ok, c_ids, torch.full_like(c_ids, -1))
+    is_dup = duplicate_mask(c_ids)
+    # Survivor j lands at its rank among the survivors; duplicates fall out.
+    kfin = min(k, pool)
+    keep_rank = torch.cumsum((~is_dup).to(torch.int64), dim=1) - 1
+    sel = torch.where(is_dup, torch.full_like(keep_rank, pool), keep_rank)
+    lane = torch.arange(kfin, device=sel.device)
+    match = sel[:, None, :] == lane[None, :, None]  # [B, kfin, pool]
+    refs_kept = torch.amax(torch.where(match, top_refs[:, None, :], -1), dim=2)
+    if exact:
+        return exact_rescore(refs_kept, codes, ids, norms, q, k, kfin, metric, pids)
+    keys_kept = torch.amax(torch.where(match, s_pool[:, None, :], NEG_INF), dim=2)
+    return dequantized_tail(keys_kept, refs_kept, ids, q, k, metric, pids, gmin, ginv)
 
 
 def pool_tail(m_packed, pid_cols, pids, codes, ids, norms, q, k: int, kk: int,
               metric: str, slot_mult: int, levels: int, pool_factor: int = 1,
               stages=None, general: bool = False, exact: bool = True, gmin=None,
-              ginv=None):
-    """Pool side of the v11 epilogues (pallas_grouped.py::_pool_tail without
-    dedup) and of the v8/v9 one (_global_epilogue): key merge, winner ref
-    derivation, exact rescore, or with exact=False (v10 and v11 only) the
-    winners' scores dequantized from their keys with the global scale's
-    gmin and ginv (dequantized_tail). pid_cols [B, nprobe] maps pool column
+              ginv=None, dedup: bool = False):
+    """Pool side of the v11 epilogues (pallas_grouped.py::_pool_tail) and of
+    the v8/v9 one (_global_epilogue): key merge, winner ref derivation,
+    exact rescore, or with exact=False (v10 and v11 only) the winners'
+    scores dequantized from their keys with the global scale's gmin and
+    ginv (dequantized_tail). pid_cols [B, nprobe] maps pool column
     j -> j // kk -> the query's partition (ascending pids for the sorted
     placement, probe order for argsort and v8/v9); pids is only used for
-    the scanned count. general forces the top-k merge instead of K2."""
+    the scanned count. general forces the top-k merge instead of K2; dedup
+    (a spilled store) takes it too, with rescore_topk's dedup."""
     B, nprobe = pids.shape
     pool = nprobe * kk
     lane_mult = pool_lane_mult(pool)
-    if general or levels * lane_mult + lane_mult >= (1 << 24):
+    if general or dedup or levels * lane_mult + lane_mult >= (1 << 24):
         # General path: key*lane_mult + lane no longer fits 24 bits (or the
-        # caller asks for it), so the pool is ranked by a top-k of the keys
-        # instead of kernel K2.
+        # caller asks for it, or dedup needs the pool-side refs), so the
+        # pool is ranked by a top-k of the keys instead of kernel K2.
         slot = torch.remainder(m_packed, float(slot_mult)).to(torch.int32)
         pid_b = pid_cols[:, :, None].expand(B, nprobe, kk).reshape(B, pool)
         ok = (m_packed >= 0.0) & (pid_b >= 0)
@@ -377,7 +404,7 @@ def pool_tail(m_packed, pid_cols, pids, codes, ids, norms, q, k: int, kk: int,
                                torch.full_like(m_packed, NEG_INF))
         mark_stage(stages, "merge")
         out = rescore_topk(m_scores, m_refs, codes, ids, norms, q, k, kk, metric, pids,
-                           exact=exact, gmin=gmin, ginv=ginv)
+                           dedup=dedup, exact=exact, gmin=gmin, ginv=ginv)
         mark_stage(stages, "rescore")
         return out
 
@@ -572,11 +599,11 @@ def _placed_scan(name: str, codes, ids, sizes, norms, q, pids, k: int, metric: s
     """The scan of v10, v11 and v10b: the prologue, kernel K1, the placement
     epilogue named `placement` (see PLACEMENTS; BUDGET_PLACEMENTS with
     pair_budget > 0), the pool tail (exact rescore, or dequantized scores
-    with exact=False)."""
+    with exact=False). dedup (a spilled store) takes the pool tail's general
+    path, a top-k of the pool's keys with the dedup of rescore_topk, as the
+    JAX package does: kernel K2 does not run."""
     B, D = q.shape
     P, C, _ = codes.shape
-    if dedup:
-        raise NotImplementedError(DEDUP_NOT_PORTED)
     if merge != "pallas":
         raise NotImplementedError(f"merge={merge!r}: only the kernel merge is ported")
     if P >= 32768 or C > 65536:
@@ -608,7 +635,7 @@ def _placed_scan(name: str, codes, ids, sizes, norms, q, pids, k: int, metric: s
     mark_stage(stages, "placement")
     return pool_tail(m_packed, pid_cols, pids, codes, ids, norms, q, k, kk, metric, slot_mult,
                      levels, pool_factor, stages, exact=exact, gmin=inp["gmin"],
-                     ginv=inp["ginv"])
+                     ginv=inp["ginv"], dedup=dedup)
 
 
 def grouped_scan_v11(codes, ids, sizes, norms, q, pids, k: int, metric: str,

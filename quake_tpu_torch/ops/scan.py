@@ -129,16 +129,24 @@ def ivf_scan(q, pids, codes, ids, sizes, k: int, metric: str = "l2"):
     return best_s, best_i, n_scanned
 
 
+def duplicate_mask(ids):
+    """[B, pool] bool of a [B, pool] id matrix: True where an earlier column
+    of the row holds the same id >= 0 (the JAX package's [B, pool, pool]
+    comparison of its dedup tails)."""
+    pool = ids.shape[1]
+    pos = torch.arange(pool, device=ids.device)
+    earlier = pos[None, :] < pos[:, None]  # [pool, pool]: column before row
+    same = ids[:, :, None] == ids[:, None, :]
+    return torch.any(same & earlier[None] & (ids >= 0)[:, :, None], dim=2)
+
+
 def dedup_topk(scores, ids, k: int):
     """Keep each id's best entry, then top-k (quake_tpu/ops/scan.py::
     dedup_topk: in a spilled store one vector can reach a merged list
     through both of its partitions). scores, ids [B, pool] -> [B, k]; an
     entry is a duplicate when an earlier one holds the same id >= 0."""
-    B, pool = scores.shape
-    pos = torch.arange(pool, device=scores.device)
-    earlier = pos[None, :] < pos[:, None]  # [pool, pool]: column before row
-    same = ids[:, :, None] == ids[:, None, :]
-    is_dup = torch.any(same & earlier[None] & (ids >= 0)[:, :, None], dim=2)
+    pool = scores.shape[1]
+    is_dup = duplicate_mask(ids)
     scores = torch.where(is_dup, torch.full_like(scores, NEG_INF), scores)
     ids = torch.where(is_dup, torch.full_like(ids, -1), ids)
     kfin = min(k, pool)

@@ -78,6 +78,10 @@ class IndexBuildParams:
       precision: stored code dtype, "f32" or "bf16" (the parent's, through
         parent_params, stays "f32": kernel K3 has no bf16 body).
       num_shards: shard partitions across devices (not ported yet).
+      spill, soar_lambda: SOAR spilled assignment (ScaNN, NeurIPS'23):
+        every vector also in a second partition chosen by
+        kmeans.soar_assign (soar_lambda weights the residuals'
+        orthogonality); searches drop the second copy of an id.
     """
 
     dimension: int = 0

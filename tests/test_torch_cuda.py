@@ -1941,3 +1941,65 @@ def test_maintenance_on_the_card_matches_its_cpu_load(dev, tmp_path):
         np.testing.assert_array_equal(r, b.store.active_rows())
         np.testing.assert_allclose(a.store.state.centroids.cpu().numpy()[r],
                                    b.store.state.centroids.numpy()[r], rtol=1e-4, atol=1e-4)
+
+
+def _two_copies_apart(idx):
+    """Every id resident exactly twice, in two different partitions, the
+    two maps naming those partitions (a spilled index's invariant)."""
+    ids = idx.store.state.ids.cpu().numpy()
+    rows, _ = np.nonzero(ids >= 0)
+    flat = ids[ids >= 0].astype(np.int64)
+    order = np.lexsort((rows, flat))
+    flat, rows = flat[order], rows[order]
+    assert len(flat) == 2 * idx.ntotal() and (flat[0::2] == flat[1::2]).all()
+    assert (rows[0::2] != rows[1::2]).all()
+    maps = np.sort(np.stack([idx.store.id_map.get_batch(flat[0::2]),
+                             idx.store.spill_map.get_batch(flat[0::2])], 1), 1)
+    assert (maps == np.stack([rows[0::2], rows[1::2]], 1)).all()
+
+
+def test_spilled_index_on_the_card_matches_its_cpu_load(dev, tmp_path):
+    """A SOAR-spilled index built on the CPU, saved, and loaded on the card
+    and on the CPU: the card's fused search (K3 ranks the parents, K1 scans,
+    the dedup tail merges; K2 does not launch) holds each id once a row and
+    overlaps the CPU's by >= 0.99; the query-major B = 8 search and APS
+    planned too. After one add and one remove both hold every id twice, in
+    two different partitions. A spilled build on the card keeps the same
+    invariant."""
+    from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams
+
+    rng = np.random.default_rng(31)
+    centers = rng.standard_normal((64, 32)).astype(np.float32) * 2
+    x = (centers[rng.integers(0, 64, 20_000)]
+         + rng.standard_normal((20_000, 32)).astype(np.float32))
+    q = (centers[rng.integers(0, 64, 256)]
+         + rng.standard_normal((256, 32)).astype(np.float32))
+    src = QuakeIndex(device="cpu")
+    src.build(x, None, IndexBuildParams(nlist=32, spill=True))
+    src.save(str(tmp_path / "spilled"))
+    card, cpu = (QuakeIndex(device=d).load(str(tmp_path / "spilled")) for d in (dev, "cpu"))
+
+    def no_dups(ids):
+        return all(len(set(r[r >= 0].tolist())) == (r >= 0).sum() for r in ids)
+
+    for sp, n in ((SearchParams(k=10, nprobe=6), 256), (SearchParams(k=10, nprobe=6), 8),
+                  (SearchParams(k=10, recall_target=0.9, initial_search_fraction=0.5,
+                                aps_mode="planned"), 256)):
+        _ext.reset_launches()
+        got = card.search(q[:n], sp).ids
+        torch.cuda.synchronize()
+        if n == 256 and sp.recall_target <= 0:
+            assert _ext.launches["grouped_scan"] > 0 and _ext.launches["flat_topk"] > 0
+            assert _ext.launches["merge_positions"] == 0
+        want = cpu.search(q[:n], sp).ids
+        assert no_dups(got) and no_dups(want)
+        assert _overlap(got, want) >= 0.99
+    for idx in (card, cpu):
+        idx.add(x[:500] + 0.01, np.arange(50_000, 50_500))
+        idx.remove(np.arange(0, 20_000, 3))
+        assert idx.validate() and idx.ntotal() == 20_500 - len(range(0, 20_000, 3))
+        _two_copies_apart(idx)
+    built = QuakeIndex(device=dev)
+    built.build(x, None, IndexBuildParams(nlist=32, spill=True))
+    assert built.validate()
+    _two_copies_apart(built)

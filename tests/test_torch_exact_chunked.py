@@ -27,10 +27,12 @@ from quake_tpu.ops.grouped import grouped_scan_xla as jax_scan_xla
 from quake_tpu.ops.pallas_grouped import (_v3p_group_body, grouped_scan_pallas,
                                           grouped_scan_pallas_v3, grouped_scan_pallas_v4,
                                           grouped_scan_pallas_v5, grouped_scan_pallas_v6)
+from quake_tpu.ops import pallas_grouped as jpg
 from quake_tpu_torch import coordinator
 from quake_tpu_torch.ops import grouped_chunked, grouped_exact, grouped_family
 from quake_tpu_torch.ops.grouped import (build_chunk_groups, grouped_scan_xla, merge_groups)
 from quake_tpu_torch.ops.grouped_scan import packed_params
+from test_torch_spill_ops import assert_no_dups, assert_scan_parity, queries, spilled_store
 
 
 def _t(a):
@@ -155,9 +157,14 @@ def test_merge_groups_matches_jax(k, kk):
     assert got[0].shape == (B, k) and got[1].dtype == torch.int32
     for w, g in zip(want, got):
         np.testing.assert_array_equal(np.asarray(w), g.numpy())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6: spill and dedup"):
-        merge_groups(*(_t(a) for a in (g_scores, g_ids, pair_group, pair_slot, pids)), k, kk,
-                     dedup=True)
+    # dedup (a spilled store): the ids repeat across groups here, and each
+    # row keeps an id once, as in the JAX package.
+    want = jax_merge_groups(*_j(g_scores, g_ids, pair_group, pair_slot, pids), k, kk, dedup=True)
+    got = merge_groups(*(_t(a) for a in (g_scores, g_ids, pair_group, pair_slot, pids)), k, kk,
+                       dedup=True)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy())
+    assert_no_dups(got[1].numpy())
 
 
 @pytest.mark.parametrize("metric", ["l2", "ip"])
@@ -397,8 +404,12 @@ def test_chunked_wrappers_guards(name):
     codes, ids, sizes, norms = (_t(a) for a in _store(2, 256, 4, seed=0, sizes=[256, 256]))
     with pytest.raises(ValueError, match=f"{name} needs C % ct == 0"):
         fn(codes, ids, sizes, norms, q, pids, 5, "l2", qt=8, ct=100)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6: spill and dedup"):
-        fn(codes, ids, sizes, norms, q, pids, 5, "l2", qt=8, ct=128, dedup=True)
+    # Lifted: dedup runs, as the JAX function runs it, on a spilled store.
+    arrays = spilled_store(4, 256, 8, seed=1) + queries(16, 8, 4, 3, seed=2, dense=False)
+    want = getattr(jpg, f"grouped_scan_pallas_{name}")(*(jnp.asarray(a) for a in arrays), 5,
+                                                       "l2", qt=8, ct=128, dedup=True,
+                                                       interpret=True)
+    assert_scan_parity(want, fn(*(_t(a) for a in arrays), 5, "l2", qt=8, ct=128, dedup=True))
     for shape in ((32768, 128, 4), (2, 65664, 4)):
         with pytest.raises(ValueError, match=f"{name} packs"):
             fn(torch.zeros(shape, device="meta"), ids, sizes, norms, q, pids, 5, "l2", qt=8,
@@ -444,15 +455,34 @@ def test_dispatch_reaches_wrapper(monkeypatch, kernel, C, want, kw):
         assert calls[0][1][key] == value
 
 
+_LIFTED = "NotImplementedError-Queue 1 item 6: spill and dedup"
+
+
 @pytest.mark.parametrize("kernel,exc,match", [
-    ("v4", NotImplementedError, "Queue 1 item 6: spill and dedup"),
-    ("v5c128g2", NotImplementedError, "Queue 1 item 6: spill and dedup"),
-    ("v6c128", NotImplementedError, "Queue 1 item 6: spill and dedup"),
-    ("xla", NotImplementedError, "Queue 1 item 6: spill and dedup"),
+    # Lifted: dedup runs through the dispatch as the JAX function runs it
+    # (each case keeps the id it had as a guard).
+    pytest.param("v4", None, dict(ct=256, gpb=8), id=f"v4-{_LIFTED}"),
+    pytest.param("v5c128g2", None, dict(ct=128, gpb=2), id=f"v5c128g2-{_LIFTED}"),
+    pytest.param("v6c128", None, dict(ct=128, gpb=4), id=f"v6c128-{_LIFTED}"),
+    pytest.param("xla", None, dict(group_chunk=8), id=f"xla-{_LIFTED}"),
     ("v2", ValueError, "does not support dedup"),
     ("v3", ValueError, "does not support dedup"),
 ])
 def test_dispatch_dedup(kernel, exc, match):
+    if exc is None:  # match: the JAX function's keywords
+        arrays = spilled_store(4, 256, 8, seed=3) + queries(16, 8, 4, 3, seed=4, dense=False)
+        jarr = tuple(jnp.asarray(a) for a in arrays)
+        if kernel == "xla":
+            codes, ids, _, norms, q, pids = jarr
+            want = jax_scan_xla(codes, ids, q, pids, 10, "l2", qt=8, norms=norms, dedup=True,
+                                **match)
+        else:
+            want = getattr(jpg, f"grouped_scan_pallas_{kernel[:2]}")(
+                *jarr, 10, "l2", qt=8, dedup=True, interpret=True, **match)
+        got = coordinator.grouped_scan(*(_t(a) for a in arrays), 10, "l2", 8, 8, kernel,
+                                       dedup=True)
+        assert_scan_parity(want, got, exact_ids=kernel == "xla")
+        return
     codes, ids, sizes, norms = (_t(a) for a in _store(2, 128, 8, seed=0, sizes=[128, 128]))
     with pytest.raises(exc, match=match):
         coordinator.grouped_scan(codes, ids, sizes, norms, torch.zeros((16, 8)),

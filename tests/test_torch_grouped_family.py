@@ -25,10 +25,12 @@ from quake_tpu.ops.pallas_grouped import (_v3p_group_body, _v7_select,
                                           grouped_scan_pallas_v3p, grouped_scan_pallas_v3pn,
                                           grouped_scan_pallas_v7, grouped_scan_pallas_v8,
                                           grouped_scan_pallas_v9)
+from quake_tpu.ops import pallas_grouped as jpg
 from quake_tpu_torch import coordinator
 from quake_tpu_torch.ops import grouped_family
 from quake_tpu_torch.ops.grouped import build_groups, build_groups_scatter, group_layout
 from quake_tpu_torch.ops.grouped_scan import packed_params
+from test_torch_spill_ops import assert_scan_parity, queries, spilled_store
 
 
 def _t(a):
@@ -220,11 +222,15 @@ def test_v8_merge_choice(monkeypatch, k, merges):
 
 @pytest.mark.parametrize("name", ["v3pn", "v7", "v8", "v9"])
 def test_wrappers_dedup_not_ported(name):
-    codes, ids, sizes, norms = _store(2, 128, 4, seed=0, sizes=[128, 128])
-    args = [_t(a) for a in (codes, ids, sizes, norms)] + [torch.zeros((16, 4)),
-                                                          torch.zeros((16, 2), dtype=torch.int32)]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6: spill and dedup"):
-        getattr(grouped_family, f"grouped_scan_{name}")(*args, 5, "l2", qt=8, dedup=True)
+    """Lifted (the name kept as it was): dedup on a spilled store, each id
+    in two partitions, as the JAX function computes it."""
+    arrays = spilled_store(4, 128, 4, seed=0) + queries(16, 4, 4, 3, seed=1, dense=False)
+    jfn = {"v3pn": grouped_scan_pallas_v3pn, "v7": grouped_scan_pallas_v7,
+           "v8": grouped_scan_pallas_v8, "v9": grouped_scan_pallas_v9}[name]
+    want = jfn(*(jnp.asarray(a) for a in arrays), 5, "l2", qt=8, dedup=True, interpret=True)
+    got = getattr(grouped_family, f"grouped_scan_{name}")(*(_t(a) for a in arrays), 5, "l2",
+                                                          qt=8, dedup=True)
+    assert_scan_parity(want, got)
 
 
 # ------------------------------------------------------------------ dispatch
@@ -276,15 +282,30 @@ def test_dispatch_unported_names_raise(kernel, match):
                                  dense=True)
 
 
+_LIFTED = "True-True-NotImplementedError-Queue 1 item 6: spill and dedup"
+
+
 @pytest.mark.parametrize("kernel,dense,dedup,exc,match", [
     ("v2", True, True, ValueError, "does not support dedup"),
     ("v3", True, True, ValueError, "does not support dedup"),
     ("v3p", True, True, ValueError, "does not support dedup"),
-    ("v3p4", True, True, NotImplementedError, "Queue 1 item 6: spill and dedup"),
-    ("v10", True, True, NotImplementedError, "Queue 1 item 6: spill and dedup"),
-    ("v11", False, True, NotImplementedError, "Queue 1 item 6: spill and dedup"),
+    # Lifted: dedup runs through the dispatch as the JAX function runs it;
+    # masked v11 rides v10 (each case keeps the id it had as a guard).
+    pytest.param("v3p4", True, True, None, ("v3pn", dict(gpb=4)), id=f"v3p4-{_LIFTED}"),
+    pytest.param("v10", True, True, None, ("v10", dict(gpb=4)), id=f"v10-{_LIFTED}"),
+    pytest.param("v11", False, True, None, ("v10", dict(gpb=4)),
+                 id="v11-False-True-NotImplementedError-Queue 1 item 6: spill and dedup"),
 ])
 def test_dispatch_guards(kernel, dense, dedup, exc, match):
+    if exc is None:  # match: the JAX function the name reaches, its keywords
+        arrays = spilled_store(4, 128, 8, seed=2) + queries(16, 8, 4, 3, seed=3, dense=dense)
+        name, kw = match
+        want = getattr(jpg, f"grouped_scan_pallas_{name}")(
+            *(jnp.asarray(a) for a in arrays), 10, "l2", qt=8, dedup=True, interpret=True, **kw)
+        got = coordinator.grouped_scan(*(_t(a) for a in arrays), 10, "l2", 8, 8, kernel,
+                                       dedup=True, dense=dense)
+        assert_scan_parity(want, got)
+        return
     codes, ids, sizes, norms = _store(2, 128, 8, seed=0, sizes=[128, 128])
     kw = {} if dense is None else dict(dense=dense)
     with pytest.raises(exc, match=match):

@@ -227,7 +227,8 @@ def _small_index(**kw):
     # Lifted: a bf16 build runs and is held to the JAX package's rounding
     # (the case keeps the id it had as a guard).
     pytest.param(dict(precision="bf16"), None, id="kw0-ROADMAP Queue 1 item 5: bf16 codes"),
-    (dict(spill=True), "ROADMAP Queue 1 item 6: spill and dedup"),
+    # Lifted: a spilled build runs (the case keeps the id it had as a guard).
+    pytest.param(dict(spill=True), None, id="kw1-ROADMAP Queue 1 item 6: spill and dedup"),
     (dict(num_shards=2), "ROADMAP Queue 1 item 11: parallel"),
     # Lifted: the build profiles the grouped scan's latency grid and sets
     # the maintenance policy on it (the case keeps the id it had as a guard).
@@ -244,7 +245,10 @@ def test_build_guards(kw, match, monkeypatch):
     (its _sumsq; rtol 1e-6, a sum in another order);
     profile_maintenance_latency=True profiles the grid (here a 2 x 2 grid
     in place of the default 10 x 5, the "xla" scan on the CPU) and the
-    build's policy reads it."""
+    build's policy reads it; spill=True stores the unspilled build's
+    clustering (the same seeded k-means) with each vector's second copy in
+    the partition soar_assign gives it (test_torch_spill.py holds the whole
+    build to the JAX package's)."""
     if kw.get("profile_maintenance_latency"):
         from quake_tpu_torch.maintenance import latency_estimator
 
@@ -255,6 +259,19 @@ def test_build_guards(kw, match, monkeypatch):
         assert est.grid_source == "profiled" and (est.latency_grid > 0).all()
         assert est.latency_grid.shape == (2, 2) and est.d == 8
         assert idx.maintenance_policy.cost_estimator.latency_estimator is est
+        return
+    if kw.get("spill"):
+        from quake_tpu_torch.kmeans import soar_assign
+
+        idx, x = _small_index(**kw)
+        ref, _ = _small_index()
+        ids = np.arange(len(x))
+        prim = ref.store.id_map.get_batch(ids)
+        np.testing.assert_array_equal(idx.store.id_map.get_batch(ids), prim)
+        cents = ref.store.state.centroids.numpy()[:ref.nlist()]
+        _, spill = soar_assign(x, cents, 1.0, primary=prim)
+        np.testing.assert_array_equal(idx.store.spill_map.get_batch(ids), spill)
+        assert idx.spill and idx.validate() and int(idx.store.state.sizes.sum()) == 2 * len(x)
         return
     if match is None:
         idx, _ = _small_index(**kw)

@@ -284,12 +284,22 @@ def test_growth_past_ref_packing_through_add():
         idx.search(q, SearchParams(k=5, nprobe=2))
 
 
-def test_spilled_index_refuses_mutation(saved_jax):
-    _, tidx = _pair(saved_jax)
-    tidx.spill = True
-    with pytest.raises(NotImplementedError, match="spill"):
-        tidx.add(_data(1, 7), np.array([40_000]))
-    assert tidx.ntotal() == N0
+def test_spilled_index_refuses_mutation():
+    """Lifted (the name kept as it was): a spilled JAX index carried across
+    with both id maps takes an add, a remove and a modify as the JAX index
+    does, both copies of each vector placed, removed and rewritten, both
+    levels' arrays and both maps equal after each (test_torch_spill.py
+    covers the rest)."""
+    from test_torch_spill import apply as apply_spilled
+    from test_torch_spill import carry as carry_spilled
+
+    jidx = JaxIndex()
+    jidx.build(_data(2000, 8), np.arange(2000), JaxBuildParams(nlist=8, spill=True))
+    tidx = carry_spilled(jidx)
+    apply_spilled(jidx, tidx, "add", _data(50, 7), np.arange(40_000, 40_050))
+    apply_spilled(jidx, tidx, "remove", np.arange(0, 2000, 7))
+    apply_spilled(jidx, tidx, "modify", np.arange(40_000, 40_010), _data(10, 9))
+    assert tidx.ntotal() == 2050 - len(range(0, 2000, 7))
 
 
 # --------------------------------------------------- port-only (test_index.py)

@@ -8,8 +8,8 @@ generations): equal arrays (the norms are recomputed from the codes on load:
 rtol 1e-6), equal bookkeeping and id map, equal search ids. The APS
 calibration is kept; the latency grid (latency_profile.csv) is parsed into
 the loaded index's fresh maintenance policy, and a grid profiled by either
-package crosses to the other with its values and bytes; a spilled index is
-refused by name. bf16 checkpoints: tests/test_torch_precision.py.
+package crosses to the other with its values and bytes. bf16 checkpoints:
+tests/test_torch_precision.py; spilled ones: tests/test_torch_spill.py.
 """
 
 import json
@@ -185,16 +185,26 @@ def _edit_metadata(src, dst, **changes):
     # Lifted: a checkpoint marked bf16 loads (the case keeps the id it had as
     # a guard).
     pytest.param(dict(precision="bf16"), None, id="changes0-item 5: bf16"),
-    (dict(spill=True), "item 6: spill"),
+    # Lifted: a checkpoint marked spilled loads as the JAX package loads it.
+    pytest.param(dict(spill=True), None, id="changes1-item 6: spill"),
     (dict(version=2), "serialization version"),
 ])
 def test_load_refuses_by_name(mutated_jax, tmp_path, changes, match):
     """Refused by name; a lifted case loads as the JAX package loads it: f32
     codes under precision "bf16" are rounded to bf16 at load (its
     jnp.asarray(codes, bfloat16)), bit for bit, the norms recomputed from
-    the rounded codes (rtol 1e-6), the bookkeeping as saved."""
+    the rounded codes (rtol 1e-6), the bookkeeping as saved; a store marked
+    spilled whose ids are each resident once has them all in id_map, an
+    empty spill_map, and fails validate() in both packages (two residencies
+    a vector expected; test_torch_spill.py loads real spilled checkpoints)."""
     _, path = mutated_jax
     bad = _edit_metadata(path, str(tmp_path / "bad"), **changes)
+    if changes.get("spill"):
+        jl, tl = JaxIndex().load(bad), QuakeIndex(device="cpu").load(bad)
+        assert tl.spill and jl.spill and len(tl.store.spill_map) == 0
+        _assert_same(jl.store, tl.store)
+        assert not tl.validate() and not jl.validate()
+        return
     if match is None:
         jl, tl = JaxIndex().load(bad), QuakeIndex(device="cpu").load(bad)
         js, ts = jl.store, tl.store

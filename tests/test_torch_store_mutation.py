@@ -31,7 +31,8 @@ def _id_map(m) -> dict:
 
 
 def _assert_same(js, ts):
-    """Arrays and bookkeeping of the two stores agree."""
+    """Arrays and bookkeeping of the two stores agree (on a spilled store
+    both id maps)."""
     _assert_same_store(js.state, ts.state)
     assert (ts.P, ts.C, ts.nlist(), ts.ntotal()) == (js.P, js.C, js.nlist(), js.ntotal())
     assert ts.free_rows == js.free_rows
@@ -41,20 +42,24 @@ def _assert_same(js, ts):
     np.testing.assert_array_equal(ts.partition_sizes(rows), js.partition_sizes(rows))
     np.testing.assert_array_equal(ts.partition_sizes(), js.partition_sizes())
     assert _id_map(ts.id_map) == _id_map(js.id_map)
+    assert ts.spill == js.spill
+    if js.spill:
+        assert _id_map(ts.spill_map) == _id_map(js.spill_map)
     np.testing.assert_array_equal(np.sort(ts.get_ids()), np.sort(js.get_ids()))
 
 
 def _contract_6(ts):
     """Compact prefix and norms (ROADMAP Queue 3 contract 6): ids >= 0
     exactly below the sizes, norms at valid slots equal the codes' squared
-    norms, the id map counts every valid slot."""
+    norms, the id map counts every valid slot (on a spilled store the two
+    maps together)."""
     st = ts.state
     lane = torch.arange(ts.C)[None, :]
     below = lane < st.sizes[:, None]
     assert torch.equal(st.ids >= 0, below)
     torch.testing.assert_close(st.norms[below], (st.codes * st.codes).sum(-1)[below],
                                rtol=1e-6, atol=0)
-    assert ts.ntotal() == int(st.sizes.sum())
+    assert ts.ntotal() + (len(ts.spill_map) if ts.spill else 0) == int(st.sizes.sum())
 
 
 def _both(n=256, d=8, nlist=4, seed=0, cap_multiple=128):
@@ -314,21 +319,38 @@ def test_growth_past_ref_packing_raises_in_the_wrappers(axis):
 
 
 def test_spill_arguments_raise_by_name():
-    """SOAR spill (ROADMAP Queue 1 item 6) is not ported: its arguments and
-    methods raise NotImplementedError naming it, and change nothing."""
-    js, ts, x, ids, rng = _both()
-    before = ts.state.ids.clone()
-    v = np.zeros((2, 8), np.float32)
-    calls = [lambda: ts.append(np.array([0, 1]), v, np.array([900, 901]),
-                               spill_rows=np.array([1, 0])),
-             lambda: ts.append_spill_copies(np.array([0]), v[:1], np.array([902])),
-             lambda: ts.append_primaries(np.array([0]), v[:1], np.array([903])),
-             lambda: ts.write_partitions([1], [v], [np.array([904, 905])], v[:1],
-                                         spill_flags_list=[np.array([True, False])]),
-             lambda: PartitionStore(8, "cpu").init_from_assignments(
-                 x, ids, np.zeros((4, 8)), np.zeros(256, np.int32),
-                 spill_assignments=np.ones(256, np.int32))]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="spill"):
-            call()
-    assert torch.equal(ts.state.ids, before) and ts.ntotal() == 256
+    """Lifted (the name kept as it was): the spill arguments and methods run
+    as in the JAX package on a spilled store (every vector stored twice,
+    id_map holding the primary copy and spill_map the second): the build
+    with spill_assignments, append with spill_rows (spill copies first),
+    append_spill_copies, append_primaries, remove of both copies (an id in
+    one map only counts too), update of both copies, write_partitions with
+    spill_flags_list and delete_partitions erasing from the map whose copy
+    lived in the row; arrays and both maps equal after every step."""
+    rng = np.random.default_rng(5)
+    n, d, nlist = 256, 8, 4
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    ids = np.arange(n, dtype=np.int64)
+    cents = rng.standard_normal((nlist, d)).astype(np.float32)
+    a1 = rng.integers(0, nlist, n).astype(np.int32)
+    a2 = ((a1 + rng.integers(1, nlist, n)) % nlist).astype(np.int32)
+    js, ts = JaxStore(d), PartitionStore(d, "cpu")
+    js.init_from_assignments(x, ids, cents, a1, spill_assignments=a2)
+    ts.init_from_assignments(x, ids, cents, a1, spill_assignments=a2)
+    _assert_same(js, ts)
+    assert ts.spill and ts.ntotal() == n and int(ts.state.sizes.sum()) == 2 * n
+    v = rng.standard_normal((3, d)).astype(np.float32)
+    _apply(js, ts, "append", np.array([0, 1, 2]), v, np.array([900, 901, 902]),
+           np.array([1, 2, 3]))
+    _apply(js, ts, "append_spill_copies", np.array([3, -1]), v[:2], np.array([903, 904]))
+    _apply(js, ts, "append_primaries", np.array([2, 0]), v[:2], np.array([903, 904]))
+    _apply(js, ts, "remove", np.array([0, 5, 901, 99_999]))
+    _apply(js, ts, "update_vectors", np.array([7, 902]), v[:2])
+    np.testing.assert_array_equal(ts.get_vectors(np.array([7]))[0][0], v[0])
+    _apply(js, ts, "delete_partitions", [1, 3])
+    rows = _apply(js, ts, "allocate_rows", 2)
+    flags = [np.array([True, False]), np.array([False])]
+    _apply(js, ts, "write_partitions", rows, [v[:2], v[2:]], [np.array([905, 906]),
+                                                              np.array([907])], v[:2], flags)
+    assert ts.spill_map.get_batch(np.array([905]))[0] == rows[0]
+    assert ts.id_map.get_batch(np.array([906, 907])).tolist() == rows
