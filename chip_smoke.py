@@ -40,6 +40,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
              placement) and B=4096 (sorted placement) are then timed with
              CUDA events, with a per-stage breakdown. The kernels' launch
              counts are zeroed just before this phase and read just after it.
+             Then 5 B=16384 batches traced with torch.profiler (idle_share:
+             the device's busy ms, the idle share, the five longest device
+             operations; an `[idle]` line).
 5. by name — the grouped scans chosen by name through QUAKE_TPU_KERNEL
              (v3p, v3p4, v7g4, v8g4, v11g4f256, which lands on v3pN at
              C % 256 != 0, then xla, v3, v2, v6, v5, v4 and v10g4) on the
@@ -105,7 +108,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
              one level; the launcher must pick the tensor-core body), with
              its time and bound (2 bytes an element, bf16 tensor-core peak);
              a save and a load of the bf16 index (codes equal bit for bit,
-             the checkpoint about half the f32 one's, search ids equal).
+             the checkpoint about half the f32 one's, search ids equal); 5
+             headline B=16384 batches traced as in phase 4.
 12. aps    — recall-target search in bench_suite.py::run_aps_batch's
              configuration: the same corpus built through QuakeIndex with
              default IndexBuildParams (nlist=1024, niter 5, f32, so
@@ -217,6 +221,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
              plain versions at the maintained store's inputs, and a save and
              a load (the grid round-trips, the loaded index has a fresh
              policy on it). `[maintenance]` lines on stderr.
+16. workload — (run after phase 13, while the corpus lives)
+             regression/configs/sift1m_balanced.yaml's dynamic workload
+             through the port's tooling: DynamicWorkloadGenerator over the
+             corpus as the base pool (its clustering index of nc 1000 built
+             on the card) and the main queries, insert / delete / query
+             0.33 / 0.33 / 0.34, update batch 1000, query batch 100,
+             initial 100,000, uniform, seed 1738, WORKLOAD_OPS operations;
+             WorkloadEvaluator with QuakeWrapper (nc 1024; k 10, nprobe 32;
+             the initial index built and saved, then loaded by the
+             evaluation; default MaintenancePolicyParams, maintenance()
+             after every operation, batched search). Gates: n_total equal
+             to the runbook's n_resident after every operation, validate(),
+             contract 6 and one parent centroid a partition at the end, K1
+             and K3 once on every query op and K2 once where the v11 pool
+             merges on it (key x lane must fit 24 bits: at nprobe 32 only
+             once C passes 256; else a top-k of the keys, as in the JAX
+             package), every K1, K2 and K3 call of the last query op
+             against its plain version (K1 overlap >= 0.9999, K2 and K3
+             equal), mean recall@10 > 0.5. Then 8 threads
+             search the final index at once (ids equal to the serial
+             search's, no launch lost), and a B=1024 search under debug
+             mode runs clean while a NaN produced on the card raises.
+             `[workload]` lines: generation and build seconds, ms per
+             insert, delete and query, maintenance ms, splits and deletes,
+             recall@10, launches per query op.
 
 Progress goes to stderr. Standard output holds three lines: the JSON list
 of kernels, the card's name and power limit, and last
@@ -344,6 +373,19 @@ SPILL_MAINT_N, SPILL_MAINT_NLIST, SPILL_MAINT_NPROBE = 100_000, 16, 4
 # The kernels of the spilled fixed-nprobe path: K3 ranks the parents, K1
 # scans, and the dedup tail (a top-2k of the pool) takes K2's place.
 SPILL_KERNELS = ("grouped_scan", "flat_topk")
+# The dynamic workload (phase 16): regression/configs/sift1m_balanced.yaml's
+# traffic and method on the synthetic corpus (the base pool) and the main
+# queries, through the port's generator, evaluator and QuakeWrapper.
+WORKLOAD = dict(metric="l2", insert_ratio=0.33, delete_ratio=0.33, query_ratio=0.34,
+                update_batch_size=1000, query_batch_size=100, initial_size=100_000,
+                cluster_size=1000, cluster_sample_distribution="uniform", seed=1738)
+WORKLOAD_OPS = 250  # of the config's 1000: the cut of PERF.md section 4
+WORKLOAD_BUILD = {"nc": 1024, "metric": "l2"}
+WORKLOAD_SEARCH = {"k": K, "nprobe": 32}
+WORKLOAD_RECALL_GATE = 0.5  # tests/test_workload.py:75
+WORKLOAD_K1_OVERLAP = 0.9999  # the last query op's K1 calls against the plain version
+THREADS, THREAD_REPS = 8, 4  # concurrent searches of the final index, B = NQ_GT
+TRACE_REPS = 5  # batches traced for the idle share
 F32_PEAK = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores (data sheet)
 TF32_PEAK = 495e12  # H100 SXM dense TF32 FLOP/s on the tensor cores (data sheet)
 BF16_PEAK = 989e12  # H100 SXM dense bf16 FLOP/s on the tensor cores (data sheet)
@@ -2227,6 +2269,8 @@ def phase_headline_bf16(torch, dev, x, queries, gt, f32_idx, k1_build):
         log(f"[headline bf16] ({card}) B={B} ({r['placement']} placement, qt={r['qt']}, nprobe "
             f"{nprobe}, exact_distances=False): {batch_text(r)}")
     log(f"[headline bf16] kernel launches on the headline path: {launches}")
+    out["idle"] = idle_share(torch, f"headline bf16, B={BATCH} at nprobe {nprobe}",
+                             lambda: idx._search_device_full(qd[BATCH], sp))
 
     # Beside it, at the same nprobe: the f32 index dequantized (bf16's share
     # apart from the rescore's), the bf16 index and the f32 index exact.
@@ -2336,19 +2380,23 @@ def budget_by_formula(idx, q, sp, what: str) -> None:
         f"width_clip={wclip}, budget_w={bw} (the JAX formula over this batch)")
 
 
-def recorded_calls(fn):
+def recorded_calls(fn, clone: bool = False):
     """fn() with the inputs of every K1, K2 and K3 call recorded, each call
     going through to its wrapper. Returns the lists of (budget, K1's
     arguments), K2's (the pool copied: the tail reads it afterwards) and
-    K3's."""
+    K3's; with clone, K1's and K3's tensors are copied too (for a check
+    after later operations have written the store)."""
     from quake_tpu_torch.ops import flat_topk as k3_mod
     from quake_tpu_torch.ops import grouped_scan as k12_mod
 
     k1, k2, k3 = [], [], []
     real = (k12_mod.grouped_scan_kernel, k12_mod.merge_positions, k3_mod.flat_topk)
 
+    def kept(a):
+        return tuple(t.clone() if clone and hasattr(t, "clone") else t for t in a)
+
     def rec1(*a, budget=False):
-        k1.append((budget, a))
+        k1.append((budget, kept(a)))
         return real[0](*a, budget=budget)
 
     def rec2(m_packed, *a):
@@ -2356,7 +2404,7 @@ def recorded_calls(fn):
         return real[1](m_packed, *a)
 
     def rec3(*a):
-        k3.append(a)
+        k3.append(kept(a))
         return real[2](*a)
     k12_mod.grouped_scan_kernel, k12_mod.merge_positions, k3_mod.flat_topk = rec1, rec2, rec3
     try:
@@ -3586,13 +3634,284 @@ def spill_maintenance(torch, dev, x, queries) -> dict:
     return out
 
 
+def merges_on_k2(C: int, nprobe: int, k: int) -> bool:
+    """Whether the v11 pool tail of a search at (C, nprobe, k) merges on
+    kernel K2 (ops/grouped_scan.py::pool_tail, as pallas_grouped.py::
+    _pool_tail): key * lane_mult + lane must stay below 2^24. Where it does
+    not (C's slot range narrower than the pool's lane range), a top-k of
+    the pool's keys takes K2's place."""
+    from quake_tpu_torch.ops.grouped_scan import packed_params, pool_lane_mult
+
+    _, levels = packed_params(C)
+    lane_mult = pool_lane_mult(nprobe * min(k, C))
+    return levels * lane_mult + lane_mult < (1 << 24)
+
+
+def op_name(key: str) -> str:
+    """A profiler key without its return type, anonymous namespace,
+    template and argument lists."""
+    name = key.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return name.split("(")[0].split("<")[0].strip()
+
+
+def idle_share(torch, what: str, fn, reps: int = TRACE_REPS) -> dict:
+    """reps calls of fn() (one batch each), after three to warm up, on the
+    host clock between two synchronizations, first untraced, then traced
+    with quake_tpu_torch.profiling.device_trace (scripts/aps_breakdown.py's
+    method): the device's busy ms a batch (its operations' self time summed:
+    one stream, so they do not overlap), the idle share 1 - busy / wall
+    against the traced wall (the profiler's host overhead in it) and
+    against the untraced one, and the five longest device operations by
+    name (op_name; ms a batch). Busy and the shares are None where the
+    profiler recorded no device time. An `[idle]` line."""
+    from quake_tpu_torch.profiling import device_summary, device_trace
+
+    def wall_ms():
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    untraced = wall_ms()
+    with tempfile.TemporaryDirectory() as tmp, device_trace(tmp) as prof:
+        traced = wall_ms()
+    busy, ops = device_summary(prof, reps)
+    by_name = {}
+    for key, ms in ops:
+        by_name[op_name(key)] = by_name.get(op_name(key), 0.0) + ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    out = dict(wall_ms=traced, untraced_wall_ms=untraced, busy_ms=busy or None,
+               idle_share=max(0.0, 1.0 - busy / traced) if busy else None,
+               untraced_idle_share=max(0.0, 1.0 - busy / untraced) if busy else None,
+               top_ms={k: round(v, 4) for k, v in top})
+    if busy:
+        log(f"[idle] ({card_line()}) {what}, {reps} batches traced: wall {traced:.3f} ms a "
+            f"batch ({untraced:.3f} untraced), device busy {busy:.3f} ms, idle share "
+            f"{out['idle_share']:.3f} ({out['untraced_idle_share']:.3f} against the untraced "
+            f"wall); the five longest device operations (ms a batch): "
+            f"{json.dumps(out['top_ms'])}")
+    else:
+        log(f"[idle] ({card_line()}) {what}: not measured (the profiler recorded no device "
+            f"time); wall {traced:.3f} ms a batch ({untraced:.3f} untraced)")
+    return out
+
+
+def workload_log(msg: str) -> None:
+    """A `[workload]` line on stderr, beside the card's name and power limit."""
+    log(f"[workload] ({card_line()}) {msg}")
+
+
+def phase_workload(torch, dev, x, queries, n_ops: int = WORKLOAD_OPS) -> dict:
+    """Phase 16: regression/configs/sift1m_balanced.yaml's workload on the
+    card through the port's tooling. DynamicWorkloadGenerator over the main
+    corpus (the base pool; its clustering index built on the card) with the
+    main queries, WORKLOAD's traffic and n_ops operations; the initial index
+    built and saved by WorkloadEvaluator.initialize_index, then
+    evaluate_workload (the saved index loaded, the default maintenance
+    policy set, maintenance() after every operation) through a QuakeWrapper
+    that counts each query op's K1, K2 and K3 launches and records the last
+    query op's calls. Gates: n_total equal to the runbook's n_resident after
+    every operation; validate(), contract 6 and one parent centroid a
+    partition at the end; K1 and K3 once on every query op, K2 once where
+    its pool merges on K2 (merges_on_k2) and never elsewhere; the last
+    query op's K1 calls at overlap >= WORKLOAD_K1_OVERLAP, its K3 (and K2)
+    calls equal; mean recall@10 > WORKLOAD_RECALL_GATE. Then THREADS threads search the final
+    index at once (THREAD_REPS B=NQ_GT searches each): ids equal to the
+    serial search's, every launch counted; and a B=NQ_GT search under
+    debug mode (quake_tpu_torch.debug) stays clean while a NaN produced on
+    the card raises."""
+    import threading
+    from pathlib import Path
+
+    from quake_tpu_torch import MaintenancePolicyParams, SearchParams, _ext
+    from quake_tpu_torch.debug import disable_debug_mode, enable_debug_mode
+    from quake_tpu_torch.workload import DynamicWorkloadGenerator, WorkloadEvaluator
+    from quake_tpu_torch.wrappers.quake import QuakeWrapper
+
+    out = {"ops": n_ops}
+    with tempfile.TemporaryDirectory() as tmp:
+        wdir = Path(tmp) / "workload"
+        gen = DynamicWorkloadGenerator(workload_dir=wdir, base_vectors=x, queries=queries,
+                                       number_of_operations=n_ops, device=dev, **WORKLOAD)
+        _, out["generate_s"] = timed(torch, gen.generate_workload)
+        ops = gen.runbook["operations"]
+        out["gt_s"] = sum(op.get("gt_time", 0.0) for op in ops.values())
+        out["summary"] = gen.runbook["summary"]
+        n_query_ops = out["summary"]["n_queries"]
+        del gen
+        torch.cuda.empty_cache()
+        workload_log(f"generated {out['summary']} over {x.shape[0]} x {x.shape[1]} in "
+                     f"{out['generate_s']:.2f} s (its exact ground truth {out['gt_s']:.2f} s)")
+
+        ev = WorkloadEvaluator(wdir, Path(tmp) / "out")
+        _, out["build_s"] = timed(torch, lambda: ev.initialize_index(
+            "quake", QuakeWrapper(device=dev), WORKLOAD_BUILD))
+
+        class Counted(QuakeWrapper):
+            """Each query op's K1, K2 and K3 launches, and whether its store
+            merges on K2 (merges_on_k2); the last query op's calls recorded,
+            their tensors copied (later operations write the store in
+            place)."""
+
+            def __init__(self):
+                super().__init__(device=dev)
+                self.per_query, self.calls = [], None
+
+            def search(self, query, **kw):
+                before = dict(_ext.launches)
+                k2 = merges_on_k2(self.index.store.C, kw["nprobe"], kw["k"])
+                if len(self.per_query) + 1 == n_query_ops:
+                    res = []
+                    self.calls = recorded_calls(
+                        lambda: res.append(QuakeWrapper.search(self, query, **kw)), clone=True)
+                    res = res[0]
+                else:
+                    res = QuakeWrapper.search(self, query, **kw)
+                self.per_query.append(dict(
+                    {k: _ext.launches[k] - before[k] for k in MAIN_KERNELS}, k2=k2))
+                return res
+
+        wrapper = Counted()
+        with contextlib.redirect_stdout(sys.stderr):  # the evaluator prints its summary
+            results, out["evaluate_s"] = timed(torch, lambda: ev.evaluate_workload(
+                "quake", wrapper, WORKLOAD_BUILD, WORKLOAD_SEARCH, do_maintenance=True,
+                m_params=MaintenancePolicyParams(), batch=True))
+    idx = wrapper.index
+
+    bad = [r["operation_number"] for r in results if r["n_total"] != r["n_resident"]]
+    if bad:
+        raise AssertionError(f"workload: n_total differs from the runbook's n_resident after "
+                             f"operations {bad[:10]}")
+    if not idx.validate() or idx.parent.ntotal() != idx.nlist():
+        raise AssertionError("workload: the final index does not validate")
+    out["norm_err"] = check_contract_6(torch, idx.store, "workload, the final index")
+    per_type = {}
+    for kind in ("insert", "delete", "query"):
+        ms = [r["latency_ms"] for r in results if r["operation_type"] == kind]
+        per_type[kind] = dict(n=len(ms), mean_ms=float(np.mean(ms)) if ms else None,
+                              max_ms=float(np.max(ms)) if ms else None)
+    maint = [r["maintenance_ms"] for r in results]
+    recalls = [r["recall"] for r in results if r["operation_type"] == "query"]
+    launched = {k: sum(p[k] for p in wrapper.per_query) for k in MAIN_KERNELS}
+    out.update(per_type=per_type, maintenance_ms_mean=float(np.mean(maint)),
+               maintenance_ms_total=float(np.sum(maint)),
+               maintenance_ms_max=float(np.max(maint)),
+               splits=int(sum(r["maintenance_splits"] or 0 for r in results)),
+               deletes=int(sum(r["maintenance_deletes"] or 0 for r in results)),
+               recall_mean=float(np.mean(recalls)), recall_min=float(np.min(recalls)),
+               recall_last=recalls[-1], nlist_end=idx.nlist(), ntotal_end=idx.ntotal(),
+               C_end=idx.store.C,
+               launches_per_query_op={k: v / max(len(wrapper.per_query), 1)
+                                      for k, v in launched.items()})
+    wrong = [i for i, p in enumerate(wrapper.per_query)
+             if (p["grouped_scan"], p["flat_topk"], p["merge_positions"]) != (1, 1, int(p["k2"]))]
+    if len(wrapper.per_query) != n_query_ops or wrong:
+        raise AssertionError(f"workload: every query op must launch K1 and K3 once, and K2 once "
+                             f"where its pool merges on K2: query ops {wrong[:10]} did not "
+                             f"({len(wrapper.per_query)} of {n_query_ops} query ops searched)")
+    out["query_ops_on_k2"] = sum(p["k2"] for p in wrapper.per_query)
+    checks = {}
+    check_recorded(torch, "workload, last query op", wrapper.calls, checks)
+    last = {k: wrapper.per_query[-1][k] for k in MAIN_KERNELS if wrapper.per_query[-1][k]}
+    if set(checks) != set(last):
+        raise AssertionError(f"workload: the recorded calls ({sorted(checks)}) are not the "
+                             f"kernels the last query op launched ({last})")
+    if (checks["grouped_scan"]["min_overlap"] < WORKLOAD_K1_OVERLAP
+            or checks["flat_topk"]["min_overlap"] < 1.0):
+        raise AssertionError(f"workload: the last query op's K1 overlap must be >= "
+                             f"{WORKLOAD_K1_OVERLAP} and K3 equal (K2 equal where it ran): "
+                             f"{checks}")
+    out["kernel_checks"] = checks
+    if out["recall_mean"] <= WORKLOAD_RECALL_GATE:
+        raise AssertionError(f"workload: mean recall@10 {out['recall_mean']} not above "
+                             f"{WORKLOAD_RECALL_GATE}")
+    pt = per_type
+    workload_log(
+        f"{n_ops} operations ({pt['insert']['n']} inserts, {pt['delete']['n']} deletes, "
+        f"{pt['query']['n']} queries) on the initial {WORKLOAD['initial_size']} built with "
+        f"nc {WORKLOAD_BUILD['nc']} in {out['build_s']:.2f} s, evaluated in "
+        f"{out['evaluate_s']:.2f} s: ms per insert {pt['insert']['mean_ms']:.3f}, delete "
+        f"{pt['delete']['mean_ms']:.3f}, query {pt['query']['mean_ms']:.3f} (B="
+        f"{WORKLOAD['query_batch_size']}, nprobe {WORKLOAD_SEARCH['nprobe']}); maintenance "
+        f"{out['maintenance_ms_mean']:.3f} ms an operation (max {out['maintenance_ms_max']:.1f}, "
+        f"{out['splits']} splits, {out['deletes']} deletes in all); recall@10 mean "
+        f"{out['recall_mean']:.4f}, min {out['recall_min']:.4f}, last {out['recall_last']:.4f}; "
+        f"launches per query op {json.dumps(out['launches_per_query_op'])} (K2 on "
+        f"{out['query_ops_on_k2']} query ops, where the pool merges on it); nlist "
+        f"{out['nlist_end']}, ntotal {out['ntotal_end']}, C {out['C_end']} at the end; the last "
+        f"query op's K1-K3 calls against their plain versions: {json.dumps(checks)}")
+
+    # THREADS threads search the final index at once.
+    sp = SearchParams(k=K, nprobe=WORKLOAD_SEARCH["nprobe"])
+    serial = idx.search(queries[:NQ_GT], sp).ids
+    results_t = [None] * THREADS
+
+    def worker(i):
+        results_t[i] = [idx.search(queries[:NQ_GT], sp).ids for _ in range(THREAD_REPS)]
+
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    torch.cuda.synchronize()
+    threads_s = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("workload: a searching thread did not finish")
+    counts = {k: _ext.launches[k] for k in MAIN_KERNELS}
+    k2 = merges_on_k2(idx.store.C, sp.nprobe, K)
+    want = {k: 1 if k != "merge_positions" or k2 else 0 for k in MAIN_KERNELS}
+    differ = sum(not np.array_equal(ids, serial) for r in results_t for ids in r)
+    if differ or counts != {k: v * THREADS * THREAD_REPS for k, v in want.items()}:
+        raise AssertionError(f"workload: {differ} threaded searches differ from the serial one, "
+                             f"or launches were lost: {counts}")
+    out["threads"] = dict(threads=THREADS, reps=THREAD_REPS, s=threads_s, launches=counts)
+    workload_log(f"{THREADS} threads x {THREAD_REPS} searches of B={NQ_GT} at once on the final "
+                 f"index in {threads_s:.3f} s: ids equal to the serial search's, launches {counts}")
+
+    # Debug mode: the default search stays clean; a NaN on the card raises.
+    enable_debug_mode()
+    try:
+        _ext.reset_launches()
+        dbg, dbg_s = timed(torch, lambda: idx.search(queries[:NQ_GT], sp).ids)
+        dbg_launches = {k: _ext.launches[k] for k in MAIN_KERNELS}
+        try:
+            torch.zeros(4, device=dev) / torch.zeros(4, device=dev)
+            trapped = None
+        except FloatingPointError as e:
+            trapped = str(e)
+    finally:
+        disable_debug_mode()
+    if not np.array_equal(dbg, serial) or dbg_launches != want:
+        raise AssertionError(f"workload: the search under debug mode differs or skipped a "
+                             f"kernel: {dbg_launches}")
+    if trapped is None:
+        raise AssertionError("workload: debug mode let a NaN produced on the card through")
+    if torch._C._len_torch_dispatch_stack():
+        raise AssertionError("workload: a dispatch mode stayed pushed after disable_debug_mode()")
+    out["debug"] = dict(search_s=dbg_s, launches=dbg_launches, trapped=trapped)
+    workload_log(f"debug mode: the B={NQ_GT} search ran clean in {dbg_s:.3f} s (its K1, K2 and "
+                 f"K3 outputs checked: {dbg_launches}), ids equal; 0 / 0 on the card raised "
+                 f"\"{trapped}\"")
+    del idx, wrapper
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
         return 1
-    from quake_tpu_torch import _ext
+    from quake_tpu_torch import SearchParams, _ext
 
     if os.environ.pop("QUAKE_TPU_KERNEL", None):
         log("[card] QUAKE_TPU_KERNEL unset: the main phase runs the default scan")
@@ -3625,6 +3944,11 @@ def main() -> int:
     missing = [k for k in MAIN_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
+    qd = torch.from_numpy(queries).to(dev)
+    sp = SearchParams(k=K, nprobe=main_out["nprobe"])
+    main_out["idle"] = idle_share(torch, f"f32 default, B={BATCH} at nprobe {main_out['nprobe']}",
+                                  lambda: idx._search_device_full(qd, sp))
+    del qd
 
     by_name = phase_by_name(torch, dev, idx, queries, gt, main_out["nprobe"],
                             main_out["recall"])
@@ -3643,6 +3967,7 @@ def main() -> int:
     del bf16_idx
     torch.cuda.empty_cache()
     spill = phase_spill(torch, dev, x, queries, gt, idx)
+    workload = phase_workload(torch, dev, x, queries)
     del x
     torch.cuda.empty_cache()
     mutation = phase_mutation(torch, dev, idx, queries, main_out["nprobe"],
@@ -3654,8 +3979,8 @@ def main() -> int:
     maintenance = phase_maintenance(torch, dev, queries, main_out["nprobe"])
     log("[summary] " + json.dumps(dict(main_out, by_name=by_name, direct=direct,
                                        latency=latency, wide=wide, headline_bf16=headline,
-                                       aps=aps, spill=spill, mutation=mutation,
-                                       maintenance=maintenance)))
+                                       aps=aps, spill=spill, workload=workload,
+                                       mutation=mutation, maintenance=maintenance)))
 
     if len(kernels) != len(ENTRIES):
         raise AssertionError(f"the kernels line needs {len(ENTRIES)} entries, got {len(kernels)}")

@@ -13,9 +13,10 @@ use; `QuakeIndex.add`, `remove`, `modify`, `get`, `validate` and
 (APS); cost-based maintenance (`maintenance/`: the hit window every search
 feeds, the latency grid, profiled on the card at build where asked,
 `QuakeIndex.maintenance()`); `save` and `load` in the JAX package's
-format. Entry points run on the card unless the caller
-passes `device="cpu"`, where every kernel wrapper runs its plain PyTorch
-version. This package imports neither JAX nor quake_tpu.
+format; and the tooling: index wrappers (`wrappers/`), dynamic workloads
+(`workload/`), profiling, datasets and debug mode. Entry points run on the
+card unless the caller passes `device="cpu"`, where every kernel wrapper
+runs its plain PyTorch version. This package imports neither JAX nor quake_tpu.
 """
 
 from quake_tpu_torch.convert import index_from_numpy

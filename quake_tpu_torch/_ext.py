@@ -18,8 +18,11 @@ bf16 codes grouped_scan_bf16, and on the budget grid of the masked APS scans
 grouped_scan_budget and grouped_scan_budget_bf16, K2
 merge_positions, K3 flat_topk, K4 rowscale_topk, K5 rowscale_fold, K6
 exact_topk, K7 chunk_merge, K8 raw_scores, K9 packed_topk, and sized_topk and
-multi_topk). A wrapper adds one where it launches its kernel and nowhere
-else, so a run can show that a path went through the kernels.
+multi_topk). A wrapper calls ``launched`` where it launches its kernel and
+nowhere else, so a run can show that a path went through the kernels; the
+count is taken under a lock, as threads may search one index at once, and
+in debug mode ``launched`` checks the kernel's floating outputs for NaNs
+(debug.py).
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+
+from quake_tpu_torch import debug
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -106,11 +111,21 @@ launches = dict.fromkeys(KERNELS, 0)
 
 _lib = None
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
-        launches[name] = 0
+    with _count_lock:
+        for name in KERNELS:
+            launches[name] = 0
+
+
+def launched(name: str, *outputs) -> None:
+    """Count one launch of kernel `name` (a key of `launches`); in debug
+    mode, hold its floating outputs to the NaN check."""
+    with _count_lock:
+        launches[name] += 1
+    debug.check_kernel_outputs(name, *outputs)
 
 
 def _nvcc() -> str:

@@ -38,6 +38,7 @@ from quake_tpu_torch.ops.grouped_scan import QTS, grouped_scan_uses_mma
 from quake_tpu_torch.ops.scan import dedup_topk, scores_to_distances
 from quake_tpu_torch.params import (DEFAULT_INITIAL_SEARCH_FRACTION, IndexBuildParams,
                                      MaintenancePolicyParams, SearchParams, check_metric)
+from quake_tpu_torch.profiling import annotate
 from quake_tpu_torch.storage.store import PartitionStore, StoreState, _bucket, _sumsq
 from quake_tpu_torch.timing import (BuildTimingInfo, MaintenanceTimingInfo, ModifyTimingInfo,
                                     SearchResult, SearchTimingInfo)
@@ -274,27 +275,33 @@ class QuakeIndex:
           job_enqueue      = enqueueing the search's launches
           job_wait         = device execution + the id copy back to the host
           result_aggregate = the distance copy and conversion
+        each labelled for a trace (profiling.annotate: quake.buffer_init,
+        quake.dispatch, quake.device_wait, quake.aggregate).
         """
         t0 = _now_ns()
         sp = search_params or SearchParams()
-        self._flush_mutations()
-        x = to_f32(x)
-        if x.ndim == 1:
-            x = x[None, :]
-        if x.shape[1] != self.d():
-            raise ValueError(f"query dimension {x.shape[1]} != index dimension {self.d()}")
-        q = torch.from_numpy(x).to(self.device)
+        with annotate("quake.buffer_init"):
+            self._flush_mutations()
+            x = to_f32(x)
+            if x.ndim == 1:
+                x = x[None, :]
+            if x.shape[1] != self.d():
+                raise ValueError(f"query dimension {x.shape[1]} != index dimension {self.d()}")
+            q = torch.from_numpy(x).to(self.device)
         t1 = _now_ns()
-        _, ids32, timing, dists = self._search_device_full(q, sp)
+        with annotate("quake.dispatch"):
+            _, ids32, timing, dists = self._search_device_full(q, sp)
         t2 = _now_ns()
-        ids_np = ids32.cpu().numpy().astype(np.int64)  # waits for the device
+        with annotate("quake.device_wait"):
+            ids_np = ids32.cpu().numpy().astype(np.int64)  # waits for the device
         t3 = _now_ns()
-        scanned_dev = getattr(timing, "_scanned_dev", None)
-        if scanned_dev is not None:  # APS: read after the wait above
-            sc = scanned_dev.cpu().numpy()
-            timing.partitions_scanned = int(sc.mean()) if sc.size else 0
-            timing._scanned_dev = None
-        dists_np = dists.cpu().numpy()
+        with annotate("quake.aggregate"):
+            scanned_dev = getattr(timing, "_scanned_dev", None)
+            if scanned_dev is not None:  # APS: read after the wait above
+                sc = scanned_dev.cpu().numpy()
+                timing.partitions_scanned = int(sc.mean()) if sc.size else 0
+                timing._scanned_dev = None
+            dists_np = dists.cpu().numpy()
         t4 = _now_ns()
         timing.buffer_init_time_ns = t1 - t0
         timing.job_enqueue_time_ns = t2 - t1

@@ -105,7 +105,7 @@ def flat_topk(codes2d, bias, q, k: int, metric: str, fold: int = 128):
         B, N, D, k, int(metric == "l2"), slot_mult, float(levels),
         _ext.stream_ptr(q.device))
     _ext.check(rc, "flat_topk")
-    _ext.launches["flat_topk"] += 1
+    _ext.launched("flat_topk")
     return out
 
 

@@ -179,7 +179,7 @@ def chunk_merge(gp, group_size, qg, codes, norms, kk: int, ct: int, slot_mult: i
         norms.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), Gn, qt, D, P, C, ct, kk,
         int(metric == "l2"), float(slot_mult), float(levels), _ext.stream_ptr(qg.device))
     _ext.check(rc, "chunk_merge")
-    _ext.launches["chunk_merge"] += 1
+    _ext.launched("chunk_merge", out_s)
     return out_s, out_i
 
 

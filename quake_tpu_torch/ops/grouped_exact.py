@@ -155,7 +155,7 @@ def exact_scan(gp, qg, codes, kk: int, metric: str, mode: str, group_size=None, 
         Gn, qt, D, P, C, kk, int(metric == "l2"), int(mode == "id"),
         _ext.stream_ptr(qg.device))
     _ext.check(rc, "exact_topk")
-    _ext.launches["exact_topk"] += 1
+    _ext.launched("exact_topk", out_s)
     return out_s, out_i
 
 

@@ -221,7 +221,7 @@ def rowscale_scan(gp, group_size, qg, codes, norms, kk: int, slot_mult: int, lev
                                          P, *tail)
     name = "rowscale_topk" if select == "topk" else "rowscale_fold"
     _ext.check(rc, name)
-    _ext.launches[name] += 1
+    _ext.launched(name, out, stats)
     return out, stats
 
 

@@ -196,7 +196,7 @@ def grouped_scan_kernel(gp, group_size, qg, codes, normsT, kk: int,
         normsT.data_ptr(), out.data_ptr(), Gn, qt, D, P, C, kk,
         float(slot_mult), float(levels), _ext.stream_ptr(qg.device))
     _ext.check(rc, name)
-    _ext.launches[name.replace("grouped_scan", "grouped_scan_budget") if budget else name] += 1
+    _ext.launched(name.replace("grouped_scan", "grouped_scan_budget") if budget else name, out)
     return out
 
 
@@ -259,7 +259,7 @@ def merge_positions(m_packed, kfin: int, slot_mult: int, fold: int = FOLD):
                                        pool_lane_mult(pool), 1.0 / slot_mult,
                                        _ext.stream_ptr(m_packed.device))
     _ext.check(rc, "merge_positions")
-    _ext.launches["merge_positions"] += 1
+    _ext.launched("merge_positions")
     return out
 
 

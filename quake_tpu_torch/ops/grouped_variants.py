@@ -147,7 +147,7 @@ def raw_scores(gp, qg, codes, ids, metric: str):
                                   out.data_ptr(), Gn, qt, D, P, C, int(metric == "l2"),
                                   _ext.stream_ptr(qg.device))
     _ext.check(rc, "raw_scores")
-    _ext.launches["raw_scores"] += 1
+    _ext.launched("raw_scores", out)
     return out
 
 
@@ -314,7 +314,7 @@ def sized_topk(gp, group_size, qg, codes, kk: int, metric: str, ct: int = 256):
                                   codes.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), Gn, qt,
                                   D, P, C, kk, int(metric == "l2"), _ext.stream_ptr(qg.device))
     _ext.check(rc, "sized_topk")
-    _ext.launches["sized_topk"] += 1
+    _ext.launched("sized_topk", out_s)
     return out_s, out_i
 
 
@@ -435,7 +435,7 @@ def packed_topk(gp, qg, codes, ids, kk: int, metric: str):
                                    int(metric == "l2"), slot_bits_of(C),
                                    _ext.stream_ptr(qg.device))
     _ext.check(rc, "packed_topk")
-    _ext.launches["packed_topk"] += 1
+    _ext.launched("packed_topk")
     return out
 
 
@@ -587,7 +587,7 @@ def multi_topk(gp, qg, codes, ids, kk: int, metric: str, gb: int = 8):
                                   out_s.data_ptr(), out_i.data_ptr(), Gn, qt, D, P, C, kk,
                                   int(metric == "l2"), gb, _ext.stream_ptr(qg.device))
     _ext.check(rc, "multi_topk")
-    _ext.launches["multi_topk"] += 1
+    _ext.launched("multi_topk", out_s)
     return out_s, out_i
 
 

@@ -29,22 +29,13 @@ sys.path.insert(0, os.getcwd())
 REPS = 5
 
 
-def device_us(evt) -> float:
-    """Self device time of a profiler average of device events (kernels,
-    copies, sets; the attribute's name moved across torch versions)."""
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        v = getattr(evt, name, None)
-        if v is not None:
-            return float(v)
-    return 0.0
-
-
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
     from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams
+    from quake_tpu_torch.profiling import device_summary
 
     if not torch.cuda.is_available():
         print("aps_breakdown: no CUDA device", file=sys.stderr)
@@ -70,10 +61,7 @@ def main() -> int:
                 idx._search_device_full(q, sp)
             torch.cuda.synchronize()
             host_ms = (time.perf_counter() - t0) * 1e3 / REPS
-        kernels = sorted(((e.key, device_us(e) / 1e3 / REPS) for e in prof.key_averages()
-                          if str(e.device_type).endswith("CUDA") and device_us(e) > 0),
-                         key=lambda kv: -kv[1])
-        busy = sum(ms for _, ms in kernels)
+        busy, kernels = device_summary(prof, REPS)
         if busy <= 0:
             print(json.dumps({"mode": name, "card": card, "device_time": "not measured: the "
                               "profiler recorded no device time", "host_ms": host_ms}))

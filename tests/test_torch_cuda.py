@@ -2003,3 +2003,43 @@ def test_spilled_index_on_the_card_matches_its_cpu_load(dev, tmp_path):
     built.build(x, None, IndexBuildParams(nlist=32, spill=True))
     assert built.validate()
     _two_copies_apart(built)
+
+
+def test_concurrent_searches_cuda(dev):
+    """tests/test_stress.py::test_concurrent_searches on one CUDA index: 8
+    threads search at once, each result equal to the serial one; every
+    search launches K1, K2 and K3 once (the counts lose no update) and
+    records its queries into the hit window."""
+    import threading
+
+    from quake_tpu_torch import IndexBuildParams, MaintenancePolicyParams, QuakeIndex
+    from quake_tpu_torch import SearchParams
+
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((20_000, 32)).astype(np.float32)
+    idx = QuakeIndex(device=dev)
+    idx.build(x, np.arange(20_000, dtype=np.int64), IndexBuildParams(nlist=16))
+    idx.initialize_maintenance_policy(MaintenancePolicyParams(window_size=100_000))
+    q = rng.standard_normal((64, 32)).astype(np.float32)
+    sp = SearchParams(k=10, nprobe=8)
+    expected = idx.search(q, sp).ids
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    results = [None] * 8
+
+    def worker(i):
+        results[i] = [idx.search(q, sp).ids for _ in range(4)]
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    for r in results:
+        for ids in r:
+            np.testing.assert_array_equal(ids, expected)
+    for name in ("grouped_scan", "merge_positions", "flat_topk"):
+        assert _ext.launches[name] == 32, (name, _ext.launches[name])
+    assert idx.maintenance_policy.hit_count_tracker.get_num_queries_recorded() == 33 * 64

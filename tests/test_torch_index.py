@@ -483,7 +483,9 @@ def test_imports_without_jax():
         assert idmap._lib is None  # nothing is built at import
         for m in ("coordinator", "ops.grouped", "ops.grouped_family", "ops.grouped_scan",
                   "ops.grouped_exact", "ops.grouped_chunked", "ops.grouped_variants",
-                  "native", "native.idmap"):
+                  "native", "native.idmap", "wrappers.quake", "wrappers.faiss_ivf",
+                  "workload.generator", "workload.evaluator", "datasets", "debug",
+                  "profiling"):
             assert "quake_tpu_torch." + m in sys.modules, m
         print("ok")
     """)
