@@ -92,7 +92,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
              packed, and the rows of K4-K9, sized_topk and multi_topk name
              the body the launcher picked, which must be the tensor-core
              one), and the share of K1's time that its selection takes (K1
-             against a build of its body without the selection).
+             against a build of its body without the selection). Then K1
+             under bounds="sampled" (the key's scale from a sample of real
+             scores, an option of v8-v11 and v10b) at the main shapes
+             against its plain version, timed beside the analytic scale,
+             and v11's recall@10 of the 1024 queries at the main nprobe
+             under both bounds (a `[sampled]` line; the grouped_scan entry
+             of the kernels line carries it as "sampled").
 11. headline bf16 — bench.py's headline serving mode: the same corpus
              built through QuakeIndex with precision="bf16" (bf16 codes,
              the f32 parent: K1's bf16 body, K2, K3), the smallest nprobe
@@ -151,7 +157,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
              timed there with stages, QPS at equal recall; the spilled
              batch launches K1 and K3 once each and no K2 (the dedup tail's
              top-2k replaces it), no id twice in any row, and every K1 and
-             K3 call of that counted batch against its plain version. B=8
+             K3 call of that counted batch against its plain version; K1
+             under bounds="sampled" on the spilled store and v11's recall@10
+             at nprobe 9 under both bounds (a `[sampled]` line). B=8
              query-major (grouped_scan_xla with dedup) on the host clock;
              APS planned and loop at target 0.9 (recall@10 gates 0.85,
              B=4096 ms, launches), every K1 and K2 call of each counted
@@ -197,17 +205,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
              are freed: the main configuration built afresh (the same corpus,
              nlist=160, niter=25, f32) with profile_maintenance_latency=True,
              so that the build times K1 and K2 (the default v11 scan) at every
-             point of the latency grid (the profile's seconds and launches;
-             the analytic / profiled ratio at n = 1024, 4096, 16384, k = 16;
-             K1 and K2 of the grid point n = 4096, k = 16 against their
-             plain versions with phase 10's gates). Traffic: the 4 smallest
+             point of the latency grid in device time (the profile's seconds
+             and launches; the analytic / profiled and the packaged /
+             profiled ratios at n = 1024, 4096, 16384, k = 16; K1 and K2 of
+             the grid point n = 4096, k = 16 against their plain versions
+             with phase 10's gates). A save and a load carry the profiled
+             grid into the loaded index's policy (read from its CSV, the grid
+             equal at rtol 1e-5). The index then takes the policy a default
+             build sets on the card, on the packaged H100 grid
+             (packaged(d=128,scale=1.000)).
+             Traffic: the 4 smallest
              partitions age out through QuakeIndex.remove (16 vectors left in
              each: below min_partition_size, so no delete rejection runs for
              them); one B=1024 search at the main nprobe, 90% jittered copies
              of vectors of the 8 largest partitions and 10% of the uniform
              queries, fills the default 1000-query window through the search
              path (K3, K1 and K2 launch once each). Round A: maintenance()
-             with the policy the build set (splits, deletes, delete
+             on the packaged grid (splits, deletes, delete
              candidates simulated, each stage's time). Round B: the
              mechanisms on named rows, each timed: the aged partitions
              deleted with reassignment, split_partitions of the 8 largest
@@ -219,8 +233,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
              uniform queries and of the skewed batch against an exact ground
              truth of the store's vectors. Then K1, K2 and K3 against their
              plain versions at the maintained store's inputs, and a save and
-             a load (the grid round-trips, the loaded index has a fresh
-             policy on it). `[maintenance]` lines on stderr.
+             a load (the loaded index has a fresh policy on the packaged
+             grid). `[maintenance]` lines on stderr.
 16. workload — (run after phase 13, while the corpus lives)
              regression/configs/sift1m_balanced.yaml's dynamic workload
              through the port's tooling: DynamicWorkloadGenerator over the
@@ -244,8 +258,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
              search's, no launch lost), and a B=1024 search under debug
              mode runs clean while a NaN produced on the card raises.
              `[workload]` lines: generation and build seconds, ms per
-             insert, delete and query, maintenance ms, splits and deletes,
-             recall@10, launches per query op.
+             insert, delete and query, maintenance ms, splits and deletes
+             (under the policy's default latency grid, which the line names:
+             the packaged H100 grid on the card), recall@10, launches per
+             query op.
+17. multilevel — (run after phase 12) multi-level parents: the corpus built
+             with default IndexBuildParams at nlist 4096 under an IVF parent
+             of nlist 64 (parent_params; three levels), beside the same
+             nlist under the default flat parent. For each: build seconds,
+             validate() and contract 6 at every level; recall@10 of the 1024
+             queries against the exact ground truth and ms per B=4096 batch
+             at nprobe 16, 32 and 64; the launches of one fixed-nprobe batch
+             (over the flat parent the fused path: K3 at N = 4096, K1, and
+             K2 where the pool merges on it; over the IVF parent none, the
+             leaf on the "xla" scan as in the JAX package); APS at target
+             0.9 in aps_mode auto and planned (recall, ms, partitions
+             scanned, launches); every K1, K2 and K3 call of a planned batch
+             (and of the fused batch) against its plain version. Then the
+             3-level index's add / remove round: a flood that splits the
+             largest leaf partition with C held, which changes the mid
+             level's centroids, the flood removed, the gates of every level
+             after each step; a save and a load that return the same ids.
+             `[multilevel]` lines on stderr.
 
 Progress goes to stderr. Standard output holds three lines: the JSON list
 of kernels, the card's name and power limit, and last
@@ -346,6 +380,7 @@ APS_ANCHOR = (16, 32, 64)
 MAINT_AGED, MAINT_KEEP, MAINT_HOT = 4, 16, 8
 MAINT_SKEW, MAINT_JITTER, MAINT_SEED = 0.9, 0.1, 23
 MAINT_RATIO_N = (1024, 4096, 16384)
+MAINT_PACKAGED = "packaged(d=128,scale=1.000)"  # the default grid of a CUDA index at D = 128
 MAINT_GRID_QUERIES = 1024
 # The spill phase: SOAR's weight; the nprobe grids on which the spilled and
 # the unspilled index read their recall (the unspilled one's wider: it needs
@@ -356,11 +391,18 @@ MAINT_GRID_QUERIES = 1024
 # the APS modes run on the spilled index (oneshot runs planned there: a
 # spilled build does not calibrate); the mutation's adds, removes and
 # modifies and their seed; the query-major batch; the partitions deleted.
+ML_NLIST, ML_PARENT_NLIST = 4096, 64  # the multilevel phase's leaf and mid level
+ML_NPROBES = (16, 32, 64)
+ML_BATCH = 4096
+ML_TARGET = 0.9
+ML_APS_MODES = ("auto", "planned")
+ML_SEED = 41
 SPILL_LAMBDA = 1.0
 SPILL_NPROBES = (3, 4, 5, 6, 7, 9, 12, 16, 24)
 UNSPILLED_NPROBES = (3, 4, 5, 6, 7, 9, 10, 11, 12, 14, 16, 24)
 SPILL_GATE_NPROBE, SPILL_EXACT_NPROBES = 6, (6, 12)
 SPILL_TARGETS = (0.90, 0.95)
+SPILL_SAMPLED_NPROBE = 9  # v11 under both bounds on the spilled store, at the f32 headline nprobe
 SPILL_APS_MODES = ("planned", "loop")
 SPILL_ADD, SPILL_REMOVE, SPILL_MODIFY, SPILL_SEED = 100_000, 50_000, 1_000, 29
 SPILL_SMALL_B, SPILL_DELETE = 8, 4
@@ -2013,7 +2055,53 @@ def k1_args(idx, q, pids):
                      inp["slot_mult"], inp["levels"])
 
 
-def phase_kernels(torch, dev, idx, x, queries, nprobe, launches, by_name, direct, k1_build):
+def sampled_bounds(torch, dev, idx, queries, gt, nprobe, what: str) -> dict:
+    """bounds="sampled" (the key's scale from a sample of real scores, an
+    option of v8-v11 and v10b that no index path sets): K1 at idx's B=BATCH
+    v11 shapes under the sampled scale against its plain version
+    (compare_k1's gates) and timed beside K1 under the analytic one; v11's
+    recall@10 of the NQ_GT queries at nprobe under both bounds, called on
+    idx's store (dedup on a spilled store), against the exact ground truth
+    gt. Not a default: the JAX package's index never sets it."""
+    from quake_tpu_torch.ops.grouped_scan import (global_bounds, grouped_scan_kernel,
+                                                  grouped_scan_plain, grouped_scan_v11,
+                                                  v11_inputs)
+    from quake_tpu_torch.utils import compute_recall
+
+    st = idx.store.state
+    q = torch.from_numpy(queries[:BATCH]).to(dev)
+    pids = probe_lists(torch, idx, q, nprobe)
+    qt = idx._grouped_params(BATCH, nprobe)[0]
+    gpb = int(idx._grouped_kernel()[len("v11g"):])
+    out = {}
+    for bounds in ("analytic", "sampled"):
+        inp = v11_inputs(st.codes, st.sizes, st.norms, q, pids, K, "l2", qt, gpb, bounds)
+        args = (inp["gp"], inp["group_size"], inp["qg"], st.codes, inp["normsT"], inp["kk"],
+                inp["slot_mult"], inp["levels"])
+        r = dict(ms=time_ms(torch, lambda: grouped_scan_kernel(*args)))
+        if bounds == "sampled":
+            r["overlap"], r["max_abs_err"] = compare_k1(torch, grouped_scan_kernel,
+                                                        grouped_scan_plain, *args)
+        gmin, grange = global_bounds(q, st.norms, "l2", bounds, st.codes, st.sizes)
+        r.update(gmin=float(gmin), grange=float(grange))
+        q1 = q[:NQ_GT]
+        _, ids, _ = grouped_scan_v11(st.codes, st.ids, st.sizes, st.norms, q1, pids[:NQ_GT], K,
+                                     "l2", qt=idx._grouped_params(NQ_GT, nprobe)[0], gpb=gpb,
+                                     dedup=idx.spill, bounds=bounds)
+        r["recall"] = compute_recall(ids.cpu().numpy(), gt, K)
+        out[bounds] = r
+    a, b = out["analytic"], out["sampled"]
+    log(f"[sampled] ({card_line()}) {what}, B={BATCH}, nprobe {nprobe}, C {st.codes.shape[1]}: "
+        f"K1 under bounds=\"sampled\" against its plain version: overlap {b['overlap']:.4f}, "
+        f"max key diff {b['max_abs_err']}; K1 {b['ms']:.4f} ms (analytic {a['ms']:.4f}); the "
+        f"scale's range {b['grange']:.4g} (analytic {a['grange']:.4g}: "
+        f"{a['grange'] / b['grange']:.2f}x the levels a unit of score); v11 recall@10 of "
+        f"{NQ_GT} queries analytic {a['recall']:.4f}, sampled {b['recall']:.4f}")
+    return out
+
+
+def phase_kernels(torch, dev, idx, x, queries, nprobe, launches, by_name, direct, k1_build,
+                  gt):
     """Each kernel against its plain version at the shapes of the path it
     runs on, with times and bounds: K1-K3 on the main (v11) path (K3 also
     with K3_WIDE_N rows of the corpus x as its buffer); on the by-name paths
@@ -2086,6 +2174,7 @@ def phase_kernels(torch, dev, idx, x, queries, nprobe, launches, by_name, direct
     product_ms = time_ms(torch, launch)
     log(f"[kernel] grouped_scan: {k1_ms:.4f} ms, its loads and products alone "
         f"{product_ms:.4f} ms: selection share {1.0 - product_ms / k1_ms:.3f} of K1's time")
+    rows[-1]["sampled"] = sampled_bounds(torch, dev, idx, queries, gt, nprobe, "the main index")
 
     # K2 at the pool merge's shape (argsort placement of the B=16384 batch),
     # on the placed pool as it is; the library call is a top-k of the same
@@ -2186,7 +2275,8 @@ def kernel_entry(r: dict) -> dict:
              "max_abs_err": r["max_abs_err"], "ms": r["ms"],
              "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r["bound_by"], "bound_unit": unit, "library_ms": lib}
-    for extra in ("shape", "floor_ms", "body", "model_overlap", "model_max_abs_err"):
+    for extra in ("shape", "floor_ms", "body", "model_overlap", "model_max_abs_err",
+                  "sampled"):
         if extra in r:
             entry[extra] = r[extra]
     if "wide" in r:
@@ -3113,7 +3203,8 @@ def phase_maintenance(torch, dev, queries, nprobe):
     skewed batch, round A (maintenance()) and round B (the mechanisms on
     named rows) with their gates, the searches before and after, K1-K3 on
     the maintained store, save and load. Returns its summary."""
-    from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams, _ext
+    from quake_tpu_torch import (IndexBuildParams, MaintenancePolicyParams, QuakeIndex,
+                                 SearchParams, _ext)
     from quake_tpu_torch.maintenance import ListScanLatencyEstimator
 
     card = card_line()
@@ -3151,20 +3242,49 @@ def phase_maintenance(torch, dev, queries, nprobe):
         raise AssertionError(f"the profile was to run K1 and K2 at every one of the "
                              f"{grid_points} grid points: launches {prof_launches}")
     analytic = ListScanLatencyEstimator(D)
+    packaged = ListScanLatencyEstimator(D, device=dev)  # the default grid of a CUDA index
+    if packaged.grid_source != MAINT_PACKAGED:
+        raise AssertionError(f"the default grid on the card reads {packaged.grid_source}, not "
+                             f"{MAINT_PACKAGED}")
     ratio = {n: analytic.estimate_scan_latency(n, 16) / est.estimate_scan_latency(n, 16)
              for n in MAINT_RATIO_N}
+    ratio_p = {n: packaged.estimate_scan_latency(n, 16) / est.estimate_scan_latency(n, 16)
+               for n in MAINT_RATIO_N}
     grid_k1 = maint_grid_point(torch, dev, 4096, 16, idx._k1_qt(32))
     out = dict(build_s=build_s, profile_s=prof_s[0], profile_launches=prof_launches,
                grid_ns={str(n): [float(v) for v in row]
                         for n, row in zip(est.n_values, est.latency_grid)},
-               analytic_over_profiled=ratio, grid_point_gates=grid_k1)
-    log(f"[maintenance] ({card}) build {build_s:.2f} s with the latency profile "
-        f"{prof_s[0]:.2f} s ({grid_points} points; launches {prof_launches}); L(n, k=16) ns "
+               analytic_over_profiled=ratio, packaged_over_profiled=ratio_p,
+               grid_point_gates=grid_k1)
+    log(f"[maintenance] ({card}) build {build_s:.2f} s with the latency profile in device "
+        f"time {prof_s[0]:.2f} s ({grid_points} points; launches {prof_launches}); L(n, k=16) ns "
         + ", ".join(f"n={n}: {est.estimate_scan_latency(n, 16):.2f}" for n in est.n_values)
         + "; analytic / profiled at k=16: "
         + ", ".join(f"n={n}: {r:.3f}" for n, r in ratio.items())
+        + f"; the packaged grid ({packaged.grid_source}) / profiled at k=16: "
+        + ", ".join(f"n={n}: {r:.3f}" for n, r in ratio_p.items())
         + f"; grid point n=4096, k=16: {json.dumps(grid_k1)}")
     del x
+    # The profiled grid crosses save and load into the loaded index's
+    # policy; round A then runs with the policy a default build sets on the
+    # card (the packaged grid).
+    with tempfile.TemporaryDirectory() as tmp:
+        idx.save(tmp)
+        loaded = QuakeIndex(device=dev).load(tmp)
+    lp = loaded.latency_profile
+    if (lp is None or lp.grid_source != "csv"
+            or not np.allclose(lp.latency_grid, est.latency_grid, rtol=1e-5, atol=0)
+            or loaded.maintenance_policy is None
+            or loaded.maintenance_policy.cost_estimator.latency_estimator is not lp
+            or loaded.maintenance_policy.hit_count_tracker.get_num_queries_recorded() != 0):
+        raise AssertionError("the loaded index lost the latency grid or its fresh policy")
+    del loaded, lp
+    idx.latency_profile = None
+    idx.initialize_maintenance_policy(MaintenancePolicyParams())
+    grid_a = idx.maintenance_policy.cost_estimator.latency_estimator.grid_source
+    if grid_a != MAINT_PACKAGED:
+        raise AssertionError(f"the default policy reads {grid_a}, not {MAINT_PACKAGED}")
+    out["round_a_grid"] = grid_a
 
     # Traffic: a region ages out, then skewed reads fill the window.
     store = idx.store
@@ -3223,10 +3343,10 @@ def phase_maintenance(torch, dev, queries, nprobe):
                           rejection_us=policy.rejection_time_us,
                           gates=maint_gates(torch, idx, ids_before, ntotal, "round A"))
     a = out["round_a"]
-    log(f"[maintenance] round A ({card}): window {window} queries ({out['hot_hit_share']:.3f} of "
-        f"the hits on the {MAINT_HOT} hot rows), {len(gone)} vectors aged out of rows {aged}; "
-        f"maintenance() {a['n_splits']} splits, {a['n_deletes']} deletes, "
-        f"{a['rejection_candidates']} delete candidates simulated ({a['rejection_us'] / 1e3:.2f} "
+    log(f"[maintenance] round A ({card}; grid {grid_a}): window {window} queries "
+        f"({out['hot_hit_share']:.3f} of the hits on the {MAINT_HOT} hot rows), {len(gone)} "
+        f"vectors aged out of rows {aged}; maintenance() {a['n_splits']} splits, "
+        f"{a['n_deletes']} deletes, {a['rejection_candidates']} delete candidates simulated ({a['rejection_us'] / 1e3:.2f} "
         f"ms); delete {a['delete_us'] / 1e3:.2f} ms, split {a['split_us'] / 1e3:.2f} ms, refine "
         f"{a['refine_us'] / 1e3:.2f} ms, total {a['total_us'] / 1e3:.2f} ms; gates "
         f"{json.dumps(a['gates'])}")
@@ -3263,24 +3383,208 @@ def phase_maintenance(torch, dev, queries, nprobe):
     with tempfile.TemporaryDirectory() as tmp:
         idx.save(tmp)
         loaded = QuakeIndex(device=dev).load(tmp)
-    lp = loaded.latency_profile
-    if (lp is None or lp.grid_source != "csv"
-            or not np.allclose(lp.latency_grid, est.latency_grid, rtol=1e-5, atol=0)
-            or loaded.maintenance_policy is None
-            or loaded.maintenance_policy.cost_estimator.latency_estimator is not lp
-            or loaded.maintenance_policy.hit_count_tracker.get_num_queries_recorded() != 0):
-        raise AssertionError("the loaded index lost the latency grid or its fresh policy")
+    lpol = loaded.maintenance_policy
+    if (loaded.latency_profile is not None or lpol is None
+            or lpol.cost_estimator.latency_estimator.grid_source != MAINT_PACKAGED
+            or lpol.hit_count_tracker.get_num_queries_recorded() != 0):
+        raise AssertionError("the loaded index is not on a fresh policy with the default grid")
     del loaded
     out["s"] = time.perf_counter() - t_phase
     log(f"[maintenance] ({card}) default B={BATCH} batch ms before / after: {before['ms']:.3f} / "
         f"{after['ms']:.3f}; recall@10 uniform {before['recall_uniform']:.4f} / "
         f"{after['recall_uniform']:.4f}, skewed {before['recall_skewed']:.4f} / "
         f"{after['recall_skewed']:.4f}; nlist {NLIST} -> {idx.nlist()}; maintained store "
-        f"{gates_text(out['gates'])}; the latency grid round-trips through save and load; "
-        f"phase {out['s']:.1f} s")
+        f"{gates_text(out['gates'])}; the profiled grid crosses save and load into the loaded "
+        f"policy, the loaded index without it reads the default grid; phase {out['s']:.1f} s")
     del idx
     torch.cuda.empty_cache()
     return out
+
+
+def levels_of(idx) -> list:
+    """The index and its chain of parents, the leaf first."""
+    out = []
+    while idx is not None:
+        out.append(idx)
+        idx = idx.parent
+    return out
+
+
+def level_gates(torch, idx, what: str) -> float:
+    """validate() and contract 6 at every level, each IVF level's parent
+    holding one entry a partition; the worst relative norm error."""
+    err = 0.0
+    for lv in levels_of(idx):
+        if not lv.validate():
+            raise AssertionError(f"{what}: level {lv.level} does not validate")
+        if lv.parent is not None and lv.parent.ntotal() != lv.nlist():
+            raise AssertionError(f"{what}: level {lv.level + 1} holds {lv.parent.ntotal()} "
+                                 f"centroids for {lv.nlist()} partitions")
+        err = max(err, check_contract_6(torch, lv.store, f"{what}, level {lv.level}"))
+    return err
+
+
+def counted(torch, fn) -> dict:
+    """fn() with the launch counts set to 0 just before and read just after:
+    the kernels it launched."""
+    from quake_tpu_torch import _ext
+
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    return {k: v for k, v in _ext.launches.items() if v}
+
+
+def multilevel_index(torch, dev, x, queries, gt, three: bool) -> tuple:
+    """One index of the multilevel phase: the corpus built with default
+    IndexBuildParams at nlist ML_NLIST (calibrate_aps), under a flat parent
+    or (three) an IVF parent of ML_PARENT_NLIST; recall@10 of the NQ_GT
+    queries and ms per B=ML_BATCH batch at each of ML_NPROBES; the launches
+    of one fixed-nprobe batch (the fused path's K3, K1 and, where the pool
+    merges on it, K2 over a flat parent; none over an IVF parent, whose
+    leaf runs the "xla" scan as in the JAX package); APS at ML_TARGET in
+    aps_mode auto and planned with their launches, and every K1, K2 and K3
+    call of a planned batch (and of the fused batch) against its plain
+    version. Returns (index, summary)."""
+    from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams
+    from quake_tpu_torch.utils import compute_recall
+
+    what = "3-level" if three else "2-level"
+    bp = (IndexBuildParams(nlist=ML_NLIST, parent_params=IndexBuildParams(nlist=ML_PARENT_NLIST))
+          if three else IndexBuildParams(nlist=ML_NLIST))
+    idx = QuakeIndex(device=dev)
+    _, build_s = timed(torch, lambda: idx.build(x, np.arange(N, dtype=np.int64), bp))
+    levels = levels_of(idx)
+    if len(levels) != (3 if three else 2):
+        raise AssertionError(f"{what}: {len(levels)} levels")
+    out = dict(build_s=build_s, levels=[dict(level=lv.level, nlist=lv.nlist(), ntotal=lv.ntotal(),
+                                             C=lv.store.C) for lv in levels],
+               calibrated=dict(dense_w=idx.aps_dense_w, width_clip=idx.aps_width_clip,
+                               budget_w=idx.aps_budget_w, radius=idx.aps_radius_ab is not None),
+               norm_err=level_gates(torch, idx, f"{what} after the build"))
+    q = torch.from_numpy(queries[:ML_BATCH]).to(dev)
+    fixed = {}
+    for npb in ML_NPROBES:
+        sp = SearchParams(k=K, nprobe=npb)
+        res = idx.search(queries[:NQ_GT], sp)
+        if res.ids.shape != (NQ_GT, K) or (res.ids < 0).any() or not np.isfinite(
+                res.distances).all():
+            raise AssertionError(f"{what} at nprobe {npb}: expected {K} ids and finite "
+                                 "distances a query")
+        fixed[npb] = dict(recall=compute_recall(res.ids, gt, K),
+                          ms=time_ms(torch, lambda: idx._search_device_full(q, sp), reps=5))
+    out["fixed"] = fixed
+    sp32 = SearchParams(k=K, nprobe=32)
+    launches = counted(torch, lambda: idx._search_device_full(q, sp32))
+    want = set() if three else {"flat_topk", "grouped_scan"} | (
+        {"merge_positions"} if merges_on_k2(idx.store.C, 32, K) else set())
+    if set(launches) != want or any(v != 1 for v in launches.values()):
+        raise AssertionError(f"{what}: the fixed-nprobe batch launched {launches}, the route "
+                             f"runs {sorted(want) or 'no kernel'} once")
+    out["fixed_launches"] = launches
+    summary = {}
+    if not three:  # K3 at N = ML_NLIST slots, K1 and K2 of the fused batch
+        check_recorded(torch, f"{what} fused", recorded_calls(
+            lambda: idx._search_device_full(q, sp32)), summary)
+    aps = {}
+    for mode in ML_APS_MODES:
+        sp = SearchParams(k=K, recall_target=ML_TARGET, aps_mode=mode)
+        r = time_aps(torch, idx, q, sp)
+        r["recall"] = compute_recall(idx.search(queries[:NQ_GT], sp).ids, gt, K)
+        r["launches"] = counted(torch, lambda: idx._search_device_full(q, sp))
+        aps[mode] = r
+    out["aps"] = aps
+    planned = SearchParams(k=K, recall_target=ML_TARGET, aps_mode="planned")
+    check_recorded(torch, f"{what} planned", recorded_calls(
+        lambda: idx._search_device_full(q, planned)), summary)
+    if not any(name.startswith("grouped_scan") for name in summary):
+        raise AssertionError(f"{what}: the planned APS batch ran no K1: {summary}")
+    out["gates"] = summary
+    ml_log(f"{what}: build {build_s:.2f} s, levels "
+           + " / ".join(f"{lv['nlist']} partitions of C {lv['C']}" for lv in out["levels"])
+           + f"; calibrated {json.dumps(out['calibrated'])}; recall@10 / ms per B={ML_BATCH} "
+           + ", ".join(f"nprobe {n}: {v['recall']:.4f} / {v['ms']:.3f}" for n, v in fixed.items())
+           + f"; fixed-nprobe launches {launches}; APS at {ML_TARGET} "
+           + ", ".join(f"{m}: recall {v['recall']:.4f}, {v['ms']:.3f} ms, scanned "
+                       f"{v['scanned']:.2f}, launches {v['launches']}" for m, v in aps.items())
+           + f"; calls against their plain versions {json.dumps(summary)}")
+    return idx, out
+
+
+def multilevel_mutation(torch, dev, idx, queries) -> dict:
+    """The 3-level index's add / remove round: a flood of tight copies of the
+    largest leaf partition's centroid, sized past C and the split cap, that
+    the leaf splits (its parent, the IVF mid level, loses the old centroid
+    and takes the new ones through its own remove and add); the flood
+    removed; the gates of every level after each step; then a save and a
+    load that returns the same ids."""
+    from quake_tpu_torch import QuakeIndex, SearchParams
+
+    store, mid = idx.store, idx.parent
+    C0, nlist0 = store.C, idx.nlist()
+    mid_ids0 = set(mid.get_ids().tolist())
+    sizes = store.partition_sizes()
+    target = int(np.argmax(sizes))
+    n_flood = max(C0, split_cap(idx.ntotal() + 2 * C0, nlist0)) - int(sizes[target]) + \
+        MUTATION_FLOOD_OVER
+    cent = store.state.centroids[target].cpu().numpy()
+    rng = np.random.default_rng(ML_SEED)
+    flood = (cent + 1e-3 * rng.standard_normal((n_flood, D))).astype(np.float32)
+    flood_ids = np.arange(5 * N, 5 * N + n_flood, dtype=np.int64)
+    _, add_s = timed(torch, lambda: idx.add(flood, flood_ids))
+    mid_ids = set(mid.get_ids().tolist())
+    if store.C != C0 or idx.nlist() <= nlist0 or mid_ids == mid_ids0:
+        raise AssertionError(f"the flood was to split leaf partition {target} with C={C0} held "
+                             f"and change the mid level: C {store.C}, nlist {nlist0} -> "
+                             f"{idx.nlist()}, mid-level ids changed {mid_ids != mid_ids0}")
+    out = dict(flood=n_flood, add_s=add_s, nlist_after=idx.nlist(),
+               mid_level=dict(removed=len(mid_ids0 - mid_ids), added=len(mid_ids - mid_ids0),
+                              nlist=mid.nlist()),
+               norm_err=level_gates(torch, idx, "3-level after the flood"))
+    _, out["remove_s"] = timed(torch, lambda: idx.remove(flood_ids))
+    out["norm_err_removed"] = level_gates(torch, idx, "3-level after the removal")
+    if idx.ntotal() != N:
+        raise AssertionError(f"3-level after the removal: ntotal {idx.ntotal()}")
+    sp = SearchParams(k=K, nprobe=32)
+    with tempfile.TemporaryDirectory() as tmp:
+        _, out["save_s"] = timed(torch, lambda: idx.save(tmp))
+        loaded, out["load_s"] = timed(torch, lambda: QuakeIndex(device=dev).load(tmp))
+    if len(levels_of(loaded)) != 3 or not np.array_equal(
+            loaded.search(queries[:NQ_GT], sp).ids, idx.search(queries[:NQ_GT], sp).ids):
+        raise AssertionError("the loaded 3-level index returns other ids")
+    level_gates(torch, loaded, "the loaded 3-level index")
+    ml_log(f"3-level add / remove: a flood of {n_flood} into leaf partition {target} split it "
+           f"({nlist0} -> {out['nlist_after']} partitions, C {C0} held; the mid level lost "
+           f"{out['mid_level']['removed']} and took {out['mid_level']['added']} centroids) in "
+           f"{add_s:.3f} s; removed in {out['remove_s']:.3f} s; every level validates; save "
+           f"{out['save_s']:.2f} s, load {out['load_s']:.2f} s, the same ids")
+    return out
+
+
+def phase_multilevel(torch, dev, x, queries, gt) -> dict:
+    """Multi-level parents at full width (phase 17 of the module's
+    docstring): the corpus at nlist ML_NLIST under an IVF parent of
+    ML_PARENT_NLIST (three levels) beside the same nlist under a flat parent
+    (the fused path, K3 at N = ML_NLIST), each through multilevel_index; the
+    3-level index's add / remove round and save / load. Returns its
+    summary."""
+    t0 = time.perf_counter()
+    idx3, three = multilevel_index(torch, dev, x, queries, gt, three=True)
+    three["mutation"] = multilevel_mutation(torch, dev, idx3, queries)
+    del idx3
+    torch.cuda.empty_cache()
+    idx2, two = multilevel_index(torch, dev, x, queries, gt, three=False)
+    del idx2
+    torch.cuda.empty_cache()
+    out = {"3-level": three, "2-level": two, "s": time.perf_counter() - t0}
+    ml_log(f"phase {out['s']:.1f} s")
+    return out
+
+
+def ml_log(msg: str) -> None:
+    """A `[multilevel]` line on stderr, beside the card's name and power limit."""
+    log(f"[multilevel] ({card_line()}) {msg}")
 
 
 def spill_log(msg: str) -> None:
@@ -3543,6 +3847,8 @@ def phase_spill(torch, dev, x, queries, gt, f32_idx) -> dict:
 
     out["fixed"] = spill_search(torch, dev, idx, f32_idx, queries, gt)
     n90 = out["fixed"]["nprobe"]["spill@0.9"]
+    out["sampled"] = sampled_bounds(torch, dev, idx, queries, gt, SPILL_SAMPLED_NPROBE,
+                                    "the spilled index")
     out.update(spill_small_and_aps(torch, dev, idx, queries, gt, n90))
     sp = SearchParams(k=K, nprobe=n90)
 
@@ -3805,6 +4111,7 @@ def phase_workload(torch, dev, x, queries, n_ops: int = WORKLOAD_OPS) -> dict:
                recall_mean=float(np.mean(recalls)), recall_min=float(np.min(recalls)),
                recall_last=recalls[-1], nlist_end=idx.nlist(), ntotal_end=idx.ntotal(),
                C_end=idx.store.C,
+               grid=idx.maintenance_policy.cost_estimator.latency_estimator.grid_source,
                launches_per_query_op={k: v / max(len(wrapper.per_query), 1)
                                       for k, v in launched.items()})
     wrong = [i for i, p in enumerate(wrapper.per_query)
@@ -3838,7 +4145,8 @@ def phase_workload(torch, dev, x, queries, n_ops: int = WORKLOAD_OPS) -> dict:
         f"{pt['delete']['mean_ms']:.3f}, query {pt['query']['mean_ms']:.3f} (B="
         f"{WORKLOAD['query_batch_size']}, nprobe {WORKLOAD_SEARCH['nprobe']}); maintenance "
         f"{out['maintenance_ms_mean']:.3f} ms an operation (max {out['maintenance_ms_max']:.1f}, "
-        f"{out['splits']} splits, {out['deletes']} deletes in all); recall@10 mean "
+        f"{out['splits']} splits, {out['deletes']} deletes in all, latency grid "
+        f"{out['grid']}); recall@10 mean "
         f"{out['recall_mean']:.4f}, min {out['recall_min']:.4f}, last {out['recall_last']:.4f}; "
         f"launches per query op {json.dumps(out['launches_per_query_op'])} (K2 on "
         f"{out['query_ops_on_k2']} query ops, where the pool merges on it); nlist "
@@ -3958,7 +4266,7 @@ def main() -> int:
     phase_small_reference(torch, dev)
     wide = phase_wide(torch, dev)
     kernels = phase_kernels(torch, dev, idx, x, queries, main_out["nprobe"], launches, by_name,
-                            direct, k1_build)
+                            direct, k1_build, gt)
     headline, k1_bf16, bf16_idx = phase_headline_bf16(torch, dev, x, queries, gt, idx, k1_build)
     kernels.append(k1_bf16)
     k1_build[0].cleanup()
@@ -3966,6 +4274,7 @@ def main() -> int:
     kernels.extend(k1_budget)
     del bf16_idx
     torch.cuda.empty_cache()
+    multilevel = phase_multilevel(torch, dev, x, queries, gt)
     spill = phase_spill(torch, dev, x, queries, gt, idx)
     workload = phase_workload(torch, dev, x, queries)
     del x
@@ -3979,7 +4288,8 @@ def main() -> int:
     maintenance = phase_maintenance(torch, dev, queries, main_out["nprobe"])
     log("[summary] " + json.dumps(dict(main_out, by_name=by_name, direct=direct,
                                        latency=latency, wide=wide, headline_bf16=headline,
-                                       aps=aps, spill=spill, workload=workload,
+                                       aps=aps, multilevel=multilevel, spill=spill,
+                                       workload=workload,
                                        mutation=mutation, maintenance=maintenance)))
 
     if len(kernels) != len(ENTRIES):

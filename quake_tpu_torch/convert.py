@@ -1,10 +1,12 @@
 """Carry a store across from numpy arrays.
 
-`index_from_numpy` turns the arrays of an index's store and of its parent's
-store (`codes`, `ids`, `sizes`, `centroids`, `active`, `norms`, each a numpy
+`index_from_numpy` turns the arrays of an index's store and of its parents'
+stores (`codes`, `ids`, `sizes`, `centroids`, `active`, `norms`, each a numpy
 array in the JAX package's layout) into a QuakeIndex of this package, so the
 two packages can run on one and the same store. A flat index has one
-partition and no parent.
+partition and no parent; a two-level index has one parent, flat; an index of
+three levels or more has a chain of parents, each an IVF index over the
+centroids of the level below, the last one flat.
 
 The host bookkeeping of a store that has been mutated is not in its arrays:
 the order in which freed rows are taken again, the per-row generation
@@ -26,15 +28,16 @@ as `id_map` and `spill_map`, each a (keys, rows) pair (the JAX store's
 `id_map.items()` and `spill_map.items()`). `index_from_numpy` marks the
 index spilled where the store is, with the given `soar_lambda`.
 
-Maintenance adds no field here: an IVF index made here gets a fresh policy
-with an empty hit window and the analytic latency model, as a load does
+Maintenance adds no field here: each IVF level made here gets a fresh
+policy with an empty hit window and the default latency grid (the packaged
+H100 grid on a CUDA device, the analytic model on the CPU), as a load does
 without latency_profile.csv. A latency grid crosses between the packages
 through `save` and `load` (latency_profile.csv, the same bytes in both).
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -91,28 +94,40 @@ def store_from_numpy(arrays: Mapping[str, np.ndarray], device) -> PartitionStore
 
 
 def index_from_numpy(state: Mapping[str, np.ndarray],
-                     parent_state: Optional[Mapping[str, np.ndarray]], metric: str = "l2",
-                     device=None, build_params: Optional[IndexBuildParams] = None,
+                     parent_state: Union[Mapping[str, np.ndarray],
+                                         Sequence[Mapping[str, np.ndarray]], None],
+                     metric: str = "l2", device=None,
+                     build_params: Optional[IndexBuildParams] = None,
                      soar_lambda: float = 1.0) -> QuakeIndex:
     """A QuakeIndex over the given store arrays (and bookkeeping and maps,
-    see the module's docstring): two levels (index and flat parent), or a
-    flat index when parent_state is None. device=None means CUDA, as for
-    QuakeIndex. build_params, where given, carries the source index's
-    parameters (its mutation_buffer_size, for one); soar_lambda is a spilled
-    index's SOAR weight (what its adds assign with)."""
+    see the module's docstring): a flat index where parent_state is None,
+    two levels (index and flat parent) where it is one mapping, and one
+    level more for each further mapping where it is a sequence of them,
+    from the level just above the index to the flat top. device=None means
+    CUDA, as for QuakeIndex. build_params, where given, carries the source
+    index's parameters (its mutation_buffer_size, for one); soar_lambda is a
+    spilled index's SOAR weight (what its adds assign with)."""
     index = QuakeIndex(device=device)
     index.metric = check_metric(metric)
     index.build_params = build_params
     index.store = store_from_numpy(state, index.device)
     index.spill = index.store.spill
     index.soar_lambda = float(soar_lambda)
-    if parent_state is not None:
-        parent = store_from_numpy(parent_state, index.device)
-        if parent.dtype == torch.bfloat16:
+    if parent_state is None:
+        return index
+    chain = [parent_state] if isinstance(parent_state, Mapping) else list(parent_state)
+    below = index
+    for level, arrays in enumerate(chain, start=1):
+        store = store_from_numpy(arrays, index.device)
+        if store.dtype == torch.bfloat16:
             raise NotImplementedError("a bf16 parent (kernel K3 has no bf16 body) is not ported "
                                       f"yet ({BF16_OPERANDS})")
-        index.parent = QuakeIndex(level=1, device=index.device)
-        index.parent.metric = index.metric
-        index.parent.store = parent
-        index.initialize_maintenance_policy(MaintenancePolicyParams())
+        below.parent = QuakeIndex(level=level, device=index.device)
+        below.parent.metric = index.metric
+        below.parent.store = store
+        below = below.parent
+    level = index  # every IVF level gets its policy
+    while level.parent is not None:
+        level.initialize_maintenance_policy(MaintenancePolicyParams())
+        level = level.parent
     return index

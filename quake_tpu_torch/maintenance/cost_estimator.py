@@ -15,7 +15,7 @@ from quake_tpu_torch.maintenance.latency_estimator import ListScanLatencyEstimat
 
 class MaintenanceCostEstimator:
     def __init__(self, d: int, alpha: float, k: int,
-                 latency_estimator: ListScanLatencyEstimator | None = None):
+                 latency_estimator: ListScanLatencyEstimator | None = None, device=None):
         if k <= 0:
             raise ValueError("k must be positive")
         if alpha <= 0.0:
@@ -23,7 +23,10 @@ class MaintenanceCostEstimator:
         self.d = int(d)
         self.alpha = float(alpha)
         self.k = int(k)
-        self.latency_estimator = latency_estimator or ListScanLatencyEstimator(d)
+        # Without a grid of its own: the packaged H100 grid for a CUDA
+        # device, the analytic model elsewhere (ListScanLatencyEstimator's
+        # packaged=None).
+        self.latency_estimator = latency_estimator or ListScanLatencyEstimator(d, device=device)
 
     def compute_split_delta(self, partition_size: int, hit_rate: float,
                             total_partitions: int) -> float:

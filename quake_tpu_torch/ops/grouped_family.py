@@ -346,17 +346,19 @@ def grouped_scan_v7(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: 
 
 
 def grouped_scan_v8(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int = 32,
-                    gpb: int = 4, dedup: bool = False, stages=None):
+                    gpb: int = 4, dedup: bool = False, stages=None, bounds: str = "analytic"):
     """v8 global-scale grouped scan (pallas_grouped.py::grouped_scan_pallas_v8)
     on kernel K1, which computes _v8_kernel's function (its ghost groups
     write -1 where the TPU kernel leaves stale rows for the epilogue's mask),
     then the K2 pool merge (a top-k with dedup, see global_epilogue). Needs
-    C % 128 == 0. Same inputs and returns as grouped_scan_v3pn."""
+    C % 128 == 0. Same inputs and returns as grouped_scan_v3pn; bounds
+    "analytic" or "sampled", the key's scale (grouped_scan.global_bounds).
+    """
     P, C, _ = codes.shape
     check_refs("v8", P, C)
     kk = min(k, C)
     slot_mult, levels = packed_params(C)
-    q_scaled, normsT, _, _ = global_scale(q, norms, metric, levels)
+    q_scaled, normsT, _, _ = global_scale(q, norms, metric, levels, bounds, codes, sizes)
     group_pid, qlist, pair_group, pair_slot = build_groups(pids, P, qt)
     gp, _, group_size, safe_q = pad_groups(group_pid, qlist, sizes, gpb)
     qg = q_scaled.to(codes.dtype)[safe_q].contiguous()  # [Gn, qt, D], rounded as the codes

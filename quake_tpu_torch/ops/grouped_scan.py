@@ -90,14 +90,21 @@ def packed_params(C: int):
     return slot_mult, (1 << 24) // slot_mult - 2
 
 
-def global_bounds(qf, norms, metric: str, bounds: str = "analytic"):
-    """(gmin, grange) of the global quantization scale, worst-case bounds
-    from the batch max query norm and the store max vector norm. Only the
-    "analytic" bounds of the main path are ported."""
-    if bounds != "analytic":
-        raise NotImplementedError(
-            f"bounds={bounds!r}: only 'analytic' is ported (ROADMAP Queue 1 item 10: "
-            "multi-level parents and bounds=\"sampled\")")
+def global_bounds(qf, norms, metric: str, bounds: str = "analytic", codes=None, sizes=None):
+    """(gmin, grange) of the global quantization scale
+    (pallas_grouped.py::_global_bounds), 0-d f32 tensors.
+
+    "analytic": worst-case bounds from the batch max query norm and the
+    store max vector norm. "sampled" (needs the store's codes [P, C, D] and
+    sizes [P]): gmin from the scores of a stratified sample of at most 64
+    queries (qf[::max(B // 64, 1)][:64]) against the valid lanes (lane <
+    the partition's size) of the first min(P, 4) partitions, minus 25% of
+    the range up to the analytic gmax, which stays (clamping at the top
+    would corrupt winners; a key below gmin clamps to 0 and stays a
+    candidate). The sample's product is a plain matmul in f32, codes
+    upcast, as the JAX package computes it outside its kernels."""
+    if bounds not in ("analytic", "sampled"):
+        raise ValueError(f"bounds must be 'analytic' or 'sampled', not {bounds!r}")
     maxq2 = torch.sum(qf * qf, dim=1).max()
     maxx2 = torch.clamp(norms.max(), min=1e-12)
     maxqx = torch.sqrt(maxq2) * torch.sqrt(maxx2)
@@ -105,6 +112,21 @@ def global_bounds(qf, norms, metric: str, bounds: str = "analytic"):
         gmax, gmin = maxq2, -(maxx2 + 2.0 * maxqx)
     else:
         gmax, gmin = maxqx, -maxqx
+    if bounds == "sampled":
+        if codes is None or sizes is None:
+            raise ValueError("bounds='sampled' needs the store's codes and sizes")
+        B = qf.shape[0]
+        P, C, D = codes.shape
+        sq = qf[::max(B // 64, 1)][:64]
+        nps = min(P, 4)
+        slab = codes[:nps].reshape(nps * C, D).to(torch.float32)
+        prod = torch.matmul(sq, slab.T)
+        scores = 2.0 * prod - norms[:nps].reshape(1, nps * C) if metric == "l2" else prod
+        lane = torch.arange(nps * C, device=qf.device)[None, :]
+        valid = (lane % C) < torch.repeat_interleave(sizes[:nps].long(), C)[None, :]
+        smin = torch.where(valid, scores, torch.full_like(scores, float("inf"))).min()
+        smin = torch.where(torch.isfinite(smin), smin, gmin)
+        gmin = smin - 0.25 * torch.clamp(gmax - smin, min=1e-20)
     return gmin, torch.clamp(gmax - gmin, min=1e-20)
 
 
@@ -541,15 +563,17 @@ def budget_sort_key_fits(B: int, M: int, n_bud: int, P: int, qt: int, gpb: int) 
     return sort_key_fits(B, -(-G // gpb) * gpb * qt)
 
 
-def global_scale(q, norms, metric: str, levels: int, bounds: str = "analytic"):
+def global_scale(q, norms, metric: str, levels: int, bounds: str = "analytic", codes=None,
+                 sizes=None):
     """The v8/v9/v11 pre-transforms: key = (score - gmin) * ginv moves
     entirely into scaled queries (the score's <q, x> coefficient times
     ginv) and shifted norms ((|x|^2 +) gmin, times ginv), so the kernel's
     quantize is floor(<q', x> - normsT). Returns (q_scaled [B, D] f32,
     normsT [P, C] f32, gmin, ginv), the last two 0-d f32 tensors (the
-    dequantized tail's scale)."""
+    dequantized tail's scale). bounds as global_bounds (codes and sizes
+    for "sampled")."""
     qf = q.to(torch.float32)
-    gmin, grange = global_bounds(qf, norms, metric, bounds)
+    gmin, grange = global_bounds(qf, norms, metric, bounds, codes, sizes)
     ginv = float(levels) / grange
     q_coef = 2.0 * ginv if metric == "l2" else ginv
     base = norms if metric == "l2" else torch.zeros_like(norms)
@@ -580,7 +604,7 @@ def v11_inputs(codes, sizes, norms, q, pids, k: int, metric: str, qt: int,
     P, C, _ = codes.shape
     kk = min(k, C)
     slot_mult, levels = packed_params(C)
-    q_scaled, normsT, gmin, ginv = global_scale(q, norms, metric, levels, bounds)
+    q_scaled, normsT, gmin, ginv = global_scale(q, norms, metric, levels, bounds, codes, sizes)
     if pair_budget > 0:
         group_pid, qlist, tgt = build_groups_budget(pids, P, qt, pair_budget)
     else:

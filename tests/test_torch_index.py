@@ -27,6 +27,7 @@ from quake_tpu import SearchParams as JaxSearchParams
 from quake_tpu.kmeans import kmeans_fit_assign as jax_kmeans
 from quake_tpu.ops.grouped import grouped_scan_xla as jax_scan_xla
 from quake_tpu.ops.pallas_flat import parent_rank_pallas
+from quake_tpu.ops.pallas_grouped import _global_bounds as jax_global_bounds
 from quake_tpu.ops.pallas_grouped import (grouped_scan_pallas, grouped_scan_pallas_v3,
                                           grouped_scan_pallas_v3p, grouped_scan_pallas_v3pn,
                                           grouped_scan_pallas_v4, grouped_scan_pallas_v5,
@@ -234,7 +235,10 @@ def _small_index(**kw):
     # the maintenance policy on it (the case keeps the id it had as a guard).
     pytest.param(dict(profile_maintenance_latency=True), None,
                  id="kw3-ROADMAP Queue 1 item 8: maintenance"),
-    (dict(parent_params=IndexBuildParams(nlist=4)), "ROADMAP Queue 1 item 10: multi-level"),
+    # Lifted: a parent that is itself an IVF builds (the case keeps the id
+    # it had as a guard).
+    pytest.param(dict(parent_params=IndexBuildParams(nlist=4)), None,
+                 id="kw4-ROADMAP Queue 1 item 10: multi-level"),
 ])
 def test_build_guards(kw, match, monkeypatch):
     """Each guard names the ROADMAP item that lifts it, by number and title
@@ -248,7 +252,11 @@ def test_build_guards(kw, match, monkeypatch):
     build's policy reads it; spill=True stores the unspilled build's
     clustering (the same seeded k-means) with each vector's second copy in
     the partition soar_assign gives it (test_torch_spill.py holds the whole
-    build to the JAX package's)."""
+    build to the JAX package's); parent_params with nlist 4 stores the
+    two-level build's clustering at the leaf (the same seeded k-means) under
+    an IVF parent of 4 partitions over its 8 centroids, itself over a flat
+    parent, every level valid (test_torch_multilevel.py holds the index to
+    the JAX package's)."""
     if kw.get("profile_maintenance_latency"):
         from quake_tpu_torch.maintenance import latency_estimator
 
@@ -272,6 +280,17 @@ def test_build_guards(kw, match, monkeypatch):
         _, spill = soar_assign(x, cents, 1.0, primary=prim)
         np.testing.assert_array_equal(idx.store.spill_map.get_batch(ids), spill)
         assert idx.spill and idx.validate() and int(idx.store.state.sizes.sum()) == 2 * len(x)
+        return
+    if kw.get("parent_params"):
+        idx, _ = _small_index(**kw)
+        ref, _ = _small_index()
+        np.testing.assert_array_equal(idx.store.state.codes.numpy(),
+                                      ref.store.state.codes.numpy())
+        mid = idx.parent
+        assert mid.level == 1 and mid.nlist() == 4 and mid.parent.parent is None
+        assert mid.ntotal() == idx.nlist() == 8 and mid.maintenance_policy is not None
+        np.testing.assert_array_equal(mid.get(np.arange(8)), ref.parent.get(np.arange(8)))
+        assert idx.validate() and mid.validate() and mid.parent.validate()
         return
     if match is None:
         idx, _ = _small_index(**kw)
@@ -334,28 +353,31 @@ def test_num_workers_builds_plain_on_one_device(monkeypatch):
 def test_guard_messages_cite_current_items():
     """The search and scan guards name their ROADMAP items (fault 7). The
     APS guard is lifted: a recall-target search runs and adheres (recall@5
-    >= target - 0.05, the JAX package's margin), while APS over a parent
-    that is itself an IVF still raises, naming item 10. The
+    >= target - 0.05, the JAX package's margin), also over a parent that is
+    itself an IVF (the guard of item 10, lifted). The
     exact_distances=False guards are lifted: the search runs, and v11 with
     exact=False returns the JAX package's ids and dequantized scores on the
     same store (interpret-mode Pallas; row overlap >= 0.99, scores of the
-    common ids within one quantization step, grange / levels)."""
+    common ids within one quantization step, grange / levels). The
+    bounds="sampled" guard is lifted: the port's bounds equal the JAX
+    package's _global_bounds on the same store (rtol 1e-5)."""
     from quake_tpu_torch.ops.grouped_scan import global_bounds, grouped_scan_v11, packed_params
 
     idx, x = _small_index()
     res = idx.search(x[:32], SearchParams(k=5, recall_target=0.9))
     gt, _ = knn(x[:32], x, 5)
     assert compute_recall(res.ids, gt, 5) >= 0.9 - 0.05
-    nested, _ = _small_index()
-    nested.parent.parent = QuakeIndex(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10: multi-level parents"):
-        nested.search(x[:32], SearchParams(k=5, recall_target=0.9))
+    nested, _ = _small_index(parent_params=IndexBuildParams(nlist=4))
+    res = nested.search(x[:32], SearchParams(k=5, recall_target=0.9))
+    assert compute_recall(res.ids, gt, 5) >= 0.9 - 0.05
     res = idx.search(x[:32], SearchParams(k=5, exact_distances=False))
     assert res.ids.shape == (32, 5) and (res.ids >= 0).all()
     q = torch.from_numpy(x[:16])
-    with pytest.raises(NotImplementedError, match="item 10: multi-level parents"):
-        global_bounds(q, idx.store.state.norms, "l2", bounds="sampled")
     st = idx.store.state
+    got = global_bounds(q, st.norms, "l2", bounds="sampled", codes=st.codes, sizes=st.sizes)
+    want = jax_global_bounds(*(jnp.asarray(t.numpy()) for t in (q, st.codes, st.norms, st.sizes)),
+                             "l2", "sampled")
+    np.testing.assert_allclose([float(a) for a in got], [float(a) for a in want], rtol=1e-5)
     pids = np.stack([np.random.default_rng(b).permutation(idx.nlist())[:2]
                      for b in range(16)]).astype(np.int32)
     s_t, i_t, _ = grouped_scan_v11(st.codes, st.ids, st.sizes, st.norms, q,

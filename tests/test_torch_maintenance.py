@@ -6,8 +6,9 @@ What is held, and how closely:
     same windows, the same grid values and deltas (equal: the same Python
     float arithmetic), the CSV profile byte for byte in both directions;
   * the profiled grid on the CPU ("xla", as the JAX package profiles off a
-    TPU) and its round trip through save and load; the packaged grid,
-    which holds another device's measurements, refused by name;
+    TPU) and its round trip through save and load; the packaged H100 grid
+    (its provenance and d-scaling; tests/test_torch_latency_packaged.py holds
+    its law to the JAX package's);
   * decision parity: a JAX index saved and loaded into both packages (the
     same slots and free rows), the same host-recorded window, then
     maintenance(): the same splits and deletes, the same id set in every
@@ -203,11 +204,29 @@ def test_latency_estimator_grid_mismatch_rejected(tmp_path):
 
 
 def test_packaged_grid_refused():
-    """The JAX package's packaged grid was measured on another device: the
-    port refuses it by name and keeps the analytic model by default."""
-    with pytest.raises(NotImplementedError, match="a packaged grid measured on the H100"):
-        ListScanLatencyEstimator(d=128, packaged=True)
+    """The refusal is lifted: the port packages grids measured on the H100
+    (tests/test_torch_latency_packaged.py holds them to the JAX package's
+    law). tests/test_maintenance.py::test_packaged_grid_provenance_and_
+    d_scaling on the port: the default off the card is analytic, the forced
+    packaged grid names its d and scale, a d between the grids is each
+    point affine in d through the two committed grids (rtol 1e-6), and an
+    explicit profile overrides it."""
+    assert ListScanLatencyEstimator(d=960).grid_source == "analytic"
     assert ListScanLatencyEstimator(d=128, packaged=None).grid_source == "analytic"
+    est128 = ListScanLatencyEstimator(d=128, packaged=True)
+    assert est128.grid_source == "packaged(d=128,scale=1.000)"
+    from quake_tpu_torch.maintenance.latency_estimator import monotone
+
+    est768 = ListScanLatencyEstimator(d=768, packaged=True)
+    est960 = ListScanLatencyEstimator(d=960, packaged=True)
+    assert est960.grid_source == "packaged(d=128..768,at=960)"
+    want = est768.latency_grid + (960 - 768) / (128 - 768) * (est128.latency_grid
+                                                             - est768.latency_grid)
+    np.testing.assert_allclose(est960.latency_grid, monotone(want), rtol=1e-6)
+    est = ListScanLatencyEstimator(d=16, n_values=[64, 512], k_values=[1, 8], n_trials=2,
+                                   packaged=True)
+    est.profile_grouped_latency(kernel="xla", n_queries=64)
+    assert est.grid_source == "profiled"
 
 
 def test_profile_grouped_latency_and_roundtrip(tmp_path):
