@@ -281,6 +281,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
              after each step; a save and a load that return the same ids.
              `[multilevel]` lines on stderr.
 
+18. shard — (run after phase 7, while its flat index lives) sharding on
+             the card, four shards on one card (shard(4, devices=[cuda:0] *
+             4)): the main corpus built afresh (nlist=160, calibrate_aps=
+             False), searched unsharded and then sharded (C 7552 -> 7680, a
+             local C of 1920; each shard a contiguous copy of its slot slice,
+             equal to the primary's bit for bit, contract 6 on each). The
+             fixed-nprobe batch at B=16384 and the main nprobe: ms and stages
+             beside the unsharded batch (K1 summed over the shards, the
+             gather and merge), launches of one counted batch (K1 and K2 four
+             times each, K3 never: the sharded route ranks the parents by the
+             flat scan, as the JAX package's does), each of its K1 and K2
+             calls against its plain version, ids overlapping the exact scan
+             of the unsharded probe lists >= 0.99 (the local C's keys are
+             finer than the unsharded ones: the sharded ids come nearer the
+             exact scan), recall@10 at most 0.005 below the unsharded, the
+             host syncs of a batch; APS planned and loop at 0.9 on B=4096
+             (recall at most 0.01 below the unsharded, ms, launches, every
+             K1 and K2 call held); the latency phase's flat index sharded
+             four ways (B=1024 ids equal to its unsharded search's); 10,000
+             vectors added and 10,000 removed through the sharded index,
+             after each the shards equal to the primary, contract 6 on each,
+             validate() and a counted batch. `[shard]` lines on stderr.
+
 Progress goes to stderr. Standard output holds three lines: the JSON list
 of kernels, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
@@ -428,6 +451,19 @@ WORKLOAD_RECALL_GATE = 0.5  # tests/test_workload.py:75
 WORKLOAD_K1_OVERLAP = 0.9999  # the last query op's K1 calls against the plain version
 THREADS, THREAD_REPS = 8, 4  # concurrent searches of the final index, B = NQ_GT
 TRACE_REPS = 5  # batches traced for the idle share
+SHARDS = 4  # shard(4, devices=[cuda:0] * 4): four shards on the one card
+SHARD_KERNELS = {"grouped_scan": SHARDS, "merge_positions": SHARDS}  # a sharded batch's launches
+# v11's key levels follow C: at the local C (C / SHARDS) the keys are SHARDS x finer, so the
+# sharded ids come nearer the exact scan than the unsharded ones (NVIDIA H100 80GB HBM3, 700 W,
+# this corpus at nprobe 9: 0.96 overlap between the two, +0.022 recall). The sharded batch is held to the exact scan of the unsharded probe lists (the
+# "reference" scan; ids overlap, mean over rows), and its recall@10 may not fall below the
+# unsharded one by more than the tolerance.
+SHARD_OVERLAP = 0.99
+SHARD_RECALL_TOL = 0.005  # recall@10 of the fixed-nprobe batch, below the unsharded
+SHARD_APS_B, SHARD_APS_TOL = 4096, 0.01  # APS planned and loop at APS_TARGET, below the unsharded
+SHARD_APS_MODES = ("planned", "loop")
+SHARD_FLAT_B = 1024
+SHARD_WRITES = 10_000  # added (seed 43, ids from 4 N), then removed (every 100th id)
 F32_PEAK = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores (data sheet)
 TF32_PEAK = 495e12  # H100 SXM dense TF32 FLOP/s on the tensor cores (data sheet)
 BF16_PEAK = 989e12  # H100 SXM dense bf16 FLOP/s on the tensor cores (data sheet)
@@ -1907,7 +1943,8 @@ def phase_latency(torch, dev, idx, x, queries, gt, nprobe):
     """The query-major and the flat searches through QuakeIndex.search. Each
     query-major run is held to the exact scan of the partitions it probed
     (the parent ranking in tensor operations, as that path ranks); the time
-    is the host's, around a search that ends in a copy to the host."""
+    is the host's, around a search that ends in a copy to the host. Returns
+    (the summary, the flat index, which the shard phase shards)."""
     from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams, _ext
     from quake_tpu_torch.coordinator import rank_parents, reference_scan
     from quake_tpu_torch.utils import compute_recall
@@ -1962,6 +1999,202 @@ def phase_latency(torch, dev, idx, x, queries, gt, nprobe):
         f"1-query search (host clock)")
     if r < FLAT_RECALL or res.ids.shape != (NQ_GT, K):
         raise AssertionError(f"flat index: recall@10 {r} below {FLAT_RECALL}")
+    return out, flat
+
+
+def shard_log(msg: str) -> None:
+    """A `[shard]` line on stderr, beside the card's name and power limit."""
+    log(f"[shard] ({card_line()}) {msg}")
+
+
+def count_syncs(torch, fn) -> int:
+    """The operations of fn() that synchronize the host with the card, as
+    torch.cuda's sync debug mode counts them (one warning each)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def shard_gates(torch, idx, when: str) -> float:
+    """Every slot shard of a sharded index against its primary store: the
+    shard's codes, ids and norms contiguous and equal to the primary's slot
+    slice bit for bit, its valid-slot counts the primary's sizes less the
+    slots before the slice (clamped to the slice), and contract 6 on the
+    shard (ids >= 0 exactly below those counts, the norms the codes'
+    squared norms at rtol 1e-6). Returns the worst relative norm error."""
+    store = idx.store
+    st, sh = store.state, idx._shards()
+    Cl = store.C // sh.ndev
+    err = 0.0
+    for s in range(sh.ndev):
+        sl = slice(s * Cl, (s + 1) * Cl)
+        for name in ("codes", "ids", "norms"):
+            part = getattr(sh, name)[s]
+            if not part.is_contiguous() or not torch.equal(part, getattr(st, name)[:, sl]):
+                raise AssertionError(f"{when}: shard {s}'s {name} differ from the primary's "
+                                     f"slots {sl.start}-{sl.stop}")
+        local = torch.clamp(st.sizes - s * Cl, 0, Cl).to(torch.int32)
+        below = torch.arange(Cl, device=st.ids.device)[None, :] < local[:, None]
+        if not torch.equal(sh.local_sizes[s], local) or not torch.equal(sh.ids[s] >= 0, below):
+            raise AssertionError(f"{when}: shard {s}'s valid slots are not its prefix")
+        want = (sh.codes[s] * sh.codes[s]).sum(-1)[below]
+        got = sh.norms[s][below]
+        err = max(err, float(((got - want).abs() / want.abs().clamp(min=1e-30)).max()))
+    if err > 1e-6:
+        raise AssertionError(f"{when}: a shard's norms are off its codes' by {err} (rtol 1e-6)")
+    return err
+
+
+def phase_shard(torch, dev, x, queries, gt, flat, nprobe) -> dict:
+    """Sharding on the card: the main corpus built afresh (nlist 160,
+    calibrate_aps=False), searched unsharded, then sharded with
+    shard(SHARDS, devices=[dev] * SHARDS) (C re-bucketed to a multiple of
+    128 * SHARDS; each shard a contiguous copy of its slot slice) and searched
+    again. Fixed nprobe at B=BATCH: ms (CUDA events) and stages (K1's
+    "scan" summed over the shards, the gather and merge as "shard_merge")
+    beside the unsharded batch; one counted batch launching K1 and K2 once a
+    shard and K3 never, each call held against its plain version
+    (checked_batch); ids overlapping the exact scan of the unsharded probe
+    lists ("reference") >= SHARD_OVERLAP (v11's keys are finer at the local
+    C: see SHARD_OVERLAP), recall@10 of the first 1024 at most
+    SHARD_RECALL_TOL below the unsharded; the host syncs of a batch each way.
+    APS planned and loop at APS_TARGET on B=SHARD_APS_B: recall at most
+    SHARD_APS_TOL below the unsharded, ms, launches, each batch's calls
+    held. The flat index of the latency phase sharded alike:
+    B=SHARD_FLAT_B ids equal to its unsharded search's. SHARD_WRITES added
+    and then removed through the sharded index, shard_gates after each
+    write and a counted batch on the rebuilt shards. `[shard]` lines."""
+    from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams
+    from quake_tpu_torch.utils import compute_recall
+
+    t_phase = time.perf_counter()
+    idx = QuakeIndex(device=dev)
+    _, build_s = timed(torch, lambda: idx.build(
+        x, np.arange(N, dtype=np.int64),
+        IndexBuildParams(nlist=NLIST, metric="l2", niter=NITER, calibrate_aps=False)))
+    C0 = idx.store.C
+    qd = torch.from_numpy(queries[:BATCH]).to(dev)
+    qa = qd[:SHARD_APS_B]
+    sp = SearchParams(k=K, nprobe=nprobe)
+    aps_sps = {m: SearchParams(k=K, recall_target=APS_TARGET, aps_mode=m)
+               for m in SHARD_APS_MODES}
+    out = {"unsharded": {}, "sharded": {}}
+
+    def runs(key):
+        r = out[key]
+        r["batch"] = time_batch(torch, idx, qd, sp, gt)
+        r["ids"] = idx._search_device_full(qd, sp)[1]
+        r["syncs"] = count_syncs(torch, lambda: idx._search_device_full(qd, sp))
+        r["aps"] = {}
+        for m, asp in aps_sps.items():
+            a = time_aps(torch, idx, qa, asp, loop=m == "loop")
+            a["recall"] = compute_recall(idx._search_device_full(qa, asp)[1][:NQ_GT].cpu().numpy(),
+                                         gt, K)
+            r["aps"][m] = a
+
+    runs("unsharded")
+    os.environ["QUAKE_TPU_KERNEL"] = "reference"
+    try:  # the exact scan of the unsharded probe lists
+        ref_ids = idx._search_device_full(qd, sp)[1]
+    finally:
+        del os.environ["QUAKE_TPU_KERNEL"]
+    ref_recall = compute_recall(ref_ids[:NQ_GT].cpu().numpy(), gt, K)
+    _, shard_s = timed(torch, lambda: idx.shard(SHARDS, devices=[dev] * SHARDS))
+    C = idx.store.C
+    if C % (128 * SHARDS) or C < C0 or idx.mesh.size != SHARDS:
+        raise AssertionError(f"shard({SHARDS}): C {C0} -> {C}, mesh {idx.mesh.devices}")
+    sh = idx._shards()
+    shard_bytes = sum(t.numel() * t.element_size() for t in sh.codes + sh.ids + sh.norms)
+    norm_err = shard_gates(torch, idx, "sharded")
+    shard_log(f"fresh build {build_s:.2f} s; shard({SHARDS}, devices=[{dev}] * {SHARDS}) "
+              f"{shard_s:.3f} s: C {C0} -> {C}, local C {C // SHARDS}, the shards' copies "
+              f"{shard_bytes / 1e9:.3f} GB beside the primary; gates hold (norm err {norm_err})")
+    runs("sharded")
+    u, s_ = out["unsharded"], out["sharded"]
+    launches, ids32, checks = checked_batch(torch, "sharded",
+                                            lambda: idx._search_device_full(qd, sp))
+    if launches != SHARD_KERNELS:
+        raise AssertionError(f"a sharded batch must launch K1 and K2 {SHARDS} times each and K3 "
+                             f"never: {launches}")
+    s_ids, u_ids = s_.pop("ids").long(), u.pop("ids").long()
+    ov, ov_ref = overlap(s_ids, u_ids), overlap(s_ids, ref_ids.long())
+    ov_ref_u = overlap(u_ids, ref_ids.long())
+    del s_ids, u_ids, ref_ids
+    dr = s_["batch"]["recall_first_1024"] - u["batch"]["recall_first_1024"]
+    if ov_ref < SHARD_OVERLAP or dr < -SHARD_RECALL_TOL:
+        raise AssertionError(f"sharded B={BATCH}: overlap {ov_ref} with the exact scan of the "
+                             f"probed partitions, recall {dr:+.4f} against the unsharded")
+    out.update(C0=C0, C=C, build_s=build_s, shard_s=shard_s, shard_bytes=shard_bytes,
+               launches=launches, kernel_checks=checks, overlap=ov, overlap_exact=ov_ref,
+               overlap_exact_unsharded=ov_ref_u, recall_diff=dr, exact_recall=ref_recall)
+    for key in ("unsharded", "sharded"):
+        b = out[key]["batch"]
+        shard_log(f"{key} B={BATCH}, nprobe {nprobe}: {batch_text(b)}; host syncs a batch "
+                  f"{out[key]['syncs']}")
+    shard_log(f"K1 summed over the shards {s_['batch']['stages_ms'].get('scan', 0.0):.4f} ms "
+              f"(unsharded {u['batch']['stages_ms'].get('scan', 0.0):.4f} ms), the gather and "
+              f"merge {s_['batch']['stages_ms'].get('shard_merge', 0.0):.4f} ms; ids overlap "
+              f"the unsharded {ov:.5f}, the exact scan of the probed partitions {ov_ref:.5f} "
+              f"(unsharded {ov_ref_u:.5f}; its recall {ref_recall:.4f}), recall {dr:+.4f}; "
+              f"launches {launches}; calls against their plain versions {json.dumps(checks)}")
+
+    for m, asp in aps_sps.items():
+        a, b = s_["aps"][m], u["aps"][m]
+        if a["recall"] - b["recall"] < -SHARD_APS_TOL:
+            raise AssertionError(f"sharded APS {m}: recall {a['recall']} against the "
+                                 f"unsharded {b['recall']}")
+        a["launches"], _, a["kernel_checks"] = checked_batch(
+            torch, f"sharded APS {m}", lambda: idx._search_device_full(qa, asp))
+        shard_log(f"APS {m} at {APS_TARGET}, B={SHARD_APS_B}: recall {a['recall']:.4f} "
+                  f"(unsharded {b['recall']:.4f}), {a['ms']:.3f} ms (unsharded {b['ms']:.3f}), "
+                  f"scanned {a['scanned']:.2f}, steps {a['steps']}, syncs {a['syncs']}, "
+                  f"launches {a['launches']}; calls against their plain versions "
+                  f"{json.dumps(a['kernel_checks'])}")
+
+    fsp = SearchParams(k=K)
+    fq = queries[:SHARD_FLAT_B]
+    want = flat.search(fq, fsp).ids
+    fms_u = time_ms(torch, lambda: flat._search_device_full(qd[:SHARD_FLAT_B], fsp), reps=3)
+    flat.shard(SHARDS, devices=[dev] * SHARDS)
+    got = flat.search(fq, fsp).ids
+    fms_s = time_ms(torch, lambda: flat._search_device_full(qd[:SHARD_FLAT_B], fsp), reps=3)
+    if not np.array_equal(got, want):
+        raise AssertionError(f"sharded flat search: {int((got != want).any(1).sum())} rows "
+                             f"differ from the unsharded search's")
+    out["flat"] = dict(C=flat.store.C, ms=fms_s, unsharded_ms=fms_u)
+    shard_log(f"flat index sharded (C {flat.store.C}): B={SHARD_FLAT_B} ids equal to the "
+              f"unsharded search's; {fms_s:.3f} ms (unsharded {fms_u:.3f})")
+
+    new = make_manifold(SHARD_WRITES, D, 4096, seed=43)
+    writes = {}
+    for what, write in (("add", lambda: idx.add(new, 4 * N + np.arange(SHARD_WRITES))),
+                        ("remove", lambda: idx.remove(np.arange(0, N, N // SHARD_WRITES)))):
+        _, sec = timed(torch, write)
+        if not idx.validate():
+            raise AssertionError(f"sharded {what}: validate() fails")
+        _, rebuild_s = timed(torch, idx._shards)
+        err = shard_gates(torch, idx, f"after {what}")
+        n_launch, ids32, _ = checked_batch(torch, f"after {what}",
+                                           lambda: idx._search_device_full(qd, sp))
+        if n_launch != SHARD_KERNELS or (ids32 < 0).any():
+            raise AssertionError(f"after {what}: launches {n_launch}, or a query without {K} ids")
+        writes[what] = dict(s=sec, rebuild_s=rebuild_s, ntotal=idx.ntotal(), C=idx.store.C,
+                            norm_err=err)
+        shard_log(f"{what} {SHARD_WRITES} through the sharded index {sec:.3f} s, the shards "
+                  f"rebuilt in {rebuild_s:.3f} s: ntotal {idx.ntotal()}, C {idx.store.C}, "
+                  f"shards equal to the primary, contract 6 on each (norm err {err}), a batch "
+                  f"launches {n_launch}")
+    out["writes"] = writes
+    out["phase_s"] = time.perf_counter() - t_phase
+    shard_log(f"phase {out['phase_s']:.1f} s")
     return out
 
 
@@ -3639,7 +3872,7 @@ def spill_gates(torch, idx, queries, sp, when: str) -> dict:
 
 
 def checked_batch(torch, what: str, search):
-    """One spilled batch, search() (an idx._search_device_full call), with
+    """One batch, search() (an idx._search_device_full call), with
     the launches counted from 0 just before it and read just after, and
     every K1, K2 and K3 call it made recorded and then held against its
     plain version (check_recorded); the recorded kernels must be the ones
@@ -4262,7 +4495,10 @@ def main() -> int:
                             main_out["recall"])
     direct = phase_direct(torch, dev, idx, queries, gt, main_out["nprobe"],
                           by_name["reference"]["recall"])
-    latency = phase_latency(torch, dev, idx, x, queries, gt, main_out["nprobe"])
+    latency, flat = phase_latency(torch, dev, idx, x, queries, gt, main_out["nprobe"])
+    shard = phase_shard(torch, dev, x, queries, gt, flat, main_out["nprobe"])
+    del flat
+    torch.cuda.empty_cache()
     phase_small_reference(torch, dev)
     wide = phase_wide(torch, dev)
     kernels = phase_kernels(torch, dev, idx, x, queries, main_out["nprobe"], launches, by_name,
@@ -4288,7 +4524,8 @@ def main() -> int:
     maintenance = phase_maintenance(torch, dev, queries, main_out["nprobe"])
     log("[summary] " + json.dumps(dict(main_out, by_name=by_name, direct=direct,
                                        latency=latency, wide=wide, headline_bf16=headline,
-                                       aps=aps, multilevel=multilevel, spill=spill,
+                                       shard=shard, aps=aps, multilevel=multilevel,
+                                       spill=spill,
                                        workload=workload,
                                        mutation=mutation, maintenance=maintenance)))
 

@@ -14,7 +14,9 @@ use; `QuakeIndex.add`, `remove`, `modify`, `get`, `validate` and
 feeds, the latency grid, profiled on the card at build where asked,
 `QuakeIndex.maintenance()`); `save` and `load` in the JAX package's
 format; and the tooling: index wrappers (`wrappers/`), dynamic workloads
-(`workload/`), profiling, datasets and debug mode. Entry points run on the
+(`workload/`), profiling, datasets and debug mode; and sharding over a
+device mesh (`parallel/`: `QuakeIndex.shard`, `num_shards`), the shards'
+results merged on the mesh's first device. Entry points run on the
 card unless the caller passes `device="cpu"`, where every kernel wrapper
 runs its plain PyTorch version. This package imports neither JAX nor quake_tpu.
 """

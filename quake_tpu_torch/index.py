@@ -2,8 +2,9 @@
 batched fixed-nprobe and the recall-target (APS) searches; add, remove,
 modify, get and validate with split-on-overflow; cost-based maintenance (the
 hit window fed by every search, the latency grid, splits, deletes and
-refinement); save and load; each of them on a SOAR-spilled index too (those
-parts of quake_tpu/index.py).
+refinement); save and load; each of them on a SOAR-spilled index too; and
+sharding over a device mesh (`shard`, parallel/) (those parts of
+quake_tpu/index.py).
 
 A recursive IVF structure, as in the reference orchestrator
 (src/cpp/include/quake_index.h:18-142, src/cpp/src/quake_index.cpp:29-288):
@@ -38,6 +39,10 @@ from quake_tpu_torch.maintenance.policy import MaintenancePolicy, maint_on_host
 from quake_tpu_torch.ops.grouped import BF16_OPERANDS, grouped_scan_xla
 from quake_tpu_torch.ops.grouped_scan import QTS, grouped_scan_uses_mma
 from quake_tpu_torch.ops.scan import dedup_topk, scores_to_distances
+from quake_tpu_torch.parallel.mesh import make_mesh, shard_store_state
+from quake_tpu_torch.parallel.sharded import (sharded_aps_search, sharded_aps_search_oneshot,
+                                              sharded_aps_search_planned, sharded_flat_search,
+                                              sharded_fused_search, sharded_ivf_search)
 from quake_tpu_torch.params import (DEFAULT_INITIAL_SEARCH_FRACTION, IndexBuildParams,
                                      MaintenancePolicyParams, SearchParams, check_metric)
 from quake_tpu_torch.profiling import annotate
@@ -49,9 +54,6 @@ from quake_tpu_torch.utils import compute_recall, next_pow2, to_f32, to_i64
 INT32_MAX = np.iinfo(np.int32).max
 MIN_BATCH = 16  # smaller batches take the query-major path
 SERIALIZATION_VERSION = 1  # the JAX package's save format (quake_tpu/index.py:47)
-
-# The ROADMAP Queue 1 item that lifts the NotImplementedError guards below.
-PARALLEL = "ROADMAP Queue 1 item 11: parallel"
 
 CODE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}  # IndexBuildParams.precision
 
@@ -121,7 +123,13 @@ class QuakeIndex:
     (profile_maintenance_latency=True: the index's grouped scan timed over
     the grid, on a CUDA index kernels K1 and K2 in device time) or loaded
     from latency_profile.csv. The hit window is not saved. A parent that
-    is itself an IVF index has a policy of its own."""
+    is itself an IVF index has a policy of its own.
+
+    `mesh` (None until `shard`) is the device mesh the store is sharded
+    over (parallel/): the searches then run each shard's scans and merge
+    on the mesh's first device, while the global store stays the one
+    primary copy that mutation, maintenance, validate and save use; the
+    shards are rebuilt from it after any write."""
 
     def __init__(self, level: int = 0, device=None):
         self.level = level
@@ -138,6 +146,9 @@ class QuakeIndex:
         self.maintenance_policy: Optional[MaintenancePolicy] = None  # IVF only
         self.latency_profile: Optional[ListScanLatencyEstimator] = None  # else analytic
         self._nprobe_bucket = 8  # pow2 padding for probe lists
+        self.mesh = None  # the device mesh once sharded (num_shards > 1, shard())
+        self._sharded = None  # ShardedState of the store's version _sharded_version
+        self._sharded_version = -1
         # Mutation coalescing buffer (IndexBuildParams.mutation_buffer_size).
         self._pending_x: list = []
         self._pending_vids: list = []
@@ -152,15 +163,21 @@ class QuakeIndex:
         return (n_workers > 1 and self.device.type == "cuda"
                 and torch.cuda.device_count() >= n_workers)
 
+    def _shard_plan(self, bp: IndexBuildParams) -> int:
+        """The shard count a build plans (quake_tpu/index.py:211-221,
+        :248-254): num_shards, else num_workers where the JAX package would
+        shard over them (_would_shard); <= 1 builds unsharded."""
+        n = bp.num_shards
+        if n <= 1 and self._would_shard(bp.num_workers):
+            n = bp.num_workers
+        return n
+
     def _check_build_params(self, bp: IndexBuildParams, n: int) -> None:
         if bp.precision not in CODE_DTYPES:
             raise ValueError(f"precision must be one of {list(CODE_DTYPES)}, not "
                              f"{bp.precision!r}")
         if bp.nlist > 1 and bp.parent_params is not None and bp.parent_params.precision == "bf16":
             raise _not_ported("a bf16 parent (kernel K3 has no bf16 body)", BF16_OPERANDS)
-        if bp.num_shards > 1 or self._would_shard(bp.num_workers):
-            raise _not_ported("sharding (num_shards > 1, or num_workers > 1 with as many "
-                              "CUDA devices)", PARALLEL)
 
     def build(self, x, ids=None, build_params: Optional[IndexBuildParams] = None) -> BuildTimingInfo:
         """Build the index (quake_index.cpp:29-90)."""
@@ -171,6 +188,8 @@ class QuakeIndex:
         n, d = x.shape
         self._check_build_params(bp, n)
         self.build_params = bp
+        self.mesh, self._sharded = None, None
+        n_shards = self._shard_plan(bp)
         if bp.dimension and bp.dimension != d:
             raise ValueError(f"dimension mismatch: params say {bp.dimension}, data is {d}")
         bp.dimension = d
@@ -208,8 +227,11 @@ class QuakeIndex:
                 self.soar_lambda = float(bp.soar_lambda)
                 _, spill_np = soar_assign(x, centroids_np, self.soar_lambda, primary=assigns_np,
                                           device=self.device)
+            # Slot sharding splits C: the plan's 128 * shards rounding keeps
+            # each shard's slice a multiple of the kernels' fold.
             self.store.init_from_assignments(x, ids, centroids_np, assigns_np,
-                                             spill_assignments=spill_np)
+                                             spill_assignments=spill_np,
+                                             cap_multiple=128 * max(n_shards, 1))
             timing.assign_time_us = _now_us() - t_assign
 
             # Recursive parent over the centroids (quake_index.cpp:57-61):
@@ -228,6 +250,10 @@ class QuakeIndex:
         # ground truth would hold each id twice.
         if bp.nlist > 1 and bp.calibrate_aps and n >= 10_000 and not bp.spill:
             self.calibrate_aps()
+        # The reference spawns num_workers scan workers at build
+        # (quake_index.cpp:85); a worker here is a mesh shard.
+        if n_shards > 1:
+            self.shard(n_shards)
         if bp.profile_maintenance_latency:
             self.profile_latency()
         self.initialize_maintenance_policy(MaintenancePolicyParams())
@@ -253,6 +279,40 @@ class QuakeIndex:
         if self.maintenance_policy is not None:
             self.maintenance_policy.cost_estimator.latency_estimator = est
         return est
+
+    def shard(self, n_devices: int, devices=None) -> None:
+        """Shard the partition store over a device mesh (quake_tpu/index.py::
+        shard; the reference's worker-pool initialization,
+        query_coordinator.cpp:50-73): make_mesh(n_devices, devices) on this
+        index's device type, then C re-bucketed to a multiple of 128 *
+        shards (each shard's slot slice a multiple of the kernels' fold, as
+        later growth keeps it) and the slot-sharded state built. `devices`,
+        an explicit list that may repeat a device (four shards on one card:
+        [cuda:0] * 4), is this package's addition. A CUDA index's mesh holds
+        CUDA devices only, a CPU index's the CPU only: no shard falls back
+        to another device type."""
+        mesh = make_mesh(n_devices, devices, device=self.device)
+        other = [str(d) for d in mesh.devices if d.type != self.device.type]
+        if other:
+            raise ValueError(f"a {self.device.type} index cannot shard onto {other}")
+        self.mesh, self._sharded = mesh, None
+        self.store.ensure_capacity_multiple(128 * mesh.size)
+        self._shards()
+
+    def _shards(self):
+        """The store's ShardedState (the slot strategy, as the JAX package's
+        shard() places it), rebuilt from the primary
+        copy where the store has been written since it was built
+        (PartitionStore.version). A write that grew C past the multiple of
+        128 * shards (write_partitions' unrounded growth) is re-bucketed
+        first."""
+        store = self.store
+        store.ensure_capacity_multiple(128 * self.mesh.size)
+        if self._sharded is None or self._sharded_version != store.version:
+            self._sharded = None  # the old copies go before the new ones are made
+            self._sharded = shard_store_state(store.state, self.mesh)
+            self._sharded_version = store.version
+        return self._sharded
 
     def initialize_maintenance_policy(self, params: MaintenancePolicyParams) -> None:
         """A fresh policy with an empty window (quake_index.cpp:148-155); only
@@ -321,9 +381,15 @@ class QuakeIndex:
         batched_scan is False (a spilled index takes it whatever
         batched_scan says, with the dedup tail); a flat index scans every
         slot; the rest, and every search of an index whose parent is itself
-        an IVF (quake_tpu/index.py:855-860), goes through _search_device. exact_distances=False dequantizes the scores of the
-        fused path's and the APS scans' v10/v11; the flat and query-major
-        searches, and every other scan, stay exact, as in the JAX package.
+        an IVF (quake_tpu/index.py:855-860), goes through _search_device.
+        exact_distances=False dequantizes the scores of the fused path's and
+        the APS scans' v10/v11; the flat and query-major searches, and every
+        other scan, stay exact, as in the JAX package. On a mesh the fused
+        path is sharded_fused_search over the slot shards (its parents
+        ranked by the flat scan, not kernel K3), and a sharded flat index
+        goes through _search_device. The index shards by slot only (shard),
+        so the JAX package's fallback for a partition-sharded store
+        (quake_tpu/index.py:875-877) has nothing to route.
 
         A recall target (APS) in aps_mode "auto" or "dense" first tries the
         calibrated dense prefix (_aps_dense_route); otherwise _search_device
@@ -335,7 +401,7 @@ class QuakeIndex:
             routed = self._aps_dense_route(q, sp)
             if routed is not None:
                 return routed
-        if self.parent is None:
+        if self.parent is None and self.mesh is None:
             # Flat exact mode (quake_index.cpp:68-79).
             timing = SearchTimingInfo(n_queries=B, n_clusters=self.nlist(), search_params=sp)
             state = self.store.state
@@ -343,21 +409,28 @@ class QuakeIndex:
                                                                  self.metric)
             timing.partitions_scanned = self.nlist()
             return scores, ids32, timing, dists
-        if (use_aps or B < MIN_BATCH or (sp.batched_scan is False and not self.spill)
+        if (self.parent is None or use_aps or B < MIN_BATCH
+                or (sp.batched_scan is False and not self.spill)
                 or self.parent.parent is not None):
             scores, ids32, timing = self._search_device(q, sp)
             return scores, ids32, timing, scores_to_distances(scores, ids32, self.metric)
         timing = SearchTimingInfo(n_queries=B, n_clusters=self.nlist(), search_params=sp)
         parent_k = min(int(sp.nprobe), self.nlist())
         qt, group_chunk = self._grouped_params(B, parent_k)
-        state = self.store.state
         pstate = self.parent.store.state
-        scores, ids32, dists, scanned, pids = coordinator.fused_ivf_search(
-            state.codes, state.ids, state.sizes, state.norms,
-            pstate.codes, pstate.ids, q, k=k, nprobe=parent_k, metric=self.metric,
-            qt=qt, kernel=self._grouped_kernel(), parent_norms=pstate.norms,
-            group_chunk=group_chunk, parent_kernel=self._parent_kernel(),
-            exact=bool(sp.exact_distances), stages=stages, dedup=self.spill)
+        if self.mesh is not None:
+            scores, ids32, dists, scanned, pids = sharded_fused_search(
+                self._shards(), pstate.codes, pstate.ids, q, k=k, nprobe=parent_k,
+                metric=self.metric, qt=qt, group_chunk=group_chunk, dedup=self.spill,
+                kernel=self._grouped_kernel(), exact=bool(sp.exact_distances), stages=stages)
+        else:
+            state = self.store.state
+            scores, ids32, dists, scanned, pids = coordinator.fused_ivf_search(
+                state.codes, state.ids, state.sizes, state.norms,
+                pstate.codes, pstate.ids, q, k=k, nprobe=parent_k, metric=self.metric,
+                qt=qt, kernel=self._grouped_kernel(), parent_norms=pstate.norms,
+                group_chunk=group_chunk, parent_kernel=self._parent_kernel(),
+                exact=bool(sp.exact_distances), stages=stages, dedup=self.spill)
         timing.partitions_scanned = parent_k
         timing.parent_info = SearchTimingInfo(
             n_queries=B, n_clusters=self.parent.nlist(),
@@ -401,27 +474,32 @@ class QuakeIndex:
         return None
 
     def _search_device(self, q: torch.Tensor, sp: SearchParams, approx_flat: bool = False):
-        """The unfused search (quake_tpu/index.py::_search_device without
-        sharding); returns (scores, int32 ids, timing). A flat index scans
-        every slot; approx_flat marks a parent centroid ranking (see
-        ops/scan.py::topk_from_scores), user-facing flat searches stay
-        exact. An IVF index ranks candidates through its parent, padded to a
-        power of two of at least the nprobe bucket and trimmed back, then
-        scans partition-major in tensor operations (batched_scan true, or
-        unset with at least 16 queries; a spilled index always, for the
-        dedup merge) or query-major; with a recall target, it runs an APS
-        strategy over the candidates (_aps_search; the oneshot one ranks
-        the parents itself where the parent is flat, except on a spilled
-        index). A parent that is itself an IVF is searched by this same
-        method, recursively, with the caller's nprobe and the boosted
-        recall target below, and records its own hit window."""
+        """The unfused search (quake_tpu/index.py::_search_device); returns
+        (scores, int32 ids, timing). A flat index scans every slot (on a
+        mesh each shard its slots, merged); approx_flat marks a parent
+        centroid ranking (see ops/scan.py::topk_from_scores), user-facing
+        flat searches stay exact. An IVF index ranks candidates through its
+        parent, padded to a power of two of at least the nprobe bucket and
+        trimmed back, then scans partition-major in tensor operations
+        (batched_scan true, or unset with at least 16 queries; a spilled
+        index always, for the dedup merge) or query-major, and on a mesh
+        each shard query-major over its slices (sharded_ivf_search); with a
+        recall target, it runs an APS strategy over the candidates
+        (_aps_search; the oneshot one ranks the parents itself where the
+        parent is flat, except on a spilled or sharded index). A parent that
+        is itself an IVF is searched by this same method, recursively, with
+        the caller's nprobe and the boosted recall target below, and records
+        its own hit window."""
         B = int(q.shape[0])
         timing = SearchTimingInfo(n_queries=B, n_clusters=self.nlist(), search_params=sp)
         k = max(int(sp.k), 1)
         state = self.store.state
         if self.parent is None:
-            scores, ids32 = coordinator.flat_search(state.codes, state.ids, q, k, self.metric,
-                                                    approx=approx_flat)
+            if self.mesh is not None:
+                scores, ids32 = sharded_flat_search(self._shards(), q, k, self.metric)
+            else:
+                scores, ids32 = coordinator.flat_search(state.codes, state.ids, q, k,
+                                                        self.metric, approx=approx_flat)
             timing.partitions_scanned = self.nlist()
             return scores, ids32, timing
         # Parent search for candidate partitions (query_coordinator.cpp:628-646).
@@ -442,9 +520,10 @@ class QuakeIndex:
                                  use_precomputed=sp.use_precomputed,
                                  recompute_threshold=sp.recompute_threshold,
                                  initial_search_fraction=sp.initial_search_fraction)
-        if use_aps and aps_mode == "oneshot" and not self.spill and self.parent.parent is None:
+        if (use_aps and aps_mode == "oneshot" and not self.spill and self.parent.parent is None
+                and self.mesh is None):
             # Fused oneshot: the parent ranking runs inside the oneshot call
-            # (a flat parent only, as in the JAX package).
+            # (a flat parent and no mesh only, as in the JAX package).
             timing.parent_info = SearchTimingInfo(
                 n_queries=B, n_clusters=self.parent.nlist(),
                 partitions_scanned=self.parent.nlist())
@@ -456,7 +535,10 @@ class QuakeIndex:
         pids = p_ids32[:, :parent_k]  # trim the padding back to the candidate count
         if use_aps:
             return (*self._aps_search(q, sp, timing, aps_mode, parent_k, pids), timing)
-        if sp.batched_scan or self.spill or (sp.batched_scan is None and B >= MIN_BATCH):
+        if self.mesh is not None:
+            scores, ids32, scanned = sharded_ivf_search(self._shards(), q, pids, k, self.metric,
+                                                        dedup=self.spill)
+        elif sp.batched_scan or self.spill or (sp.batched_scan is None and B >= MIN_BATCH):
             qt, group_chunk = self._grouped_params(B, parent_k)
             scores, ids32, scanned = grouped_scan_xla(state.codes, state.ids, q, pids, k,
                                                       self.metric, qt=qt,
@@ -502,10 +584,12 @@ class QuakeIndex:
         return aps_mode, parent_k
 
     def _aps_search(self, q, sp: SearchParams, timing, mode: str, parent_k: int, pids):
-        """The APS half of quake_tpu/index.py::_search_device (:1245-1413,
-        one device): oneshot (its parents ranked inside where pids is None),
-        planned or the loop, with the calibrated dimension, gamma, radius
-        model and budget. A spilled index scans at 2k and keeps each id's
+        """The APS half of quake_tpu/index.py::_search_device (:1223-1413):
+        oneshot (its parents ranked inside where pids is None, never on a
+        mesh), planned or the loop, with the calibrated dimension, gamma,
+        radius model and budget; on a mesh their sharded versions
+        (parallel/sharded.py), each scan the shards' local scans merged on
+        the mesh's first device. A spilled index scans at 2k and keeps each id's
         best entry after (dedup_topk): a merge can carry both copies of a
         neighbour, and the 2k-th distance keeps the recall model
         conservative. `scanned` stays on the device as timing._scanned_dev
@@ -522,12 +606,22 @@ class QuakeIndex:
         chunk = int(sp.aps_chunk_size)
         if chunk <= 0:  # auto: two coarse steps at batch, 8 ranks a step below it
             chunk = max(8, -(-parent_k // 2)) if B >= 1024 else 8
-        qt, _ = self._grouped_params(B, chunk)
+        qt, group_chunk = self._grouped_params(B, chunk)
         common = dict(k=k, metric=self.metric, dimension=self.aps_dimension or self.d(),
                       use_precomputed=bool(sp.use_precomputed), table=table, qt=qt,
-                      kernel=self._grouped_kernel(), sizes=state.sizes, norms=state.norms,
+                      kernel=self._grouped_kernel(),
                       gamma=self.aps_gamma if self.aps_gamma != 1.0 else None,
                       exact=bool(sp.exact_distances))
+        if self.mesh is None:
+            lead = (state.codes, state.ids, state.centroids)
+            oneshot, planned, loop = (coordinator.aps_search_oneshot,
+                                      coordinator.aps_search_planned, coordinator.aps_search)
+            common.update(sizes=state.sizes, norms=state.norms)
+        else:  # the shards' local scans merged on the mesh's first device
+            lead = (self._shards(),)
+            oneshot, planned, loop = (sharded_aps_search_oneshot, sharded_aps_search_planned,
+                                      sharded_aps_search)
+            common.update(group_chunk=group_chunk)
         plans = dict(plan_margin=int(sp.aps_plan_margin), width_clip=int(self.aps_width_clip),
                      budget_w=int(self.aps_budget_w))
         target = float(sp.recall_target)
@@ -536,27 +630,24 @@ class QuakeIndex:
             pstate = self.parent.store.state
             scores, ids32, scanned, pids = coordinator.aps_search_oneshot_fused(
                 state.codes, state.ids, state.centroids, pstate.codes, pstate.ids,
-                pstate.norms, q, target, parent_k=int(parent_k),
-                mcap=int(self.aps_oneshot_mcap or 0), radius_a=ra, radius_b=rb,
-                parent_kernel=self._parent_kernel(), **common, **plans)
+                pstate.norms, q, target,
+                parent_k=int(parent_k), mcap=int(self.aps_oneshot_mcap or 0), radius_a=ra,
+                radius_b=rb, parent_kernel=self._parent_kernel(), **common, **plans)
         elif mode == "oneshot":
             ra, rb = self._radius_coef(k)
             mcap = int(self.aps_oneshot_mcap or 0)
-            scores, ids32, scanned = coordinator.aps_search_oneshot(
-                state.codes, state.ids, state.centroids, q,
-                pids[:, :mcap] if mcap and pids.shape[1] > mcap else pids, target,
+            scores, ids32, scanned = oneshot(
+                *lead, q, pids[:, :mcap] if mcap and pids.shape[1] > mcap else pids, target,
                 radius_a=ra, radius_b=rb, **common, **plans)
         elif mode == "planned":
             chunk0 = (int(sp.aps_chunk_size) if sp.aps_chunk_size > 0
                       else self._planned_chunk0(parent_k))
-            scores, ids32, scanned = coordinator.aps_search_planned(
-                state.codes, state.ids, state.centroids, q, pids, target, chunk0=chunk0,
-                **common, **plans)
+            scores, ids32, scanned = planned(*lead, q, pids, target, chunk0=chunk0, **common,
+                                             **plans)
         else:
             stats = {}
-            scores, ids32, scanned = coordinator.aps_search(
-                state.codes, state.ids, state.centroids, q, pids, target,
-                float(sp.recompute_threshold), chunk=chunk, stats=stats, **common)
+            scores, ids32, scanned = loop(*lead, q, pids, target, float(sp.recompute_threshold),
+                                          chunk=chunk, stats=stats, **common)
             timing.aps_loop_steps = stats["steps"]
             timing.aps_loop_syncs = stats["syncs"]
         if self.spill:
@@ -1218,8 +1309,10 @@ class QuakeIndex:
         from latency_profile.csv, and a fresh maintenance policy. A spilled
         index's slots are split between its maps as the JAX package splits
         them (each id's first occurrence in row-major order primary, the
-        second spill). A bf16 parent and sharding over n_workers devices
-        raise NotImplementedError."""
+        second spill). A bf16 parent raises NotImplementedError. n_workers >
+        1 shards the loaded index over that many CUDA devices where there
+        are as many (_would_shard; a CPU index counts as one device), as
+        the reference re-creates its workers at load."""
         with open(os.path.join(path, "metadata.json")) as f:
             meta = json.load(f)
         if meta["version"] != SERIALIZATION_VERSION:
@@ -1227,9 +1320,7 @@ class QuakeIndex:
         bf16 = meta.get("precision") == "bf16"
         if bf16 and self.level > 0:
             raise _not_ported("a bf16 parent (kernel K3 has no bf16 body)", BF16_OPERANDS)
-        if self._would_shard(n_workers):
-            raise _not_ported(f"load(n_workers={n_workers}) over as many CUDA devices",
-                              PARALLEL)
+        self.mesh, self._sharded = None, None
         self.metric = check_metric(meta["metric"])
         self.level = meta["level"]
         self.aps_dimension = meta.get("aps_dimension", 0)
@@ -1268,6 +1359,8 @@ class QuakeIndex:
             os.path.join(path, "latency_profile.csv"))
         self.maintenance_policy = None
         self.initialize_maintenance_policy(MaintenancePolicyParams())
+        if self._would_shard(n_workers):
+            self.shard(n_workers)
         return self
 
     # ------------------------------------------------------------- accessors

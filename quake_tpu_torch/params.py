@@ -77,7 +77,11 @@ class IndexBuildParams:
     Extensions beyond the reference:
       precision: stored code dtype, "f32" or "bf16" (the parent's, through
         parent_params, stays "f32": kernel K3 has no bf16 body).
-      num_shards: shard partitions across devices (not ported yet).
+      num_shards: shard the store over this many mesh devices at the end of
+        the build (QuakeIndex.shard; 0 or 1 = one device): the first
+        num_shards CUDA cards (as many as there are), or on a CPU index
+        num_shards virtual CPU shards. num_workers > 1 shards likewise,
+        but only where there are that many CUDA cards.
       spill, soar_lambda: SOAR spilled assignment (ScaNN, NeurIPS'23):
         every vector also in a second partition chosen by
         kmeans.soar_assign (soar_lambda weights the residuals'

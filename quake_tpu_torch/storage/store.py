@@ -234,7 +234,13 @@ class PartitionStore:
     PartitionManager's storage duties, src/cpp/src/partition_manager.cpp):
     the free-row list, per-row generation counters (stable partition
     identity for the maintenance hit window), and the resident vector-id ->
-    row map for O(1) add validation and remove routing."""
+    row map for O(1) add validation and remove routing.
+
+    `version` counts the writes to the arrays: every method that writes
+    them (construction, append, remove, update, write and delete
+    partitions, set_centroids, growth of C or P) assigns `state`, and the
+    assignment moves it on. A sharded index rebuilds its shards when it
+    has moved (QuakeIndex.shard)."""
 
     def __init__(self, dimension: int, device, dtype=torch.float32):
         if dtype not in (torch.float32, torch.bfloat16):
@@ -242,12 +248,22 @@ class PartitionStore:
         self.d = int(dimension)
         self.device = torch.device(device)
         self.dtype = dtype
+        self.version = 0
         self.state: StoreState | None = None
         self.free_rows: list[int] = []
         self.generation: np.ndarray | None = None  # [P] int64
         self.id_map = make_id_map()
         self.spill_map = None  # the spill copies' rows, on a spilled store
         self.cap_multiple = 128  # capacity rounding granularity
+
+    @property
+    def state(self) -> StoreState | None:
+        return self._state
+
+    @state.setter
+    def state(self, value: StoreState | None) -> None:
+        self._state = value
+        self.version += 1
 
     @property
     def spill(self) -> bool:

@@ -2123,3 +2123,79 @@ def test_concurrent_searches_cuda(dev):
     for name in ("grouped_scan", "merge_positions", "flat_topk"):
         assert _ext.launches[name] == 32, (name, _ext.launches[name])
     assert idx.maintenance_policy.hit_count_tracker.get_num_queries_recorded() == 33 * 64
+
+
+@pytest.mark.parametrize("kernel", ["xla", "v11"])
+def test_sharded_index_on_the_card_matches_its_cpu_load(dev, tmp_path, monkeypatch, kernel):
+    """An index built on the CPU and saved, loaded on the card and sharded
+    in two there (shard(2, devices=[cuda:0] * 2): two shards on one card),
+    and loaded on the CPU and sharded over two virtual shards: under "xla"
+    (both packages' scan off a TPU) the card's ids equal the CPU's, under
+    the default v11 they overlap >= 0.99 (K1 sums in another order). The
+    card's fixed-nprobe batch launches K1 and K2 once a shard and K3 never
+    (the sharded route ranks the parents by the flat scan); the query-major
+    B = 8 search, APS planned and loop, and a flat index sharded in two
+    likewise. After an add and a remove each shard equals the primary's
+    slot slice. A build with num_workers = the cards there are shards over
+    all of them where there are two or more, else builds unsharded."""
+    from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams
+
+    if kernel == "xla":
+        monkeypatch.setenv("QUAKE_TPU_KERNEL", "xla")
+    else:
+        monkeypatch.delenv("QUAKE_TPU_KERNEL", raising=False)
+    rng = np.random.default_rng(37)
+    centers = rng.standard_normal((64, 32)).astype(np.float32) * 2
+    x = (centers[rng.integers(0, 64, 20_000)]
+         + rng.standard_normal((20_000, 32)).astype(np.float32))
+    q = (centers[rng.integers(0, 64, 256)]
+         + rng.standard_normal((256, 32)).astype(np.float32))
+    src = QuakeIndex(device="cpu")
+    src.build(x, None, IndexBuildParams(nlist=32, calibrate_aps=False))
+    src.save(str(tmp_path / "ivf"))
+    flat = QuakeIndex(device="cpu")
+    flat.build(x[:4096], None, IndexBuildParams(nlist=0))
+    flat.save(str(tmp_path / "flat"))
+    for name in ("ivf", "flat"):
+        card = QuakeIndex(device=dev).load(str(tmp_path / name))
+        card.shard(2, devices=[dev] * 2)
+        cpu = QuakeIndex(device="cpu").load(str(tmp_path / name))
+        cpu.shard(2)
+        assert card.store.C == cpu.store.C and card.store.C % 256 == 0
+        cases = ((SearchParams(k=10), 256),) if name == "flat" else (
+            (SearchParams(k=10, nprobe=6), 256), (SearchParams(k=10, nprobe=6), 8),
+            (SearchParams(k=10, recall_target=0.9, initial_search_fraction=0.5,
+                          aps_mode="planned"), 256),
+            (SearchParams(k=10, recall_target=0.9, initial_search_fraction=0.5,
+                          aps_mode="loop"), 256))
+        for sp, n in cases:
+            torch.cuda.synchronize()
+            _ext.reset_launches()
+            got = card.search(q[:n], sp).ids
+            torch.cuda.synchronize()
+            if name == "ivf" and n == 256 and sp.recall_target <= 0 and kernel == "v11":
+                assert _ext.launches["grouped_scan"] == 2 and _ext.launches["flat_topk"] == 0
+                assert _ext.launches["merge_positions"] == 2
+            want = cpu.search(q[:n], sp).ids
+            if kernel == "xla":
+                np.testing.assert_array_equal(got, want)
+            else:
+                assert _overlap(torch.from_numpy(got), torch.from_numpy(want)) >= 0.99
+    card.load(str(tmp_path / "ivf"))
+    card.shard(2, devices=[dev] * 2)
+    card.add(x[:500] + 0.01, np.arange(50_000, 50_500))
+    card.remove(np.arange(0, 20_000, 3))
+    assert card.validate()
+    st, sh = card.store.state, card._shards()
+    Cl = card.store.C // 2
+    for s in range(2):
+        for f in ("codes", "ids", "norms"):
+            assert torch.equal(getattr(sh, f)[s], getattr(st, f)[:, s * Cl:(s + 1) * Cl])
+    n_cards = torch.cuda.device_count()
+    built = QuakeIndex(device=dev)
+    built.build(x, None, IndexBuildParams(nlist=32, num_workers=n_cards, calibrate_aps=False))
+    if n_cards >= 2:
+        assert built.mesh.size == n_cards and built.store.C % (128 * n_cards) == 0
+    else:
+        assert built.mesh is None
+    assert built.search(q, SearchParams(k=10, nprobe=6)).ids.shape == (256, 10)

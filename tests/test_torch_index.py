@@ -230,7 +230,8 @@ def _small_index(**kw):
     pytest.param(dict(precision="bf16"), None, id="kw0-ROADMAP Queue 1 item 5: bf16 codes"),
     # Lifted: a spilled build runs (the case keeps the id it had as a guard).
     pytest.param(dict(spill=True), None, id="kw1-ROADMAP Queue 1 item 6: spill and dedup"),
-    (dict(num_shards=2), "ROADMAP Queue 1 item 11: parallel"),
+    # Lifted: a sharded build runs (the case keeps the id it had as a guard).
+    pytest.param(dict(num_shards=2), None, id="kw2-ROADMAP Queue 1 item 11: parallel"),
     # Lifted: the build profiles the grouped scan's latency grid and sets
     # the maintenance policy on it (the case keeps the id it had as a guard).
     pytest.param(dict(profile_maintenance_latency=True), None,
@@ -256,7 +257,27 @@ def test_build_guards(kw, match, monkeypatch):
     two-level build's clustering at the leaf (the same seeded k-means) under
     an IVF parent of 4 partitions over its 8 centroids, itself over a flat
     parent, every level valid (test_torch_multilevel.py holds the index to
-    the JAX package's)."""
+    the JAX package's); num_shards=2 stores the unsharded build's
+    clustering (the same seeded k-means) with C rounded to a multiple of 256
+    (each of the two shards' slot slices a multiple of 128), on a mesh of two
+    virtual CPU shards, and searches as it does under "xla"
+    (test_torch_sharded.py holds sharding to the JAX package's)."""
+    if kw.get("num_shards"):
+        idx, x = _small_index(**kw)
+        ref, _ = _small_index()
+        assert idx.mesh.size == 2 and idx.store.C % 256 == 0 and idx.store.C >= ref.store.C
+        st, rst = idx.store.state, ref.store.state
+        C0 = ref.store.C
+        for name in ("codes", "ids", "norms"):
+            assert torch.equal(getattr(st, name)[:, :C0], getattr(rst, name))
+        assert (st.ids[:, C0:] == -1).all()
+        for name in ("sizes", "centroids", "active"):
+            assert torch.equal(getattr(st, name), getattr(rst, name))
+        monkeypatch.setenv("QUAKE_TPU_KERNEL", "xla")
+        for nq in (32, 4):
+            sp = SearchParams(k=5, nprobe=3)
+            np.testing.assert_array_equal(idx.search(x[:nq], sp).ids, ref.search(x[:nq], sp).ids)
+        return
     if kw.get("profile_maintenance_latency"):
         from quake_tpu_torch.maintenance import latency_estimator
 
@@ -336,7 +357,10 @@ def test_num_workers_builds_plain_on_one_device(monkeypatch):
     """ROADMAP Queue 3 fault 8: as in the JAX package, num_workers > 1
     shards only where there are that many devices; a CPU index counts as
     one, so it builds plain and searches as num_workers=0 does. A CUDA index
-    with as many CUDA devices raises (sharding is not ported)."""
+    with as many CUDA devices plans that many shards (the count
+    monkeypatched; the build itself runs on the card, in
+    test_torch_cuda.py::test_sharded_index_on_the_card_matches_its_cpu_load),
+    and with fewer plans none; num_shards plans its own count anywhere."""
     idx2, x = _small_index(num_workers=2)
     idx0, _ = _small_index()
     sp = SearchParams(k=5, nprobe=3)
@@ -344,10 +368,13 @@ def test_num_workers_builds_plain_on_one_device(monkeypatch):
         a, b = idx2.search(x[:nq], sp), idx0.search(x[:nq], sp)
         np.testing.assert_array_equal(a.ids, b.ids)
         np.testing.assert_array_equal(a.distances, b.distances)
+    assert idx2.mesh is None and idx2._shard_plan(IndexBuildParams(num_workers=2)) == 0
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11: parallel"):
-        QuakeIndex(device="cuda").build(x, None, IndexBuildParams(nlist=8, num_workers=2,
-                                                                  calibrate_aps=False))
+    card = QuakeIndex(device="cuda")
+    assert card._shard_plan(IndexBuildParams(nlist=8, num_workers=2)) == 2
+    assert card._shard_plan(IndexBuildParams(nlist=8, num_workers=3)) == 0  # too few cards
+    assert card._shard_plan(IndexBuildParams(nlist=8, num_shards=4)) == 4
+    assert idx2._shard_plan(IndexBuildParams(nlist=8, num_shards=4)) == 4
 
 
 def test_guard_messages_cite_current_items():

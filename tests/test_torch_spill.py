@@ -4,9 +4,9 @@ CPU: `soar_assign`, the build, the fixed-nprobe search at B >= 16 (the fused
 path with the dedup tail) and B < 16 (the query-major "xla" scan with
 dedup), APS planned and loop (the scans at 2k, then `dedup_topk`), `add`,
 `remove`, `modify`, `get`, an overflow split, `split_partitions`,
-checkpoints each way and `validate`. The cases mirror tests/test_spill.py
-(its sharded case excepted: sharding is not ported); maintenance's are in
-test_torch_spill_maintenance.py.
+checkpoints each way and `validate`, and the search sharded over 4 virtual
+CPU shards (the dedup merge of the shards' lists). The cases mirror
+tests/test_spill.py; maintenance's are in test_torch_spill_maintenance.py.
 
 The JAX package builds one spilled index (6000 x 32, nlist 32, the JAX
 fixture's shape) and saves it; each test loads a fresh copy and carries it
@@ -389,3 +389,53 @@ def test_checkpoints_cross_both_ways(saved_jax, tmp_path):
     gone = before[0, :3]
     apply(jl, tl, "remove", gone)
     assert not np.isin(tl.store.state.ids.numpy(), gone).any()
+
+
+def test_spill_sharded_matches_single_device(monkeypatch, tmp_path):
+    """tests/test_spill.py::test_spill_sharded_matches_single_device in the
+    port: a spilled build (4000 x 16, nlist 16, seed 17) sharded over 4
+    virtual CPU shards returns per row the single-device id set, no id
+    twice; APS on the sharded spilled index (the scans at 2k, the dedup
+    tail) holds no id twice and reaches recall >= 0.75 (under "xla" it
+    equals the unsharded APS). Then both packages load one JAX-built
+    spilled store, each sharded 4 ways: under "xla" the port's ids equal
+    the JAX package's (the local 2k scan with dedup, the dedup'd merge)."""
+    rng = np.random.default_rng(17)
+    n, d = 4000, 16
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    q = rng.standard_normal((24, d)).astype(np.float32)
+    idx = QuakeIndex(device="cpu")
+    idx.build(x, np.arange(n, dtype=np.int64),
+              IndexBuildParams(nlist=16, metric="l2", spill=True))
+    sp = SearchParams(k=10, nprobe=5)
+    aps = SearchParams(k=10, recall_target=0.8, initial_search_fraction=0.5)
+    before = idx.search(q, sp)
+    monkeypatch.setenv("QUAKE_TPU_KERNEL", "xla")
+    aps_before = idx.search(q, aps).ids
+    monkeypatch.delenv("QUAKE_TPU_KERNEL")
+    idx.shard(4)
+    assert idx.store.C % 512 == 0 and idx.validate()
+    after = idx.search(q, sp)
+    for b in range(q.shape[0]):
+        assert set(before.ids[b].tolist()) == set(after.ids[b].tolist()), b
+    assert_no_dups(after.ids)
+    gt, _ = knn(q, x, 10, "l2")
+    rid = idx.search(q, aps).ids
+    assert_no_dups(rid)
+    assert compute_recall(rid, gt, 10) >= 0.75
+    monkeypatch.setenv("QUAKE_TPU_KERNEL", "xla")
+    np.testing.assert_array_equal(idx.search(q, aps).ids, aps_before)
+
+    jidx = JaxIndex()
+    jidx.build(x, np.arange(n, dtype=np.int64),
+               JaxBuildParams(nlist=16, metric="l2", spill=True, calibrate_aps=False))
+    path = str(tmp_path / "jax_spill")
+    jidx.save(path)
+    jidx.shard(4)
+    tidx = QuakeIndex(device="cpu").load(path)
+    tidx.shard(4)
+    got = tidx.search(q, sp)
+    want = jidx.search(q, JaxSearchParams(k=10, nprobe=5))
+    np.testing.assert_array_equal(got.ids, want.ids)
+    np.testing.assert_allclose(got.distances, want.distances, rtol=1e-5, atol=1e-5)
+    assert_no_dups(got.ids)
