@@ -304,6 +304,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
              after each the shards equal to the primary, contract 6 on each,
              validate() and a counted batch. `[shard]` lines on stderr.
 
+19. bf16 by name — (run after phase 11, on its bf16 index) every scan by
+             name whose kernels have bf16 bodies (v3p, v3p4, v7g4, v11g4f256,
+             v3, v2, v6, v5, v4) and the four direct scans on the headline
+             bf16 index at the headline nprobe, each with its launches (its
+             _bf16 kernel launched, the f32 twin not), recall@10 against the
+             exact scan of the bf16 codes' probed partitions under phase 5's
+             and 6's gates, and ms per B=16384 batch; then the kernels
+             line's rows of those bf16 bodies at the paths' shapes, each
+             held to its plain version (the launcher's body asserted: the
+             tensor cores, v4's chunk table the CUDA cores), with its time
+             and bound (2 bytes an element, the bf16 tensor-core peak).
+             `[bf16 by name]`, `[bf16 direct]` and `[kernel]` lines.
+20. bf16 parent — (run after phase 12) the main corpus under a bf16 parent
+             (IndexBuildParams(parent_params=IndexBuildParams(precision=
+             "bf16"))): build, each parent row the bf16 rounding of its
+             centroid, a B=16384 batch at the main nprobe (K1, K2 and K3's
+             bf16 body must launch, the f32 K3 must not; recall@10 at most
+             0.005 below the f32 parent's), save and load (the parent bf16 bit
+             for bit, ids equal); K3's bf16 body against its plain version at
+             the parent ranking's shape and at N = 16384, with its bound.
+             `[bf16 parent]` lines. Phase 3 also holds the bf16 bodies of
+             K3-K9, sized_topk and multi_topk to their plain versions at D =
+             128 and 768 (tensor cores) and 100 (CUDA cores).
+
 Progress goes to stderr. Standard output holds three lines: the JSON list
 of kernels, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
@@ -473,6 +497,22 @@ BF16_PEAK = 989e12  # H100 SXM dense bf16 FLOP/s on the tensor cores (data sheet
 UNITS = {"f32 CUDA cores": (1.0, F32_PEAK), "TF32 tensor cores, 3 products": (3.0, TF32_PEAK),
          "bf16 tensor cores": (1.0, BF16_PEAK)}
 CUDA_CORES, TENSOR_CORES, BF16_TENSOR_CORES = UNITS
+# The bf16 by-name phase on the headline bf16 index: every scan of BY_NAME
+# whose kernels take bf16 codes through a body of their own (v8-v11 run K1's,
+# which the headline phase holds), with the f32 phase's gates and fewer timed
+# batches; the direct scans as DIRECT. A path's kernels launch under their
+# _bf16 names, and their f32 twins must not.
+BF16_BY_NAME = tuple((name, tuple(f"{k}_bf16" for k in kernels), gate, min(reps, 3))
+                     for name, kernels, gate, reps in BY_NAME
+                     if name in ("v3p", "v3p4", "v11g4f256", "v6", "v7g4", "v3", "v2", "v5", "v4"))
+BF16_DIRECT = tuple((name, f"{kernel}_bf16", gate, min(reps, 3))
+                    for name, kernel, gate, reps in DIRECT)
+# A bf16 parent: the same corpus under IndexBuildParams(parent_params=
+# IndexBuildParams(precision="bf16")); its fixed-nprobe batch must launch K3's
+# bf16 body and not the f32 one, and its recall@10 may fall below the f32
+# parent's at the same nprobe by at most this much.
+BF16_PARENT_KERNELS = ("grouped_scan", "merge_positions", "flat_topk_bf16")
+BF16_PARENT_RECALL_TOL = 0.005
 # Entries of the kernels line whose product runs on the tensor cores at the
 # paths' shapes (D = 128): K1, K3, K4 on whole partitions (with v4's chunk
 # table it runs in f32 on the CUDA cores), K5-K9, sized_topk and multi_topk
@@ -483,6 +523,21 @@ TENSOR_CORE_ENTRIES = ("grouped_scan", "grouped_scan_bf16", "grouped_scan_budget
                        "rowscale_topk/v3pn", "rowscale_topk/v6", "rowscale_fold/v7",
                        "exact_topk/v3", "exact_topk/v2", "chunk_merge/v5", "multi_topk",
                        "raw_scores", "packed_topk", "sized_topk")
+# The same kernels' bf16 bodies at the bf16 paths' shapes: one bf16 product a
+# depth-16 step on the tensor cores (v4's chunk table on the CUDA cores, in f32
+# on the converted values, as in f32). Every bf16 entry, v4's too, is bounded
+# at the bf16 peak (unit_of).
+BF16_ENTRIES = ("flat_topk", "rowscale_topk/v3p", "rowscale_topk/v3pn", "rowscale_topk/v6",
+                "rowscale_fold/v7", "exact_topk/v3", "exact_topk/v2", "chunk_merge/v5",
+                "rowscale_topk/v4", "raw_scores", "sized_topk", "packed_topk", "multi_topk")
+
+
+def bf16_entry(entry: str) -> str:
+    """The kernels line's name of an entry's bf16 twin: its kernel's launch
+    name with _bf16 (rowscale_topk/v3p -> rowscale_topk_bf16/v3p)."""
+    kernel, _, path = entry.partition("/")
+    return f"{kernel}_bf16" + (f"/{path}" if path else "")
+
 HBM_RATE = 3.35e12  # H100 SXM bytes/s
 QUEUE_CYCLES = 50_000_000  # ~25 ms of spinning at the H100's clock: room to enqueue the reps
 # Entry of the kernels line -> (CUDA kernel, its source, the TPU kernel it
@@ -535,11 +590,33 @@ ENTRIES = {
 }
 
 
+# Each bf16 twin: its kernel's bf16 launch name, the f32 entry's source and
+# the TPU kernel it replaces (the Pallas kernels are generic in the codes'
+# dtype).
+ENTRIES.update({bf16_entry(e): (f"{ENTRIES[e][0]}_bf16",) + ENTRIES[e][1:] for e in BF16_ENTRIES})
+
+
+def is_bf16(entry: str) -> bool:
+    """Whether an entry of the kernels line is a bf16 body's."""
+    return entry.partition("/")[0].endswith("_bf16")
+
+
 def unit_of(entry: str) -> str:
-    """The unit (a key of UNITS) that an entry of the kernels line multiplies on."""
-    if entry in ("grouped_scan_bf16", "grouped_scan_budget_bf16"):
+    """The unit (a key of UNITS) whose peak bounds an entry of the kernels
+    line. A bf16 entry is bounded at the bf16 peak, one product a step, even
+    where its body multiplies on the CUDA cores (v4's chunk table keeps
+    tile_dots' order there by choice, not by a limit of the card)."""
+    if is_bf16(entry):
         return BF16_TENSOR_CORES
     return TENSOR_CORES if entry in TENSOR_CORE_ENTRIES else CUDA_CORES
+
+
+def on_tensor_cores(entry: str) -> bool:
+    """Whether an entry's kernel runs its tensor-core body at the paths'
+    shapes (the body its row checks the launcher chose)."""
+    if is_bf16(entry):
+        return entry != bf16_entry("rowscale_topk/v4")
+    return entry in TENSOR_CORE_ENTRIES
 
 
 def log(msg: str) -> None:
@@ -725,6 +802,154 @@ def phase_small_parity_bf16(torch, dev, rng):
         worst = [min(worst[0], ov), max(worst[1], kd)]
     log(f"[parity small] K1 bf16 (D 128, 768 tensor cores; D 100 CUDA cores; qt 8-64): min "
         f"overlap={worst[0]:.4f} max key diff={worst[1]}")
+    phase_small_parity_bf16_scans(torch, dev, rng)
+
+
+def phase_small_parity_bf16_scans(torch, dev, rng):
+    """The bf16 bodies of K3-K9, sized_topk and multi_topk against their
+    plain versions (bf16 operands upcast, multiplied in f32) at the shapes
+    that stress their tiles: 300 groups, sizes 0, 1, 127, 128, 129, 256,
+    300 and all of a C = 520 that no segment divides (K5 and K7: C = 512,
+    K7 in chunks of ct 128 and 256), qt 8-64, l2 and ip, kk 10 and 100 for
+    K4 (its candidate buffer) and 10 and 33 for the sorted lists (insert_rows
+    up to 32, merge_rows past it); D = 128 and 768 (a ring stage of bf16
+    holds 128 columns whole, 768 in depth chunks) on the tensor-core bodies,
+    D = 100 (D % 8 != 0) on the CUDA-core bodies, each launcher's body
+    asserted; K4's chunk table (ct 128) on its CUDA-core body; K9 equal to
+    the top kk of K8's scores, packed; K3 at N = 384 (scores kept) and
+    2048 (two passes). The gates are the f32 ones."""
+    from quake_tpu_torch.ops import flat_topk as ft
+    from quake_tpu_torch.ops import grouped_chunked as gc
+    from quake_tpu_torch.ops import grouped_exact as ge
+    from quake_tpu_torch.ops import grouped_variants as gv
+    from quake_tpu_torch.ops.grouped_family import (CHUNK_BODY, GROUP_BODY, MMA_BODY,
+                                                    rowscale_fold_body, rowscale_topk_body)
+    from quake_tpu_torch.ops.grouped_scan import packed_params
+
+    bf, Gn, worst = torch.bfloat16, 300, {}
+
+    def fold_in(what, r):
+        w = worst.setdefault(what, [1.0, 0.0, 0.0])
+        r = tuple(r) + (0.0,) * (3 - len(r))
+        w[:] = [min(w[0], r[0])] + [max(a, b) for a, b in zip(w[1:], r[1:])]
+
+    def store(C, Dm, sizes_l):
+        codes = torch.from_numpy(rng.standard_normal((len(sizes_l), C, Dm)).astype(np.float32))
+        codes = codes.to(dev).to(bf)
+        sizes = torch.tensor(sizes_l, dtype=torch.int32, device=dev)
+        lane = torch.arange(C, device=dev)[None, :]
+        ids = torch.where(lane < sizes[:, None],
+                          torch.arange(len(sizes_l) * C, dtype=torch.int32,
+                                       device=dev).reshape(-1, C), -1).to(torch.int32)
+        return codes, (codes.float() ** 2).sum(-1).contiguous(), sizes, ids.contiguous()
+
+    for qt, Dm in ((8, 128), (64, 128), (32, 768), (8, 100), (64, 100)):
+        tc = Dm % 8 == 0
+        where = f"D={Dm} " + ("tensor cores" if tc else "CUDA cores")
+        bodies = {
+            "K4": (rowscale_topk_body(qt, Dm, 100, dtype=bf), MMA_BODY if tc else GROUP_BODY),
+            "K5": (rowscale_fold_body(qt, Dm, 10, bf), MMA_BODY if tc else GROUP_BODY),
+            "K6": (ge.exact_topk_body(qt, Dm, 33, bf), ge.MMA_BODY if tc else ge.GROUP_BODY),
+            "K7": (gc.chunk_merge_body(qt, Dm, 33, bf), gc.MMA_BODY if tc else gc.GROUP_BODY),
+            "K8": (gv.raw_scores_body(qt, Dm, bf), gv.MMA_BODY if tc else gv.CUDA_CORE_BODY),
+            "K9": (gv.packed_topk_body(qt, Dm, 33, bf), gv.MMA_BODY if tc else gv.CUDA_CORE_BODY),
+            "sized_topk": (gv.sized_topk_body(qt, Dm, 33, bf),
+                           gv.MMA_BODY if tc else gv.CUDA_CORE_BODY),
+            "multi_topk": (gv.multi_topk_body(qt, Dm, 33, bf),
+                           gv.MMA_BODY if tc else gv.CUDA_CORE_BODY)}
+        if Dm <= 128:
+            bodies["K4 chunk table"] = (rowscale_topk_body(qt, Dm, 10, True, bf), CHUNK_BODY)
+        wrong = {k: v for k, v in bodies.items() if v[0] != v[1]}
+        if wrong:
+            raise AssertionError(f"bf16 at qt={qt}, D={Dm}: the launchers chose other bodies "
+                                 f"than expected (got, want): {wrong}")
+        q = torch.from_numpy(rng.standard_normal((Gn, qt, Dm)).astype(np.float32))
+        q = q.to(dev).to(bf).contiguous()
+        # C % 128 == 0: K5, and K7 in chunks of one and two segments.
+        C = 512
+        codes, norms, sizes, _ = store(C, Dm, [0, 1, 127, 128, 129, C, 256, 300])
+        gp = torch.from_numpy(rng.integers(-1, 8, Gn).astype(np.int32)).to(dev)
+        gsize = torch.where(gp >= 0, sizes[gp.clamp(min=0).long()],
+                            torch.zeros_like(gp)).contiguous()
+        slot_mult, levels = packed_params(C)
+        for metric in ("l2", "ip"):
+            fold_in(f"K5, {where}", compare_rowscale(torch, (gp, gsize, q, codes, norms, 10,
+                                                             slot_mult, levels, metric, "fold")))
+            for ct in (128, 256):
+                sm, lv = packed_params(ct)
+                for kk in (10, 33):
+                    args7 = (gp, gsize, q, codes, norms, kk, ct, sm, lv, metric)
+                    fold_in(f"K7, {where}", compare_pairs(
+                        torch, f"K7 bf16 ({where})", gc.chunk_merge(*args7),
+                        gc.chunk_merge_plain(*args7), level=key_level(q, norms, lv, metric)))
+        # C = 520: a partition's last segment reads the next one's rows.
+        C = 520
+        codes, norms, sizes, ids = store(C, Dm, [0, 1, 127, 128, 129, C, 256, 300])
+        gsize = torch.where(gp >= 0, sizes[gp.clamp(min=0).long()],
+                            torch.zeros_like(gp)).contiguous()
+        slot_mult, levels = packed_params(C)
+        for metric in ("l2", "ip"):
+            for kk in (10, 100):
+                fold_in(f"K4, {where}", compare_rowscale(
+                    torch, (gp, gsize, q, codes, norms, kk, slot_mult, levels, metric, "topk")))
+            if Dm <= 128:  # K4 with a chunk table of ct 128: 60 (partition, tile) groups
+                G, ct = 60, 128
+                maxch = -(-C // ct)
+                pid = torch.from_numpy(rng.integers(-1, 8, G).astype(np.int32)).to(dev)
+                cg_pid = pid.repeat_interleave(maxch).contiguous()
+                chunk = torch.arange(maxch, dtype=torch.int32, device=dev).repeat(G)
+                cg_size = torch.where(cg_pid >= 0,
+                                      (sizes[cg_pid.clamp(min=0).long()] - chunk * ct).clamp(0, ct),
+                                      torch.zeros_like(cg_pid)).contiguous()
+                qsrc = torch.arange(G, dtype=torch.int32, device=dev).repeat_interleave(maxch)
+                sm, lv = packed_params(ct)
+                fold_in(f"K4 chunk table, {where}", compare_rowscale(
+                    torch, (cg_pid, cg_size, q[:G].contiguous(), codes, norms, 10, sm, lv, metric,
+                            "topk"),
+                    qsrc=qsrc.contiguous(), row_off=(chunk * ct).contiguous(), ct=ct))
+            raw = gv.raw_scores(gp, q, codes, ids, metric)
+            raw_p = gv.raw_scores_plain(gp, q, codes, ids, metric)
+            fold_in(f"K8, {where} (score error / tolerance)", (1.0, compare_raw(torch, raw, raw_p)))
+            del raw
+            for kk in (10, 33):
+                ref, _ = k8_as_k9(torch, gp, q, codes, ids, kk, metric)
+                fold_in(f"K9, {where}", compare_packed(
+                    torch, gv.packed_topk(gp, q, codes, ids, kk, metric),
+                    gv.packed_topk_plain(gp, q, codes, ids, kk, metric, chunk=64), ref, raw_p,
+                    gv.slot_bits_of(C), exact=True))
+                fold_in(f"sized_topk, {where} (score error)", compare_pairs(
+                    torch, "sized_topk bf16", gv.sized_topk(gp, gsize, q, codes, kk, metric),
+                    gv.sized_topk_plain(gp, gsize, q, codes, kk, metric), ties=True))
+                fold_in(f"multi_topk, {where} (score error)", compare_pairs(
+                    torch, "multi_topk bf16",
+                    multi_slots(gv.multi_topk(gp, q, codes, ids, kk, metric, gb=4), C),
+                    multi_slots(gv.multi_topk_plain(gp, q, codes, ids, kk, metric), C),
+                    ties="up"))
+                for mode, kw in (("slot", dict(group_size=gsize, norms=norms)),
+                                 ("id", dict(ids=ids))):
+                    fold_in(f"K6 ({mode}), {where} (score error)", compare_pairs(
+                        torch, f"K6 bf16 ({mode})", ge.exact_scan(gp, q, codes, kk, metric, mode,
+                                                                  **kw),
+                        ge.exact_scan_plain(gp, q, codes, kk, metric, mode, **kw), ties=True))
+            del raw_p
+        # K3: the scores of a 64-query tile kept (N = 384) and two passes (N = 2048).
+        qb = torch.from_numpy(rng.standard_normal((500, Dm)).astype(np.float32)).to(dev).to(bf)
+        for N in (384, 2048):
+            cb = torch.from_numpy(rng.standard_normal((N, Dm)).astype(np.float32)).to(dev).to(bf)
+            want = (ft.KEPT_BODY if N <= 384 else ft.TWO_PASS_BODY) if tc else ft.CUDA_CORE_BODY
+            if ft.flat_topk_body(N, Dm, bf) != want:
+                raise AssertionError(f"K3 bf16 at N={N}, D={Dm}: body "
+                                     f"{ft.flat_topk_body(N, Dm, bf)}, expected {want}")
+            bias = (-(cb.float() ** 2).sum(1)).contiguous()
+            bias[-20:] = float("-inf")
+            for metric, bb in (("l2", bias), ("ip", torch.where(bias > float("-inf"), 0.0,
+                                                                 bias).contiguous())):
+                fold_in(f"K3, {where}", compare_k3(torch, ft.flat_topk, ft.flat_topk_plain, cb,
+                                                   bb, qb, 16, metric))
+    log("[parity small] the bf16 bodies of K3-K9, sized_topk and multi_topk (300 groups; qt 8-64; "
+        "D 128, 768 tensor cores, D 100 CUDA cores; l2, ip): "
+        + "; ".join(f"{what}: min overlap={w[0]:.4f} max_key_diff={w[1]} max_stats_err={w[2]:.3g}"
+                    for what, w in worst.items()))
 
 
 def phase_small_parity_tensor_core(torch, dev, rng):
@@ -853,7 +1078,7 @@ def phase_small_parity_tensor_core(torch, dev, rng):
                                                          if chunk_body == CHUNK_BODY
                                                          else "one block a group"), r)
         # multi_topk on K4's store (the lanes past a partition's size hold no
-        # id), where it serves the shape: not at qt = 64 past D = 130.
+        # id), where it serves the shape (multi_topk_serves).
         lane = torch.arange(C, device=dev)[None, :]
         ids = torch.where(lane < sizes[:, None],
                           torch.arange(codes.shape[0] * C, dtype=torch.int32,
@@ -895,14 +1120,13 @@ def phase_small_parity_tensor_core(torch, dev, rng):
                             r)
         # sized_topk on the same store, every row past a size poisoned with
         # 999, +inf or NaN (the tensor-core body loads the segment that holds
-        # the size-th row whole), equal scores by the larger slot. Where its
-        # tensor-core body does not take kk, its CUDA-core body has
-        # multi_topk's shared memory (multi_topk_serves).
+        # the size-th row whole), equal scores by the larger slot. It serves
+        # the shapes multi_topk does: the same two bodies' buffers
+        # (multi_topk_serves).
         poisoned = codes.clone()
         for p, size in enumerate(sizes.tolist()):
             poisoned[p, size:] = (999.0, float("inf"), float("nan"))[p % 3]
-        for kk in (k for k in (1, 10, 100) if gv.sized_topk_body(qt, Dm, k) == gv.MMA_BODY
-                   or gv.multi_topk_serves(qt, Dm, k)):
+        for kk in (k for k in (1, 10, 100) if gv.multi_topk_serves(qt, Dm, k)):
             for metric in ("l2", "ip"):
                 got = gv.sized_topk(gp, gsize, q, poisoned, kk, metric)
                 for m, model in models if tensor_cores else models[:1]:
@@ -1052,10 +1276,10 @@ def k8_as_k9(torch, gp, qg, codes, ids, kk: int, metric: str):
     from quake_tpu_torch.ops.grouped_variants import packed_topk_body, raw_scores, raw_scores_body
 
     qt, Dm = qg.shape[1], qg.shape[2]
-    body = packed_topk_body(qt, Dm, kk)
-    if raw_scores_body(qt, Dm) == body:
+    body = packed_topk_body(qt, Dm, kk, codes.dtype)
+    if raw_scores_body(qt, Dm, codes.dtype) == body:
         return raw_scores(gp, qg, codes, ids, metric), body
-    if raw_scores_body(qt, Dm + 1) != body:
+    if raw_scores_body(qt, Dm + 1, codes.dtype) != body:
         raise AssertionError(f"K8 at D={Dm + 1} does not run K9's body {body}")
     qg1, codes1 = (torch.nn.functional.pad(t, (0, 1)).contiguous() for t in (qg, codes))
     return raw_scores(gp, qg1, codes1, ids, metric), body
@@ -1176,6 +1400,7 @@ def phase_small_parity_exact_chunked(torch, dev, rng, gp):
 def key_level(qg, norms, levels: int, metric: str) -> float:
     """Upper bound on one quantization level of any row of a per-row-scale
     scan: (largest possible score range) / levels, from |<q, x>| <= |q| |x|."""
+    qg = qg.float()
     qmax = float((qg * qg).sum(-1).max().sqrt())
     xmax = float(norms.max().sqrt())
     span = 4.0 * qmax * xmax + xmax * xmax if metric == "l2" else 2.0 * qmax * xmax
@@ -1300,7 +1525,7 @@ def compare_k3(torch, kernel, plain, codes2d, bias, q, k, metric):
         raise AssertionError(f"K3 disagrees with its plain version: overlap {ov}")
     # Quantized key (plain arithmetic) of each rank's pick, kernel vs plain.
     _, levels = _packed_params(codes2d.shape[0])
-    prod = q @ codes2d.T
+    prod = q.float() @ codes2d.float().T
     s = (2.0 * prod if metric == "l2" else prod) + bias[None, :]
     valid = s > float("-inf")
     mx = torch.where(valid, s, torch.full_like(s, float("-inf"))).amax(1, keepdim=True)
@@ -1404,14 +1629,17 @@ def batch_text(r: dict) -> str:
             + json.dumps({k: round(v, 4) for k, v in r["stages_ms"].items()}))
 
 
-def phase_by_name(torch, dev, idx, queries, gt, nprobe, recall_v11):
-    """Each scan of BY_NAME through QUAKE_TPU_KERNEL, on the main index at
-    the main nprobe: recall@10 of a search of the ground-truth queries
+def phase_by_name(torch, dev, idx, queries, gt, nprobe, recall_v11, paths=BY_NAME,
+                  tag="by name", placement=True):
+    """Each scan of `paths` (BY_NAME; BF16_BY_NAME on the headline bf16
+    index, whose lines read `tag`) through QUAKE_TPU_KERNEL, on the index
+    at the nprobe given: recall@10 of a search of the ground-truth queries
     (B=NQ_GT; the gates read it), ms per B=16384 batch, stages, the timed
     batch's own recall on its first NQ_GT queries, and the path's launches
-    (zeroed just before the path runs, read just after); then the v11 path with PLACEMENT_KNOB at
-    B=BATCH_SORTED. The "reference" scan (exact top-k over the same probed
-    partitions) gives the recall ceiling. Fails if the path's kernels did
+    (zeroed just before the path runs, read just after); then, with
+    placement, the v11 path with PLACEMENT_KNOB at B=BATCH_SORTED. The
+    "reference" scan (exact top-k over the same probed partitions) gives
+    the recall ceiling. Fails if the path's kernels did
     not launch, if another scan kernel did, or if recall misses the path's
     gate: within EXACT_TOL below the ceiling, or within V11_TOL of the v11
     path."""
@@ -1428,13 +1656,14 @@ def phase_by_name(torch, dev, idx, queries, gt, nprobe, recall_v11):
         ceiling = compute_recall(idx.search(queries[:NQ_GT], sp).ids, gt, K)
     finally:
         del os.environ["QUAKE_TPU_KERNEL"]
-    log(f"[by name] reference (exact scan of the probed partitions): recall@10={ceiling:.4f}")
+    log(f"[{tag}] reference (exact scan of the probed partitions): recall@10={ceiling:.4f}")
     out = {"reference": dict(recall=ceiling)}
-    paths = [(name, {"QUAKE_TPU_KERNEL": name}, kernels, gate, reps, BATCH)
-             for name, kernels, gate, reps in BY_NAME]
-    paths.append(("v11/" + ",".join(f"{k}={v}" for k, v in PLACEMENT_KNOB.items()), PLACEMENT_KNOB,
-                  ("grouped_scan", "merge_positions"), "v11", 5, BATCH_SORTED))
-    for name, env, kernels, gate, reps, batch in paths:
+    runs = [(name, {"QUAKE_TPU_KERNEL": name}, kernels, gate, reps, BATCH)
+            for name, kernels, gate, reps in paths]
+    if placement:
+        runs.append(("v11/" + ",".join(f"{k}={v}" for k, v in PLACEMENT_KNOB.items()),
+                     PLACEMENT_KNOB, ("grouped_scan", "merge_positions"), "v11", 5, BATCH_SORTED))
+    for name, env, kernels, gate, reps, batch in runs:
         qd = torch.from_numpy(queries[:batch]).to(dev)
         os.environ.update(env)
         try:
@@ -1455,7 +1684,7 @@ def phase_by_name(torch, dev, idx, queries, gt, nprobe, recall_v11):
         r = compute_recall(res.ids, gt, K)
         r_batch = compute_recall(ids32[:NQ_GT].cpu().numpy(), gt, K)
         stages = timer.mean_ms()
-        log(f"[by name] {name}: recall@10={r:.4f} (v11 {recall_v11:.4f}, exact "
+        log(f"[{tag}] {name}: recall@10={r:.4f} (v11 {recall_v11:.4f}, exact "
             f"{ceiling:.4f}; B={batch}: recall(first {NQ_GT})={r_batch:.4f}), {ms:.3f} ms/batch "
             f"(B={batch}), {batch / (ms / 1e3):,.0f} QPS, stages(ms)="
             f"{json.dumps({k: round(v, 4) for k, v in stages.items()})}, launches {launches}")
@@ -1639,19 +1868,25 @@ def exact_chunked_rows(torch, idx, q, pids, qt, kk, by_name):
     from the B=16384 batch. One pass over the slab bounds K6 and K7 (K7
     reads nothing twice from device memory); v4's bound counts each query
     tile once (a block keeps it across the chunks that share it), its chunk
-    table and both outputs."""
+    table and both outputs. On a bf16 index (q the batch rounded to bf16)
+    the rows are the bf16 entries (bf16_entry), each kernel's bf16 body held
+    to its plain version (the split product's model has no bf16 part)."""
     from quake_tpu_torch.coordinator import chunk_spec
     from quake_tpu_torch.ops.grouped import build_chunk_groups, build_groups
     from quake_tpu_torch.ops.grouped_chunked import MMA_BODY as K7_MMA_BODY
     from quake_tpu_torch.ops.grouped_chunked import chunk_merge, chunk_merge_body, chunk_merge_plain
     from quake_tpu_torch.ops.grouped_exact import MMA_BODY as K6_MMA_BODY
     from quake_tpu_torch.ops.grouped_exact import exact_scan, exact_scan_plain, exact_topk_body
-    from quake_tpu_torch.ops.grouped_family import rowscale_scan, rowscale_scan_plain
+    from quake_tpu_torch.ops.grouped_family import (CHUNK_BODY, rowscale_scan, rowscale_scan_plain,
+                                                    rowscale_topk_body)
     from quake_tpu_torch.ops.grouped_scan import packed_params, pad_groups
     from quake_tpu_torch.ops.split_product import bmm_as_split_product
 
     st = idx.store.state
     P, C, Dd = st.codes.shape
+    dt = st.codes.dtype
+    bf16 = dt == torch.bfloat16
+    ename = bf16_entry if bf16 else (lambda e: e)
     rows = []
     pair_tol = f"winner overlap >= {OVERLAP_TOL}, scores rtol = atol = {SCORE_TOL}"
     group_pid, qlist, _, _ = build_groups(pids, P, qt)
@@ -1664,29 +1899,33 @@ def exact_chunked_rows(torch, idx, q, pids, qt, kk, by_name):
     # K6 as v3 (mode slot) and v2 (mode id: the whole slab, no sizes) use it,
     # against the f32 plain version and against the plain version on the
     # split product's model.
-    body = exact_topk_body(qt, Dd, kk)
+    body = exact_topk_body(qt, Dd, kk, dt)
     for entry, path, mode, kw in (("exact_topk/v3", "v3", "slot",
                                    dict(group_size=gsize, norms=st.norms)),
                                   ("exact_topk/v2", "v2", "id", dict(ids=st.ids))):
-        if (body == K6_MMA_BODY) != (unit_of(entry) == TENSOR_CORES):
+        entry = ename(entry)
+        if (body == K6_MMA_BODY) != on_tensor_cores(entry):
             raise AssertionError(f"{entry} at qt={qt}, D={Dd}: body {body} is not the kernels "
                                  "line's unit")
         got = exact_scan(group_pid, qg, st.codes, kk, "l2", mode, **kw)
-        ov, err = compare_pairs(torch, f"K6 ({mode})", got,
+        ov, err = compare_pairs(torch, f"K6 ({mode}, {dt})", got,
                                 exact_scan_plain(group_pid, qg, st.codes, kk, "l2", mode, **kw),
                                 ties=True)
-        with bmm_as_split_product():
-            ov_m, err_m = compare_pairs(
-                torch, f"K6 ({mode}, split product's model)", got,
-                exact_scan_plain(group_pid, qg, st.codes, kk, "l2", mode, **kw), ties=True)
+        model = {}
+        if not bf16:
+            with bmm_as_split_product():
+                model["model_overlap"], model["model_max_abs_err"] = compare_pairs(
+                    torch, f"K6 ({mode}, split product's model)", got,
+                    exact_scan_plain(group_pid, qg, st.codes, kk, "l2", mode, **kw), ties=True)
         del got
-        b, groups, scanned = scan_bound(st, group_pid, gsize, real_q, qg.numel() * 4, qt, kk, Dd,
+        b, groups, scanned = scan_bound(st, group_pid, gsize, real_q,
+                                        qg.numel() * qg.element_size(), qt, kk, Dd,
                                         extra=out_i, whole_slab=mode == "id",
                                         unit=unit_of(entry))
         rows.append(dict(
             name=entry, tol=pair_tol, overlap=ov, max_abs_err=err, err_of="score error",
-            body=body, model_overlap=ov_m, model_max_abs_err=err_m,
-            launches=by_name[path]["launches"]["exact_topk"],
+            body=body, **model,
+            launches=by_name[path]["launches"][ENTRIES[entry][0]],
             ms=time_ms(torch, lambda: exact_scan(group_pid, qg, st.codes, kk, "l2", mode, **kw),
                        reps=5),
             plain_ms=time_ms(torch, lambda: exact_scan_plain(group_pid, qg, st.codes, kk, "l2",
@@ -1701,25 +1940,27 @@ def exact_chunked_rows(torch, idx, q, pids, qt, kk, by_name):
     args7 = (gp5, gsize5, q[safe_q5].contiguous(), st.codes, st.norms, min(kk, ct), ct,
              slot_mult, levels, "l2")
     level = key_level(args7[2], st.norms, levels, "l2")
-    body = chunk_merge_body(qt, Dd, min(kk, ct))
-    if (body == K7_MMA_BODY) != (unit_of("chunk_merge/v5") == TENSOR_CORES):
+    entry = ename("chunk_merge/v5")
+    body = chunk_merge_body(qt, Dd, min(kk, ct), dt)
+    if (body == K7_MMA_BODY) != on_tensor_cores(entry):
         raise AssertionError(f"K7 at qt={qt}, D={Dd}: body {body} is not the kernels line's unit")
     got = chunk_merge(*args7)
-    ov, err = compare_pairs(torch, "K7", got, chunk_merge_plain(*args7), level=level)
-    with bmm_as_split_product():
-        ov_m, err_m = compare_pairs(torch, "K7 (split product's model)", got,
-                                    chunk_merge_plain(*args7), level=level)
-    log(f"[kernel] chunk_merge/v5 (body {body}): winner overlap {ov:.4f}, max score error {err:.3g} "
-        f"against the f32 plain version; {ov_m:.4f}, {err_m:.3g} against the plain version on the "
-        "split product's model")
+    ov, err = compare_pairs(torch, f"K7 ({dt})", got, chunk_merge_plain(*args7), level=level)
+    model = {}
+    if not bf16:
+        with bmm_as_split_product():
+            model["model_overlap"], model["model_max_abs_err"] = compare_pairs(
+                torch, "K7 (split product's model)", got, chunk_merge_plain(*args7), level=level)
+    log(f"[kernel] {entry} (body {body}): winner overlap {ov:.4f}, max score error {err:.3g} "
+        f"against the plain version; against the plain version on the split product's model: "
+        f"{model or 'no bf16 model'}")
     del got
-    b, groups, scanned = scan_bound(st, gp5, gsize5, (ql5 >= 0).sum(1), args7[2].numel() * 4, qt,
-                                    kk, Dd, extra=gp5.numel() * qt * kk * 4,
-                                    unit=unit_of("chunk_merge/v5"))
-    rows.append(dict(name="chunk_merge/v5", tol=f"{pair_tol}, atol + one key level <= {level:.3g}",
-                     overlap=ov, max_abs_err=err, body=body, model_overlap=ov_m,
-                     model_max_abs_err=err_m,
-                     err_of="score error", launches=by_name["v5"]["launches"]["chunk_merge"],
+    b, groups, scanned = scan_bound(st, gp5, gsize5, (ql5 >= 0).sum(1),
+                                    args7[2].numel() * args7[2].element_size(), qt,
+                                    kk, Dd, extra=gp5.numel() * qt * kk * 4, unit=unit_of(entry))
+    rows.append(dict(name=entry, tol=f"{pair_tol}, atol + one key level <= {level:.3g}",
+                     overlap=ov, max_abs_err=err, body=body, **model,
+                     err_of="score error", launches=by_name["v5"]["launches"][ENTRIES[entry][0]],
                      ms=time_ms(torch, lambda: chunk_merge(*args7), reps=5),
                      plain_ms=time_ms(torch, lambda: chunk_merge_plain(*args7), reps=2, warmup=1),
                      bound=b, groups=groups, scanned_rows=scanned))
@@ -1734,15 +1975,19 @@ def exact_chunked_rows(torch, idx, q, pids, qt, kk, by_name):
                                   for t in (cg_chunk, cg_qsrc, cg_size))
     args4 = (cg_pid, cg_size, qg, st.codes, st.norms, min(kk, ct), slot_mult, levels, "l2", "topk")
     table = dict(qsrc=cg_qsrc, row_off=(cg_chunk * ct).contiguous(), ct=ct)
+    entry = ename("rowscale_topk/v4")
+    if rowscale_topk_body(qt, Dd, min(kk, ct), True, dt) != CHUNK_BODY:
+        raise AssertionError(f"{entry} at qt={qt}, D={Dd}: the chunk table must take the "
+                             "persistent CUDA-core body")
     ov, kd, serr = compare_rowscale(torch, args4, **table)
     b, groups, scanned = scan_bound(
-        st, cg_pid, cg_size, real_q[cg_qsrc.long()], qg.numel() * 4, qt, kk, Dd,
-        extra=cg_pid.numel() * (qt * 2 * 4 + 8), unit=unit_of("rowscale_topk/v4"))
+        st, cg_pid, cg_size, real_q[cg_qsrc.long()], qg.numel() * qg.element_size(), qt, kk, Dd,
+        extra=cg_pid.numel() * (qt * 2 * 4 + 8), unit=unit_of(entry))
     rows.append(dict(
-        name="rowscale_topk/v4", overlap=ov, max_abs_err=kd, stats_err=serr,
+        name=entry, overlap=ov, max_abs_err=kd, stats_err=serr, body=CHUNK_BODY,
         tol=(f"winner overlap >= {OVERLAP_TOL}, common keys within 1 level, stats rtol = atol = "
              f"{STATS_TOL}"),
-        launches=by_name["v4"]["launches"]["rowscale_topk"],
+        launches=by_name["v4"]["launches"][ENTRIES[entry][0]],
         ms=time_ms(torch, lambda: rowscale_scan(*args4, **table), reps=5),
         plain_ms=time_ms(torch, lambda: rowscale_scan_plain(*args4, **table), reps=2, warmup=1),
         bound=b, groups=groups, scanned_rows=scanned))
@@ -1774,7 +2019,10 @@ def variant_rows(torch, idx, q, pids, kk, direct):
     the larger slot first), and K9's output to the top kk of K8's scores,
     packed. K8's library time is the tensor-operation scan's score step
     (ops/grouped.py::group_scores: a torch.bmm per chunk of groups, without
-    the top-k), which computes the same function."""
+    the top-k), which computes the same function. On a bf16 index (q the
+    batch rounded to bf16) the rows are the bf16 entries, each bf16 body held
+    to its plain version and K9 still to the top kk of K8's scores, packed
+    (the split product's model has no bf16 part)."""
     from quake_tpu_torch.ops.grouped import group_scores
     from quake_tpu_torch.ops.grouped_variants import (MMA_BODY, multi_topk, multi_topk_body,
                                                       multi_topk_plain, packed_topk,
@@ -1787,6 +2035,9 @@ def variant_rows(torch, idx, q, pids, kk, direct):
 
     st = idx.store.state
     P, C, Dd = st.codes.shape
+    dt = st.codes.dtype
+    bf16 = dt == torch.bfloat16
+    ename = bf16_entry if bf16 else (lambda e: e)
     qt = DIRECT_QT
     gp, qg, gsize, real_q = direct_groups(torch, st, q, pids)
     Gn = gp.shape[0]
@@ -1796,17 +2047,21 @@ def variant_rows(torch, idx, q, pids, kk, direct):
     rows = []
 
     def row(name, fn, plain, whole_slab, extra, plain_reps=2, **fields):
-        b, groups, scanned = scan_bound(st, gp, gsize, real_q, qg.numel() * 4, qt, kk, Dd,
-                                        extra=extra, whole_slab=whole_slab, unit=unit_of(name))
+        name = ename(name)
+        b, groups, scanned = scan_bound(st, gp, gsize, real_q, qg.numel() * qg.element_size(),
+                                        qt, kk, Dd, extra=extra, whole_slab=whole_slab,
+                                        unit=unit_of(name))
         rows.append(dict(name=name, launches=direct[name]["launches"][name],
                          ms=time_ms(torch, fn, reps=5),
                          plain_ms=time_ms(torch, plain, reps=plain_reps, warmup=1),
                          bound=b, groups=groups, scanned_rows=scanned, **fields))
 
-    bodies = {"raw_scores": raw_scores_body(qt, Dd), "packed_topk": packed_topk_body(qt, Dd, kk),
-              "sized_topk": sized_topk_body(qt, Dd, kk), "multi_topk": multi_topk_body(qt, Dd, kk)}
+    bodies = {"raw_scores": raw_scores_body(qt, Dd, dt),
+              "packed_topk": packed_topk_body(qt, Dd, kk, dt),
+              "sized_topk": sized_topk_body(qt, Dd, kk, dt),
+              "multi_topk": multi_topk_body(qt, Dd, kk, dt)}
     for entry, body in bodies.items():
-        if (body == MMA_BODY) != (unit_of(entry) == TENSOR_CORES):
+        if (body == MMA_BODY) != on_tensor_cores(ename(entry)):
             raise AssertionError(f"{entry} at qt={qt}, D={Dd}, kk={kk}: body {body} is not the "
                                  "kernels line's unit")
     # K8, and its scores on both sides for K9's comparison; K9 runs K8's body
@@ -1819,16 +2074,20 @@ def variant_rows(torch, idx, q, pids, kk, direct):
                                                              chunk=64),
                               raw, raw_p, slot_bits_of(C), exact=True)
     del raw_p
-    with bmm_as_split_product():
-        raw_m = raw_scores_plain(gp, qg, st.codes, st.ids, "l2")
-        want9_m = packed_topk_plain(gp, qg, st.codes, st.ids, kk, "l2", chunk=64)
-    err8_m = compare_raw(torch, raw, raw_m)
-    ov9_m, kd9_m = compare_packed(torch, got9, want9_m, raw, raw_m, slot_bits_of(C))
-    log(f"[kernel] raw_scores (body {bodies['raw_scores']}): max score error / tolerance "
-        f"{err8:.3g} against the f32 plain version, {err8_m:.3g} against the split product's "
-        f"model; packed_topk (body {bodies['packed_topk']}): the top kk of K8's scores, packed; "
-        f"overlap {ov9:.4f} / {ov9_m:.4f}, max key diff {kd9} / {kd9_m}")
-    del raw_m, want9_m, got9
+    model8, model9 = {}, {}
+    if not bf16:
+        with bmm_as_split_product():
+            raw_m = raw_scores_plain(gp, qg, st.codes, st.ids, "l2")
+            want9_m = packed_topk_plain(gp, qg, st.codes, st.ids, kk, "l2", chunk=64)
+        model8 = dict(model_overlap=1.0, model_max_abs_err=compare_raw(torch, raw, raw_m))
+        model9["model_overlap"], model9["model_max_abs_err"] = compare_packed(
+            torch, got9, want9_m, raw, raw_m, slot_bits_of(C))
+        del raw_m, want9_m
+    log(f"[kernel] {ename('raw_scores')} (body {bodies['raw_scores']}): max score error / "
+        f"tolerance {err8:.3g} against the plain version, {model8 or 'no bf16 model'} against "
+        f"the split product's model; {ename('packed_topk')} (body {bodies['packed_topk']}): the "
+        f"top kk of K8's scores, packed; overlap {ov9:.4f}, max key diff {kd9}, model {model9}")
+    del got9
     group_chunk = idx._grouped_params(BATCH, pids.shape[1])[1]
 
     def library():
@@ -1843,29 +2102,31 @@ def variant_rows(torch, idx, q, pids, kk, direct):
         lambda: raw_scores_plain(gp, qg, st.codes, st.ids, "l2"), True,
         Gn * qt * (C - kk) * 4, tol=f"scores rtol = atol = {SCORE_TOL}, the same -inf lanes",
         overlap=1.0, max_abs_err=err8, err_of="score error / tolerance", library_ms=lib_ms,
-        body=bodies["raw_scores"], model_overlap=1.0, model_max_abs_err=err8_m)
+        body=bodies["raw_scores"], **model8)
     got = sized_topk(gp, gsize, qg, st.codes, kk, "l2", ct=SIZED_CT)
-    ov, err = compare_pairs(torch, "sized_topk", got,
+    ov, err = compare_pairs(torch, f"sized_topk ({dt})", got,
                             sized_topk_plain(gp, gsize, qg, st.codes, kk, "l2", ct=SIZED_CT),
                             ties=True)
-    with bmm_as_split_product():
-        ov_m, err_m = compare_pairs(
-            torch, "sized_topk (split product's model)", got,
-            sized_topk_plain(gp, gsize, qg, st.codes, kk, "l2", ct=SIZED_CT), ties=True)
-    log(f"[kernel] sized_topk (body {bodies['sized_topk']}): winner overlap {ov:.4f}, max score "
-        f"error {err:.3g} against the f32 plain version; {ov_m:.4f}, {err_m:.3g} against the "
-        "plain version on the split product's model; equal scores by the larger slot")
+    model = {}
+    if not bf16:
+        with bmm_as_split_product():
+            model["model_overlap"], model["model_max_abs_err"] = compare_pairs(
+                torch, "sized_topk (split product's model)", got,
+                sized_topk_plain(gp, gsize, qg, st.codes, kk, "l2", ct=SIZED_CT), ties=True)
+    log(f"[kernel] {ename('sized_topk')} (body {bodies['sized_topk']}): winner overlap {ov:.4f}, "
+        f"max score error {err:.3g} against the plain version; {model or 'no bf16 model'} "
+        "against the plain version on the split product's model; equal scores by the larger slot")
     del got
     row("sized_topk", lambda: sized_topk(gp, gsize, qg, st.codes, kk, "l2", ct=SIZED_CT),
         lambda: sized_topk_plain(gp, gsize, qg, st.codes, kk, "l2", ct=SIZED_CT), False, out_i,
+        plain_reps=1 if bf16 else 2,
         tol=f"{pair_tol}, equal scores by the larger slot", overlap=ov, max_abs_err=err,
-        err_of="score error", body=bodies["sized_topk"], model_overlap=ov_m,
-        model_max_abs_err=err_m)
+        err_of="score error", body=bodies["sized_topk"], **model)
     row("packed_topk", lambda: packed_topk(gp, qg, st.codes, st.ids, kk, "l2"),
         lambda: packed_topk_plain(gp, qg, st.codes, st.ids, kk, "l2", chunk=64), True, 0,
         tol=(f"winner overlap >= {OVERLAP_TOL}, shared winners with bit-equal scores carry equal "
              "packed values, equal to the top kk of K8's scores, packed"), overlap=ov9,
-        max_abs_err=kd9, body=bodies["packed_topk"], model_overlap=ov9_m, model_max_abs_err=kd9_m)
+        max_abs_err=kd9, body=bodies["packed_topk"], **model9)
     ov, err = compare_pairs(
         torch, "multi_topk",
         multi_slots(multi_topk(gp, qg, st.codes, st.ids, kk, "l2", gb=MULTI_GB), C),
@@ -1877,9 +2138,10 @@ def variant_rows(torch, idx, q, pids, kk, direct):
     return rows
 
 
-def phase_direct(torch, dev, idx, queries, gt, nprobe, ceiling):
-    """The four entry points that no dispatch name reaches, called with the
-    main index's tensors: recall@10 on the ground-truth queries against the
+def phase_direct(torch, dev, idx, queries, gt, nprobe, ceiling, paths=DIRECT, tag="direct"):
+    """The four entry points that no dispatch name reaches (`paths`: DIRECT;
+    BF16_DIRECT on the headline bf16 index, whose lines read `tag`), called
+    with the index's tensors: recall@10 on the ground-truth queries against the
     exact scan of the same probed partitions (`ceiling`), ms per B=16384
     batch and stages, and the path's launches (zeroed just before the path
     runs, read just after). Fails if the path's kernel did not launch, if
@@ -1903,7 +2165,7 @@ def phase_direct(torch, dev, idx, queries, gt, nprobe, ceiling):
     batches = probe_batches(torch, dev, idx, queries, nprobe)
     scan_kernels = set(_ext.KERNELS) - {"flat_topk"}
     out = {}
-    for name, kernel, gate, reps in DIRECT:
+    for name, kernel, gate, reps in paths:
         fn = fns[name]
         torch.cuda.synchronize()
         _ext.reset_launches()
@@ -1919,7 +2181,7 @@ def phase_direct(torch, dev, idx, queries, gt, nprobe, ceiling):
         launches = dict(_ext.launches)
         r = compute_recall(ids_gt.cpu().numpy(), gt, K)
         stages = timer.mean_ms()
-        log(f"[direct] {name}: recall@10={r:.4f} (exact {ceiling:.4f}), {ms:.3f} ms/batch "
+        log(f"[{tag}] {name}: recall@10={r:.4f} (exact {ceiling:.4f}), {ms:.3f} ms/batch "
             f"(B={BATCH}, qt={DIRECT_QT}), {BATCH / (ms / 1e3):,.0f} QPS, stages(ms)="
             f"{json.dumps({k: round(v, 4) for k, v in stages.items()})}, launches {launches}")
         if {k for k in scan_kernels if launches[k] > 0} != {kernel}:
@@ -2342,8 +2604,6 @@ def phase_kernels(torch, dev, idx, x, queries, nprobe, launches, by_name, direct
     through v3 and v2, K7 through v5."""
     from quake_tpu_torch.ops.flat_topk import flat_topk, flat_topk_body, flat_topk_plain, parent_bias
     from quake_tpu_torch.ops.grouped import build_groups
-    from quake_tpu_torch.ops.grouped_family import (MMA_BODY, rowscale_fold_body, rowscale_scan,
-                                                    rowscale_scan_plain, rowscale_topk_body)
     from quake_tpu_torch.ops.grouped_scan import (argsort_placement, global_scale,
                                                   grouped_scan_kernel, grouped_scan_plain,
                                                   merge_positions, merge_positions_plain,
@@ -2429,37 +2689,8 @@ def phase_kernels(torch, dev, idx, x, queries, nprobe, launches, by_name, direct
                      bound=bound(bytes2, 0.0)))
     torch.cuda.synchronize()
 
-    # K4 (v3p: one group a step; v3pN: gpb 4) and K5 (v7, gpb 4) at the
-    # by-name paths' shapes: unscaled queries, raw norms; against the f32
-    # plain version and against the plain version on the split product's model.
+    rows += rowscale_rows(torch, idx, q, pids, qt, kk, by_name)
     group_pid, qlist, _, _ = build_groups(pids, st.codes.shape[0], qt)
-    # v6 (gpb 4) runs K4 on v3pN's inputs: _v6_kernel computes _v3pn_kernel's
-    # function, and K4 reads only the segments below a partition's size.
-    for entry, path, gpb_n, select in (("rowscale_topk/v3p", "v3p", 1, "topk"),
-                                       ("rowscale_topk/v3pn", "v3p4", 4, "topk"),
-                                       ("rowscale_fold/v7", "v7g4", 4, "fold"),
-                                       ("rowscale_topk/v6", "v6", 4, "topk")):
-        gp, ql, gsize, safe_q = pad_groups(group_pid, qlist, st.sizes, gpb_n)
-        rargs = (gp, gsize, q[safe_q].contiguous(), st.codes, st.norms, kk, slot_mult, levels,
-                 "l2", select)
-        body = (rowscale_topk_body(qt, Dd, kk) if select == "topk"
-                else rowscale_fold_body(qt, Dd, kk))
-        if (body == MMA_BODY) != (unit_of(entry) == TENSOR_CORES):
-            raise AssertionError(f"{entry} at qt={qt}, D={Dd}: body {body} is not the kernels "
-                                 "line's unit")
-        ov, kd, serr = compare_rowscale(torch, rargs)
-        ov_m, kd_m, _ = compare_rowscale(torch, rargs, model=True)
-        b, groups, scanned = scan_bound(st, gp, gsize, (ql >= 0).sum(1), rargs[2].numel() * 4,
-                                        qt, kk, Dd, extra=gp.numel() * qt * 2 * 4,
-                                        unit=unit_of(entry))
-        rows.append(dict(name=entry, tol=f"{k1_tol}, stats rtol = atol = {STATS_TOL}",
-                         overlap=ov, max_abs_err=kd, stats_err=serr, body=body,
-                         model_overlap=ov_m, model_max_abs_err=kd_m,
-                         launches=by_name[path]["launches"][ENTRIES[entry][0]],
-                         ms=time_ms(torch, lambda: rowscale_scan(*rargs), reps=5),
-                         plain_ms=time_ms(torch, lambda: rowscale_scan_plain(*rargs), reps=2,
-                                          warmup=1),
-                         bound=b, groups=groups, scanned_rows=scanned))
 
     # K1 through v8 (build_groups, gpb 4, global-scale queries and norms).
     gp, ql, gsize, safe_q = pad_groups(group_pid, qlist, st.sizes, 4)
@@ -2479,6 +2710,58 @@ def phase_kernels(torch, dev, idx, x, queries, nprobe, launches, by_name, direct
     return [kernel_entry(r) for r in rows]
 
 
+def rowscale_rows(torch, idx, q, pids, qt, kk, by_name):
+    """Rows of the kernels phase for K4 (v3p: one group a step; v3pN: gpb
+    4; v6, gpb 4, which runs K4 on v3pN's inputs: _v6_kernel computes
+    _v3pn_kernel's function, and K4 reads only the segments below a
+    partition's size) and K5 (v7, gpb 4) at the by-name paths' shapes:
+    unscaled queries (rounded to bf16 on a bf16 index), raw norms; against
+    the plain version and, on f32 codes, against the plain version on the
+    split product's model. On a bf16 index the rows are the bf16 entries."""
+    from quake_tpu_torch.ops.grouped import build_groups
+    from quake_tpu_torch.ops.grouped_family import (MMA_BODY, rowscale_fold_body, rowscale_scan,
+                                                    rowscale_scan_plain, rowscale_topk_body)
+    from quake_tpu_torch.ops.grouped_scan import packed_params, pad_groups
+
+    st = idx.store.state
+    Dd, dt = st.codes.shape[2], st.codes.dtype
+    bf16 = dt == torch.bfloat16
+    slot_mult, levels = packed_params(st.codes.shape[1])
+    k1_tol = f"winner overlap >= {OVERLAP_TOL}, common keys within 1 level"
+    group_pid, qlist, _, _ = build_groups(pids, st.codes.shape[0], qt)
+    rows = []
+    for entry, path, gpb_n, select in (("rowscale_topk/v3p", "v3p", 1, "topk"),
+                                       ("rowscale_topk/v3pn", "v3p4", 4, "topk"),
+                                       ("rowscale_fold/v7", "v7g4", 4, "fold"),
+                                       ("rowscale_topk/v6", "v6", 4, "topk")):
+        entry = bf16_entry(entry) if bf16 else entry
+        gp, ql, gsize, safe_q = pad_groups(group_pid, qlist, st.sizes, gpb_n)
+        rargs = (gp, gsize, q[safe_q].contiguous(), st.codes, st.norms, kk, slot_mult, levels,
+                 "l2", select)
+        body = (rowscale_topk_body(qt, Dd, kk, dtype=dt) if select == "topk"
+                else rowscale_fold_body(qt, Dd, kk, dt))
+        if (body == MMA_BODY) != on_tensor_cores(entry):
+            raise AssertionError(f"{entry} at qt={qt}, D={Dd}: body {body} is not the kernels "
+                                 "line's unit")
+        ov, kd, serr = compare_rowscale(torch, rargs)
+        model = {}
+        if not bf16:
+            ov_m, kd_m, _ = compare_rowscale(torch, rargs, model=True)
+            model = dict(model_overlap=ov_m, model_max_abs_err=kd_m)
+        b, groups, scanned = scan_bound(st, gp, gsize, (ql >= 0).sum(1),
+                                        rargs[2].numel() * rargs[2].element_size(),
+                                        qt, kk, Dd, extra=gp.numel() * qt * 2 * 4,
+                                        unit=unit_of(entry))
+        rows.append(dict(name=entry, tol=f"{k1_tol}, stats rtol = atol = {STATS_TOL}",
+                         overlap=ov, max_abs_err=kd, stats_err=serr, body=body, **model,
+                         launches=by_name[path]["launches"][ENTRIES[entry][0]],
+                         ms=time_ms(torch, lambda: rowscale_scan(*rargs), reps=5),
+                         plain_ms=time_ms(torch, lambda: rowscale_scan_plain(*rargs), reps=2,
+                                          warmup=1),
+                         bound=b, groups=groups, scanned_rows=scanned))
+    return rows
+
+
 def kernel_entry(r: dict) -> dict:
     """A row of phase_kernels (or of the headline bf16 phase) checked
     against its bound, logged, and turned into its entry of the kernels
@@ -2490,7 +2773,7 @@ def kernel_entry(r: dict) -> dict:
     if r["ms"] < r["bound_ms"]:
         raise AssertionError(f"{r['name']}: {r['ms']} ms is below its bound of "
                              f"{r['bound_ms']} ms ({r['bound_by']}, {unit}): the bound is "
-                             "not one of the unit the kernel runs on")
+                             "not one of the card's peak for the operands")
     log(f"[kernel] {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
         f"{r['bound_ms']:.4f} ms by {r['bound_by']} on the {unit}, "
         f"{100.0 * r['bound_ms'] / r['ms']:.1f}% of it reached"
@@ -2516,6 +2799,141 @@ def kernel_entry(r: dict) -> dict:
         entry["second_shape"] = {f: r["wide"][f] for f in ("shape", "ms", "plain_ms", "bound_ms",
                                                           "bound_by", "max_abs_err")}
     return entry
+
+
+def phase_bf16_by_name(torch, dev, idx, queries, gt, nprobe, recall):
+    """Phase 11b, "bf16 by name", on the headline bf16 index at the headline
+    nprobe: every scan of BF16_BY_NAME through QUAKE_TPU_KERNEL and every
+    direct scan of BF16_DIRECT, each with its recall@10 against the exact
+    scan of the same probed partitions of the bf16 codes, ms per B=16384
+    batch and its launches (the path's _bf16 kernels must launch, their f32
+    twins must not), gated as in phases 5 and 6; then the rows of the
+    kernels line for the bf16 bodies of K4-K9, sized_topk and multi_topk at
+    those paths' shapes (the batch rounded to bf16, as the wrappers round
+    it), each held to its plain version, its time and its bound (2 bytes an
+    element; one bf16 product on the tensor cores, v4's chunk table on the
+    CUDA cores). Returns (summary, the kernels line's bf16 entries)."""
+    by_name = phase_by_name(torch, dev, idx, queries, gt, nprobe, recall, paths=BF16_BY_NAME,
+                            tag="bf16 by name", placement=False)
+    direct = phase_direct(torch, dev, idx, queries, gt, nprobe, by_name["reference"]["recall"],
+                          paths=BF16_DIRECT, tag="bf16 direct")
+    q = torch.from_numpy(queries[:BATCH]).to(dev)
+    pids = probe_lists(torch, idx, q, nprobe)
+    qt, kk = idx._grouped_params(BATCH, nprobe)[0], min(K, idx.store.C)
+    qb = q.to(torch.bfloat16)
+    rows = rowscale_rows(torch, idx, qb, pids, qt, kk, by_name)
+    rows += exact_chunked_rows(torch, idx, qb, pids, qt, kk, by_name)
+    rows += variant_rows(torch, idx, qb, pids, kk, direct)
+    return dict(by_name=by_name, direct=direct), [kernel_entry(r) for r in rows]
+
+
+def k3_row(torch, name, cb, bb, q, nprobe, launches) -> dict:
+    """K3 (flat_topk) against its plain version on the buffer cb with bias
+    bb for the batch q (in cb's dtype), its time, plain time and bound:
+    each input read once (at its element size), the slots written once,
+    2 D flops a (query, valid row) on the unit of the entry `name`."""
+    from quake_tpu_torch.ops.flat_topk import flat_topk, flat_topk_body, flat_topk_plain
+
+    ov, kd = compare_k3(torch, flat_topk, flat_topk_plain, cb, bb, q, nprobe, "l2")
+    n_valid = int((bb > float("-inf")).sum())
+    B, Dd = q.shape
+    return dict(
+        name=name, shape=f"B={B}, N={cb.shape[0]}, D={Dd}",
+        body=flat_topk_body(cb.shape[0], Dd, cb.dtype), overlap=ov, max_abs_err=kd,
+        tol=f"winner overlap >= {OVERLAP_TOL}", launches=launches,
+        ms=time_ms(torch, lambda: flat_topk(cb, bb, q, nprobe, "l2")),
+        plain_ms=time_ms(torch, lambda: flat_topk_plain(cb, bb, q, nprobe, "l2"), reps=3,
+                         warmup=1),
+        bound=bound((q.numel() + cb.numel()) * q.element_size() + (bb.numel() + B * nprobe) * 4,
+                    2.0 * B * n_valid * Dd, unit_of(name)))
+
+
+def phase_bf16_parent(torch, dev, x, queries, gt, f32_idx, nprobe):
+    """Phase 11c, a bf16 parent: the main corpus built through QuakeIndex
+    with IndexBuildParams(parent_params=IndexBuildParams(precision="bf16"))
+    (f32 codes under a bf16 parent: each parent row the bf16 rounding of its
+    partition's centroid); a B=16384 batch at the main nprobe with its
+    launches counted (BF16_PARENT_KERNELS must launch: K3's bf16 body ranks
+    the parents; the f32 K3 must not) and its recall@10 on the 1024 queries
+    at most BF16_PARENT_RECALL_TOL below the f32 parent's; a save and a load
+    (the parent bf16 bit for bit, search ids equal); then K3's bf16 body
+    against its plain version at the parent ranking's shape and with
+    K3_WIDE_N corpus rows (rounded to bf16) as its buffer, timed beside its
+    bound. Returns (summary, the kernels line's flat_topk_bf16 entry)."""
+    from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams, _ext
+    from quake_tpu_torch.ops.flat_topk import parent_bias
+    from quake_tpu_torch.utils import compute_recall
+
+    out = {}
+    t0 = time.perf_counter()
+    idx = QuakeIndex(device=dev)
+    idx.build(x, np.arange(N, dtype=np.int64),
+              IndexBuildParams(nlist=NLIST, metric="l2", niter=NITER, calibrate_aps=False,
+                               parent_params=IndexBuildParams(precision="bf16")))
+    out["build_s"] = time.perf_counter() - t0
+    st, pst = idx.store.state, idx.parent.store.state
+    if st.codes.dtype != torch.float32 or pst.codes.dtype != torch.bfloat16:
+        raise AssertionError("the index must hold f32 codes under a bf16 parent")
+    live = pst.ids >= 0
+    if not torch.equal(pst.codes[live].view(torch.int16),
+                       st.centroids[pst.ids[live].long()].to(torch.bfloat16).view(torch.int16)):
+        raise AssertionError("a bf16 parent row is not the rounding of its partition's centroid")
+
+    sp = SearchParams(k=K, nprobe=nprobe)
+    qd = torch.from_numpy(queries[:BATCH]).to(dev)
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    res = idx.search(queries[:NQ_GT], sp)
+    out["B16384"] = time_batch(torch, idx, qd, sp, gt)
+    torch.cuda.synchronize()
+    launches = dict(_ext.launches)
+    if any(launches[k] <= 0 for k in BF16_PARENT_KERNELS) or launches["flat_topk"] != 0:
+        raise AssertionError(f"the bf16-parent path must launch {BF16_PARENT_KERNELS} and not "
+                             f"the f32 K3: {launches}")
+    r = compute_recall(res.ids, gt, K)
+    r32 = compute_recall(f32_idx.search(queries[:NQ_GT], sp).ids, gt, K)
+    if r < r32 - BF16_PARENT_RECALL_TOL:
+        raise AssertionError(f"bf16 parent: recall@10 {r} is more than {BF16_PARENT_RECALL_TOL} "
+                             f"below the f32 parent's {r32}")
+    out.update(recall=r, f32_parent_recall=r32, launches=launches)
+    log(f"[bf16 parent] build {out['build_s']:.2f} s, nlist={idx.nlist()}, parent "
+        f"{tuple(pst.codes.shape)} bf16; nprobe {nprobe}: recall@10={r:.4f} (f32 parent "
+        f"{r32:.4f}); B={BATCH}: {batch_text(out['B16384'])}; launches {launches}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        idx.save(tmp)
+        loaded = QuakeIndex(device=dev).load(tmp)
+    lp = loaded.parent.store.state
+    if lp.codes.dtype != torch.bfloat16 or not torch.equal(lp.codes.view(torch.int16),
+                                                           pst.codes.view(torch.int16)):
+        raise AssertionError("the loaded bf16 parent differs from the saved one")
+    if not np.array_equal(loaded.search(queries[:NQ_GT], sp).ids, res.ids):
+        raise AssertionError("the loaded bf16-parent index searches to other ids")
+    del loaded
+    log("[bf16 parent] save and load: the parent bf16 bit for bit, search ids equal")
+
+    # K3's bf16 body at the parent ranking's shape and with K3_WIDE_N rows.
+    Pp, Cp, Dd = pst.codes.shape
+    qb = qd.to(torch.bfloat16)
+    main = k3_row(torch, "flat_topk_bf16", pst.codes.reshape(Pp * Cp, Dd).contiguous(),
+                  parent_bias(pst.ids, pst.norms, "l2"), qb, nprobe, launches["flat_topk_bf16"])
+    wide = torch.from_numpy(x[:K3_WIDE_N]).to(dev).to(torch.bfloat16)
+    wide3 = k3_row(torch, "flat_topk_bf16", wide, (-(wide.float() ** 2).sum(1)).contiguous(),
+                   qb, nprobe, 0)
+    for row in (main, wide3):
+        if row["body"] == 0:
+            raise AssertionError(f"flat_topk_bf16 at {row['shape']}: the launcher must pick the "
+                                 "tensor-core body")
+    wide3["bound_ms"], wide3["bound_by"] = wide3.pop("bound")
+    if wide3["ms"] < wide3["bound_ms"]:
+        raise AssertionError(f"flat_topk_bf16 at {wide3['shape']}: {wide3['ms']} ms is below "
+                             f"its bound of {wide3['bound_ms']} ms")
+    log(f"[kernel] flat_topk_bf16 at {wide3['shape']} (body {wide3['body']}): "
+        f"{wide3['ms']:.4f} ms (plain {wide3['plain_ms']:.4f} ms, bound {wide3['bound_ms']:.4f} "
+        f"ms by {wide3['bound_by']}), overlap {wide3['overlap']:.4f}, max key diff "
+        f"{wide3['max_abs_err']}")
+    main["wide"] = wide3
+    return out, kernel_entry(main)
 
 
 def dir_bytes(path: str) -> int:
@@ -4506,10 +4924,15 @@ def main() -> int:
     headline, k1_bf16, bf16_idx = phase_headline_bf16(torch, dev, x, queries, gt, idx, k1_build)
     kernels.append(k1_bf16)
     k1_build[0].cleanup()
+    bf16_scans, bf16_rows = phase_bf16_by_name(torch, dev, bf16_idx, queries, gt,
+                                               headline["nprobe"], headline["recall"])
+    kernels.extend(bf16_rows)
     aps, k1_budget = phase_aps(torch, dev, x, queries, gt, bf16_idx)
     kernels.extend(k1_budget)
     del bf16_idx
     torch.cuda.empty_cache()
+    bf16_parent, k3_bf16 = phase_bf16_parent(torch, dev, x, queries, gt, idx, main_out["nprobe"])
+    kernels.append(k3_bf16)
     multilevel = phase_multilevel(torch, dev, x, queries, gt)
     spill = phase_spill(torch, dev, x, queries, gt, idx)
     workload = phase_workload(torch, dev, x, queries)
@@ -4524,6 +4947,7 @@ def main() -> int:
     maintenance = phase_maintenance(torch, dev, queries, main_out["nprobe"])
     log("[summary] " + json.dumps(dict(main_out, by_name=by_name, direct=direct,
                                        latency=latency, wide=wide, headline_bf16=headline,
+                                       bf16_scans=bf16_scans, bf16_parent=bf16_parent,
                                        shard=shard, aps=aps, multilevel=multilevel,
                                        spill=spill,
                                        workload=workload,

@@ -43,7 +43,6 @@ import numpy as np
 import torch
 
 from quake_tpu_torch.index import QuakeIndex
-from quake_tpu_torch.ops.grouped import BF16_OPERANDS
 from quake_tpu_torch.params import IndexBuildParams, MaintenancePolicyParams, check_metric
 from quake_tpu_torch.storage.idmap import make_id_map
 from quake_tpu_torch.storage.store import PartitionStore, StoreState
@@ -119,9 +118,6 @@ def index_from_numpy(state: Mapping[str, np.ndarray],
     below = index
     for level, arrays in enumerate(chain, start=1):
         store = store_from_numpy(arrays, index.device)
-        if store.dtype == torch.bfloat16:
-            raise NotImplementedError("a bf16 parent (kernel K3 has no bf16 body) is not ported "
-                                      f"yet ({BF16_OPERANDS})")
         below.parent = QuakeIndex(level=level, device=index.device)
         below.parent.metric = index.metric
         below.parent.store = store

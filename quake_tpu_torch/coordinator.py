@@ -156,9 +156,9 @@ def grouped_scan(codes, ids, sizes, norms, q, pids, k: int, metric: str,
     in the JAX package (v10/v11 take the general pool tail, without kernel
     K2); v2, v3 and v3p raise the JAX package's ValueError. exact=False
     (dequantized scores) reaches v10 and v11 only; every other name rescores
-    exactly, as in the JAX package. bf16 codes run on v8-v11 (K1's bf16
-    body), "xla" and "reference"; the names whose kernels have no bf16 body
-    (v3p, v3pN, v6, v7, v4, v5, v3, v2) raise NotImplementedError.
+    exactly, as in the JAX package. bf16 codes run on every name, each
+    kernel on its bf16 body (the query tiles rounded to bf16 as the JAX
+    wrappers round them: q * q_coef for v8-v11, q itself for the others).
     pair_budget > 0 (a masked, not dense, v10 or v11 request whose C the
     fold divides) runs the budgeted scan, grouped_scan_v10b: v11 with the
     sorted placement where its key fits uint32 (budget_sort_key_fits), else

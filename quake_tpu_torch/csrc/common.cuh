@@ -287,27 +287,33 @@ __device__ __forceinline__ void select_rounds(float (&m1)[R][4], float (&m2)[R][
   }
 }
 
-// The [qt, D] query tile into shared memory as [qt][Dp], zero-padded.
-__device__ __forceinline__ void load_query_tile(float* qs, const float* src, int qt, int D,
-                                                int Dp) {
+// An operand element as f32: a bf16 value converts exactly.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// The [qt, D] query tile (f32 or bf16) into shared memory as [qt][Dp] f32,
+// zero-padded.
+template <typename T>
+__device__ __forceinline__ void load_query_tile(float* qs, const T* src, int qt, int D, int Dp) {
   for (int i = threadIdx.x; i < qt * Dp; i += kThreads) {
     const int r = i / Dp;
     const int d = i - r * Dp;
-    qs[i] = d < D ? src[(size_t)r * D + d] : 0.0f;
+    qs[i] = d < D ? to_f32(src[(size_t)r * D + d]) : 0.0f;
   }
 }
 
-// Copies rows [row0, row0 + 128) of a [*, D] f32 matrix into shared memory
-// as [128][Dp + 1] (odd stride: lane-strided column reads hit distinct
-// banks), zero-filling the pad columns d >= D and rows >= nrows.
-__device__ __forceinline__ void load_segment(float* seg, const float* src, int row0,
-                                             int nrows, int D, int Dp) {
+// Copies rows [row0, row0 + 128) of a [*, D] f32 or bf16 matrix into shared
+// memory as [128][Dp + 1] f32 (odd stride: lane-strided column reads hit
+// distinct banks), zero-filling the pad columns d >= D and rows >= nrows.
+template <typename T>
+__device__ __forceinline__ void load_segment(float* seg, const T* src, int row0, int nrows,
+                                             int D, int Dp) {
   const int ss = Dp + 1;
   for (int i = threadIdx.x; i < kFold * Dp; i += kThreads) {
     const int c = i / Dp;
     const int d = i - c * Dp;
     const int r = row0 + c;
-    seg[c * ss + d] = (d < D && r < nrows) ? src[(size_t)r * D + d] : 0.0f;
+    seg[c * ss + d] = (d < D && r < nrows) ? to_f32(src[(size_t)r * D + d]) : 0.0f;
   }
 }
 
@@ -712,6 +718,52 @@ __device__ __forceinline__ void mma_tile_bf16(float (&acc)[MT * NT][4], const fl
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[ti][e] += part[ti][e];
   }
+}
+
+// acc (+)= <q rows, segment rows> on f32 tiles (mma_tile, steps of depth 8)
+// or bf16 tiles (mma_tile_bf16, steps of depth 16), with their arguments.
+template <bool kBf16, int MT, int NT>
+__device__ __forceinline__ void mma_tile_any(float (&acc)[MT * NT][4], const float* qs,
+                                             const float* seg, int row0, int col0, int qrows,
+                                             int ksteps, bool zero = true) {
+  if constexpr (kBf16)
+    mma_tile_bf16<MT, NT>(acc, qs, seg, row0, col0, qrows, ksteps, zero);
+  else
+    mma_tile<MT, NT>(acc, qs, seg, row0, col0, qrows, ksteps, zero);
+}
+
+// a + the squares of the values in 16 bytes of a row, in column order: four
+// f32, or eight bf16 (two a 32-bit word, the lower column in the low half;
+// a bf16 value is the upper half of its f32, so the conversion is exact).
+template <bool kBf16>
+__device__ __forceinline__ float sumsq16(float4 v, float a) {
+  const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (kBf16) {
+      const uint32_t w = __float_as_uint(e[i]);
+      const float lo = __uint_as_float(w << 16), hi = __uint_as_float(w & 0xffff0000u);
+      a = fmaf(lo, lo, a);
+      a = fmaf(hi, hi, a);
+    } else {
+      a = fmaf(e[i], e[i], a);
+    }
+  }
+  return a;
+}
+
+// Depth steps of a row of D columns, four a box: of 8 f32 or 16 bf16 columns.
+inline __host__ __device__ int depth_steps(int D, bool bf16) {
+  return bf16 ? (D + 15) >> 4 : (D + 7) >> 3;
+}
+
+// 32-bit words of a row of D columns, or 0 where a row is not 16-byte aligned
+// for the copies (f32: D % 4 != 0; bf16: D % 8 != 0). The tensor-core bodies
+// lay out and size their tiles in words: a box is 32 words (128 bytes) of a
+// row, 32 f32 or 64 bf16 columns.
+inline __host__ __device__ int row_words(int D, bool bf16) {
+  if (D % (bf16 ? 8 : 4) != 0) return 0;
+  return bf16 ? D / 2 : D;
 }
 
 // Shared memory a block may use. The tensor-core bodies serve a shape whose

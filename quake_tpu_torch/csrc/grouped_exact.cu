@@ -50,6 +50,14 @@
 // partition), so both bodies select exactly the TPU kernel's kk rounds of
 // max-and-clear. Should a partition hold one id twice with equal scores, the
 // CUDA-core body emits the pair once and the tensor-core body twice.
+//
+// bf16 codes (the _bf16 entries; the queries rounded to bf16 as the JAX wrappers
+// round them): the same two bodies on bf16 operands. The tensor-core body
+// takes one bf16 product a depth-16 step (pair_topk_mma.cuh, kBf16) where
+// D % 8 == 0 and its lists fit; the CUDA-core body converts the bf16 values
+// to f32 as it loads them (exact) and runs the f32 arithmetic unchanged. In
+// mode id |q|^2 comes from the rounded tile; in mode slot the wrapper's
+// epilogue subtracts |q|^2 of the unrounded query, as the JAX package's does.
 
 #include <limits.h>
 
@@ -75,10 +83,10 @@ __device__ __noinline__ void emit_row(const float* bs, const int* bi, int cnt, i
   }
 }
 
-template <int R, bool kIdMode>
+template <int R, bool kIdMode, typename T>
 __global__ void __launch_bounds__(kThreads)
 exact_topk_kernel(const int* __restrict__ gp, const int* __restrict__ gsize,
-                  const float* __restrict__ qg, const float* __restrict__ codes,
+                  const T* __restrict__ qg, const T* __restrict__ codes,
                   const float* __restrict__ norms, const int* __restrict__ ids,
                   float* __restrict__ out_s, int* __restrict__ out_i, int D, int Dp, int C,
                   int kk, int cap, int is_l2) {
@@ -104,7 +112,7 @@ exact_topk_kernel(const int* __restrict__ gp, const int* __restrict__ gsize,
     return;
   }
   load_query_tile(qs, qg + (size_t)g * qt * D, qt, D, Dp);
-  const float* slab = codes + (size_t)p * C * D;
+  const T* slab = codes + (size_t)p * C * D;
   const bool l2 = is_l2 != 0;
   const int ss = Dp + 1;
 
@@ -190,7 +198,7 @@ exact_topk_kernel(const int* __restrict__ gp, const int* __restrict__ gsize,
   }
 }
 
-template <bool kIdMode>
+template <bool kIdMode, typename T>
 int launch_exact(const void* gp, const void* gsize, const void* qg, const void* codes,
                  const void* norms, const void* ids, void* out_s, void* out_i, int Gn, int qt,
                  int D, int C, int kk, int is_l2, void* stream) {
@@ -202,10 +210,10 @@ int launch_exact(const void* gp, const void* gsize, const void* qg, const void* 
   cudaStream_t st = (cudaStream_t)stream;
 #define QK_EXACT(R)                                                                        \
   case 8 * R: {                                                                            \
-    cudaError_t e = allow_smem(exact_topk_kernel<R, kIdMode>, smem);                       \
+    cudaError_t e = allow_smem(exact_topk_kernel<R, kIdMode, T>, smem);                    \
     if (e != cudaSuccess) return (int)e;                                                   \
-    exact_topk_kernel<R, kIdMode><<<Gn, kThreads, smem, st>>>(                             \
-        (const int*)gp, (const int*)gsize, (const float*)qg, (const float*)codes,          \
+    exact_topk_kernel<R, kIdMode, T><<<Gn, kThreads, smem, st>>>(                          \
+        (const int*)gp, (const int*)gsize, (const T*)qg, (const T*)codes,                  \
         (const float*)norms, (const int*)ids, (float*)out_s, (int*)out_i, D, Dp, C, kk,    \
         cap, is_l2);                                                                       \
     break;                                                                                 \
@@ -222,7 +230,43 @@ int launch_exact(const void* gp, const void* gsize, const void* qg, const void* 
   return (int)cudaGetLastError();
 }
 
+// K6 on operands of type T (f32 or bf16).
+template <typename T>
+int exact_topk(const void* gp, const void* gsize, const void* qg, const void* codes,
+               const void* norms, const void* ids, void* out_s, void* out_i, int Gn, int qt,
+               int D, int P, int C, int kk, int is_l2, int id_mode, void* stream) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  if (Gn <= 0) return (int)cudaGetLastError();
+  if (pair_topk_mma_serves(qt, D, kk, kBf16)) {
+    if (id_mode)
+      return launch_pair_topk_mma<PairMode::kById, kBf16>(gp, nullptr, qg, codes, nullptr, ids,
+                                                          out_s, out_i, Gn, qt, D, P, C, kk,
+                                                          is_l2, stream);
+    return launch_pair_topk_mma<PairMode::kBySlot, kBf16>(gp, gsize, qg, codes, norms, nullptr,
+                                                          out_s, out_i, Gn, qt, D, P, C, kk,
+                                                          is_l2, stream);
+  }
+  if (id_mode)
+    return launch_exact<true, T>(gp, gsize, qg, codes, norms, ids, out_s, out_i, Gn, qt, D, C,
+                                 kk, is_l2, stream);
+  return launch_exact<false, T>(gp, gsize, qg, codes, norms, ids, out_s, out_i, Gn, qt, D, C,
+                                kk, is_l2, stream);
+}
+
 }  // namespace
+
+// The launchers: qk_exact_topk on f32 qg and codes, qk_exact_topk_bf16 on
+// bf16 (the same arguments). This file defines the f32 one;
+// grouped_exact_bf16.cu includes it with QK_BF16_UNIT defined, which makes
+// QK_T bf16 and names the entry with _bf16, so that the two instantiations
+// compile in parallel.
+#ifdef QK_BF16_UNIT
+#define QK_T __nv_bfloat16
+#define QK_ENTRY(name) name##_bf16
+#else
+#define QK_T float
+#define QK_ENTRY(name) name
+#endif
 
 extern "C" {
 
@@ -230,26 +274,21 @@ extern "C" {
 // gsize and norms given, ids unused) and _grouped_kernel (id_mode = 1: ids
 // given, gsize and norms unused). P: partitions of codes, for the tensor map
 // over [P C, D].
-int qk_exact_topk(const void* gp, const void* gsize, const void* qg, const void* codes,
-                  const void* norms, const void* ids, void* out_s, void* out_i, int Gn, int qt,
-                  int D, int P, int C, int kk, int is_l2, int id_mode, void* stream) {
-  if (Gn <= 0) return (int)cudaGetLastError();
-  if (pair_topk_mma_serves(qt, D, kk)) {
-    if (id_mode)
-      return launch_pair_topk_mma<PairMode::kById>(gp, nullptr, qg, codes, nullptr, ids, out_s,
-                                                   out_i, Gn, qt, D, P, C, kk, is_l2, stream);
-    return launch_pair_topk_mma<PairMode::kBySlot>(gp, gsize, qg, codes, norms, nullptr, out_s,
-                                                   out_i, Gn, qt, D, P, C, kk, is_l2, stream);
-  }
-  if (id_mode)
-    return launch_exact<true>(gp, gsize, qg, codes, norms, ids, out_s, out_i, Gn, qt, D, C, kk,
-                              is_l2, stream);
-  return launch_exact<false>(gp, gsize, qg, codes, norms, ids, out_s, out_i, Gn, qt, D, C, kk,
-                             is_l2, stream);
+int QK_ENTRY(qk_exact_topk)(const void* gp, const void* gsize, const void* qg,
+                            const void* codes, const void* norms, const void* ids, void* out_s,
+                            void* out_i, int Gn, int qt, int D, int P, int C, int kk, int is_l2,
+                            int id_mode, void* stream) {
+  return exact_topk<QK_T>(gp, gsize, qg, codes, norms, ids, out_s, out_i, Gn, qt, D, P, C, kk,
+                          is_l2, id_mode, stream);
 }
 
-// The body qk_exact_topk runs at this shape (either mode): 1 the tensor-core
-// body, 0 the CUDA-core body of one block a group.
-int qk_exact_topk_body(int qt, int D, int kk) { return pair_topk_mma_serves(qt, D, kk) ? 1 : 0; }
+#ifndef QK_BF16_UNIT
+// The body qk_exact_topk (elem_bytes 4) or qk_exact_topk_bf16 (elem_bytes 2)
+// runs at this shape (either mode): 1 the tensor-core body, 0 the CUDA-core
+// body of one block a group.
+int qk_exact_topk_body(int qt, int D, int kk, int elem_bytes) {
+  return pair_topk_mma_serves(qt, D, kk, elem_bytes == 2) ? 1 : 0;
+}
+#endif
 
 }  // extern "C"

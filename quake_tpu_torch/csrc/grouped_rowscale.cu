@@ -146,6 +146,25 @@
 // in phases between block barriers, which the 8 warps of the one block an SM
 // cannot overlap with the product (PERF.md).
 //
+// bf16 codes (the _bf16 entries; the JAX package's precision="bf16", the queries
+// rounded to bf16 as its wrappers round them): every body of K4, K5 and K7
+// on bf16 operands, templated over the element type. The tensor-core bodies
+// (kBf16) read their tiles as 32-bit words, two columns a word, and multiply
+// by mma_tile_bf16: one m16n8k16 bf16 product a depth-16 step where the f32
+// bodies take three TF32 products a depth-8 step. A product of two bf16
+// values is exact in f32, so only the order of the sums differs from the
+// plain version's, as in f32; both passes run the same code in the same
+// order, so the stats and the keys still come from bit-identical scores. A
+// box is 128 bytes of a row either way (64 bf16 columns): the ring, the tensor
+// map's swizzle and the fragment layout are the f32 bodies', the tiles sized
+// in words, so a stage holds twice the depth and the lists have more room.
+// They serve D % 8 == 0 (the copies' 16-byte rows); their bound is 2 flops a
+// (row, lane, column) a pass over 989 TFLOP/s, or 2 bytes an element. The
+// CUDA-core bodies, v4's chunk-table body among them, convert the bf16 values
+// to f32 as they load them (exact) and keep their f32 arithmetic and order;
+// the chunk-table body loads bf16 synchronously (an asynchronous copy moves 4
+// bytes at least, and its f32 ring has no room for raw bf16 rows).
+//
 // K4's exact top-kk keeps, per row, a candidate buffer in shared memory of
 // cap = round_up(kk, 32) + 128 values and a threshold (initially -1): a value
 // above the threshold is appended (ballot + prefix count); when 32 more
@@ -239,8 +258,8 @@ __device__ __forceinline__ void emit_rows(const float* buf, int cap, const int (
 // column) pairs this thread owns, then f(r, j, ln, ok, score). With
 // load = false the one segment that the previous pass left in shared memory
 // is used again (size <= 128).
-template <int R, typename F>
-__device__ __forceinline__ void score_pass(const float* qs, float* seg, const float* slab,
+template <int R, typename T, typename F>
+__device__ __forceinline__ void score_pass(const float* qs, float* seg, const T* slab,
                                            const float* nrm, int size, int D, int Dp,
                                            bool l2, F&& f, bool load = true) {
   const int lane = threadIdx.x & 31;
@@ -268,11 +287,11 @@ __device__ __forceinline__ void score_pass(const float* qs, float* seg, const fl
   }
 }
 
-template <int R, bool kFoldSelect>
+template <int R, bool kFoldSelect, typename T>
 __global__ void __launch_bounds__(kThreads)
 rowscale_scan_kernel(const int* __restrict__ gp, const int* __restrict__ gsize,
                      const int* __restrict__ qsrc, const int* __restrict__ row_off,
-                     const float* __restrict__ qg, const float* __restrict__ codes,
+                     const T* __restrict__ qg, const T* __restrict__ codes,
                      const float* __restrict__ norms, float* __restrict__ out,
                      float* __restrict__ stats, int D, int Dp, int C, int kk, int cap,
                      int is_l2, float slot_mult, float levels) {
@@ -297,7 +316,7 @@ rowscale_scan_kernel(const int* __restrict__ gp, const int* __restrict__ gsize,
   }
   const int p = gp[g];
   load_query_tile(qs, qg + (size_t)(qsrc ? qsrc[g] : g) * qt * D, qt, D, Dp);
-  const float* slab = codes + ((size_t)p * C + off) * D;
+  const T* slab = codes + ((size_t)p * C + off) * D;
   const float* nrm = norms + (size_t)p * C + off;
   const bool l2 = is_l2 != 0;
 
@@ -379,7 +398,7 @@ rowscale_scan_kernel(const int* __restrict__ gp, const int* __restrict__ gsize,
 // against the shared memory a block may use).
 inline int topk_cap(int kk) { return (kk + 31) / 32 * 32 + 128; }
 
-template <bool kFoldSelect>
+template <bool kFoldSelect, typename T>
 int launch_rowscale(const void* gp, const void* gsize, const void* qsrc, const void* row_off,
                     const void* qg, const void* codes,
                     const void* norms, void* out, void* stats, int Gn, int qt, int D, int C,
@@ -391,11 +410,11 @@ int launch_rowscale(const void* gp, const void* gsize, const void* qsrc, const v
   cudaStream_t st = (cudaStream_t)stream;
 #define QK_ROWSCALE(R)                                                                    \
   case 8 * R: {                                                                           \
-    cudaError_t e = allow_smem(rowscale_scan_kernel<R, kFoldSelect>, smem);               \
+    cudaError_t e = allow_smem(rowscale_scan_kernel<R, kFoldSelect, T>, smem);            \
     if (e != cudaSuccess) return (int)e;                                                  \
-    rowscale_scan_kernel<R, kFoldSelect><<<Gn, kThreads, smem, st>>>(                     \
+    rowscale_scan_kernel<R, kFoldSelect, T><<<Gn, kThreads, smem, st>>>(                  \
         (const int*)gp, (const int*)gsize, (const int*)qsrc, (const int*)row_off,         \
-        (const float*)qg, (const float*)codes, (const float*)norms, (float*)out,          \
+        (const T*)qg, (const T*)codes, (const float*)norms, (float*)out,                  \
         (float*)stats, D, Dp, C, kk, cap, is_l2, slot_mult, levels);                      \
     break;                                                                                \
   }
@@ -439,12 +458,13 @@ __device__ __forceinline__ void load_segment_async(float* seg, const float* src,
 // order of D), bit for bit those of rowscale_scan_kernel. A chunk of one
 // segment (every chunk at ct = 128) is multiplied once: its second pass
 // selects from the first one's accumulator. A chunk of n > 1 segments is
-// visited 2 n times, each visit loading its segment.
-template <int R>
+// visited 2 n times, each visit loading its segment. On bf16 (T) a segment
+// is loaded synchronously, converted to f32, into the other buffer.
+template <int R, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 rowscale_chunk_kernel(const int* __restrict__ gp, const int* __restrict__ gsize,
                       const int* __restrict__ qsrc, const int* __restrict__ row_off,
-                      const float* __restrict__ qg, const float* __restrict__ codes,
+                      const T* __restrict__ qg, const T* __restrict__ codes,
                       const float* __restrict__ norms, float* __restrict__ out,
                       float* __restrict__ stats, int Gn, int D, int Dp, int C, int kk, int cap,
                       int is_l2, float slot_mult, float levels) {
@@ -479,9 +499,11 @@ rowscale_chunk_kernel(const int* __restrict__ gp, const int* __restrict__ gsize,
   auto prefetch = [&](int stage) {
     if (pg >= end) return;
     const int size = size_of(pg), nseg = (size + kFold - 1) / kFold;
-    load_segment_async(ring + stage * seg_floats,
-                       codes + ((size_t)gp[pg] * C + row_off[pg]) * D, (pv % nseg) * kFold, size,
-                       D, Dp);
+    const T* src = codes + ((size_t)gp[pg] * C + row_off[pg]) * D;
+    if constexpr (sizeof(T) == 4)
+      load_segment_async(ring + stage * seg_floats, src, (pv % nseg) * kFold, size, D, Dp);
+    else
+      load_segment(ring + stage * seg_floats, src, (pv % nseg) * kFold, size, D, Dp);
     if (++pv == visits_of(nseg)) {
       pg = next_live(pg + 1);
       pv = 0;
@@ -587,6 +609,7 @@ inline size_t rowscale_chunk_smem(int qt, int D, int kk) {
   return (size_t)(qt * Dp + 2 * kFold * (Dp + 1) + qt * topk_cap(kk)) * sizeof(float);
 }
 
+template <typename T>
 int launch_rowscale_chunk(const void* gp, const void* gsize, const void* qsrc,
                           const void* row_off, const void* qg, const void* codes,
                           const void* norms, void* out, void* stats, int Gn, int qt, int D, int C,
@@ -596,11 +619,11 @@ int launch_rowscale_chunk(const void* gp, const void* gsize, const void* qsrc,
   cudaStream_t st = (cudaStream_t)stream;
 #define QK_ROWSCALE_CHUNK(R)                                                              \
   case 8 * R: {                                                                           \
-    cudaError_t e = allow_smem(rowscale_chunk_kernel<R>, smem);                           \
+    cudaError_t e = allow_smem(rowscale_chunk_kernel<R, T>, smem);                        \
     if (e != cudaSuccess) return (int)e;                                                  \
-    rowscale_chunk_kernel<R><<<grid, kThreads, smem, st>>>(                               \
+    rowscale_chunk_kernel<R, T><<<grid, kThreads, smem, st>>>(                            \
         (const int*)gp, (const int*)gsize, (const int*)qsrc, (const int*)row_off,         \
-        (const float*)qg, (const float*)codes, (const float*)norms, (float*)out,          \
+        (const T*)qg, (const T*)codes, (const float*)norms, (float*)out,                  \
         (float*)stats, Gn, D, padded_dim(D), C, kk, topk_cap(kk), is_l2, slot_mult,       \
         levels);                                                                          \
     break;                                                                                \
@@ -619,42 +642,48 @@ int launch_rowscale_chunk(const void* gp, const void* gsize, const void* qsrc,
 
 // ------------------------------------------------- K4 on the tensor cores
 
-// Shared memory of K4's tensor-core body, in bytes, with ring stages of NBS
-// boxes and candidate buffers of cap values a row: room to reach a 1024-byte
-// boundary, ring, query tile, buffers, (rowmin, scale) per row, the
-// cross-warp min / max exchange, the two stage barriers.
-inline size_t rowscale_topk_mma_smem(int qt, int D, int NBS, int cap) {
+// Shared memory of K4's tensor-core body, in bytes, with rows of W 32-bit
+// words (D f32 or 2 W bf16 values), ring stages of NBS boxes and candidate
+// buffers of cap values a row: room to reach a 1024-byte boundary, ring,
+// query tile, buffers, (rowmin, scale) per row, the cross-warp min / max
+// exchange, the two stage barriers.
+inline size_t rowscale_topk_mma_smem(int qt, int W, int NBS, int cap) {
   return 1024 + 16 +
-         (size_t)(2 * ring_stage_floats(qt, NBS) + tile_boxes(D) * (qt < 16 ? 16 : qt) * kBox +
+         (size_t)(2 * ring_stage_floats(qt, NBS) + tile_boxes(W) * (qt < 16 ? 16 : qt) * kBox +
                   qt * cap + 2 * qt + 2 * 32 * kWarps) *
              sizeof(float);
 }
 
-inline RingShape rowscale_topk_mma_shape(int qt, int D, int kk) {
-  return ring_shape(D, kk, [&](int NBS, int cap) { return rowscale_topk_mma_smem(qt, D, NBS, cap); });
+inline RingShape rowscale_topk_mma_shape(int qt, int W, int kk) {
+  return ring_shape(W, kk,
+                    [&](int NBS, int cap) { return rowscale_topk_mma_smem(qt, W, NBS, cap); });
 }
 
-// Boxes a ring stage of K5's tensor-core body holds (it keeps no candidate
-// buffer); 0: none fits.
-inline int rowscale_fold_mma_stage_boxes(int qt, int D) {
-  return ring_stage_boxes(D, [&](int NBS) { return rowscale_topk_mma_smem(qt, D, NBS, 0); });
+// Boxes a ring stage of K5's tensor-core body holds (rows of W words; it
+// keeps no candidate buffer); 0: none fits.
+inline int rowscale_fold_mma_stage_boxes(int qt, int W) {
+  return ring_stage_boxes(W, [&](int NBS) { return rowscale_topk_mma_smem(qt, W, NBS, 0); });
 }
 
 // Which body serves a shape (qk_rowscale_topk_body names them). A chunk table
 // never takes the tensor-core body: a chunk's row range can be far below its
 // scores, its keys then resolve the scores' last places, and only f32 sums
-// in the order of D reproduce the plain version's there.
-inline int rowscale_topk_body(int qt, int D, int kk, bool chunked) {
+// in the order of D reproduce the plain version's there (in bf16 too: its
+// products are exact, its sums are not).
+inline int rowscale_topk_body(int qt, int D, int kk, bool chunked, bool bf16) {
   if (chunked) return rowscale_chunk_smem(qt, D, kk) <= kSmemLimit ? 1 : 0;
-  return D % 4 == 0 && rowscale_topk_mma_shape(qt, D, kk).cap > 0 ? 2 : 0;
+  const int W = row_words(D, bf16);
+  return W > 0 && rowscale_topk_mma_shape(qt, W, kk).cap > 0 ? 2 : 0;
 }
 
 // Which body serves K5 at a shape (qk_rowscale_fold_body names them): 2 the
-// tensor-core body where rows are 16-byte aligned (D % 4 == 0) and its query
-// tile fits beside a ring stage, else 0, the CUDA-core body of one block a
-// group. The fold keeps two values a column whatever kk is.
-inline int rowscale_fold_body(int qt, int D) {
-  return D % 4 == 0 && rowscale_fold_mma_stage_boxes(qt, D) > 0 ? 2 : 0;
+// tensor-core body where rows are 16-byte aligned (D % 4 == 0 in f32, D % 8
+// == 0 in bf16) and its query tile fits beside a ring stage, else 0, the
+// CUDA-core body of one block a group. The fold keeps two values a column
+// whatever kk is.
+inline int rowscale_fold_body(int qt, int D, bool bf16) {
+  const int W = row_words(D, bf16);
+  return W > 0 && rowscale_fold_mma_stage_boxes(qt, W) > 0 ? 2 : 0;
 }
 
 // kk selection rounds over the fold columns of each of a warp's R rows
@@ -674,7 +703,7 @@ __device__ __forceinline__ void emit_fold_rows(float (&m1)[R][4], float (&m2)[R]
   });
 }
 
-template <int QT, bool kFoldSelect>
+template <int QT, bool kFoldSelect, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
 rowscale_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __restrict__ gp,
                          const int* __restrict__ gsize, const float* __restrict__ qg,
@@ -700,7 +729,9 @@ rowscale_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __
   const int g4 = lane >> 2, t4 = lane & 3;
   const int wn = warp % NW;
   const int row0 = (warp / NW) * (16 * MT), col0 = wn * (8 * NT);
-  const int ksteps = (D + 7) >> 3;
+  const int W = kBf16 ? D >> 1 : D;     // 32-bit words of a row (qg: the tiles' words)
+  const int ksteps = depth_steps(D, kBf16);
+  const int box_cols = kBf16 ? 2 * kBox : kBox;  // elements of a box row
   const int ND = (NB + NBS - 1) / NBS;  // depth chunks a segment: a stage holds NBS boxes
   const bool l2 = is_l2 != 0;
 
@@ -740,7 +771,7 @@ rowscale_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __
       const int s = pv < pnseg ? pv : pv - pnseg;
       if (!(ND == 1 && pnseg == 2 && pv == 2))
         segment_load_async(ring + stage * stage_floats, &cmap, prow + s * kFold, pd * NBS,
-                           min(NBS, NB - pd * NBS), bars + stage);
+                           min(NBS, NB - pd * NBS), bars + stage, box_cols);
       if (++pd < ND) return;
       pd = 0;
       if (++pv == 2 * pnseg - 1) {
@@ -770,7 +801,7 @@ rowscale_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __
       nseg = (size + kFold - 1) / kFold;
       nrm = norms + (size_t)gp[cg] * C;
       // The last product of the previous group ended before a barrier.
-      query_tile_load(qs, qg + (size_t)cg * QT * D, QT, QR, D, NB);
+      query_tile_load(qs, qg + (size_t)cg * QT * W, QT, QR, W, NB);
 #pragma unroll
       for (int m = 0; m < 2 * MT; ++m) {
         mn[m] = INFINITY;
@@ -802,8 +833,8 @@ rowscale_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __
     }
     __syncthreads();  // and the query tile is in place
 
-    mma_tile<MT, NT>(acc, qs + cd * NBS * QR * kBox, stage_mem, row0, col0, QR,
-                     min(4 * NBS, ksteps - 4 * NBS * cd), cd == 0);
+    mma_tile_any<kBf16, MT, NT>(acc, qs + cd * NBS * QR * kBox, stage_mem, row0, col0, QR,
+                                min(4 * NBS, ksteps - 4 * NBS * cd), cd == 0);
     if (cd + 1 < ND) {  // the segment's next depth chunk adds to acc
       __syncthreads();  // the stage is consumed: its buffer may be refilled
       stage ^= 1;
@@ -938,26 +969,28 @@ rowscale_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __
   }
 }
 
-template <bool kFoldSelect>
+template <bool kFoldSelect, bool kBf16>
 int launch_rowscale_topk_mma(const void* gp, const void* gsize, const void* qg,
                              const void* codes, const void* norms, void* out, void* stats,
                              int Gn, int qt, int D, int P, int C, int kk, int is_l2,
                              float slot_mult, float levels, void* stream) {
-  const int NB = tile_boxes(D);
+  const int W = row_words(D, kBf16);
+  const int NB = tile_boxes(W);
   CUtensorMap cmap;
-  const int me = slab_tensor_map(&cmap, codes, (unsigned long long)P * C, D);
+  const int me = slab_tensor_map(&cmap, codes, (unsigned long long)P * C, D, kFold,
+                                 kBf16 ? 2 : 4);
   if (me != 0) return me;
-  const RingShape shape = kFoldSelect ? RingShape{rowscale_fold_mma_stage_boxes(qt, D), 0}
-                                      : rowscale_topk_mma_shape(qt, D, kk);
+  const RingShape shape = kFoldSelect ? RingShape{rowscale_fold_mma_stage_boxes(qt, W), 0}
+                                      : rowscale_topk_mma_shape(qt, W, kk);
   const int NBS = shape.NBS, cap = shape.cap;
-  const size_t smem = rowscale_topk_mma_smem(qt, D, NBS, cap);
+  const size_t smem = rowscale_topk_mma_smem(qt, W, NBS, cap);
   const int grid = Gn < sm_count() ? Gn : sm_count();
   cudaStream_t st = (cudaStream_t)stream;
 #define QK_ROWSCALE_MMA(QT)                                                               \
   case QT: {                                                                              \
-    cudaError_t e = allow_smem(rowscale_topk_mma_kernel<QT, kFoldSelect>, smem);          \
+    cudaError_t e = allow_smem(rowscale_topk_mma_kernel<QT, kFoldSelect, kBf16>, smem);   \
     if (e != cudaSuccess) return (int)e;                                                  \
-    rowscale_topk_mma_kernel<QT, kFoldSelect><<<grid, kThreads, smem, st>>>(              \
+    rowscale_topk_mma_kernel<QT, kFoldSelect, kBf16><<<grid, kThreads, smem, st>>>(       \
         cmap, (const int*)gp, (const int*)gsize, (const float*)qg, (const float*)norms,   \
         (float*)out, (float*)stats, Gn, D, NB, NBS, ring_stage_floats(qt, NBS), C,        \
         kk, cap, is_l2, slot_mult, levels);                                               \
@@ -1044,10 +1077,10 @@ __device__ __noinline__ void merge_row(float* ms, int* mi, int cur, int kk, int 
   __syncwarp();
 }
 
-template <int R>
+template <int R, typename T>
 __global__ void __launch_bounds__(kThreads)
 chunk_merge_kernel(const int* __restrict__ gp, const int* __restrict__ gsize,
-                   const float* __restrict__ qg, const float* __restrict__ codes,
+                   const T* __restrict__ qg, const T* __restrict__ codes,
                    const float* __restrict__ norms, float* __restrict__ out_s,
                    int* __restrict__ out_i, int D, int Dp, int C, int ct, int kk, int cap,
                    int is_l2, float slot_mult, float levels) {
@@ -1089,7 +1122,7 @@ chunk_merge_kernel(const int* __restrict__ gp, const int* __restrict__ gsize,
   const int nch = (size + ct - 1) / ct;
   for (int c = 0; c < nch; ++c) {
     const int csize = min(size - c * ct, ct);
-    const float* slab = codes + ((size_t)p * C + (size_t)c * ct) * D;
+    const T* slab = codes + ((size_t)p * C + (size_t)c * ct) * D;
     const float* nrm = norms + (size_t)p * C + (size_t)c * ct;
 
     // Pass 1: each row's min and max over the chunk's valid lanes.
@@ -1164,6 +1197,7 @@ chunk_merge_kernel(const int* __restrict__ gp, const int* __restrict__ gsize,
   }
 }
 
+template <typename T>
 int launch_chunk_merge(const void* gp, const void* gsize, const void* qg, const void* codes,
                        const void* norms, void* out_s, void* out_i, int Gn, int qt, int D, int C,
                        int ct, int kk, int is_l2, float slot_mult, float levels, void* stream) {
@@ -1175,10 +1209,10 @@ int launch_chunk_merge(const void* gp, const void* gsize, const void* qg, const 
   cudaStream_t st = (cudaStream_t)stream;
 #define QK_CHUNK_MERGE(R)                                                                  \
   case 8 * R: {                                                                            \
-    cudaError_t e = allow_smem(chunk_merge_kernel<R>, smem);                               \
+    cudaError_t e = allow_smem(chunk_merge_kernel<R, T>, smem);                            \
     if (e != cudaSuccess) return (int)e;                                                   \
-    chunk_merge_kernel<R><<<Gn, kThreads, smem, st>>>(                                     \
-        (const int*)gp, (const int*)gsize, (const float*)qg, (const float*)codes,          \
+    chunk_merge_kernel<R, T><<<Gn, kThreads, smem, st>>>(                                  \
+        (const int*)gp, (const int*)gsize, (const T*)qg, (const T*)codes,                  \
         (const float*)norms, (float*)out_s, (int*)out_i, D, Dp, C, ct, kk, cap, is_l2,     \
         slot_mult, levels);                                                                \
     break;                                                                                 \
@@ -1197,29 +1231,32 @@ int launch_chunk_merge(const void* gp, const void* gsize, const void* qg, const 
 
 // ------------------------------------------------- K7 on the tensor cores
 
-// Shared memory of K7's tensor-core body, in bytes: room to reach a
-// 1024-byte boundary, ring, query tile, candidate buffers of cap values a
-// row, the merge lists (3 kk (score, slot) pairs a row), (rowmin,
-// levels / rng, rng / levels, threshold) per row, the cross-warp min / max
-// exchange, the two stage barriers.
-inline size_t chunk_merge_mma_smem(int qt, int D, int kk, int NBS, int cap) {
+// Shared memory of K7's tensor-core body with rows of W 32-bit words (D f32
+// or 2 W bf16 values), in bytes: room to reach a 1024-byte boundary, ring,
+// query tile, candidate buffers of cap values a row, the merge lists (3 kk
+// (score, slot) pairs a row), (rowmin, levels / rng, rng / levels,
+// threshold) per row, the cross-warp min / max exchange, the two stage
+// barriers.
+inline size_t chunk_merge_mma_smem(int qt, int W, int kk, int NBS, int cap) {
   return 1024 + 16 +
-         (size_t)(2 * ring_stage_floats(qt, NBS) + tile_boxes(D) * (qt < 16 ? 16 : qt) * kBox +
+         (size_t)(2 * ring_stage_floats(qt, NBS) + tile_boxes(W) * (qt < 16 ? 16 : qt) * kBox +
                   qt * cap + qt * 6 * kk + 4 * qt + 2 * 32 * kWarps) *
              sizeof(float);
 }
 
-inline RingShape chunk_merge_mma_shape(int qt, int D, int kk) {
-  return ring_shape(D, kk,
-                    [&](int NBS, int cap) { return chunk_merge_mma_smem(qt, D, kk, NBS, cap); });
+inline RingShape chunk_merge_mma_shape(int qt, int W, int kk) {
+  return ring_shape(W, kk,
+                    [&](int NBS, int cap) { return chunk_merge_mma_smem(qt, W, kk, NBS, cap); });
 }
 
 // Which body serves K7 at a shape (qk_chunk_merge_body names them): 1 the
 // tensor-core body, where rows are 16-byte aligned for the asynchronous
-// copies (D % 4 == 0) and its ring, query tile, buffers and merge lists fit;
-// else 0, chunk_merge_kernel.
-inline int chunk_merge_body(int qt, int D, int kk) {
-  return D % 4 == 0 && chunk_merge_mma_shape(qt, D, kk).cap > 0 ? 1 : 0;
+// copies (D % 4 == 0 in f32, D % 8 == 0 in bf16) and its ring, query tile,
+// buffers and merge lists fit (a bf16 query tile takes half the room, so the
+// lists fit to a larger kk at a deep D); else 0, chunk_merge_kernel.
+inline int chunk_merge_body(int qt, int D, int kk, bool bf16) {
+  const int W = row_words(D, bf16);
+  return W > 0 && chunk_merge_mma_shape(qt, W, kk).cap > 0 ? 1 : 0;
 }
 
 // K7 on the tensor cores (the design is in the note at the top of the file).
@@ -1233,7 +1270,7 @@ inline int chunk_merge_body(int qt, int D, int kk) {
 // below every value kept and, its dequantized score being at most that of a
 // value the score test left out, below the kk-th best). They are
 // dequantized and merged at the unit's end.
-template <int QT>
+template <int QT, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
 chunk_merge_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __restrict__ gp,
                        const int* __restrict__ gsize, const float* __restrict__ qg,
@@ -1260,7 +1297,9 @@ chunk_merge_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __re
   const int g4 = lane >> 2, t4 = lane & 3;
   const int wn = warp % NW;
   const int row0 = (warp / NW) * (16 * MT), col0 = wn * (8 * NT);
-  const int ksteps = (D + 7) >> 3;
+  const int W = kBf16 ? D >> 1 : D;     // 32-bit words of a row (qg: the tiles' words)
+  const int ksteps = depth_steps(D, kBf16);
+  const int box_cols = kBf16 ? 2 * kBox : kBox;  // elements of a box row
   const int ND = (NB + NBS - 1) / NBS;  // depth chunks a segment: a stage holds NBS boxes
   const bool l2 = is_l2 != 0;
 
@@ -1298,7 +1337,7 @@ chunk_merge_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __re
       const int s = pv < pnseg ? pv : pv - pnseg;
       if (!(ND == 1 && pnseg == 2 && pv == 2))
         segment_load_async(ring + stage * stage_floats, &cmap, prow + s * kFold, pd * NBS,
-                           min(NBS, NB - pd * NBS), bars + stage);
+                           min(NBS, NB - pd * NBS), bars + stage, box_cols);
       if (++pd < ND) return;
       pd = 0;
       if (++pv < 2 * pnseg - 1) return;
@@ -1340,7 +1379,7 @@ chunk_merge_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __re
         size = size_of(cg);
         gnrm = norms + (size_t)gp[cg] * C;
         // The last product of the previous group ended before a barrier.
-        query_tile_load(qs, qg + (size_t)cg * QT * D, QT, QR, D, NB);
+        query_tile_load(qs, qg + (size_t)cg * QT * W, QT, QR, W, NB);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const int row = warp + kWarps * r;
@@ -1385,8 +1424,8 @@ chunk_merge_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __re
     }
     __syncthreads();  // and the query tile, the lists and the thresholds are in place
 
-    mma_tile<MT, NT>(acc, qs + cd * NBS * QR * kBox, stage_mem, row0, col0, QR,
-                     min(4 * NBS, ksteps - 4 * NBS * cd), cd == 0);
+    mma_tile_any<kBf16, MT, NT>(acc, qs + cd * NBS * QR * kBox, stage_mem, row0, col0, QR,
+                                min(4 * NBS, ksteps - 4 * NBS * cd), cd == 0);
     if (cd + 1 < ND) {  // the segment's next depth chunk adds to acc
       __syncthreads();  // the stage is consumed: its buffer may be refilled
       stage ^= 1;
@@ -1586,23 +1625,26 @@ chunk_merge_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __re
   }
 }
 
+template <bool kBf16>
 int launch_chunk_merge_mma(const void* gp, const void* gsize, const void* qg, const void* codes,
                            const void* norms, void* out_s, void* out_i, int Gn, int qt, int D,
                            int P, int C, int ct, int kk, int is_l2, float slot_mult,
                            float levels, void* stream) {
-  const int NB = tile_boxes(D);
+  const int W = row_words(D, kBf16);
+  const int NB = tile_boxes(W);
   CUtensorMap cmap;
-  const int me = slab_tensor_map(&cmap, codes, (unsigned long long)P * C, D);
+  const int me = slab_tensor_map(&cmap, codes, (unsigned long long)P * C, D, kFold,
+                                 kBf16 ? 2 : 4);
   if (me != 0) return me;
-  const RingShape shape = chunk_merge_mma_shape(qt, D, kk);
-  const size_t smem = chunk_merge_mma_smem(qt, D, kk, shape.NBS, shape.cap);
+  const RingShape shape = chunk_merge_mma_shape(qt, W, kk);
+  const size_t smem = chunk_merge_mma_smem(qt, W, kk, shape.NBS, shape.cap);
   const int grid = Gn < sm_count() ? Gn : sm_count();
   cudaStream_t st = (cudaStream_t)stream;
 #define QK_CHUNK_MERGE_MMA(QT)                                                             \
   case QT: {                                                                               \
-    cudaError_t e = allow_smem(chunk_merge_mma_kernel<QT>, smem);                          \
+    cudaError_t e = allow_smem(chunk_merge_mma_kernel<QT, kBf16>, smem);                   \
     if (e != cudaSuccess) return (int)e;                                                   \
-    chunk_merge_mma_kernel<QT><<<grid, kThreads, smem, st>>>(                              \
+    chunk_merge_mma_kernel<QT, kBf16><<<grid, kThreads, smem, st>>>(                       \
         cmap, (const int*)gp, (const int*)gsize, (const float*)qg, (const float*)norms,    \
         (float*)out_s, (int*)out_i, Gn, D, NB, shape.NBS, ring_stage_floats(qt, shape.NBS), \
         C, ct, kk, shape.cap, is_l2, slot_mult, levels);                                   \
@@ -1620,7 +1662,72 @@ int launch_chunk_merge_mma(const void* gp, const void* gsize, const void* qg, co
   return (int)cudaGetLastError();
 }
 
+// K4 (on whole partitions or a chunk table) on operands of type T.
+template <typename T>
+int rowscale_topk(const void* gp, const void* gsize, const void* qsrc, const void* row_off,
+                  const void* qg, const void* codes, const void* norms, void* out, void* stats,
+                  int Gn, int qt, int D, int P, int C, int kk, int is_l2, float slot_mult,
+                  float levels, void* stream) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  if (Gn <= 0) return (int)cudaGetLastError();
+  switch (rowscale_topk_body(qt, D, kk, row_off != nullptr, kBf16)) {
+    case 2:
+      return launch_rowscale_topk_mma<false, kBf16>(gp, gsize, qg, codes, norms, out, stats, Gn,
+                                                    qt, D, P, C, kk, is_l2, slot_mult, levels,
+                                                    stream);
+    case 1:
+      return launch_rowscale_chunk<T>(gp, gsize, qsrc, row_off, qg, codes, norms, out, stats,
+                                      Gn, qt, D, C, kk, is_l2, slot_mult, levels, stream);
+    default:
+      return launch_rowscale<false, T>(gp, gsize, qsrc, row_off, qg, codes, norms, out, stats,
+                                       Gn, qt, D, C, kk, is_l2, slot_mult, levels, stream);
+  }
+}
+
+// K5 on operands of type T.
+template <typename T>
+int rowscale_fold(const void* gp, const void* gsize, const void* qg, const void* codes,
+                  const void* norms, void* out, void* stats, int Gn, int qt, int D, int P, int C,
+                  int kk, int is_l2, float slot_mult, float levels, void* stream) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  if (Gn <= 0) return (int)cudaGetLastError();
+  if (rowscale_fold_body(qt, D, kBf16) == 2)
+    return launch_rowscale_topk_mma<true, kBf16>(gp, gsize, qg, codes, norms, out, stats, Gn, qt,
+                                                 D, P, C, kk, is_l2, slot_mult, levels, stream);
+  return launch_rowscale<true, T>(gp, gsize, nullptr, nullptr, qg, codes, norms, out, stats, Gn,
+                                  qt, D, C, kk, is_l2, slot_mult, levels, stream);
+}
+
+// K7 on operands of type T.
+template <typename T>
+int chunk_merge(const void* gp, const void* gsize, const void* qg, const void* codes,
+                const void* norms, void* out_s, void* out_i, int Gn, int qt, int D, int P, int C,
+                int ct, int kk, int is_l2, float slot_mult, float levels, void* stream) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  if (Gn <= 0) return (int)cudaGetLastError();
+  if (chunk_merge_body(qt, D, kk, kBf16) == 1)
+    return launch_chunk_merge_mma<kBf16>(gp, gsize, qg, codes, norms, out_s, out_i, Gn, qt, D, P,
+                                         C, ct, kk, is_l2, slot_mult, levels, stream);
+  return launch_chunk_merge<T>(gp, gsize, qg, codes, norms, out_s, out_i, Gn, qt, D, C, ct, kk,
+                               is_l2, slot_mult, levels, stream);
+}
+
 }  // namespace
+
+// The launchers: qk_rowscale_topk, qk_rowscale_fold and qk_chunk_merge on
+// f32 qg and codes, the same names with _bf16 on bf16 (the same arguments;
+// norms, outputs and stats f32 either way). This file defines the f32 ones;
+// grouped_rowscale_bf16.cu includes it with QK_BF16_UNIT defined, which
+// makes QK_T bf16 and names the entries with _bf16, so that the two
+// instantiations compile in parallel. The *_body queries take the element
+// size (4 f32, 2 bf16).
+#ifdef QK_BF16_UNIT
+#define QK_T __nv_bfloat16
+#define QK_ENTRY(name) name##_bf16
+#else
+#define QK_T float
+#define QK_ENTRY(name) name
+#endif
 
 extern "C" {
 
@@ -1628,66 +1735,54 @@ extern "C" {
 // _v6_kernel (_v3p_group_body + _v3p_select on a whole partition; qsrc and
 // row_off null) and _v4_kernel (the same body on one chunk per group; qsrc
 // and row_off given).
-int qk_rowscale_topk(const void* gp, const void* gsize, const void* qsrc, const void* row_off,
-                     const void* qg, const void* codes, const void* norms, void* out,
-                     void* stats, int Gn, int qt, int D, int P, int C, int kk, int is_l2,
-                     float slot_mult, float levels, void* stream) {
-  if (Gn <= 0) return (int)cudaGetLastError();
-  switch (rowscale_topk_body(qt, D, kk, row_off != nullptr)) {
-    case 2:
-      return launch_rowscale_topk_mma<false>(gp, gsize, qg, codes, norms, out, stats, Gn, qt, D,
-                                             P, C, kk, is_l2, slot_mult, levels, stream);
-    case 1:
-      return launch_rowscale_chunk(gp, gsize, qsrc, row_off, qg, codes, norms, out, stats, Gn,
-                                   qt, D, C, kk, is_l2, slot_mult, levels, stream);
-    default:
-      return launch_rowscale<false>(gp, gsize, qsrc, row_off, qg, codes, norms, out, stats, Gn,
-                                    qt, D, C, kk, is_l2, slot_mult, levels, stream);
-  }
-}
-
-// The body qk_rowscale_topk runs at this shape: 2 the tensor-core body, 1 the
-// persistent CUDA-core body for a chunk table, 0 the CUDA-core body of one
-// block a group.
-int qk_rowscale_topk_body(int qt, int D, int kk, int chunked) {
-  return rowscale_topk_body(qt, D, kk, chunked != 0);
+int QK_ENTRY(qk_rowscale_topk)(const void* gp, const void* gsize, const void* qsrc,
+                               const void* row_off, const void* qg, const void* codes,
+                               const void* norms, void* out, void* stats, int Gn, int qt, int D,
+                               int P, int C, int kk, int is_l2, float slot_mult, float levels,
+                               void* stream) {
+  return rowscale_topk<QK_T>(gp, gsize, qsrc, row_off, qg, codes, norms, out, stats, Gn, qt, D,
+                             P, C, kk, is_l2, slot_mult, levels, stream);
 }
 
 // K5: replaces quake_tpu/ops/pallas_grouped.py::_v7_kernel (_v7_select +
 // _v7_fold_rounds). P: partitions of codes, for the tensor map over [P C, D].
-int qk_rowscale_fold(const void* gp, const void* gsize, const void* qg, const void* codes,
-                     const void* norms, void* out, void* stats, int Gn, int qt, int D, int P,
-                     int C, int kk, int is_l2, float slot_mult, float levels, void* stream) {
-  if (Gn <= 0) return (int)cudaGetLastError();
-  if (rowscale_fold_body(qt, D) == 2)
-    return launch_rowscale_topk_mma<true>(gp, gsize, qg, codes, norms, out, stats, Gn, qt, D, P,
-                                          C, kk, is_l2, slot_mult, levels, stream);
-  return launch_rowscale<true>(gp, gsize, nullptr, nullptr, qg, codes, norms, out, stats, Gn,
-                               qt, D, C, kk, is_l2, slot_mult, levels, stream);
+int QK_ENTRY(qk_rowscale_fold)(const void* gp, const void* gsize, const void* qg,
+                               const void* codes, const void* norms, void* out, void* stats,
+                               int Gn, int qt, int D, int P, int C, int kk, int is_l2,
+                               float slot_mult, float levels, void* stream) {
+  return rowscale_fold<QK_T>(gp, gsize, qg, codes, norms, out, stats, Gn, qt, D, P, C, kk,
+                             is_l2, slot_mult, levels, stream);
+}
+
+// K7: replaces quake_tpu/ops/pallas_grouped.py::_v5_kernel.
+int QK_ENTRY(qk_chunk_merge)(const void* gp, const void* gsize, const void* qg,
+                             const void* codes, const void* norms, void* out_s, void* out_i,
+                             int Gn, int qt, int D, int P, int C, int ct, int kk, int is_l2,
+                             float slot_mult, float levels, void* stream) {
+  return chunk_merge<QK_T>(gp, gsize, qg, codes, norms, out_s, out_i, Gn, qt, D, P, C, ct, kk,
+                           is_l2, slot_mult, levels, stream);
+}
+
+#ifndef QK_BF16_UNIT
+// The body qk_rowscale_topk runs at this shape: 2 the tensor-core body, 1 the
+// persistent CUDA-core body for a chunk table, 0 the CUDA-core body of one
+// block a group.
+int qk_rowscale_topk_body(int qt, int D, int kk, int chunked, int elem_bytes) {
+  return rowscale_topk_body(qt, D, kk, chunked != 0, elem_bytes == 2);
 }
 
 // The body qk_rowscale_fold runs at this shape: 2 the tensor-core body, 0 the
 // CUDA-core body of one block a group (kk does not change it).
-int qk_rowscale_fold_body(int qt, int D, int kk) {
+int qk_rowscale_fold_body(int qt, int D, int kk, int elem_bytes) {
   (void)kk;
-  return rowscale_fold_body(qt, D);
-}
-
-// K7: replaces quake_tpu/ops/pallas_grouped.py::_v5_kernel.
-int qk_chunk_merge(const void* gp, const void* gsize, const void* qg, const void* codes,
-                   const void* norms, void* out_s, void* out_i, int Gn, int qt, int D, int P,
-                   int C, int ct, int kk, int is_l2, float slot_mult, float levels,
-                   void* stream) {
-  if (Gn <= 0) return (int)cudaGetLastError();
-  if (chunk_merge_body(qt, D, kk) == 1)
-    return launch_chunk_merge_mma(gp, gsize, qg, codes, norms, out_s, out_i, Gn, qt, D, P, C,
-                                  ct, kk, is_l2, slot_mult, levels, stream);
-  return launch_chunk_merge(gp, gsize, qg, codes, norms, out_s, out_i, Gn, qt, D, C, ct, kk,
-                            is_l2, slot_mult, levels, stream);
+  return rowscale_fold_body(qt, D, elem_bytes == 2);
 }
 
 // The body qk_chunk_merge runs at this shape: 1 the tensor-core body, 0 the
 // CUDA-core body of one block a group.
-int qk_chunk_merge_body(int qt, int D, int kk) { return chunk_merge_body(qt, D, kk); }
+int qk_chunk_merge_body(int qt, int D, int kk, int elem_bytes) {
+  return chunk_merge_body(qt, D, kk, elem_bytes == 2);
+}
+#endif
 
 }  // extern "C"

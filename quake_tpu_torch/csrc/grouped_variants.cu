@@ -59,6 +59,15 @@
 // smaller slot first. The CUDA-core bodies of K8 and K9 sum in one order too
 // (tile_dots, query_norms, segment_norms over the zero-padded depth), so K9's
 // output there is the top kk of K8's CUDA-core scores, packed.
+//
+// bf16 codes (the _bf16 entries; the queries rounded to bf16 as the JAX wrappers
+// round them): every body on bf16 operands, templated over the element type.
+// The tensor-core body takes one bf16 product a depth-16 step where D % 8 ==
+// 0 and its lists fit (pair_topk_mma.cuh, kBf16); the CUDA-core bodies
+// convert the bf16 values to f32 as they load them (exact) and run the f32
+// arithmetic unchanged. Both norms come from the rounded query tile and the
+// bf16 slab, upcast. K8 and K9 still share one code and one order on either
+// body, so K9 stays the top kk of K8's scores, packed, in bf16 too.
 
 #include "common.cuh"
 #include "pair_topk_mma.cuh"
@@ -90,10 +99,10 @@ __device__ __forceinline__ void segment_norms(float* ssq, const float* seg, int 
 
 // ---------------------------------------------------------------- K8
 
-template <int R>
+template <int R, typename T>
 __global__ void __launch_bounds__(kThreads)
-raw_scores_kernel(const int* __restrict__ gp, const float* __restrict__ qg,
-                  const float* __restrict__ codes, const int* __restrict__ ids,
+raw_scores_kernel(const int* __restrict__ gp, const T* __restrict__ qg,
+                  const T* __restrict__ codes, const int* __restrict__ ids,
                   float* __restrict__ out, int D, int Dp, int C, int is_l2) {
   constexpr int qt = kWarps * R;
   extern __shared__ __align__(16) float smem[];
@@ -109,7 +118,7 @@ raw_scores_kernel(const int* __restrict__ gp, const float* __restrict__ qg,
     return;
   }
   load_query_tile(qs, qg + (size_t)g * qt * D, qt, D, Dp);
-  const float* slab = codes + (size_t)p * C * D;
+  const T* slab = codes + (size_t)p * C * D;
   const bool l2 = is_l2 != 0;
   float qsq[R];
 #pragma unroll
@@ -186,10 +195,10 @@ __device__ __noinline__ int cut_row_int(int* b, int cnt, int kk, int& th) {
   return w;
 }
 
-template <int R>
+template <int R, typename T>
 __global__ void __launch_bounds__(kThreads)
-packed_topk_kernel(const int* __restrict__ gp, const float* __restrict__ qg,
-                   const float* __restrict__ codes, const int* __restrict__ ids,
+packed_topk_kernel(const int* __restrict__ gp, const T* __restrict__ qg,
+                   const T* __restrict__ codes, const int* __restrict__ ids,
                    int* __restrict__ out, int D, int Dp, int C, int kk, int cap, int is_l2,
                    int slot_bits) {
   constexpr int qt = kWarps * R;
@@ -207,7 +216,7 @@ packed_topk_kernel(const int* __restrict__ gp, const float* __restrict__ qg,
     return;
   }
   load_query_tile(qs, qg + (size_t)g * qt * D, qt, D, Dp);
-  const float* slab = codes + (size_t)p * C * D;
+  const T* slab = codes + (size_t)p * C * D;
   const bool l2 = is_l2 != 0;
   float qsq[R];
   int cnt[R], th[R];
@@ -269,10 +278,10 @@ packed_topk_kernel(const int* __restrict__ gp, const float* __restrict__ qg,
 // kMulti = false: sized_topk (lanes below gsize[g], ties to the larger slot,
 // none = -1, gb = 1). kMulti = true: multi_topk (lanes with ids >= 0 of the
 // whole slab, ties to the smaller slot, none = C, gb groups per block).
-template <int R, bool kMulti>
+template <int R, bool kMulti, typename T>
 __global__ void __launch_bounds__(kThreads)
 slot_topk_kernel(const int* __restrict__ gp, const int* __restrict__ gsize,
-                 const float* __restrict__ qg, const float* __restrict__ codes,
+                 const T* __restrict__ qg, const T* __restrict__ codes,
                  const int* __restrict__ ids, float* __restrict__ out_s,
                  int* __restrict__ out_i, int D, int Dp, int C, int kk, int cap, int is_l2,
                  int gb) {
@@ -302,7 +311,7 @@ slot_topk_kernel(const int* __restrict__ gp, const int* __restrict__ gsize,
     }
     __syncthreads();  // the previous group's tile and buffers are consumed
     load_query_tile(qs, qg + (size_t)g * qt * D, qt, D, Dp);
-    const float* slab = codes + (size_t)p * C * D;
+    const T* slab = codes + (size_t)p * C * D;
     float qsq[R], ths[R];
     int cnt[R], thi[R];
 #pragma unroll
@@ -370,7 +379,7 @@ slot_topk_kernel(const int* __restrict__ gp, const int* __restrict__ gsize,
   }
 }
 
-template <bool kMulti>
+template <bool kMulti, typename T>
 int launch_slot_topk(const void* gp, const void* gsize, const void* qg, const void* codes,
                      const void* ids, void* out_s, void* out_i, int Gn, int qt, int D, int C,
                      int kk, int is_l2, int gb, void* stream) {
@@ -383,10 +392,10 @@ int launch_slot_topk(const void* gp, const void* gsize, const void* qg, const vo
   cudaStream_t st = (cudaStream_t)stream;
 #define QK_SLOT(R)                                                                        \
   case 8 * R: {                                                                           \
-    cudaError_t e = allow_smem(slot_topk_kernel<R, kMulti>, smem);                        \
+    cudaError_t e = allow_smem(slot_topk_kernel<R, kMulti, T>, smem);                     \
     if (e != cudaSuccess) return (int)e;                                                  \
-    slot_topk_kernel<R, kMulti><<<Gn / gb, kThreads, smem, st>>>(                         \
-        (const int*)gp, (const int*)gsize, (const float*)qg, (const float*)codes,         \
+    slot_topk_kernel<R, kMulti, T><<<Gn / gb, kThreads, smem, st>>>(                      \
+        (const int*)gp, (const int*)gsize, (const T*)qg, (const T*)codes,                 \
         (const int*)ids, (float*)out_s, (int*)out_i, D, Dp, C, kk, cap, is_l2, gb);       \
     break;                                                                                \
   }
@@ -405,37 +414,37 @@ int launch_slot_topk(const void* gp, const void* gsize, const void* qg, const vo
 // ------------------------- K8, K9, sized_topk and multi_topk on the tensor cores
 
 // Which body serves multi_topk, sized_topk and K9 at a shape (kk: the rows'
-// list length), and K8 (kk = 0: no list); qk_multi_topk_body,
-// qk_sized_topk_body, qk_packed_topk_body and qk_raw_scores_body name them: 1
-// the tensor-core body (pair_topk_mma.cuh, modes kMulti, kSized, kPacked,
-// kRaw), where rows are 16-byte aligned for the asynchronous copies
-// (D % 4 == 0) and its ring, query tile and lists fit; else 0, the CUDA-core
-// body (slot_topk_kernel, packed_topk_kernel, raw_scores_kernel).
-inline int pair_body(int qt, int D, int kk) { return pair_topk_mma_serves(qt, D, kk) ? 1 : 0; }
+// list length), and K8 (kk = 0: no list), on f32 or bf16 operands;
+// qk_multi_topk_body, qk_sized_topk_body, qk_packed_topk_body and
+// qk_raw_scores_body name them: 1 the tensor-core body (pair_topk_mma.cuh,
+// modes kMulti, kSized, kPacked, kRaw), where rows are 16-byte aligned for
+// the asynchronous copies (D % 4 == 0 in f32, D % 8 == 0 in bf16) and its
+// ring, query tile and lists fit; else 0, the CUDA-core body
+// (slot_topk_kernel, packed_topk_kernel, raw_scores_kernel).
+inline int pair_body(int qt, int D, int kk, bool bf16) {
+  return pair_topk_mma_serves(qt, D, kk, bf16) ? 1 : 0;
+}
 
-}  // namespace
-
-extern "C" {
-
-// K8: replaces quake_tpu/ops/pallas_grouped.py::_scores_kernel. P:
-// partitions of codes, for the tensor map over [P C, D].
-int qk_raw_scores(const void* gp, const void* qg, const void* codes, const void* ids, void* out,
-                  int Gn, int qt, int D, int P, int C, int is_l2, void* stream) {
+template <typename T>
+int raw_scores(const void* gp, const void* qg, const void* codes, const void* ids, void* out,
+               int Gn, int qt, int D, int P, int C, int is_l2, void* stream) {
+  constexpr bool kBf16 = sizeof(T) == 2;
   if (Gn <= 0) return (int)cudaGetLastError();
-  if (pair_body(qt, D, 0) == 1)
-    return launch_pair_topk_mma<PairMode::kRaw>(gp, nullptr, qg, codes, nullptr, ids, out,
-                                                nullptr, Gn, qt, D, P, C, 0, is_l2, stream);
+  if (pair_body(qt, D, 0, kBf16) == 1)
+    return launch_pair_topk_mma<PairMode::kRaw, kBf16>(gp, nullptr, qg, codes, nullptr, ids, out,
+                                                       nullptr, Gn, qt, D, P, C, 0, is_l2,
+                                                       stream);
   const int Dp = padded_dim(D);
   const size_t smem = (size_t)(qt * Dp + kFold * (Dp + 1) + kFold) * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
-#define QK_RAW(R)                                                                         \
-  case 8 * R: {                                                                           \
-    cudaError_t e = allow_smem(raw_scores_kernel<R>, smem);                               \
-    if (e != cudaSuccess) return (int)e;                                                  \
-    raw_scores_kernel<R><<<Gn, kThreads, smem, st>>>(                                     \
-        (const int*)gp, (const float*)qg, (const float*)codes, (const int*)ids,           \
-        (float*)out, D, Dp, C, is_l2);                                                    \
-    break;                                                                                \
+#define QK_RAW(R)                                                                          \
+  case 8 * R: {                                                                            \
+    cudaError_t e = allow_smem(raw_scores_kernel<R, T>, smem);                             \
+    if (e != cudaSuccess) return (int)e;                                                   \
+    raw_scores_kernel<R, T><<<Gn, kThreads, smem, st>>>(                                   \
+        (const int*)gp, (const T*)qg, (const T*)codes, (const int*)ids, (float*)out, D, Dp, \
+        C, is_l2);                                                                         \
+    break;                                                                                 \
   }
   switch (qt) {
     QK_RAW(1)
@@ -449,28 +458,29 @@ int qk_raw_scores(const void* gp, const void* qg, const void* codes, const void*
   return (int)cudaGetLastError();
 }
 
-// K9: replaces quake_tpu/ops/pallas_grouped.py::_packed_kernel. P as for K8.
-int qk_packed_topk(const void* gp, const void* qg, const void* codes, const void* ids, void* out,
-                   int Gn, int qt, int D, int P, int C, int kk, int is_l2, int slot_bits,
-                   void* stream) {
+template <typename T>
+int packed_topk(const void* gp, const void* qg, const void* codes, const void* ids, void* out,
+                int Gn, int qt, int D, int P, int C, int kk, int is_l2, int slot_bits,
+                void* stream) {
+  constexpr bool kBf16 = sizeof(T) == 2;
   if (Gn <= 0) return (int)cudaGetLastError();
-  if (pair_body(qt, D, kk) == 1)
-    return launch_pair_topk_mma<PairMode::kPacked>(gp, nullptr, qg, codes, nullptr, ids,
-                                                   nullptr, out, Gn, qt, D, P, C, kk, is_l2,
-                                                   stream, slot_bits);
+  if (pair_body(qt, D, kk, kBf16) == 1)
+    return launch_pair_topk_mma<PairMode::kPacked, kBf16>(gp, nullptr, qg, codes, nullptr, ids,
+                                                          nullptr, out, Gn, qt, D, P, C, kk,
+                                                          is_l2, stream, slot_bits);
   const int Dp = padded_dim(D);
   const int cap = exact_cap(kk);
   const size_t smem =
       (size_t)(qt * Dp + kFold * (Dp + 1) + kFold + qt * cap) * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
-#define QK_PACKED(R)                                                                      \
-  case 8 * R: {                                                                           \
-    cudaError_t e = allow_smem(packed_topk_kernel<R>, smem);                              \
-    if (e != cudaSuccess) return (int)e;                                                  \
-    packed_topk_kernel<R><<<Gn, kThreads, smem, st>>>(                                    \
-        (const int*)gp, (const float*)qg, (const float*)codes, (const int*)ids, (int*)out, \
-        D, Dp, C, kk, cap, is_l2, slot_bits);                                             \
-    break;                                                                                \
+#define QK_PACKED(R)                                                                         \
+  case 8 * R: {                                                                              \
+    cudaError_t e = allow_smem(packed_topk_kernel<R, T>, smem);                              \
+    if (e != cudaSuccess) return (int)e;                                                     \
+    packed_topk_kernel<R, T><<<Gn, kThreads, smem, st>>>(                                    \
+        (const int*)gp, (const T*)qg, (const T*)codes, (const int*)ids, (int*)out, D, Dp, C, \
+        kk, cap, is_l2, slot_bits);                                                          \
+    break;                                                                                   \
   }
   switch (qt) {
     QK_PACKED(1)
@@ -484,47 +494,111 @@ int qk_packed_topk(const void* gp, const void* qg, const void* codes, const void
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int sized_topk(const void* gp, const void* gsize, const void* qg, const void* codes, void* out_s,
+               void* out_i, int Gn, int qt, int D, int P, int C, int kk, int is_l2,
+               void* stream) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  if (Gn <= 0) return (int)cudaGetLastError();
+  if (pair_body(qt, D, kk, kBf16) == 1)
+    return launch_pair_topk_mma<PairMode::kSized, kBf16>(gp, gsize, qg, codes, nullptr, nullptr,
+                                                         out_s, out_i, Gn, qt, D, P, C, kk,
+                                                         is_l2, stream);
+  return launch_slot_topk<false, T>(gp, gsize, qg, codes, nullptr, out_s, out_i, Gn, qt, D, C,
+                                    kk, is_l2, 1, stream);
+}
+
+template <typename T>
+int multi_topk(const void* gp, const void* qg, const void* codes, const void* ids, void* out_s,
+               void* out_i, int Gn, int qt, int D, int P, int C, int kk, int is_l2, int gb,
+               void* stream) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  if (gb <= 0 || Gn % gb) return (int)cudaErrorInvalidValue;
+  if (Gn <= 0) return (int)cudaGetLastError();
+  if (pair_body(qt, D, kk, kBf16) == 1)
+    return launch_pair_topk_mma<PairMode::kMulti, kBf16>(gp, nullptr, qg, codes, nullptr, ids,
+                                                         out_s, out_i, Gn, qt, D, P, C, kk,
+                                                         is_l2, stream);
+  return launch_slot_topk<true, T>(gp, nullptr, qg, codes, ids, out_s, out_i, Gn, qt, D, C, kk,
+                                   is_l2, gb, stream);
+}
+
+}  // namespace
+
+// The launchers: qk_raw_scores, qk_packed_topk, qk_sized_topk and
+// qk_multi_topk on f32 qg and codes, the same names with _bf16 on bf16 (the
+// same arguments). This file defines the f32 ones; grouped_variants_bf16.cu
+// includes it with QK_BF16_UNIT defined, which makes QK_T bf16 and names the
+// entries with _bf16, so that the two instantiations compile in parallel.
+// The *_body queries take the element size (4 f32, 2 bf16).
+#ifdef QK_BF16_UNIT
+#define QK_T __nv_bfloat16
+#define QK_ENTRY(name) name##_bf16
+#else
+#define QK_T float
+#define QK_ENTRY(name) name
+#endif
+
+extern "C" {
+
+// K8: replaces quake_tpu/ops/pallas_grouped.py::_scores_kernel. P:
+// partitions of codes, for the tensor map over [P C, D].
+int QK_ENTRY(qk_raw_scores)(const void* gp, const void* qg, const void* codes, const void* ids,
+                            void* out, int Gn, int qt, int D, int P, int C, int is_l2,
+                            void* stream) {
+  return raw_scores<QK_T>(gp, qg, codes, ids, out, Gn, qt, D, P, C, is_l2, stream);
+}
+
+// K9: replaces quake_tpu/ops/pallas_grouped.py::_packed_kernel. P as for K8.
+int QK_ENTRY(qk_packed_topk)(const void* gp, const void* qg, const void* codes, const void* ids,
+                             void* out, int Gn, int qt, int D, int P, int C, int kk, int is_l2,
+                             int slot_bits, void* stream) {
+  return packed_topk<QK_T>(gp, qg, codes, ids, out, Gn, qt, D, P, C, kk, is_l2, slot_bits,
+                           stream);
+}
+
 // Replaces quake_tpu/ops/pallas_grouped.py::_sized_kernel (ids unused). P
 // as for K8.
-int qk_sized_topk(const void* gp, const void* gsize, const void* qg, const void* codes,
-                  void* out_s, void* out_i, int Gn, int qt, int D, int P, int C, int kk,
-                  int is_l2, void* stream) {
-  if (Gn <= 0) return (int)cudaGetLastError();
-  if (pair_body(qt, D, kk) == 1)
-    return launch_pair_topk_mma<PairMode::kSized>(gp, gsize, qg, codes, nullptr, nullptr, out_s,
-                                                  out_i, Gn, qt, D, P, C, kk, is_l2, stream);
-  return launch_slot_topk<false>(gp, gsize, qg, codes, nullptr, out_s, out_i, Gn, qt, D, C, kk,
-                                 is_l2, 1, stream);
+int QK_ENTRY(qk_sized_topk)(const void* gp, const void* gsize, const void* qg,
+                            const void* codes, void* out_s, void* out_i, int Gn, int qt, int D,
+                            int P, int C, int kk, int is_l2, void* stream) {
+  return sized_topk<QK_T>(gp, gsize, qg, codes, out_s, out_i, Gn, qt, D, P, C, kk, is_l2,
+                          stream);
 }
 
 // Replaces quake_tpu/ops/pallas_grouped.py::_multi_kernel (sizes unused;
 // Gn % gb == 0; the tensor-core body does not depend on gb).
-int qk_multi_topk(const void* gp, const void* qg, const void* codes, const void* ids,
-                  void* out_s, void* out_i, int Gn, int qt, int D, int P, int C, int kk,
-                  int is_l2, int gb, void* stream) {
-  if (gb <= 0 || Gn % gb) return (int)cudaErrorInvalidValue;
-  if (Gn <= 0) return (int)cudaGetLastError();
-  if (pair_body(qt, D, kk) == 1)
-    return launch_pair_topk_mma<PairMode::kMulti>(gp, nullptr, qg, codes, nullptr, ids, out_s,
-                                                  out_i, Gn, qt, D, P, C, kk, is_l2, stream);
-  return launch_slot_topk<true>(gp, nullptr, qg, codes, ids, out_s, out_i, Gn, qt, D, C, kk,
-                                is_l2, gb, stream);
+int QK_ENTRY(qk_multi_topk)(const void* gp, const void* qg, const void* codes, const void* ids,
+                            void* out_s, void* out_i, int Gn, int qt, int D, int P, int C,
+                            int kk, int is_l2, int gb, void* stream) {
+  return multi_topk<QK_T>(gp, qg, codes, ids, out_s, out_i, Gn, qt, D, P, C, kk, is_l2, gb,
+                          stream);
 }
 
+#ifndef QK_BF16_UNIT
 // The body qk_multi_topk runs at this shape: 1 the tensor-core body, 0 the
 // CUDA-core body (gb groups a block).
-int qk_multi_topk_body(int qt, int D, int kk) { return pair_body(qt, D, kk); }
+int qk_multi_topk_body(int qt, int D, int kk, int elem_bytes) {
+  return pair_body(qt, D, kk, elem_bytes == 2);
+}
 
 // The body qk_packed_topk runs at this shape: 1 the tensor-core body, 0 the
 // CUDA-core body (one block a group).
-int qk_packed_topk_body(int qt, int D, int kk) { return pair_body(qt, D, kk); }
+int qk_packed_topk_body(int qt, int D, int kk, int elem_bytes) {
+  return pair_body(qt, D, kk, elem_bytes == 2);
+}
 
 // The body qk_sized_topk runs at this shape: 1 the tensor-core body, 0 the
 // CUDA-core body (one block a group).
-int qk_sized_topk_body(int qt, int D, int kk) { return pair_body(qt, D, kk); }
+int qk_sized_topk_body(int qt, int D, int kk, int elem_bytes) {
+  return pair_body(qt, D, kk, elem_bytes == 2);
+}
 
 // The body qk_raw_scores runs at this shape: 1 the tensor-core body, 0 the
 // CUDA-core body (one block a group).
-int qk_raw_scores_body(int qt, int D) { return pair_body(qt, D, 0); }
+int qk_raw_scores_body(int qt, int D, int elem_bytes) {
+  return pair_body(qt, D, 0, elem_bytes == 2);
+}
+#endif
 
 }  // extern "C"

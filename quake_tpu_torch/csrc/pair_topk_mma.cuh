@@ -57,6 +57,20 @@
 // is the row's output. Indices of valid lanes are
 // distinct (slots are; so are the ids of a partition, as the store keeps
 // them; so are packed values, by their lane bits), so the order is total.
+//
+// bf16 codes (kBf16; the JAX package's precision="bf16", the queries rounded
+// to bf16 as its wrappers round them): the same body on bf16 tiles, read as
+// 32-bit words (two columns a word) and multiplied by mma_tile_bf16, one
+// m16n8k16 bf16 product a depth-16 step where the f32 body takes three TF32
+// products a depth-8 step; a product of two bf16 values is exact in f32, so
+// only the order of the sums differs from the plain version's. A box is 128
+// bytes of a row in both (64 bf16 columns), so the ring, the tensor map's
+// swizzle and the fragment layout are the f32 body's; the tiles are sized in
+// words, so a stage holds twice the depth. |q|^2 comes from the rounded query
+// tile and |x|^2 from the ring's bf16 words, each converted exactly and
+// summed in the same fixed order as in f32. Its bound: 2 flops a (row, lane,
+// column) over 989 TFLOP/s, or 2 bytes an element. It serves D % 8 == 0 (the
+// copies' 16-byte rows).
 
 #pragma once
 
@@ -92,45 +106,46 @@ __device__ __forceinline__ void raw_store(float* orow, int ln, int C, float4 v) 
 
 // The sum of squares of this thread's half of the columns of one 128-row
 // segment tile of `boxes` boxes (row threadIdx.x % 128; half 0 takes the
-// even 16-byte chunks, half 1 the odd ones, each in column order), added to
-// a. Every row is summed in the same order, so copies of one vector get
-// the same sum.
+// even 16-byte chunks, half 1 the odd ones, each in column order; f32 or
+// bf16 values), added to a. Every row is summed in the same order, so copies
+// of one vector get the same sum.
+template <bool kBf16>
 __device__ __forceinline__ float segment_row_sumsq(const float* seg, int boxes, float a) {
   const int r = threadIdx.x & (kFold - 1), h = threadIdx.x / kFold;
-  for (int q4 = h; q4 < boxes * (kBox / 4); q4 += 2) {
-    const float4 v = *reinterpret_cast<const float4*>(seg + (q4 >> 3) * kSegBox + r * kBox +
-                                                      (((q4 & 7) ^ (r & 7)) << 2));
-    a = fmaf(v.x, v.x, a);
-    a = fmaf(v.y, v.y, a);
-    a = fmaf(v.z, v.z, a);
-    a = fmaf(v.w, v.w, a);
-  }
+  for (int q4 = h; q4 < boxes * (kBox / 4); q4 += 2)
+    a = sumsq16<kBf16>(*reinterpret_cast<const float4*>(seg + (q4 >> 3) * kSegBox + r * kBox +
+                                                        (((q4 & 7) ^ (r & 7)) << 2)),
+                       a);
   return a;
 }
 
-// Shared memory of the body, in bytes: room to reach a 1024-byte boundary,
-// ring, query tile, the rows' lists (3 kk (score, index) pairs a row, see
-// merge_rows), the segment's ids, the two halves of its rows' |x|^2, |q|^2
-// per row, the two stage barriers (the same in every mode).
-inline size_t pair_topk_mma_smem(int qt, int D, int kk, int NBS) {
+// Shared memory of the body with rows of W 32-bit words (D f32 or 2 W bf16
+// values), in bytes: room to reach a 1024-byte boundary, ring, query tile,
+// the rows' lists (3 kk (score, index) pairs a row, see merge_rows), the
+// segment's ids, the two halves of its rows' |x|^2, |q|^2 per row, the two
+// stage barriers (the same in every mode).
+inline size_t pair_topk_mma_smem(int qt, int W, int kk, int NBS) {
   return 1024 + 16 +
-         (size_t)(2 * ring_stage_floats(qt, NBS) + tile_boxes(D) * (qt < 16 ? 16 : qt) * kBox +
+         (size_t)(2 * ring_stage_floats(qt, NBS) + tile_boxes(W) * (qt < 16 ? 16 : qt) * kBox +
                   qt * 6 * kk + kFold + 2 * kFold + qt) *
              sizeof(float);
 }
 
-// Boxes a ring stage of the body holds; 0: the body does not fit.
-inline int pair_topk_mma_stage_boxes(int qt, int D, int kk) {
-  return ring_stage_boxes(D, [&](int NBS) { return pair_topk_mma_smem(qt, D, kk, NBS); });
+// Boxes a ring stage of the body holds (rows of W words); 0: the body does
+// not fit.
+inline int pair_topk_mma_stage_boxes(int qt, int W, int kk) {
+  return ring_stage_boxes(W, [&](int NBS) { return pair_topk_mma_smem(qt, W, kk, NBS); });
 }
 
 // Whether the body serves a shape: rows 16-byte aligned for the asynchronous
-// copies (D % 4 == 0), and its ring, query tile and lists fit.
-inline bool pair_topk_mma_serves(int qt, int D, int kk) {
-  return D % 4 == 0 && pair_topk_mma_stage_boxes(qt, D, kk) > 0;
+// copies (D % 4 == 0 in f32, D % 8 == 0 in bf16), and its ring, query tile
+// and lists fit.
+inline bool pair_topk_mma_serves(int qt, int D, int kk, bool bf16) {
+  const int W = row_words(D, bf16);
+  return W > 0 && pair_topk_mma_stage_boxes(qt, W, kk) > 0;
 }
 
-template <int QT, PairMode M>
+template <int QT, PairMode M, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
 pair_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __restrict__ gp,
                      const int* __restrict__ gsize, const float* __restrict__ qg,
@@ -159,7 +174,9 @@ pair_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __rest
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g4 = lane >> 2, t4 = lane & 3;
   const int row0 = (warp / NW) * (16 * MT), col0 = (warp % NW) * (8 * NT);
-  const int ksteps = (D + 7) >> 3;
+  const int W = kBf16 ? D >> 1 : D;     // 32-bit words of a row (qg: the tiles' words)
+  const int ksteps = depth_steps(D, kBf16);
+  const int box_cols = kBf16 ? 2 * kBox : kBox;  // elements of a box row
   const int ND = (NB + NBS - 1) / NBS;  // depth chunks a segment: a stage holds NBS boxes
   const bool l2 = is_l2 != 0;
   const bool sums = l2 && !kNorms;      // |q|^2 and |x|^2 summed here
@@ -208,7 +225,7 @@ pair_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __rest
   auto prefetch = [&](int stage) {
     if (warp != 0 || pg >= end) return;
     segment_load_async(ring + stage * stage_floats, &cmap, gp[pg] * C + ps * kFold, pd * NBS,
-                       min(NBS, NB - pd * NBS), bars + stage);
+                       min(NBS, NB - pd * NBS), bars + stage, box_cols);
     if (++pd < ND) return;
     pd = 0;
     if (++ps == pnseg) next_group();
@@ -227,18 +244,13 @@ pair_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __rest
     const int* gid = kSlots ? nullptr : ids + (size_t)gp[g] * C;
     const float* nrm = kNorms ? norms + (size_t)gp[g] * C : nullptr;
     // The last product on the previous group's tile ended before a barrier.
-    query_tile_load(qs, qg + (size_t)g * QT * D, QT, QR, D, NB);
+    query_tile_load(qs, qg + (size_t)g * QT * W, QT, QR, W, NB);
     if (sums && threadIdx.x < 4 * QT) {  // |q|^2: four threads a row, each every fourth 16 bytes
       const float4* qrow =
-          reinterpret_cast<const float4*>(qg + ((size_t)g * QT + threadIdx.x / 4) * D);
+          reinterpret_cast<const float4*>(qg + ((size_t)g * QT + threadIdx.x / 4) * W);
       float a = 0.0f;
-      for (int d4 = threadIdx.x & 3; d4 < (D >> 2); d4 += 4) {
-        const float4 x = __ldg(qrow + d4);
-        a = fmaf(x.x, x.x, a);
-        a = fmaf(x.y, x.y, a);
-        a = fmaf(x.z, x.z, a);
-        a = fmaf(x.w, x.w, a);
-      }
+      for (int d4 = threadIdx.x & 3; d4 < (W >> 2); d4 += 4)
+        a = sumsq16<kBf16>(__ldg(qrow + d4), a);
       a += __shfl_xor_sync(0xffffffffu, a, 1);
       a += __shfl_xor_sync(0xffffffffu, a, 2);
       if ((threadIdx.x & 3) == 0) qsq[threadIdx.x / 4] = a;
@@ -289,9 +301,9 @@ pair_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __rest
         mbar_wait(bars + stage, (parity >> stage) & 1u);
         parity ^= 1u << stage;
         __syncthreads();  // and the query tile and |q|^2 are in place
-        mma_tile<MT, NT>(acc, qs + cd * NBS * QR * kBox, stage_mem, row0, col0, QR,
-                         min(4 * NBS, ksteps - 4 * NBS * cd), cd == 0);
-        if (sums) xp = segment_row_sumsq(stage_mem, min(NBS, NB - cd * NBS), xp);
+        mma_tile_any<kBf16, MT, NT>(acc, qs + cd * NBS * QR * kBox, stage_mem, row0, col0, QR,
+                                    min(4 * NBS, ksteps - 4 * NBS * cd), cd == 0);
+        if (sums) xp = segment_row_sumsq<kBf16>(stage_mem, min(NBS, NB - cd * NBS), xp);
         if (cd + 1 < ND) {
           __syncthreads();  // the stage is consumed: its buffer may be refilled
           stage ^= 1;
@@ -470,26 +482,28 @@ pair_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __rest
 
 // Launches the body in mode M (gsize and norms: mode kBySlot; gsize alone:
 // mode kSized; ids: the others; out_s alone: mode kRaw, with kk = 0; out_i
-// alone and slot_bits: mode kPacked). The caller has checked
-// pair_topk_mma_serves.
-template <PairMode M>
+// alone and slot_bits: mode kPacked), on f32 or (kBf16) bf16 qg and codes.
+// The caller has checked pair_topk_mma_serves.
+template <PairMode M, bool kBf16>
 int launch_pair_topk_mma(const void* gp, const void* gsize, const void* qg, const void* codes,
                          const void* norms, const void* ids, void* out_s, void* out_i, int Gn,
                          int qt, int D, int P, int C, int kk, int is_l2, void* stream,
                          int slot_bits = 0) {
-  const int NB = tile_boxes(D);
+  const int W = row_words(D, kBf16);
+  const int NB = tile_boxes(W);
   CUtensorMap cmap;
-  const int me = slab_tensor_map(&cmap, codes, (unsigned long long)P * C, D);
+  const int me = slab_tensor_map(&cmap, codes, (unsigned long long)P * C, D, kFold,
+                                 kBf16 ? 2 : 4);
   if (me != 0) return me;
-  const int NBS = pair_topk_mma_stage_boxes(qt, D, kk);
-  const size_t smem = pair_topk_mma_smem(qt, D, kk, NBS);
+  const int NBS = pair_topk_mma_stage_boxes(qt, W, kk);
+  const size_t smem = pair_topk_mma_smem(qt, W, kk, NBS);
   const int grid = Gn < sm_count() ? Gn : sm_count();
   cudaStream_t st = (cudaStream_t)stream;
 #define QK_PAIR_MMA(QT)                                                                    \
   case QT: {                                                                               \
-    cudaError_t e = allow_smem(pair_topk_mma_kernel<QT, M>, smem);                         \
+    cudaError_t e = allow_smem(pair_topk_mma_kernel<QT, M, kBf16>, smem);                  \
     if (e != cudaSuccess) return (int)e;                                                   \
-    pair_topk_mma_kernel<QT, M><<<grid, kThreads, smem, st>>>(                             \
+    pair_topk_mma_kernel<QT, M, kBf16><<<grid, kThreads, smem, st>>>(                      \
         cmap, (const int*)gp, (const int*)gsize, (const float*)qg, (const float*)norms,    \
         (const int*)ids, (float*)out_s, (int*)out_i, Gn, D, NB, NBS,                       \
         ring_stage_floats(qt, NBS), C, kk, is_l2, slot_bits);                              \

@@ -105,9 +105,6 @@ inline size_t chunk_dots_smem(int rows, int D) {
   return (size_t)(rows * dcp + kFold * (dcp + 1)) * sizeof(float);
 }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
 // Columns [d0, d0 + dcp) of rows [0, rows) of a [*, D] f32 or bf16 matrix
 // into shared memory as f32 at row stride `stride`, zero-filling columns >= D
 // and rows >= nrows.
@@ -383,13 +380,6 @@ inline size_t grouped_scan_mma_smem(int qt, int W, int NBS) {
              sizeof(float);
 }
 
-// 32-bit words of a row of D columns, or 0 where a row is not 16-byte aligned
-// for the copies (f32: D % 4 != 0; bf16: D % 8 != 0).
-inline int row_words(int D, bool bf16) {
-  if (D % (bf16 ? 8 : 4) != 0) return 0;
-  return bf16 ? D / 2 : D;
-}
-
 // Boxes of a ring stage of the tensor-core body: all of D's, or the most of
 // 4, 2 and 1 that fits beside the whole-D query tile. 0: the body does not
 // serve the shape (rows not 16-byte aligned, or no stage fits).
@@ -543,7 +533,17 @@ merge_positions_kernel(const float* __restrict__ mp, int* __restrict__ out, int 
 // loaded once where D <= 128), two passes as above.
 //
 // Both bodies run a warp's k rounds over its rows side by side, each row's
-// maximum in one warp reduction instruction (select_rounds). The tensor-core
+// maximum in one warp reduction instruction (select_rounds).
+//
+// A bf16 parent (the JAX package's parent_params precision="bf16"; the
+// queries rounded to bf16, as pallas_flat.py::flat_topk_pallas rounds them,
+// the bias in f32): the same two bodies on bf16 operands. The tensor-core
+// body (kBf16) brings the buffer's and the queries' boxes by tensor maps of 2
+// bytes an element (a box: 64 bf16 columns, 128 bytes of a row as in f32) and
+// multiplies by mma_tile_bf16, one m16n8k16 bf16 product a depth-16 step; its
+// bound is 2 B N D flops over 989 TFLOP/s, or the bytes at 2 an element. It
+// serves D % 8 == 0 (the copies' 16-byte rows). The CUDA-core body converts
+// bf16 to f32 as it loads (exact) and serves every other D. The tensor-core
 // body stages the rounds' winners in the score tile and writes them out
 // together: a store to device memory from within each round held the rounds
 // up.
@@ -557,9 +557,9 @@ __device__ __forceinline__ float flat_score(float dot, float bias) {
   return L2 ? 2.0f * dot + bias : dot + bias;
 }
 
-template <bool L2>
+template <bool L2, typename T>
 __global__ void __launch_bounds__(kThreads)
-flat_topk_kernel(const float* __restrict__ q, const float* __restrict__ codes,
+flat_topk_kernel(const T* __restrict__ q, const T* __restrict__ codes,
                  const float* __restrict__ bias, int* __restrict__ out, int B, int N,
                  int D, int k, int slot_mult, float levels) {
   constexpr int R = kFlatRows;
@@ -570,7 +570,7 @@ flat_topk_kernel(const float* __restrict__ q, const float* __restrict__ codes,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b0 = blockIdx.x * kFlatQB;
   const int nseg = N / kFold;
-  const float* qb = q + (size_t)b0 * D;
+  const T* qb = q + (size_t)b0 * D;
   if (D <= dcp) load_depth_chunk(qs, qb, kFlatQB, B - b0, D, 0, dcp, dcp);
   // acc = the products of segment s.
   auto segment_dots = [&](float (&acc)[R][4], int s) {
@@ -647,17 +647,18 @@ inline size_t flat_topk_mma_smem(int N, int NBS, bool resident) {
              sizeof(float);
 }
 
-// The tensor-core body's configuration: NBS boxes a ring stage (D's boxes, or
-// the most of 4, 2 and 1 that fits) and whether the scores stay in shared
-// memory; preferred: scores kept, then the larger stage.
+// The tensor-core body's configuration at rows of W 32-bit words (D f32 or
+// 2 W bf16 values): NBS boxes a ring stage (the row's boxes, or the most of
+// 4, 2 and 1 that fits) and whether the scores stay in shared memory;
+// preferred: scores kept, then the larger stage.
 struct FlatMmaShape {
   int NBS;
   bool resident;
 };
-inline FlatMmaShape flat_topk_mma_shape(int N, int D) {
+inline FlatMmaShape flat_topk_mma_shape(int N, int W) {
   for (int keep = 1; keep >= 0; --keep)
     for (int nbs = 4; nbs >= 1; nbs >>= 1) {
-      const int NBS = nbs < tile_boxes(D) ? nbs : tile_boxes(D);
+      const int NBS = nbs < tile_boxes(W) ? nbs : tile_boxes(W);
       if (flat_topk_mma_smem(N, NBS, keep != 0) <= kSmemLimit) return {NBS, keep != 0};
     }
   return {0, false};
@@ -665,14 +666,15 @@ inline FlatMmaShape flat_topk_mma_shape(int N, int D) {
 
 // Which body serves a shape (qk_flat_topk_body names them): 2 the tensor
 // cores with the scores kept, 1 the tensor cores in two passes, 0 the CUDA
-// cores (D % 4 != 0).
-inline int flat_topk_body(int N, int D) {
-  if (D % 4 != 0) return 0;
-  const FlatMmaShape sh = flat_topk_mma_shape(N, D);
+// cores (rows not 16-byte aligned: D % 4 != 0 in f32, D % 8 != 0 in bf16).
+inline int flat_topk_body(int N, int D, bool bf16) {
+  const int W = row_words(D, bf16);
+  if (W == 0) return 0;
+  const FlatMmaShape sh = flat_topk_mma_shape(N, W);
   return sh.NBS == 0 ? 0 : (sh.resident ? 2 : 1);
 }
 
-template <bool L2>
+template <bool L2, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
 flat_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap,
                      const __grid_constant__ CUtensorMap qmap, const float* __restrict__ bias,
@@ -696,7 +698,8 @@ flat_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap,
   const int g4 = lane >> 2, t4 = lane & 3;
   const int wn = warp % NW;
   const int row0 = (warp / NW) * (16 * MT), col0 = wn * (8 * NT);
-  const int ksteps = (D + 7) >> 3;
+  const int ksteps = depth_steps(D, kBf16);
+  const int box_cols = kBf16 ? 2 * kBox : kBox;  // elements of a box row
   const int ND = (NB + NBS - 1) / NBS;  // depth chunks a segment
   const int nseg = N / kFold;
   const int visits = resident ? nseg : 2 * nseg;  // segment visits a tile
@@ -718,7 +721,7 @@ flat_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap,
                    : "memory");
       fence_async_proxy();
       for (int b = 0; b < boxes; ++b) {
-        const int c = (pd * NBS + b) * kBox;
+        const int c = (pd * NBS + b) * box_cols;
         box_load_async(st + b * kSegBox, &cmap, c, (pv % nseg) * kFold, bars + stage);
         box_load_async(st + NBS * kSegBox + b * QT * kBox, &qmap, c, pt * QT, bars + stage);
       }
@@ -777,8 +780,8 @@ flat_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap,
     for (int j = 0; j < NT; ++j) bv[j] = __ldg(reinterpret_cast<const float2*>(bias + lnb + 8 * j));
     mbar_wait(bars + stage, (parity >> stage) & 1u);  // the stage has landed
     parity ^= 1u << stage;
-    mma_tile<MT, NT>(acc, st + NBS * kSegBox, st, row0, col0, QT,
-                     min(4 * NBS, ksteps - 4 * NBS * cd), cd == 0);
+    mma_tile_any<kBf16, MT, NT>(acc, st + NBS * kSegBox, st, row0, col0, QT,
+                                min(4 * NBS, ksteps - 4 * NBS * cd), cd == 0);
     __syncthreads();  // the stage is consumed: its buffer may be refilled
     stage ^= 1;
     if (++cd < ND) continue;  // the segment's next depth chunk adds to acc
@@ -939,6 +942,51 @@ int grouped_scan(const void* gp, const void* gsize, const void* qg, const void* 
   return (int)cudaGetLastError();
 }
 
+// K3 on operands of type T (f32 or bf16): q and codes in T, bias f32.
+template <typename T>
+int flat_topk(const void* q, const void* codes, const void* bias, void* out, int B, int N, int D,
+              int k, int is_l2, int slot_mult, float levels, void* stream) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  if (B <= 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (flat_topk_body(N, D, kBf16) > 0) {
+    const int W = row_words(D, kBf16);
+    const FlatMmaShape sh = flat_topk_mma_shape(N, W);
+    const size_t smem = flat_topk_mma_smem(N, sh.NBS, sh.resident);
+    const int ntiles = (B + kFlatQT - 1) / kFlatQT;
+    const int grid = ntiles < sm_count() ? ntiles : sm_count();
+    const int eb = kBf16 ? 2 : 4;
+    CUtensorMap cmap, qmap;
+    int me = slab_tensor_map(&cmap, codes, (unsigned long long)N, D, kFold, eb);
+    if (me == 0) me = slab_tensor_map(&qmap, q, (unsigned long long)B, D, kFlatQT, eb);
+    if (me != 0) return me;
+#define QK_FLAT_MMA(L2)                                                                      \
+  {                                                                                          \
+    cudaError_t e = allow_smem(flat_topk_mma_kernel<L2, kBf16>, smem);                       \
+    if (e != cudaSuccess) return (int)e;                                                     \
+    flat_topk_mma_kernel<L2, kBf16><<<grid, kThreads, smem, st>>>(                           \
+        cmap, qmap, (const float*)bias, (int*)out, B, N, D, tile_boxes(W), sh.NBS,           \
+        sh.resident ? 1 : 0, k, slot_mult, levels);                                          \
+  }
+    if (is_l2) QK_FLAT_MMA(true) else QK_FLAT_MMA(false)
+#undef QK_FLAT_MMA
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = chunk_dots_smem(kFlatQB, D);
+  const int grid = (B + kFlatQB - 1) / kFlatQB;
+#define QK_FLAT(L2)                                                                          \
+  {                                                                                          \
+    cudaError_t e = allow_smem(flat_topk_kernel<L2, T>, smem);                               \
+    if (e != cudaSuccess) return (int)e;                                                     \
+    flat_topk_kernel<L2, T><<<grid, kThreads, smem, st>>>(                                   \
+        (const T*)q, (const T*)codes, (const float*)bias, (int*)out, B, N, D, k, slot_mult,  \
+        levels);                                                                             \
+  }
+  if (is_l2) QK_FLAT(true) else QK_FLAT(false)
+#undef QK_FLAT
+  return (int)cudaGetLastError();
+}
+
 #ifdef QK_PRODUCT_ONLY
 // A timing aid of the same build: a kernel that does nothing, launched on a
 // grid of `grid` blocks of kThreads, the floor under any launch of that shape.
@@ -1003,50 +1051,24 @@ int qk_merge_positions(const void* mp, void* out, int B, int pool, int kfin, int
   return (int)cudaGetLastError();
 }
 
-int qk_flat_topk_body(int N, int D) { return flat_topk_body(N, D); }
+// The body qk_flat_topk runs at this shape and element size (4 f32, 2 bf16).
+int qk_flat_topk_body(int N, int D, int elem_bytes) {
+  return flat_topk_body(N, D, elem_bytes == 2);
+}
 
-int qk_flat_topk(const void* q, const void* codes, const void* bias, void* out, int B,
-                 int N, int D, int k, int is_l2, int slot_mult, float levels, void* stream) {
-  if (B <= 0) return (int)cudaGetLastError();
-  cudaStream_t st = (cudaStream_t)stream;
-  if (flat_topk_body(N, D) > 0) {
-    const FlatMmaShape sh = flat_topk_mma_shape(N, D);
-    const size_t smem = flat_topk_mma_smem(N, sh.NBS, sh.resident);
-    const int ntiles = (B + kFlatQT - 1) / kFlatQT;
-    const int grid = ntiles < sm_count() ? ntiles : sm_count();
-    CUtensorMap cmap, qmap;
-    int me = slab_tensor_map(&cmap, codes, (unsigned long long)N, D);
-    if (me == 0) me = slab_tensor_map(&qmap, q, (unsigned long long)B, D, kFlatQT);
-    if (me != 0) return me;
-#define QK_FLAT_MMA(L2)                                                                      \
-  {                                                                                          \
-    cudaError_t e = allow_smem(flat_topk_mma_kernel<L2>, smem);                              \
-    if (e != cudaSuccess) return (int)e;                                                     \
-    flat_topk_mma_kernel<L2><<<grid, kThreads, smem, st>>>(                                  \
-        cmap, qmap, (const float*)bias, (int*)out, B, N, D, tile_boxes(D), sh.NBS,           \
-        sh.resident ? 1 : 0, k, slot_mult, levels);                                          \
-  }
-    if (is_l2) QK_FLAT_MMA(true) else QK_FLAT_MMA(false)
-#undef QK_FLAT_MMA
-    return (int)cudaGetLastError();
-  }
-  const size_t smem = chunk_dots_smem(kFlatQB, D);
-  const int grid = (B + kFlatQB - 1) / kFlatQB;
-  cudaError_t e;
-  if (is_l2) {
-    e = allow_smem(flat_topk_kernel<true>, smem);
-    if (e != cudaSuccess) return (int)e;
-    flat_topk_kernel<true><<<grid, kThreads, smem, st>>>(
-        (const float*)q, (const float*)codes, (const float*)bias, (int*)out, B, N, D, k,
-        slot_mult, levels);
-  } else {
-    e = allow_smem(flat_topk_kernel<false>, smem);
-    if (e != cudaSuccess) return (int)e;
-    flat_topk_kernel<false><<<grid, kThreads, smem, st>>>(
-        (const float*)q, (const float*)codes, (const float*)bias, (int*)out, B, N, D, k,
-        slot_mult, levels);
-  }
-  return (int)cudaGetLastError();
+// K3: replaces quake_tpu/ops/pallas_flat.py::_flat_topk_kernel; q and codes
+// f32, bias f32.
+int qk_flat_topk(const void* q, const void* codes, const void* bias, void* out, int B, int N,
+                 int D, int k, int is_l2, int slot_mult, float levels, void* stream) {
+  return flat_topk<float>(q, codes, bias, out, B, N, D, k, is_l2, slot_mult, levels, stream);
+}
+
+// K3 on bf16 q and codes, the rest as qk_flat_topk's.
+int qk_flat_topk_bf16(const void* q, const void* codes, const void* bias, void* out, int B,
+                      int N, int D, int k, int is_l2, int slot_mult, float levels,
+                      void* stream) {
+  return flat_topk<__nv_bfloat16>(q, codes, bias, out, B, N, D, k, is_l2, slot_mult, levels,
+                                  stream);
 }
 
 }  // extern "C"

@@ -36,7 +36,7 @@ from quake_tpu_torch.kmeans import (balance_clusters, batched_two_means, kmeans_
                                      kmeans_np, soar_assign)
 from quake_tpu_torch.maintenance.latency_estimator import ListScanLatencyEstimator
 from quake_tpu_torch.maintenance.policy import MaintenancePolicy, maint_on_host
-from quake_tpu_torch.ops.grouped import BF16_OPERANDS, grouped_scan_xla
+from quake_tpu_torch.ops.grouped import grouped_scan_xla
 from quake_tpu_torch.ops.grouped_scan import QTS, grouped_scan_uses_mma
 from quake_tpu_torch.ops.scan import dedup_topk, scores_to_distances
 from quake_tpu_torch.parallel.mesh import make_mesh, shard_store_state
@@ -82,10 +82,6 @@ def resolve_device(device=None) -> torch.device:
                                "plain PyTorch versions of the kernels")
         return torch.device("cuda")
     return torch.device(device)
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet ({item})")
 
 
 def _recall_without_self(ids32: torch.Tensor, self_ids: np.ndarray, gt: np.ndarray,
@@ -176,8 +172,6 @@ class QuakeIndex:
         if bp.precision not in CODE_DTYPES:
             raise ValueError(f"precision must be one of {list(CODE_DTYPES)}, not "
                              f"{bp.precision!r}")
-        if bp.nlist > 1 and bp.parent_params is not None and bp.parent_params.precision == "bf16":
-            raise _not_ported("a bf16 parent (kernel K3 has no bf16 body)", BF16_OPERANDS)
 
     def build(self, x, ids=None, build_params: Optional[IndexBuildParams] = None) -> BuildTimingInfo:
         """Build the index (quake_index.cpp:29-90)."""
@@ -1309,7 +1303,7 @@ class QuakeIndex:
         from latency_profile.csv, and a fresh maintenance policy. A spilled
         index's slots are split between its maps as the JAX package splits
         them (each id's first occurrence in row-major order primary, the
-        second spill). A bf16 parent raises NotImplementedError. n_workers >
+        second spill). A bf16 parent loads as bf16, as any level. n_workers >
         1 shards the loaded index over that many CUDA devices where there
         are as many (_would_shard; a CPU index counts as one device), as
         the reference re-creates its workers at load."""
@@ -1318,8 +1312,6 @@ class QuakeIndex:
         if meta["version"] != SERIALIZATION_VERSION:
             raise ValueError(f"unsupported serialization version {meta['version']}")
         bf16 = meta.get("precision") == "bf16"
-        if bf16 and self.level > 0:
-            raise _not_ported("a bf16 parent (kernel K3 has no bf16 body)", BF16_OPERANDS)
         self.mesh, self._sharded = None, None
         self.metric = check_metric(meta["metric"])
         self.level = meta["level"]

@@ -13,7 +13,12 @@ launcher picks its body by shape (`flat_topk_body`): the tensor-core body
 (split TF32 product, TMA loads, persistent blocks) where D % 4 == 0, with the
 scores kept in shared memory where they fit and two passes where they do not;
 the CUDA-core body (f32) otherwise. Every D is served: both stream the depth
-in chunks.
+in chunks. A bf16 parent (IndexBuildParams(parent_params=...,
+precision="bf16")) puts bf16 codes here: the queries are rounded to bf16 as
+pallas_flat.py::flat_topk_pallas rounds them (`q.astype(codes2d.dtype)`)
+and K3 runs its bf16 body (one bf16 product a depth-16 step on the tensor
+cores where D % 8 == 0, else the CUDA-core body on values converted to f32
+as they load).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from quake_tpu_torch import _ext
+from quake_tpu_torch.ops.grouped import launch_name, operand_bytes, round_query
 from quake_tpu_torch.ops.grouped_scan import fold_rounds
 
 NEG_INF = float("-inf")
@@ -28,12 +34,13 @@ MAX_N = 16384  # keeps >= 1022 quantization levels in the packed key
 CUDA_CORE_BODY, TWO_PASS_BODY, KEPT_BODY = 0, 1, 2  # flat_topk_body's answers
 
 
-def flat_topk_body(N: int, D: int) -> int:
-    """The body kernel K3's launcher runs at this shape, asked of the built
-    library: KEPT_BODY (tensor cores, the scores of a 64-query tile kept in
-    shared memory: N up to 640), TWO_PASS_BODY (tensor cores, the product
-    taken twice) where D % 4 == 0, CUDA_CORE_BODY otherwise."""
-    return int(_ext.lib().qk_flat_topk_body(N, D))
+def flat_topk_body(N: int, D: int, dtype=torch.float32) -> int:
+    """The body kernel K3's launcher runs at this shape on codes of `dtype`,
+    asked of the built library: KEPT_BODY (tensor cores, the scores of a
+    64-query tile kept in shared memory: N up to 640), TWO_PASS_BODY (tensor
+    cores, the product taken twice) where D % 4 == 0 (f32) or D % 8 == 0
+    (bf16), CUDA_CORE_BODY otherwise."""
+    return int(_ext.lib().qk_flat_topk_body(N, D, operand_bytes(dtype)))
 
 
 def select_v7(scores, valid, k: int, slot_mult: int, levels: int,
@@ -64,9 +71,12 @@ def _packed_params(N: int):
 
 def flat_topk_plain(codes2d, bias, q, k: int, metric: str, fold: int = 128):
     """Plain PyTorch version of kernel K3 (same inputs and outputs as
-    flat_topk)."""
+    flat_topk). q is rounded to the codes' dtype first, as the JAX package
+    rounds it (pallas_flat.py:75); bf16 operands are then upcast and
+    multiplied in f32 (a product of two bf16 values is exact there)."""
     slot_mult, levels = _packed_params(codes2d.shape[0])
-    prod = q.to(torch.float32) @ codes2d.to(torch.float32).T
+    prod = (round_query(q, codes2d.dtype).to(torch.float32)
+            @ codes2d.to(torch.float32).T)
     scores = (2.0 * prod + bias[None, :]) if metric == "l2" else prod + bias[None, :]
     out = select_v7(scores, scores > NEG_INF, k, slot_mult, levels, fold)
     slots = torch.remainder(out, float(slot_mult)).to(torch.int32)
@@ -76,10 +86,12 @@ def flat_topk_plain(codes2d, bias, q, k: int, metric: str, fold: int = 128):
 def flat_topk(codes2d, bias, q, k: int, metric: str, fold: int = 128):
     """Ranked top-k slots of every query against a flat buffer.
 
-    codes2d: [N, D] f32 (N a multiple of `fold`, N <= 16384); bias: [N] f32 —
-    for l2 the cached -||x||^2 with -inf at invalid (padding) slots, for ip
-    the -inf/0 validity bias; q: [B, D] f32. Returns slots [B, k] int32
-    (descending by quantized score; -1 = no candidate)."""
+    codes2d: [N, D] f32 or bf16 (N a multiple of `fold`, N <= 16384); bias:
+    [N] f32 — for l2 the cached -||x||^2 with -inf at invalid (padding)
+    slots, for ip the -inf/0 validity bias; q: [B, D] in the codes' dtype
+    (the caller rounds it, as parent_rank does). Returns slots [B, k] int32
+    (descending by quantized score; -1 = no candidate). Launches on bf16
+    codes count under "flat_topk_bf16"."""
     B, D = q.shape
     N = codes2d.shape[0]
     if fold != 128 or N % fold or N > MAX_N:
@@ -89,23 +101,25 @@ def flat_topk(codes2d, bias, q, k: int, metric: str, fold: int = 128):
         return flat_topk_plain(codes2d, bias, q, k, metric, fold)
     if q.device.type != "cuda":
         raise ValueError(f"flat_topk: unsupported device {q.device}")
-    for name, t, shape in (("codes2d", codes2d, (N, D)), ("bias", bias, (N,)),
-                           ("q", q, (B, D))):
-        if (t.device != q.device or t.dtype != torch.float32
+    dtype = codes2d.dtype
+    for name, t, tdtype, shape in (("codes2d", codes2d, dtype, (N, D)),
+                                   ("bias", bias, torch.float32, (N,)), ("q", q, dtype, (B, D))):
+        if (t.device != q.device or t.dtype != tdtype
                 or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(f"flat_topk: {name} must be a contiguous f32 {shape} "
+            raise ValueError(f"flat_topk: {name} must be a contiguous {tdtype} {shape} "
                              f"tensor on {q.device}")
-    if D % 4 == 0 and (q.data_ptr() % 16 or codes2d.data_ptr() % 16 or bias.data_ptr() % 8):
+    if (flat_topk_body(N, D, dtype) != CUDA_CORE_BODY
+            and (q.data_ptr() % 16 or codes2d.data_ptr() % 16 or bias.data_ptr() % 8)):
         raise ValueError("flat_topk: q and codes2d must start on a 16-byte boundary, bias "
                          "on an 8-byte one")
     slot_mult, levels = _packed_params(N)
     out = torch.empty((B, k), device=q.device, dtype=torch.int32)
-    rc = _ext.lib().qk_flat_topk(
+    name = launch_name("flat_topk", dtype)
+    rc = _ext.launcher(name)(
         q.data_ptr(), codes2d.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        B, N, D, k, int(metric == "l2"), slot_mult, float(levels),
-        _ext.stream_ptr(q.device))
-    _ext.check(rc, "flat_topk")
-    _ext.launched("flat_topk")
+        B, N, D, k, int(metric == "l2"), slot_mult, float(levels), _ext.stream_ptr(q.device))
+    _ext.check(rc, name)
+    _ext.launched(name)
     return out
 
 
@@ -133,6 +147,6 @@ def parent_rank(parent_codes, parent_ids, parent_norms, q, nprobe: int,
     ids_flat = parent_ids.reshape(N)
     bias = parent_bias(parent_ids, parent_norms, metric)
     slots = flat_topk(parent_codes.reshape(N, D).contiguous(), bias,
-                      q.to(torch.float32).contiguous(), nprobe, metric)
+                      round_query(q, parent_codes.dtype).contiguous(), nprobe, metric)
     pids = ids_flat[torch.clamp(slots, min=0).long()].to(torch.int32)
     return torch.where(slots >= 0, pids, torch.full_like(pids, -1))

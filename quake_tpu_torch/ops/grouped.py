@@ -236,15 +236,34 @@ def group_scores(qg, slab, sids, metric: str, snorms=None):
     return torch.where((sids >= 0)[:, None, :], scores, torch.full_like(scores, NEG_INF))
 
 
-BF16_OPERANDS = "ROADMAP Queue 2 part A item 5: bf16 operands"
+OPERAND_DTYPES = (torch.float32, torch.bfloat16)  # the codes' dtypes every scan kernel takes
 
 
-def refuse_bf16(dtype, what: str) -> None:
-    """A scan whose kernel has no bf16 body refuses bf16 codes (dtype: the
-    codes') by name, on every device: its plain version is no stand-in for
-    the kernel."""
-    if dtype == torch.bfloat16:
-        raise NotImplementedError(f"{what} on bf16 codes is not ported yet ({BF16_OPERANDS})")
+def round_query(q, dtype):
+    """The queries as the JAX wrappers of K3-K9, sized_topk and multi_topk
+    hand them to their kernels: q itself rounded to the codes' dtype
+    (`q.astype(codes.dtype)`, quake_tpu/ops/pallas_grouped.py and
+    pallas_flat.py). K1's family (v8-v11, v10b) rounds q * q_coef instead
+    (grouped_scan.global_scale); the epilogues that subtract |q|^2 take the
+    unrounded f32 query."""
+    return q.to(dtype)
+
+
+def operand_bytes(dtype) -> int:
+    """Bytes an element of a kernel's query tile and codes: the *_body
+    queries' elem_bytes, 2 for bf16 and 4 for f32."""
+    if dtype not in OPERAND_DTYPES:
+        raise ValueError(f"scan kernels take float32 or bfloat16 codes, not {dtype}")
+    return 2 if dtype == torch.bfloat16 else 4
+
+
+def launch_name(kernel: str, dtype) -> str:
+    """The launch count a kernel's launch goes to, and its launcher's name
+    without qk_ (_ext.launcher): bf16 launches run their own launcher and
+    count under their own name (`kernel`_bf16), as K1's grouped_scan_bf16
+    does."""
+    operand_bytes(dtype)
+    return f"{kernel}_bf16" if dtype == torch.bfloat16 else kernel
 
 
 def merge_groups(g_scores, g_ids, pair_group, pair_slot, pids, k: int, kk: int,

@@ -22,7 +22,10 @@ its own score range, as v3p does, and exact-rescore the winners.
 The TPU kernels' groups-per-step `gpb` only pads the group count here. K7
 is a CUDA kernel
 (csrc/grouped_rowscale.cu); `chunk_merge` runs its plain PyTorch version on
-CPU tensors and launches it on CUDA tensors.
+CPU tensors and launches it on CUDA tensors. On bf16 codes all three round
+the query tiles to bf16, as the JAX wrappers do, and run the bf16 bodies of
+K4 and K7; their epilogues subtract |q|^2 of the unrounded query and the
+rescore takes it unrounded, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,8 +33,8 @@ from __future__ import annotations
 import torch
 
 from quake_tpu_torch import _ext
-from quake_tpu_torch.ops.grouped import (build_chunk_groups, build_groups,
-                                          refuse_bf16)
+from quake_tpu_torch.ops.grouped import (build_chunk_groups, build_groups, launch_name,
+                                          operand_bytes, round_query)
 from quake_tpu_torch.ops.grouped_family import (MIN_RANGE, check_refs, pair_take, rowscale_scan,
                                                 rowscale_search, topk_cap)
 from quake_tpu_torch.ops.grouped_scan import (FOLD, SMEM_LIMIT, packed_params, pad_groups,
@@ -62,7 +65,8 @@ def chunk_merge_plain(gp, group_size, qg, codes, norms, kk: int, ct: int, slot_m
     """Plain PyTorch version of kernel K7 (same inputs and outputs as
     chunk_merge), `chunk` groups at a time, as pallas_grouped.py::_v5_kernel:
     _v3p_group_body per [qt, ct] chunk, the dequantized candidates of all
-    chunks side by side, then the kk best by (score, larger slot)."""
+    chunks side by side, then the kk best by (score, larger slot). bf16
+    operands are upcast and multiplied in f32."""
     Gn, qt, D = qg.shape
     P, C, _ = codes.shape
     maxch = C // ct
@@ -79,7 +83,8 @@ def chunk_merge_plain(gp, group_size, qg, codes, norms, kk: int, ct: int, slot_m
             continue
         a = alive.numel()
         p = gp[sl][alive].long()
-        prod = torch.bmm(qg[sl][alive], codes[p].transpose(1, 2))  # [a, qt, C]
+        prod = torch.bmm(qg[sl][alive].to(torch.float32),
+                         codes[p].to(torch.float32).transpose(1, 2))  # [a, qt, C]
         scores = 2.0 * prod - norms[p][:, None, :] if metric == "l2" else prod
         scores = scores.reshape(a, qt, maxch, ct)
         csize = torch.clamp(size[alive][:, None] - first[None, :], 0, ct)  # [a, maxch]
@@ -111,14 +116,15 @@ def chunk_merge_plain(gp, group_size, qg, codes, norms, kk: int, ct: int, slot_m
 MMA_BODY, GROUP_BODY = 1, 0  # chunk_merge_body's answers
 
 
-def chunk_merge_body(qt: int, D: int, kk: int) -> int:
-    """The body kernel K7's launcher runs at this shape
+def chunk_merge_body(qt: int, D: int, kk: int, dtype=torch.float32) -> int:
+    """The body kernel K7's launcher runs at this shape on codes of `dtype`
     (csrc/grouped_rowscale.cu::chunk_merge_body, asked of the built library):
     MMA_BODY, the tensor-core body, where rows are 16-byte aligned for the
-    asynchronous copies (D % 4 == 0) and its ring, query tile, candidate
-    buffers and merge lists fit a block's shared memory; else GROUP_BODY,
-    the CUDA-core body of one block a group."""
-    return int(_ext.lib().qk_chunk_merge_body(qt, D, kk))
+    asynchronous copies (D % 4 == 0 in f32, D % 8 == 0 in bf16) and its ring,
+    query tile, candidate buffers and merge lists fit a block's shared memory
+    (the bf16 query tile takes half the room); else GROUP_BODY, the
+    CUDA-core body of one block a group."""
+    return int(_ext.lib().qk_chunk_merge_body(qt, D, kk, operand_bytes(dtype)))
 
 
 def chunk_merge(gp, group_size, qg, codes, norms, kk: int, ct: int, slot_mult: int, levels: int,
@@ -126,8 +132,9 @@ def chunk_merge(gp, group_size, qg, codes, norms, kk: int, ct: int, slot_mult: i
     """Kernel K7 (replaces pallas_grouped.py::_v5_kernel).
 
     gp [Gn] int32 partition per group (-1: ghost); group_size [Gn] int32
-    (<= 0: ghost); qg [Gn, qt, D] f32 unscaled queries; codes [P, C, D] f32,
-    C % ct == 0; norms [P, C] f32. Per group and chunk c < ceil(size / ct):
+    (<= 0: ghost); qg [Gn, qt, D] unscaled queries and codes [P, C, D],
+    C % ct == 0, both f32 or both bf16 (launches of the bf16 body count under
+    "chunk_merge_bf16"); norms [P, C] f32. Per group and chunk c < ceil(size / ct):
     K4's per-row-range packed top-kk over the chunk's valid lanes, with
     slot_mult = next_pow2(ct), dequantized to rowmin + key * (rng / levels)
     at slot c * ct + lane; then per row the kk best over all chunks, score
@@ -153,33 +160,35 @@ def chunk_merge(gp, group_size, qg, codes, norms, kk: int, ct: int, slot_mult: i
         raise ValueError(f"chunk_merge: unsupported device {qg.device}")
     if qt not in (8, 16, 32, 64):
         raise ValueError(f"chunk_merge: qt must be 8, 16, 32 or 64 (qt={qt})")
+    dtype = codes.dtype
     Dp = -(-D // 4) * 4
-    body = chunk_merge_body(qt, D, kk)
+    body = chunk_merge_body(qt, D, kk, dtype)
     if (body == GROUP_BODY
             and (qt * Dp + FOLD * (Dp + 1) + qt * topk_cap(kk) + qt * 6 * kk) * 4 > SMEM_LIMIT):
         raise ValueError(f"chunk_merge: D={D}, qt={qt}, kk={kk} need more shared memory than "
                          "a block has (kernel K7 keeps round_up(kk, 32) + 128 candidates and "
                          "three lists of kk (score, slot) pairs per row)")
-    for name, t, dtype, shape in (
+    for name, t, want, shape in (
             ("gp", gp, torch.int32, (Gn,)),
             ("group_size", group_size, torch.int32, (Gn,)),
-            ("qg", qg, torch.float32, (Gn, qt, D)),
-            ("codes", codes, torch.float32, (P, C, D)),
+            ("qg", qg, dtype, (Gn, qt, D)),
+            ("codes", codes, dtype, (P, C, D)),
             ("norms", norms, torch.float32, (P, C))):
-        if (t.device != qg.device or t.dtype != dtype or tuple(t.shape) != shape
+        if (t.device != qg.device or t.dtype != want or tuple(t.shape) != shape
                 or not t.is_contiguous()):
             raise ValueError(f"chunk_merge: {name} must be a contiguous "
-                             f"{dtype} {shape} tensor on {qg.device}")
+                             f"{want} {shape} tensor on {qg.device}")
     if body == MMA_BODY and (qg.data_ptr() % 16 or codes.data_ptr() % 16):
         raise ValueError("chunk_merge: qg and codes must start on a 16-byte boundary")
     out_s = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.float32)
     out_i = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.int32)
-    rc = _ext.lib().qk_chunk_merge(
+    name = launch_name("chunk_merge", dtype)
+    rc = _ext.launcher(name)(
         gp.data_ptr(), group_size.data_ptr(), qg.data_ptr(), codes.data_ptr(),
         norms.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), Gn, qt, D, P, C, ct, kk,
         int(metric == "l2"), float(slot_mult), float(levels), _ext.stream_ptr(qg.device))
-    _ext.check(rc, "chunk_merge")
-    _ext.launched("chunk_merge", out_s)
+    _ext.check(rc, name)
+    _ext.launched(name, out_s)
     return out_s, out_i
 
 
@@ -208,19 +217,19 @@ def grouped_scan_v5(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: 
     grouped_scan_v3pn."""
     B = q.shape[0]
     P, C, _ = codes.shape
-    refuse_bf16(codes.dtype, "kernel K7 (v5)")
     _check_chunked("v5", P, C, ct)
     kk = min(k, ct)
     slot_mult, levels = packed_params(ct)
     group_pid, qlist, pair_group, pair_slot = build_groups(pids, P, qt)
     gp, _, group_size, safe_q = pad_groups(group_pid, qlist, sizes, gpb)
     qf = q.to(torch.float32)
-    qg = qf[safe_q].contiguous()  # [Gn, qt, D]
+    qg = round_query(q, codes.dtype)[safe_q].contiguous()  # [Gn, qt, D]
     mark_stage(stages, "grouping")
     g_scores, g_slots = chunk_merge(gp, group_size, qg, codes, norms, kk, ct, slot_mult, levels,
                                     metric)
     mark_stage(stages, "scan")
-    # Slim epilogue: the per-query -|q|^2 back, refs, one merge. The TPU
+    # Slim epilogue: the per-query -|q|^2 back (of the unrounded query, as
+    # pallas_grouped.py:2307-2313), refs, one merge. The TPU
     # epilogue's `alive` mask is not needed: K7 writes ghost groups as -1.
     valid = g_slots >= 0
     if metric == "l2":
@@ -249,7 +258,6 @@ def grouped_scan_v4(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: 
     as grouped_scan_v3pn (dedup: rescore_topk's, a spilled store)."""
     B, nprobe = pids.shape
     P, C, _ = codes.shape
-    refuse_bf16(codes.dtype, "kernel K4 with a chunk table (v4)")
     _check_chunked("v4", P, C, ct)
     kk = min(k, ct)
     slot_mult, levels = packed_params(ct)
@@ -261,7 +269,7 @@ def grouped_scan_v4(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: 
                                   for t in (cg_chunk, cg_qsrc, cg_size))
     safe_q = torch.clamp(qlist, min=0).long()  # [G, qt]
     qf = q.to(torch.float32)
-    qg = qf[safe_q].contiguous()  # [G, qt, D]
+    qg = round_query(q, codes.dtype)[safe_q].contiguous()  # [G, qt, D]
     row_off = (cg_chunk * ct).contiguous()
     if mat_qg:
         qg = qg[cg_qsrc.long()].contiguous()  # [Gn, qt, D]

@@ -16,7 +16,11 @@ K6 is a CUDA kernel (csrc/grouped_exact.cu); `exact_scan` runs its plain
 PyTorch version on CPU tensors and launches it on CUDA tensors. Where
 D % 4 == 0 and its lists fit, it multiplies on the tensor cores with split
 TF32 operands that keep f32 accuracy (ops/split_product.py is the plain
-model of that product).
+model of that product). On bf16 codes the queries are rounded to bf16, as
+the JAX wrappers round them, and K6 runs its bf16 body (one bf16 product a
+depth-16 step on the tensor cores where D % 8 == 0, exact in f32); v2's
+|q|^2 comes from the rounded tile in the kernel, v3's epilogue subtracts
+|q|^2 of the unrounded query, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ from __future__ import annotations
 import torch
 
 from quake_tpu_torch import _ext
-from quake_tpu_torch.ops.grouped import build_groups, merge_groups, refuse_bf16
+from quake_tpu_torch.ops.grouped import (build_groups, launch_name, merge_groups, operand_bytes,
+                                          round_query)
 from quake_tpu_torch.ops.grouped_family import topk_cap
 from quake_tpu_torch.ops.grouped_scan import FOLD, SMEM_LIMIT
 from quake_tpu_torch.ops.scan import NEG_INF
@@ -34,23 +39,24 @@ MODES = ("slot", "id")
 MMA_BODY, GROUP_BODY = 1, 0  # exact_topk_body's answers
 
 
-def exact_topk_body(qt: int, D: int, kk: int) -> int:
-    """The body kernel K6's launcher runs at this shape, in either mode
-    (csrc/grouped_exact.cu::qk_exact_topk_body, asked of the built library):
-    MMA_BODY, multi_topk's tensor-core body (csrc/pair_topk_mma.cuh), where
-    rows are 16-byte aligned for the asynchronous copies (D % 4 == 0) and its
-    ring, query tile and per-row lists fit a block's shared memory; else
+def exact_topk_body(qt: int, D: int, kk: int, dtype=torch.float32) -> int:
+    """The body kernel K6's launcher runs at this shape, in either mode, on
+    codes of `dtype` (csrc/grouped_exact.cu::qk_exact_topk_body, asked of the
+    built library): MMA_BODY, multi_topk's tensor-core body
+    (csrc/pair_topk_mma.cuh), where rows are 16-byte aligned for the
+    asynchronous copies (D % 4 == 0 in f32, D % 8 == 0 in bf16) and its ring,
+    query tile and per-row lists fit a block's shared memory; else
     GROUP_BODY, the CUDA-core body of one block a group."""
-    return int(_ext.lib().qk_exact_topk_body(qt, D, kk))
+    return int(_ext.lib().qk_exact_topk_body(qt, D, kk, operand_bytes(dtype)))
 
 
-def exact_topk_serves(qt: int, D: int, kk: int) -> bool:
+def exact_topk_serves(qt: int, D: int, kk: int, dtype=torch.float32) -> bool:
     """Whether K6 serves (qt, D, kk) on the card: its tensor-core body takes
     the shape, or its CUDA-core body's round_up(kk, 32) + 128 (score, index)
     pairs per row fit a block's shared memory beside the query tile and a
-    segment."""
+    segment (f32 there whatever the codes' dtype)."""
     Dp = -(-D // 4) * 4
-    return (exact_topk_body(qt, D, kk) == MMA_BODY
+    return (exact_topk_body(qt, D, kk, dtype) == MMA_BODY
             or (qt * Dp + FOLD * (Dp + 1) + FOLD + qt * 2 * topk_cap(kk)) * 4 <= SMEM_LIMIT)
 
 
@@ -59,7 +65,8 @@ def exact_scan_plain(gp, qg, codes, kk: int, metric: str, mode: str, group_size=
     """Plain PyTorch version of kernel K6 (same inputs and outputs as
     exact_scan), `chunk` groups at a time, round by round as
     pallas_grouped.py::_v3_kernel (mode "slot") and _grouped_kernel (mode
-    "id")."""
+    "id"). bf16 operands are upcast and multiplied in f32 (a product of two
+    bf16 values is exact there)."""
     Gn, qt, D = qg.shape
     P, C, _ = codes.shape
     dev = qg.device
@@ -73,14 +80,15 @@ def exact_scan_plain(gp, qg, codes, kk: int, metric: str, mode: str, group_size=
         if alive.numel() == 0:
             continue
         p = gp[sl][alive].long()
-        qa = qg[sl][alive]
-        prod = torch.bmm(qa, codes[p].transpose(1, 2))  # [a, qt, C]
+        qa = qg[sl][alive].to(torch.float32)
+        slab = codes[p].to(torch.float32)
+        prod = torch.bmm(qa, slab.transpose(1, 2))  # [a, qt, C]
         if mode == "id":
             tag = ids[p][:, None, :].expand(-1, qt, -1)
             valid = tag >= 0
             if metric == "l2":
                 q_sq = torch.sum(qa * qa, dim=2, keepdim=True)
-                s_sq = torch.sum(codes[p] * codes[p], dim=2)
+                s_sq = torch.sum(slab * slab, dim=2)
                 scores = 2.0 * prod - q_sq - s_sq[:, None, :]
             else:
                 scores = prod
@@ -107,8 +115,9 @@ def exact_scan(gp, qg, codes, kk: int, metric: str, mode: str, group_size=None, 
     """Kernel K6 (replaces pallas_grouped.py::_v3_kernel in mode "slot" and
     _grouped_kernel in mode "id").
 
-    gp [Gn] int32 partition per group (-1: ghost); qg [Gn, qt, D] f32
-    queries; codes [P, C, D] f32. Mode "slot" takes group_size [Gn] int32
+    gp [Gn] int32 partition per group (-1: ghost); qg [Gn, qt, D] queries
+    and codes [P, C, D], both f32 or both bf16 (launches of the bf16 body
+    count under "exact_topk_bf16"). Mode "slot" takes group_size [Gn] int32
     (<= 0: ghost) and norms [P, C] f32: scores 2<q, x> - |x|^2 (l2, without
     the per-query |q|^2) or <q, x> (ip) over the lanes below the size, ties
     to the larger slot. Mode "id" takes ids [P, C] int32: scores
@@ -130,40 +139,42 @@ def exact_scan(gp, qg, codes, kk: int, metric: str, mode: str, group_size=None, 
         raise ValueError(f"exact_scan: unsupported device {qg.device}")
     if qt not in (8, 16, 32, 64):
         raise ValueError(f"exact_scan: qt must be 8, 16, 32 or 64 (qt={qt})")
-    if not exact_topk_serves(qt, D, kk):
+    dtype = codes.dtype
+    if not exact_topk_serves(qt, D, kk, dtype):
         raise ValueError(f"exact_scan: D={D}, qt={qt}, kk={kk} need more shared memory than "
                          "a block has (kernel K6 keeps 3 kk (score, index) pairs per row on the "
                          "tensor cores, round_up(kk, 32) + 128 on the CUDA cores)")
     aux = (("group_size", group_size, torch.int32, (Gn,)), ("norms", norms, torch.float32, (P, C))
            ) if mode == "slot" else (("ids", ids, torch.int32, (P, C)),)
-    for name, t, dtype, shape in (("gp", gp, torch.int32, (Gn,)),
-                                  ("qg", qg, torch.float32, (Gn, qt, D)),
-                                  ("codes", codes, torch.float32, (P, C, D))) + aux:
-        if (t is None or t.device != qg.device or t.dtype != dtype or tuple(t.shape) != shape
+    for name, t, want, shape in (("gp", gp, torch.int32, (Gn,)),
+                                  ("qg", qg, dtype, (Gn, qt, D)),
+                                  ("codes", codes, dtype, (P, C, D))) + aux:
+        if (t is None or t.device != qg.device or t.dtype != want or tuple(t.shape) != shape
                 or not t.is_contiguous()):
-            raise ValueError(f"exact_scan: {name} must be a contiguous {dtype} {shape} "
+            raise ValueError(f"exact_scan: {name} must be a contiguous {want} {shape} "
                              f"tensor on {qg.device}")
-    if exact_topk_body(qt, D, kk) == MMA_BODY and (qg.data_ptr() % 16
-                                                   or codes.data_ptr() % 16):
+    if exact_topk_body(qt, D, kk, dtype) == MMA_BODY and (qg.data_ptr() % 16
+                                                          or codes.data_ptr() % 16):
         raise ValueError("exact_scan: qg and codes must start on a 16-byte boundary")
     out_s = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.float32)
     out_i = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.int32)
-    rc = _ext.lib().qk_exact_topk(
+    name = launch_name("exact_topk", dtype)
+    rc = _ext.launcher(name)(
         gp.data_ptr(), group_size.data_ptr() if mode == "slot" else None, qg.data_ptr(),
         codes.data_ptr(), norms.data_ptr() if mode == "slot" else None,
         ids.data_ptr() if mode == "id" else None, out_s.data_ptr(), out_i.data_ptr(),
         Gn, qt, D, P, C, kk, int(metric == "l2"), int(mode == "id"),
         _ext.stream_ptr(qg.device))
-    _ext.check(rc, "exact_topk")
-    _ext.launched("exact_topk", out_s)
+    _ext.check(rc, name)
+    _ext.launched(name, out_s)
     return out_s, out_i
 
 
 def _exact_groups(q, pids, P: int, qt: int, dtype):
-    refuse_bf16(dtype, "kernel K6 (v3, v2)")
+    """build_groups and the query tiles, rounded to the codes' dtype."""
     group_pid, qlist, pair_group, pair_slot = build_groups(pids, P, qt)
     safe_q = torch.clamp(qlist, min=0).long()
-    return group_pid, safe_q, q.to(dtype)[safe_q].contiguous(), pair_group, pair_slot
+    return group_pid, safe_q, round_query(q, dtype)[safe_q].contiguous(), pair_group, pair_slot
 
 
 def grouped_scan_v3(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int = 32,
@@ -172,9 +183,9 @@ def grouped_scan_v3(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: 
     selection on exact scores, cached norms, size masking; ties among equal
     scores go to the larger slot. Kernel K6, mode "slot".
 
-    codes [P, C, D] f32, ids [P, C] int32, sizes [P] int32, norms [P, C] f32,
-    q [B, D], pids [B, nprobe] int32 (-1 = pad). Returns (scores [B, k] f32,
-    ids [B, k] int32, scanned [B] int32)."""
+    codes [P, C, D] f32 or bf16, ids [P, C] int32, sizes [P] int32, norms
+    [P, C] f32, q [B, D], pids [B, nprobe] int32 (-1 = pad). Returns (scores
+    [B, k] f32, ids [B, k] int32, scanned [B] int32)."""
     P, C, _ = codes.shape
     kk = min(k, C)
     group_pid, safe_q, qg, pair_group, pair_slot = _exact_groups(q, pids, P, qt, codes.dtype)

@@ -20,7 +20,11 @@ their plain PyTorch version on CPU tensors and launches them on CUDA
 tensors. On whole partitions K4 and K5 multiply on the tensor cores with
 split TF32 operands that keep f32 accuracy (ops/split_product.py is the
 plain model of that product); K4 with a chunk table in f32 on the CUDA
-cores.
+cores. On bf16 codes the queries are rounded to bf16, as the JAX wrappers
+round them, and K4 and K5 run their bf16 bodies (one bf16 product a
+depth-16 step on the tensor cores where D % 8 == 0; v4's chunk table on the
+CUDA cores, the bf16 values converted to f32 as they load); the epilogue's
+|q|^2 and the exact rescore take the unrounded f32 query.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from quake_tpu_torch import _ext
-from quake_tpu_torch.ops.grouped import build_groups, refuse_bf16
+from quake_tpu_torch.ops.grouped import build_groups, launch_name, operand_bytes, round_query
 from quake_tpu_torch.ops.grouped_scan import (FOLD, SMEM_LIMIT, fold_rounds, global_scale,
                                               grouped_scan_kernel, packed_params, pad_groups,
                                               pool_tail, rescore_topk)
@@ -56,25 +60,27 @@ def topk_cap(kk: int) -> int:
 MMA_BODY, CHUNK_BODY, GROUP_BODY = 2, 1, 0
 
 
-def rowscale_topk_body(qt: int, D: int, kk: int, chunked: bool = False) -> int:
-    """The body kernel K4's launcher runs at this shape
+def rowscale_topk_body(qt: int, D: int, kk: int, chunked: bool = False,
+                       dtype=torch.float32) -> int:
+    """The body kernel K4's launcher runs at this shape on codes of `dtype`
     (csrc/grouped_rowscale.cu::rowscale_topk_body, asked of the built
     library): MMA_BODY, the tensor-core body, without a chunk table where
-    rows are 16-byte aligned for the asynchronous copies (D % 4 == 0) and its
-    tiles and candidate buffers fit a block's shared memory; CHUNK_BODY, the
-    persistent CUDA-core body, with a chunk table where its two segment
-    buffers fit; else GROUP_BODY, the CUDA-core body of one block a group."""
-    return int(_ext.lib().qk_rowscale_topk_body(qt, D, kk, int(chunked)))
+    rows are 16-byte aligned for the asynchronous copies (D % 4 == 0 in f32,
+    D % 8 == 0 in bf16) and its tiles and candidate buffers fit a block's
+    shared memory; CHUNK_BODY, the persistent CUDA-core body, with a chunk
+    table where its two segment buffers fit; else GROUP_BODY, the CUDA-core
+    body of one block a group."""
+    return int(_ext.lib().qk_rowscale_topk_body(qt, D, kk, int(chunked), operand_bytes(dtype)))
 
 
-def rowscale_fold_body(qt: int, D: int, kk: int) -> int:
-    """The body kernel K5's launcher runs at this shape
+def rowscale_fold_body(qt: int, D: int, kk: int, dtype=torch.float32) -> int:
+    """The body kernel K5's launcher runs at this shape on codes of `dtype`
     (csrc/grouped_rowscale.cu::rowscale_fold_body, asked of the built
     library): MMA_BODY, K4's tensor-core body with the fold selection, where
-    rows are 16-byte aligned for the asynchronous copies (D % 4 == 0) and
-    its query tile fits beside a ring stage; else GROUP_BODY, the CUDA-core
-    body of one block a group."""
-    return int(_ext.lib().qk_rowscale_fold_body(qt, D, kk))
+    rows are 16-byte aligned for the asynchronous copies (D % 4 == 0 in f32,
+    D % 8 == 0 in bf16) and its query tile fits beside a ring stage; else
+    GROUP_BODY, the CUDA-core body of one block a group."""
+    return int(_ext.lib().qk_rowscale_fold_body(qt, D, kk, operand_bytes(dtype)))
 
 
 def rowscale_scan_plain(gp, group_size, qg, codes, norms, kk: int, slot_mult: int,
@@ -85,7 +91,8 @@ def rowscale_scan_plain(gp, group_size, qg, codes, norms, kk: int, slot_mult: in
     pallas_grouped.py::_v3p_group_body with _v3p_select (topk) or
     _v7_select (fold). With a chunk table (_v4_kernel), each group scores the
     `ct` rows from row_off[g] of its partition against the query tile
-    qsrc[g], and lanes are chunk-local."""
+    qsrc[g], and lanes are chunk-local. bf16 operands are upcast and
+    multiplied in f32 (a product of two bf16 values is exact there)."""
     Gn = gp.shape[0]
     _, qt, D = qg.shape
     P, C, _ = codes.shape
@@ -114,7 +121,8 @@ def rowscale_scan_plain(gp, group_size, qg, codes, norms, kk: int, slot_mult: in
             tiles = qg[qsrc[sl][alive].long()]
         else:
             slab, nrm, tiles = codes[p], norms[p], qg[sl][alive]
-        prod = torch.bmm(tiles, slab.transpose(1, 2))  # [a, qt, W]
+        prod = torch.bmm(tiles.to(torch.float32),
+                         slab.to(torch.float32).transpose(1, 2))  # [a, qt, W]
         scores = 2.0 * prod - nrm[:, None, :] if metric == "l2" else prod
         valid = (lane[None, :] < size[alive][:, None])[:, None, :]
         rowmax = torch.where(valid, scores, torch.full_like(scores, NEG_INF)).amax(2, keepdim=True)
@@ -143,8 +151,10 @@ def rowscale_scan(gp, group_size, qg, codes, norms, kk: int, slot_mult: int, lev
     (select="fold"; replaces _v7_kernel).
 
     gp [Gn] int32 partition per group; group_size [Gn] int32 (<= 0: ghost);
-    qg [Gn, qt, D] f32 unscaled queries; codes [P, C, D] f32; norms [P, C]
-    f32 squared norms. Per row: scores over the valid lanes (lane < size),
+    qg [Gn, qt, D] unscaled queries and codes [P, C, D], both f32 or both
+    bf16 (launches of the bf16 bodies count under "rowscale_topk_bf16" and
+    "rowscale_fold_bf16"); norms [P, C] f32 squared norms. Per row: scores
+    over the valid lanes (lane < size),
     the row's range, packed = floor((s - rowmin) * (levels / rng)) *
     slot_mult + lane. Returns (out [Gn, qt, kk] f32 packed, descending, -1 =
     none; stats [Gn, qt, 2] f32 = (rowmin or 0, rng)). Ghost groups write -1
@@ -185,26 +195,27 @@ def rowscale_scan(gp, group_size, qg, codes, norms, kk: int, slot_mult: int, lev
         raise ValueError(f"rowscale_scan: unsupported device {qg.device}")
     if qt not in (8, 16, 32, 64):
         raise ValueError(f"rowscale_scan: qt must be 8, 16, 32 or 64 (qt={qt})")
+    dtype = codes.dtype
     Dp = -(-D // 4) * 4
     cap = topk_cap(kk) if select == "topk" else 0
-    body = (rowscale_topk_body(qt, D, kk, chunked) if select == "topk"
-            else rowscale_fold_body(qt, D, kk))
+    body = (rowscale_topk_body(qt, D, kk, chunked, dtype) if select == "topk"
+            else rowscale_fold_body(qt, D, kk, dtype))
     if body == GROUP_BODY and (qt * Dp + FOLD * (Dp + 1) + qt * cap) * 4 > SMEM_LIMIT:
         raise ValueError(f"rowscale_scan: D={D}, qt={qt}, kk={kk} need more shared memory "
                          "than a block has (kernel K4 keeps round_up(kk, 32) + 128 "
                          "candidates per row)")
-    for name, t, dtype, shape in (
+    for name, t, want, shape in (
             ("gp", gp, torch.int32, (Gn,)),
             ("group_size", group_size, torch.int32, (Gn,)),
-            ("qg", qg, torch.float32, (G, qt, D)),
-            ("codes", codes, torch.float32, (P, C, D)),
+            ("qg", qg, dtype, (G, qt, D)),
+            ("codes", codes, dtype, (P, C, D)),
             ("norms", norms, torch.float32, (P, C))) + (
             (("qsrc", qsrc, torch.int32, (Gn,)), ("row_off", row_off, torch.int32, (Gn,)))
             if chunked else ()):
-        if (t.device != qg.device or t.dtype != dtype or tuple(t.shape) != shape
+        if (t.device != qg.device or t.dtype != want or tuple(t.shape) != shape
                 or not t.is_contiguous()):
             raise ValueError(f"rowscale_scan: {name} must be a contiguous "
-                             f"{dtype} {shape} tensor on {qg.device}")
+                             f"{want} {shape} tensor on {qg.device}")
     if body == MMA_BODY and (qg.data_ptr() % 16 or codes.data_ptr() % 16):
         raise ValueError("rowscale_scan: qg and codes must start on a 16-byte boundary")
     out = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.float32)
@@ -212,14 +223,14 @@ def rowscale_scan(gp, group_size, qg, codes, norms, kk: int, slot_mult: int, lev
     ptrs = (qg.data_ptr(), codes.data_ptr(), norms.data_ptr(), out.data_ptr(), stats.data_ptr())
     tail = (C, kk, int(metric == "l2"), float(slot_mult), float(levels),
             _ext.stream_ptr(qg.device))
+    name = launch_name("rowscale_topk" if select == "topk" else "rowscale_fold", dtype)
     if select == "topk":
-        rc = _ext.lib().qk_rowscale_topk(
+        rc = _ext.launcher(name)(
             gp.data_ptr(), group_size.data_ptr(), qsrc.data_ptr() if chunked else None,
             row_off.data_ptr() if chunked else None, *ptrs, Gn, qt, D, P, *tail)
     else:
-        rc = _ext.lib().qk_rowscale_fold(gp.data_ptr(), group_size.data_ptr(), *ptrs, Gn, qt, D,
-                                         P, *tail)
-    name = "rowscale_topk" if select == "topk" else "rowscale_fold"
+        rc = _ext.launcher(name)(gp.data_ptr(), group_size.data_ptr(), *ptrs, Gn, qt, D, P,
+                                 *tail)
     _ext.check(rc, name)
     _ext.launched(name, out, stats)
     return out, stats
@@ -288,14 +299,14 @@ def check_refs(name: str, P: int, C: int) -> None:
 def rowscale_search(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int,
                      gpb: int, select: str, stages, dedup: bool = False):
     """Grouping, kernel K4 or K5, and the v3p epilogue, with its dedup on a
-    spilled store (f32 codes: neither kernel has a bf16 body)."""
-    refuse_bf16(codes.dtype, "kernels K4 and K5 (v3p, v3pN, v6, v7)")
+    spilled store. The query tiles are rounded to the codes' dtype
+    (pallas_grouped.py:385, 718, 879); the epilogue takes q unrounded."""
     P, C, _ = codes.shape
     kk = min(k, C)
     slot_mult, levels = packed_params(C)
     group_pid, qlist, pair_group, pair_slot = build_groups(pids, P, qt)
     gp, _, group_size, safe_q = pad_groups(group_pid, qlist, sizes, gpb)
-    qg = q.to(torch.float32)[safe_q].contiguous()  # [Gn, qt, D]
+    qg = round_query(q, codes.dtype)[safe_q].contiguous()  # [Gn, qt, D]
     mark_stage(stages, "grouping")
     g_packed, g_stats = rowscale_scan(gp, group_size, qg, codes, norms, kk, slot_mult,
                                       levels, metric, select)
@@ -310,9 +321,9 @@ def grouped_scan_v3p(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt:
     """v3p grouped scan (pallas_grouped.py::grouped_scan_pallas_v3p): one
     group per TPU grid step, kernel K4, exact rescore of the winners.
 
-    codes [P, C, D] f32, ids [P, C] int32, sizes [P] int32, norms [P, C] f32,
-    q [B, D], pids [B, nprobe] int32 (-1 = pad). Returns (scores [B, k] f32,
-    ids [B, k] int32, scanned [B] int32). Any C."""
+    codes [P, C, D] f32 or bf16, ids [P, C] int32, sizes [P] int32, norms
+    [P, C] f32, q [B, D], pids [B, nprobe] int32 (-1 = pad). Returns (scores
+    [B, k] f32, ids [B, k] int32, scanned [B] int32). Any C."""
     P, C, _ = codes.shape
     check_refs("v3p", P, C)
     return rowscale_search(codes, ids, sizes, norms, q, pids, k, metric, qt, 1, "topk",

@@ -26,7 +26,12 @@ csrc/pair_topk_mma.cuh) where D % 4 == 0 and the body's buffers fit
 (`raw_scores_body`, `sized_topk_body`, `packed_topk_body`,
 `multi_topk_body`), else in f32 on the CUDA cores; K8 and K9 compute their
 scores in one order on either body, so K9's output is the top kk of K8's
-scores, packed, where both run the same body.
+scores, packed, where both run the same body. On bf16 codes the query
+tiles are rounded to bf16, as the JAX wrappers round them, and each kernel
+runs its bf16 body (one bf16 product a depth-16 step on the tensor cores
+where D % 8 == 0, else the CUDA-core body on values converted to f32 as
+they load); both norms come from the rounded tile and the upcast slab, and
+packed's exact rescore takes the unrounded query.
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ from __future__ import annotations
 import torch
 
 from quake_tpu_torch import _ext
-from quake_tpu_torch.ops.grouped import build_groups, merge_groups, refuse_bf16
+from quake_tpu_torch.ops.grouped import (build_groups, launch_name, merge_groups, operand_bytes,
+                                          round_query)
 from quake_tpu_torch.ops.grouped_family import check_refs, pair_take, topk_cap
 from quake_tpu_torch.ops.grouped_scan import FOLD, SMEM_LIMIT
 from quake_tpu_torch.ops.scan import NEG_INF, topk_stable
@@ -44,7 +50,10 @@ SELECT_ROWS = 1 << 28  # scores (1 GB of f32) one selection step of the approx s
 
 
 def _scores(qa, slab, metric: str):
-    """[a, qt, D] x [a, C, D] -> [a, qt, C], in the TPU kernels' order."""
+    """[a, qt, D] x [a, C, D] -> [a, qt, C], in the TPU kernels' order; bf16
+    operands upcast and multiplied in f32 (a product of two bf16 values is
+    exact there)."""
+    qa, slab = qa.to(torch.float32), slab.to(torch.float32)
     prod = torch.bmm(qa, slab.transpose(1, 2))
     if metric != "l2":
         return prod
@@ -102,14 +111,14 @@ def raw_scores_plain(gp, qg, codes, ids, metric: str, chunk: int = 64):
 MMA_BODY, CUDA_CORE_BODY = 1, 0  # the answers of the *_body functions of this module
 
 
-def raw_scores_body(qt: int, D: int) -> int:
-    """The body kernel K8's launcher runs at this shape
+def raw_scores_body(qt: int, D: int, dtype=torch.float32) -> int:
+    """The body kernel K8's launcher runs at this shape on codes of `dtype`
     (csrc/grouped_variants.cu::pair_body with no list, asked of the built
     library): MMA_BODY, the tensor-core body, where rows are 16-byte aligned
-    for the asynchronous copies (D % 4 == 0) and its ring and query tile fit
-    a block's shared memory; else CUDA_CORE_BODY, one block a group on the
-    CUDA cores."""
-    return int(_ext.lib().qk_raw_scores_body(qt, D))
+    for the asynchronous copies (D % 4 == 0 in f32, D % 8 == 0 in bf16) and
+    its ring and query tile fit a block's shared memory; else
+    CUDA_CORE_BODY, one block a group on the CUDA cores."""
+    return int(_ext.lib().qk_raw_scores_body(qt, D, operand_bytes(dtype)))
 
 
 def _mma_aligned(name: str, qg, codes) -> None:
@@ -121,8 +130,9 @@ def _mma_aligned(name: str, qg, codes) -> None:
 def raw_scores(gp, qg, codes, ids, metric: str):
     """Kernel K8 (replaces pallas_grouped.py::_scores_kernel).
 
-    gp [Gn] int32 partition per group (-1: ghost); qg [Gn, qt, D] f32
-    queries; codes [P, C, D] f32; ids [P, C] int32. Returns scores
+    gp [Gn] int32 partition per group (-1: ghost); qg [Gn, qt, D] queries
+    and codes [P, C, D], both f32 or both bf16 (launches of the bf16 body
+    count under "raw_scores_bf16"); ids [P, C] int32. Returns scores
     [Gn, qt, C] f32: 2 <q, x> - |q|^2 - |x|^2 (l2, both norms summed here) or
     <q, x> (ip); -inf at lanes with id < 0 and in ghost groups.
 
@@ -135,19 +145,21 @@ def raw_scores(gp, qg, codes, ids, metric: str):
     P, C, _ = codes.shape
     if qg.device.type == "cpu":
         return raw_scores_plain(gp, qg, codes, ids, metric)
-    body = raw_scores_body(qt, D) if qg.device.type == "cuda" else CUDA_CORE_BODY
+    dtype = codes.dtype
+    body = raw_scores_body(qt, D, dtype) if qg.device.type == "cuda" else CUDA_CORE_BODY
     _check("raw_scores", qg, qt,
-           (("gp", gp, torch.int32, (Gn,)), ("qg", qg, torch.float32, (Gn, qt, D)),
-            ("codes", codes, torch.float32, (P, C, D)), ("ids", ids, torch.int32, (P, C))),
+           (("gp", gp, torch.int32, (Gn,)), ("qg", qg, dtype, (Gn, qt, D)),
+            ("codes", codes, dtype, (P, C, D)), ("ids", ids, torch.int32, (P, C))),
            0 if body == MMA_BODY else _base_floats(qt, D), f"D={D}, qt={qt}")
     if body == MMA_BODY:
         _mma_aligned("raw_scores", qg, codes)
     out = torch.empty((Gn, qt, C), device=qg.device, dtype=torch.float32)
-    rc = _ext.lib().qk_raw_scores(gp.data_ptr(), qg.data_ptr(), codes.data_ptr(), ids.data_ptr(),
-                                  out.data_ptr(), Gn, qt, D, P, C, int(metric == "l2"),
-                                  _ext.stream_ptr(qg.device))
-    _ext.check(rc, "raw_scores")
-    _ext.launched("raw_scores", out)
+    name = launch_name("raw_scores", dtype)
+    rc = _ext.launcher(name)(gp.data_ptr(), qg.data_ptr(), codes.data_ptr(), ids.data_ptr(),
+                             out.data_ptr(), Gn, qt, D, P, C, int(metric == "l2"),
+                             _ext.stream_ptr(qg.device))
+    _ext.check(rc, name)
+    _ext.launched(name, out)
     return out
 
 
@@ -170,16 +182,15 @@ def select_rows(scores, sids, kk: int):
 
 
 def _groups(q, pids, P: int, qt: int, dtype, gb: int = 1):
-    """build_groups and the query tiles, the groups padded to a multiple of
-    gb with ghosts (pid -1), as grouped_scan_pallas_multi pads them. dtype:
-    the codes'; bf16 is refused (no direct scan's kernel has a bf16 body)."""
-    refuse_bf16(dtype, "the direct scans' kernels (K8, K9, sized_topk, multi_topk)")
+    """build_groups and the query tiles, rounded to the codes' dtype (dtype),
+    the groups padded to a multiple of gb with ghosts (pid -1), as
+    grouped_scan_pallas_multi pads them."""
     group_pid, qlist, pair_group, pair_slot = build_groups(pids, P, qt)
     pad = -group_pid.shape[0] % gb
     if pad:
         group_pid = torch.nn.functional.pad(group_pid, (0, pad), value=-1)
         qlist = torch.nn.functional.pad(qlist, (0, 0, 0, pad), value=-1)
-    qg = q.to(dtype)[torch.clamp(qlist, min=0).long()].contiguous()
+    qg = round_query(q, dtype)[torch.clamp(qlist, min=0).long()].contiguous()
     return group_pid, qg, pair_group, pair_slot
 
 
@@ -188,9 +199,9 @@ def grouped_scan_approx(codes, ids, q, pids, k: int, metric: str, qt: int = 64, 
     kernel K8 writes the raw scores to device memory and the selection runs
     outside it.
 
-    codes [P, C, D] f32, ids [P, C] int32, q [B, D], pids [B, nprobe] int32
-    (-1 = pad). Returns (scores [B, k] f32, ids [B, k] int32, scanned [B]
-    int32)."""
+    codes [P, C, D] f32 or bf16, ids [P, C] int32, q [B, D], pids
+    [B, nprobe] int32 (-1 = pad). Returns (scores [B, k] f32, ids [B, k]
+    int32, scanned [B] int32)."""
     P, C, _ = codes.shape
     kk = min(k, C)
     group_pid, qg, pair_group, pair_slot = _groups(q, pids, P, qt, codes.dtype)
@@ -261,22 +272,24 @@ def sized_topk_plain(gp, group_size, qg, codes, kk: int, metric: str, ct: int = 
     return out_s, out_i
 
 
-def sized_topk_body(qt: int, D: int, kk: int) -> int:
-    """The body kernel sized_topk's launcher runs at this shape
-    (csrc/grouped_variants.cu::pair_body, asked of the built library):
-    MMA_BODY, the tensor-core body, where rows are 16-byte aligned for the
-    asynchronous copies (D % 4 == 0) and its ring, query tile and the rows'
-    lists of 3 kk (score, slot) pairs fit a block's shared memory; else
-    CUDA_CORE_BODY, one block a group on the CUDA cores."""
-    return int(_ext.lib().qk_sized_topk_body(qt, D, kk))
+def sized_topk_body(qt: int, D: int, kk: int, dtype=torch.float32) -> int:
+    """The body kernel sized_topk's launcher runs at this shape on codes of
+    `dtype` (csrc/grouped_variants.cu::pair_body, asked of the built
+    library): MMA_BODY, the tensor-core body, where rows are 16-byte aligned
+    for the asynchronous copies (D % 4 == 0 in f32, D % 8 == 0 in bf16) and
+    its ring, query tile and the rows' lists of 3 kk (score, slot) pairs fit
+    a block's shared memory; else CUDA_CORE_BODY, one block a group on the
+    CUDA cores."""
+    return int(_ext.lib().qk_sized_topk_body(qt, D, kk, operand_bytes(dtype)))
 
 
 def sized_topk(gp, group_size, qg, codes, kk: int, metric: str, ct: int = 256):
     """Kernel sized_topk (replaces pallas_grouped.py::_sized_kernel).
 
     gp [Gn] int32 partition per group (-1: ghost); group_size [Gn] int32
-    valid-prefix length of that partition; qg [Gn, qt, D] f32; codes
-    [P, C, D] f32. Per row the kk best (score, slot) over the lanes below
+    valid-prefix length of that partition; qg [Gn, qt, D] and codes
+    [P, C, D], both f32 or both bf16 (launches of the bf16 body count under
+    "sized_topk_bf16"). Per row the kk best (score, slot) over the lanes below
     the size, scores with both norms summed in the kernel. Returns (scores
     [Gn, qt, kk] f32 descending, -inf = none; slots [Gn, qt, kk] int32,
     -1 = none).
@@ -300,21 +313,23 @@ def sized_topk(gp, group_size, qg, codes, kk: int, metric: str, ct: int = 256):
         raise ValueError(f"sized_topk: ct must be positive (ct={ct})")
     if qg.device.type == "cpu":
         return sized_topk_plain(gp, group_size, qg, codes, kk, metric, ct)
-    body = sized_topk_body(qt, D, kk) if qg.device.type == "cuda" else CUDA_CORE_BODY
+    dtype = codes.dtype
+    body = sized_topk_body(qt, D, kk, dtype) if qg.device.type == "cuda" else CUDA_CORE_BODY
     _check("sized_topk", qg, qt,
            (("gp", gp, torch.int32, (Gn,)), ("group_size", group_size, torch.int32, (Gn,)),
-            ("qg", qg, torch.float32, (Gn, qt, D)), ("codes", codes, torch.float32, (P, C, D))),
+            ("qg", qg, dtype, (Gn, qt, D)), ("codes", codes, dtype, (P, C, D))),
            0 if body == MMA_BODY else _base_floats(qt, D) + 2 * qt * topk_cap(kk),
            f"D={D}, qt={qt}, kk={kk} (round_up(kk, 32) + 128 (score, slot) pairs per row)")
     if body == MMA_BODY:
         _mma_aligned("sized_topk", qg, codes)
     out_s = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.float32)
     out_i = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.int32)
-    rc = _ext.lib().qk_sized_topk(gp.data_ptr(), group_size.data_ptr(), qg.data_ptr(),
-                                  codes.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), Gn, qt,
-                                  D, P, C, kk, int(metric == "l2"), _ext.stream_ptr(qg.device))
-    _ext.check(rc, "sized_topk")
-    _ext.launched("sized_topk", out_s)
+    name = launch_name("sized_topk", dtype)
+    rc = _ext.launcher(name)(gp.data_ptr(), group_size.data_ptr(), qg.data_ptr(),
+                             codes.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), Gn, qt, D, P,
+                             C, kk, int(metric == "l2"), _ext.stream_ptr(qg.device))
+    _ext.check(rc, name)
+    _ext.launched(name, out_s)
     return out_s, out_i
 
 
@@ -384,13 +399,14 @@ def packed_topk_plain(gp, qg, codes, ids, kk: int, metric: str, chunk: int = 256
     return out
 
 
-def packed_topk_body(qt: int, D: int, kk: int) -> int:
-    """The body kernel K9's launcher runs at this shape
+def packed_topk_body(qt: int, D: int, kk: int, dtype=torch.float32) -> int:
+    """The body kernel K9's launcher runs at this shape on codes of `dtype`
     (csrc/grouped_variants.cu::pair_body, asked of the built library):
-    MMA_BODY, the tensor-core body, where D % 4 == 0 and its ring, query tile
-    and the rows' lists of 3 kk (0, packed value) pairs fit a block's shared
-    memory; else CUDA_CORE_BODY, one block a group on the CUDA cores."""
-    return int(_ext.lib().qk_packed_topk_body(qt, D, kk))
+    MMA_BODY, the tensor-core body, where D % 4 == 0 (f32) or D % 8 == 0
+    (bf16) and its ring, query tile and the rows' lists of 3 kk (0, packed
+    value) pairs fit a block's shared memory; else CUDA_CORE_BODY, one block
+    a group on the CUDA cores."""
+    return int(_ext.lib().qk_packed_topk_body(qt, D, kk, operand_bytes(dtype)))
 
 
 def _packed_floats(qt: int, D: int, kk: int) -> int:
@@ -399,17 +415,20 @@ def _packed_floats(qt: int, D: int, kk: int) -> int:
     return _base_floats(qt, D) + qt * topk_cap(kk)
 
 
-def packed_topk_serves(qt: int, D: int, kk: int) -> bool:
-    """Whether K9 serves (qt, D, kk) on the card: its tensor-core body takes
-    the shape, or its CUDA-core body's buffers fit a block's shared memory."""
-    return packed_topk_body(qt, D, kk) == MMA_BODY or _packed_floats(qt, D, kk) * 4 <= SMEM_LIMIT
+def packed_topk_serves(qt: int, D: int, kk: int, dtype=torch.float32) -> bool:
+    """Whether K9 serves (qt, D, kk) on the card on codes of `dtype`: its
+    tensor-core body takes the shape, or its CUDA-core body's buffers fit a
+    block's shared memory."""
+    return (packed_topk_body(qt, D, kk, dtype) == MMA_BODY
+            or _packed_floats(qt, D, kk) * 4 <= SMEM_LIMIT)
 
 
 def packed_topk(gp, qg, codes, ids, kk: int, metric: str):
     """Kernel K9 (replaces pallas_grouped.py::_packed_kernel).
 
-    gp [Gn] int32 (-1: ghost); qg [Gn, qt, D] f32; codes [P, C, D] f32; ids
-    [P, C] int32. Per row the kk largest packed values (see pack_scores) of
+    gp [Gn] int32 (-1: ghost); qg [Gn, qt, D] and codes [P, C, D], both f32
+    or both bf16 (launches of the bf16 body count under "packed_topk_bf16");
+    ids [P, C] int32. Per row the kk largest packed values (see pack_scores) of
     the lanes with id >= 0, descending; -1 = none, and all -1 in ghost
     groups. Returns [Gn, qt, kk] int32.
 
@@ -421,21 +440,22 @@ def packed_topk(gp, qg, codes, ids, kk: int, metric: str):
     P, C, _ = codes.shape
     if qg.device.type == "cpu":
         return packed_topk_plain(gp, qg, codes, ids, kk, metric)
-    body = packed_topk_body(qt, D, kk) if qg.device.type == "cuda" else CUDA_CORE_BODY
+    dtype = codes.dtype
+    body = packed_topk_body(qt, D, kk, dtype) if qg.device.type == "cuda" else CUDA_CORE_BODY
     _check("packed_topk", qg, qt,
-           (("gp", gp, torch.int32, (Gn,)), ("qg", qg, torch.float32, (Gn, qt, D)),
-            ("codes", codes, torch.float32, (P, C, D)), ("ids", ids, torch.int32, (P, C))),
+           (("gp", gp, torch.int32, (Gn,)), ("qg", qg, dtype, (Gn, qt, D)),
+            ("codes", codes, dtype, (P, C, D)), ("ids", ids, torch.int32, (P, C))),
            0 if body == MMA_BODY else _packed_floats(qt, D, kk),
            f"D={D}, qt={qt}, kk={kk} (round_up(kk, 32) + 128 candidates per row)")
     if body == MMA_BODY:
         _mma_aligned("packed_topk", qg, codes)
     out = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.int32)
-    rc = _ext.lib().qk_packed_topk(gp.data_ptr(), qg.data_ptr(), codes.data_ptr(),
-                                   ids.data_ptr(), out.data_ptr(), Gn, qt, D, P, C, kk,
-                                   int(metric == "l2"), slot_bits_of(C),
-                                   _ext.stream_ptr(qg.device))
-    _ext.check(rc, "packed_topk")
-    _ext.launched("packed_topk")
+    name = launch_name("packed_topk", dtype)
+    rc = _ext.launcher(name)(gp.data_ptr(), qg.data_ptr(), codes.data_ptr(), ids.data_ptr(),
+                             out.data_ptr(), Gn, qt, D, P, C, kk, int(metric == "l2"),
+                             slot_bits_of(C), _ext.stream_ptr(qg.device))
+    _ext.check(rc, name)
+    _ext.launched(name)
     return out
 
 
@@ -527,14 +547,15 @@ def multi_topk_plain(gp, qg, codes, ids, kk: int, metric: str, chunk: int = 256)
     return out_s, out_i
 
 
-def multi_topk_body(qt: int, D: int, kk: int) -> int:
-    """The body kernel multi_topk's launcher runs at this shape
-    (csrc/grouped_variants.cu::pair_body, asked of the built library):
-    MMA_BODY, the tensor-core body, where rows are 16-byte aligned for the
-    asynchronous copies (D % 4 == 0) and its ring, query tile and the rows'
-    lists of 3 kk (score, slot) pairs fit a block's shared memory; else
-    CUDA_CORE_BODY, gb groups a block on the CUDA cores."""
-    return int(_ext.lib().qk_multi_topk_body(qt, D, kk))
+def multi_topk_body(qt: int, D: int, kk: int, dtype=torch.float32) -> int:
+    """The body kernel multi_topk's launcher runs at this shape on codes of
+    `dtype` (csrc/grouped_variants.cu::pair_body, asked of the built
+    library): MMA_BODY, the tensor-core body, where rows are 16-byte aligned
+    for the asynchronous copies (D % 4 == 0 in f32, D % 8 == 0 in bf16) and
+    its ring, query tile and the rows' lists of 3 kk (score, slot) pairs fit
+    a block's shared memory; else CUDA_CORE_BODY, gb groups a block on the
+    CUDA cores."""
+    return int(_ext.lib().qk_multi_topk_body(qt, D, kk, operand_bytes(dtype)))
 
 
 def _multi_floats(qt: int, D: int, kk: int) -> int:
@@ -543,19 +564,20 @@ def _multi_floats(qt: int, D: int, kk: int) -> int:
     return _base_floats(qt, D) + 2 * qt * topk_cap(kk)
 
 
-def multi_topk_serves(qt: int, D: int, kk: int) -> bool:
-    """Whether multi_topk serves (qt, D, kk) on the card: where the CUDA-core
-    body fits a block's shared memory (the contract since the kernel was
-    ported; the tensor-core body takes such a shape where D % 4 == 0 and its
-    own buffers fit)."""
-    return _multi_floats(qt, D, kk) * 4 <= SMEM_LIMIT
+def multi_topk_serves(qt: int, D: int, kk: int, dtype=torch.float32) -> bool:
+    """Whether multi_topk serves (qt, D, kk) on the card on codes of `dtype`:
+    its tensor-core body takes the shape, or its CUDA-core body's buffers fit
+    a block's shared memory."""
+    return (multi_topk_body(qt, D, kk, dtype) == MMA_BODY
+            or _multi_floats(qt, D, kk) * 4 <= SMEM_LIMIT)
 
 
 def multi_topk(gp, qg, codes, ids, kk: int, metric: str, gb: int = 8):
     """Kernel multi_topk (replaces pallas_grouped.py::_multi_kernel).
 
-    gp [Gn] int32 (-1: ghost), Gn a multiple of gb; qg [Gn, qt, D] f32; codes
-    [P, C, D] f32; ids [P, C] int32. Per row the kk best (score, slot) over
+    gp [Gn] int32 (-1: ghost), Gn a multiple of gb; qg [Gn, qt, D] and codes
+    [P, C, D], both f32 or both bf16 (launches of the bf16 body count under
+    "multi_topk_bf16"); ids [P, C] int32. Per row the kk best (score, slot) over
     the lanes with id >= 0 of the whole slab, scores with both norms summed
     in the kernel, ties to the smaller slot. Returns (scores [Gn, qt, kk] f32
     descending, -inf = none; slots [Gn, qt, kk] int32, C = none).
@@ -574,20 +596,23 @@ def multi_topk(gp, qg, codes, ids, kk: int, metric: str, gb: int = 8):
                          f"(Gn={Gn}, gb={gb})")
     if qg.device.type == "cpu":
         return multi_topk_plain(gp, qg, codes, ids, kk, metric)
+    dtype = codes.dtype
+    body = multi_topk_body(qt, D, kk, dtype) if qg.device.type == "cuda" else CUDA_CORE_BODY
     _check("multi_topk", qg, qt,
-           (("gp", gp, torch.int32, (Gn,)), ("qg", qg, torch.float32, (Gn, qt, D)),
-            ("codes", codes, torch.float32, (P, C, D)), ("ids", ids, torch.int32, (P, C))),
-           _multi_floats(qt, D, kk),
+           (("gp", gp, torch.int32, (Gn,)), ("qg", qg, dtype, (Gn, qt, D)),
+            ("codes", codes, dtype, (P, C, D)), ("ids", ids, torch.int32, (P, C))),
+           0 if body == MMA_BODY else _multi_floats(qt, D, kk),
            f"D={D}, qt={qt}, kk={kk} (round_up(kk, 32) + 128 (score, slot) pairs per row)")
-    if multi_topk_body(qt, D, kk) == MMA_BODY:
+    if body == MMA_BODY:
         _mma_aligned("multi_topk", qg, codes)
     out_s = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.float32)
     out_i = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.int32)
-    rc = _ext.lib().qk_multi_topk(gp.data_ptr(), qg.data_ptr(), codes.data_ptr(), ids.data_ptr(),
-                                  out_s.data_ptr(), out_i.data_ptr(), Gn, qt, D, P, C, kk,
-                                  int(metric == "l2"), gb, _ext.stream_ptr(qg.device))
-    _ext.check(rc, "multi_topk")
-    _ext.launched("multi_topk", out_s)
+    name = launch_name("multi_topk", dtype)
+    rc = _ext.launcher(name)(gp.data_ptr(), qg.data_ptr(), codes.data_ptr(), ids.data_ptr(),
+                             out_s.data_ptr(), out_i.data_ptr(), Gn, qt, D, P, C, kk,
+                             int(metric == "l2"), gb, _ext.stream_ptr(qg.device))
+    _ext.check(rc, name)
+    _ext.launched(name, out_s)
     return out_s, out_i
 
 

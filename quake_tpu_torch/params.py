@@ -75,8 +75,8 @@ class IndexBuildParams:
     """Mirrors reference IndexBuildParams (common.h:123-143).
 
     Extensions beyond the reference:
-      precision: stored code dtype, "f32" or "bf16" (the parent's, through
-        parent_params, stays "f32": kernel K3 has no bf16 body).
+      precision: stored code dtype, "f32" or "bf16" (the parent's through
+        parent_params, whose bf16 codes kernel K3 ranks on its bf16 body).
       num_shards: shard the store over this many mesh devices at the end of
         the build (QuakeIndex.shard; 0 or 1 = one device): the first
         num_shards CUDA cards (as many as there are), or on a CPU index

@@ -394,10 +394,10 @@ def _k8_as_k9(gp, qg, codes, ids, kk, metric):
     its CUDA-core body and K8 takes the tensor cores, K8 with the depth
     padded by a zero column (D % 4 != 0: its CUDA-core body)."""
     qt, D = qg.shape[1], qg.shape[2]
-    body = packed_topk_body(qt, D, kk)
-    if raw_scores_body(qt, D) == body:
+    body = packed_topk_body(qt, D, kk, codes.dtype)
+    if raw_scores_body(qt, D, codes.dtype) == body:
         return raw_scores(gp, qg, codes, ids, metric), body
-    assert raw_scores_body(qt, D + 1) == body == MULTI_CUDA_CORE_BODY
+    assert raw_scores_body(qt, D + 1, codes.dtype) == body == MULTI_CUDA_CORE_BODY
     qg1, codes1 = (torch.nn.functional.pad(t, (0, 1)).contiguous() for t in (qg, codes))
     return raw_scores(gp, qg1, codes1, ids, metric), body
 
@@ -529,12 +529,21 @@ def test_launch_counts(dev):
     sized_topk(gp, gp + 100, qg, codes, 4, "ip")
     multi_topk(gp, qg, codes, ids, 4, "ip", gb=2)
     packed_topk(gp, qg, codes, ids, 4, "ip")
+    # On bf16 codes each counts under its own name, the f32 counts unchanged.
+    qb, cb = qg.to(torch.bfloat16), codes.to(torch.bfloat16)
+    raw_scores(gp, qb, cb, ids, "l2")
+    sized_topk(gp, gp + 100, qb, cb, 4, "ip")
+    multi_topk(gp, qb, cb, ids, 4, "ip", gb=2)
+    packed_topk(gp, qb, cb, ids, 4, "ip")
     assert _ext.launches == {"grouped_scan": 0, "grouped_scan_bf16": 0, "grouped_scan_budget": 0,
                              "grouped_scan_budget_bf16": 0, "merge_positions": 1,
                              "flat_topk": 0,
                              "rowscale_topk": 0, "rowscale_fold": 0, "exact_topk": 0,
                              "chunk_merge": 0, "raw_scores": 1, "packed_topk": 1,
-                             "sized_topk": 1, "multi_topk": 1}
+                             "sized_topk": 1, "multi_topk": 1, "flat_topk_bf16": 0,
+                             "rowscale_topk_bf16": 0, "rowscale_fold_bf16": 0,
+                             "exact_topk_bf16": 0, "chunk_merge_bf16": 0, "raw_scores_bf16": 1,
+                             "packed_topk_bf16": 1, "sized_topk_bf16": 1, "multi_topk_bf16": 1}
 
 
 # ------------------------------------------- K1 and K4 on the tensor cores
@@ -1770,6 +1779,161 @@ def test_bf16_index_on_the_card_matches_its_cpu_load(dev, tmp_path, monkeypatch,
     monkeypatch.setenv("QUAKE_TPU_PARENT_KERNEL", "pallas")  # K3's plain version on the CPU
     want = cpu.search(q, sp)
     assert _overlap(torch.from_numpy(got.ids), torch.from_numpy(want.ids)) >= 0.99
+
+
+# ------------------------- the bf16 bodies of K3-K9, sized_topk and multi_topk
+
+
+def _bf16_scan_store(dev, rng, C, D):
+    """Eight bf16 partitions of C rows (sizes 0, 1, 127, 128, 129, all, 256,
+    300; ids past each size -1), their f32 norms, sizes and ids."""
+    sizes_l = [0, 1, 127, 128, 129, C, min(256, C), min(300, C)]
+    codes = torch.from_numpy(rng.standard_normal((8, C, D)).astype(np.float32)).to(dev)
+    codes = codes.to(torch.bfloat16)
+    sizes = torch.tensor(sizes_l, dtype=torch.int32, device=dev)
+    lane = torch.arange(C, device=dev)[None, :]
+    ids = torch.where(lane < sizes[:, None],
+                      torch.arange(8 * C, dtype=torch.int32, device=dev).reshape(8, C), -1)
+    norms = (codes.float() ** 2).sum(-1).contiguous()
+    return codes, norms, sizes, ids.to(torch.int32).contiguous()
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("qt,D", [(8, 128), (64, 128), (32, 768), (16, 100), (64, 100)])
+def test_bf16_bodies_match_their_plain_versions(dev, qt, D, metric):
+    """Each bf16 body (K4 on whole partitions and with a chunk table, K5,
+    K6 in both modes, K7, K8, K9, sized_topk, multi_topk, K3) against its
+    plain version on the same bf16 operands (upcast, multiplied in f32) at
+    the f32 tolerances; the launcher picks the tensor-core body where
+    D % 8 == 0 (v4's chunk table its CUDA-core body), else the CUDA-core
+    body. kk 10 and 33 (a sorted list's insert and merge), K4 also 100."""
+    rng = np.random.default_rng(D + qt)
+    bf, Gn = torch.bfloat16, 120
+    tc = D % 8 == 0
+    assert (rowscale_topk_body(qt, D, 100, dtype=bf) == MMA_BODY) == tc
+    assert (rowscale_fold_body(qt, D, 10, bf) == MMA_BODY) == tc
+    assert (exact_topk_body(qt, D, 33, bf) == K6_MMA_BODY) == tc
+    assert (chunk_merge_body(qt, D, 33, bf) == K7_MMA_BODY) == tc
+    assert (raw_scores_body(qt, D, bf) == MULTI_MMA_BODY) == tc
+    assert (packed_topk_body(qt, D, 33, bf) == MULTI_MMA_BODY) == tc
+    assert (sized_topk_body(qt, D, 33, bf) == MULTI_MMA_BODY) == tc
+    assert (multi_topk_body(qt, D, 33, bf) == MULTI_MMA_BODY) == tc
+    gp = torch.from_numpy(rng.integers(-1, 8, Gn).astype(np.int32)).to(dev)
+    qg = torch.from_numpy(rng.standard_normal((Gn, qt, D)).astype(np.float32)).to(dev).to(bf)
+    for C in (512, 520):
+        codes, norms, sizes, ids = _bf16_scan_store(dev, rng, C, D)
+        gsize = torch.where(gp >= 0, sizes[gp.clamp(min=0).long()],
+                            torch.zeros_like(gp)).contiguous()
+        slot_mult, levels = packed_params(C)
+        for kk in (10, 100):
+            _rowscale_bf16_agree((gp, gsize, qg, codes, norms, kk, slot_mult, levels, metric,
+                                  "topk"))
+        if C % 128 == 0:
+            _rowscale_bf16_agree((gp, gsize, qg, codes, norms, 10, slot_mult, levels, metric,
+                                  "fold"))
+            for ct in (128, 256):
+                sm, lv = packed_params(ct)
+                _k7_agree((gp, gsize, qg, codes, norms, 33, ct, sm, lv, metric))
+        elif D <= 128:  # K4 with a chunk table of ct 128, one query tile a group
+            assert rowscale_topk_body(qt, D, 10, True, bf) == CHUNK_BODY
+            ct, maxch = 128, -(-C // 128)
+            cg_pid = gp[:30].repeat_interleave(maxch).contiguous()
+            chunk = torch.arange(maxch, dtype=torch.int32, device=dev).repeat(30)
+            cg_size = torch.where(cg_pid >= 0,
+                                  (sizes[cg_pid.clamp(min=0).long()] - chunk * ct).clamp(0, ct),
+                                  torch.zeros_like(cg_pid)).contiguous()
+            qsrc = torch.arange(30, dtype=torch.int32, device=dev).repeat_interleave(maxch)
+            sm, lv = packed_params(ct)
+            _rowscale_bf16_agree((cg_pid, cg_size, qg[:30].contiguous(), codes, norms, 10, sm,
+                                  lv, metric, "topk"), qsrc=qsrc.contiguous(),
+                                 row_off=(chunk * ct).contiguous(), ct=ct)
+        raw = raw_scores(gp, qg, codes, ids, metric)
+        _k8_agree(raw, raw_scores_plain(gp, qg, codes, ids, metric))
+        for kk in (10, 33):
+            got = packed_topk(gp, qg, codes, ids, kk, metric)
+            ref, _ = _k8_as_k9(gp, qg, codes, ids, kk, metric)
+            _k9_agree(got, packed_topk_plain(gp, qg, codes, ids, kk, metric), ref,
+                      slot_bits_of(C))
+            _pairs_match(*sized_topk(gp, gsize, qg, codes, kk, metric),
+                         *sized_topk_plain(gp, gsize, qg, codes, kk, metric), 1e-4)
+            got_s, got_i = multi_topk(gp, qg, codes, ids, kk, metric, gb=2)
+            want_s, want_i = multi_topk_plain(gp, qg, codes, ids, kk, metric)
+            _pairs_match(got_s, got_i.masked_fill(got_i >= C, -1), want_s,
+                         want_i.masked_fill(want_i >= C, -1), 1e-4)
+            for mode, kw in (("slot", dict(group_size=gsize, norms=norms)),
+                             ("id", dict(ids=ids))):
+                _k6_agree(gp, qg, codes, kk, metric, mode, kw, models=(False,))
+    cb = torch.from_numpy(rng.standard_normal((2048, D)).astype(np.float32)).to(dev).to(bf)
+    bias = -(cb.float() ** 2).sum(1) if metric == "l2" else torch.zeros(2048, device=dev)
+    bias[-20:] = float("-inf")
+    qb = torch.from_numpy(rng.standard_normal((300, D)).astype(np.float32)).to(dev).to(bf)
+    for N in (384, 2048):
+        assert (flat_topk_body(N, D, bf) != CUDA_CORE_BODY) == tc
+        got = flat_topk(cb[:N].contiguous(), bias[:N].contiguous(), qb, 16, metric)
+        want = flat_topk_plain(cb[:N], bias[:N], qb, 16, metric)
+        assert _overlap(got, want) >= 0.99
+
+
+def _rowscale_bf16_agree(args, **chunk_table):
+    """K4 or K5 on bf16 operands against its plain version: ghosts, stats
+    within rtol = atol = 1e-4, winner overlap >= 0.99, common keys within
+    one level."""
+    gsize, kk, slot_mult = args[1], args[5], args[6]
+    got, got_stats = rowscale_scan(*args, **chunk_table)
+    want, want_stats = rowscale_scan_plain(*args, **chunk_table)
+    torch.cuda.synchronize()
+    alive = gsize > 0
+    assert (got[~alive] == -1).all()
+    torch.testing.assert_close(got_stats, want_stats, rtol=1e-4, atol=1e-4)
+    g, w = got[alive].reshape(-1, kk), want[alive].reshape(-1, kk)
+    lanes = [torch.where(t >= 0, torch.remainder(t, slot_mult), -1.0) for t in (g, w)]
+    assert _overlap(lanes[0], lanes[1]) >= 0.99
+    same = (lanes[0] == lanes[1]) & (lanes[0] >= 0)
+    assert ((torch.floor(g / slot_mult) - torch.floor(w / slot_mult)).abs()[same] <= 1).all()
+
+
+@pytest.mark.parametrize("scan", ["v3p", "v3p4", "v6", "v7g4", "v4", "v5", "v3", "v2", "approx",
+                                  "sized", "packed", "multi"])
+def test_bf16_by_name_on_the_card_matches_its_cpu_load(dev, tmp_path, monkeypatch, scan):
+    """A bf16 QuakeIndex built on the card, saved and loaded on the CPU:
+    each scan by name through QuakeIndex.search (its _bf16 kernel launched,
+    its f32 twin not; the parents ranked by K3 on both sides) and each
+    direct scan on the store's tensors with the same probe lists, against
+    the plain versions on the loaded copy: row overlap >= 0.99."""
+    from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams
+    from quake_tpu_torch.ops import grouped_variants as gv
+
+    rng = np.random.default_rng(29)
+    x = rng.standard_normal((20_000, 64)).astype(np.float32)
+    q = rng.standard_normal((256, 64)).astype(np.float32)
+    idx = QuakeIndex(device=dev)
+    idx.build(x, None, IndexBuildParams(nlist=32, precision="bf16", calibrate_aps=False))
+    idx.save(str(tmp_path / "b"))
+    cpu = QuakeIndex(device="cpu").load(str(tmp_path / "b"))
+    monkeypatch.setenv("QUAKE_TPU_PARENT_KERNEL", "pallas")
+    if scan in ("approx", "sized", "packed", "multi"):
+        pids = torch.from_numpy(np.stack([rng.permutation(32)[:4] for _ in range(256)])
+                                .astype(np.int32))
+        runs = []
+        for index, where in ((idx, dev), (cpu, torch.device("cpu"))):
+            st = index.store.state
+            args = (st.codes, st.ids) + ((st.sizes,) if scan == "sized" else ())
+            runs.append(getattr(gv, f"grouped_scan_{scan}")(
+                *args, torch.from_numpy(q).to(where), pids.to(where), 10, "l2", qt=16))
+        got, want = runs[0][1].cpu(), runs[1][1]
+        kernel = {"approx": "raw_scores", "sized": "sized_topk", "packed": "packed_topk",
+                  "multi": "multi_topk"}[scan]
+    else:
+        monkeypatch.setenv("QUAKE_TPU_KERNEL", scan)
+        sp = SearchParams(k=10, nprobe=4)
+        _ext.reset_launches()
+        got = torch.from_numpy(idx.search(q, sp).ids)
+        launches = dict(_ext.launches)
+        kernel = {"v3": "exact_topk", "v2": "exact_topk", "v5": "chunk_merge",
+                  "v7g4": "rowscale_fold"}.get(scan, "rowscale_topk")
+        assert launches[f"{kernel}_bf16"] >= 1 and launches[kernel] == 0, launches
+        want = torch.from_numpy(cpu.search(q, sp).ids)
+    assert _overlap(got, want) >= 0.99, kernel
 
 
 # ----------------------------------------- K1 on the budget grid (v10b) and APS

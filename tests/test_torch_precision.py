@@ -294,17 +294,41 @@ def test_checkpoints_cross_load(jax_bf16, tmp_path):
                                   jl.search(q, JaxSearchParams(k=5, nprobe=4)).ids)
 
 
-def test_bf16_parent_is_refused_everywhere(jax_bf16, tmp_path):
-    """A bf16 parent would put bf16 codes on kernel K3, which has no bf16
-    body: refused by name at build, at load and at the carry, on the CPU as
-    on the card."""
+def test_bf16_parent_is_refused_everywhere(monkeypatch, jax_bf16, tmp_path):
+    """Lifted (the name kept as it was): a bf16 parent runs on kernel K3's
+    bf16 body. The build, the carry and the load of a bf16 parent succeed
+    and match the JAX package: the port's build rounds its parent as JAX
+    rounds the same centroids; the carried parent keeps its bits and ranks
+    as the JAX package's flat scan does; a save whose parent metadata names
+    bf16 loads into both packages with the same parent bits and search ids
+    (QUAKE_TPU_KERNEL=xla in both: the exact scan each package runs on the
+    CPU)."""
     x = _data(2000, 13)
-    with pytest.raises(NotImplementedError, match="Queue 2 part A item 5"):
-        QuakeIndex(device="cpu").build(x, None, IndexBuildParams(
-            nlist=8, calibrate_aps=False, parent_params=IndexBuildParams(precision="bf16")))
+    bp = IndexBuildParams(nlist=8, calibrate_aps=False,
+                          parent_params=IndexBuildParams(precision="bf16"))
+    built = QuakeIndex(device="cpu")
+    built.build(x, None, bp)
+    pst = built.parent.store.state
+    assert pst.codes.dtype == torch.bfloat16
+    rows = pst.ids.numpy() >= 0
+    cents = built.store.state.centroids.numpy()[pst.ids.numpy()[rows]]
+    np.testing.assert_array_equal(_bits(pst.codes)[rows], _bits(jnp.asarray(cents, jnp.bfloat16)))
+
     arrays = {f: np.asarray(getattr(jax_bf16.store.state, f)) for f in FIELDS}
-    with pytest.raises(NotImplementedError, match="Queue 2 part A item 5"):
-        index_from_numpy(arrays, arrays, device="cpu")
+    parent = {f: np.asarray(getattr(jax_bf16.parent.store.state, f)) for f in FIELDS}
+    parent["codes"] = np.asarray(jnp.asarray(parent["codes"], jnp.bfloat16))
+    carried = index_from_numpy(arrays, parent, device="cpu")
+    assert carried.parent.store.state.codes.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_bits(carried.parent.store.state.codes), _bits(parent["codes"]))
+    q = _data(32, 14)
+    from quake_tpu.ops.scan import flat_scan as jax_flat_scan
+
+    _, want = jax_flat_scan(jnp.asarray(q), jnp.asarray(parent["codes"]).reshape(-1, D),
+                            jnp.asarray(parent["ids"]).reshape(-1), 4, "l2", approx=True)
+    pst = carried.parent.store.state
+    got = coordinator_rank(pst, q, 4)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
     path = str(tmp_path / "j")
     jax_bf16.save(path)
     meta_path = os.path.join(path, "parent", "metadata.json")
@@ -312,8 +336,22 @@ def test_bf16_parent_is_refused_everywhere(jax_bf16, tmp_path):
         meta = f.read()
     with open(meta_path, "w") as f:
         f.write(meta.replace('"precision": "f32"', '"precision": "bf16"'))
-    with pytest.raises(NotImplementedError, match="Queue 2 part A item 5"):
-        QuakeIndex(device="cpu").load(path)
+    monkeypatch.setenv("QUAKE_TPU_KERNEL", "xla")
+    tl, jl = QuakeIndex(device="cpu").load(path), JaxIndex().load(path)
+    assert tl.parent.store.state.codes.dtype == torch.bfloat16
+    assert jl.parent.store.state.codes.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(_bits(tl.parent.store.state.codes),
+                                  _bits(jl.parent.store.state.codes))
+    np.testing.assert_array_equal(tl.search(q, SearchParams(k=5, nprobe=4)).ids,
+                                  np.asarray(jl.search(q, JaxSearchParams(k=5, nprobe=4)).ids))
+
+
+def coordinator_rank(pst, q, nprobe):
+    """The port's parent ranking on the CPU ("approx": the flat scan)."""
+    from quake_tpu_torch import coordinator
+
+    return coordinator.rank_parents(pst.codes, pst.ids, pst.norms, torch.from_numpy(q), nprobe,
+                                    "l2").numpy()
 
 
 def test_unknown_precision_is_a_value_error():
