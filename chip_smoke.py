@@ -327,6 +327,34 @@ Phases, each of which raises on failure (the script then exits non-zero):
              `[bf16 parent]` lines. Phase 3 also holds the bf16 bodies of
              K3-K9, sized_topk and multi_topk to their plain versions at D =
              128 and 768 (tensor cores) and 100 (CUDA cores).
+21. fold — (run after phase 12, on its index, the main f32 index and the
+             headline bf16 index) folds other than 128 on kernels K1 and K5:
+             on phase 12's index (nlist 1024, C 1536) at its fixed-nprobe
+             anchor 32, the names v11g4f128, v11g4f256, v11g4f384,
+             v11g4f512, v10g4f256, v8g4f256 and v7g4f256 through
+             QUAKE_TPU_KERNEL; on the main and the headline bf16 index (C
+             7552) at their nprobes v11g4f64 and v7g4f64. For each: recall@10
+             of the 1024 queries beside the exact scan of the probed
+             partitions (at most FOLD_RECALL_TOL below it), ms per B=16384
+             batch with stages, the launches of one counted batch (K1 or K5
+             and K3 must launch, K4, the v3pN fallback, must not) and every
+             K1, K2, K3 and K5 call of it held to its plain version at the
+             name's fold. The pinned oneshot under v11g4f256 (K1 on the
+             budget grid at fold 256, its calls held alike). The kernels
+             line's fold entries (grouped_scan/f64, /f256, /f384, /f512,
+             grouped_scan/v8f256, grouped_scan_budget/f256,
+             rowscale_fold/v7f64, /v7f256 and the bf16 index's
+             grouped_scan_bf16/f64 and rowscale_fold_bf16/v7f64), each
+             timed beside the same kernel at fold 128 on the same inputs.
+             merge="xla" (the pool merge in tensor operations) against K2 on
+             the main index at B=16384: ids, scores and scanned equal, no K2
+             launch, each merge's stage ms. profile_scan_latency on the card
+             at the default grid: its seconds and L(n, 16) at n = 1024,
+             4096, 16384 beside the packaged grid's and the grouped scan's
+             profile. `[fold]` lines. Phase 3 also holds K1 and K5 at folds
+             32, 64, 256, 384 and 512 to their plain versions at small
+             shapes (K1's and K5's f32 tensor-core and CUDA-core bodies and
+             their bf16 bodies, K1 also on the budget grid).
 
 Progress goes to stderr. Standard output holds three lines: the JSON list
 of kernels, the card's name and power limit, and last
@@ -352,6 +380,10 @@ NQ_GT, BATCH, BATCH_SORTED = 1024, 16384, 4096
 NPROBE_GRID = (9, 10, 11, 12, 14, 16, 24, 48)
 RECALL_GATE = 0.90
 OVERLAP_TOL = 0.99  # K1, K3-K7: winner overlap with the plain version
+# Folds other than 128 (K1, K5): the small parity phase's folds, on a C that
+# all of them divide.
+SMALL_FOLDS = (32, 64, 256, 384, 512)
+FOLD_SMALL_C = 1536
 STATS_TOL = 1e-4  # K4, K5 per-row (rowmin, range): rtol = atol (f32 sums in another order)
 # K6 and K7 scores, rank by rank: rtol = atol. K6's are f32 dot products
 # summed in another order than torch.bmm's. K7's are dequantized keys, which
@@ -517,7 +549,31 @@ BF16_PARENT_RECALL_TOL = 0.005
 # paths' shapes (D = 128): K1, K3, K4 on whole partitions (with v4's chunk
 # table it runs in f32 on the CUDA cores), K5-K9, sized_topk and multi_topk
 # (their rows check that the launcher picked the tensor-core body).
-TENSOR_CORE_ENTRIES = ("grouped_scan", "grouped_scan_bf16", "grouped_scan_budget",
+# The fold phase (21): the scans by name at folds other than 128 on phase
+# 12's index (C 1536) at its fixed-nprobe anchor, and at fold 64 (the fold
+# below 128 that divides C = 7552) on the main f32 and the headline bf16
+# index; a folded name's recall@10 may fall at most FOLD_RECALL_TOL below
+# the exact scan of the same probed partitions (a sanity gate that a broken
+# selection fails: v11's global-scale key alone loses 0.021-0.026 of it at
+# fold 128 and nprobe 9 on the main index, PERF.md; every K1 and K5 call is
+# held to its plain version besides). The kernels line's fold entries and
+# their paths.
+FOLD_NPROBE = 32
+FOLD_APS_NAMES = ("v11g4f128", "v11g4f256", "v11g4f384", "v11g4f512", "v10g4f256", "v8g4f256",
+                  "v7g4f256")
+FOLD_MAIN_NAMES = ("v11g4f64", "v7g4f64")
+FOLD_ONESHOT = "v11g4f256"  # the pinned oneshot's name: K1 on the budget grid at fold 256
+FOLD_RECALL_TOL = 0.04
+# Fold entry -> its fold-128 twin, whose TPU kernel it replaces too.
+FOLD_TWIN = {"grouped_scan/f64": "grouped_scan", "grouped_scan/f256": "grouped_scan",
+             "grouped_scan/f384": "grouped_scan", "grouped_scan/f512": "grouped_scan",
+             "grouped_scan/v8f256": "grouped_scan/v8",
+             "grouped_scan_budget/f256": "grouped_scan_budget",
+             "rowscale_fold/v7f64": "rowscale_fold/v7", "rowscale_fold/v7f256": "rowscale_fold/v7",
+             "grouped_scan_bf16/f64": "grouped_scan_bf16",
+             "rowscale_fold_bf16/v7f64": "rowscale_fold_bf16/v7"}
+TENSOR_CORE_ENTRIES = tuple(FOLD_TWIN) + (
+                       "grouped_scan", "grouped_scan_bf16", "grouped_scan_budget",
                        "grouped_scan/v8", "flat_topk",
                        "rowscale_topk/v3p",
                        "rowscale_topk/v3pn", "rowscale_topk/v6", "rowscale_fold/v7",
@@ -594,6 +650,7 @@ ENTRIES = {
 # the TPU kernel it replaces (the Pallas kernels are generic in the codes'
 # dtype).
 ENTRIES.update({bf16_entry(e): (f"{ENTRIES[e][0]}_bf16",) + ENTRIES[e][1:] for e in BF16_ENTRIES})
+ENTRIES.update({e: ENTRIES[twin] for e, twin in FOLD_TWIN.items()})
 
 
 def is_bf16(entry: str) -> bool:
@@ -767,6 +824,66 @@ def phase_small_parity(torch, dev):
     phase_small_parity_exact_chunked(torch, dev, rng, gp)
     phase_small_parity_variants(torch, dev, rng, gp)
     phase_small_parity_bf16(torch, dev, rng)
+    phase_small_parity_fold(torch, dev, rng)
+
+
+def phase_small_parity_fold(torch, dev, rng):
+    """K1 and K5 at the folds of SMALL_FOLDS against their plain versions
+    at the same fold, on C = FOLD_SMALL_C (which all of them divide): 200
+    groups, ghosts, sizes that end in every fold block, kk 10 and 100 (past
+    the 2 x 32 winners a row of fold 32 can give). K1 on its f32 tensor-core
+    body (D = 128; also on the budget grid), its CUDA-core body (D = 30) and
+    its bf16 bodies (D = 128 tensor cores, 100 CUDA cores); K5 on the same
+    four. The launcher's body is asserted; the gates are compare_k1's and
+    compare_rowscale's."""
+    from quake_tpu_torch.ops.grouped_family import MMA_BODY, rowscale_fold_body
+    from quake_tpu_torch.ops.grouped_scan import (grouped_scan_kernel, grouped_scan_plain,
+                                                  grouped_scan_uses_mma, packed_params)
+
+    C, Gn = FOLD_SMALL_C, 200
+    sizes_l = [0, 1, 128, 129, 300, 555, 700, 1000, 1300, C]
+    slot_mult, levels = packed_params(C)
+    sizes = torch.tensor(sizes_l, dtype=torch.int32, device=dev)
+    worst = {}
+    for qt, Dm, dt, tc in ((64, 128, torch.float32, True), (8, 30, torch.float32, False),
+                           (64, 128, torch.bfloat16, True), (16, 100, torch.bfloat16, False)):
+        codes = torch.from_numpy(rng.standard_normal((len(sizes_l), C, Dm)).astype(np.float32))
+        codes = codes.to(dev).to(dt)
+        cf = codes.float()
+        norms = (cf * cf).sum(-1).contiguous()
+        gp = torch.from_numpy(rng.integers(-1, len(sizes_l), Gn).astype(np.int32)).to(dev)
+        gsize = torch.where(gp >= 0, sizes[gp.clamp(min=0).long()],
+                            torch.zeros_like(gp)).contiguous()
+        scale = levels / (10.0 * Dm ** 0.5)
+        q = torch.from_numpy(rng.standard_normal((Gn, qt, Dm)).astype(np.float32)).to(dev)
+        qs = (q * scale).to(dt).contiguous()
+        normsT = ((norms * 0.5 - 0.5 * Dm - 5.0 * Dm ** 0.5) * scale).contiguous()
+        where = f"qt={qt}, D={Dm}, {str(dt)[len('torch.'):]}"
+        for fold in SMALL_FOLDS:
+            for kk in (10, 100):
+                if grouped_scan_uses_mma(qt, Dm, dt, fold, kk) != tc:
+                    raise AssertionError(f"K1 at {where}, fold {fold}: the launcher chose "
+                                         "another body than expected")
+                kernels = [("K1", grouped_scan_kernel)]
+                if tc and dt == torch.float32:
+                    kernels.append(("K1 budget grid",
+                                    functools.partial(grouped_scan_kernel, budget=True)))
+                for what, kernel in kernels:
+                    ov, kd = compare_k1(torch, kernel, grouped_scan_plain, gp, gsize, qs, codes,
+                                        normsT, kk, slot_mult, levels, fold)
+                    w = worst.setdefault(what, [1.0, 0.0])
+                    worst[what] = [min(w[0], ov), max(w[1], kd)]
+                if (rowscale_fold_body(qt, Dm, kk, dt, fold) == MMA_BODY) != tc:
+                    raise AssertionError(f"K5 at {where}, fold {fold}: the launcher chose "
+                                         "another body than expected")
+                ov, kd, _ = compare_rowscale(torch, (gp, gsize, q.to(dt).contiguous(), codes,
+                                                     norms, kk, slot_mult, levels, "l2", "fold"),
+                                             fold=fold)
+                w = worst.setdefault("K5", [1.0, 0.0])
+                worst["K5"] = [min(w[0], ov), max(w[1], kd)]
+    log(f"[parity small] folds {SMALL_FOLDS} on C = {C} (K1 and K5: f32 D 128 tensor cores, "
+        f"D 30 CUDA cores, bf16 D 128 tensor cores and 100 CUDA cores; K1 also on the budget "
+        f"grid; kk 10, 100): min overlap / max key diff " + json.dumps(worst))
 
 
 def phase_small_parity_bf16(torch, dev, rng):
@@ -1440,30 +1557,47 @@ def compare_pairs(torch, what, got, want, ties=False, level=0.0):
     return ov, err
 
 
-def compare_rowscale(torch, args, model=False, **chunk_table):
-    """K4 or K5 (args[-1] selects; chunk_table = K4's qsrc, row_off and ct)
-    against its plain version (model: run on ops/split_product.py's model of
-    the tensor-core product instead of the f32 one): winner overlap, key
-    difference of common winners, ghost groups, stats."""
+def compare_rowscale(torch, args, model=False, fold=128, term_scale=False, **chunk_table):
+    """K4 or K5 (args[-1] selects; chunk_table = K4's qsrc, row_off and ct;
+    K5 at fold width `fold`) against its plain version (model: run on
+    ops/split_product.py's model of the tensor-core product instead of the
+    f32 one): winner overlap, key difference of common winners, ghost
+    groups, stats (rowmin and range at rtol = atol = STATS_TOL; with
+    term_scale, rtol counts against the row's product term as well, |q| x
+    the largest |x| of the group's valid lanes, doubled for l2: another
+    order of summation moves a score by a share of that term, and an l2
+    score near 0 is a small difference of large terms)."""
     from quake_tpu_torch.ops.grouped_family import rowscale_scan, rowscale_scan_plain
     from quake_tpu_torch.ops.split_product import bmm_as_split_product
 
     gsize, kk, slot_mult, select = args[1], args[5], args[6], args[-1]
     what = ("K4" if select == "topk" else "K5") + (" (chunk table)" if chunk_table else "")
-    got, got_stats = rowscale_scan(*args, **chunk_table)
+    got, got_stats = rowscale_scan(*args, fold=fold, **chunk_table)
     with bmm_as_split_product() if model else contextlib.nullcontext():
-        want, want_stats = rowscale_scan_plain(*args, **chunk_table)
+        want, want_stats = rowscale_scan_plain(*args, fold=fold, **chunk_table)
     torch.cuda.synchronize()
     alive = gsize > 0
     ghost_ok = (bool((got[~alive] == -1).all()) and bool((got_stats[~alive][:, :, 0] == 0).all())
                 and bool((got_stats[~alive][:, :, 1] == np.float32(1e-20)).all()))
     if not ghost_ok:
         raise AssertionError(f"{what}: ghost groups must write -1 and stats (0, 1e-20)")
-    stats_err = float(((got_stats - want_stats).abs()
-                       / (STATS_TOL + STATS_TOL * want_stats.abs())).max())
+    mag = want_stats.abs()
+    if term_scale:
+        gp, qg, norms, metric = args[0], args[2], args[4], args[8]
+        lane = torch.arange(norms.shape[1], device=norms.device)
+        pn = norms[gp.clamp(min=0).long()]
+        maxx = torch.sqrt(torch.where(lane[None, :] < gsize[:, None].long(), pn,
+                                      torch.zeros_like(pn)).amax(1))
+        term = (2.0 if metric == "l2" else 1.0) * qg.float().norm(dim=2) * maxx[:, None]
+        mag = mag + term[..., None]
+    err = (got_stats - want_stats).abs() / (STATS_TOL + STATS_TOL * mag)
+    stats_err = float(err.max())
     if stats_err > 1.0:
+        worst = int(err.reshape(-1).argmax())
         raise AssertionError(f"{what}: stats beyond rtol = atol = {STATS_TOL} "
-                             f"(worst error / tolerance {stats_err})")
+                             f"(worst error / tolerance {stats_err}, at "
+                             f"{('rowmin', 'range')[worst % 2]} {want_stats.reshape(-1)[worst]}"
+                             f" against {got_stats.reshape(-1)[worst]})")
     g, w = got[alive].reshape(-1, kk), want[alive].reshape(-1, kk)
     lanes = [torch.where(t >= 0, torch.remainder(t, slot_mult), torch.full_like(t, -1))
              for t in (g, w)]
@@ -1479,13 +1613,14 @@ def compare_rowscale(torch, args, model=False, **chunk_table):
 
 
 def compare_k1(torch, kernel, plain, gp, gsize, qg, codes, normsT, kk, slot_mult, levels,
-               model=False):
-    """K1 against its plain version (model: as in compare_rowscale)."""
+               fold=128, model=False):
+    """K1 at fold width `fold` against its plain version (model: as in
+    compare_rowscale)."""
     from quake_tpu_torch.ops.split_product import bmm_as_split_product
 
-    got = kernel(gp, gsize, qg, codes, normsT, kk, slot_mult, levels)
+    got = kernel(gp, gsize, qg, codes, normsT, kk, slot_mult, levels, fold)
     with bmm_as_split_product() if model else contextlib.nullcontext():
-        want = plain(gp, gsize, qg, codes, normsT, kk, slot_mult, levels)
+        want = plain(gp, gsize, qg, codes, normsT, kk, slot_mult, levels, fold)
     torch.cuda.synchronize()
     alive = gsize > 0
     if not bool((got[~alive] == -1).all()):
@@ -2498,7 +2633,7 @@ def product_only_k1(torch, build, gp, gsize, qg, codes, normsT, kk, slot_mult, l
     def launch():
         _ext.check(entry(gp.data_ptr(), gsize.data_ptr(), qg.data_ptr(), codes.data_ptr(),
                          normsT.data_ptr(), scratch.data_ptr(), Gn, qt, Dd, P, C, kk,
-                         float(slot_mult), float(levels), _ext.stream_ptr(qg.device)),
+                         float(slot_mult), float(levels), 128, _ext.stream_ptr(qg.device)),
                    "grouped_scan (product only)")
 
     return launch
@@ -2792,7 +2927,7 @@ def kernel_entry(r: dict) -> dict:
              "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r["bound_by"], "bound_unit": unit, "library_ms": lib}
     for extra in ("shape", "floor_ms", "body", "model_overlap", "model_max_abs_err",
-                  "sampled"):
+                  "sampled", "f128_ms"):
         if extra in r:
             entry[extra] = r[extra]
     if "wide" in r:
@@ -3128,6 +3263,7 @@ def recorded_calls(fn, clone: bool = False):
     K3's; with clone, K1's and K3's tensors are copied too (for a check
     after later operations have written the store)."""
     from quake_tpu_torch.ops import flat_topk as k3_mod
+    from quake_tpu_torch.ops import grouped_family as fam
     from quake_tpu_torch.ops import grouped_scan as k12_mod
 
     k1, k2, k3 = [], [], []
@@ -3148,10 +3284,12 @@ def recorded_calls(fn, clone: bool = False):
         k3.append(kept(a))
         return real[2](*a)
     k12_mod.grouped_scan_kernel, k12_mod.merge_positions, k3_mod.flat_topk = rec1, rec2, rec3
+    fam.grouped_scan_kernel = rec1  # v8 and v9 call K1 from there
     try:
         fn()
     finally:
         k12_mod.grouped_scan_kernel, k12_mod.merge_positions, k3_mod.flat_topk = real
+        fam.grouped_scan_kernel = real[0]
     return k1, k2, k3
 
 
@@ -3176,8 +3314,9 @@ def check_recorded(torch, what: str, calls, summary: dict) -> None:
         name = (("grouped_scan_budget" if budget else "grouped_scan")
                 + ("_bf16" if a[3].dtype == torch.bfloat16 else ""))
         kernel = functools.partial(grouped_scan_kernel, budget=budget)
-        ov, kd = compare_k1(torch, kernel, grouped_scan_plain, *a[:8])
-        note(name, f"{what}: Gn={a[0].shape[0]}, qt={a[2].shape[1]}, kk={a[5]}", ov, kd)
+        ov, kd = compare_k1(torch, kernel, grouped_scan_plain, *a[:9])
+        note(name, f"{what}: Gn={a[0].shape[0]}, qt={a[2].shape[1]}, kk={a[5]}"
+             + (f", fold {a[8]}" if len(a) > 8 and a[8] != 128 else ""), ov, kd)
     for m_packed, kfin, slot_mult in k2:
         compare_k2(torch, merge_positions, merge_positions_plain, m_packed, kfin, slot_mult)
         note("merge_positions", f"{what}: B={m_packed.shape[0]}, pool={m_packed.shape[1]}, "
@@ -3260,7 +3399,8 @@ def phase_aps(torch, dev, x, queries, gt, bf16_idx):
     entry) and v10b against v10; then a pinned oneshot exact_distances=False
     batch on the headline bf16 index after its calibrate_aps, counted and
     checked alike (its K1 budget entry). Returns (summary, the kernels
-    line's grouped_scan_budget and grouped_scan_budget_bf16 entries)."""
+    line's grouped_scan_budget and grouped_scan_budget_bf16 entries, the
+    index, which the fold phase reads)."""
     from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams, _ext
     from quake_tpu_torch.index import APS_FIELDS
     from quake_tpu_torch.ops.grouped_scan import grouped_scan_v10, grouped_scan_v10b
@@ -3420,6 +3560,353 @@ def phase_aps(torch, dev, x, queries, gt, bf16_idx):
         f"{rb['scanned']:.2f}, launches {blaunches}; its K1, K2 and K3 calls against their "
         f"plain versions: {json.dumps(bchecks)}")
     entries.append(budget_entry(torch, bf16_idx, q, oneshot_plan(bf16_idx, q, spb), blaunches))
+    return out, entries, idx
+
+
+def fold_log(msg: str) -> None:
+    log(f"[fold] ({card_line()}) {msg}")
+
+
+def recorded_rowscale(fn):
+    """fn() with the arguments of every K4 and K5 call recorded (through
+    grouped_family.rowscale_scan), each call going through."""
+    from quake_tpu_torch.ops import grouped_family as fam
+
+    seen = []
+    real = fam.rowscale_scan
+
+    def rec(*a, **kw):
+        seen.append((a, kw))
+        return real(*a, **kw)
+    fam.rowscale_scan = rec
+    try:
+        fn()
+    finally:
+        fam.rowscale_scan = real
+    return seen
+
+
+def fold_by_name(torch, dev, idx, queries, gt, nprobe, names, what: str,
+                 twins=None) -> dict:
+    """Each folded scan name of `names` through QUAKE_TPU_KERNEL on idx at
+    nprobe: recall@10 of the NQ_GT queries beside the exact scan of the
+    same probed partitions (the "reference" scan) and, where `twins` has
+    it, the same scan's at fold 128 in an earlier phase; ms per B=BATCH batch with
+    stages, and the launches of one counted batch: K1 (K5 for v7) and K3
+    must launch and K4 (the v3pN fallback) must not; every K1, K2, K3 and
+    K5 call of that batch held to its plain version at the name's fold."""
+    from quake_tpu_torch import SearchParams, _ext
+    from quake_tpu_torch.profiling import StageTimer
+    from quake_tpu_torch.utils import compute_recall
+
+    st = idx.store.state
+    C = st.codes.shape[1]
+    tail = "_bf16" if st.codes.dtype == torch.bfloat16 else ""
+    sp = SearchParams(k=K, nprobe=nprobe)
+    os.environ["QUAKE_TPU_KERNEL"] = "reference"
+    try:
+        ceiling = compute_recall(idx.search(queries[:NQ_GT], sp).ids, gt, K)
+    finally:
+        del os.environ["QUAKE_TPU_KERNEL"]
+    qd = torch.from_numpy(queries[:BATCH]).to(dev)
+    out = {"reference": dict(recall=ceiling)}
+    for name in names:
+        fold = int(name.split("f")[1])
+        if C % fold:
+            raise AssertionError(f"{what}: C={C} is no multiple of {name}'s fold")
+        main = ("rowscale_fold" if name.startswith("v7") else "grouped_scan") + tail
+        os.environ["QUAKE_TPU_KERNEL"] = name
+        try:
+            res = idx.search(queries[:NQ_GT], sp)
+            torch.cuda.synchronize()
+            _ext.reset_launches()
+            _, ids32, _, dists = idx._search_device_full(qd, sp)
+            torch.cuda.synchronize()
+            launches = {k: n for k, n in _ext.launches.items() if n}
+            k5 = []
+            calls = recorded_calls(lambda: k5.extend(recorded_rowscale(
+                lambda: idx._search_device_full(qd, sp))))
+            ms = time_ms(torch, lambda: idx._search_device_full(qd, sp), reps=5, warmup=1)
+            timer = StageTimer(dev)
+            for _ in range(3):
+                idx._search_device_full(qd, sp, stages=timer)
+        finally:
+            del os.environ["QUAKE_TPU_KERNEL"]
+        if (launches.get(main, 0) <= 0 or launches.get("flat_topk", 0) <= 0
+                or launches.get("rowscale_topk" + tail, 0)):
+            raise AssertionError(f"{what}, {name}: {main} and flat_topk must launch and "
+                                 f"rowscale_topk{tail} (the v3pN fallback) must not: {launches}")
+        if ids32.shape != (BATCH, K) or bool((ids32 < 0).any()) or not bool(
+                torch.isfinite(dists).all()):
+            raise AssertionError(f"{what}, {name}: expected {K} ids and finite distances")
+        checks = {}
+        check_recorded(torch, name, calls, checks)
+        for a, kw in k5:
+            ov, kd, serr = compare_rowscale(torch, a, fold=kw.get("fold", 128),
+                                            term_scale=True)
+            checks.setdefault(main, dict(calls=0, min_overlap=1.0, max_key_diff=0.0))
+            c = checks[main]
+            c.update(calls=c["calls"] + 1, min_overlap=min(c["min_overlap"], ov),
+                     max_key_diff=max(c["max_key_diff"], kd))
+        folds = {a[8] for _, a in calls[0]} | {kw.get("fold") for _, kw in k5}
+        if folds != {fold}:
+            raise AssertionError(f"{what}, {name}: the scan ran at folds {folds}, not {fold}")
+        r = compute_recall(res.ids, gt, K)
+        if r < ceiling - FOLD_RECALL_TOL:
+            raise AssertionError(f"{what}, {name}: recall@10 {r} is more than {FOLD_RECALL_TOL} "
+                                 f"below the exact scan's {ceiling}")
+        twin = (twins or {}).get(name)
+        out[name] = dict(recall=r, ms=ms, qps=BATCH / (ms / 1e3), launches=launches,
+                         stages_ms=timer.mean_ms(), checks=checks, recall_fold128=twin)
+        fold_log(f"{what}, nprobe {nprobe}, C {C}: {name}: recall@10 {r:.4f} (exact scan "
+                 f"{ceiling:.4f}" + (f", fold 128 {twin:.4f}" if twin is not None else "")
+                 + f"), B={BATCH} {ms:.3f} ms/batch, stages(ms)="
+                 f"{json.dumps({k: round(v, 4) for k, v in timer.mean_ms().items()})}, launches "
+                 f"{launches}; its calls against their plain versions {json.dumps(checks)}")
+    return out
+
+
+def fold_k1_row(torch, idx, q, pids, fold, name, launches, v8=False, plan=None) -> dict:
+    """A kernels-line row of K1 at `fold` on idx's inputs for the batch q with
+    probe lists pids: the v11 path's (v11_inputs), v8's (build_groups, gpb
+    4) or, with plan (oneshot_plan), the budget grid's; held to its plain
+    version, timed beside K1 at fold 128 on the same inputs, bounded as
+    K1 (the products do not change with the fold)."""
+    from quake_tpu_torch.ops.grouped import build_groups
+    from quake_tpu_torch.ops.grouped_scan import (global_scale, grouped_scan_kernel,
+                                                  grouped_scan_plain, grouped_scan_uses_mma,
+                                                  pad_groups, v11_inputs)
+
+    st = idx.store.state
+    Dd, dt = st.codes.shape[2], st.codes.dtype
+    budget = plan is not None
+    if budget:
+        pids, pair_budget, qt, gpb = plan
+    else:
+        qt = idx._grouped_params(q.shape[0], pids.shape[1])[0]
+        gpb, pair_budget = int(idx._grouped_kernel()[len("v11g"):]), 0
+    inp = v11_inputs(st.codes, st.sizes, st.norms, q, pids, K, "l2", qt, gpb,
+                     pair_budget=pair_budget)
+    kk, slot_mult, levels = inp["kk"], inp["slot_mult"], inp["levels"]
+    if v8:
+        group_pid, qlist, _, _ = build_groups(pids, st.codes.shape[0], qt)
+        gp, ql, gsize, safe_q = pad_groups(group_pid, qlist, st.sizes, 4)
+        q_scaled, normsT, _, _ = global_scale(q, st.norms, "l2", levels)
+        args = (gp, gsize, q_scaled.to(dt)[safe_q].contiguous(), st.codes, normsT, kk,
+                slot_mult, levels)
+        real_q = (ql >= 0).sum(1)
+    else:
+        args = (inp["gp"], inp["group_size"], inp["qg"], st.codes, inp["normsT"], kk,
+                slot_mult, levels)
+        real_q = (inp["tgt"] < pids.numel()).sum(1)
+    if not grouped_scan_uses_mma(qt, Dd, dt, fold, kk):
+        raise AssertionError(f"{name} at qt={qt}, D={Dd}: the launcher must pick the "
+                             "tensor-core body")
+    kernel = functools.partial(grouped_scan_kernel, budget=budget)
+    ov, kd = compare_k1(torch, kernel, grouped_scan_plain, *args, fold)
+    b, groups, scanned = scan_bound(st, args[0], args[1], real_q,
+                                    args[2].numel() * args[2].element_size(), qt, kk, Dd,
+                                    unit=unit_of(name))
+    return dict(name=name, tol=f"winner overlap >= {OVERLAP_TOL}, common keys within 1 level",
+                overlap=ov, max_abs_err=kd, launches=launches, body="tensor cores", fold=fold,
+                shape=(f"B={q.shape[0]}, nprobe={pids.shape[1]}, Gn={args[0].shape[0]}, "
+                       f"qt={qt}, D={Dd}, C={st.codes.shape[1]}, fold {fold}, "
+                       f"{str(dt)[len('torch.'):]}"),
+                ms=time_ms(torch, lambda: kernel(*args, fold)),
+                f128_ms=time_ms(torch, lambda: kernel(*args, 128)),
+                plain_ms=time_ms(torch, lambda: grouped_scan_plain(*args, fold), reps=2,
+                                 warmup=1),
+                bound=b, groups=groups, scanned_rows=scanned)
+
+
+def fold_k5_row(torch, idx, q, pids, fold, name, launches) -> dict:
+    """A kernels-line row of K5 at `fold` on idx's v7 inputs (build_groups,
+    gpb 4, the unscaled queries in the codes' dtype) for the batch q with
+    probe lists pids, as rowscale_rows builds the fold-128 one, timed beside
+    K5 at fold 128."""
+    from quake_tpu_torch.ops.grouped import build_groups, round_query
+    from quake_tpu_torch.ops.grouped_family import (MMA_BODY, rowscale_fold_body, rowscale_scan,
+                                                    rowscale_scan_plain)
+    from quake_tpu_torch.ops.grouped_scan import packed_params, pad_groups
+
+    st = idx.store.state
+    Dd, dt = st.codes.shape[2], st.codes.dtype
+    qt = idx._grouped_params(q.shape[0], pids.shape[1])[0]
+    kk = min(K, st.codes.shape[1])
+    slot_mult, levels = packed_params(st.codes.shape[1])
+    group_pid, qlist, _, _ = build_groups(pids, st.codes.shape[0], qt)
+    gp, ql, gsize, safe_q = pad_groups(group_pid, qlist, st.sizes, 4)
+    rargs = (gp, gsize, round_query(q, dt)[safe_q].contiguous(), st.codes, st.norms, kk,
+             slot_mult, levels, "l2", "fold")
+    if rowscale_fold_body(qt, Dd, kk, dt, fold) != MMA_BODY:
+        raise AssertionError(f"{name} at qt={qt}, D={Dd}: the launcher must pick the "
+                             "tensor-core body")
+    ov, kd, serr = compare_rowscale(torch, rargs, fold=fold, term_scale=True)
+    b, groups, scanned = scan_bound(st, gp, gsize, (ql >= 0).sum(1),
+                                    rargs[2].numel() * rargs[2].element_size(), qt, kk, Dd,
+                                    extra=gp.numel() * qt * 2 * 4, unit=unit_of(name))
+    return dict(name=name, tol=(f"winner overlap >= {OVERLAP_TOL}, common keys within 1 level, "
+                                f"stats rtol = atol = {STATS_TOL} of the row's product term"),
+                overlap=ov, max_abs_err=kd, stats_err=serr, launches=launches,
+                body="tensor cores", fold=fold,
+                shape=(f"B={q.shape[0]}, nprobe={pids.shape[1]}, Gn={gp.shape[0]}, qt={qt}, "
+                       f"D={Dd}, C={st.codes.shape[1]}, fold {fold}, "
+                       f"{str(dt)[len('torch.'):]}"),
+                ms=time_ms(torch, lambda: rowscale_scan(*rargs, fold=fold), reps=5),
+                f128_ms=time_ms(torch, lambda: rowscale_scan(*rargs), reps=5),
+                plain_ms=time_ms(torch, lambda: rowscale_scan_plain(*rargs, fold=fold), reps=2,
+                                 warmup=1),
+                bound=b, groups=groups, scanned_rows=scanned)
+
+
+def xla_merge(torch, dev, idx, queries, nprobe) -> dict:
+    """merge="xla" (the pool merge in tensor operations) against K2 on idx's
+    v11 path at B=BATCH: the same ids and scores, no K2 launch, and each
+    merge's stage ms (StageTimer, 5 runs each)."""
+    from quake_tpu_torch import _ext
+    from quake_tpu_torch.ops.grouped_scan import grouped_scan_v11
+    from quake_tpu_torch.profiling import StageTimer
+
+    st = idx.store.state
+    q = torch.from_numpy(queries[:BATCH]).to(dev)
+    pids = probe_lists(torch, idx, q, nprobe)
+    kw = dict(qt=idx._grouped_params(BATCH, nprobe)[0],
+              gpb=int(idx._grouped_kernel()[len("v11g"):]),
+              placement=placement_of(idx, BATCH, nprobe))
+    args = (st.codes, st.ids, st.sizes, st.norms, q, pids, K, "l2")
+    out, res = {}, {}
+    for merge in ("pallas", "xla"):
+        torch.cuda.synchronize()
+        _ext.reset_launches()
+        res[merge] = grouped_scan_v11(*args, merge=merge, **kw)
+        torch.cuda.synchronize()
+        launches = {k: n for k, n in _ext.launches.items() if n}
+        timer = StageTimer(dev)
+        for _ in range(5):
+            timer.start()
+            grouped_scan_v11(*args, merge=merge, stages=timer, **kw)
+            timer.stop()
+        out[merge] = dict(launches=launches, stages_ms=timer.mean_ms())
+    if out["xla"]["launches"] != {"grouped_scan": 1} or out["pallas"]["launches"] != {
+            "grouped_scan": 1, "merge_positions": 1}:
+        raise AssertionError(f"merge='xla' must launch K1 and no K2, merge='pallas' K1 and K2: "
+                             f"{out}")
+    for i, what in ((1, "ids"), (0, "scores"), (2, "scanned")):
+        if not torch.equal(res["xla"][i], res["pallas"][i]):
+            raise AssertionError(f"merge='xla' {what} differ from K2's")
+    x, p = out["xla"]["stages_ms"], out["pallas"]["stages_ms"]
+    fold_log(f"merge=\"xla\" on the main index (B={BATCH}, nprobe {nprobe}, {kw['placement']} "
+             f"placement): ids, scores and scanned equal K2's; no K2 launch; merge stage "
+             f"{x['merge']:.4f} ms (K2's {p['merge']:.4f} ms); stages xla "
+             f"{json.dumps({k: round(v, 4) for k, v in x.items()})}, pallas "
+             f"{json.dumps({k: round(v, 4) for k, v in p.items()})}")
+    return out
+
+
+def scan_latency_profile(torch, dev, idx) -> dict:
+    """ListScanLatencyEstimator.profile_scan_latency on the card at the
+    default grid (device time of flat_scan a point), its seconds, and
+    L(n, 16) at MAINT_RATIO_N beside the packaged grid's and the grouped
+    scan's (profile_grouped_latency at those points, the index's kernel)."""
+    from quake_tpu_torch.maintenance import ListScanLatencyEstimator
+
+    Dd = idx.d()
+    est = ListScanLatencyEstimator(Dd, device=dev, packaged=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est.profile_scan_latency()
+    seconds = time.perf_counter() - t0
+    grid = est.latency_grid
+    if (est.grid_source != "profiled" or grid.shape != (len(est.n_values), len(est.k_values))
+            or not np.isfinite(grid).all() or not (grid > 0).all()):
+        raise AssertionError(f"profile_scan_latency: a grid of {grid.shape}, source "
+                             f"{est.grid_source}, finite and positive: {grid}")
+    packaged = ListScanLatencyEstimator(Dd, device=dev)
+    grouped = ListScanLatencyEstimator(Dd, n_values=list(MAINT_RATIO_N), k_values=[16, 64],
+                                       device=dev, packaged=False)  # two k: it interpolates
+    grouped.profile_grouped_latency(kernel=idx._grouped_kernel(), qt=idx._k1_qt(32))
+    points = {n: dict(scan=est.estimate_scan_latency(n, 16),
+                      packaged=packaged.estimate_scan_latency(n, 16),
+                      grouped=grouped.estimate_scan_latency(n, 16)) for n in MAINT_RATIO_N}
+    fold_log(f"profile_scan_latency at the default grid ({len(est.n_values)} x "
+             f"{len(est.k_values)} points, D={Dd}): {seconds:.2f} s; L(n, 16) in ns, flat scan "
+             f"of one query / packaged grid ({packaged.grid_source}) / grouped scan profiled "
+             f"({idx._grouped_kernel()}, a (query, partition) pair): "
+             + json.dumps({n: {k: round(v, 1) for k, v in p.items()} for n, p in points.items()}))
+    return dict(seconds=seconds, grid=grid.tolist(), points=points)
+
+
+def phase_fold(torch, dev, aps_idx, idx, bf16_idx, queries, gt, nprobe, bf16_nprobe, twins):
+    """Folds other than 128 at full width (phase 21 of the module's
+    docstring): the folded names on phase 12's index (aps_idx, C 1536) at
+    FOLD_NPROBE, at fold 64 on the main f32 (idx, C 7552) and the headline
+    bf16 index (fold_by_name), the pinned oneshot under v11g4f256 (K1 on the
+    budget grid at fold 256), the kernels line's fold entries (fold_k1_row,
+    fold_k5_row), merge="xla" against K2 on the main index (xla_merge) and
+    profile_scan_latency on the card. twins: {"main": {name: recall@10 of
+    the same scan at fold 128}, "bf16": {...}} from the earlier phases.
+    Returns (summary, the fold entries)."""
+    from quake_tpu_torch import SearchParams, _ext
+
+    out = dict(aps=fold_by_name(torch, dev, aps_idx, queries, gt, FOLD_NPROBE, FOLD_APS_NAMES,
+                                "APS-cell index"),
+               main=fold_by_name(torch, dev, idx, queries, gt, nprobe, FOLD_MAIN_NAMES,
+                                 "main f32 index", twins["main"]),
+               bf16=fold_by_name(torch, dev, bf16_idx, queries, gt, bf16_nprobe,
+                                 FOLD_MAIN_NAMES, "headline bf16 index", twins["bf16"]))
+    q = torch.from_numpy(queries[:BATCH]).to(dev)
+    qa = torch.from_numpy(queries[:APS_BATCH]).to(dev)
+    spb = SearchParams(k=K, recall_target=APS_TARGET, aps_mode="oneshot")
+    fold_b = int(FOLD_ONESHOT.split("f")[1])
+    os.environ["QUAKE_TPU_KERNEL"] = FOLD_ONESHOT
+    try:
+        torch.cuda.synchronize()
+        _ext.reset_launches()
+        aps_idx._search_device_full(qa, spb)
+        torch.cuda.synchronize()
+        blaunches = {k: n for k, n in _ext.launches.items() if n}
+        calls = recorded_calls(lambda: aps_idx._search_device_full(qa, spb))
+    finally:
+        del os.environ["QUAKE_TPU_KERNEL"]
+    plan = oneshot_plan(aps_idx, qa, spb)  # the probe plan and budget: the fold changes neither
+    if blaunches.get("grouped_scan_budget", 0) <= 0 or {a[8] for _, a in calls[0]} != {fold_b}:
+        raise AssertionError(f"the pinned oneshot under {FOLD_ONESHOT} must run K1 on the "
+                             f"budget grid at fold {fold_b}: {blaunches}")
+    bchecks = {}
+    check_recorded(torch, f"oneshot {FOLD_ONESHOT}", calls, bchecks)
+    out["oneshot"] = dict(name=FOLD_ONESHOT, launches=blaunches, checks=bchecks)
+    fold_log(f"APS-cell index, pinned oneshot at B={APS_BATCH} under {FOLD_ONESHOT}: launches "
+             f"{blaunches}; its calls against their plain versions {json.dumps(bchecks)}")
+
+    def count(part, name, kernel):
+        return out[part][name]["launches"].get(kernel, 0)
+    pa = probe_lists(torch, aps_idx, q, FOLD_NPROBE)
+    pm = probe_lists(torch, idx, q, nprobe)
+    pb = probe_lists(torch, bf16_idx, q, bf16_nprobe)
+    rows = [fold_k1_row(torch, idx, q, pm, 64, "grouped_scan/f64",
+                        count("main", "v11g4f64", "grouped_scan"))]
+    aps_folds = [int(n.split("f")[1]) for n in FOLD_APS_NAMES]  # v11 x 4, v10, v8, v7
+    rows += [fold_k1_row(torch, aps_idx, q, pa, f, entry, count("aps", n, "grouped_scan"))
+             for entry, n, f in zip(("grouped_scan/f256", "grouped_scan/f384",
+                                     "grouped_scan/f512"), FOLD_APS_NAMES[1:4], aps_folds[1:4])]
+    rows.append(fold_k1_row(torch, aps_idx, q, pa, aps_folds[5], "grouped_scan/v8f256",
+                            count("aps", FOLD_APS_NAMES[5], "grouped_scan"), v8=True))
+    rows.append(fold_k1_row(torch, aps_idx, qa, None, fold_b, "grouped_scan_budget/f256",
+                            blaunches["grouped_scan_budget"], plan=plan))
+    rows.append(fold_k5_row(torch, idx, q, pm, 64, "rowscale_fold/v7f64",
+                            count("main", "v7g4f64", "rowscale_fold")))
+    rows.append(fold_k5_row(torch, aps_idx, q, pa, aps_folds[6], "rowscale_fold/v7f256",
+                            count("aps", FOLD_APS_NAMES[6], "rowscale_fold")))
+    rows.append(fold_k1_row(torch, bf16_idx, q, pb, 64, "grouped_scan_bf16/f64",
+                            count("bf16", "v11g4f64", "grouped_scan_bf16")))
+    rows.append(fold_k5_row(torch, bf16_idx, q, pb, 64, "rowscale_fold_bf16/v7f64",
+                            count("bf16", "v7g4f64", "rowscale_fold_bf16")))
+    for r in rows:
+        fold_log(f"{r['name']}: {r['ms']:.4f} ms at fold {r['fold']}, {r['f128_ms']:.4f} ms at "
+                 f"fold 128 on the same inputs ({r['shape']})")
+    entries = [kernel_entry(r) for r in rows]
+    out["xla_merge"] = xla_merge(torch, dev, idx, queries, nprobe)
+    out["scan_latency"] = scan_latency_profile(torch, dev, idx)
     return out, entries
 
 
@@ -4927,9 +5414,14 @@ def main() -> int:
     bf16_scans, bf16_rows = phase_bf16_by_name(torch, dev, bf16_idx, queries, gt,
                                                headline["nprobe"], headline["recall"])
     kernels.extend(bf16_rows)
-    aps, k1_budget = phase_aps(torch, dev, x, queries, gt, bf16_idx)
+    aps, k1_budget, aps_idx = phase_aps(torch, dev, x, queries, gt, bf16_idx)
     kernels.extend(k1_budget)
-    del bf16_idx
+    fold, fold_rows = phase_fold(
+        torch, dev, aps_idx, idx, bf16_idx, queries, gt, main_out["nprobe"], headline["nprobe"],
+        {"main": {"v11g4f64": main_out["recall"], "v7g4f64": by_name["v7g4"]["recall"]},
+         "bf16": {"v7g4f64": bf16_scans["by_name"]["v7g4"]["recall"]}})
+    kernels.extend(fold_rows)
+    del bf16_idx, aps_idx
     torch.cuda.empty_cache()
     bf16_parent, k3_bf16 = phase_bf16_parent(torch, dev, x, queries, gt, idx, main_out["nprobe"])
     kernels.append(k3_bf16)
@@ -4948,7 +5440,7 @@ def main() -> int:
     log("[summary] " + json.dumps(dict(main_out, by_name=by_name, direct=direct,
                                        latency=latency, wide=wide, headline_bf16=headline,
                                        bf16_scans=bf16_scans, bf16_parent=bf16_parent,
-                                       shard=shard, aps=aps, multilevel=multilevel,
+                                       shard=shard, aps=aps, fold=fold, multilevel=multilevel,
                                        spill=spill,
                                        workload=workload,
                                        mutation=mutation, maintenance=maintenance)))

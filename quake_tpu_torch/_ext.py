@@ -53,13 +53,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argtypes; every launcher returns a cudaError_t as int, the
 # qk_grouped_scan_uses_mma and qk_*_body entries the body chosen.
 _SIGNATURES = {
-    # gp, gsize, qg, codes, normsT, out, Gn, qt, D, P, C, kk, slot_mult, levels, stream
-    "qk_grouped_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    # gp, gsize, qg, codes, normsT, out, Gn, qt, D, P, C, kk, slot_mult, levels, fold,
+    # stream
+    "qk_grouped_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P),
     # the same on bf16 qg and codes
-    "qk_grouped_scan_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
-    # qt, D: whether K1's launcher runs the tensor-core body (f32, bf16 codes)
-    "qk_grouped_scan_uses_mma": (_I, _I),
-    "qk_grouped_scan_bf16_uses_mma": (_I, _I),
+    "qk_grouped_scan_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P),
+    # qt, D, fold, kk: whether K1's launcher runs the tensor-core body (f32,
+    # bf16 codes)
+    "qk_grouped_scan_uses_mma": (_I, _I, _I, _I),
+    "qk_grouped_scan_bf16_uses_mma": (_I, _I, _I, _I),
     # qt, D, kk, chunked, elem_bytes: the body K4's launcher runs (2 tensor
     # cores, 1 the persistent chunk-table body, 0 one block a group)
     "qk_rowscale_topk_body": (_I, _I, _I, _I, _I),
@@ -74,11 +76,12 @@ _SIGNATURES = {
     # Gn, qt, D, P, C, kk, is_l2, slot_mult, levels, stream
     "qk_rowscale_topk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                          _F, _P),
-    # the same without qsrc and row_off
-    "qk_rowscale_fold": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
-    # qt, D, kk, elem_bytes: the body K5's launcher runs (2 tensor cores, 0
-    # CUDA cores)
-    "qk_rowscale_fold_body": (_I, _I, _I, _I),
+    # the same without qsrc and row_off, with the fold width before the stream
+    "qk_rowscale_fold": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
+                         _P),
+    # qt, D, kk, elem_bytes, fold: the body K5's launcher runs (2 tensor
+    # cores, 0 CUDA cores)
+    "qk_rowscale_fold_body": (_I, _I, _I, _I, _I),
     # gp, gsize, qg, codes, norms, ids (gsize and norms, or ids, may be null),
     # out_s, out_i, Gn, qt, D, P, C, kk, is_l2, id_mode, stream
     "qk_exact_topk": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),

@@ -25,8 +25,9 @@ from quake_tpu_torch.ops.grouped_chunked import (grouped_scan_v4, grouped_scan_v
 from quake_tpu_torch.ops.grouped_exact import grouped_scan_v2, grouped_scan_v3
 from quake_tpu_torch.ops.grouped_family import (grouped_scan_v3p, grouped_scan_v3pn,
                                                 grouped_scan_v7, grouped_scan_v8)
-from quake_tpu_torch.ops.grouped_scan import (FOLD, budget_sort_key_fits, grouped_scan_v10,
-                                              grouped_scan_v10b, grouped_scan_v11, sort_key_fits)
+from quake_tpu_torch.ops.grouped_scan import (FOLD, budget_sort_key_fits, check_fold,
+                                              grouped_scan_v10, grouped_scan_v10b,
+                                              grouped_scan_v11, sort_key_fits)
 from quake_tpu_torch.ops.scan import (NEG_INF, dedup_topk, flat_scan, ivf_scan, merge_topk,
                                       scores_to_distances, topk_from_scores)
 
@@ -145,13 +146,17 @@ def grouped_scan(codes, ids, sizes, norms, q, pids, k: int, metric: str,
     scans (K6); "reference" runs the plain exact scan; any other name, "xla"
     included, runs grouped_scan_xla, `group_chunk` groups at a time. As in
     the JAX package, a folded name falls back to v3pN with its gpb when
-    C % fold != 0. dense promises that every pid is valid (fixed-nprobe
+    C % fold != 0. The fold reaches kernels K1 (v8-v11, v10b) and K5 (v7)
+    on every device; the pool merge K2 keeps 128, as in the JAX package.
+    The folds served are 32, 64 and the multiples of 128
+    (ops/grouped_scan.py::fold_served); any other fold that divides C
+    raises ValueError naming them (the JAX kernels run it in interpret mode
+    only). dense promises that every pid is valid (fixed-nprobe
     semantics); v11 needs it and rides v10 without it. The v11 placement is
     sorted while its uint32 key fits, else argsort, or v10 where
     QUAKE_TPU_V11_OVERFLOW=v10; QUAKE_TPU_V11_PLACEMENT=argsort forces
     argsort where the key fits (both read at each call, as in the JAX
-    package). Folds other than 128 (with C % fold == 0) raise
-    NotImplementedError. dedup (a spilled store: each vector in two
+    package). dedup (a spilled store: each vector in two
     partitions, no id twice in a result row) reaches every scan's tail as
     in the JAX package (v10/v11 take the general pool tail, without kernel
     K2); v2, v3 and v3p raise the JAX package's ValueError. exact=False
@@ -185,16 +190,14 @@ def grouped_scan(codes, ids, sizes, norms, q, pids, k: int, metric: str,
         if codes.shape[1] % fold:
             return grouped_scan_v3pn(codes, ids, sizes, norms, q, pids, k, metric, qt=qt,
                                      gpb=gpb, dedup=dedup, stages=stages)
-        if fold != FOLD:
-            raise NotImplementedError(
-                f"fold={fold}: kernels K1, K2 and K5 fold by 128 (ROADMAP Queue 2, "
-                "what the grouped-scan slice left out)")
+        check_fold(kernel, fold, codes.shape[1])
         if pair_budget > 0 and not dense and name in ("v10", "v11"):
             placement = ("sorted" if name == "v11" and budget_sort_key_fits(
                 q.shape[0], pids.shape[1], pair_budget, codes.shape[0], qt, gpb) else "scatter")
             return grouped_scan_v10b(codes, ids, sizes, norms, q, pids, k, metric,
-                                     pair_budget=pair_budget, qt=qt, gpb=gpb, dedup=dedup,
-                                     exact=exact, placement=placement, stages=stages)
+                                     pair_budget=pair_budget, qt=qt, gpb=gpb, fold=fold,
+                                     dedup=dedup, exact=exact, placement=placement,
+                                     stages=stages)
         if name == "v11" and not dense:
             name = "v10"  # masked pid matrices ride the scatter placement
         placement = "sorted"
@@ -210,15 +213,16 @@ def grouped_scan(codes, ids, sizes, norms, q, pids, k: int, metric: str,
                 placement = "argsort"
         if name == "v7":
             return grouped_scan_v7(codes, ids, sizes, norms, q, pids, k, metric, qt=qt,
-                                   gpb=gpb, dedup=dedup, stages=stages)
+                                   gpb=gpb, fold=fold, dedup=dedup, stages=stages)
         if name in ("v8", "v9"):  # v9 computes v8's function (grouped_family.py)
             return grouped_scan_v8(codes, ids, sizes, norms, q, pids, k, metric, qt=qt,
-                                   gpb=gpb, dedup=dedup, stages=stages)
+                                   gpb=gpb, fold=fold, dedup=dedup, stages=stages)
         if name == "v10":
             return grouped_scan_v10(codes, ids, sizes, norms, q, pids, k, metric, qt=qt,
-                                    gpb=gpb, dedup=dedup, exact=exact, stages=stages)
+                                    gpb=gpb, fold=fold, dedup=dedup, exact=exact,
+                                    stages=stages)
         return grouped_scan_v11(codes, ids, sizes, norms, q, pids, k, metric,
-                                qt=qt, gpb=gpb, dedup=dedup, exact=exact,
+                                qt=qt, gpb=gpb, fold=fold, dedup=dedup, exact=exact,
                                 placement=placement, stages=stages)
     m = _V3PN.match(kernel)
     if m is not None:

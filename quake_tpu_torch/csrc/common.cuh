@@ -1,10 +1,11 @@
 // Helpers shared by the package's CUDA kernels (csrc/*.cu): the thread
-// layout, the fold-128 top-2 selection, the (score, index) pair order and the
-// per-row candidate buffer of the exact selections, the shared-memory loads
-// and the tile product on the CUDA cores (tile_dots), and, for kernels K1,
-// K3-K9 and multi_topk, the tile product on the tensor cores with its
-// asynchronous loads (mma_tile, segment_load_async) and the ring's shape;
-// for K1 on bf16 codes the bf16 tile product (mma_tile_bf16).
+// layout, the fold-128 top-2 selection and the other fold widths of K1 and
+// K5, the (score, index) pair order and the per-row candidate buffer of the
+// exact selections, the shared-memory loads and the tile product on the
+// CUDA cores (tile_dots), and, for kernels K1, K3-K9 and multi_topk, the tile
+// product on the tensor cores with its asynchronous loads (mma_tile,
+// segment_load_async) and the ring's shape; for K1 on bf16 codes the bf16
+// tile product (mma_tile_bf16).
 // Everything is in an anonymous namespace: each source gets its own copy.
 
 #pragma once
@@ -239,11 +240,15 @@ __device__ __forceinline__ void fold2(float& m1, float& m2, float v) {
   m1 = fmaxf(m1, v);
 }
 
+// The maximum of a row's m1 columns held by a warp (4 columns per lane).
+__device__ __forceinline__ float select_round_max(const float (&m1)[4]) {
+  return warp_max(fmaxf(fmaxf(m1[0], m1[1]), fmaxf(m1[2], m1[3])));
+}
+
 // One selection round over a row held by a warp (4 columns per lane):
 // returns the row maximum and demotes the columns holding it.
 __device__ __forceinline__ float select_round(float (&m1)[4], float (&m2)[4]) {
-  float b = fmaxf(fmaxf(m1[0], m1[1]), fmaxf(m1[2], m1[3]));
-  b = warp_max(b);
+  const float b = select_round_max(m1);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     if (m1[j] == b) {
@@ -263,16 +268,26 @@ __device__ __forceinline__ float packed_max(unsigned mask, float v) {
 
 // k selection rounds over R rows a warp holds (4 columns a lane each, as in
 // select_round), the rows' reductions side by side. emit(r, i, best) runs on
-// every lane after round i of row r.
-template <int R, typename Emit>
+// every lane after round i of row r. With kList the rounds also run over each
+// row's list of an earlier fold block (see select_round_list), lists + (warp +
+// 8 r) k.
+template <int R, bool kList = false, typename Emit>
 __device__ __forceinline__ void select_rounds(float (&m1)[R][4], float (&m2)[R][4], int k,
-                                              Emit emit) {
-  for (int i = 0; i < k; ++i) {
-    float b[R];
+                                              Emit emit, const float* lists = nullptr) {
+  int h[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r)
+  for (int r = 0; r < R; ++r) h[r] = 0;
+  for (int i = 0; i < k; ++i) {
+    float b[R], l[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
       b[r] = packed_max(0xffffffffu,
                         fmaxf(fmaxf(m1[r][0], m1[r][1]), fmaxf(m1[r][2], m1[r][3])));
+      if constexpr (kList) {
+        l[r] = h[r] < k ? lists[(size_t)((threadIdx.x >> 5) + kWarps * r) * k + h[r]] : -1.0f;
+        b[r] = fmaxf(b[r], l[r]);
+      }
+    }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
 #pragma unroll
@@ -282,9 +297,116 @@ __device__ __forceinline__ void select_rounds(float (&m1)[R][4], float (&m2)[R][
           m2[r][j] = -1.0f;
         }
       }
+      if constexpr (kList) h[r] += (h[r] < k && l[r] == b[r]) ? 1 : 0;
       emit(r, i, b[r]);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// Fold widths other than 128 (the JAX package's "f{fold}" names; kernels K1
+// and K5). The tile layouts stay on 128-row segments; the fold width F is a
+// runtime parameter of its own, served in two forms that compute the JAX
+// function (pallas_grouped.py::_v7_fold_rounds) exactly. Packed values are
+// distinct within a row (the lane is part of them), so the top two of a union
+// of columns are the top two of the parts' top twos, and kk rounds emit the kk
+// largest of all the columns' (m1, m2), whatever order the columns took.
+//
+//   F = 32, 64 (dividing 128): the state stays on 128 columns; at a group's end
+//      the columns c, c + F, ... merge into column c (fold_narrow). In the
+//      rounds' layout lane l owns columns l + 32 j, so the merge needs no
+//      exchange: j merges into j mod F / 32.
+//   F = 128 m: segment s feeds fold block s mod m. A group's segments run in
+//      fold-block order (block 0: segments 0, m, 2 m, ...; then block 1, ...),
+//      so one 128-column state serves every block in turn. At a block's end its
+//      rounds run over the block's columns and the row's list of the blocks
+//      before it (select_round_list): the kk largest of the union, which is the
+//      kk largest of all of the row's F columns once the last block has run.
+//      The state is that of F = 128 whatever m is, and the list takes kk values
+//      a row of shared memory, so every m whose F divides C is served.
+// ---------------------------------------------------------------------------
+
+// Fold blocks of a fold width: m for F = 128 m, else 1.
+__host__ __device__ inline int fold_blocks(int fold) { return fold > kFold ? fold / kFold : 1; }
+
+// Values a row of the fold lists takes in shared memory: kk where m > 1 (K5
+// keeps them where K4 keeps its candidate buffers), else none.
+inline int fold_list_len(int fold, int kk) { return fold_blocks(fold) > 1 ? kk : 0; }
+
+// The segment after s of a group of nseg segments in fold-block order (m
+// blocks), or -1 after the last.
+__host__ __device__ inline int next_fold_segment(int s, int nseg, int m) {
+  if (s + m < nseg) return s + m;
+  const int b = s % m + 1;
+  return b < m && b < nseg ? b : -1;
+}
+
+// The i-th segment of a group of nseg segments in fold-block order.
+__host__ __device__ inline int fold_order_segment(int i, int nseg, int m) {
+  for (int b = 0; b < m && b < nseg; ++b) {
+    const int cnt = (nseg - 1 - b) / m + 1;
+    if (i < cnt) return b + i * m;
+    i -= cnt;
+  }
+  return -1;
+}
+
+// Column (b1, b2) into (a1, a2): the top two of the union.
+__device__ __forceinline__ void merge_top2(float& a1, float& a2, float b1, float b2) {
+  a2 = fmaxf(fminf(a1, b1), fmaxf(a2, b2));
+  a1 = fmaxf(a1, b1);
+}
+
+// F = 32 or 64: a warp's R rows in the rounds' layout folded from 128 columns
+// to F; the columns a lane no longer owns read -1 (they never win a round that
+// a value can win). Any other F leaves the state as it is.
+template <int R>
+__device__ __forceinline__ void fold_narrow(float (&m1)[R][4], float (&m2)[R][4], int fold) {
+  if (fold != 32 && fold != 64) return;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    merge_top2(m1[r][0], m2[r][0], m1[r][2], m2[r][2]);
+    merge_top2(m1[r][1], m2[r][1], m1[r][3], m2[r][3]);
+    m1[r][2] = m2[r][2] = m1[r][3] = m2[r][3] = -1.0f;
+    if (fold == 32) {
+      merge_top2(m1[r][0], m2[r][0], m1[r][1], m2[r][1]);
+      m1[r][1] = m2[r][1] = -1.0f;
+    }
+  }
+}
+
+// One selection round over a row held by a warp (select_round) and the row's
+// list L of the fold blocks before this one: kk values, descending, -1 after
+// its end, its head at h. The round's maximum is the larger of the columns'
+// and the head's; the head moves on when it wins (a value of the list differs
+// from every column's: its lane lies in another block).
+__device__ __forceinline__ float select_round_list(float (&m1)[4], float (&m2)[4], const float* L,
+                                                   int& h, int kk) {
+  const float l = h < kk ? L[h] : -1.0f;
+  const float b = fmaxf(select_round_max(m1), l);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (m1[j] == b) {
+      m1[j] = m2[j];
+      m2[j] = -1.0f;
+    }
+  }
+  if (h < kk && l == b) ++h;
+  return b;
+}
+
+// The rows [warp + 8 r] of og [qt][kk] (the lists the blocks before this one
+// left) into L [qt][kk]: only the warp's own rows, which its lanes wrote.
+template <int R>
+__device__ __forceinline__ void load_lists(float* L, const float* og, int kk) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = warp + kWarps * r;
+    for (int e = lane; e < kk; e += 32) L[row * kk + e] = og[row * kk + e];
+  }
+  __syncwarp();
 }
 
 // An operand element as f32: a bf16 value converts exactly.

@@ -21,7 +21,9 @@
 //   K5 (rowscale_fold) — fold-128 top-2 then kk rounds, as kernel K1 (fold
 //      column = lane % 128). It too needs the row's range first: a top-2 by
 //      raw score is not the top-2 by packed value, whose keys tie within a
-//      level and break the tie by the larger lane.
+//      level and break the tie by the larger lane. Other fold widths (32, 64,
+//      128 m) as K1 serves them (common.cuh): the tensor-core body selects in
+//      fold-block order, its fold lists where K4 keeps its buffers.
 //
 // Bound on the H100: operations, 2 D flops a (real query row, valid lane)
 // pair of a pass, against 4 (D + 1) bytes of slab and norms a lane (qt / 2 =
@@ -254,17 +256,18 @@ __device__ __forceinline__ void emit_rows(const float* buf, int cap, const int (
   }
 }
 
-// One pass over the group's segments: acc = <q, x> for the R x 4 (row,
-// column) pairs this thread owns, then f(r, j, ln, ok, score). With
-// load = false the one segment that the previous pass left in shared memory
-// is used again (size <= 128).
+// One pass over the group's segments s0, s0 + sstep, ...: acc = <q, x> for
+// the R x 4 (row, column) pairs this thread owns, then f(r, j, ln, ok,
+// score). With load = false the one segment that the previous pass left in
+// shared memory is used again (size <= 128).
 template <int R, typename T, typename F>
 __device__ __forceinline__ void score_pass(const float* qs, float* seg, const T* slab,
                                            const float* nrm, int size, int D, int Dp,
-                                           bool l2, F&& f, bool load = true) {
+                                           bool l2, F&& f, bool load = true, int s0 = 0,
+                                           int sstep = 1) {
   const int lane = threadIdx.x & 31;
   const int nseg = (size + kFold - 1) / kFold;
-  for (int s = 0; s < nseg; ++s) {
+  for (int s = s0; s < nseg; s += sstep) {
     if (load) {
       __syncthreads();  // previous segment fully consumed (and q tile written)
       load_segment(seg, slab, s * kFold, size, D, Dp);
@@ -287,19 +290,21 @@ __device__ __forceinline__ void score_pass(const float* qs, float* seg, const T*
   }
 }
 
-template <int R, bool kFoldSelect, typename T>
+// kBlocks (K5 at fold = 128 m, m > 1): the fold blocks of common.cuh; the
+// other instantiations keep F = 128's code.
+template <int R, bool kFoldSelect, typename T, bool kBlocks = false>
 __global__ void __launch_bounds__(kThreads)
 rowscale_scan_kernel(const int* __restrict__ gp, const int* __restrict__ gsize,
                      const int* __restrict__ qsrc, const int* __restrict__ row_off,
                      const T* __restrict__ qg, const T* __restrict__ codes,
                      const float* __restrict__ norms, float* __restrict__ out,
                      float* __restrict__ stats, int D, int Dp, int C, int kk, int cap,
-                     int is_l2, float slot_mult, float levels) {
+                     int is_l2, float slot_mult, float levels, int fold) {
   constexpr int qt = kWarps * R;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                         // [qt][Dp]
   float* seg = qs + qt * Dp;                // [128][Dp + 1]
-  float* buf = seg + kFold * (Dp + 1);      // [qt][cap] (K4 only)
+  float* buf = seg + kFold * (Dp + 1);      // [qt][cap]: K4's buffers, K5's fold lists
   const int g = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int off = row_off ? row_off[g] : 0;
@@ -348,24 +353,43 @@ rowscale_scan_kernel(const int* __restrict__ gp, const int* __restrict__ gsize,
     }
   }
 
-  // Pass 2: the same scores, quantized with the row's range, packed, selected.
+  // Pass 2: the same scores, quantized with the row's range, packed, selected
+  // (K5: a fold block at a time, common.cuh).
   if constexpr (kFoldSelect) {
-    float m1[R][4], m2[R][4];
+    const int nseg = (size + kFold - 1) / kFold;
+    const int fb = kBlocks ? fold_blocks(fold) : 1;
+    for (int b = 0; b < fb && b < nseg; ++b) {
+      float m1[R][4], m2[R][4];
 #pragma unroll
-    for (int r = 0; r < R; ++r)
+      for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) m1[r][j] = m2[r][j] = -1.0f;
-    score_pass<R>(qs, seg, slab, nrm, size, D, Dp, l2,
-                  [&](int r, int j, int ln, bool ok, float sc) {
-                    const float key = floorf((sc - mn[r]) * scale[r]);
-                    fold2(m1[r][j], m2[r][j], ok ? key * slot_mult + (float)ln : -1.0f);
-                  });
+        for (int j = 0; j < 4; ++j) m1[r][j] = m2[r][j] = -1.0f;
+      score_pass<R>(qs, seg, slab, nrm, size, D, Dp, l2,
+                    [&](int r, int j, int ln, bool ok, float sc) {
+                      const float key = floorf((sc - mn[r]) * scale[r]);
+                      fold2(m1[r][j], m2[r][j], ok ? key * slot_mult + (float)ln : -1.0f);
+                    }, true, b, fb);
+      fold_narrow<R>(m1, m2, fold);
+      if (kBlocks && b > 0) {  // the rounds also run over the list of the blocks before
+        load_lists<R>(buf, og, kk);
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int row = warp + kWarps * r;
-      for (int i = 0; i < kk; ++i) {
-        const float b = select_round(m1[r], m2[r]);
-        if (lane == 0) og[row * kk + i] = b;
+        for (int r = 0; r < R; ++r) {
+          const int row = warp + kWarps * r;
+          int h = 0;
+          for (int i = 0; i < kk; ++i) {
+            const float v = select_round_list(m1[r], m2[r], buf + row * kk, h, kk);
+            if (lane == 0) og[row * kk + i] = v;
+          }
+        }
+        continue;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int row = warp + kWarps * r;
+        for (int i = 0; i < kk; ++i) {
+          const float v = select_round(m1[r], m2[r]);
+          if (lane == 0) og[row * kk + i] = v;
+        }
       }
     }
   } else {
@@ -402,22 +426,27 @@ template <bool kFoldSelect, typename T>
 int launch_rowscale(const void* gp, const void* gsize, const void* qsrc, const void* row_off,
                     const void* qg, const void* codes,
                     const void* norms, void* out, void* stats, int Gn, int qt, int D, int C,
-                    int kk, int is_l2, float slot_mult, float levels, void* stream) {
+                    int kk, int is_l2, float slot_mult, float levels, void* stream,
+                    int fold = kFold) {
   if (Gn <= 0) return (int)cudaGetLastError();
   const int Dp = padded_dim(D);
-  const int cap = kFoldSelect ? 0 : topk_cap(kk);
+  const int cap = kFoldSelect ? fold_list_len(fold, kk) : topk_cap(kk);
   const size_t smem = (size_t)(qt * Dp + kFold * (Dp + 1) + qt * cap) * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
-#define QK_ROWSCALE(R)                                                                    \
-  case 8 * R: {                                                                           \
-    cudaError_t e = allow_smem(rowscale_scan_kernel<R, kFoldSelect, T>, smem);            \
+#define QK_ROWSCALE_LAUNCH(R, B)                                                          \
+  {                                                                                       \
+    cudaError_t e = allow_smem(rowscale_scan_kernel<R, kFoldSelect, T, B>, smem);         \
     if (e != cudaSuccess) return (int)e;                                                  \
-    rowscale_scan_kernel<R, kFoldSelect, T><<<Gn, kThreads, smem, st>>>(                  \
+    rowscale_scan_kernel<R, kFoldSelect, T, B><<<Gn, kThreads, smem, st>>>(               \
         (const int*)gp, (const int*)gsize, (const int*)qsrc, (const int*)row_off,         \
         (const T*)qg, (const T*)codes, (const float*)norms, (float*)out,                  \
-        (float*)stats, D, Dp, C, kk, cap, is_l2, slot_mult, levels);                      \
-    break;                                                                                \
+        (float*)stats, D, Dp, C, kk, cap, is_l2, slot_mult, levels, fold);                \
   }
+#define QK_ROWSCALE(R)                                                                    \
+  case 8 * R:                                                                             \
+    if (kFoldSelect && cap > 0) QK_ROWSCALE_LAUNCH(R, kFoldSelect) else                   \
+      QK_ROWSCALE_LAUNCH(R, false)                                                        \
+    break;
   switch (qt) {
     QK_ROWSCALE(1)
     QK_ROWSCALE(2)
@@ -427,6 +456,7 @@ int launch_rowscale(const void* gp, const void* gsize, const void* qsrc, const v
       return (int)cudaErrorInvalidValue;
   }
 #undef QK_ROWSCALE
+#undef QK_ROWSCALE_LAUNCH
   return (int)cudaGetLastError();
 }
 
@@ -660,9 +690,9 @@ inline RingShape rowscale_topk_mma_shape(int qt, int W, int kk) {
 }
 
 // Boxes a ring stage of K5's tensor-core body holds (rows of W words; it
-// keeps no candidate buffer); 0: none fits.
-inline int rowscale_fold_mma_stage_boxes(int qt, int W) {
-  return ring_stage_boxes(W, [&](int NBS) { return rowscale_topk_mma_smem(qt, W, NBS, 0); });
+// keeps no candidate buffer, only fold lists of lk values a row); 0: none fits.
+inline int rowscale_fold_mma_stage_boxes(int qt, int W, int lk) {
+  return ring_stage_boxes(W, [&](int NBS) { return rowscale_topk_mma_smem(qt, W, NBS, lk); });
 }
 
 // Which body serves a shape (qk_rowscale_topk_body names them). A chunk table
@@ -678,39 +708,58 @@ inline int rowscale_topk_body(int qt, int D, int kk, bool chunked, bool bf16) {
 
 // Which body serves K5 at a shape (qk_rowscale_fold_body names them): 2 the
 // tensor-core body where rows are 16-byte aligned (D % 4 == 0 in f32, D % 8
-// == 0 in bf16) and its query tile fits beside a ring stage, else 0, the
-// CUDA-core body of one block a group. The fold keeps two values a column
-// whatever kk is.
-inline int rowscale_fold_body(int qt, int D, bool bf16) {
+// == 0 in bf16) and its query tile (and, at fold widths 128 m with m > 1,
+// the fold lists) fits beside a ring stage, else 0, the CUDA-core body of one
+// block a group. The fold keeps two values a column whatever kk is.
+inline int rowscale_fold_body(int qt, int D, bool bf16, int fold, int kk) {
   const int W = row_words(D, bf16);
-  return W > 0 && rowscale_fold_mma_stage_boxes(qt, W) > 0 ? 2 : 0;
+  return W > 0 && rowscale_fold_mma_stage_boxes(qt, W, fold_list_len(fold, kk)) > 0 ? 2 : 0;
 }
 
 // kk selection rounds over the fold columns of each of a warp's R rows
-// (rows warp + 8 r, select_rounds), the winners into og[row][0, kk): lane i
-// keeps round i's winner and a row's winners leave 32 at a time.
-template <int R>
+// (rows warp + 8 r, select_rounds; with kList also over the rows' lists of
+// the fold blocks before this one, lists [qt][kk]), the winners into
+// og[row][0, kk): lane i keeps round i's winner and a row's winners leave 32
+// at a time.
+template <int R, bool kList = false>
 __device__ __forceinline__ void emit_fold_rows(float (&m1)[R][4], float (&m2)[R][4], int kk,
-                                               float* og) {
+                                               float* og, const float* lists = nullptr) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float keep[R];
-  select_rounds<R>(m1, m2, kk, [&](int r, int i, float best) {
+  select_rounds<R, kList>(m1, m2, kk, [&](int r, int i, float best) {
     if ((i & 31) == lane) keep[r] = best;
     if ((i & 31) == 31 || i == kk - 1) {  // warp-uniform
       const int at = (i & ~31) + lane;
       if (at <= i) og[(warp + kWarps * r) * kk + at] = keep[r];
     }
-  });
+  }, lists);
 }
 
-template <int QT, bool kFoldSelect, bool kBf16>
+// A fold block's end (common.cuh): the columns narrowed where fold is 32 or
+// 64, then the rounds, after the first block (merge) over the rows' lists
+// of the blocks before it too, which og holds and which move into lists.
+template <int R>
+__device__ __forceinline__ void emit_fold_block(float (&m1)[R][4], float (&m2)[R][4], int kk,
+                                                float* og, float* lists, bool merge, int fold) {
+  fold_narrow<R>(m1, m2, fold);
+  if (merge) {
+    load_lists<R>(lists, og, kk);
+    emit_fold_rows<R, true>(m1, m2, kk, og, lists);
+  } else {
+    emit_fold_rows<R>(m1, m2, kk, og);
+  }
+}
+
+// kBlocks (K5 at fold = 128 m, m > 1): the fold blocks of common.cuh; the
+// other instantiations keep F = 128's code.
+template <int QT, bool kFoldSelect, bool kBf16, bool kBlocks = false>
 __global__ void __launch_bounds__(kThreads, 1)
 rowscale_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __restrict__ gp,
                          const int* __restrict__ gsize, const float* __restrict__ qg,
                          const float* __restrict__ norms, float* __restrict__ out,
                          float* __restrict__ stats, int Gn, int D, int NB, int NBS,
                          int stage_floats, int C, int kk, int cap, int is_l2, float slot_mult,
-                         float levels) {
+                         float levels, int fold) {
   constexpr int MT = QT >= 32 ? 2 : 1;       // m16-tiles per warp
   constexpr int MW = QT >= 64 ? 2 : 1;       // warps along the query rows
   constexpr int NW = kWarps / MW;            // warps along the segment
@@ -721,7 +770,7 @@ rowscale_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __
   extern __shared__ __align__(16) float smem[];
   float* ring = smem_aligned(smem);       // 2 x stage_floats: NBS boxes of [128][32], or the tile
   float* qs = ring + 2 * stage_floats;    // NB boxes of [QR][32]
-  float* buf = qs + NB * QR * kBox;       // [QT][cap] (K4 only: cap = 0 for K5)
+  float* buf = qs + NB * QR * kBox;       // [QT][cap]: K4's buffers, K5's fold lists
   float* rowp = buf + QT * cap;           // [QT][2] = (rowmin, levels / rng)
   float* red = rowp + 2 * QT;             // [QR][NW][2] = (min, max) per warp, at most 512
   uint64_t* bars = reinterpret_cast<uint64_t*>(red + 2 * 32 * kWarps);  // one a ring stage
@@ -756,7 +805,16 @@ rowscale_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __
   // the row ranges, then (the last one selected from the accumulator)
   // segments 0 .. n - 2 again for the selection. A visit takes ND stages, one
   // a depth chunk, and stages alternate, so with n == 2 and ND == 1 visit 2
-  // finds segment 0 where visit 0 left it and loads nothing.
+  // finds the segment of visit 0 where visit 0 left it and loads nothing.
+  // K5 with fold blocks (fold = 128 m, m > 1) selects in fold-block order
+  // o_0, o_1, ... (fold_order_segment, common.cuh), so that one state serves
+  // the blocks in turn: pass 1 visits o_1 .. o_{n-1}, o_0 and pass 2
+  // o_1 .. o_{n-1}.
+  const int fb = kBlocks ? fold_blocks(fold) : 1;  // fold blocks
+  auto visit_segment = [&](int v, int n) {
+    if (fb == 1) return v < n ? v : v - n;
+    return fold_order_segment(v < n ? (v + 1) % n : v - n + 1, n, fb);
+  };
   mbar_init(bars);
   int pg = next_live(first), pv = 0, pd = 0, pnseg = 0, prow = 0;  // the producer, a stage ahead
   auto producer_group = [&]() {
@@ -768,7 +826,7 @@ rowscale_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __
   producer_group();
   auto prefetch = [&](int stage) {
     if (pg < end) {
-      const int s = pv < pnseg ? pv : pv - pnseg;
+      const int s = visit_segment(pv, pnseg);
       if (!(ND == 1 && pnseg == 2 && pv == 2))
         segment_load_async(ring + stage * stage_floats, &cmap, prow + s * kFold, pd * NBS,
                            min(NBS, NB - pd * NBS), bars + stage, box_cols);
@@ -815,7 +873,7 @@ rowscale_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __
         for (int j = 0; j < 4; ++j) m1[r][j] = m2[r][j] = -1.0f;
       }
     }
-    const int s = cv < nseg ? cv : cv - nseg;
+    const int s = visit_segment(cv, nseg);
     // This thread's norms, asked for before the product so that they arrive
     // under it.
     const int lnb = s * kFold + col0 + 2 * t4;
@@ -958,11 +1016,29 @@ rowscale_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __
     fence_async_proxy();  // the tile's stores, before the copy that refills the stage
     __syncthreads();      // the stage is consumed: its buffer may be refilled
     stage ^= 1;
-    if (++cv < 2 * nseg - 1) continue;
-    if constexpr (kFoldSelect) {
-      emit_fold_rows<R>(m1, m2, kk, out + (size_t)cg * QT * kk);
+    float* og = out + (size_t)cg * QT * kk;
+    if (++cv < 2 * nseg - 1) {
+      if constexpr (kBlocks) {
+        // A fold block that ends before the group does: its rounds, then a
+        // fresh state for the next block.
+        if (cv >= nseg &&
+            fold_order_segment(cv - nseg + 1, nseg, fb) % fb != s % fb) {
+          emit_fold_block<R>(m1, m2, kk, og, buf, s % fb != 0, fold);
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) m1[r][j] = m2[r][j] = -1.0f;
+        }
+      }
+      continue;
+    }
+    if constexpr (kBlocks) {
+      emit_fold_block<R>(m1, m2, kk, og, buf, s % fb != 0, fold);
+    } else if constexpr (kFoldSelect) {
+      fold_narrow<R>(m1, m2, fold);
+      emit_fold_rows<R>(m1, m2, kk, og);
     } else {
-      emit_rows<R>(buf, cap, cnt, kk, out + (size_t)cg * QT * kk);
+      emit_rows<R>(buf, cap, cnt, kk, og);
     }
     cg = next_live(cg + step);
     cv = 0;
@@ -973,29 +1049,34 @@ template <bool kFoldSelect, bool kBf16>
 int launch_rowscale_topk_mma(const void* gp, const void* gsize, const void* qg,
                              const void* codes, const void* norms, void* out, void* stats,
                              int Gn, int qt, int D, int P, int C, int kk, int is_l2,
-                             float slot_mult, float levels, void* stream) {
+                             float slot_mult, float levels, void* stream, int fold = kFold) {
   const int W = row_words(D, kBf16);
   const int NB = tile_boxes(W);
   CUtensorMap cmap;
   const int me = slab_tensor_map(&cmap, codes, (unsigned long long)P * C, D, kFold,
                                  kBf16 ? 2 : 4);
   if (me != 0) return me;
-  const RingShape shape = kFoldSelect ? RingShape{rowscale_fold_mma_stage_boxes(qt, W), 0}
+  const int lk = fold_list_len(fold, kk);
+  const RingShape shape = kFoldSelect ? RingShape{rowscale_fold_mma_stage_boxes(qt, W, lk), lk}
                                       : rowscale_topk_mma_shape(qt, W, kk);
   const int NBS = shape.NBS, cap = shape.cap;
   const size_t smem = rowscale_topk_mma_smem(qt, W, NBS, cap);
   const int grid = Gn < sm_count() ? Gn : sm_count();
   cudaStream_t st = (cudaStream_t)stream;
-#define QK_ROWSCALE_MMA(QT)                                                               \
-  case QT: {                                                                              \
-    cudaError_t e = allow_smem(rowscale_topk_mma_kernel<QT, kFoldSelect, kBf16>, smem);   \
+#define QK_ROWSCALE_MMA_LAUNCH(QT, B)                                                     \
+  {                                                                                       \
+    cudaError_t e = allow_smem(rowscale_topk_mma_kernel<QT, kFoldSelect, kBf16, B>, smem); \
     if (e != cudaSuccess) return (int)e;                                                  \
-    rowscale_topk_mma_kernel<QT, kFoldSelect, kBf16><<<grid, kThreads, smem, st>>>(       \
+    rowscale_topk_mma_kernel<QT, kFoldSelect, kBf16, B><<<grid, kThreads, smem, st>>>(    \
         cmap, (const int*)gp, (const int*)gsize, (const float*)qg, (const float*)norms,   \
         (float*)out, (float*)stats, Gn, D, NB, NBS, ring_stage_floats(qt, NBS), C,        \
-        kk, cap, is_l2, slot_mult, levels);                                               \
-    break;                                                                                \
+        kk, cap, is_l2, slot_mult, levels, fold);                                         \
   }
+#define QK_ROWSCALE_MMA(QT)                                                               \
+  case QT:                                                                                \
+    if (kFoldSelect && lk > 0) QK_ROWSCALE_MMA_LAUNCH(QT, kFoldSelect) else               \
+      QK_ROWSCALE_MMA_LAUNCH(QT, false)                                                   \
+    break;
   switch (qt) {
     QK_ROWSCALE_MMA(8)
     QK_ROWSCALE_MMA(16)
@@ -1005,6 +1086,7 @@ int launch_rowscale_topk_mma(const void* gp, const void* gsize, const void* qg,
       return (int)cudaErrorInvalidValue;
   }
 #undef QK_ROWSCALE_MMA
+#undef QK_ROWSCALE_MMA_LAUNCH
   return (int)cudaGetLastError();
 }
 
@@ -1684,18 +1766,20 @@ int rowscale_topk(const void* gp, const void* gsize, const void* qsrc, const voi
   }
 }
 
-// K5 on operands of type T.
+// K5 on operands of type T, at fold width `fold` (32, 64 or 128 m dividing
+// C; the Python wrapper checks).
 template <typename T>
 int rowscale_fold(const void* gp, const void* gsize, const void* qg, const void* codes,
                   const void* norms, void* out, void* stats, int Gn, int qt, int D, int P, int C,
-                  int kk, int is_l2, float slot_mult, float levels, void* stream) {
+                  int kk, int is_l2, float slot_mult, float levels, int fold, void* stream) {
   constexpr bool kBf16 = sizeof(T) == 2;
   if (Gn <= 0) return (int)cudaGetLastError();
-  if (rowscale_fold_body(qt, D, kBf16) == 2)
+  if (rowscale_fold_body(qt, D, kBf16, fold, kk) == 2)
     return launch_rowscale_topk_mma<true, kBf16>(gp, gsize, qg, codes, norms, out, stats, Gn, qt,
-                                                 D, P, C, kk, is_l2, slot_mult, levels, stream);
+                                                 D, P, C, kk, is_l2, slot_mult, levels, stream,
+                                                 fold);
   return launch_rowscale<true, T>(gp, gsize, nullptr, nullptr, qg, codes, norms, out, stats, Gn,
-                                  qt, D, C, kk, is_l2, slot_mult, levels, stream);
+                                  qt, D, C, kk, is_l2, slot_mult, levels, stream, fold);
 }
 
 // K7 on operands of type T.
@@ -1749,9 +1833,9 @@ int QK_ENTRY(qk_rowscale_topk)(const void* gp, const void* gsize, const void* qs
 int QK_ENTRY(qk_rowscale_fold)(const void* gp, const void* gsize, const void* qg,
                                const void* codes, const void* norms, void* out, void* stats,
                                int Gn, int qt, int D, int P, int C, int kk, int is_l2,
-                               float slot_mult, float levels, void* stream) {
+                               float slot_mult, float levels, int fold, void* stream) {
   return rowscale_fold<QK_T>(gp, gsize, qg, codes, norms, out, stats, Gn, qt, D, P, C, kk,
-                             is_l2, slot_mult, levels, stream);
+                             is_l2, slot_mult, levels, fold, stream);
 }
 
 // K7: replaces quake_tpu/ops/pallas_grouped.py::_v5_kernel.
@@ -1771,11 +1855,11 @@ int qk_rowscale_topk_body(int qt, int D, int kk, int chunked, int elem_bytes) {
   return rowscale_topk_body(qt, D, kk, chunked != 0, elem_bytes == 2);
 }
 
-// The body qk_rowscale_fold runs at this shape: 2 the tensor-core body, 0 the
-// CUDA-core body of one block a group (kk does not change it).
-int qk_rowscale_fold_body(int qt, int D, int kk, int elem_bytes) {
-  (void)kk;
-  return rowscale_fold_body(qt, D, elem_bytes == 2);
+// The body qk_rowscale_fold runs at this shape and fold width: 2 the
+// tensor-core body, 0 the CUDA-core body of one block a group (kk changes it
+// only through the fold lists of fold = 128 m, m > 1).
+int qk_rowscale_fold_body(int qt, int D, int kk, int elem_bytes, int fold) {
+  return rowscale_fold_body(qt, D, elem_bytes == 2, fold, kk);
 }
 
 // The body qk_chunk_merge runs at this shape: 1 the tensor-core body, 0 the

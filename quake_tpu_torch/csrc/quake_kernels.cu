@@ -35,7 +35,12 @@ namespace {
 // key = clip(floor(<q, x> - normsT), 0, levels) is the global-scale
 // quantized score). Per row: packed = key * slot_mult + lane (-1 at
 // lane >= size), fold-128 top-2, then kk rounds. Ghost groups (size <= 0)
-// write -1.
+// write -1. At another fold width (the JAX package's "f{fold}" names: 32, 64
+// or 128 m; the launchers' `fold`) both bodies keep the same 128-column state:
+// at 32 and 64 it folds further at the group's end, at 128 m the segments run
+// in fold-block order and each block's rounds also run over the row's list of
+// the blocks before it (common.cuh). The products do not change, so neither
+// does the bound.
 //
 // Bound on the H100: tensor-core operations. A group does 2 qt C D flops
 // against C D 4 bytes of slab, i.e. qt / 2 = 32 flops per byte at qt = 64; the
@@ -137,17 +142,20 @@ __device__ __forceinline__ void chunk_dots(float (&acc)[R][4], float* qs, float*
   }
 }
 
-template <int R, typename T>
+// kBlocks: fold = 128 m with m > 1 (fold blocks, common.cuh); the other
+// instantiation serves folds 32, 64 and 128 with F = 128's code.
+template <int R, typename T, bool kBlocks>
 __global__ void __launch_bounds__(kThreads)
 grouped_scan_kernel(const int* __restrict__ gp, const int* __restrict__ gsize,
                     const T* __restrict__ qg, const T* __restrict__ codes,
                     const float* __restrict__ normsT, float* __restrict__ out,
-                    int D, int C, int kk, float slot_mult, float levels) {
+                    int D, int C, int kk, float slot_mult, float levels, int fold) {
   constexpr int qt = kWarps * R;
   extern __shared__ __align__(16) float smem[];
   const int dcp = depth_chunk(D);
-  float* qs = smem;              // [qt][dcp]
-  float* seg = smem + qt * dcp;  // [128][dcp + 1]
+  float* qs = smem;                         // [qt][dcp]
+  float* seg = smem + qt * dcp;             // [128][dcp + 1]
+  float* lists = seg + kFold * (dcp + 1);   // [qt][kk] where fold > 128
   const int g = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int size = min(gsize[g], C);
@@ -162,34 +170,50 @@ grouped_scan_kernel(const int* __restrict__ gp, const int* __restrict__ gsize,
   const T* slab = codes + (size_t)p * C * D;
   const float* nrm = normsT + (size_t)p * C;
 
-  float m1[R][4], m2[R][4];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) m1[r][j] = m2[r][j] = -1.0f;
-
   const int nseg = (size + kFold - 1) / kFold;
-  for (int s = 0; s < nseg; ++s) {
-    float acc[R][4];
-    chunk_dots<R>(acc, qs, seg, qsrc, qt, slab + (size_t)s * kFold * D, D, dcp);
+  const int fb = kBlocks ? fold_blocks(fold) : 1;
+  for (int b = 0; b < fb && b < nseg; ++b) {  // the fold blocks (common.cuh)
+    float m1[R][4], m2[R][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int ln = s * kFold + lane + 32 * j;
-      const bool ok = ln < size;
-      const float nv = nrm[ln];
+    for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float key = fminf(fmaxf(floorf(acc[r][j] - nv), 0.0f), levels);
-        fold2(m1[r][j], m2[r][j], ok ? key * slot_mult + (float)ln : -1.0f);
+      for (int j = 0; j < 4; ++j) m1[r][j] = m2[r][j] = -1.0f;
+    for (int s = b; s < nseg; s += fb) {
+      float acc[R][4];
+      chunk_dots<R>(acc, qs, seg, qsrc, qt, slab + (size_t)s * kFold * D, D, dcp);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int ln = s * kFold + lane + 32 * j;
+        const bool ok = ln < size;
+        const float nv = nrm[ln];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float key = fminf(fmaxf(floorf(acc[r][j] - nv), 0.0f), levels);
+          fold2(m1[r][j], m2[r][j], ok ? key * slot_mult + (float)ln : -1.0f);
+        }
       }
     }
-  }
+    fold_narrow<R>(m1, m2, fold);
+    if (kBlocks && b > 0) {  // the rounds also run over the list of the blocks before
+      load_lists<R>(lists, og, kk);
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = warp + kWarps * r;
-    for (int i = 0; i < kk; ++i) {
-      const float b = select_round(m1[r], m2[r]);
-      if (lane == 0) og[row * kk + i] = b;
+      for (int r = 0; r < R; ++r) {
+        const int row = warp + kWarps * r;
+        int h = 0;
+        for (int i = 0; i < kk; ++i) {
+          const float v = select_round_list(m1[r], m2[r], lists + row * kk, h, kk);
+          if (lane == 0) og[row * kk + i] = v;
+        }
+      }
+      continue;
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = warp + kWarps * r;
+      for (int i = 0; i < kk; ++i) {
+        const float v = select_round(m1[r], m2[r]);
+        if (lane == 0) og[row * kk + i] = v;
+      }
     }
   }
 }
@@ -202,12 +226,16 @@ grouped_scan_kernel(const int* __restrict__ gp, const int* __restrict__ gsize,
 // values a word) and multiplied by mma_tile_bf16; qg then points at the bf16
 // tiles and D counts bf16 columns. Everything else is the f32 body's: a box
 // is 128 bytes of a row, and a box holds four depth steps in both.
-template <int QT, bool kBf16>
+//
+// kBlocks: fold = 128 m with m > 1 (fold blocks, common.cuh); the other
+// instantiation serves folds 32, 64 and 128 with F = 128's code.
+template <int QT, bool kBf16, bool kBlocks>
 __global__ void __launch_bounds__(kThreads, 1)
 grouped_scan_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __restrict__ gp,
                         const int* __restrict__ gsize, const void* __restrict__ qg_raw,
                         const float* __restrict__ normsT, float* __restrict__ out, int Gn,
-                        int D, int NB, int NBS, int C, int kk, float slot_mult, float levels) {
+                        int D, int NB, int NBS, int C, int kk, float slot_mult, float levels,
+                        int fold) {
   constexpr int MT = QT >= 32 ? 2 : 1;       // m16-tiles per warp
   constexpr int MW = QT >= 64 ? 2 : 1;       // warps along the query rows
   constexpr int NW = kWarps / MW;            // warps along the segment
@@ -219,7 +247,9 @@ grouped_scan_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __r
   float* ring = smem_aligned(smem);                        // 2 x NBS boxes of [128][32]
   float* qs = ring + 2 * NBS * kSegBox;                    // NB boxes of [QR][32]
   float* tile = qs + NB * QR * kBox;                       // [QT][kTileStride]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(tile + QT * kTileStride);  // one a ring stage
+  const int fb = kBlocks ? fold_blocks(fold) : 1;          // fold blocks (common.cuh)
+  float* lists = tile + QT * kTileStride;                  // [QT][kk] where fb > 1
+  uint64_t* bars = reinterpret_cast<uint64_t*>(lists + (fb > 1 ? QT * kk : 0));  // a stage's
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g4 = lane >> 2, t4 = lane & 3;
   const int row0 = (warp / NW) * (16 * MT), col0 = (warp % NW) * (8 * NT);
@@ -240,7 +270,7 @@ grouped_scan_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __r
   };
   mbar_init(bars);
   // The producer walks one stage (a depth chunk of a segment) ahead of the
-  // consumer, across segments and groups.
+  // consumer, across segments (in fold-block order) and groups.
   int pg = next_live(blockIdx.x), ps = 0, pd = 0, pnseg = 0, prow = 0;
   auto producer_group = [&]() {
     if (pg < Gn) {
@@ -255,7 +285,8 @@ grouped_scan_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __r
                          min(NBS, NB - pd * NBS), bars + stage, box_cols);
       if (++pd < ND) return;
       pd = 0;
-      if (++ps == pnseg) {
+      ps = next_fold_segment(ps, pnseg, fb);
+      if (ps < 0) {
         pg = next_live(pg + step);
         ps = 0;
         producer_group();
@@ -322,9 +353,15 @@ grouped_scan_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __r
       }
     __syncthreads();  // the segment is consumed: its buffer may be refilled
     stage ^= 1;
-    if (++cs < nseg) continue;
+    const int next = next_fold_segment(cs, nseg, fb);
+    if (next >= 0 && next == cs + fb) {  // the fold block goes on
+      cs = next;
+      continue;
+    }
 
-    // The group's end: (m1, m2) into the rounds' layout, then kk rounds.
+    // A fold block's end (the group's, where m == 1): (m1, m2) into the
+    // rounds' layout, then kk rounds, after the first block over the list of
+    // the blocks before it too.
     float* og = out + (size_t)cg * QT * kk;
 #ifdef QK_PRODUCT_ONLY
     float b = m2[0][0];
@@ -356,41 +393,65 @@ grouped_scan_mma_kernel(const __grid_constant__ CUtensorMap cmap, const int* __r
     };
     to_rounds(m1, r1);
     to_rounds(m2, r2);
+    fold_narrow<R>(r1, r2, fold);
+    if (kBlocks && cs % fb != 0) {  // a block after the first: over the list too
+      load_lists<R>(lists, og, kk);
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int row = warp + kWarps * r;
-      for (int i = 0; i < kk; ++i) {
-        const float b = select_round(r1[r], r2[r]);
-        if (lane == 0) og[row * kk + i] = b;
+      for (int r = 0; r < R; ++r) {
+        const int row = warp + kWarps * r;
+        int h = 0;
+        for (int i = 0; i < kk; ++i) {
+          const float b = select_round_list(r1[r], r2[r], lists + row * kk, h, kk);
+          if (lane == 0) og[row * kk + i] = b;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int row = warp + kWarps * r;
+        for (int i = 0; i < kk; ++i) {
+          const float b = select_round(r1[r], r2[r]);
+          if (lane == 0) og[row * kk + i] = b;
+        }
       }
     }
 #endif
+    if (kBlocks && next >= 0) {  // the next fold block of the group
+#pragma unroll
+      for (int ti = 0; ti < T; ++ti)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) m1[ti][e] = m2[ti][e] = -1.0f;
+      cs = next;
+      continue;
+    }
     cg = next_live(cg + step);
     cs = 0;
   }
 }
 
-// Shared memory of the tensor-core body with ring stages of NBS boxes and rows
-// of W 32-bit words (D f32 or 2 W bf16 values), in bytes: room to reach a
-// 1024-byte boundary, ring, query tile, value tile, the two stage barriers.
-inline size_t grouped_scan_mma_smem(int qt, int W, int NBS) {
+// Shared memory of the tensor-core body with ring stages of NBS boxes, rows
+// of W 32-bit words (D f32 or 2 W bf16 values) and fold lists of lk values a
+// row, in bytes: room to reach a 1024-byte boundary, ring, query tile, value
+// tile, lists, the two stage barriers.
+inline size_t grouped_scan_mma_smem(int qt, int W, int NBS, int lk) {
   return 1024 + 16 +
          (size_t)(2 * NBS * kSegBox + tile_boxes(W) * (qt < 16 ? 16 : qt) * kBox +
-                  qt * kTileStride) *
+                  qt * kTileStride + qt * lk) *
              sizeof(float);
 }
 
 // Boxes of a ring stage of the tensor-core body: all of D's, or the most of
-// 4, 2 and 1 that fits beside the whole-D query tile. 0: the body does not
-// serve the shape (rows not 16-byte aligned, or no stage fits).
-inline int grouped_scan_stage_boxes(int qt, int D, bool bf16) {
+// 4, 2 and 1 that fits beside the whole-D query tile and the fold lists. 0:
+// the body does not serve the shape (rows not 16-byte aligned, or no stage
+// fits).
+inline int grouped_scan_stage_boxes(int qt, int D, bool bf16, int lk) {
   const int W = row_words(D, bf16);
   if (W == 0) return 0;
-  return ring_stage_boxes(W, [&](int NBS) { return grouped_scan_mma_smem(qt, W, NBS); });
+  return ring_stage_boxes(W, [&](int NBS) { return grouped_scan_mma_smem(qt, W, NBS, lk); });
 }
 
-inline bool grouped_scan_uses_mma(int qt, int D, bool bf16) {
-  return grouped_scan_stage_boxes(qt, D, bf16) > 0;
+inline bool grouped_scan_uses_mma(int qt, int D, bool bf16, int fold, int kk) {
+  return grouped_scan_stage_boxes(qt, D, bf16, fold_list_len(fold, kk)) > 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -878,24 +939,28 @@ flat_topk_mma_kernel(const __grid_constant__ CUtensorMap cmap,
 template <bool kBf16>
 int launch_grouped_scan_mma(const void* gp, const void* gsize, const void* qg, const void* codes,
                             const void* normsT, void* out, int Gn, int qt, int D, int P, int C,
-                            int kk, float slot_mult, float levels, cudaStream_t st) {
+                            int kk, float slot_mult, float levels, int fold, cudaStream_t st) {
   const int W = row_words(D, kBf16);
-  const int NBS = grouped_scan_stage_boxes(qt, D, kBf16);
-  const size_t smem = grouped_scan_mma_smem(qt, W, NBS);
+  const int lk = fold_list_len(fold, kk);
+  const int NBS = grouped_scan_stage_boxes(qt, D, kBf16, lk);
+  const size_t smem = grouped_scan_mma_smem(qt, W, NBS, lk);
   const int grid = Gn < sm_count() ? Gn : sm_count();
   CUtensorMap cmap;
   const int me = slab_tensor_map(&cmap, codes, (unsigned long long)P * C, D, kFold,
                                  kBf16 ? 2 : 4);
   if (me != 0) return me;
-#define QK_GROUPED_MMA(QT)                                                                \
-  case QT: {                                                                              \
-    cudaError_t e = allow_smem(grouped_scan_mma_kernel<QT, kBf16>, smem);                 \
+#define QK_GROUPED_MMA_LAUNCH(QT, B)                                                      \
+  {                                                                                       \
+    cudaError_t e = allow_smem(grouped_scan_mma_kernel<QT, kBf16, B>, smem);              \
     if (e != cudaSuccess) return (int)e;                                                  \
-    grouped_scan_mma_kernel<QT, kBf16><<<grid, kThreads, smem, st>>>(                     \
+    grouped_scan_mma_kernel<QT, kBf16, B><<<grid, kThreads, smem, st>>>(                  \
         cmap, (const int*)gp, (const int*)gsize, qg, (const float*)normsT, (float*)out, Gn, \
-        D, tile_boxes(W), NBS, C, kk, slot_mult, levels);                                 \
-    break;                                                                                \
+        D, tile_boxes(W), NBS, C, kk, slot_mult, levels, fold);                           \
   }
+#define QK_GROUPED_MMA(QT)                                                                \
+  case QT:                                                                                \
+    if (lk > 0) QK_GROUPED_MMA_LAUNCH(QT, true) else QK_GROUPED_MMA_LAUNCH(QT, false)     \
+    break;
   switch (qt) {
     QK_GROUPED_MMA(8)
     QK_GROUPED_MMA(16)
@@ -905,6 +970,7 @@ int launch_grouped_scan_mma(const void* gp, const void* gsize, const void* qg, c
       return (int)cudaErrorInvalidValue;
   }
 #undef QK_GROUPED_MMA
+#undef QK_GROUPED_MMA_LAUNCH
   return (int)cudaGetLastError();
 }
 
@@ -913,23 +979,27 @@ int launch_grouped_scan_mma(const void* gp, const void* gsize, const void* qg, c
 template <typename T>
 int grouped_scan(const void* gp, const void* gsize, const void* qg, const void* codes,
                  const void* normsT, void* out, int Gn, int qt, int D, int P, int C, int kk,
-                 float slot_mult, float levels, void* stream) {
+                 float slot_mult, float levels, int fold, void* stream) {
   constexpr bool kBf16 = sizeof(T) == 2;
   cudaStream_t st = (cudaStream_t)stream;
   if (Gn <= 0) return (int)cudaGetLastError();
-  if (grouped_scan_uses_mma(qt, D, kBf16))
+  if (grouped_scan_uses_mma(qt, D, kBf16, fold, kk))
     return launch_grouped_scan_mma<kBf16>(gp, gsize, qg, codes, normsT, out, Gn, qt, D, P, C,
-                                          kk, slot_mult, levels, st);
-  const size_t smem = chunk_dots_smem(qt, D);
-#define QK_GROUPED(R)                                                                   \
-  case 8 * R: {                                                                         \
-    cudaError_t e = allow_smem(grouped_scan_kernel<R, T>, smem);                        \
+                                          kk, slot_mult, levels, fold, st);
+  const int lk = fold_list_len(fold, kk);
+  const size_t smem = chunk_dots_smem(qt, D) + (size_t)qt * lk * sizeof(float);
+#define QK_GROUPED_LAUNCH(R, B)                                                         \
+  {                                                                                     \
+    cudaError_t e = allow_smem(grouped_scan_kernel<R, T, B>, smem);                     \
     if (e != cudaSuccess) return (int)e;                                                \
-    grouped_scan_kernel<R, T><<<Gn, kThreads, smem, st>>>(                              \
+    grouped_scan_kernel<R, T, B><<<Gn, kThreads, smem, st>>>(                           \
         (const int*)gp, (const int*)gsize, (const T*)qg, (const T*)codes,               \
-        (const float*)normsT, (float*)out, D, C, kk, slot_mult, levels);                \
-    break;                                                                              \
+        (const float*)normsT, (float*)out, D, C, kk, slot_mult, levels, fold);          \
   }
+#define QK_GROUPED(R)                                                                   \
+  case 8 * R:                                                                           \
+    if (lk > 0) QK_GROUPED_LAUNCH(R, true) else QK_GROUPED_LAUNCH(R, false)             \
+    break;
   switch (qt) {
     QK_GROUPED(1)
     QK_GROUPED(2)
@@ -939,6 +1009,7 @@ int grouped_scan(const void* gp, const void* gsize, const void* qg, const void* 
       return (int)cudaErrorInvalidValue;
   }
 #undef QK_GROUPED
+#undef QK_GROUPED_LAUNCH
   return (int)cudaGetLastError();
 }
 
@@ -1006,28 +1077,30 @@ int qk_empty(int grid, void* stream) {
 
 const char* qk_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// 1 when the launcher runs the tensor-core body at this shape, 0 for the
+// 1 when the launcher runs the tensor-core body at this shape, fold width
+// and kk (the fold lists of F = 128 m, m > 1, take shared memory), 0 for the
 // CUDA-core body: f32 codes, and bf16 codes.
-int qk_grouped_scan_uses_mma(int qt, int D) {
-  return grouped_scan_uses_mma(qt, D, false) ? 1 : 0;
+int qk_grouped_scan_uses_mma(int qt, int D, int fold, int kk) {
+  return grouped_scan_uses_mma(qt, D, false, fold, kk) ? 1 : 0;
 }
-int qk_grouped_scan_bf16_uses_mma(int qt, int D) {
-  return grouped_scan_uses_mma(qt, D, true) ? 1 : 0;
+int qk_grouped_scan_bf16_uses_mma(int qt, int D, int fold, int kk) {
+  return grouped_scan_uses_mma(qt, D, true, fold, kk) ? 1 : 0;
 }
 
+// fold: 32, 64 or 128 m, dividing C (the Python wrapper checks).
 int qk_grouped_scan(const void* gp, const void* gsize, const void* qg, const void* codes,
                     const void* normsT, void* out, int Gn, int qt, int D, int P, int C, int kk,
-                    float slot_mult, float levels, void* stream) {
+                    float slot_mult, float levels, int fold, void* stream) {
   return grouped_scan<float>(gp, gsize, qg, codes, normsT, out, Gn, qt, D, P, C, kk, slot_mult,
-                             levels, stream);
+                             levels, fold, stream);
 }
 
 // K1 on bf16 codes: qg and codes bf16, the rest as qk_grouped_scan's.
 int qk_grouped_scan_bf16(const void* gp, const void* gsize, const void* qg, const void* codes,
                          const void* normsT, void* out, int Gn, int qt, int D, int P, int C,
-                         int kk, float slot_mult, float levels, void* stream) {
+                         int kk, float slot_mult, float levels, int fold, void* stream) {
   return grouped_scan<__nv_bfloat16>(gp, gsize, qg, codes, normsT, out, Gn, qt, D, P, C, kk,
-                                     slot_mult, levels, stream);
+                                     slot_mult, levels, fold, stream);
 }
 
 int qk_merge_positions(const void* mp, void* out, int B, int pool, int kfin, int lane_mult,

@@ -15,8 +15,8 @@ The compute runs as PyTorch and CUDA launches over the padded partition
 store on `device`; this class is the host-side control plane (validation, id
 bookkeeping, recursion, persistence, timing).
 
-What this package does not implement yet raises NotImplementedError naming
-the ROADMAP item that will lift it; nothing is silently skipped.
+Every feature of the JAX package is implemented; where this package
+deviates from it on purpose, ROADMAP.md says so and a test pins it.
 """
 
 from __future__ import annotations

@@ -7,10 +7,11 @@
              serves v6 as it is and, with a chunk table, v4
              (ops/grouped_chunked.py)
   v7         kernel K5 (`rowscale_scan(select="fold")`): the same key,
-             fold-128 top-2 + kk rounds; then `v3p_epilogue`
-  v8, v9     kernel K1 (global-scale key, fold-128 top-2, kk rounds); then
-             `global_epilogue` (kernel K2 pool merge, or a top-k, + exact
-             rescore)
+             fold top-2 (fold 128 unless the caller names another) + kk
+             rounds; then `v3p_epilogue`
+  v8, v9     kernel K1 (global-scale key, fold top-2, kk rounds); then
+             `global_epilogue` (kernel K2 pool merge, the same merge in
+             tensor operations with merge="xla", or a top-k; exact rescore)
 
 Groups come from `build_groups`, whose pair-major inverse (pair_group,
 pair_slot) lets each (query, probe) pair read its kernel row directly.
@@ -33,9 +34,10 @@ import torch
 
 from quake_tpu_torch import _ext
 from quake_tpu_torch.ops.grouped import build_groups, launch_name, operand_bytes, round_query
-from quake_tpu_torch.ops.grouped_scan import (FOLD, SMEM_LIMIT, fold_rounds, global_scale,
-                                              grouped_scan_kernel, packed_params, pad_groups,
-                                              pool_tail, rescore_topk)
+from quake_tpu_torch.ops.grouped_scan import (FOLD, SMEM_LIMIT, check_fold, fold_list_len,
+                                              fold_rounds, global_scale, grouped_scan_kernel,
+                                              packed_params, pad_groups, pool_tail,
+                                              rescore_topk)
 from quake_tpu_torch.ops.scan import NEG_INF
 from quake_tpu_torch.profiling import mark_stage
 
@@ -73,19 +75,20 @@ def rowscale_topk_body(qt: int, D: int, kk: int, chunked: bool = False,
     return int(_ext.lib().qk_rowscale_topk_body(qt, D, kk, int(chunked), operand_bytes(dtype)))
 
 
-def rowscale_fold_body(qt: int, D: int, kk: int, dtype=torch.float32) -> int:
-    """The body kernel K5's launcher runs at this shape on codes of `dtype`
-    (csrc/grouped_rowscale.cu::rowscale_fold_body, asked of the built
-    library): MMA_BODY, K4's tensor-core body with the fold selection, where
-    rows are 16-byte aligned for the asynchronous copies (D % 4 == 0 in f32,
-    D % 8 == 0 in bf16) and its query tile fits beside a ring stage; else
-    GROUP_BODY, the CUDA-core body of one block a group."""
-    return int(_ext.lib().qk_rowscale_fold_body(qt, D, kk, operand_bytes(dtype)))
+def rowscale_fold_body(qt: int, D: int, kk: int, dtype=torch.float32, fold: int = FOLD) -> int:
+    """The body kernel K5's launcher runs at this shape and fold width on
+    codes of `dtype` (csrc/grouped_rowscale.cu::rowscale_fold_body, asked of
+    the built library): MMA_BODY, K4's tensor-core body with the fold
+    selection, where rows are 16-byte aligned for the asynchronous copies (D
+    % 4 == 0 in f32, D % 8 == 0 in bf16) and its query tile (and at fold =
+    128 m, m > 1, kk values a row of fold lists) fits beside a ring stage;
+    else GROUP_BODY, the CUDA-core body of one block a group."""
+    return int(_ext.lib().qk_rowscale_fold_body(qt, D, kk, operand_bytes(dtype), fold))
 
 
 def rowscale_scan_plain(gp, group_size, qg, codes, norms, kk: int, slot_mult: int,
                         levels: int, metric: str, select: str = "topk", qsrc=None,
-                        row_off=None, ct: int = 0, chunk: int = 256):
+                        row_off=None, ct: int = 0, chunk: int = 256, fold: int = FOLD):
     """Plain PyTorch version of kernels K4 and K5 (same inputs and outputs as
     rowscale_scan), computed `chunk` groups at a time, step by step as
     pallas_grouped.py::_v3p_group_body with _v3p_select (topk) or
@@ -135,7 +138,7 @@ def rowscale_scan_plain(gp, group_size, qg, codes, norms, kk: int, slot_mult: in
         a = alive.numel()
         flat = packed.reshape(a * qt, W)
         if select == "fold":
-            sel = fold_rounds(flat, kk, FOLD)
+            sel = fold_rounds(flat, kk, fold)
         else:
             sel = torch.topk(flat, kk, dim=1).values
         out[g0 + alive] = sel.reshape(a, qt, kk)
@@ -145,7 +148,8 @@ def rowscale_scan_plain(gp, group_size, qg, codes, norms, kk: int, slot_mult: in
 
 
 def rowscale_scan(gp, group_size, qg, codes, norms, kk: int, slot_mult: int, levels: int,
-                  metric: str, select: str = "topk", qsrc=None, row_off=None, ct: int = 0):
+                  metric: str, select: str = "topk", qsrc=None, row_off=None, ct: int = 0,
+                  fold: int = FOLD):
     """Kernel K4 (select="topk"; replaces pallas_grouped.py::_v3p_kernel,
     _v3pn_kernel, _v6_kernel and, with a chunk table, _v4_kernel) or K5
     (select="fold"; replaces _v7_kernel).
@@ -158,7 +162,8 @@ def rowscale_scan(gp, group_size, qg, codes, norms, kk: int, slot_mult: int, lev
     the row's range, packed = floor((s - rowmin) * (levels / rng)) *
     slot_mult + lane. Returns (out [Gn, qt, kk] f32 packed, descending, -1 =
     none; stats [Gn, qt, 2] f32 = (rowmin or 0, rng)). Ghost groups write -1
-    and stats (0, 1e-20). K4 takes any C; K5 needs C % 128 == 0.
+    and stats (0, 1e-20). K4 takes any C; K5 folds by `fold` (32, 64 or a
+    multiple of 128, see grouped_scan.fold_served), which must divide C.
 
     The chunk table (K4 only, the v4 scan): qsrc [Gn] int32 names the query
     tile of qg [G, qt, D] each group reads, row_off [Gn] int32 the first of
@@ -181,8 +186,8 @@ def rowscale_scan(gp, group_size, qg, codes, norms, kk: int, slot_mult: int, lev
     chunked = qsrc is not None or row_off is not None
     if select not in ("topk", "fold"):
         raise ValueError(f"rowscale_scan: select must be 'topk' or 'fold', got {select!r}")
-    if select == "fold" and C % FOLD:
-        raise ValueError(f"rowscale fold selection needs C % 128 == 0 (C={C})")
+    if select == "fold":
+        check_fold("rowscale fold selection", fold, C)
     if chunked and (select != "topk" or qsrc is None or row_off is None or ct <= 0):
         raise ValueError("rowscale_scan: a chunk table needs select='topk', qsrc, row_off "
                          "and ct > 0")
@@ -190,20 +195,20 @@ def rowscale_scan(gp, group_size, qg, codes, norms, kk: int, slot_mult: int, lev
         raise ValueError(f"rowscale_scan: qg must hold one tile per group ({G} != {Gn})")
     if qg.device.type == "cpu":
         return rowscale_scan_plain(gp, group_size, qg, codes, norms, kk, slot_mult,
-                                   levels, metric, select, qsrc, row_off, ct)
+                                   levels, metric, select, qsrc, row_off, ct, fold=fold)
     if qg.device.type != "cuda":
         raise ValueError(f"rowscale_scan: unsupported device {qg.device}")
     if qt not in (8, 16, 32, 64):
         raise ValueError(f"rowscale_scan: qt must be 8, 16, 32 or 64 (qt={qt})")
     dtype = codes.dtype
     Dp = -(-D // 4) * 4
-    cap = topk_cap(kk) if select == "topk" else 0
+    cap = topk_cap(kk) if select == "topk" else fold_list_len(fold, kk)
     body = (rowscale_topk_body(qt, D, kk, chunked, dtype) if select == "topk"
-            else rowscale_fold_body(qt, D, kk, dtype))
+            else rowscale_fold_body(qt, D, kk, dtype, fold))
     if body == GROUP_BODY and (qt * Dp + FOLD * (Dp + 1) + qt * cap) * 4 > SMEM_LIMIT:
         raise ValueError(f"rowscale_scan: D={D}, qt={qt}, kk={kk} need more shared memory "
                          "than a block has (kernel K4 keeps round_up(kk, 32) + 128 "
-                         "candidates per row)")
+                         "candidates per row, K5 at a fold of 128 m, m > 1, kk)")
     for name, t, want, shape in (
             ("gp", gp, torch.int32, (Gn,)),
             ("group_size", group_size, torch.int32, (Gn,)),
@@ -230,7 +235,7 @@ def rowscale_scan(gp, group_size, qg, codes, norms, kk: int, slot_mult: int, lev
             row_off.data_ptr() if chunked else None, *ptrs, Gn, qt, D, P, *tail)
     else:
         rc = _ext.launcher(name)(gp.data_ptr(), group_size.data_ptr(), *ptrs, Gn, qt, D, P,
-                                 *tail)
+                                 *tail[:-1], int(fold), tail[-1])
     _ext.check(rc, name)
     _ext.launched(name, out, stats)
     return out, stats
@@ -272,20 +277,21 @@ def v3p_epilogue(g_packed, g_stats, group_pid, pair_group, pair_slot, pids, safe
 
 def global_epilogue(g_packed, pair_group, pair_slot, pids, codes, ids, norms,
                     q, k: int, kk: int, metric: str, slot_mult: int, levels: int,
-                    stages=None, dedup: bool = False):
-    """Shared v8/v9 epilogue (pallas_grouped.py::_global_epilogue with
-    merge="pallas", exact). The global-scale keys compare across groups, so
-    each query's probe-order pool of kernel rows is merged in key domain by
-    kernel K2, or by a top-k where K2's packing does not fit (kk < k, or
-    levels*lane_mult + lane_mult >= 2^24) or dedup asks for it (a spilled
-    store: rescore_topk's dedup). Ghost groups need no mask: K1 writes them
-    as -1."""
+                    stages=None, dedup: bool = False, merge: str = "pallas"):
+    """Shared v8/v9 epilogue (pallas_grouped.py::_global_epilogue, exact).
+    The global-scale keys compare across groups, so each query's probe-order
+    pool of kernel rows is merged in key domain by kernel K2 (merge
+    "pallas"), by the same fold-128 merge in tensor operations (merge "xla",
+    the JAX function's default; no K2), or by a top-k where the packing does
+    not fit (kk < k, or levels*lane_mult + lane_mult >= 2^24) or dedup asks
+    for it (a spilled store: rescore_topk's dedup). Ghost groups need no
+    mask: K1 writes them as -1."""
     B = q.shape[0]
     ok = (pair_group >= 0)[:, :, None]
     m_packed = torch.where(ok, pair_take(g_packed, torch.clamp(pair_group, min=0), pair_slot),
                            -1.0).reshape(B, -1)
     return pool_tail(m_packed, pids, pids, codes, ids, norms, q, k, kk, metric, slot_mult,
-                     levels, stages=stages, general=kk < k, dedup=dedup)
+                     levels, stages=stages, general=kk < k, dedup=dedup, merge=merge)
 
 
 # ----------------------------------------------------------------- wrappers
@@ -297,7 +303,7 @@ def check_refs(name: str, P: int, C: int) -> None:
 
 
 def rowscale_search(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int,
-                     gpb: int, select: str, stages, dedup: bool = False):
+                     gpb: int, select: str, stages, dedup: bool = False, fold: int = FOLD):
     """Grouping, kernel K4 or K5, and the v3p epilogue, with its dedup on a
     spilled store. The query tiles are rounded to the codes' dtype
     (pallas_grouped.py:385, 718, 879); the epilogue takes q unrounded."""
@@ -309,7 +315,7 @@ def rowscale_search(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: 
     qg = round_query(q, codes.dtype)[safe_q].contiguous()  # [Gn, qt, D]
     mark_stage(stages, "grouping")
     g_packed, g_stats = rowscale_scan(gp, group_size, qg, codes, norms, kk, slot_mult,
-                                      levels, metric, select)
+                                      levels, metric, select, fold=fold)
     mark_stage(stages, "scan")
     return v3p_epilogue(g_packed, g_stats, gp, pair_group, pair_slot, pids, safe_q, codes,
                         ids, norms, q, k, kk, metric, slot_mult, levels, dedup=dedup,
@@ -344,29 +350,35 @@ def grouped_scan_v3pn(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt
 
 
 def grouped_scan_v7(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int = 32,
-                    gpb: int = 4, dedup: bool = False, stages=None):
+                    gpb: int = 4, fold: int = FOLD, dedup: bool = False, stages=None):
     """v7 grouped scan (pallas_grouped.py::grouped_scan_pallas_v7): the
-    per-row key of v3p with the fold-128 selection, kernel K5.
-    Approximate at the fold-column level (at most two winners per column);
-    winners are exact-rescored. Needs C % 128 == 0. Same inputs and returns
-    as grouped_scan_v3pn."""
+    per-row key of v3p with the fold selection (fold 128 by default), kernel
+    K5. Approximate at the fold-column level (at most two winners per
+    column); winners are exact-rescored. Needs C % fold == 0 and a served
+    fold (grouped_scan.check_fold). Same inputs and returns as
+    grouped_scan_v3pn."""
     P, C, _ = codes.shape
     check_refs("v7", P, C)
+    check_fold("v7", fold, C)
     return rowscale_search(codes, ids, sizes, norms, q, pids, k, metric, qt, gpb, "fold",
-                            stages, dedup)
+                            stages, dedup, fold)
 
 
 def grouped_scan_v8(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int = 32,
-                    gpb: int = 4, dedup: bool = False, stages=None, bounds: str = "analytic"):
+                    gpb: int = 4, fold: int = FOLD, dedup: bool = False, stages=None,
+                    bounds: str = "analytic", merge: str = "pallas"):
     """v8 global-scale grouped scan (pallas_grouped.py::grouped_scan_pallas_v8)
     on kernel K1, which computes _v8_kernel's function (its ghost groups
     write -1 where the TPU kernel leaves stale rows for the epilogue's mask),
-    then the K2 pool merge (a top-k with dedup, see global_epilogue). Needs
-    C % 128 == 0. Same inputs and returns as grouped_scan_v3pn; bounds
-    "analytic" or "sampled", the key's scale (grouped_scan.global_bounds).
+    then the K2 pool merge, or with merge="xla" the same merge in tensor
+    operations (a top-k with dedup, see global_epilogue). Needs C % fold ==
+    0 and a served fold (grouped_scan.check_fold). Same inputs and returns
+    as grouped_scan_v3pn; bounds "analytic" or "sampled", the key's scale
+    (grouped_scan.global_bounds).
     """
     P, C, _ = codes.shape
     check_refs("v8", P, C)
+    check_fold("v8", fold, C)
     kk = min(k, C)
     slot_mult, levels = packed_params(C)
     q_scaled, normsT, _, _ = global_scale(q, norms, metric, levels, bounds, codes, sizes)
@@ -374,10 +386,11 @@ def grouped_scan_v8(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: 
     gp, _, group_size, safe_q = pad_groups(group_pid, qlist, sizes, gpb)
     qg = q_scaled.to(codes.dtype)[safe_q].contiguous()  # [Gn, qt, D], rounded as the codes
     mark_stage(stages, "grouping")
-    g_packed = grouped_scan_kernel(gp, group_size, qg, codes, normsT, kk, slot_mult, levels)
+    g_packed = grouped_scan_kernel(gp, group_size, qg, codes, normsT, kk, slot_mult, levels,
+                                   fold)
     mark_stage(stages, "scan")
     return global_epilogue(g_packed, pair_group, pair_slot, pids, codes, ids, norms, q, k,
-                           kk, metric, slot_mult, levels, stages, dedup)
+                           kk, metric, slot_mult, levels, stages, dedup, merge)
 
 
 # v9 (pallas_grouped.py::grouped_scan_pallas_v9) is v8 with joint selection

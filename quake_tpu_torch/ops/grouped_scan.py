@@ -7,12 +7,14 @@ One call, `grouped_scan_v11`, turns probe lists into the per-query top-k:
              pre-shifted so the kernel's key is one floor; groups from
              `build_groups_scatter`
   scan       kernel K1 (`grouped_scan_kernel`): per group, packed
-             key*slot_mult + lane values, fold-128 top-2, kk rounds
+             key*slot_mult + lane values, fold top-2 (fold 128 unless the
+             caller names another, see `fold_served`), kk rounds
   placement  one sort (sorted) or argsort (argsort) lands each query's
              nprobe kernel rows contiguously
   merge      kernel K2 (`merge_positions`): per-query pool merge of the
-             placed rows to kfin winner positions; with dedup (a spilled
-             store) a top-2k of the pool's keys and each id's first
+             placed rows to kfin winner positions, or with merge="xla" the
+             same fold-128 merge in tensor operations (no K2); with dedup (a
+             spilled store) a top-2k of the pool's keys and each id's first
              occurrence instead (rescore_topk)
   rescore    exact f32 distances of the winners, final top-k; or, with
              exact=False (SearchParams.exact_distances=False), scores
@@ -49,17 +51,50 @@ SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 QTS = (64, 32, 16, 8)  # query-tile heights kernel K1 is built for
 
 
-def grouped_scan_uses_mma(qt: int, D: int, dtype=torch.float32) -> bool:
-    """Whether kernel K1's launcher runs a tensor-core body at this shape
-    and codes dtype (csrc/quake_kernels.cu::grouped_scan_uses_mma, asked of
-    the built library): rows 16-byte aligned for the asynchronous copies
-    (D % 4 == 0 in f32, D % 8 == 0 in bf16), and a whole-D query tile that
-    fits a block's shared memory beside the ring (f32: D up to 608 at qt =
-    64, 1408 at qt = 32; bf16 twice that). Otherwise it runs the CUDA-core
-    body of that dtype, which streams D in depth chunks and serves every D."""
+def fold_served(fold: int) -> bool:
+    """Whether kernels K1 and K5 serve fold width `fold` (csrc/common.cuh:
+    32 and 64 fold a 128-column state further at a group's end; 128 m folds
+    segment s into block s mod m, one block after another, for every m). The
+    JAX kernels take any fold that divides C, the others in interpret mode
+    only; here any other fold raises (check_fold), on every device."""
+    return fold in (32, 64) or (fold > 0 and fold % FOLD == 0)
+
+
+def check_fold(name: str, fold: int, C: int) -> None:
+    """ValueError unless `fold` is served and divides C."""
+    if not fold_served(fold):
+        raise ValueError(f"{name}: fold={fold} is not served; the folds served are 32, 64 "
+                         "and the multiples of 128")
+    if C % fold:
+        raise ValueError(f"{name} needs C % {fold} == 0 (C={C})")
+
+
+def fold_list_len(fold: int, kk: int) -> int:
+    """Values a row of the fold lists takes in K1's and K5's shared memory
+    (csrc/common.cuh::fold_list_len): kk where fold = 128 m with m > 1."""
+    return kk if fold > FOLD else 0
+
+
+def grouped_scan_uses_mma(qt: int, D: int, dtype=torch.float32, fold: int = FOLD,
+                          kk: int = 0) -> bool:
+    """Whether kernel K1's launcher runs a tensor-core body at this shape,
+    codes dtype and fold width (csrc/quake_kernels.cu::grouped_scan_uses_mma,
+    asked of the built library): rows 16-byte aligned for the asynchronous
+    copies (D % 4 == 0 in f32, D % 8 == 0 in bf16), and a whole-D query tile
+    (and at fold = 128 m, m > 1, kk values a row of fold lists) that fits a
+    block's shared memory beside the ring (f32: D up to 608 at qt = 64, 1408
+    at qt = 32; bf16 twice that). Otherwise it runs the CUDA-core body of
+    that dtype, which streams D in depth chunks and serves every D."""
     if dtype == torch.bfloat16:
-        return bool(_ext.lib().qk_grouped_scan_bf16_uses_mma(qt, D))
-    return bool(_ext.lib().qk_grouped_scan_uses_mma(qt, D))
+        return bool(_ext.lib().qk_grouped_scan_bf16_uses_mma(qt, D, fold, kk))
+    return bool(_ext.lib().qk_grouped_scan_uses_mma(qt, D, fold, kk))
+
+
+def chunk_dots_smem(qt: int, D: int, lk: int = 0) -> int:
+    """Bytes of shared memory of K1's CUDA-core body (csrc/quake_kernels.cu::
+    chunk_dots_smem) with fold lists of lk values a row."""
+    dcp = (min(D, 128) + 3) & ~3
+    return (qt * dcp + FOLD * (dcp + 1) + qt * lk) * 4
 
 
 def fold_rounds(packed, k: int, fold: int = FOLD):
@@ -172,6 +207,10 @@ def grouped_scan_kernel(gp, group_size, qg, codes, normsT, kk: int,
     ginv. Returns [Gn, qt, kk] f32 packed key*slot_mult + lane per row,
     descending (-1 = none; ghost groups are all -1).
 
+    fold: the fold width, one of `fold_served`'s, dividing C (check_fold
+    raises otherwise); the launches count under the same names at every
+    fold.
+
     The launcher picks one of two bodies a dtype by shape
     (`grouped_scan_uses_mma`): the tensor-core body (asynchronous copies; in
     f32 the split TF32 product, in bf16 one bf16 product a depth-16 step)
@@ -185,8 +224,7 @@ def grouped_scan_kernel(gp, group_size, qg, codes, normsT, kk: int,
     "grouped_scan_budget" (f32) or "grouped_scan_budget_bf16"."""
     Gn, qt, D = qg.shape
     P, C, _ = codes.shape
-    if fold != FOLD or C % fold:
-        raise ValueError(f"grouped scan needs fold == 128 and C % 128 == 0 (C={C})")
+    check_fold("grouped_scan_kernel", fold, C)
     if qg.device.type == "cpu":
         return grouped_scan_plain(gp, group_size, qg, codes, normsT, kk,
                                   slot_mult, levels, fold)
@@ -197,7 +235,10 @@ def grouped_scan_kernel(gp, group_size, qg, codes, normsT, kk: int,
     cdt = codes.dtype
     if cdt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"grouped_scan_kernel: codes must be float32 or bfloat16, not {cdt}")
-    mma = grouped_scan_uses_mma(qt, D, cdt)
+    mma = grouped_scan_uses_mma(qt, D, cdt, fold, kk)
+    if not mma and chunk_dots_smem(qt, D, fold_list_len(fold, kk)) > SMEM_LIMIT:
+        raise ValueError(f"grouped_scan_kernel: qt={qt}, D={D}, kk={kk} at fold={fold} need "
+                         "more shared memory than a block has (kk fold-list values a row)")
     for name, t, dtype, shape in (
             ("gp", gp, torch.int32, (Gn,)),
             ("group_size", group_size, torch.int32, (Gn,)),
@@ -216,7 +257,7 @@ def grouped_scan_kernel(gp, group_size, qg, codes, normsT, kk: int,
     rc = getattr(_ext.lib(), f"qk_{name}")(
         gp.data_ptr(), group_size.data_ptr(), qg.data_ptr(), codes.data_ptr(),
         normsT.data_ptr(), out.data_ptr(), Gn, qt, D, P, C, kk,
-        float(slot_mult), float(levels), _ext.stream_ptr(qg.device))
+        float(slot_mult), float(levels), int(fold), _ext.stream_ptr(qg.device))
     _ext.check(rc, name)
     _ext.launched(name.replace("grouped_scan", "grouped_scan_budget") if budget else name, out)
     return out
@@ -240,7 +281,10 @@ def pool_keys(m_packed, slot_mult: int):
 
 def merge_positions_plain(m_packed, kfin: int, slot_mult: int, fold: int = FOLD):
     """Plain PyTorch version of kernel K2 (same inputs and outputs as
-    merge_positions)."""
+    merge_positions). It is also the merge="xla" pool merge of pool_tail
+    (pallas_grouped.py::_pool_tail's and _global_epilogue's non-kernel
+    branch, the fold-128 top-2 and kfin rounds in XLA operations), on every
+    device: its positions equal K2's bit for bit."""
     B, pool = m_packed.shape
     lane_mult = pool_lane_mult(pool)
     keys = pool_keys(m_packed, slot_mult)
@@ -400,7 +444,7 @@ def rescore_topk(m_scores, m_refs, codes, ids, norms, q, k: int, kk: int,
 def pool_tail(m_packed, pid_cols, pids, codes, ids, norms, q, k: int, kk: int,
               metric: str, slot_mult: int, levels: int, pool_factor: int = 1,
               stages=None, general: bool = False, exact: bool = True, gmin=None,
-              ginv=None, dedup: bool = False):
+              ginv=None, dedup: bool = False, merge: str = "pallas"):
     """Pool side of the v11 epilogues (pallas_grouped.py::_pool_tail) and of
     the v8/v9 one (_global_epilogue): key merge, winner ref derivation,
     exact rescore, or with exact=False (v10 and v11 only) the winners'
@@ -408,8 +452,14 @@ def pool_tail(m_packed, pid_cols, pids, codes, ids, norms, q, k: int, kk: int,
     ginv (dequantized_tail). pid_cols [B, nprobe] maps pool column
     j -> j // kk -> the query's partition (ascending pids for the sorted
     placement, probe order for argsort and v8/v9); pids is only used for
-    the scanned count. general forces the top-k merge instead of K2; dedup
-    (a spilled store) takes it too, with rescore_topk's dedup."""
+    the scanned count. merge "pallas" merges the pool on kernel K2, "xla"
+    in tensor operations (merge_positions_plain, on every device; the same
+    positions); any other value raises ValueError, where the JAX package
+    takes every value but "pallas" as "xla". general forces the top-k merge
+    instead; dedup (a spilled store) takes it too, with rescore_topk's
+    dedup."""
+    if merge not in ("pallas", "xla"):
+        raise ValueError(f"merge must be 'pallas' or 'xla', not {merge!r}")
     B, nprobe = pids.shape
     pool = nprobe * kk
     lane_mult = pool_lane_mult(pool)
@@ -431,7 +481,8 @@ def pool_tail(m_packed, pid_cols, pids, codes, ids, norms, q, k: int, kk: int,
         return out
 
     kfin = min(pool_factor * k, pool)
-    pos = merge_positions(m_packed, kfin, slot_mult)
+    merge_fn = merge_positions if merge == "pallas" else merge_positions_plain
+    pos = merge_fn(m_packed, kfin, slot_mult)
     posc = torch.clamp(pos, 0, pool - 1).long()
     pk = torch.gather(m_packed, 1, posc)
     slot = torch.remainder(pk, float(slot_mult)).to(torch.int32)
@@ -620,20 +671,18 @@ def v11_inputs(codes, sizes, norms, q, pids, k: int, metric: str, qt: int,
 def _placed_scan(name: str, codes, ids, sizes, norms, q, pids, k: int, metric: str,
                   qt: int, gpb: int, fold: int, dedup: bool, pool_factor: int, bounds: str,
                   merge: str, exact: bool, placement: str, stages, pair_budget: int = 0):
-    """The scan of v10, v11 and v10b: the prologue, kernel K1, the placement
-    epilogue named `placement` (see PLACEMENTS; BUDGET_PLACEMENTS with
-    pair_budget > 0), the pool tail (exact rescore, or dequantized scores
-    with exact=False). dedup (a spilled store) takes the pool tail's general
-    path, a top-k of the pool's keys with the dedup of rescore_topk, as the
-    JAX package does: kernel K2 does not run."""
+    """The scan of v10, v11 and v10b: the prologue, kernel K1 at fold width
+    `fold` (check_fold), the placement epilogue named `placement` (see
+    PLACEMENTS; BUDGET_PLACEMENTS with pair_budget > 0), the pool tail (K2,
+    or merge="xla"; exact rescore, or dequantized scores with exact=False).
+    dedup (a spilled store) takes the pool tail's general path, a top-k of
+    the pool's keys with the dedup of rescore_topk, as the JAX package does:
+    kernel K2 does not run."""
     B, D = q.shape
     P, C, _ = codes.shape
-    if merge != "pallas":
-        raise NotImplementedError(f"merge={merge!r}: only the kernel merge is ported")
     if P >= 32768 or C > 65536:
         raise ValueError(f"{name} packs (pid, slot) into int32: needs P < 32768, C <= 65536")
-    if fold != FOLD or C % fold:
-        raise ValueError(f"{name} needs fold == 128 and C % 128 == 0 (C={C}, fold={fold})")
+    check_fold(name, fold, C)
     M = pids.shape[1]
     if pair_budget > 0:
         if placement == "sorted" and not budget_sort_key_fits(B, M, pair_budget, P, qt, gpb):
@@ -659,7 +708,7 @@ def _placed_scan(name: str, codes, ids, sizes, norms, q, pids, k: int, metric: s
     mark_stage(stages, "placement")
     return pool_tail(m_packed, pid_cols, pids, codes, ids, norms, q, k, kk, metric, slot_mult,
                      levels, pool_factor, stages, exact=exact, gmin=inp["gmin"],
-                     ginv=inp["ginv"], dedup=dedup)
+                     ginv=inp["ginv"], dedup=dedup, merge=merge)
 
 
 def grouped_scan_v11(codes, ids, sizes, norms, q, pids, k: int, metric: str,
@@ -676,8 +725,11 @@ def grouped_scan_v11(codes, ids, sizes, norms, q, pids, k: int, metric: str,
     [P, C] f32, q [B, D], pids [B, nprobe] int32. Returns (scores [B, k] f32,
     ids [B, k] int32, scanned [B] int32): exact distances of the winners,
     or with exact=False scores dequantized from their keys (within one
-    quantization step, grange / levels). `stages`, when given, gets a
-    mark() after each stage (see quake_tpu_torch.profiling.StageTimer)."""
+    quantization step, grange / levels). fold: K1's fold width (32, 64 or a
+    multiple of 128 that divides C; see fold_served); merge: "pallas" (K2)
+    or "xla" (the same merge in tensor operations, see pool_tail).
+    `stages`, when given, gets a mark() after each stage (see
+    quake_tpu_torch.profiling.StageTimer)."""
     if placement not in ("sorted", "argsort"):
         raise ValueError(f"v11 placement must be 'sorted' or 'argsort', got {placement!r}")
     return _placed_scan("v11", codes, ids, sizes, norms, q, pids, k, metric, qt, gpb, fold,

@@ -2363,3 +2363,97 @@ def test_sharded_index_on_the_card_matches_its_cpu_load(dev, tmp_path, monkeypat
     else:
         assert built.mesh is None
     assert built.search(q, SearchParams(k=10, nprobe=6)).ids.shape == (256, 10)
+
+
+# ------------------------------------------- folds other than 128 (K1, K5)
+
+# C = 1536 takes every fold of the served set below 768 (32, 64, 128 m for
+# m = 1-4, 6): the sizes put the last segment in each fold block.
+_FOLD_C = 1536
+_FOLDS = (32, 64, 256, 384, 512, 768)
+# (qt, D, codes dtype, tensor-core body): K1's and K5's tensor-core bodies at
+# D = 128 and, streaming the depth, 768 (qt 32), their CUDA-core bodies at D
+# = 30 (f32) and 100 (bf16).
+_FOLD_SHAPES = [(64, 128, torch.float32, True), (32, 768, torch.float32, True),
+                (8, 30, torch.float32, False), (64, 128, torch.bfloat16, True),
+                (16, 100, torch.bfloat16, False)]
+
+
+def _fold_inputs(rng, dev, qt, D, dtype, Gn=200):
+    sizes_l = [0, 1, 128, 129, 300, 555, 700, 1000, 1300, _FOLD_C]
+    P = len(sizes_l)
+    codes = torch.from_numpy(rng.standard_normal((P, _FOLD_C, D)).astype(np.float32)).to(dev)
+    codes = codes.to(dtype)
+    sizes = torch.tensor(sizes_l, dtype=torch.int32, device=dev)
+    gp = torch.from_numpy(rng.integers(-1, P, Gn).astype(np.int32)).to(dev)
+    gsize = torch.where(gp >= 0, sizes[gp.clamp(min=0).long()], torch.zeros_like(gp)).contiguous()
+    return codes, gp, gsize
+
+
+@pytest.mark.parametrize("kk", [10, 100])
+@pytest.mark.parametrize("fold", _FOLDS)
+@pytest.mark.parametrize("qt,D,dtype,tc", _FOLD_SHAPES)
+@pytest.mark.parametrize("budget", [False, True])
+def test_grouped_scan_fold_matches_plain(dev, qt, D, dtype, tc, fold, kk, budget):
+    """K1 at a fold other than 128 (its tensor-core and CUDA-core bodies, f32
+    and bf16, and the budget grid's launch) against its plain version at the
+    same fold: kk = 100 passes the 2 x 32 winners a row of fold 32 can give.
+    One launch a call, under the name of fold 128's."""
+    assert grouped_scan_uses_mma(qt, D, dtype, fold, kk) == tc
+    rng = np.random.default_rng(qt + D + fold + kk)
+    codes, gp, gsize = _fold_inputs(rng, dev, qt, D, dtype)
+    slot_mult, levels = packed_params(_FOLD_C)
+    scale = levels / (10.0 * D ** 0.5)
+    Gn = gp.shape[0]
+    qg = torch.from_numpy(rng.standard_normal((Gn, qt, D)).astype(np.float32) * scale).to(dev)
+    cf = codes.float()
+    normsT = (((cf * cf).sum(-1) * 0.5 - 0.5 * D - 5.0 * D ** 0.5) * scale).contiguous()
+    args = (gp, gsize, qg.to(dtype).contiguous(), codes, normsT, kk, slot_mult, levels, fold)
+    _ext.reset_launches()
+    got = grouped_scan_kernel(*args, budget=budget)
+    torch.cuda.synchronize()
+    name = ("grouped_scan_budget" if budget else "grouped_scan") + (
+        "_bf16" if dtype == torch.bfloat16 else "")
+    assert _ext.launches[name] == 1 and sum(_ext.launches.values()) == 1
+    alive = gsize > 0
+    assert (got[~alive] == -1).all() and torch.isfinite(got).all()
+    _packed_agree(got, grouped_scan_plain(*args), alive, slot_mult, kk)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("kk", [10, 100])
+@pytest.mark.parametrize("fold", _FOLDS)
+@pytest.mark.parametrize("qt,D,dtype,tc", _FOLD_SHAPES)
+def test_rowscale_fold_at_fold_matches_plain(dev, qt, D, dtype, tc, fold, kk, metric):
+    """K5 at a fold other than 128 (tensor-core and CUDA-core bodies, f32 and
+    bf16) against its plain version at the same fold: winners and stats."""
+    assert (rowscale_fold_body(qt, D, kk, dtype, fold) == MMA_BODY) == tc
+    rng = np.random.default_rng(qt + D + fold + kk + len(metric))
+    codes, gp, gsize = _fold_inputs(rng, dev, qt, D, dtype)
+    norms = (codes.float() ** 2).sum(-1).contiguous()
+    qg = torch.from_numpy(rng.standard_normal((gp.shape[0], qt, D)).astype(np.float32)).to(dev)
+    slot_mult, levels = packed_params(_FOLD_C)
+    args = (gp, gsize, qg.to(dtype).contiguous(), codes, norms, kk, slot_mult, levels, metric,
+            "fold")
+    _ext.reset_launches()
+    got, got_stats = rowscale_scan(*args, fold=fold)
+    torch.cuda.synchronize()
+    name = "rowscale_fold_bf16" if dtype == torch.bfloat16 else "rowscale_fold"
+    assert _ext.launches[name] == 1 and sum(_ext.launches.values()) == 1
+    alive = gsize > 0
+    assert (got[~alive] == -1).all()
+    want, want_stats = rowscale_scan_plain(*args, fold=fold)
+    torch.testing.assert_close(got_stats, want_stats, rtol=1e-4, atol=1e-4)
+    _packed_agree(got, want, alive, slot_mult, kk)
+
+
+def test_fold_outside_the_served_set_raises_on_the_card(dev):
+    rng = np.random.default_rng(3)
+    codes, gp, gsize = _fold_inputs(rng, dev, 8, 32, torch.float32, Gn=4)
+    qg = torch.zeros((4, 8, 32), device=dev)
+    norms = (codes * codes).sum(-1).contiguous()
+    slot_mult, levels = packed_params(_FOLD_C)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        grouped_scan_kernel(gp, gsize, qg, codes, norms, 10, slot_mult, levels, 96)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        rowscale_scan(gp, gsize, qg, codes, norms, 10, slot_mult, levels, "l2", "fold", fold=16)

@@ -275,11 +275,18 @@ def test_dispatch_reaches_wrapper(monkeypatch, kernel, C, want, gpb):
     ("v11g4f256", "fold by 128"),
 ])
 def test_dispatch_unported_names_raise(kernel, match):
-    codes = torch.zeros((4, 256, 8))  # C % 256 == 0: f256 needs a fold of 256
-    with pytest.raises(NotImplementedError, match=match):
-        coordinator.grouped_scan(codes, None, None, None, torch.zeros((16, 8)),
-                                 torch.zeros((16, 2), dtype=torch.int32), 10, "l2", 8, 8, kernel,
-                                 dense=True)
+    """Lifted (each case keeps the id it had as a refusal): a fold of 256 on
+    C = 512 runs through the dispatch as the JAX function computes it, K1
+    (or K5 for v7) folding by 256 in its plain version."""
+    name, gpb = coordinator._FOLDED.match(kernel).group(1, 2)
+    codes, ids, sizes, norms = _store(6, 512, 8, seed=11, sizes=[512, 300, 0, 129, 512, 40])
+    q, pids = queries(24, 8, 6, 3, seed=12)
+    arrays = (codes, ids, sizes, norms, q, pids)
+    want = getattr(jpg, f"grouped_scan_pallas_{name}")(
+        *(jnp.asarray(a) for a in arrays), 10, "l2", qt=8, gpb=int(gpb or 4), fold=256,
+        interpret=True)
+    got = coordinator.grouped_scan(*(_t(a) for a in arrays), 10, "l2", 8, 8, kernel, dense=True)
+    assert_scan_parity(want, got)
 
 
 _LIFTED = "True-True-NotImplementedError-Queue 1 item 6: spill and dedup"

@@ -225,7 +225,7 @@ def test_packaged_grid_refused():
     np.testing.assert_allclose(est960.latency_grid, monotone(want), rtol=1e-6)
     est = ListScanLatencyEstimator(d=16, n_values=[64, 512], k_values=[1, 8], n_trials=2,
                                    packaged=True)
-    est.profile_grouped_latency(kernel="xla", n_queries=64)
+    est.profile_grouped_latency(kernel="xla", n_queries=64, device="cpu")
     assert est.grid_source == "profiled"
 
 
@@ -233,7 +233,7 @@ def test_profile_grouped_latency_and_roundtrip(tmp_path):
     """The grouped scan profiled over a small grid on the CPU ("xla"), saved
     and loaded, in the port and by the JAX package."""
     est = ListScanLatencyEstimator(d=16, n_values=[64, 512], k_values=[1, 8], n_trials=2)
-    est.profile_grouped_latency(kernel="xla", n_queries=64)
+    est.profile_grouped_latency(kernel="xla", n_queries=64, device="cpu")
     assert (est.latency_grid > 0).all() and est.grid_source == "profiled"
     p = str(tmp_path / "prof.csv")
     est.save(p)
