@@ -38,7 +38,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
              queries against an exact ground truth on the card picks the
              smallest nprobe reaching 0.90; batches of B=16384 (argsort
              placement) and B=4096 (sorted placement) are then timed with
-             CUDA events, with a per-stage breakdown. The kernels' launch
+             CUDA events, with each stage span's device ms (stage_ms, under
+             profiling.device_trace). The kernels' launch
              counts are zeroed just before this phase and read just after it.
              Then 5 B=16384 batches traced with torch.profiler (idle_share:
              the device's busy ms, the idle share, the five longest device
@@ -105,7 +106,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
              of the grid reaching recall@10 0.90 with exact_distances=False
              (dequantized scores) on the 1024 queries against the exact
              ground truth over the f32 vectors; B=16384 and B=4096 batches
-             timed with CUDA events and stage marks, beside the f32 index's
+             timed with CUDA events and stage spans, beside the f32 index's
              exact_distances=False and the bf16 index's exact search at the
              same nprobe; the launch counts zeroed just before the headline
              path's run and read just after (K1 bf16, K2, K3 must launch,
@@ -725,6 +726,21 @@ def time_ms(torch, fn, reps: int = 10, warmup: int = 2, queued: bool = True) -> 
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def stage_ms(torch, fn, reps: int = 3) -> dict:
+    """Device ms per run of each span that reps runs of fn() open: the span
+    table of profiling.device_trace (its device_ms over reps), keyed by the
+    span name's last part ("parent", "grouping", "scan", "placement",
+    "merge", "rescore", "distances", "hits", "shard_merge")."""
+    from quake_tpu_torch import profiling
+
+    with tempfile.TemporaryDirectory() as logdir, profiling.device_trace(logdir):
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {name.rsplit(".", 1)[-1]: row["device_ms"] / reps
+            for name, row in profiling.last_spans().items() if name.startswith("quake.")}
 
 
 def timed(torch, fn):
@@ -1736,18 +1752,15 @@ def placement_of(idx, B: int, nprobe: int) -> str:
 
 def time_batch(torch, idx, q, sp, gt) -> dict:
     """A batch q through the default search (idx._search_device_full):
-    device ms per batch (CUDA events, 10 reps), QPS, the mean per-stage ms
-    of 3 runs with stage marks, and the recall@10 of its first NQ_GT
+    device ms per batch (CUDA events, 10 reps), QPS, the device ms of each
+    stage's span over 3 traced runs (stage_ms), and the recall@10 of its first NQ_GT
     queries against gt; fails unless every query gets K ids and finite
     distances."""
-    from quake_tpu_torch.profiling import StageTimer
     from quake_tpu_torch.utils import compute_recall
 
     B = q.shape[0]
     ms = time_ms(torch, lambda: idx._search_device_full(q, sp), reps=10)
-    timer = StageTimer(q.device)
-    for _ in range(3):
-        idx._search_device_full(q, sp, stages=timer)
+    stages = stage_ms(torch, lambda: idx._search_device_full(q, sp))
     _, ids32, _, dists = idx._search_device_full(q, sp)
     ids_np = ids32.cpu().numpy()
     if ids_np.shape != (B, K) or (ids_np < 0).any():
@@ -1755,7 +1768,7 @@ def time_batch(torch, idx, q, sp, gt) -> dict:
     if not torch.isfinite(dists).all():
         raise AssertionError(f"B={B}: non-finite distances")
     return dict(ms=ms, qps=B / (ms / 1e3), recall_first_1024=compute_recall(ids_np[:NQ_GT], gt, K),
-                stages_ms=timer.mean_ms())
+                stages_ms=stages)
 
 
 def batch_text(r: dict) -> str:
@@ -1779,7 +1792,6 @@ def phase_by_name(torch, dev, idx, queries, gt, nprobe, recall_v11, paths=BY_NAM
     gate: within EXACT_TOL below the ceiling, or within V11_TOL of the v11
     path."""
     from quake_tpu_torch import SearchParams, _ext
-    from quake_tpu_torch.profiling import StageTimer
     from quake_tpu_torch.utils import compute_recall
 
     sp = SearchParams(k=K, nprobe=nprobe)
@@ -1807,9 +1819,7 @@ def phase_by_name(torch, dev, idx, queries, gt, nprobe, recall_v11, paths=BY_NAM
             res = idx.search(queries[:NQ_GT], sp)
             ms = time_ms(torch, lambda: idx._search_device_full(qd, sp), reps=reps,
                          warmup=min(reps, 2) - 1)
-            timer = StageTimer(dev)
-            for _ in range(min(reps, 3)):
-                idx._search_device_full(qd, sp, stages=timer)
+            stages = stage_ms(torch, lambda: idx._search_device_full(qd, sp), min(reps, 3))
             _, ids32, _, dists = idx._search_device_full(qd, sp)
             torch.cuda.synchronize()
             launches = dict(_ext.launches)
@@ -1818,7 +1828,6 @@ def phase_by_name(torch, dev, idx, queries, gt, nprobe, recall_v11, paths=BY_NAM
                 del os.environ[var]
         r = compute_recall(res.ids, gt, K)
         r_batch = compute_recall(ids32[:NQ_GT].cpu().numpy(), gt, K)
-        stages = timer.mean_ms()
         log(f"[{tag}] {name}: recall@10={r:.4f} (v11 {recall_v11:.4f}, exact "
             f"{ceiling:.4f}; B={batch}: recall(first {NQ_GT})={r_batch:.4f}), {ms:.3f} ms/batch "
             f"(B={batch}), {batch / (ms / 1e3):,.0f} QPS, stages(ms)="
@@ -2283,19 +2292,18 @@ def phase_direct(torch, dev, idx, queries, gt, nprobe, ceiling, paths=DIRECT, ta
     another scan kernel did, or if recall misses its gate."""
     from quake_tpu_torch import _ext
     from quake_tpu_torch.ops import grouped_variants as gv
-    from quake_tpu_torch.profiling import StageTimer
     from quake_tpu_torch.utils import compute_recall
 
     st = idx.store.state
     fns = {
-        "approx": lambda q, p, **kw: gv.grouped_scan_approx(st.codes, st.ids, q, p, K, "l2",
-                                                            qt=DIRECT_QT, **kw),
-        "sized": lambda q, p, **kw: gv.grouped_scan_sized(st.codes, st.ids, st.sizes, q, p, K,
-                                                          "l2", qt=DIRECT_QT, ct=SIZED_CT, **kw),
-        "packed": lambda q, p, **kw: gv.grouped_scan_packed(st.codes, st.ids, q, p, K, "l2",
-                                                            qt=DIRECT_QT, **kw),
-        "multi": lambda q, p, **kw: gv.grouped_scan_multi(st.codes, st.ids, q, p, K, "l2",
-                                                          qt=DIRECT_QT, gb=MULTI_GB, **kw),
+        "approx": lambda q, p: gv.grouped_scan_approx(st.codes, st.ids, q, p, K, "l2",
+                                                      qt=DIRECT_QT),
+        "sized": lambda q, p: gv.grouped_scan_sized(st.codes, st.ids, st.sizes, q, p, K, "l2",
+                                                    qt=DIRECT_QT, ct=SIZED_CT),
+        "packed": lambda q, p: gv.grouped_scan_packed(st.codes, st.ids, q, p, K, "l2",
+                                                      qt=DIRECT_QT),
+        "multi": lambda q, p: gv.grouped_scan_multi(st.codes, st.ids, q, p, K, "l2",
+                                                    qt=DIRECT_QT, gb=MULTI_GB),
     }
     batches = probe_batches(torch, dev, idx, queries, nprobe)
     scan_kernels = set(_ext.KERNELS) - {"flat_topk"}
@@ -2306,16 +2314,11 @@ def phase_direct(torch, dev, idx, queries, gt, nprobe, ceiling, paths=DIRECT, ta
         _ext.reset_launches()
         _, ids_gt, scanned = fn(*batches[NQ_GT])
         ms = time_ms(torch, lambda: fn(*batches[BATCH]), reps=reps, warmup=1)
-        timer = StageTimer(dev)
-        for _ in range(min(reps, 3)):
-            timer.start()
-            fn(*batches[BATCH], stages=timer)
-            timer.stop()
+        stages = stage_ms(torch, lambda: fn(*batches[BATCH]), min(reps, 3))
         scores, ids32, _ = fn(*batches[BATCH])
         torch.cuda.synchronize()
         launches = dict(_ext.launches)
         r = compute_recall(ids_gt.cpu().numpy(), gt, K)
-        stages = timer.mean_ms()
         log(f"[{tag}] {name}: recall@10={r:.4f} (exact {ceiling:.4f}), {ms:.3f} ms/batch "
             f"(B={BATCH}, qt={DIRECT_QT}), {BATCH / (ms / 1e3):,.0f} QPS, stages(ms)="
             f"{json.dumps({k: round(v, 4) for k, v in stages.items()})}, launches {launches}")
@@ -3596,7 +3599,6 @@ def fold_by_name(torch, dev, idx, queries, gt, nprobe, names, what: str,
     must launch and K4 (the v3pN fallback) must not; every K1, K2, K3 and
     K5 call of that batch held to its plain version at the name's fold."""
     from quake_tpu_torch import SearchParams, _ext
-    from quake_tpu_torch.profiling import StageTimer
     from quake_tpu_torch.utils import compute_recall
 
     st = idx.store.state
@@ -3627,9 +3629,7 @@ def fold_by_name(torch, dev, idx, queries, gt, nprobe, names, what: str,
             calls = recorded_calls(lambda: k5.extend(recorded_rowscale(
                 lambda: idx._search_device_full(qd, sp))))
             ms = time_ms(torch, lambda: idx._search_device_full(qd, sp), reps=5, warmup=1)
-            timer = StageTimer(dev)
-            for _ in range(3):
-                idx._search_device_full(qd, sp, stages=timer)
+            stages = stage_ms(torch, lambda: idx._search_device_full(qd, sp))
         finally:
             del os.environ["QUAKE_TPU_KERNEL"]
         if (launches.get(main, 0) <= 0 or launches.get("flat_topk", 0) <= 0
@@ -3657,11 +3657,11 @@ def fold_by_name(torch, dev, idx, queries, gt, nprobe, names, what: str,
                                  f"below the exact scan's {ceiling}")
         twin = (twins or {}).get(name)
         out[name] = dict(recall=r, ms=ms, qps=BATCH / (ms / 1e3), launches=launches,
-                         stages_ms=timer.mean_ms(), checks=checks, recall_fold128=twin)
+                         stages_ms=stages, checks=checks, recall_fold128=twin)
         fold_log(f"{what}, nprobe {nprobe}, C {C}: {name}: recall@10 {r:.4f} (exact scan "
                  f"{ceiling:.4f}" + (f", fold 128 {twin:.4f}" if twin is not None else "")
                  + f"), B={BATCH} {ms:.3f} ms/batch, stages(ms)="
-                 f"{json.dumps({k: round(v, 4) for k, v in timer.mean_ms().items()})}, launches "
+                 f"{json.dumps({k: round(v, 4) for k, v in stages.items()})}, launches "
                  f"{launches}; its calls against their plain versions {json.dumps(checks)}")
     return out
 
@@ -3762,10 +3762,9 @@ def fold_k5_row(torch, idx, q, pids, fold, name, launches) -> dict:
 def xla_merge(torch, dev, idx, queries, nprobe) -> dict:
     """merge="xla" (the pool merge in tensor operations) against K2 on idx's
     v11 path at B=BATCH: the same ids and scores, no K2 launch, and each
-    merge's stage ms (StageTimer, 5 runs each)."""
+    merge's stage ms (stage_ms, 5 traced runs each)."""
     from quake_tpu_torch import _ext
     from quake_tpu_torch.ops.grouped_scan import grouped_scan_v11
-    from quake_tpu_torch.profiling import StageTimer
 
     st = idx.store.state
     q = torch.from_numpy(queries[:BATCH]).to(dev)
@@ -3781,12 +3780,8 @@ def xla_merge(torch, dev, idx, queries, nprobe) -> dict:
         res[merge] = grouped_scan_v11(*args, merge=merge, **kw)
         torch.cuda.synchronize()
         launches = {k: n for k, n in _ext.launches.items() if n}
-        timer = StageTimer(dev)
-        for _ in range(5):
-            timer.start()
-            grouped_scan_v11(*args, merge=merge, stages=timer, **kw)
-            timer.stop()
-        out[merge] = dict(launches=launches, stages_ms=timer.mean_ms())
+        out[merge] = dict(launches=launches, stages_ms=stage_ms(
+            torch, lambda: grouped_scan_v11(*args, merge=merge, **kw), 5))
     if out["xla"]["launches"] != {"grouped_scan": 1} or out["pallas"]["launches"] != {
             "grouped_scan": 1, "merge_positions": 1}:
         raise AssertionError(f"merge='xla' must launch K1 and no K2, merge='pallas' K1 and K2: "

@@ -30,6 +30,7 @@ from quake_tpu_torch.ops.grouped_scan import (FOLD, budget_sort_key_fits, check_
                                               grouped_scan_v11, sort_key_fits)
 from quake_tpu_torch.ops.scan import (NEG_INF, dedup_topk, flat_scan, ivf_scan, merge_topk,
                                       scores_to_distances, topk_from_scores)
+from quake_tpu_torch.profiling import annotate
 
 
 def flat_search(codes, ids, q, k: int, metric: str, chunk_size: int = 16384,
@@ -134,7 +135,7 @@ def chunk_spec(kernel: str, C: int, gpb: int):
 
 def grouped_scan(codes, ids, sizes, norms, q, pids, k: int, metric: str,
                  qt: int, group_chunk: int, kernel: str, dedup: bool = False,
-                 dense: bool = False, exact: bool = True, stages=None, pair_budget: int = 0):
+                 dense: bool = False, exact: bool = True, pair_budget: int = 0):
     """Grouped-scan dispatch by name (quake_tpu/coordinator.py::grouped_scan).
 
     "v4", "v5" and "v6", each with an optional "c{ct}" and "g{gpb}", run
@@ -179,7 +180,7 @@ def grouped_scan(codes, ids, sizes, norms, q, pids, k: int, metric: str,
                    "v6": (grouped_scan_v6, 4)}[kernel[:2]]
         ct, gpb = chunk_spec(kernel, codes.shape[1], gpb)
         return fn(codes, ids, sizes, norms, q, pids, k, metric, qt=qt, ct=ct, gpb=gpb,
-                  dedup=dedup, stages=stages)
+                  dedup=dedup)
     if dedup and kernel in ("v2", "v3", "v3p"):
         raise ValueError(
             f"kernel {kernel!r} does not support dedup (spilled stores); "
@@ -189,15 +190,14 @@ def grouped_scan(codes, ids, sizes, norms, q, pids, k: int, metric: str,
         name, gpb, fold = m.group(1), int(m.group(2) or 4), int(m.group(3) or FOLD)
         if codes.shape[1] % fold:
             return grouped_scan_v3pn(codes, ids, sizes, norms, q, pids, k, metric, qt=qt,
-                                     gpb=gpb, dedup=dedup, stages=stages)
+                                     gpb=gpb, dedup=dedup)
         check_fold(kernel, fold, codes.shape[1])
         if pair_budget > 0 and not dense and name in ("v10", "v11"):
             placement = ("sorted" if name == "v11" and budget_sort_key_fits(
                 q.shape[0], pids.shape[1], pair_budget, codes.shape[0], qt, gpb) else "scatter")
             return grouped_scan_v10b(codes, ids, sizes, norms, q, pids, k, metric,
                                      pair_budget=pair_budget, qt=qt, gpb=gpb, fold=fold,
-                                     dedup=dedup, exact=exact, placement=placement,
-                                     stages=stages)
+                                     dedup=dedup, exact=exact, placement=placement)
         if name == "v11" and not dense:
             name = "v10"  # masked pid matrices ride the scatter placement
         placement = "sorted"
@@ -213,63 +213,55 @@ def grouped_scan(codes, ids, sizes, norms, q, pids, k: int, metric: str,
                 placement = "argsort"
         if name == "v7":
             return grouped_scan_v7(codes, ids, sizes, norms, q, pids, k, metric, qt=qt,
-                                   gpb=gpb, fold=fold, dedup=dedup, stages=stages)
+                                   gpb=gpb, fold=fold, dedup=dedup)
         if name in ("v8", "v9"):  # v9 computes v8's function (grouped_family.py)
             return grouped_scan_v8(codes, ids, sizes, norms, q, pids, k, metric, qt=qt,
-                                   gpb=gpb, fold=fold, dedup=dedup, stages=stages)
+                                   gpb=gpb, fold=fold, dedup=dedup)
         if name == "v10":
             return grouped_scan_v10(codes, ids, sizes, norms, q, pids, k, metric, qt=qt,
-                                    gpb=gpb, fold=fold, dedup=dedup, exact=exact,
-                                    stages=stages)
+                                    gpb=gpb, fold=fold, dedup=dedup, exact=exact)
         return grouped_scan_v11(codes, ids, sizes, norms, q, pids, k, metric,
                                 qt=qt, gpb=gpb, fold=fold, dedup=dedup, exact=exact,
-                                placement=placement, stages=stages)
+                                placement=placement)
     m = _V3PN.match(kernel)
     if m is not None:
         return grouped_scan_v3pn(codes, ids, sizes, norms, q, pids, k, metric, qt=qt,
-                                 gpb=int(m.group(1)), dedup=dedup, stages=stages)
+                                 gpb=int(m.group(1)), dedup=dedup)
     if kernel == "v3p":
-        return grouped_scan_v3p(codes, ids, sizes, norms, q, pids, k, metric, qt=qt,
-                                stages=stages)
+        return grouped_scan_v3p(codes, ids, sizes, norms, q, pids, k, metric, qt=qt)
     if kernel == "v3":
-        return grouped_scan_v3(codes, ids, sizes, norms, q, pids, k, metric, qt=qt,
-                               stages=stages)
+        return grouped_scan_v3(codes, ids, sizes, norms, q, pids, k, metric, qt=qt)
     if kernel == "v2":
-        return grouped_scan_v2(codes, ids, q, pids, k, metric, qt=qt, stages=stages)
+        return grouped_scan_v2(codes, ids, q, pids, k, metric, qt=qt)
     return grouped_scan_xla(codes, ids, q, pids, k, metric, qt=qt, group_chunk=group_chunk,
-                            norms=norms, dedup=dedup, stages=stages)
+                            norms=norms, dedup=dedup)
 
 
 def fused_ivf_search(codes, ids, sizes, norms, parent_codes, parent_ids, q,
                      k: int, nprobe: int, metric: str, qt: int,
                      kernel: str = "v11g4", parent_norms=None, group_chunk: int = 64,
-                     parent_kernel: str = "approx", exact: bool = True, stages=None,
+                     parent_kernel: str = "approx", exact: bool = True,
                      dedup: bool = False):
     """End-to-end fixed-nprobe search: parent centroid ranking -> grouped
     scan -> top-k merge -> distance conversion. exact=False: dequantized
     scores on v10 and v11; dedup: the spilled store's tail (see
     grouped_scan). All launches go to the current stream; nothing
-    synchronises.
+    synchronises. Each stage runs in a span (quake.plan.parent, then the
+    grouped scan's; see quake_tpu_torch.profiling).
 
     Returns (scores, ids32, distances, scanned, pids)."""
-    if stages is not None:
-        stages.start()
-    pids = rank_parents(parent_codes, parent_ids, parent_norms, q, nprobe, metric,
-                        parent_kernel)
-    # Self-heal the dense invariant: a -1 pid would drop its pair from the
-    # grouping and shift the sorted placement's windows for every query.
-    # Substitute the query's best (always-valid) parent; duplicates collapse
-    # downstream.
-    pids = torch.where(pids >= 0, pids, pids[:, :1])
-    if stages is not None:
-        stages.mark("parent")
+    with annotate("quake.plan.parent"):
+        pids = rank_parents(parent_codes, parent_ids, parent_norms, q, nprobe, metric,
+                            parent_kernel)
+        # Self-heal the dense invariant: a -1 pid would drop its pair from the
+        # grouping and shift the sorted placement's windows for every query.
+        # Substitute the query's best (always-valid) parent; duplicates collapse
+        # downstream.
+        pids = torch.where(pids >= 0, pids, pids[:, :1])
     scores, ids32, scanned = grouped_scan(codes, ids, sizes, norms, q, pids, k,
                                           metric, qt, group_chunk, kernel, dedup=dedup,
-                                          dense=True, exact=exact, stages=stages)
+                                          dense=True, exact=exact)
     dists = scores_to_distances(scores, ids32, metric)
-    if stages is not None:
-        stages.mark("distances")
-        stages.stop()
     return scores, ids32, dists, scanned, pids
 
 

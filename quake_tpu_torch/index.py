@@ -320,7 +320,8 @@ class QuakeIndex:
         reference's unwired record_query_hits, wired as in the JAX
         package)."""
         if self.maintenance_policy is not None:
-            self.maintenance_policy.record_query_hits_device(pids, scanned)
+            with annotate("quake.plan.hits"):
+                self.maintenance_policy.record_query_hits_device(pids, scanned)
 
     # ----------------------------------------------------------------- search
 
@@ -332,34 +333,37 @@ class QuakeIndex:
           job_enqueue      = enqueueing the search's launches
           job_wait         = device execution + the id copy back to the host
           result_aggregate = the distance copy and conversion
-        each labelled for a trace (profiling.annotate: quake.buffer_init,
-        quake.dispatch, quake.device_wait, quake.aggregate).
+        each a span inside the span quake.search (profiling.annotate:
+        quake.buffer_init, quake.dispatch, quake.device_wait,
+        quake.aggregate).
         """
-        t0 = _now_ns()
-        sp = search_params or SearchParams()
-        with annotate("quake.buffer_init"):
-            self._flush_mutations()
-            x = to_f32(x)
-            if x.ndim == 1:
-                x = x[None, :]
-            if x.shape[1] != self.d():
-                raise ValueError(f"query dimension {x.shape[1]} != index dimension {self.d()}")
-            q = torch.from_numpy(x).to(self.device)
-        t1 = _now_ns()
-        with annotate("quake.dispatch"):
-            _, ids32, timing, dists = self._search_device_full(q, sp)
-        t2 = _now_ns()
-        with annotate("quake.device_wait"):
-            ids_np = ids32.cpu().numpy().astype(np.int64)  # waits for the device
-        t3 = _now_ns()
-        with annotate("quake.aggregate"):
-            scanned_dev = getattr(timing, "_scanned_dev", None)
-            if scanned_dev is not None:  # APS: read after the wait above
-                sc = scanned_dev.cpu().numpy()
-                timing.partitions_scanned = int(sc.mean()) if sc.size else 0
-                timing._scanned_dev = None
-            dists_np = dists.cpu().numpy()
-        t4 = _now_ns()
+        with annotate("quake.search"):
+            t0 = _now_ns()
+            sp = search_params or SearchParams()
+            with annotate("quake.buffer_init"):
+                self._flush_mutations()
+                x = to_f32(x)
+                if x.ndim == 1:
+                    x = x[None, :]
+                if x.shape[1] != self.d():
+                    raise ValueError(f"query dimension {x.shape[1]} != index dimension "
+                                     f"{self.d()}")
+                q = torch.from_numpy(x).to(self.device)
+            t1 = _now_ns()
+            with annotate("quake.dispatch"):
+                _, ids32, timing, dists = self._search_device_full(q, sp)
+            t2 = _now_ns()
+            with annotate("quake.device_wait"):
+                ids_np = ids32.cpu().numpy().astype(np.int64)  # waits for the device
+            t3 = _now_ns()
+            with annotate("quake.aggregate"):
+                scanned_dev = getattr(timing, "_scanned_dev", None)
+                if scanned_dev is not None:  # APS: read after the wait above
+                    sc = scanned_dev.cpu().numpy()
+                    timing.partitions_scanned = int(sc.mean()) if sc.size else 0
+                    timing._scanned_dev = None
+                dists_np = dists.cpu().numpy()
+            t4 = _now_ns()
         timing.buffer_init_time_ns = t1 - t0
         timing.job_enqueue_time_ns = t2 - t1
         timing.job_wait_time_ns = t3 - t2
@@ -367,7 +371,7 @@ class QuakeIndex:
         timing.total_time_ns = t4 - t0
         return SearchResult(ids=ids_np, distances=dists_np, timing_info=timing)
 
-    def _search_device_full(self, q: torch.Tensor, sp: SearchParams, stages=None):
+    def _search_device_full(self, q: torch.Tensor, sp: SearchParams):
         """Search of a [B, D] f32 tensor on the index's device; returns
         (scores, ids32, timing, distances) as device tensors, with the
         launches enqueued and not waited for. Batches of at least 16 queries
@@ -416,7 +420,7 @@ class QuakeIndex:
             scores, ids32, dists, scanned, pids = sharded_fused_search(
                 self._shards(), pstate.codes, pstate.ids, q, k=k, nprobe=parent_k,
                 metric=self.metric, qt=qt, group_chunk=group_chunk, dedup=self.spill,
-                kernel=self._grouped_kernel(), exact=bool(sp.exact_distances), stages=stages)
+                kernel=self._grouped_kernel(), exact=bool(sp.exact_distances))
         else:
             state = self.store.state
             scores, ids32, dists, scanned, pids = coordinator.fused_ivf_search(
@@ -424,7 +428,7 @@ class QuakeIndex:
                 pstate.codes, pstate.ids, q, k=k, nprobe=parent_k, metric=self.metric,
                 qt=qt, kernel=self._grouped_kernel(), parent_norms=pstate.norms,
                 group_chunk=group_chunk, parent_kernel=self._parent_kernel(),
-                exact=bool(sp.exact_distances), stages=stages, dedup=self.spill)
+                exact=bool(sp.exact_distances), dedup=self.spill)
         timing.partitions_scanned = parent_k
         timing.parent_info = SearchTimingInfo(
             n_queries=B, n_clusters=self.parent.nlist(),
@@ -993,73 +997,83 @@ class QuakeIndex:
         in with one assignment and one append; every read and every other
         mutation flushes the buffer first, so what a caller observes is
         unchanged."""
-        timing = ModifyTimingInfo()
-        t0 = _now_us()
-        x = to_f32(x)
-        if x.ndim == 1:
-            x = x[None, :]
-        ids = to_i64(ids)
-        timing.n_vectors = x.shape[0]
-        self._validate_new_ids(ids)
-        timing.input_validation_time_us = _now_us() - t0
+        with annotate("quake.add"):
+            timing = ModifyTimingInfo()
+            t0 = _now_us()
+            x = to_f32(x)
+            if x.ndim == 1:
+                x = x[None, :]
+            ids = to_i64(ids)
+            timing.n_vectors = x.shape[0]
+            with annotate("quake.add.validate"):
+                self._validate_new_ids(ids)
+            timing.input_validation_time_us = _now_us() - t0
 
-        buf = self.build_params.mutation_buffer_size if self.build_params else 0
-        if buf > 0 and self.parent is not None:
-            self._pending_x.append(x)
-            self._pending_vids.append(ids)
-            self._pending_idset.update(ids.tolist())
-            if sum(len(v) for v in self._pending_vids) >= buf:
+            buf = self.build_params.mutation_buffer_size if self.build_params else 0
+            if buf > 0 and self.parent is not None:
+                self._pending_x.append(x)
+                self._pending_vids.append(ids)
+                self._pending_idset.update(ids.tolist())
+                if sum(len(v) for v in self._pending_vids) >= buf:
+                    t2 = _now_us()
+                    self._flush_mutations()
+                    timing.modify_time_us = _now_us() - t2
+                return timing
+
+            t1 = _now_us()
+            if self.parent is not None and self.spill:
+                with annotate("quake.add.assign"):
+                    rows, srows = self._assign_rows_spill(x)
+                timing.find_partition_time_us = _now_us() - t1
                 t2 = _now_us()
-                self._flush_mutations()
+                self._append_spilled(rows, srows, x, ids)
                 timing.modify_time_us = _now_us() - t2
-            return timing
-
-        t1 = _now_us()
-        if self.parent is not None and self.spill:
-            rows, srows = self._assign_rows_spill(x)
+                return timing
+            if self.parent is not None:
+                with annotate("quake.add.assign"):
+                    rows = self._ensure_room_by_splitting(self._assign_rows(x), x, ids)
+            else:
+                rows = np.zeros(x.shape[0], dtype=np.int32)
             timing.find_partition_time_us = _now_us() - t1
             t2 = _now_us()
-            self._append_spilled(rows, srows, x, ids)
+            self.store.append(rows, x, ids)
             timing.modify_time_us = _now_us() - t2
             return timing
-        if self.parent is not None:
-            rows = self._ensure_room_by_splitting(self._assign_rows(x), x, ids)
-        else:
-            rows = np.zeros(x.shape[0], dtype=np.int32)
-        timing.find_partition_time_us = _now_us() - t1
-        t2 = _now_us()
-        self.store.append(rows, x, ids)
-        timing.modify_time_us = _now_us() - t2
-        return timing
 
     def _flush_mutations(self) -> None:
-        """Insert all buffered vectors with one assignment and one append."""
+        """Insert all buffered vectors with one assignment and one append
+        (in the spans of an add)."""
         if not self._pending_vids:
             return
-        x = np.concatenate(self._pending_x)
-        ids = np.concatenate(self._pending_vids)
-        self._pending_x.clear()
-        self._pending_vids.clear()
-        self._pending_idset.clear()
-        if self.spill:
-            self._append_spilled(*self._assign_rows_spill(x), x, ids)
-            return
-        rows = self._ensure_room_by_splitting(self._assign_rows(x), x, ids)
-        self.store.append(rows, x, ids)
+        with annotate("quake.add"):
+            x = np.concatenate(self._pending_x)
+            ids = np.concatenate(self._pending_vids)
+            self._pending_x.clear()
+            self._pending_vids.clear()
+            self._pending_idset.clear()
+            if self.spill:
+                with annotate("quake.add.assign"):
+                    rows, srows = self._assign_rows_spill(x)
+                self._append_spilled(rows, srows, x, ids)
+                return
+            with annotate("quake.add.assign"):
+                rows = self._ensure_room_by_splitting(self._assign_rows(x), x, ids)
+            self.store.append(rows, x, ids)
 
     def remove(self, ids) -> ModifyTimingInfo:
         """Remove by id (quake_index.cpp:132-140), routed through the id map
         to the partitions that hold them; ids not in the index are ignored."""
-        timing = ModifyTimingInfo()
-        t0 = _now_us()
-        self._flush_mutations()
-        ids = to_i64(ids)
-        timing.n_vectors = ids.shape[0]
-        t1 = _now_us()
-        self.store.remove(ids)
-        timing.modify_time_us = _now_us() - t1
-        timing.input_validation_time_us = t1 - t0
-        return timing
+        with annotate("quake.remove"):
+            timing = ModifyTimingInfo()
+            t0 = _now_us()
+            self._flush_mutations()
+            ids = to_i64(ids)
+            timing.n_vectors = ids.shape[0]
+            t1 = _now_us()
+            self.store.remove(ids)
+            timing.modify_time_us = _now_us() - t1
+            timing.input_validation_time_us = t1 - t0
+            return timing
 
     def modify(self, ids, x) -> ModifyTimingInfo:
         """Overwrite resident vectors in place (quake_index.h modify); both
@@ -1112,9 +1126,10 @@ class QuakeIndex:
         copies that pass left (quake_tpu/index.py::_append_spilled)."""
         n = len(rows)
         ids = to_i64(ids)
-        rows_comb = self._ensure_room_by_splitting(
-            np.concatenate([rows, srows]), np.concatenate([x, x]), np.concatenate([ids, ids]),
-            incoming_spill=np.concatenate([np.zeros(n, bool), np.ones(n, bool)]))
+        with annotate("quake.add.assign"):
+            rows_comb = self._ensure_room_by_splitting(
+                np.concatenate([rows, srows]), np.concatenate([x, x]), np.concatenate([ids, ids]),
+                incoming_spill=np.concatenate([np.zeros(n, bool), np.ones(n, bool)]))
         self.store.append_primaries(rows_comb[:n], x, ids)
         self.store.append_spill_copies(rows_comb[n:], x, ids)
 
@@ -1244,10 +1259,11 @@ class QuakeIndex:
         """Cost-based split and delete, then local refinement
         (quake_index.cpp:157-163), after the pending adds are flushed. A
         flat index has no policy and does nothing."""
-        if self.maintenance_policy is None:
-            return MaintenanceTimingInfo()
-        self._flush_mutations()
-        return self.maintenance_policy.perform_maintenance()
+        with annotate("quake.maintenance"):
+            if self.maintenance_policy is None:
+                return MaintenanceTimingInfo()
+            self._flush_mutations()
+            return self.maintenance_policy.perform_maintenance()
 
     # ------------------------------------------------------------ persistence
 

@@ -33,6 +33,7 @@ from quake_tpu_torch.kmeans import batched_refine, lloyd_refine_np
 from quake_tpu_torch.maintenance.cost_estimator import MaintenanceCostEstimator
 from quake_tpu_torch.maintenance.hit_tracker import HitCountTracker
 from quake_tpu_torch.params import MaintenancePolicyParams, SearchParams
+from quake_tpu_torch.profiling import annotate
 from quake_tpu_torch.storage.store import _bucket
 from quake_tpu_torch.timing import MaintenanceTimingInfo
 
@@ -93,72 +94,78 @@ class MaintenancePolicy:
 
         t_total = _now_us()
         store = self.index.store
-        sizes = store.partition_sizes()
-        per_query_hits = tracker.get_per_query_hits(sizes)
+        with annotate("quake.maint.window"):
+            sizes = store.partition_sizes()
+            per_query_hits = tracker.get_per_query_hits(sizes)
 
-        agg = np.zeros(store.P, dtype=np.int64)
-        for hits in per_query_hits:
-            valid = hits[(hits >= 0) & (hits < store.P)]
-            np.add.at(agg, valid, 1)
+            agg = np.zeros(store.P, dtype=np.int64)
+            for hits in per_query_hits:
+                valid = hits[(hits >= 0) & (hits < store.P)]
+                np.add.at(agg, valid, 1)
 
-        active_rows = store.active_rows()
-        total_partitions = len(active_rows)
-        if total_partitions <= 1:
-            return timing
-        ntotal = self.index.ntotal()
-        avg_size = ntotal / total_partitions
-        scan_fraction = tracker.get_current_scan_fraction()
+        with annotate("quake.maint.decide"):
+            active_rows = store.active_rows()
+            total_partitions = len(active_rows)
+            if total_partitions <= 1:
+                return timing
+            ntotal = self.index.ntotal()
+            avg_size = ntotal / total_partitions
+            scan_fraction = tracker.get_current_scan_fraction()
 
-        to_delete: list[int] = []
-        to_split: list[int] = []
-        for r in active_rows:
-            r = int(r)
-            hit_rate = agg[r] / p.window_size
-            size = int(sizes[r])
-            delete_delta = self.cost_estimator.compute_delete_delta(
-                size, hit_rate, total_partitions, scan_fraction, avg_size
-            )
-            if delete_delta < -p.delete_threshold_ns:
-                if p.enable_delete_rejection and size > p.min_partition_size:
-                    t_rej = _now_us()
-                    delta = self._delete_delta_with_reassign(
-                        r, size, hit_rate, total_partitions, agg
-                    )
-                    self.rejection_candidates += 1
-                    self.rejection_time_us += _now_us() - t_rej
-                    if delta < -p.delete_threshold_ns:
-                        to_delete.append(r)
-                else:
-                    to_delete.append(r)
-            elif size > p.min_partition_size:
-                split_delta = self.cost_estimator.compute_split_delta(
-                    size, hit_rate, total_partitions
+            to_delete: list[int] = []
+            to_split: list[int] = []
+            for r in active_rows:
+                r = int(r)
+                hit_rate = agg[r] / p.window_size
+                size = int(sizes[r])
+                delete_delta = self.cost_estimator.compute_delete_delta(
+                    size, hit_rate, total_partitions, scan_fraction, avg_size
                 )
-                if split_delta < -p.split_threshold_ns:
-                    to_split.append(r)
+                if delete_delta < -p.delete_threshold_ns:
+                    if p.enable_delete_rejection and size > p.min_partition_size:
+                        t_rej = _now_us()
+                        delta = self._delete_delta_with_reassign(
+                            r, size, hit_rate, total_partitions, agg
+                        )
+                        self.rejection_candidates += 1
+                        self.rejection_time_us += _now_us() - t_rej
+                        if delta < -p.delete_threshold_ns:
+                            to_delete.append(r)
+                    else:
+                        to_delete.append(r)
+                elif size > p.min_partition_size:
+                    split_delta = self.cost_estimator.compute_split_delta(
+                        size, hit_rate, total_partitions
+                    )
+                    if split_delta < -p.split_threshold_ns:
+                        to_split.append(r)
 
-        # Never delete everything.
-        to_delete = to_delete[:total_partitions - 1]
+            # Never delete everything.
+            to_delete = to_delete[:total_partitions - 1]
 
         t_del = _now_us()
         if to_delete:
-            self._delete_partitions(to_delete, reassign=True)
+            with annotate("quake.maint.delete"):
+                self._delete_partitions(to_delete, reassign=True)
             timing.n_deletes = len(to_delete)
         timing.delete_time_us = _now_us() - t_del
 
         t_split = _now_us()
         new_rows: list[int] = []
         if to_split:
-            new_rows = self._split_partitions(to_split)
+            with annotate("quake.maint.split"):
+                new_rows = self._split_partitions(to_split)
             timing.n_splits = len(to_split)
         timing.split_time_us = _now_us() - t_split
 
         t_refine = _now_us()
         if new_rows:
-            self.local_refinement(new_rows)
+            with annotate("quake.maint.refine"):
+                self.local_refinement(new_rows)
         timing.split_refine_time_us = _now_us() - t_refine
 
-        tracker.invalidate_rows(to_delete + to_split)
+        with annotate("quake.maint.invalidate"):
+            tracker.invalidate_rows(to_delete + to_split)
         timing.total_time_us = _now_us() - t_total
         return timing
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from quake_tpu_torch.ops.scan import NEG_INF, duplicate_mask, topk_from_scores, topk_stable
-from quake_tpu_torch.profiling import mark_stage
+from quake_tpu_torch.profiling import annotate
 
 
 def group_layout(B: int, nprobe: int, nlist_cap: int, qt: int) -> int:
@@ -302,7 +302,7 @@ def merge_groups(g_scores, g_ids, pair_group, pair_slot, pids, k: int, kk: int,
 
 
 def grouped_scan_xla(codes, ids, q, pids, k: int, metric: str, qt: int = 64,
-                     group_chunk: int = 64, norms=None, dedup: bool = False, stages=None):
+                     group_chunk: int = 64, norms=None, dedup: bool = False):
     """Partition-major batched scan in plain tensor operations
     (quake_tpu/ops/grouped.py::grouped_scan_xla, the JAX package's scan on
     every backend that is not a TPU): `group_chunk` groups at a time, a
@@ -314,25 +314,25 @@ def grouped_scan_xla(codes, ids, q, pids, k: int, metric: str, qt: int = 64,
     optional [P, C] cached squared norms. Returns (scores [B, k], ids [B, k],
     scanned [B]). dedup: merge_groups' dedup (a spilled store)."""
     P, C, _ = codes.shape
-    group_pid, qlist, pair_group, pair_slot = build_groups(pids, P, qt)
-    G = group_pid.shape[0]
-    kk = min(k, C)
-    q_cast = q.to(codes.dtype)
-    mark_stage(stages, "grouping")
-    out_s, out_i = [], []
-    for g0 in range(0, G, group_chunk):
-        gpid = group_pid[g0:g0 + group_chunk]
-        safe_pid = torch.clamp(gpid, min=0).long()
-        sids = torch.where((gpid >= 0)[:, None], ids[safe_pid], torch.full_like(ids[safe_pid], -1))
-        qg = q_cast[torch.clamp(qlist[g0:g0 + group_chunk], min=0).long()]
-        scores = group_scores(qg, codes[safe_pid], sids, metric,
-                              norms[safe_pid] if norms is not None else None)
-        s, idx = torch.topk(scores, kk, dim=2)
-        i = torch.gather(sids[:, None, :].expand(-1, qt, -1), 2, idx)
-        out_s.append(s)
-        out_i.append(torch.where(s == NEG_INF, torch.full_like(i, -1), i))
-    g_scores, g_ids = torch.cat(out_s), torch.cat(out_i)
-    mark_stage(stages, "scan")
-    out = merge_groups(g_scores, g_ids, pair_group, pair_slot, pids, k, kk, dedup=dedup)
-    mark_stage(stages, "merge")
-    return out
+    with annotate("quake.plan.grouping"):
+        group_pid, qlist, pair_group, pair_slot = build_groups(pids, P, qt)
+        G = group_pid.shape[0]
+        kk = min(k, C)
+        q_cast = q.to(codes.dtype)
+    with annotate("quake.scan"):
+        out_s, out_i = [], []
+        for g0 in range(0, G, group_chunk):
+            gpid = group_pid[g0:g0 + group_chunk]
+            safe_pid = torch.clamp(gpid, min=0).long()
+            sids = torch.where((gpid >= 0)[:, None], ids[safe_pid],
+                               torch.full_like(ids[safe_pid], -1))
+            qg = q_cast[torch.clamp(qlist[g0:g0 + group_chunk], min=0).long()]
+            scores = group_scores(qg, codes[safe_pid], sids, metric,
+                                  norms[safe_pid] if norms is not None else None)
+            s, idx = torch.topk(scores, kk, dim=2)
+            i = torch.gather(sids[:, None, :].expand(-1, qt, -1), 2, idx)
+            out_s.append(s)
+            out_i.append(torch.where(s == NEG_INF, torch.full_like(i, -1), i))
+        g_scores, g_ids = torch.cat(out_s), torch.cat(out_i)
+    with annotate("quake.plan.merge"):
+        return merge_groups(g_scores, g_ids, pair_group, pair_slot, pids, k, kk, dedup=dedup)

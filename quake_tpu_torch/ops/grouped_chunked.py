@@ -40,7 +40,7 @@ from quake_tpu_torch.ops.grouped_family import (MIN_RANGE, check_refs, pair_take
 from quake_tpu_torch.ops.grouped_scan import (FOLD, SMEM_LIMIT, packed_params, pad_groups,
                                               rescore_topk)
 from quake_tpu_torch.ops.scan import NEG_INF, topk_stable
-from quake_tpu_torch.profiling import mark_stage
+from quake_tpu_torch.profiling import annotate
 
 
 def _check_chunked(name: str, P: int, C: int, ct: int) -> None:
@@ -196,7 +196,7 @@ def chunk_merge(gp, group_size, qg, codes, norms, kk: int, ct: int, slot_mult: i
 
 
 def grouped_scan_v6(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int = 32,
-                    ct: int = 512, gpb: int = 4, dedup: bool = False, stages=None):
+                    ct: int = 512, gpb: int = 4, dedup: bool = False):
     """v6 grouped scan (pallas_grouped.py::grouped_scan_pallas_v6): chunked
     fetch, one selection over the whole row. On kernel K4 unchanged, which
     computes _v6_kernel's function (that of _v3pn_kernel) and reads only the
@@ -204,12 +204,12 @@ def grouped_scan_v6(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: 
     inputs and returns as grouped_scan_v3pn (dedup: the v3p epilogue's)."""
     P, C, _ = codes.shape
     _check_chunked("v6", P, C, ct)
-    return rowscale_search(codes, ids, sizes, norms, q, pids, k, metric, qt, gpb, "topk", stages,
+    return rowscale_search(codes, ids, sizes, norms, q, pids, k, metric, qt, gpb, "topk",
                            dedup)
 
 
 def grouped_scan_v5(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int = 32,
-                    ct: int = 512, gpb: int = 4, dedup: bool = False, stages=None):
+                    ct: int = 512, gpb: int = 4, dedup: bool = False):
     """v5 grouped scan (pallas_grouped.py::grouped_scan_pallas_v5): per-chunk
     selection and the cross-chunk merge in kernel K7, then one merge across
     the probes and the exact rescore (rescore_topk, with its dedup on a
@@ -220,36 +220,35 @@ def grouped_scan_v5(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: 
     _check_chunked("v5", P, C, ct)
     kk = min(k, ct)
     slot_mult, levels = packed_params(ct)
-    group_pid, qlist, pair_group, pair_slot = build_groups(pids, P, qt)
-    gp, _, group_size, safe_q = pad_groups(group_pid, qlist, sizes, gpb)
-    qf = q.to(torch.float32)
-    qg = round_query(q, codes.dtype)[safe_q].contiguous()  # [Gn, qt, D]
-    mark_stage(stages, "grouping")
-    g_scores, g_slots = chunk_merge(gp, group_size, qg, codes, norms, kk, ct, slot_mult, levels,
-                                    metric)
-    mark_stage(stages, "scan")
+    with annotate("quake.plan.grouping"):
+        group_pid, qlist, pair_group, pair_slot = build_groups(pids, P, qt)
+        gp, _, group_size, safe_q = pad_groups(group_pid, qlist, sizes, gpb)
+        qf = q.to(torch.float32)
+        qg = round_query(q, codes.dtype)[safe_q].contiguous()  # [Gn, qt, D]
+    with annotate("quake.scan"):
+        g_scores, g_slots = chunk_merge(gp, group_size, qg, codes, norms, kk, ct, slot_mult,
+                                        levels, metric)
     # Slim epilogue: the per-query -|q|^2 back (of the unrounded query, as
     # pallas_grouped.py:2307-2313), refs, one merge. The TPU
     # epilogue's `alive` mask is not needed: K7 writes ghost groups as -1.
-    valid = g_slots >= 0
-    if metric == "l2":
-        g_scores = g_scores - torch.sum(qf * qf, dim=1)[safe_q][:, :, None]
-    g_scores = torch.where(valid, g_scores, torch.full_like(g_scores, NEG_INF))
-    gpid = torch.clamp(gp, min=0)[:, None, None]
-    refs = torch.where(valid, (gpid << 16) | g_slots, torch.full_like(g_slots, -1))
-    ok = (pair_group >= 0)[:, :, None]
-    pg = torch.clamp(pair_group, min=0)
-    m_scores = torch.where(ok, pair_take(g_scores, pg, pair_slot), NEG_INF).reshape(B, -1)
-    m_refs = torch.where(ok, pair_take(refs, pg, pair_slot), -1).reshape(B, -1)
-    mark_stage(stages, "merge")
-    out = rescore_topk(m_scores, m_refs, codes, ids, norms, q, k, kk, metric, pids, dedup=dedup)
-    mark_stage(stages, "rescore")
-    return out
+    with annotate("quake.plan.merge"):
+        valid = g_slots >= 0
+        if metric == "l2":
+            g_scores = g_scores - torch.sum(qf * qf, dim=1)[safe_q][:, :, None]
+        g_scores = torch.where(valid, g_scores, torch.full_like(g_scores, NEG_INF))
+        gpid = torch.clamp(gp, min=0)[:, None, None]
+        refs = torch.where(valid, (gpid << 16) | g_slots, torch.full_like(g_slots, -1))
+        ok = (pair_group >= 0)[:, :, None]
+        pg = torch.clamp(pair_group, min=0)
+        m_scores = torch.where(ok, pair_take(g_scores, pg, pair_slot), NEG_INF).reshape(B, -1)
+        m_refs = torch.where(ok, pair_take(refs, pg, pair_slot), -1).reshape(B, -1)
+    with annotate("quake.plan.rescore"):
+        return rescore_topk(m_scores, m_refs, codes, ids, norms, q, k, kk, metric, pids,
+                            dedup=dedup)
 
 
 def grouped_scan_v4(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int = 32,
-                    ct: int = 512, gpb: int = 8, mat_qg: bool = False, dedup: bool = False,
-                    stages=None):
+                    ct: int = 512, gpb: int = 8, mat_qg: bool = False, dedup: bool = False):
     """v4 grouped scan (pallas_grouped.py::grouped_scan_pallas_v4): one
     kernel group per chunk that holds vectors, kernel K4 with a chunk table,
     a two-stage dequantized merge and the exact rescore. Needs C % ct == 0.
@@ -261,48 +260,48 @@ def grouped_scan_v4(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: 
     _check_chunked("v4", P, C, ct)
     kk = min(k, ct)
     slot_mult, levels = packed_params(ct)
-    cg_pid, cg_chunk, cg_qsrc, cg_size, qlist, pair_cg, pair_slot = build_chunk_groups(
-        pids, sizes, P, qt, ct, C)
-    pad = -(-cg_pid.shape[0] // gpb) * gpb - cg_pid.shape[0]
-    cg_pid = torch.nn.functional.pad(cg_pid, (0, pad), value=-1)
-    cg_chunk, cg_qsrc, cg_size = (torch.nn.functional.pad(t, (0, pad))
-                                  for t in (cg_chunk, cg_qsrc, cg_size))
-    safe_q = torch.clamp(qlist, min=0).long()  # [G, qt]
-    qf = q.to(torch.float32)
-    qg = round_query(q, codes.dtype)[safe_q].contiguous()  # [G, qt, D]
-    row_off = (cg_chunk * ct).contiguous()
-    if mat_qg:
-        qg = qg[cg_qsrc.long()].contiguous()  # [Gn, qt, D]
-        qsrc = torch.arange(cg_pid.shape[0], device=qg.device, dtype=torch.int32)
-    else:
-        qsrc = cg_qsrc
-    mark_stage(stages, "grouping")
-    g_packed, g_stats = rowscale_scan(cg_pid, cg_size, qg, codes, norms, kk, slot_mult, levels,
-                                      metric, "topk", qsrc=qsrc, row_off=row_off, ct=ct)
-    mark_stage(stages, "scan")
+    with annotate("quake.plan.grouping"):
+        cg_pid, cg_chunk, cg_qsrc, cg_size, qlist, pair_cg, pair_slot = build_chunk_groups(
+            pids, sizes, P, qt, ct, C)
+        pad = -(-cg_pid.shape[0] // gpb) * gpb - cg_pid.shape[0]
+        cg_pid = torch.nn.functional.pad(cg_pid, (0, pad), value=-1)
+        cg_chunk, cg_qsrc, cg_size = (torch.nn.functional.pad(t, (0, pad))
+                                      for t in (cg_chunk, cg_qsrc, cg_size))
+        safe_q = torch.clamp(qlist, min=0).long()  # [G, qt]
+        qf = q.to(torch.float32)
+        qg = round_query(q, codes.dtype)[safe_q].contiguous()  # [G, qt, D]
+        row_off = (cg_chunk * ct).contiguous()
+        if mat_qg:
+            qg = qg[cg_qsrc.long()].contiguous()  # [Gn, qt, D]
+            qsrc = torch.arange(cg_pid.shape[0], device=qg.device, dtype=torch.int32)
+        else:
+            qsrc = cg_qsrc
+    with annotate("quake.scan"):
+        g_packed, g_stats = rowscale_scan(cg_pid, cg_size, qg, codes, norms, kk, slot_mult,
+                                          levels, metric, "topk", qsrc=qsrc, row_off=row_off,
+                                          ct=ct)
     # Decode and dequantize. The TPU epilogue's `alive` mask is not needed:
     # K4 writes ghost chunk-groups as -1.
-    valid = g_packed >= 0.0
-    approx, slots_local = _dequantize(g_packed, g_stats, slot_mult, levels)
-    if metric == "l2":
-        approx = approx - torch.sum(qf * qf, dim=1)[safe_q][cg_qsrc.long()][:, :, None]
-    approx = torch.where(valid, approx, torch.full_like(approx, NEG_INF))
-    gpid = torch.clamp(cg_pid, min=0)[:, None, None]
-    refs = torch.where(valid, (gpid << 16) | (row_off[:, None, None] + slots_local),
-                       torch.full_like(slots_local, -1))
-    # Stage 1: each (query, probe) pair reduces its chunks' kk candidates to kk.
-    maxch = pair_cg.shape[2]
-    okc = (pair_cg >= 0).reshape(B, nprobe * maxch, 1)
-    pcg = torch.clamp(pair_cg, min=0).reshape(B, nprobe * maxch)
-    ps = pair_slot[:, :, None].expand(B, nprobe, maxch).reshape(B, nprobe * maxch)
-    s = torch.where(okc, pair_take(approx, pcg, ps), NEG_INF).reshape(B, nprobe, maxch * kk)
-    rf = torch.where(okc, pair_take(refs, pcg, ps), -1).reshape(B, nprobe, maxch * kk)
-    if maxch > 1:
-        s, idx = topk_stable(s, kk)
-        rf = torch.gather(rf, 2, idx)
-    mark_stage(stages, "merge")
+    with annotate("quake.plan.merge"):
+        valid = g_packed >= 0.0
+        approx, slots_local = _dequantize(g_packed, g_stats, slot_mult, levels)
+        if metric == "l2":
+            approx = approx - torch.sum(qf * qf, dim=1)[safe_q][cg_qsrc.long()][:, :, None]
+        approx = torch.where(valid, approx, torch.full_like(approx, NEG_INF))
+        gpid = torch.clamp(cg_pid, min=0)[:, None, None]
+        refs = torch.where(valid, (gpid << 16) | (row_off[:, None, None] + slots_local),
+                           torch.full_like(slots_local, -1))
+        # Stage 1: each (query, probe) pair reduces its chunks' kk candidates to kk.
+        maxch = pair_cg.shape[2]
+        okc = (pair_cg >= 0).reshape(B, nprobe * maxch, 1)
+        pcg = torch.clamp(pair_cg, min=0).reshape(B, nprobe * maxch)
+        ps = pair_slot[:, :, None].expand(B, nprobe, maxch).reshape(B, nprobe * maxch)
+        s = torch.where(okc, pair_take(approx, pcg, ps), NEG_INF).reshape(B, nprobe, maxch * kk)
+        rf = torch.where(okc, pair_take(refs, pcg, ps), -1).reshape(B, nprobe, maxch * kk)
+        if maxch > 1:
+            s, idx = topk_stable(s, kk)
+            rf = torch.gather(rf, 2, idx)
     # Stage 2: the merge across the probes and the exact rescore.
-    out = rescore_topk(s.reshape(B, -1), rf.reshape(B, -1), codes, ids, norms, q, k, kk, metric,
-                       pids, dedup=dedup)
-    mark_stage(stages, "rescore")
-    return out
+    with annotate("quake.plan.rescore"):
+        return rescore_topk(s.reshape(B, -1), rf.reshape(B, -1), codes, ids, norms, q, k, kk,
+                            metric, pids, dedup=dedup)

@@ -33,7 +33,7 @@ from quake_tpu_torch.ops.grouped import (build_groups, launch_name, merge_groups
 from quake_tpu_torch.ops.grouped_family import topk_cap
 from quake_tpu_torch.ops.grouped_scan import FOLD, SMEM_LIMIT
 from quake_tpu_torch.ops.scan import NEG_INF
-from quake_tpu_torch.profiling import mark_stage
+from quake_tpu_torch.profiling import annotate
 
 MODES = ("slot", "id")
 MMA_BODY, GROUP_BODY = 1, 0  # exact_topk_body's answers
@@ -177,8 +177,7 @@ def _exact_groups(q, pids, P: int, qt: int, dtype):
     return group_pid, safe_q, round_query(q, dtype)[safe_q].contiguous(), pair_group, pair_slot
 
 
-def grouped_scan_v3(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int = 32,
-                    stages=None):
+def grouped_scan_v3(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int = 32):
     """v3 grouped scan (pallas_grouped.py::grouped_scan_pallas_v3): slot
     selection on exact scores, cached norms, size masking; ties among equal
     scores go to the larger slot. Kernel K6, mode "slot".
@@ -188,37 +187,35 @@ def grouped_scan_v3(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: 
     [B, k] f32, ids [B, k] int32, scanned [B] int32)."""
     P, C, _ = codes.shape
     kk = min(k, C)
-    group_pid, safe_q, qg, pair_group, pair_slot = _exact_groups(q, pids, P, qt, codes.dtype)
-    gsafe = torch.clamp(group_pid, min=0).long()
-    group_size = torch.where(group_pid >= 0, sizes[gsafe],
-                             torch.zeros_like(group_pid)).to(torch.int32).contiguous()
-    mark_stage(stages, "grouping")
-    g_scores, g_slots = exact_scan(group_pid, qg, codes, kk, metric, "slot",
-                                   group_size=group_size, norms=norms)
-    mark_stage(stages, "scan")
-    # Epilogue: the per-query -|q|^2 back for l2 (-inf rows stay -inf), slot
-    # -> vector id.
-    if metric == "l2":
-        qf = q.to(torch.float32)
-        g_scores = g_scores - torch.sum(qf * qf, dim=1)[safe_q][:, :, None]
-    g_ids = ids.reshape(-1)[gsafe[:, None, None] * C + torch.clamp(g_slots, min=0).long()]
-    g_ids = torch.where(g_slots >= 0, g_ids, torch.full_like(g_ids, -1))
-    out = merge_groups(g_scores, g_ids, pair_group, pair_slot, pids, k, kk)
-    mark_stage(stages, "merge")
-    return out
+    with annotate("quake.plan.grouping"):
+        group_pid, safe_q, qg, pair_group, pair_slot = _exact_groups(q, pids, P, qt, codes.dtype)
+        gsafe = torch.clamp(group_pid, min=0).long()
+        group_size = torch.where(group_pid >= 0, sizes[gsafe],
+                                 torch.zeros_like(group_pid)).to(torch.int32).contiguous()
+    with annotate("quake.scan"):
+        g_scores, g_slots = exact_scan(group_pid, qg, codes, kk, metric, "slot",
+                                       group_size=group_size, norms=norms)
+    with annotate("quake.plan.merge"):
+        # Epilogue: the per-query -|q|^2 back for l2 (-inf rows stay -inf), slot
+        # -> vector id.
+        if metric == "l2":
+            qf = q.to(torch.float32)
+            g_scores = g_scores - torch.sum(qf * qf, dim=1)[safe_q][:, :, None]
+        g_ids = ids.reshape(-1)[gsafe[:, None, None] * C + torch.clamp(g_slots, min=0).long()]
+        g_ids = torch.where(g_slots >= 0, g_ids, torch.full_like(g_ids, -1))
+        return merge_groups(g_scores, g_ids, pair_group, pair_slot, pids, k, kk)
 
 
-def grouped_scan_v2(codes, ids, q, pids, k: int, metric: str, qt: int = 64, stages=None):
+def grouped_scan_v2(codes, ids, q, pids, k: int, metric: str, qt: int = 64):
     """v2 grouped scan (pallas_grouped.py::grouped_scan_pallas): the whole
     slab per group, validity from the ids, both norms summed in the kernel,
     ties among equal scores to the larger id. Kernel K6, mode "id". Same
     returns as grouped_scan_v3."""
     P, C, _ = codes.shape
     kk = min(k, C)
-    group_pid, _, qg, pair_group, pair_slot = _exact_groups(q, pids, P, qt, codes.dtype)
-    mark_stage(stages, "grouping")
-    g_scores, g_ids = exact_scan(group_pid, qg, codes, kk, metric, "id", ids=ids)
-    mark_stage(stages, "scan")
-    out = merge_groups(g_scores, g_ids, pair_group, pair_slot, pids, k, kk)
-    mark_stage(stages, "merge")
-    return out
+    with annotate("quake.plan.grouping"):
+        group_pid, _, qg, pair_group, pair_slot = _exact_groups(q, pids, P, qt, codes.dtype)
+    with annotate("quake.scan"):
+        g_scores, g_ids = exact_scan(group_pid, qg, codes, kk, metric, "id", ids=ids)
+    with annotate("quake.plan.merge"):
+        return merge_groups(g_scores, g_ids, pair_group, pair_slot, pids, k, kk)

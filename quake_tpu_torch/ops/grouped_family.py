@@ -39,7 +39,7 @@ from quake_tpu_torch.ops.grouped_scan import (FOLD, SMEM_LIMIT, check_fold, fold
                                               packed_params, pad_groups, pool_tail,
                                               rescore_topk)
 from quake_tpu_torch.ops.scan import NEG_INF
-from quake_tpu_torch.profiling import mark_stage
+from quake_tpu_torch.profiling import annotate
 
 MIN_RANGE = 1e-20  # floor of a row's score range (one valid lane, or none)
 
@@ -246,38 +246,37 @@ def rowscale_scan(gp, group_size, qg, codes, norms, kk: int, slot_mult: int, lev
 
 def v3p_epilogue(g_packed, g_stats, group_pid, pair_group, pair_slot, pids, safe_q,
                  codes, ids, norms, q, k: int, kk: int, metric: str, slot_mult: int,
-                 levels: int, dedup: bool = False, stages=None):
+                 levels: int, dedup: bool = False):
     """Shared v3p/v3pN/v7 epilogue (pallas_grouped.py::_v3p_epilogue):
     decode the packed winners, dequantize with the per-row stats
     (rowmin + key * rng / levels, minus |q|^2 for l2), merge per query by
     that score and exact-rescore the top k. The TPU epilogue's `alive` mask
     for ghost groups is not needed: K4 and K5 write them as -1."""
     B = q.shape[0]
-    valid = g_packed >= 0.0
-    slots = torch.remainder(g_packed, float(slot_mult)).to(torch.int32)
-    keys = torch.floor(g_packed / float(slot_mult))
-    approx = g_stats[:, :, 0:1] + keys * (g_stats[:, :, 1:2] / float(levels))
-    if metric == "l2":
-        qf = q.to(torch.float32)
-        approx = approx - torch.sum(qf * qf, dim=1)[safe_q][:, :, None]
-    approx = torch.where(valid, approx, torch.full_like(approx, NEG_INF))
-    gpid = torch.clamp(group_pid, min=0).to(torch.int32)[:, None, None]
-    refs = torch.where(valid, (gpid << 16) | slots, torch.full_like(slots, -1))
+    with annotate("quake.plan.merge"):
+        valid = g_packed >= 0.0
+        slots = torch.remainder(g_packed, float(slot_mult)).to(torch.int32)
+        keys = torch.floor(g_packed / float(slot_mult))
+        approx = g_stats[:, :, 0:1] + keys * (g_stats[:, :, 1:2] / float(levels))
+        if metric == "l2":
+            qf = q.to(torch.float32)
+            approx = approx - torch.sum(qf * qf, dim=1)[safe_q][:, :, None]
+        approx = torch.where(valid, approx, torch.full_like(approx, NEG_INF))
+        gpid = torch.clamp(group_pid, min=0).to(torch.int32)[:, None, None]
+        refs = torch.where(valid, (gpid << 16) | slots, torch.full_like(slots, -1))
 
-    ok = (pair_group >= 0)[:, :, None]
-    pg = torch.clamp(pair_group, min=0)
-    m_scores = torch.where(ok, pair_take(approx, pg, pair_slot), NEG_INF).reshape(B, -1)
-    m_refs = torch.where(ok, pair_take(refs, pg, pair_slot), -1).reshape(B, -1)
-    mark_stage(stages, "merge")
-    out = rescore_topk(m_scores, m_refs, codes, ids, norms, q, k, kk, metric, pids,
-                       dedup=dedup)
-    mark_stage(stages, "rescore")
-    return out
+        ok = (pair_group >= 0)[:, :, None]
+        pg = torch.clamp(pair_group, min=0)
+        m_scores = torch.where(ok, pair_take(approx, pg, pair_slot), NEG_INF).reshape(B, -1)
+        m_refs = torch.where(ok, pair_take(refs, pg, pair_slot), -1).reshape(B, -1)
+    with annotate("quake.plan.rescore"):
+        return rescore_topk(m_scores, m_refs, codes, ids, norms, q, k, kk, metric, pids,
+                            dedup=dedup)
 
 
 def global_epilogue(g_packed, pair_group, pair_slot, pids, codes, ids, norms,
                     q, k: int, kk: int, metric: str, slot_mult: int, levels: int,
-                    stages=None, dedup: bool = False, merge: str = "pallas"):
+                    dedup: bool = False, merge: str = "pallas"):
     """Shared v8/v9 epilogue (pallas_grouped.py::_global_epilogue, exact).
     The global-scale keys compare across groups, so each query's probe-order
     pool of kernel rows is merged in key domain by kernel K2 (merge
@@ -285,13 +284,15 @@ def global_epilogue(g_packed, pair_group, pair_slot, pids, codes, ids, norms,
     the JAX function's default; no K2), or by a top-k where the packing does
     not fit (kk < k, or levels*lane_mult + lane_mult >= 2^24) or dedup asks
     for it (a spilled store: rescore_topk's dedup). Ghost groups need no
-    mask: K1 writes them as -1."""
+    mask: K1 writes them as -1. Landing each query's kernel rows in its pool
+    is this scan's placement (quake.plan.placement)."""
     B = q.shape[0]
-    ok = (pair_group >= 0)[:, :, None]
-    m_packed = torch.where(ok, pair_take(g_packed, torch.clamp(pair_group, min=0), pair_slot),
-                           -1.0).reshape(B, -1)
+    with annotate("quake.plan.placement"):
+        ok = (pair_group >= 0)[:, :, None]
+        m_packed = torch.where(ok, pair_take(g_packed, torch.clamp(pair_group, min=0),
+                                             pair_slot), -1.0).reshape(B, -1)
     return pool_tail(m_packed, pids, pids, codes, ids, norms, q, k, kk, metric, slot_mult,
-                     levels, stages=stages, general=kk < k, dedup=dedup, merge=merge)
+                     levels, general=kk < k, dedup=dedup, merge=merge)
 
 
 # ----------------------------------------------------------------- wrappers
@@ -303,27 +304,25 @@ def check_refs(name: str, P: int, C: int) -> None:
 
 
 def rowscale_search(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int,
-                     gpb: int, select: str, stages, dedup: bool = False, fold: int = FOLD):
+                     gpb: int, select: str, dedup: bool = False, fold: int = FOLD):
     """Grouping, kernel K4 or K5, and the v3p epilogue, with its dedup on a
     spilled store. The query tiles are rounded to the codes' dtype
     (pallas_grouped.py:385, 718, 879); the epilogue takes q unrounded."""
     P, C, _ = codes.shape
     kk = min(k, C)
     slot_mult, levels = packed_params(C)
-    group_pid, qlist, pair_group, pair_slot = build_groups(pids, P, qt)
-    gp, _, group_size, safe_q = pad_groups(group_pid, qlist, sizes, gpb)
-    qg = round_query(q, codes.dtype)[safe_q].contiguous()  # [Gn, qt, D]
-    mark_stage(stages, "grouping")
-    g_packed, g_stats = rowscale_scan(gp, group_size, qg, codes, norms, kk, slot_mult,
-                                      levels, metric, select, fold=fold)
-    mark_stage(stages, "scan")
+    with annotate("quake.plan.grouping"):
+        group_pid, qlist, pair_group, pair_slot = build_groups(pids, P, qt)
+        gp, _, group_size, safe_q = pad_groups(group_pid, qlist, sizes, gpb)
+        qg = round_query(q, codes.dtype)[safe_q].contiguous()  # [Gn, qt, D]
+    with annotate("quake.scan"):
+        g_packed, g_stats = rowscale_scan(gp, group_size, qg, codes, norms, kk, slot_mult,
+                                          levels, metric, select, fold=fold)
     return v3p_epilogue(g_packed, g_stats, gp, pair_group, pair_slot, pids, safe_q, codes,
-                        ids, norms, q, k, kk, metric, slot_mult, levels, dedup=dedup,
-                        stages=stages)
+                        ids, norms, q, k, kk, metric, slot_mult, levels, dedup=dedup)
 
 
-def grouped_scan_v3p(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int = 32,
-                     stages=None):
+def grouped_scan_v3p(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int = 32):
     """v3p grouped scan (pallas_grouped.py::grouped_scan_pallas_v3p): one
     group per TPU grid step, kernel K4, exact rescore of the winners.
 
@@ -332,12 +331,11 @@ def grouped_scan_v3p(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt:
     [B, k] f32, ids [B, k] int32, scanned [B] int32). Any C."""
     P, C, _ = codes.shape
     check_refs("v3p", P, C)
-    return rowscale_search(codes, ids, sizes, norms, q, pids, k, metric, qt, 1, "topk",
-                            stages)
+    return rowscale_search(codes, ids, sizes, norms, q, pids, k, metric, qt, 1, "topk")
 
 
 def grouped_scan_v3pn(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int = 32,
-                      gpb: int = 2, dedup: bool = False, stages=None):
+                      gpb: int = 2, dedup: bool = False):
     """v3pN grouped scan (pallas_grouped.py::grouped_scan_pallas_v3pn): v3p
     with the groups padded to a multiple of gpb (the TPU kernel's groups per
     grid step); the dispatch's fallback for C % fold != 0. Same inputs and
@@ -346,11 +344,11 @@ def grouped_scan_v3pn(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt
     P, C, _ = codes.shape
     check_refs("v3p", P, C)
     return rowscale_search(codes, ids, sizes, norms, q, pids, k, metric, qt, gpb, "topk",
-                            stages, dedup)
+                            dedup)
 
 
 def grouped_scan_v7(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int = 32,
-                    gpb: int = 4, fold: int = FOLD, dedup: bool = False, stages=None):
+                    gpb: int = 4, fold: int = FOLD, dedup: bool = False):
     """v7 grouped scan (pallas_grouped.py::grouped_scan_pallas_v7): the
     per-row key of v3p with the fold selection (fold 128 by default), kernel
     K5. Approximate at the fold-column level (at most two winners per
@@ -361,11 +359,11 @@ def grouped_scan_v7(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: 
     check_refs("v7", P, C)
     check_fold("v7", fold, C)
     return rowscale_search(codes, ids, sizes, norms, q, pids, k, metric, qt, gpb, "fold",
-                            stages, dedup, fold)
+                            dedup, fold)
 
 
 def grouped_scan_v8(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: int = 32,
-                    gpb: int = 4, fold: int = FOLD, dedup: bool = False, stages=None,
+                    gpb: int = 4, fold: int = FOLD, dedup: bool = False,
                     bounds: str = "analytic", merge: str = "pallas"):
     """v8 global-scale grouped scan (pallas_grouped.py::grouped_scan_pallas_v8)
     on kernel K1, which computes _v8_kernel's function (its ghost groups
@@ -381,16 +379,16 @@ def grouped_scan_v8(codes, ids, sizes, norms, q, pids, k: int, metric: str, qt: 
     check_fold("v8", fold, C)
     kk = min(k, C)
     slot_mult, levels = packed_params(C)
-    q_scaled, normsT, _, _ = global_scale(q, norms, metric, levels, bounds, codes, sizes)
-    group_pid, qlist, pair_group, pair_slot = build_groups(pids, P, qt)
-    gp, _, group_size, safe_q = pad_groups(group_pid, qlist, sizes, gpb)
-    qg = q_scaled.to(codes.dtype)[safe_q].contiguous()  # [Gn, qt, D], rounded as the codes
-    mark_stage(stages, "grouping")
-    g_packed = grouped_scan_kernel(gp, group_size, qg, codes, normsT, kk, slot_mult, levels,
-                                   fold)
-    mark_stage(stages, "scan")
+    with annotate("quake.plan.grouping"):
+        q_scaled, normsT, _, _ = global_scale(q, norms, metric, levels, bounds, codes, sizes)
+        group_pid, qlist, pair_group, pair_slot = build_groups(pids, P, qt)
+        gp, _, group_size, safe_q = pad_groups(group_pid, qlist, sizes, gpb)
+        qg = q_scaled.to(codes.dtype)[safe_q].contiguous()  # [Gn, qt, D], rounded as the codes
+    with annotate("quake.scan"):
+        g_packed = grouped_scan_kernel(gp, group_size, qg, codes, normsT, kk, slot_mult,
+                                       levels, fold)
     return global_epilogue(g_packed, pair_group, pair_slot, pids, codes, ids, norms, q, k,
-                           kk, metric, slot_mult, levels, stages, dedup, merge)
+                           kk, metric, slot_mult, levels, dedup, merge)
 
 
 # v9 (pallas_grouped.py::grouped_scan_pallas_v9) is v8 with joint selection

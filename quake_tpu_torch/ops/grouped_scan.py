@@ -44,7 +44,7 @@ from quake_tpu_torch import _ext
 from quake_tpu_torch.ops.grouped import (budget_layout, build_groups_budget,
                                           build_groups_scatter, group_layout)
 from quake_tpu_torch.ops.scan import NEG_INF, duplicate_mask, topk_stable
-from quake_tpu_torch.profiling import mark_stage
+from quake_tpu_torch.profiling import annotate
 
 FOLD = 128
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
@@ -443,7 +443,7 @@ def rescore_topk(m_scores, m_refs, codes, ids, norms, q, k: int, kk: int,
 
 def pool_tail(m_packed, pid_cols, pids, codes, ids, norms, q, k: int, kk: int,
               metric: str, slot_mult: int, levels: int, pool_factor: int = 1,
-              stages=None, general: bool = False, exact: bool = True, gmin=None,
+              general: bool = False, exact: bool = True, gmin=None,
               ginv=None, dedup: bool = False, merge: str = "pallas"):
     """Pool side of the v11 epilogues (pallas_grouped.py::_pool_tail) and of
     the v8/v9 one (_global_epilogue): key merge, winner ref derivation,
@@ -467,37 +467,34 @@ def pool_tail(m_packed, pid_cols, pids, codes, ids, norms, q, k: int, kk: int,
         # General path: key*lane_mult + lane no longer fits 24 bits (or the
         # caller asks for it, or dedup needs the pool-side refs), so the
         # pool is ranked by a top-k of the keys instead of kernel K2.
-        slot = torch.remainder(m_packed, float(slot_mult)).to(torch.int32)
-        pid_b = pid_cols[:, :, None].expand(B, nprobe, kk).reshape(B, pool)
-        ok = (m_packed >= 0.0) & (pid_b >= 0)
-        m_refs = torch.where(ok, (torch.clamp(pid_b, min=0) << 16) | slot,
-                             torch.full_like(slot, -1))
-        m_scores = torch.where(ok, pool_keys(m_packed, slot_mult),
-                               torch.full_like(m_packed, NEG_INF))
-        mark_stage(stages, "merge")
-        out = rescore_topk(m_scores, m_refs, codes, ids, norms, q, k, kk, metric, pids,
-                           dedup=dedup, exact=exact, gmin=gmin, ginv=ginv)
-        mark_stage(stages, "rescore")
-        return out
+        with annotate("quake.plan.merge"):
+            slot = torch.remainder(m_packed, float(slot_mult)).to(torch.int32)
+            pid_b = pid_cols[:, :, None].expand(B, nprobe, kk).reshape(B, pool)
+            ok = (m_packed >= 0.0) & (pid_b >= 0)
+            m_refs = torch.where(ok, (torch.clamp(pid_b, min=0) << 16) | slot,
+                                 torch.full_like(slot, -1))
+            m_scores = torch.where(ok, pool_keys(m_packed, slot_mult),
+                                   torch.full_like(m_packed, NEG_INF))
+        with annotate("quake.plan.rescore"):
+            return rescore_topk(m_scores, m_refs, codes, ids, norms, q, k, kk, metric, pids,
+                                dedup=dedup, exact=exact, gmin=gmin, ginv=ginv)
 
-    kfin = min(pool_factor * k, pool)
-    merge_fn = merge_positions if merge == "pallas" else merge_positions_plain
-    pos = merge_fn(m_packed, kfin, slot_mult)
-    posc = torch.clamp(pos, 0, pool - 1).long()
-    pk = torch.gather(m_packed, 1, posc)
-    slot = torch.remainder(pk, float(slot_mult)).to(torch.int32)
-    wpid = torch.gather(pid_cols, 1, posc // kk)
-    valid = (pos >= 0) & (pk >= 0.0) & (wpid >= 0)
-    top_refs = torch.where(valid, (torch.clamp(wpid, min=0) << 16) | slot,
-                           torch.full_like(slot, -1))
-    mark_stage(stages, "merge")
-    if exact:
-        out = exact_rescore(top_refs, codes, ids, norms, q, k, kfin, metric, pids)
-    else:
-        out = dequantized_tail(torch.floor(pk / float(slot_mult)), top_refs, ids, q, k, metric,
-                               pids, gmin, ginv)
-    mark_stage(stages, "rescore")
-    return out
+    with annotate("quake.plan.merge"):
+        kfin = min(pool_factor * k, pool)
+        merge_fn = merge_positions if merge == "pallas" else merge_positions_plain
+        pos = merge_fn(m_packed, kfin, slot_mult)
+        posc = torch.clamp(pos, 0, pool - 1).long()
+        pk = torch.gather(m_packed, 1, posc)
+        slot = torch.remainder(pk, float(slot_mult)).to(torch.int32)
+        wpid = torch.gather(pid_cols, 1, posc // kk)
+        valid = (pos >= 0) & (pk >= 0.0) & (wpid >= 0)
+        top_refs = torch.where(valid, (torch.clamp(wpid, min=0) << 16) | slot,
+                               torch.full_like(slot, -1))
+    with annotate("quake.plan.rescore"):
+        if exact:
+            return exact_rescore(top_refs, codes, ids, norms, q, k, kfin, metric, pids)
+        return dequantized_tail(torch.floor(pk / float(slot_mult)), top_refs, ids, q, k, metric,
+                                pids, gmin, ginv)
 
 
 def _alive_rows(g_packed, group_size):
@@ -670,7 +667,7 @@ def v11_inputs(codes, sizes, norms, q, pids, k: int, metric: str, qt: int,
 
 def _placed_scan(name: str, codes, ids, sizes, norms, q, pids, k: int, metric: str,
                   qt: int, gpb: int, fold: int, dedup: bool, pool_factor: int, bounds: str,
-                  merge: str, exact: bool, placement: str, stages, pair_budget: int = 0):
+                  merge: str, exact: bool, placement: str, pair_budget: int = 0):
     """The scan of v10, v11 and v10b: the prologue, kernel K1 at fold width
     `fold` (check_fold), the placement epilogue named `placement` (see
     PLACEMENTS; BUDGET_PLACEMENTS with pair_budget > 0), the pool tail (K2,
@@ -680,43 +677,44 @@ def _placed_scan(name: str, codes, ids, sizes, norms, q, pids, k: int, metric: s
     kernel K2 does not run."""
     B, D = q.shape
     P, C, _ = codes.shape
-    if P >= 32768 or C > 65536:
-        raise ValueError(f"{name} packs (pid, slot) into int32: needs P < 32768, C <= 65536")
-    check_fold(name, fold, C)
-    M = pids.shape[1]
-    if pair_budget > 0:
-        if placement == "sorted" and not budget_sort_key_fits(B, M, pair_budget, P, qt, gpb):
-            G = budget_layout(min(pair_budget, B * M), P, qt)
-            raise ValueError(f"v11b sort key overflows uint32 (B={B}, rows="
-                             f"{-(-G // gpb) * gpb * qt}); use placement='scatter'")
-    elif placement == "sorted":
-        G = group_layout(B, M, P, qt)
-        Gn = -(-G // gpb) * gpb
-        if not sort_key_fits(B, Gn * qt):
-            raise ValueError(f"v11 sort key overflows uint32 (B={B}, rows={Gn * qt}); "
-                             "use placement='argsort'")
-    inp = v11_inputs(codes, sizes, norms, q, pids, k, metric, qt, gpb, bounds, pair_budget)
-    mark_stage(stages, "grouping")
+    with annotate("quake.plan.grouping"):
+        if P >= 32768 or C > 65536:
+            raise ValueError(f"{name} packs (pid, slot) into int32: needs P < 32768, "
+                             "C <= 65536")
+        check_fold(name, fold, C)
+        M = pids.shape[1]
+        if pair_budget > 0:
+            if placement == "sorted" and not budget_sort_key_fits(B, M, pair_budget, P, qt,
+                                                                  gpb):
+                G = budget_layout(min(pair_budget, B * M), P, qt)
+                raise ValueError(f"v11b sort key overflows uint32 (B={B}, rows="
+                                 f"{-(-G // gpb) * gpb * qt}); use placement='scatter'")
+        elif placement == "sorted":
+            G = group_layout(B, M, P, qt)
+            Gn = -(-G // gpb) * gpb
+            if not sort_key_fits(B, Gn * qt):
+                raise ValueError(f"v11 sort key overflows uint32 (B={B}, rows={Gn * qt}); "
+                                 "use placement='argsort'")
+        inp = v11_inputs(codes, sizes, norms, q, pids, k, metric, qt, gpb, bounds, pair_budget)
     kk, slot_mult, levels = inp["kk"], inp["slot_mult"], inp["levels"]
     kargs = (inp["gp"], inp["group_size"], inp["qg"], codes, inp["normsT"], kk, slot_mult,
              levels, fold)
-    g_packed = (grouped_scan_kernel(*kargs, budget=True) if pair_budget > 0
-                else grouped_scan_kernel(*kargs))
-    mark_stage(stages, "scan")
-    place = (BUDGET_PLACEMENTS if pair_budget > 0 else PLACEMENTS)[placement]
-    m_packed, pid_cols = place(g_packed, inp["tgt"], inp["group_size"], pids)
-    mark_stage(stages, "placement")
+    with annotate("quake.scan"):
+        g_packed = (grouped_scan_kernel(*kargs, budget=True) if pair_budget > 0
+                    else grouped_scan_kernel(*kargs))
+    with annotate("quake.plan.placement"):
+        place = (BUDGET_PLACEMENTS if pair_budget > 0 else PLACEMENTS)[placement]
+        m_packed, pid_cols = place(g_packed, inp["tgt"], inp["group_size"], pids)
     return pool_tail(m_packed, pid_cols, pids, codes, ids, norms, q, k, kk, metric, slot_mult,
-                     levels, pool_factor, stages, exact=exact, gmin=inp["gmin"],
-                     ginv=inp["ginv"], dedup=dedup, merge=merge)
+                     levels, pool_factor, exact=exact, gmin=inp["gmin"], ginv=inp["ginv"],
+                     dedup=dedup, merge=merge)
 
 
 def grouped_scan_v11(codes, ids, sizes, norms, q, pids, k: int, metric: str,
                      qt: int = 64, gpb: int = 4, fold: int = FOLD,
                      dedup: bool = False, pool_factor: int = 1,
                      bounds: str = "analytic", merge: str = "pallas",
-                     exact: bool = True, placement: str = "sorted",
-                     stages=None):
+                     exact: bool = True, placement: str = "sorted"):
     """v11 grouped scan (pallas_grouped.py::grouped_scan_pallas_v11): kernel
     K1 with the sorted (or argsort) placement epilogue. DENSE-ONLY: every
     pid must be valid (fixed-nprobe semantics).
@@ -727,32 +725,33 @@ def grouped_scan_v11(codes, ids, sizes, norms, q, pids, k: int, metric: str,
     or with exact=False scores dequantized from their keys (within one
     quantization step, grange / levels). fold: K1's fold width (32, 64 or a
     multiple of 128 that divides C; see fold_served); merge: "pallas" (K2)
-    or "xla" (the same merge in tensor operations, see pool_tail).
-    `stages`, when given, gets a mark() after each stage (see
-    quake_tpu_torch.profiling.StageTimer)."""
+    or "xla" (the same merge in tensor operations, see pool_tail). Each
+    stage runs in a span of its own (quake.plan.grouping, quake.scan,
+    quake.plan.placement, quake.plan.merge, quake.plan.rescore; see
+    quake_tpu_torch.profiling)."""
     if placement not in ("sorted", "argsort"):
         raise ValueError(f"v11 placement must be 'sorted' or 'argsort', got {placement!r}")
     return _placed_scan("v11", codes, ids, sizes, norms, q, pids, k, metric, qt, gpb, fold,
-                         dedup, pool_factor, bounds, merge, exact, placement, stages)
+                         dedup, pool_factor, bounds, merge, exact, placement)
 
 
 def grouped_scan_v10(codes, ids, sizes, norms, q, pids, k: int, metric: str,
                      qt: int = 64, gpb: int = 4, fold: int = FOLD,
                      dedup: bool = False, pool_factor: int = 1,
                      bounds: str = "analytic", merge: str = "pallas",
-                     exact: bool = True, stages=None):
+                     exact: bool = True):
     """v10 grouped scan (pallas_grouped.py::grouped_scan_pallas_v10): kernel
     K1 with the scatter placement epilogue. pids may hold -1 (a pair that
     takes no part); inputs and returns as grouped_scan_v11."""
     return _placed_scan("v10", codes, ids, sizes, norms, q, pids, k, metric, qt, gpb, fold,
-                         dedup, pool_factor, bounds, merge, exact, "scatter", stages)
+                         dedup, pool_factor, bounds, merge, exact, "scatter")
 
 
 def grouped_scan_v10b(codes, ids, sizes, norms, q, pids, k: int, metric: str,
                       pair_budget: int, qt: int = 64, gpb: int = 4, fold: int = FOLD,
                       dedup: bool = False, pool_factor: int = 1,
                       bounds: str = "analytic", merge: str = "pallas",
-                      exact: bool = True, placement: str = "scatter", stages=None):
+                      exact: bool = True, placement: str = "scatter"):
     """v10b grouped scan (pallas_grouped.py::grouped_scan_pallas_v10b): v10
     with its group tables (build_groups_budget), kernel K1's grid and the
     placement sized to a PAIR BUDGET instead of B*nprobe, for the masked
@@ -774,5 +773,5 @@ def grouped_scan_v10b(codes, ids, sizes, norms, q, pids, k: int, metric: str,
     if pair_budget <= 0:
         raise ValueError(f"v10b needs pair_budget > 0 (got {pair_budget})")
     return _placed_scan("v10b", codes, ids, sizes, norms, q, pids, k, metric, qt, gpb, fold,
-                        dedup, pool_factor, bounds, merge, exact, placement, stages,
+                        dedup, pool_factor, bounds, merge, exact, placement,
                         pair_budget=int(pair_budget))

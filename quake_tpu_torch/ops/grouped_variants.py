@@ -44,7 +44,7 @@ from quake_tpu_torch.ops.grouped import (build_groups, launch_name, merge_groups
 from quake_tpu_torch.ops.grouped_family import check_refs, pair_take, topk_cap
 from quake_tpu_torch.ops.grouped_scan import FOLD, SMEM_LIMIT
 from quake_tpu_torch.ops.scan import NEG_INF, topk_stable
-from quake_tpu_torch.profiling import mark_stage
+from quake_tpu_torch.profiling import annotate
 
 SELECT_ROWS = 1 << 28  # scores (1 GB of f32) one selection step of the approx scan reads
 
@@ -194,7 +194,7 @@ def _groups(q, pids, P: int, qt: int, dtype, gb: int = 1):
     return group_pid, qg, pair_group, pair_slot
 
 
-def grouped_scan_approx(codes, ids, q, pids, k: int, metric: str, qt: int = 64, stages=None):
+def grouped_scan_approx(codes, ids, q, pids, k: int, metric: str, qt: int = 64):
     """The approx grouped scan (pallas_grouped.py::grouped_scan_pallas_approx):
     kernel K8 writes the raw scores to device memory and the selection runs
     outside it.
@@ -204,16 +204,14 @@ def grouped_scan_approx(codes, ids, q, pids, k: int, metric: str, qt: int = 64, 
     int32, scanned [B] int32)."""
     P, C, _ = codes.shape
     kk = min(k, C)
-    group_pid, qg, pair_group, pair_slot = _groups(q, pids, P, qt, codes.dtype)
-    mark_stage(stages, "grouping")
-    scores = raw_scores(group_pid, qg, codes, ids, metric)
-    mark_stage(stages, "scan")
-    g_scores, g_ids = select_rows(scores, ids[torch.clamp(group_pid, min=0).long()], kk)
-    del scores
-    mark_stage(stages, "select")
-    out = merge_groups(g_scores, g_ids, pair_group, pair_slot, pids, k, kk)
-    mark_stage(stages, "merge")
-    return out
+    with annotate("quake.plan.grouping"):
+        group_pid, qg, pair_group, pair_slot = _groups(q, pids, P, qt, codes.dtype)
+    with annotate("quake.scan"):
+        scores = raw_scores(group_pid, qg, codes, ids, metric)
+    with annotate("quake.plan.merge"):  # the selection outside the kernel, then the merge
+        g_scores, g_ids = select_rows(scores, ids[torch.clamp(group_pid, min=0).long()], kk)
+        del scores
+        return merge_groups(g_scores, g_ids, pair_group, pair_slot, pids, k, kk)
 
 
 # ------------------------------------------------------------------- sized
@@ -344,7 +342,7 @@ def _slots_to_ids(ids, group_pid, g_scores, g_slots, C: int):
 
 
 def grouped_scan_sized(codes, ids, sizes, q, pids, k: int, metric: str, qt: int = 32,
-                       ct: int = 256, stages=None):
+                       ct: int = 256):
     """The size-aware grouped scan (pallas_grouped.py::
     grouped_scan_pallas_sized): kernel sized_topk reads only the 128-row
     segments that hold each probed partition's valid prefix. sizes [P]
@@ -352,16 +350,15 @@ def grouped_scan_sized(codes, ids, sizes, q, pids, k: int, metric: str, qt: int 
     sizes[p]). Same other inputs and returns as grouped_scan_approx."""
     P, C, _ = codes.shape
     kk = min(k, C)
-    group_pid, qg, pair_group, pair_slot = _groups(q, pids, P, qt, codes.dtype)
-    group_size = torch.where(group_pid >= 0, sizes[torch.clamp(group_pid, min=0).long()],
-                             torch.zeros_like(group_pid)).to(torch.int32).contiguous()
-    mark_stage(stages, "grouping")
-    g_scores, g_slots = sized_topk(group_pid, group_size, qg, codes, kk, metric, ct)
-    mark_stage(stages, "scan")
-    g_scores, g_ids = _slots_to_ids(ids, group_pid, g_scores, g_slots, C)
-    out = merge_groups(g_scores, g_ids, pair_group, pair_slot, pids, k, kk)
-    mark_stage(stages, "merge")
-    return out
+    with annotate("quake.plan.grouping"):
+        group_pid, qg, pair_group, pair_slot = _groups(q, pids, P, qt, codes.dtype)
+        group_size = torch.where(group_pid >= 0, sizes[torch.clamp(group_pid, min=0).long()],
+                                 torch.zeros_like(group_pid)).to(torch.int32).contiguous()
+    with annotate("quake.scan"):
+        g_scores, g_slots = sized_topk(group_pid, group_size, qg, codes, kk, metric, ct)
+    with annotate("quake.plan.merge"):
+        g_scores, g_ids = _slots_to_ids(ids, group_pid, g_scores, g_slots, C)
+        return merge_groups(g_scores, g_ids, pair_group, pair_slot, pids, k, kk)
 
 
 # -------------------------------------------------------------- K9, packed
@@ -459,7 +456,7 @@ def packed_topk(gp, qg, codes, ids, kk: int, metric: str):
     return out
 
 
-def grouped_scan_packed(codes, ids, q, pids, k: int, metric: str, qt: int = 32, stages=None):
+def grouped_scan_packed(codes, ids, q, pids, k: int, metric: str, qt: int = 32):
     """The packed-selection grouped scan (pallas_grouped.py::
     grouped_scan_pallas_packed): kernel K9, a per-query merge by the
     quantized key and an exact rescore of the winners, so the scores
@@ -470,51 +467,51 @@ def grouped_scan_packed(codes, ids, q, pids, k: int, metric: str, qt: int = 32, 
     P, C, _ = codes.shape
     check_refs("packed", P, C)
     kk = min(k, C)
-    group_pid, qg, pair_group, pair_slot = _groups(q, pids, P, qt, codes.dtype)
-    mark_stage(stages, "grouping")
-    g_packed = packed_topk(group_pid, qg, codes, ids, kk, metric)
-    mark_stage(stages, "scan")
+    with annotate("quake.plan.grouping"):
+        group_pid, qg, pair_group, pair_slot = _groups(q, pids, P, qt, codes.dtype)
+    with annotate("quake.scan"):
+        g_packed = packed_topk(group_pid, qg, codes, ids, kk, metric)
 
-    # Unpack: the slot and the quantized rank key (as f32, as the JAX package).
-    slot_bits = slot_bits_of(C)
-    slots = torch.clamp(g_packed & ((1 << slot_bits) - 1), max=C - 1)
-    keys = (g_packed >> slot_bits).to(torch.float32)
-    gpid = torch.clamp(group_pid, min=0)[:, None, None]
-    cand_ids = ids.reshape(-1)[gpid.long() * C + slots.long()]
-    valid = (g_packed >= 0) & (cand_ids >= 0)
-    keys = torch.where(valid, keys, torch.full_like(keys, -1.0))
-    cand_ids = torch.where(valid, cand_ids, torch.full_like(cand_ids, -1))
-    refs = (gpid << 16) | slots  # (pid, slot), for the exact rescore
+    with annotate("quake.plan.merge"):
+        # Unpack: the slot and the quantized rank key (as f32, as the JAX package).
+        slot_bits = slot_bits_of(C)
+        slots = torch.clamp(g_packed & ((1 << slot_bits) - 1), max=C - 1)
+        keys = (g_packed >> slot_bits).to(torch.float32)
+        gpid = torch.clamp(group_pid, min=0)[:, None, None]
+        cand_ids = ids.reshape(-1)[gpid.long() * C + slots.long()]
+        valid = (g_packed >= 0) & (cand_ids >= 0)
+        keys = torch.where(valid, keys, torch.full_like(keys, -1.0))
+        cand_ids = torch.where(valid, cand_ids, torch.full_like(cand_ids, -1))
+        refs = (gpid << 16) | slots  # (pid, slot), for the exact rescore
 
-    ok = (pair_group >= 0)[:, :, None]
-    pg = torch.clamp(pair_group, min=0)
-    m_keys = torch.where(ok, pair_take(keys, pg, pair_slot), -1.0).reshape(B, -1)
-    m_ids = torch.where(ok, pair_take(cand_ids, pg, pair_slot), -1).reshape(B, -1)
-    m_refs = torch.where(ok, pair_take(refs, pg, pair_slot), -1).reshape(B, -1)
-    kfin = min(k, m_keys.shape[1])
-    _, idx = topk_stable(m_keys, kfin)
-    top_ids = torch.gather(m_ids, 1, idx)
-    top_refs = torch.gather(m_refs, 1, idx)
-    mark_stage(stages, "merge")
+        ok = (pair_group >= 0)[:, :, None]
+        pg = torch.clamp(pair_group, min=0)
+        m_keys = torch.where(ok, pair_take(keys, pg, pair_slot), -1.0).reshape(B, -1)
+        m_ids = torch.where(ok, pair_take(cand_ids, pg, pair_slot), -1).reshape(B, -1)
+        m_refs = torch.where(ok, pair_take(refs, pg, pair_slot), -1).reshape(B, -1)
+        kfin = min(k, m_keys.shape[1])
+        _, idx = topk_stable(m_keys, kfin)
+        top_ids = torch.gather(m_ids, 1, idx)
+        top_refs = torch.gather(m_refs, 1, idx)
 
-    # Exact rescore of the winners (exact distances and order).
-    w_pid = torch.clamp(top_refs >> 16, min=0).long()
-    w_slot = torch.clamp(top_refs & 0xFFFF, max=C - 1).long()
-    vecs = codes.reshape(P * C, -1)[w_pid * C + w_slot].to(torch.float32)  # [B, kfin, D]
-    qf = q.to(torch.float32)
-    prod = torch.einsum("bkd,bd->bk", vecs, qf)
-    if metric == "l2":
-        exact = (2.0 * prod - torch.sum(qf * qf, dim=1, keepdim=True)
-                 - torch.sum(vecs * vecs, dim=2))
-    else:
-        exact = prod
-    exact = torch.where(top_ids >= 0, exact, torch.full_like(exact, NEG_INF))
-    scores, order = topk_stable(exact, kfin)
-    out_ids = torch.gather(top_ids, 1, order)
-    out_ids = torch.where(torch.isfinite(scores), out_ids, torch.full_like(out_ids, -1))
-    scores = torch.where(out_ids >= 0, scores, torch.full_like(scores, NEG_INF))
-    scanned = torch.sum((pids >= 0).to(torch.int32), dim=1, dtype=torch.int32)
-    mark_stage(stages, "rescore")
+    with annotate("quake.plan.rescore"):
+        # Exact rescore of the winners (exact distances and order).
+        w_pid = torch.clamp(top_refs >> 16, min=0).long()
+        w_slot = torch.clamp(top_refs & 0xFFFF, max=C - 1).long()
+        vecs = codes.reshape(P * C, -1)[w_pid * C + w_slot].to(torch.float32)  # [B, kfin, D]
+        qf = q.to(torch.float32)
+        prod = torch.einsum("bkd,bd->bk", vecs, qf)
+        if metric == "l2":
+            exact = (2.0 * prod - torch.sum(qf * qf, dim=1, keepdim=True)
+                     - torch.sum(vecs * vecs, dim=2))
+        else:
+            exact = prod
+        exact = torch.where(top_ids >= 0, exact, torch.full_like(exact, NEG_INF))
+        scores, order = topk_stable(exact, kfin)
+        out_ids = torch.gather(top_ids, 1, order)
+        out_ids = torch.where(torch.isfinite(scores), out_ids, torch.full_like(out_ids, -1))
+        scores = torch.where(out_ids >= 0, scores, torch.full_like(scores, NEG_INF))
+        scanned = torch.sum((pids >= 0).to(torch.int32), dim=1, dtype=torch.int32)
     return scores, out_ids.to(torch.int32), scanned
 
 
@@ -616,8 +613,7 @@ def multi_topk(gp, qg, codes, ids, kk: int, metric: str, gb: int = 8):
     return out_s, out_i
 
 
-def grouped_scan_multi(codes, ids, q, pids, k: int, metric: str, qt: int = 32, gb: int = 8,
-                       stages=None):
+def grouped_scan_multi(codes, ids, q, pids, k: int, metric: str, qt: int = 32, gb: int = 8):
     """The multi-group grouped scan (pallas_grouped.py::
     grouped_scan_pallas_multi): the groups padded to a multiple of gb with
     ghosts, kernel multi_topk, slot -> id (slots
@@ -625,11 +621,10 @@ def grouped_scan_multi(codes, ids, q, pids, k: int, metric: str, qt: int = 32, g
     grouped_scan_approx."""
     P, C, _ = codes.shape
     kk = min(k, C)
-    group_pid, qg, pair_group, pair_slot = _groups(q, pids, P, qt, codes.dtype, gb)
-    mark_stage(stages, "grouping")
-    g_scores, g_slots = multi_topk(group_pid, qg, codes, ids, kk, metric, gb)
-    mark_stage(stages, "scan")
-    g_scores, g_ids = _slots_to_ids(ids, group_pid, g_scores, g_slots, C)
-    out = merge_groups(g_scores, g_ids, pair_group, pair_slot, pids, k, kk)
-    mark_stage(stages, "merge")
-    return out
+    with annotate("quake.plan.grouping"):
+        group_pid, qg, pair_group, pair_slot = _groups(q, pids, P, qt, codes.dtype, gb)
+    with annotate("quake.scan"):
+        g_scores, g_slots = multi_topk(group_pid, qg, codes, ids, kk, metric, gb)
+    with annotate("quake.plan.merge"):
+        g_scores, g_ids = _slots_to_ids(ids, group_pid, g_scores, g_slots, C)
+        return merge_groups(g_scores, g_ids, pair_group, pair_slot, pids, k, kk)

@@ -26,7 +26,7 @@ from quake_tpu_torch.coordinator import (aps_loop, aps_oneshot, aps_plan, aps_se
                                          grouped_scan)
 from quake_tpu_torch.ops.scan import (dedup_topk, flat_scan, ivf_scan, scores_to_distances,
                                       topk_from_scores)
-from quake_tpu_torch.profiling import mark_stage
+from quake_tpu_torch.profiling import annotate
 
 
 def _gather(parts, first):
@@ -249,8 +249,7 @@ def sharded_kmeans_step(mesh, x_shards, centroids, metric: str = "l2"):
 
 def sharded_fused_search(sharded, parent_codes, parent_ids, q, k: int, nprobe: int,
                          metric: str, qt: int = 64, group_chunk: int = 64, dedup: bool = False,
-                         shard_parents: bool = True, kernel: str = "xla", exact: bool = True,
-                         stages=None):
+                         shard_parents: bool = True, kernel: str = "xla", exact: bool = True):
     """Fixed-nprobe search over a slot-sharded store
     (quake_tpu/parallel/sharded.py::sharded_fused_search): the parent
     ranking, each shard's partition-major grouped scan of its slab slice,
@@ -269,9 +268,8 @@ def sharded_fused_search(sharded, parent_codes, parent_ids, q, k: int, nprobe: i
     the local capacity C/ndev is a 128 multiple where the index sharded the
     store (QuakeIndex.shard).
 
-    `stages` (a profiling.StageTimer on the first device, for a mesh of
-    one device) gets "parent", each shard's grouped-scan stages (summed
-    over the shards by name), "shard_merge" and "distances".
+    Spans: quake.plan.parent, each shard's grouped-scan spans,
+    quake.plan.shard_merge and quake.plan.distances.
 
     Returns (scores, ids32, distances, scanned, probe) on the first
     device."""
@@ -285,36 +283,30 @@ def sharded_fused_search(sharded, parent_codes, parent_ids, q, k: int, nprobe: i
     pc_flat = parent_codes.reshape(N, D)
     pi_flat = parent_ids.reshape(N)
     shard_parents = shard_parents and N % ndev == 0 and N // ndev >= nprobe
-    if stages is not None:
-        stages.start()
-    if shard_parents:
-        Nl = N // ndev
-        ls, lp = [], []
-        for s, d in enumerate(mesh.devices):
-            rows = slice(s * Nl, (s + 1) * Nl)
-            sc, p = flat_scan(q.to(d), pc_flat[rows].to(d), pi_flat[rows].to(d), nprobe, metric,
-                              approx=True)
-            ls.append(sc)
-            lp.append(p)
-        _, probe = topk_from_scores(_gather(ls, first), _gather(lp, first), nprobe)
-    else:
-        _, probe = flat_scan(q.to(first), pc_flat.to(first), pi_flat.to(first), nprobe, metric,
-                             approx=True)
-    probe = torch.where(probe >= 0, probe, probe[:, :1])
-    mark_stage(stages, "parent")
+    with annotate("quake.plan.parent"):
+        if shard_parents:
+            Nl = N // ndev
+            ls, lp = [], []
+            for s, d in enumerate(mesh.devices):
+                rows = slice(s * Nl, (s + 1) * Nl)
+                sc, p = flat_scan(q.to(d), pc_flat[rows].to(d), pi_flat[rows].to(d), nprobe,
+                                  metric, approx=True)
+                ls.append(sc)
+                lp.append(p)
+            _, probe = topk_from_scores(_gather(ls, first), _gather(lp, first), nprobe)
+        else:
+            _, probe = flat_scan(q.to(first), pc_flat.to(first), pi_flat.to(first), nprobe,
+                                 metric, approx=True)
+        probe = torch.where(probe >= 0, probe, probe[:, :1])
     out_s, out_i, scanned = [], [], []
     for s, d in enumerate(mesh.devices):
         sc, si, n = grouped_scan(sharded.codes[s], sharded.ids[s], sharded.local_sizes[s],
                                  sharded.norms[s], q.to(d), probe.to(d), k, metric, qt,
-                                 group_chunk, kernel, dedup=dedup, exact=exact, dense=True,
-                                 stages=stages)
+                                 group_chunk, kernel, dedup=dedup, exact=exact, dense=True)
         out_s.append(sc)
         out_i.append(si)
         scanned.append(n)
-    ms, mi = _merge_gathered(out_s, out_i, k, first, dedup=dedup)
-    mark_stage(stages, "shard_merge")
+    with annotate("quake.plan.shard_merge"):
+        ms, mi = _merge_gathered(out_s, out_i, k, first, dedup=dedup)
     dists = scores_to_distances(ms, mi, metric)
-    if stages is not None:
-        stages.mark("distances")
-        stages.stop()
     return ms, mi, dists, scanned[0].to(first), probe

@@ -35,6 +35,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from quake_tpu_torch.profiling import annotate
 from quake_tpu_torch.storage.idmap import make_id_map
 from quake_tpu_torch.utils import next_pow2, to_i64
 
@@ -194,21 +195,25 @@ def _set_centroids(state: StoreState, rows, centroids) -> StoreState:
 
 def _grow_capacity(state: StoreState, new_C: int) -> StoreState:
     """C -> new_C: new contiguous tensors in the same dtypes, the new slots
-    empty (id -1, zero codes and norms)."""
+    empty (id -1, zero codes and norms). In the span quake.store.grow."""
     pad = new_C - state.ids.shape[1]
     F = torch.nn.functional
-    return StoreState(F.pad(state.codes, (0, 0, 0, pad)), F.pad(state.ids, (0, pad), value=-1),
-                      state.sizes, state.centroids, state.active, F.pad(state.norms, (0, pad)))
+    with annotate("quake.store.grow"):
+        return StoreState(F.pad(state.codes, (0, 0, 0, pad)),
+                          F.pad(state.ids, (0, pad), value=-1), state.sizes, state.centroids,
+                          state.active, F.pad(state.norms, (0, pad)))
 
 
 def _grow_partitions(state: StoreState, new_P: int) -> StoreState:
-    """P -> new_P: new contiguous tensors, the new rows empty and inactive."""
+    """P -> new_P: new contiguous tensors, the new rows empty and inactive.
+    In the span quake.store.grow."""
     pad = new_P - state.ids.shape[0]
     F = torch.nn.functional
-    return StoreState(F.pad(state.codes, (0, 0, 0, 0, 0, pad)),
-                      F.pad(state.ids, (0, 0, 0, pad), value=-1), F.pad(state.sizes, (0, pad)),
-                      F.pad(state.centroids, (0, 0, 0, pad)), F.pad(state.active, (0, pad)),
-                      F.pad(state.norms, (0, 0, 0, pad)))
+    with annotate("quake.store.grow"):
+        return StoreState(F.pad(state.codes, (0, 0, 0, 0, 0, pad)),
+                          F.pad(state.ids, (0, 0, 0, pad), value=-1),
+                          F.pad(state.sizes, (0, pad)), F.pad(state.centroids, (0, 0, 0, pad)),
+                          F.pad(state.active, (0, pad)), F.pad(state.norms, (0, 0, 0, pad)))
 
 
 def _bucket(n: int, floor: int = 8) -> int:
@@ -440,40 +445,44 @@ class PartitionStore:
         self._append_one(np.asarray(rows), vecs, vids, self.id_map)
 
     def _append_one(self, rows: np.ndarray, vecs: np.ndarray, vids: np.ndarray, id_map):
-        n = len(rows)
-        self.ensure_capacity(np.bincount(rows[rows >= 0], minlength=self.P))
-        b = _bucket(n)
-        self.state = _append(self.state, self._tensor(_padded(rows, b, -1, np.int32)),
-                             self._tensor(_padded(vecs, b, 0, np.float32, (self.d,))),
-                             self._tensor(_padded(vids, b, -1, np.int64)))
-        ok = rows[:n] >= 0
-        id_map.set_batch(np.asarray(vids[:n])[ok], rows[:n][ok].astype(np.int32))
+        """One copy of each vector into its row (-1: none), in the span
+        quake.store.append."""
+        with annotate("quake.store.append"):
+            n = len(rows)
+            self.ensure_capacity(np.bincount(rows[rows >= 0], minlength=self.P))
+            b = _bucket(n)
+            self.state = _append(self.state, self._tensor(_padded(rows, b, -1, np.int32)),
+                                 self._tensor(_padded(vecs, b, 0, np.float32, (self.d,))),
+                                 self._tensor(_padded(vids, b, -1, np.int64)))
+            ok = rows[:n] >= 0
+            id_map.set_batch(np.asarray(vids[:n])[ok], rows[:n][ok].astype(np.int32))
 
     def remove(self, vids: np.ndarray) -> int:
         """Remove vector ids (ids not resident are ignored), routed through
         the id map to the rows that hold them; on a spilled store both
         copies go, an id resident in either map counting as present.
-        Returns how many were resident."""
-        vids = to_i64(vids)
-        lookup = self.id_map.get_batch(vids)
-        present_mask = lookup >= 0
-        rows = lookup[lookup >= 0]
-        if self.spill_map is not None:
-            lookup2 = self.spill_map.get_batch(vids)
-            present_mask |= lookup2 >= 0
-            rows = np.concatenate([rows, lookup2[lookup2 >= 0]])
-        present = vids[present_mask]
-        if len(present) == 0:
-            return 0
-        rows = np.unique(rows)
-        rem = _padded(np.sort(present), _bucket(len(present)), np.iinfo(np.int32).max, np.int32)
-        self.state, _ = _remove_compact(
-            self.state, self._tensor(_padded(rows, _bucket(len(rows)), -1, np.int32)),
-            self._tensor(rem))
-        self.id_map.erase_batch(present)
-        if self.spill_map is not None:
-            self.spill_map.erase_batch(present)
-        return len(present)
+        Returns how many were resident. In the span quake.store.remove."""
+        with annotate("quake.store.remove"):
+            vids = to_i64(vids)
+            lookup = self.id_map.get_batch(vids)
+            present_mask = lookup >= 0
+            rows = lookup[lookup >= 0]
+            if self.spill_map is not None:
+                lookup2 = self.spill_map.get_batch(vids)
+                present_mask |= lookup2 >= 0
+                rows = np.concatenate([rows, lookup2[lookup2 >= 0]])
+            present = vids[present_mask]
+            if len(present) == 0:
+                return 0
+            rows = np.unique(rows)
+            rem = _padded(np.sort(present), _bucket(len(present)), np.iinfo(np.int32).max, np.int32)
+            self.state, _ = _remove_compact(
+                self.state, self._tensor(_padded(rows, _bucket(len(rows)), -1, np.int32)),
+                self._tensor(rem))
+            self.id_map.erase_batch(present)
+            if self.spill_map is not None:
+                self.spill_map.erase_batch(present)
+            return len(present)
 
     def update_vectors(self, vids: np.ndarray, vecs: np.ndarray):
         """Overwrite resident vectors by id (used by parent.modify); on a
