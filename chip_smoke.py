@@ -4455,9 +4455,7 @@ def phase_maintenance(torch, dev, queries, nprobe):
     if window < policy.params.window_size:
         raise AssertionError(f"the skewed batch recorded {window} queries, the window needs "
                              f"{policy.params.window_size}")
-    hits = np.zeros(store.P, np.int64)
-    for h in policy.hit_count_tracker.get_per_query_hits(store.partition_sizes()):
-        np.add.at(hits, h, 1)
+    hits = policy.hit_count_tracker.hit_counts(store.P, store.partition_sizes())
     out.update(aged=aged, hot=hot, removed=len(gone), window=window,
                hot_hit_share=float(hits[hot].sum() / max(hits.sum(), 1)), before=before,
                search_launches=launches)

@@ -96,12 +96,7 @@ class MaintenancePolicy:
         store = self.index.store
         with annotate("quake.maint.window"):
             sizes = store.partition_sizes()
-            per_query_hits = tracker.get_per_query_hits(sizes)
-
-            agg = np.zeros(store.P, dtype=np.int64)
-            for hits in per_query_hits:
-                valid = hits[(hits >= 0) & (hits < store.P)]
-                np.add.at(agg, valid, 1)
+            agg = tracker.hit_counts(store.P, sizes)
 
         with annotate("quake.maint.decide"):
             active_rows = store.active_rows()
@@ -164,8 +159,11 @@ class MaintenancePolicy:
                 self.local_refinement(new_rows)
         timing.split_refine_time_us = _now_us() - t_refine
 
-        with annotate("quake.maint.invalidate"):
-            tracker.invalidate_rows(to_delete + to_split)
+        # Entered only when a row was deleted or split: its calls count how
+        # often the invalidation engages.
+        if to_delete or to_split:
+            with annotate("quake.maint.invalidate"):
+                tracker.invalidate_rows(to_delete + to_split)
         timing.total_time_us = _now_us() - t_total
         return timing
 
