@@ -275,15 +275,17 @@ def aps_setup(q, centroids, pids, dimension: int, use_precomputed: bool, table):
 
     APS geometry always works in L2 space: for IP, spherical k-means keeps
     centroids unit-norm, so the k-th IP score s maps to an L2 radius
-    sqrt(|q|^2 + 1 - 2 s) (the MIPS -> NN reduction on a ~unit-norm corpus)."""
-    valid = pids >= 0
-    cents = centroids[torch.where(valid, pids, torch.zeros_like(pids)).long()]
-    boundary = geometry.boundary_distances(q.to(torch.float32), cents, "l2")
-    col0 = boundary[:, 0].clone()
-    boundary = torch.where(valid, boundary, torch.full_like(boundary, float("inf")))
-    boundary[:, 0] = col0
-    if use_precomputed and table is None:
-        table = geometry.beta_table(dimension, "l2", q.device)
+    sqrt(|q|^2 + 1 - 2 s) (the MIPS -> NN reduction on a ~unit-norm corpus).
+    Runs in the span quake.aps.setup."""
+    with annotate("quake.aps.setup"):
+        valid = pids >= 0
+        cents = centroids[torch.where(valid, pids, torch.zeros_like(pids)).long()]
+        boundary = geometry.boundary_distances(q.to(torch.float32), cents, "l2")
+        col0 = boundary[:, 0].clone()
+        boundary = torch.where(valid, boundary, torch.full_like(boundary, float("inf")))
+        boundary[:, 0] = col0
+        if use_precomputed and table is None:
+            table = geometry.beta_table(dimension, "l2", q.device)
     return boundary, valid, table
 
 
@@ -327,8 +329,9 @@ def aps_loop(q, pids, boundary, valid, table, recall_target, recompute_threshold
     query_coordinator.cpp:573-576). The JAX package's lax.while_loop is a
     host loop here: before every step after the first it reads
     `active.any()` from the device (one sync; the first step needs none, as
-    every query starts active). `stats`, a dict when given, gets "steps"
-    (the steps run) and "syncs" (the device reads) added.
+    every query starts active). Each step's radius, profile and retirement
+    run in the span quake.aps.plan. `stats`, a dict when given, gets
+    "steps" (the steps run) and "syncs" (the device reads) added.
 
     Reference: query_coordinator.cpp:383-430 (worker path) / :537-579
     (serial path). Returns (scores [B, k], ids [B, k], scanned [B] int32)."""
@@ -354,17 +357,18 @@ def aps_loop(q, pids, boundary, valid, table, recall_target, recompute_threshold
         n_new = torch.sum((eff >= 0).to(torch.int32), dim=1, dtype=torch.int32)
         s, si = scan_chunk(eff)
         scores, sids = merge_topk(scores, sids, s, si.to(sids.dtype), k)
-        radius_new = _radius(scores[:, k - 1], q, metric)
-        rel = torch.abs(radius_new - radius) / torch.clamp(torch.abs(radius_new), min=1e-30)
-        recompute = (rel > recompute_threshold) & active
-        probs_new = geometry.recall_profile(boundary, radius_new, dimension, "l2",
-                                            use_precomputed, table, valid, gamma=gamma)
-        probs = torch.where(recompute[:, None], probs_new, probs)
-        radius = torch.where(recompute, radius_new, radius)
-        ranks_scanned = min((i + 1) * chunk, M)
-        cum = torch.sum(torch.where(rank_idx < ranks_scanned - 1, probs,
-                                    torch.zeros_like(probs)), dim=1)
-        active = active & (cum < recall_target)
+        with annotate("quake.aps.plan"):
+            radius_new = _radius(scores[:, k - 1], q, metric)
+            rel = torch.abs(radius_new - radius) / torch.clamp(torch.abs(radius_new), min=1e-30)
+            recompute = (rel > recompute_threshold) & active
+            probs_new = geometry.recall_profile(boundary, radius_new, dimension, "l2",
+                                                use_precomputed, table, valid, gamma=gamma)
+            probs = torch.where(recompute[:, None], probs_new, probs)
+            radius = torch.where(recompute, radius_new, radius)
+            ranks_scanned = min((i + 1) * chunk, M)
+            cum = torch.sum(torch.where(rank_idx < ranks_scanned - 1, probs,
+                                        torch.zeros_like(probs)), dim=1)
+            active = active & (cum < recall_target)
         scanned = scanned + n_new
         steps += 1
     if stats is not None:
@@ -425,34 +429,37 @@ def aps_plan(q, pids, boundary, valid, table, recall_target, k: int, metric: str
     chunk0 + width_clip) and to a B * budget_w pair budget, scaled down in
     proportion by a float32 ratio on overflow (floored, as in the JAX
     package); the tail then scans sized to that budget. Nothing here reads
-    the device: the budget is a Python int. Returns (scores, ids, scanned)."""
+    the device: the budget is a Python int. The plan (radius, profile,
+    depths, clip and budget) runs in the span quake.aps.plan. Returns
+    (scores, ids, scanned)."""
     B, M = pids.shape
     c0 = min(chunk0, M)
     eff0 = pids[:, :c0]
     s0, i0 = scan_chunk(eff0)
-    radius = _radius(s0[:, k - 1], q, metric)
-    probs = geometry.recall_profile(boundary, radius, dimension, "l2", use_precomputed, table,
-                                    valid, gamma=gamma)
-    n_b = _plan_depth(probs, recall_target)
-    tail = torch.clamp(n_b - c0, min=0)
-    if plan_margin:
-        tail = torch.where(tail > 0, tail + plan_margin, torch.zeros_like(tail))
-    tail = _ceil_to(tail, plan_round)
-    n_b = torch.clamp(c0 + tail, c0, M)
+    with annotate("quake.aps.plan"):
+        radius = _radius(s0[:, k - 1], q, metric)
+        probs = geometry.recall_profile(boundary, radius, dimension, "l2", use_precomputed,
+                                        table, valid, gamma=gamma)
+        n_b = _plan_depth(probs, recall_target)
+        tail = torch.clamp(n_b - c0, min=0)
+        if plan_margin:
+            tail = torch.where(tail > 0, tail + plan_margin, torch.zeros_like(tail))
+        tail = _ceil_to(tail, plan_round)
+        n_b = torch.clamp(c0 + tail, c0, M)
 
-    Wt = M
-    pair_budget = 0
-    if width_clip and budget_w:
-        Wt = min(c0 + width_clip, M)
-        n_b = torch.clamp(n_b, max=Wt)
-        n_bud = B * max(budget_w, plan_round)
-        tail = n_b - c0
-        total = torch.sum(tail)
-        ratio = n_bud / torch.clamp(total.to(torch.float32), min=1.0)
-        scaled = torch.floor(tail.to(torch.float32) * ratio).to(tail.dtype)
-        tail = torch.where(total > n_bud, scaled, tail)
-        n_b = c0 + tail
-        pair_budget = int(n_bud)
+        Wt = M
+        pair_budget = 0
+        if width_clip and budget_w:
+            Wt = min(c0 + width_clip, M)
+            n_b = torch.clamp(n_b, max=Wt)
+            n_bud = B * max(budget_w, plan_round)
+            tail = n_b - c0
+            total = torch.sum(tail)
+            ratio = n_bud / torch.clamp(total.to(torch.float32), min=1.0)
+            scaled = torch.floor(tail.to(torch.float32) * ratio).to(tail.dtype)
+            tail = torch.where(total > n_bud, scaled, tail)
+            n_b = c0 + tail
+            pair_budget = int(n_bud)
 
     rank_idx = torch.arange(Wt, device=pids.device)[None, :]
     n0 = torch.sum((eff0 >= 0).to(torch.int32), dim=1, dtype=torch.int32)
@@ -498,35 +505,39 @@ def aps_oneshot(q, pids, boundary, valid, table, recall_target, k: int, metric: 
     B * budget_w pairs (the above-floor tail scaled down in int64 integer
     arithmetic on overflow, never below the plan floor); the scan then runs
     sized to that budget. Nothing here reads the device: the budget is a
-    Python int. Returns (scores, ids, scanned)."""
+    Python int. The plan (radius, profile, depths, clip, budget and the
+    masked pid matrix) runs in the span quake.aps.plan. Returns (scores,
+    ids, scanned)."""
     B, M = pids.shape
-    qf = q.to(torch.float32)
-    c0 = centroids[torch.clamp(pids[:, 0], min=0).long()].to(torch.float32)
-    d1 = torch.sqrt(torch.clamp(torch.sum((qf - c0) ** 2, dim=1), min=0.0))
-    radius = torch.clamp(radius_a + radius_b * d1, min=0.0)
-    probs = geometry.recall_profile(boundary, radius, dimension, "l2", use_precomputed, table,
-                                    valid, gamma=gamma)
-    n_b = _plan_depth(probs, recall_target) + plan_margin
-    n_b = _ceil_to(n_b, plan_round)
-    minf = min(plan_round, M)
-    n_b = torch.clamp(n_b, minf, M)
+    with annotate("quake.aps.plan"):
+        qf = q.to(torch.float32)
+        c0 = centroids[torch.clamp(pids[:, 0], min=0).long()].to(torch.float32)
+        d1 = torch.sqrt(torch.clamp(torch.sum((qf - c0) ** 2, dim=1), min=0.0))
+        radius = torch.clamp(radius_a + radius_b * d1, min=0.0)
+        probs = geometry.recall_profile(boundary, radius, dimension, "l2", use_precomputed,
+                                        table, valid, gamma=gamma)
+        n_b = _plan_depth(probs, recall_target) + plan_margin
+        n_b = _ceil_to(n_b, plan_round)
+        minf = min(plan_round, M)
+        n_b = torch.clamp(n_b, minf, M)
 
-    W = M
-    pair_budget = 0
-    if width_clip and budget_w:
-        W = min(width_clip, M)
-        n_b = torch.clamp(n_b, max=W)
-        n_bud = B * max(budget_w, int(plan_round))
-        total = torch.sum(n_b)
-        base = B * minf
-        avail = max(n_bud - base, 0)
-        denom = torch.clamp(total - base, min=1)
-        scaled = minf + torch.div((n_b - minf) * avail, denom, rounding_mode="floor")
-        n_b = torch.where(total > n_bud, scaled, n_b)
-        pair_budget = int(n_bud)
+        W = M
+        pair_budget = 0
+        if width_clip and budget_w:
+            W = min(width_clip, M)
+            n_b = torch.clamp(n_b, max=W)
+            n_bud = B * max(budget_w, int(plan_round))
+            total = torch.sum(n_b)
+            base = B * minf
+            avail = max(n_bud - base, 0)
+            denom = torch.clamp(total - base, min=1)
+            scaled = minf + torch.div((n_b - minf) * avail, denom, rounding_mode="floor")
+            n_b = torch.where(total > n_bud, scaled, n_b)
+            pair_budget = int(n_bud)
 
-    rank_idx = torch.arange(W, device=pids.device)[None, :]
-    eff = torch.where(rank_idx < n_b[:, None], pids[:, :W], torch.full_like(pids[:, :W], -1))
+        rank_idx = torch.arange(W, device=pids.device)[None, :]
+        eff = torch.where(rank_idx < n_b[:, None], pids[:, :W],
+                          torch.full_like(pids[:, :W], -1))
     scores, sids = scan_chunk(eff, pair_budget)
     return scores, sids, torch.sum((eff >= 0).to(torch.int32), dim=1, dtype=torch.int32)
 
@@ -557,12 +568,14 @@ def aps_search_oneshot_fused(codes, ids, centroids, parent_codes, parent_ids, pa
     """Oneshot APS with the parent ranking in the same call
     (quake_tpu/coordinator.py::aps_search_oneshot_fused): rank_parents
     (K3 with parent_kernel="pallas") to parent_k candidates, clipped to mcap
-    where that is set, then aps_search_oneshot's plan and scan. Single-level
-    parents only. Returns (scores, ids, scanned, pids)."""
-    pids = rank_parents(parent_codes, parent_ids, parent_norms, q, parent_k, metric,
-                        parent_kernel)
-    if mcap and pids.shape[1] > mcap:
-        pids = pids[:, :mcap]
+    where that is set (the span quake.plan.parent), then aps_search_oneshot's
+    plan and scan. Single-level parents only. Returns (scores, ids,
+    scanned, pids)."""
+    with annotate("quake.plan.parent"):
+        pids = rank_parents(parent_codes, parent_ids, parent_norms, q, parent_k, metric,
+                            parent_kernel)
+        if mcap and pids.shape[1] > mcap:
+            pids = pids[:, :mcap]
     boundary, valid, table = aps_setup(q, centroids, pids, dimension, use_precomputed, table)
     scan = _budgeted_scan(codes, ids, sizes, norms, q, k, metric, qt, kernel, exact)
     scores, sids, scanned = aps_oneshot(q, pids, boundary, valid, table, recall_target, k, metric,

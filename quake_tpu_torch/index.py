@@ -359,7 +359,8 @@ class QuakeIndex:
             with annotate("quake.aggregate"):
                 scanned_dev = getattr(timing, "_scanned_dev", None)
                 if scanned_dev is not None:  # APS: read after the wait above
-                    sc = scanned_dev.cpu().numpy()
+                    sc = scanned_dev.cpu().numpy().astype(np.int32, copy=False)
+                    timing.scanned_per_query = sc
                     timing.partitions_scanned = int(sc.mean()) if sc.size else 0
                     timing._scanned_dev = None
                 dists_np = dists.cpu().numpy()
@@ -591,8 +592,9 @@ class QuakeIndex:
         best entry after (dedup_topk): a merge can carry both copies of a
         neighbour, and the 2k-th distance keeps the recall model
         conservative. `scanned` stays on the device as timing._scanned_dev
-        (search() reads it after its wait); the loop's steps and syncs go to
-        timing. Returns (scores, ids32)."""
+        (search() reads it after its wait, into scanned_per_query and
+        partitions_scanned); the plan's pair budget (aps_pair_budget) and
+        the loop's steps and syncs go to timing. Returns (scores, ids32)."""
         B = int(q.shape[0])
         k_out = max(int(sp.k), 1)
         k = 2 * k_out if self.spill else k_out
@@ -648,6 +650,9 @@ class QuakeIndex:
                                           chunk=chunk, stats=stats, **common)
             timing.aps_loop_steps = stats["steps"]
             timing.aps_loop_syncs = stats["syncs"]
+        if mode != "loop" and self.aps_width_clip and self.aps_budget_w:
+            # The plan's pair budget, a host int (coordinator.aps_oneshot, aps_plan).
+            timing.aps_pair_budget = B * max(int(self.aps_budget_w), 4)
         if self.spill:
             scores, ids32 = dedup_topk(scores, ids32, k_out)
         # Kept on the device: reading the mean here would wait for the search.

@@ -120,8 +120,12 @@ class SearchParams:
     """Mirrors reference SearchParams (common.h:171-184).
 
     `num_threads`, `aps_flush_period_us` are accepted for API parity and are
-    no-ops. The `aps_*` fields belong to recall-target search, which this
-    package does not implement yet.
+    no-ops. A `recall_target` above 0 runs recall-target (APS) search on an
+    IVF index; the `aps_*` fields tune it: `aps_mode` picks the strategy
+    ("auto", "dense", "oneshot", "planned", "loop"; QuakeIndex.search),
+    `aps_chunk_size` the loop's step and the planned prologue (0 = auto),
+    `aps_plan_margin` the ranks a plan adds before its rounding.
+    `exact_distances` False serves v10/v11 distances from the scan's keys.
     """
 
     nprobe: int = DEFAULT_NPROBE

@@ -9,7 +9,15 @@ and a shared no-op context. The port's spans are named
 
   quake.search                  QuakeIndex.search, around its four phases:
     quake.buffer_init, quake.dispatch, quake.device_wait, quake.aggregate
-  quake.plan.parent             parent ranking (K3) and the self-heal
+  quake.plan.parent             parent ranking (K3) and the self-heal (the
+                                fused oneshot APS: K3 and the clip to mcap)
+  quake.aps.setup               APS set-up: the candidates' centroids gathered,
+                                the boundary distances, the beta table
+  quake.aps.plan                APS plan: the radius (predicted for oneshot,
+                                from the prologue for planned, each step of
+                                the loop), the recall profile, the depths,
+                                the margin and rounding, the width clip and
+                                the pair budget
   quake.plan.grouping           the grouping prologue of a grouped scan
   quake.scan                    the grouped scan's kernel (K1, K4-K7, ...)
   quake.plan.placement          the placement epilogue (v10, v11)

@@ -63,6 +63,12 @@ class SearchTimingInfo:
     # the JAX package's device-side while_loop does not need.
     aps_loop_steps: int = 0
     aps_loop_syncs: int = 0
+    # Not in the JAX package: of a recall-target search, the partitions each
+    # query scanned after the plan's clip and budget (int32 numpy [B], read
+    # in the same copy as partitions_scanned, their mean), and the pair
+    # budget the plan passed to the scan (0 for none).
+    scanned_per_query: Optional[Any] = None
+    aps_pair_budget: int = 0
 
 
 @dataclass

@@ -115,6 +115,73 @@ def test_sharded_search_spans(tmp_path):
     assert table["quake.scan"]["calls"] == 2  # one a shard
 
 
+def _aps_index() -> tuple:
+    """An IVF index with a recall model set by hand (radius 0.5 + d1, a
+    candidate width of 6, the plans clipped to 6 and budgeted at 4 a query),
+    so that oneshot search plans, clips and budgets without a calibration."""
+    idx, x = _index()
+    idx.aps_radius_ab = np.tile(np.array([[0.5, 1.0]], np.float32), (16, 1))
+    idx.aps_oneshot_mcap = idx.aps_plan_width = 6
+    idx.aps_width_clip, idx.aps_budget_w = 6, 4
+    return idx, x
+
+
+APS_SPANS = {"oneshot": ("quake.plan.parent", "quake.aps.setup", "quake.aps.plan"),
+             "planned": ("quake.aps.setup", "quake.aps.plan")}
+
+
+@pytest.mark.parametrize("mode", ["oneshot", "planned"])
+def test_aps_spans_nest_in_dispatch(tmp_path, mode):
+    """Two recall-target searches: the APS spans open once a search (the
+    fused oneshot ranks its parents in quake.plan.parent), each inside a
+    quake.dispatch on the same thread."""
+    idx, x = _aps_index()
+    sp = SearchParams(k=5, recall_target=0.9, aps_mode=mode)
+    with device_trace(str(tmp_path)):
+        for i in range(2):
+            idx.search(x[32 * i:32 * (i + 1)], sp)
+    table = last_spans()
+    _sound(table)
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    spans = [e for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    dispatch = [e for e in spans if e["name"] == "quake.dispatch"]
+    assert len(dispatch) == 2
+    for name in APS_SPANS[mode]:
+        assert table[name]["calls"] == 2, name
+        for e in (e for e in spans if e["name"] == name):
+            assert any(d["tid"] == e["tid"] and d["ts"] <= e["ts"]
+                       and e["ts"] + e["dur"] <= d["ts"] + d["dur"] for d in dispatch), name
+
+
+@pytest.mark.parametrize("mode", ["oneshot", "planned"])
+def test_aps_depth_counters(mode):
+    """scanned_per_query: each query's scanned partitions, int32 [B], whose
+    mean truncates to partitions_scanned; aps_pair_budget: B times the
+    budget a query, the budget the plan passed to the scan."""
+    idx, x = _aps_index()
+    res = idx.search(x[:40], SearchParams(k=5, recall_target=0.9, aps_mode=mode))
+    t = res.timing_info
+    assert t.scanned_per_query.dtype == np.int32 and t.scanned_per_query.shape == (40,)
+    assert int(t.scanned_per_query.mean()) == t.partitions_scanned
+    assert 1 <= t.scanned_per_query.min() and t.scanned_per_query.max() <= NLIST
+    assert t.aps_pair_budget == 40 * 4
+    fixed = idx.search(x[:40], SearchParams(k=5, nprobe=3)).timing_info
+    assert fixed.scanned_per_query is None and fixed.aps_pair_budget == 0
+
+
+@pytest.mark.parametrize("mode", ["oneshot", "planned"])
+def test_aps_answers_equal_with_and_without_tracing(tmp_path, mode):
+    idx, x = _aps_index()
+    sp = SearchParams(k=5, recall_target=0.9, aps_mode=mode)
+    off = idx.search(x[:48], sp)
+    with device_trace(str(tmp_path)):
+        on = idx.search(x[:48], sp)
+    np.testing.assert_array_equal(on.ids, off.ids)
+    np.testing.assert_array_equal(on.distances, off.distances)
+    np.testing.assert_array_equal(on.timing_info.scanned_per_query,
+                                  off.timing_info.scanned_per_query)
+
+
 def test_no_record_function_without_a_profiler(monkeypatch):
     """With no profiler recording, a span is a shared no-op: search, add,
     remove and maintenance never reach record_function."""
