@@ -107,33 +107,31 @@ class MaintenancePolicy:
             avg_size = ntotal / total_partitions
             scan_fraction = tracker.get_current_scan_fraction()
 
-            to_delete: list[int] = []
-            to_split: list[int] = []
-            for r in active_rows:
-                r = int(r)
-                hit_rate = agg[r] / p.window_size
-                size = int(sizes[r])
-                delete_delta = self.cost_estimator.compute_delete_delta(
-                    size, hit_rate, total_partitions, scan_fraction, avg_size
-                )
-                if delete_delta < -p.delete_threshold_ns:
-                    if p.enable_delete_rejection and size > p.min_partition_size:
-                        t_rej = _now_us()
+            # One pass of the cost model over every active row; only the
+            # delete-rejection candidates take a step each (a parent search).
+            ce = self.cost_estimator
+            row_sizes = sizes[active_rows].astype(np.int64)
+            hit_rates = agg[active_rows] / p.window_size
+            delete_delta = ce.compute_delete_delta_array(
+                row_sizes, hit_rates, total_partitions, scan_fraction, avg_size)
+            delete = delete_delta < -p.delete_threshold_ns
+            splittable = ~delete & (row_sizes > p.min_partition_size)
+            split = np.zeros_like(delete)
+            split[splittable] = ce.compute_split_delta_array(
+                row_sizes[splittable], hit_rates[splittable], total_partitions
+            ) < -p.split_threshold_ns
+            if p.enable_delete_rejection:
+                for i in np.flatnonzero(delete & (row_sizes > p.min_partition_size)):
+                    t_rej = _now_us()
+                    with annotate("quake.maint.reject"):
                         delta = self._delete_delta_with_reassign(
-                            r, size, hit_rate, total_partitions, agg
-                        )
-                        self.rejection_candidates += 1
-                        self.rejection_time_us += _now_us() - t_rej
-                        if delta < -p.delete_threshold_ns:
-                            to_delete.append(r)
-                    else:
-                        to_delete.append(r)
-                elif size > p.min_partition_size:
-                    split_delta = self.cost_estimator.compute_split_delta(
-                        size, hit_rate, total_partitions
-                    )
-                    if split_delta < -p.split_threshold_ns:
-                        to_split.append(r)
+                            int(active_rows[i]), int(row_sizes[i]), hit_rates[i],
+                            total_partitions, agg)
+                    self.rejection_candidates += 1
+                    self.rejection_time_us += _now_us() - t_rej
+                    delete[i] = delta < -p.delete_threshold_ns
+            to_delete = active_rows[delete].tolist()
+            to_split = active_rows[split].tolist()
 
             # Never delete everything.
             to_delete = to_delete[:total_partitions - 1]

@@ -31,6 +31,9 @@ and a shared no-op context. The port's spans are named
   quake.maintenance             QuakeIndex.maintenance
   quake.maint.window, .decide, .delete, .split, .refine, .invalidate
                                 the policy's stages (maintenance/policy.py)
+    quake.maint.reject          inside .decide, one delete-rejection
+                                simulation (a parent search): its calls are
+                                the round's rejection candidates
 
 ``device_trace(logdir)`` records a ``torch.profiler`` trace of a block (host
 operations, and the device's kernels and copies where there is a card) and

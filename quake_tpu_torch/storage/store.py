@@ -290,8 +290,9 @@ class PartitionStore:
 
     def active_rows(self) -> np.ndarray:
         """The rows that hold a partition (not free), ascending."""
-        free = set(self.free_rows)
-        return np.array([r for r in range(self.P) if r not in free], dtype=np.int64)
+        active = np.ones(self.P, dtype=bool)
+        active[np.asarray(self.free_rows, dtype=np.int64)] = False
+        return np.flatnonzero(active).astype(np.int64)
 
     def partition_sizes(self, rows=None) -> np.ndarray:
         """Sizes of all rows, or of `rows` (0 where a row is -1)."""

@@ -41,6 +41,7 @@ from quake_tpu_torch import (IndexBuildParams, MaintenancePolicyParams, QuakeInd
                              SearchParams)
 from quake_tpu_torch.maintenance import (HitCountTracker, ListScanLatencyEstimator,
                                          MaintenanceCostEstimator)
+from quake_tpu_torch.profiling import device_trace, last_spans
 from quake_tpu_torch.utils import compute_recall, knn
 from test_torch_store_mutation import _contract_6
 
@@ -459,12 +460,14 @@ def _rows(idx):
 
 
 @pytest.mark.parametrize("host", [False, True], ids=["device", "host"])
-def test_decisions_match_jax(aged_jax, monkeypatch, host):
+def test_decisions_match_jax(aged_jax, monkeypatch, tmp_path, host):
     """The same window makes the same splits and deletes (the aged rows,
     after the simulated reassignment), and leaves the same partitions, in
     both packages: batched 2-means and refinement on the device, or
     kmeans_np and lloyd_refine_np with QUAKE_TPU_MAINT_HOST=1 (the same
-    numpy code). The saved grid reaches both policies."""
+    numpy code). The saved grid reaches both policies. The port's decision
+    is one array pass with a quake.maint.reject span for each rejection
+    candidate."""
     if host:
         monkeypatch.setenv("QUAKE_TPU_MAINT_HOST", "1")
     path, hot = aged_jax
@@ -476,10 +479,14 @@ def test_decisions_match_jax(aged_jax, monkeypatch, host):
         j.maintenance_policy.record_query_hits(hot)
         t.maintenance_policy.record_query_hits(hot)
     ntotal = t.ntotal()
-    wi, ti = j.maintenance(), t.maintenance()
+    wi = j.maintenance()
+    with device_trace(str(tmp_path)):
+        ti = t.maintenance()
     assert (ti.n_splits, ti.n_deletes) == (wi.n_splits, wi.n_deletes)
     assert ti.n_splits > 0 and ti.n_deletes > 0
     assert t.maintenance_policy.rejection_candidates > 0
+    assert (last_spans()["quake.maint.reject"]["calls"]
+            == t.maintenance_policy.rejection_candidates)
     assert (t.nlist(), t.ntotal()) == (j.nlist(), j.ntotal()) and t.ntotal() == ntotal
     assert _rows(t) == _rows(j)
     for a, b in ((t, j), (t.parent, j.parent)):

@@ -89,8 +89,13 @@ def test_maintenance_spans(tmp_path, policy, span):
         assert table["quake.maint.refine"]["calls"] == 1
     else:  # the orphans go into the one partition left, which grows
         assert table["quake.store.grow"]["calls"] >= 1
-    inner = sum(r["host_ms"] for n, r in table.items() if n.startswith("quake.maint."))
+    # The stages follow one another; quake.maint.reject nests in .decide.
+    inner = sum(r["host_ms"] for n, r in table.items()
+                if n.startswith("quake.maint.") and n != "quake.maint.reject")
     assert inner <= table["quake.maintenance"]["host_ms"] + 1e-6
+    if "quake.maint.reject" in table:
+        assert (table["quake.maint.reject"]["host_ms"]
+                <= table["quake.maint.decide"]["host_ms"] + 1e-6)
 
 
 def test_store_growth_span(tmp_path):
