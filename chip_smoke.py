@@ -2628,8 +2628,7 @@ def product_only_k1(torch, build, gp, gsize, qg, codes, normsT, kk, slot_mult, l
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on the product-only build of K1:\n{out}")
     name = "qk_grouped_scan_bf16" if codes.dtype == torch.bfloat16 else "qk_grouped_scan"
-    entry = getattr(ctypes.CDLL(so), name)
-    entry.argtypes, entry.restype = _ext._SIGNATURES[name], ctypes.c_int
+    entry = _ext.entry(ctypes.CDLL(so), name, product_only=True)
     (Gn, qt, Dd), (P, C, _) = qg.shape, codes.shape
     scratch = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.float32)
 
@@ -2649,8 +2648,7 @@ def empty_launch(torch, build, rows: int):
     from quake_tpu_torch import _ext
 
     _, so, _ = build
-    entry = ctypes.CDLL(so).qk_empty
-    entry.argtypes, entry.restype = (ctypes.c_int, ctypes.c_void_p), ctypes.c_int
+    entry = _ext.entry(ctypes.CDLL(so), "qk_empty", product_only=True)
     grid = -(-rows * 8 // 256)
     return lambda: _ext.check(entry(grid, _ext.stream_ptr(torch.device("cuda"))), "empty kernel")
 

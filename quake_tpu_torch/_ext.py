@@ -13,32 +13,37 @@ shared library under ``quake_tpu_torch/_build/``, named by a hash of the
 sources and flags, and loaded with ``ctypes``. Nothing is built or loaded at
 import, so the CPU-only tests import every module freely.
 
+The launchers' ctypes types are read from the ``extern "C"`` prototypes of
+the same sources (``signatures``), so a launcher changes in one file only.
+Each kernel has a launcher for each dtype, the bf16 one named with ``_bf16``
+(``qk_grouped_scan_bf16``, ``qk_exact_topk_bf16``); the ``*_body`` queries
+of K3-K9, sized_topk and multi_topk take the element size (``elem_bytes``:
+4 for f32, 2 for bf16).
+
 ``launches`` counts the launches of each kernel (K1 grouped_scan, and on
 the budget grid of the masked APS scans grouped_scan_budget, K2
 merge_positions, K3 flat_topk, K4 rowscale_topk, K5 rowscale_fold, K6
 exact_topk, K7 chunk_merge, K8 raw_scores, K9 packed_topk, and sized_topk and
 multi_topk; each but K2 on bf16 codes under its name with ``_bf16`` at the
-end). Each of those kernels has a launcher for each dtype, the bf16 one
-named with ``_bf16`` (``qk_grouped_scan_bf16``, ``qk_exact_topk_bf16``);
-the ``*_body`` queries of K3-K9, sized_topk and multi_topk take the element
-size (``elem_bytes``: 4 for f32, 2 for bf16). A wrapper calls
-``launched`` where it launches its kernel and
-nowhere else, so a run can show that a path went through the kernels; the
-count is taken under a lock, as threads may search one index at once, and
-in debug mode ``launched`` checks the kernel's floating outputs for NaNs
-(debug.py).
+end). Every wrapper launches through ``launch``, which counts the launch,
+so a run can show that a path went through the kernels; the count is taken
+under a lock, as threads may search one index at once, and in debug mode the
+kernel's floating outputs are checked for NaNs (debug.py).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 from pathlib import Path
+from types import MappingProxyType
 
 from quake_tpu_torch import debug
 
@@ -49,87 +54,60 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C entry -> argtypes; every launcher returns a cudaError_t as int, the
-# qk_grouped_scan_uses_mma and qk_*_body entries the body chosen.
-_SIGNATURES = {
-    # gp, gsize, qg, codes, normsT, out, Gn, qt, D, P, C, kk, slot_mult, levels, fold,
-    # stream
-    "qk_grouped_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P),
-    # the same on bf16 qg and codes
-    "qk_grouped_scan_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P),
-    # qt, D, fold, kk: whether K1's launcher runs the tensor-core body (f32,
-    # bf16 codes)
-    "qk_grouped_scan_uses_mma": (_I, _I, _I, _I),
-    "qk_grouped_scan_bf16_uses_mma": (_I, _I, _I, _I),
-    # qt, D, kk, chunked, elem_bytes: the body K4's launcher runs (2 tensor
-    # cores, 1 the persistent chunk-table body, 0 one block a group)
-    "qk_rowscale_topk_body": (_I, _I, _I, _I, _I),
-    # m_packed, out, B, pool, kfin, lane_mult, 1 / slot_mult, stream
-    "qk_merge_positions": (_P, _P, _I, _I, _I, _I, _F, _P),
-    # q, codes2d, bias, out, B, N, D, k, is_l2, slot_mult, levels, stream
-    "qk_flat_topk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
-    # N, D, elem_bytes: the body K3's launcher runs (2 tensor cores, scores
-    # kept in shared memory; 1 tensor cores, two passes; 0 CUDA cores)
-    "qk_flat_topk_body": (_I, _I, _I),
-    # gp, gsize, qsrc, row_off (both may be null), qg, codes, norms, out, stats,
-    # Gn, qt, D, P, C, kk, is_l2, slot_mult, levels, stream
-    "qk_rowscale_topk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                         _F, _P),
-    # the same without qsrc and row_off, with the fold width before the stream
-    "qk_rowscale_fold": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
-                         _P),
-    # qt, D, kk, elem_bytes, fold: the body K5's launcher runs (2 tensor
-    # cores, 0 CUDA cores)
-    "qk_rowscale_fold_body": (_I, _I, _I, _I, _I),
-    # gp, gsize, qg, codes, norms, ids (gsize and norms, or ids, may be null),
-    # out_s, out_i, Gn, qt, D, P, C, kk, is_l2, id_mode, stream
-    "qk_exact_topk": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # qt, D, kk, elem_bytes: the body K6's launcher runs in either mode (1
-    # tensor cores, 0 CUDA cores)
-    "qk_exact_topk_body": (_I, _I, _I, _I),
-    # gp, gsize, qg, codes, norms, out_s, out_i, Gn, qt, D, P, C, ct, kk, is_l2,
-    # slot_mult, levels, stream
-    "qk_chunk_merge": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
-    # qt, D, kk, elem_bytes: the body K7's launcher runs (1 tensor cores, 0
-    # CUDA cores)
-    "qk_chunk_merge_body": (_I, _I, _I, _I),
-    # gp, qg, codes, ids, out, Gn, qt, D, P, C, is_l2, stream
-    "qk_raw_scores": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # qt, D, elem_bytes: the body K8's launcher runs (1 tensor cores, 0 CUDA
-    # cores)
-    "qk_raw_scores_body": (_I, _I, _I),
-    # gp, qg, codes, ids, out, Gn, qt, D, P, C, kk, is_l2, slot_bits, stream
-    "qk_packed_topk": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # qt, D, kk, elem_bytes: the body K9's launcher runs (1 tensor cores, 0
-    # CUDA cores)
-    "qk_packed_topk_body": (_I, _I, _I, _I),
-    # gp, gsize, qg, codes, out_s, out_i, Gn, qt, D, P, C, kk, is_l2, stream
-    "qk_sized_topk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # qt, D, kk, elem_bytes: the body sized_topk's launcher runs (1 tensor
-    # cores, 0 CUDA cores)
-    "qk_sized_topk_body": (_I, _I, _I, _I),
-    # gp, qg, codes, ids, out_s, out_i, Gn, qt, D, P, C, kk, is_l2, gb, stream
-    "qk_multi_topk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # qt, D, kk, elem_bytes: the body multi_topk's launcher runs (1 tensor
-    # cores, 0 CUDA cores)
-    "qk_multi_topk_body": (_I, _I, _I, _I),
-}
 
-# Each launcher of K3-K9, sized_topk and multi_topk has a bf16 twin, its name
-# with _bf16, that takes the same arguments on bf16 qg and codes (K1's is
-# qk_grouped_scan_bf16, above).
-_SIGNATURES.update({f"qk_{k}_bf16": _SIGNATURES[f"qk_{k}"]
-                    for k in ("flat_topk", "rowscale_topk", "rowscale_fold", "exact_topk",
-                              "chunk_merge", "raw_scores", "packed_topk", "sized_topk",
-                              "multi_topk")})
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
 
-KERNELS = ("grouped_scan", "grouped_scan_bf16", "grouped_scan_budget",
-           "grouped_scan_budget_bf16", "merge_positions", "flat_topk", "rowscale_topk",
-           "rowscale_fold", "exact_topk", "chunk_merge", "raw_scores", "packed_topk", "sized_topk",
-           "multi_topk", "flat_topk_bf16", "rowscale_topk_bf16", "rowscale_fold_bf16",
-           "exact_topk_bf16", "chunk_merge_bf16", "raw_scores_bf16", "packed_topk_bf16",
-           "sized_topk_bf16", "multi_topk_bf16")
+
+# The C types of the launchers' prototypes. Every launcher returns a
+# cudaError_t as int, the qk_*_uses_mma and qk_*_body queries the body chosen.
+_CTYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
+           "float": ctypes.c_float, "const char*": ctypes.c_char_p}
+_EXTERN_C = re.compile(r'^extern "C" \{$(.*?)^\}  // extern "C"$', re.S | re.M)
+_PRODUCT_ONLY = re.compile(r"^#ifdef QK_PRODUCT_ONLY$.*?^#endif$", re.S | re.M)
+_PROTOTYPE = re.compile(r"^([A-Za-z_][\w ]*?\**) *(QK_ENTRY\()?(qk_\w+)\)?\(([^)]*)\)", re.M)
+
+
+def parse_signatures(source: str, product_only: bool = False) -> dict:
+    """C entry -> (restype, argtypes) of every prototype in the extern "C"
+    blocks of `source`. QK_ENTRY(qk_x) declares qk_x and its bf16 twin
+    qk_x_bf16; what stands under #ifdef QK_PRODUCT_ONLY belongs only to the
+    product-only build (a timing aid). A type outside _CTYPES raises."""
+    table = {}
+    for block in _EXTERN_C.findall(source):
+        if not product_only:
+            block = _PRODUCT_ONLY.sub("", block)
+        for ret, twin, name, params in _PROTOTYPE.findall(re.sub(r"//[^\n]*", "", block)):
+            decl = [ret] + [re.fullmatch(r"(.+?) *\w+", p.strip())[1]
+                            for p in params.split(",") if p.strip()]
+            decl = [re.sub(r" *\*", "*", " ".join(t.split())) for t in decl]
+            if any(t not in _CTYPES for t in decl):
+                raise ValueError(f"{name}: no ctypes type for {decl} in its prototype")
+            sig = (_CTYPES[decl[0]], tuple(_CTYPES[t] for t in decl[1:]))
+            table.update({name: sig, **({f"{name}_bf16": sig} if twin else {})})
+    return table
+
+
+@functools.cache
+def signatures(product_only: bool = False) -> MappingProxyType:
+    """parse_signatures of csrc/*.cu, the sources whose hash names the
+    library, so the types are those of the binary (read once a process)."""
+    return MappingProxyType(
+        parse_signatures("\n".join(src.read_text() for src in _sources()), product_only))
+
+
+def entry(handle: ctypes.CDLL, name: str, product_only: bool = False):
+    """C entry `name` of a loaded library, typed from its prototype (a
+    product-only build's entries with product_only)."""
+    fn = getattr(handle, name)
+    fn.restype, fn.argtypes = signatures(product_only)[name]
+    return fn
+
+
+# The launch counts: each launcher without qk_, and K1 on the budget grid.
+KERNELS = tuple(sorted({n[3:] for n in signatures()
+                        if not n.endswith(("_body", "_uses_mma")) and n != "qk_error_string"}
+                       | {"grouped_scan_budget", "grouped_scan_budget_bf16"}))
 launches = dict.fromkeys(KERNELS, 0)
 
 _lib = None
@@ -160,10 +138,6 @@ def _nvcc() -> str:
             return c
     raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels are "
                        "built at first use on a machine with the CUDA toolkit")
-
-
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
 
 
 def library_path() -> Path:
@@ -209,25 +183,34 @@ def build() -> Path:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call), every entry typed
+    from its prototype."""
     global _lib
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(handle, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            handle.qk_error_string.argtypes = (ctypes.c_int,)
-            handle.qk_error_string.restype = ctypes.c_char_p
+            for name in signatures():
+                entry(handle, name)
             _lib = handle
     return _lib
 
 
-def launcher(name: str):
-    """The C launcher of the kernel counted as `name` (a key of
-    `launches`): qk_`name`, the bf16 twin for a name that ends in _bf16."""
-    return getattr(lib(), f"qk_{name}")
+def launch(name: str, *args, count: str | None = None, outputs=()) -> None:
+    """Launch qk_`name` on the current stream of its first tensor's device:
+    a tensor argument passes as its data_ptr(), None as a null pointer, the
+    stream last. A count of arguments other than the prototype's raises
+    before the call (ctypes passes extra ones unchecked); a CUDA error that
+    the launcher reports raises. The launch counts under `count` (default
+    `name`), and in debug mode its floating `outputs` are held to the NaN
+    check."""
+    fn = getattr(lib(), f"qk_{name}")
+    if len(args) + 1 != len(fn.argtypes):
+        raise TypeError(f"qk_{name} takes {len(fn.argtypes) - 1} arguments and the stream, "
+                        f"not {len(args)}")
+    device = next(a.device for a in args if hasattr(a, "data_ptr"))
+    check(fn(*(a.data_ptr() if hasattr(a, "data_ptr") else a for a in args),
+             stream_ptr(device)), name)
+    launched(count or name, *outputs)
 
 
 def check(rc: int, what: str) -> None:

@@ -36,8 +36,8 @@ from quake_tpu_torch.kmeans import (balance_clusters, batched_two_means, kmeans_
                                      kmeans_np, soar_assign)
 from quake_tpu_torch.maintenance.latency_estimator import ListScanLatencyEstimator
 from quake_tpu_torch.maintenance.policy import MaintenancePolicy, maint_on_host
-from quake_tpu_torch.ops.grouped import grouped_scan_xla
-from quake_tpu_torch.ops.grouped_scan import QTS, grouped_scan_uses_mma
+from quake_tpu_torch.ops.grouped import QTS, grouped_scan_xla
+from quake_tpu_torch.ops.grouped_scan import grouped_scan_uses_mma
 from quake_tpu_torch.ops.scan import dedup_topk, scores_to_distances
 from quake_tpu_torch.parallel.mesh import make_mesh, shard_store_state
 from quake_tpu_torch.parallel.sharded import (sharded_aps_search, sharded_aps_search_oneshot,

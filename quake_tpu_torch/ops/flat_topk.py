@@ -26,7 +26,8 @@ from __future__ import annotations
 import torch
 
 from quake_tpu_torch import _ext
-from quake_tpu_torch.ops.grouped import launch_name, operand_bytes, round_query
+from quake_tpu_torch.ops.grouped import (check_operands, launch_name, operand_bytes, round_query,
+                                          use_kernel)
 from quake_tpu_torch.ops.grouped_scan import fold_rounds
 
 NEG_INF = float("-inf")
@@ -97,29 +98,17 @@ def flat_topk(codes2d, bias, q, k: int, metric: str, fold: int = 128):
     if fold != 128 or N % fold or N > MAX_N:
         raise ValueError(f"flat_topk needs fold == 128, N % 128 == 0 and N <= {MAX_N} "
                          f"(N={N}, fold={fold})")
-    if q.device.type == "cpu":
+    if not use_kernel("flat_topk", q):
         return flat_topk_plain(codes2d, bias, q, k, metric, fold)
-    if q.device.type != "cuda":
-        raise ValueError(f"flat_topk: unsupported device {q.device}")
     dtype = codes2d.dtype
-    for name, t, tdtype, shape in (("codes2d", codes2d, dtype, (N, D)),
-                                   ("bias", bias, torch.float32, (N,)), ("q", q, dtype, (B, D))):
-        if (t.device != q.device or t.dtype != tdtype
-                or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(f"flat_topk: {name} must be a contiguous {tdtype} {shape} "
-                             f"tensor on {q.device}")
-    if (flat_topk_body(N, D, dtype) != CUDA_CORE_BODY
-            and (q.data_ptr() % 16 or codes2d.data_ptr() % 16 or bias.data_ptr() % 8)):
-        raise ValueError("flat_topk: q and codes2d must start on a 16-byte boundary, bias "
-                         "on an 8-byte one")
+    check_operands("flat_topk", q.device, (("codes2d", codes2d, dtype, (N, D)),
+                                           ("bias", bias, torch.float32, (N,)),
+                                           ("q", q, dtype, (B, D))),
+                   mma=flat_topk_body(N, D, dtype) != CUDA_CORE_BODY)
     slot_mult, levels = _packed_params(N)
     out = torch.empty((B, k), device=q.device, dtype=torch.int32)
-    name = launch_name("flat_topk", dtype)
-    rc = _ext.launcher(name)(
-        q.data_ptr(), codes2d.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        B, N, D, k, int(metric == "l2"), slot_mult, float(levels), _ext.stream_ptr(q.device))
-    _ext.check(rc, name)
-    _ext.launched(name)
+    _ext.launch(launch_name("flat_topk", dtype), q, codes2d, bias, out, B, N, D, k,
+                int(metric == "l2"), slot_mult, float(levels))
     return out
 
 

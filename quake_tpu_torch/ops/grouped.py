@@ -259,11 +259,43 @@ def operand_bytes(dtype) -> int:
 
 def launch_name(kernel: str, dtype) -> str:
     """The launch count a kernel's launch goes to, and its launcher's name
-    without qk_ (_ext.launcher): bf16 launches run their own launcher and
+    without qk_ (_ext.launch): bf16 launches run their own launcher and
     count under their own name (`kernel`_bf16), as K1's grouped_scan_bf16
     does."""
     operand_bytes(dtype)
     return f"{kernel}_bf16" if dtype == torch.bfloat16 else kernel
+
+
+QTS = (64, 32, 16, 8)  # query-tile heights the kernels are built for
+# Operands whose start the tensor-core bodies' copies align: the query tiles
+# and codes to 16 bytes, the f32 norm and bias rows (read in pairs) to 8.
+ALIGN = {"qg": 16, "codes": 16, "q": 16, "codes2d": 16, "normsT": 8, "bias": 8}
+
+
+def use_kernel(name: str, t) -> bool:
+    """Whether a kernel's wrapper launches it on t's device (cuda) or runs
+    its plain version (cpu); any other device raises."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.device.type == "cuda"
+
+
+def check_operands(name: str, device, operands, qt: int | None = None,
+                   mma: bool = False) -> None:
+    """The tensor contract of a kernel's launch: each (name, tensor, dtype,
+    shape) of `operands` a contiguous tensor of that dtype and shape on
+    `device`, qt (for the kernels that take a query tile) one of QTS, and
+    where the tensor-core body runs (mma) the operands that ALIGN names on
+    its boundaries. ValueError names the first breach."""
+    if qt is not None and qt not in QTS:
+        raise ValueError(f"{name}: qt must be 8, 16, 32 or 64 (qt={qt})")
+    for tname, t, dtype, shape in operands:
+        if (t is None or t.device != device or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: {tname} must be a contiguous {dtype} {shape} tensor on "
+                             f"{device}")
+        if mma and t.data_ptr() % ALIGN.get(tname, 1):
+            raise ValueError(f"{name}: {tname} must start on a {ALIGN[tname]}-byte boundary")
 
 
 def merge_groups(g_scores, g_ids, pair_group, pair_slot, pids, k: int, kk: int,

@@ -33,8 +33,8 @@ from __future__ import annotations
 import torch
 
 from quake_tpu_torch import _ext
-from quake_tpu_torch.ops.grouped import (build_chunk_groups, build_groups, launch_name,
-                                          operand_bytes, round_query)
+from quake_tpu_torch.ops.grouped import (build_chunk_groups, build_groups, check_operands,
+                                          launch_name, operand_bytes, round_query, use_kernel)
 from quake_tpu_torch.ops.grouped_family import (MIN_RANGE, check_refs, pair_take, rowscale_scan,
                                                 rowscale_search, topk_cap)
 from quake_tpu_torch.ops.grouped_scan import (FOLD, SMEM_LIMIT, packed_params, pad_groups,
@@ -153,13 +153,9 @@ def chunk_merge(gp, group_size, qg, codes, norms, kk: int, ct: int, slot_mult: i
         raise ValueError(f"chunk_merge needs C % ct == 0 (C={C}, ct={ct})")
     if kk > ct:
         raise ValueError(f"chunk_merge needs kk <= ct (kk={kk}, ct={ct})")
-    if qg.device.type == "cpu":
+    if not use_kernel("chunk_merge", qg):
         return chunk_merge_plain(gp, group_size, qg, codes, norms, kk, ct, slot_mult, levels,
                                  metric)
-    if qg.device.type != "cuda":
-        raise ValueError(f"chunk_merge: unsupported device {qg.device}")
-    if qt not in (8, 16, 32, 64):
-        raise ValueError(f"chunk_merge: qt must be 8, 16, 32 or 64 (qt={qt})")
     dtype = codes.dtype
     Dp = -(-D // 4) * 4
     body = chunk_merge_body(qt, D, kk, dtype)
@@ -168,27 +164,17 @@ def chunk_merge(gp, group_size, qg, codes, norms, kk: int, ct: int, slot_mult: i
         raise ValueError(f"chunk_merge: D={D}, qt={qt}, kk={kk} need more shared memory than "
                          "a block has (kernel K7 keeps round_up(kk, 32) + 128 candidates and "
                          "three lists of kk (score, slot) pairs per row)")
-    for name, t, want, shape in (
-            ("gp", gp, torch.int32, (Gn,)),
-            ("group_size", group_size, torch.int32, (Gn,)),
-            ("qg", qg, dtype, (Gn, qt, D)),
-            ("codes", codes, dtype, (P, C, D)),
-            ("norms", norms, torch.float32, (P, C))):
-        if (t.device != qg.device or t.dtype != want or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(f"chunk_merge: {name} must be a contiguous "
-                             f"{want} {shape} tensor on {qg.device}")
-    if body == MMA_BODY and (qg.data_ptr() % 16 or codes.data_ptr() % 16):
-        raise ValueError("chunk_merge: qg and codes must start on a 16-byte boundary")
+    check_operands("chunk_merge", qg.device, (
+        ("gp", gp, torch.int32, (Gn,)),
+        ("group_size", group_size, torch.int32, (Gn,)),
+        ("qg", qg, dtype, (Gn, qt, D)),
+        ("codes", codes, dtype, (P, C, D)),
+        ("norms", norms, torch.float32, (P, C))), qt, body == MMA_BODY)
     out_s = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.float32)
     out_i = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.int32)
-    name = launch_name("chunk_merge", dtype)
-    rc = _ext.launcher(name)(
-        gp.data_ptr(), group_size.data_ptr(), qg.data_ptr(), codes.data_ptr(),
-        norms.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), Gn, qt, D, P, C, ct, kk,
-        int(metric == "l2"), float(slot_mult), float(levels), _ext.stream_ptr(qg.device))
-    _ext.check(rc, name)
-    _ext.launched(name, out_s)
+    _ext.launch(launch_name("chunk_merge", dtype), gp, group_size, qg, codes, norms, out_s, out_i,
+                Gn, qt, D, P, C, ct, kk, int(metric == "l2"), float(slot_mult), float(levels),
+                outputs=(out_s,))
     return out_s, out_i
 
 

@@ -28,8 +28,8 @@ from __future__ import annotations
 import torch
 
 from quake_tpu_torch import _ext
-from quake_tpu_torch.ops.grouped import (build_groups, launch_name, merge_groups, operand_bytes,
-                                          round_query)
+from quake_tpu_torch.ops.grouped import (build_groups, check_operands, launch_name, merge_groups,
+                                          operand_bytes, round_query, use_kernel)
 from quake_tpu_torch.ops.grouped_family import topk_cap
 from quake_tpu_torch.ops.grouped_scan import FOLD, SMEM_LIMIT
 from quake_tpu_torch.ops.scan import NEG_INF
@@ -133,12 +133,8 @@ def exact_scan(gp, qg, codes, kk: int, metric: str, mode: str, group_size=None, 
     P, C, _ = codes.shape
     if mode not in MODES:
         raise ValueError(f"exact_scan: mode must be 'slot' or 'id', got {mode!r}")
-    if qg.device.type == "cpu":
+    if not use_kernel("exact_scan", qg):
         return exact_scan_plain(gp, qg, codes, kk, metric, mode, group_size, norms, ids)
-    if qg.device.type != "cuda":
-        raise ValueError(f"exact_scan: unsupported device {qg.device}")
-    if qt not in (8, 16, 32, 64):
-        raise ValueError(f"exact_scan: qt must be 8, 16, 32 or 64 (qt={qt})")
     dtype = codes.dtype
     if not exact_topk_serves(qt, D, kk, dtype):
         raise ValueError(f"exact_scan: D={D}, qt={qt}, kk={kk} need more shared memory than "
@@ -146,27 +142,16 @@ def exact_scan(gp, qg, codes, kk: int, metric: str, mode: str, group_size=None, 
                          "tensor cores, round_up(kk, 32) + 128 on the CUDA cores)")
     aux = (("group_size", group_size, torch.int32, (Gn,)), ("norms", norms, torch.float32, (P, C))
            ) if mode == "slot" else (("ids", ids, torch.int32, (P, C)),)
-    for name, t, want, shape in (("gp", gp, torch.int32, (Gn,)),
-                                  ("qg", qg, dtype, (Gn, qt, D)),
-                                  ("codes", codes, dtype, (P, C, D))) + aux:
-        if (t is None or t.device != qg.device or t.dtype != want or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(f"exact_scan: {name} must be a contiguous {want} {shape} "
-                             f"tensor on {qg.device}")
-    if exact_topk_body(qt, D, kk, dtype) == MMA_BODY and (qg.data_ptr() % 16
-                                                          or codes.data_ptr() % 16):
-        raise ValueError("exact_scan: qg and codes must start on a 16-byte boundary")
+    check_operands("exact_scan", qg.device, (("gp", gp, torch.int32, (Gn,)),
+                                             ("qg", qg, dtype, (Gn, qt, D)),
+                                             ("codes", codes, dtype, (P, C, D))) + aux,
+                   qt, exact_topk_body(qt, D, kk, dtype) == MMA_BODY)
     out_s = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.float32)
     out_i = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.int32)
-    name = launch_name("exact_topk", dtype)
-    rc = _ext.launcher(name)(
-        gp.data_ptr(), group_size.data_ptr() if mode == "slot" else None, qg.data_ptr(),
-        codes.data_ptr(), norms.data_ptr() if mode == "slot" else None,
-        ids.data_ptr() if mode == "id" else None, out_s.data_ptr(), out_i.data_ptr(),
-        Gn, qt, D, P, C, kk, int(metric == "l2"), int(mode == "id"),
-        _ext.stream_ptr(qg.device))
-    _ext.check(rc, name)
-    _ext.launched(name, out_s)
+    slot = mode == "slot"
+    _ext.launch(launch_name("exact_topk", dtype), gp, group_size if slot else None, qg, codes,
+                norms if slot else None, None if slot else ids, out_s, out_i, Gn, qt, D, P, C, kk,
+                int(metric == "l2"), int(not slot), outputs=(out_s,))
     return out_s, out_i
 
 

@@ -33,7 +33,8 @@ from __future__ import annotations
 import torch
 
 from quake_tpu_torch import _ext
-from quake_tpu_torch.ops.grouped import build_groups, launch_name, operand_bytes, round_query
+from quake_tpu_torch.ops.grouped import (build_groups, check_operands, launch_name, operand_bytes,
+                                          round_query, use_kernel)
 from quake_tpu_torch.ops.grouped_scan import (FOLD, SMEM_LIMIT, check_fold, fold_list_len,
                                               fold_rounds, global_scale, grouped_scan_kernel,
                                               packed_params, pad_groups, pool_tail,
@@ -193,14 +194,11 @@ def rowscale_scan(gp, group_size, qg, codes, norms, kk: int, slot_mult: int, lev
                          "and ct > 0")
     if not chunked and G != Gn:
         raise ValueError(f"rowscale_scan: qg must hold one tile per group ({G} != {Gn})")
-    if qg.device.type == "cpu":
+    if not use_kernel("rowscale_scan", qg):
         return rowscale_scan_plain(gp, group_size, qg, codes, norms, kk, slot_mult,
                                    levels, metric, select, qsrc, row_off, ct, fold=fold)
-    if qg.device.type != "cuda":
-        raise ValueError(f"rowscale_scan: unsupported device {qg.device}")
-    if qt not in (8, 16, 32, 64):
-        raise ValueError(f"rowscale_scan: qt must be 8, 16, 32 or 64 (qt={qt})")
     dtype = codes.dtype
+    name = launch_name("rowscale_topk" if select == "topk" else "rowscale_fold", dtype)
     Dp = -(-D // 4) * 4
     cap = topk_cap(kk) if select == "topk" else fold_list_len(fold, kk)
     body = (rowscale_topk_body(qt, D, kk, chunked, dtype) if select == "topk"
@@ -209,35 +207,22 @@ def rowscale_scan(gp, group_size, qg, codes, norms, kk: int, slot_mult: int, lev
         raise ValueError(f"rowscale_scan: D={D}, qt={qt}, kk={kk} need more shared memory "
                          "than a block has (kernel K4 keeps round_up(kk, 32) + 128 "
                          "candidates per row, K5 at a fold of 128 m, m > 1, kk)")
-    for name, t, want, shape in (
-            ("gp", gp, torch.int32, (Gn,)),
-            ("group_size", group_size, torch.int32, (Gn,)),
-            ("qg", qg, dtype, (G, qt, D)),
-            ("codes", codes, dtype, (P, C, D)),
-            ("norms", norms, torch.float32, (P, C))) + (
-            (("qsrc", qsrc, torch.int32, (Gn,)), ("row_off", row_off, torch.int32, (Gn,)))
-            if chunked else ()):
-        if (t.device != qg.device or t.dtype != want or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(f"rowscale_scan: {name} must be a contiguous "
-                             f"{want} {shape} tensor on {qg.device}")
-    if body == MMA_BODY and (qg.data_ptr() % 16 or codes.data_ptr() % 16):
-        raise ValueError("rowscale_scan: qg and codes must start on a 16-byte boundary")
+    check_operands("rowscale_scan", qg.device, (
+        ("gp", gp, torch.int32, (Gn,)),
+        ("group_size", group_size, torch.int32, (Gn,)),
+        ("qg", qg, dtype, (G, qt, D)),
+        ("codes", codes, dtype, (P, C, D)),
+        ("norms", norms, torch.float32, (P, C))) + (
+        (("qsrc", qsrc, torch.int32, (Gn,)), ("row_off", row_off, torch.int32, (Gn,)))
+        if chunked else ()), qt, body == MMA_BODY)
     out = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.float32)
     stats = torch.empty((Gn, qt, 2), device=qg.device, dtype=torch.float32)
-    ptrs = (qg.data_ptr(), codes.data_ptr(), norms.data_ptr(), out.data_ptr(), stats.data_ptr())
-    tail = (C, kk, int(metric == "l2"), float(slot_mult), float(levels),
-            _ext.stream_ptr(qg.device))
-    name = launch_name("rowscale_topk" if select == "topk" else "rowscale_fold", dtype)
+    args = (qg, codes, norms, out, stats, Gn, qt, D, P, C, kk, int(metric == "l2"),
+            float(slot_mult), float(levels))
     if select == "topk":
-        rc = _ext.launcher(name)(
-            gp.data_ptr(), group_size.data_ptr(), qsrc.data_ptr() if chunked else None,
-            row_off.data_ptr() if chunked else None, *ptrs, Gn, qt, D, P, *tail)
+        _ext.launch(name, gp, group_size, qsrc, row_off, *args, outputs=(out, stats))
     else:
-        rc = _ext.launcher(name)(gp.data_ptr(), group_size.data_ptr(), *ptrs, Gn, qt, D, P,
-                                 *tail[:-1], int(fold), tail[-1])
-    _ext.check(rc, name)
-    _ext.launched(name, out, stats)
+        _ext.launch(name, gp, group_size, *args, int(fold), outputs=(out, stats))
     return out, stats
 
 

@@ -42,13 +42,13 @@ import torch
 
 from quake_tpu_torch import _ext
 from quake_tpu_torch.ops.grouped import (budget_layout, build_groups_budget,
-                                          build_groups_scatter, group_layout)
+                                          build_groups_scatter, check_operands, group_layout,
+                                          launch_name, use_kernel)
 from quake_tpu_torch.ops.scan import NEG_INF, duplicate_mask, topk_stable
 from quake_tpu_torch.profiling import annotate
 
 FOLD = 128
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
-QTS = (64, 32, 16, 8)  # query-tile heights kernel K1 is built for
 
 
 def fold_served(fold: int) -> bool:
@@ -225,41 +225,24 @@ def grouped_scan_kernel(gp, group_size, qg, codes, normsT, kk: int,
     Gn, qt, D = qg.shape
     P, C, _ = codes.shape
     check_fold("grouped_scan_kernel", fold, C)
-    if qg.device.type == "cpu":
+    if not use_kernel("grouped_scan_kernel", qg):
         return grouped_scan_plain(gp, group_size, qg, codes, normsT, kk,
                                   slot_mult, levels, fold)
-    if qg.device.type != "cuda":
-        raise ValueError(f"grouped_scan_kernel: unsupported device {qg.device}")
-    if qt not in (8, 16, 32, 64):
-        raise ValueError(f"grouped_scan_kernel: qt must be 8, 16, 32 or 64 (qt={qt})")
     cdt = codes.dtype
-    if cdt not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"grouped_scan_kernel: codes must be float32 or bfloat16, not {cdt}")
     mma = grouped_scan_uses_mma(qt, D, cdt, fold, kk)
     if not mma and chunk_dots_smem(qt, D, fold_list_len(fold, kk)) > SMEM_LIMIT:
         raise ValueError(f"grouped_scan_kernel: qt={qt}, D={D}, kk={kk} at fold={fold} need "
                          "more shared memory than a block has (kk fold-list values a row)")
-    for name, t, dtype, shape in (
-            ("gp", gp, torch.int32, (Gn,)),
-            ("group_size", group_size, torch.int32, (Gn,)),
-            ("qg", qg, cdt, (Gn, qt, D)),
-            ("codes", codes, cdt, (P, C, D)),
-            ("normsT", normsT, torch.float32, (P, C))):
-        if (t.device != qg.device or t.dtype != dtype or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(f"grouped_scan_kernel: {name} must be a contiguous "
-                             f"{dtype} {shape} tensor on {qg.device}")
-    if mma and (qg.data_ptr() % 16 or codes.data_ptr() % 16 or normsT.data_ptr() % 8):
-        raise ValueError("grouped_scan_kernel: qg and codes must start on a 16-byte boundary, "
-                         "normsT on an 8-byte one")
+    check_operands("grouped_scan_kernel", qg.device, (
+        ("gp", gp, torch.int32, (Gn,)),
+        ("group_size", group_size, torch.int32, (Gn,)),
+        ("qg", qg, cdt, (Gn, qt, D)),
+        ("codes", codes, cdt, (P, C, D)),
+        ("normsT", normsT, torch.float32, (P, C))), qt, mma)
     out = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.float32)
-    name = "grouped_scan_bf16" if cdt == torch.bfloat16 else "grouped_scan"
-    rc = getattr(_ext.lib(), f"qk_{name}")(
-        gp.data_ptr(), group_size.data_ptr(), qg.data_ptr(), codes.data_ptr(),
-        normsT.data_ptr(), out.data_ptr(), Gn, qt, D, P, C, kk,
-        float(slot_mult), float(levels), int(fold), _ext.stream_ptr(qg.device))
-    _ext.check(rc, name)
-    _ext.launched(name.replace("grouped_scan", "grouped_scan_budget") if budget else name, out)
+    _ext.launch(launch_name("grouped_scan", cdt), gp, group_size, qg, codes, normsT, out,
+                Gn, qt, D, P, C, kk, float(slot_mult), float(levels), int(fold),
+                count=launch_name("grouped_scan_budget", cdt) if budget else None, outputs=(out,))
     return out
 
 
@@ -312,20 +295,15 @@ def merge_positions(m_packed, kfin: int, slot_mult: int, fold: int = FOLD):
     B, pool = m_packed.shape
     if fold != FOLD:
         raise ValueError(f"merge_positions needs fold == 128 (fold={fold})")
-    if m_packed.device.type == "cpu":
+    if not use_kernel("merge_positions", m_packed):
         return merge_positions_plain(m_packed, kfin, slot_mult, fold)
-    if m_packed.device.type != "cuda":
-        raise ValueError(f"merge_positions: unsupported device {m_packed.device}")
-    if m_packed.dtype != torch.float32 or not m_packed.is_contiguous():
-        raise ValueError("merge_positions: m_packed must be a contiguous f32 tensor")
+    check_operands("merge_positions", m_packed.device,
+                   (("m_packed", m_packed, torch.float32, (B, pool)),))
     if slot_mult < 1 or slot_mult & (slot_mult - 1):
         raise ValueError(f"merge_positions: slot_mult must be a power of two ({slot_mult})")
     out = torch.empty((B, kfin), device=m_packed.device, dtype=torch.int32)
-    rc = _ext.lib().qk_merge_positions(m_packed.data_ptr(), out.data_ptr(), B, pool, kfin,
-                                       pool_lane_mult(pool), 1.0 / slot_mult,
-                                       _ext.stream_ptr(m_packed.device))
-    _ext.check(rc, "merge_positions")
-    _ext.launched("merge_positions")
+    _ext.launch("merge_positions", m_packed, out, B, pool, kfin, pool_lane_mult(pool),
+                1.0 / slot_mult)
     return out
 
 

@@ -39,8 +39,8 @@ from __future__ import annotations
 import torch
 
 from quake_tpu_torch import _ext
-from quake_tpu_torch.ops.grouped import (build_groups, launch_name, merge_groups, operand_bytes,
-                                          round_query)
+from quake_tpu_torch.ops.grouped import (build_groups, check_operands, launch_name, merge_groups,
+                                          operand_bytes, round_query, use_kernel)
 from quake_tpu_torch.ops.grouped_family import check_refs, pair_take, topk_cap
 from quake_tpu_torch.ops.grouped_scan import FOLD, SMEM_LIMIT
 from quake_tpu_torch.ops.scan import NEG_INF, topk_stable
@@ -70,19 +70,18 @@ def _live_chunks(live, chunk: int):
             yield g0, alive
 
 
-def _check(name: str, qg, qt: int, tensors, smem_floats: int, what: str) -> None:
-    """Shared argument checks of the CUDA wrappers."""
-    if qg.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {qg.device}")
-    if qt not in (8, 16, 32, 64):
-        raise ValueError(f"{name}: qt must be 8, 16, 32 or 64 (qt={qt})")
-    if smem_floats * 4 > SMEM_LIMIT:
+def _check_smem(name: str, floats: int, what: str) -> None:
+    """ValueError where a CUDA-core body needs more shared memory than a
+    block has."""
+    if floats * 4 > SMEM_LIMIT:
         raise ValueError(f"{name}: {what} need more shared memory than a block has")
-    for tname, t, dtype, shape in tensors:
-        if (t is None or t.device != qg.device or t.dtype != dtype or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(f"{name}: {tname} must be a contiguous {dtype} {shape} tensor on "
-                             f"{qg.device}")
+
+
+def _id_operands(gp, qg, codes, ids):
+    """check_operands' table of the kernels that take ids (K8, K9, multi_topk)."""
+    (Gn, qt, D), (P, C, _) = qg.shape, codes.shape
+    return (("gp", gp, torch.int32, (Gn,)), ("qg", qg, codes.dtype, (Gn, qt, D)),
+            ("codes", codes, codes.dtype, (P, C, D)), ("ids", ids, torch.int32, (P, C)))
 
 
 def _base_floats(qt: int, D: int) -> int:
@@ -121,12 +120,6 @@ def raw_scores_body(qt: int, D: int, dtype=torch.float32) -> int:
     return int(_ext.lib().qk_raw_scores_body(qt, D, operand_bytes(dtype)))
 
 
-def _mma_aligned(name: str, qg, codes) -> None:
-    """The tensor-core body's copies need qg and codes on 16-byte boundaries."""
-    if qg.data_ptr() % 16 or codes.data_ptr() % 16:
-        raise ValueError(f"{name}: qg and codes must start on a 16-byte boundary")
-
-
 def raw_scores(gp, qg, codes, ids, metric: str):
     """Kernel K8 (replaces pallas_grouped.py::_scores_kernel).
 
@@ -143,23 +136,15 @@ def raw_scores(gp, qg, codes, ids, metric: str):
     body. Shapes that neither fits raise."""
     Gn, qt, D = qg.shape
     P, C, _ = codes.shape
-    if qg.device.type == "cpu":
+    if not use_kernel("raw_scores", qg):
         return raw_scores_plain(gp, qg, codes, ids, metric)
     dtype = codes.dtype
-    body = raw_scores_body(qt, D, dtype) if qg.device.type == "cuda" else CUDA_CORE_BODY
-    _check("raw_scores", qg, qt,
-           (("gp", gp, torch.int32, (Gn,)), ("qg", qg, dtype, (Gn, qt, D)),
-            ("codes", codes, dtype, (P, C, D)), ("ids", ids, torch.int32, (P, C))),
-           0 if body == MMA_BODY else _base_floats(qt, D), f"D={D}, qt={qt}")
-    if body == MMA_BODY:
-        _mma_aligned("raw_scores", qg, codes)
+    mma = raw_scores_body(qt, D, dtype) == MMA_BODY
+    _check_smem("raw_scores", 0 if mma else _base_floats(qt, D), f"D={D}, qt={qt}")
+    check_operands("raw_scores", qg.device, _id_operands(gp, qg, codes, ids), qt, mma)
     out = torch.empty((Gn, qt, C), device=qg.device, dtype=torch.float32)
-    name = launch_name("raw_scores", dtype)
-    rc = _ext.launcher(name)(gp.data_ptr(), qg.data_ptr(), codes.data_ptr(), ids.data_ptr(),
-                             out.data_ptr(), Gn, qt, D, P, C, int(metric == "l2"),
-                             _ext.stream_ptr(qg.device))
-    _ext.check(rc, name)
-    _ext.launched(name, out)
+    _ext.launch(launch_name("raw_scores", dtype), gp, qg, codes, ids, out, Gn, qt, D, P, C,
+                int(metric == "l2"), outputs=(out,))
     return out
 
 
@@ -309,25 +294,19 @@ def sized_topk(gp, group_size, qg, codes, kk: int, metric: str, ct: int = 256):
     P, C, _ = codes.shape
     if ct <= 0:
         raise ValueError(f"sized_topk: ct must be positive (ct={ct})")
-    if qg.device.type == "cpu":
+    if not use_kernel("sized_topk", qg):
         return sized_topk_plain(gp, group_size, qg, codes, kk, metric, ct)
     dtype = codes.dtype
-    body = sized_topk_body(qt, D, kk, dtype) if qg.device.type == "cuda" else CUDA_CORE_BODY
-    _check("sized_topk", qg, qt,
-           (("gp", gp, torch.int32, (Gn,)), ("group_size", group_size, torch.int32, (Gn,)),
-            ("qg", qg, dtype, (Gn, qt, D)), ("codes", codes, dtype, (P, C, D))),
-           0 if body == MMA_BODY else _base_floats(qt, D) + 2 * qt * topk_cap(kk),
-           f"D={D}, qt={qt}, kk={kk} (round_up(kk, 32) + 128 (score, slot) pairs per row)")
-    if body == MMA_BODY:
-        _mma_aligned("sized_topk", qg, codes)
+    mma = sized_topk_body(qt, D, kk, dtype) == MMA_BODY
+    _check_smem("sized_topk", 0 if mma else _base_floats(qt, D) + 2 * qt * topk_cap(kk),
+                f"D={D}, qt={qt}, kk={kk} (round_up(kk, 32) + 128 (score, slot) pairs per row)")
+    check_operands("sized_topk", qg.device, (
+        ("gp", gp, torch.int32, (Gn,)), ("group_size", group_size, torch.int32, (Gn,)),
+        ("qg", qg, dtype, (Gn, qt, D)), ("codes", codes, dtype, (P, C, D))), qt, mma)
     out_s = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.float32)
     out_i = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.int32)
-    name = launch_name("sized_topk", dtype)
-    rc = _ext.launcher(name)(gp.data_ptr(), group_size.data_ptr(), qg.data_ptr(),
-                             codes.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), Gn, qt, D, P,
-                             C, kk, int(metric == "l2"), _ext.stream_ptr(qg.device))
-    _ext.check(rc, name)
-    _ext.launched(name, out_s)
+    _ext.launch(launch_name("sized_topk", dtype), gp, group_size, qg, codes, out_s, out_i,
+                Gn, qt, D, P, C, kk, int(metric == "l2"), outputs=(out_s,))
     return out_s, out_i
 
 
@@ -435,24 +414,16 @@ def packed_topk(gp, qg, codes, ids, kk: int, metric: str):
     candidates a row). Shapes that neither fits raise."""
     Gn, qt, D = qg.shape
     P, C, _ = codes.shape
-    if qg.device.type == "cpu":
+    if not use_kernel("packed_topk", qg):
         return packed_topk_plain(gp, qg, codes, ids, kk, metric)
     dtype = codes.dtype
-    body = packed_topk_body(qt, D, kk, dtype) if qg.device.type == "cuda" else CUDA_CORE_BODY
-    _check("packed_topk", qg, qt,
-           (("gp", gp, torch.int32, (Gn,)), ("qg", qg, dtype, (Gn, qt, D)),
-            ("codes", codes, dtype, (P, C, D)), ("ids", ids, torch.int32, (P, C))),
-           0 if body == MMA_BODY else _packed_floats(qt, D, kk),
-           f"D={D}, qt={qt}, kk={kk} (round_up(kk, 32) + 128 candidates per row)")
-    if body == MMA_BODY:
-        _mma_aligned("packed_topk", qg, codes)
+    mma = packed_topk_body(qt, D, kk, dtype) == MMA_BODY
+    _check_smem("packed_topk", 0 if mma else _packed_floats(qt, D, kk),
+                f"D={D}, qt={qt}, kk={kk} (round_up(kk, 32) + 128 candidates per row)")
+    check_operands("packed_topk", qg.device, _id_operands(gp, qg, codes, ids), qt, mma)
     out = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.int32)
-    name = launch_name("packed_topk", dtype)
-    rc = _ext.launcher(name)(gp.data_ptr(), qg.data_ptr(), codes.data_ptr(), ids.data_ptr(),
-                             out.data_ptr(), Gn, qt, D, P, C, kk, int(metric == "l2"),
-                             slot_bits_of(C), _ext.stream_ptr(qg.device))
-    _ext.check(rc, name)
-    _ext.launched(name)
+    _ext.launch(launch_name("packed_topk", dtype), gp, qg, codes, ids, out, Gn, qt, D, P, C, kk,
+                int(metric == "l2"), slot_bits_of(C))
     return out
 
 
@@ -591,25 +562,17 @@ def multi_topk(gp, qg, codes, ids, kk: int, metric: str, gb: int = 8):
     if gb <= 0 or Gn % gb:
         raise ValueError(f"multi_topk: the group count must be a multiple of gb "
                          f"(Gn={Gn}, gb={gb})")
-    if qg.device.type == "cpu":
+    if not use_kernel("multi_topk", qg):
         return multi_topk_plain(gp, qg, codes, ids, kk, metric)
     dtype = codes.dtype
-    body = multi_topk_body(qt, D, kk, dtype) if qg.device.type == "cuda" else CUDA_CORE_BODY
-    _check("multi_topk", qg, qt,
-           (("gp", gp, torch.int32, (Gn,)), ("qg", qg, dtype, (Gn, qt, D)),
-            ("codes", codes, dtype, (P, C, D)), ("ids", ids, torch.int32, (P, C))),
-           0 if body == MMA_BODY else _multi_floats(qt, D, kk),
-           f"D={D}, qt={qt}, kk={kk} (round_up(kk, 32) + 128 (score, slot) pairs per row)")
-    if body == MMA_BODY:
-        _mma_aligned("multi_topk", qg, codes)
+    mma = multi_topk_body(qt, D, kk, dtype) == MMA_BODY
+    _check_smem("multi_topk", 0 if mma else _multi_floats(qt, D, kk),
+                f"D={D}, qt={qt}, kk={kk} (round_up(kk, 32) + 128 (score, slot) pairs per row)")
+    check_operands("multi_topk", qg.device, _id_operands(gp, qg, codes, ids), qt, mma)
     out_s = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.float32)
     out_i = torch.empty((Gn, qt, kk), device=qg.device, dtype=torch.int32)
-    name = launch_name("multi_topk", dtype)
-    rc = _ext.launcher(name)(gp.data_ptr(), qg.data_ptr(), codes.data_ptr(), ids.data_ptr(),
-                             out_s.data_ptr(), out_i.data_ptr(), Gn, qt, D, P, C, kk,
-                             int(metric == "l2"), gb, _ext.stream_ptr(qg.device))
-    _ext.check(rc, name)
-    _ext.launched(name, out_s)
+    _ext.launch(launch_name("multi_topk", dtype), gp, qg, codes, ids, out_s, out_i,
+                Gn, qt, D, P, C, kk, int(metric == "l2"), gb, outputs=(out_s,))
     return out_s, out_i
 
 

@@ -52,7 +52,8 @@ from quake_tpu_torch import IndexBuildParams, QuakeIndex, _ext  # noqa: E402
 from quake_tpu_torch.coordinator import rank_parents  # noqa: E402
 from quake_tpu_torch.ops.grouped import build_groups  # noqa: E402
 from quake_tpu_torch.ops.grouped_exact import exact_scan, exact_scan_plain  # noqa: E402
-from quake_tpu_torch.ops.grouped_scan import grouped_scan_kernel, grouped_scan_plain  # noqa: E402
+from quake_tpu_torch.ops.grouped_scan import (FOLD, grouped_scan_kernel,  # noqa: E402
+                                              grouped_scan_plain)
 from quake_tpu_torch.ops.grouped_variants import (raw_scores, raw_scores_plain,  # noqa: E402
                                                   sized_topk, sized_topk_plain)
 from quake_tpu_torch.ops.split_product import bmm_as_split_product  # noqa: E402
@@ -195,14 +196,13 @@ def k1_bf16_errors(x, queries, dev, builds):
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on the {n}-step build:\n{log}")
-        entry = ctypes.CDLL(so).qk_grouped_scan_bf16
-        entry.argtypes, entry.restype = _ext._SIGNATURES["qk_grouped_scan_bf16"], ctypes.c_int
+        entry = _ext.entry(ctypes.CDLL(so), "qk_grouped_scan_bf16")
         out = torch.empty((Gn, qt, kk), device=dev, dtype=torch.float32)
 
         def launch():
             _ext.check(entry(gp.data_ptr(), gsize.data_ptr(), qg.data_ptr(), st.codes.data_ptr(),
                              normsT.data_ptr(), out.data_ptr(), Gn, qt, D, P, C, kk,
-                             float(slot_mult), float(levels), _ext.stream_ptr(dev)),
+                             float(slot_mult), float(levels), FOLD, _ext.stream_ptr(dev)),
                        f"grouped_scan_bf16 ({n} steps)")
 
         launch()

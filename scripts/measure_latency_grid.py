@@ -68,7 +68,8 @@ def measure(torch, d: int) -> tuple:
     the launches and K1's query-tile height."""
     from quake_tpu_torch import _ext
     from quake_tpu_torch.maintenance.latency_estimator import ListScanLatencyEstimator, monotone
-    from quake_tpu_torch.ops.grouped_scan import QTS, grouped_scan_uses_mma
+    from quake_tpu_torch.ops.grouped import QTS
+    from quake_tpu_torch.ops.grouped_scan import grouped_scan_uses_mma
 
     qt = next((t for t in QTS if t <= 32 and grouped_scan_uses_mma(t, d)), 32)
     est = ListScanLatencyEstimator(d, packaged=False)
