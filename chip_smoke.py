@@ -78,9 +78,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
              index picks (32), K3 streaming the depth, K2; ids against the
              exact scan of the probed partitions (overlap >= 0.99).
 10. kernels — each kernel against its plain version again, at the shapes the
-             main path (K1-K3; K3 also with 16,384 corpus rows as its
-             buffer; K2 beside an empty kernel on its grid, the launch
-             floor), the by-name paths (K4 through v3p, v3pN,
+             main path (K1-K3 and the grouping kernels; K3 also with 16,384
+             corpus rows as its buffer; K2 beside an empty kernel on its
+             grid, the launch floor), the by-name paths (K4 through v3p, v3pN,
              v6 and v4, K5 through v7, K1 through v8, K6 through v3 and v2,
              K7 through v5) and the direct paths (K8, K9, sized_topk,
              multi_topk) gave it, with times and bounds (K1, K3, K4 on whole
@@ -357,6 +357,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
              shapes (K1's and K5's f32 tensor-core and CUDA-core bodies and
              their bf16 bodies, K1 also on the budget grid).
 
+The grouping kernels (group_count, group_scan, group_scatter, group_tables:
+csrc/group_tables.cu, one call of ops/grouped_scan.py::group_tables_kernel)
+build K1's tables on every v10, v11 and v10b call, so wherever a phase counts
+a path's launches they launch once with each such K1 call, and wherever it
+holds the recorded K1, K2 and K3 calls to their plain versions it holds each
+recorded grouping call to group_tables_plain on the same card tensors, every
+output to every bit. Phases 10 and 11 add their rows to the kernels line
+(group_tables/f32 and /bf16: time, plain time, a bound by bytes).
+
 Progress goes to stderr. Standard output holds three lines: the JSON list
 of kernels, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
@@ -402,6 +411,11 @@ SCORE_TOL = 1e-4
 V11_TOL = 0.005
 EXACT_TOL = 0.01
 CEILING_TOL = 0.001
+# The grouping prologue's launches (ops/grouped_scan.py::group_tables_kernel,
+# csrc/group_tables.cu), one name for f32 and bf16 codes: every v10, v11 and v10b
+# call (every K1 call through _placed_scan) launches each of them once, and
+# check_recorded holds each recorded call to its plain version bit for bit.
+GROUPING = ("group_count", "group_scan", "group_scatter", "group_tables")
 # Scan name -> (the kernels that path must launch besides K3 (parent
 # ranking), the recall it is held to: "ceiling", "exact" or "v11", timed
 # batches).
@@ -412,7 +426,7 @@ BY_NAME = (("v3p", ("rowscale_topk",), "exact", 5), ("v3p4", ("rowscale_topk",),
            ("xla", (), "ceiling", 2), ("v3", ("exact_topk",), "ceiling", 5),
            ("v2", ("exact_topk",), "ceiling", 5), ("v6", ("rowscale_topk",), "exact", 5),
            ("v5", ("chunk_merge",), "exact", 5), ("v4", ("rowscale_topk",), "exact", 3),
-           ("v10g4", ("grouped_scan", "merge_positions"), "v11", 5))
+           ("v10g4", ("grouped_scan", "merge_positions") + GROUPING, "v11", 5))
 # The v11 placement forced to argsort where the sort key fits
 # (QUAKE_TPU_V11_PLACEMENT), timed at B=BATCH_SORTED, where the default
 # placement is sorted: same kernels, held within V11_TOL of the v11 path.
@@ -492,9 +506,10 @@ SPILL_SMALL_B, SPILL_DELETE = 8, 4
 # the phase runs it on a spilled index over the corpus's first vectors at
 # the same partition size (mean 12,500 residencies), with fewer partitions.
 SPILL_MAINT_N, SPILL_MAINT_NLIST, SPILL_MAINT_NPROBE = 100_000, 16, 4
-# The kernels of the spilled fixed-nprobe path: K3 ranks the parents, K1
-# scans, and the dedup tail (a top-2k of the pool) takes K2's place.
-SPILL_KERNELS = ("grouped_scan", "flat_topk")
+# The kernels of the spilled fixed-nprobe path: K3 ranks the parents, the
+# grouping kernels build K1's tables, K1 scans, and the dedup tail (a top-2k of
+# the pool) takes K2's place.
+SPILL_KERNELS = ("grouped_scan", "flat_topk") + GROUPING
 # The dynamic workload (phase 16): regression/configs/sift1m_balanced.yaml's
 # traffic and method on the synthetic corpus (the base pool) and the main
 # queries, through the port's generator, evaluator and QuakeWrapper.
@@ -509,7 +524,8 @@ WORKLOAD_K1_OVERLAP = 0.9999  # the last query op's K1 calls against the plain v
 THREADS, THREAD_REPS = 8, 4  # concurrent searches of the final index, B = NQ_GT
 TRACE_REPS = 5  # batches traced for the idle share
 SHARDS = 4  # shard(4, devices=[cuda:0] * 4): four shards on the one card
-SHARD_KERNELS = {"grouped_scan": SHARDS, "merge_positions": SHARDS}  # a sharded batch's launches
+# A sharded batch's launches: each shard's grouping, K1 and K2.
+SHARD_KERNELS = dict.fromkeys(("grouped_scan", "merge_positions") + GROUPING, SHARDS)
 # v11's key levels follow C: at the local C (C / SHARDS) the keys are SHARDS x finer, so the
 # sharded ids come nearer the exact scan than the unsharded ones (NVIDIA H100 80GB HBM3, 700 W,
 # this corpus at nprobe 9: 0.96 overlap between the two, +0.022 recall). The sharded batch is held to the exact scan of the unsharded probe lists (the
@@ -644,6 +660,15 @@ ENTRIES = {
                     "quake_tpu/ops/pallas_grouped.py:2726"),
     "multi_topk": ("multi_topk", "quake_tpu_torch/csrc/grouped_variants.cu",
                    "quake_tpu/ops/pallas_grouped.py:2872"),
+    # The grouping prologue's four launches as one call (group_tables_kernel)
+    # on the main path's f32 index and on the headline bf16 index. They replace
+    # no TPU kernel: the JAX package builds the tables with XLA operations
+    # (build_groups_scatter, and _global_bounds and the pre-transforms of
+    # grouped_scan_pallas_v11).
+    "group_tables/f32": ("+".join(GROUPING), "quake_tpu_torch/csrc/group_tables.cu",
+                         "quake_tpu/ops/grouped.py:199"),
+    "group_tables/bf16": ("+".join(GROUPING), "quake_tpu_torch/csrc/group_tables.cu",
+                          "quake_tpu/ops/grouped.py:199"),
 }
 
 
@@ -1665,6 +1690,33 @@ def compare_k2(torch, kernel, plain, m_packed, kfin, slot_mult):
     return 0.0
 
 
+def float_bits(torch, t):
+    """A tensor as integers: floats by their bit patterns, so that equality
+    holds to every bit (signed zeros and NaNs included)."""
+    if t.is_floating_point():
+        return t.reshape(-1).view(torch.int16 if t.element_size() == 2 else torch.int32)
+    return t
+
+
+def compare_grouping(torch, args) -> dict:
+    """The grouping kernels (group_tables_kernel: group_count, group_scan,
+    group_scatter, group_tables) against their plain version on the same
+    card tensors: every output (gp, group_size, tgt, qg, normsT, gmin, ginv)
+    equal to every bit. Returns the kernels' outputs."""
+    from quake_tpu_torch.ops.grouped_scan import group_tables_kernel, group_tables_plain
+
+    got = group_tables_kernel(*args)
+    want = group_tables_plain(*args)
+    torch.cuda.synchronize()
+    bad = [key for key in want if got[key].dtype != want[key].dtype
+           or got[key].shape != want[key].shape
+           or not torch.equal(float_bits(torch, got[key]), float_bits(torch, want[key]))]
+    if set(got) != set(want) or bad:
+        raise AssertionError(f"the grouping kernels disagree with their plain version in {bad} "
+                             "(must be equal to every bit)")
+    return got
+
+
 def compare_k3(torch, kernel, plain, codes2d, bias, q, k, metric):
     from quake_tpu_torch.ops.flat_topk import _packed_params
 
@@ -1809,7 +1861,8 @@ def phase_by_name(torch, dev, idx, queries, gt, nprobe, recall_v11, paths=BY_NAM
             for name, kernels, gate, reps in paths]
     if placement:
         runs.append(("v11/" + ",".join(f"{k}={v}" for k, v in PLACEMENT_KNOB.items()),
-                     PLACEMENT_KNOB, ("grouped_scan", "merge_positions"), "v11", 5, BATCH_SORTED))
+                     PLACEMENT_KNOB, ("grouped_scan", "merge_positions") + GROUPING, "v11", 5,
+                     BATCH_SORTED))
     for name, env, kernels, gate, reps, batch in runs:
         qd = torch.from_numpy(queries[:batch]).to(dev)
         os.environ.update(env)
@@ -2734,8 +2787,9 @@ def sampled_bounds(torch, dev, idx, queries, gt, nprobe, what: str) -> dict:
 def phase_kernels(torch, dev, idx, x, queries, nprobe, launches, by_name, direct, k1_build,
                   gt):
     """Each kernel against its plain version at the shapes of the path it
-    runs on, with times and bounds: K1-K3 on the main (v11) path (K3 also
-    with K3_WIDE_N rows of the corpus x as its buffer); on the by-name paths
+    runs on, with times and bounds: K1-K3 and the grouping kernels on the
+    main (v11) path (K3 also with K3_WIDE_N rows of the corpus x as its
+    buffer); on the by-name paths
     K4 through v3p, v3pN, v6 and v4, K5 through v7, K1 through v8, K6
     through v3 and v2, K7 through v5."""
     from quake_tpu_torch.ops.flat_topk import flat_topk, flat_topk_body, flat_topk_plain, parent_bias
@@ -2824,6 +2878,7 @@ def phase_kernels(torch, dev, idx, x, queries, nprobe, launches, by_name, direct
                      library_ms=time_ms(torch, lambda: torch.topk(m_packed, kfin, dim=1)),
                      bound=bound(bytes2, 0.0)))
     torch.cuda.synchronize()
+    rows.append(grouping_row(torch, idx, q, pids, launches))
 
     rows += rowscale_rows(torch, idx, q, pids, qt, kk, by_name)
     group_pid, qlist, _, _ = build_groups(pids, st.codes.shape[0], qt)
@@ -2896,6 +2951,39 @@ def rowscale_rows(torch, idx, q, pids, qt, kk, by_name):
                                           warmup=1),
                          bound=b, groups=groups, scanned_rows=scanned))
     return rows
+
+
+def grouping_row(torch, idx, q, pids, launches) -> dict:
+    """The kernels line's row of the grouping kernels (group_tables_kernel's
+    four launches, group_tables/f32 or /bf16 by the codes' dtype) on idx's
+    default (v11) path for the batch q with probe lists pids: every output
+    held to the plain version bit for bit (compare_grouping), the four
+    launches' device time, the plain version's (its ~110 PyTorch operations,
+    also timed on the device), and a bound by bytes: the probe lists, the
+    queries, sizes and norms read once; the query tiles, normsT, tgt, gp and
+    group_size written once. launches: the path's counts."""
+    from quake_tpu_torch.ops.grouped_scan import (group_tables_kernel, group_tables_plain,
+                                                  packed_params)
+
+    st = idx.store.state
+    P, C, Dd = st.codes.shape
+    B, M = pids.shape
+    qt = idx._grouped_params(B, M)[0]
+    gpb = int(idx._grouped_kernel()[len("v11g"):])
+    args = (st.codes, st.sizes, st.norms, q, pids, "l2", qt, gpb, packed_params(C)[1])
+    got = compare_grouping(torch, args)
+    Gn = got["gp"].shape[0]
+    nbytes = (4 * (B * M + q.numel() + P + 2 * st.norms.numel() + Gn * qt + 2 * Gn)
+              + got["qg"].numel() * got["qg"].element_size())
+    dtype = str(st.codes.dtype)[len("torch."):]
+    del got
+    return dict(name=f"group_tables/{'bf16' if dtype == 'bfloat16' else 'f32'}",
+                tol="equal to every bit", overlap=1.0, max_abs_err=0.0,
+                launches=launches["group_tables"], body="CUDA cores",
+                shape=f"B={B}, nprobe={M}, P={P}, C={C}, D={Dd}, qt={qt}, Gn={Gn}, {dtype}",
+                ms=time_ms(torch, lambda: group_tables_kernel(*args)),
+                plain_ms=time_ms(torch, lambda: group_tables_plain(*args), reps=3, warmup=1),
+                bound=bound(nbytes, 0.0))
 
 
 def kernel_entry(r: dict) -> dict:
@@ -3080,8 +3168,9 @@ def phase_headline_bf16(torch, dev, x, queries, gt, f32_idx, k1_build):
     """bench.py's headline serving mode at full width (phase 11 of the
     module's docstring): build, nprobe, the headline path timed with its
     launches counted, the f32 and the exact paths beside it, K1's bf16 body
-    gated and timed at the path's shapes, save and load. Returns (summary,
-    the kernels line's grouped_scan_bf16 entry, the bf16 index)."""
+    and the grouping kernels gated and timed at the path's shapes, save and
+    load. Returns (summary, the kernels line's grouped_scan_bf16 and
+    group_tables/bf16 entries, the bf16 index)."""
     from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams, _ext
     from quake_tpu_torch.ops.grouped_scan import (grouped_scan_kernel, grouped_scan_plain,
                                                   grouped_scan_uses_mma)
@@ -3188,7 +3277,7 @@ def phase_headline_bf16(torch, dev, x, queries, gt, f32_idx, k1_build):
         f"{out['k1']['f32_ms']:.4f} ms at the same batch; its loads and products alone "
         f"{out['k1']['product_ms']:.4f} ms: selection share "
         f"{1.0 - out['k1']['product_ms'] / row['ms']:.3f}; {gates_text(gates)}")
-    entry = kernel_entry(row)
+    entries = [kernel_entry(row), kernel_entry(grouping_row(torch, idx, q, pids, launches))]
     del args, f32_args
 
     # Save and load.
@@ -3217,7 +3306,7 @@ def phase_headline_bf16(torch, dev, x, queries, gt, f32_idx, k1_build):
     log(f"[headline bf16] ({card}) save {sizes[0] / 1e9:.3f} GB in {save_s:.3f} s, load "
         f"{load_s:.3f} s; the f32 checkpoint {sizes[1] / 1e9:.3f} GB (ratio "
         f"{sizes[0] / sizes[1]:.3f}); codes equal bit for bit, search ids equal")
-    return out, entry, idx
+    return out, entries, idx
 
 
 def oneshot_plan(idx, q, sp):
@@ -3258,17 +3347,19 @@ def budget_by_formula(idx, q, sp, what: str) -> None:
 
 
 def recorded_calls(fn, clone: bool = False):
-    """fn() with the inputs of every K1, K2 and K3 call recorded, each call
-    going through to its wrapper. Returns the lists of (budget, K1's
-    arguments), K2's (the pool copied: the tail reads it afterwards) and
-    K3's; with clone, K1's and K3's tensors are copied too (for a check
-    after later operations have written the store)."""
+    """fn() with the inputs of every K1, K2 and K3 call and of every call of
+    the grouping kernels (group_tables_kernel) recorded, each call going
+    through to its wrapper. Returns the lists of (budget, K1's arguments),
+    K2's (the pool copied: the tail reads it afterwards), K3's and the
+    grouping's; with clone, K1's, K3's and the grouping's tensors are copied
+    too (for a check after later operations have written the store)."""
     from quake_tpu_torch.ops import flat_topk as k3_mod
     from quake_tpu_torch.ops import grouped_family as fam
     from quake_tpu_torch.ops import grouped_scan as k12_mod
 
-    k1, k2, k3 = [], [], []
-    real = (k12_mod.grouped_scan_kernel, k12_mod.merge_positions, k3_mod.flat_topk)
+    k1, k2, k3, kg = [], [], [], []
+    real = (k12_mod.grouped_scan_kernel, k12_mod.merge_positions, k3_mod.flat_topk,
+            k12_mod.group_tables_kernel)
 
     def kept(a):
         return tuple(t.clone() if clone and hasattr(t, "clone") else t for t in a)
@@ -3284,21 +3375,28 @@ def recorded_calls(fn, clone: bool = False):
     def rec3(*a):
         k3.append(kept(a))
         return real[2](*a)
-    k12_mod.grouped_scan_kernel, k12_mod.merge_positions, k3_mod.flat_topk = rec1, rec2, rec3
+
+    def recg(*a):
+        kg.append(kept(a))
+        return real[3](*a)
+    (k12_mod.grouped_scan_kernel, k12_mod.merge_positions, k3_mod.flat_topk,
+     k12_mod.group_tables_kernel) = rec1, rec2, rec3, recg
     fam.grouped_scan_kernel = rec1  # v8 and v9 call K1 from there
     try:
         fn()
     finally:
-        k12_mod.grouped_scan_kernel, k12_mod.merge_positions, k3_mod.flat_topk = real
+        (k12_mod.grouped_scan_kernel, k12_mod.merge_positions, k3_mod.flat_topk,
+         k12_mod.group_tables_kernel) = real
         fam.grouped_scan_kernel = real[0]
-    return k1, k2, k3
+    return k1, k2, k3, kg
 
 
 def check_recorded(torch, what: str, calls, summary: dict) -> None:
-    """Each recorded K1, K2 and K3 call (recorded_calls) held against its
-    plain version on the same inputs (compare_k1, _k2, _k3); per launch
-    counter, the calls, their shapes, the least overlap and the largest key
-    difference gathered into summary."""
+    """Each recorded K1, K2, K3 and grouping call (recorded_calls) held
+    against its plain version on the same inputs (compare_k1, _k2, _k3,
+    compare_grouping: the grouping to every bit, noted under each of its
+    four launch names); per launch counter, the calls, their shapes, the
+    least overlap and the largest key difference gathered into summary."""
     from quake_tpu_torch.ops.flat_topk import flat_topk, flat_topk_plain
     from quake_tpu_torch.ops.grouped_scan import (grouped_scan_kernel, grouped_scan_plain,
                                                   merge_positions, merge_positions_plain)
@@ -3310,7 +3408,7 @@ def check_recorded(torch, what: str, calls, summary: dict) -> None:
             s["shapes"].append(shape)
         s["min_overlap"], s["max_key_diff"] = min(s["min_overlap"], ov), max(s["max_key_diff"], kd)
 
-    k1, k2, k3 = calls
+    k1, k2, k3, kg = calls
     for budget, a in k1:
         name = (("grouped_scan_budget" if budget else "grouped_scan")
                 + ("_bf16" if a[3].dtype == torch.bfloat16 else ""))
@@ -3325,6 +3423,14 @@ def check_recorded(torch, what: str, calls, summary: dict) -> None:
     for codes2d, bias, q, k, metric in k3:
         ov, kd = compare_k3(torch, flat_topk, flat_topk_plain, codes2d, bias, q, k, metric)
         note("flat_topk", f"{what}: B={q.shape[0]}, N={codes2d.shape[0]}, k={k}", ov, kd)
+    for a in kg:
+        got = compare_grouping(torch, a)
+        shape = (f"{what}: B={a[3].shape[0]}, M={a[4].shape[1]}, P={a[0].shape[0]}, "
+                 f"Gn={got['gp'].shape[0]}, qt={a[6]}, {str(a[0].dtype)[len('torch.'):]}"
+                 + (f", budget {a[10]}" if len(a) > 10 and a[10] > 0 else "")
+                 + (f", {a[9]} bounds" if len(a) > 9 and a[9] != "analytic" else ""))
+        for name in GROUPING:
+            note(name, shape, 1.0, 0.0)
 
 
 def budget_entry(torch, idx, q, plan, launches) -> dict:
@@ -3780,10 +3886,11 @@ def xla_merge(torch, dev, idx, queries, nprobe) -> dict:
         launches = {k: n for k, n in _ext.launches.items() if n}
         out[merge] = dict(launches=launches, stages_ms=stage_ms(
             torch, lambda: grouped_scan_v11(*args, merge=merge, **kw), 5))
-    if out["xla"]["launches"] != {"grouped_scan": 1} or out["pallas"]["launches"] != {
-            "grouped_scan": 1, "merge_positions": 1}:
-        raise AssertionError(f"merge='xla' must launch K1 and no K2, merge='pallas' K1 and K2: "
-                             f"{out}")
+    once = dict.fromkeys(("grouped_scan",) + GROUPING, 1)
+    if out["xla"]["launches"] != once or out["pallas"]["launches"] != dict(once,
+                                                                          merge_positions=1):
+        raise AssertionError(f"merge='xla' must launch the grouping and K1 and no K2, "
+                             f"merge='pallas' the grouping, K1 and K2: {out}")
     for i, what in ((1, "ids"), (0, "scores"), (2, "scanned")):
         if not torch.equal(res["xla"][i], res["pallas"][i]):
             raise AssertionError(f"merge='xla' {what} differ from K2's")
@@ -4368,10 +4475,13 @@ def phase_maintenance(torch, dev, queries, nprobe):
             or idx.maintenance_policy is None
             or idx.maintenance_policy.cost_estimator.latency_estimator is not est):
         raise AssertionError("the build did not profile the latency grid into its policy")
-    if prof_launches.get("grouped_scan", 0) < 3 * grid_points or set(prof_launches) != {
-            "grouped_scan", "merge_positions"}:
-        raise AssertionError(f"the profile was to run K1 and K2 at every one of the "
-                             f"{grid_points} grid points: launches {prof_launches}")
+    n_k1 = prof_launches.get("grouped_scan", 0)
+    if (n_k1 < 3 * grid_points
+            or set(prof_launches) != {"grouped_scan", "merge_positions", *GROUPING}
+            or any(prof_launches[g] != n_k1 for g in GROUPING)):
+        raise AssertionError(f"the profile was to run the grouping, K1 and K2 at every one of "
+                             f"the {grid_points} grid points, the grouping once a K1 call: "
+                             f"launches {prof_launches}")
     analytic = ListScanLatencyEstimator(D)
     packaged = ListScanLatencyEstimator(D, device=dev)  # the default grid of a CUDA index
     if packaged.grid_source != MAINT_PACKAGED:
@@ -4606,7 +4716,7 @@ def multilevel_index(torch, dev, x, queries, gt, three: bool) -> tuple:
     out["fixed"] = fixed
     sp32 = SearchParams(k=K, nprobe=32)
     launches = counted(torch, lambda: idx._search_device_full(q, sp32))
-    want = set() if three else {"flat_topk", "grouped_scan"} | (
+    want = set() if three else {"flat_topk", "grouped_scan", *GROUPING} | (
         {"merge_positions"} if merges_on_k2(idx.store.C, 32, K) else set())
     if set(launches) != want or any(v != 1 for v in launches.values()):
         raise AssertionError(f"{what}: the fixed-nprobe batch launched {launches}, the route "
@@ -5187,10 +5297,10 @@ def phase_workload(torch, dev, x, queries, n_ops: int = WORKLOAD_OPS) -> dict:
             "quake", QuakeWrapper(device=dev), WORKLOAD_BUILD))
 
         class Counted(QuakeWrapper):
-            """Each query op's K1, K2 and K3 launches, and whether its store
-            merges on K2 (merges_on_k2); the last query op's calls recorded,
-            their tensors copied (later operations write the store in
-            place)."""
+            """Each query op's grouping, K1, K2 and K3 launches, and whether
+            its store merges on K2 (merges_on_k2); the last query op's calls
+            recorded, their tensors copied (later operations write the store
+            in place)."""
 
             def __init__(self):
                 super().__init__(device=dev)
@@ -5207,7 +5317,7 @@ def phase_workload(torch, dev, x, queries, n_ops: int = WORKLOAD_OPS) -> dict:
                 else:
                     res = QuakeWrapper.search(self, query, **kw)
                 self.per_query.append(dict(
-                    {k: _ext.launches[k] - before[k] for k in MAIN_KERNELS}, k2=k2))
+                    {k: _ext.launches[k] - before[k] for k in MAIN_KERNELS + GROUPING}, k2=k2))
                 return res
 
         wrapper = Counted()
@@ -5231,7 +5341,7 @@ def phase_workload(torch, dev, x, queries, n_ops: int = WORKLOAD_OPS) -> dict:
                               max_ms=float(np.max(ms)) if ms else None)
     maint = [r["maintenance_ms"] for r in results]
     recalls = [r["recall"] for r in results if r["operation_type"] == "query"]
-    launched = {k: sum(p[k] for p in wrapper.per_query) for k in MAIN_KERNELS}
+    launched = {k: sum(p[k] for p in wrapper.per_query) for k in MAIN_KERNELS + GROUPING}
     out.update(per_type=per_type, maintenance_ms_mean=float(np.mean(maint)),
                maintenance_ms_total=float(np.sum(maint)),
                maintenance_ms_max=float(np.max(maint)),
@@ -5244,15 +5354,18 @@ def phase_workload(torch, dev, x, queries, n_ops: int = WORKLOAD_OPS) -> dict:
                launches_per_query_op={k: v / max(len(wrapper.per_query), 1)
                                       for k, v in launched.items()})
     wrong = [i for i, p in enumerate(wrapper.per_query)
-             if (p["grouped_scan"], p["flat_topk"], p["merge_positions"]) != (1, 1, int(p["k2"]))]
+             if (p["grouped_scan"], p["flat_topk"], p["merge_positions"]) != (1, 1, int(p["k2"]))
+             or any(p[g] != 1 for g in GROUPING)]
     if len(wrapper.per_query) != n_query_ops or wrong:
-        raise AssertionError(f"workload: every query op must launch K1 and K3 once, and K2 once "
-                             f"where its pool merges on K2: query ops {wrong[:10]} did not "
-                             f"({len(wrapper.per_query)} of {n_query_ops} query ops searched)")
+        raise AssertionError(f"workload: every query op must launch the grouping, K1 and K3 once, "
+                             f"and K2 once where its pool merges on K2: query ops {wrong[:10]} "
+                             f"did not ({len(wrapper.per_query)} of {n_query_ops} query ops "
+                             f"searched)")
     out["query_ops_on_k2"] = sum(p["k2"] for p in wrapper.per_query)
     checks = {}
     check_recorded(torch, "workload, last query op", wrapper.calls, checks)
-    last = {k: wrapper.per_query[-1][k] for k in MAIN_KERNELS if wrapper.per_query[-1][k]}
+    last = {k: wrapper.per_query[-1][k] for k in MAIN_KERNELS + GROUPING
+            if wrapper.per_query[-1][k]}
     if set(checks) != set(last):
         raise AssertionError(f"workload: the recorded calls ({sorted(checks)}) are not the "
                              f"kernels the last query op launched ({last})")
@@ -5399,8 +5512,9 @@ def main() -> int:
     wide = phase_wide(torch, dev)
     kernels = phase_kernels(torch, dev, idx, x, queries, main_out["nprobe"], launches, by_name,
                             direct, k1_build, gt)
-    headline, k1_bf16, bf16_idx = phase_headline_bf16(torch, dev, x, queries, gt, idx, k1_build)
-    kernels.append(k1_bf16)
+    headline, headline_rows, bf16_idx = phase_headline_bf16(torch, dev, x, queries, gt, idx,
+                                                            k1_build)
+    kernels.extend(headline_rows)
     k1_build[0].cleanup()
     bf16_scans, bf16_rows = phase_bf16_by_name(torch, dev, bf16_idx, queries, gt,
                                                headline["nprobe"], headline["recall"])

@@ -25,7 +25,8 @@ the budget grid of the masked APS scans grouped_scan_budget, K2
 merge_positions, K3 flat_topk, K4 rowscale_topk, K5 rowscale_fold, K6
 exact_topk, K7 chunk_merge, K8 raw_scores, K9 packed_topk, and sized_topk and
 multi_topk; each but K2 on bf16 codes under its name with ``_bf16`` at the
-end). Every wrapper launches through ``launch``, which counts the launch,
+end; and the grouping prologue's group_count, group_scan, group_scatter and
+group_tables, one name for both dtypes). Every wrapper launches through ``launch``, which counts the launch,
 so a run can show that a path went through the kernels; the count is taken
 under a lock, as threads may search one index at once, and in debug mode the
 kernel's floating outputs are checked for NaNs (debug.py).

@@ -5,7 +5,8 @@ One call, `grouped_scan_v11`, turns probe lists into the per-query top-k:
 
   prologue   global quantization bounds, queries pre-scaled and norms
              pre-shifted so the kernel's key is one floor; groups from
-             `build_groups_scatter`
+             `build_groups_scatter` (v11_inputs: on CUDA tensors the four
+             grouping kernels of csrc/group_tables.cu, group_tables_kernel)
   scan       kernel K1 (`grouped_scan_kernel`): per group, packed
              key*slot_mult + lane values, fold top-2 (fold 128 unless the
              caller names another, see `fold_served`), kk rounds
@@ -26,8 +27,9 @@ also serves pid matrices that hold -1 (fixed-nprobe semantics not promised).
 placement sized to a pair budget instead of B*nprobe (the masked APS scans),
 with the scatter or the budgeted sorted ("v11b") placement.
 
-K1 and K2 are CUDA kernels (csrc/quake_kernels.cu); each wrapper runs its
-plain PyTorch version on CPU tensors and launches the kernel on CUDA tensors.
+K1 and K2 are CUDA kernels (csrc/quake_kernels.cu), as is the prologue's
+grouping (csrc/group_tables.cu); each wrapper runs its plain PyTorch version
+on CPU tensors and launches the kernels on CUDA tensors.
 On f32 codes K1 multiplies on the tensor cores with split TF32 operands that
 keep f32 accuracy (ops/split_product.py is the plain model of that product);
 on bf16 codes (the queries rounded to bf16, as in the JAX package) with one
@@ -43,7 +45,7 @@ import torch
 from quake_tpu_torch import _ext
 from quake_tpu_torch.ops.grouped import (budget_layout, build_groups_budget,
                                           build_groups_scatter, check_operands, group_layout,
-                                          launch_name, use_kernel)
+                                          launch_name, operand_bytes, use_kernel)
 from quake_tpu_torch.ops.scan import NEG_INF, duplicate_mask, topk_stable
 from quake_tpu_torch.profiling import annotate
 
@@ -618,18 +620,13 @@ def pad_groups(group_pid, qlist, sizes, gpb: int):
     return gp, ql, group_size, torch.clamp(ql, min=0).long()
 
 
-def v11_inputs(codes, sizes, norms, q, pids, k: int, metric: str, qt: int,
-               gpb: int, bounds: str = "analytic", pair_budget: int = 0):
-    """Prologue of grouped_scan_v11, _v10 and (pair_budget > 0) _v10b:
-    everything kernel K1, the placement and the tail need. Returns a dict
-    with gp, group_size, qg (the scaled queries rounded to the codes' dtype,
-    as the JAX package rounds them), normsT, tgt (padded to Gn =
-    ceil(G/gpb)*gpb groups; G from build_groups_budget's budget_layout where
-    pair_budget > 0), kk, slot_mult, levels, gmin and ginv."""
-    B, D = q.shape
-    P, C, _ = codes.shape
-    kk = min(k, C)
-    slot_mult, levels = packed_params(C)
+def group_tables_plain(codes, sizes, norms, q, pids, metric: str, qt: int, gpb: int,
+                       levels: int, bounds: str = "analytic", pair_budget: int = 0):
+    """Plain PyTorch version of the grouping kernels (same inputs and
+    outputs as group_tables_kernel): global_scale, build_groups_scatter or
+    (pair_budget > 0) build_groups_budget, pad_groups and the query
+    gather."""
+    B, P = q.shape[0], codes.shape[0]
     q_scaled, normsT, gmin, ginv = global_scale(q, norms, metric, levels, bounds, codes, sizes)
     if pair_budget > 0:
         group_pid, qlist, tgt = build_groups_budget(pids, P, qt, pair_budget)
@@ -639,8 +636,86 @@ def v11_inputs(codes, sizes, norms, q, pids, k: int, metric: str, qt: int,
     tgt = torch.nn.functional.pad(tgt, (0, 0, 0, gp.shape[0] - tgt.shape[0]),
                                   value=B * pids.shape[1])
     qg = q_scaled.to(codes.dtype)[safe_q].contiguous()  # [Gn, qt, D]
-    return dict(gp=gp, group_size=group_size, qg=qg, normsT=normsT, tgt=tgt,
-                kk=kk, slot_mult=slot_mult, levels=levels, gmin=gmin, ginv=ginv)
+    return dict(gp=gp, group_size=group_size, qg=qg, normsT=normsT, tgt=tgt, gmin=gmin,
+                ginv=ginv)
+
+
+GROUP_TILE = 2048  # pairs a warp of group_count and group_scatter takes, at least
+
+
+def group_tables_kernel(codes, sizes, norms, q, pids, metric: str, qt: int, gpb: int,
+                        levels: int, bounds: str = "analytic", pair_budget: int = 0):
+    """The grouping prologue in four CUDA launches (csrc/group_tables.cu:
+    group_count, group_scan, group_scatter, group_tables), after PyTorch's
+    |q|^2 row sums, whose order of summation global_scale's bounds take.
+    Returns group_tables_plain's dict, equal to it bit for bit: gp,
+    group_size, tgt ([Gn, qt], Gn = ceil(G/gpb)*gpb), qg, normsT, gmin and
+    ginv (0-d views of one buffer). The pairs of a partition are counted
+    and placed in tiles of GROUP_TILE pairs (more where P is larger, so the
+    tile counts stay within n + P). bounds="sampled" takes global_bounds'
+    gmin and grange, computed in PyTorch, and group_count then reduces no
+    maxima."""
+    B, D = q.shape
+    P, C, _ = codes.shape
+    M = pids.shape[1]
+    n = B * M
+    n_bud = min(int(pair_budget), n) if pair_budget > 0 else 0
+    G = budget_layout(n_bud, P, qt) if n_bud > 0 else group_layout(B, M, P, qt)
+    Gn = -(-G // gpb) * gpb
+    dev = q.device
+    qf = q.to(torch.float32).contiguous()
+    pids, sizes = pids.to(torch.int32).contiguous(), sizes.to(torch.int32).contiguous()
+    check_operands("group_tables_kernel", dev, (
+        ("pids", pids, torch.int32, (B, M)), ("sizes", sizes, torch.int32, (P,)),
+        ("q", qf, torch.float32, (B, D)), ("norms", norms, torch.float32, (P, C))), qt)
+    if bounds not in ("analytic", "sampled"):
+        raise ValueError(f"bounds must be 'analytic' or 'sampled', not {bounds!r}")
+    tile = max(GROUP_TILE, -(-P // 256) * 256)
+    ntiles = -(-n // tile)
+    if bounds == "sampled":  # no maxima to reduce: group_scan takes these bounds
+        sampled, rowsq, nred = global_bounds(qf, norms, metric, bounds, codes, sizes), None, 0
+    else:
+        sampled, rowsq = (None, None), torch.sum(qf * qf, dim=1)
+        nred = min(1024, max(-(-P * C // 4096), -(-B // 512)))  # blocks of maxima, 32 threads
+    nnorm = min(1024, -(-P * C // 4096))  # blocks of normsT, 256 threads
+    ws = torch.empty(ntiles * P + 3 * P, device=dev, dtype=torch.int32)
+    hist, run, gbase, gend = ws[:ntiles * P], *ws[ntiles * P:].view(3, P)
+    fws = torch.empty(2 + 2 * nred, device=dev, dtype=torch.float32)
+    scale, partials = fws[:2], fws[2:]
+    gp = torch.empty(Gn, device=dev, dtype=torch.int32)
+    group_size = torch.empty(Gn, device=dev, dtype=torch.int32)
+    tgt = torch.empty((Gn, qt), device=dev, dtype=torch.int32)
+    qg = torch.empty((Gn, qt, D), device=dev, dtype=codes.dtype)
+    normsT = torch.empty((P, C), device=dev, dtype=torch.float32)
+    l2 = int(metric == "l2")
+    _ext.launch("group_count", pids, rowsq, norms, hist, partials, n, P, tile, ntiles, B, P * C,
+                nred)
+    _ext.launch("group_scan", hist, run, gbase, gend, partials, *sampled, scale, ntiles, P,
+                n_bud, qt, l2, float(levels), nred)
+    _ext.launch("group_scatter", pids, hist, run, gbase, tgt, n, P, tile, ntiles, qt)
+    _ext.launch("group_tables", run, gbase, gend, sizes, qf, norms, scale, gp, group_size, tgt,
+                qg, normsT, P, P * C, Gn, qt, n, M, D, operand_bytes(codes.dtype), l2, nnorm,
+                outputs=(qg, normsT))
+    return dict(gp=gp, group_size=group_size, qg=qg, normsT=normsT, tgt=tgt, gmin=scale[0],
+                ginv=scale[1])
+
+
+def v11_inputs(codes, sizes, norms, q, pids, k: int, metric: str, qt: int,
+               gpb: int, bounds: str = "analytic", pair_budget: int = 0):
+    """Prologue of grouped_scan_v11, _v10 and (pair_budget > 0) _v10b:
+    everything kernel K1, the placement and the tail need. Returns a dict
+    with gp, group_size, qg (the scaled queries rounded to the codes' dtype,
+    as the JAX package rounds them), normsT, tgt (padded to Gn =
+    ceil(G/gpb)*gpb groups; G from build_groups_budget's budget_layout where
+    pair_budget > 0), kk, slot_mult, levels, gmin and ginv: from the
+    grouping kernels on CUDA tensors (group_tables_kernel), from their plain
+    version on CPU tensors."""
+    C = codes.shape[1]
+    slot_mult, levels = packed_params(C)
+    tables = group_tables_kernel if use_kernel("group_tables", q) else group_tables_plain
+    return dict(tables(codes, sizes, norms, q, pids, metric, qt, gpb, levels, bounds,
+                       pair_budget),
+                kk=min(k, C), slot_mult=slot_mult, levels=levels)
 
 
 def _placed_scan(name: str, codes, ids, sizes, norms, q, pids, k: int, metric: str,

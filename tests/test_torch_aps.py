@@ -229,11 +229,14 @@ def test_loop_core_matches(recompute):
 
 
 @pytest.mark.parametrize("P,B,M,qt,n_bud", [(32, 48, 12, 8, 200), (32, 48, 12, 8, 10_000),
-                                             (7, 5, 3, 4, 9), (40_000, 1000, 60, 64, 5000)])
+                                             (7, 5, 3, 4, 9), (40_000, 1000, 60, 64, 5000),
+                                             (1024, 4096, 24, 64, 65536), (1024, 4096, 24, 64, 150)])
 def test_build_groups_budget_matches_jax(P, B, M, qt, n_bud):
     """The tables of build_groups_budget, with -1 pids, duplicate pids in a
-    row and a budget below, at and far above the valid pairs; the last case
-    takes the JAX package's two-operand sort branch ((P + 2) n >= 2^31)."""
+    row and a budget below, at and far above the valid pairs; the fourth
+    case takes the JAX package's two-operand sort branch ((P + 2) n >=
+    2^31); the last two are the oneshot4k cell's shape (B=4096, 24
+    candidates, nlist 1024) at its budget and far below the valid pairs."""
     rng = np.random.default_rng(P + B)
     base = np.stack([rng.choice(P, M, replace=False) for _ in range(B)])
     n_b = rng.integers(1, M + 1, B)

@@ -4,7 +4,9 @@ neither JAX nor the JAX package, so they also run on a machine without JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances: the pool merge (K2) is integer arithmetic and must be equal. K1,
+Tolerances: the pool merge (K2) is integer arithmetic and must be equal, as
+must the grouping kernels' outputs to every bit (integer tables, and f32
+operations in their plain version's order, each rounded alone). K1,
 K3, K4 and K5 quantize f32 dot products with floor(); the kernel sums in
 another order than torch.matmul, so a key can move by one level: they
 compare winner overlap >= 0.99, and keys of a common winner within one
@@ -543,7 +545,9 @@ def test_launch_counts(dev):
                              "sized_topk": 1, "multi_topk": 1, "flat_topk_bf16": 0,
                              "rowscale_topk_bf16": 0, "rowscale_fold_bf16": 0,
                              "exact_topk_bf16": 0, "chunk_merge_bf16": 0, "raw_scores_bf16": 1,
-                             "packed_topk_bf16": 1, "sized_topk_bf16": 1, "multi_topk_bf16": 1}
+                             "packed_topk_bf16": 1, "sized_topk_bf16": 1, "multi_topk_bf16": 1,
+                             "group_count": 0, "group_scan": 0, "group_scatter": 0,
+                             "group_tables": 0}
 
 
 # ------------------------------------------- K1 and K4 on the tensor cores
@@ -2457,3 +2461,115 @@ def test_fold_outside_the_served_set_raises_on_the_card(dev):
         grouped_scan_kernel(gp, gsize, qg, codes, norms, 10, slot_mult, levels, 96)
     with pytest.raises(ValueError, match="multiples of 128"):
         rowscale_scan(gp, gsize, qg, codes, norms, 10, slot_mult, levels, "l2", "fold", fold=16)
+
+
+# ------------------------------------------------- the grouping prologue
+
+def _bits(t):
+    """A tensor as integers: floats by their bit patterns, so that equality
+    holds to every bit (signed zeros and NaNs included)."""
+    if t.is_floating_point():
+        return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+    return t
+
+
+def _probe_lists(rng, B, M, P, holes=0.0, dup=False, one=None):
+    """[B, M] int32 probe lists: distinct partitions a row (as rank_parents
+    gives them), -1 in a share `holes` of a row's tail (a per-query depth),
+    the first probe repeated in every fifth row (dup), or every pair in
+    partition `one`."""
+    if one is not None:
+        return np.full((B, M), one, np.int32)
+    pids = (np.stack([rng.choice(P, M, replace=False) for _ in range(B)]) if M <= P
+            else rng.integers(0, P, (B, M))).astype(np.int32)
+    if holes:
+        depth = rng.integers(max(1, int(M * (1 - 2 * holes))), M + 1, B)
+        pids[np.arange(M)[None, :] >= depth[:, None]] = -1
+    if dup:
+        pids[::5, 1] = pids[::5, 0]
+    return pids
+
+
+# (B, M, P, C, D, codes dtype, pair budget, metric, bounds, pid pattern)
+_GROUP_CASES = {
+    "f32-batch16k": (16384, 14, 160, 6400, 128, torch.float32, 0, "l2", "analytic", {}),
+    "bf16-batch16k": (16384, 14, 160, 6400, 128, torch.bfloat16, 0, "l2", "analytic", {}),
+    "oneshot4k": (4096, 24, 1024, 1536, 128, torch.float32, 65536, "l2", "analytic",
+                  dict(holes=0.45)),
+    "churn-query": (100, 14, 160, 16384, 128, torch.float32, 0, "l2", "analytic", {}),
+    "holes-dups": (600, 9, 40, 256, 16, torch.float32, 0, "ip", "analytic",
+                   dict(holes=0.3, dup=True)),
+    "budget-cut": (600, 9, 40, 256, 16, torch.bfloat16, 1500, "l2", "analytic",
+                   dict(holes=0.3, dup=True)),
+    "one-partition": (700, 5, 8, 256, 24, torch.float32, 0, "l2", "analytic", dict(one=3)),
+    "P1": (333, 7, 1, 128, 8, torch.bfloat16, 0, "ip", "analytic", {}),
+    "ragged-tile": (2731, 3, 37, 128, 13, torch.float32, 0, "l2", "sampled", dict(dup=True)),
+}
+
+
+@pytest.mark.parametrize("case", list(_GROUP_CASES))
+def test_group_tables_kernel_matches_plain(dev, case):
+    """The grouping kernels (group_count, group_scan, group_scatter,
+    group_tables) against their plain version on the same card tensors,
+    every output to every bit: gp, group_size and tgt (integers), qg (the
+    scaled queries in the codes' dtype), normsT, gmin and ginv; the integer
+    tables also against the plain version on the CPU, which the tier-1
+    tests hold to the JAX package's build_groups_scatter and
+    build_groups_budget. Cases: the cells' shapes, a churn query op (B=100),
+    -1 pids and repeated pids in a row, a pair budget below the valid pairs,
+    every pair in one partition, P = 1, and n = 8,193 pairs, past whole
+    tiles (with the sampled bounds)."""
+    from quake_tpu_torch.ops.grouped_scan import group_tables_kernel, group_tables_plain
+
+    B, M, P, C, D, dtype, budget, metric, bounds, pattern = _GROUP_CASES[case]
+    rng = np.random.default_rng(len(case) + B)
+    pids = torch.from_numpy(_probe_lists(rng, B, M, P, **pattern))
+    if budget:
+        assert budget < B * M
+    if case == "budget-cut":
+        assert budget < int((pids >= 0).sum())
+    codes = torch.from_numpy(rng.standard_normal((P, C, D)).astype(np.float32)).to(dtype)
+    sizes = torch.from_numpy(rng.integers(0, C + 1, P).astype(np.int32))
+    cf = codes.float()
+    norms = (cf * cf).sum(-1) * (torch.arange(C)[None, :] < sizes[:, None].long())
+    q = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32) * 3.0)
+    levels = packed_params(C)[1]
+    cuda = [t.to(dev).contiguous() for t in (codes, sizes, norms, q, pids)]
+    args = (metric, 64, 4, levels, bounds, budget)
+    _ext.reset_launches()
+    got = group_tables_kernel(*cuda, *args)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in _ext.launches.items() if c} == {
+        "group_count": 1, "group_scan": 1, "group_scatter": 1, "group_tables": 1}
+    want = group_tables_plain(*cuda, *args)
+    cpu = group_tables_plain(codes, sizes, norms, q, pids, *args)
+    assert set(got) == set(want)
+    for key in want:
+        assert got[key].dtype == want[key].dtype and got[key].shape == want[key].shape, key
+        assert torch.equal(_bits(got[key]), _bits(want[key])), key
+    for key in ("gp", "group_size", "tgt"):
+        assert torch.equal(got[key].cpu(), cpu[key]), key
+    assert (got["gp"] >= 0).any()
+
+
+def test_search_grouping_span_launches(dev):
+    """A search on the card builds its tables in the grouping kernels, and
+    the span quake.plan.grouping issues at most 12 launches a call."""
+    from quake_tpu_torch import IndexBuildParams, QuakeIndex, SearchParams
+    from quake_tpu_torch.profiling import device_trace, last_spans
+
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((8192, 32)).astype(np.float32)
+    idx = QuakeIndex(device=dev)
+    idx.build(x, None, IndexBuildParams(nlist=16, calibrate_aps=False))
+    q = x[:512] + 0.1 * rng.standard_normal((512, 32)).astype(np.float32)
+    sp = SearchParams(k=10, nprobe=4)
+    idx.search(q, sp)
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    with device_trace():
+        idx.search(q, sp)
+        torch.cuda.synchronize()
+    assert _ext.launches["group_tables"] == 1
+    row = last_spans()["quake.plan.grouping"]
+    assert row["calls"] == 1 and 0 < row["launches"] <= 12

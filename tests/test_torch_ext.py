@@ -60,7 +60,7 @@ def test_launch_counts_are_the_launchers_and_the_budget_grid():
         "chunk_merge", "raw_scores", "packed_topk", "sized_topk", "multi_topk",
         "flat_topk_bf16", "rowscale_topk_bf16", "rowscale_fold_bf16", "exact_topk_bf16",
         "chunk_merge_bf16", "raw_scores_bf16", "packed_topk_bf16", "sized_topk_bf16",
-        "multi_topk_bf16"}
+        "multi_topk_bf16", "group_count", "group_scan", "group_scatter", "group_tables"}
 
 
 # ---------------------------------------------------------------- launch

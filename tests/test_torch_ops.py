@@ -16,16 +16,18 @@ import numpy as np
 import pytest
 import torch
 
+from quake_tpu.ops.grouped import build_groups_budget as jax_build_groups_budget
 from quake_tpu.ops.grouped import build_groups_scatter as jax_build_groups_scatter
 from quake_tpu.ops.pallas_flat import flat_topk_pallas, parent_rank_pallas
-from quake_tpu.ops.pallas_grouped import (_merge_positions_pallas,
+from quake_tpu.ops.pallas_grouped import (_global_bounds, _merge_positions_pallas,
                                           grouped_scan_pallas_v11)
 from quake_tpu.ops.scan import merge_topk as jax_merge_topk
 from quake_tpu.ops.scan import scores_to_distances as jax_scores_to_distances
 from quake_tpu_torch.ops.flat_topk import flat_topk, parent_bias, parent_rank
 from quake_tpu_torch.ops.grouped import build_groups_scatter, group_layout
-from quake_tpu_torch.ops.grouped_scan import (fold_rounds, grouped_scan_v11,
-                                              merge_positions)
+from quake_tpu_torch.ops.grouped_scan import (fold_rounds, group_tables_plain,
+                                              grouped_scan_v11, merge_positions,
+                                              packed_params)
 from quake_tpu_torch.ops.scan import merge_topk, scores_to_distances, topk_stable
 
 
@@ -46,6 +48,8 @@ def _row_overlap(a, b):
     (12, 4, 8, 8, 0),
     (40, 6, 16, 16, 1),
     (64, 3, 128, 8, 2),
+    (16384, 14, 160, 64, 3),  # the batch16k cells' probe lists
+    (100, 14, 160, 64, 4),  # a churn query op's
 ])
 def test_build_groups_scatter_matches_jax(B, nprobe, P, qt, seed):
     rng = np.random.default_rng(seed)
@@ -56,6 +60,72 @@ def test_build_groups_scatter_matches_jax(B, nprobe, P, qt, seed):
     assert got[0].shape[0] == group_layout(B, nprobe, P, qt)
     for w, g in zip(want, got):
         np.testing.assert_array_equal(np.asarray(w), g.numpy())
+
+
+def _jax_prologue(codes, sizes, norms, q, pids, metric, qt, gpb, n_bud):
+    """The JAX package's prologue of grouped_scan_pallas_v11 (n_bud 0) and
+    of grouped_scan_pallas_v10b (before its scatter placement's mask), as
+    pallas_grouped.py writes it."""
+    B, P, C = q.shape[0], codes.shape[0], codes.shape[1]
+    levels = (1 << 24) // max(1 << (int(C - 1).bit_length()), 2) - 2
+    qf = q.astype(jnp.float32)
+    gmin, grange = _global_bounds(qf, codes, norms, sizes, metric, "analytic")
+    ginv = float(levels) / grange
+    q_coef = 2.0 * ginv if metric == "l2" else ginv
+    normsT = ((norms if metric == "l2" else jnp.zeros_like(norms)) + gmin) * ginv
+    if n_bud:
+        group_pid, qlist, tgt = jax_build_groups_budget(pids, P, qt, n_bud)
+    else:
+        group_pid, qlist, tgt = jax_build_groups_scatter(pids, P, qt)
+    G = group_pid.shape[0]
+    Gn = -(-G // gpb) * gpb
+    gp = jnp.pad(group_pid, (0, Gn - G), constant_values=-1)
+    ql = jnp.pad(qlist, ((0, Gn - G), (0, 0)), constant_values=-1)
+    tgt = jnp.pad(tgt, ((0, Gn - G), (0, 0)), constant_values=B * pids.shape[1])
+    group_size = jnp.where(gp >= 0, sizes[jnp.maximum(gp, 0)], 0).astype(jnp.int32)
+    qg = (qf * q_coef).astype(codes.dtype)[jnp.where(ql >= 0, ql, 0)]
+    return dict(gp=gp, group_size=group_size, qg=qg, normsT=normsT, tgt=tgt, gmin=gmin,
+                ginv=ginv)
+
+
+@pytest.mark.parametrize("B,M,P,dtype,n_bud,metric", [
+    (16384, 14, 160, "float32", 0, "l2"),  # sift1m-f32.batch16k
+    (16384, 14, 160, "bfloat16", 0, "l2"),  # sift1m-bf16.batch16k
+    (4096, 24, 1024, "float32", 65536, "l2"),  # sift1m-f32-nl1024-aps.oneshot4k
+    (100, 14, 160, "float32", 0, "ip"),  # a churn query op
+])
+def test_group_tables_plain_matches_jax_prologue(B, M, P, dtype, n_bud, metric):
+    """The plain grouping prologue (group_tables_plain, the CPU twin of the
+    grouping kernels) at the cells' shapes against the JAX package's: the
+    tables (gp, group_size, tgt) equal; the key scale and the scaled
+    queries and norms within a few f32 ulps (the two packages sum |q|^2 in
+    another order, so max |q|^2 can differ in its last place; PyTorch's
+    levels / grange is a reciprocal times levels), the bf16 query tiles
+    within one bf16 step. D and C are cut to 16 and 64: neither shapes a
+    table."""
+    rng = np.random.default_rng(B + P)
+    D, C = 16, 64
+    pids = np.stack([rng.choice(P, M, replace=False) for _ in range(B)]).astype(np.int32)
+    if n_bud:
+        depth = rng.integers(1, M + 1, B)
+        pids[np.arange(M)[None, :] >= depth[:, None]] = -1
+        assert int((pids >= 0).sum()) <= n_bud < B * M
+    codes = rng.standard_normal((P, C, D)).astype(np.float32)
+    sizes = rng.integers(0, C + 1, P).astype(np.int32)
+    norms = (codes * codes).sum(-1) * (np.arange(C)[None, :] < sizes[:, None])
+    q = (rng.standard_normal((B, D)) * 3.0).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    got = group_tables_plain(_t(codes).to(tdt), _t(sizes), _t(norms), _t(q), _t(pids), metric,
+                             64, 4, packed_params(C)[1], "analytic", n_bud)
+    want = _jax_prologue(jnp.asarray(codes).astype(getattr(jnp, dtype)), jnp.asarray(sizes),
+                         jnp.asarray(norms), jnp.asarray(q), jnp.asarray(pids), metric, 64, 4,
+                         n_bud)
+    for key in ("gp", "group_size", "tgt"):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]))
+    for key in ("gmin", "ginv", "normsT"):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), rtol=1e-6)
+    np.testing.assert_allclose(got["qg"].float().numpy(), np.asarray(want["qg"]).astype(np.float32),
+                               rtol=1e-6 if dtype == "float32" else 2.0 ** -7)
 
 
 @pytest.mark.parametrize("poolp,kfin", [(128, 10), (256, 10), (384, 20), (90, 10), (200, 10)])
