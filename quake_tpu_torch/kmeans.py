@@ -137,7 +137,7 @@ def kmeans_np(x, ids, n_clusters: int, metric: str = "l2", niter: int = 5, seed:
 
 
 def balance_clusters(x, centroids, assignments, cap: int, max_rounds: int = 12,
-                     seed: int = 0):
+                     seed: int = 0, metric: str = "l2"):
     """Split oversized clusters until every cluster has <= cap members.
 
     The padded store's slab capacity C is set by the LARGEST partition, and
@@ -146,6 +146,13 @@ def balance_clusters(x, centroids, assignments, cap: int, max_rounds: int = 12,
     tolerates imbalance (per-partition heap buffers); here we bound it at
     build time with recursive 2-way splits (the same operation its
     maintenance uses for hot partitions, partition_manager.cpp:393-445).
+
+    Each split runs kmeans_np at the build's `metric`, so an ip build's
+    split centroids stay unit-norm, as the reference's k-means normalizes
+    them for IP (clustering.cpp:25-26); the JAX package splits at l2 whatever
+    the metric (a deliberate deviation, ROADMAP.md Queue 3). A round takes
+    every oversized cluster's members, in ascending order as np.where gives
+    them, from one stable argsort of the assignments.
 
     x: [n, d] np; centroids: [nlist, d]; assignments: [n] int.
     Returns (centroids, assignments) with possibly more clusters.
@@ -159,11 +166,13 @@ def balance_clusters(x, centroids, assignments, cap: int, max_rounds: int = 12,
         oversized = np.where(counts > cap)[0]
         if len(oversized) == 0:
             break
+        order = np.argsort(assignments, kind="stable")
+        starts = np.cumsum(counts) - counts
         new_cents = []
         for c in oversized:
-            members = np.where(assignments == c)[0]
+            members = order[starts[c]:starts[c] + counts[c]]
             sub_cents, clusters = kmeans_np(
-                x[members], members, 2, niter=4, seed=seed + int(c)
+                x[members], members, 2, metric=metric, niter=4, seed=seed + int(c)
             )
             # Guard: degenerate split (all points identical) — leave as-is.
             if len(clusters[0][1]) == 0 or len(clusters[1][1]) == 0:

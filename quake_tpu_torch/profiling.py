@@ -7,6 +7,14 @@ clock of the device events in the same trace; otherwise it is one check
 and a shared no-op context. The port's spans are named
 ``quake.<layer>[.<stage>]`` and nest on one thread:
 
+  quake.build                   QuakeIndex.build (the top level's), around its
+                                stages:
+    quake.build.kmeans          k-means training and the full assignment
+    quake.build.balance         the split rounds of kmeans.balance_clusters
+    quake.build.fill            the partition store filled (SOAR's second
+                                assignment first, on a spilled build)
+    quake.build.parent          the parent index over the centroids
+    quake.build.calibrate       calibrate_aps, ending in a sync on a card
   quake.search                  QuakeIndex.search, around its four phases:
     quake.buffer_init, quake.dispatch, quake.device_wait, quake.aggregate
   quake.plan.parent             parent ranking (K3) and the self-heal (the

@@ -23,6 +23,11 @@ class BuildTimingInfo:
     train_time_us: int = 0
     assign_time_us: int = 0
     total_time_us: int = 0
+    # Not in the JAX package: of train_time_us, the balancing's split rounds
+    # (kmeans.balance_clusters); and the APS calibration (calibrate_aps),
+    # ending in a sync on a card. 0 where the build skips the stage.
+    balance_time_us: int = 0
+    calibrate_time_us: int = 0
 
 
 @dataclass

@@ -187,6 +187,34 @@ def test_aps_answers_equal_with_and_without_tracing(tmp_path, mode):
                                   off.timing_info.scanned_per_query)
 
 
+BUILD_STAGES = ("quake.build.kmeans", "quake.build.balance", "quake.build.fill",
+                "quake.build.parent", "quake.build.calibrate")
+
+
+def test_build_spans_and_counters(tmp_path):
+    """A traced build with calibration: quake.build and its five stages
+    once each (the parent's own build opens none), the stages inside
+    quake.build, and the build's timing counters filled: the balancing's
+    share of train_time_us and the calibration's time."""
+    x = np.random.default_rng(4).standard_normal((10000, 8)).astype(np.float32)
+    idx = QuakeIndex(device="cpu")
+    with device_trace(str(tmp_path)):
+        t = idx.build(x, None, IndexBuildParams(nlist=16, niter=4))
+    table = last_spans()
+    _sound(table)
+    assert table["quake.build"]["calls"] == 1
+    for name in BUILD_STAGES:
+        assert table[name]["calls"] == 1, name
+    stages = sum(table[n]["host_ms"] for n in BUILD_STAGES)
+    assert stages <= table["quake.build"]["host_ms"] + 1e-6
+    assert table["quake.build"]["self_ms"] == pytest.approx(
+        table["quake.build"]["host_ms"] - stages, abs=1e-6)
+    assert idx.aps_radius_ab is not None
+    assert 0 < t.balance_time_us <= t.train_time_us
+    assert 0 < t.calibrate_time_us < t.total_time_us
+    assert t.train_time_us + t.assign_time_us + t.calibrate_time_us <= t.total_time_us
+
+
 def test_no_record_function_without_a_profiler(monkeypatch):
     """With no profiler recording, a span is a shared no-op: search, add,
     remove and maintenance never reach record_function."""
